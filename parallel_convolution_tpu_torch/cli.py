@@ -1,0 +1,182 @@
+"""Command-line entry point of the PyTorch port
+(``python -m parallel_convolution_tpu_torch``).
+
+Mirrors the JAX package's ``pconv-tpu`` vocabulary — ``image path, rows,
+cols, loops, grey|rgb`` — for the subcommands this slice ports:
+
+  run       filter a raw image on the card (the parallel main())
+  serial    the same through the NumPy oracle (the golden path)
+  generate  write a deterministic test image
+  compare   byte-compare two raw images
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+
+def _add_image_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("image", help="input .raw image path")
+    p.add_argument("rows", type=int)
+    p.add_argument("cols", type=int)
+    p.add_argument("loops", type=int)
+    p.add_argument("mode", choices=["grey", "rgb"])
+
+
+def _parse_tile(spec: str | None):
+    if not spec:
+        return None
+    tile = tuple(int(v) for v in spec.split(","))
+    if len(tile) != 2 or min(tile) <= 0:
+        raise ValueError(f"--tile must be TH,TW positive ints, got {spec!r}")
+    return tile
+
+
+def _resolve_perf_knobs(args, grid) -> None:
+    """Fill backend/storage/fuse left unset (None = not passed).
+
+    ``--fast`` on the card fills them with the flagship family: cuda_sep,
+    bf16 carries, fuse 32 (clamped so blocks stay >= radius·fuse).  On the
+    CPU the plain versions run anyway, so ``--fast`` leaves the defaults.
+    Explicit flags always win; every combination gives the same bytes.
+    """
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+
+    if args.fast and grid.device.type == "cuda":
+        if args.backend is None:
+            args.backend = "cuda_sep"
+        if args.storage is None:
+            args.storage = "bf16"
+        if args.fuse is None:
+            block = min(-(-args.rows // grid.rows), -(-args.cols // grid.cols))
+            r = get_filter(args.filter_name).radius
+            args.fuse = max(1, min(32, block // max(1, r)))
+        print(f"# --fast resolved: backend={args.backend} "
+              f"storage={args.storage} fuse={args.fuse}", file=sys.stderr)
+    if args.backend is None:
+        args.backend = "shifted"
+    if args.storage is None:
+        args.storage = "f32"
+    if args.fuse is None:
+        args.fuse = 1
+
+
+def main(argv: list[str] | None = None) -> int:
+    from parallel_convolution_tpu_torch.utils.config import (
+        BACKENDS, BOUNDARIES, STORAGES,
+    )
+
+    ap = argparse.ArgumentParser(prog="python -m parallel_convolution_tpu_torch",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    run = sub.add_parser("run", help="iterate a filter over a raw image")
+    _add_image_args(run)
+    run.add_argument("-o", "--output", required=True)
+    run.add_argument("--filter", default="blur3", dest="filter_name")
+    run.add_argument("--backend", default=None, choices=list(BACKENDS),
+                     help="correlate implementation (default: shifted); "
+                          "cuda / cuda_sep are the CUDA kernels (the JAX "
+                          "package's pallas / pallas_sep)")
+    run.add_argument("--storage", default=None, choices=list(STORAGES),
+                     help="iteration-carry dtype (default: f32)")
+    run.add_argument("--fuse", type=int, default=None, metavar="T",
+                     help="iterations per halo exchange (default 1)")
+    run.add_argument("--tile", default=None, metavar="TH,TW",
+                     help="output tile of the CUDA kernels (same bytes "
+                          "for any tile)")
+    run.add_argument("--boundary", default="zero", choices=list(BOUNDARIES))
+    run.add_argument("--mesh", default=None, metavar="RxC",
+                     help="block grid (default 1x1); all blocks live on "
+                          "the one device")
+    run.add_argument("--device", default=None,
+                     help="cuda (default) or cpu; without CUDA the "
+                          "default raises")
+    run.add_argument("--fast", action="store_true",
+                     help="on the card, fill unset --backend/--storage/"
+                          "--fuse with cuda_sep / bf16 / 32")
+
+    ser = sub.add_parser("serial", help="serial NumPy oracle (golden path)")
+    _add_image_args(ser)
+    ser.add_argument("-o", "--output", required=True)
+    ser.add_argument("--filter", default="blur3", dest="filter_name")
+
+    gen = sub.add_parser("generate", help="write a deterministic test image")
+    gen.add_argument("output")
+    gen.add_argument("rows", type=int)
+    gen.add_argument("cols", type=int)
+    gen.add_argument("mode", choices=["grey", "rgb"])
+    gen.add_argument("--seed", type=int, default=0)
+
+    cmp_ = sub.add_parser("compare", help="byte-compare two raw images")
+    cmp_.add_argument("a")
+    cmp_.add_argument("b")
+
+    args = ap.parse_args(argv)
+
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    if args.cmd == "generate":
+        img = imageio.generate_test_image(args.rows, args.cols, args.mode,
+                                          seed=args.seed)
+        imageio.write_raw(args.output, img)
+        print(f"wrote {args.output}: {args.rows}x{args.cols} {args.mode}")
+        return 0
+
+    if args.cmd == "compare":
+        a = np.fromfile(args.a, dtype=np.uint8)
+        b = np.fromfile(args.b, dtype=np.uint8)
+        if a.shape == b.shape and np.array_equal(a, b):
+            print("identical")
+            return 0
+        if a.shape != b.shape:
+            print(f"size mismatch: {a.size} vs {b.size} bytes")
+        else:
+            n = int((a != b).sum())
+            print(f"differ: {n} bytes ({100.0 * n / a.size:.4f}%), max delta "
+                  f"{int(np.abs(a.astype(int) - b.astype(int)).max())}")
+        return 1
+
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+
+    if args.cmd == "serial":
+        from parallel_convolution_tpu_torch.ops import oracle
+
+        img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
+        out = oracle.run_serial_u8(img, get_filter(args.filter_name),
+                                   args.loops)
+        imageio.write_raw(args.output, out)
+        print(f"serial[oracle]: {args.loops} x {args.filter_name} "
+              f"-> {args.output}")
+        return 0
+
+    # run
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.parallel.mesh import grid_from_spec
+    from parallel_convolution_tpu_torch.utils.platform import device_kind
+
+    try:
+        tile = _parse_tile(args.tile)
+        grid = grid_from_spec(args.mesh, args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    _resolve_perf_knobs(args, grid)
+    model = ConvolutionModel(filt=args.filter_name, grid=grid,
+                             backend=args.backend, storage=args.storage,
+                             fuse=args.fuse, boundary=args.boundary,
+                             tile=tile)
+    model.run_raw_file(args.image, args.output, args.rows, args.cols,
+                       args.mode, args.loops)
+    print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
+          f"grid ({args.backend}, {args.storage}, fuse {args.fuse}, "
+          f"{device_kind(grid.device)}) -> {args.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""The flagship model of the PyTorch port: iterative image convolution end
+to end (the JAX package's ``models/pipeline.py``) — read a raw image,
+decompose it over the block grid, iterate the stencil with halo exchange,
+write the raw output."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
+from parallel_convolution_tpu_torch.parallel import step as step_lib
+from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
+from parallel_convolution_tpu_torch.utils import imageio
+from parallel_convolution_tpu_torch.utils.config import (
+    check_backend, check_pending, check_run_config,
+)
+
+
+class ConvolutionModel(nn.Module):
+    """Iterative stencil filtering of grey/RGB images over a block grid.
+
+    Args:
+      filt: a :class:`Filter` or registry name (default: the reference's
+        blur kernel).  Its taps are the module's ``taps`` buffer.
+      grid: the block grid; default 1×1 on ``device``.
+      backend: ``shifted`` | ``separable`` | ``xla_conv`` (plain PyTorch) or
+        ``cuda`` | ``cuda_sep`` (the CUDA kernels; the JAX package's
+        ``pallas`` | ``pallas_sep``).
+      quantize: u8 store-back each iteration (image semantics); False =
+        float mode.
+      storage: carry dtype ``f32`` | ``bf16`` | ``u8``.
+      fuse: iterations per halo exchange (temporal fusion).
+      boundary: ``zero`` | ``periodic``.
+      tile: (rows, cols) output tile of the CUDA kernels; any tile gives
+        the same bytes.
+      device: ``None`` = the card (raises without CUDA); ``"cpu"`` runs the
+        plain versions on the CPU.
+    The JAX model's ``interior_split``, ``overlap``, ``col_mode`` and
+    ``fallback`` belong to later slices and raise ``NotImplementedError``
+    when set.
+    """
+
+    def __init__(self, filt: Filter | str = "blur3", grid: Grid | None = None,
+                 backend: str = "shifted", quantize: bool = True,
+                 storage: str = "f32", fuse: int = 1,
+                 boundary: str = "zero", tile=None, device=None,
+                 interior_split: bool = False, overlap: bool | None = None,
+                 col_mode: str | None = None, fallback: bool = False):
+        super().__init__()
+        check_backend(backend)
+        check_pending(interior_split=interior_split, overlap=overlap,
+                      col_mode=col_mode, fallback=fallback)
+        check_run_config(storage, boundary, quantize)
+        if fuse is None or int(fuse) < 1:
+            raise ValueError(f"fuse must be >= 1, got {fuse}")
+        filt = get_filter(filt) if isinstance(filt, str) else filt
+        if grid is None:
+            grid = make_grid(device=device)
+        elif device is not None and grid.device != torch.device(device):
+            raise ValueError(f"grid is on {grid.device}, device={device!r}")
+        self.grid = grid
+        self.backend, self.quantize, self.storage = backend, quantize, storage
+        self.fuse, self.boundary = int(fuse), boundary
+        self.tile = None if tile is None else tuple(int(v) for v in tile)
+        self.filter_name, self.dyadic = filt.name, filt.dyadic
+        self.register_buffer("taps", torch.as_tensor(filt.taps.copy(),
+                                                     device=grid.device))
+
+    @property
+    def filt(self) -> Filter:
+        """The filter the taps buffer holds."""
+        return Filter(self.filter_name, self.taps.detach().cpu().numpy(),
+                      self.dyadic)
+
+    # -- array-level API ----------------------------------------------------
+    def run_planar(self, x, iters: int) -> torch.Tensor:
+        """(C, H, W) in (numpy or tensor) → (C, H, W) f32 tensor on the
+        grid's device after ``iters`` iterations."""
+        return step_lib.sharded_iterate(
+            x, self.filt, iters, grid=self.grid, quantize=self.quantize,
+            backend=self.backend, storage=self.storage, fuse=self.fuse,
+            boundary=self.boundary, tile=self.tile)
+
+    forward = run_planar
+
+    # Images cross to and from the device as u8 (1 byte a value, not 4);
+    # the interleaved <-> planar layout change runs on the device.
+    def _planar(self, img: np.ndarray) -> torch.Tensor:
+        """uint8 (H, W[, C]) → planar (C, H, W) uint8 on the grid's device."""
+        x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.uint8))
+        x = x.to(self.grid.device)
+        return x[None] if x.dim() == 2 else x.permute(2, 0, 1).contiguous()
+
+    @staticmethod
+    def _interleaved(planar: torch.Tensor) -> np.ndarray:
+        """(C, H, W) result → uint8 (H, W[, C]) numpy, as the JAX model's
+        ``astype(uint8)`` (the quantized states are exact integers)."""
+        q = planar.to(torch.uint8)
+        q = q[0] if q.shape[0] == 1 else q.permute(1, 2, 0)
+        return q.contiguous().cpu().numpy()
+
+    def run_image(self, img: np.ndarray, iters: int) -> np.ndarray:
+        """uint8 (H, W[, 3]) in → uint8 out; the one-call user entry point."""
+        return self._interleaved(self.run_planar(self._planar(img), iters))
+
+    def run_images(self, imgs, iters: int) -> list[np.ndarray]:
+        """A batch of same-sized images in one run: channels are
+        independent, so the batch is more planes on the leading axis."""
+        planar = [self._planar(im) for im in imgs]
+        out = self.run_planar(torch.cat(planar, dim=0), iters)
+        return [self._interleaved(p)
+                for p in torch.split(out, [p.shape[0] for p in planar])]
+
+    # -- file-level API (the reference CLI contract) ------------------------
+    def run_raw_file(self, src: str, dst: str, rows: int, cols: int,
+                     mode: str, iters: int) -> None:
+        """raw file → raw file, the reference's ``main()`` end to end."""
+        img = imageio.read_raw(src, rows, cols, mode)
+        imageio.write_raw(dst, self.run_image(img, iters))

@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
+``build/torch_kernels/lib<name>.so`` at the root of the checkout, the first
+time it is needed, and loaded with ``ctypes`` (a plain C interface: the
+sources include no PyTorch header, so a build takes seconds).  A stamp file
+holds the hash of the source and flags; a changed source rebuilds.  Nothing
+here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+SOURCES = ("stencil",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F = ctypes.POINTER(ctypes.c_float)
+# C signatures (argtypes) of every entry point, by library.
+_SIGNATURES = {
+    "stencil": {
+        # in, in_dtype, out, out_dtype, C, Hp, Wp, H, W, taps, col, row,
+        # k, sep, quantize, convex, th, tw, stream
+        "pc_stencil_step": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _I, _I, _I, _I, _I, _I, _P],
+        # in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T, taps, col, row,
+        # k, sep, quantize, convex, off_r, off_c, mask, valid_h, valid_w,
+        # th, tw, stream
+        "pc_fused_iterate": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    },
+}
+
+
+def nvcc_path() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH, /usr/local/cuda/bin):"
+        " the port's CUDA kernels are built from csrc/ on the machine with "
+        "the card")
+
+
+def _paths(name: str) -> tuple[Path, Path, str]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}.so", digest
+
+
+def _is_fresh(lib: Path, digest: str) -> bool:
+    stamp = lib.with_suffix(".sha256")
+    return lib.is_file() and stamp.is_file() and stamp.read_text() == digest
+
+
+def build_all(names=SOURCES, ptxas_verbose: bool = False) -> dict:
+    """Compile every stale source, all ``nvcc`` processes started together.
+
+    Returns ``{name: {"seconds": s, "log": compiler stderr}}`` for the
+    sources it built (an up-to-date library is not rebuilt).  Raises
+    ``RuntimeError`` with the compiler's output when a build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        src, lib, digest = _paths(name)
+        if _is_fresh(lib, digest):
+            continue
+        tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS,
+               *(["-Xptxas", "-v"] if ptxas_verbose else []),
+               "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       tmp, lib, digest, time.perf_counter())
+    done = {}
+    for name, (proc, tmp, lib, digest, t0) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                               f"(exit {proc.returncode}):\n{out}{err}")
+        os.replace(tmp, lib)
+        lib.with_suffix(".sha256").write_text(digest)
+        done[name] = {"seconds": time.perf_counter() - t0, "log": err + out}
+    return done
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str = "stencil") -> ctypes.CDLL:
+    """Build (if stale) and load ``lib<name>.so`` with its C signatures."""
+    build_all((name,))
+    lib = ctypes.CDLL(str(_paths(name)[1]))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,290 @@
+"""The iteration driver of the PyTorch port (the JAX package's
+``parallel/step.py``): the reference's main loop,
+
+    for t in loops:
+        exchange halos
+        convolute(block)
+        swap(src, dst)
+
+over the grid's blocks.  ``fuse=T`` is temporal fusion: one T·r-deep halo
+exchange, then T levels on the block, each re-zeroing out-of-image
+positions so the result is bit-identical to T single steps.  Backends
+``cuda`` / ``cuda_sep`` run the levels through the CUDA kernels of
+``ops/stencil.py`` (K1 per level at fuse = 1, K2 for T levels at once);
+``shifted`` / ``separable`` / ``xla_conv`` are plain PyTorch.
+
+Non-divisible images are padded to the next block multiple and re-masked to
+zero every iteration, so outputs stay bit-identical to the serial oracle
+for any grid shape.  Run-to-convergence and the other entry points of the
+JAX module come with later slices (ROADMAP.md, "Port: still to port").
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+
+from parallel_convolution_tpu_torch.ops import conv, stencil
+from parallel_convolution_tpu_torch.ops.filters import Filter
+from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
+from parallel_convolution_tpu_torch.parallel.mesh import (
+    Grid, join_blocks, make_grid, padded_extent, split_blocks,
+)
+from parallel_convolution_tpu_torch.utils.config import (
+    BACKENDS, BOUNDARIES, STORAGES, check_backend, check_pending,
+    check_run_config, check_storage,
+)
+
+__all__ = ["STORAGE_DTYPES", "iterate_prepared", "sharded_iterate"]
+
+# Iteration-carry dtypes.  Quantized states are exact small integers, so
+# bf16 (exact for 0..255) and u8 carries lose nothing; accumulation is
+# always f32 inside the correlate implementations.
+STORAGE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                  "u8": torch.uint8}
+if tuple(STORAGE_DTYPES) != STORAGES:  # not assert: must survive python -O
+    raise RuntimeError(
+        f"storage registries drifted: {tuple(STORAGE_DTYPES)} != {STORAGES}")
+
+# The plain-PyTorch correlate implementations, keyed by backend name.
+_PLAIN_CORRELATES = {
+    "shifted": conv.correlate_padded,
+    "xla_conv": conv.correlate_padded_conv2d,
+    "separable": conv.correlate_padded_separable,
+}
+
+
+def _valid_mask(valid_hw, block_hw, index, margin: int = 0,
+                device=None) -> torch.Tensor:
+    """Validity mask of block ``index`` = (i, j), extended by ``margin`` on
+    every side, as (1, h+2m, w+2m) f32: 1 inside the global image, 0 beyond
+    its edge or in the pad-to-multiple rim."""
+    H, W = valid_hw
+    bh, bw = block_hw
+    i, j = index
+    m = margin
+    rows = i * bh - m + torch.arange(bh + 2 * m, device=device)
+    cols = j * bw - m + torch.arange(bw + 2 * m, device=device)
+    ok = (((rows >= 0) & (rows < H))[:, None]
+          & ((cols >= 0) & (cols < W))[None, :])
+    return ok[None].to(torch.float32)
+
+
+def _boundary_geometry(grid_hw, valid_hw, block_hw, boundary: str):
+    """Periodic divisibility, and whether the pad rim needs re-masking."""
+    periodic = boundary == "periodic"
+    divisible = (valid_hw[0] == block_hw[0] * grid_hw[0]
+                 and valid_hw[1] == block_hw[1] * grid_hw[1])
+    if periodic and not divisible:
+        raise ValueError(
+            "periodic boundary requires dimensions divisible by the grid: "
+            f"image {tuple(valid_hw)} on grid {tuple(grid_hw)}")
+    return periodic, not periodic and not divisible
+
+
+def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
+                     block_hw, quantize: bool, fuse: int = 1,
+                     boundary: str = "zero", tile=None):
+    """``fuse`` iterations on every block per halo exchange.
+
+    fuse = 1: exchange r-deep halos, one level, re-mask the pad rim.
+    fuse = T > 1: exchange T·r-deep halos once; ``cuda`` / ``cuda_sep`` run
+    the T levels in K2 (which masks per level), the plain backends run T
+    levels here, each re-masked on the shrinking extended block.
+    """
+    periodic, needs_mask = _boundary_geometry(grid.shape, valid_hw, block_hw,
+                                              boundary)
+    r = filt.radius
+    on_kernels = backend in ("cuda", "cuda_sep")
+    sep = backend == "cuda_sep"
+    masks: dict = {}
+
+    def mask(index, margin, dtype):
+        key = (index, margin, dtype)
+        if key not in masks:
+            masks[key] = _valid_mask(valid_hw, block_hw, index, margin,
+                                     grid.device).to(dtype)
+        return masks[key]
+
+    def correlate_level(p, out_dtype):
+        if on_kernels:
+            return stencil.stencil_step(p, filt, quantize=quantize,
+                                        out_dtype=out_dtype, separable=sep,
+                                        tile=tile)
+        out = _PLAIN_CORRELATES[backend](p, filt)
+        return conv.quantize_f32(out) if quantize else out
+
+    def step(blocks):
+        depth = r * fuse
+        padded = halo.halo_exchange(blocks, depth, grid.shape, boundary)
+        out = [[None] * grid.cols for _ in range(grid.rows)]
+        for i in range(grid.rows):
+            for j in range(grid.cols):
+                p, dtype = padded[i][j], blocks[i][j].dtype
+                if on_kernels and fuse > 1:
+                    # All T levels in K2: one device-memory round trip.
+                    out[i][j] = stencil.fused_iterate(
+                        p, (i * block_hw[0], j * block_hw[1]), filt, fuse,
+                        None if periodic else tuple(valid_hw),
+                        quantize=quantize, out_dtype=dtype, separable=sep,
+                        tile=tile)
+                    continue
+                for t in range(fuse):
+                    margin = depth - r * (t + 1)
+                    p = correlate_level(p, dtype)
+                    if not periodic and (needs_mask or margin > 0):
+                        p = p * mask((i, j), margin, p.dtype)
+                out[i][j] = p.to(dtype)
+        return out
+
+    return step
+
+
+def _register_smoother_forms() -> None:
+    for name in BACKENDS:
+        kernel_forms.register(kernel_forms.KernelForm(
+            name=name, rank=2, stencil_form="smooth",
+            boundaries=tuple(BOUNDARIES),
+            build=partial(_build_halo_step, name)))
+
+
+_register_smoother_forms()
+
+
+def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
+                     fuse=1, boundary="zero", tile=None):
+    form = kernel_forms.resolve(2, backend, boundary)
+    return form.build(filt, grid, valid_hw, block_hw, quantize, fuse,
+                      boundary, tile)
+
+
+def _check_block_size(filt: Filter, block_hw) -> None:
+    if min(block_hw) < filt.radius:
+        raise ValueError(
+            f"block {tuple(block_hw)} smaller than filter radius "
+            f"{filt.radius}; use a smaller grid for this image")
+
+
+def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
+                   valid_hw, block_hw, backend: str, fuse: int = 1,
+                   boundary: str = "zero", tile=None):
+    """The fixed-count runner for one configuration: ``iters // fuse``
+    fused chunks, then one tail chunk of the remaining ``iters % fuse``
+    levels."""
+    _check_block_size(filt, block_hw)
+    fuse = max(1, min(fuse, iters or 1))
+    if min(block_hw) < filt.radius * fuse:
+        raise ValueError(
+            f"fuse={fuse} needs blocks >= {filt.radius * fuse}, got "
+            f"{tuple(block_hw)}")
+    chunk = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
+                             backend, fuse, boundary, tile)
+    n_chunks, rem = divmod(iters, fuse)
+    tail = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
+                             backend, rem, boundary, tile)
+            if rem else None)
+
+    def run(blocks):
+        for _ in range(n_chunks):
+            blocks = chunk(blocks)
+        if tail is not None:
+            blocks = tail(blocks)
+        return blocks
+
+    return run
+
+
+def _check_quantize_contract(blocks, filt: Filter, quantize: bool) -> None:
+    """Fail loudly on out-of-contract quantize-mode inputs: convex filters
+    skip the store-back clip, so float values outside [0, 255] would
+    propagate unclipped instead of being clipped on the first store-back."""
+    if not (quantize and filt.convex):
+        return
+    if blocks[0][0].dtype == torch.uint8:
+        return
+    lo = min(float(b.min()) for row in blocks for b in row if b.numel())
+    hi = max(float(b.max()) for row in blocks for b in row if b.numel())
+    if lo < 0.0 or hi > 255.0:
+        raise ValueError(
+            f"quantize=True input has values in [{lo}, {hi}], outside the "
+            "u8 contract [0, 255]: convex filters elide the store-back "
+            "clamp, so out-of-range values would propagate unclamped. "
+            "Clamp the input (or use quantize=False for float planes).")
+
+
+def _prepare(x, grid: Grid, storage: str = "f32"):
+    """Move a global (C, H, W) image (numpy or tensor) to the grid's device
+    in the storage dtype, pad it to block multiples and cut the blocks.
+    Returns (blocks, valid_hw, block_hw)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    x = x.to(device=grid.device, dtype=STORAGE_DTYPES[storage])
+    if x.dim() != 3:
+        raise ValueError(f"expected a (C, H, W) image, got {tuple(x.shape)}")
+    _, H, W = x.shape
+    R, Cg = grid.shape
+    Hp, Wp = padded_extent(H, R), padded_extent(W, Cg)
+    if (Hp, Wp) != (H, W):
+        x = torch.nn.functional.pad(x, (0, Wp - W, 0, Hp - H))
+    return split_blocks(x, grid), (H, W), (Hp // R, Wp // Cg)
+
+
+def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
+                     quantize: bool = True, backend: str = "shifted",
+                     fuse: int | None = 1, boundary: str = "zero",
+                     tile=None, check_contract: bool = True,
+                     interior_split: bool = False, fallback: bool = False,
+                     overlap: bool | None = None, col_mode: str | None = None):
+    """Iterate the grid's prepared blocks (from :func:`_prepare`); returns
+    the blocks ``iters`` iterations later, still padded."""
+    check_backend(backend)
+    check_pending(interior_split=interior_split, fallback=fallback,
+                  overlap=overlap, col_mode=col_mode)
+    if blocks[0][0].dtype == torch.uint8:
+        check_storage("u8", quantize)
+    if check_contract:
+        _check_quantize_contract(blocks, filt, quantize)
+    block_hw = tuple(blocks[0][0].shape[1:])
+    fuse = 1 if fuse is None else int(fuse)
+    if fuse < 1:
+        raise ValueError(f"fuse must be >= 1, got {fuse}")
+    run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
+                         block_hw, backend, fuse, boundary,
+                         None if tile is None else tuple(tile))
+    return run(blocks)
+
+
+def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
+                    quantize: bool = True, backend: str = "shifted",
+                    storage: str = "f32", fuse: int | None = 1,
+                    boundary: str = "zero", tile=None,
+                    interior_split: bool = False, fallback: bool = False,
+                    overlap: bool | None = None, col_mode: str | None = None,
+                    device=None) -> torch.Tensor:
+    """Run ``iters`` stencil iterations of a global (C, H, W) image over the
+    grid.  Returns the global (C, H, W) float32 result on the grid's
+    device (bit-identical to the serial oracle in quantize mode for any
+    grid shape).
+
+    ``grid`` defaults to 1×1 on ``device`` (default: the card — it raises
+    without CUDA; tests pass ``device='cpu'``).  ``storage`` is the carry
+    dtype; ``tile`` = (rows, cols) overrides the CUDA kernels' output tile.
+    ``quantize=True`` assumes u8-range input and raises on values outside
+    [0, 255] for convex filters.
+    """
+    check_backend(backend)
+    check_pending(interior_split=interior_split, fallback=fallback,
+                  overlap=overlap, col_mode=col_mode)
+    if grid is None:
+        grid = make_grid(device=device)
+    elif device is not None and grid.device != torch.device(device):
+        raise ValueError(f"grid is on {grid.device}, device={device!r}")
+    check_run_config(storage, boundary, quantize)
+    blocks, valid_hw, _ = _prepare(x, grid, storage)
+    out = iterate_prepared(blocks, filt, iters, grid, valid_hw,
+                           quantize=quantize, backend=backend, fuse=fuse,
+                           boundary=boundary, tile=tile)
+    full = join_blocks(out)
+    return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)

@@ -1,0 +1,91 @@
+"""Canonical name registries of the PyTorch port.
+
+The port keeps the JAX package's backend names where the implementation is
+plain tensor code and renames the two that were Pallas TPU kernels to the
+hand-written CUDA kernels that replace them, one to one:
+
+    JAX package      port
+    -----------      ----
+    shifted          shifted     (fixed-order tap loop, PyTorch ops)
+    separable        separable   (rank-1 two-pass tap loop, PyTorch ops)
+    xla_conv         xla_conv    (F.conv2d, TF32 off)
+    pallas           cuda        (K1 stencil_step / K2 fused_iterate)
+    pallas_sep       cuda_sep    (the same kernels, separable tap order)
+
+Everything the JAX package offers beyond this slice raises
+``NotImplementedError`` naming its item in ROADMAP.md ("Port: still to
+port"), never silently ignored.
+"""
+
+from __future__ import annotations
+
+BACKENDS = ("shifted", "xla_conv", "cuda", "separable", "cuda_sep")
+STORAGES = ("f32", "bf16", "u8")
+BOUNDARIES = ("zero", "periodic")
+
+# The JAX package's backend name -> the port's.
+BACKEND_FROM_REFERENCE = {
+    "shifted": "shifted",
+    "xla_conv": "xla_conv",
+    "separable": "separable",
+    "pallas": "cuda",
+    "pallas_sep": "cuda_sep",
+}
+
+# Backends of the JAX package that later slices port.
+PENDING_BACKENDS = {
+    "auto": "item 3 (auto / fallback)",
+    "pallas_rdma": "item 10 (multi-GPU grid and the remote-DMA kernels)",
+}
+
+# Knobs of the JAX entry points that later slices port: name -> ROADMAP item.
+PENDING_KNOBS = {
+    "interior_split": "item 2 (interior_split)",
+    "fallback": "item 3 (auto / fallback)",
+    "overlap": "item 10 (multi-GPU grid and the remote-DMA kernels)",
+    "col_mode": "item 10 (multi-GPU grid and the remote-DMA kernels)",
+}
+
+
+def pending(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: see ROADMAP.md 'Port: still to port', "
+        f"{item}")
+
+
+def check_backend(backend: str) -> None:
+    """Raise on a backend this slice does not have."""
+    if backend in PENDING_BACKENDS:
+        raise pending(f"backend {backend!r}", PENDING_BACKENDS[backend])
+    if backend not in BACKENDS:
+        hint = BACKEND_FROM_REFERENCE.get(backend)
+        raise ValueError(
+            f"unknown backend {backend!r}; available: {BACKENDS}"
+            + (f" (the JAX package's {backend!r} is {hint!r} here)"
+               if hint else ""))
+
+
+def check_pending(**knobs) -> None:
+    """Raise ``NotImplementedError`` for any requested knob of a later
+    slice (a knob is requested when it is truthy and not None)."""
+    for name, value in knobs.items():
+        if value:
+            raise pending(f"{name}={value!r}", PENDING_KNOBS[name])
+
+
+def check_storage(storage: str, quantize: bool) -> None:
+    if storage == "u8" and not quantize:
+        raise ValueError(
+            "storage='u8' requires quantize=True: u8 carries can only hold "
+            "the quantized integer states; a float iterate would be "
+            "silently truncated every iteration")
+
+
+def check_run_config(storage: str, boundary: str, quantize: bool) -> None:
+    if storage not in STORAGES:
+        raise ValueError(
+            f"storage must be one of {STORAGES}, got {storage!r}")
+    if boundary not in BOUNDARIES:
+        raise ValueError(
+            f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
+    check_storage(storage, quantize)

@@ -1,0 +1,38 @@
+"""Device resolution: the port runs on the card unless the caller asks for
+the CPU, and never falls back quietly."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the current CUDA device; ``"cpu"`` / ``"cuda[:N]"`` /
+    a ``torch.device`` as given.  Raises when CUDA is asked for (or
+    defaulted to) and is not available."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: the port runs on the card by "
+                "default. Pass device='cpu' (CLI: --device cpu) to run the "
+                "plain PyTorch versions on the CPU.")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} asked for but CUDA is not available; "
+                "pass device='cpu' to run on the CPU.")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cpu or cuda, got {str(dev)!r}")
+    return dev
+
+
+def device_kind(device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or ``"cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type

@@ -14,21 +14,29 @@ Phases (any failure exits non-zero and prints no result line):
    blur3 / gaussian5 / edge5 / sharpen3, storage f32 / bf16 / u8, quantize
    on and off, separable on and off, T in {1, 2, 8, 32}, zero and periodic
    boundaries, odd shapes with a ragged last tile, and the main path's own
-   shapes.  Quantize mode must be byte-equal; float mode within
-   ``stencil.float_tolerance`` (the kernels round once per tap as an FMA,
-   the plain versions twice);
-4. the main path at full size, 100 iterations each, through the user entry
-   points, with the launch counters set to 0 just before each run and read
-   just after: ``ConvolutionModel`` (cuda_sep / bf16 / fuse 32, and cuda /
-   f32 / fuse 1) on a 1920x2520 RGB image, and the ``run`` CLI with
-   ``--fast`` on 1920x2520 grey blur3 and 8192x8192 grey edge5.  Each must
-   be byte-equal to the plain ``shifted`` path run on the card, and a
-   3-iteration run must equal the NumPy oracle;
+   shapes; K3 / K4 on grids 1x1, 2x2, 1x4 (periodic self-wrap) and 4x1,
+   T in {1, 3} and a 32-level chunk split into level groups.  Quantize mode
+   must be byte-equal; float mode within ``stencil.float_tolerance`` (the
+   kernels round once per tap as an FMA, the plain versions twice);
+4. the main paths at full size, 100 iterations each, through the user
+   entry points, with the launch counters set to 0 just before each run
+   and read just after: ``ConvolutionModel`` (cuda_sep / bf16 / fuse 32,
+   and cuda / f32 / fuse 1) on a 1920x2520 RGB image, the ``run`` CLI with
+   ``--fast`` on 1920x2520 grey blur3 and 8192x8192 grey edge5, and the
+   ``cuda_rdma`` backend: ``ConvolutionModel`` on the RGB image at a 2x2
+   grid (bf16, fuse 32; beside it ``cuda`` at the same grid), the CLI
+   ``--backend cuda_rdma --mesh 4x4 --fast`` on the 8192x8192 edge5 image,
+   and ``ConvolutionModel`` on the grey 1920x2520 image at a 16x16 grid
+   (u8, fuse 8).  Each must be byte-equal to the plain ``shifted`` path run
+   on the card, and a 3-iteration run must equal the NumPy oracle; the
+   ``cuda_rdma`` paths must never call the halo exchange;
 5. times with CUDA events after a warm-up: each kernel at the main path's
-   shapes, its plain version, ``F.conv2d`` (TF32 off) as K1's one-call
-   yardstick, each kernel's bound, and end-to-end Gpx/s of each path's
-   counted first run, of a second (warm) run, and of the model on an image
-   already on the card (the host's share of the time is the difference);
+   shapes (K3 / K4 as the launch alone, its arguments bound once, and as
+   the whole wrapper call), its plain version, ``F.conv2d`` (TF32 off) as the one-call
+   yardstick of K1 and of K3 / K4 at T = 1, each kernel's bound, and
+   end-to-end Gpx/s of each path's counted first run, of a second (warm)
+   run, and of the model on an image already on the card (the host's share
+   of the time is the difference);
 6. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -50,11 +58,20 @@ ITERS = 100
 RGB_HW = (1920, 2520)      # BASELINE configs 1-2
 BIG_HW = (8192, 8192)      # BASELINE config 3
 ORACLE_CROP = 1024         # the oracle's 3-iteration check crops above this
+GREY_GRID = (16, 16)       # the reference program's split at 256 ranks
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
+    "rdma_block": "parallel_convolution_tpu/ops/pallas_rdma.py:1226",
+    "rdma_tiled": "parallel_convolution_tpu/ops/pallas_rdma.py:1316",
 }
-SOURCE = "parallel_convolution_tpu_torch/csrc/stencil.cu"
+KERNELS = tuple(REPLACES)
+SOURCES = {
+    "stencil_step": "parallel_convolution_tpu_torch/csrc/stencil.cu",
+    "fused_iterate": "parallel_convolution_tpu_torch/csrc/stencil.cu",
+    "rdma_block": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "rdma_tiled": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+}
 
 
 class SmokeFailure(Exception):
@@ -172,6 +189,105 @@ def check_kernels(dev) -> dict:
     return worst
 
 
+def check_rdma_kernels(dev) -> dict:
+    """K3 and K4 (one launch each) against the plain version (halo exchange
+    plus K2's plain levels), and a 32-level chunk through
+    ``fused_rdma_step``: K3 whole at r = 1, K4 then K2 in level groups at
+    r = 2."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "u8": torch.uint8}
+    modes = [("f32", True), ("bf16", True), ("u8", True), ("f32", False),
+             ("bf16", False)]
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+
+    def blocks_of(grid_shape, bhw, storage, channels=2):
+        R, Cg = grid_shape
+        x = torch.randint(0, 256, (channels, R * bhw[0], Cg * bhw[1]),
+                          generator=gen).to(torch.float32)
+        return mesh.split_blocks(x.to(device=dev, dtype=dtypes[storage]),
+                                 mesh.Grid(R, Cg, dev))
+
+    n, worst = 0, {"rdma_block": 0.0, "rdma_tiled": 0.0}
+    bhw = (23, 37)
+    for grid_shape, boundary in (((1, 1), "zero"), ((2, 2), "zero"),
+                                 ((1, 4), "periodic"), ((4, 1), "zero"),
+                                 ((2, 2), "periodic")):
+        R, Cg = grid_shape
+        # Zero boundary: an image a little smaller than the padded grid, so
+        # the pad-to-multiple rim is masked too.
+        valids = ([None] if boundary == "periodic"
+                  else [(R * bhw[0] - 2, Cg * bhw[1] - 3), None])
+        for name in ("blur3", "gaussian5", "edge5"):
+            f = get_filter(name)
+            for storage, quantize in modes:
+                blocks = blocks_of(grid_shape, bhw, storage)
+                kw = dict(quantize=quantize, out_dtype=dtypes[storage])
+                for T in (1, 3):
+                    if not quantize and not f.convex and T > 2:
+                        continue  # float mode grows by L1(taps) per level
+                    for valid in valids if T == 1 else valids[:1]:
+                        want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+                            blocks, f, grid_shape, boundary, fuse=T,
+                            valid_hw=valid, **kw))
+                        for kind, launch, extra in (
+                                ("rdma_block", rdma.rdma_block, {}),
+                                ("rdma_tiled", rdma.rdma_tiled,
+                                 {"tile": (8, 16)})):
+                            got = mesh.join_blocks(rdma.unstack_blocks(launch(
+                                rdma.stack_blocks(blocks, grid_shape), f,
+                                grid_shape, boundary, T, valid, **kw, **extra),
+                                grid_shape))
+                            ok, err = agree(got, want, f, T, quantize)
+                            check(ok, f"{kind} {name} {storage} q={quantize} "
+                                      f"grid {grid_shape} {boundary} T={T} "
+                                      f"valid {valid}: max abs err {err}")
+                            worst[kind] = max(worst[kind], err)
+                            n += 1
+    # 32 levels in one chunk: K3 whole (r = 1, 100 x 100 blocks fit), and
+    # K4 for 16 levels then K2 for 16 (r = 2, 64 x 70 blocks do not).
+    for name, bhw, groups in (("blur3", (100, 100), 1), ("edge5", (64, 70), 2),
+                              ("gaussian5", (64, 70), 2)):
+        f = get_filter(name)
+        for storage in ("bf16", "u8"):
+            blocks = blocks_of((2, 2), bhw, storage, channels=1)
+            valid = (2 * bhw[0] - 1, 2 * bhw[1] - 5)
+            plan = rdma.rdma_plan(f.radius, 32, bhw)
+            check(len(plan.groups) == groups, f"rdma_plan {name}: {plan}")
+            stencil_counts = _counts()
+            got = mesh.join_blocks(rdma.fused_rdma_step(
+                blocks, f, (2, 2), "zero", fuse=32, valid_hw=valid))
+            delta = {k: v - stencil_counts[k] for k, v in _counts().items()}
+            want_counts = {"rdma_block": int(plan.kernel == "block"),
+                           "rdma_tiled": int(plan.kernel == "tiled"),
+                           "fused_iterate": 4 * (groups - 1),
+                           "stencil_step": 0}
+            check(delta == want_counts,
+                  f"fused_rdma_step {name} T=32 launched {delta}, expected "
+                  f"{want_counts}")
+            want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+                blocks, f, (2, 2), "zero", fuse=32, valid_hw=valid))
+            ok, err = agree(got, want, f, 32, True)
+            check(ok, f"fused_rdma_step {name} {storage} T=32 ({plan}): max "
+                      f"abs err {err}")
+            n += 1
+    torch.cuda.synchronize()
+    print(f"rdma kernel checks: {n} cases agree (quantize mode byte-equal; "
+          f"float mode within stencil.float_tolerance, max abs err "
+          f"K3 {worst['rdma_block']:.3g}, K4 {worst['rdma_tiled']:.3g})")
+    return worst
+
+
+def _counts() -> dict:
+    from parallel_convolution_tpu_torch.ops import stencil
+
+    return stencil.launch_counts()
+
+
 # ---------------------------------------------------------------------------
 # Main-path shapes: inputs, checks, times and bounds
 # ---------------------------------------------------------------------------
@@ -272,6 +388,93 @@ def time_fused(img, filt, storage, T, sep, dev) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+def time_rdma(kind, img, filt, storage, grid_shape, T, dev) -> dict:
+    """K3 (``kind`` rdma_block) or K4 (rdma_tiled) as a fuse=T chunk of the
+    ``cuda_rdma`` backend calls it on the image's blocks, one launch for
+    the grid.  At T = 1 its one-call yardstick is ``F.conv2d`` (TF32 off)
+    on the joined f32 image with zero padding; deeper chunks have none."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    planar = imageio.interleaved_to_planar(img)
+    blocks = convert.blocks_from_numpy(planar, mesh.make_grid(grid_shape, dev),
+                                       storage)
+    valid = planar.shape[1:]
+    x = rdma.stack_blocks(blocks, grid_shape)
+    launch = rdma.rdma_block if kind == "rdma_block" else rdma.rdma_tiled
+    call = lambda: launch(x, filt, grid_shape, "zero", T, valid)
+    plain = lambda: rdma.fused_rdma_step_plain(blocks, filt, grid_shape,
+                                               "zero", fuse=T, valid_hw=valid)
+    got = mesh.join_blocks(rdma.unstack_blocks(call(), grid_shape))
+    want = mesh.join_blocks(plain())
+    ok, err = agree(got, want, filt, T, True)
+    check(ok, f"{kind} at the main path's blocks {grid_shape} x "
+              f"{tuple(blocks[0][0].shape)} T={T}: err {err}")
+    # ms: the launch alone, its arguments bound once (the kernel's own
+    # time); call_ms: the whole wrapper call as the path makes it, with
+    # its checks, pointer table and output allocation.
+    tile = stencil.FUSED_TILE if kind == "rdma_tiled" else None
+    fire, _ = rdma._bind(kind == "rdma_tiled", x, filt, grid_shape, "zero",
+                         T, valid, True, None, 0, tile)
+    ms = cuda_ms(fire, reps=50 if T == 1 else 20)
+    call_ms = cuda_ms(call, reps=20 if T == 1 else 10)
+    plain_ms = cuda_ms(plain, reps=2, warmup=1)
+    lib_ms = None
+    r = filt.radius
+    if T == 1:
+        torch.backends.cudnn.allow_tf32 = False
+        taps = torch.as_tensor(filt.taps, device=dev)[None, None]
+        full = mesh.join_blocks(blocks).to(torch.float32)[:, None]
+        lib_ms = cuda_ms(lambda: F.conv2d(full, taps, padding=r), reps=20)
+    nb, C, h, w = x.shape
+    # The function needs T levels over every block and nothing more: the
+    # ghost ring is its neighbours' own pixels, so the rim the kernels
+    # recompute and their masks are not counted.
+    ops = nb * C * T * level_ops(filt, False, h, w, True, False)
+    nbytes = 2 * got.numel() * got.element_size()  # each block in once, out once
+    b_ms, b_by = bound(nbytes, ops)
+    return dict(grid=list(grid_shape), block=[C, h, w], dtype=str(got.dtype),
+                T=T, max_abs_err=err, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def time_rdma_chunk(img, filt, storage, grid_shape, T, dev) -> dict:
+    """One whole ``cuda_rdma`` chunk (``fused_rdma_step``) where its levels
+    split into groups: K3 / K4 for the first, then K2 per block."""
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    planar = imageio.interleaved_to_planar(img)
+    blocks = convert.blocks_from_numpy(planar, mesh.make_grid(grid_shape, dev),
+                                       storage)
+    x = rdma.stack_blocks(blocks, grid_shape)
+    kw = dict(fuse=T, valid_hw=planar.shape[1:])
+    chunk = lambda: rdma.fused_rdma_stacked(x, filt, grid_shape, "zero", **kw)
+    before = _counts()
+    got = mesh.join_blocks(rdma.unstack_blocks(chunk(), grid_shape))
+    per_call = {k: v - before[k] for k, v in _counts().items()}
+    want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+        blocks, filt, grid_shape, "zero", **kw))
+    ok, err = agree(got, want, filt, T, True)
+    check(ok, f"fused_rdma_step at {grid_shape} x {tuple(blocks[0][0].shape)}"
+              f" T={T}: err {err}")
+    return dict(grid=list(grid_shape), block=list(blocks[0][0].shape), T=T,
+                plan=rdma.rdma_plan(filt.radius, T,
+                                    tuple(blocks[0][0].shape[1:]))._asdict(),
+                launches_per_call=per_call, max_abs_err=err,
+                ms=cuda_ms(chunk, reps=5),
+                plain_ms=cuda_ms(lambda: rdma.fused_rdma_step_plain(
+                    blocks, filt, grid_shape, "zero", **kw), reps=1, warmup=1))
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -289,18 +492,25 @@ def host_seconds(fn) -> tuple[object, float]:
     return out, time.perf_counter() - t0
 
 
-def drive(label, fn, expect: dict, pixels: int) -> tuple[object, dict, float]:
+def drive(label, fn, expect: dict, pixels: int,
+          no_halo: bool = False) -> tuple[object, dict, float]:
     """Run one main-path entry point with the counters zeroed just before
-    and read just after; check the expected launch counts."""
+    and read just after; check the expected launch counts and, with
+    ``no_halo``, that the halo exchange was never called."""
     from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.parallel import halo
 
     stencil.reset_launch_counts()
+    halo.halo_exchange.calls = 0
     out, secs = host_seconds(fn)
     counts = stencil.launch_counts()
+    calls = halo.halo_exchange.calls
     for name, want in expect.items():
         check(counts[name] == want,
               f"{label}: {name} launched {counts[name]} times, expected {want}")
     check(any(counts.values()), f"{label}: no kernel launched")
+    check(not no_halo or calls == 0,
+          f"{label}: the halo exchange was called {calls} times")
     print(f"main path {label}: launches {counts}, {secs:.4f} s, "
           f"{pixels * ITERS / secs / 1e9:.3f} Gpx/s end to end")
     return out, counts, secs
@@ -311,12 +521,29 @@ def expected_launches(filt, fuse: int, hw) -> dict:
     fused chunk (one per level group), K1 per single-level step."""
     from parallel_convolution_tpu_torch.ops import stencil
 
+    none = {"rdma_block": 0, "rdma_tiled": 0}
     if fuse == 1:
-        return {"stencil_step": ITERS, "fused_iterate": 0}
+        return {"stencil_step": ITERS, "fused_iterate": 0, **none}
     n_chunks, rem = divmod(ITERS, fuse)
     per = lambda T: len(stencil.fused_plan(filt.radius, T, hw)[2])
     return {"stencil_step": 1 if rem == 1 else 0,
-            "fused_iterate": n_chunks * per(fuse) + (per(rem) if rem > 1 else 0)}
+            "fused_iterate": n_chunks * per(fuse) + (per(rem) if rem > 1 else 0),
+            **none}
+
+
+def expected_rdma_launches(filt, fuse: int, grid_shape, block_hw) -> dict:
+    """Launches of one ``ITERS``-iteration ``cuda_rdma`` run: one K3 or K4
+    launch per chunk, and K2 once per block for each later level group."""
+    from parallel_convolution_tpu_torch.ops import rdma
+
+    counts = {k: 0 for k in KERNELS}
+    n_chunks, rem = divmod(ITERS, fuse)
+    for T, n in ((fuse, n_chunks), (rem, 1 if rem else 0)):
+        plan = rdma.rdma_plan(filt.radius, T, block_hw)
+        counts["rdma_" + plan.kernel] += n
+        counts["fused_iterate"] += (n * grid_shape[0] * grid_shape[1]
+                                    * (len(plan.groups) - 1))
+    return counts
 
 
 def main_paths(dev, tmp: Path) -> tuple[dict, list]:
@@ -326,11 +553,12 @@ def main_paths(dev, tmp: Path) -> tuple[dict, list]:
     from parallel_convolution_tpu_torch.models import ConvolutionModel
     from parallel_convolution_tpu_torch.ops import oracle
     from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
     from parallel_convolution_tpu_torch.utils import imageio
 
     import torch
 
-    totals = {"stencil_step": 0, "fused_iterate": 0}
+    totals = {k: 0 for k in KERNELS}
     rows = []
 
     def add(label, counts, pixels, first, warm, resident=None):
@@ -374,6 +602,7 @@ def main_paths(dev, tmp: Path) -> tuple[dict, list]:
         _, resident = host_seconds(lambda: model.run_planar(planar, ITERS))
         add(label, counts, px, secs, warm, resident)
 
+    greys, grey_refs = {}, {}
     for (rows_, cols_), name in ((RGB_HW, "blur3"), (BIG_HW, "edge5")):
         filt = get_filter(name)
         # --fast on the card: cuda_sep / bf16 / fuse min(32, block // r).
@@ -392,7 +621,8 @@ def main_paths(dev, tmp: Path) -> tuple[dict, list]:
 
         _, counts, secs = drive(label, run_cli, expect, rows_ * cols_)
         out = imageio.read_raw(dst, rows_, cols_, "grey")
-        check(np.array_equal(out, plain(name, img, ITERS)),
+        greys[name], grey_refs[name] = img, plain(name, img, ITERS)
+        check(np.array_equal(out, grey_refs[name]),
               f"{label}: differs from shifted")
         crop = img[:ORACLE_CROP, :ORACLE_CROP]
         fast = ConvolutionModel(name, backend="cuda_sep", storage="bf16",
@@ -402,6 +632,82 @@ def main_paths(dev, tmp: Path) -> tuple[dict, list]:
               f"{label}: 3 iterations on {crop.shape} differ from the oracle")
         _, warm = host_seconds(run_cli)
         add(label, counts, rows_ * cols_, secs, warm)
+
+    # The cuda_rdma backend: every block of the grid on the one card, the
+    # exchange inside K3 / K4.  Any grid gives the 1x1 grid's bytes, so the
+    # shifted references above stand.  Beside it, cuda at the same grid:
+    # the halo exchange and one K2 launch per block that it replaces.
+    grid2 = make_grid((2, 2), dev)
+    block_rgb = tuple(-(-n // 2) for n in RGB_HW)
+    per_block = expected_launches(blur3, 32, block_rgb)
+    for label, kw, expect in (
+            (f"rgb {hw} blur3 cuda_rdma bf16 fuse 32 grid 2x2",
+             dict(backend="cuda_rdma", storage="bf16", fuse=32),
+             expected_rdma_launches(blur3, 32, (2, 2), block_rgb)),
+            (f"rgb {hw} blur3 cuda bf16 fuse 32 grid 2x2",
+             dict(backend="cuda", storage="bf16", fuse=32),
+             {k: 4 * v for k, v in per_block.items()})):
+        model = ConvolutionModel("blur3", grid=grid2, **kw)
+        rdma_path = kw["backend"] == "cuda_rdma"
+        out, counts, secs = drive(label, lambda: model.run_image(rgb, ITERS),
+                                  expect, px, no_halo=rdma_path)
+        check(np.array_equal(out, ref), f"{label}: differs from shifted")
+        if rdma_path:
+            check(np.array_equal(model.run_image(rgb, 3),
+                                 oracle.run_serial_u8(rgb, blur3, 3)),
+                  f"{label}: 3 iterations differ from the NumPy oracle")
+        _, warm = host_seconds(lambda: model.run_image(rgb, ITERS))
+        planar = torch.from_numpy(imageio.interleaved_to_planar(rgb).copy()).to(
+            device=dev, dtype=torch.float32)
+        _, resident = host_seconds(lambda: model.run_planar(planar, ITERS))
+        add(label, counts, px, secs, warm, resident)
+
+    edge5 = get_filter("edge5")
+    src, dst = tmp / "edge5.raw", tmp / "edge5.rdma.raw"
+    label = f"cli run grey {BIG_HW[0]}x{BIG_HW[1]} edge5 --backend cuda_rdma --mesh 4x4 --fast"
+    argv = ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]), str(ITERS),
+            "grey", "-o", str(dst), "--filter", "edge5", "--backend",
+            "cuda_rdma", "--mesh", "4x4", "--fast"]
+
+    def run_rdma_cli():
+        rc = cli_main(argv)
+        check(rc == 0, f"{label}: the CLI exited {rc}")
+
+    expect = expected_rdma_launches(edge5, 32, (4, 4),
+                                    tuple(n // 4 for n in BIG_HW))
+    _, counts, secs = drive(label, run_rdma_cli, expect,
+                            BIG_HW[0] * BIG_HW[1], no_halo=True)
+    check(np.array_equal(imageio.read_raw(dst, *BIG_HW, "grey"),
+                         grey_refs["edge5"]), f"{label}: differs from shifted")
+    crop = greys["edge5"][:ORACLE_CROP, :ORACLE_CROP]
+    small = ConvolutionModel("edge5", grid=make_grid((4, 4), dev),
+                             backend="cuda_rdma", storage="bf16", fuse=32)
+    check(np.array_equal(small.run_image(crop, 3),
+                         oracle.run_serial_u8(crop, edge5, 3)),
+          f"{label}: 3 iterations on {crop.shape} differ from the oracle")
+    _, warm = host_seconds(run_rdma_cli)
+    add(label, counts, BIG_HW[0] * BIG_HW[1], secs, warm)
+
+    grey = greys["blur3"]
+    label = (f"grey {hw} blur3 cuda_rdma u8 fuse 8 grid "
+             f"{GREY_GRID[0]}x{GREY_GRID[1]}")
+    model = ConvolutionModel("blur3", grid=make_grid(GREY_GRID, dev),
+                             backend="cuda_rdma", storage="u8", fuse=8)
+    block_grey = tuple(-(-n // g) for n, g in zip(RGB_HW, GREY_GRID))
+    expect = expected_rdma_launches(blur3, 8, GREY_GRID, block_grey)
+    out, counts, secs = drive(label, lambda: model.run_image(grey, ITERS),
+                              expect, RGB_HW[0] * RGB_HW[1], no_halo=True)
+    check(np.array_equal(out, grey_refs["blur3"]),
+          f"{label}: differs from shifted")
+    check(np.array_equal(model.run_image(grey, 3),
+                         oracle.run_serial_u8(grey, blur3, 3)),
+          f"{label}: 3 iterations differ from the NumPy oracle")
+    _, warm = host_seconds(lambda: model.run_image(grey, ITERS))
+    planar = torch.from_numpy(grey[None].copy()).to(device=dev,
+                                                    dtype=torch.float32)
+    _, resident = host_seconds(lambda: model.run_planar(planar, ITERS))
+    add(label, counts, RGB_HW[0] * RGB_HW[1], secs, warm, resident)
+
     check(all(totals.values()), f"a kernel never ran on the main path: {totals}")
     return totals, rows
 
@@ -448,9 +754,11 @@ def main() -> int:
             for line in v["log"].splitlines():
                 if "Used" in line or "Function properties" in line:
                     print(f"  ptxas: {line.strip()}")
-        _build.load_library("stencil")
+        for name in _build.SOURCES:
+            _build.load_library(name)
 
         check_kernels(dev)
+        check_rdma_kernels(dev)
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             totals, rows = main_paths(dev, Path(tmp))
@@ -461,17 +769,29 @@ def main() -> int:
         k1 = time_step(rgb, blur3, "f32", dev)
         k2 = time_fused(rgb, blur3, "bf16", 32, True, dev)
         k2_edge = time_fused(grey8k, edge5, "bf16", 32, True, dev)
+        grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
+        k3 = time_rdma("rdma_block", grey, blur3, "u8", GREY_GRID, 8, dev)
+        k3_t1 = time_rdma("rdma_block", grey, blur3, "u8", GREY_GRID, 1, dev)
+        k4 = time_rdma("rdma_tiled", rgb, blur3, "bf16", (2, 2), 32, dev)
+        k4_t1 = time_rdma("rdma_tiled", rgb, blur3, "bf16", (2, 2), 1, dev)
+        chunk8k = time_rdma_chunk(grey8k, edge5, "bf16", (4, 4), 32, dev)
         for name, t in (("stencil_step rgb blur3 f32", k1),
                         ("fused_iterate rgb blur3 bf16 T=32", k2),
-                        ("fused_iterate grey8k edge5 bf16 T=32", k2_edge)):
+                        ("fused_iterate grey8k edge5 bf16 T=32", k2_edge),
+                        ("rdma_block grey 16x16 blur3 u8 T=8", k3),
+                        ("rdma_block grey 16x16 blur3 u8 T=1", k3_t1),
+                        ("rdma_tiled rgb 2x2 blur3 bf16 T=32", k4),
+                        ("rdma_tiled rgb 2x2 blur3 bf16 T=1", k4_t1),
+                        ("fused_rdma_step grey8k 4x4 edge5 bf16 T=32", chunk8k)):
             print(f"time {name}: " + json.dumps(t))
         for row in rows:
             print("end to end: " + json.dumps(row))
 
         kernels = []
-        for name, t in (("stencil_step", k1), ("fused_iterate", k2)):
+        for name, t in (("stencil_step", k1), ("fused_iterate", k2),
+                        ("rdma_block", k3), ("rdma_tiled", k4)):
             kernels.append({
-                "name": name, "route": "cuda", "source": SOURCE,
+                "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": totals[name],
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

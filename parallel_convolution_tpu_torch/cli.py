@@ -39,9 +39,11 @@ def _resolve_perf_knobs(args, grid) -> None:
     """Fill backend/storage/fuse left unset (None = not passed).
 
     ``--fast`` on the card fills them with the flagship family: cuda_sep,
-    bf16 carries, fuse 32 (clamped so blocks stay >= radius·fuse).  On the
-    CPU the plain versions run anyway, so ``--fast`` leaves the defaults.
-    Explicit flags always win; every combination gives the same bytes.
+    bf16 carries, fuse 32 (clamped so blocks stay >= radius·fuse); with an
+    explicit ``--backend`` (e.g. cuda_rdma) only storage and fuse fill in.
+    On the CPU the plain versions run anyway, so ``--fast`` leaves the
+    defaults.  Explicit flags always win; every combination gives the same
+    bytes.
     """
     from parallel_convolution_tpu_torch.ops.filters import get_filter
 
@@ -80,8 +82,9 @@ def main(argv: list[str] | None = None) -> int:
     run.add_argument("--filter", default="blur3", dest="filter_name")
     run.add_argument("--backend", default=None, choices=list(BACKENDS),
                      help="correlate implementation (default: shifted); "
-                          "cuda / cuda_sep are the CUDA kernels (the JAX "
-                          "package's pallas / pallas_sep)")
+                          "cuda / cuda_sep / cuda_rdma are the CUDA kernels "
+                          "(the JAX package's pallas / pallas_sep / "
+                          "pallas_rdma)")
     run.add_argument("--storage", default=None, choices=list(STORAGES),
                      help="iteration-carry dtype (default: f32)")
     run.add_argument("--fuse", type=int, default=None, metavar="T",

@@ -27,115 +27,22 @@
 //    traffic between levels.  Where T levels of a tile do not fit in shared
 //    memory the wrapper runs the levels in groups, one launch each.
 //
-// Semantics shared by both kernels (the normative spec is ops/oracle.py):
-//  * accumulation in f32 in the fixed row-major tap order, or the rank-1
-//    two-pass order (row pass over th+k-1 rows, then the column pass) when
-//    separable, each tap one single-rounding FMA (__fmaf_rn) -- the order the
-//    JAX package's XLA and Pallas tiers contract to;
-//  * quantize: rintf (round half to even), then clip to [0, 255] unless the
-//    filter is convex (the clip is the identity there);
-//  * loads convert f32 / bf16 / u8 to f32, stores convert back
-//    (__float2bfloat16_rn for bf16; u8 through int, exact for 0..255).
+// The semantics both kernels share with K3 and K4 (csrc/rdma.cu) -- tap
+// order, FMA, round and clip, dtype conversions -- and K2's level loop live
+// in stencil_common.cuh.
 //
 // K2 also re-zeroes the ghost ring at every level: one select on the level-0
 // window (out-of-image positions become exactly 0), then after each level a
 // multiply by a 0/1 row mask and a 0/1 column mask against the global image
 // extent, as _iterate_levels does, so even signed zeros agree in float mode.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "stencil_common.cuh"
+
+using namespace pc;
 
 namespace {
 
-constexpr int kMaxK = 9;
 constexpr int kStepThreadsX = 32, kStepThreadsY = 8;
-constexpr int kFusedThreadsX = 32, kFusedThreadsY = 16;
-constexpr int kStaticSmem = 48 * 1024;
-
-enum DType : int { kF32 = 0, kBF16 = 1, kU8 = 2 };
-
-struct Taps {
-  float t[kMaxK * kMaxK];  // row-major k x k taps
-  float col[kMaxK];        // separable column factor (when sep)
-  float row[kMaxK];        // separable row factor (when sep)
-};
-
-__device__ __forceinline__ float load_f32(const void* p, int dtype,
-                                          long long i) {
-  switch (dtype) {
-    case kBF16:
-      return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-    case kU8:
-      return static_cast<float>(
-          static_cast<int>(static_cast<const uint8_t*>(p)[i]));
-    default:
-      return static_cast<const float*>(p)[i];
-  }
-}
-
-__device__ __forceinline__ void store_f32(void* p, int dtype, long long i,
-                                          float v) {
-  switch (dtype) {
-    case kBF16:
-      static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-      break;
-    case kU8:
-      static_cast<uint8_t*>(p)[i] =
-          static_cast<uint8_t>(static_cast<int>(v));
-      break;
-    default:
-      static_cast<float*>(p)[i] = v;
-  }
-}
-
-__device__ __forceinline__ float quantize(float acc, int convex) {
-  acc = rintf(acc);
-  if (!convex) acc = fminf(fmaxf(acc, 0.f), 255.f);
-  return acc;
-}
-
-// 2D row-major tap chain for the output at (y, x) of window s (row stride S).
-template <int KT>
-__device__ __forceinline__ float corr2d(const float* __restrict__ s, int S,
-                                        int y, int x, const Taps& tp, int k) {
-  const int K = KT > 0 ? KT : k;
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < K; ++dy) {
-    const float* line = s + (y + dy) * S + x;
-#pragma unroll
-    for (int dx = 0; dx < K; ++dx)
-      acc = __fmaf_rn(tp.t[dy * K + dx], line[dx], acc);
-  }
-  return acc;
-}
-
-// Separable row pass: sum_dx row[dx] * s[y][x + dx].
-template <int KT>
-__device__ __forceinline__ float row_pass(const float* __restrict__ s, int S,
-                                          int y, int x, const Taps& tp,
-                                          int k) {
-  const int K = KT > 0 ? KT : k;
-  const float* line = s + y * S + x;
-  float acc = 0.f;
-#pragma unroll
-  for (int dx = 0; dx < K; ++dx) acc = __fmaf_rn(tp.row[dx], line[dx], acc);
-  return acc;
-}
-
-// Separable column pass: sum_dy col[dy] * s[y + dy][x].
-template <int KT>
-__device__ __forceinline__ float col_pass(const float* __restrict__ s, int S,
-                                          int y, int x, const Taps& tp,
-                                          int k) {
-  const int K = KT > 0 ? KT : k;
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < K; ++dy)
-    acc = __fmaf_rn(tp.col[dy], s[(y + dy) * S + x], acc);
-  return acc;
-}
 
 // ---------------------------------------------------------------------------
 // K1: one stencil step.  Block = one (channel, th x tw output tile).
@@ -233,44 +140,8 @@ __global__ void fused_iterate_kernel(const void* __restrict__ in, int in_dtype,
   }
   __syncthreads();
 
-  for (int s = 1; s <= T; ++s) {
-    const int ch = th + 2 * r * (T - s), cw = tw + 2 * r * (T - s);
-    const int grow = row0 + r * s, gcol = col0 + r * s;  // level-s origin
-    float* dst;
-    if (sep) {
-      // Row pass over all ch + 2r rows of the previous level into b, then
-      // the column pass from b back into a (a is fully consumed by then).
-      for (int y = threadIdx.y; y < ch + 2 * r; y += blockDim.y)
-        for (int x = threadIdx.x; x < cw; x += blockDim.x)
-          b[y * S + x] = row_pass<KT>(a, S, y, x, tp, k);
-      __syncthreads();
-      dst = a;
-    } else {
-      dst = b;
-    }
-    for (int y = threadIdx.y; y < ch; y += blockDim.y) {
-      const float mrow =
-          (grow + y >= 0 && grow + y < valid_h) ? 1.f : 0.f;
-      for (int x = threadIdx.x; x < cw; x += blockDim.x) {
-        float acc = sep ? col_pass<KT>(b, S, y, x, tp, k)
-                        : corr2d<KT>(a, S, y, x, tp, k);
-        if (quant) acc = quantize(acc, convex);
-        if (mask) {
-          const float mcol =
-              (gcol + x >= 0 && gcol + x < valid_w) ? 1.f : 0.f;
-          acc = acc * mrow;
-          acc = acc * mcol;
-        }
-        dst[y * S + x] = acc;
-      }
-    }
-    __syncthreads();
-    if (!sep) {
-      float* t = a;
-      a = b;
-      b = t;
-    }
-  }
+  a = fused_levels<KT>(a, b, S, th, tw, T, r, tp, k, sep, quant, convex, mask,
+                       row0, col0, valid_h, valid_w);
 
   const int oh = min(th, h - y0), ow = min(tw, w - x0);
   for (int y = threadIdx.y; y < oh; y += blockDim.y)
@@ -278,24 +149,6 @@ __global__ void fused_iterate_kernel(const void* __restrict__ in, int in_dtype,
       store_f32(out, out_dtype,
                 out_base + static_cast<long long>(y0 + y) * w + x0 + x,
                 a[y * S + x]);
-}
-
-bool fill_taps(Taps* tp, const float* taps, const float* col, const float* row,
-               int k, int sep) {
-  if (k < 1 || k > kMaxK || k % 2 == 0) return false;
-  for (int i = 0; i < k * k; ++i) tp->t[i] = taps[i];
-  for (int i = 0; i < k; ++i) {
-    tp->col[i] = sep ? col[i] : 0.f;
-    tp->row[i] = sep ? row[i] : 0.f;
-  }
-  return true;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kStaticSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 template <int KT>

@@ -26,8 +26,8 @@ class ConvolutionModel(nn.Module):
         blur kernel).  Its taps are the module's ``taps`` buffer.
       grid: the block grid; default 1×1 on ``device``.
       backend: ``shifted`` | ``separable`` | ``xla_conv`` (plain PyTorch) or
-        ``cuda`` | ``cuda_sep`` (the CUDA kernels; the JAX package's
-        ``pallas`` | ``pallas_sep``).
+        ``cuda`` | ``cuda_sep`` | ``cuda_rdma`` (the CUDA kernels; the JAX
+        package's ``pallas`` | ``pallas_sep`` | ``pallas_rdma``).
       quantize: u8 store-back each iteration (image semantics); False =
         float mode.
       storage: carry dtype ``f32`` | ``bf16`` | ``u8``.

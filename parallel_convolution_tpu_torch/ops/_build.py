@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``build/torch_kernels/lib<name>.so`` at the root of the checkout, the first
 time it is needed, and loaded with ``ctypes`` (a plain C interface: the
 sources include no PyTorch header, so a build takes seconds).  A stamp file
-holds the hash of the source and flags; a changed source rebuilds.  Nothing
-here runs at import time.
+holds the hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags; a changed source or header rebuilds.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("stencil",)
+SOURCES = ("stencil", "rdma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,6 +44,13 @@ _SIGNATURES = {
                              _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _P],
     },
+    "rdma": {
+        # tiled, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, C, h, w,
+        # E, T, taps, k, quantize, convex, mask, valid_h, valid_w, th, tw,
+        # stream
+        "pc_rdma_step": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 
@@ -62,8 +70,9 @@ def nvcc_path() -> str:
 
 def _paths(name: str) -> tuple[Path, Path, str]:
     src = CSRC / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"lib{name}.so", digest
 
 

@@ -352,10 +352,21 @@ fused_iterate.launches = 0
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counters of every kernel of the port (K1, K2 here;
+    K3, K4 in ops/rdma.py)."""
+    from parallel_convolution_tpu_torch.ops import rdma
+
     stencil_step.launches = 0
     fused_iterate.launches = 0
+    rdma.rdma_block.launches = 0
+    rdma.rdma_tiled.launches = 0
 
 
 def launch_counts() -> dict:
+    """Launches of every kernel of the port since the last reset."""
+    from parallel_convolution_tpu_torch.ops import rdma
+
     return {"stencil_step": stencil_step.launches,
-            "fused_iterate": fused_iterate.launches}
+            "fused_iterate": fused_iterate.launches,
+            "rdma_block": rdma.rdma_block.launches,
+            "rdma_tiled": rdma.rdma_tiled.launches}

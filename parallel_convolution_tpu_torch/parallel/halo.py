@@ -12,7 +12,9 @@ Two phases, as in the JAX package's ``halo_exchange``:
 A block on the image edge gets zeros (boundary ``zero``, the reference's
 ghost ring) or its wrap-around neighbour (``periodic``, a torus).  In this
 slice all blocks live on one device, so an exchange is slicing and copying
-between the block tensors.
+between the block tensors.  ``halo_exchange.calls`` counts the calls, so a
+run can show that a path (the ``cuda_rdma`` backend on the card) never
+made one.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ def halo_exchange(blocks: list[list[torch.Tensor]], depth: int,
                   boundary: str = "zero") -> list[list[torch.Tensor]]:
     """Pad every (C, h, w) block to (C, h+2d, w+2d) with its neighbours'
     edges.  Returns new tensors; the input blocks are not modified."""
+    halo_exchange.calls += 1
     if boundary not in BOUNDARIES:
         raise ValueError(
             f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
@@ -76,3 +79,6 @@ def halo_exchange(blocks: list[list[torch.Tensor]], depth: int,
             else:
                 p[:, :, d + w:] = padded[i][right][:, :, d:2 * d]
     return padded
+
+
+halo_exchange.calls = 0

@@ -11,7 +11,9 @@ exchange, then T levels on the block, each re-zeroing out-of-image
 positions so the result is bit-identical to T single steps.  Backends
 ``cuda`` / ``cuda_sep`` run the levels through the CUDA kernels of
 ``ops/stencil.py`` (K1 per level at fuse = 1, K2 for T levels at once);
-``shifted`` / ``separable`` / ``xla_conv`` are plain PyTorch.
+``cuda_rdma`` runs the exchange and the levels of every block in one
+launch (K3 / K4, ``ops/rdma.py``); ``shifted`` / ``separable`` /
+``xla_conv`` are plain PyTorch.
 
 Non-divisible images are padded to the next block multiple and re-masked to
 zero every iteration, so outputs stay bit-identical to the serial oracle
@@ -26,7 +28,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from parallel_convolution_tpu_torch.ops import conv, stencil
+from parallel_convolution_tpu_torch.ops import conv, rdma, stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
@@ -142,12 +144,39 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
     return step
 
 
+def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
+                     quantize: bool, fuse: int = 1, boundary: str = "zero",
+                     tile=None):
+    """The ``cuda_rdma`` form (the JAX package's ``_build_rdma_step``): each
+    chunk is one K3 / K4 launch that reads every block's ghosts from its
+    neighbours' buffers and runs ``fuse`` levels, masked against the
+    global image at every level (so no outer mask at fuse = 1).  Its step
+    maps the stacked grid to the stacked grid (see :func:`_build_iterate`)."""
+    periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
+
+    def step(x):
+        # x is the stacked grid (rdma.stack_blocks).  The kernel writes a
+        # new grid and never the one it reads: on the TPU,
+        # _neighbor_barrier keeps a fast device from writing ghosts into a
+        # neighbour still reading them; on one card the same hazard is a
+        # CUDA block writing its output while another reads that buffer's
+        # edge.  Stream order between chunk launches stands in for the
+        # barrier.
+        return rdma.fused_rdma_stacked(
+            x, filt, grid.shape, boundary, quantize=quantize,
+            out_dtype=x.dtype, fuse=fuse,
+            valid_hw=None if periodic else tuple(valid_hw), tile=tile)
+
+    return step
+
+
 def _register_smoother_forms() -> None:
     for name in BACKENDS:
+        build = (_build_rdma_step if name == "cuda_rdma"
+                 else partial(_build_halo_step, name))
         kernel_forms.register(kernel_forms.KernelForm(
             name=name, rank=2, stencil_form="smooth",
-            boundaries=tuple(BOUNDARIES),
-            build=partial(_build_halo_step, name)))
+            boundaries=tuple(BOUNDARIES), build=build))
 
 
 _register_smoother_forms()
@@ -186,12 +215,17 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
                              backend, rem, boundary, tile)
             if rem else None)
 
+    # cuda_rdma carries the grid from chunk to chunk as one stacked
+    # (R·C, C, h, w) tensor: no per-block work on the host per launch.
+    stacked = backend == "cuda_rdma"
+
     def run(blocks):
+        state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
         for _ in range(n_chunks):
-            blocks = chunk(blocks)
+            state = chunk(state)
         if tail is not None:
-            blocks = tail(blocks)
-        return blocks
+            state = tail(state)
+        return rdma.unstack_blocks(state, grid.shape) if stacked else state
 
     return run
 

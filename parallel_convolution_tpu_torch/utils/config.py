@@ -1,7 +1,7 @@
 """Canonical name registries of the PyTorch port.
 
 The port keeps the JAX package's backend names where the implementation is
-plain tensor code and renames the two that were Pallas TPU kernels to the
+plain tensor code and renames the three that were Pallas TPU kernels to the
 hand-written CUDA kernels that replace them, one to one:
 
     JAX package      port
@@ -11,6 +11,8 @@ hand-written CUDA kernels that replace them, one to one:
     xla_conv         xla_conv    (F.conv2d, TF32 off)
     pallas           cuda        (K1 stencil_step / K2 fused_iterate)
     pallas_sep       cuda_sep    (the same kernels, separable tap order)
+    pallas_rdma      cuda_rdma   (K3 rdma_block / K4 rdma_tiled: the halo
+                                  exchange inside the launch)
 
 Everything the JAX package offers beyond this slice raises
 ``NotImplementedError`` naming its item in ROADMAP.md ("Port: still to
@@ -19,7 +21,8 @@ port"), never silently ignored.
 
 from __future__ import annotations
 
-BACKENDS = ("shifted", "xla_conv", "cuda", "separable", "cuda_sep")
+BACKENDS = ("shifted", "xla_conv", "cuda", "separable", "cuda_sep",
+            "cuda_rdma")
 STORAGES = ("f32", "bf16", "u8")
 BOUNDARIES = ("zero", "periodic")
 
@@ -30,20 +33,22 @@ BACKEND_FROM_REFERENCE = {
     "separable": "separable",
     "pallas": "cuda",
     "pallas_sep": "cuda_sep",
+    "pallas_rdma": "cuda_rdma",
 }
 
 # Backends of the JAX package that later slices port.
 PENDING_BACKENDS = {
     "auto": "item 3 (auto / fallback)",
-    "pallas_rdma": "item 10 (multi-GPU grid and the remote-DMA kernels)",
 }
+
+_SEPARATE_CARDS = "item 10 (blocks on separate cards)"
 
 # Knobs of the JAX entry points that later slices port: name -> ROADMAP item.
 PENDING_KNOBS = {
     "interior_split": "item 2 (interior_split)",
     "fallback": "item 3 (auto / fallback)",
-    "overlap": "item 10 (multi-GPU grid and the remote-DMA kernels)",
-    "col_mode": "item 10 (multi-GPU grid and the remote-DMA kernels)",
+    "overlap": _SEPARATE_CARDS,
+    "col_mode": _SEPARATE_CARDS,
 }
 
 

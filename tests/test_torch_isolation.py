@@ -52,5 +52,6 @@ def test_scanner_tells_the_prefix_apart(tmp_path):
 
 
 def test_port_has_its_kernel_sources():
-    assert (PORT / "csrc" / "stencil.cu").is_file()
+    for name in ("stencil.cu", "rdma.cu", "stencil_common.cuh"):
+        assert (PORT / "csrc" / name).is_file()
     assert len(SOURCES) > 15

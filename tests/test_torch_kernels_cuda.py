@@ -11,12 +11,16 @@ be byte-equal; float mode agrees within ``stencil.float_tolerance`` (the
 kernels round once per tap as an FMA, the plain versions twice).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from parallel_convolution_tpu_torch.models import ConvolutionModel
-from parallel_convolution_tpu_torch.ops import oracle, stencil
-from parallel_convolution_tpu_torch.ops.filters import get_filter
+from parallel_convolution_tpu_torch.ops import oracle, rdma, stencil
+from parallel_convolution_tpu_torch.ops.filters import (
+    gaussian, get_filter, make_filter,
+)
+from parallel_convolution_tpu_torch.parallel import halo, mesh
 from parallel_convolution_tpu_torch.utils import imageio
 
 FILTERS = ["blur3", "gaussian5", "edge5", "sharpen3"]
@@ -125,3 +129,198 @@ def test_cuda_wrapper_rejects_non_contiguous(cuda_device):
     x = torch.zeros((1, 20, 20), device=cuda_device)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         stencil.stencil_step(x, get_filter("blur3"))
+
+
+# K3 / K4: every grid form of the CPU tests, on the card.  Blocks of 23 x 37
+# give every (grid block, channel) to K3 whole and ragged 8 x 16 tiles to K4.
+GRIDS = [((1, 1), "zero"), ((2, 2), "zero"), ((1, 4), "periodic"),
+         ((4, 1), "zero"), ((2, 2), "periodic")]
+RDMA_MODES = [("f32", True), ("bf16", True), ("u8", True), ("f32", False)]
+BINOMIAL7 = make_filter("binomial7", np.outer(*[[1, 6, 15, 20, 15, 6, 1]] * 2),
+                        divisor=4096)
+
+
+def _grid_blocks(seed, grid_shape, bhw, storage, device, channels=2):
+    R, Cg = grid_shape
+    x = _data(seed, (channels, R * bhw[0], Cg * bhw[1]), storage, device)
+    return mesh.split_blocks(x, mesh.Grid(R, Cg, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rdma_block", "rdma_tiled"])
+@pytest.mark.parametrize("storage,quantize", RDMA_MODES)
+@pytest.mark.parametrize("name", ["blur3", "edge5", "binomial7"])
+@pytest.mark.parametrize("grid_shape,boundary", GRIDS)
+def test_rdma_kernel_matches_plain(cuda_device, grid_shape, boundary, name,
+                                   storage, quantize, kernel):
+    # binomial7 takes the kernels' generic tap loop (k not 3 or 5); its
+    # taps are dyadic, so quantize mode stays byte-exact under FMA.
+    f = BINOMIAL7 if name == "binomial7" else get_filter(name)
+    bhw = (23, 37)
+    blocks = _grid_blocks(60, grid_shape, bhw, storage, cuda_device)
+    # Zero boundary: an image a little smaller than the padded grid, so the
+    # pad-to-multiple rim is masked too.
+    valid = (None if boundary == "periodic" else
+             (grid_shape[0] * bhw[0] - 2, grid_shape[1] * bhw[1] - 3))
+    kw = dict(quantize=quantize, out_dtype=TORCH[storage])
+    launch = getattr(rdma, kernel)
+    extra = {"tile": (8, 16)} if kernel == "rdma_tiled" else {}
+    for T in (1, 3):
+        if not quantize and not f.convex and T > 2:
+            continue  # float mode grows by L1(taps) per level
+        before = launch.launches
+        got = mesh.join_blocks(rdma.unstack_blocks(launch(
+            rdma.stack_blocks(blocks, grid_shape), f, grid_shape, boundary, T,
+            valid, **kw, **extra), grid_shape))
+        torch.cuda.synchronize()
+        assert launch.launches == before + 1
+        want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+            blocks, f, grid_shape, boundary, fuse=T, valid_hw=valid, **kw))
+        _assert_agree(got, want, f, T, quantize)
+
+
+# A non-dyadic 7x7 filter: its products are not exact in float32, so the
+# kernels' one rounding per tap (FMA) and the plain version's two part at
+# the last bit.  Float mode holds it within float_tolerance; quantize mode
+# may differ only where that last bit moves the sum across a rint boundary.
+GAUSSIAN7 = gaussian(7, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rdma_block", "rdma_tiled"])
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("grid_shape,boundary", GRIDS)
+def test_rdma_non_dyadic_float_mode(cuda_device, grid_shape, boundary,
+                                    storage, kernel):
+    f = GAUSSIAN7
+    assert not f.dyadic and f.convex
+    blocks = _grid_blocks(62, grid_shape, (23, 37), storage, cuda_device)
+    valid = (None if boundary == "periodic" else
+             (grid_shape[0] * 23 - 2, grid_shape[1] * 37 - 3))
+    kw = dict(quantize=False, out_dtype=TORCH[storage])
+    extra = {"tile": (8, 16)} if kernel == "rdma_tiled" else {}
+    x = rdma.stack_blocks(blocks, grid_shape)
+    for T in (1, 3):
+        got = rdma.unstack_blocks(getattr(rdma, kernel)(
+            x, f, grid_shape, boundary, T, valid, **kw, **extra), grid_shape)
+        want = rdma.fused_rdma_step_plain(blocks, f, grid_shape, boundary,
+                                          fuse=T, valid_hw=valid, **kw)
+        _assert_agree(mesh.join_blocks(got), mesh.join_blocks(want), f, T,
+                      False)
+
+
+def _fma_chain(padded, filt):
+    """One level in the kernels' order, one rounding per tap: acc starts at
+    0.0 and takes fma(tap, x, acc) over the taps in row-major order.  In
+    float64, tap * x (24 by 8 significant bits) is exact and so is the sum
+    with a float32 acc below 2^9 while taps stay above 2^-21, so rounding
+    that sum once to float32 is the FMA's single rounding."""
+    k = filt.size
+    C, Hp, Wp = padded.shape
+    h, w = Hp - k + 1, Wp - k + 1
+    src = padded.to(torch.float64)
+    acc = torch.zeros((C, h, w), dtype=torch.float32, device=padded.device)
+    for dy in range(k):
+        for dx in range(k):
+            t = float(filt.taps[dy, dx])
+            acc = (acc.double() + t * src[:, dy:dy + h, dx:dx + w]).float()
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rdma_block", "rdma_tiled"])
+def test_rdma_non_dyadic_quantize_differs_only_at_rint_ties(cuda_device,
+                                                           kernel):
+    # Where K3 / K4 and the plain version disagree in quantize mode for a
+    # non-dyadic filter, it is the documented FMA rint straddle: the
+    # kernel's accumulator is exactly the FMA chain, its byte is rint of
+    # that, and each differing byte sits where the FMA and the two-rounding
+    # sums (a few ulps apart) fall on either side of a half-integer.
+    f, grid_shape, bhw = GAUSSIAN7, (2, 2), (96, 128)
+    assert min(abs(float(t)) for t in f.taps.ravel()) > 2.0 ** -21
+    blocks = _grid_blocks(63, grid_shape, bhw, "f32", cuda_device, channels=3)
+    valid = (2 * bhw[0] - 2, 2 * bhw[1] - 3)
+    x = rdma.stack_blocks(blocks, grid_shape)
+    launch = getattr(rdma, kernel)
+    extra = {"tile": (32, 64)} if kernel == "rdma_tiled" else {}
+
+    def run(quantize):
+        out = launch(x, f, grid_shape, "zero", 1, valid, quantize=quantize,
+                     out_dtype=torch.float32, **extra)
+        return mesh.join_blocks(rdma.unstack_blocks(out, grid_shape))
+
+    q, acc = run(True), run(False)
+    torch.cuda.synchronize()
+    assert torch.equal(q, torch.round(acc))
+    # The FMA chain over the joined image, zero outside it, masked to it.
+    full = mesh.join_blocks(blocks)
+    ok = torch.zeros_like(full[:1])
+    ok[:, :valid[0], :valid[1]] = 1
+    fma = _fma_chain(torch.nn.functional.pad(full * ok, (f.radius,) * 4), f)
+    assert torch.equal(acc, fma * ok)
+    plain = {qz: mesh.join_blocks(rdma.fused_rdma_step_plain(
+        blocks, f, grid_shape, "zero", quantize=qz, fuse=1, valid_hw=valid))
+        for qz in (True, False)}
+    assert torch.equal(plain[True], torch.round(plain[False]))
+    _, atol = stencil.float_tolerance(f, 1, torch.float32)
+    assert (acc - plain[False]).abs().max().item() <= atol
+    differ = q != plain[True]
+    # Each differing byte is one apart, and the half-integer between the
+    # two bytes lies between (or on) the FMA and the two-rounding sums.
+    assert torch.equal((q - plain[True])[differ].abs(),
+                       torch.ones_like(q[differ]))
+    mid = (q + plain[True])[differ] / 2
+    assert ((acc[differ] - mid) * (plain[False][differ] - mid) <= 0).all()
+    print(f"{kernel} gaussian7 T=1: {int(differ.sum())} of {q.numel()} "
+          f"bytes differ from the plain version, all at rint ties")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bhw,kernel,groups", [
+    ("blur3", (100, 100), "block", 1),     # r = 1: K3 holds all 32 levels
+    ("edge5", (64, 70), "tiled", 2),       # r = 2: K4 for 16, then K2 for 16
+    ("gaussian5", (64, 70), "tiled", 2)])
+@pytest.mark.parametrize("storage", ["bf16", "u8"])
+def test_rdma_deep_chunk_in_level_groups(cuda_device, name, bhw, kernel,
+                                         groups, storage):
+    f = get_filter(name)
+    blocks = _grid_blocks(61, (2, 2), bhw, storage, cuda_device, channels=1)
+    valid = (2 * bhw[0] - 1, 2 * bhw[1] - 5)
+    plan = rdma.rdma_plan(f.radius, 32, bhw)
+    assert (plan.kernel, len(plan.groups)) == (kernel, groups)
+    stencil.reset_launch_counts()
+    halo.halo_exchange.calls = 0
+    got = mesh.join_blocks(rdma.fused_rdma_step(blocks, f, (2, 2), "zero",
+                                                fuse=32, valid_hw=valid))
+    torch.cuda.synchronize()
+    assert stencil.launch_counts() == {
+        "stencil_step": 0, "fused_iterate": 4 * (groups - 1),
+        "rdma_block": int(kernel == "block"),
+        "rdma_tiled": int(kernel == "tiled")}
+    assert halo.halo_exchange.calls == 0
+    want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+        blocks, f, (2, 2), "zero", fuse=32, valid_hw=valid))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rdma_cuda_tensors_never_reach_the_plain_version(cuda_device,
+                                                         monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(rdma, "fused_rdma_step_plain", refuse)
+    monkeypatch.setattr(halo, "halo_exchange", refuse)
+    f = get_filter("blur3")
+    img = imageio.generate_test_image(61, 83, "grey", seed=9)
+    model = ConvolutionModel("blur3", backend="cuda_rdma", storage="u8",
+                             fuse=4, grid=mesh.make_grid((2, 2), cuda_device))
+    stencil.reset_launch_counts()
+    got = model.run_image(img, 9)
+    assert stencil.launch_counts()["rdma_block"] == 3   # 2 chunks + a tail
+    assert (got == oracle.run_serial_u8(img, f, 9)).all()
+    # A block on the card beside one on the CPU is refused, not mixed.
+    blocks = [[torch.zeros((1, 8, 8), device=cuda_device),
+               torch.zeros((1, 8, 8))]]
+    with pytest.raises(ValueError, match="one shape, dtype and device"):
+        rdma.fused_rdma_step(blocks, f, (1, 2), "periodic")

@@ -20,7 +20,7 @@ import torch
 from parallel_convolution_tpu.ops import filters as jfilters
 from parallel_convolution_tpu.ops import pallas_stencil
 from parallel_convolution_tpu_torch import convert
-from parallel_convolution_tpu_torch.ops import stencil
+from parallel_convolution_tpu_torch.ops import rdma, stencil
 
 FILTERS = ["blur3", "gaussian5", "edge5", "sharpen3"]
 # (storage, quantize): u8 carries exist only in quantize mode.
@@ -169,4 +169,6 @@ def test_cpu_wrappers_count_no_launches():
     x = torch.zeros((1, 12, 12))
     stencil.stencil_step(x, tf)
     stencil.fused_iterate(x, (0, 0), tf, 2, (8, 8))
-    assert stencil.launch_counts() == {"stencil_step": 0, "fused_iterate": 0}
+    rdma.fused_rdma_step([[x, x]], tf, (1, 2), fuse=2, valid_hw=(12, 24))
+    assert stencil.launch_counts() == {"stencil_step": 0, "fused_iterate": 0,
+                                       "rdma_block": 0, "rdma_tiled": 0}

@@ -178,10 +178,12 @@ def test_step_errors():
                              fuse=8)
     with pytest.raises(ValueError, match="'pallas' is 'cuda' here"):
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="'pallas_rdma' is 'cuda_rdma' here"):
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas_rdma")
     for knob in ("interior_split", "fallback", "overlap"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             step.sharded_iterate(x, tf, 1, grid=g, **{knob: True})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step.sharded_iterate(x, tf, 1, grid=g, col_mode="packed")
+    for kw in ({"overlap": True}, {"col_mode": "packed"}):
+        with pytest.raises(NotImplementedError,
+                           match="item 10 \\(blocks on separate cards\\)"):
+            step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma", **kw)

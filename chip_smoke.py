@@ -37,13 +37,36 @@ Phases (any failure exits non-zero and prints no result line):
    end-to-end Gpx/s of each path's counted first run, of a second (warm)
    run, and of the model on an image already on the card (the host's share
    of the time is the difference);
-6. the ``kernels`` JSON line, then the last line
+6. the probes (TPU kernel 5, ``csrc/probes.cu``), after the kernel checks:
+   5a ``op_chain`` prices ten op chains (every row printed; the f32 FMA
+   rate at most 105% of the data sheet's), 5b ``smem_probe`` steps across
+   the shared-memory limits (each step within a limit ``ok``, each above it
+   a ``clean_refusal``), 5c ``rdma_ladder`` takes K4 apart construct by
+   construct (every rung equal to its plain version, r3 byte-equal to K4);
+   launches counted by the probes themselves;
+7. ``backend="auto"``: ``ConvolutionModel(backend="auto", fuse=None)`` on
+   the RGB image at 1x1 and 2x2 (bf16), the CLI ``run --backend auto
+   --mesh 4x4 --fast`` on 8192x8192 edge5, and auto on the grey image at
+   16x16 (u8), each byte-equal to ``shifted`` and to the oracle over 3
+   iterations, its ``Resolution`` printed beside its Gpx/s and the
+   explicit path at the same grid; a measured ``tune`` (4 candidates, 32
+   iterations each, no error row) at each of those grids, the model's pick
+   beside the measured winner; then the RGB 2x2 tune with
+   ``--emit-plans --verify-auto``, whose plan file ``auto`` must resolve
+   with ``source == "measured"`` (byte-equal to shifted, timed first,
+   warm and resident);
+8. the hardware-model constants of ``tuning.costmodel.H100`` as this run
+   measures them, beside the committed ones;
+9. the ``kernels`` JSON line (seven kernels), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -64,13 +87,20 @@ REPLACES = {
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
     "rdma_block": "parallel_convolution_tpu/ops/pallas_rdma.py:1226",
     "rdma_tiled": "parallel_convolution_tpu/ops/pallas_rdma.py:1316",
+    "op_chain": "scripts/vpu_op_probe.py:102",
+    "smem_probe": "scripts/helper_crash_probe.py:100",
+    "rdma_ladder": "scripts/tiled_repro_probe.py:101",
 }
-KERNELS = tuple(REPLACES)
+KERNELS = ("stencil_step", "fused_iterate", "rdma_block", "rdma_tiled")
+PROBE_SOURCE = "parallel_convolution_tpu_torch/csrc/probes.cu"
 SOURCES = {
     "stencil_step": "parallel_convolution_tpu_torch/csrc/stencil.cu",
     "fused_iterate": "parallel_convolution_tpu_torch/csrc/stencil.cu",
     "rdma_block": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "rdma_tiled": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "op_chain": PROBE_SOURCE,
+    "smem_probe": PROBE_SOURCE,
+    "rdma_ladder": PROBE_SOURCE,
 }
 
 
@@ -94,18 +124,9 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
-    import torch
+    from parallel_convolution_tpu_torch.utils.bench import cuda_ms as ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return ms(fn, reps, warmup)
 
 
 def max_abs_err(a, b) -> float:
@@ -352,7 +373,8 @@ def time_step(img, filt, storage, dev) -> dict:
     b_ms, b_by = bound(nbytes, C * level_ops(filt, False, H, W, True, False))
     return dict(shape=list(p.shape), dtype=str(p.dtype), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, bytes=nbytes,
+                achieved_gbps=nbytes / (ms / 1e3) / 1e9)
 
 
 def time_fused(img, filt, storage, T, sep, dev) -> dict:
@@ -516,7 +538,7 @@ def drive(label, fn, expect: dict, pixels: int,
     return out, counts, secs
 
 
-def expected_launches(filt, fuse: int, hw) -> dict:
+def expected_launches(filt, fuse: int, hw, tile=None) -> dict:
     """Launches of one ``ITERS``-iteration run on a 1x1 grid: K2 per
     fused chunk (one per level group), K1 per single-level step."""
     from parallel_convolution_tpu_torch.ops import stencil
@@ -525,13 +547,14 @@ def expected_launches(filt, fuse: int, hw) -> dict:
     if fuse == 1:
         return {"stencil_step": ITERS, "fused_iterate": 0, **none}
     n_chunks, rem = divmod(ITERS, fuse)
-    per = lambda T: len(stencil.fused_plan(filt.radius, T, hw)[2])
+    per = lambda T: len(stencil.fused_plan(filt.radius, T, hw, tile)[2])
     return {"stencil_step": 1 if rem == 1 else 0,
             "fused_iterate": n_chunks * per(fuse) + (per(rem) if rem > 1 else 0),
             **none}
 
 
-def expected_rdma_launches(filt, fuse: int, grid_shape, block_hw) -> dict:
+def expected_rdma_launches(filt, fuse: int, grid_shape, block_hw,
+                           tile=None) -> dict:
     """Launches of one ``ITERS``-iteration ``cuda_rdma`` run: one K3 or K4
     launch per chunk, and K2 once per block for each later level group."""
     from parallel_convolution_tpu_torch.ops import rdma
@@ -539,7 +562,9 @@ def expected_rdma_launches(filt, fuse: int, grid_shape, block_hw) -> dict:
     counts = {k: 0 for k in KERNELS}
     n_chunks, rem = divmod(ITERS, fuse)
     for T, n in ((fuse, n_chunks), (rem, 1 if rem else 0)):
-        plan = rdma.rdma_plan(filt.radius, T, block_hw)
+        if n == 0:
+            continue
+        plan = rdma.rdma_plan(filt.radius, T, block_hw, tile)
         counts["rdma_" + plan.kernel] += n
         counts["fused_iterate"] += (n * grid_shape[0] * grid_shape[1]
                                     * (len(plan.groups) - 1))
@@ -709,7 +734,405 @@ def main_paths(dev, tmp: Path) -> tuple[dict, list]:
     add(label, counts, RGB_HW[0] * RGB_HW[1], secs, warm, resident)
 
     check(all(totals.values()), f"a kernel never ran on the main path: {totals}")
-    return totals, rows
+    refs = {"rgb": rgb, "rgb_ref": ref, "greys": greys, "grey_refs": grey_refs}
+    return totals, rows, refs
+
+
+def expected_for(res, filt, grid_shape, shape) -> dict:
+    """Launches of one ``ITERS``-iteration run at a resolution: a plain
+    backend none, ``cuda`` / ``cuda_sep`` its 1x1 counts on every block,
+    ``cuda_rdma`` one K3 / K4 per chunk plus K2 per later level group."""
+    block = tuple(-(-n // g) for n, g in zip(shape[1:], grid_shape))
+    if res.backend == "cuda_rdma":
+        return expected_rdma_launches(filt, res.fuse, grid_shape, block,
+                                      res.tile)
+    if res.backend in ("cuda", "cuda_sep"):
+        nb = grid_shape[0] * grid_shape[1]
+        return {k: nb * v for k, v in expected_launches(
+            filt, res.fuse, block, res.tile).items()}
+    return {k: 0 for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the probes (TPU kernel 5)
+# ---------------------------------------------------------------------------
+
+
+def probe_phase(dev) -> dict:
+    """5a, 5b and 5c on the card, every row printed; returns each probe's
+    entry of the kernels line (launches: the probe phase's own count)."""
+    import torch
+
+    from parallel_convolution_tpu_torch import probes
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.probes import (
+        op_price, rdma_ladder, smem_budget,
+    )
+
+    probes.reset_launch_counts()
+    price = op_price.measure(dev)
+    for row in price:
+        print("probe op_price: " + json.dumps(row))
+    check([(r["op"], r["dtype"]) for r in price]
+          == [c[:2] for c in op_price.CANDIDATES],
+          "op_price: a candidate gave no row")
+    check(all(r["correct"] for r in price),
+          "op_price: a chain differs from its plain version")
+    fma = price[0]
+    check(2 * fma["gops_per_s"] * 1e9 <= 1.05 * FP32_OPS_PER_S,
+          f"op_price: f32 FMA at {2 * fma['gops_per_s']:.0f} Gop/s, above "
+          f"105% of the card's {FP32_OPS_PER_S / 1e9:.0f}")
+
+    budget = smem_budget.measure(dev)
+    for row in budget:
+        print("probe smem_budget: " + json.dumps(row))
+        want = "ok" if row["fits"] else "clean_refusal"
+        check(row["error_class"] == want and (row["correct"] or not row["fits"]),
+              f"smem_budget: {row['bytes']} B opt_in={row['opt_in']} gave "
+              f"{row['error_class']}, expected {want}")
+    x = (torch.arange(smem_budget.SHAPE[0] * smem_budget.SHAPE[1],
+                      dtype=torch.float32, device=dev)
+         .reshape(smem_budget.SHAPE) % 251.0)
+    probe_ms = cuda_ms(lambda: smem_budget.smem_probe(x, 100 * 1024, True),
+                       reps=50)
+    probe_plain_ms = cuda_ms(lambda: smem_budget.smem_probe_plain(x), reps=50)
+    probe_lib_ms = cuda_ms(lambda: torch.add(x, 1.0), reps=50)
+    got = smem_budget.smem_probe(x, 100 * 1024, True)[0]
+    probe_err = max_abs_err(got, smem_budget.smem_probe_plain(x))
+
+    ladder = rdma_ladder.measure(dev)
+    for row in ladder:
+        print("probe rdma_ladder: " + json.dumps(row))
+        check(row["built"] and row["correct"],
+              f"rdma_ladder {row['rung']}: built {row['built']}, "
+              f"correct {row['correct']}")
+    check(ladder[-1]["equal_k4"], "rdma_ladder r3 differs from K4")
+    counts = probes.launch_counts()
+
+    n = fma["elems"]
+    b_fma = bound(4.0 * n * (1 + op_price.CHAINS),
+                  2.0 * n * op_price.CHAINS * op_price.STEPS)
+    b_probe = bound(2.0 * x.numel() * 4, float(x.numel()))
+    nb, C, h, w = ladder[-1]["shape"]
+    blur3 = get_filter(rdma_ladder.FILTER)
+    b_ladder = bound(2.0 * nb * C * h * w * 2,
+                     nb * C * rdma_ladder.T_LEVELS
+                     * level_ops(blur3, False, h, w, True, False))
+    # library_ms: one PyTorch call of the same function, where there is one
+    # (out = in + 1 is torch.add); none runs a 128-step chain or T levels.
+    entries = {
+        "op_chain": dict(ms=fma["ms"], plain_ms=fma["plain_ms"],
+                         max_abs_err=fma["max_abs_err"], bound=b_fma,
+                         library_ms=None),
+        "smem_probe": dict(ms=probe_ms, plain_ms=probe_plain_ms,
+                           max_abs_err=probe_err, bound=b_probe,
+                           library_ms=probe_lib_ms),
+        "rdma_ladder": dict(ms=ladder[-1]["ms"], plain_ms=ladder[-1]["plain_ms"],
+                            max_abs_err=ladder[-1]["max_abs_err"],
+                            bound=b_ladder, library_ms=None),
+    }
+    for name, e in entries.items():
+        e["launches"] = counts[name]
+    print(f"probe launches: {counts}")
+    return {"entries": entries, "op_price": price, "ladder": ladder}
+
+
+def time_host_calls(dev, n: int = 400) -> dict:
+    """Host seconds per K1 wrapper call and per eager PyTorch op (a slice
+    copy), each on a tiny block so the card is idle: the cost model's
+    ``launch_s`` and ``op_s``."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+
+    blur3 = get_filter("blur3")
+    p = torch.zeros((1, 10, 10), device=dev)
+    a, b = torch.zeros((1, 12, 12), device=dev), torch.ones((1, 10, 10),
+                                                            device=dev)
+
+    def per_call(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    before = stencil.stencil_step.launches
+    launch_s = per_call(lambda: stencil.stencil_step(
+        p, blur3, quantize=True, out_dtype=p.dtype))
+    stencil.stencil_step.launches = before  # not main-path launches
+
+    def copy():
+        a[:, 1:11, 1:11] = b
+
+    return {"launch_s": launch_s, "op_s": per_call(copy), "calls": n}
+
+
+def hardware_constants(k1, k2, k4, price, host) -> dict:
+    """``tuning.costmodel.H100``'s constants as this run measures them."""
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.tuning import costmodel
+
+    blur3 = get_filter("blur3")
+    rows = {(r["op"], r["dtype"]): r for r in price}
+    q = 2 * (rows[("rint+add", "f32")]["per_step_vs_f32_fma"]
+             - rows[("add", "f32")]["per_step_vs_f32_fma"])
+
+    def slots_rate(pixels, T, tile, sep, ms):
+        """The model's executed slots for T levels over ``pixels`` in
+        ``tile`` tiles, per second of the kernel's time."""
+        slots = costmodel.flops_per_px_iter(blur3.size, sep, True, T, tile,
+                                            blur3.radius, q)
+        return slots * pixels * T / (ms / 1e3) / 1e9
+
+    C, Hp, Wp = k2["shape"]
+    d = blur3.radius * k2["T"]
+    k2_px = C * (Hp - 2 * d) * (Wp - 2 * d)
+    k4_px = k4["grid"][0] * k4["grid"][1] * k4["block"][0] * k4["block"][1] \
+        * k4["block"][2]
+    return {"hbm_gbps": k1["achieved_gbps"],
+            "flop_gops": 2 * rows[("fma", "f32")]["gops_per_s"],
+            "tap_gops": slots_rate(k4_px, k4["T"], (64, 64), False,
+                                   k4["ms"]),
+            "sep_tap_gops": slots_rate(k2_px, k2["T"], tuple(k2["tile"]),
+                                       True, k2["ms"]),
+            "quantize_slots": q,
+            "launch_s": host["launch_s"], "op_s": host["op_s"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: backend="auto" and a measured tune
+# ---------------------------------------------------------------------------
+
+
+def auto_paths(dev, tmp: Path, refs: dict, rows: list, totals: dict) -> list:
+    """The four auto runs, each byte-equal to shifted and (3 iterations)
+    to the oracle, printed with its Resolution beside the explicit path
+    at the same grid."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import oracle
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    os.environ.pop(tuning.PLAN_FILE_ENV, None)  # the model, not a plan file
+    by_label = {r["path"]: r for r in rows}
+    hw = "x".join(map(str, RGB_HW))
+    rgb, grey = refs["rgb"], refs["greys"]["blur3"]
+    out_rows = []
+
+    def report(label, res, counts, pixels, first, warm, resident, explicit):
+        for k, v in counts.items():
+            totals[k] += v
+        row = {"path": label, "resolution": {
+            "backend": res.backend, "fuse": res.fuse,
+            "tile": list(res.tile) if res.tile else None,
+            "source": res.source, "predicted_gpx": res.predicted_gpx},
+            "launches": counts}
+        for key, secs in (("first", first), ("warm", warm),
+                          ("resident", resident)):
+            row[f"gpx_per_s_{key}"] = (None if secs is None
+                                       else pixels * ITERS / secs / 1e9)
+        ex = by_label[explicit]
+        row["explicit"] = {"path": explicit, **{
+            f"gpx_per_s_{k}": ex[f"gpx_per_s_{k}"]
+            for k in ("first", "warm", "resident")}}
+        print("auto: " + json.dumps(row))
+        out_rows.append(row)
+
+    blur3, edge5 = get_filter("blur3"), get_filter("edge5")
+    for grid_shape, storage, img, ref, explicit in (
+            ((1, 1), "bf16", rgb, refs["rgb_ref"],
+             f"rgb {hw} blur3 cuda_sep bf16 fuse 32"),
+            ((2, 2), "bf16", rgb, refs["rgb_ref"],
+             f"rgb {hw} blur3 cuda_rdma bf16 fuse 32 grid 2x2"),
+            (GREY_GRID, "u8", grey, refs["grey_refs"]["blur3"],
+             f"grey {hw} blur3 cuda_rdma u8 fuse 8 grid "
+             f"{GREY_GRID[0]}x{GREY_GRID[1]}")):
+        grid = make_grid(grid_shape, dev)
+        model = ConvolutionModel("blur3", grid=grid, backend="auto",
+                                 storage=storage, fuse=None)
+        planar = torch.from_numpy(imageio.interleaved_to_planar(img).copy())
+        shape = tuple(planar.shape)
+        res = tuning.resolve(grid, blur3, shape, storage=storage)
+        label = (f"auto {'rgb' if shape[0] == 3 else 'grey'} {hw} blur3 "
+                 f"{storage} grid {grid_shape[0]}x{grid_shape[1]}")
+        out, counts, secs = drive(
+            label, lambda: model.run_image(img, ITERS),
+            expected_for(res, blur3, grid_shape, shape), shape[0] * RGB_HW[0]
+            * RGB_HW[1], no_halo=res.backend == "cuda_rdma")
+        check(model.resolution == res,
+              f"{label}: resolved {model.resolution}, expected {res}")
+        check(np.array_equal(out, ref), f"{label}: differs from shifted")
+        check(np.array_equal(model.run_image(img, 3),
+                             oracle.run_serial_u8(img, blur3, 3)),
+              f"{label}: 3 iterations differ from the NumPy oracle")
+        _, warm = host_seconds(lambda: model.run_image(img, ITERS))
+        resident_in = planar.to(device=dev, dtype=torch.float32)
+        _, resident = host_seconds(lambda: model.run_planar(resident_in,
+                                                            ITERS))
+        report(label, res, counts, shape[0] * RGB_HW[0] * RGB_HW[1], secs,
+               warm, resident, explicit)
+
+    # The CLI with an explicit --backend auto and --fast: storage bf16 and
+    # fuse 32 fill in, auto tunes backend and tile.
+    src, dst = tmp / "edge5.raw", tmp / "edge5.auto.raw"
+    label = (f"cli run grey {BIG_HW[0]}x{BIG_HW[1]} edge5 --backend auto "
+             "--mesh 4x4 --fast")
+    argv = ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]), str(ITERS),
+            "grey", "-o", str(dst), "--filter", "edge5", "--backend", "auto",
+            "--mesh", "4x4", "--fast"]
+
+    def run_cli():
+        rc = cli_main(argv)
+        check(rc == 0, f"{label}: the CLI exited {rc}")
+
+    grid4 = make_grid((4, 4), dev)
+    res = tuning.resolve(grid4, edge5, (1, *BIG_HW), storage="bf16", fuse=32)
+    _, counts, secs = drive(label, run_cli,
+                            expected_for(res, edge5, (4, 4), (1, *BIG_HW)),
+                            BIG_HW[0] * BIG_HW[1],
+                            no_halo=res.backend == "cuda_rdma")
+    check(np.array_equal(imageio.read_raw(dst, *BIG_HW, "grey"),
+                         refs["grey_refs"]["edge5"]),
+          f"{label}: differs from shifted")
+    crop = refs["greys"]["edge5"][:ORACLE_CROP, :ORACLE_CROP]
+    small = ConvolutionModel("edge5", grid=grid4, backend="auto",
+                             storage="bf16", fuse=32)
+    check(np.array_equal(small.run_image(crop, 3),
+                         oracle.run_serial_u8(crop, edge5, 3)),
+          f"{label}: 3 iterations on {crop.shape} differ from the oracle")
+    _, warm = host_seconds(run_cli)
+    report(label, res, counts, BIG_HW[0] * BIG_HW[1], secs, warm, None,
+           f"cli run grey {BIG_HW[0]}x{BIG_HW[1]} edge5 --backend cuda_rdma "
+           "--mesh 4x4 --fast")
+    return out_rows
+
+
+def run_tune(argv: list, label: str) -> tuple[dict, list]:
+    """The ``tune`` subcommand in this process: its summary and its
+    measured rows, each printed; no row may be an error."""
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    rows = []
+    for line in err.getvalue().splitlines():
+        print(f"tune {label} row: {line}")
+        if line.startswith("{"):
+            rows.append(json.loads(line))
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and lines != [], f"tune {label} exited {rc}")
+    summary = json.loads(lines[-1])
+    print(f"tune {label} summary: " + json.dumps(summary))
+    check(summary["errors"] == 0 and summary["measured_points"] >= 1,
+          f"tune {label}: {summary['errors']} error rows, "
+          f"{summary['measured_points']} measured")
+    return summary, rows
+
+
+def tune_auto_grids(tmp: Path) -> list:
+    """A measured tune (4 candidates, 32 iterations each) at each auto
+    grid: the model's pick (the shortlist's first row) beside the measured
+    winner, on the same measurement."""
+    out = []
+    for rows_, cols_, mode, name, storage, mesh_, fuses in (
+            (*RGB_HW, "rgb", "blur3", "bf16", "1x1", None),
+            (*RGB_HW, "rgb", "blur3", "bf16", "2x2", None),
+            (*BIG_HW, "grey", "edge5", "bf16", "4x4", "32"),
+            (*RGB_HW, "grey", "blur3", "u8",
+             f"{GREY_GRID[0]}x{GREY_GRID[1]}", None)):
+        label = f"{mode} {rows_}x{cols_} {name} {storage} grid {mesh_}"
+        argv = ["tune", "--rows", str(rows_), "--cols", str(cols_), "--mode",
+                mode, "--filter", name, "--storage", storage, "--mesh", mesh_,
+                "--iters", "32", "--max-measure", "4"]
+        summary, rows = run_tune(argv + (["--fuses", fuses] if fuses else []),
+                                 label)
+        pick, best = rows[0], max(rows, key=lambda r: r["gpixels_per_s_per_chip"])
+        row = {"grid": label,
+               "pick": {k: pick[k] for k in ("effective_backend", "fuse",
+                                             "tile", "gpixels_per_s_per_chip",
+                                             "predicted_gpx_per_chip")},
+               "winner": {k: best[k] for k in ("effective_backend", "fuse",
+                                               "tile", "gpixels_per_s_per_chip",
+                                               "predicted_gpx_per_chip")},
+               "winner_over_pick": best["gpixels_per_s_per_chip"]
+               / pick["gpixels_per_s_per_chip"]}
+        print("pick vs measured winner: " + json.dumps(row))
+        out.append(row)
+    return out
+
+
+def measured_tune(dev, tmp: Path, refs: dict, totals: dict) -> dict:
+    """``tune`` the RGB 2x2 bf16 workload on the card (4 candidates, each
+    at least one full chunk), ``--verify-auto``, then ``auto`` through the
+    plan file must resolve to the measured winner, byte-equal to shifted."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    plans = tmp / "plans.json"
+    summary, _ = run_tune(
+        ["tune", "--rows", str(RGB_HW[0]), "--cols", str(RGB_HW[1]),
+         "--mode", "rgb", "--filter", "blur3", "--storage", "bf16",
+         "--mesh", "2x2", "--iters", "32", "--max-measure", "4",
+         "--emit-plans", "--out", str(plans), "--verify-auto"],
+        "rgb 2x2 --emit-plans")
+    check(summary["auto_ok"], "tune --verify-auto did not round-trip")
+    plan = summary["plan"]
+    check(plan["source"] == "measured", f"tune plan {plan}")
+
+    os.environ[tuning.PLAN_FILE_ENV] = str(plans)
+    try:
+        blur3 = get_filter("blur3")
+        grid = make_grid((2, 2), dev)
+        model = ConvolutionModel("blur3", grid=grid, backend="auto",
+                                 storage="bf16", fuse=None)
+        res = tuning.resolve(grid, blur3, (3, *RGB_HW), storage="bf16")
+        label = "auto rgb blur3 bf16 grid 2x2 through the measured plan file"
+        out_img, counts, secs = drive(
+            label, lambda: model.run_image(refs["rgb"], ITERS),
+            expected_for(res, blur3, (2, 2), (3, *RGB_HW)),
+            3 * RGB_HW[0] * RGB_HW[1], no_halo=res.backend == "cuda_rdma")
+    finally:
+        os.environ.pop(tuning.PLAN_FILE_ENV, None)
+    for k, v in counts.items():
+        totals[k] += v
+    got = model.resolution
+    check(got.source == "measured"
+          and [got.backend, got.fuse, list(got.tile) if got.tile else None]
+          == [plan["backend"], plan["fuse"], plan["tile"]],
+          f"{label}: resolved {got}, the plan file holds {plan}")
+    check(np.array_equal(out_img, refs["rgb_ref"]),
+          f"{label}: differs from shifted")
+    os.environ[tuning.PLAN_FILE_ENV] = str(plans)
+    try:
+        _, warm = host_seconds(lambda: model.run_image(refs["rgb"], ITERS))
+        planar = torch.from_numpy(imageio.interleaved_to_planar(
+            refs["rgb"]).copy()).to(device=dev, dtype=torch.float32)
+        _, resident = host_seconds(lambda: model.run_planar(planar, ITERS))
+    finally:
+        os.environ.pop(tuning.PLAN_FILE_ENV, None)
+    px = 3 * RGB_HW[0] * RGB_HW[1] * ITERS / 1e9
+    return {"plan": plan, "resolution": [got.backend, got.fuse, got.tile,
+                                         got.source],
+            "launches": counts, "gpx_per_s_first": px / secs,
+            "gpx_per_s_warm": px / warm, "gpx_per_s_resident": px / resident}
 
 
 def main() -> int:
@@ -746,7 +1169,7 @@ def main() -> int:
               f"CUDA {torch.version.cuda}")
 
         t0 = time.perf_counter()
-        built = _build.build_all(ptxas_verbose=True)
+        built = _build.build_all()
         each = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
         print(f"build: {time.perf_counter() - t0:.2f} s "
               f"({each or 'up to date'})")
@@ -759,9 +1182,13 @@ def main() -> int:
 
         check_kernels(dev)
         check_rdma_kernels(dev)
+        probe = probe_phase(dev)
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            totals, rows = main_paths(dev, Path(tmp))
+            totals, rows, refs = main_paths(dev, Path(tmp))
+            auto_rows = auto_paths(dev, Path(tmp), refs, rows, totals)
+            picks = tune_auto_grids(Path(tmp))
+            tuned = measured_tune(dev, Path(tmp), refs, totals)
 
         rgb = imageio.generate_test_image(*RGB_HW, "rgb", seed=1)
         grey8k = imageio.generate_test_image(*BIG_HW, "grey", seed=2)
@@ -786,6 +1213,17 @@ def main() -> int:
             print(f"time {name}: " + json.dumps(t))
         for row in rows:
             print("end to end: " + json.dumps(row))
+        for row in auto_rows:
+            print("end to end auto: " + json.dumps(row))
+        print("measured tune: " + json.dumps(tuned))
+        host = time_host_calls(dev)
+        print("time host calls: " + json.dumps(host))
+        from parallel_convolution_tpu_torch.tuning import costmodel
+
+        measured = hardware_constants(k1, k2, k4, probe["op_price"], host)
+        committed = {k: getattr(costmodel.H100, k) for k in measured}
+        print("hardware model: " + json.dumps(
+            {"measured": measured, "committed": committed, "card": card}))
 
         kernels = []
         for name, t in (("stencil_step", k1), ("fused_iterate", k2),
@@ -796,6 +1234,14 @@ def main() -> int:
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        for name, e in probe["entries"].items():
+            b_ms, b_by = e["bound"]
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": e["launches"],
+                "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": e["library_ms"]})
         print(f"card: {card}")
         print(json.dumps({"kernels": kernels}))
     except SmokeFailure as e:

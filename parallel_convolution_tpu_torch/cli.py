@@ -8,6 +8,9 @@ cols, loops, grey|rgb`` — for the subcommands this slice ports:
   serial    the same through the NumPy oracle (the golden path)
   generate  write a deterministic test image
   compare   byte-compare two raw images
+  tune      rank (and measure) the knobs of one workload and write the
+            plan file that --backend auto reads (the JAX package's
+            scripts/tune.py)
 """
 
 from __future__ import annotations
@@ -40,10 +43,11 @@ def _resolve_perf_knobs(args, grid) -> None:
 
     ``--fast`` on the card fills them with the flagship family: cuda_sep,
     bf16 carries, fuse 32 (clamped so blocks stay >= radius·fuse); with an
-    explicit ``--backend`` (e.g. cuda_rdma) only storage and fuse fill in.
-    On the CPU the plain versions run anyway, so ``--fast`` leaves the
-    defaults.  Explicit flags always win; every combination gives the same
-    bytes.
+    explicit ``--backend`` (e.g. cuda_rdma, or auto, which then tunes the
+    backend and tile only) only storage and fuse fill in.  On the CPU the
+    plain versions run anyway, so ``--fast`` leaves the defaults.
+    ``--backend auto`` keeps an unset fuse at None: the tuner picks it.
+    Explicit flags always win; every combination gives the same bytes.
     """
     from parallel_convolution_tpu_torch.ops.filters import get_filter
 
@@ -62,13 +66,74 @@ def _resolve_perf_knobs(args, grid) -> None:
         args.backend = "shifted"
     if args.storage is None:
         args.storage = "f32"
-    if args.fuse is None:
+    if args.fuse is None and args.backend != "auto":
         args.fuse = 1
+
+
+def _tune(args) -> int:
+    """The ``tune`` subcommand: one summary JSON row on stdout, every
+    measured (or error) row on stderr."""
+    import json
+
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import grid_from_spec
+    from parallel_convolution_tpu_torch.tuning import (
+        PlanCache, Workload, resolve, search,
+    )
+
+    grid = grid_from_spec(args.mesh, args.device)
+    filt = get_filter(args.filter_name)
+    shape = (3 if args.mode == "rgb" else 1, args.rows, args.cols)
+    w = Workload.from_grid(grid, filt, shape, storage=args.storage)
+    fuses = ([int(v) for v in args.fuses.split(",")] if args.fuses
+             else None)
+    result = search.tune(w, grid, dry_run=args.dry_run, fuses=fuses,
+                         iters=args.iters, max_measure=args.max_measure)
+    for row in result.rows:
+        print(json.dumps(row), file=sys.stderr, flush=True)
+    plan = result.plan
+    summary = {
+        "workload": {"shape": list(shape), "filter": filt.name,
+                     "storage": args.storage,
+                     "mesh": f"{w.grid[0]}x{w.grid[1]}",
+                     "platform": w.platform, "device_kind": w.device_kind},
+        "plan": plan.to_record(),
+        "plan_key": w.key(),
+        "measured_points": sum(1 for r in result.rows if "error" not in r),
+        "errors": sum(1 for r in result.rows if "error" in r),
+    }
+    if summary["errors"]:
+        # Legality is enumerated from the kernels' own planners, so an
+        # error row is a fault: write no plan that auto would follow.
+        print(json.dumps(summary), flush=True)
+        print(f"error: {summary['errors']} candidate(s) failed to measure; "
+              "no plan written", file=sys.stderr)
+        return 1
+    if args.emit_plans:
+        cache = PlanCache()
+        cache.put(w, plan)
+        summary["plan_file"] = cache.merge_save(args.out)
+        summary["plans_in_file"] = len(cache)
+    if args.verify_auto:
+        # Round trip: auto against the file just written must hand back
+        # this plan with its provenance.
+        res = resolve(grid, filt, shape, storage=args.storage,
+                      fuse=fuses[0] if fuses and len(fuses) == 1 else None,
+                      plans=PlanCache.load(args.out))
+        summary["auto_resolved"] = {
+            "backend": res.backend, "fuse": res.fuse,
+            "tile": list(res.tile) if res.tile else None,
+            "plan_source": res.source}
+        summary["auto_ok"] = bool(
+            (res.backend, res.fuse, res.tile, res.source)
+            == (plan.backend, plan.fuse, plan.tile, plan.source))
+    print(json.dumps(summary), flush=True)
+    return 1 if args.verify_auto and not summary["auto_ok"] else 0
 
 
 def main(argv: list[str] | None = None) -> int:
     from parallel_convolution_tpu_torch.utils.config import (
-        BACKENDS, BOUNDARIES, STORAGES,
+        BACKEND_CHOICES, BOUNDARIES, STORAGES,
     )
 
     ap = argparse.ArgumentParser(prog="python -m parallel_convolution_tpu_torch",
@@ -80,11 +145,15 @@ def main(argv: list[str] | None = None) -> int:
     _add_image_args(run)
     run.add_argument("-o", "--output", required=True)
     run.add_argument("--filter", default="blur3", dest="filter_name")
-    run.add_argument("--backend", default=None, choices=list(BACKENDS),
+    run.add_argument("--backend", default=None,
+                     choices=list(BACKEND_CHOICES),
                      help="correlate implementation (default: shifted); "
                           "cuda / cuda_sep / cuda_rdma are the CUDA kernels "
                           "(the JAX package's pallas / pallas_sep / "
-                          "pallas_rdma)")
+                          "pallas_rdma); auto resolves it, and --fuse / "
+                          "--tile left unset, through the plan file "
+                          "($PCTPU_PLAN_FILE, written by tune) or the cost "
+                          "model")
     run.add_argument("--storage", default=None, choices=list(STORAGES),
                      help="iteration-carry dtype (default: f32)")
     run.add_argument("--fuse", type=int, default=None, metavar="T",
@@ -119,7 +188,44 @@ def main(argv: list[str] | None = None) -> int:
     cmp_.add_argument("a")
     cmp_.add_argument("b")
 
+    tune = sub.add_parser("tune", help="tune one workload; write its plan")
+    tune.add_argument("--rows", type=int, required=True)
+    tune.add_argument("--cols", type=int, required=True)
+    tune.add_argument("--mode", default="grey", choices=["grey", "rgb"])
+    tune.add_argument("--filter", default="blur3", dest="filter_name")
+    tune.add_argument("--storage", default="f32", choices=list(STORAGES))
+    tune.add_argument("--mesh", default=None, metavar="RxC",
+                      help="block grid (default 1x1)")
+    tune.add_argument("--device", default=None,
+                      help="cuda (default) or cpu")
+    tune.add_argument("--fuses", default=None, metavar="T,T,...",
+                      help="restrict the fusion depths (a pin: an illegal "
+                           "one is an error)")
+    tune.add_argument("--iters", type=int, default=8,
+                      help="iterations per measured rep (at least one "
+                           "full chunk of each candidate's fuse)")
+    tune.add_argument("--max-measure", type=int, default=8,
+                      help="measured-refinement budget (model-pruned)")
+    tune.add_argument("--dry-run", action="store_true",
+                      help="cost model only, no device work; the plan "
+                           "carries source='predicted'")
+    tune.add_argument("--emit-plans", action="store_true",
+                      help="merge the winning plan into --out (atomic)")
+    tune.add_argument("--out", default="plans.json",
+                      help="plan file for --emit-plans")
+    tune.add_argument("--verify-auto", action="store_true",
+                      help="after emitting, resolve auto against --out and "
+                           "record auto_ok (requires --emit-plans)")
+
     args = ap.parse_args(argv)
+    if args.cmd == "tune":
+        if args.verify_auto and not args.emit_plans:
+            ap.error("--verify-auto requires --emit-plans")
+        try:
+            return _tune(args)
+        except (RuntimeError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
 
     from parallel_convolution_tpu_torch.utils import imageio
 
@@ -175,9 +281,15 @@ def main(argv: list[str] | None = None) -> int:
                              tile=tile)
     model.run_raw_file(args.image, args.output, args.rows, args.cols,
                        args.mode, args.loops)
+    label = (f"{model.effective_backend}, {args.storage}, "
+             f"fuse {model.effective_fuse}")
+    if model.resolution is not None:
+        res = model.resolution
+        label = (f"auto resolved to {res.backend} [{res.source}], "
+                 f"{args.storage}, fuse {res.fuse}, tile "
+                 f"{'x'.join(map(str, res.tile)) if res.tile else 'default'}")
     print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
-          f"grid ({args.backend}, {args.storage}, fuse {args.fuse}, "
-          f"{device_kind(grid.device)}) -> {args.output}")
+          f"grid ({label}, {device_kind(grid.device)}) -> {args.output}")
     return 0
 
 

@@ -14,7 +14,7 @@ from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
 from parallel_convolution_tpu_torch.utils import imageio
 from parallel_convolution_tpu_torch.utils.config import (
-    check_backend, check_pending, check_run_config,
+    AUTO, check_backend, check_fuse, check_pending, check_run_config,
 )
 
 
@@ -25,18 +25,26 @@ class ConvolutionModel(nn.Module):
       filt: a :class:`Filter` or registry name (default: the reference's
         blur kernel).  Its taps are the module's ``taps`` buffer.
       grid: the block grid; default 1×1 on ``device``.
-      backend: ``shifted`` | ``separable`` | ``xla_conv`` (plain PyTorch) or
+      backend: ``shifted`` | ``separable`` | ``xla_conv`` (plain PyTorch),
         ``cuda`` | ``cuda_sep`` | ``cuda_rdma`` (the CUDA kernels; the JAX
-        package's ``pallas`` | ``pallas_sep`` | ``pallas_rdma``).
+        package's ``pallas`` | ``pallas_sep`` | ``pallas_rdma``), or
+        ``auto``: resolve the backend, and ``fuse`` / ``tile`` where None,
+        through the tuning package (plan cache, else the cost model) for
+        each run's image.
       quantize: u8 store-back each iteration (image semantics); False =
         float mode.
       storage: carry dtype ``f32`` | ``bf16`` | ``u8``.
-      fuse: iterations per halo exchange (temporal fusion).
+      fuse: iterations per halo exchange (temporal fusion); None = let
+        ``backend="auto"`` tune it.
       boundary: ``zero`` | ``periodic``.
       tile: (rows, cols) output tile of the CUDA kernels; any tile gives
         the same bytes.
       device: ``None`` = the card (raises without CUDA); ``"cpu"`` runs the
         plain versions on the CPU.
+    After each run, ``effective_backend``, ``effective_fuse`` and
+    ``plan_source`` (``measured`` | ``interpolated`` | ``predicted``, or
+    ``explicit``) record what ran, and ``resolution`` the
+    ``tuning.Resolution`` of an ``auto`` run.
     The JAX model's ``interior_split``, ``overlap``, ``col_mode`` and
     ``fallback`` belong to later slices and raise ``NotImplementedError``
     when set.
@@ -44,16 +52,17 @@ class ConvolutionModel(nn.Module):
 
     def __init__(self, filt: Filter | str = "blur3", grid: Grid | None = None,
                  backend: str = "shifted", quantize: bool = True,
-                 storage: str = "f32", fuse: int = 1,
+                 storage: str = "f32", fuse: int | None = 1,
                  boundary: str = "zero", tile=None, device=None,
                  interior_split: bool = False, overlap: bool | None = None,
                  col_mode: str | None = None, fallback: bool = False):
         super().__init__()
-        check_backend(backend)
+        check_backend(backend, allow_auto=True)
         check_pending(interior_split=interior_split, overlap=overlap,
                       col_mode=col_mode, fallback=fallback)
         check_run_config(storage, boundary, quantize)
-        if fuse is None or int(fuse) < 1:
+        check_fuse(backend, fuse)
+        if fuse is not None and int(fuse) < 1:
             raise ValueError(f"fuse must be >= 1, got {fuse}")
         filt = get_filter(filt) if isinstance(filt, str) else filt
         if grid is None:
@@ -62,11 +71,17 @@ class ConvolutionModel(nn.Module):
             raise ValueError(f"grid is on {grid.device}, device={device!r}")
         self.grid = grid
         self.backend, self.quantize, self.storage = backend, quantize, storage
-        self.fuse, self.boundary = int(fuse), boundary
+        self.fuse = None if fuse is None else int(fuse)
+        self.boundary = boundary
         self.tile = None if tile is None else tuple(int(v) for v in tile)
         self.filter_name, self.dyadic = filt.name, filt.dyadic
         self.register_buffer("taps", torch.as_tensor(filt.taps.copy(),
                                                      device=grid.device))
+        # What the last run used (None until a run).
+        self.effective_backend: str | None = None
+        self.effective_fuse: int | None = None
+        self.plan_source = "explicit"
+        self.resolution = None
 
     @property
     def filt(self) -> Filter:
@@ -74,14 +89,32 @@ class ConvolutionModel(nn.Module):
         return Filter(self.filter_name, self.taps.detach().cpu().numpy(),
                       self.dyadic)
 
+    def _resolved_knobs(self, shape) -> tuple[str, int, object]:
+        """(backend, fuse, tile) for a (C, H, W) image, resolved through the
+        tuning package when ``backend="auto"``; recorded on the model."""
+        backend, fuse, tile = self.backend, self.fuse, self.tile
+        self.resolution, self.plan_source = None, "explicit"
+        if backend == AUTO:
+            from parallel_convolution_tpu_torch import tuning
+
+            res = tuning.resolve(
+                self.grid, self.filt, tuple(int(v) for v in shape),
+                storage=self.storage, quantize=self.quantize,
+                boundary=self.boundary, fuse=fuse, tile=tile)
+            backend, fuse, tile = res.backend, res.fuse, res.tile
+            self.resolution, self.plan_source = res, res.source
+        self.effective_backend, self.effective_fuse = backend, fuse
+        return backend, fuse, tile
+
     # -- array-level API ----------------------------------------------------
     def run_planar(self, x, iters: int) -> torch.Tensor:
         """(C, H, W) in (numpy or tensor) → (C, H, W) f32 tensor on the
         grid's device after ``iters`` iterations."""
+        backend, fuse, tile = self._resolved_knobs(x.shape)
         return step_lib.sharded_iterate(
             x, self.filt, iters, grid=self.grid, quantize=self.quantize,
-            backend=self.backend, storage=self.storage, fuse=self.fuse,
-            boundary=self.boundary, tile=self.tile)
+            backend=backend, storage=self.storage, fuse=fuse,
+            boundary=self.boundary, tile=tile)
 
     forward = run_planar
 

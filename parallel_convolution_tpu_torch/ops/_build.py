@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 time it is needed, and loaded with ``ctypes`` (a plain C interface: the
 sources include no PyTorch header, so a build takes seconds).  A stamp file
 holds the hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags; a changed source or header rebuilds.  Nothing here runs at import
-time.
+flags; a changed source or header rebuilds.  Every build runs ptxas with
+``-v`` and keeps its report in ``lib<name>.log`` (:func:`ptxas_usage` reads
+the registers, spills and shared memory of each kernel from it).  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,21 +17,23 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("stencil", "rdma")
+SOURCES = ("stencil", "rdma", "probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.POINTER(ctypes.c_float)
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures (argtypes) of every entry point, by library.
 _SIGNATURES = {
     "stencil": {
@@ -50,6 +54,19 @@ _SIGNATURES = {
         # stream
         "pc_rdma_step": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "probes": {
+        # op, in, out, n, af, bf, ai, bi, stream
+        "pc_op_chain": [_I, _P, _P, _L, _F, _F, _IP, _IP, _P],
+        # in, out, n, bytes, opt_in, attr_err, stream
+        "pc_smem_probe": [_P, _P, _I, _L, _I, _IP, _P],
+        # device, value
+        "pc_smem_optin": [_I, _IP],
+        # rung, base, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, C, h,
+        # w, T, taps, k, quantize, convex, mask, valid_h, valid_w, th, tw,
+        # stream
+        "pc_rdma_ladder": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -81,10 +98,10 @@ def _is_fresh(lib: Path, digest: str) -> bool:
     return lib.is_file() and stamp.is_file() and stamp.read_text() == digest
 
 
-def build_all(names=SOURCES, ptxas_verbose: bool = False) -> dict:
+def build_all(names=SOURCES) -> dict:
     """Compile every stale source, all ``nvcc`` processes started together.
 
-    Returns ``{name: {"seconds": s, "log": compiler stderr}}`` for the
+    Returns ``{name: {"seconds": s, "log": compiler output}}`` for the
     sources it built (an up-to-date library is not rebuilt).  Raises
     ``RuntimeError`` with the compiler's output when a build fails.
     """
@@ -95,9 +112,7 @@ def build_all(names=SOURCES, ptxas_verbose: bool = False) -> dict:
         if _is_fresh(lib, digest):
             continue
         tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS,
-               *(["-Xptxas", "-v"] if ptxas_verbose else []),
-               "-o", str(tmp), str(src)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, lib, digest, time.perf_counter())
@@ -109,9 +124,35 @@ def build_all(names=SOURCES, ptxas_verbose: bool = False) -> dict:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{out}{err}")
         os.replace(tmp, lib)
+        lib.with_suffix(".log").write_text(err + out)
         lib.with_suffix(".sha256").write_text(digest)
         done[name] = {"seconds": time.perf_counter() - t0, "log": err + out}
     return done
+
+
+def ptxas_usage(name: str) -> dict:
+    """Per kernel symbol of ``lib<name>.so``'s last build: ``registers``,
+    ``spill_stores``, ``spill_loads`` (bytes) and ``smem`` (static bytes),
+    as ptxas reported them.  Empty when no report was kept."""
+    log = _paths(name)[1].with_suffix(".log")
+    usage, current = {}, None
+    for line in (log.read_text().splitlines() if log.is_file() else []):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = usage.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(s.group(1)) if s else 0
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

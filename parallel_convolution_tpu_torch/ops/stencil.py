@@ -35,8 +35,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 MAX_K = 9                      # csrc/stencil.cu kMaxK
 STEP_TILE = (32, 128)          # K1 output tile (rows, cols)
 FUSED_TILE = (64, 64)          # K2 output tile (rows, cols)
-# Shared memory one block may opt into on the H100 (227 KB); the wrapper
-# reads the card's own figure when torch reports it.
+# Shared memory one block may opt into on the H100 (227 KB): the planners'
+# default; a launch plans with the card's own figure (_smem_limit).
 H100_SMEM_OPTIN = 232448
 
 
@@ -169,9 +169,26 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _smem_limit(device: torch.device) -> int:
+    """The card's opt-in shared memory per block: torch's
+    ``shared_memory_per_block_optin``, else the CUDA runtime's
+    ``cudaDevAttrMaxSharedMemoryPerBlockOptin`` (read through
+    ``csrc/probes.cu``).  Raises when neither answers: a guessed limit
+    could plan a launch the card refuses."""
     props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin",
-                       H100_SMEM_OPTIN))
+    value = getattr(props, "shared_memory_per_block_optin", None)
+    if value:
+        return int(value)
+    from parallel_convolution_tpu_torch.ops import _build
+
+    out = ctypes.c_int(0)
+    err = _build.load_library("probes").pc_smem_optin(
+        torch.device(device).index or 0, ctypes.byref(out))
+    if err != 0 or out.value <= 0:
+        raise RuntimeError(
+            f"cannot read the opt-in shared memory per block of {device}: "
+            "torch has no shared_memory_per_block_optin and "
+            f"cudaDeviceGetAttribute returned error {err}")
+    return int(out.value)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ positions so the result is bit-identical to T single steps.  Backends
 ``ops/stencil.py`` (K1 per level at fuse = 1, K2 for T levels at once);
 ``cuda_rdma`` runs the exchange and the levels of every block in one
 launch (K3 / K4, ``ops/rdma.py``); ``shifted`` / ``separable`` /
-``xla_conv`` are plain PyTorch.
+``xla_conv`` are plain PyTorch.  ``backend="auto"`` (with ``fuse=None`` /
+``tile=None`` to tune those too) resolves through ``tuning.resolve`` before
+anything is built.
 
 Non-divisible images are padded to the next block multiple and re-masked to
 zero every iteration, so outputs stay bit-identical to the serial oracle
@@ -35,7 +37,7 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, join_blocks, make_grid, padded_extent, split_blocks,
 )
 from parallel_convolution_tpu_torch.utils.config import (
-    BACKENDS, BOUNDARIES, STORAGES, check_backend, check_pending,
+    AUTO, BACKENDS, BOUNDARIES, STORAGES, check_backend, check_pending,
     check_run_config, check_storage,
 )
 
@@ -265,6 +267,31 @@ def _prepare(x, grid: Grid, storage: str = "f32"):
     return split_blocks(x, grid), (H, W), (Hp // R, Wp // Cg)
 
 
+def _storage_name(dtype) -> str:
+    for name, dt in STORAGE_DTYPES.items():
+        if dt == dtype:
+            return name
+    raise ValueError(f"no storage holds dtype {dtype}")
+
+
+def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
+                  storage: str, quantize: bool, boundary: str, valid_hw,
+                  channels: int):
+    """``backend='auto'`` -> the concrete ``(backend, fuse, tile, source)``
+    through ``tuning.resolve`` (plan cache if ``PCTPU_PLAN_FILE`` names
+    one, else the cost model).  An explicit backend passes through, with
+    ``fuse=None`` meaning 1 and ``source`` None."""
+    if backend != AUTO:
+        return backend, (1 if fuse is None else int(fuse)), tile, None
+    from parallel_convolution_tpu_torch import tuning
+
+    res = tuning.resolve(
+        grid, filt, (channels, int(valid_hw[0]), int(valid_hw[1])),
+        storage=storage, quantize=quantize, boundary=boundary, fuse=fuse,
+        tile=None if tile is None else tuple(int(v) for v in tile))
+    return res.backend, res.fuse, res.tile, res.source
+
+
 def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
                      quantize: bool = True, backend: str = "shifted",
                      fuse: int | None = 1, boundary: str = "zero",
@@ -272,16 +299,20 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
                      interior_split: bool = False, fallback: bool = False,
                      overlap: bool | None = None, col_mode: str | None = None):
     """Iterate the grid's prepared blocks (from :func:`_prepare`); returns
-    the blocks ``iters`` iterations later, still padded."""
-    check_backend(backend)
+    the blocks ``iters`` iterations later, still padded.  ``auto`` resolves
+    for the blocks' storage and the global ``valid_hw`` image first."""
     check_pending(interior_split=interior_split, fallback=fallback,
                   overlap=overlap, col_mode=col_mode)
     if blocks[0][0].dtype == torch.uint8:
         check_storage("u8", quantize)
     if check_contract:
         _check_quantize_contract(blocks, filt, quantize)
+    backend, fuse, tile, _ = _resolve_auto(
+        grid, filt, backend, fuse, tile, _storage_name(blocks[0][0].dtype),
+        quantize, boundary, valid_hw, blocks[0][0].shape[0])
+    check_backend(backend)
     block_hw = tuple(blocks[0][0].shape[1:])
-    fuse = 1 if fuse is None else int(fuse)
+    fuse = int(fuse)
     if fuse < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
     run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
@@ -300,15 +331,17 @@ def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
     """Run ``iters`` stencil iterations of a global (C, H, W) image over the
     grid.  Returns the global (C, H, W) float32 result on the grid's
     device (bit-identical to the serial oracle in quantize mode for any
-    grid shape).
+    grid shape, whichever backend ``auto`` picks).
 
     ``grid`` defaults to 1×1 on ``device`` (default: the card — it raises
     without CUDA; tests pass ``device='cpu'``).  ``storage`` is the carry
     dtype; ``tile`` = (rows, cols) overrides the CUDA kernels' output tile.
+    ``backend='auto'`` picks the backend, and ``fuse`` / ``tile`` where
+    they are None, through ``tuning.resolve``.
     ``quantize=True`` assumes u8-range input and raises on values outside
     [0, 255] for convex filters.
     """
-    check_backend(backend)
+    check_backend(backend, allow_auto=True)
     check_pending(interior_split=interior_split, fallback=fallback,
                   overlap=overlap, col_mode=col_mode)
     if grid is None:

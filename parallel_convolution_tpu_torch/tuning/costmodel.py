@@ -1,0 +1,365 @@
+"""The port's cost model: the JAX package's roofline ranking functions
+(``tuning/costmodel.py:1-410``) rewritten for one NVIDIA card.
+
+The model ranks the legal candidates of a workload for ``backend="auto"``
+and prunes the measured search; it does not promise times.  What carried
+over from the JAX model, formula for formula: the rim-recompute tax of a
+fused tile (:func:`rim_overhead`), the FMA-slot count
+(:func:`flops_per_px_iter`), ``max(bytes, operations)`` per pixel and
+iteration, the per-chip Gpx/s unit, and the interpret penalty that keeps a
+CPU grid off the kernels.  What was re-derived, because the JAX model
+assumes one block per TPU chip:
+
+* **Hardware.**  :data:`H100`'s constants are rates measured on the card by
+  ``chip_smoke.py`` (each names its row), not TPU v5e figures.
+* **Legality from shared memory.**  The kernels' own planners decide:
+  :func:`effective_tile` and :func:`chunk_groups` call
+  ``stencil.fused_plan`` and ``rdma.rdma_plan``, and :func:`rdma_is_tiled`
+  is ``rdma_plan``'s choice, against the card's opt-in shared memory
+  (``HardwareModel.smem_optin``), so the model and the kernels cannot
+  disagree.  The TPU's (sublane, 128) alignment and ``r·T <= sublane``
+  do not carry over.
+* **The plain backends are eager.**  ``shifted`` / ``separable`` /
+  ``xla_conv`` are PyTorch ops, one pass over the block each
+  (``ops/conv.py``): :func:`hbm_bytes_per_px_iter` charges those passes
+  where the JAX model charged XLA's fused 4 B per iteration.
+* **The exchange on one card** is ``halo.halo_exchange`` (``cuda`` /
+  ``cuda_sep``): a padded copy in device memory, charged in bytes, and six
+  PyTorch copies per block, charged per op on the host.  ``cuda_rdma``
+  exchanges inside its launch and pays neither.
+* **Launches** are a term of their own (:func:`host_seconds_per_chunk`):
+  K1 one per level and block, K2 one per level group and block, K3 / K4 one
+  per chunk for the whole grid plus K2 per block for later level groups.
+* **The quantize** is priced from probe 5a (``rintf``), not as the TPU's
+  two-add magic round.
+* **Overlap and column mode** are inert on one card: every block is in one
+  launch, so no transfer is in flight to hide, and there is no column
+  transport.  The model has no term for them; candidates carry ``False``
+  and ``"packed"`` (``search.Candidate``).
+
+Pure arithmetic on Python numbers plus the planners' arithmetic: no device
+access, so it runs the same on the CPU and beside the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from parallel_convolution_tpu_torch.ops.rdma import rdma_plan
+from parallel_convolution_tpu_torch.ops.stencil import (
+    H100_SMEM_OPTIN, STEP_TILE, fused_plan,
+)
+
+STORAGE_BYTES = {"f32": 4, "bf16": 2, "u8": 1}
+
+CUDA_BACKENDS = ("cuda", "cuda_sep", "cuda_rdma")
+PLAIN_BACKENDS = ("shifted", "xla_conv", "separable")
+SEPARABLE_BACKENDS = ("separable", "cuda_sep")
+
+# On a CPU grid the CUDA backends run their plain versions, far slower
+# than the card; the factor only has to dominate every real difference so
+# that backend="auto" on the CPU picks a plain backend, as the JAX
+# package's CPU mesh does.
+INTERPRET_PENALTY = 1e4
+
+# Bytes per pixel of one level of the eager plain backends (f32 working
+# values): every tap of ops/conv.py is a multiply (read 4, write 4) and an
+# add (read 8, write 4), after a zero accumulator (write 4); F.conv2d reads
+# its input once and writes once; the u8 store-back is a round and a clamp
+# (read 4, write 4 each); a mask is one multiply (read 4, write 4).
+_TAP_BYTES = 20
+_QUANTIZE_BYTES = 16
+_MASK_BYTES = 8
+# PyTorch ops per block of one halo exchange (halo.halo_exchange: the
+# padded block, its interior and four ghost bands).
+HALO_OPS_PER_BLOCK = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareModel:
+    """Rates of one device kind.
+
+    ``hbm_gbps`` is the device-memory rate the port's kernels achieve;
+    ``flop_gops`` the card's issue ceiling in FMA-slot operations (2 per
+    FMA), which prices the plain backends' arithmetic; ``tap_gops`` and
+    ``sep_tap_gops`` the rates the fused kernels (K2 / K3 / K4) achieve in
+    the same unit in the 2-D and the separable tap order, where every tap
+    reads shared memory; ``quantize_slots`` the u8 store-back per pixel
+    and level in slots; ``launch_s`` the host's seconds per kernel wrapper
+    call and ``op_s`` per eager PyTorch op; ``smem_optin`` the opt-in
+    shared memory per block that legality is decided against.
+    ``plain_kernels`` marks a host where the CUDA backends run their plain
+    versions (the interpret penalty applies).
+    """
+
+    name: str
+    hbm_gbps: float
+    flop_gops: float
+    tap_gops: float
+    sep_tap_gops: float
+    quantize_slots: float
+    launch_s: float
+    op_s: float
+    smem_optin: int = H100_SMEM_OPTIN
+    plain_kernels: bool = False
+
+
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, every rate from one run of
+# chip_smoke.py on the card (its "hardware model" line; the rows named):
+#   hbm_gbps     "time stencil_step rgb blur3 f32": K1's bytes / its time
+#   flop_gops    "probe op_price fma f32": 2 x its gops_per_s
+#   tap_gops     "time rdma_tiled rgb 2x2 blur3 bf16 T=32": K4's executed
+#                slots (flops_per_px_iter x px x T) / its time
+#   sep_tap_gops "time fused_iterate rgb blur3 bf16 T=32": K2 (separable)
+#                the same way
+#   quantize_slots  2 x (per_step_vs_f32_fma of "rint+add" - of "add")
+#   launch_s, op_s  "time host calls": a K1 wrapper call and a slice copy
+#                on a tiny block, host clock over many calls
+H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=1627.4,
+                     flop_gops=46588.8, tap_gops=10678.8, sep_tap_gops=6799.5,
+                     quantize_slots=10.127, launch_s=51.15e-6, op_s=9.74e-6)
+
+# Generic host: rough figures; on the CPU the model only has to crush the
+# kernels (their plain versions run there) and rank the plain backends
+# deterministically.  It prices the plain backends as the JAX package's
+# host model prices its XLA tiers (4 B per pixel and iteration, no host
+# term), so a CPU grid resolves as the JAX package's one-device CPU mesh.
+CPU_HOST = HardwareModel("cpu", hbm_gbps=20.0, flop_gops=50.0, tap_gops=50.0,
+                         sep_tap_gops=50.0, quantize_slots=2.0,
+                         launch_s=20e-6, op_s=20e-6, plain_kernels=True)
+
+
+def hardware_for(platform: str, device_kind: str = "") -> HardwareModel:
+    """The model for a platform / device name: every card gets the H100's
+    rates under its own name (right order of magnitude; ranking is what
+    matters), anything else the host model."""
+    if platform == "gpu":
+        return dataclasses.replace(H100, name=device_kind.strip() or "gpu")
+    return dataclasses.replace(CPU_HOST, name=platform or "cpu")
+
+
+def hardware_for_grid(grid) -> HardwareModel:
+    """:func:`hardware_for` the grid's device, with the card's own opt-in
+    shared memory."""
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.utils.platform import device_kind
+
+    if grid.device.type != "cuda":
+        return hardware_for("cpu")
+    return dataclasses.replace(hardware_for("gpu", device_kind(grid.device)),
+                               smem_optin=stencil._smem_limit(grid.device))
+
+
+def effective_tile(backend: str, tile, block_hw, radius: int, fuse: int,
+                   smem_limit: int = H100_SMEM_OPTIN):
+    """The output tile a chunk's first launch uses: K1's at fuse 1, else
+    K2's or K4's from the kernels' own planners, clamped to the block.
+    None for the plain backends and for K3 (the whole block is its tile)."""
+    if backend not in CUDA_BACKENDS:
+        return None
+    T = max(1, int(fuse))
+    h, w = block_hw
+    if backend == "cuda_rdma":
+        plan = rdma_plan(radius, T, block_hw, tile, smem_limit)
+        return None if plan.kernel == "block" else tuple(plan.tile)
+    if T == 1:
+        th, tw = tile if tile is not None else STEP_TILE
+        return (max(1, min(int(th), h)), max(1, min(int(tw), w)))
+    th, tw, _ = fused_plan(radius, T, block_hw, tile, smem_limit)
+    return (th, tw)
+
+
+def chunk_groups(backend: str, fuse: int, tile, block_hw, radius: int,
+                 smem_limit: int = H100_SMEM_OPTIN) -> list[int]:
+    """Levels per launch of one chunk: the planners' level groups for the
+    fused kernels, one group otherwise."""
+    T = max(1, int(fuse))
+    if backend == "cuda_rdma":
+        return list(rdma_plan(radius, T, block_hw, tile, smem_limit).groups)
+    if backend in ("cuda", "cuda_sep") and T > 1:
+        return list(fused_plan(radius, T, block_hw, tile, smem_limit)[2])
+    return [T]
+
+
+def rdma_is_tiled(block_hw, radius: int, fuse: int,
+                  smem_limit: int = H100_SMEM_OPTIN) -> bool:
+    """Whether ``cuda_rdma`` runs K4 (tiled) rather than K3 (whole block):
+    ``rdma.rdma_plan``'s choice."""
+    return rdma_plan(radius, max(1, int(fuse)), block_hw, None,
+                     smem_limit).kernel == "tiled"
+
+
+def rim_overhead(fuse: int, tile_hw, radius: int) -> float:
+    """Extra-compute fraction from recomputing the shrinking overlap rim.
+
+    A fused kernel computes level ``s`` (1-based) of a (th, tw) output
+    tile on the extended extent (th + 2r(T-s))(tw + 2r(T-s)); the sum
+    over levels, normalized by T*th*tw, minus 1, is the recompute tax.
+    (The JAX package's formula, unchanged.)
+    """
+    T = max(1, int(fuse))
+    th, tw = tile_hw
+    total = sum((th + 2 * radius * (T - s)) * (tw + 2 * radius * (T - s))
+                for s in range(1, T + 1))
+    return total / (T * th * tw) - 1.0
+
+
+def flops_per_px_iter(k: int, separable: bool, quantize: bool,
+                      fuse: int, rim_tile, radius: int,
+                      quantize_slots: float = 2.0) -> float:
+    """FMA-slot work per pixel per iteration: 2 slots per MAC (2k MACs
+    separable, k² in the 2-D order), plus the u8 store-back, times the
+    rim tax on ``rim_tile``.  The JAX formula, with the store-back's price
+    a parameter: the TPU's magic round cost 2 slots; on the card it is
+    ``rintf``, priced by probe 5a (``HardwareModel.quantize_slots``)."""
+    macs = 2 * k if separable else k * k
+    slots = 2.0 * macs + (quantize_slots if quantize else 0.0)
+    return slots * (1.0 + rim_overhead(fuse, rim_tile, radius))
+
+
+def _window(tile, depth: int) -> float:
+    """A depth-deep window's area over its tile's area."""
+    th, tw = tile
+    return (th + 2 * depth) * (tw + 2 * depth) / (th * tw)
+
+
+def _eager_level_bytes(backend: str, k: int, quantize: bool) -> float:
+    if backend == "xla_conv":
+        taps = 8.0
+    elif backend == "separable":
+        taps = 2 * (4.0 + _TAP_BYTES * k)
+    else:
+        taps = 4.0 + _TAP_BYTES * k * k
+    return taps + (_QUANTIZE_BYTES if quantize else 0.0)
+
+
+def hbm_bytes_per_px_iter(backend: str, storage: str, fuse: int, tile,
+                          block_hw, radius: int, k: int = 3,
+                          quantize: bool = True, ragged: bool = False,
+                          smem_limit: int = H100_SMEM_OPTIN,
+                          host: bool = False) -> float:
+    """Device-memory bytes per pixel per iteration, B the storage width.
+
+    * ``cuda`` / ``cuda_sep``: the halo exchange's padded copy (read B,
+      write B over the r·T-padded block) once per chunk, then each launch
+      reads its tiles' windows (B for the first level group, f32 after)
+      and writes once (B for the last group, f32 before);
+    * ``cuda_rdma``: no padded copy; K3 reads its block once, K4 its
+      tiles' windows straight from the neighbours; later groups as K2;
+    * the plain backends: the padded copy, the conversion to f32, every
+      eager pass of each level (:func:`_eager_level_bytes`) on the
+      shrinking extended block, the masks of the inner levels (and of
+      every level on a ragged grid), and the conversion back.  On the
+      ``host`` model, the JAX package's 4 B per iteration instead.
+    """
+    B = STORAGE_BYTES[storage]
+    T = max(1, int(fuse))
+    r = radius
+    pad = B * (1.0 + _window(block_hw, r * T))
+    if backend in PLAIN_BACKENDS:
+        if host:
+            return 4.0 * B
+        convert = 0.0 if B == 4 else 2 * (B + 4.0)
+        masks = (T - 1) + (1 if ragged else 0)
+        level = _eager_level_bytes(backend, k, quantize)
+        levels = (T * level * (1.0 + rim_overhead(T, block_hw, r))
+                  + masks * _MASK_BYTES)
+        return (pad + convert + levels) / T
+    tile_eff = effective_tile(backend, tile, block_hw, r, T, smem_limit)
+    groups = chunk_groups(backend, T, tile, block_hw, r, smem_limit)
+    total = 0.0 if backend == "cuda_rdma" else pad
+    left = T
+    for i, g in enumerate(groups):
+        left -= g
+        in_b = B if i == 0 else 4
+        out_b = B if left == 0 else 4
+        if i == 0 and tile_eff is None:  # K3: the whole block, read once
+            total += in_b + out_b
+        else:
+            total += in_b * _window(tile_eff or block_hw, r * g) + out_b
+    return total / T
+
+
+def ops_per_px_iter(backend: str, fuse: int, tile, block_hw, k: int,
+                    separable: bool, quantize: bool, radius: int,
+                    hw: HardwareModel) -> float:
+    """:func:`flops_per_px_iter` over the chunk's level groups, each on the
+    tile it runs (the block for the plain backends and for K3)."""
+    T = max(1, int(fuse))
+    groups = chunk_groups(backend, T, tile, block_hw, radius, hw.smem_optin)
+    rim_tile = (effective_tile(backend, tile, block_hw, radius, T,
+                               hw.smem_optin) or block_hw)
+    return sum(g * flops_per_px_iter(k, separable, quantize, g, rim_tile,
+                                     radius, hw.quantize_slots)
+               for g in groups) / T
+
+
+def host_seconds_per_chunk(backend: str, grid, fuse: int, groups, k: int,
+                           quantize: bool, storage: str, ragged: bool,
+                           hw: HardwareModel) -> float:
+    """The host's seconds to issue one chunk over the whole grid: kernel
+    wrapper calls at ``launch_s``, eager PyTorch ops at ``op_s``.
+
+    ``cuda`` / ``cuda_sep`` pay the halo exchange (six copies per block)
+    and one launch per block and level (K1) or level group (K2);
+    ``cuda_rdma`` one launch for the grid and its pointer table, plus K2
+    per block for each later level group; the plain backends every eager
+    op of every level on every block (none on the host model, as in the
+    JAX package's).
+    """
+    nb = grid[0] * grid[1]
+    T = max(1, int(fuse))
+    if backend in PLAIN_BACKENDS:
+        if hw.plain_kernels:
+            return 0.0
+        per_level = {"shifted": 1 + 2 * k * k, "separable": 2 + 4 * k,
+                     "xla_conv": 3}[backend] + (2 if quantize else 0) + 1
+        convert = 0 if storage == "f32" else 2
+        return nb * (HALO_OPS_PER_BLOCK + convert + T * per_level) * hw.op_s
+    if backend == "cuda_rdma":
+        later = len(groups) - 1
+        return ((1 + nb * later) * hw.launch_s
+                + (4 + (1 if later else 0)) * hw.op_s)
+    launches = nb * (T if T == 1 else len(groups))
+    ops = nb * (HALO_OPS_PER_BLOCK + (1 if T == 1 and ragged else 0))
+    return launches * hw.launch_s + ops * hw.op_s
+
+
+def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
+                                shape, block_hw, grid, k: int,
+                                separable: bool, quantize: bool,
+                                hw: HardwareModel,
+                                ragged: bool = False) -> float:
+    """Seconds per pixel (of the C·H·W grid) per iteration:
+    ``max(bytes, operations)`` on the card plus the host's issue time.
+
+    Bytes go at ``hbm_gbps``; the fused kernels' slots at ``tap_gops``
+    (``sep_tap_gops`` in the separable order), the plain backends' at
+    ``flop_gops``.  The JAX model's overlap and column-mode terms do not
+    exist on one card.
+    """
+    radius = k // 2
+    T = max(1, int(fuse))
+    sep = separable and backend in SEPARABLE_BACKENDS
+    nbytes = hbm_bytes_per_px_iter(backend, storage, T, tile, block_hw,
+                                   radius, k, quantize, ragged,
+                                   hw.smem_optin, hw.plain_kernels)
+    ops = ops_per_px_iter(backend, T, tile, block_hw, k, sep, quantize,
+                          radius, hw)
+    if backend not in CUDA_BACKENDS:
+        rate = hw.flop_gops
+    else:
+        rate = hw.sep_tap_gops if sep else hw.tap_gops
+    groups = chunk_groups(backend, T, tile, block_hw, radius, hw.smem_optin)
+    pixels = shape[0] * grid[0] * grid[1] * block_hw[0] * block_hw[1]
+    t_host = host_seconds_per_chunk(backend, grid, T, groups, k, quantize,
+                                    storage, ragged, hw) / (T * pixels)
+    t = max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9)) + t_host
+    if backend in CUDA_BACKENDS and hw.plain_kernels:
+        t *= INTERPRET_PENALTY
+    return t
+
+
+def predict_gpx_per_chip(seconds_per_px_iter: float) -> float:
+    """Gpixels/sec/chip implied by a per-px-iter time (the bench unit)."""
+    return 1.0 / (seconds_per_px_iter * 1e9)

@@ -14,6 +14,8 @@ hand-written CUDA kernels that replace them, one to one:
     pallas_rdma      cuda_rdma   (K3 rdma_block / K4 rdma_tiled: the halo
                                   exchange inside the launch)
 
+``auto`` resolves to one of those names through the port's own tuning
+package (plan cache, then the cost model) before anything is built.
 Everything the JAX package offers beyond this slice raises
 ``NotImplementedError`` naming its item in ROADMAP.md ("Port: still to
 port"), never silently ignored.
@@ -23,6 +25,9 @@ from __future__ import annotations
 
 BACKENDS = ("shifted", "xla_conv", "cuda", "separable", "cuda_sep",
             "cuda_rdma")
+# "auto": resolve the backend (and an unset fuse / tile) through tuning/.
+AUTO = "auto"
+BACKEND_CHOICES = BACKENDS + (AUTO,)
 STORAGES = ("f32", "bf16", "u8")
 BOUNDARIES = ("zero", "periodic")
 
@@ -36,17 +41,12 @@ BACKEND_FROM_REFERENCE = {
     "pallas_rdma": "cuda_rdma",
 }
 
-# Backends of the JAX package that later slices port.
-PENDING_BACKENDS = {
-    "auto": "item 3 (auto / fallback)",
-}
-
 _SEPARATE_CARDS = "item 10 (blocks on separate cards)"
 
 # Knobs of the JAX entry points that later slices port: name -> ROADMAP item.
 PENDING_KNOBS = {
     "interior_split": "item 2 (interior_split)",
-    "fallback": "item 3 (auto / fallback)",
+    "fallback": "item 3b (fallback)",
     "overlap": _SEPARATE_CARDS,
     "col_mode": _SEPARATE_CARDS,
 }
@@ -58,16 +58,22 @@ def pending(what: str, item: str) -> NotImplementedError:
         f"{item}")
 
 
-def check_backend(backend: str) -> None:
-    """Raise on a backend this slice does not have."""
-    if backend in PENDING_BACKENDS:
-        raise pending(f"backend {backend!r}", PENDING_BACKENDS[backend])
-    if backend not in BACKENDS:
+def check_backend(backend: str, allow_auto: bool = False) -> None:
+    """Raise on a backend this slice does not have (``auto`` only where the
+    caller resolves it)."""
+    if backend not in (BACKEND_CHOICES if allow_auto else BACKENDS):
         hint = BACKEND_FROM_REFERENCE.get(backend)
         raise ValueError(
-            f"unknown backend {backend!r}; available: {BACKENDS}"
+            f"unknown backend {backend!r}; available: "
+            f"{BACKEND_CHOICES if allow_auto else BACKENDS}"
             + (f" (the JAX package's {backend!r} is {hint!r} here)"
                if hint else ""))
+
+
+def check_fuse(backend: str, fuse) -> None:
+    """``fuse=None`` asks the tuner for the depth, which only ``auto`` does."""
+    if fuse is None and backend != AUTO:
+        raise ValueError("fuse=None means 'tune it' and needs backend='auto'")
 
 
 def check_pending(**knobs) -> None:

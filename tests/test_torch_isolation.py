@@ -52,6 +52,17 @@ def test_scanner_tells_the_prefix_apart(tmp_path):
 
 
 def test_port_has_its_kernel_sources():
-    for name in ("stencil.cu", "rdma.cu", "stencil_common.cuh"):
+    for name in ("stencil.cu", "rdma.cu", "probes.cu", "stencil_common.cuh",
+                 "rdma_common.cuh"):
         assert (PORT / "csrc" / name).is_file()
     assert len(SOURCES) > 15
+
+
+def test_scan_covers_tuning_probes_and_bench():
+    scanned = {p.relative_to(PORT).as_posix() for p in SOURCES
+               if PORT in p.parents}
+    for name in ("tuning/__init__.py", "tuning/costmodel.py",
+                 "tuning/plans.py", "tuning/search.py", "probes/__init__.py",
+                 "probes/op_price.py", "probes/smem_budget.py",
+                 "probes/rdma_ladder.py", "utils/bench.py"):
+        assert name in scanned

@@ -15,12 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from parallel_convolution_tpu_torch import probes, tuning
 from parallel_convolution_tpu_torch.models import ConvolutionModel
 from parallel_convolution_tpu_torch.ops import oracle, rdma, stencil
 from parallel_convolution_tpu_torch.ops.filters import (
     gaussian, get_filter, make_filter,
 )
 from parallel_convolution_tpu_torch.parallel import halo, mesh
+from parallel_convolution_tpu_torch.probes import (
+    op_price, rdma_ladder, smem_budget,
+)
 from parallel_convolution_tpu_torch.utils import imageio
 
 FILTERS = ["blur3", "gaussian5", "edge5", "sharpen3"]
@@ -324,3 +328,103 @@ def test_rdma_cuda_tensors_never_reach_the_plain_version(cuda_device,
                torch.zeros((1, 8, 8))]]
     with pytest.raises(ValueError, match="one shape, dtype and device"):
         rdma.fused_rdma_step(blocks, f, (1, 2), "periodic")
+
+
+# ---------------------------------------------------------------------------
+# TPU kernel 5: the probes (csrc/probes.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype,ops", op_price.CANDIDATES)
+def test_op_chain_kernel_matches_plain(cuda_device, op, dtype, ops):
+    x = op_price.make_input(dtype, rows=64, cols=512, seed=3).to(cuda_device)
+    before = op_price.op_chain.launches
+    got = op_price.op_chain(x, op, dtype)
+    torch.cuda.synchronize()
+    assert op_price.op_chain.launches == before + 1
+    assert got.shape == (op_price.CHAINS, 64, 512)
+    assert torch.equal(got, op_price.op_chain_plain(x, op, dtype))
+
+
+@pytest.mark.cuda
+def test_smem_probe_steps_classify(cuda_device):
+    rows = smem_budget.measure(cuda_device)
+    assert [r["error_class"] for r in rows] == [
+        "ok" if r["fits"] else "clean_refusal" for r in rows]
+    assert [r["fits"] for r in rows] == [True, False, True, True, False,
+                                         False]
+    assert rows[0]["optin_runtime"] == stencil._smem_limit(cuda_device)
+    x = torch.ones(100, device=cuda_device)
+    out, attr, err = smem_budget.smem_probe(x, 0, False)
+    torch.cuda.synchronize()
+    assert (attr, err) == (0, 0) and torch.equal(out, x + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape,boundary", [((2, 2), "zero"),
+                                                 ((1, 3), "periodic")])
+@pytest.mark.parametrize("rung", rdma_ladder.RUNGS)
+def test_rdma_ladder_matches_plain(cuda_device, rung, grid_shape, boundary):
+    f = get_filter("blur3")
+    blocks = _grid_blocks(71, grid_shape, (40, 52), "bf16", cuda_device)
+    x = rdma.stack_blocks(blocks, grid_shape)
+    valid = (None if boundary == "periodic"
+             else (40 * grid_shape[0] - 3, 52 * grid_shape[1] - 1))
+    args = (x, f, grid_shape, boundary, 3, rung, valid)
+    got = rdma_ladder.rdma_ladder(*args, tile=(16, 32))
+    torch.cuda.synchronize()
+    assert torch.equal(got, rdma_ladder.rdma_ladder_plain(*args))
+    if rung == "r3_levels":
+        k4 = rdma.rdma_tiled(x, f, grid_shape, boundary, 3, valid,
+                             tile=(16, 32))
+        assert torch.equal(got, k4)
+
+
+@pytest.mark.cuda
+def test_probe_counts_are_their_own(cuda_device):
+    probes.reset_launch_counts()
+    stencil.reset_launch_counts()
+    x = op_price.make_input("f32", rows=8, cols=64).to(cuda_device)
+    op_price.op_chain(x, "add", "f32")
+    assert probes.launch_counts()["op_chain"] == 1
+    assert not any(stencil.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# backend="auto" on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_resolve_on_card_picks_a_cuda_backend(cuda_device):
+    """The BASELINE RGB workload (1920x2520 blur3) on one card."""
+    res = tuning.resolve(mesh.make_grid(device=cuda_device),
+                         get_filter("blur3"), (3, 1920, 2520),
+                         storage="bf16", plans=tuning.PlanCache())
+    assert res.backend in ("cuda", "cuda_sep", "cuda_rdma")
+    assert res.source == "predicted" and res.fuse >= 1
+    assert res.key == tuning.Workload.from_grid(
+        mesh.make_grid(device=cuda_device), get_filter("blur3"),
+        (3, 1920, 2520), storage="bf16").key()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape,storage", [((1, 1), "bf16"),
+                                                ((2, 2), "u8")])
+def test_auto_end_to_end_matches_shifted(cuda_device, grid_shape, storage,
+                                         monkeypatch):
+    monkeypatch.delenv(tuning.PLAN_FILE_ENV, raising=False)
+    f = get_filter("blur3")
+    img = imageio.generate_test_image(97, 131, "rgb", seed=12)
+    grid = mesh.make_grid(grid_shape, cuda_device)
+    model = ConvolutionModel("blur3", grid=grid, backend="auto",
+                             storage=storage, fuse=None)
+    stencil.reset_launch_counts()
+    got = model.run_image(img, 7)
+    assert any(stencil.launch_counts().values())
+    assert model.effective_backend in ("cuda", "cuda_sep", "cuda_rdma")
+    want = ConvolutionModel("blur3", grid=grid, backend="shifted").run_image(
+        img, 7)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, oracle.run_serial_u8(img, f, 7))

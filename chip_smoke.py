@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``parallel_convolution_tpu_torch/csrc`` with
-   nvcc (all sources at once) and print the build seconds and ptxas usage;
+   nvcc (all sources at once) and print the build seconds, and ptxas's
+   registers for every template instance of the level loop (K2, K3, K4,
+   5c r3); a spill fails;
 3. every kernel against its plain PyTorch version on the card: filters
    blur3 / gaussian5 / edge5 / sharpen3, storage f32 / bf16 / u8, quantize
    on and off, separable on and off, T in {1, 2, 8, 32}, zero and periodic
@@ -33,7 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
 5. times with CUDA events after a warm-up: each kernel at the main path's
    shapes (K3 / K4 as the launch alone, its arguments bound once, and as
    the whole wrapper call), its plain version, ``F.conv2d`` (TF32 off) as the one-call
-   yardstick of K1 and of K3 / K4 at T = 1, each kernel's bound, and
+   yardstick of K1 and of K3 / K4 at T = 1, each kernel's bound and its
+   fraction of it, the level loop's launch shape (strip height V, tile,
+   threads, blocks per SM from the occupancy calculator), and
    end-to-end Gpx/s of each path's counted first run, of a second (warm)
    run, and of the model on an image already on the card (the host's share
    of the time is the difference);
@@ -149,6 +153,46 @@ def agree(got, want, filt, levels, quantize) -> tuple[bool, float]:
     rtol, atol = stencil.float_tolerance(filt, levels, got.dtype)
     return bool(torch.allclose(got.to(torch.float32), want.to(torch.float32),
                                rtol=rtol, atol=atol)), err
+
+
+# Kernels that run the level loop (csrc/stencil_common.cuh:run_levels), by
+# library, and the names of their template parameters.
+LEVEL_LOOP_KERNELS = {
+    "stencil": {"fused_iterate_kernel": ("K", "EPI", "SEP")},
+    "rdma": {"rdma_block_kernel": ("K", "EPI"),
+             "rdma_tiled_kernel": ("K", "EPI")},
+    "probes": {"rdma_ladder_kernel": ("RUNG", "K", "EPI")},
+}
+
+
+def print_level_loop_ptxas() -> None:
+    """ptxas's registers and spills for every template instance of the
+    level loop, one line per kernel; fails on a spill."""
+    import re
+
+    from parallel_convolution_tpu_torch.ops import _build
+
+    for lib, kernels in LEVEL_LOOP_KERNELS.items():
+        usage = _build.ptxas_usage(lib)
+        for kernel, params in kernels.items():
+            inst = {}
+            for sym, u in usage.items():
+                m = re.search(kernel + r"I((?:L[ib]\d+E)+)E", sym)
+                if not m:
+                    continue
+                vals = re.findall(r"L[ib](\d+)E", m.group(1))
+                if kernel == "rdma_ladder_kernel" and vals[0] != "3":
+                    continue  # r0-r2 run no levels
+                key = " ".join(f"{p}={v}" for p, v in zip(params, vals))
+                inst[key] = [u.get("registers"), u.get("spill_stores", 0),
+                             u.get("spill_loads", 0)]
+            check(inst != {}, f"ptxas: no instance of {kernel} in lib{lib}")
+            regs = [v[0] for v in inst.values()]
+            spills = {k: v for k, v in inst.items() if v[1] or v[2]}
+            print(f"ptxas {kernel}: {len(inst)} instances, registers "
+                  f"{min(regs)}-{max(regs)}, spilling {len(spills)}; "
+                  + json.dumps({k: v[0] for k, v in inst.items()}))
+            check(not spills, f"ptxas: {kernel} spills in {spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -270,9 +314,10 @@ def check_rdma_kernels(dev) -> dict:
                             worst[kind] = max(worst[kind], err)
                             n += 1
     # 32 levels in one chunk: K3 whole (r = 1, 100 x 100 blocks fit), and
-    # K4 for 16 levels then K2 for 16 (r = 2, 64 x 70 blocks do not).
-    for name, bhw, groups in (("blur3", (100, 100), 1), ("edge5", (64, 70), 2),
-                              ("gaussian5", (64, 70), 2)):
+    # K4 for 8 levels then K2 for 3 x 8 (r = 2, 130 x 136 blocks do not).
+    for name, bhw, groups in (("blur3", (100, 100), 1),
+                              ("edge5", (130, 136), 4),
+                              ("gaussian5", (130, 136), 4)):
         f = get_filter(name)
         for storage in ("bf16", "u8"):
             blocks = blocks_of((2, 2), bhw, storage, channels=1)
@@ -347,6 +392,15 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def launch_shape(blocks_per_sm: int) -> dict:
+    """The level loop's launch shape: strip height V (as built), threads
+    per block, and the blocks one SM holds (the occupancy calculator)."""
+    from parallel_convolution_tpu_torch.ops import _build, stencil
+
+    return {"V": _build.load_library("stencil").pc_strip_height(),
+            "threads": stencil.FUSED_THREADS, "blocks_per_sm": blocks_per_sm}
+
+
 def time_step(img, filt, storage, dev) -> dict:
     """K1 as ConvolutionModel(backend='cuda', f32, fuse=1) calls it."""
     import torch
@@ -373,7 +427,7 @@ def time_step(img, filt, storage, dev) -> dict:
     b_ms, b_by = bound(nbytes, C * level_ops(filt, False, H, W, True, False))
     return dict(shape=list(p.shape), dtype=str(p.dtype), max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes,
+                bound_by=b_by, fraction_of_bound=b_ms / ms, bytes=nbytes,
                 achieved_gbps=nbytes / (ms / 1e3) / 1e9)
 
 
@@ -406,8 +460,10 @@ def time_fused(img, filt, storage, T, sep, dev) -> dict:
     return dict(shape=list(p.shape), dtype=str(p.dtype), T=T, tile=[th, tw],
                 groups=groups, launches_per_call=per_call,
                 rim_tax=[stencil.rim_tax(r, g, (th, tw)) for g in groups],
+                **launch_shape(stencil.fused_blocks_per_sm(
+                    p, filt, T, (h, w), separable=sep)),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, fraction_of_bound=b_ms / ms)
 
 
 def time_rdma(kind, img, filt, storage, grid_shape, T, dev) -> dict:
@@ -443,6 +499,7 @@ def time_rdma(kind, img, filt, storage, grid_shape, T, dev) -> dict:
     tile = stencil.FUSED_TILE if kind == "rdma_tiled" else None
     fire, _ = rdma._bind(kind == "rdma_tiled", x, filt, grid_shape, "zero",
                          T, valid, True, None, 0, tile)
+    shape = launch_shape(fire(occupancy=True))
     ms = cuda_ms(fire, reps=50 if T == 1 else 20)
     call_ms = cuda_ms(call, reps=20 if T == 1 else 10)
     plain_ms = cuda_ms(plain, reps=2, warmup=1)
@@ -461,9 +518,10 @@ def time_rdma(kind, img, filt, storage, grid_shape, T, dev) -> dict:
     nbytes = 2 * got.numel() * got.element_size()  # each block in once, out once
     b_ms, b_by = bound(nbytes, ops)
     return dict(grid=list(grid_shape), block=[C, h, w], dtype=str(got.dtype),
-                T=T, max_abs_err=err, ms=ms, call_ms=call_ms,
+                T=T, tile=list(tile) if tile else [h, w], **shape,
+                max_abs_err=err, ms=ms, call_ms=call_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, fraction_of_bound=b_ms / ms)
 
 
 def time_rdma_chunk(img, filt, storage, grid_shape, T, dev) -> dict:
@@ -874,13 +932,15 @@ def time_host_calls(dev, n: int = 400) -> dict:
 
 def hardware_constants(k1, k2, k4, price, host) -> dict:
     """``tuning.costmodel.H100``'s constants as this run measures them."""
+    from parallel_convolution_tpu_torch.ops import stencil
     from parallel_convolution_tpu_torch.ops.filters import get_filter
     from parallel_convolution_tpu_torch.tuning import costmodel
 
     blur3 = get_filter("blur3")
     rows = {(r["op"], r["dtype"]): r for r in price}
-    q = 2 * (rows[("rint+add", "f32")]["per_step_vs_f32_fma"]
-             - rows[("add", "f32")]["per_step_vs_f32_fma"])
+    step = lambda op: rows[(op, "f32")]["per_step_vs_f32_fma"]  # noqa: E731
+    q = 2 * (step("magicround+add") - step("add"))
+    q_rint = 2 * (step("rint+add") - step("add"))
 
     def slots_rate(pixels, T, tile, sep, ms):
         """The model's executed slots for T levels over ``pixels`` in
@@ -896,11 +956,11 @@ def hardware_constants(k1, k2, k4, price, host) -> dict:
         * k4["block"][2]
     return {"hbm_gbps": k1["achieved_gbps"],
             "flop_gops": 2 * rows[("fma", "f32")]["gops_per_s"],
-            "tap_gops": slots_rate(k4_px, k4["T"], (64, 64), False,
-                                   k4["ms"]),
+            "tap_gops": slots_rate(k4_px, k4["T"], stencil.FUSED_TILE,
+                                   False, k4["ms"]),
             "sep_tap_gops": slots_rate(k2_px, k2["T"], tuple(k2["tile"]),
                                        True, k2["ms"]),
-            "quantize_slots": q,
+            "quantize_slots": q, "rint_quantize_slots": q_rint,
             "launch_s": host["launch_s"], "op_s": host["op_s"]}
 
 
@@ -1173,12 +1233,9 @@ def main() -> int:
         each = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
         print(f"build: {time.perf_counter() - t0:.2f} s "
               f"({each or 'up to date'})")
-        for v in built.values():
-            for line in v["log"].splitlines():
-                if "Used" in line or "Function properties" in line:
-                    print(f"  ptxas: {line.strip()}")
         for name in _build.SOURCES:
             _build.load_library(name)
+        print_level_loop_ptxas()
 
         check_kernels(dev)
         check_rdma_kernels(dev)
@@ -1242,6 +1299,8 @@ def main() -> int:
                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                 "plain_ms": e["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": e["library_ms"]})
+        print("fraction of bound: " + json.dumps(
+            {k["name"]: k["bound_ms"] / k["ms"] for k in kernels}))
         print(f"card: {card}")
         print(json.dumps({"kernels": kernels}))
     except SmokeFailure as e:

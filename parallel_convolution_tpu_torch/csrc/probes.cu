@@ -33,7 +33,8 @@
 //      r1 the block's address from the pointer table (base + b * stride);
 //      r2 the r*T-deep ghost window gathered through the neighbour table
 //         (-1 reads zeros) and written whole: a halo exchange;
-//      r3 the T levels on that window: K4 itself (rdma_common.cuh).
+//      r3 the T levels on that window: K4 itself (rdma_common.cuh), the
+//         level loop and all (stencil_common.cuh).
 //    r0 and r1 are bound by bytes, r3 by operations (as K4); the rungs'
 //    times split K4's time into copy, gather and compute.
 
@@ -50,7 +51,6 @@ namespace {
 constexpr int kSteps = 128;   // dependent steps per chain (the probe's K)
 constexpr int kChains = 4;    // independent chains per thread
 constexpr int kChainThreads = 256;
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
 
 enum Op : int {
   kFmaF32 = 0,
@@ -209,37 +209,39 @@ __global__ void smem_probe_kernel(const float* __restrict__ in,
 // 5c: rdma_ladder
 // ---------------------------------------------------------------------------
 
-template <int RUNG, int KT>
-__global__ void __launch_bounds__(kFusedThreadsX * kFusedThreadsY)
+template <int RUNG, int K, int EPI>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_ladder_kernel(BlockGrid g, const void* __restrict__ base,
                        void* __restrict__ out, int out_dtype, int T, Taps tp,
-                       int k, int quant, int convex, int mask, int valid_h,
-                       int valid_w, int th, int tw) {
+                       int mask, int valid_h, int valid_w, int th, int tw) {
   extern __shared__ float smem[];
   const int b = blockIdx.z / g.C, c = blockIdx.z % g.C;
   const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
   const int h = g.h, w = g.w;
+  // A 1-D block: warp (threadIdx.x >> 5) takes rows, its lanes columns.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   if constexpr (RUNG == 3) {
     // + the T levels: K4's tile body, exactly as csrc/rdma.cu runs it.
-    rdma_tile<KT>(g, b, c, y0, x0, th, tw, /*E=*/0, T, tp, k, quant, convex,
-                  mask, valid_h, valid_w, out, out_dtype);
+    rdma_tile<K, EPI>(g, b, c, y0, x0, th, tw, /*E=*/0, T, tp, mask, valid_h,
+                      valid_w, out, out_dtype);
   } else if constexpr (RUNG == 2) {
     // + the r*T-deep ghost window from the neighbours, written whole into
     // the padded (h+2d, w+2d) output.  Neighbouring tiles' windows overlap
     // there and write the same values.
-    const int d = (k / 2) * T;
+    const int d = (K / 2) * T;
     const int w0h = th + 2 * d, S = tw + 2 * d;
     const int ly0 = y0 - d, lx0 = x0 - d;
     const int row0 = (b / g.gcols) * h + ly0, col0 = (b % g.gcols) * w + lx0;
-    fill_window(g, b, c, ly0, lx0, w0h, S, d, mask, row0, col0, valid_h,
+    fill_window(g, b, c, ly0, lx0, w0h, S, d, mask != 0, row0, col0, valid_h,
                 valid_w, smem);
     __syncthreads();
     const int ph = h + 2 * d, pw = w + 2 * d;
     const int nh = min(w0h, ph - y0), nw = min(S, pw - x0);
     const long long obase =
         (static_cast<long long>(b) * g.C + c) * ph * static_cast<long long>(pw);
-    for (int y = threadIdx.y; y < nh; y += blockDim.y)
-      for (int x = threadIdx.x; x < nw; x += blockDim.x)
+    for (int y = warp; y < nh; y += warps)
+      for (int x = lane; x < nw; x += 32)
         store_f32(out, out_dtype,
                   obase + static_cast<long long>(y0 + y) * pw + x0 + x,
                   smem[y * S + x]);
@@ -251,34 +253,31 @@ __global__ void __launch_bounds__(kFusedThreadsX * kFusedThreadsY)
         (RUNG == 0 ? static_cast<long long>(b) * g.C + c
                    : static_cast<long long>(c)) * h * static_cast<long long>(w);
     const int nh = min(th, h - y0), nw = min(tw, w - x0);
-    for (int y = threadIdx.y; y < nh; y += blockDim.y)
-      for (int x = threadIdx.x; x < nw; x += blockDim.x)
+    for (int y = warp; y < nh; y += warps)
+      for (int x = lane; x < nw; x += 32)
         smem[y * tw + x] = load_f32(
             src, g.in_dtype, plane + static_cast<long long>(y0 + y) * w + x0 + x);
     __syncthreads();
     const long long obase =
         (static_cast<long long>(b) * g.C + c) * h * static_cast<long long>(w);
-    for (int y = threadIdx.y; y < nh; y += blockDim.y)
-      for (int x = threadIdx.x; x < nw; x += blockDim.x)
+    for (int y = warp; y < nh; y += warps)
+      for (int x = lane; x < nw; x += 32)
         store_f32(out, out_dtype,
                   obase + static_cast<long long>(y0 + y) * w + x0 + x,
                   smem[y * tw + x]);
   }
 }
 
-template <int RUNG, int KT>
+template <int RUNG, int K, int EPI>
 cudaError_t launch_ladder(const BlockGrid& g, const void* base, int nb,
                           void* out, int out_dtype, int T, const Taps& tp,
-                          int k, int quant, int convex, int mask, int valid_h,
-                          int valid_w, int th, int tw, size_t bytes,
-                          cudaStream_t st) {
-  const cudaError_t e = allow_smem(rdma_ladder_kernel<RUNG, KT>, bytes);
+                          int mask, int valid_h, int valid_w, int th, int tw,
+                          size_t bytes, int threads, cudaStream_t st) {
+  const cudaError_t e = allow_smem(rdma_ladder_kernel<RUNG, K, EPI>, bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((g.w + tw - 1) / tw, (g.h + th - 1) / th, nb * g.C);
-  rdma_ladder_kernel<RUNG, KT>
-      <<<grid, dim3(kFusedThreadsX, kFusedThreadsY), bytes, st>>>(
-          g, base, out, out_dtype, T, tp, k, quant, convex, mask, valid_h,
-          valid_w, th, tw);
+  rdma_ladder_kernel<RUNG, K, EPI><<<grid, threads, bytes, st>>>(
+      g, base, out, out_dtype, T, tp, mask, valid_h, valid_w, th, tw);
   return cudaGetLastError();
 }
 
@@ -349,51 +348,47 @@ extern "C" int pc_smem_optin(int device, int* value) {
 // 5c.  Arguments as pc_rdma_step (csrc/rdma.cu) with E = 0, plus the rung
 // and the stacked grid's base pointer (r0).  Output: r0 / r1 the stacked
 // grid (nb, C, h, w); r2 the padded grid (nb, C, h+2rT, w+2rT); r3 the
-// stacked grid after T levels.
+// stacked grid after T levels.  r0-r2 are instantiated once (k = 3, float);
+// their k only sets r2's depth.
 extern "C" int pc_rdma_ladder(int rung, const void* base,
                               const long long* ptrs, const int* nbr,
                               int in_dtype, void* out, int out_dtype, int nb,
                               int gcols, int C, int h, int w, int T,
-                              const float* taps, int k, int quant, int convex,
-                              int mask, int valid_h, int valid_w, int th,
-                              int tw, void* stream) {
+                              const float* taps, int k, int epi, int mask,
+                              int valid_h, int valid_w, int th, int tw,
+                              int threads, void* stream) {
   Taps tp;
   if (!fill_taps(&tp, taps, nullptr, nullptr, k, 0) || rung < 0 || rung > 3 ||
       T < 1 || nb < 1 || gcols < 1 || nb % gcols != 0 || C < 1 || h < 1 ||
       w < 1 || (k / 2) * T > (h < w ? h : w) || th < 1 || tw < 1 ||
-      nb * C > 65535)
+      nb * C > 65535 || !threads_ok(threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t d = static_cast<size_t>((k / 2) * T);
-  const size_t window = (th + 2 * d) * (tw + 2 * d) * sizeof(float);
+  const size_t tile = sizeof(float) * th * tw;
   switch (rung) {
     case 0:
-      return launch_ladder<0, 0>(g, base, nb, out, out_dtype, T, tp, k, quant,
-                                 convex, mask, valid_h, valid_w, th, tw,
-                                 sizeof(float) * th * tw, st);
+      return launch_ladder<0, 3, kEpiFloat>(g, base, nb, out, out_dtype, T,
+                                            tp, mask, valid_h, valid_w, th,
+                                            tw, tile, threads, st);
     case 1:
-      return launch_ladder<1, 0>(g, base, nb, out, out_dtype, T, tp, k, quant,
-                                 convex, mask, valid_h, valid_w, th, tw,
-                                 sizeof(float) * th * tw, st);
+      return launch_ladder<1, 3, kEpiFloat>(g, base, nb, out, out_dtype, T,
+                                            tp, mask, valid_h, valid_w, th,
+                                            tw, tile, threads, st);
     case 2:
-      return launch_ladder<2, 0>(g, base, nb, out, out_dtype, T, tp, k, quant,
-                                 convex, mask, valid_h, valid_w, th, tw,
-                                 window, st);
+      // r2's depth is (k / 2) * T: instantiate on k for it.
+      return static_cast<int>(with_k(k, [&](auto K) {
+        return launch_ladder<2, decltype(K)::value, kEpiFloat>(
+            g, base, nb, out, out_dtype, T, tp, mask, valid_h, valid_w, th,
+            tw, window_bytes(k, T, th, tw), threads, st);
+      }));
     default:
-      switch (k) {
-        case 3:
-          return launch_ladder<3, 3>(g, base, nb, out, out_dtype, T, tp, k,
-                                     quant, convex, mask, valid_h, valid_w,
-                                     th, tw, 2 * window, st);
-        case 5:
-          return launch_ladder<3, 5>(g, base, nb, out, out_dtype, T, tp, k,
-                                     quant, convex, mask, valid_h, valid_w,
-                                     th, tw, 2 * window, st);
-        default:
-          return launch_ladder<3, 0>(g, base, nb, out, out_dtype, T, tp, k,
-                                     quant, convex, mask, valid_h, valid_w,
-                                     th, tw, 2 * window, st);
-      }
+      return static_cast<int>(with_k(k, [&](auto K) {
+        return with_epi(epi, [&](auto E) {
+          return launch_ladder<3, decltype(K)::value, decltype(E)::value>(
+              g, base, nb, out, out_dtype, T, tp, mask, valid_h, valid_w, th,
+              tw, window_bytes(k, T, th, tw), threads, st);
+        });
+      }));
   }
 }

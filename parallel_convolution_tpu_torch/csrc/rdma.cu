@@ -30,7 +30,9 @@
 // memory and no launch per block, and each input byte is read from device
 // memory about once (ghost reads are the neighbours' edges, mostly from L2).
 // The levels then run in shared memory exactly as in K2 (the shared
-// fused_levels loop), paying the same rim recompute.
+// run_levels loop of stencil_common.cuh: one f32 buffer, register strips,
+// the magic round, no masks on tiles inside the image), paying the same rim
+// recompute.
 //
 // The TPU's two-hop corner propagation (rows first, then full-height
 // columns) becomes a direct read of the diagonal block: the same bytes.
@@ -43,8 +45,8 @@
 // which csrc/probes.cu's construct ladder shares.
 //
 // Semantics, as K2 (stencil_common.cuh): the 2-D row-major tap order (the
-// JAX package runs RDMA with sep = None), one __fmaf_rn per tap, rintf, the
-// clip skipped for convex filters.  With `mask` (zero boundary), level-0
+// JAX package runs RDMA with sep = None), one __fmaf_rn per tap, the magic
+// round (rintf above the L1 bound), the clip skipped for convex filters.  With `mask` (zero boundary), level-0
 // positions outside the global image are exactly 0 and every level is
 // masked against the global image (valid_h, valid_w).  The output may be
 // extended by E ghost rows and columns on every side (f32), for the K2
@@ -57,55 +59,56 @@ using namespace pc;
 namespace {
 
 // K3: one CUDA block per (grid block, channel), the whole block as one tile.
-template <int KT>
-__global__ void __launch_bounds__(kFusedThreadsX * kFusedThreadsY)
+template <int K, int EPI>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_block_kernel(BlockGrid g, void* __restrict__ out, int out_dtype,
-                      int E, int T, Taps tp, int k, int quant, int convex,
-                      int mask, int valid_h, int valid_w) {
+                      int E, int T, Taps tp, int mask, int valid_h,
+                      int valid_w) {
   const int b = blockIdx.x / g.C, c = blockIdx.x % g.C;
-  rdma_tile<KT>(g, b, c, 0, 0, g.h + 2 * E, g.w + 2 * E, E, T, tp, k, quant,
-                convex, mask, valid_h, valid_w, out, out_dtype);
+  rdma_tile<K, EPI>(g, b, c, 0, 0, g.h + 2 * E, g.w + 2 * E, E, T, tp, mask,
+                    valid_h, valid_w, out, out_dtype);
 }
 
 // K4: one CUDA block per (th x tw output tile, grid block, channel).
-template <int KT>
-__global__ void __launch_bounds__(kFusedThreadsX * kFusedThreadsY)
+template <int K, int EPI>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_tiled_kernel(BlockGrid g, void* __restrict__ out, int out_dtype,
-                      int E, int T, Taps tp, int k, int quant, int convex,
-                      int mask, int valid_h, int valid_w, int th, int tw) {
+                      int E, int T, Taps tp, int mask, int valid_h,
+                      int valid_w, int th, int tw) {
   const int b = blockIdx.z / g.C, c = blockIdx.z % g.C;
-  rdma_tile<KT>(g, b, c, blockIdx.y * th, blockIdx.x * tw, th, tw, E, T, tp,
-                k, quant, convex, mask, valid_h, valid_w, out, out_dtype);
+  rdma_tile<K, EPI>(g, b, c, blockIdx.y * th, blockIdx.x * tw, th, tw, E, T,
+                    tp, mask, valid_h, valid_w, out, out_dtype);
 }
 
-template <int KT>
+template <int K, int EPI>
 cudaError_t launch_rdma(int tiled, const BlockGrid& g, int nb, void* out,
-                        int out_dtype, int E, int T, const Taps& tp, int k,
-                        int quant, int convex, int mask, int valid_h,
-                        int valid_w, int th, int tw, cudaStream_t stream) {
-  const int R = (k / 2) * T;
+                        int out_dtype, int E, int T, const Taps& tp, int mask,
+                        int valid_h, int valid_w, int th, int tw, int threads,
+                        int* blocks, cudaStream_t stream) {
   const int oh = g.h + 2 * E, ow = g.w + 2 * E;
   if (!tiled) {
     th = oh;
     tw = ow;
   }
-  const size_t bytes = 2 * sizeof(float) * static_cast<size_t>(th + 2 * R) *
-                       static_cast<size_t>(tw + 2 * R);
-  const dim3 block(kFusedThreadsX, kFusedThreadsY);
+  const size_t bytes = window_bytes(K, T, th, tw);
   cudaError_t e;
   if (tiled) {
-    e = allow_smem(rdma_tiled_kernel<KT>, bytes);
+    e = allow_smem(rdma_tiled_kernel<K, EPI>, bytes);
     if (e != cudaSuccess) return e;
+    if (blocks)
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, rdma_tiled_kernel<K, EPI>, threads, bytes);
     const dim3 grid((ow + tw - 1) / tw, (oh + th - 1) / th, nb * g.C);
-    rdma_tiled_kernel<KT><<<grid, block, bytes, stream>>>(
-        g, out, out_dtype, E, T, tp, k, quant, convex, mask, valid_h, valid_w,
-        th, tw);
+    rdma_tiled_kernel<K, EPI><<<grid, threads, bytes, stream>>>(
+        g, out, out_dtype, E, T, tp, mask, valid_h, valid_w, th, tw);
   } else {
-    e = allow_smem(rdma_block_kernel<KT>, bytes);
+    e = allow_smem(rdma_block_kernel<K, EPI>, bytes);
     if (e != cudaSuccess) return e;
-    rdma_block_kernel<KT><<<nb * g.C, block, bytes, stream>>>(
-        g, out, out_dtype, E, T, tp, k, quant, convex, mask, valid_h,
-        valid_w);
+    if (blocks)
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, rdma_block_kernel<K, EPI>, threads, bytes);
+    rdma_block_kernel<K, EPI><<<nb * g.C, threads, bytes, stream>>>(
+        g, out, out_dtype, E, T, tp, mask, valid_h, valid_w);
   }
   return cudaGetLastError();
 }
@@ -115,30 +118,29 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int nb, void* out,
 // Returns a cudaError_t value: 0 on a successful launch.  `ptrs` (nb int64
 // addresses) and `nbr` (nb x 9 int32) are device arrays; `out` is one device
 // buffer of nb x (C, h+2E, w+2E) blocks; taps is a host array of k*k floats.
-// tiled = 0 launches K3 (th, tw unused), 1 launches K4.
+// tiled = 0 launches K3 (th, tw unused), 1 launches K4; epi is the
+// store-back (Epi, stencil_common.cuh); threads is the block's thread count,
+// a whole number of warps.  With `blocks` non-null nothing launches:
+// *blocks gets the number of such blocks one SM holds.
 extern "C" int pc_rdma_step(int tiled, const long long* ptrs, const int* nbr,
                             int in_dtype, void* out, int out_dtype, int nb,
                             int gcols, int C, int h, int w, int E, int T,
-                            const float* taps, int k, int quant, int convex,
-                            int mask, int valid_h, int valid_w, int th,
-                            int tw, void* stream) {
+                            const float* taps, int k, int epi, int mask,
+                            int valid_h, int valid_w, int th, int tw,
+                            int threads, int* blocks, void* stream) {
   Taps tp;
   if (!fill_taps(&tp, taps, nullptr, nullptr, k, 0) || T < 1 || nb < 1 ||
       gcols < 1 || nb % gcols != 0 || C < 1 || h < 1 || w < 1 || E < 0 ||
       (k / 2) * T + E > (h < w ? h : w) || th < 1 || tw < 1 ||
-      (tiled && nb * C > 65535))
+      (tiled && nb * C > 65535) || !threads_ok(threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 3:
-      return launch_rdma<3>(tiled, g, nb, out, out_dtype, E, T, tp, k, quant,
-                            convex, mask, valid_h, valid_w, th, tw, st);
-    case 5:
-      return launch_rdma<5>(tiled, g, nb, out, out_dtype, E, T, tp, k, quant,
-                            convex, mask, valid_h, valid_w, th, tw, st);
-    default:
-      return launch_rdma<0>(tiled, g, nb, out, out_dtype, E, T, tp, k, quant,
-                            convex, mask, valid_h, valid_w, th, tw, st);
-  }
+  return static_cast<int>(with_k(k, [&](auto K) {
+    return with_epi(epi, [&](auto E_) {
+      return launch_rdma<decltype(K)::value, decltype(E_)::value>(
+          tiled, g, nb, out, out_dtype, E, T, tp, mask, valid_h, valid_w, th,
+          tw, threads, blocks, st);
+    });
+  }));
 }

@@ -21,11 +21,16 @@
 //    a deep-padded (C, h+2rT, w+2rT) block in one launch: one device-memory
 //    read and one write buy T iterations.  Bound on the H100 at T = 32:
 //    operations (T levels of k*k FMAs per pixel against one read and one write).
-//    The design keeps every level in shared memory, ping-ponging between two
-//    f32 buffers whose live window shrinks by r on every side per level, and
-//    pays the rim recompute (th+2rT)(tw+2rT)/(th*tw) to avoid any device-memory
-//    traffic between levels.  Where T levels of a tile do not fit in shared
-//    memory the wrapper runs the levels in groups, one launch each.
+//    In practice the level loop is held by the shared-memory pipe before the
+//    FMA pipe, so the design spends shared-memory words sparingly: the levels
+//    run in place in ONE f32 buffer of the level-0 window, in register strips
+//    (k(V+k-1)/V loads per output, the row pass of the separable order kept in
+//    registers), mask-free on tiles inside the image, with the magic round,
+//    every variant a template instance (run_levels, stencil_common.cuh).  One
+//    buffer instead of two doubles the blocks an SM holds.  The rim recompute
+//    (th+2rT)(tw+2rT)/(th*tw) is the price of no device-memory traffic between
+//    levels; where T levels of a tile do not fit in shared memory, or the rim
+//    would cost more than a launch, the wrapper runs them in level groups.
 //
 // The semantics both kernels share with K3 and K4 (csrc/rdma.cu) -- tap
 // order, FMA, round and clip, dtype conversions -- and K2's level loop live
@@ -98,57 +103,79 @@ __global__ void stencil_step_kernel(const void* __restrict__ in, int in_dtype,
 }
 
 // ---------------------------------------------------------------------------
-// K2: T fused levels.  Block = one (channel, th x tw output tile).
-// Shared memory: two f32 buffers of the level-0 window (th+2rT) x (tw+2rT),
-// row stride tw+2rT; level s lives in the top-left (th+2r(T-s)) x
-// (tw+2r(T-s)) of one of them.
+// K2: T fused levels.  Block = one (channel, th x tw output tile), a 1-D
+// block of a whole number of warps.  Shared memory: ONE f32 buffer of the
+// level-0 window (th+2rT) x (tw+2rT), row stride tw+2rT; level s lives in
+// its top-left (th+2r(T-s)) x (tw+2r(T-s)).
 // ---------------------------------------------------------------------------
-template <int KT>
-__global__ void fused_iterate_kernel(const void* __restrict__ in, int in_dtype,
-                                     void* __restrict__ out, int out_dtype,
-                                     int Hp, int Wp, int h, int w, int T,
-                                     Taps tp, int k, int sep, int quant,
-                                     int convex, int off_r, int off_c,
-                                     int mask, int valid_h, int valid_w,
-                                     int th, int tw) {
+
+// Level 0 from the deep-padded block: positions past the padded extent (the
+// ragged last tile) and, when `masked`, outside the global image read as
+// exactly 0 (the select tier).
+template <int DT>
+__device__ void fill_dense(float* __restrict__ a, const void* __restrict__ in,
+                           long long in_base, int Hp, int Wp, int y0, int x0,
+                           int w0h, int S, bool masked, int row0, int col0,
+                           int valid_h, int valid_w) {
+  const int lane = threadIdx.x & 31, rows_step = blockDim.x >> 5;
+  for (int wy = threadIdx.x >> 5; wy < w0h; wy += rows_step) {
+    const int gy = y0 + wy;
+    const bool row_ok =
+        gy < Hp && (!masked || (row0 + wy >= 0 && row0 + wy < valid_h));
+    const long long line = in_base + static_cast<long long>(gy) * Wp + x0;
+    for (int wx = lane; wx < S; wx += 32) {
+      const bool ok = row_ok && x0 + wx < Wp &&
+                      (!masked || (col0 + wx >= 0 && col0 + wx < valid_w));
+      a[wy * S + wx] = ok ? load_as<DT>(in, line + wx) : 0.f;
+    }
+  }
+}
+
+template <int K, int EPI, bool SEP>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
+    fused_iterate_kernel(const void* __restrict__ in, int in_dtype,
+                         void* __restrict__ out, int out_dtype, int Hp,
+                         int Wp, int h, int w, int T, Taps tp, int off_r,
+                         int off_c, int mask, int valid_h, int valid_w,
+                         int th, int tw) {
   extern __shared__ float smem[];
-  const int r = k / 2;
+  constexpr int r = K / 2;
   const int R = r * T;
   const int w0h = th + 2 * R, S = tw + 2 * R;
-  float* a = smem;
-  float* b = smem + w0h * S;
   const int c = blockIdx.z;
   const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
   // Global image coordinates of the level-0 window's top-left corner.
   const int row0 = off_r - R + y0, col0 = off_c - R + x0;
   const long long in_base = static_cast<long long>(c) * Hp * Wp;
-  const long long out_base = static_cast<long long>(c) * h * w;
-
-  // Level 0 with the select tier: out-of-image positions become exactly 0.
-  for (int wy = threadIdx.y; wy < w0h; wy += blockDim.y) {
-    const int gy = y0 + wy;
-    const bool row_ok = !mask || (row0 + wy >= 0 && row0 + wy < valid_h);
-    for (int wx = threadIdx.x; wx < S; wx += blockDim.x) {
-      const int gx = x0 + wx;
-      float v = 0.f;
-      const bool ok =
-          row_ok && (!mask || (col0 + wx >= 0 && col0 + wx < valid_w));
-      if (ok && gy < Hp && gx < Wp)
-        v = load_f32(in, in_dtype, in_base + static_cast<long long>(gy) * Wp + gx);
-      a[wy * S + wx] = v;
-    }
+  // Block-uniform: no mask of any level can be 0 inside this window.
+  const bool interior = !mask || (row0 >= 0 && row0 + w0h <= valid_h &&
+                                  col0 >= 0 && col0 + S <= valid_w);
+  const bool masked = !interior;
+  switch (in_dtype) {
+    case kBF16:
+      fill_dense<kBF16>(smem, in, in_base, Hp, Wp, y0, x0, w0h, S, masked,
+                        row0, col0, valid_h, valid_w);
+      break;
+    case kU8:
+      fill_dense<kU8>(smem, in, in_base, Hp, Wp, y0, x0, w0h, S, masked,
+                      row0, col0, valid_h, valid_w);
+      break;
+    default:
+      fill_dense<kF32>(smem, in, in_base, Hp, Wp, y0, x0, w0h, S, masked,
+                       row0, col0, valid_h, valid_w);
   }
   __syncthreads();
 
-  a = fused_levels<KT>(a, b, S, th, tw, T, r, tp, k, sep, quant, convex, mask,
-                       row0, col0, valid_h, valid_w);
-
-  const int oh = min(th, h - y0), ow = min(tw, w - x0);
-  for (int y = threadIdx.y; y < oh; y += blockDim.y)
-    for (int x = threadIdx.x; x < ow; x += blockDim.x)
-      store_f32(out, out_dtype,
-                out_base + static_cast<long long>(y0 + y) * w + x0 + x,
-                a[y * S + x]);
+  const TileOut o{out, out_dtype,
+                  static_cast<long long>(c) * h * w +
+                      static_cast<long long>(y0) * w + x0,
+                  w, min(th, h - y0), min(tw, w - x0)};
+  if (interior)
+    run_levels<K, EPI, SEP, false>(smem, S, th, tw, T, tp, row0, col0,
+                                   valid_h, valid_w, o);
+  else
+    run_levels<K, EPI, SEP, true>(smem, S, th, tw, T, tp, row0, col0,
+                                  valid_h, valid_w, o);
 }
 
 template <int KT>
@@ -167,26 +194,6 @@ cudaError_t launch_step(const void* in, int in_dtype, void* out, int out_dtype,
   stencil_step_kernel<KT><<<grid, block, bytes, stream>>>(
       in, in_dtype, out, out_dtype, Hp, Wp, H, W, tp, k, sep, quant, convex,
       th, tw);
-  return cudaGetLastError();
-}
-
-template <int KT>
-cudaError_t launch_fused(const void* in, int in_dtype, void* out,
-                         int out_dtype, int C, int Hp, int Wp, int h, int w,
-                         int T, const Taps& tp, int k, int sep, int quant,
-                         int convex, int off_r, int off_c, int mask,
-                         int valid_h, int valid_w, int th, int tw,
-                         cudaStream_t stream) {
-  const int R = (k / 2) * T;
-  const size_t bytes = 2 * sizeof(float) * static_cast<size_t>(th + 2 * R) *
-                       static_cast<size_t>(tw + 2 * R);
-  cudaError_t e = allow_smem(fused_iterate_kernel<KT>, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 block(kFusedThreadsX, kFusedThreadsY);
-  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, C);
-  fused_iterate_kernel<KT><<<grid, block, bytes, stream>>>(
-      in, in_dtype, out, out_dtype, Hp, Wp, h, w, T, tp, k, sep, quant,
-      convex, off_r, off_c, mask, valid_h, valid_w, th, tw);
   return cudaGetLastError();
 }
 
@@ -216,29 +223,44 @@ extern "C" int pc_stencil_step(const void* in, int in_dtype, void* out,
   }
 }
 
+// K2.  epi is the store-back (Epi: float, or the magic round or rintf, with
+// or without the clip); threads is the block's thread count, a whole number
+// of warps.  With `blocks` non-null nothing launches: *blocks gets the
+// number of such blocks one SM holds.
 extern "C" int pc_fused_iterate(const void* in, int in_dtype, void* out,
                                 int out_dtype, int C, int Hp, int Wp, int h,
                                 int w, int T, const float* taps,
                                 const float* col, const float* row, int k,
-                                int sep, int quant, int convex, int off_r,
-                                int off_c, int mask, int valid_h, int valid_w,
-                                int th, int tw, void* stream) {
+                                int sep, int epi, int off_r, int off_c,
+                                int mask, int valid_h, int valid_w, int th,
+                                int tw, int threads, int* blocks,
+                                void* stream) {
   Taps tp;
-  if (!fill_taps(&tp, taps, col, row, k, sep) || T < 1 || th < 1 || tw < 1)
+  if (!fill_taps(&tp, taps, col, row, k, sep) || T < 1 || th < 1 || tw < 1 ||
+      !threads_ok(threads))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 3:
-      return launch_fused<3>(in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T,
-                             tp, k, sep, quant, convex, off_r, off_c, mask,
-                             valid_h, valid_w, th, tw, st);
-    case 5:
-      return launch_fused<5>(in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T,
-                             tp, k, sep, quant, convex, off_r, off_c, mask,
-                             valid_h, valid_w, th, tw, st);
-    default:
-      return launch_fused<0>(in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T,
-                             tp, k, sep, quant, convex, off_r, off_c, mask,
-                             valid_h, valid_w, th, tw, st);
-  }
+  const size_t bytes = window_bytes(k, T, th, tw);
+  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, C);
+  return static_cast<int>(with_k(k, [&](auto K) {
+    return with_epi(epi, [&](auto E) {
+      return with_bool(sep, [&](auto SEP) {
+        auto kernel = fused_iterate_kernel<decltype(K)::value,
+                                           decltype(E)::value,
+                                           decltype(SEP)::value>;
+        cudaError_t e = allow_smem(kernel, bytes);
+        if (e != cudaSuccess) return e;
+        if (blocks)
+          return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              blocks, kernel, threads, bytes);
+        kernel<<<grid, threads, bytes, st>>>(
+            in, in_dtype, out, out_dtype, Hp, Wp, h, w, T, tp, off_r, off_c,
+            mask, valid_h, valid_w, th, tw);
+        return cudaGetLastError();
+      });
+    });
+  }));
 }
+
+// The strip height of the level loop for k <= 5 (k = 7, 9 use 8).
+extern "C" int pc_strip_height() { return kStripV; }

@@ -3,12 +3,17 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``build/torch_kernels/lib<name>.so`` at the root of the checkout, the first
 time it is needed, and loaded with ``ctypes`` (a plain C interface: the
-sources include no PyTorch header, so a build takes seconds).  A stamp file
-holds the hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags; a changed source or header rebuilds.  Every build runs ptxas with
-``-v`` and keeps its report in ``lib<name>.log`` (:func:`ptxas_usage` reads
-the registers, spills and shared memory of each kernel from it).  Nothing
-here runs at import time.
+sources include no PyTorch header).  A stamp file holds the hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags; a changed source
+or header rebuilds.  Every build runs ptxas with ``-v`` and keeps its
+report in ``lib<name>.log`` (:func:`ptxas_usage` reads the registers,
+spills and shared memory of each kernel from it).  Nothing here runs at
+import time.
+
+``PCTPU_STRIP_V=<n>`` in the environment builds the level loop with
+register strips of n outputs instead of the default (``kStripV`` in
+``csrc/stencil_common.cuh``), into ``lib<name>.v<n>.so``: a measurement
+knob (``probes/loop_sweep.py`` compares strip heights with it).
 """
 
 from __future__ import annotations
@@ -42,18 +47,19 @@ _SIGNATURES = {
         "pc_stencil_step": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                             _I, _I, _I, _I, _I, _I, _P],
         # in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T, taps, col, row,
-        # k, sep, quantize, convex, off_r, off_c, mask, valid_h, valid_w,
-        # th, tw, stream
+        # k, sep, epi, off_r, off_c, mask, valid_h, valid_w, th, tw,
+        # threads, blocks, stream
         "pc_fused_iterate": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                              _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _P],
+                             _IP, _P],
+        "pc_strip_height": [],
     },
     "rdma": {
         # tiled, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, C, h, w,
-        # E, T, taps, k, quantize, convex, mask, valid_h, valid_w, th, tw,
-        # stream
+        # E, T, taps, k, epi, mask, valid_h, valid_w, th, tw, threads,
+        # blocks, stream
         "pc_rdma_step": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _F, _I, _I, _I, _I, _I, _I, _I, _I, _IP, _P],
     },
     "probes": {
         # op, in, out, n, af, bf, ai, bi, stream
@@ -63,7 +69,7 @@ _SIGNATURES = {
         # device, value
         "pc_smem_optin": [_I, _IP],
         # rung, base, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, C, h,
-        # w, T, taps, k, quantize, convex, mask, valid_h, valid_w, th, tw,
+        # w, T, taps, k, epi, mask, valid_h, valid_w, th, tw, threads,
         # stream
         "pc_rdma_ladder": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -85,12 +91,26 @@ def nvcc_path() -> str:
         "the card")
 
 
+STRIP_V_ENV = "PCTPU_STRIP_V"
+
+
+def _flags() -> tuple[tuple[str, ...], str]:
+    """nvcc's flags and the library name's suffix for this process."""
+    v = os.environ.get(STRIP_V_ENV, "").strip()
+    if not v:
+        return NVCC_FLAGS, ""
+    if not v.isdigit() or not 1 <= int(v) <= 16:
+        raise ValueError(f"{STRIP_V_ENV}={v!r}: expected 1..16")
+    return NVCC_FLAGS + (f"-DPC_STRIP_V={int(v)}",), f".v{int(v)}"
+
+
 def _paths(name: str) -> tuple[Path, Path, str]:
     src = CSRC / f"{name}.cu"
+    flags, suffix = _flags()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}.so", digest
+        src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}{suffix}.so", digest
 
 
 def _is_fresh(lib: Path, digest: str) -> bool:
@@ -112,7 +132,7 @@ def build_all(names=SOURCES) -> dict:
         if _is_fresh(lib, digest):
             continue
         tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc_path(), *_flags()[0], "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, lib, digest, time.perf_counter())

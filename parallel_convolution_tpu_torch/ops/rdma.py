@@ -27,6 +27,7 @@ or raises; there is no fallback.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -61,7 +62,7 @@ def rdma_plan(r: int, T: int, block_hw, tile=None,
     """K3 or K4 for T levels of radius ``r`` on ``block_hw`` blocks.
 
     K3 when one (block, channel) fits whole in one CUDA block's shared
-    memory with its two f32 level buffers, (h+2rT)(w+2rT)·8 bytes
+    memory with its f32 level buffer, (h+2rT)(w+2rT)·4 bytes
     ≤ ``smem_limit`` (the card's opt-in limit); K4 otherwise, with K2's
     tile and level groups (:func:`stencil.fused_plan`).  Raises the JAX
     package's ``ValueError`` for a block smaller than r·T.
@@ -136,8 +137,11 @@ def _bind(tiled: bool, x: torch.Tensor, filt: Filter, grid_shape,
           ext: int, tile):
     """Check one K3 / K4 launch on the stacked grid ``x`` and bind its
     arguments.  Returns ``(fire, out)``: ``fire()`` issues the launch on the
-    current stream (the bound tensors stay alive with it), ``out`` the
-    stacked (R·C, C, h+2·ext, w+2·ext) output it writes."""
+    current stream (the bound tensors stay alive with it) and returns 0;
+    ``fire(occupancy=True)`` launches nothing and returns the number of
+    such blocks one SM holds (the CUDA occupancy calculator on the same
+    instance).  ``out`` is the stacked (R·C, C, h+2·ext, w+2·ext) output
+    the launch writes."""
     what = "rdma_tiled (K4)" if tiled else "rdma_block (K3)"
     _check_stacked(x, grid_shape)
     if out_dtype is None:
@@ -182,18 +186,22 @@ def _bind(tiled: bool, x: torch.Tensor, filt: Filter, grid_shape,
     taps = np.ascontiguousarray(filt.taps.reshape(-1), dtype=np.float32)
     from parallel_convolution_tpu_torch.ops import _build
 
+    epi = stencil.epilogue_code(filt, quantize)
     lib = _build.load_library("rdma")
 
-    def fire() -> None:
+    def fire(occupancy: bool = False) -> int:
+        blocks = ctypes.c_int(0)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.pc_rdma_step(
                 int(tiled), ptrs.data_ptr(), nbr.data_ptr(),
                 stencil.DTYPE_CODES[x.dtype], out.data_ptr(),
                 stencil.DTYPE_CODES[out_dtype], nb, Cg, C, h, w, ext,
-                levels, stencil._fptr(taps), filt.size, int(quantize),
-                int(filt.convex), int(mask), vh, vw, th, tw, stream)
+                levels, stencil._fptr(taps), filt.size, epi, int(mask), vh,
+                vw, th, tw, stencil.FUSED_THREADS,
+                ctypes.byref(blocks) if occupancy else None, stream)
         stencil._raise_on(err, what)
+        return blocks.value
 
     return fire, out
 

@@ -17,7 +17,9 @@ Precision: the kernels contract every tap into one FMA (``__fmaf_rn``); the
 plain versions round the product and the sum separately, as NumPy does.
 In quantize mode with the registry's filters every product and partial sum
 is an exact float32, so the two agree byte for byte; in float mode they
-differ by float32 rounding (:func:`float_tolerance`).
+differ by float32 rounding (:func:`float_tolerance`).  K2's level loop
+rounds with the two-add magic number where :func:`round_mode` admits it,
+``rintf`` elsewhere: the same values.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ from parallel_convolution_tpu_torch.ops import conv
 from parallel_convolution_tpu_torch.ops.filters import Filter
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
-MAX_K = 9                      # csrc/stencil.cu kMaxK
+MAX_K = 9                      # csrc/stencil_common.cuh kMaxK
 STEP_TILE = (32, 128)          # K1 output tile (rows, cols)
-FUSED_TILE = (64, 64)          # K2 output tile (rows, cols)
+FUSED_TILE = (64, 128)         # K2 / K4 output tile (rows, cols)
+FUSED_THREADS = 512            # K2 / K3 / K4 threads per block (16 warps)
+# The deepest ghost ring r·g one K2 / K4 launch computes (max_group_levels).
+MAX_GROUP_DEPTH = 16
 # Shared memory one block may opt into on the H100 (227 KB): the planners'
 # default; a launch plans with the card's own figure (_smem_limit).
 H100_SMEM_OPTIN = 232448
@@ -57,9 +62,26 @@ def step_smem_bytes(k: int, tile, sep: bool) -> int:
 
 
 def fused_smem_bytes(r: int, levels: int, tile) -> int:
-    """K2's dynamic shared memory: two f32 buffers of the level-0 window."""
+    """K2's (and K3's / K4's) dynamic shared memory: one f32 buffer of the
+    level-0 window, the levels computed in place
+    (``csrc/stencil_common.cuh:window_bytes``)."""
     th, tw = tile
-    return 2 * 4 * (th + 2 * r * levels) * (tw + 2 * r * levels)
+    return 4 * (th + 2 * r * levels) * (tw + 2 * r * levels)
+
+
+# The two-add magic round (acc + 1.5·2^23) − 1.5·2^23 is exact for
+# |acc| < 2^22; a quantize-mode accumulator is bounded by 255·L1(taps), and
+# the JAX package (ops/pallas_stencil.py:_round_mode_for) keeps a 2× margin.
+MAGIC_ROUND_BOUND = 2.0 ** 21
+
+
+def round_mode(taps) -> str:
+    """``"magic"`` where the level loop may round with the two-add magic
+    number, else ``"rint"``: the JAX package's rule, magic iff
+    255·L1(taps) < 2^21, summed in the same order.  A static choice by the
+    filter that selects a template instance of the kernels."""
+    l1 = sum(abs(float(t)) for t in np.asarray(taps, np.float32).ravel())
+    return "magic" if 255.0 * l1 < MAGIC_ROUND_BOUND else "rint"
 
 
 def rim_tax(r: int, levels: int, tile) -> float:
@@ -76,11 +98,13 @@ def fused_plan(r: int, T: int, hw, tile=None,
 
     Returns ``(th, tw, groups)``: the output tile (the requested one, or
     :data:`FUSED_TILE`, clamped to the block) and the level counts of the
-    launches, which sum to T.  One launch runs all T levels when its two
-    shared buffers fit in ``smem_limit``; otherwise the levels are split
-    into the fewest near-equal groups that fit, each group's result passing
-    to the next through device memory (exact: every level masks against
-    the global image).  Raises ``ValueError`` when not even one level fits.
+    launches, which sum to T.  A launch runs g levels when its level-0
+    window fits in ``smem_limit`` and its ghost depth r·g is within
+    :func:`max_group_levels`; the levels are split
+    into the fewest near-equal groups that satisfy both, each group's
+    result passing to the next through device memory (exact: every level
+    masks against the global image).  Raises ``ValueError`` when not even
+    one level fits.
     """
     h, w = hw
     th, tw = tile if tile is not None else FUSED_TILE
@@ -90,13 +114,37 @@ def fused_plan(r: int, T: int, hw, tile=None,
             f"fused tile {(th, tw)} at radius {r} needs "
             f"{fused_smem_bytes(r, 1, (th, tw))} B of shared memory for one "
             f"level, above the card's {smem_limit} B: pass a smaller --tile")
-    g_max = T
+    g_max = min(T, max_group_levels(r, (th, tw)))
     while fused_smem_bytes(r, g_max, (th, tw)) > smem_limit:
         g_max -= 1
     n = math.ceil(T / g_max)
     base, extra = divmod(T, n)
     groups = [base + (1 if i < extra else 0) for i in range(n)]
     return th, tw, groups
+
+
+def epilogue_code(filt: Filter, quantize: bool) -> int:
+    """The level loop's store-back instance (``csrc/stencil_common.cuh``
+    ``Epi``), the ``epi`` argument of K2, K3, K4 and 5c's r3: 0 float mode;
+    1 / 2 the magic round without / with the clip; 3 / 4 ``rintf`` without
+    / with it (the clip only for non-convex filters)."""
+    if not quantize:
+        return 0
+    return ((1 if round_mode(filt.taps) == "magic" else 3)
+            + (0 if filt.convex else 1))
+
+
+def max_group_levels(r: int, tile) -> int:
+    """The most levels one K2 / K4 launch takes on a ``tile``: a ghost
+    depth r·g of at most :data:`MAX_GROUP_DEPTH` and at most a quarter of
+    the tile's shorter side.  Deeper, the rim recompute (:func:`rim_tax`)
+    costs more than the f32 round trip through device memory that one more
+    launch pays: on the H100 at 64×64, 64×128 and 96×96 tiles, blur3's 32
+    levels ran fastest in groups of 16 and edge5's in groups of 8
+    (``probes/loop_sweep.py``; PERF.md)."""
+    if r == 0:
+        return 1 << 30
+    return max(1, min(MAX_GROUP_DEPTH, min(tile) // 4) // r)
 
 
 def float_tolerance(filt: Filter, levels: int, out_dtype) -> tuple[float, float]:
@@ -332,37 +380,67 @@ def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
     if h <= 0 or w <= 0:
         raise ValueError(f"block {(Hp, Wp)} too small for {T} levels of "
                          f"radius {r}")
-    sep = _sep_taps(filt, separable)
-    taps, col, row = _host_taps(filt, sep)
     th, tw, groups = fused_plan(r, T, (h, w), tile,
                                 _smem_limit(padded.device))
+    cur, left = padded, T
+    off_r, off_c = int(offsets[0]), int(offsets[1])
+    for g in groups:
+        left -= g
+        # This launch's output: the block extended by the r*left ghost
+        # levels still to run; float32 until the last launch.
+        oh, ow = h + 2 * r * left, w + 2 * r * left
+        out = torch.empty((C, oh, ow), device=padded.device,
+                          dtype=out_dtype if left == 0 else torch.float32)
+        _fused_call(cur, out, (off_r - r * left, off_c - r * left), filt, g,
+                    valid_hw, quantize, separable, (min(th, oh), min(tw, ow)))
+        fused_iterate.launches += 1
+        cur = out
+    return cur
+
+
+def _fused_call(x, out, offsets, filt: Filter, T: int, valid_hw,
+                quantize: bool, separable: bool, tile,
+                occupancy: bool = False) -> int:
+    """One K2 launch of T levels from ``x`` into ``out`` (both on the card),
+    or with ``occupancy`` no launch: the number of such blocks one SM
+    holds (the CUDA occupancy calculator on the same instance)."""
+    sep = _sep_taps(filt, separable)
+    taps, col, row = _host_taps(filt, sep)
     mask = valid_hw is not None
     vh, vw = (int(valid_hw[0]), int(valid_hw[1])) if mask else (0, 0)
-    off_r, off_c = int(offsets[0]), int(offsets[1])
+    C, Hp, Wp = x.shape
+    blocks = ctypes.c_int(0)
     from parallel_convolution_tpu_torch.ops import _build
 
     lib = _build.load_library("stencil")
-    cur, left = padded, T
-    with torch.cuda.device(padded.device):
-        stream = torch.cuda.current_stream(padded.device).cuda_stream
-        for g in groups:
-            left -= g
-            # This launch's output: the block extended by the r*left ghost
-            # levels still to run; float32 until the last launch.
-            oh, ow = h + 2 * r * left, w + 2 * r * left
-            out = torch.empty((C, oh, ow), device=padded.device,
-                              dtype=out_dtype if left == 0 else torch.float32)
-            err = lib.pc_fused_iterate(
-                cur.data_ptr(), DTYPE_CODES[cur.dtype], out.data_ptr(),
-                DTYPE_CODES[out.dtype], C, cur.shape[1], cur.shape[2], oh, ow,
-                g, _fptr(taps), _fptr(col), _fptr(row), filt.size,
-                int(sep is not None), int(quantize), int(filt.convex),
-                off_r - r * left, off_c - r * left, int(mask), vh, vw,
-                min(th, oh), min(tw, ow), stream)
-            _raise_on(err, "fused_iterate (K2)")
-            fused_iterate.launches += 1
-            cur = out
-    return cur
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pc_fused_iterate(
+            x.data_ptr(), DTYPE_CODES[x.dtype], out.data_ptr(),
+            DTYPE_CODES[out.dtype], C, Hp, Wp, out.shape[1], out.shape[2], T,
+            _fptr(taps), _fptr(col), _fptr(row), filt.size,
+            int(sep is not None), epilogue_code(filt, quantize),
+            int(offsets[0]), int(offsets[1]), int(mask), vh, vw, tile[0],
+            tile[1], FUSED_THREADS,
+            ctypes.byref(blocks) if occupancy else None, stream)
+    _raise_on(err, "fused_iterate (K2)")
+    return blocks.value
+
+
+def fused_blocks_per_sm(x: torch.Tensor, filt: Filter, T: int, valid_hw,
+                        *, quantize: bool = True, separable: bool = False,
+                        tile=None) -> int:
+    """Blocks of the first K2 launch :func:`fused_iterate` would make on
+    the deep-padded ``x`` that one SM of the card holds, from the CUDA
+    occupancy calculator: shared memory, registers and threads together."""
+    r = filt.radius
+    C, Hp, Wp = x.shape
+    h, w = Hp - 2 * r * T, Wp - 2 * r * T
+    th, tw, groups = fused_plan(r, T, (h, w), tile, _smem_limit(x.device))
+    left = T - groups[0]
+    oh, ow = h + 2 * r * left, w + 2 * r * left
+    return _fused_call(x, x, (0, 0), filt, groups[0], valid_hw, quantize,
+                       separable, (min(th, oh), min(tw, ow)), occupancy=True)
 
 
 fused_iterate.launches = 0

@@ -110,7 +110,7 @@ def rdma_ladder(x: torch.Tensor, filt: Filter, grid_shape, boundary: str,
     th, tw = max(1, min(int(th), h)), max(1, min(int(tw), w))
     d = r * T
     window = (th + 2 * d) * (tw + 2 * d) * 4
-    smem = (4 * th * tw, 4 * th * tw, window, 2 * window)[i]
+    smem = (4 * th * tw, 4 * th * tw, window, window)[i]
     limit = stencil._smem_limit(x.device)
     if smem > limit:
         raise ValueError(f"rdma_ladder {RUNGS[i]}: a {(th, tw)} tile at "
@@ -138,8 +138,9 @@ def rdma_ladder(x: torch.Tensor, filt: Filter, grid_shape, boundary: str,
             i, x.data_ptr(), ptrs.data_ptr(), nbr.data_ptr(),
             stencil.DTYPE_CODES[x.dtype], out.data_ptr(),
             stencil.DTYPE_CODES[out_dtype], nb, Cg, C, h, w, T,
-            stencil._fptr(taps), filt.size, int(quantize), int(filt.convex),
-            int(mask), vh, vw, th, tw, stream)
+            stencil._fptr(taps), filt.size,
+            stencil.epilogue_code(filt, quantize), int(mask), vh, vw, th, tw,
+            stencil.FUSED_THREADS, stream)
     stencil._raise_on(err, f"rdma_ladder {RUNGS[i]} (5c)")
     rdma_ladder.launches += 1
     return out
@@ -148,15 +149,16 @@ def rdma_ladder(x: torch.Tensor, filt: Filter, grid_shape, boundary: str,
 rdma_ladder.launches = 0
 
 
-def ptxas_row(rung, k: int) -> dict:
+def ptxas_row(rung, filt: Filter, quantize: bool = True) -> dict:
     """ptxas's registers, spills and static shared memory for the rung's
-    kernel symbol (r3 instantiated for the filter size ``k``), from the
-    probes library's build report."""
+    kernel symbol (r2 instantiated for the filter's size, r3 for its size
+    and store-back), from the probes library's build report."""
     from parallel_convolution_tpu_torch.ops import _build
 
     i = _rung_index(rung)
-    kt = (k if k in (3, 5) else 0) if i == 3 else 0
-    tag = f"rdma_ladder_kernelILi{i}ELi{kt}E"
+    k = filt.size if i >= 2 else 3
+    epi = stencil.epilogue_code(filt, quantize) if i == 3 else 0
+    tag = f"rdma_ladder_kernelILi{i}ELi{k}ELi{epi}E"
     for symbol, usage in _build.ptxas_usage("probes").items():
         if tag in symbol:
             return {"built": True, "symbol": symbol, **usage}
@@ -185,7 +187,7 @@ def measure(device, reps: int = 10) -> list[dict]:
     for i, name in enumerate(RUNGS):
         got = rdma_ladder(*args, i, valid)
         want = rdma_ladder_plain(*args, i, valid)
-        row = {"rung": name, **ptxas_row(i, filt.size),
+        row = {"rung": name, **ptxas_row(i, filt),
                "correct": bool(torch.equal(got, want)),
                "max_abs_err": float((got.double() - want.double())
                                     .abs().max()),

@@ -30,8 +30,9 @@ assumes one block per TPU chip:
 * **Launches** are a term of their own (:func:`host_seconds_per_chunk`):
   K1 one per level and block, K2 one per level group and block, K3 / K4 one
   per chunk for the whole grid plus K2 per block for later level groups.
-* **The quantize** is priced from probe 5a (``rintf``), not as the TPU's
-  two-add magic round.
+* **The quantize** is priced from probe 5a: the two-add magic round where
+  the filter admits it (``stencil.round_mode``, the JAX package's L1
+  rule), ``rintf`` above the bound.
 * **Overlap and column mode** are inert on one card: every block is in one
   launch, so no transfer is in flight to hide, and there is no column
   transport.  The model has no term for them; candidates carry ``False``
@@ -85,7 +86,9 @@ class HardwareModel:
     ``sep_tap_gops`` the rates the fused kernels (K2 / K3 / K4) achieve in
     the same unit in the 2-D and the separable tap order, where every tap
     reads shared memory; ``quantize_slots`` the u8 store-back per pixel
-    and level in slots; ``launch_s`` the host's seconds per kernel wrapper
+    and level in slots with the magic round, ``rint_quantize_slots`` with
+    ``rintf`` (filters above the magic round's L1 bound); ``launch_s`` the
+    host's seconds per kernel wrapper
     call and ``op_s`` per eager PyTorch op; ``smem_optin`` the opt-in
     shared memory per block that legality is decided against.
     ``plain_kernels`` marks a host where the CUDA backends run their plain
@@ -98,26 +101,32 @@ class HardwareModel:
     tap_gops: float
     sep_tap_gops: float
     quantize_slots: float
+    rint_quantize_slots: float
     launch_s: float
     op_s: float
     smem_optin: int = H100_SMEM_OPTIN
     plain_kernels: bool = False
 
 
-# NVIDIA H100 80GB HBM3 at a 700 W power limit, every rate from one run of
-# chip_smoke.py on the card (its "hardware model" line; the rows named):
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, every rate from a run of
+# chip_smoke.py on the card (its "hardware model" line; the rows named).
+# tap_gops, sep_tap_gops and both quantize prices were measured on the
+# register-strip level loop, the rest on the kernels before it (PERF.md §6):
 #   hbm_gbps     "time stencil_step rgb blur3 f32": K1's bytes / its time
 #   flop_gops    "probe op_price fma f32": 2 x its gops_per_s
 #   tap_gops     "time rdma_tiled rgb 2x2 blur3 bf16 T=32": K4's executed
 #                slots (flops_per_px_iter x px x T) / its time
 #   sep_tap_gops "time fused_iterate rgb blur3 bf16 T=32": K2 (separable)
 #                the same way
-#   quantize_slots  2 x (per_step_vs_f32_fma of "rint+add" - of "add")
+#   quantize_slots       2 x (per_step_vs_f32_fma of "magicround+add" - of
+#                        "add"); rint_quantize_slots the same of "rint+add"
 #   launch_s, op_s  "time host calls": a K1 wrapper call and a slice copy
 #                on a tiny block, host clock over many calls
 H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=1627.4,
-                     flop_gops=46588.8, tap_gops=10678.8, sep_tap_gops=6799.5,
-                     quantize_slots=10.127, launch_s=51.15e-6, op_s=9.74e-6)
+                     flop_gops=46588.8, tap_gops=15984.7,
+                     sep_tap_gops=13763.8, quantize_slots=1.806,
+                     rint_quantize_slots=5.559, launch_s=51.15e-6,
+                     op_s=9.74e-6)
 
 # Generic host: rough figures; on the CPU the model only has to crush the
 # kernels (their plain versions run there) and rank the plain backends
@@ -126,7 +135,8 @@ H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=1627.4,
 # term), so a CPU grid resolves as the JAX package's one-device CPU mesh.
 CPU_HOST = HardwareModel("cpu", hbm_gbps=20.0, flop_gops=50.0, tap_gops=50.0,
                          sep_tap_gops=50.0, quantize_slots=2.0,
-                         launch_s=20e-6, op_s=20e-6, plain_kernels=True)
+                         rint_quantize_slots=2.0, launch_s=20e-6, op_s=20e-6,
+                         plain_kernels=True)
 
 
 def hardware_for(platform: str, device_kind: str = "") -> HardwareModel:
@@ -204,14 +214,20 @@ def rim_overhead(fuse: int, tile_hw, radius: int) -> float:
     return total / (T * th * tw) - 1.0
 
 
+def quantize_price(hw: HardwareModel, magic_round: bool) -> float:
+    """Slots of the u8 store-back per pixel and level on ``hw``: the magic
+    round's, or ``rintf``'s above the L1 bound."""
+    return hw.quantize_slots if magic_round else hw.rint_quantize_slots
+
+
 def flops_per_px_iter(k: int, separable: bool, quantize: bool,
                       fuse: int, rim_tile, radius: int,
                       quantize_slots: float = 2.0) -> float:
     """FMA-slot work per pixel per iteration: 2 slots per MAC (2k MACs
     separable, k² in the 2-D order), plus the u8 store-back, times the
     rim tax on ``rim_tile``.  The JAX formula, with the store-back's price
-    a parameter: the TPU's magic round cost 2 slots; on the card it is
-    ``rintf``, priced by probe 5a (``HardwareModel.quantize_slots``)."""
+    a parameter: the TPU's magic round cost 2 slots; on the card probe 5a
+    prices it (:func:`quantize_price`)."""
     macs = 2 * k if separable else k * k
     slots = 2.0 * macs + (quantize_slots if quantize else 0.0)
     return slots * (1.0 + rim_overhead(fuse, rim_tile, radius))
@@ -282,15 +298,16 @@ def hbm_bytes_per_px_iter(backend: str, storage: str, fuse: int, tile,
 
 def ops_per_px_iter(backend: str, fuse: int, tile, block_hw, k: int,
                     separable: bool, quantize: bool, radius: int,
-                    hw: HardwareModel) -> float:
+                    hw: HardwareModel, magic_round: bool = True) -> float:
     """:func:`flops_per_px_iter` over the chunk's level groups, each on the
     tile it runs (the block for the plain backends and for K3)."""
     T = max(1, int(fuse))
     groups = chunk_groups(backend, T, tile, block_hw, radius, hw.smem_optin)
     rim_tile = (effective_tile(backend, tile, block_hw, radius, T,
                                hw.smem_optin) or block_hw)
+    q = quantize_price(hw, magic_round)
     return sum(g * flops_per_px_iter(k, separable, quantize, g, rim_tile,
-                                     radius, hw.quantize_slots)
+                                     radius, q)
                for g in groups) / T
 
 
@@ -329,7 +346,8 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
                                 shape, block_hw, grid, k: int,
                                 separable: bool, quantize: bool,
                                 hw: HardwareModel,
-                                ragged: bool = False) -> float:
+                                ragged: bool = False,
+                                magic_round: bool = True) -> float:
     """Seconds per pixel (of the C·H·W grid) per iteration:
     ``max(bytes, operations)`` on the card plus the host's issue time.
 
@@ -345,7 +363,7 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
                                    radius, k, quantize, ragged,
                                    hw.smem_optin, hw.plain_kernels)
     ops = ops_per_px_iter(backend, T, tile, block_hw, k, sep, quantize,
-                          radius, hw)
+                          radius, hw, magic_round)
     if backend not in CUDA_BACKENDS:
         rate = hw.flop_gops
     else:

@@ -98,6 +98,9 @@ class Workload:
     # fuses at most its n-1 pre-pair iterations) — a plan tuned for the
     # fixed-count program must not silently drive the convergence one.
     check_every: int | None = None
+    # Whether the kernels round with the magic number (ops/stencil.py
+    # round_mode): a function of the filter, so not part of the key.
+    magic_round: bool = True
 
     @property
     def block_hw(self) -> tuple[int, int]:
@@ -117,6 +120,7 @@ class Workload:
                   check_every: int | None = None) -> "Workload":
         """Build the identity for ``shape`` (C, H, W) on ``grid``: platform
         ``"gpu"`` and the card's name, or ``"cpu"``."""
+        from parallel_convolution_tpu_torch.ops.stencil import round_mode
         from parallel_convolution_tpu_torch.utils.platform import device_kind
 
         on_card = grid.device.type == "cuda"
@@ -134,6 +138,7 @@ class Workload:
             quantize=bool(quantize),
             boundary=boundary,
             check_every=None if check_every is None else int(check_every),
+            magic_round=round_mode(filt.taps) == "magic",
         )
 
     def key_fields(self) -> dict:

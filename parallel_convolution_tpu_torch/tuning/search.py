@@ -181,7 +181,8 @@ def predict(w: Workload, c: Candidate,
     """Model seconds/px/iter for one candidate (ranking unit)."""
     return costmodel.predict_seconds_per_px_iter(
         c.backend, w.storage, c.fuse, c.tile, w.shape, w.block_hw, w.grid,
-        w.taps_k, w.separable, w.quantize, _hw(w, hw), ragged=w.ragged)
+        w.taps_k, w.separable, w.quantize, _hw(w, hw), ragged=w.ragged,
+        magic_round=w.magic_round)
 
 
 def _pref(backend: str) -> int:

@@ -100,17 +100,160 @@ def test_fused_kernel_matches_plain(cuda_device, name, storage, quantize, T,
 
 @pytest.mark.cuda
 def test_fused_level_groups_match_one_launch(cuda_device):
-    # A tile too large for 8 levels in one launch splits them into groups
-    # through float32 device memory: the same bytes as the plain version.
+    # A tile too large for 16 levels in one launch (one f32 window of
+    # 264 x 244 is 258 KB) splits them into groups through float32 device
+    # memory: the same bytes as the plain version.
     f = get_filter("gaussian5")
-    x = _data(7, (1, 200 + 32, 180 + 32), "bf16", cuda_device)
-    th, tw, groups = stencil.fused_plan(2, 8, (200, 180), tile=(160, 160))
+    x = _data(7, (1, 200 + 64, 180 + 64), "bf16", cuda_device)
+    th, tw, groups = stencil.fused_plan(2, 16, (200, 180), tile=(200, 200))
     assert len(groups) > 1
     before = stencil.fused_iterate.launches
-    got = stencil.fused_iterate(x, (0, 0), f, 8, (200, 180), tile=(160, 160))
+    got = stencil.fused_iterate(x, (0, 0), f, 16, (200, 180), tile=(200, 200))
     assert stencil.fused_iterate.launches == before + len(groups)
-    want = stencil.fused_iterate_plain(x, (0, 0), f, 8, (200, 180))
+    want = stencil.fused_iterate_plain(x, (0, 0), f, 16, (200, 180))
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The level loop of K2 / K3 / K4 (csrc/stencil_common.cuh:run_levels)
+# ---------------------------------------------------------------------------
+
+BINOMIAL9 = make_filter("binomial9",
+                        np.outer(*[[1, 8, 28, 56, 70, 56, 28, 8, 1]] * 2),
+                        divisor=65536)
+# Above the magic round's L1 bound (255 * 8308 >= 2^21): the rintf instance.
+# Integer taps, so every product and partial sum stays exact in float32.
+BIG3 = make_filter("big3", [[0, -1, 0], [-1, 8304, -1], [0, -1, 0]])
+IDENTITY1 = make_filter("identity1", [[1.0]])
+
+
+def _strip_height() -> int:
+    from parallel_convolution_tpu_torch.ops import _build
+
+    return _build.load_library("stencil").pc_strip_height()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(13, 40), (37, 33), (8, 96)])
+@pytest.mark.parametrize("name,T", [("blur3", 5), ("edge5", 3),
+                                    ("binomial7", 2)])
+def test_level_windows_off_the_strip_height(cuda_device, tile, name, T):
+    # Tiles whose level windows (th + 2r(T-s) rows) are not multiples of the
+    # strip height: the last strip of a window is partial and must read no
+    # row past the live window.
+    f = BINOMIAL7 if name == "binomial7" else get_filter(name)
+    r, v = f.radius, _strip_height() if f.size <= 5 else 8
+    assert any((tile[0] + 2 * r * (T - s)) % v for s in range(1, T + 1))
+    x = _data(80, (2, 61 + 2 * r * T, 97 + 2 * r * T), "bf16", cuda_device)
+    for sep in (False, True):
+        kw = dict(quantize=True, out_dtype=torch.bfloat16, separable=sep)
+        got = stencil.fused_iterate(x, (2, 3), f, T, (70, 105), tile=tile,
+                                    **kw)
+        want = stencil.fused_iterate_plain(x, (2, 3), f, T, (70, 105), **kw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,quantize", MODES)
+@pytest.mark.parametrize("name", ["blur3", "edge5"])
+def test_interior_and_edge_tiles(cuda_device, name, storage, quantize):
+    # A 200 x 260 block inside a larger image has interior tiles (window
+    # wholly inside: no masks) and tiles on its edges; a tile-sized image
+    # has only edge tiles.  Both equal the plain version, which masks every
+    # level everywhere.
+    f = get_filter(name)
+    T = 4 if quantize or f.convex else 2
+    d = f.radius * T
+    kw = dict(quantize=quantize, out_dtype=TORCH[storage], separable=True)
+    for offsets, hw, valid in (((0, 0), (200, 260), (200, 260)),
+                               ((100, 40), (200, 260), (250, 400)),
+                               ((0, 0), (32, 32), (32, 32))):
+        x = _data(81, (2, hw[0] + 2 * d, hw[1] + 2 * d), storage,
+                  cuda_device)
+        got = stencil.fused_iterate(x, offsets, f, T, valid, tile=(32, 32),
+                                    **kw)
+        want = stencil.fused_iterate_plain(x, offsets, f, T, valid, **kw)
+        _assert_agree(got, want, f, T, quantize)
+    blocks = _grid_blocks(82, (2, 2), (100, 130), storage, cuda_device)
+    x = rdma.stack_blocks(blocks, (2, 2))
+    for valid in ((200, 260), (150, 255)):
+        want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+            blocks, f, (2, 2), "zero", fuse=T, valid_hw=valid,
+            quantize=quantize, out_dtype=TORCH[storage]))
+        got = mesh.join_blocks(rdma.unstack_blocks(rdma.rdma_tiled(
+            x, f, (2, 2), "zero", T, valid, quantize=quantize,
+            out_dtype=TORCH[storage], tile=(32, 32)), (2, 2)))
+        _assert_agree(got, want, f, T, quantize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "u8"])
+def test_rint_instance_above_the_l1_bound(cuda_device, storage):
+    f = BIG3
+    assert stencil.round_mode(f.taps) == "rint" and not f.convex
+    assert stencil.epilogue_code(f, True) == 4
+    x = _data(83, (1, 45 + 8, 70 + 8), storage, cuda_device)
+    kw = dict(quantize=True, out_dtype=TORCH[storage])
+    got = stencil.fused_iterate(x, (0, 0), f, 4, (45, 70), tile=(16, 32),
+                                **kw)
+    assert torch.equal(got, stencil.fused_iterate_plain(x, (0, 0), f, 4,
+                                                        (45, 70), **kw))
+    blocks = _grid_blocks(84, (2, 2), (23, 37), storage, cuda_device)
+    want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+        blocks, f, (2, 2), "zero", fuse=3, valid_hw=(44, 70), **kw))
+    for launch, extra in ((rdma.rdma_block, {}),
+                          (rdma.rdma_tiled, {"tile": (8, 16)})):
+        got = mesh.join_blocks(rdma.unstack_blocks(launch(
+            rdma.stack_blocks(blocks, (2, 2)), f, (2, 2), "zero", 3,
+            (44, 70), **kw, **extra), (2, 2)))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage,quantize", [("u8", True), ("f32", True),
+                                              ("f32", False)])
+@pytest.mark.parametrize("boundary", ["zero", "periodic"])
+@pytest.mark.parametrize("name", ["binomial7", "binomial9", "identity1"])
+def test_wide_filters_both_orders(cuda_device, name, boundary, storage,
+                                  quantize):
+    # k = 7 and 9 (and k = 1): the strip's register rows and the separable
+    # row pass at their widest, sep on and off, both boundaries.
+    f = {"binomial7": BINOMIAL7, "binomial9": BINOMIAL9,
+         "identity1": IDENTITY1}[name]
+    assert f.separable() is not None
+    T = 3
+    d = f.radius * T
+    x = _data(85, (2, 41 + 2 * d, 75 + 2 * d), storage, cuda_device)
+    valid = None if boundary == "periodic" else (50, 80)
+    for sep in (False, True):
+        kw = dict(quantize=quantize, out_dtype=TORCH[storage], separable=sep)
+        got = stencil.fused_iterate(x, (4, 1), f, T, valid, tile=(24, 40),
+                                    **kw)
+        want = stencil.fused_iterate_plain(x, (4, 1), f, T, valid, **kw)
+        _assert_agree(got, want, f, T, quantize)
+    if f.radius:
+        blocks = _grid_blocks(86, (2, 2), (31, 43), storage, cuda_device)
+        valid = None if boundary == "periodic" else (60, 80)
+        kw = dict(quantize=quantize, out_dtype=TORCH[storage])
+        want = mesh.join_blocks(rdma.fused_rdma_step_plain(
+            blocks, f, (2, 2), boundary, fuse=T, valid_hw=valid, **kw))
+        got = mesh.join_blocks(rdma.unstack_blocks(rdma.rdma_tiled(
+            rdma.stack_blocks(blocks, (2, 2)), f, (2, 2), boundary, T, valid,
+            tile=(16, 24), **kw), (2, 2)))
+        _assert_agree(got, want, f, T, quantize)
+
+
+@pytest.mark.cuda
+def test_occupancy_query_launches_nothing(cuda_device):
+    f = get_filter("blur3")
+    x = _data(87, (1, 64 + 64, 64 + 64), "bf16", cuda_device)
+    before = stencil.fused_iterate.launches
+    n = stencil.fused_blocks_per_sm(x, f, 32, (64, 64), separable=True)
+    assert n >= 1 and stencil.fused_iterate.launches == before
+    blocks = _grid_blocks(88, (2, 2), (96, 96), "bf16", cuda_device)
+    fire, _ = rdma._bind(True, rdma.stack_blocks(blocks, (2, 2)), f, (2, 2),
+                         "zero", 16, (192, 192), True, None, 0, (64, 64))
+    assert fire(occupancy=True) >= 1
 
 
 @pytest.mark.cuda
@@ -282,8 +425,8 @@ def test_rdma_non_dyadic_quantize_differs_only_at_rint_ties(cuda_device,
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,bhw,kernel,groups", [
     ("blur3", (100, 100), "block", 1),     # r = 1: K3 holds all 32 levels
-    ("edge5", (64, 70), "tiled", 2),       # r = 2: K4 for 16, then K2 for 16
-    ("gaussian5", (64, 70), "tiled", 2)])
+    ("edge5", (130, 136), "tiled", 4),     # r = 2: K4 for 8, then K2 3 x 8
+    ("gaussian5", (130, 136), "tiled", 4)])
 @pytest.mark.parametrize("storage", ["bf16", "u8"])
 def test_rdma_deep_chunk_in_level_groups(cuda_device, name, bhw, kernel,
                                          groups, storage):

@@ -155,6 +155,24 @@ def test_rdma_plan_picks_kernel_from_shared_memory():
     assert rdma.rdma_plan(2, 32, (2048, 2048)).kernel == "tiled"
 
 
+@pytest.mark.parametrize("r,T,hw", [(1, 8, (120, 158)), (1, 8, (200, 200)),
+                                    (1, 32, (100, 100)), (2, 16, (150, 170)),
+                                    (4, 4, (180, 180)), (1, 8, (230, 230))])
+def test_rdma_plan_block_fit_is_one_buffer(r, T, hw):
+    # K3 takes a block whole when ONE f32 buffer of its level-0 window fits
+    # (the levels run in place), 4 (h+2rT)(w+2rT) bytes: the kernels' own
+    # window_bytes, so blocks up to twice the area of the two-buffer loop.
+    need = 4 * (hw[0] + 2 * r * T) * (hw[1] + 2 * r * T)
+    assert stencil.fused_smem_bytes(r, T, hw) == need
+    plan = rdma.rdma_plan(r, T, hw)
+    assert plan.kernel == ("block" if need <= stencil.H100_SMEM_OPTIN
+                           else "tiled")
+    if plan.kernel == "block":
+        assert plan == ("block", hw, [T])
+    else:
+        assert plan.groups == stencil.fused_plan(r, T, hw)[2]
+
+
 @pytest.mark.parametrize("r,T,hw,tile", [(1, 32, (960, 1260), None),
                                          (2, 32, (2048, 2048), None),
                                          (2, 4, (2048, 2048), None),

@@ -19,6 +19,7 @@ import torch
 
 from parallel_convolution_tpu.ops import filters as jfilters
 from parallel_convolution_tpu.ops import pallas_stencil
+from parallel_convolution_tpu.ops.pallas_stencil import _round_mode_for
 from parallel_convolution_tpu_torch import convert
 from parallel_convolution_tpu_torch.ops import rdma, stencil
 
@@ -135,12 +136,19 @@ def test_fused_equals_chained_steps_with_masks():
 
 
 def test_fused_plan_groups_levels_to_fit_shared_memory():
-    # r=1, T=32 fits one launch at the default 64x64 tile (2 x 128^2 f32);
-    # r=2, T=32 does not (2 x 192^2 f32 > 227 KB) and splits evenly.
+    # One f32 buffer of the level-0 window, the levels in place: r=1, T=32
+    # at the default tile is one launch (128^2 f32 = 64 KB); r=2, T=32
+    # (192^2 f32 = 144 KB) would fit too, but its ghost depth 64 is more
+    # than half the 64-row tile, so it splits evenly at depth 32.
+    th, tw = stencil.FUSED_TILE
+    assert stencil.fused_smem_bytes(1, 32, (64, 64)) == 4 * 128 * 128
     th, tw, groups = stencil.fused_plan(1, 32, (1920, 2520))
-    assert (th, tw, groups) == (64, 64, [32])
+    assert (th, tw) == stencil.FUSED_TILE
+    assert groups == [32 // -(-32 // stencil.max_group_levels(1, (th, tw)))] \
+        * -(-32 // stencil.max_group_levels(1, (th, tw)))
     th, tw, groups = stencil.fused_plan(2, 32, (8192, 8192))
-    assert sum(groups) == 32 and len(groups) == 2 and max(groups) == 16
+    assert sum(groups) == 32 and len(groups) >= 2
+    assert max(groups) <= stencil.max_group_levels(2, (th, tw))
     assert all(stencil.fused_smem_bytes(2, g, (th, tw))
                <= stencil.H100_SMEM_OPTIN for g in groups)
     # A block smaller than the tile clamps the tile.
@@ -148,6 +156,32 @@ def test_fused_plan_groups_levels_to_fit_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         stencil.fused_plan(1, 1, (4096, 4096), tile=(512, 512))
     assert stencil.rim_tax(1, 32, (64, 64)) == 4.0
+
+
+@pytest.mark.parametrize("r", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("tile", [None, (32, 128), (64, 64), (64, 128),
+                                  (128, 128), (200, 200), (8, 300)])
+def test_fused_plan_groups_fit_and_are_fewest(r, tile):
+    # Over a sweep of depths: every launch's window fits the card's opt-in
+    # shared memory as ONE f32 buffer, its ghost depth is within the cap,
+    # the groups are near-equal, and one group fewer could not satisfy
+    # both rules.
+    limit = stencil.H100_SMEM_OPTIN
+    for T in (1, 2, 3, 7, 8, 16, 17, 32, 33):
+        try:
+            th, tw, groups = stencil.fused_plan(r, T, (4096, 4096), tile)
+        except ValueError:
+            assert stencil.fused_smem_bytes(r, 1, tile) > limit
+            continue
+        assert sum(groups) == T and max(groups) - min(groups) <= 1
+        cap = stencil.max_group_levels(r, (th, tw))
+        fits = [g for g in range(1, T + 1)
+                if g <= cap and stencil.fused_smem_bytes(r, g, (th, tw))
+                <= limit]
+        assert max(groups) <= max(fits)
+        assert len(groups) == -(-T // max(fits))
+        assert stencil.fused_smem_bytes(r, max(groups), (th, tw)) == \
+            4 * (th + 2 * r * max(groups)) * (tw + 2 * r * max(groups))
 
 
 def test_wrappers_check_arguments():
@@ -172,3 +206,55 @@ def test_cpu_wrappers_count_no_launches():
     rdma.fused_rdma_step([[x, x]], tf, (1, 2), fuse=2, valid_hw=(12, 24))
     assert stencil.launch_counts() == {"stencil_step": 0, "fused_iterate": 0,
                                        "rdma_block": 0, "rdma_tiled": 0}
+
+
+# ---------------------------------------------------------------- round mode
+def _scaled_taps(name, l1):
+    """A registry filter's taps scaled in float32 to an L1 norm near l1."""
+    t = jfilters.get_filter(name).taps.astype(np.float32)
+    return (t * np.float32(l1 / float(np.abs(t.astype(np.float64)).sum()))
+            ).astype(np.float32)
+
+
+_BOUND_L1 = 2.0 ** 21 / 255.0
+ROUND_CASES = ([(name, jfilters.get_filter(name).taps)
+                for name in sorted(jfilters.FILTERS)]
+               + [(f"{name}*{f}", _scaled_taps(name, f * _BOUND_L1))
+                  for name in ("blur3", "edge5", "sharpen3")
+                  for f in (0.5, 0.999, 0.99999, 1.00001, 1.001, 2.0)])
+
+
+@pytest.mark.parametrize("name,taps", ROUND_CASES,
+                         ids=[c[0] for c in ROUND_CASES])
+def test_round_mode_matches_jax(name, taps):
+    # The kernels' magic round is chosen by the JAX package's own rule:
+    # magic iff JAX's interpret-mode selector does not say "rint" (it says
+    # "magic_barrier" there), summed over the same float32 taps.
+    flat = tuple(float(t) for t in np.asarray(taps, np.float32).reshape(-1))
+    want = "rint" if _round_mode_for(flat, interpret=True) == "rint" \
+        else "magic"
+    assert stencil.round_mode(taps) == want
+    if "*" not in name:
+        assert want == "magic"          # every shipped filter is far inside
+    f = convert.filter_from_numpy(name, np.asarray(taps, np.float32))
+    assert stencil.epilogue_code(f, False) == 0
+    assert stencil.epilogue_code(f, True) == (
+        (1 if want == "magic" else 3) + (0 if f.convex else 1))
+
+
+def test_magic_round_equals_round_half_even():
+    # The two-add round in float32, as the kernels compute it with
+    # __fadd_rn, against torch.round (half to even) on every quarter of
+    # [-2^21, 2^21] -- every half-integer tie, every integer, the quarters
+    # between -- and on random floats there.
+    magic = np.float32(12582912.0)
+    q = np.arange(-2 ** 23, 2 ** 23 + 1, dtype=np.int64)
+    rng = np.random.default_rng(0)
+    x = np.concatenate([(q / 4).astype(np.float32),
+                        rng.uniform(-2 ** 21, 2 ** 21, 2 ** 20)
+                        .astype(np.float32)])
+    assert np.all(np.abs(x) <= 2 ** 21)
+    got = (x + magic) - magic
+    assert got.dtype == np.float32
+    want = torch.round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)

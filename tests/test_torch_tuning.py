@@ -305,6 +305,42 @@ def test_legality_and_plans_come_from_the_planners():
                                     8) is None
 
 
+def test_legality_follows_the_one_buffer_layout():
+    """A pinned tile is legal for K2 exactly when ONE f32 buffer of its
+    level-0 window fits (the levels run in place): 200x200 at r = 1 (163 KB)
+    is legal, where two buffers (326 KB) were not; 240x240 (236 KB) is
+    not."""
+    hw = dataclasses.replace(costmodel.hardware_for("gpu", "card"),
+                             smem_optin=H100_OPTIN)
+    w = _gpu_workload((1, 1), (1, 2048, 2048), "blur3")
+    for tile, legal in (((200, 200), True), ((240, 240), False)):
+        assert (stencil.fused_smem_bytes(1, 1, tile) <= H100_OPTIN) == legal
+        got = search._legal_tiles(w, "cuda", [tile], strict=True, fuse=2,
+                                  hw=hw)
+        assert got == ([tile] if legal else [])
+
+
+def test_quantize_price_follows_the_round_mode():
+    """Filters under the magic round's L1 bound pay quantize_slots, those
+    above it rint_quantize_slots (probe 5a's two rows)."""
+    from parallel_convolution_tpu_torch.ops.filters import make_filter
+
+    hw = costmodel.H100
+    assert hw.rint_quantize_slots > hw.quantize_slots > 0
+    assert costmodel.quantize_price(hw, True) == hw.quantize_slots
+    assert costmodel.quantize_price(hw, False) == hw.rint_quantize_slots
+    big = make_filter("big3", np.full((3, 3), 1000.0))
+    grid = mesh.make_grid(device="cpu")
+    assert Workload.from_grid(grid, get_filter("blur3"),
+                              (1, 64, 64)).magic_round
+    w = Workload.from_grid(grid, big, (1, 64, 64))
+    assert not w.magic_round
+    wm = dataclasses.replace(w, magic_round=True)
+    c = search.Candidate("cuda", 8, (64, 64))
+    gpu = costmodel.hardware_for("gpu", "card")
+    assert search.predict(w, c, gpu) > search.predict(wm, c, gpu)
+
+
 def test_tile_menu_is_accepted_by_the_planners():
     for tile in search.TILE_MENU:
         for r in range(1, stencil.MAX_K // 2 + 1):

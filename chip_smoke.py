@@ -9,14 +9,17 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``parallel_convolution_tpu_torch/csrc`` with
-   nvcc (all sources at once) and print the build seconds, and ptxas's
-   registers for every template instance of the level loop (K2, K3, K4,
-   5c r3); a spill fails;
+   nvcc (every part of every library at once) and print the build seconds,
+   and ptxas's registers for every template instance of K1 and of the level
+   loop (K2, K3, K4, 5c r3); a spill fails;
 3. every kernel against its plain PyTorch version on the card: filters
    blur3 / gaussian5 / edge5 / sharpen3, storage f32 / bf16 / u8, quantize
    on and off, separable on and off, T in {1, 2, 8, 32}, zero and periodic
    boundaries, odd shapes with a ragged last tile, and the main path's own
-   shapes; K3 / K4 on grids 1x1, 2x2, 1x4 (periodic self-wrap) and 4x1,
+   shapes; every K1 instance the wrapper reaches (k = 1, 3, 5, 7, 9, every
+   input dtype against every output dtype, quantize on and off, both
+   orders) on a view whose data_ptr() is not 16-byte aligned; K3 / K4 on
+   grids 1x1, 2x2, 1x4 (periodic self-wrap) and 4x1,
    T in {1, 3} and a 32-level chunk split into level groups.  Quantize mode
    must be byte-equal; float mode within ``stencil.float_tolerance`` (the
    kernels round once per tap as an FMA, the plain versions twice);
@@ -33,11 +36,16 @@ Phases (any failure exits non-zero and prints no result line):
    on the card, and a 3-iteration run must equal the NumPy oracle; the
    ``cuda_rdma`` paths must never call the halo exchange;
 5. times with CUDA events after a warm-up: each kernel at the main path's
-   shapes (K3 / K4 as the launch alone, its arguments bound once, and as
-   the whole wrapper call), its plain version, ``F.conv2d`` (TF32 off) as the one-call
+   shapes (``ms``: K1 as back-to-back wrapper calls, K3 / K4 as the launch
+   alone, its arguments bound once, and as the whole wrapper call;
+   ``device_ms``: the same launches queued ahead of the card, its own
+   time), its plain version, ``F.conv2d`` (TF32 off) as the one-call
    yardstick of K1 and of K3 / K4 at T = 1, each kernel's bound and its
    fraction of it, the level loop's launch shape (strip height V, tile,
-   threads, blocks per SM from the occupancy calculator), and
+   threads, blocks per SM from the occupancy calculator), K1 at f32, bf16
+   and u8 storage, separable, and on the 8192x8192 edge5 block, each with
+   its launch shape (tile, stages, persistent grid) and a plain device copy
+   of the same bytes as its ceiling, and
    end-to-end Gpx/s of each path's counted first run, of a second (warm)
    run, and of the model on an image already on the card (the host's share
    of the time is the difference);
@@ -97,8 +105,12 @@ REPLACES = {
 }
 KERNELS = ("stencil_step", "fused_iterate", "rdma_block", "rdma_tiled")
 PROBE_SOURCE = "parallel_convolution_tpu_torch/csrc/probes.cu"
+# K1's typed instances: 3 input dtypes x k in (1, 3, 5, 7, 9) x 2 orders x
+# 11 (output dtype, store-back) pairs (no u8 output in float mode, no rintf
+# without the clip).
+K1_INSTANCES = 3 * 5 * 2 * 11
 SOURCES = {
-    "stencil_step": "parallel_convolution_tpu_torch/csrc/stencil.cu",
+    "stencil_step": "parallel_convolution_tpu_torch/csrc/step.cu",
     "fused_iterate": "parallel_convolution_tpu_torch/csrc/stencil.cu",
     "rdma_block": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "rdma_tiled": "parallel_convolution_tpu_torch/csrc/rdma.cu",
@@ -126,11 +138,13 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, queue_ahead: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events; with
+    ``queue_ahead`` the calls are enqueued before the card starts them, so
+    the host's time between calls is not counted (the device's time)."""
     from parallel_convolution_tpu_torch.utils.bench import cuda_ms as ms
 
-    return ms(fn, reps, warmup)
+    return ms(fn, reps, warmup, queue_ahead)
 
 
 def max_abs_err(a, b) -> float:
@@ -155,24 +169,27 @@ def agree(got, want, filt, levels, quantize) -> tuple[bool, float]:
                                rtol=rtol, atol=atol)), err
 
 
-# Kernels that run the level loop (csrc/stencil_common.cuh:run_levels), by
-# library, and the names of their template parameters.
-LEVEL_LOOP_KERNELS = {
-    "stencil": {"fused_iterate_kernel": ("K", "EPI", "SEP")},
+# K1 and the kernels that run the level loop
+# (csrc/stencil_common.cuh:run_levels), by library, and the names of their
+# template parameters.
+PTXAS_KERNELS = {
+    "stencil": {"stencil_step_kernel": ("IN", "OUT", "K", "EPI", "SEP"),
+                "fused_iterate_kernel": ("K", "EPI", "SEP")},
     "rdma": {"rdma_block_kernel": ("K", "EPI"),
              "rdma_tiled_kernel": ("K", "EPI")},
     "probes": {"rdma_ladder_kernel": ("RUNG", "K", "EPI")},
 }
 
 
-def print_level_loop_ptxas() -> None:
-    """ptxas's registers and spills for every template instance of the
-    level loop, one line per kernel; fails on a spill."""
+def print_ptxas() -> None:
+    """ptxas's registers and spills for every template instance of K1 and
+    the level loop, one line per kernel (K1's registers by k and order);
+    fails on a spill."""
     import re
 
     from parallel_convolution_tpu_torch.ops import _build
 
-    for lib, kernels in LEVEL_LOOP_KERNELS.items():
+    for lib, kernels in PTXAS_KERNELS.items():
         usage = _build.ptxas_usage(lib)
         for kernel, params in kernels.items():
             inst = {}
@@ -189,9 +206,20 @@ def print_level_loop_ptxas() -> None:
             check(inst != {}, f"ptxas: no instance of {kernel} in lib{lib}")
             regs = [v[0] for v in inst.values()]
             spills = {k: v for k, v in inst.items() if v[1] or v[2]}
+            if kernel == "stencil_step_kernel":  # 330 instances: by k, order
+                check(len(inst) == K1_INSTANCES,
+                      f"ptxas: {len(inst)} K1 instances, expected "
+                      f"{K1_INSTANCES}")
+                by = {}
+                for key, v in inst.items():
+                    p = dict(kv.split("=") for kv in key.split())
+                    by.setdefault(f"K={p['K']} SEP={p['SEP']}", []).append(v[0])
+                shown = {k: [min(v), max(v)] for k, v in sorted(by.items())}
+            else:
+                shown = {k: v[0] for k, v in inst.items()}
             print(f"ptxas {kernel}: {len(inst)} instances, registers "
                   f"{min(regs)}-{max(regs)}, spilling {len(spills)}; "
-                  + json.dumps({k: v[0] for k, v in inst.items()}))
+                  + json.dumps(shown))
             check(not spills, f"ptxas: {kernel} spills in {spills}")
 
 
@@ -247,10 +275,55 @@ def check_kernels(dev) -> dict:
                               f"T={T} {boundary}: max abs err {err}")
                     worst["fused_iterate"] = max(worst["fused_iterate"], err)
                     n += 1
+    worst["stencil_step"] = max(worst["stencil_step"], check_step_instances(
+        dev, data))
+    n += 6 * 15 * 2
     torch.cuda.synchronize()
     print(f"kernel checks: {n} cases agree (quantize mode byte-equal; float "
           f"mode within stencil.float_tolerance, max abs err "
           f"K1 {worst['stencil_step']:.3g}, K2 {worst['fused_iterate']:.3g})")
+    return worst
+
+
+def check_step_instances(dev, data) -> float:
+    """Every K1 instance the wrapper reaches against its plain version:
+    k = 1, 3, 5, 7, 9, each input dtype against each output dtype (u8 out
+    only with the store-back), quantize on and off, both orders, on a view
+    one element past a 16-byte boundary with odd rows; max abs err."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter, make_filter
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "u8": torch.uint8}
+    filters = [make_filter("identity1", [[1.0]]), get_filter("blur3"),
+               get_filter("edge5"),
+               make_filter("binomial7",
+                           np.outer(*[[1, 6, 15, 20, 15, 6, 1]] * 2), 4096),
+               make_filter("binomial9",
+                           np.outer(*[[1, 8, 28, 56, 70, 56, 28, 8, 1]] * 2),
+                           65536),
+               get_filter("gaussian5")]
+    worst = 0.0
+    for f in filters:
+        shape = (2, 45 + f.size - 1, 77 + f.size - 1)
+        n = shape[0] * shape[1] * shape[2]
+        for src in dtypes:
+            x = data((n + 1,), src)[1:].view(shape)
+            for dst in dtypes:
+                for quantize in (True, False):
+                    if dst == "u8" and not quantize:
+                        continue
+                    for sep in (False, True):
+                        kw = dict(quantize=quantize, out_dtype=dtypes[dst],
+                                  separable=sep)
+                        got = stencil.stencil_step(x, f, **kw)
+                        want = stencil.stencil_step_plain(x, f, **kw)
+                        ok, err = agree(got, want, f, 1, quantize)
+                        check(ok, f"K1 {f.name} {src}->{dst} q={quantize} "
+                                  f"sep={sep}: max abs err {err}")
+                        worst = max(worst, err)
     return worst
 
 
@@ -401,34 +474,62 @@ def launch_shape(blocks_per_sm: int) -> dict:
             "threads": stencil.FUSED_THREADS, "blocks_per_sm": blocks_per_sm}
 
 
-def time_step(img, filt, storage, dev) -> dict:
-    """K1 as ConvolutionModel(backend='cuda', f32, fuse=1) calls it."""
+def time_step(img, filt, storage, dev, separable: bool = False) -> dict:
+    """K1 as ConvolutionModel(backend='cuda', fuse=1) calls it, beside its
+    plain version, ``F.conv2d`` (TF32 off) and a plain device copy of the
+    same bytes (the output's window of the input, out.copy_(p[:, r:-r,
+    r:-r])): the ceiling a kernel that reads and writes these bytes once
+    reaches through PyTorch's own copy."""
     import torch
     import torch.nn.functional as F
 
     from parallel_convolution_tpu_torch.ops import stencil
 
-    p = padded_block(img, storage, filt.radius, dev)
-    kw = dict(quantize=True, out_dtype=p.dtype, separable=False)
+    r = filt.radius
+    p = padded_block(img, storage, r, dev)
+    kw = dict(quantize=True, out_dtype=p.dtype, separable=separable)
     got = stencil.stencil_step(p, filt, **kw)
     want = stencil.stencil_step_plain(p, filt, **kw)
     ok, err = agree(got, want, filt, 1, True)
-    check(ok, f"K1 at the main path's shape {tuple(p.shape)}: err {err}")
-    ms = cuda_ms(lambda: stencil.stencil_step(p, filt, **kw), reps=50)
+    check(ok, f"K1 at the main path's shape {tuple(p.shape)} {storage} "
+              f"sep={separable}: err {err}")
+    shape = stencil.step_launch_shape(p, filt, **kw)
+    # ms: back-to-back wrapper calls, as the fuse-1 path makes them (where
+    # the host's time per call is the longer, it shows); device_ms: the same
+    # launches queued ahead of the card, the kernel's own time.
+    ms = cuda_ms(lambda: stencil.stencil_step(p, filt, **kw), reps=200,
+                 warmup=20)
+    device_ms = cuda_ms(lambda: stencil.stencil_step(p, filt, **kw),
+                        reps=200, warmup=20, queue_ahead=True)
     plain_ms = cuda_ms(lambda: stencil.stencil_step_plain(p, filt, **kw),
                        reps=10)
     # The one-call yardstick: F.conv2d in full FP32 (cuDNN's TF32 off),
     # timed here only; the port never calls it for K1's work.
     torch.backends.cudnn.allow_tf32 = False
     taps = torch.as_tensor(filt.taps, device=dev)[None, None]
-    lib_ms = cuda_ms(lambda: F.conv2d(p[:, None], taps), reps=50)
+    pf = p.to(torch.float32)
+    lib_ms = cuda_ms(lambda: F.conv2d(pf[:, None], taps), reps=50, warmup=5)
+    out = torch.empty_like(got)
+    window = p[:, r:p.shape[1] - r, r:p.shape[2] - r]
+    copy_ms = cuda_ms(lambda: out.copy_(window), reps=200, warmup=20,
+                      queue_ahead=True)
     C, H, W = got.shape
+    use_sep = separable and filt.separable() is not None
     nbytes = p.numel() * p.element_size() + got.numel() * got.element_size()
-    b_ms, b_by = bound(nbytes, C * level_ops(filt, False, H, W, True, False))
-    return dict(shape=list(p.shape), dtype=str(p.dtype), max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, fraction_of_bound=b_ms / ms, bytes=nbytes,
-                achieved_gbps=nbytes / (ms / 1e3) / 1e9)
+    b_ms, b_by = bound(nbytes, C * level_ops(filt, use_sep, H, W, True,
+                                             False))
+    plan = shape["plan"]
+    return dict(shape=list(p.shape), dtype=str(p.dtype), separable=separable,
+                tile=list(plan.tile), extent=list(plan.extent),
+                stages=plan.stages, threads=plan.threads, smem=plan.smem,
+                blocks_per_sm=shape["blocks_per_sm"], grid=shape["grid"],
+                max_abs_err=err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, copy_ms=copy_ms,
+                bound_ms=b_ms, bound_by=b_by, fraction_of_bound=b_ms / ms,
+                device_fraction_of_bound=b_ms / device_ms,
+                copy_fraction_of_bound=b_ms / copy_ms, bytes=nbytes,
+                achieved_gbps=nbytes / (ms / 1e3) / 1e9,
+                device_gbps=nbytes / (device_ms / 1e3) / 1e9)
 
 
 def time_fused(img, filt, storage, T, sep, dev) -> dict:
@@ -493,14 +594,16 @@ def time_rdma(kind, img, filt, storage, grid_shape, T, dev) -> dict:
     ok, err = agree(got, want, filt, T, True)
     check(ok, f"{kind} at the main path's blocks {grid_shape} x "
               f"{tuple(blocks[0][0].shape)} T={T}: err {err}")
-    # ms: the launch alone, its arguments bound once (the kernel's own
-    # time); call_ms: the whole wrapper call as the path makes it, with
-    # its checks, pointer table and output allocation.
+    # ms: the launch alone, its arguments bound once; device_ms: the same
+    # launches queued ahead of the card (the kernel's own time); call_ms:
+    # the whole wrapper call as the path makes it, with its checks, pointer
+    # table and output allocation.
     tile = stencil.FUSED_TILE if kind == "rdma_tiled" else None
     fire, _ = rdma._bind(kind == "rdma_tiled", x, filt, grid_shape, "zero",
                          T, valid, True, None, 0, tile)
     shape = launch_shape(fire(occupancy=True))
     ms = cuda_ms(fire, reps=50 if T == 1 else 20)
+    device_ms = cuda_ms(fire, reps=50 if T == 1 else 20, queue_ahead=True)
     call_ms = cuda_ms(call, reps=20 if T == 1 else 10)
     plain_ms = cuda_ms(plain, reps=2, warmup=1)
     lib_ms = None
@@ -519,7 +622,7 @@ def time_rdma(kind, img, filt, storage, grid_shape, T, dev) -> dict:
     b_ms, b_by = bound(nbytes, ops)
     return dict(grid=list(grid_shape), block=[C, h, w], dtype=str(got.dtype),
                 T=T, tile=list(tile) if tile else [h, w], **shape,
-                max_abs_err=err, ms=ms, call_ms=call_ms,
+                max_abs_err=err, ms=ms, device_ms=device_ms, call_ms=call_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by, fraction_of_bound=b_ms / ms)
 
@@ -954,7 +1057,9 @@ def hardware_constants(k1, k2, k4, price, host) -> dict:
     k2_px = C * (Hp - 2 * d) * (Wp - 2 * d)
     k4_px = k4["grid"][0] * k4["grid"][1] * k4["block"][0] * k4["block"][1] \
         * k4["block"][2]
-    return {"hbm_gbps": k1["achieved_gbps"],
+    # The memory rate from K1's device time: its wrapper-call time counts
+    # the host too.
+    return {"hbm_gbps": k1["device_gbps"],
             "flop_gops": 2 * rows[("fma", "f32")]["gops_per_s"],
             "tap_gops": slots_rate(k4_px, k4["T"], stencil.FUSED_TILE,
                                    False, k4["ms"]),
@@ -1235,7 +1340,7 @@ def main() -> int:
               f"({each or 'up to date'})")
         for name in _build.SOURCES:
             _build.load_library(name)
-        print_level_loop_ptxas()
+        print_ptxas()
 
         check_kernels(dev)
         check_rdma_kernels(dev)
@@ -1251,6 +1356,14 @@ def main() -> int:
         grey8k = imageio.generate_test_image(*BIG_HW, "grey", seed=2)
         blur3, edge5 = get_filter("blur3"), get_filter("edge5")
         k1 = time_step(rgb, blur3, "f32", dev)
+        k1_rows = {"stencil_step rgb blur3 bf16": time_step(rgb, blur3, "bf16",
+                                                            dev),
+                   "stencil_step rgb blur3 u8": time_step(rgb, blur3, "u8",
+                                                          dev),
+                   "stencil_step rgb blur3 f32 sep": time_step(
+                       rgb, blur3, "f32", dev, separable=True),
+                   "stencil_step grey8k edge5 f32": time_step(grey8k, edge5,
+                                                              "f32", dev)}
         k2 = time_fused(rgb, blur3, "bf16", 32, True, dev)
         k2_edge = time_fused(grey8k, edge5, "bf16", 32, True, dev)
         grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
@@ -1260,6 +1373,7 @@ def main() -> int:
         k4_t1 = time_rdma("rdma_tiled", rgb, blur3, "bf16", (2, 2), 1, dev)
         chunk8k = time_rdma_chunk(grey8k, edge5, "bf16", (4, 4), 32, dev)
         for name, t in (("stencil_step rgb blur3 f32", k1),
+                        *k1_rows.items(),
                         ("fused_iterate rgb blur3 bf16 T=32", k2),
                         ("fused_iterate grey8k edge5 bf16 T=32", k2_edge),
                         ("rdma_block grey 16x16 blur3 u8 T=8", k3),

@@ -1,19 +1,10 @@
 // Hand-written Hopper (sm_90a) stencil kernels of parallel_convolution_tpu_torch.
 //
-// Two kernels, each behind a plain C entry point loaded with ctypes
-// (parallel_convolution_tpu_torch/ops/_build.py builds this file with nvcc,
-// ops/stencil.py binds and checks every argument before it gets here):
-//
-// K1 stencil_step_kernel -- replaces the TPU kernel
-//    parallel_convolution_tpu/ops/pallas_stencil.py:_stencil_kernel (launched by
-//    correlate_padded_pallas).  One stencil step on an already-padded
-//    (C, H+2r, W+2r) block -> (C, H, W), with the optional fused u8 store-back.
-//    Bound on the H100: bytes.  Every output pixel reads one input pixel's worth
-//    of new data and does k*k (or 2k separable) FMAs, far below the card's
-//    ~20 FP32 operations per byte.  The design reads each haloed input window
-//    from device memory once into shared memory (neighbouring threads on
-//    neighbouring addresses) and writes each output once; the taps are kernel
-//    parameters (constant bank), so the inner loop touches only shared memory.
+// K2 here, and the entry point of K1 (csrc/step.cu), each behind a plain C
+// entry point loaded with ctypes (parallel_convolution_tpu_torch/ops/_build.py
+// builds this file and step.cu's parts with nvcc and links them into
+// libstencil.so; ops/stencil.py binds and checks every argument before it
+// gets here):
 //
 // K2 fused_iterate_kernel -- replaces the TPU kernel
 //    parallel_convolution_tpu/ops/pallas_stencil.py:_fused_kernel (launched by
@@ -32,7 +23,7 @@
 //    levels; where T levels of a tile do not fit in shared memory, or the rim
 //    would cost more than a launch, the wrapper runs them in level groups.
 //
-// The semantics both kernels share with K3 and K4 (csrc/rdma.cu) -- tap
+// The semantics K1 and K2 share with K3 and K4 (csrc/rdma.cu) -- tap
 // order, FMA, round and clip, dtype conversions -- and K2's level loop live
 // in stencil_common.cuh.
 //
@@ -46,61 +37,6 @@
 using namespace pc;
 
 namespace {
-
-constexpr int kStepThreadsX = 32, kStepThreadsY = 8;
-
-// ---------------------------------------------------------------------------
-// K1: one stencil step.  Block = one (channel, th x tw output tile).
-// Shared memory: the (th+2r) x (tw+2r) window, plus (th+2r) x tw for the
-// separable row pass.
-// ---------------------------------------------------------------------------
-template <int KT>
-__global__ void stencil_step_kernel(const void* __restrict__ in, int in_dtype,
-                                    void* __restrict__ out, int out_dtype,
-                                    int Hp, int Wp, int H, int W, Taps tp,
-                                    int k, int sep, int quant, int convex,
-                                    int th, int tw) {
-  extern __shared__ float smem[];
-  const int r = k / 2;
-  const int wh = th + 2 * r, ww = tw + 2 * r;
-  float* win = smem;
-  float* acc1 = smem + wh * ww;
-  const int c = blockIdx.z;
-  const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
-  const long long in_base = static_cast<long long>(c) * Hp * Wp;
-  const long long out_base = static_cast<long long>(c) * H * W;
-
-  // Stage the haloed window; positions past the padded extent (the ragged
-  // last tile) read as 0 and only feed outputs that are never stored.
-  for (int wy = threadIdx.y; wy < wh; wy += blockDim.y) {
-    const int gy = y0 + wy;
-    for (int wx = threadIdx.x; wx < ww; wx += blockDim.x) {
-      const int gx = x0 + wx;
-      float v = 0.f;
-      if (gy < Hp && gx < Wp)
-        v = load_f32(in, in_dtype, in_base + static_cast<long long>(gy) * Wp + gx);
-      win[wy * ww + wx] = v;
-    }
-  }
-  __syncthreads();
-
-  const int oh = min(th, H - y0), ow = min(tw, W - x0);
-  if (sep) {
-    for (int y = threadIdx.y; y < wh; y += blockDim.y)
-      for (int x = threadIdx.x; x < ow; x += blockDim.x)
-        acc1[y * tw + x] = row_pass<KT>(win, ww, y, x, tp, k);
-    __syncthreads();
-  }
-  for (int y = threadIdx.y; y < oh; y += blockDim.y) {
-    for (int x = threadIdx.x; x < ow; x += blockDim.x) {
-      float acc = sep ? col_pass<KT>(acc1, tw, y, x, tp, k)
-                      : corr2d<KT>(win, ww, y, x, tp, k);
-      if (quant) acc = quantize(acc, convex);
-      store_f32(out, out_dtype,
-                out_base + static_cast<long long>(y0 + y) * W + x0 + x, acc);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K2: T fused levels.  Block = one (channel, th x tw output tile), a 1-D
@@ -178,50 +114,52 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
                                   valid_h, valid_w, o);
 }
 
-template <int KT>
-cudaError_t launch_step(const void* in, int in_dtype, void* out, int out_dtype,
-                        int C, int Hp, int Wp, int H, int W, const Taps& tp,
-                        int k, int sep, int quant, int convex, int th, int tw,
-                        cudaStream_t stream) {
-  const int r = k / 2;
-  const size_t bytes =
-      sizeof(float) * static_cast<size_t>(th + 2 * r) *
-      static_cast<size_t>((tw + 2 * r) + (sep ? tw : 0));
-  cudaError_t e = allow_smem(stencil_step_kernel<KT>, bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 block(kStepThreadsX, kStepThreadsY);
-  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, C);
-  stencil_step_kernel<KT><<<grid, block, bytes, stream>>>(
-      in, in_dtype, out, out_dtype, Hp, Wp, H, W, tp, k, sep, quant, convex,
-      th, tw);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// Returns a cudaError_t value: 0 on a successful launch.  Pointers are device
-// pointers except taps/col/row (host arrays of k*k, k and k floats).
+// K1's parts (csrc/step.cu), one per input dtype and order.
+#define PC_STEP_PART(name)                                                    \
+  extern "C" int name(const void*, void*, int, int, int, int, int, int,      \
+                      const float*, const float*, const float*, int, int,    \
+                      int, int, int, int, int, int, int, int, int, int*,     \
+                      void*);
+PC_STEP_PART(pc_step_in0_sep0)
+PC_STEP_PART(pc_step_in0_sep1)
+PC_STEP_PART(pc_step_in1_sep0)
+PC_STEP_PART(pc_step_in1_sep1)
+PC_STEP_PART(pc_step_in2_sep0)
+PC_STEP_PART(pc_step_in2_sep1)
+#undef PC_STEP_PART
+
+// K1 (csrc/step.cu).  Returns a cudaError_t value: 0 on a successful launch.
+// Pointers are device pointers except taps/col/row (host arrays of k*k, k and
+// k floats).  epi is the store-back (Epi); th x tw the output tile, rows x
+// cols its computed extent, pitch / out_pitch the shared-memory row pitches,
+// stages the input stages, threads and grid the launch
+// (ops/stencil.py:step_plan).  With `blocks` non-null nothing launches:
+// *blocks gets the number of such blocks one SM holds.
 extern "C" int pc_stencil_step(const void* in, int in_dtype, void* out,
                                int out_dtype, int C, int Hp, int Wp, int H,
                                int W, const float* taps, const float* col,
-                               const float* row, int k, int sep, int quant,
-                               int convex, int th, int tw, void* stream) {
-  Taps tp;
-  if (!fill_taps(&tp, taps, col, row, k, sep) || th < 1 || tw < 1)
+                               const float* row, int k, int sep, int epi,
+                               int th, int tw, int rows, int cols, int pitch,
+                               int out_pitch, int stages, int threads,
+                               int grid, int* blocks, void* stream) {
+  using Part = int (*)(const void*, void*, int, int, int, int, int, int,
+                       const float*, const float*, const float*, int, int,
+                       int, int, int, int, int, int, int, int, int, int*,
+                       void*);
+  static const Part parts[3][2] = {{pc_step_in0_sep0, pc_step_in0_sep1},
+                                   {pc_step_in1_sep0, pc_step_in1_sep1},
+                                   {pc_step_in2_sep0, pc_step_in2_sep1}};
+  if (in_dtype < kF32 || in_dtype > kU8)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 3:
-      return launch_step<3>(in, in_dtype, out, out_dtype, C, Hp, Wp, H, W, tp,
-                            k, sep, quant, convex, th, tw, st);
-    case 5:
-      return launch_step<5>(in, in_dtype, out, out_dtype, C, Hp, Wp, H, W, tp,
-                            k, sep, quant, convex, th, tw, st);
-    default:
-      return launch_step<0>(in, in_dtype, out, out_dtype, C, Hp, Wp, H, W, tp,
-                            k, sep, quant, convex, th, tw, st);
-  }
+  return parts[in_dtype][sep ? 1 : 0](
+      in, out, out_dtype, C, Hp, Wp, H, W, taps, col, row, k, epi, th, tw,
+      rows, cols, pitch, out_pitch, stages, threads, grid, blocks, stream);
 }
+
+// K1's strip height for a k-tap filter (csrc/stencil_common.cuh:strip_v).
+extern "C" int pc_step_strip(int k) { return strip_v(k); }
 
 // K2.  epi is the store-back (Epi: float, or the magic round or rintf, with
 // or without the clip); threads is the block's thread count, a whole number

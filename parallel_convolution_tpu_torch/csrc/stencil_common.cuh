@@ -1,6 +1,7 @@
-// Device helpers shared by the port's kernels (csrc/stencil.cu, csrc/rdma.cu,
-// csrc/probes.cu): the tap table, the f32 / bf16 / u8 loads and stores, the
-// u8 store-back, K1's tap chains, and the T-level loop of K2, K3 and K4.
+// Device helpers shared by the port's kernels (csrc/step.cu, csrc/stencil.cu,
+// csrc/rdma.cu, csrc/probes.cu): the tap table, the f32 / bf16 / u8 loads and
+// stores, the u8 store-back, the register strip (K1 and the level loop), and
+// the T-level loop of K2, K3 and K4.
 //
 // Semantics (the normative spec is ops/oracle.py):
 //  * accumulation in f32 in the fixed row-major tap order, or the rank-1
@@ -8,10 +9,10 @@
 //    separable, each tap one single-rounding FMA (__fmaf_rn) -- the order the
 //    JAX package's XLA and Pallas tiers contract to;
 //  * quantize: round half to even, then clip to [0, 255] unless the filter
-//    is convex (the clip is the identity there).  The level loop rounds with
+//    is convex (the clip is the identity there).  Every kernel rounds with
 //    the two-add magic number (acc + 1.5*2^23) - 1.5*2^23, exact for
 //    |acc| < 2^22, wherever the host's rule admits it (255 * L1(taps) < 2^21,
-//    the JAX package's _round_mode_for); else, and in K1, with rintf.  The
+//    the JAX package's _round_mode_for); else with rintf.  The
 //    two give the same value; only a zero's sign may differ (-0.4 rounds to
 //    +0 by magic, to -0 by rintf), which no comparison by value and no u8
 //    store sees;
@@ -79,8 +80,8 @@ constexpr float kMagic = 12582912.0f;     // 1.5 * 2^23
 
 enum DType : int { kF32 = 0, kBF16 = 1, kU8 = 2 };
 
-// The u8 store-back of the level loop, a template parameter; the host picks
-// it (ops/stencil.py:epilogue_code) and passes the code as `epi`.
+// The u8 store-back of every kernel, a template parameter; the host picks it
+// (ops/stencil.py:epilogue_code) and passes the code as `epi`.
 enum Epi : int {
   kEpiFloat = 0,      // no store-back (float mode)
   kEpiMagic = 1,      // magic round, convex filter (no clip)
@@ -133,15 +134,8 @@ __device__ __forceinline__ void store_f32(void* p, int dtype, long long i,
   }
 }
 
-// K1's store-back: rintf, then the clip unless convex.
-__device__ __forceinline__ float quantize(float acc, int convex) {
-  acc = rintf(acc);
-  if (!convex) acc = fminf(fmaxf(acc, 0.f), 255.f);
-  return acc;
-}
-
-// The level loop's store-back.  __fadd_rn keeps nvcc from contracting or
-// folding the magic pair.
+// The store-back.  __fadd_rn keeps nvcc from contracting or folding the
+// magic pair.
 template <int EPI>
 __device__ __forceinline__ float epilogue(float acc) {
   if constexpr (EPI == kEpiMagic || EPI == kEpiMagicClip)
@@ -152,56 +146,24 @@ __device__ __forceinline__ float epilogue(float acc) {
   return acc;
 }
 
-// 2D row-major tap chain for the output at (y, x) of window s (row stride S).
-template <int KT>
-__device__ __forceinline__ float corr2d(const float* __restrict__ s, int S,
-                                        int y, int x, const Taps& tp, int k) {
-  const int K = KT > 0 ? KT : k;
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < K; ++dy) {
-    const float* line = s + (y + dy) * S + x;
-#pragma unroll
-    for (int dx = 0; dx < K; ++dx)
-      acc = __fmaf_rn(tp.t[dy * K + dx], line[dx], acc);
+// A level's input rows in shared memory as f32, row stride S: element
+// (i, dx) of the strip whose top-left input is p.
+struct F32Rows {
+  const float* __restrict__ p;
+  int S;
+  __device__ __forceinline__ float operator()(int i, int dx) const {
+    return p[i * S + dx];
   }
-  return acc;
-}
-
-// Separable row pass: sum_dx row[dx] * s[y][x + dx].
-template <int KT>
-__device__ __forceinline__ float row_pass(const float* __restrict__ s, int S,
-                                          int y, int x, const Taps& tp,
-                                          int k) {
-  const int K = KT > 0 ? KT : k;
-  const float* line = s + y * S + x;
-  float acc = 0.f;
-#pragma unroll
-  for (int dx = 0; dx < K; ++dx) acc = __fmaf_rn(tp.row[dx], line[dx], acc);
-  return acc;
-}
-
-// Separable column pass: sum_dy col[dy] * s[y + dy][x].
-template <int KT>
-__device__ __forceinline__ float col_pass(const float* __restrict__ s, int S,
-                                          int y, int x, const Taps& tp,
-                                          int k) {
-  const int K = KT > 0 ? KT : k;
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < K; ++dy)
-    acc = __fmaf_rn(tp.col[dy], s[(y + dy) * S + x], acc);
-  return acc;
-}
+};
 
 // One register strip: the V outputs (y0 .. y0+V-1, x) of a level whose input
-// window starts at p = &in[y0][x] (row stride S).  FULL: all V outputs are
+// rows `in` gives as in(i, dx) = input[y0 + i][x + dx] in f32 (F32Rows for
+// the level loop, K1's typed rows in csrc/step.cu).  FULL: all V outputs are
 // live; else only the first `rows`, and the strip reads only the rows + K - 1
 // input rows they need (none past the live window).
-template <int K, int V, bool SEP, bool FULL>
-__device__ __forceinline__ void strip(const float* __restrict__ p, int S,
-                                      const Taps& tp, int rows,
-                                      float (&acc)[V]) {
+template <int K, int V, bool SEP, bool FULL, typename Rows>
+__device__ __forceinline__ void strip(const Rows& in, const Taps& tp,
+                                      int rows, float (&acc)[V]) {
   constexpr int NR = V + K - 1;
   if constexpr (!SEP) {
 #pragma unroll
@@ -211,7 +173,7 @@ __device__ __forceinline__ void strip(const float* __restrict__ p, int S,
       float line[K];
       if (FULL || i < rows + K - 1) {
 #pragma unroll
-        for (int dx = 0; dx < K; ++dx) line[dx] = p[i * S + dx];
+        for (int dx = 0; dx < K; ++dx) line[dx] = in(i, dx);
       } else {
 #pragma unroll
         for (int dx = 0; dx < K; ++dx) line[dx] = 0.f;
@@ -236,7 +198,7 @@ __device__ __forceinline__ void strip(const float* __restrict__ p, int S,
       if (FULL || i < rows + K - 1) {
 #pragma unroll
         for (int dx = 0; dx < K; ++dx)
-          a = __fmaf_rn(tp.row[dx], p[i * S + dx], a);
+          a = __fmaf_rn(tp.row[dx], in(i, dx), a);
       }
       rp[i] = a;
     }
@@ -289,11 +251,11 @@ __device__ void run_levels(float* __restrict__ buf, int S, int th, int tw,
       const int rows = active ? min(V, ch - y0) : 0;
       float acc[V];
       if (active) {
-        const float* p = buf + y0 * S + x;
+        const F32Rows p{buf + y0 * S + x, S};
         if (rows == V)
-          strip<K, V, SEP, true>(p, S, tp, rows, acc);
+          strip<K, V, SEP, true>(p, tp, rows, acc);
         else
-          strip<K, V, SEP, false>(p, S, tp, rows, acc);
+          strip<K, V, SEP, false>(p, tp, rows, acc);
         float mcol = 1.f;
         if constexpr (EDGE) mcol = (gcol + x >= 0 && gcol + x < valid_w);
 #pragma unroll

@@ -1,19 +1,26 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into
-``build/torch_kernels/lib<name>.so`` at the root of the checkout, the first
-time it is needed, and loaded with ``ctypes`` (a plain C interface: the
-sources include no PyTorch header).  A stamp file holds the hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags; a changed source
-or header rebuilds.  Every build runs ptxas with ``-v`` and keeps its
-report in ``lib<name>.log`` (:func:`ptxas_usage` reads the registers,
-spills and shared memory of each kernel from it).  Nothing here runs at
-import time.
+Each library ``build/torch_kernels/lib<name>.so`` (at the root of the
+checkout) is linked from the parts :data:`LIBRARIES` lists: a
+``csrc/<source>.cu`` compiled by ``nvcc`` with its own defines, every part
+of every stale library compiled at once, each in its own process.  It is
+built the first time it is needed and loaded with ``ctypes`` (a plain C
+interface: the sources include no PyTorch header).  A stamp file holds the
+hash of the sources, the shared headers (``csrc/*.cuh``) and the flags; a
+changed source or header rebuilds.  Every build runs ptxas with ``-v`` and
+keeps its report in ``lib<name>.log`` (:func:`ptxas_usage` reads the
+registers, spills and shared memory of each kernel from it).  Nothing here
+runs at import time.
 
 ``PCTPU_STRIP_V=<n>`` in the environment builds the level loop with
 register strips of n outputs instead of the default (``kStripV`` in
 ``csrc/stencil_common.cuh``), into ``lib<name>.v<n>.so``: a measurement
 knob (``probes/loop_sweep.py`` compares strip heights with it).
+:data:`MEASUREMENT_LIBRARIES` are built only when named: ``stencil_copy``
+is K1 without its compute (its copies in and stores out alone; its outputs
+are not the step's), which ``probes/loop_sweep.py step`` times beside the
+kernel.  No wrapper loads it: ``ops/stencil.py`` launches K1 from
+``libstencil.so`` only.
 """
 
 from __future__ import annotations
@@ -28,9 +35,30 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("stencil", "rdma", "probes")
+
+
+def _stencil_parts(*extra):
+    """libstencil's parts: csrc/stencil.cu and K1's instances (csrc/step.cu)
+    split by input dtype and order, so that they compile in parallel;
+    csrc/stencil.cu's pc_stencil_step dispatches to the parts."""
+    return (("stencil", ()),) + tuple(
+        ("step", (f"-DPC_STEP_IN={dt}", f"-DPC_STEP_SEP={sep}", *extra))
+        for dt in (0, 1, 2) for sep in (0, 1))
+
+
+# Library -> its parts: (source in csrc/, extra nvcc flags).
+LIBRARIES = {
+    "stencil": _stencil_parts(),
+    "rdma": (("rdma", ()),),
+    "probes": (("probes", ()),),
+}
+SOURCES = tuple(LIBRARIES)
+# Measurement builds, with the C interface of the library named beside.
+MEASUREMENT_LIBRARIES = {
+    "stencil_copy": (_stencil_parts("-DPC_STEP_COPY_ONLY"), "stencil"),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -43,9 +71,12 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "stencil": {
         # in, in_dtype, out, out_dtype, C, Hp, Wp, H, W, taps, col, row,
-        # k, sep, quantize, convex, th, tw, stream
+        # k, sep, epi, th, tw, rows, cols, pitch, out_pitch, stages,
+        # threads, grid, blocks, stream
         "pc_stencil_step": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                            _I, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _IP, _P],
+        "pc_step_strip": [_I],
         # in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T, taps, col, row,
         # k, sep, epi, off_r, off_c, mask, valid_h, valid_w, th, tw,
         # threads, blocks, stream
@@ -96,21 +127,32 @@ STRIP_V_ENV = "PCTPU_STRIP_V"
 
 def _flags() -> tuple[tuple[str, ...], str]:
     """nvcc's flags and the library name's suffix for this process."""
+    flags, suffix = NVCC_FLAGS, ""
     v = os.environ.get(STRIP_V_ENV, "").strip()
-    if not v:
-        return NVCC_FLAGS, ""
-    if not v.isdigit() or not 1 <= int(v) <= 16:
-        raise ValueError(f"{STRIP_V_ENV}={v!r}: expected 1..16")
-    return NVCC_FLAGS + (f"-DPC_STRIP_V={int(v)}",), f".v{int(v)}"
+    if v:
+        if not v.isdigit() or not 1 <= int(v) <= 16:
+            raise ValueError(f"{STRIP_V_ENV}={v!r}: expected 1..16")
+        flags, suffix = flags + (f"-DPC_STRIP_V={int(v)}",), f".v{int(v)}"
+    return flags, suffix
 
 
-def _paths(name: str) -> tuple[Path, Path, str]:
-    src = CSRC / f"{name}.cu"
+def _parts(name: str) -> tuple:
+    if name in MEASUREMENT_LIBRARIES:
+        return MEASUREMENT_LIBRARIES[name][0]
+    return LIBRARIES[name]
+
+
+def _paths(name: str) -> tuple[Path, str]:
+    """The library's path and the digest of everything it is built from."""
     flags, suffix = _flags()
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(
-        src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}{suffix}.so", digest
+    h = hashlib.sha256()
+    for src, extra in _parts(name):
+        h.update((CSRC / f"{src}.cu").read_bytes())
+        h.update(" ".join(extra).encode() + b"\0")
+    for p in sorted(CSRC.glob("*.cuh")):
+        h.update(p.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{name}{suffix}.so", h.hexdigest()
 
 
 def _is_fresh(lib: Path, digest: str) -> bool:
@@ -118,35 +160,63 @@ def _is_fresh(lib: Path, digest: str) -> bool:
     return lib.is_file() and stamp.is_file() and stamp.read_text() == digest
 
 
+def _wait(proc, what: str) -> str:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what} (exit {proc.returncode}):"
+                           f"\n{out}{err}")
+    return err + out
+
+
 def build_all(names=SOURCES) -> dict:
-    """Compile every stale source, all ``nvcc`` processes started together.
+    """Compile every part of every stale library, all ``nvcc`` processes
+    started together, then link each library from its parts.
 
     Returns ``{name: {"seconds": s, "log": compiler output}}`` for the
-    sources it built (an up-to-date library is not rebuilt).  Raises
+    libraries it built (an up-to-date library is not rebuilt).  Raises
     ``RuntimeError`` with the compiler's output when a build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    flags = _flags()[0]
+    jobs = {}
     for name in names:
-        src, lib, digest = _paths(name)
+        lib, digest = _paths(name)
         if _is_fresh(lib, digest):
             continue
-        tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *_flags()[0], "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp, lib, digest, time.perf_counter())
+        parts = []
+        for i, (src, extra) in enumerate(_parts(name)):
+            obj = lib.with_name(f".{lib.stem}.{i}.{os.getpid()}.o")
+            cmd = [nvcc_path(), *flags, *extra, "-c", "-o", str(obj),
+                   str(CSRC / f"{src}.cu")]
+            parts.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True),
+                          obj, f"csrc/{src}.cu {' '.join(extra)}".strip()))
+        jobs[name] = (parts, lib, digest, time.perf_counter())
     done = {}
-    for name, (proc, tmp, lib, digest, t0) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                               f"(exit {proc.returncode}):\n{out}{err}")
-        os.replace(tmp, lib)
-        lib.with_suffix(".log").write_text(err + out)
-        lib.with_suffix(".sha256").write_text(digest)
-        done[name] = {"seconds": time.perf_counter() - t0, "log": err + out}
+    try:
+        for name, (parts, lib, digest, t0) in jobs.items():
+            log = "".join(_wait(proc, what) for proc, _, what in parts)
+            tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+            link = subprocess.Popen(
+                [nvcc_path(), "-shared", "-o", str(tmp),
+                 *(str(obj) for _, obj, _ in parts)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                log += _wait(link, f"linking lib{name}")
+            except RuntimeError:
+                tmp.unlink(missing_ok=True)
+                raise
+            os.replace(tmp, lib)
+            lib.with_suffix(".log").write_text(log)
+            lib.with_suffix(".sha256").write_text(digest)
+            done[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    finally:  # no compiler outlives a failed build; no object file stays
+        for parts, *_ in jobs.values():
+            for proc, obj, _ in parts:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                obj.unlink(missing_ok=True)
     return done
 
 
@@ -154,7 +224,7 @@ def ptxas_usage(name: str) -> dict:
     """Per kernel symbol of ``lib<name>.so``'s last build: ``registers``,
     ``spill_stores``, ``spill_loads`` (bytes) and ``smem`` (static bytes),
     as ptxas reported them.  Empty when no report was kept."""
-    log = _paths(name)[1].with_suffix(".log")
+    log = _paths(name)[0].with_suffix(".log")
     usage, current = {}, None
     for line in (log.read_text().splitlines() if log.is_file() else []):
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -179,8 +249,10 @@ def ptxas_usage(name: str) -> dict:
 def load_library(name: str = "stencil") -> ctypes.CDLL:
     """Build (if stale) and load ``lib<name>.so`` with its C signatures."""
     build_all((name,))
-    lib = ctypes.CDLL(str(_paths(name)[1]))
-    for fn, argtypes in _SIGNATURES[name].items():
+    lib = ctypes.CDLL(str(_paths(name)[0]))
+    api = MEASUREMENT_LIBRARIES[name][1] if name in MEASUREMENT_LIBRARIES \
+        else name
+    for fn, argtypes in _SIGNATURES[api].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int

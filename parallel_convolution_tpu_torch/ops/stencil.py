@@ -1,9 +1,10 @@
 """The port's two stencil kernels, their plain PyTorch versions and their
 launch counters.
 
-* :func:`stencil_step` (K1, ``csrc/stencil.cu:stencil_step_kernel``) replaces
+* :func:`stencil_step` (K1, ``csrc/step.cu:stencil_step_kernel``) replaces
   the JAX package's Pallas kernel ``ops/pallas_stencil.py:_stencil_kernel``
-  (``correlate_padded_pallas``): one step on an already-padded block.
+  (``correlate_padded_pallas``): one step on an already-padded block, its
+  launch geometry planned here (:func:`step_plan`).
 * :func:`fused_iterate` (K2, ``csrc/stencil.cu:fused_iterate_kernel``)
   replaces ``ops/pallas_stencil.py:_fused_kernel`` (``fused_iterate_pallas``):
   T levels on a deep-padded block in one launch.
@@ -17,15 +18,17 @@ Precision: the kernels contract every tap into one FMA (``__fmaf_rn``); the
 plain versions round the product and the sum separately, as NumPy does.
 In quantize mode with the registry's filters every product and partial sum
 is an exact float32, so the two agree byte for byte; in float mode they
-differ by float32 rounding (:func:`float_tolerance`).  K2's level loop
-rounds with the two-add magic number where :func:`round_mode` admits it,
-``rintf`` elsewhere: the same values.
+differ by float32 rounding (:func:`float_tolerance`).  Every kernel rounds
+with the two-add magic number where :func:`round_mode` admits it, ``rintf``
+elsewhere (:func:`epilogue_code`): the same values.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,7 +38,10 @@ from parallel_convolution_tpu_torch.ops.filters import Filter
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 MAX_K = 9                      # csrc/stencil_common.cuh kMaxK
-STEP_TILE = (32, 128)          # K1 output tile (rows, cols)
+STEP_TILE = (16, 512)          # K1 output tile (rows, cols)
+STEP_THREADS = 256             # K1 threads per block (8 warps)
+STEP_STAGES = 2                # K1 input stages per block, at most (kMaxStages)
+STRIP_V = 16                   # csrc/stencil_common.cuh kStripV (k <= 5)
 FUSED_TILE = (64, 128)         # K2 / K4 output tile (rows, cols)
 FUSED_THREADS = 512            # K2 / K3 / K4 threads per block (16 warps)
 # The deepest ghost ring r·g one K2 / K4 launch computes (max_group_levels).
@@ -43,6 +49,10 @@ MAX_GROUP_DEPTH = 16
 # Shared memory one block may opt into on the H100 (227 KB): the planners'
 # default; a launch plans with the card's own figure (_smem_limit).
 H100_SMEM_OPTIN = 232448
+# Shared memory of one H100 SM (228 KB), of which each resident block
+# takes 1 KB besides its own: K1 plans its stages to keep two blocks.
+H100_SMEM_PER_SM = 233472
+SMEM_BLOCK_RESERVE = 1024
 
 
 def _sep_taps(filt: Filter, separable: bool):
@@ -53,12 +63,140 @@ def _sep_taps(filt: Filter, separable: bool):
     return filt.separable()
 
 
-def step_smem_bytes(k: int, tile, sep: bool) -> int:
-    """K1's dynamic shared memory: the haloed window, plus the row-pass
-    buffer when separable."""
+def strip_height(k: int, v: int = STRIP_V) -> int:
+    """Outputs per register strip of a k-tap filter: ``v`` (the build's
+    kStripV), or 8 for k = 7, 9 (``csrc/stencil_common.cuh:strip_v``)."""
+    return v if k <= 5 else 8
+
+
+def _row_pitch(width: int, row_bytes=None) -> int:
+    """A shared-memory row pitch of K1: at least ``width`` + 30 bytes (so
+    that the 16-byte-aligned supersets of two rows never overlap),
+    congruent with the source's row pitch ``row_bytes`` mod 16; the
+    largest residue, 15, when ``row_bytes`` is None."""
+    base = -(-(width + 30) // 16) * 16
+    return base + (15 if row_bytes is None else row_bytes % 16)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def step_smem_bytes(k: int, tile, in_size: int = 4, out_size: int = 4,
+                    stages: int = 1) -> int:
+    """K1's dynamic shared memory for a ``tile`` = (rows, cols) output tile:
+    ``stages`` input stages, each the window of the tile's computed extent
+    (rows rounded up to the strip height, cols to 32) at one row pitch,
+    and the output tile at another (``csrc/step.cu``'s ``stage_bytes`` and
+    ``out_bytes``).  The pitches depend on the input's and output's row
+    pitches in bytes mod 16; this takes the largest residue, so that the
+    result bounds every shape's :func:`step_plan` (what the tuner's
+    legality checks)."""
     th, tw = tile
-    r = k // 2
-    return 4 * (th + 2 * r) * ((tw + 2 * r) + (tw if sep else 0))
+    rows = -(-th // strip_height(k)) * strip_height(k)
+    cols = -(-tw // 32) * 32
+    pitch = _row_pitch((cols + k - 1) * in_size)
+    out_pitch = _row_pitch(cols * out_size)
+    return (stages * _round16((rows + k - 1) * pitch + 16)
+            + _round16(rows * out_pitch + 16))
+
+
+class StepPlan(NamedTuple):
+    """K1's launch geometry on one (C, Hp, Wp) input (:func:`step_plan`)."""
+
+    shape: tuple          # (C, Hp, Wp) of the padded input
+    k: int
+    in_size: int          # bytes per input element
+    out_size: int         # bytes per output element
+    tile: tuple           # (th, tw) output tile; the last row / column ragged
+    extent: tuple         # (rows, cols) computed: th up to the strip height,
+                          # tw up to 32 (the extra outputs are not stored)
+    pitch: int            # input row pitch in shared memory, bytes
+    out_pitch: int        # output row pitch in shared memory, bytes
+    stage_bytes: int      # one input stage
+    out_bytes: int        # the output tile
+    stages: int           # input stages in flight
+    threads: int
+
+    @property
+    def out_hw(self) -> tuple:
+        r = self.k // 2
+        return self.shape[1] - 2 * r, self.shape[2] - 2 * r
+
+    @property
+    def tiles(self) -> tuple:
+        """(C, tiles down, tiles across)."""
+        (H, W), (th, tw) = self.out_hw, self.tile
+        return self.shape[0], -(-H // th), -(-W // tw)
+
+    @property
+    def ntiles(self) -> int:
+        C, ty, tx = self.tiles
+        return C * ty * tx
+
+    @property
+    def smem(self) -> int:
+        return self.stages * self.stage_bytes + self.out_bytes
+
+
+def step_plan(k: int, shape, in_size: int, out_size: int, tile=None,
+              smem_limit: int = H100_SMEM_OPTIN, stages: int = STEP_STAGES,
+              threads: int = STEP_THREADS, strip: int = STRIP_V,
+              sm_smem: int = H100_SMEM_PER_SM) -> StepPlan:
+    """K1's geometry for a k-tap step on a padded (C, Hp, Wp) input.
+
+    The output tile is the requested one, or :data:`STEP_TILE`, clamped to
+    the output.  Each input row is copied into shared memory at its own
+    byte shift mod 16 (the input pitch is congruent with the source's row
+    pitch), each output row leaves from one congruent with its destination
+    row.  The block keeps up to ``stages`` input stages: as many as leave
+    two blocks room on an SM of ``sm_smem`` bytes (one block's copies in
+    flight while the other computes; on the H100, blur3 and edge5 at
+    16×512 ran fastest so, ``probes/loop_sweep.py step``), at least one;
+    raises ``ValueError`` when one stage does not fit in ``smem_limit``.
+    """
+    C, Hp, Wp = (int(v) for v in shape)
+    H, W = Hp - (k - 1), Wp - (k - 1)
+    th, tw = tile if tile is not None else STEP_TILE
+    th, tw = max(1, min(int(th), H)), max(1, min(int(tw), W))
+    v = strip_height(k, strip)
+    rows, cols = -(-th // v) * v, -(-tw // 32) * 32
+    pitch = _row_pitch((cols + k - 1) * in_size, Wp * in_size)
+    out_pitch = _row_pitch(cols * out_size, W * out_size)
+    stage_bytes = _round16((rows + k - 1) * pitch + 16)
+    out_bytes = _round16(rows * out_pitch + 16)
+    n = stages
+    while n > 1 and 2 * (n * stage_bytes + out_bytes
+                         + SMEM_BLOCK_RESERVE) > sm_smem:
+        n -= 1
+    if n * stage_bytes + out_bytes > smem_limit:
+        raise ValueError(
+            f"K1 tile {(th, tw)} at k = {k} needs "
+            f"{stage_bytes + out_bytes} B of shared memory, above the card's "
+            f"{smem_limit} B: pass a smaller tile")
+    return StepPlan((C, Hp, Wp), k, in_size, out_size, (th, tw),
+                    (rows, cols), pitch, out_pitch, stage_bytes, out_bytes,
+                    n, threads)
+
+
+def step_grid(plan: StepPlan, blocks_per_sm: int, sms: int) -> int:
+    """The persistent grid: as many blocks as the card holds at once
+    (``blocks_per_sm`` from the occupancy calculator, times the SMs), never
+    more than there are tiles."""
+    return max(1, min(plan.ntiles, max(1, int(blocks_per_sm)) * int(sms)))
+
+
+def step_tiles(plan: StepPlan, grid: int):
+    """K1's walk: ``(block, c, y0, x0, oh, ow)`` for every tile, block b
+    taking tiles b, b + grid, ... in row-major (channel, row, column)
+    order, each storing its oh x ow outputs at (c, y0, x0)."""
+    _, ty, tx = plan.tiles
+    (H, W), (th, tw) = plan.out_hw, plan.tile
+    for t in range(plan.ntiles):
+        c, rem = divmod(t, ty * tx)
+        y, x = divmod(rem, tx)
+        y0, x0 = y * th, x * tw
+        yield t % grid, c, y0, x0, min(th, H - y0), min(tw, W - x0)
 
 
 def fused_smem_bytes(r: int, levels: int, tile) -> int:
@@ -216,6 +354,13 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
+def _sm_smem(device: torch.device) -> int:
+    """The card's shared memory per SM (torch's figure, else the H100's)."""
+    props = torch.cuda.get_device_properties(device)
+    return int(getattr(props, "shared_memory_per_multiprocessor", 0)
+               or H100_SMEM_PER_SM)
+
+
 def _smem_limit(device: torch.device) -> int:
     """The card's opt-in shared memory per block: torch's
     ``shared_memory_per_block_optin``, else the CUDA runtime's
@@ -276,31 +421,134 @@ def stencil_step(padded: torch.Tensor, filt: Filter, *, quantize: bool = False,
     _check_cuda(padded, filt)
     r = filt.radius
     C, Hp, Wp = padded.shape
-    H, W = Hp - 2 * r, Wp - 2 * r
-    out = torch.empty((C, H, W), dtype=out_dtype, device=padded.device)
+    out = torch.empty((C, Hp - 2 * r, Wp - 2 * r), dtype=out_dtype,
+                      device=padded.device)
     if out.numel() == 0:
         return out
-    sep = _sep_taps(filt, separable)
-    th, tw = tile if tile is not None else STEP_TILE
-    th, tw = max(1, min(int(th), H)), max(1, min(int(tw), W))
-    limit = _smem_limit(padded.device)
-    if step_smem_bytes(filt.size, (th, tw), sep is not None) > limit:
-        raise ValueError(f"K1 tile {(th, tw)} needs more than {limit} B of "
-                         "shared memory; pass a smaller tile")
-    taps, col, row = _host_taps(filt, sep)
-    from parallel_convolution_tpu_torch.ops import _build
-
-    lib = _build.load_library("stencil")
-    with torch.cuda.device(padded.device):
-        stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = lib.pc_stencil_step(
-            padded.data_ptr(), DTYPE_CODES[padded.dtype], out.data_ptr(),
-            DTYPE_CODES[out_dtype], C, Hp, Wp, H, W, _fptr(taps), _fptr(col),
-            _fptr(row), filt.size, int(sep is not None), int(quantize),
-            int(filt.convex), th, tw, stream)
-    _raise_on(err, "stencil_step (K1)")
+    _step_call(padded, out, filt, quantize, separable, tile)
     stencil_step.launches += 1
     return out
+
+
+def _step_call(padded: torch.Tensor, out: torch.Tensor, filt: Filter,
+               quantize: bool, separable: bool, tile,
+               launch: bool = True, library: str = "stencil") -> dict:
+    """One K1 launch from ``padded`` into ``out`` (both on the card), or
+    with ``launch`` False none.  Returns the launch shape: the plan, the
+    blocks one SM holds (the occupancy calculator) and the persistent
+    grid.  ``library`` names a measurement build of K1 with the same
+    interface (``_build.MEASUREMENT_LIBRARIES``); :func:`stencil_step`
+    never passes one."""
+    b = _step_launch(library, padded.device, tuple(padded.shape),
+                     padded.dtype, out.dtype, filt, bool(quantize),
+                     bool(separable), None if tile is None else tuple(tile),
+                     STEP_STAGES, STEP_THREADS)
+    if launch:
+        with torch.cuda.device(padded.device):
+            stream = torch.cuda.current_stream(padded.device).cuda_stream
+            _raise_on(b.fn(padded.data_ptr(), b.in_code, out.data_ptr(),
+                           *b.args, b.grid, None, stream),
+                      "stencil_step (K1)")
+    return {"plan": b.plan, "blocks_per_sm": b.blocks_per_sm,
+            "grid": b.grid}
+
+
+def step_launch_shape(padded: torch.Tensor, filt: Filter, *,
+                      quantize: bool = False, out_dtype=None,
+                      separable: bool = False, tile=None) -> dict:
+    """The K1 launch :func:`stencil_step` would make on the card's
+    ``padded`` (no launch): its :class:`StepPlan`, the blocks one SM holds
+    and the persistent grid."""
+    if out_dtype is None:
+        out_dtype = padded.dtype if quantize else torch.float32
+    _check_common(padded, filt, quantize, out_dtype)
+    _check_cuda(padded, filt)
+    r = filt.radius
+    out = torch.empty((1, 1, 1), dtype=out_dtype, device=padded.device)
+    out = out.expand(padded.shape[0], padded.shape[1] - 2 * r,
+                     padded.shape[2] - 2 * r)
+    return _step_call(padded, out, filt, quantize, separable, tile,
+                      launch=False)
+
+
+class _StepLaunch(NamedTuple):
+    """Everything of a K1 launch but the tensors and the stream."""
+
+    fn: object            # the C entry point, pc_stencil_step
+    in_code: int          # the input dtype's code
+    args: tuple           # pc_stencil_step's arguments from out_dtype to threads
+    plan: StepPlan
+    blocks_per_sm: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def _step_launch(library: str, device: torch.device, shape: tuple, in_dtype,
+                 out_dtype, filt: Filter, quantize: bool, separable: bool,
+                 tile, stages: int, threads: int) -> _StepLaunch:
+    """K1's launch on one input shape, once per library, device, shape,
+    dtypes, filter, mode, tile and launch shape: the plan, the C arguments
+    and the persistent grid from the occupancy calculator.  A wrapper call
+    then adds its two pointers and the stream: the host work per call is
+    the launch."""
+    from parallel_convolution_tpu_torch.ops import _build
+
+    lib = _build.load_library(library)
+    in_size = torch.empty((), dtype=in_dtype).element_size()
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    plan = step_plan(filt.size, shape, in_size, out_size, tile,
+                     _smem_limit(device), stages, threads, _lib_strip(lib),
+                     _sm_smem(device))
+    args = _step_args(filt, quantize, separable, plan, in_dtype, out_dtype)
+    in_code = args.pop("in_dtype")
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(lib.pc_stencil_step(None, in_code, None, *args.values(), 1,
+                                      ctypes.byref(blocks), stream),
+                  "stencil_step (K1) occupancy")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _StepLaunch(lib.pc_stencil_step, in_code, tuple(args.values()),
+                       plan, blocks.value,
+                       step_grid(plan, blocks.value, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_strip(lib) -> int:
+    """The strip height the library was built with (k <= 5)."""
+    return lib.pc_step_strip(3)
+
+
+@functools.lru_cache(maxsize=64)
+def _step_filter_args(filt: Filter, quantize: bool, separable: bool):
+    """The filter's part of K1's arguments, once per filter and mode (the
+    factorization and the round-mode rule are host work of tens of
+    microseconds): the tap pointers (each keeps its array alive), the
+    order and the store-back."""
+    sep = _sep_taps(filt, separable)
+    taps, col, row = _host_taps(filt, sep)
+    return (_fptr(taps), _fptr(col), _fptr(row), int(sep is not None),
+            epilogue_code(filt, quantize))
+
+
+def _step_args(filt: Filter, quantize: bool, separable: bool,
+               plan: StepPlan, in_dtype, out_dtype) -> dict:
+    """``pc_stencil_step``'s arguments but the two pointers, the grid, the
+    occupancy query and the stream, by name, in order: the typed instance
+    (dtypes, k, order, store-back ``epi`` from :func:`epilogue_code`) and
+    the plan's geometry."""
+    taps, col, row, sep, epi = _step_filter_args(filt, bool(quantize),
+                                                 bool(separable))
+    C, Hp, Wp = plan.shape
+    H, W = plan.out_hw
+    return {
+        "in_dtype": DTYPE_CODES[in_dtype], "out_dtype": DTYPE_CODES[out_dtype],
+        "C": C, "Hp": Hp, "Wp": Wp, "H": H, "W": W,
+        "taps": taps, "col": col, "row": row, "k": filt.size, "sep": sep,
+        "epi": epi, "th": plan.tile[0], "tw": plan.tile[1],
+        "rows": plan.extent[0], "cols": plan.extent[1],
+        "pitch": plan.pitch, "out_pitch": plan.out_pitch,
+        "stages": plan.stages, "threads": plan.threads}
 
 
 stencil_step.launches = 0

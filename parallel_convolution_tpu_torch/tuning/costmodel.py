@@ -111,8 +111,10 @@ class HardwareModel:
 # NVIDIA H100 80GB HBM3 at a 700 W power limit, every rate from a run of
 # chip_smoke.py on the card (its "hardware model" line; the rows named).
 # tap_gops, sep_tap_gops and both quantize prices were measured on the
-# register-strip level loop, the rest on the kernels before it (PERF.md §6):
-#   hbm_gbps     "time stencil_step rgb blur3 f32": K1's bytes / its time
+# register-strip level loop, hbm_gbps on the redesigned K1, the rest on
+# the kernels before them (PERF.md §6):
+#   hbm_gbps     "time stencil_step rgb blur3 f32": K1's bytes / its device
+#                time (launches queued ahead of the card)
 #   flop_gops    "probe op_price fma f32": 2 x its gops_per_s
 #   tap_gops     "time rdma_tiled rgb 2x2 blur3 bf16 T=32": K4's executed
 #                slots (flops_per_px_iter x px x T) / its time
@@ -122,7 +124,7 @@ class HardwareModel:
 #                        "add"); rint_quantize_slots the same of "rint+add"
 #   launch_s, op_s  "time host calls": a K1 wrapper call and a slice copy
 #                on a tiny block, host clock over many calls
-H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=1627.4,
+H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=2330.3,
                      flop_gops=46588.8, tap_gops=15984.7,
                      sep_tap_gops=13763.8, quantize_slots=1.806,
                      rint_quantize_slots=5.559, launch_s=51.15e-6,

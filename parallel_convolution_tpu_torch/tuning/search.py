@@ -15,7 +15,8 @@ shared memory:
 * tiles (CUDA backends only; the plain backends have none): no larger
   than the block (a larger one clamps to a duplicate of the default), and
   accepted by the planner of the launch the chunk makes — K1's shared
-  memory at fuse 1 (``stencil.step_smem_bytes``), ``stencil.fused_plan``
+  memory at fuse 1 (``stencil.step_smem_bytes`` at one input stage, the
+  largest row pitches), ``stencil.fused_plan``
   for K2, ``rdma.rdma_plan`` for K3 / K4 (K3 takes the whole block and has
   no tile);
 * the separable backends only where they are byte-safe: an exactly rank-1
@@ -37,12 +38,12 @@ from parallel_convolution_tpu_torch.tuning.plans import Plan, Workload
 __all__ = ["Candidate", "enumerate_candidates", "rank", "tune",
            "TuneResult"]
 
-# The kernels' own tiles (K1's STEP_TILE 32x128, K2's FUSED_TILE 64x64)
+# The kernels' own tiles (K1's STEP_TILE 16x512, K2's FUSED_TILE 64x128)
 # and a few around them, each one fused_plan accepts for one level at
 # every radius up to the kernels' (stencil.MAX_K).  None = the kernel's
 # default, always legal.
 TILE_MENU = (None, (32, 128), (64, 64), (32, 64), (64, 128), (128, 64),
-             (128, 128))
+             (128, 128), (16, 512))
 
 FUSE_MENU = (1, 2, 4, 8, 16, 32)
 
@@ -107,14 +108,14 @@ def _planner_accepts(w: Workload, backend: str, tile, fuse: int,
     """Whether the launch a chunk of ``fuse`` levels makes takes ``tile``:
     the kernels' own planners and shared-memory checks."""
     r, k = w.radius, w.taps_k
-    sep = backend == "cuda_sep" and w.separable  # as stencil_step decides
+    size = costmodel.STORAGE_BYTES[w.storage]
     try:
         if backend == "cuda_rdma":
             rdma.rdma_plan(r, fuse, w.block_hw, tile, smem_limit)
         elif fuse == 1:
             th, tw = tile if tile is not None else stencil.STEP_TILE
             th, tw = min(th, w.block_hw[0]), min(tw, w.block_hw[1])
-            if stencil.step_smem_bytes(k, (th, tw), sep) > smem_limit:
+            if stencil.step_smem_bytes(k, (th, tw), size, size) > smem_limit:
                 return False
         else:
             stencil.fused_plan(r, fuse, w.block_hw, tile, smem_limit)

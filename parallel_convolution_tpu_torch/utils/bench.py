@@ -23,13 +23,27 @@ from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
 from parallel_convolution_tpu_torch.utils.platform import device_kind
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2,
+            queue_ahead: bool = False) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events over
-    ``reps`` back-to-back calls after ``warmup`` calls."""
+    ``reps`` back-to-back calls after ``warmup`` calls.
+
+    Where one call's host time exceeds its kernel's, the card idles between
+    the launches and the events time the host.  ``queue_ahead`` holds the
+    card in a spin kernel (``torch.cuda._sleep``) long enough for the host
+    to enqueue every call first, so that the events time the launches back
+    to back: the device's own time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if queue_ahead:
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # Twice the enqueue time at 2 GHz, the H100's clock at most.
+        torch.cuda._sleep(int(2e9 * (2 * host * reps + 1e-3)))
     start.record()
     for _ in range(reps):
         fn()

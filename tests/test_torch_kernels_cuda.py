@@ -73,6 +73,88 @@ def test_step_kernel_matches_plain(cuda_device, name, storage, quantize,
     _assert_agree(got, stencil.stencil_step_plain(x, f, **kw), f, 1, quantize)
 
 
+# K1's typed instances: k = 1, 3, 5, 7, 9, every input dtype against every
+# output dtype, quantize on and off, both orders.
+K1_FILTERS = ["identity1", "blur3", "edge5", "gaussian5", "binomial7",
+              "binomial9"]
+K1_PAIRS = [(src, dst, q) for src in TORCH for dst in TORCH
+            for q in (True, False) if q or dst != "u8"]
+
+
+def _k1_filter(name):
+    return {"binomial7": BINOMIAL7, "binomial9": BINOMIAL9,
+            "identity1": IDENTITY1}.get(name) or get_filter(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("separable", [False, True])
+@pytest.mark.parametrize("src,dst,quantize", K1_PAIRS)
+@pytest.mark.parametrize("name", K1_FILTERS)
+def test_step_kernel_dtype_pairs(cuda_device, name, src, dst, quantize,
+                                 separable):
+    f = _k1_filter(name)
+    k = f.size
+    x = _data(41, (2, 41 + k - 1, 75 + k - 1), src, cuda_device)
+    kw = dict(quantize=quantize, out_dtype=TORCH[dst], separable=separable)
+    before = stencil.stencil_step.launches
+    got = stencil.stencil_step(x, f, **kw)
+    torch.cuda.synchronize()
+    assert stencil.stencil_step.launches == before + 1
+    _assert_agree(got, stencil.stencil_step_plain(x, f, **kw), f, 1, quantize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(1, 1), (3, 7), (13, 40), (37, 33),
+                                  (32, 128), (64, 256), (96, 192)])
+@pytest.mark.parametrize("storage", ["f32", "u8"])
+@pytest.mark.parametrize("name", ["blur3", "edge5"])
+def test_step_kernel_tiles(cuda_device, name, storage, tile):
+    # Every tile gives the same bytes: ragged last tiles, tiles below the
+    # strip height and the warp width, and tiles that fit one stage only.
+    f = get_filter(name)
+    x = _data(42, (3, 67 + f.size - 1, 301 + f.size - 1), storage,
+              cuda_device)
+    kw = dict(quantize=True, out_dtype=TORCH[storage])
+    got = stencil.stencil_step(x, f, tile=tile, **kw)
+    assert torch.equal(got, stencil.stencil_step_plain(x, f, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("separable", [False, True])
+@pytest.mark.parametrize("storage", list(TORCH))
+def test_step_kernel_rows_at_every_residue(cuda_device, storage, separable):
+    # A view whose data_ptr() sits at every residue mod 16 its dtype allows,
+    # with an odd row length: the rows start at every residue, the first
+    # row's 16-byte floor falls before the tensor and its last row's ceiling
+    # past its end (the chunks there are copied byte by byte).
+    f = get_filter("blur3")
+    shape = (2, 37 + 2, 53 + 2)
+    n = shape[0] * shape[1] * shape[2]
+    size = torch.empty((), dtype=TORCH[storage]).element_size()
+    kw = dict(quantize=True, out_dtype=TORCH[storage], separable=separable)
+    for off in range(16 // size):
+        flat = _data(43 + off, (off + n,), storage, cuda_device)
+        x = flat[off:].view(shape)
+        assert x.data_ptr() % 16 == off * size and x.is_contiguous()
+        got = stencil.stencil_step(x, f, **kw)
+        assert torch.equal(got, stencil.stencil_step_plain(x, f, **kw)), off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(1, 1), (2, 3), (3, 5)])
+@pytest.mark.parametrize("storage", list(TORCH))
+@pytest.mark.parametrize("name", ["blur3", "edge5"])
+def test_step_kernel_tiny_blocks(cuda_device, name, storage, hw):
+    # Rows of 3 to 9 input elements: a u8 row shorter than 4 bytes still
+    # arrives through one 16-byte chunk (or bytes, at the tensor's ends).
+    f = get_filter(name)
+    x = _data(44, (3, hw[0] + f.size - 1, hw[1] + f.size - 1), storage,
+              cuda_device)
+    kw = dict(quantize=True, out_dtype=TORCH[storage])
+    got = stencil.stencil_step(x, f, **kw)
+    assert torch.equal(got, stencil.stencil_step_plain(x, f, **kw))
+
+
 # Float mode of a non-convex filter grows by L1(taps) per level, so it is
 # held only over T <= 2 levels.
 FUSED_CASES = [

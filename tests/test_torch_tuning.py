@@ -373,8 +373,9 @@ def _planner_accepts(w, backend, T, tile):
         elif T == 1:
             th, tw = tile if tile is not None else stencil.STEP_TILE
             th, tw = min(th, w.block_hw[0]), min(tw, w.block_hw[1])
-            sep = backend == "cuda_sep" and w.separable
-            return stencil.step_smem_bytes(k, (th, tw), sep) <= H100_OPTIN
+            size = costmodel.STORAGE_BYTES[w.storage]
+            return stencil.step_smem_bytes(k, (th, tw), size,
+                                           size) <= H100_OPTIN
         else:
             stencil.fused_plan(r, T, w.block_hw, tile, H100_OPTIN)
     except ValueError:

@@ -35,6 +35,19 @@ Phases (any failure exits non-zero and prints no result line):
    (u8, fuse 8).  Each must be byte-equal to the plain ``shifted`` path run
    on the card, and a 3-iteration run must equal the NumPy oracle; the
    ``cuda_rdma`` paths must never call the halo exchange;
+4b. run to convergence (``sharded_converge``), counted into the kernels
+   line: BASELINE config 5 (``JacobiSolver``: jacobi3, tol 1e-3, f32,
+   ``cuda`` fuse 9, check every 10) on a seeded normal 32768x32768 field,
+   capped at 200 iterations, against the plain ``shifted`` converge on the
+   card: the same iteration count, and through ``sharded_converge_stream``
+   every chunk's diff (the stop quantity, since the cap stops both runs),
+   field and diffs bit-equal (jacobi3's taps are dyadic); with the
+   peak device memory, K2 / K1 / the diff timed at that size; ``run
+   --converge 0.5 --check-every 10`` on the grey 1920x2520 image with
+   ``--fast`` and with ``--backend cuda_rdma --mesh 16x16 --storage u8
+   --fuse 8`` (K3), each converged, byte-equal to ``shifted`` and with its
+   iteration count; ``sharded_converge_stream`` there, one yield and one
+   readback a chunk, its last image ``sharded_converge``'s bytes;
 5. times with CUDA events after a warm-up: each kernel at the main path's
    shapes (``ms``: K1 as back-to-back wrapper calls, K3 / K4 as the launch
    alone, its arguments bound once, and as the whole wrapper call;
@@ -94,6 +107,12 @@ RGB_HW = (1920, 2520)      # BASELINE configs 1-2
 BIG_HW = (8192, 8192)      # BASELINE config 3
 ORACLE_CROP = 1024         # the oracle's 3-iteration check crops above this
 GREY_GRID = (16, 16)       # the reference program's split at 256 ranks
+CONVERGE_HW = (32768, 32768)  # BASELINE config 5
+# Config 5's one cut: an iteration cap.  jacobi3 on a normal field leaves
+# the modes near the checkerboard, whose factor is close to -1, alternating,
+# so the diff decays slowly and tol 1e-3 is not reached within it.
+CONVERGE_MAX_ITERS = 200
+CONVERGE_CLI_MAX = 5000    # the CLI's converges (about 2730 iterations)
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
@@ -915,6 +934,281 @@ def expected_for(res, filt, grid_shape, shape) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: run to convergence
+# ---------------------------------------------------------------------------
+
+
+def expected_converge_launches(filt, backend: str, fuse: int,
+                               check_every: int, iters: int, max_iters: int,
+                               grid_shape, block_hw) -> dict:
+    """Launches of a convergence run that ran ``iters`` iterations: per
+    chunk of n, ``(n-1)//f`` fused steps, ``(n-1)%f`` single ones and the
+    pair step, f the run's fuse clamped to the chunk (step.py)."""
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+
+    counts = {k: 0 for k in KERNELS}
+    nb = grid_shape[0] * grid_shape[1]
+
+    def add(T, times):
+        if times == 0:
+            return
+        if backend == "cuda_rdma":
+            plan = rdma.rdma_plan(filt.radius, T, block_hw)
+            counts["rdma_" + plan.kernel] += times
+            counts["fused_iterate"] += times * nb * (len(plan.groups) - 1)
+        elif T == 1:
+            counts["stencil_step"] += times * nb
+        else:
+            groups = stencil.fused_plan(filt.radius, T, block_hw)[2]
+            counts["fused_iterate"] += times * nb * len(groups)
+
+    run_fuse = max(1, min(fuse, check_every - 1))
+    done = 0
+    while done < iters:
+        n = min(check_every, max_iters - done)
+        f = max(1, min(run_fuse, max(1, n - 1)))
+        fused = (n - 1) // f if f > 1 and n > 1 else 0
+        add(f, fused)
+        add(1, n - 1 - fused * f + 1)
+        done += n
+    return counts
+
+
+def converge_phase(dev, tmp: Path, totals: dict) -> list:
+    """BASELINE config 5 at full size on one card, ``run --converge``
+    through the CLI (--fast, and cuda_rdma at 16x16: K3), and the stream;
+    each against the plain ``shifted`` converge on the card, its launches
+    counted into ``totals``."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import JacobiSolver
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import halo, step
+    from parallel_convolution_tpu_torch.utils import imageio
+    from parallel_convolution_tpu_torch.utils.bench import converge_input
+
+    rows = []
+
+    def counted(label, fn, expect_of):
+        """``fn()`` with the counters at 0 before and read after; its
+        launches checked against ``expect_of(result)`` and added to the
+        totals."""
+        def readbacks():
+            return (step.sharded_converge.readbacks
+                    + step.sharded_converge_stream.readbacks)
+
+        stencil.reset_launch_counts()
+        reads = readbacks()
+        out, secs = host_seconds(fn)
+        counts = stencil.launch_counts()
+        reads = readbacks() - reads
+        want = expect_of(out)
+        check(counts == want,
+              f"{label}: launches {counts}, expected {want}")
+        check(any(counts.values()), f"{label}: no kernel launched")
+        for k, v in counts.items():
+            totals[k] += v
+        print(f"converge {label}: launches {counts}, {secs:.4f} s, "
+              f"{reads} readbacks")
+        return out, counts, secs, reads
+
+    # (a) BASELINE config 5: jacobi3 to tol 1e-3 on a normal field at
+    # 32768x32768, one card, every 10 iterations a check.
+    jacobi3 = get_filter("jacobi3")
+    H, W = CONVERGE_HW
+    t0 = time.perf_counter()
+    x = converge_input(CONVERGE_HW, 1, seed=0)
+    make_s = time.perf_counter() - t0
+    solver = JacobiSolver("jacobi3", tol=1e-3, max_iters=CONVERGE_MAX_ITERS,
+                          check_every=10, backend="cuda", quantize=False,
+                          storage="f32", fuse=9, device=dev)
+    label = f"config 5 jacobi3 {H}x{W} f32 cuda fuse 9 check_every 10"
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def expect5(res):
+        return expected_converge_launches(jacobi3, "cuda", 9, 10, res[1],
+                                          CONVERGE_MAX_ITERS, (1, 1), (H, W))
+
+    (out, iters), counts, first, reads = counted(label,
+                                                 lambda: solver.solve(x),
+                                                 expect5)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(reads == -(-iters // 10), f"{label}: {reads} readbacks for "
+          f"{iters} iterations")
+    check(out.shape == (1, H, W) and bool(np.isfinite(out).all()),
+          f"{label}: result not finite or of shape {out.shape}")
+    _, warm = host_seconds(lambda: solver.solve(x))
+    xd = torch.from_numpy(x).to(dev)
+    del x
+    _, resident = host_seconds(lambda: step.sharded_converge(
+        xd, jacobi3, 1e-3, CONVERGE_MAX_ITERS, check_every=10,
+        backend="cuda", fuse=9, device=dev))
+    stencil.reset_launch_counts()  # not main-path launches
+
+    def stream(backend, **kw):
+        """The stream of the same run: every chunk's (iterations, diff),
+        and the last image (only it is kept: 4.29 GB a yield)."""
+        diffs, last = [], None
+        for last, done, d in step.sharded_converge_stream(
+                xd, jacobi3, 1e-3, CONVERGE_MAX_ITERS, check_every=10,
+                backend=backend, device=dev, **kw):
+            diffs.append((done, d))
+        return last, diffs
+
+    # A run capped short of convergence stops at the cap on both sides, so
+    # the stop quantity itself is compared: every chunk's diff.
+    last, diffs = stream("cuda", fuse=9)
+    check(diffs[-1][0] == iters and np.array_equal(last, out),
+          f"{label}: the stream ran {diffs[-1][0]} iterations, or its last "
+          "image differs from the solver's")
+    del last
+    ref, ref_diffs = stream("shifted")
+    stencil.reset_launch_counts()  # not main-path launches
+    diff, ref_iters = diffs[-1][1], ref_diffs[-1][0]
+    check(ref_iters == iters,
+          f"{label}: {iters} iterations, shifted {ref_iters}")
+    got, ref = torch.from_numpy(out).to(dev), torch.from_numpy(ref).to(dev)
+    del out
+    # In f32: agree()'s float64 copies would take 26 GB at this size.
+    err = float((got - ref).abs_().max())
+    # jacobi3's taps are dyadic: every product is exact, so FMA and
+    # multiply-then-add round alike and the kernels must give the plain
+    # version's bits, field and diffs.
+    check(err == 0.0 and diffs == ref_diffs,
+          f"{label}: differs from shifted by {err}, or its diffs "
+          f"{diffs[-3:]} from shifted's {ref_diffs[-3:]}")
+    del got, ref
+    # The pieces of one chunk, at this size: K2 (9 levels), K1 (the pair
+    # step), the diff.
+    padded9 = halo.halo_exchange([[xd]], 9, (1, 1), "zero")[0][0]
+    k2_ms = cuda_ms(lambda: stencil.fused_iterate(
+        padded9, (0, 0), jacobi3, 9, (H, W), quantize=False), reps=3,
+        warmup=1)
+    del padded9
+    padded1 = halo.halo_exchange([[xd]], 1, (1, 1), "zero")[0][0]
+    k1_ms = cuda_ms(lambda: stencil.stencil_step(padded1, jacobi3,
+                                                 quantize=False), reps=5,
+                    warmup=1)
+    del padded1
+    prev = xd + 1
+    diff_ms = cuda_ms(lambda: step._max_abs_diff(xd, prev), reps=5, warmup=1)
+    del prev, xd
+    stencil.reset_launch_counts()  # not main-path launches
+    torch.cuda.empty_cache()
+    px = H * W
+    rows.append({
+        "path": label, "iters": iters, "max_iters": CONVERGE_MAX_ITERS,
+        "final_diff": diff, "final_diff_shifted": ref_diffs[-1][1],
+        "converged": diff < 1e-3, "launches": counts, "readbacks": reads,
+        "max_abs_err": err,
+        "input_s": make_s, "seconds_first": first, "seconds_warm": warm,
+        "seconds_resident": resident,
+        "gpx_per_s_first": iters * px / first / 1e9,
+        "gpx_per_s_warm": iters * px / warm / 1e9,
+        "gpx_per_s_resident": iters * px / resident / 1e9,
+        "k2_T9_ms": k2_ms, "k1_ms": k1_ms, "diff_ms": diff_ms,
+        "kernel_ms": (counts["fused_iterate"] * k2_ms
+                      + counts["stencil_step"] * k1_ms),
+        "diff_ms_per_run": reads * diff_ms,
+        "max_memory_allocated": peak, "card": card_line()})
+    print(f"config 5: {iters} iterations, final diff {diff}, converged "
+          f"{rows[-1]['converged']}, max_memory_allocated {peak} B "
+          f"({peak / 2**30:.2f} GiB)")
+
+    # (b) run --converge through the CLI on BASELINE config 1's image.
+    blur3 = get_filter("blur3")
+    rows_, cols_ = RGB_HW
+    img = imageio.generate_test_image(rows_, cols_, "grey", seed=2)
+    src = tmp / "converge.raw"
+    imageio.write_raw(src, img)
+    xg = img[None].astype(np.float32)
+    want, want_iters = step.sharded_converge(
+        xg, blur3, 0.5, CONVERGE_CLI_MAX, check_every=10, quantize=True,
+        backend="shifted", device=dev)
+    stencil.reset_launch_counts()  # not main-path launches
+    want = np.clip(np.rint(want.cpu().numpy()), 0, 255).astype(np.uint8)[0]
+    check(want_iters < CONVERGE_CLI_MAX,
+          f"shifted did not converge in {CONVERGE_CLI_MAX} iterations")
+    block16 = tuple(-(-n // g) for n, g in zip(RGB_HW, GREY_GRID))
+    grid16 = f"{GREY_GRID[0]}x{GREY_GRID[1]}"
+    for tag, extra, expect in (
+            ("--fast", ["--fast"],
+             lambda it: expected_converge_launches(
+                 blur3, "cuda_sep", 32, 10, it, CONVERGE_CLI_MAX, (1, 1),
+                 RGB_HW)),
+            (f"--backend cuda_rdma --mesh {grid16} --storage u8 --fuse 8",
+             ["--backend", "cuda_rdma", "--mesh", grid16, "--storage", "u8",
+              "--fuse", "8"],
+             lambda it: expected_converge_launches(
+                 blur3, "cuda_rdma", 8, 10, it, CONVERGE_CLI_MAX, GREY_GRID,
+                 block16))):
+        dst = tmp / "converge.out.raw"
+        label = f"cli run --converge 0.5 --check-every 10 grey {rows_}x{cols_} blur3 {tag}"
+        argv = ["run", str(src), str(rows_), str(cols_), str(CONVERGE_CLI_MAX),
+                "grey", "-o", str(dst), "--converge", "0.5", "--check-every",
+                "10"] + extra
+        said = []
+
+        def run_cli():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv)
+            check(rc == 0, f"{label}: the CLI exited {rc}")
+            said.append(buf.getvalue().strip().splitlines()[-1])
+            return int(said[-1].split()[2])
+
+        it, counts, secs, reads = counted(label, run_cli, expect)
+        check(it == want_iters and said[-1].startswith(
+            f"converged after {want_iters} iters"),
+              f"{label}: said {said[-1]!r}, shifted ran {want_iters}")
+        check(np.array_equal(imageio.read_raw(dst, rows_, cols_, "grey"),
+                             want), f"{label}: differs from shifted")
+        stencil.reset_launch_counts()
+        _, warm = host_seconds(run_cli)
+        stencil.reset_launch_counts()  # counted once, in the first run
+        rows.append({"path": label, "iters": it, "converged": True,
+                     "launches": counts, "readbacks": reads,
+                     "seconds_first": secs, "seconds_warm": warm,
+                     "gpx_per_s_first": it * rows_ * cols_ / secs / 1e9,
+                     "gpx_per_s_warm": it * rows_ * cols_ / warm / 1e9})
+
+    # (c) the stream: one yield and one readback a chunk, its last image
+    # sharded_converge's bytes.
+    kw = dict(check_every=10, quantize=True, backend="cuda_sep",
+              storage="bf16", fuse=9, device=dev)
+    label = f"sharded_converge_stream grey {rows_}x{cols_} blur3 cuda_sep bf16 fuse 9"
+    streamed = []
+
+    def stream():
+        streamed.clear()
+        before = step.sharded_converge_stream.readbacks
+        streamed.extend(step.sharded_converge_stream(
+            xg, blur3, 0.5, CONVERGE_CLI_MAX, **kw))
+        return step.sharded_converge_stream.readbacks - before
+
+    reads, counts, secs, _ = counted(
+        label, stream, lambda r: expected_converge_launches(
+            blur3, "cuda_sep", 9, 10, streamed[-1][1], CONVERGE_CLI_MAX,
+            (1, 1), RGB_HW))
+    whole, whole_iters = step.sharded_converge(xg, blur3, 0.5,
+                                               CONVERGE_CLI_MAX, **kw)
+    stencil.reset_launch_counts()  # not main-path launches
+    chunks = -(-whole_iters // 10)
+    check(len(streamed) == reads == chunks and streamed[-1][1] == whole_iters,
+          f"{label}: {len(streamed)} yields, {reads} readbacks, "
+          f"{chunks} chunks")
+    check(streamed[-1][0].tobytes() == whole.cpu().numpy().tobytes(),
+          f"{label}: the last image differs from sharded_converge's")
+    check(streamed[-1][2] < 0.5, f"{label}: did not converge")
+    rows.append({"path": label, "iters": whole_iters, "yields": len(streamed),
+                 "readbacks": reads, "launches": counts, "seconds": secs})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the probes (TPU kernel 5)
 # ---------------------------------------------------------------------------
 
@@ -1348,6 +1642,7 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             totals, rows, refs = main_paths(dev, Path(tmp))
+            converge_rows = converge_phase(dev, Path(tmp), totals)
             auto_rows = auto_paths(dev, Path(tmp), refs, rows, totals)
             picks = tune_auto_grids(Path(tmp))
             tuned = measured_tune(dev, Path(tmp), refs, totals)
@@ -1384,6 +1679,8 @@ def main() -> int:
             print(f"time {name}: " + json.dumps(t))
         for row in rows:
             print("end to end: " + json.dumps(row))
+        for row in converge_rows:
+            print("end to end converge: " + json.dumps(row))
         for row in auto_rows:
             print("end to end auto: " + json.dumps(row))
         print("measured tune: " + json.dumps(tuned))

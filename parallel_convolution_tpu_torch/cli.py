@@ -2,20 +2,27 @@
 (``python -m parallel_convolution_tpu_torch``).
 
 Mirrors the JAX package's ``pconv-tpu`` vocabulary — ``image path, rows,
-cols, loops, grey|rgb`` — for the subcommands this slice ports:
+cols, loops, grey|rgb`` — and takes every subcommand and flag of its parser:
 
-  run       filter a raw image on the card (the parallel main())
+  run       filter a raw image on the card (the parallel main()), or with
+            --converge TOL run it to convergence (loops = max iterations)
   serial    the same through the NumPy oracle (the golden path)
   generate  write a deterministic test image
   compare   byte-compare two raw images
   tune      rank (and measure) the knobs of one workload and write the
             plan file that --backend auto reads (the JAX package's
             scripts/tune.py)
+  convert, info, bench
+            parsed as in the JAX package; not ported yet
+
+A flag or subcommand that a later slice ports exits 2 with the
+``NotImplementedError`` that names its item in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 
 import numpy as np
@@ -27,6 +34,73 @@ def _add_image_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("cols", type=int)
     p.add_argument("loops", type=int)
     p.add_argument("mode", choices=["grey", "rgb"])
+
+
+def _add_perf_args(p: argparse.ArgumentParser) -> None:
+    """Filter / grid / kernel knobs of run and bench (the JAX CLI's, plus
+    --device)."""
+    from parallel_convolution_tpu_torch.utils.config import STORAGES
+
+    p.add_argument("--filter", default="blur3", dest="filter_name")
+    p.add_argument("--mesh", default=None, metavar="RxC",
+                   help="block grid (default 1x1); all blocks live on "
+                        "the one device")
+    # No argparse choices: check_backend names the port's counterpart of
+    # a JAX backend name (pallas -> cuda, ...).
+    p.add_argument("--backend", default=None,
+                   help="correlate implementation (default: shifted); "
+                        "shifted / separable / xla_conv are plain PyTorch, "
+                        "cuda / cuda_sep / cuda_rdma the CUDA kernels "
+                        "(the JAX package's pallas / pallas_sep / "
+                        "pallas_rdma); auto resolves it, and --fuse / "
+                        "--tile left unset, through the plan file "
+                        "($PCTPU_PLAN_FILE, written by tune) or the cost "
+                        "model")
+    p.add_argument("--storage", default=None, choices=list(STORAGES),
+                   help="iteration-carry dtype (default: f32)")
+    p.add_argument("--fuse", type=int, default=None, metavar="T",
+                   help="iterations per halo exchange (default 1)")
+    p.add_argument("--tile", default=None, metavar="TH,TW",
+                   help="output tile of the CUDA kernels (same bytes "
+                        "for any tile)")
+    p.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
+                   help="interior-first overlapped halo pipeline: 'on' is "
+                        "not ported yet (ROADMAP item 10); 'auto' and "
+                        "'off' run the serialized order")
+    p.add_argument("--col-mode", default="auto", dest="col_mode",
+                   choices=["auto", "packed", "strided"],
+                   help="column-slab transport between cards: not ported "
+                        "yet (ROADMAP item 10)")
+    p.add_argument("--interior-split", action="store_true",
+                   dest="interior_split",
+                   help="unmasked-interior launch split: not ported yet "
+                        "(ROADMAP item 2)")
+    p.add_argument("--fallback", action="store_true",
+                   help="backend degradation walk: not ported yet "
+                        "(ROADMAP item 3b)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; without CUDA the default "
+                        "raises")
+    p.add_argument("--fast", action="store_true",
+                   help="on the card, fill unset --backend/--storage/"
+                        "--fuse with cuda_sep / bf16 / 32")
+
+
+def _check_pending_flags(args) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of any ``run``
+    flag of a later slice that is set."""
+    from parallel_convolution_tpu_torch.utils.config import (
+        check_pending, check_solver,
+    )
+
+    check_solver(args.solver)
+    check_pending(
+        interior_split=args.interior_split, fallback=args.fallback,
+        overlap=args.overlap == "on",
+        col_mode=None if args.col_mode == "auto" else args.col_mode,
+        mg_levels=args.mg_levels, rank=None if args.rank == 2 else args.rank,
+        depth=args.depth, sharded_io=args.sharded_io,
+        checkpoint=args.checkpoint, checkpoint_every=args.checkpoint_every)
 
 
 def _parse_tile(spec: str | None):
@@ -131,9 +205,13 @@ def _tune(args) -> int:
     return 1 if args.verify_auto and not summary["auto_ok"] else 0
 
 
-def main(argv: list[str] | None = None) -> int:
+@functools.cache
+def _parser() -> argparse.ArgumentParser:
+    """The parser, built once a process: building it costs milliseconds,
+    which a caller that runs ``main`` many times (``chip_smoke.py``) would
+    otherwise pay on every call."""
     from parallel_convolution_tpu_torch.utils.config import (
-        BACKEND_CHOICES, BOUNDARIES, STORAGES,
+        BOUNDARIES, SOLVERS, STORAGES,
     )
 
     ap = argparse.ArgumentParser(prog="python -m parallel_convolution_tpu_torch",
@@ -144,38 +222,42 @@ def main(argv: list[str] | None = None) -> int:
     run = sub.add_parser("run", help="iterate a filter over a raw image")
     _add_image_args(run)
     run.add_argument("-o", "--output", required=True)
-    run.add_argument("--filter", default="blur3", dest="filter_name")
-    run.add_argument("--backend", default=None,
-                     choices=list(BACKEND_CHOICES),
-                     help="correlate implementation (default: shifted); "
-                          "cuda / cuda_sep / cuda_rdma are the CUDA kernels "
-                          "(the JAX package's pallas / pallas_sep / "
-                          "pallas_rdma); auto resolves it, and --fuse / "
-                          "--tile left unset, through the plan file "
-                          "($PCTPU_PLAN_FILE, written by tune) or the cost "
-                          "model")
-    run.add_argument("--storage", default=None, choices=list(STORAGES),
-                     help="iteration-carry dtype (default: f32)")
-    run.add_argument("--fuse", type=int, default=None, metavar="T",
-                     help="iterations per halo exchange (default 1)")
-    run.add_argument("--tile", default=None, metavar="TH,TW",
-                     help="output tile of the CUDA kernels (same bytes "
-                          "for any tile)")
+    _add_perf_args(run)
     run.add_argument("--boundary", default="zero", choices=list(BOUNDARIES))
-    run.add_argument("--mesh", default=None, metavar="RxC",
-                     help="block grid (default 1x1); all blocks live on "
-                          "the one device")
-    run.add_argument("--device", default=None,
-                     help="cuda (default) or cpu; without CUDA the "
-                          "default raises")
-    run.add_argument("--fast", action="store_true",
-                     help="on the card, fill unset --backend/--storage/"
-                          "--fuse with cuda_sep / bf16 / 32")
+    run.add_argument("--converge", type=float, default=None, metavar="TOL",
+                     help="run to convergence: stop when one iteration "
+                          "changes no value by TOL or more (loops becomes "
+                          "the iteration cap)")
+    run.add_argument("--check-every", type=int, default=10, metavar="N",
+                     help="iterations between convergence checks (one "
+                          "readback each)")
+    run.add_argument("--solver", default="jacobi", choices=list(SOLVERS),
+                     help="convergence strategy: jacobi sweeps; multigrid "
+                          "is not ported yet (ROADMAP item 5)")
+    run.add_argument("--mg-levels", type=int, default=None, metavar="N",
+                     help="multigrid level cap: not ported yet (item 5)")
+    run.add_argument("--rank", type=int, default=2, choices=[2, 3],
+                     help="2 = u8 images; 3 = float volumes, not ported "
+                          "yet (ROADMAP item 6)")
+    run.add_argument("--depth", type=int, default=None, metavar="D",
+                     help="volume depth for --rank 3 (item 6)")
+    run.add_argument("--sharded-io", action="store_true",
+                     help="block-stream the image from disk: not ported "
+                          "yet (ROADMAP item 4)")
+    run.add_argument("--checkpoint", default=None, metavar="DIR",
+                     help="snapshots and resume: not ported yet (item 4)")
+    run.add_argument("--checkpoint-every", type=int, default=None,
+                     metavar="N",
+                     help="iterations between snapshots (item 4)")
 
     ser = sub.add_parser("serial", help="serial NumPy oracle (golden path)")
     _add_image_args(ser)
     ser.add_argument("-o", "--output", required=True)
     ser.add_argument("--filter", default="blur3", dest="filter_name")
+    ser.add_argument("--impl", default="auto",
+                     choices=["auto", "oracle", "native"],
+                     help="auto and oracle run the NumPy oracle; the native "
+                          "C++ baseline is not ported yet (ROADMAP item 12)")
 
     gen = sub.add_parser("generate", help="write a deterministic test image")
     gen.add_argument("output")
@@ -217,7 +299,44 @@ def main(argv: list[str] | None = None) -> int:
                       help="after emitting, resolve auto against --out and "
                            "record auto_ok (requires --emit-plans)")
 
+    conv_ = sub.add_parser("convert", help="raw -> PGM/PPM (not ported yet)")
+    conv_.add_argument("image")
+    conv_.add_argument("rows", type=int)
+    conv_.add_argument("cols", type=int)
+    conv_.add_argument("mode", choices=["grey", "rgb"])
+    conv_.add_argument("-o", "--output", required=True)
+
+    bench_p = sub.add_parser("bench", help="time a synthetic workload; one "
+                                           "JSON row (not ported yet)")
+    bench_p.add_argument("rows", type=int)
+    bench_p.add_argument("cols", type=int)
+    bench_p.add_argument("loops", type=int)
+    bench_p.add_argument("mode", choices=["grey", "rgb"])
+    _add_perf_args(bench_p)
+    bench_p.add_argument("--reps", type=int, default=3)
+
+    sub.add_parser("info", help="devices, default grid, filters (not "
+                                "ported yet)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
+    try:
+        return _dispatch(ap, args)
+    except (NotImplementedError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+def _dispatch(ap: argparse.ArgumentParser, args) -> int:
+    from parallel_convolution_tpu_torch.utils.config import (
+        HOST_TOOLS, pending,
+    )
+
+    if args.cmd in ("convert", "info", "bench"):
+        raise pending(f"the {args.cmd} subcommand", HOST_TOOLS)
     if args.cmd == "tune":
         if args.verify_auto and not args.emit_plans:
             ap.error("--verify-auto requires --emit-plans")
@@ -255,6 +374,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.cmd == "serial":
         from parallel_convolution_tpu_torch.ops import oracle
 
+        if args.impl == "native":
+            raise pending("serial --impl native", HOST_TOOLS)
+
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
         out = oracle.run_serial_u8(img, get_filter(args.filter_name),
                                    args.loops)
@@ -264,17 +386,38 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     # run
-    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.models import (
+        ConvolutionModel, JacobiSolver,
+    )
     from parallel_convolution_tpu_torch.parallel.mesh import grid_from_spec
     from parallel_convolution_tpu_torch.utils.platform import device_kind
 
+    _check_pending_flags(args)
     try:
         tile = _parse_tile(args.tile)
         grid = grid_from_spec(args.mesh, args.device)
-    except (RuntimeError, ValueError) as e:
+    except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
     _resolve_perf_knobs(args, grid)
+    if args.converge is not None:
+        # Quantized semantics, as the JAX CLI's Jacobi run: u8-range states
+        # with a store-back every iteration.
+        solver = JacobiSolver(
+            filt=args.filter_name, tol=args.converge, max_iters=args.loops,
+            check_every=args.check_every, grid=grid, backend=args.backend,
+            quantize=True, fuse=args.fuse, tile=tile, boundary=args.boundary,
+            storage=args.storage)
+        img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
+        x = imageio.interleaved_to_planar(img).astype(np.float32)
+        out, iters = solver.solve(x)
+        imageio.write_raw(
+            args.output,
+            imageio.planar_to_interleaved(
+                np.clip(np.rint(out), 0, 255).astype(np.uint8)))
+        print(f"converged after {iters} iters (tol {args.converge}) "
+              f"-> {args.output}")
+        return 0
     model = ConvolutionModel(filt=args.filter_name, grid=grid,
                              backend=args.backend, storage=args.storage,
                              fuse=args.fuse, boundary=args.boundary,

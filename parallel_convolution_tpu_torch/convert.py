@@ -41,3 +41,31 @@ def to_numpy(blocks: list[list[torch.Tensor]], valid_hw=None) -> np.ndarray:
     if full.dtype == torch.bfloat16:
         full = full.to(torch.float32)
     return full.cpu().numpy()
+
+
+def jacobi_solver_from_reference(fields: dict, device=None):
+    """The port's :class:`~parallel_convolution_tpu_torch.models.JacobiSolver`
+    from the JAX ``JacobiSolver``'s fields given as plain values.
+
+    ``fields`` holds the JAX dataclass's field names: ``filt`` as a
+    registry name or a ``(name, taps, dyadic)`` triple with numpy taps,
+    ``mesh`` as an ``(R, C)`` grid shape (or None for 1×1), ``backend`` by
+    its JAX name (``pallas`` -> ``cuda``, ...); every other field as its
+    value.  The grid lives on ``device`` (default: the card).
+    """
+    from parallel_convolution_tpu_torch.models import JacobiSolver
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils.config import (
+        BACKEND_FROM_REFERENCE,
+    )
+
+    kw = dict(fields)
+    filt = kw.pop("filt", "jacobi3")
+    if not isinstance(filt, str):
+        filt = filter_from_numpy(*filt)
+    mesh = kw.pop("mesh", None)
+    backend = kw.pop("backend", "shifted")
+    return JacobiSolver(
+        filt=filt, grid=make_grid(None if mesh is None else tuple(mesh),
+                                  device),
+        backend=BACKEND_FROM_REFERENCE.get(backend, backend), **kw)

@@ -114,3 +114,34 @@ def run_serial_f32(img_f32: np.ndarray, filt: Filter, iters: int,
     for _ in range(iters):
         out = correlate_once(out, filt, boundary)
     return out
+
+
+def run_to_convergence_f32(
+    img_f32: np.ndarray,
+    filt: Filter,
+    tol: float,
+    max_iters: int,
+    check_every: int = 1,
+    boundary: str = "zero",
+) -> tuple[np.ndarray, int]:
+    """Serial run-to-convergence oracle (C6 semantics, BASELINE config 5).
+
+    Convergence means one iteration changes the array by less than ``tol``
+    in max-abs norm; the check runs on the last iteration of every
+    ``check_every``-sized chunk (mirroring the reference's every-N
+    ``MPI_Allreduce``), or until ``max_iters``.  Returns
+    ``(result, iterations_run)``.
+    """
+    cur = np.asarray(img_f32, dtype=np.float32)
+    done = 0
+    while done < max_iters:
+        step = min(check_every, max_iters - done)
+        prev = cur
+        for _ in range(step):
+            prev = cur
+            cur = correlate_once(cur, filt, boundary)
+        done += step
+        diff = float(np.max(np.abs(cur - prev))) if cur.size else 0.0
+        if diff < tol:
+            break
+    return cur, done

@@ -19,8 +19,15 @@ anything is built.
 
 Non-divisible images are padded to the next block multiple and re-masked to
 zero every iteration, so outputs stay bit-identical to the serial oracle
-for any grid shape.  Run-to-convergence and the other entry points of the
-JAX module come with later slices (ROADMAP.md, "Port: still to port").
+for any grid shape.
+
+Run-to-convergence (BASELINE config 5, the reference's every-N
+``MPI_Allreduce``): :func:`sharded_converge` and
+:func:`sharded_converge_stream` run ``check_every``-iteration chunks on the
+same steps, each ending in one single step that forms the (prev, cur) pair
+and the max-abs diff over every block.  The JAX package loops on the device
+(``lax.while_loop``); here the host loops, and the one readback of each
+chunk's diff is the run's fence.
 """
 
 from __future__ import annotations
@@ -38,10 +45,11 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
 )
 from parallel_convolution_tpu_torch.utils.config import (
     AUTO, BACKENDS, BOUNDARIES, STORAGES, check_backend, check_pending,
-    check_run_config, check_storage,
+    check_run_config, check_solver, check_storage,
 )
 
-__all__ = ["STORAGE_DTYPES", "iterate_prepared", "sharded_iterate"]
+__all__ = ["STORAGE_DTYPES", "iterate_prepared", "sharded_converge",
+           "sharded_converge_stream", "sharded_iterate"]
 
 # Iteration-carry dtypes.  Quantized states are exact small integers, so
 # bf16 (exact for 0..255) and u8 carries lose nothing; accumulation is
@@ -198,6 +206,15 @@ def _check_block_size(filt: Filter, block_hw) -> None:
             f"{filt.radius}; use a smaller grid for this image")
 
 
+def _check_fuse_fits(filt: Filter, block_hw, fuse: int,
+                     note: str = "") -> None:
+    """A ``fuse``-deep halo must fit in one neighbouring block."""
+    if min(block_hw) < filt.radius * fuse:
+        raise ValueError(
+            f"fuse={fuse} needs blocks >= {filt.radius * fuse}, got "
+            f"{tuple(block_hw)}{note}")
+
+
 def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
                    valid_hw, block_hw, backend: str, fuse: int = 1,
                    boundary: str = "zero", tile=None):
@@ -206,10 +223,7 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
     levels."""
     _check_block_size(filt, block_hw)
     fuse = max(1, min(fuse, iters or 1))
-    if min(block_hw) < filt.radius * fuse:
-        raise ValueError(
-            f"fuse={fuse} needs blocks >= {filt.radius * fuse}, got "
-            f"{tuple(block_hw)}")
+    _check_fuse_fits(filt, block_hw, fuse)
     chunk = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
                              backend, fuse, boundary, tile)
     n_chunks, rem = divmod(iters, fuse)
@@ -267,6 +281,13 @@ def _prepare(x, grid: Grid, storage: str = "f32"):
     return split_blocks(x, grid), (H, W), (Hp // R, Wp // Cg)
 
 
+def _global_f32(state, grid: Grid, valid_hw, stacked: bool) -> torch.Tensor:
+    """The carry as the global (C, H, W) f32 field at the valid extent."""
+    blocks = rdma.unstack_blocks(state, grid.shape) if stacked else state
+    full = join_blocks(blocks)
+    return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)
+
+
 def _storage_name(dtype) -> str:
     for name, dt in STORAGE_DTYPES.items():
         if dt == dtype:
@@ -276,11 +297,13 @@ def _storage_name(dtype) -> str:
 
 def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
                   storage: str, quantize: bool, boundary: str, valid_hw,
-                  channels: int):
+                  channels: int, check_every: int | None = None):
     """``backend='auto'`` -> the concrete ``(backend, fuse, tile, source)``
     through ``tuning.resolve`` (plan cache if ``PCTPU_PLAN_FILE`` names
     one, else the cost model).  An explicit backend passes through, with
-    ``fuse=None`` meaning 1 and ``source`` None."""
+    ``fuse=None`` meaning 1 and ``source`` None.  ``check_every`` (the
+    convergence path only) caps the fuse at ``check_every - 1`` and keys
+    the plan, so a convergence run resolves its own plan."""
     if backend != AUTO:
         return backend, (1 if fuse is None else int(fuse)), tile, None
     from parallel_convolution_tpu_torch import tuning
@@ -288,7 +311,8 @@ def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
     res = tuning.resolve(
         grid, filt, (channels, int(valid_hw[0]), int(valid_hw[1])),
         storage=storage, quantize=quantize, boundary=boundary, fuse=fuse,
-        tile=None if tile is None else tuple(int(v) for v in tile))
+        tile=None if tile is None else tuple(int(v) for v in tile),
+        check_every=check_every)
     return res.backend, res.fuse, res.tile, res.source
 
 
@@ -321,6 +345,22 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     return run(blocks)
 
 
+def _setup_run(x, grid, device, backend: str, storage: str, boundary: str,
+               quantize: bool, **pending_knobs):
+    """The prologue of every entry point on a global image: the backend
+    and pending-knob checks, the default grid (1×1 on ``device``, the card
+    unless told otherwise), the run configuration, and the prepared blocks.
+    Returns ``(grid, blocks, valid_hw, block_hw)``."""
+    check_backend(backend, allow_auto=True)
+    check_pending(**pending_knobs)
+    if grid is None:
+        grid = make_grid(device=device)
+    elif device is not None and grid.device != torch.device(device):
+        raise ValueError(f"grid is on {grid.device}, device={device!r}")
+    check_run_config(storage, boundary, quantize)
+    return (grid, *_prepare(x, grid, storage))
+
+
 def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
                     quantize: bool = True, backend: str = "shifted",
                     storage: str = "f32", fuse: int | None = 1,
@@ -341,17 +381,221 @@ def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
     ``quantize=True`` assumes u8-range input and raises on values outside
     [0, 255] for convex filters.
     """
-    check_backend(backend, allow_auto=True)
-    check_pending(interior_split=interior_split, fallback=fallback,
-                  overlap=overlap, col_mode=col_mode)
-    if grid is None:
-        grid = make_grid(device=device)
-    elif device is not None and grid.device != torch.device(device):
-        raise ValueError(f"grid is on {grid.device}, device={device!r}")
-    check_run_config(storage, boundary, quantize)
-    blocks, valid_hw, _ = _prepare(x, grid, storage)
+    grid, blocks, valid_hw, _ = _setup_run(
+        x, grid, device, backend, storage, boundary, quantize,
+        interior_split=interior_split, fallback=fallback, overlap=overlap,
+        col_mode=col_mode)
     out = iterate_prepared(blocks, filt, iters, grid, valid_hw,
                            quantize=quantize, backend=backend, fuse=fuse,
                            boundary=boundary, tile=tile)
-    full = join_blocks(out)
-    return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)
+    return _global_f32(out, grid, valid_hw, stacked=False)
+
+
+# ---------------------------------------------------------------------------
+# Run to convergence
+# ---------------------------------------------------------------------------
+
+
+def _max_abs_diff(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """max |cur - prev| in f32 over one tensor (a block, or the stacked
+    grid) as a 0-d tensor on its device, through one f32 temporary of its
+    size: the difference, whose min and max one pass reads (max |d| =
+    max(max d, -min d); a NaN stays NaN).  An empty tensor gives 0, as the
+    oracle's ``cur.size == 0``."""
+    if cur.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=cur.device)
+    d = (torch.sub(cur, prev) if cur.dtype == torch.float32
+         else cur.to(torch.float32).sub_(prev))
+    lo, hi = torch.aminmax(d)
+    return torch.maximum(hi, -lo)
+
+
+def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
+                          valid_hw, block_hw, backend: str,
+                          boundary: str = "zero", fuse: int = 1, tile=None):
+    """ONE convergence chunk: ``n`` iterations and the (prev, cur) max-abs
+    diff, as a 0-d f32 tensor left on the device.
+
+    ``n - 1`` iterations run as ``(n-1)//fuse`` fused steps and
+    ``(n-1)%fuse`` single ones, then ONE single step forms the pair, so
+    any fuse gives the bytes of fuse 1.  The chunk maps the carry to the
+    carry: the blocks, or for ``cuda_rdma`` the stacked grid.  ``tol`` is
+    not part of it: the host compares.
+    """
+    # Fuse at most the n-1 pre-pair iterations; a 1-iteration chunk has
+    # no pre-pair work at all.  The check below is the stream's, as in
+    # JAX; sharded_converge has made a stricter one for the whole run.
+    fuse = max(1, min(fuse, max(1, n - 1)))
+    _check_fuse_fits(filt, block_hw, fuse)
+    step = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
+                            backend, 1, boundary, tile)
+    fused = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
+                              backend, fuse, boundary, tile)
+             if fuse > 1 and n > 1 else None)
+    stacked = backend == "cuda_rdma"
+
+    def chunk(state):
+        prev = state
+        if fused is None:
+            for _ in range(n - 1):
+                prev = step(prev)
+        else:
+            for _ in range((n - 1) // fuse):
+                prev = fused(prev)
+            for _ in range((n - 1) % fuse):
+                prev = step(prev)
+        cur = step(prev)
+        # The MPI_Allreduce (lax.pmax in the JAX package): the global max
+        # of one iteration's change over every block and channel, the pad
+        # rim included (zero in both).
+        if stacked:
+            return cur, _max_abs_diff(cur, prev)
+        diffs = [_max_abs_diff(c, p) for cur_row, prev_row in zip(cur, prev)
+                 for c, p in zip(cur_row, prev_row)]
+        return cur, torch.stack(diffs).amax()
+
+    return chunk
+
+
+def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
+                    storage, boundary, fuse, tile, interior_split, fallback,
+                    overlap, solver, mg_levels, col_mode, device):
+    """The checks, the default grid, the prepared blocks and the resolved
+    knobs of one convergence run (both entry points)."""
+    check_solver(solver)
+    if int(check_every) < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    grid, blocks, valid_hw, block_hw = _setup_run(
+        x, grid, device, backend, storage, boundary, quantize,
+        interior_split=interior_split, fallback=fallback, overlap=overlap,
+        col_mode=col_mode, mg_levels=mg_levels)
+    backend, fuse, tile, _ = _resolve_auto(
+        grid, filt, backend, fuse, tile, storage, quantize, boundary,
+        valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
+    check_backend(backend)
+    _check_quantize_contract(blocks, filt, quantize)
+    _check_block_size(filt, block_hw)
+    tile = None if tile is None else tuple(int(v) for v in tile)
+    return grid, blocks, valid_hw, block_hw, backend, int(fuse), tile
+
+
+def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
+                     max_iters: int, check_every: int, quantize: bool,
+                     valid_hw, block_hw, backend: str, boundary: str,
+                     fuse: int, tile, counter):
+    """The host loop: ``(carry, iters_done, diff)`` after every chunk,
+    until ``diff < tol`` or ``max_iters`` (a NaN diff stops it too).  The
+    diff's ``.item()`` is the chunk's one readback and fence; it counts on
+    ``counter.readbacks``."""
+    chunks = {}
+    done, diff = 0, float("inf")
+    while done < max_iters and diff >= tol:
+        n = min(check_every, max_iters - done)
+        if n not in chunks:
+            # fault_point("backend_compile") goes here with item 13.
+            chunks[n] = _build_converge_chunk(
+                grid, filt, n, quantize, tuple(valid_hw), block_hw, backend,
+                boundary, fuse, tile)
+        state, d = chunks[n](state)
+        diff = d.item()
+        counter.readbacks += 1
+        done += n
+        yield state, done, diff
+
+
+def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
+                     check_every: int = 1, grid: Grid | None = None,
+                     quantize: bool = False, backend: str = "shifted",
+                     storage: str = "f32", boundary: str = "zero",
+                     fuse: int | None = 1, tile=None,
+                     interior_split: bool = False, fallback: bool = False,
+                     overlap: bool | None = None, solver: str = "jacobi",
+                     mg_levels: int | None = None,
+                     col_mode: str | None = None,
+                     device=None) -> tuple[torch.Tensor, int]:
+    """Run-to-convergence (BASELINE config 5).  Returns ``(result,
+    iters_run)``: the global (C, H, W) f32 field on the grid's device.
+
+    Every ``check_every`` iterations the max-abs change of one iteration
+    is read back, and the run stops when it falls below ``tol`` or
+    ``max_iters`` iterations have run.  ``fuse`` / ``tile`` are the
+    iteration knobs of :func:`sharded_iterate`: a chunk fuses at most its
+    ``check_every - 1`` pre-pair iterations, so the whole run clamps the
+    fuse to that.  ``grid`` defaults to 1×1 on ``device`` (default: the
+    card; it raises without CUDA).  ``solver='multigrid'`` and
+    ``mg_levels`` belong to a later slice and raise.
+    ``sharded_converge.readbacks`` counts the readbacks (one per chunk);
+    :func:`sharded_converge_stream` yields each chunk's diff.
+    """
+    grid, blocks, valid_hw, block_hw, backend, fuse, tile = _converge_setup(
+        x, filt, check_every, grid, quantize, backend, storage, boundary,
+        fuse, tile, interior_split, fallback, overlap, solver, mg_levels,
+        col_mode, device)
+    check_every, max_iters = int(check_every), int(max_iters)
+    # A chunk fuses at most the n-1 pre-pair iterations (the final one is
+    # always a single step so the (prev, cur) diff exists), so clamp to
+    # check_every - 1: fuse == check_every would otherwise run every
+    # iteration unfused.  The run-level check gives the JAX package's text.
+    requested_fuse = fuse
+    fuse = max(1, min(fuse, check_every - 1))
+    _check_fuse_fits(filt, block_hw, fuse,
+                     f" (fuse={requested_fuse} clamped to {fuse}: a "
+                     f"check_every={check_every} chunk fuses at most its "
+                     "n-1 pre-pair iterations)"
+                     if fuse != requested_fuse else "")
+    # cuda_rdma carries the stacked grid, stacked once for the run; the
+    # input blocks are not kept past the first chunk.
+    stacked = backend == "cuda_rdma"
+    state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
+    del blocks
+    done = 0
+    # The obs "device" span of the run (item 9) opens here.
+    for state, done, _ in _converge_chunks(
+            grid, filt, state, tol, max_iters, check_every, quantize,
+            valid_hw, block_hw, backend, boundary, fuse, tile,
+            sharded_converge):
+        pass
+    return _global_f32(state, grid, valid_hw, stacked), done
+
+
+sharded_converge.readbacks = 0
+
+
+def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
+                            check_every: int = 1, grid: Grid | None = None,
+                            quantize: bool = False, backend: str = "shifted",
+                            storage: str = "f32", boundary: str = "zero",
+                            fuse: int | None = 1, tile=None,
+                            interior_split: bool = False,
+                            fallback: bool = False,
+                            overlap: bool | None = None,
+                            solver: str = "jacobi",
+                            mg_levels: int | None = None,
+                            col_mode: str | None = None, device=None):
+    """Progressive run-to-convergence: a generator over the chunks.
+
+    Yields ``(image, iters_done, diff)`` after every ``check_every``-sized
+    chunk: ``image`` is the (C, H, W) float32 field at the valid extent (a
+    host numpy copy, safe to keep), ``diff`` the max-abs single-iteration
+    change the stop is decided on.  The stream ends when ``diff < tol`` or
+    ``iters_done >= max_iters``; its LAST image is byte-equal to
+    :func:`sharded_converge` with the same arguments (the same chunks).
+    ``sharded_converge_stream.readbacks`` counts the diff readbacks, one
+    per chunk.
+    """
+    grid, blocks, valid_hw, block_hw, backend, fuse, tile = _converge_setup(
+        x, filt, check_every, grid, quantize, backend, storage, boundary,
+        fuse, tile, interior_split, fallback, overlap, solver, mg_levels,
+        col_mode, device)
+    stacked = backend == "cuda_rdma"
+    state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
+    del blocks
+    for state, done, diff in _converge_chunks(
+            grid, filt, state, tol, int(max_iters), int(check_every),
+            quantize, valid_hw, block_hw, backend, boundary, fuse, tile,
+            sharded_converge_stream):
+        yield (_global_f32(state, grid, valid_hw, stacked).cpu().numpy(),
+               done, diff)
+
+
+sharded_converge_stream.readbacks = 0

@@ -1,12 +1,14 @@
 """Timing for the tuner and ``chip_smoke.py`` (the part of the JAX
-package's ``utils/bench.py`` they need: ``wall``, ``bench_iterate``).
+package's ``utils/bench.py`` they need: ``wall``, ``bench_iterate``,
+``bench_converge``).
 
 On the card every time is taken with CUDA events after a warm-up: PyTorch
 returns before the card finishes, so a host clock without a synchronise
-would measure the enqueue.  A grid the caller put on the CPU times the
-plain versions with the host clock and stamps ``"device": "cpu"``; nothing
-here chooses the CPU by itself.  ``bench_converge``, the halo bench and the
-oracle proxy wait for their items (ROADMAP.md, "Port: still to port").
+would measure the enqueue.  ``bench_converge`` takes the host clock around
+a run whose every chunk ends in a readback, which fences it.  A grid the
+caller put on the CPU times the plain versions with the host clock and
+stamps ``"device": "cpu"``; nothing here chooses the CPU by itself.  The
+halo bench and the oracle proxy wait for item 12 (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -127,3 +129,82 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         "platform": "gpu" if on_card else "cpu",
         "device": device_kind(grid.device),
     }
+
+
+def converge_input(shape, channels: int = 1, seed: int = 0) -> np.ndarray:
+    """The seeded float field a convergence benchmark smooths: standard
+    normal values, (channels, H, W) f32 (the JAX ``bench_converge``'s)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((channels, *shape)).astype(np.float32)
+
+
+def bench_converge(shape, filt: Filter, tol: float, max_iters: int,
+                   grid: Grid | None = None, channels: int = 1,
+                   backend: str = "shifted", storage: str = "f32",
+                   boundary: str = "zero", check_every: int = 10,
+                   fuse: int | None = 1, tile=None, solver: str = "jacobi",
+                   mg_levels: int | None = None, seed: int = 0,
+                   device=None) -> dict:
+    """One run-to-convergence row (float mode) of the JAX package's
+    ``bench_converge``, Jacobi only: the host-driven stream runs to ``tol``
+    on a seeded normal field and the row records whether it got there
+    (``diff < tol`` itself, not ``iters < max_iters``), the iterations,
+    the wall seconds and the fine-grid Gpx/s, and ``readbacks``: the
+    diff readbacks the run made (one per chunk).  ``backend="auto"``
+    resolves first, so the row names the backend that ran.
+    ``solver="multigrid"`` raises (ROADMAP item 5)."""
+    from parallel_convolution_tpu_torch.tuning.plans import Workload
+    from parallel_convolution_tpu_torch.utils.config import (
+        check_pending, check_solver,
+    )
+
+    check_solver(solver)
+    check_pending(mg_levels=mg_levels)
+    if grid is None:
+        grid = make_grid(device=device)
+    H, W = shape
+    x = converge_input((H, W), channels, seed)
+    eff, fuse, tile, _ = step_lib._resolve_auto(
+        grid, filt, backend, fuse, tile, storage, False, boundary, (H, W),
+        channels, check_every=int(check_every))
+    w = Workload.from_grid(grid, filt, (channels, H, W), storage=storage,
+                           quantize=False, boundary=boundary)
+    row = {
+        "workload": f"converge {filt.name} {H}x{W}x{channels} tol={tol}",
+        "backend": eff,
+        "solver": solver,
+        "storage": storage,
+        "boundary": boundary,
+        "platform": "gpu" if grid.device.type == "cuda" else "cpu",
+        "device_kind": device_kind(grid.device),
+        "mesh": f"{grid.rows}x{grid.cols}",
+        # Blocks, all on the one device (the JAX row's mesh.size).
+        "devices": grid.rows * grid.cols,
+        "tol": float(tol),
+    }
+    before = step_lib.sharded_converge_stream.readbacks
+    t0 = time.perf_counter()
+    out, iters, diff = x, 0, None
+    for out, iters, diff in step_lib.sharded_converge_stream(
+            x, filt, tol=tol, max_iters=max_iters, check_every=check_every,
+            grid=grid, quantize=False, backend=eff, storage=storage,
+            boundary=boundary, fuse=fuse, tile=tile):
+        pass
+    secs = max(time.perf_counter() - t0, 1e-9)
+    row.update({
+        "effective_backend": eff,
+        # No column transport between blocks on one card (item 10).
+        "col_mode": None,
+        "converged": diff is not None and diff < tol,
+        "residual": diff,
+        "iters": iters,
+        "mg_levels": None,
+        "work_units_to_tol": float(iters),
+        "plan_key": w.key(),
+        "wall_s": secs,
+        "readbacks": step_lib.sharded_converge_stream.readbacks - before,
+    })
+    row["gpixels_per_s"] = (row["work_units_to_tol"] * H * W * channels
+                            / secs / 1e9)
+    row["checksum"] = float(np.abs(np.asarray(out)).max())
+    return row

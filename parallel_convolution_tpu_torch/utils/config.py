@@ -16,9 +16,9 @@ hand-written CUDA kernels that replace them, one to one:
 
 ``auto`` resolves to one of those names through the port's own tuning
 package (plan cache, then the cost model) before anything is built.
-Everything the JAX package offers beyond this slice raises
-``NotImplementedError`` naming its item in ROADMAP.md ("Port: still to
-port"), never silently ignored.
+Everything the JAX package offers beyond the port so far raises
+``NotImplementedError`` naming its item in ROADMAP.md ("Open items"),
+never silently ignored.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ AUTO = "auto"
 BACKEND_CHOICES = BACKENDS + (AUTO,)
 STORAGES = ("f32", "bf16", "u8")
 BOUNDARIES = ("zero", "periodic")
+# Run-to-convergence strategies, with the JAX package's names.
+SOLVERS = ("jacobi", "multigrid")
 
 # The JAX package's backend name -> the port's.
 BACKEND_FROM_REFERENCE = {
@@ -42,20 +44,30 @@ BACKEND_FROM_REFERENCE = {
 }
 
 _SEPARATE_CARDS = "item 10 (blocks on separate cards)"
+_CHECKPOINTS = "item 4 (checkpoints and sharded IO)"
+_VOLUMES = "item 6 (volumes)"
+MULTIGRID = "item 5 (multigrid)"
+HOST_TOOLS = "item 12 (the rest of the CLI and the host tools)"
 
-# Knobs of the JAX entry points that later slices port: name -> ROADMAP item.
+# Knobs of the JAX entry points and CLI that later slices port:
+# name -> ROADMAP item.
 PENDING_KNOBS = {
     "interior_split": "item 2 (interior_split)",
     "fallback": "item 3b (fallback)",
     "overlap": _SEPARATE_CARDS,
     "col_mode": _SEPARATE_CARDS,
+    "mg_levels": MULTIGRID,
+    "rank": _VOLUMES,
+    "depth": _VOLUMES,
+    "sharded_io": _CHECKPOINTS,
+    "checkpoint": _CHECKPOINTS,
+    "checkpoint_every": _CHECKPOINTS,
 }
 
 
 def pending(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md 'Port: still to port', "
-        f"{item}")
+        f"{what} is not ported yet: see ROADMAP.md 'Open items', {item}")
 
 
 def check_backend(backend: str, allow_auto: bool = False) -> None:
@@ -82,6 +94,15 @@ def check_pending(**knobs) -> None:
     for name, value in knobs.items():
         if value:
             raise pending(f"{name}={value!r}", PENDING_KNOBS[name])
+
+
+def check_solver(solver: str) -> None:
+    """``jacobi`` runs; ``multigrid`` is a later slice; anything else is an
+    error, as in the JAX package."""
+    if solver == "multigrid":
+        raise pending("solver='multigrid'", MULTIGRID)
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
 
 
 def check_storage(storage: str, quantize: bool) -> None:

@@ -653,3 +653,77 @@ def test_auto_end_to_end_matches_shifted(cuda_device, grid_shape, storage,
         img, 7)
     assert np.array_equal(got, want)
     assert np.array_equal(got, oracle.run_serial_u8(img, f, 7))
+
+
+# ---------------------------------------------------------------------------
+# Run to convergence on the card
+# ---------------------------------------------------------------------------
+
+# (backend, grid, storage, quantize, fuse, the kernels that must run): u8
+# mode is blur3 on a grey image, float mode jacobi3 on a normal field, each
+# tol stopping the run after 30 or 40 of its 60 iterations.
+# cuda_rdma at 16x16 has 30x40 blocks (K3); at 2x2, 240x320 (K4, T = 1
+# included).
+CONVERGE_CASES = [
+    ("cuda", (1, 1), "u8", True, 4, ("stencil_step", "fused_iterate")),
+    ("cuda", (2, 2), "f32", False, 3, ("stencil_step", "fused_iterate")),
+    ("cuda", (2, 2), "bf16", True, 1, ("stencil_step",)),
+    ("cuda_sep", (1, 1), "bf16", True, 9, ("stencil_step", "fused_iterate")),
+    ("cuda_sep", (2, 2), "f32", False, 10, ("stencil_step",
+                                            "fused_iterate")),
+    ("cuda_rdma", (16, 16), "u8", True, 8, ("rdma_block",)),
+    ("cuda_rdma", (2, 2), "bf16", True, 8, ("rdma_tiled",)),
+    ("cuda_rdma", (2, 2), "f32", False, 3, ("rdma_tiled",)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,grid_shape,storage,quantize,fuse,kernels",
+                         CONVERGE_CASES)
+def test_converge_on_card_matches_shifted(cuda_device, backend, grid_shape,
+                                          storage, quantize, fuse, kernels):
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.utils.bench import converge_input
+
+    hw = (480, 640)
+    if quantize:
+        f, tol = get_filter("blur3"), 2.5
+        x = imageio.generate_test_image(*hw, "grey", seed=13)[None]
+        x = x.astype(np.float32)
+    else:
+        f, tol = get_filter("jacobi3"), 0.56
+        x = converge_input(hw, 1, seed=13)
+    kw = dict(check_every=10, quantize=quantize, storage=storage)
+    grid = mesh.make_grid(grid_shape, cuda_device)
+    stencil.reset_launch_counts()
+    halo.halo_exchange.calls = 0
+    before = step.sharded_converge.readbacks
+    got, iters = step.sharded_converge(x, f, tol, 60, grid=grid,
+                                       backend=backend, fuse=fuse, **kw)
+    counts = stencil.launch_counts()
+    assert step.sharded_converge.readbacks - before == -(-iters // 10)
+    assert all(counts[k] > 0 for k in kernels), counts
+    assert backend != "cuda_rdma" or halo.halo_exchange.calls == 0
+    want, witers = step.sharded_converge(x, f, tol, 60, grid=grid,
+                                         backend="shifted", **kw)
+    assert got.device.type == "cuda" and iters == witers
+    _assert_agree(got, want, f, iters, quantize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,grid_shape", [("cuda", (2, 2)),
+                                                ("cuda_rdma", (2, 2))])
+def test_converge_on_card_stops_on_a_nan_diff(cuda_device, backend,
+                                              grid_shape):
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.utils.bench import converge_input
+
+    x = converge_input((64, 96), 1, seed=14)
+    x[0, 5, 7] = np.nan
+    args = (x, get_filter("jacobi3"), 1e-3, 50)
+    kw = dict(check_every=5, grid=mesh.make_grid(grid_shape, cuda_device),
+              backend=backend, fuse=3)
+    got, iters = step.sharded_converge(*args, **kw)
+    rows = list(step.sharded_converge_stream(*args, **kw))
+    assert iters == 5 and [done for _, done, _ in rows] == [5]
+    assert np.isnan(rows[-1][2])

@@ -48,6 +48,32 @@ Phases (any failure exits non-zero and prints no result line):
    --fuse 8`` (K3), each converged, byte-equal to ``shifted`` and with its
    iteration count; ``sharded_converge_stream`` there, one yield and one
    readback a chunk, its last image ``sharded_converge``'s bytes;
+4c. the huge-image workflow, after phase 7, each run counted into the
+   kernels line: BASELINE config 4 (3x3 blur, 65536x65536 RGB, 100
+   iterations) from a seeded file under ``build/`` (the disk and RAM found
+   are printed; a disk too small for the input and one output shrinks the
+   image, printed as a cut) through ``run --sharded-io --storage u8 --fuse
+   32`` at 1x1 ``cuda_sep`` (7 K2 launches) and at 4x4 ``cuda_rdma`` (K4
+   and K2), each with its first-run seconds and Gpx/s, the host's read +
+   copy in and copy out + write, the kernels' time, the peak device memory
+   and the host's resident-set growth (under 1 GB: bands, never a block);
+   nine 256x256 output windows (corners, centre, far edges, the 4x4 seams)
+   read back from the written file must equal the NumPy oracle on input
+   crops reaching 100 pixels beyond them, and the two outputs must be
+   CRC32-equal band by band; K2 and K4 timed at those shapes beside their
+   bounds.  On BASELINE config 3's image (8192x8192 edge5): ``run
+   --checkpoint --checkpoint-every 25 --backend cuda_rdma --mesh 4x4`` in
+   a child process that dies with an injected fault in its second
+   snapshot, resumed here from iteration 25 (75 K4 launches), byte-equal to
+   an uninterrupted ``--sharded-io`` run and to ``shifted``, and a second
+   torn run resumed on ``--mesh 2x2`` (the reshard warning, the same
+   bytes), ``save_state`` / ``load_state`` timed; ``--fallback`` without a
+   fault keeping ``cuda_rdma`` and ``cuda_sep`` (the probe's launches
+   counted), with ``PCTPU_FAULTS=backend_compile:1`` degrading
+   ``cuda_rdma`` to ``cuda`` (warned, named in the summary line, the same
+   bytes), with every tier refused stopping at ``cuda`` and raising (no
+   plain run, no launch), and 5b's refused launch named by the runtime and
+   classified transient, a canary launch after it passing;
 5. times with CUDA events after a warm-up: each kernel at the main path's
    shapes (``ms``: K1 as back-to-back wrapper calls, K3 / K4 as the launch
    alone, its arguments bound once, and as the whole wrapper call;
@@ -92,6 +118,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -113,6 +140,11 @@ CONVERGE_HW = (32768, 32768)  # BASELINE config 5
 # so the diff decays slowly and tol 1e-3 is not reached within it.
 CONVERGE_MAX_ITERS = 200
 CONVERGE_CLI_MAX = 5000    # the CLI's converges (about 2730 iterations)
+CONFIG4_SIDE = 65536       # BASELINE config 4: 65536x65536 RGB, 12.9 GB
+WINDOW = 256               # config 4's oracle windows
+HOST_GROWTH_LIMIT = 1 << 30  # config 4: at most 16 bands of host memory
+CKPT_EVERY = 25            # the checkpoint phase's snapshots
+CKPT_KILL = 20             # shard write 20: in the second snapshot at 4x4
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
@@ -1209,6 +1241,614 @@ def converge_phase(dev, tmp: Path, totals: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4c: the huge-image workflow — BASELINE config 4 through
+# run --sharded-io, checkpoints and backend fallback
+# ---------------------------------------------------------------------------
+
+
+def machine_room(work: Path) -> dict:
+    """Free disk where the config-4 files go, and the host's RAM (GB)."""
+    import shutil
+
+    work.mkdir(parents=True, exist_ok=True)
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                mem[key] = int(value.split()[0]) * 1024 / 1e9
+    return {"disk_free_gb": shutil.disk_usage(work).free / 1e9,
+            "work": str(work), "ram_total_gb": mem.get("MemTotal"),
+            "ram_available_gb": mem.get("MemAvailable")}
+
+
+def host_rss() -> int:
+    """This process's resident set now, in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise SmokeFailure("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def host_rss_growth(out: dict):
+    """Sample the resident set every 10 ms in a thread while the block
+    runs; ``out["growth"]``: its peak over its size at the start."""
+    import threading
+
+    stop, start = threading.Event(), host_rss()
+    peak = [start]
+
+    def sample():
+        while not stop.wait(0.01):
+            peak[0] = max(peak[0], host_rss())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["growth"] = max(peak[0], host_rss()) - start
+
+
+def config4_side(free_bytes: float) -> int:
+    """The side of the square RGB image the phase runs: BASELINE config
+    4's 65536 when the input and one output fit on the disk with 10% to
+    spare, else the largest multiple of 4096 that does (a printed cut)."""
+    side = CONFIG4_SIDE
+    while side > 4096 and 2 * 3 * side * side * 1.1 > free_bytes:
+        side -= 4096
+    return side
+
+
+def write_seeded_raw(path: Path, side: int, dev, seed: int) -> float:
+    """A seeded side x side RGB u8 image, made on the card a row band at a
+    time by an explicit generator (uniform bytes plus a 256-pixel
+    checkerboard ramp, so that the filter has edges to blur) and written
+    with ``imageio.write_block``; returns the seconds."""
+    import torch
+
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    t0 = time.perf_counter()
+    imageio.allocate_raw(path, side, side, "rgb")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    band = max(1, (64 << 20) // (3 * side))
+    cols = torch.arange(side, device=dev)[None, :, None] // 256
+    chan = torch.arange(3, device=dev)[None, None, :] * 85
+    for r0 in range(0, side, band):
+        n = min(band, side - r0)
+        rows = torch.arange(r0, r0 + n, device=dev)[:, None, None] // 256
+        noise = torch.randint(0, 64, (n, side, 3), generator=gen, device=dev,
+                              dtype=torch.int32)
+        img = (noise + ((rows + cols) * 37 + chan) % 192).to(torch.uint8)
+        imageio.write_block(path, side, side, "rgb", r0, 0,
+                            img.cpu().numpy())
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def timed_sharded_io(times: dict):
+    """Add the host seconds of every ``sharded_io.load_sharded`` and
+    ``save_sharded`` call (the card synchronised on both sides) to
+    ``times`` while the block runs."""
+    import torch
+
+    from parallel_convolution_tpu_torch.utils import sharded_io
+
+    orig = {n: getattr(sharded_io, n) for n in ("load_sharded",
+                                                  "save_sharded")}
+
+    def wrap(name):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for name in orig:
+        setattr(sharded_io, name, wrap(name))
+    try:
+        yield times
+    finally:
+        for name, fn in orig.items():
+            setattr(sharded_io, name, fn)
+
+
+def oracle_windows(src: Path, dst: Path, side: int, filt) -> list:
+    """Every config-4 window of the written output against the NumPy oracle
+    on the input crop that reaches ITERS * r pixels beyond it (clamped to
+    the image, whose edge is the true zero boundary; every other edge of a
+    crop is that far from the window), read back from the files; one
+    thread a window.  Returns the windows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from parallel_convolution_tpu_torch.ops import oracle
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    s, m, half, q = WINDOW, ITERS * filt.radius, side // 2, side // 4
+    wins = [(0, 0), (0, side - s), (side - s, 0), (side - s, side - s),
+            (half - s // 2, half - s // 2), (side - s, half - s // 2),
+            (half - s // 2, side - s),
+            # the 4x4 grid's seams: (16384, 16384) and (32768, 49152)
+            (q - s // 2, q - s // 2), (half - s // 2, 3 * q - s // 2)]
+
+    def one(win):
+        y, x = win
+        cy0, cx0 = max(0, y - m), max(0, x - m)
+        cy1, cx1 = min(side, y + s + m), min(side, x + s + m)
+        crop = imageio.read_block(src, side, side, "rgb", cy0, cy1, cx0, cx1)
+        want = oracle.run_serial_u8(crop, filt, ITERS)[
+            y - cy0:y - cy0 + s, x - cx0:x - cx0 + s]
+        got = imageio.read_block(dst, side, side, "rgb", y, y + s, x, x + s)
+        return bool((got == want).all())
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
+        ok = list(ex.map(one, wins))
+    bad = [w for w, good in zip(wins, ok) if not good]
+    check(not bad, f"config 4: windows {bad} differ from the NumPy oracle")
+    return wins
+
+
+def band_crcs(path: Path) -> list:
+    """CRC32 of the file in 256 MB bands, one thread a band at a time."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    band = 256 << 20
+
+    def crc(i):
+        with open(path, "rb") as f:
+            f.seek(i * band)
+            return zlib.crc32(f.read(band))
+
+    n = -(-path.stat().st_size // band)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as ex:
+        return list(ex.map(crc, range(n)))
+
+
+def config4_kernel_rows(dev, side: int) -> dict:
+    """K2 and K4 at config 4's shapes on the card, each beside its bound
+    (``level_ops``, ``bound``): K2 T = 16 as the 1x1 run's second
+    level-group launch (u8 in, u8 out; the first reads 0.1% more) and its
+    T = 4 tail; K4 T = 16 on
+    the 4x4 grid's 16 blocks (the exchange in the launch, 16 ghost rows
+    out), K2 T = 16 on one such extended block, and K4's T = 4 tail.  The
+    plain versions at these shapes would need more than the card's memory
+    (their f32 levels): none is timed; no one PyTorch call runs T levels."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+
+    f, r, C = get_filter("blur3"), 1, 3
+    gen = torch.Generator(device=dev).manual_seed(4)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    valid = (side, side)
+    rows = {}
+
+    def k2_row(T, hw, sep, reps=3):
+        h, w = hw
+        p = torch.randint(0, 256, (C, h + 2 * r * T, w + 2 * r * T),
+                          generator=gen, **u8)
+        kw = dict(quantize=True, out_dtype=torch.uint8, separable=sep)
+        ms = cuda_ms(lambda: stencil.fused_iterate(p, (0, 0), f, T, valid,
+                                                   **kw), reps=reps,
+                     warmup=1)
+        ops = sum(C * level_ops(f, sep, h + 2 * r * (T - s),
+                                w + 2 * r * (T - s), True, True)
+                  for s in range(1, T + 1))
+        b_ms, b_by = bound(p.numel() + C * h * w, ops)
+        del p
+        torch.cuda.empty_cache()
+        return dict(shape=[C, h + 2 * r * T, w + 2 * r * T], T=T,
+                    separable=sep, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                    fraction_of_bound=b_ms / ms, plain_ms=None,
+                    library_ms=None)
+
+    def k4_row(T, ext, grid_shape, reps=3):
+        nb = grid_shape[0] * grid_shape[1]
+        h, w = side // grid_shape[0], side // grid_shape[1]
+        x = torch.randint(0, 256, (nb, C, h, w), generator=gen, **u8)
+        fire, out = rdma._bind(True, x, f, grid_shape, "zero", T, valid,
+                               True, torch.uint8, ext, stencil.FUSED_TILE)
+        ms = cuda_ms(fire, reps=reps, warmup=1)
+        ops = nb * C * T * level_ops(f, False, h + 2 * ext, w + 2 * ext,
+                                     True, False)
+        b_ms, b_by = bound(x.numel() + out.numel(), ops)
+        del x, out, fire
+        torch.cuda.empty_cache()
+        return dict(grid=list(grid_shape), block=[C, h, w], T=T, ext=ext,
+                    ms=ms, bound_ms=b_ms, bound_by=b_by,
+                    fraction_of_bound=b_ms / ms, plain_ms=None,
+                    library_ms=None)
+
+    rows["fused_iterate 1x1 T=16 group"] = k2_row(16, (side, side), True)
+    rows["fused_iterate 1x1 T=4 tail"] = k2_row(4, (side, side), True)
+    q = side // 4
+    rows["rdma_tiled 4x4 T=16 group"] = k4_row(16, 16, (4, 4))
+    rows["fused_iterate 4x4 block T=16 group"] = k2_row(16, (q, q), False,
+                                                        reps=10)
+    rows["rdma_tiled 4x4 T=4 tail"] = k4_row(4, 0, (4, 4))
+    return rows
+
+
+def config4_phase(dev, work: Path, totals: dict) -> dict:
+    """BASELINE config 4 (3x3 blur, 65536x65536 RGB, 100 iterations) from a
+    seeded file through ``run --sharded-io`` twice: (a) 1x1 ``cuda_sep`` u8
+    fuse 32 (K2) and (b) 4x4 ``cuda_rdma`` u8 fuse 32 (K4 and K2), the
+    counters at 0 before each and read after.  Oracle windows of (a)'s
+    output file; (b)'s file byte-equal to (a)'s by CRC32 in bands; at most
+    the input and one output on disk."""
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import halo
+
+    room = machine_room(work)
+    side = config4_side(room["disk_free_gb"] * 1e9)
+    print("config 4 machine: " + json.dumps(room))
+    if side != CONFIG4_SIDE:
+        print(f"config 4 CUT: {side}x{side} RGB, not {CONFIG4_SIDE}: "
+              f"{room['disk_free_gb']:.1f} GB free at {work} hold no "
+              f"input and output of the full size")
+    blur3 = get_filter("blur3")
+    src, dst = work / "config4.raw", work / "config4.out.raw"
+    report = {"side": side, "room": room,
+              "write_input_s": write_seeded_raw(src, side, dev, seed=4)}
+    px = 3 * side * side
+    runs = {}
+    for key, flags, expect, no_halo in (
+            ("1x1 cuda_sep", ["--backend", "cuda_sep"],
+             expected_launches(blur3, 32, (side, side)), False),
+            ("4x4 cuda_rdma", ["--backend", "cuda_rdma", "--mesh", "4x4"],
+             expected_rdma_launches(blur3, 32, (4, 4),
+                                    (side // 4, side // 4)), True)):
+        label = f"config 4 {side}x{side} rgb blur3 {key} u8 fuse 32"
+        argv = ["run", str(src), str(side), str(side), str(ITERS), "rgb",
+                "-o", str(dst), "--sharded-io", "--storage", "u8",
+                "--fuse", "32", *flags]
+
+        def run_cli():
+            rc = cli_main(argv)
+            check(rc == 0, f"{label}: the CLI exited {rc}")
+
+        torch.cuda.reset_peak_memory_stats()
+        io_s, rss = {}, {}
+        with timed_sharded_io(io_s), host_rss_growth(rss):
+            _, counts, secs = drive(label, run_cli, expect, px,
+                                    no_halo=no_halo)
+        # What the run added to the host's resident set at its peak: bands
+        # of BAND_BYTES, never a block (12.9 GB at 1x1).
+        growth = rss["growth"]
+        check(growth < HOST_GROWTH_LIMIT,
+              f"{label}: the host's resident set grew by {growth} B")
+        for k, v in counts.items():
+            totals[k] += v
+        halo_calls = halo.halo_exchange.calls
+        row = {"launches": counts, "halo_exchange_calls": halo_calls,
+               "seconds_first": secs, "gpx_per_s_first": px * ITERS / secs
+               / 1e9, "read_and_copy_in_s": io_s.get("load_sharded"),
+               "copy_out_and_write_s": io_s.get("save_sharded"),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "host_peak_growth_bytes": growth}
+        if key.startswith("1x1"):
+            t0 = time.perf_counter()
+            row["windows"] = oracle_windows(src, dst, side, blur3)
+            row["windows_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row["crcs"] = band_crcs(dst)
+        row["crc_s"] = time.perf_counter() - t0
+        dst.unlink()
+        runs[key] = row
+    check(runs["1x1 cuda_sep"]["crcs"] == runs["4x4 cuda_rdma"]["crcs"],
+          "config 4: the 4x4 cuda_rdma output differs from the 1x1 cuda_sep "
+          "output")
+    src.unlink()
+    for row in runs.values():
+        row["crcs"] = len(row["crcs"])
+    report["runs"] = runs
+    report["kernels"] = config4_kernel_rows(dev, side)
+    k = report["kernels"]
+    # Kernel time of each run: the launches it counted times the event time
+    # at their shape (the 1x1 run's first group reads a slightly larger
+    # block).  The last chunk's ITERS % 32 levels are one launch of the
+    # kernel that starts a chunk (K2 at 1x1, K4 at 4x4); every other launch
+    # runs a group of 16.
+    tail = 1 if ITERS % 32 else 0
+    c = runs["1x1 cuda_sep"]["launches"]
+    runs["1x1 cuda_sep"]["kernels_s"] = (
+        (c["fused_iterate"] - tail) * k["fused_iterate 1x1 T=16 group"]["ms"]
+        + tail * k["fused_iterate 1x1 T=4 tail"]["ms"]) / 1e3
+    c = runs["4x4 cuda_rdma"]["launches"]
+    runs["4x4 cuda_rdma"]["kernels_s"] = (
+        (c["rdma_tiled"] - tail) * k["rdma_tiled 4x4 T=16 group"]["ms"]
+        + tail * k["rdma_tiled 4x4 T=4 tail"]["ms"]
+        + c["fused_iterate"]
+        * k["fused_iterate 4x4 block T=16 group"]["ms"]) / 1e3
+    for row in runs.values():
+        row["host_s"] = row["seconds_first"] - row["kernels_s"]
+    return report
+
+
+def ckpt_argv(src: Path, dst: Path, ck: Path, mesh_spec: str) -> list:
+    return ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]), str(ITERS),
+            "grey", "-o", str(dst), "--filter", "edge5", "--checkpoint",
+            str(ck), "--checkpoint-every", str(CKPT_EVERY), "--backend",
+            "cuda_rdma", "--mesh", mesh_spec]
+
+
+def killed_run(argv: list, here: Path) -> dict:
+    """The first process: the ``run`` CLI in a child process with a fault
+    plan that tears the second snapshot; it must die with the fault."""
+    env = dict(os.environ, PCTPU_FAULTS=f"checkpoint_write_shard:{CKPT_KILL}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "parallel_convolution_tpu_torch", *argv],
+                          cwd=here, env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode != 0 and "injected fault at "
+          f"'checkpoint_write_shard' (hit {CKPT_KILL}" in proc.stderr,
+          f"checkpoint: the faulted process exited {proc.returncode} without "
+          f"the injected fault: {proc.stderr[-2000:]}")
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0}
+
+
+def checkpoint_phase(dev, tmp: Path, here: Path, refs: dict,
+                     totals: dict) -> dict:
+    """BASELINE config 3's image (8192x8192 grey edge5, 100 iterations) with
+    ``--checkpoint --checkpoint-every 25 --backend cuda_rdma --mesh 4x4``:
+    a child process dies in the second snapshot; this process resumes from
+    iteration 25 (75 K4 launches), byte-equal to an uninterrupted
+    ``--sharded-io`` run and to ``shifted``; a second torn run resumes on
+    ``--mesh 2x2`` with the reshard warning and the same bytes; then
+    ``save_state`` / ``load_state`` timed on the snapshot."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils import checkpoint, imageio
+
+    src = tmp / "edge5.raw"  # written by main_paths
+    want = refs["grey_refs"]["edge5"]
+    report = {}
+
+    def resumed(label, argv, expect):
+        def run():
+            rc = cli_main(argv)
+            check(rc == 0, f"{label}: the CLI exited {rc}")
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, counts, secs = drive(label, run, expect, BIG_HW[0] * BIG_HW[1])
+        for k, v in counts.items():
+            totals[k] += v
+        check(np.array_equal(imageio.read_raw(argv[7], *BIG_HW, "grey"),
+                             want), f"{label}: differs from shifted")
+        return counts, secs, [str(w.message) for w in caught]
+
+    def torn(ck):
+        report.setdefault("killed", []).append(
+            killed_run(ckpt_argv(src, tmp / "ck_dead.raw", ck, "4x4"), here))
+        latest = (ck / checkpoint.LATEST_NAME).read_text()
+        check(latest == f"it_{CKPT_EVERY:08d}",
+              f"checkpoint: LATEST is {latest} after the kill")
+        check(not (ck / f"it_{2 * CKPT_EVERY:08d}"
+                   / checkpoint.META_NAME).exists(),
+              "checkpoint: the torn snapshot has a meta")
+
+    k4 = {"stencil_step": 0, "fused_iterate": 0, "rdma_block": 0}
+    ck = tmp / "ck4"
+    torn(ck)
+    counts, secs, _ = resumed(
+        "checkpoint resume 4x4 cuda_rdma from 25",
+        ckpt_argv(src, tmp / "ck_resume.raw", ck, "4x4"),
+        dict(k4, rdma_tiled=ITERS - CKPT_EVERY))
+    report["resume"] = {"launches": counts, "seconds": secs}
+    counts, secs, _ = resumed(
+        "uninterrupted --sharded-io 4x4 cuda_rdma f32",
+        ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]), str(ITERS), "grey",
+         "-o", str(tmp / "ck_whole.raw"), "--filter", "edge5", "--sharded-io",
+         "--backend", "cuda_rdma", "--mesh", "4x4"],
+        dict(k4, rdma_tiled=ITERS))
+    report["uninterrupted"] = {"launches": counts, "seconds": secs}
+    check((tmp / "ck_resume.raw").read_bytes()
+          == (tmp / "ck_whole.raw").read_bytes(),
+          "checkpoint: the resumed run differs from the uninterrupted one")
+
+    ck2 = tmp / "ck2"
+    torn(ck2)
+    counts, secs, caught = resumed(
+        "checkpoint resume onto 2x2 from 25",
+        ckpt_argv(src, tmp / "ck_2x2.raw", ck2, "2x2"),
+        dict(k4, rdma_tiled=ITERS - CKPT_EVERY))
+    check(any(f"from grid 4x4 onto 2x2" in m for m in caught),
+          f"checkpoint: no reshard warning in {caught}")
+    report["reshard"] = {"launches": counts, "seconds": secs,
+                         "warnings": caught}
+
+    # save_state / load_state on the 4x4 snapshot, timed.
+    grid = make_grid((4, 4), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks, meta = checkpoint.load_state(ck, grid)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.save_state(tmp / "ck_saved", blocks, meta)
+    save_s = time.perf_counter() - t0
+    report.update(load_s=load_s, save_s=save_s, snapshot_bytes=sum(
+        s["bytes"] for s in meta["shards"].values()),
+        snapshot=f"it_{meta['iters_done']:08d}")
+    return report
+
+
+def fallback_phase(dev, tmp: Path, refs: dict, totals: dict) -> dict:
+    """``--fallback`` on BASELINE config 3's image: with
+    ``PCTPU_FAULTS=backend_compile:1`` ``cuda_rdma`` degrades to ``cuda``
+    (warned, named in the summary line, the same bytes); without a fault
+    every ``--fallback`` run keeps the backend asked for (the probe ran
+    the real kernel at the real block size: its launches are counted);
+    with every tier refused the walk stops at ``cuda`` and raises, with no
+    launch; and a real refused launch (5b over the opt-in limit) is named
+    by the runtime and classifies as transient, a canary launch after it
+    passing."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.ops import _build, rdma, stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.probes import smem_budget
+    from parallel_convolution_tpu_torch.resilience import (
+        degrade, faults, retry,
+    )
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    src, want = tmp / "edge5.raw", refs["grey_refs"]["edge5"]
+    edge5 = get_filter("edge5")
+    block = (BIG_HW[0] // 4, BIG_HW[1] // 4)
+    report = {}
+
+    def plus(run, probe):
+        return {k: run.get(k, 0) + probe.get(k, 0) for k in KERNELS}
+
+    # bf16, fuse 32 (--fast's).  Each run's launches are its own plus the
+    # probe's one 32-level chunk at the real block.
+    rdma_groups = len(rdma.rdma_plan(edge5.radius, 32, block).groups)
+    k2_groups = lambda hw: len(stencil.fused_plan(edge5.radius, 32, hw)[2])
+    on_grid = {k: 16 * v for k, v in
+               expected_launches(edge5, 32, block).items()}
+
+    def run(label, flags, expect, fault=None):
+        dst = tmp / "fallback.raw"
+        argv = ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]), str(ITERS),
+                "grey", "-o", str(dst), "--filter", "edge5", "--storage",
+                "bf16", "--fuse", "32", "--fallback", *flags]
+        degrade.clear_probe_cache()
+        if fault:
+            os.environ["PCTPU_FAULTS"] = fault
+        out = io.StringIO()
+
+        def call():
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(argv)
+            check(rc == 0, f"{label}: the CLI exited {rc}")
+
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, counts, secs = drive(label, call, expect,
+                                        BIG_HW[0] * BIG_HW[1],
+                                        no_halo="cuda_rdma" in flags
+                                        and not fault)
+        finally:
+            os.environ.pop("PCTPU_FAULTS", None)
+            faults.uninstall_plan()
+            degrade.clear_probe_cache()
+        for k, v in counts.items():
+            totals[k] += v
+        line = out.getvalue().strip().splitlines()[-1]
+        print(f"{label}: {line}")
+        check(np.array_equal(imageio.read_raw(dst, *BIG_HW, "grey"), want),
+              f"{label}: differs from shifted")
+        return {"launches": counts, "seconds": secs, "summary": line,
+                "warnings": [str(w.message)[:160] for w in caught
+                             if issubclass(w.category,
+                                           degrade.BackendDegradedWarning)]}
+
+    report["cuda_rdma"] = run(
+        "fallback cuda_rdma 4x4, no fault",
+        ["--backend", "cuda_rdma", "--mesh", "4x4"],
+        plus(expected_rdma_launches(edge5, 32, (4, 4), block),
+             {"rdma_tiled": 1, "fused_iterate": 16 * (rdma_groups - 1)}))
+    report["cuda_sep"] = run(
+        "fallback cuda_sep 1x1, no fault", ["--backend", "cuda_sep"],
+        plus(expected_launches(edge5, 32, BIG_HW),
+             {"fused_iterate": k2_groups(BIG_HW)}))
+    for key, name in (("cuda_rdma", "cuda_rdma"), ("cuda_sep", "cuda_sep")):
+        r = report[key]
+        check(f"({name}, bf16, fuse 32," in r["summary"]
+              and not r["warnings"],
+              f"fallback: {name} did not stay {name}: {r}")
+    # The fault fails the cuda_rdma probe's build (no launch); the cuda
+    # probe runs one chunk on every block, then the run on cuda.
+    report["degraded"] = run(
+        "fallback cuda_rdma 4x4, backend_compile:1",
+        ["--backend", "cuda_rdma", "--mesh", "4x4"],
+        plus(on_grid, {"fused_iterate": 16 * k2_groups(block)}),
+        fault="backend_compile:1")
+    r = report["degraded"]
+    check("(cuda_rdma degraded to cuda, bf16, fuse 32," in r["summary"]
+          and any("'cuda_rdma' degraded to 'cuda'" in w
+                  for w in r["warnings"]),
+          f"fallback: the injected fault did not degrade to cuda: {r}")
+
+    # Every tier refused on the card: the walk stops at cuda and raises;
+    # nothing runs the plain version in a kernel's place, nothing launches.
+    stencil.reset_launch_counts()
+    degrade.clear_probe_cache()
+    stopped = None
+    try:
+        with faults.injected("backend_compile:*"):
+            degrade.resolve_backend(mesh.make_grid((4, 4), dev), edge5,
+                                    "cuda_rdma", fuse=32, storage="bf16",
+                                    block_hw=block)
+    except retry.RetryExhausted as e:
+        stopped = e
+    finally:
+        degrade.clear_probe_cache()
+    launched = sum(stencil.launch_counts().values())
+    check(stopped is not None and launched == 0,
+          f"fallback: every tier refused on the card gave {stopped!r} "
+          f"after {launched} launches, not RetryExhausted after none")
+    report["every_tier_refused"] = {"error": str(stopped)[:160],
+                                    "launches": launched}
+
+    # A real refused launch: 5b asks for one byte over the opt-in limit.
+    x = torch.ones(256, device=dev)
+    _, attr, err = smem_budget.smem_probe(x, stencil._smem_limit(dev) + 1,
+                                          True)
+    code = attr or err
+    check(code != 0, "fallback: the over-limit 5b launch was not refused")
+    try:
+        stencil._raise_on(code, "smem_probe (5b)")
+    except RuntimeError as e:
+        refused = e
+    verdict = retry.classify(refused)
+    # The names come from the runtime (pc_error_name), and the stand-ins
+    # used before a library loads agree with it.
+    lib = _build.load_library("probes")
+    stand_ins = {c: lib.pc_error_name(c).decode()
+                 for c in _build.FALLBACK_ERROR_NAMES}
+    check(stand_ins == _build.FALLBACK_ERROR_NAMES,
+          f"fallback: the runtime names {stand_ins} differ from the "
+          f"stand-ins")
+    out, attr, err = smem_budget.smem_probe(x, 0, False)
+    torch.cuda.synchronize()
+    canary = (attr, err) == (0, 0) and bool(torch.equal(out, x + 1))
+    check(verdict == retry.TRANSIENT and canary,
+          f"fallback: the refused launch ({refused}) classified {verdict}, "
+          f"canary {'passed' if canary else 'failed'}")
+    report["refused_launch"] = {"error": str(refused), "class": verdict,
+                                "canary_ok": canary}
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the probes (TPU kernel 5)
 # ---------------------------------------------------------------------------
 
@@ -1646,6 +2286,13 @@ def main() -> int:
             auto_rows = auto_paths(dev, Path(tmp), refs, rows, totals)
             picks = tune_auto_grids(Path(tmp))
             tuned = measured_tune(dev, Path(tmp), refs, totals)
+            ckpt = checkpoint_phase(dev, Path(tmp), here, refs, totals)
+            fallback = fallback_phase(dev, Path(tmp), refs, totals)
+        work = here / "build" / "chip_smoke_config4"
+        try:
+            config4 = config4_phase(dev, work, totals)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
         rgb = imageio.generate_test_image(*RGB_HW, "rgb", seed=1)
         grey8k = imageio.generate_test_image(*BIG_HW, "grey", seed=2)
@@ -1683,6 +2330,13 @@ def main() -> int:
             print("end to end converge: " + json.dumps(row))
         for row in auto_rows:
             print("end to end auto: " + json.dumps(row))
+        for key, row in config4.pop("runs").items():
+            print(f"end to end config 4 {key}: " + json.dumps(row))
+        for key, row in config4.pop("kernels").items():
+            print(f"time config 4 {key}: " + json.dumps(row))
+        print("config 4: " + json.dumps(config4))
+        print("checkpoint: " + json.dumps(ckpt))
+        print("fallback: " + json.dumps(fallback))
         print("measured tune: " + json.dumps(tuned))
         host = time_host_calls(dev)
         print("time host calls: " + json.dumps(host))

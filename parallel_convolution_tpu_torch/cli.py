@@ -5,7 +5,10 @@ Mirrors the JAX package's ``pconv-tpu`` vocabulary — ``image path, rows,
 cols, loops, grey|rgb`` — and takes every subcommand and flag of its parser:
 
   run       filter a raw image on the card (the parallel main()), or with
-            --converge TOL run it to convergence (loops = max iterations)
+            --converge TOL run it to convergence (loops = max iterations);
+            --sharded-io streams an image too large for one host buffer
+            block by block, --checkpoint DIR snapshots and resumes it,
+            --fallback degrades a backend that fails transiently
   serial    the same through the NumPy oracle (the golden path)
   generate  write a deterministic test image
   compare   byte-compare two raw images
@@ -16,7 +19,10 @@ cols, loops, grey|rgb`` — and takes every subcommand and flag of its parser:
             parsed as in the JAX package; not ported yet
 
 A flag or subcommand that a later slice ports exits 2 with the
-``NotImplementedError`` that names its item in ROADMAP.md.
+``NotImplementedError`` that names its item in ROADMAP.md.  ``PCTPU_FAULTS``
+/ ``PCTPU_FAULT_SEED`` and ``PCTPU_DISK_MODES`` install a fault plan and
+disk modes at start (``resilience.faults``, ``resilience.diskio``), as in
+the JAX CLI.
 """
 
 from __future__ import annotations
@@ -76,8 +82,10 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
                    help="unmasked-interior launch split: not ported yet "
                         "(ROADMAP item 2)")
     p.add_argument("--fallback", action="store_true",
-                   help="backend degradation walk: not ported yet "
-                        "(ROADMAP item 3b)")
+                   help="probe the backend first and, on a transient "
+                        "failure, walk cuda_rdma -> cuda (warned, and named "
+                        "in the summary line); on the card a refused cuda "
+                        "raises, on the CPU it steps down to shifted")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without CUDA the default "
                         "raises")
@@ -95,12 +103,10 @@ def _check_pending_flags(args) -> None:
 
     check_solver(args.solver)
     check_pending(
-        interior_split=args.interior_split, fallback=args.fallback,
-        overlap=args.overlap == "on",
+        interior_split=args.interior_split, overlap=args.overlap == "on",
         col_mode=None if args.col_mode == "auto" else args.col_mode,
         mg_levels=args.mg_levels, rank=None if args.rank == 2 else args.rank,
-        depth=args.depth, sharded_io=args.sharded_io,
-        checkpoint=args.checkpoint, checkpoint_every=args.checkpoint_every)
+        depth=args.depth)
 
 
 def _parse_tile(spec: str | None):
@@ -242,13 +248,17 @@ def _parser() -> argparse.ArgumentParser:
     run.add_argument("--depth", type=int, default=None, metavar="D",
                      help="volume depth for --rank 3 (item 6)")
     run.add_argument("--sharded-io", action="store_true",
-                     help="block-stream the image from disk: not ported "
-                          "yet (ROADMAP item 4)")
+                     help="stream the image between the file and the "
+                          "card's blocks in row bands: no host buffer "
+                          "holds the image (huge images)")
     run.add_argument("--checkpoint", default=None, metavar="DIR",
-                     help="snapshots and resume: not ported yet (item 4)")
-    run.add_argument("--checkpoint-every", type=int, default=None,
+                     help="snapshot the blocks every --checkpoint-every "
+                          "iterations and resume from DIR's newest valid "
+                          "snapshot (any grid); the carry is f32, as in "
+                          "the JAX CLI, whatever --storage says")
+    run.add_argument("--checkpoint-every", type=int, default=100,
                      metavar="N",
-                     help="iterations between snapshots (item 4)")
+                     help="iterations between snapshots (default 100)")
 
     ser = sub.add_parser("serial", help="serial NumPy oracle (golden path)")
     _add_image_args(ser)
@@ -321,6 +331,12 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from parallel_convolution_tpu_torch.resilience import diskio, faults
+
+    # Injected-fault drills run end to end through the CLI (no-op unless
+    # PCTPU_FAULTS / PCTPU_DISK_MODES are set).
+    faults.install_from_env()
+    diskio.install_from_env()
     ap = _parser()
     args = ap.parse_args(argv)
     try:
@@ -401,6 +417,15 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         return 2
     _resolve_perf_knobs(args, grid)
     if args.converge is not None:
+        # The JAX CLI's converge branch takes none of these and ignores
+        # them; here a flag that would do nothing is refused.
+        unused = [flag for flag, on in (("--fallback", args.fallback),
+                                        ("--sharded-io", args.sharded_io),
+                                        ("--checkpoint", args.checkpoint))
+                  if on]
+        if unused:
+            raise ValueError(f"{', '.join(unused)} with --converge: a "
+                             "convergence run has no such branch")
         # Quantized semantics, as the JAX CLI's Jacobi run: u8-range states
         # with a store-back every iteration.
         solver = JacobiSolver(
@@ -421,19 +446,62 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
     model = ConvolutionModel(filt=args.filter_name, grid=grid,
                              backend=args.backend, storage=args.storage,
                              fuse=args.fuse, boundary=args.boundary,
-                             tile=tile)
-    model.run_raw_file(args.image, args.output, args.rows, args.cols,
-                       args.mode, args.loops)
-    label = (f"{model.effective_backend}, {args.storage}, "
-             f"fuse {model.effective_fuse}")
+                             tile=tile, fallback=args.fallback)
+    storage = args.storage
+    if args.checkpoint:
+        _run_checkpointed(args, model, grid, tile)
+        storage = "f32"  # the checkpointed carry, as in the JAX CLI
+    elif args.sharded_io:
+        model.run_raw_file_sharded(args.image, args.output, args.rows,
+                                   args.cols, args.mode, args.loops)
+    else:
+        model.run_raw_file(args.image, args.output, args.rows, args.cols,
+                           args.mode, args.loops)
+    eff = model.effective_backend
     if model.resolution is not None:
         res = model.resolution
-        label = (f"auto resolved to {res.backend} [{res.source}], "
-                 f"{args.storage}, fuse {res.fuse}, tile "
+        label = (f"auto resolved to {res.backend} [{res.source}]"
+                 + ("" if eff == res.backend else f" degraded to {eff}")
+                 + f", {storage}, fuse {res.fuse}, tile "
                  f"{'x'.join(map(str, res.tile)) if res.tile else 'default'}")
+    else:
+        label = ((args.backend if eff == args.backend
+                  else f"{args.backend} degraded to {eff}")
+                 + f", {storage}, fuse {model.effective_fuse}")
     print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
           f"grid ({label}, {device_kind(grid.device)}) -> {args.output}")
     return 0
+
+
+def _run_checkpointed(args, model, grid, tile) -> None:
+    """``run --checkpoint DIR``: the JAX CLI's branch.  The image is loaded
+    block by block (``sharded_io``) as f32, whatever ``--storage`` says, as
+    the JAX CLI loads it, and iterated with a snapshot every
+    ``--checkpoint-every`` iterations, resuming from DIR's newest valid
+    snapshot.  ``--fallback`` is resolved once here, at the loaded blocks,
+    and every chunk runs the tier it picked; the model records it."""
+    from parallel_convolution_tpu_torch.parallel import step as step_lib
+    from parallel_convolution_tpu_torch.utils import checkpoint, sharded_io
+
+    blocks = sharded_io.load_sharded(args.image, args.rows, args.cols,
+                                     args.mode, grid)
+    eff = args.backend
+    if args.fallback:
+        # (--backend auto stops in run_checkpointed, at min(fuse=None,
+        # every), as in the JAX package: ROADMAP Queue 3.)
+        eff = step_lib._resolve_fallback(
+            grid, model.filt, args.backend, True,
+            max(1, min(args.fuse, args.checkpoint_every, args.loops)),
+            args.boundary, tile, "f32", tuple(blocks[0][0].shape[1:]))
+    out = checkpoint.run_checkpointed(
+        blocks, model.filt, args.loops, grid, (args.rows, args.cols),
+        ckpt_dir=args.checkpoint, every=args.checkpoint_every,
+        backend=args.backend, fuse=args.fuse, boundary=args.boundary,
+        tile=tile, run_backend=eff)
+    del blocks
+    sharded_io.save_sharded(args.output, out, args.rows, args.cols,
+                            args.mode)
+    model.effective_backend, model.effective_fuse = eff, args.fuse
 
 
 if __name__ == "__main__":

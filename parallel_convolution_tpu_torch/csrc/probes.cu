@@ -392,3 +392,5 @@ extern "C" int pc_rdma_ladder(int rung, const void* base,
       }));
   }
 }
+
+PC_EXPORT_ERROR_NAME

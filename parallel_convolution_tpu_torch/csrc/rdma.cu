@@ -49,8 +49,9 @@
 // round (rintf above the L1 bound), the clip skipped for convex filters.  With `mask` (zero boundary), level-0
 // positions outside the global image are exactly 0 and every level is
 // masked against the global image (valid_h, valid_w).  The output may be
-// extended by E ghost rows and columns on every side (f32), for the K2
-// launches that run the later level groups of a deep chunk.
+// extended by E ghost rows and columns on every side (in the dtype the
+// wrapper picks: f32 in float mode, the storage dtype in quantize mode), for
+// the K2 launches that run the later level groups of a deep chunk.
 
 #include "rdma_common.cuh"
 
@@ -144,3 +145,5 @@ extern "C" int pc_rdma_step(int tiled, const long long* ptrs, const int* nbr,
     });
   }));
 }
+
+PC_EXPORT_ERROR_NAME

@@ -202,3 +202,5 @@ extern "C" int pc_fused_iterate(const void* in, int in_dtype, void* out,
 
 // The strip height of the level loop for k <= 5 (k = 7, 9 use 8).
 extern "C" int pc_strip_height() { return kStripV; }
+
+PC_EXPORT_ERROR_NAME

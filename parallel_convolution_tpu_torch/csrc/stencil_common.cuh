@@ -56,6 +56,14 @@
 
 #include <type_traits>
 
+// The runtime's name of a cudaError_t (ops/_build.py's error_text reads it,
+// so that an error says which one it is).  Each library expands this once,
+// in the source that is its first part.
+#define PC_EXPORT_ERROR_NAME                                                \
+  extern "C" const char* pc_error_name(int err) {                           \
+    return cudaGetErrorName(static_cast<cudaError_t>(err));                 \
+  }
+
 #ifndef PC_STRIP_V
 #define PC_STRIP_V 16
 #endif

@@ -1,7 +1,9 @@
 """The flagship model of the PyTorch port: iterative image convolution end
 to end (the JAX package's ``models/pipeline.py``) — read a raw image,
 decompose it over the block grid, iterate the stencil with halo exchange,
-write the raw output."""
+write the raw output; or, for an image too large for one host buffer,
+stream it block by block between the file and the card
+(:meth:`ConvolutionModel.run_raw_file_sharded`)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ from torch import nn
 
 from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
-from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
+from parallel_convolution_tpu_torch.parallel.mesh import (
+    Grid, make_grid, padded_extent,
+)
 from parallel_convolution_tpu_torch.utils import imageio
 from parallel_convolution_tpu_torch.utils.config import (
     AUTO, check_backend, check_fuse, check_pending, check_run_config,
@@ -41,13 +45,18 @@ class ConvolutionModel(nn.Module):
         the same bytes.
       device: ``None`` = the card (raises without CUDA); ``"cpu"`` runs the
         plain versions on the CPU.
-    After each run, ``effective_backend``, ``effective_fuse`` and
-    ``plan_source`` (``measured`` | ``interpolated`` | ``predicted``, or
-    ``explicit``) record what ran, and ``resolution`` the
-    ``tuning.Resolution`` of an ``auto`` run.
-    The JAX model's ``interior_split``, ``overlap``, ``col_mode`` and
-    ``fallback`` belong to later slices and raise ``NotImplementedError``
-    when set.
+      fallback: probe the (resolved) backend once per grid and config per
+        process before a run, and on a transient failure walk
+        ``cuda_rdma → cuda`` (``resilience.degrade``; on the card a
+        refused ``cuda`` raises, on the CPU it steps down to ``shifted``)
+        with a ``BackendDegradedWarning``.
+    After each run, ``effective_backend`` (the backend that ran, after
+    ``auto`` and any degradation), ``effective_fuse`` and ``plan_source``
+    (``measured`` | ``interpolated`` | ``predicted``, or ``explicit``)
+    record what ran, and ``resolution`` the ``tuning.Resolution`` of an
+    ``auto`` run.
+    The JAX model's ``interior_split``, ``overlap`` and ``col_mode`` belong
+    to later slices and raise ``NotImplementedError`` when set.
     """
 
     def __init__(self, filt: Filter | str = "blur3", grid: Grid | None = None,
@@ -59,7 +68,7 @@ class ConvolutionModel(nn.Module):
         super().__init__()
         check_backend(backend, allow_auto=True)
         check_pending(interior_split=interior_split, overlap=overlap,
-                      col_mode=col_mode, fallback=fallback)
+                      col_mode=col_mode)
         check_run_config(storage, boundary, quantize)
         check_fuse(backend, fuse)
         if fuse is not None and int(fuse) < 1:
@@ -74,6 +83,7 @@ class ConvolutionModel(nn.Module):
         self.fuse = None if fuse is None else int(fuse)
         self.boundary = boundary
         self.tile = None if tile is None else tuple(int(v) for v in tile)
+        self.fallback = bool(fallback)
         self.filter_name, self.dyadic = filt.name, filt.dyadic
         self.register_buffer("taps", torch.as_tensor(filt.taps.copy(),
                                                      device=grid.device))
@@ -91,7 +101,9 @@ class ConvolutionModel(nn.Module):
 
     def _resolved_knobs(self, shape) -> tuple[str, int, object]:
         """(backend, fuse, tile) for a (C, H, W) image, resolved through the
-        tuning package when ``backend="auto"``; recorded on the model."""
+        tuning package when ``backend="auto"``, then, with ``fallback``,
+        through the degradation walk, probed at the image's real block
+        size and storage; recorded on the model."""
         backend, fuse, tile = self.backend, self.fuse, self.tile
         self.resolution, self.plan_source = None, "explicit"
         if backend == AUTO:
@@ -103,6 +115,13 @@ class ConvolutionModel(nn.Module):
                 boundary=self.boundary, fuse=fuse, tile=tile)
             backend, fuse, tile = res.backend, res.fuse, res.tile
             self.resolution, self.plan_source = res, res.source
+        if self.fallback:
+            R, C = self.grid.shape
+            block_hw = (padded_extent(int(shape[1]), R) // R,
+                        padded_extent(int(shape[2]), C) // C)
+            backend = step_lib._resolve_fallback(
+                self.grid, self.filt, backend, self.quantize, fuse,
+                self.boundary, tile, self.storage, block_hw)
         self.effective_backend, self.effective_fuse = backend, fuse
         return backend, fuse, tile
 
@@ -152,3 +171,24 @@ class ConvolutionModel(nn.Module):
         """raw file → raw file, the reference's ``main()`` end to end."""
         img = imageio.read_raw(src, rows, cols, mode)
         imageio.write_raw(dst, self.run_image(img, iters))
+
+    def run_raw_file_sharded(self, src: str, dst: str, rows: int, cols: int,
+                             mode: str, iters: int) -> None:
+        """The huge-image path: the file's blocks are read in row bands
+        straight into the grid's blocks on the card, in the storage dtype,
+        iterated, and written back the same way (``utils.sharded_io``).  No
+        host buffer holds a block, and the global image is never formed,
+        in f32 or otherwise (the MPI-IO workflow)."""
+        from parallel_convolution_tpu_torch.utils import sharded_io
+
+        blocks = sharded_io.load_sharded(
+            src, rows, cols, mode, self.grid,
+            dtype=step_lib.STORAGE_DTYPES[self.storage])
+        backend, fuse, tile = self._resolved_knobs(
+            (blocks[0][0].shape[0], rows, cols))
+        out = step_lib.iterate_prepared(
+            blocks, self.filt, iters, self.grid, (rows, cols),
+            quantize=self.quantize, backend=backend, fuse=fuse,
+            boundary=self.boundary, tile=tile)
+        del blocks
+        sharded_io.save_sharded(dst, out, rows, cols, mode)

@@ -108,6 +108,36 @@ _SIGNATURES = {
 }
 
 
+# Every C entry point returns a cudaError_t, and every library exports the
+# runtime's name of one (pc_error_name, cudaGetErrorName), so that an error
+# says which one it is and resilience/retry.py can tell a refused launch
+# (the context survives) from a lost context (sticky).  Until a library is
+# loaded (the CPU, or a build that failed) the names of the codes that
+# retry.classify tells apart stand in; any other code reads
+# "cudaError_t (N)", which classify takes as terminal.
+FALLBACK_ERROR_NAMES = {
+    1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
+    214: "cudaErrorECCUncorrectable", 700: "cudaErrorIllegalAddress",
+    701: "cudaErrorLaunchOutOfResources", 702: "cudaErrorLaunchTimeout",
+    709: "cudaErrorContextIsDestroyed", 710: "cudaErrorAssert",
+    714: "cudaErrorHardwareStackError", 715: "cudaErrorIllegalInstruction",
+    716: "cudaErrorMisalignedAddress", 717: "cudaErrorInvalidAddressSpace",
+    718: "cudaErrorInvalidPc", 719: "cudaErrorLaunchFailure",
+}
+# The libraries loaded in this process (load_library appends each once).
+_LOADED: list[ctypes.CDLL] = []
+
+
+def error_text(err: int) -> str:
+    """``cudaErrorName (code)`` of a cudaError_t value."""
+    err = int(err)
+    if _LOADED:
+        name = _LOADED[0].pc_error_name(err).decode()
+    else:
+        name = FALLBACK_ERROR_NAMES.get(err, "cudaError_t")
+    return f"{name} ({err})"
+
+
 def nvcc_path() -> str:
     cands = []
     if os.environ.get("CUDA_HOME"):
@@ -256,4 +286,7 @@ def load_library(name: str = "stencil") -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
+    lib.pc_error_name.argtypes = [_I]
+    lib.pc_error_name.restype = ctypes.c_char_p
+    _LOADED.append(lib)
     return lib

@@ -212,8 +212,9 @@ def rdma_block(x: torch.Tensor, filt: Filter, grid_shape, boundary: str,
     """K3: ``levels`` levels of every block of the stacked grid ``x``
     (:func:`stack_blocks`), one CUDA block per (grid block, channel), in
     one launch.  CUDA tensors only.  Returns a new stacked grid, each block
-    extended by ``ext`` ghost rows and columns on every side (f32, for the
-    K2 launches of later level groups)."""
+    extended by ``ext`` ghost rows and columns on every side (in
+    ``out_dtype``, :func:`stencil.group_dtype`'s, for the K2 launches of
+    later level groups)."""
     fire, out = _bind(False, x, filt, grid_shape, boundary, levels, valid_hw,
                       quantize, out_dtype, ext, None)
     fire()
@@ -273,7 +274,8 @@ def fused_rdma_stacked(x: torch.Tensor, filt: Filter, grid_shape,
     plan = rdma_plan(r, T, (h, w), tile, stencil._smem_limit(x.device))
     rest = T - plan.groups[0]
     kw = dict(quantize=quantize,
-              out_dtype=out_dtype if rest == 0 else torch.float32,
+              out_dtype=(out_dtype if rest == 0
+                         else stencil.group_dtype(quantize, out_dtype)),
               ext=r * rest)
     if plan.kernel == "block":
         out = rdma_block(x, filt, grid_shape, boundary, plan.groups[0],
@@ -284,11 +286,14 @@ def fused_rdma_stacked(x: torch.Tensor, filt: Filter, grid_shape,
     if rest:
         Cg = grid_shape[1]
         vhw = None if periodic else valid_hw
-        out = torch.stack([
-            stencil.fused_iterate(e, ((b // Cg) * h, (b % Cg) * w), filt,
-                                  rest, vhw, quantize=quantize,
-                                  out_dtype=out_dtype, tile=tile)
-            for b, e in enumerate(out)])
+        ext, out = out, torch.empty(x.shape, dtype=out_dtype, device=x.device)
+        # Block by block into the stacked result: one block's K2 output at
+        # a time beside it, not a second grid (BASELINE config 4's grid is
+        # 12.9 GB in u8).
+        for b, e in enumerate(ext):
+            out[b] = stencil.fused_iterate(
+                e, ((b // Cg) * h, (b % Cg) * w), filt, rest, vhw,
+                quantize=quantize, out_dtype=out_dtype, tile=tile)
     return out
 
 
@@ -303,8 +308,10 @@ def fused_rdma_step(blocks, filt: Filter, grid_shape, boundary: str = "zero",
     Returns new blocks; the inputs are not modified.  On the card each
     chunk is one K3 or K4 launch for every block (:func:`rdma_plan`), plus
     one K2 launch per block for each later level group where T levels do
-    not fit in shared memory; the groups chain through f32, so the result
-    does not depend on the grouping.
+    not fit in shared memory; the groups chain through f32 in float mode
+    and through the output dtype in quantize mode
+    (:func:`stencil.group_dtype`), so the result does not depend on the
+    grouping.
     """
     return unstack_blocks(fused_rdma_stacked(
         stack_blocks(blocks, grid_shape), filt, grid_shape, boundary,

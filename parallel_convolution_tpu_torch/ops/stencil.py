@@ -350,8 +350,13 @@ def _check_cuda(x: torch.Tensor, filt: Filter) -> None:
 
 
 def _raise_on(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t, naming it (``cudaErrorName
+    (code)``), so that ``resilience.retry.classify`` can tell a refused
+    launch from a lost context."""
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+        from parallel_convolution_tpu_torch.ops import _build
+
+        raise RuntimeError(f"{what} launch failed: {_build.error_text(err)}")
 
 
 def _sm_smem(device: torch.device) -> int:
@@ -610,8 +615,12 @@ def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
     global (row0, col0), ``valid_hw`` the global image extent for the
     per-level ghost-ring masks (None = periodic, no masks).  On the card
     the levels run in as few K2 launches as shared memory allows
-    (:func:`fused_plan`); intermediates between launches stay float32, so
-    the result does not depend on the grouping.
+    (:func:`fused_plan`).  The result does not depend on the grouping:
+    between launches the levels pass through device memory in float32 in
+    float mode, and in quantize mode in the output dtype, which holds
+    every level's values (integers in [0, 255]) exactly, at a quarter of
+    float32's bytes for u8 (at BASELINE config 4 a float32 intermediate of
+    a 65536² RGB block would take 51.6 GB of the card's 80).
     """
     if out_dtype is None:
         out_dtype = padded.dtype
@@ -632,13 +641,14 @@ def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
                                 _smem_limit(padded.device))
     cur, left = padded, T
     off_r, off_c = int(offsets[0]), int(offsets[1])
+    between = group_dtype(quantize, out_dtype)
     for g in groups:
         left -= g
         # This launch's output: the block extended by the r*left ghost
-        # levels still to run; float32 until the last launch.
+        # levels still to run.
         oh, ow = h + 2 * r * left, w + 2 * r * left
         out = torch.empty((C, oh, ow), device=padded.device,
-                          dtype=out_dtype if left == 0 else torch.float32)
+                          dtype=out_dtype if left == 0 else between)
         _fused_call(cur, out, (off_r - r * left, off_c - r * left), filt, g,
                     valid_hw, quantize, separable, (min(th, oh), min(tw, ow)))
         fused_iterate.launches += 1
@@ -673,6 +683,13 @@ def _fused_call(x, out, offsets, filt: Filter, T: int, valid_hw,
             ctypes.byref(blocks) if occupancy else None, stream)
     _raise_on(err, "fused_iterate (K2)")
     return blocks.value
+
+
+def group_dtype(quantize: bool, out_dtype):
+    """The dtype levels pass between two level-group launches in (K2, and
+    K3 / K4 to K2): float32 in float mode; in quantize mode the output
+    dtype, exact for the quantized levels."""
+    return out_dtype if quantize else torch.float32
 
 
 def fused_blocks_per_sm(x: torch.Tensor, filt: Filter, T: int, valid_hw,

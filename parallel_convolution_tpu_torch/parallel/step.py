@@ -15,7 +15,10 @@ positions so the result is bit-identical to T single steps.  Backends
 launch (K3 / K4, ``ops/rdma.py``); ``shifted`` / ``separable`` /
 ``xla_conv`` are plain PyTorch.  ``backend="auto"`` (with ``fuse=None`` /
 ``tile=None`` to tune those too) resolves through ``tuning.resolve`` before
-anything is built.
+anything is built; ``fallback=True`` then probes the backend once per
+(grid, config) per process and walks ``cuda_rdma → cuda`` on a transient
+failure (``resilience.degrade``; on the card a refused ``cuda`` raises, on
+the CPU it steps down to ``shifted``).
 
 Non-divisible images are padded to the next block multiple and re-masked to
 zero every iteration, so outputs stay bit-identical to the serial oracle
@@ -43,6 +46,7 @@ from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_form
 from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, join_blocks, make_grid, padded_extent, split_blocks,
 )
+from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils.config import (
     AUTO, BACKENDS, BOUNDARIES, STORAGES, check_backend, check_pending,
     check_run_config, check_solver, check_storage,
@@ -108,6 +112,9 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
     """
     periodic, needs_mask = _boundary_geometry(grid.shape, valid_hw, block_hw,
                                               boundary)
+    # Once a build, as the JAX package consults it once a trace: the
+    # exchange failing to build.
+    fault_point("halo_exchange")
     r = filt.radius
     on_kernels = backend in ("cuda", "cuda_sep")
     sep = backend == "cuda_sep"
@@ -163,6 +170,8 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
     global image at every level (so no outer mask at fuse = 1).  Its step
     maps the stacked grid to the stacked grid (see :func:`_build_iterate`)."""
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
+    # The in-kernel exchange failing to build (pallas_rdma's site).
+    fault_point("halo_exchange")
 
     def step(x):
         # x is the stacked grid (rdma.stack_blocks).  The kernel writes a
@@ -221,6 +230,10 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
     """The fixed-count runner for one configuration: ``iters // fuse``
     fused chunks, then one tail chunk of the remaining ``iters % fuse``
     levels."""
+    # A build: the JAX package consults this site on each compile (a miss
+    # of its runner cache); the port keeps no such cache, so every build
+    # consults it.
+    fault_point("backend_compile")
     _check_block_size(filt, block_hw)
     fuse = max(1, min(fuse, iters or 1))
     _check_fuse_fits(filt, block_hw, fuse)
@@ -316,17 +329,36 @@ def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
     return res.backend, res.fuse, res.tile, res.source
 
 
+def _resolve_fallback(grid: Grid, filt: Filter, backend: str,
+                      quantize: bool, fuse: int, boundary: str, tile,
+                      storage: str, block_hw) -> str:
+    """Walk the degradation chain (``resilience.degrade``) for this
+    configuration.  ``block_hw`` and ``storage`` describe the REAL run:
+    the kernel and its launch shape depend on both, so a probe of another
+    geometry could pass where the real launch fails."""
+    from parallel_convolution_tpu_torch.resilience import degrade
+
+    return degrade.resolve_backend(
+        grid, filt, backend, quantize=quantize, fuse=int(fuse),
+        boundary=boundary, tile=None if tile is None else tuple(tile),
+        storage=storage, block_hw=tuple(block_hw))
+
+
 def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
                      quantize: bool = True, backend: str = "shifted",
                      fuse: int | None = 1, boundary: str = "zero",
                      tile=None, check_contract: bool = True,
                      interior_split: bool = False, fallback: bool = False,
                      overlap: bool | None = None, col_mode: str | None = None):
-    """Iterate the grid's prepared blocks (from :func:`_prepare`); returns
-    the blocks ``iters`` iterations later, still padded.  ``auto`` resolves
-    for the blocks' storage and the global ``valid_hw`` image first."""
-    check_pending(interior_split=interior_split, fallback=fallback,
-                  overlap=overlap, col_mode=col_mode)
+    """Iterate the grid's prepared blocks (from :func:`_prepare`, or
+    ``utils.sharded_io.load_sharded``); returns the blocks ``iters``
+    iterations later, still padded.  ``auto`` resolves for the blocks'
+    storage and the global ``valid_hw`` image first; ``fallback=True``
+    then probes the resolved backend once per (grid, config) per process
+    and walks the degradation chain on a transient failure
+    (``resilience.degrade``, with a ``BackendDegradedWarning``)."""
+    check_pending(interior_split=interior_split, overlap=overlap,
+                  col_mode=col_mode)
     if blocks[0][0].dtype == torch.uint8:
         check_storage("u8", quantize)
     if check_contract:
@@ -339,6 +371,10 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     fuse = int(fuse)
     if fuse < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
+    if fallback:
+        backend = _resolve_fallback(
+            grid, filt, backend, quantize, max(1, min(fuse, iters or 1)),
+            boundary, tile, _storage_name(blocks[0][0].dtype), block_hw)
     run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
                          block_hw, backend, fuse, boundary,
                          None if tile is None else tuple(tile))
@@ -379,15 +415,15 @@ def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
     ``backend='auto'`` picks the backend, and ``fuse`` / ``tile`` where
     they are None, through ``tuning.resolve``.
     ``quantize=True`` assumes u8-range input and raises on values outside
-    [0, 255] for convex filters.
+    [0, 255] for convex filters.  ``fallback=True``: see
+    :func:`iterate_prepared`.
     """
     grid, blocks, valid_hw, _ = _setup_run(
         x, grid, device, backend, storage, boundary, quantize,
-        interior_split=interior_split, fallback=fallback, overlap=overlap,
-        col_mode=col_mode)
+        interior_split=interior_split, overlap=overlap, col_mode=col_mode)
     out = iterate_prepared(blocks, filt, iters, grid, valid_hw,
                            quantize=quantize, backend=backend, fuse=fuse,
-                           boundary=boundary, tile=tile)
+                           boundary=boundary, tile=tile, fallback=fallback)
     return _global_f32(out, grid, valid_hw, stacked=False)
 
 
@@ -467,12 +503,15 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
         x, grid, device, backend, storage, boundary, quantize,
-        interior_split=interior_split, fallback=fallback, overlap=overlap,
-        col_mode=col_mode, mg_levels=mg_levels)
+        interior_split=interior_split, overlap=overlap, col_mode=col_mode,
+        mg_levels=mg_levels)
     backend, fuse, tile, _ = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
     check_backend(backend)
+    if fallback:
+        backend = _resolve_fallback(grid, filt, backend, quantize, fuse,
+                                    boundary, tile, storage, block_hw)
     _check_quantize_contract(blocks, filt, quantize)
     _check_block_size(filt, block_hw)
     tile = None if tile is None else tuple(int(v) for v in tile)
@@ -492,7 +531,7 @@ def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
     while done < max_iters and diff >= tol:
         n = min(check_every, max_iters - done)
         if n not in chunks:
-            # fault_point("backend_compile") goes here with item 13.
+            fault_point("backend_compile")  # a chunk size's first build
             chunks[n] = _build_converge_chunk(
                 grid, filt, n, quantize, tuple(valid_hw), block_hw, backend,
                 boundary, fuse, tile)
@@ -522,7 +561,8 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
     iteration knobs of :func:`sharded_iterate`: a chunk fuses at most its
     ``check_every - 1`` pre-pair iterations, so the whole run clamps the
     fuse to that.  ``grid`` defaults to 1×1 on ``device`` (default: the
-    card; it raises without CUDA).  ``solver='multigrid'`` and
+    card; it raises without CUDA).  ``fallback=True`` probes the backend
+    first, as :func:`iterate_prepared` does.  ``solver='multigrid'`` and
     ``mg_levels`` belong to a later slice and raise.
     ``sharded_converge.readbacks`` counts the readbacks (one per chunk);
     :func:`sharded_converge_stream` yields each chunk's diff.

@@ -13,7 +13,7 @@ card's two limits — 48 KB without the opt-in attribute, and the opt-in
 limit with it: 48 KB and 48 KB + 1 without opt-in; 100 KB, exactly the
 opt-in limit, the limit + 1 and 256 KB with it.  Each row records the
 bytes, the opt-in, the return codes of ``cudaFuncSetAttribute`` and of the
-launch, whether the output is right, and ``error_class``:
+launch (and their names), whether the output is right, and ``error_class``:
 
 * ``ok`` — launched and right;
 * ``clean_refusal`` — refused, and a small canary launch right after is
@@ -119,6 +119,7 @@ def optin_readings(device) -> dict:
 
 def measure(device) -> list[dict]:
     """One row per step on the card."""
+    from parallel_convolution_tpu_torch.ops import _build
     from parallel_convolution_tpu_torch.utils.platform import device_kind
 
     readings = optin_readings(device)
@@ -143,6 +144,8 @@ def measure(device) -> list[dict]:
         rows.append({"bytes": nbytes, "opt_in": opt,
                      "fits": fits(nbytes, opt, limit),
                      "attr_err": attr_err, "launch_err": launch_err,
+                     "attr_error": _build.error_text(attr_err),
+                     "launch_error": _build.error_text(launch_err),
                      "correct": correct, "canary_ok": canary_ok,
                      "error_class": error_class(attr_err, launch_err,
                                                 correct, canary_ok),

@@ -1,0 +1,194 @@
+"""Graceful backend degradation: probe once, walk the fallback chain (the
+PyTorch port of the JAX package's ``resilience/degrade.py``).
+
+* Each (grid, backend, config) is probed ONCE per process — one
+  ``fuse``-level chunk of the real runner (``step._build_iterate``) on a
+  zeros grid at the real block size and storage, ended by
+  ``torch.cuda.synchronize`` so that a launch error surfaces inside the
+  probe — and the verdict (or the exception) is cached.
+* On a classified-**transient** probe failure (:mod:`.retry`: a refused
+  launch the CUDA context survives, an injected transient fault) the chain
+  walks ``cuda_rdma → cuda`` (``cuda_sep`` rejoins at ``cuda``; ``xla_conv``
+  and ``separable`` step down to ``shifted``), emitting a
+  :class:`BackendDegradedWarning`.  On the card the kernel tiers stop at
+  ``cuda``: a refused ``cuda`` raises :class:`RetryExhausted`, since the
+  step below it would run the plain version in a kernel's place.  On the
+  CPU every ``cuda*`` tier already runs its plain version, and ``cuda``
+  steps down to ``shifted`` as the JAX package's ``pallas`` does.
+* **Terminal** failures (a lost context, a failed build, contract errors)
+  raise at once: degradation never papers over them.
+* The resolved name is returned, and ``ConvolutionModel``,
+  ``utils.bench`` and the CLI's summary line record it as the effective
+  backend.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from parallel_convolution_tpu_torch.ops.filters import Filter
+from parallel_convolution_tpu_torch.resilience.retry import (
+    TERMINAL, RetryExhausted, classify,
+)
+
+__all__ = [
+    "BackendDegradedWarning", "clear_probe_cache", "degradation_chain",
+    "effective_for", "probe_backend", "resolve_backend",
+]
+
+
+class BackendDegradedWarning(UserWarning):
+    """A requested backend failed transiently and a lower tier was used."""
+
+
+# Next tier down for each backend, the JAX package's _FALLBACK_NEXT in the
+# port's names.  The separable kernel tier rejoins at the 2-D kernel tier:
+# cuda_sep's rank-1 rounding order is byte-identical only for dyadic
+# filters in quantize mode, so degrading INTO it could change bytes, and
+# degrading out of any kernel tier to 'shifted' never can.
+_FALLBACK_NEXT = {
+    "cuda_rdma": "cuda",
+    "cuda_sep": "cuda",
+    "cuda": "shifted",
+    "xla_conv": "shifted",
+    "separable": "shifted",
+}
+
+
+def degradation_chain(backend: str,
+                      on_card: bool = False) -> tuple[str, ...]:
+    """The orderly walk from ``backend`` down the tiers.  ``on_card``
+    (a grid on a CUDA device) stops the kernel tiers at ``cuda``: the step
+    to ``shifted`` leaves the kernels for the plain version, which only
+    the CPU, where the kernel tiers run their plain versions, may take."""
+    chain = [backend]
+    while chain[-1] in _FALLBACK_NEXT and not (on_card
+                                               and chain[-1] == "cuda"):
+        chain.append(_FALLBACK_NEXT[chain[-1]])
+    return tuple(chain)
+
+
+# (grid, filter, backend, config) -> None on success, or the exception the
+# probe raised.  The failure is cached too, so the walk is deterministic
+# within a process.
+_PROBE_CACHE: dict[tuple, BaseException | None] = {}
+
+
+def clear_probe_cache() -> None:
+    _PROBE_CACHE.clear()
+    _LAST_RESOLVED.clear()
+
+
+def _probe_key(grid, filt: Filter, backend: str, quantize, fuse, boundary,
+               tile, storage, block_hw) -> tuple:
+    return (grid, filt.name, filt.radius, backend, bool(quantize), int(fuse),
+            boundary, None if tile is None else tuple(tile), storage,
+            None if block_hw is None else tuple(block_hw))
+
+
+def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
+                  fuse: int = 1, boundary: str = "zero", tile=None,
+                  storage: str = "f32", block_hw=None) -> None:
+    """Build and run one ``fuse``-iteration chunk of ``backend`` on a
+    zeros grid.
+
+    Raises whatever the build or the launch raised (replayed from the
+    cache on repeat calls); returns None on (possibly cached) success.
+    ``block_hw`` is the REAL run's block: the kernel and its launch shape
+    depend on it (``cuda_rdma`` takes K3 or K4 by the block's size, K2 its
+    level groups), so the probe runs the same kernels at the same size as
+    the real run.  ``None`` takes the fused slab floor (``max(8,
+    radius*fuse)`` a side) for standalone use.  Cost: one chunk of
+    ``fuse`` iterations on one channel, once per (grid, backend, config)
+    per process; its tensors are freed before it returns.
+    """
+    key = _probe_key(grid, filt, backend, quantize, fuse, boundary, tile,
+                     storage, block_hw)
+    if key in _PROBE_CACHE:
+        err = _PROBE_CACHE[key]
+        if err is not None:
+            raise err
+        return
+    try:
+        _run_probe(grid, filt, backend, quantize, fuse, boundary, tile,
+                   storage, block_hw)
+    except Exception as e:  # noqa: BLE001 — the verdict IS the product
+        _PROBE_CACHE[key] = e
+        raise
+    _PROBE_CACHE[key] = None
+
+
+def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
+               block_hw) -> None:
+    from parallel_convolution_tpu_torch.parallel import step as step_lib
+    from parallel_convolution_tpu_torch.parallel.mesh import split_blocks
+
+    fuse = max(1, int(fuse))
+    if block_hw is None:
+        b = max(8, filt.radius * fuse)
+        block_hw = (b, b)
+    R, Cg = grid.shape
+    valid_hw = (R * block_hw[0], Cg * block_hw[1])
+    # Made on the grid's device: at BASELINE config 4 the block is the
+    # image, too large for a host buffer.
+    x = torch.zeros((1, *valid_hw), dtype=step_lib.STORAGE_DTYPES[storage],
+                    device=grid.device)
+    run = step_lib._build_iterate(grid, filt, fuse, quantize, valid_hw,
+                                  tuple(block_hw), backend, fuse, boundary,
+                                  tile)
+    run(split_blocks(x, grid))
+    if grid.device.type == "cuda":
+        torch.cuda.synchronize(grid.device)
+
+
+# requested backend -> effective backend of the most recent resolution in
+# this process: the JAX package's API.  No entry point of the port reads it:
+# each records the backend its own resolution returned.
+_LAST_RESOLVED: dict[str, str] = {}
+
+
+def effective_for(requested: str) -> str | None:
+    """The effective backend of this process's last resolution of
+    ``requested`` (None if it was never resolved)."""
+    return _LAST_RESOLVED.get(requested)
+
+
+def resolve_backend(grid, filt: Filter, backend: str, *,
+                    quantize: bool = True, fuse: int = 1,
+                    boundary: str = "zero", tile=None, storage: str = "f32",
+                    block_hw=None) -> str:
+    """Return the first backend in the grid's ``degradation_chain``
+    whose probe passes; raise at once on a terminal probe failure, and
+    :class:`RetryExhausted` when every tier failed transiently (on the
+    card, a refused ``cuda`` is the last tier).
+
+    Emits :class:`BackendDegradedWarning` when the result differs from the
+    request; callers also record the returned name.
+    """
+    chain = degradation_chain(backend, on_card=grid.device.type == "cuda")
+    last: BaseException | None = None
+    for b in chain:
+        try:
+            probe_backend(grid, filt, b, quantize=quantize, fuse=fuse,
+                          boundary=boundary, tile=tile, storage=storage,
+                          block_hw=block_hw)
+        except Exception as e:  # noqa: BLE001
+            if classify(e) == TERMINAL:
+                raise
+            last = e
+            continue
+        if b != backend:
+            warnings.warn(
+                f"backend {backend!r} degraded to {b!r} after transient "
+                f"failure: {last!r}",
+                BackendDegradedWarning, stacklevel=2,
+            )
+        # The obs counter pctpu_degrades_total and "degrade" event go here
+        # with item 9.
+        _LAST_RESOLVED[backend] = b
+        return b
+    raise RetryExhausted(
+        f"every backend in {chain} failed transiently; last: {last!r}"
+    ) from last

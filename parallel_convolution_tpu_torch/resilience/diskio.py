@@ -1,0 +1,158 @@
+"""Guarded disk IO: storage-shaped failure injection at the port's durable
+surfaces (its own copy of the JAX package's ``resilience/diskio.py``, the
+part the checkpoints call: :func:`consult`, the modes and their
+installation from ``PCTPU_DISK_MODES``).
+
+The seeded ``PCTPU_FAULTS`` plan (:mod:`.faults`) decides WHEN a disk
+surface fails; a per-site **disk mode** map decides WHAT the failure looks
+like:
+
+* ``enospc``     — ``OSError(ENOSPC)`` before any byte lands (full disk);
+* ``eio``        — ``OSError(EIO)`` (dying device / dead file handle);
+* ``torn_write`` — on a surface the caller shapes itself (:func:`consult`)
+  an ``EIO``, since a bare consult cannot half-succeed;
+* ``slow_write`` — the operation succeeds after a seeded stall.
+
+With no mode installed for a triggered site the raw
+:class:`~.faults.InjectedFault` re-raises untranslated.  With no fault
+plan installed at all, a consult is one global load and an ``is None``
+test.  The JAX package's write wrappers (``guarded_write``,
+``guarded_fsync``, ``guarded_open``, ``guarded_replace``) serve its WAL,
+cache and event log, and come with serving (ROADMAP items 8, 9).
+
+Stdlib only.
+"""
+
+from __future__ import annotations
+
+import errno
+import os
+import time
+
+from parallel_convolution_tpu_torch.resilience.faults import (
+    InjectedFault, fault_point,
+)
+
+__all__ = ["DISK_SITES", "consult", "install_from_env", "install_modes",
+           "modes_from_env", "modes_from_spec", "uninstall_modes"]
+
+# site -> the disk failure shapes it can take: the JAX package's table, so
+# that every PCTPU_DISK_MODES spec it takes parses here too.
+DISK_SITES = {
+    "wal_write": ("enospc", "eio", "torn_write", "slow_write"),
+    "wal_fsync": ("enospc", "eio", "slow_write"),
+    "checkpoint_write_shard": ("enospc", "eio", "torn_write",
+                               "slow_write"),
+    "checkpoint_write_meta": ("enospc", "eio", "torn_write",
+                              "slow_write"),
+    "cache_spill": ("enospc", "eio", "torn_write", "slow_write"),
+    "cache_promote": ("eio", "slow_write"),
+    "events_emit": ("enospc", "eio", "slow_write"),
+    "evidence_write": ("enospc", "eio", "torn_write", "slow_write"),
+}
+
+# Literal consults of the sites the port's checkpoints reach.
+_CONSULTS = {
+    "checkpoint_write_shard":
+        lambda: fault_point("checkpoint_write_shard"),
+    "checkpoint_write_meta":
+        lambda: fault_point("checkpoint_write_meta"),
+}
+
+# Mean injected stall for slow_write.
+SLOW_WRITE_S = 0.05
+
+# The process-global mode map, installed next to the fault plan and read
+# without a lock (the faults._PLAN rule).
+_MODES: dict[str, str] = {}
+
+
+def modes_from_spec(spec: str) -> dict[str, str]:
+    """Parse ``site=mode,site=mode``; raises ValueError on unknown
+    sites/modes so a typo can't silently noop."""
+    out: dict[str, str] = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        if "=" not in part:
+            raise ValueError(
+                f"bad disk mode {part!r}: expected site=mode")
+        site, mode = (s.strip() for s in part.split("=", 1))
+        if site not in DISK_SITES:
+            raise ValueError(
+                f"unknown disk site {site!r}; known: "
+                f"{sorted(DISK_SITES)}")
+        if mode not in DISK_SITES[site]:
+            raise ValueError(
+                f"unknown disk mode {mode!r} for {site}; known: "
+                f"{DISK_SITES[site]}")
+        out[site] = mode
+    return out
+
+
+def install_modes(modes: dict[str, str] | str | None) -> None:
+    """Install the process-global disk-mode map (validated); None or an
+    empty spec clears it."""
+    global _MODES
+    if isinstance(modes, str):
+        modes = modes_from_spec(modes)
+    if modes:
+        bad = [(s, m) for s, m in modes.items()
+               if s not in DISK_SITES or m not in DISK_SITES.get(s, ())]
+        if bad:
+            raise ValueError(f"unknown disk site/mode pair(s) {bad}")
+    _MODES = dict(modes or {})
+
+
+def uninstall_modes() -> None:
+    global _MODES
+    _MODES = {}
+
+
+def modes_from_env(env: dict | None = None) -> dict[str, str]:
+    """``PCTPU_DISK_MODES`` → a validated mode map (empty when unset)."""
+    env = os.environ if env is None else env
+    spec = (env.get("PCTPU_DISK_MODES") or "").strip()
+    return modes_from_spec(spec) if spec else {}
+
+
+def install_from_env(env: dict | None = None) -> dict[str, str]:
+    """Install ``PCTPU_DISK_MODES`` (the CLI calls this at start);
+    returns what was installed."""
+    modes = modes_from_env(env)
+    install_modes(modes)
+    return modes
+
+
+def _trigger(site: str) -> str | None:
+    """Consult the site; returns the installed disk mode when the plan
+    fires, None when it doesn't.  A triggered site with NO installed mode
+    re-raises the raw InjectedFault."""
+    try:
+        _CONSULTS[site]()
+        return None
+    except InjectedFault:
+        mode = _MODES.get(site)
+        if mode is None:
+            raise
+        # The JAX package's injection count and its obs counter
+        # pctpu_disk_faults_total go here with item 9.
+        return mode
+
+
+def _raise_mode(site: str, mode: str) -> None:
+    if mode == "enospc":
+        raise OSError(errno.ENOSPC,
+                      f"injected ENOSPC at {site} (disk full)")
+    raise OSError(errno.EIO, f"injected EIO at {site} ({mode})")
+
+
+def consult(site: str) -> None:
+    """Bare guard for IO the caller shapes itself: ENOSPC/EIO/torn all
+    raise their ``OSError`` here (a torn consult can't half-succeed),
+    slow_write stalls then returns."""
+    mode = _trigger(site)
+    if mode is None:
+        return
+    if mode == "slow_write":
+        time.sleep(SLOW_WRITE_S)
+        return
+    _raise_mode(site, "eio" if mode == "torn_write" else mode)

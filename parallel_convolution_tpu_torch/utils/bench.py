@@ -73,7 +73,8 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
                   channels: int = 1, backend: str = "shifted",
                   quantize: bool = True, storage: str = "f32",
                   fuse: int | None = 1, boundary: str = "zero",
-                  reps: int = 3, tile=None, device=None) -> dict:
+                  reps: int = 3, tile=None, fallback: bool = False,
+                  device=None) -> dict:
     """Gpixels/s of the fixed-iteration workload on one device.
 
     The image (seeded, u8-range) is moved and cut once; each rep runs
@@ -82,7 +83,10 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     ``tile=None``) resolves through ``tuning`` first; the row records the
     backend, fuse and tile the run ACTUALLY used and ``plan_source``
     (``explicit`` for a named backend), beside the cost model's prediction
-    for the same point.
+    for the same point.  ``fallback=True`` walks the degradation chain
+    (``resilience.degrade``) on a transient failure first, probed at the
+    real block and storage: the row's ``effective_backend`` is the backend
+    that produced the number, ``backend`` the one asked for.
     """
     from parallel_convolution_tpu_torch.tuning import costmodel, search
     from parallel_convolution_tpu_torch.tuning.plans import Workload
@@ -97,6 +101,9 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, channels)
     fuse = max(1, min(int(fuse), iters or 1))  # as _build_iterate clamps
+    if fallback:
+        eff = step_lib._resolve_fallback(grid, filt, eff, quantize, fuse,
+                                         boundary, tile, storage, block_hw)
 
     state = blocks
 

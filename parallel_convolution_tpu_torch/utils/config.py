@@ -44,7 +44,6 @@ BACKEND_FROM_REFERENCE = {
 }
 
 _SEPARATE_CARDS = "item 10 (blocks on separate cards)"
-_CHECKPOINTS = "item 4 (checkpoints and sharded IO)"
 _VOLUMES = "item 6 (volumes)"
 MULTIGRID = "item 5 (multigrid)"
 HOST_TOOLS = "item 12 (the rest of the CLI and the host tools)"
@@ -53,15 +52,11 @@ HOST_TOOLS = "item 12 (the rest of the CLI and the host tools)"
 # name -> ROADMAP item.
 PENDING_KNOBS = {
     "interior_split": "item 2 (interior_split)",
-    "fallback": "item 3b (fallback)",
     "overlap": _SEPARATE_CARDS,
     "col_mode": _SEPARATE_CARDS,
     "mg_levels": MULTIGRID,
     "rank": _VOLUMES,
     "depth": _VOLUMES,
-    "sharded_io": _CHECKPOINTS,
-    "checkpoint": _CHECKPOINTS,
-    "checkpoint_every": _CHECKPOINTS,
 }
 
 

@@ -64,5 +64,8 @@ def test_scan_covers_tuning_probes_and_bench():
     for name in ("tuning/__init__.py", "tuning/costmodel.py",
                  "tuning/plans.py", "tuning/search.py", "probes/__init__.py",
                  "probes/op_price.py", "probes/smem_budget.py",
-                 "probes/rdma_ladder.py", "utils/bench.py"):
+                 "probes/rdma_ladder.py", "utils/bench.py",
+                 "resilience/faults.py", "resilience/diskio.py",
+                 "resilience/retry.py", "resilience/degrade.py",
+                 "utils/sharded_io.py", "utils/checkpoint.py"):
         assert name in scanned

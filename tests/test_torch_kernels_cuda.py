@@ -727,3 +727,179 @@ def test_converge_on_card_stops_on_a_nan_diff(cuda_device, backend,
     rows = list(step.sharded_converge_stream(*args, **kw))
     assert iters == 5 and [done for _, done, _ in rows] == [5]
     assert np.isnan(rows[-1][2])
+
+
+# ---------------------------------------------------------------------------
+# The huge-image workflow: planes past 2^31 elements, sharded IO and the
+# fallback probe on the card
+# ---------------------------------------------------------------------------
+
+BIG = 46400  # 46400^2 = 2,152,960,000 > 2^31 elements in one plane
+
+
+def _oracle_windows(x, got, filt, levels, size=96):
+    """Hold ``got`` (1, H, W) u8 on the card against the NumPy oracle run on
+    input crops of ``x`` (1, H, W) u8 that reach levels * r beyond each
+    window (clamped to the image, whose edge is the true zero boundary):
+    the corners, the centre, and windows past 2^31 elements."""
+    _, H, W = x.shape
+    m = levels * filt.radius
+    wins = [(0, 0), (0, W - size), (H - size, 0), (H - size, W - size),
+            (H // 2, W // 2), (H - size - 1000, W // 3), (H - 3 * size, 77)]
+    for y, x0 in wins:
+        cy0, cx0 = max(0, y - m), max(0, x0 - m)
+        cy1, cx1 = min(H, y + size + m), min(W, x0 + size + m)
+        crop = x[0, cy0:cy1, cx0:cx1].cpu().numpy()
+        want = oracle.run_serial_u8(crop, filt, levels)[
+            y - cy0:y - cy0 + size, x0 - cx0:x0 - cx0 + size]
+        assert np.array_equal(
+            got[0, y:y + size, x0:x0 + size].cpu().numpy(), want), (y, x0)
+
+
+@pytest.fixture
+def big_plane(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(46400)
+    return torch.randint(0, 256, (1, BIG, BIG), generator=g,
+                         device=cuda_device, dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+def test_step_kernel_past_2_31_elements(big_plane):
+    f = get_filter("blur3")
+    p = torch.zeros((1, BIG + 2, BIG + 2), dtype=torch.uint8,
+                    device=big_plane.device)
+    p[:, 1:-1, 1:-1] = big_plane
+    stencil.reset_launch_counts()
+    got = stencil.stencil_step(p, f, quantize=True)
+    torch.cuda.synchronize()
+    assert stencil.launch_counts()["stencil_step"] == 1
+    del p
+    _oracle_windows(big_plane, got, f, 1)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_past_2_31_elements_in_level_groups(big_plane):
+    f, T = get_filter("blur3"), 20
+    assert len(stencil.fused_plan(1, T, (BIG, BIG))[2]) == 2
+    p = halo.halo_exchange([[big_plane]], T, (1, 1), "zero")[0][0]
+    stencil.reset_launch_counts()
+    got = stencil.fused_iterate(p, (0, 0), f, T, (BIG, BIG), quantize=True)
+    torch.cuda.synchronize()
+    assert stencil.launch_counts()["fused_iterate"] == 2
+    assert got.dtype == torch.uint8
+    del p
+    _oracle_windows(big_plane, got, f, T)
+
+
+@pytest.mark.cuda
+def test_rdma_tiled_past_2_31_elements_in_level_groups(big_plane):
+    f, T = get_filter("blur3"), 20
+    x = big_plane[None]  # the stacked 1x1 grid
+    assert rdma.rdma_plan(1, T, (BIG, BIG)).kernel == "tiled"
+    stencil.reset_launch_counts()
+    got = rdma.fused_rdma_stacked(x, f, (1, 1), "zero", fuse=T,
+                                  valid_hw=(BIG, BIG))
+    torch.cuda.synchronize()
+    counts = stencil.launch_counts()
+    assert (counts["rdma_tiled"], counts["fused_iterate"]) == (1, 1)
+    _oracle_windows(big_plane, got[0], f, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape,backend,storage,fuse", [
+    ((1, 1), "cuda_sep", "u8", 32), ((2, 3), "cuda_rdma", "u8", 8),
+    ((2, 2), "cuda", "bf16", 4)])
+def test_sharded_io_on_the_card_in_bands(cuda_device, tmp_path, monkeypatch,
+                                         grid_shape, backend, storage, fuse):
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.utils import sharded_io
+
+    monkeypatch.setattr(sharded_io, "BAND_BYTES", 4096)  # ~7 rows a band
+    rows, cols = 301, 197
+    img = imageio.generate_test_image(rows, cols, "rgb", seed=17)
+    src, dst = tmp_path / "in.raw", tmp_path / "out.raw"
+    imageio.write_raw(src, img)
+    grid = mesh.make_grid(grid_shape, cuda_device)
+    blocks = sharded_io.load_sharded(src, rows, cols, "rgb", grid,
+                                     dtype=TORCH[storage])
+    want = step._prepare(imageio.interleaved_to_planar(img), grid,
+                         storage)[0]
+    assert all(b.device.type == "cuda" and torch.equal(b, w)
+               for row, wrow in zip(blocks, want) for b, w in zip(row, wrow))
+    sharded_io.save_sharded(dst, blocks, rows, cols, "rgb")
+    assert np.array_equal(imageio.read_raw(dst, rows, cols, "rgb"), img)
+    model = ConvolutionModel("blur3", grid=grid, backend=backend,
+                             storage=storage, fuse=fuse)
+    stencil.reset_launch_counts()
+    model.run_raw_file_sharded(str(src), str(dst), rows, cols, "rgb", 40)
+    assert any(stencil.launch_counts().values())
+    assert np.array_equal(imageio.read_raw(dst, rows, cols, "rgb"),
+                          oracle.run_serial_u8(img, get_filter("blur3"), 40))
+
+
+@pytest.mark.cuda
+def test_fallback_probe_at_a_real_block_size(cuda_device):
+    from parallel_convolution_tpu_torch.resilience import (
+        degrade, faults, retry,
+    )
+
+    f = get_filter("blur3")
+    img = imageio.generate_test_image(4096, 3072, "rgb", seed=18)
+    want = ConvolutionModel("blur3", backend="shifted",
+                            device=cuda_device).run_image(img, 20)
+    degrade.clear_probe_cache()
+    # No fault: the probe runs the real kernel at the real block size
+    # (one 16-level chunk, one K4 launch on the 2048x1536 blocks), and the
+    # run keeps the backend asked for.
+    model = ConvolutionModel("blur3", grid=mesh.make_grid((2, 2),
+                                                          cuda_device),
+                             backend="cuda_rdma", storage="u8", fuse=16,
+                             fallback=True)
+    stencil.reset_launch_counts()
+    got = model.run_image(img, 20)
+    counts = stencil.launch_counts()
+    assert model.effective_backend == "cuda_rdma"
+    assert counts["rdma_tiled"] == 1 + 2  # the probe's chunk, the run's two
+    assert np.array_equal(got, want)
+    # An injected compile fault degrades to cuda, with the same bytes.
+    degrade.clear_probe_cache()
+    with faults.injected("backend_compile:1"):
+        with pytest.warns(degrade.BackendDegradedWarning,
+                          match="'cuda_rdma' degraded to 'cuda'"):
+            got = model.run_image(img, 20)
+    assert model.effective_backend == "cuda"
+    assert np.array_equal(got, want)
+    # Every tier refused on the card: the walk stops at cuda and raises;
+    # nothing runs the plain version in a kernel's place.
+    degrade.clear_probe_cache()
+    stencil.reset_launch_counts()
+    with faults.injected("backend_compile:*"):
+        with pytest.raises(retry.RetryExhausted):
+            model.run_image(img, 20)
+    assert sum(stencil.launch_counts().values()) == 0
+    degrade.clear_probe_cache()
+    # A real refused launch (5b over the opt-in limit) is transient, and
+    # the context survives it.
+    limit = stencil._smem_limit(cuda_device)
+    x = torch.ones(256, device=cuda_device)
+    _, attr, err = smem_budget.smem_probe(x, limit + 1, True)
+    assert (attr or err) != 0
+    with pytest.raises(RuntimeError, match="launch failed: cudaError") as e:
+        stencil._raise_on(attr or err, "smem_probe (5b)")
+    print(e.value)
+    assert retry.classify(e.value) == retry.TRANSIENT
+    out, attr, err = smem_budget.smem_probe(x, 0, False)
+    torch.cuda.synchronize()
+    assert (attr, err) == (0, 0) and torch.equal(out, x + 1)
+
+
+@pytest.mark.cuda
+def test_error_names_come_from_the_runtime(cuda_device):
+    from parallel_convolution_tpu_torch.ops import _build
+
+    lib = _build.load_library("probes")
+    # The stand-in names (used before a library loads) are the runtime's.
+    for code, name in _build.FALLBACK_ERROR_NAMES.items():
+        assert lib.pc_error_name(code).decode() == name
+    # A code outside them is named too, once a library is loaded.
+    assert _build.error_text(800) == "cudaErrorNotPermitted (800)"

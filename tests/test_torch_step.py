@@ -180,9 +180,13 @@ def test_step_errors():
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas")
     with pytest.raises(ValueError, match="'pallas_rdma' is 'cuda_rdma' here"):
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas_rdma")
-    for knob in ("interior_split", "fallback", "overlap"):
+    for knob in ("interior_split", "overlap"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             step.sharded_iterate(x, tf, 1, grid=g, **{knob: True})
+    # fallback is ported: the probe passes, the run is the plain one.
+    np.testing.assert_array_equal(
+        step.sharded_iterate(x, tf, 1, grid=g, fallback=True).numpy(),
+        step.sharded_iterate(x, tf, 1, grid=g).numpy())
     for kw in ({"overlap": True}, {"col_mode": "packed"}):
         with pytest.raises(NotImplementedError,
                            match="item 10 \\(blocks on separate cards\\)"):

@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``parallel_convolution_tpu_torch/csrc`` with
-   nvcc (every part of every library at once) and print the build seconds,
+   nvcc (every part of every library at once) and the g++ baseline of
+   ``native/`` (so that every file read of the run goes through the native
+   reader, whatever an earlier run left built), and print the build seconds,
    and ptxas's registers for every template instance of K1 and of the level
    loop (K2, K3, K4, 5c r3); a spill fails;
 3. every kernel against its plain PyTorch version on the card: filters
@@ -48,15 +50,44 @@ Phases (any failure exits non-zero and prints no result line):
    --fuse 8`` (K3), each converged, byte-equal to ``shifted`` and with its
    iteration count; ``sharded_converge_stream`` there, one yield and one
    readback a chunk, its last image ``sharded_converge``'s bytes;
+4d. multigrid (``--solver multigrid``), counted into the kernels line:
+   BASELINE config 5's field (32768x32768, jacobi3, tol 1e-3, f32) under
+   the Jacobi run's budget of 200 fine-grid work units, through
+   ``JacobiSolver(solver="multigrid")`` with ``cuda`` at 1x1 (K1 on every
+   level) from a host array and resident on the card, at 2x2 (bitwise the
+   1x1 field), with ``cuda_rdma`` at 4x4 (K4 on the fine levels, K3 at
+   T = 1 on the small blocks, the coarsest level on a 2x2 sub-grid) and
+   the plain ``shifted`` run: the same residual every cycle and the same
+   field bit for bit (jacobi3's taps and the transfers' weights are
+   dyadic), max |field| printed; each run's launches equal to its
+   schedule's per-cycle launches times its cycles, one readback a cycle;
+   cycles, work units, the residual of every cycle, the level grids and
+   shapes, seconds first and resident, the predicted against the measured
+   seconds a cycle and the peak device memory printed, beside the Jacobi
+   run's work units at the same cap; ``run --converge 0.5 --solver
+   multigrid`` on the grey 1920x2520 image with ``cuda`` and with
+   ``cuda_rdma`` at 16x16 (coarse levels on 8x8, 4x4 and 2x2 sub-grids),
+   each saying the ``shifted`` CLI run's cycles and work units, its bytes
+   equal to its;
+4e. the host tools, after phase 4c:
+   ``serial --impl native`` on BASELINE config 1 (grey 1920x2520 blur3,
+   100 iterations) byte-equal to the NumPy oracle, with the host CPU's
+   model and OpenMP threads, and the one-thread baseline
+   (``bench_oracle_proxy``); ``bench`` on RGB 1920x2520 ``cuda_sep``
+   bf16 fuse 32 (one JSON row with the card's name and power limit);
+   ``bench_halo_p50`` at BASELINE config 2's block (960x1260 RGB on 2x2,
+   r = 1) and config 3's (2048x2048 grey on 4x4, r = 2); ``convert`` and
+   ``info`` once each;
 4c. the huge-image workflow, after phase 7, each run counted into the
    kernels line: BASELINE config 4 (3x3 blur, 65536x65536 RGB, 100
    iterations) from a seeded file under ``build/`` (the disk and RAM found
    are printed; a disk too small for the input and one output shrinks the
    image, printed as a cut) through ``run --sharded-io --storage u8 --fuse
    32`` at 1x1 ``cuda_sep`` (7 K2 launches) and at 4x4 ``cuda_rdma`` (K4
-   and K2), each with its first-run seconds and Gpx/s, the host's read +
-   copy in and copy out + write, the kernels' time, the peak device memory
-   and the host's resident-set growth (under 1 GB: bands, never a block);
+   and K2), its bands read through the native reader, each with its
+   first-run seconds and Gpx/s, the host's read + copy in and copy out +
+   write, the kernels' time, the peak device memory and the host's
+   resident-set growth (under 1 GB: bands, never a block);
    nine 256x256 output windows (corners, centre, far edges, the 4x4 seams)
    read back from the written file must equal the NumPy oracle on input
    crops reaching 100 pixels beyond them, and the two outputs must be
@@ -140,6 +171,7 @@ CONVERGE_HW = (32768, 32768)  # BASELINE config 5
 # so the diff decays slowly and tol 1e-3 is not reached within it.
 CONVERGE_MAX_ITERS = 200
 CONVERGE_CLI_MAX = 5000    # the CLI's converges (about 2730 iterations)
+MG_RDMA_GRID = (4, 4)      # config 5's cuda_rdma multigrid run
 CONFIG4_SIDE = 65536       # BASELINE config 4: 65536x65536 RGB, 12.9 GB
 WINDOW = 256               # config 4's oracle windows
 HOST_GROWTH_LIMIT = 1 << 30  # config 4: at most 16 bands of host memory
@@ -149,7 +181,7 @@ REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
     "rdma_block": "parallel_convolution_tpu/ops/pallas_rdma.py:1226",
-    "rdma_tiled": "parallel_convolution_tpu/ops/pallas_rdma.py:1316",
+    "rdma_tiled": "parallel_convolution_tpu/ops/pallas_rdma.py:1316,1330",
     "op_chain": "scripts/vpu_op_probe.py:102",
     "smem_probe": "scripts/helper_crash_probe.py:100",
     "rdma_ladder": "scripts/tiled_repro_probe.py:101",
@@ -1006,11 +1038,12 @@ def expected_converge_launches(filt, backend: str, fuse: int,
     return counts
 
 
-def converge_phase(dev, tmp: Path, totals: dict) -> list:
+def converge_phase(dev, tmp: Path, totals: dict, keep: dict) -> list:
     """BASELINE config 5 at full size on one card, ``run --converge``
     through the CLI (--fast, and cuda_rdma at 16x16: K3), and the stream;
     each against the plain ``shifted`` converge on the card, its launches
-    counted into ``totals``."""
+    counted into ``totals``.  Config 5's field stays on the card in
+    ``keep["config5"]`` for the multigrid phase (the same problem)."""
     import numpy as np
     import torch
 
@@ -1127,7 +1160,9 @@ def converge_phase(dev, tmp: Path, totals: dict) -> list:
     del padded1
     prev = xd + 1
     diff_ms = cuda_ms(lambda: step._max_abs_diff(xd, prev), reps=5, warmup=1)
-    del prev, xd
+    del prev
+    keep["config5"] = xd
+    del xd
     stencil.reset_launch_counts()  # not main-path launches
     torch.cuda.empty_cache()
     px = H * W
@@ -1238,6 +1273,346 @@ def converge_phase(dev, tmp: Path, totals: dict) -> list:
     rows.append({"path": label, "iters": whole_iters, "yields": len(streamed),
                  "readbacks": reads, "launches": counts, "seconds": secs})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: multigrid (ROADMAP item 5)
+# ---------------------------------------------------------------------------
+
+
+def mg_counted(label, fn, levels, backend, totals: dict):
+    """``fn()`` -> ``(field, MGResult)`` with the counters at 0 before and
+    read after: its launches must be the schedule's per-cycle launches
+    (``multigrid.cycle_launches``) times its cycles, one readback a cycle;
+    they are added to the totals."""
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+
+    stencil.reset_launch_counts()
+    reads = mg.mg_converge.readbacks
+    (out, res), secs = host_seconds(fn)
+    counts = stencil.launch_counts()
+    reads = mg.mg_converge.readbacks - reads
+    per = mg.cycle_launches(levels, backend, 1)
+    want = {k: v * res.cycles for k, v in per.items()}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    check(any(counts.values()), f"{label}: no kernel launched")
+    check(reads == res.cycles == len(res.residuals),
+          f"{label}: {reads} readbacks for {res.cycles} cycles")
+    for k, v in counts.items():
+        totals[k] += v
+    print(f"multigrid {label}: {res.cycles} cycles, {res.work_units} work "
+          f"units, launches {counts} ({per} a cycle), {secs:.4f} s")
+    return out, res, counts, per, secs
+
+
+def mg_row(label, res, counts, per, secs, **extra) -> dict:
+    return {"path": label, "backend": res.backend, "cycles": res.cycles,
+            "work_units": res.work_units, "converged": res.converged,
+            "residuals": res.residuals, "levels": res.levels,
+            "level_grids": res.level_grids, "level_shapes": res.level_shapes,
+            "launches": counts, "launches_per_cycle": per, "seconds": secs,
+            "measured_s_per_cycle": secs / max(1, res.cycles),
+            "predicted_s_per_cycle": res.predicted_s_per_cycle, **extra}
+
+
+def multigrid_phase(dev, tmp: Path, totals: dict, field,
+                    jacobi_row: dict) -> list:
+    """BASELINE config 5 with ``--solver multigrid``: the field of the
+    Jacobi phase on the card, jacobi3, tol 1e-3, f32, the Jacobi phase's
+    budget in fine-grid work units, with ``cuda`` at 1x1 (through
+    ``JacobiSolver`` from the host, and resident) and at 2x2 (bitwise the
+    1x1 field), ``cuda_rdma`` at 4x4 and the plain ``shifted`` run (the
+    same residuals and the same field bit for bit); then
+    ``run --converge 0.5 --solver multigrid`` through the CLI on the grey
+    1920x2520 image with ``cuda`` and with ``cuda_rdma`` at 16x16 (coarse
+    levels on sub-grids), against the CLI's ``shifted`` run."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import JacobiSolver
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    rows = []
+    card = card_line()
+    jacobi3 = get_filter("jacobi3")
+    H, W = CONVERGE_HW
+    tol, budget = 1e-3, CONVERGE_MAX_ITERS
+    field_bytes = field.numel() * field.element_size()
+
+    def solve(grid_shape, backend):
+        return lambda: mg.mg_converge(field, jacobi3, tol, budget,
+                                      grid=make_grid(grid_shape, dev),
+                                      backend=backend)
+
+    def levels_of(grid_shape, shape=CONVERGE_HW):
+        return mg.plan_levels(make_grid(grid_shape, dev), shape, 1)
+
+    # (a) cuda at 1x1 through JacobiSolver, from a host array as a user
+    # calls it, then resident: the input already on the card.
+    host = field.cpu().numpy()
+    solver = JacobiSolver("jacobi3", tol=tol, max_iters=budget,
+                          backend="cuda", quantize=False, storage="f32",
+                          solver="multigrid", device=dev)
+    label = f"config 5 multigrid jacobi3 {H}x{W} f32 cuda 1x1"
+    out_host, res_a, counts, per, first = mg_counted(
+        label, lambda: (solver.solve(host)[0], solver.last_mg),
+        levels_of((1, 1)), "cuda", totals)
+    del host
+    check(out_host.shape == (1, H, W) and bool(np.isfinite(out_host).all()),
+          f"{label}: result not finite or of shape {out_host.shape}")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    (out_a, res), resident = host_seconds(solve((1, 1), "cuda"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    stencil.reset_launch_counts()  # counted once, in the first run
+    check(res.cycles == res_a.cycles and res.residuals == res_a.residuals,
+          f"{label}: resident run {res.cycles} cycles, first {res_a.cycles}")
+    check(torch.equal(out_a, torch.from_numpy(out_host).to(dev)),
+          f"{label}: the resident field differs from JacobiSolver's")
+    del out_host
+    rows.append(mg_row(
+        label, res_a, counts, per, first, seconds_first=first,
+        seconds_resident=resident,
+        measured_s_per_cycle=resident / res_a.cycles, max_units=budget,
+        max_memory_allocated=peak, allocated_before=before,
+        fields_at_peak=(peak - before) / field_bytes, card=card))
+
+    # (b) cuda at 2x2: the 1x1 field, bit for bit.
+    label = f"config 5 multigrid jacobi3 {H}x{W} f32 cuda 2x2"
+    out_b, res_b, counts, per, secs = mg_counted(
+        label, solve((2, 2), "cuda"), levels_of((2, 2)), "cuda", totals)
+    check(res_b.cycles == res_a.cycles and torch.equal(out_b, out_a),
+          f"{label}: differs from cuda 1x1 ({res_b.cycles} cycles, "
+          f"{res_a.cycles})")
+    del out_b
+    rows.append(mg_row(label, res_b, counts, per, secs, bitwise_1x1=True,
+                       card=card))
+
+    # (c) the plain shifted run on the card: the reference.  jacobi3's
+    # taps and the transfers' weights are dyadic, so every product is exact
+    # and the kernels' FMA gives the plain bits: the fields and every
+    # cycle's residual must be equal, not close.
+    (out_d, res_d), shifted_s = host_seconds(solve((1, 1), "shifted"))
+    stencil.reset_launch_counts()  # not main-path launches
+    field_max = float(out_d.abs().max())
+    err_a = float((out_a - out_d).abs_().max())
+    print(f"config 5 multigrid: max |field| {field_max} after "
+          f"{res_d.cycles} cycles; cuda max err vs shifted {err_a}")
+    check(res_a.residuals == res_d.residuals and torch.equal(out_a, out_d),
+          f"config 5 multigrid cuda: {res_a.cycles} cycles against "
+          f"shifted's {res_d.cycles}, residuals {res_a.residuals} against "
+          f"{res_d.residuals}, max err {err_a} (max |field| {field_max})")
+    rows[0].update(max_abs_err_vs_shifted=err_a, bitwise_shifted=True,
+                   max_abs_field=field_max)
+    del out_a
+
+    # (d) cuda_rdma at 4x4: K4 on the fine levels, K3 on the small blocks.
+    g = MG_RDMA_GRID
+    label = f"config 5 multigrid jacobi3 {H}x{W} f32 cuda_rdma {g[0]}x{g[1]}"
+    out_c, res_c, counts, per, secs = mg_counted(
+        label, solve(g, "cuda_rdma"), levels_of(g), "cuda_rdma", totals)
+    err_c = float((out_c - out_d).abs_().max())
+    print(f"{label}: max err vs shifted {err_c}")
+    check(res_c.residuals == res_d.residuals and torch.equal(out_c, out_d),
+          f"{label}: {res_c.cycles} cycles against shifted's "
+          f"{res_d.cycles}, residuals {res_c.residuals} against "
+          f"{res_d.residuals}, max err {err_c} (max |field| {field_max})")
+    del out_c, out_d
+    rows.append(mg_row(label, res_c, counts, per, secs,
+                       max_abs_err_vs_shifted=err_c, bitwise_shifted=True,
+                       max_abs_field=field_max, card=card))
+    rows.append(mg_row(f"config 5 multigrid jacobi3 {H}x{W} f32 shifted 1x1",
+                       res_d, {}, {}, shifted_s, card=card))
+    torch.cuda.empty_cache()
+    print("config 5 work units to tol 1e-3 (cap "
+          f"{budget}): " + json.dumps({
+              "jacobi": {"work_units": jacobi_row["iters"],
+                         "converged": jacobi_row["converged"],
+                         "final_diff": jacobi_row["final_diff"]},
+              "multigrid": {"work_units": res_a.work_units,
+                            "converged": res_a.converged,
+                            "final_residual": res_a.residual,
+                            "cycles": res_a.cycles},
+              "jacobi_over_multigrid_at_least": (
+                  jacobi_row["iters"] / res_a.work_units
+                  if res_a.converged else None)}))
+
+    # (e) run --converge 0.5 --solver multigrid through the CLI on BASELINE
+    # config 1's grey image.
+    rows_, cols_ = RGB_HW
+    img = imageio.generate_test_image(rows_, cols_, "grey", seed=2)
+    src = tmp / "mg.raw"
+    imageio.write_raw(src, img)
+
+    def cli(extra, dst):
+        argv = ["run", str(src), str(rows_), str(cols_),
+                str(CONVERGE_CLI_MAX), "grey", "-o", str(dst), "--converge",
+                "0.5", "--solver", "multigrid"] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        check(rc == 0, f"cli {extra}: exited {rc}")
+        line = buf.getvalue().strip().splitlines()[-1]
+        return line, int(line.split()[2])
+
+    ref_dst = tmp / "mg.shifted.raw"
+    ref_line, ref_cycles = cli(["--backend", "shifted"], ref_dst)
+    stencil.reset_launch_counts()  # not main-path launches
+    ref = imageio.read_raw(ref_dst, rows_, cols_, "grey")
+    grid16 = f"{GREY_GRID[0]}x{GREY_GRID[1]}"
+    for backend, extra, shape in (
+            ("cuda", ["--backend", "cuda"], (1, 1)),
+            ("cuda_rdma", ["--backend", "cuda_rdma", "--mesh", grid16],
+             GREY_GRID)):
+        dst = tmp / f"mg.{backend}.raw"
+        label = (f"cli run --converge 0.5 --solver multigrid grey "
+                 f"{rows_}x{cols_} blur3 {' '.join(extra)}")
+        levels = mg.plan_levels(make_grid(shape, dev), RGB_HW, 1)
+        per = mg.cycle_launches(levels, backend, 1)
+        stencil.reset_launch_counts()
+        (line, cycles), secs = host_seconds(lambda: cli(extra, dst))
+        counts = stencil.launch_counts()
+        want = {k: v * cycles for k, v in per.items()}
+        check(counts == want and any(counts.values()),
+              f"{label}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        out = imageio.read_raw(dst, rows_, cols_, "grey")
+        delta = np.abs(out.astype(int) - ref.astype(int))
+        # blur3's taps are dyadic too: the bytes of the shifted run.
+        check(line.split("->")[0] == ref_line.split("->")[0]
+              and np.array_equal(out, ref),
+              f"{label}: said {line!r}, shifted {ref_line!r}, max byte "
+              f"delta {int(delta.max())}")
+        stencil.reset_launch_counts()
+        _, warm = host_seconds(lambda: cli(extra, dst))
+        stencil.reset_launch_counts()  # counted once, in the first run
+        print(f"multigrid {label}: {line}")
+        rows.append({"path": label, "said": line, "cycles": cycles,
+                     "launches": counts, "launches_per_cycle": per,
+                     "level_grids": [f"{lv.grid.rows}x{lv.grid.cols}"
+                                     for lv in levels],
+                     "bytes_differing_from_shifted": int((delta > 0).sum()),
+                     "seconds_first": secs, "seconds_warm": warm,
+                     "card": card})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4e: the host tools (ROADMAP item 12)
+# ---------------------------------------------------------------------------
+
+
+def cpu_brand(tmp: Path) -> str:
+    """The host CPU's brand string from ``cpuid`` (x86), for a host whose
+    ``/proc/cpuinfo`` does not name its model (some virtualised hosts)."""
+    src, exe = tmp / "brand.cpp", tmp / "brand"
+    src.write_text(
+        "#include <cpuid.h>\n#include <cstdio>\n#include <cstring>\n"
+        "int main() { unsigned r[12] = {0}; char s[49] = {0};\n"
+        "  for (unsigned i = 0; i < 3; ++i)\n"
+        "    __get_cpuid(0x80000002u + i, &r[4 * i], &r[4 * i + 1],\n"
+        "                &r[4 * i + 2], &r[4 * i + 3]);\n"
+        "  std::memcpy(s, r, 48); std::puts(s); }\n")
+    res = subprocess.run(["g++", "-O1", "-o", str(exe), str(src)],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        return f"not known (cpuid: {res.stderr.strip()[:120]})"
+    run = subprocess.run([str(exe)], capture_output=True, text=True,
+                         timeout=60)
+    return run.stdout.strip() or "not known"
+
+
+def host_tools_phase(dev, tmp: Path, native_build_s: float) -> dict:
+    """``serial --impl native`` on BASELINE config 1 (grey 1920x2520,
+    blur3, 100 iterations) byte-equal to the NumPy oracle, with the host
+    CPU and its threads (and the strict one-thread baseline,
+    ``bench_oracle_proxy``); ``bench`` on RGB 1920x2520 cuda_sep bf16 fuse
+    32; ``bench_halo_p50`` at BASELINE config 2's block (960x1260 RGB on
+    2x2, r = 1) and config 3's (2048x2048 grey on 4x4, r = 2); ``convert``
+    and ``info`` once each."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.native import build as nbuild
+    from parallel_convolution_tpu_torch.native import serial_native
+    from parallel_convolution_tpu_torch.ops import oracle
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils import bench, imageio
+
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([str(a) for a in argv])
+        check(rc == 0, f"cli {argv[0]}: exited {rc}")
+        return buf.getvalue().strip().splitlines()
+
+    out = {"native_build_s": native_build_s}
+    rows_, cols_ = RGB_HW
+    img = imageio.generate_test_image(rows_, cols_, "grey", seed=2)
+    src, dst = tmp / "config1.raw", tmp / "config1.native.raw"
+    imageio.write_raw(src, img)
+    t0 = time.perf_counter()
+    said = cli(["serial", src, rows_, cols_, ITERS, "grey", "-o", dst,
+                "--impl", "native"])
+    secs = time.perf_counter() - t0
+    check(said[-1].startswith("serial[native]:"), f"serial said {said}")
+    t0 = time.perf_counter()
+    want = oracle.run_serial_u8(img, get_filter("blur3"), ITERS)
+    oracle_s = time.perf_counter() - t0
+    check(np.array_equal(imageio.read_raw(dst, rows_, cols_, "grey"), want),
+          "serial --impl native differs from the NumPy oracle")
+    px = rows_ * cols_ * ITERS
+    out["serial_native"] = {
+        "path": f"cli serial --impl native grey {rows_}x{cols_} blur3 "
+                f"{ITERS} iterations",
+        "seconds": secs, "gpx_per_s": px / secs / 1e9,
+        "threads": serial_native.num_threads(),
+        "cpuinfo_model": nbuild.host_cpu(), "cpuid_brand": cpu_brand(tmp),
+        "os_cpu_count": os.cpu_count(), "oracle_seconds": oracle_s,
+        "oracle_gpx_per_s": px / oracle_s / 1e9, "byte_equal_oracle": True}
+    out["serial_one_thread"] = bench.bench_oracle_proxy(RGB_HW, iters=2,
+                                                        reps=3)
+    check(out["serial_one_thread"]["impl"] == "cpp-serial",
+          f"the one-thread baseline ran {out['serial_one_thread']['impl']}")
+
+    row = json.loads(cli(["bench", rows_, cols_, ITERS, "rgb", "--backend",
+                          "cuda_sep", "--storage", "bf16", "--fuse", "32"])[-1])
+    check(row["effective_backend"] == "cuda_sep" and row["gpixels_per_s"] > 0
+          and row["device_kind"] == torch.cuda.get_device_name(dev)
+          and row["power_limit_w"] is not None, f"bench row {row}")
+    out["bench"] = row
+
+    out["halo_p50_config2"] = bench.bench_halo_p50(
+        (960, 1260), r=1, grid=make_grid((2, 2), dev), trials=20,
+        chain_rounds=128, channels=3)
+    out["halo_p50_config3"] = bench.bench_halo_p50(
+        (2048, 2048), r=2, grid=make_grid((4, 4), dev), trials=20,
+        chain_rounds=64)
+    for key in ("halo_p50_config2", "halo_p50_config3"):
+        h = out[key]
+        check(h["p50_us"] is not None or h.get("noise_floor"),
+              f"{key}: {h}")
+
+    pgm = tmp / "config1.pgm"
+    cli(["convert", dst, rows_, cols_, "grey", "-o", pgm])
+    head = f"P5\n{cols_} {rows_}\n255\n".encode()
+    check(pgm.read_bytes() == head + want.tobytes(),
+          "convert: the PGM is not the header and the image's bytes")
+    info = cli(["info"])
+    check(any(torch.cuda.get_device_name(dev) in ln for ln in info),
+          f"info did not name the card: {info}")
+    out["info"] = info
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1485,12 +1860,14 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
     fuse 32 (K2) and (b) 4x4 ``cuda_rdma`` u8 fuse 32 (K4 and K2), the
     counters at 0 before each and read after.  Oracle windows of (a)'s
     output file; (b)'s file byte-equal to (a)'s by CRC32 in bands; at most
-    the input and one output on disk."""
+    the input and one output on disk.  Its bands are read through the
+    native reader (``main`` builds the library first)."""
     import torch
 
     from parallel_convolution_tpu_torch.cli import main as cli_main
     from parallel_convolution_tpu_torch.ops.filters import get_filter
     from parallel_convolution_tpu_torch.parallel import halo
+    from parallel_convolution_tpu_torch.utils import sharded_io
 
     room = machine_room(work)
     side = config4_side(room["disk_free_gb"] * 1e9)
@@ -1555,6 +1932,10 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
     for row in runs.values():
         row["crcs"] = len(row["crcs"])
     report["runs"] = runs
+    # main() built the native library first: the bands were read through it.
+    report["reader"] = sharded_io.default_reader()
+    check(report["reader"] == "native",
+          f"config 4 read through the {report['reader']} reader")
     report["kernels"] = config4_kernel_rows(dev, side)
     k = report["kernels"]
     # Kernel time of each run: the launches it counted times the event time
@@ -2247,6 +2628,7 @@ def main() -> int:
     here = Path(__file__).resolve().parent
     try:
         import parallel_convolution_tpu_torch as port
+        from parallel_convolution_tpu_torch.native import build as nbuild
         from parallel_convolution_tpu_torch.ops import _build, stencil
         from parallel_convolution_tpu_torch.ops.filters import get_filter
         from parallel_convolution_tpu_torch.utils import imageio
@@ -2272,6 +2654,13 @@ def main() -> int:
         each = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items())
         print(f"build: {time.perf_counter() - t0:.2f} s "
               f"({each or 'up to date'})")
+        # The g++ baseline before any file is read: every load_sharded of
+        # this process (config 4's included) then reads through the native
+        # reader, whatever an earlier run left under build/.
+        t0 = time.perf_counter()
+        nbuild.build()
+        native_s = time.perf_counter() - t0
+        print(f"native build: {native_s:.2f} s")
         for name in _build.SOURCES:
             _build.load_library(name)
         print_ptxas()
@@ -2282,7 +2671,11 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             totals, rows, refs = main_paths(dev, Path(tmp))
-            converge_rows = converge_phase(dev, Path(tmp), totals)
+            keep = {}
+            converge_rows = converge_phase(dev, Path(tmp), totals, keep)
+            mg_rows = multigrid_phase(dev, Path(tmp), totals,
+                                      keep.pop("config5"), converge_rows[0])
+            torch.cuda.empty_cache()
             auto_rows = auto_paths(dev, Path(tmp), refs, rows, totals)
             picks = tune_auto_grids(Path(tmp))
             tuned = measured_tune(dev, Path(tmp), refs, totals)
@@ -2293,6 +2686,8 @@ def main() -> int:
             config4 = config4_phase(dev, work, totals)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            host_tools = host_tools_phase(dev, Path(tmp), native_s)
 
         rgb = imageio.generate_test_image(*RGB_HW, "rgb", seed=1)
         grey8k = imageio.generate_test_image(*BIG_HW, "grey", seed=2)
@@ -2328,6 +2723,10 @@ def main() -> int:
             print("end to end: " + json.dumps(row))
         for row in converge_rows:
             print("end to end converge: " + json.dumps(row))
+        for row in mg_rows:
+            print("end to end multigrid: " + json.dumps(row))
+        for key, row in host_tools.items():
+            print(f"host tools {key}: " + json.dumps(row))
         for row in auto_rows:
             print("end to end auto: " + json.dumps(row))
         for key, row in config4.pop("runs").items():

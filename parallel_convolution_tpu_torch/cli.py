@@ -5,18 +5,22 @@ Mirrors the JAX package's ``pconv-tpu`` vocabulary — ``image path, rows,
 cols, loops, grey|rgb`` — and takes every subcommand and flag of its parser:
 
   run       filter a raw image on the card (the parallel main()), or with
-            --converge TOL run it to convergence (loops = max iterations);
-            --sharded-io streams an image too large for one host buffer
-            block by block, --checkpoint DIR snapshots and resumes it,
-            --fallback degrades a backend that fails transiently
-  serial    the same through the NumPy oracle (the golden path)
+            --converge TOL run it to convergence (loops = max iterations;
+            --solver multigrid runs the V-cycle, loops = max fine-grid
+            work units); --sharded-io streams an image too large for one
+            host buffer block by block, --checkpoint DIR snapshots and
+            resumes it, --fallback degrades a backend that fails
+            transiently
+  serial    the same on the host: the native C++ baseline (built with g++
+            on first use) or the NumPy oracle, byte for byte alike
   generate  write a deterministic test image
   compare   byte-compare two raw images
+  convert   raw -> PGM/PPM
+  bench     time a synthetic workload; one JSON row
+  info      cards, default grid, filters, backends
   tune      rank (and measure) the knobs of one workload and write the
             plan file that --backend auto reads (the JAX package's
             scripts/tune.py)
-  convert, info, bench
-            parsed as in the JAX package; not ported yet
 
 A flag or subcommand that a later slice ports exits 2 with the
 ``NotImplementedError`` that names its item in ROADMAP.md.  ``PCTPU_FAULTS``
@@ -102,11 +106,18 @@ def _check_pending_flags(args) -> None:
     )
 
     check_solver(args.solver)
+    check_pending(rank=None if args.rank == 2 else args.rank,
+                  depth=args.depth)
+    _check_pending_perf_flags(args)
+
+
+def _check_pending_perf_flags(args) -> None:
+    """As :func:`_check_pending_flags`, for the knobs run and bench share."""
+    from parallel_convolution_tpu_torch.utils.config import check_pending
+
     check_pending(
         interior_split=args.interior_split, overlap=args.overlap == "on",
-        col_mode=None if args.col_mode == "auto" else args.col_mode,
-        mg_levels=args.mg_levels, rank=None if args.rank == 2 else args.rank,
-        depth=args.depth)
+        col_mode=None if args.col_mode == "auto" else args.col_mode)
 
 
 def _parse_tile(spec: str | None):
@@ -238,10 +249,13 @@ def _parser() -> argparse.ArgumentParser:
                      help="iterations between convergence checks (one "
                           "readback each)")
     run.add_argument("--solver", default="jacobi", choices=list(SOLVERS),
-                     help="convergence strategy: jacobi sweeps; multigrid "
-                          "is not ported yet (ROADMAP item 5)")
+                     help="convergence strategy (with --converge): plain "
+                          "jacobi sweeps, or the geometric multigrid "
+                          "V-cycle (same stopping measure, far fewer "
+                          "fine-grid work units; f32 storage only)")
     run.add_argument("--mg-levels", type=int, default=None, metavar="N",
-                     help="multigrid level cap: not ported yet (item 5)")
+                     help="multigrid level-count cap (default: coarsen "
+                          "to the planner's floor)")
     run.add_argument("--rank", type=int, default=2, choices=[2, 3],
                      help="2 = u8 images; 3 = float volumes, not ported "
                           "yet (ROADMAP item 6)")
@@ -266,8 +280,8 @@ def _parser() -> argparse.ArgumentParser:
     ser.add_argument("--filter", default="blur3", dest="filter_name")
     ser.add_argument("--impl", default="auto",
                      choices=["auto", "oracle", "native"],
-                     help="auto and oracle run the NumPy oracle; the native "
-                          "C++ baseline is not ported yet (ROADMAP item 12)")
+                     help="auto = the native C++ baseline when it builds "
+                          "(byte-identical), else the NumPy oracle")
 
     gen = sub.add_parser("generate", help="write a deterministic test image")
     gen.add_argument("output")
@@ -309,24 +323,28 @@ def _parser() -> argparse.ArgumentParser:
                       help="after emitting, resolve auto against --out and "
                            "record auto_ok (requires --emit-plans)")
 
-    conv_ = sub.add_parser("convert", help="raw -> PGM/PPM (not ported yet)")
+    conv_ = sub.add_parser(
+        "convert", help="raw -> PGM/PPM for visual inspection (no deps)")
     conv_.add_argument("image")
     conv_.add_argument("rows", type=int)
     conv_.add_argument("cols", type=int)
     conv_.add_argument("mode", choices=["grey", "rgb"])
-    conv_.add_argument("-o", "--output", required=True)
+    conv_.add_argument("-o", "--output", required=True,
+                       help=".pgm (grey) or .ppm (rgb) path")
 
     bench_p = sub.add_parser("bench", help="time a synthetic workload; one "
-                                           "JSON row (not ported yet)")
+                                           "JSON row to stdout")
     bench_p.add_argument("rows", type=int)
     bench_p.add_argument("cols", type=int)
     bench_p.add_argument("loops", type=int)
     bench_p.add_argument("mode", choices=["grey", "rgb"])
     _add_perf_args(bench_p)
-    bench_p.add_argument("--reps", type=int, default=3)
+    bench_p.add_argument("--reps", type=int, default=3,
+                         help="timing repetitions (min 1)")
 
-    sub.add_parser("info", help="devices, default grid, filters (not "
-                                "ported yet)")
+    info = sub.add_parser("info", help="cards, default grid, filters")
+    info.add_argument("--device", default=None,
+                      help="cuda (default) or cpu")
     return ap
 
 
@@ -347,12 +365,10 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _dispatch(ap: argparse.ArgumentParser, args) -> int:
-    from parallel_convolution_tpu_torch.utils.config import (
-        HOST_TOOLS, pending,
-    )
-
-    if args.cmd in ("convert", "info", "bench"):
-        raise pending(f"the {args.cmd} subcommand", HOST_TOOLS)
+    if args.cmd == "info":
+        return _info(args)
+    if args.cmd == "bench":
+        return _bench(args)
     if args.cmd == "tune":
         if args.verify_auto and not args.emit_plans:
             ap.error("--verify-auto requires --emit-plans")
@@ -369,6 +385,16 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
                                           seed=args.seed)
         imageio.write_raw(args.output, img)
         print(f"wrote {args.output}: {args.rows}x{args.cols} {args.mode}")
+        return 0
+
+    if args.cmd == "convert":
+        img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
+        magic = b"P5" if args.mode == "grey" else b"P6"
+        with open(args.output, "wb") as f:
+            f.write(magic + b"\n%d %d\n255\n" % (args.cols, args.rows))
+            f.write(np.ascontiguousarray(img).tobytes())
+        print(f"wrote {args.output} "
+              f"({'PGM' if args.mode == 'grey' else 'PPM'})")
         return 0
 
     if args.cmd == "compare":
@@ -390,14 +416,24 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
     if args.cmd == "serial":
         from parallel_convolution_tpu_torch.ops import oracle
 
-        if args.impl == "native":
-            raise pending("serial --impl native", HOST_TOOLS)
-
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
-        out = oracle.run_serial_u8(img, get_filter(args.filter_name),
-                                   args.loops)
+        filt = get_filter(args.filter_name)
+        impl = args.impl
+        if impl in ("auto", "native"):
+            from parallel_convolution_tpu_torch.native import serial_native
+
+            try:
+                out = serial_native.run_serial_u8(img, filt, args.loops)
+                impl = "native"
+            except RuntimeError as e:  # the library does not build
+                if impl == "native":
+                    print(f"error: {e}", file=sys.stderr)
+                    return 2
+                impl = "oracle"
+        if impl == "oracle":
+            out = oracle.run_serial_u8(img, filt, args.loops)
         imageio.write_raw(args.output, out)
-        print(f"serial[oracle]: {args.loops} x {args.filter_name} "
+        print(f"serial[{impl}]: {args.loops} x {args.filter_name} "
               f"-> {args.output}")
         return 0
 
@@ -416,6 +452,16 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     _resolve_perf_knobs(args, grid)
+    if args.solver != "jacobi" and args.converge is None:
+        print(f"--solver {args.solver} requires --converge TOL: without "
+              "it the run is a fixed-count iterate and the solver choice "
+              "would be silently ignored", file=sys.stderr)
+        return 2
+    if args.solver == "multigrid" and args.storage != "f32":
+        print(f"--solver multigrid requires --storage f32 (got "
+              f"{args.storage}): residual/correction fields need full "
+              "float carries", file=sys.stderr)
+        return 2
     if args.converge is not None:
         # The JAX CLI's converge branch takes none of these and ignores
         # them; here a flag that would do nothing is refused.
@@ -426,13 +472,17 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         if unused:
             raise ValueError(f"{', '.join(unused)} with --converge: a "
                              "convergence run has no such branch")
-        # Quantized semantics, as the JAX CLI's Jacobi run: u8-range states
-        # with a store-back every iteration.
+        # Quantized semantics for Jacobi, as the JAX CLI's: u8-range states
+        # with a store-back every iteration.  Multigrid carries signed
+        # float residual and correction fields, which a store-back would
+        # clamp: it runs unquantized.
+        mg = args.solver == "multigrid"
         solver = JacobiSolver(
             filt=args.filter_name, tol=args.converge, max_iters=args.loops,
             check_every=args.check_every, grid=grid, backend=args.backend,
-            quantize=True, fuse=args.fuse, tile=tile, boundary=args.boundary,
-            storage=args.storage)
+            quantize=not mg, fuse=args.fuse, tile=tile,
+            boundary=args.boundary, storage=args.storage, solver=args.solver,
+            mg_levels=args.mg_levels)
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
         x = imageio.interleaved_to_planar(img).astype(np.float32)
         out, iters = solver.solve(x)
@@ -440,8 +490,18 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
             args.output,
             imageio.planar_to_interleaved(
                 np.clip(np.rint(out), 0, 255).astype(np.uint8)))
-        print(f"converged after {iters} iters (tol {args.converge}) "
-              f"-> {args.output}")
+        if mg:
+            # The JAX CLI's line, as it is: it says "converged after" also
+            # when the work-unit cap stopped the run (ROADMAP Queue 3).
+            res = solver.last_mg
+            print(f"converged after {res.cycles} V-cycles "
+                  f"({res.work_units} fine-grid work units, "
+                  f"{res.levels} levels {res.level_shapes}, "
+                  f"residual {res.residual:.3g}, tol {args.converge}) "
+                  f"-> {args.output}")
+        else:
+            print(f"converged after {iters} iters (tol {args.converge}) "
+                  f"-> {args.output}")
         return 0
     model = ConvolutionModel(filt=args.filter_name, grid=grid,
                              backend=args.backend, storage=args.storage,
@@ -470,6 +530,73 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
                  + f", {storage}, fuse {model.effective_fuse}")
     print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
           f"grid ({label}, {device_kind(grid.device)}) -> {args.output}")
+    return 0
+
+
+def _info(args) -> int:
+    """The ``info`` subcommand: the cards (or the CPU), the default grid
+    over them, the filter and backend registries."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops.filters import FILTERS
+    from parallel_convolution_tpu_torch.parallel.mesh import dims_create
+    from parallel_convolution_tpu_torch.utils.config import (
+        BACKENDS, BOUNDARIES, SOLVERS, STORAGES,
+    )
+    from parallel_convolution_tpu_torch.utils.platform import (
+        device_kind, resolve_device,
+    )
+
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [dev]
+    print(f"backend: {dev.type}  devices: {len(devs)}")
+    for d in devs[:8]:
+        print(f"  {d}: {device_kind(d)}")
+    print(f"default grid: {dims_create(len(devs))} (one card per block "
+          "comes with ROADMAP item 10; today every block is on one device)")
+    print(f"filters: {', '.join(sorted(FILTERS))}")
+    print(f"backends: {', '.join(BACKENDS)}")
+    print(f"storages: {', '.join(STORAGES)}  "
+          f"boundaries: {', '.join(BOUNDARIES)}  "
+          f"solvers: {', '.join(SOLVERS)}")
+    print("perf knobs: --fuse T, --tile TH,TW, --fast (measured flagship "
+          "preset)")
+    return 0
+
+
+def _bench(args) -> int:
+    """The ``bench`` subcommand: one JSON row of ``utils.bench.
+    bench_iterate`` on stdout, with the card's name and power limit."""
+    import json
+
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import grid_from_spec
+    from parallel_convolution_tpu_torch.utils import bench as bench_lib
+    from parallel_convolution_tpu_torch.utils.platform import power_limit_w
+
+    _check_pending_perf_flags(args)
+    try:
+        tile = _parse_tile(args.tile)
+        grid = grid_from_spec(args.mesh, args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    _resolve_perf_knobs(args, grid)
+    row = bench_lib.bench_iterate(
+        (args.rows, args.cols), get_filter(args.filter_name), args.loops,
+        grid=grid, channels=3 if args.mode == "rgb" else 1,
+        backend=args.backend, storage=args.storage, fuse=args.fuse,
+        reps=args.reps, tile=tile, fallback=args.fallback)
+    row["power_limit_w"] = power_limit_w(grid.device)
+    print(json.dumps(row))
     return 0
 
 

@@ -51,7 +51,8 @@ def jacobi_solver_from_reference(fields: dict, device=None):
     registry name or a ``(name, taps, dyadic)`` triple with numpy taps,
     ``mesh`` as an ``(R, C)`` grid shape (or None for 1×1), ``backend`` by
     its JAX name (``pallas`` -> ``cuda``, ...); every other field as its
-    value.  The grid lives on ``device`` (default: the card).
+    value, ``solver`` and ``mg_levels`` included (a multigrid solver comes
+    across as one).  The grid lives on ``device`` (default: the card).
     """
     from parallel_convolution_tpu_torch.models import JacobiSolver
     from parallel_convolution_tpu_torch.parallel.mesh import make_grid

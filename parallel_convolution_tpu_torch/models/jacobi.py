@@ -17,7 +17,9 @@ import torch
 from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
-from parallel_convolution_tpu_torch.utils.config import check_solver, pending
+from parallel_convolution_tpu_torch.utils.config import (
+    check_pending, check_solver, pending,
+)
 
 
 @dataclasses.dataclass
@@ -32,9 +34,11 @@ class JacobiSolver:
     port's names (``cuda`` / ``cuda_sep`` / ``cuda_rdma`` for the JAX
     package's ``pallas`` / ``pallas_sep`` / ``pallas_rdma``, or ``auto``
     with ``fuse=None`` to tune the depth too).  ``solver="multigrid"``
-    raises ``NotImplementedError`` here, and ``mg_levels``,
-    ``interior_split``, ``overlap`` and ``col_mode`` in :meth:`solve`
-    (later slices); ``last_mg`` stays None.
+    runs the geometric V-cycle (``solvers.multigrid``; ``mg_levels`` caps
+    its level count, Jacobi ignores it): the same stopping measure, and
+    ``last_mg`` holds the :class:`~parallel_convolution_tpu_torch.solvers.
+    multigrid.MGResult` of the latest solve.  ``interior_split``,
+    ``overlap`` and ``col_mode`` raise in :meth:`solve` (later slices).
     """
 
     filt: Filter | str = "jacobi3"
@@ -75,13 +79,27 @@ class JacobiSolver:
                       "item 13 (the rest of resilience/)")
 
     def solve(self, x) -> tuple[np.ndarray, int]:
-        """(C, H, W) f32 field -> (solved field as numpy, iterations run)."""
+        """(C, H, W) f32 field -> (solved field as numpy, work count): the
+        Jacobi iterations run, or the V-cycles for ``solver="multigrid"``
+        (whose fine-grid work units and level schedule land in
+        ``self.last_mg``)."""
+        if self.solver == "multigrid":
+            from parallel_convolution_tpu_torch.solvers import multigrid
+
+            check_pending(interior_split=self.interior_split)
+            out, res = multigrid.mg_converge(
+                x, self.filt, tol=self.tol, max_iters=self.max_iters,
+                grid=self.grid, quantize=self.quantize, backend=self.backend,
+                storage=self.storage, boundary=self.boundary, fuse=self.fuse,
+                tile=self.tile, overlap=self.overlap,
+                mg_levels=self.mg_levels, col_mode=self.col_mode)
+            self.last_mg = res
+            return out.cpu().numpy(), res.cycles
         out, iters = step_lib.sharded_converge(
             x, self.filt, tol=self.tol, max_iters=self.max_iters,
             check_every=self.check_every, grid=self.grid,
             quantize=self.quantize, backend=self.backend,
             boundary=self.boundary, storage=self.storage, fuse=self.fuse,
             tile=self.tile, interior_split=self.interior_split,
-            overlap=self.overlap, col_mode=self.col_mode,
-            mg_levels=self.mg_levels)
+            overlap=self.overlap, col_mode=self.col_mode)
         return out.cpu().numpy(), iters

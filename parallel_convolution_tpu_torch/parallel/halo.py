@@ -10,11 +10,14 @@ Two phases, as in the JAX package's ``halo_exchange``:
    ghosts arrive in two hops, with no diagonal copies.
 
 A block on the image edge gets zeros (boundary ``zero``, the reference's
-ghost ring) or its wrap-around neighbour (``periodic``, a torus).  In this
-slice all blocks live on one device, so an exchange is slicing and copying
-between the block tensors.  ``halo_exchange.calls`` counts the calls, so a
-run can show that a path (the ``cuda_rdma`` backend on the card) never
-made one.
+ghost ring) or its wrap-around neighbour (``periodic``, a torus).  All
+blocks live on one device, so an exchange copies the blocks into one
+padded grid (R, C_grid, C, h+2d, w+2d) and fills every ghost ring with a
+few whole-grid copies (:func:`_fill_ghosts`), for a list of blocks
+(:func:`halo_exchange`) and for the stacked grid
+(:func:`halo_exchange_stacked`) alike.  ``halo_exchange.calls`` counts the
+calls on a list of blocks, so a run can show that a path (the
+``cuda_rdma`` backend on the card) never made one.
 """
 
 from __future__ import annotations
@@ -24,61 +27,92 @@ import torch
 from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
 
 
-def _neighbor(i: int, n: int, periodic: bool) -> int | None:
-    if 0 <= i < n:
-        return i
-    return i % n if periodic else None
+def _check(boundary: str, depth: int, hw) -> int:
+    if boundary not in BOUNDARIES:
+        raise ValueError(
+            f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
+    d = int(depth)
+    if d > hw[0] or d > hw[1]:
+        raise ValueError(f"halo depth {d} deeper than the block "
+                         f"{tuple(hw)}")
+    return d
+
+
+def _fill_ghosts(p: torch.Tensor, d: int, periodic: bool) -> None:
+    """The two phases on the padded grid ``p`` (R, C_grid, C, h+2d, w+2d)
+    whose interiors are filled: each a few whole-grid copies, however many
+    blocks the grid has, one indexed assignment each (the fuse-1 path
+    pays them on the host once a level).  Every source is an interior row
+    or column, which neither phase writes."""
+    R, Cg = p.shape[:2]
+    h, w = p.shape[-2] - 2 * d, p.shape[-1] - 2 * d
+    cols = slice(d, d + w)
+    # Phase 1: rows.  The grid's edge rows of blocks get zeros (every
+    # block's, the inner ones overwritten below) or their wrap-around
+    # neighbour's; the inner ones their upper / lower neighbour's last /
+    # first d interior rows.
+    if periodic:
+        p[0, ..., :d, cols] = p[-1, ..., h:h + d, cols]
+        p[-1, ..., d + h:, cols] = p[0, ..., d:2 * d, cols]
+    else:
+        p[..., :d, cols] = 0
+        p[..., d + h:, cols] = 0
+    if R > 1:
+        p[1:, ..., :d, cols] = p[:-1, ..., h:h + d, cols]
+        p[:-1, ..., d + h:, cols] = p[1:, ..., d:2 * d, cols]
+    # Phase 2: columns at full padded height, from the row-padded left /
+    # right neighbour, the same way.
+    if periodic:
+        p[:, 0, ..., :d] = p[:, -1, ..., w:w + d]
+        p[:, -1, ..., d + w:] = p[:, 0, ..., d:2 * d]
+    else:
+        p[..., :d] = 0
+        p[..., d + w:] = 0
+    if Cg > 1:
+        p[:, 1:, ..., :d] = p[:, :-1, ..., w:w + d]
+        p[:, :-1, ..., d + w:] = p[:, 1:, ..., d:2 * d]
 
 
 def halo_exchange(blocks: list[list[torch.Tensor]], depth: int,
                   grid_shape: tuple[int, int],
                   boundary: str = "zero") -> list[list[torch.Tensor]]:
     """Pad every (C, h, w) block to (C, h+2d, w+2d) with its neighbours'
-    edges.  Returns new tensors; the input blocks are not modified."""
+    edges.  Returns new tensors (views of one padded grid); the input
+    blocks are not modified."""
     halo_exchange.calls += 1
-    if boundary not in BOUNDARIES:
-        raise ValueError(
-            f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
-    periodic = boundary == "periodic"
     R, Cg = grid_shape
-    d = int(depth)
+    b0 = blocks[0][0]
+    d = _check(boundary, depth, b0.shape[1:])
     if d == 0:
         return [list(row) for row in blocks]
-    h, w = blocks[0][0].shape[1:]
-    if d > h or d > w:
-        raise ValueError(f"halo depth {d} deeper than the block {(h, w)}")
-    padded = [[None] * Cg for _ in range(R)]
-    for i in range(R):
-        up, down = _neighbor(i - 1, R, periodic), _neighbor(i + 1, R, periodic)
-        for j in range(Cg):
-            b = blocks[i][j]
-            p = b.new_empty((b.shape[0], h + 2 * d, w + 2 * d))
-            p[:, d:d + h, d:d + w] = b
-            if up is None:
-                p[:, :d, d:d + w] = 0
-            else:
-                p[:, :d, d:d + w] = blocks[up][j][:, h - d:, :]
-            if down is None:
-                p[:, d + h:, d:d + w] = 0
-            else:
-                p[:, d + h:, d:d + w] = blocks[down][j][:, :d, :]
-            padded[i][j] = p
-    # Phase 2 reads only neighbours' interior columns, which phase 2 never
-    # writes, so the order of the blocks does not matter.
-    for i in range(R):
-        for j in range(Cg):
-            left = _neighbor(j - 1, Cg, periodic)
-            right = _neighbor(j + 1, Cg, periodic)
-            p = padded[i][j]
-            if left is None:
-                p[:, :, :d] = 0
-            else:
-                p[:, :, :d] = padded[i][left][:, :, w:w + d]
-            if right is None:
-                p[:, :, d + w:] = 0
-            else:
-                p[:, :, d + w:] = padded[i][right][:, :, d:2 * d]
-    return padded
+    C, h, w = b0.shape
+    flat = b0.new_empty((R * Cg, C, h + 2 * d, w + 2 * d))
+    for k, b in enumerate(b for row in blocks for b in row):
+        flat[k, :, d:d + h, d:d + w] = b
+    _fill_ghosts(flat.view(R, Cg, C, h + 2 * d, w + 2 * d), d,
+                 boundary == "periodic")
+    padded = flat.unbind(0)
+    return [list(padded[i * Cg:(i + 1) * Cg]) for i in range(R)]
 
 
 halo_exchange.calls = 0
+
+
+def halo_exchange_stacked(x: torch.Tensor, depth: int,
+                          grid_shape: tuple[int, int],
+                          boundary: str = "zero") -> torch.Tensor:
+    """:func:`halo_exchange` on the stacked grid (R·C, C, h, w) (block
+    ``i * C + j`` at grid position (i, j), ``ops/rdma.stack_blocks``'s
+    layout): every block padded to (C, h+2d, w+2d), the same values block
+    for block, the interiors placed by one copy."""
+    R, Cg = grid_shape
+    nb, C, h, w = x.shape
+    if nb != R * Cg:
+        raise ValueError(f"expected {R * Cg} stacked blocks for grid "
+                         f"{tuple(grid_shape)}, got {nb}")
+    d = _check(boundary, depth, (h, w))
+    p = x.new_empty((R, Cg, C, h + 2 * d, w + 2 * d))
+    p[..., d:d + h, d:d + w] = x.reshape(R, Cg, C, h, w)
+    if d:
+        _fill_ghosts(p, d, boundary == "periodic")
+    return p.reshape(nb, C, h + 2 * d, w + 2 * d)

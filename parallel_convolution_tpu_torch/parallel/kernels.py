@@ -1,9 +1,11 @@
 """Kernel-form registry: dispatch is a table keyed ``(rank, name,
 boundary)``, as in the JAX package's ``parallel/kernels.py``.
 
-This slice registers the smoother forms only (``parallel/step.py``
-registers one per backend at import).  Transfer operators, volumes and the
-overlap / persistent-channel capability bits come with their slices.
+``parallel/step.py`` registers one smoother form per backend at import,
+``solvers/transfer.py`` the multigrid transfer operators (``restrict_fw``,
+``prolong_bilinear``) under their own stencil forms, so a transfer
+operator can never be taken for a smoother.  Volumes and the overlap /
+persistent-channel capability bits come with their slices.
 """
 
 from __future__ import annotations
@@ -11,16 +13,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-STENCIL_FORMS = ("smooth",)
+STENCIL_FORMS = ("smooth", "restrict", "prolong")
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelForm:
     """One registered stencil program family.
 
+    ``build`` is owned by the registering module.  For a smoother it is
     ``build(filt, grid, valid_hw, block_hw, quantize, fuse, boundary,
-    tile) -> step`` returns the per-chunk step that maps the grid's blocks
-    to the blocks ``fuse`` iterations later.
+    tile) -> step``: the per-chunk step that maps the grid's blocks to the
+    blocks ``fuse`` iterations later; for a transfer operator
+    ``build(grid_shape, valid_hw, block_hw, boundary) -> op`` over the
+    fine level's blocks (``solvers/transfer.py``).
     """
 
     name: str
@@ -53,12 +58,19 @@ def register(form: KernelForm) -> KernelForm:
     return form
 
 
+def _ensure_default_forms() -> None:
+    """Import the modules that register the default forms (idempotent), so
+    resolution works in any import order."""
+    from parallel_convolution_tpu_torch.parallel import step  # noqa: F401
+    from parallel_convolution_tpu_torch.solvers import transfer  # noqa: F401
+
+
 def resolve(rank: int, name: str, boundary: str) -> KernelForm:
     """The form for ``(rank, name, boundary)``; raises ``ValueError``
     naming the registered forms when there is none."""
     key = (int(rank), str(name), str(boundary))
     if key not in _FORMS:
-        from parallel_convolution_tpu_torch.parallel import step  # noqa: F401
+        _ensure_default_forms()
     form = _FORMS.get(key)
     if form is None:
         names = sorted({k[1] for k in _FORMS if k[0] == key[0]})
@@ -66,3 +78,11 @@ def resolve(rank: int, name: str, boundary: str) -> KernelForm:
             f"no kernel form registered for rank={key[0]} name={key[1]!r} "
             f"boundary={key[2]!r}; registered rank-{key[0]} forms: {names}")
     return form
+
+
+def registered_keys(stencil_form: str | None = None) -> frozenset:
+    """The registered ``(rank, name, boundary)`` keys, of one stencil form
+    when given."""
+    _ensure_default_forms()
+    return frozenset(k for k, f in _FORMS.items()
+                     if stencil_form is None or f.stencil_form == stencil_form)

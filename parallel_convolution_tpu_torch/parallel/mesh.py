@@ -10,10 +10,27 @@ the JAX package: grid rows split H, grid columns split W.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from parallel_convolution_tpu_torch.utils.platform import resolve_device
+
+
+def dims_create(n: int) -> tuple[int, int]:
+    """Near-square factorization of ``n`` — the MPI_Dims_create contract.
+
+    Returns (R, C) with R*C == n and R <= C, R as close to sqrt(n) as the
+    factorization allows (the JAX package's default mesh over its devices;
+    here the default grid over the cards, which blocks on separate cards,
+    item 10, will use).
+    """
+    if n < 1:
+        raise ValueError("need at least one device")
+    r = int(math.isqrt(n))
+    while n % r:
+        r -= 1
+    return r, n // r
 
 
 def padded_extent(total: int, parts: int) -> int:

@@ -203,7 +203,14 @@ _register_smoother_forms()
 
 def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
                      fuse=1, boundary="zero", tile=None):
+    """The smoother step of ``backend``, through the kernel-form registry;
+    a transfer operator's name fails here (it is not a smoother)."""
     form = kernel_forms.resolve(2, backend, boundary)
+    if form.stencil_form != "smooth":
+        raise ValueError(
+            f"kernel form {backend!r} is a {form.stencil_form} operator, "
+            "not a smoother; transfer operators are driven by "
+            "solvers.multigrid, not the iterate path")
     return form.build(filt, grid, valid_hw, block_hw, quantize, fuse,
                       boundary, tile)
 
@@ -493,18 +500,34 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
     return chunk
 
 
+def _multigrid(x, filt: Filter, tol, max_iters, grid, quantize, backend,
+               storage, boundary, fuse, tile, interior_split, fallback,
+               overlap, mg_levels, col_mode, device, stream: bool):
+    """``solver='multigrid'``: the V-cycle (``solvers.multigrid``, imported
+    here because the solver package imports this module)."""
+    from parallel_convolution_tpu_torch.solvers import multigrid
+
+    check_pending(interior_split=interior_split)
+    kw = dict(grid=grid, quantize=quantize, backend=backend, storage=storage,
+              boundary=boundary, fuse=fuse, tile=tile, fallback=fallback,
+              overlap=overlap, mg_levels=mg_levels, col_mode=col_mode,
+              device=device)
+    if stream:
+        return multigrid.mg_converge_stream(x, filt, tol, max_iters, **kw)
+    return multigrid.mg_converge(x, filt, tol, max_iters, **kw)
+
+
 def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
                     storage, boundary, fuse, tile, interior_split, fallback,
-                    overlap, solver, mg_levels, col_mode, device):
+                    overlap, solver, col_mode, device):
     """The checks, the default grid, the prepared blocks and the resolved
-    knobs of one convergence run (both entry points)."""
+    knobs of one Jacobi convergence run (both entry points)."""
     check_solver(solver)
     if int(check_every) < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
         x, grid, device, backend, storage, boundary, quantize,
-        interior_split=interior_split, overlap=overlap, col_mode=col_mode,
-        mg_levels=mg_levels)
+        interior_split=interior_split, overlap=overlap, col_mode=col_mode)
     backend, fuse, tile, _ = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
@@ -562,15 +585,29 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
     ``check_every - 1`` pre-pair iterations, so the whole run clamps the
     fuse to that.  ``grid`` defaults to 1×1 on ``device`` (default: the
     card; it raises without CUDA).  ``fallback=True`` probes the backend
-    first, as :func:`iterate_prepared` does.  ``solver='multigrid'`` and
-    ``mg_levels`` belong to a later slice and raise.
+    first, as :func:`iterate_prepared` does.
+
+    ``solver='multigrid'`` runs the geometric V-cycle instead
+    (``solvers.multigrid.mg_converge``, its level count capped by
+    ``mg_levels``): the returned count is then V-cycles, ``max_iters``
+    bounds fine-grid work units and ``check_every`` is ignored (the cycle
+    is the check cadence); the stopping measure is the same, the max-abs
+    change of one fine-grid sweep, and its readbacks count on
+    ``multigrid.mg_converge.readbacks``.  ``mg_levels`` is ignored by
+    Jacobi, as in the JAX package.
     ``sharded_converge.readbacks`` counts the readbacks (one per chunk);
     :func:`sharded_converge_stream` yields each chunk's diff.
     """
+    if solver == "multigrid":
+        out, res = _multigrid(x, filt, tol, max_iters, grid, quantize,
+                              backend, storage, boundary, fuse, tile,
+                              interior_split, fallback, overlap, mg_levels,
+                              col_mode, device, stream=False)
+        return out, res.cycles
     grid, blocks, valid_hw, block_hw, backend, fuse, tile = _converge_setup(
         x, filt, check_every, grid, quantize, backend, storage, boundary,
-        fuse, tile, interior_split, fallback, overlap, solver, mg_levels,
-        col_mode, device)
+        fuse, tile, interior_split, fallback, overlap, solver, col_mode,
+        device)
     check_every, max_iters = int(check_every), int(max_iters)
     # A chunk fuses at most the n-1 pre-pair iterations (the final one is
     # always a single step so the (prev, cur) diff exists), so clamp to
@@ -622,11 +659,23 @@ def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     :func:`sharded_converge` with the same arguments (the same chunks).
     ``sharded_converge_stream.readbacks`` counts the diff readbacks, one
     per chunk.
+
+    ``solver='multigrid'`` yields one snapshot per V-cycle instead
+    (``iters_done`` counts cycles, ``max_iters`` bounds fine-grid work
+    units); ``solvers.multigrid.mg_converge_stream``, which this delegates
+    to, also yields the work units.
     """
+    if solver == "multigrid":
+        for out, cycles, residual, _ in _multigrid(
+                x, filt, tol, max_iters, grid, quantize, backend, storage,
+                boundary, fuse, tile, interior_split, fallback, overlap,
+                mg_levels, col_mode, device, stream=True):
+            yield out, cycles, residual
+        return
     grid, blocks, valid_hw, block_hw, backend, fuse, tile = _converge_setup(
         x, filt, check_every, grid, quantize, backend, storage, boundary,
-        fuse, tile, interior_split, fallback, overlap, solver, mg_levels,
-        col_mode, device)
+        fuse, tile, interior_split, fallback, overlap, solver, col_mode,
+        device)
     stacked = backend == "cuda_rdma"
     state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
     del blocks

@@ -1,0 +1,230 @@
+"""Multigrid transfer operators as stencil forms (the rank-2 half of the JAX
+package's ``solvers/transfer.py``).
+
+Restriction (full weighting) and prolongation (bilinear) are the
+inter-grid couplings of the V-cycle, and they are stencils: full weighting
+is the 3×3 ``[[1,2,1],[2,4,2],[1,2,1]]/16`` tap array (the registry's
+``blur3``) applied at every coarse-aligned fine point, bilinear
+prolongation its adjoint up to scaling.  Both register in the kernel-form
+registry (``parallel.kernels``) under their own stencil forms
+(``restrict`` / ``prolong``), keyed ``(rank=2, name, boundary)``, and build
+functions over the fine level's grid of blocks, given as the R×C list of
+``(C, h, w)`` blocks or as the stacked ``(R·C, C, h, w)`` grid (returned in
+the form given):
+
+* ghost cells come from the same two-phase halo exchange
+  (``halo.halo_exchange_stacked``, depth 1: both operators touch at most
+  one neighbour point), and every step runs on all blocks at once, a few
+  ops however many blocks the grid has;
+* out-of-image positions are re-masked through ``step._valid_mask``, so
+  the pad-to-multiple rim behaves like the serial zero-pad formula.
+
+The operators are plain PyTorch (the JAX package's are ``jnp``, outside
+any Pallas kernel), so they run the same on the card and the CPU.
+
+Grid alignment (the JAX package's contract, unchanged):
+
+* ``zero`` — odd-centered: coarse ``k`` sits at fine ``2k+1``, so the
+  coarse ghost ring coincides with the fine ghost ring at every level.
+  Coarse extent ``(n−1)//2``.
+* ``periodic`` — even-centered: coarse ``k`` at fine ``2k``.  Coarse
+  extent ``n//2``; the level planner refuses to coarsen a torus level
+  whose extents cannot keep grid-divisible alignment.
+
+With even fine blocks (the level planner's padding rule) both centerings
+keep every coarse point's stencil within its block plus a depth-1 halo.
+The rank-3 forms (``restrict_fw3``, ``prolong_trilinear``) come with the
+volumes (ROADMAP item 6).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parallel_convolution_tpu_torch.ops import rdma
+from parallel_convolution_tpu_torch.ops.filters import get_filter
+from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
+
+__all__ = ["FW_FILTER", "build_prolong_bilinear", "build_restrict_fw",
+           "coarse_extent"]
+
+# Full weighting IS the /16 pyramid stencil — the registry's blur3 taps.
+FW_FILTER = get_filter("blur3")
+
+
+def coarse_extent(n: int, boundary: str = "zero") -> int:
+    """Coarse-grid extent of a fine extent ``n`` under the centering the
+    boundary requires: ``(n−1)//2`` for zero (odd-centered — coarse k at
+    fine 2k+1, last point strictly inside), ``n//2`` for periodic
+    (even-centered wrap; the planner enforces even ``n``)."""
+    n = int(n)
+    return n // 2 if boundary == "periodic" else (n - 1) // 2
+
+
+def _check_even_block(block_hw, op: str) -> None:
+    bh, bw = block_hw
+    if bh % 2 or bw % 2:
+        raise ValueError(
+            f"{op} needs even per-device blocks (coarse-aligned fine "
+            f"points stay device-local), got {tuple(block_hw)}; the level "
+            "planner pads extents to 2*grid multiples")
+
+
+def _stacked(state) -> torch.Tensor:
+    """The stacked (R·C, C, h, w) grid of a level state (one block: a view,
+    no copy)."""
+    if torch.is_tensor(state):
+        return state
+    flat = [b for row in state for b in row]
+    return flat[0].unsqueeze(0) if len(flat) == 1 else torch.stack(flat)
+
+
+def _like(x: torch.Tensor, state, grid_shape):
+    """``x`` (stacked) in the form of ``state``: stacked, or R×C views."""
+    return x if torch.is_tensor(state) else rdma.unstack_blocks(x, grid_shape)
+
+
+def _masker(valid_hw, block_hw, grid_shape):
+    """The stacked (R·C, 1, h, w) validity mask of every block on
+    ``valid_hw`` at ``block_hw`` blocks, cached per device and dtype."""
+    from parallel_convolution_tpu_torch.parallel.step import _valid_mask
+
+    R, Cg = grid_shape
+    masks: dict = {}
+
+    def mask(like: torch.Tensor) -> torch.Tensor:
+        key = (like.device, like.dtype)
+        if key not in masks:
+            masks[key] = torch.stack([
+                _valid_mask(valid_hw, block_hw, (i, j), device=like.device)
+                for i in range(R) for j in range(Cg)]).to(like.dtype)
+        return masks[key]
+
+    return mask
+
+
+def _correlate_subsampled(padded: torch.Tensor, off: int,
+                          out_hw) -> torch.Tensor:
+    """``conv.correlate_padded(padded, FW_FILTER)[:, off::2, off::2]``,
+    computed at the kept points only: the same taps in the same order,
+    one multiply and one add each, so the same values at a quarter of
+    the work."""
+    ch, cw = out_hw
+    x = padded.to(torch.float32)
+    acc = torch.zeros((*x.shape[:-2], ch, cw), dtype=torch.float32,
+                      device=x.device)
+    taps = [float(t) for t in FW_FILTER.taps.reshape(-1)]
+    i = 0
+    for dy in range(FW_FILTER.size):
+        for dx in range(FW_FILTER.size):
+            acc = acc + taps[i] * x[..., off + dy:off + dy + 2 * ch:2,
+                                    off + dx:off + dx + 2 * cw:2]
+            i += 1
+    return acc
+
+
+def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero"):
+    """Full-weighting restriction over the fine level's blocks:
+    ``(C, bh, bw) → (C, bh/2, bw/2)`` for every block of the
+    ``grid_shape`` grid.
+
+    One depth-1 halo exchange, one ``blur3``-tap correlation (the full
+    weighting stencil) at the centering subsample (odd fine indices for
+    zero, even for periodic), and the coarse validity mask: positions
+    beyond ``coarse_extent(valid)`` are zero.
+    """
+    _check_even_block(block_hw, "restrict_fw")
+    periodic = boundary == "periodic"
+    R, Cg = grid_shape
+    cvalid = (coarse_extent(valid_hw[0], boundary),
+              coarse_extent(valid_hw[1], boundary))
+    cblock = (block_hw[0] // 2, block_hw[1] // 2)
+    needs_mask = not periodic and (
+        cvalid[0] != cblock[0] * R or cvalid[1] != cblock[1] * Cg)
+    # Local index of coarse point 0's fine image: 1 (odd-centered, zero)
+    # or 0 (even-centered, periodic); with even blocks, fine 2k+off lies
+    # inside the block and the taps reach one cell beyond at most.
+    off = 0 if periodic else 1
+    mask = _masker(cvalid, cblock, (R, Cg))
+
+    def restrict(state):
+        x = _stacked(state)
+        p = halo.halo_exchange_stacked(x, 1, (R, Cg), boundary)
+        c = _correlate_subsampled(p, off, cblock)
+        if needs_mask:
+            c = c * mask(c)
+        return _like(c.to(x.dtype), state, (R, Cg))
+
+    return restrict
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+    """Alternate a/b along ``axis`` (negative: from the end): out[2i] =
+    a[i], out[2i+1] = b[i]."""
+    shape = list(a.shape)
+    shape[axis] *= 2
+    return torch.stack([a, b], dim=axis % a.dim() + 1).reshape(shape)
+
+
+def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
+                           boundary: str = "zero"):
+    """Bilinear prolongation over the fine level's grid: every block's
+    ``(C, bh/2, bw/2)`` coarse correction (already moved onto the fine
+    grid at half blocks) → ``(C, bh, bw)``.
+
+    Coarse-aligned fine points copy their coarse point; the points between
+    average the two (four, at the diagonal) bracketing coarse points: the
+    tensor product of the 1-D ``[1/2, 1, 1/2]`` stencil, as two interleave
+    passes over the depth-1 halo-padded coarse block.  Beyond-extent
+    coarse reads are the boundary's ghost convention: 0 for zero, wrap for
+    periodic.
+    """
+    _check_even_block(block_hw, "prolong_bilinear")
+    periodic = boundary == "periodic"
+    R, Cg = grid_shape
+    m, n = block_hw[0] // 2, block_hw[1] // 2
+    needs_mask = not periodic and (
+        valid_hw[0] != block_hw[0] * R or valid_hw[1] != block_hw[1] * Cg)
+    mask = _masker(valid_hw, block_hw, (R, Cg))
+
+    def interpolate(p: torch.Tensor) -> torch.Tensor:
+        """The padded coarse blocks (..., m+2, n+2) → (..., 2m, 2n)."""
+        if periodic:
+            # Even-centered: fine 2k = coarse k; fine 2k+1 = mean(k, k+1).
+            a = p[..., 1:m + 1, :]
+            b = p[..., 2:m + 2, :]
+            rows = _interleave(a, (a + b) * 0.5, axis=-2)  # (..., 2m, n+2)
+            al = rows[..., 1:n + 1]
+            bl = rows[..., 2:n + 2]
+            return _interleave(al, (al + bl) * 0.5, axis=-1)
+        # Odd-centered: fine 2k+1 = coarse k; fine 2k = mean(k-1, k)
+        # (coarse ghost −1 reads 0 — the fine boundary line itself).
+        a = p[..., 0:m, :]
+        b = p[..., 1:m + 1, :]
+        rows = _interleave((a + b) * 0.5, b, axis=-2)      # (..., 2m, n+2)
+        al = rows[..., 0:n]
+        bl = rows[..., 1:n + 1]
+        return _interleave((al + bl) * 0.5, bl, axis=-1)   # (..., 2m, 2n)
+
+    def prolong(state):
+        c = _stacked(state)
+        f = interpolate(halo.halo_exchange_stacked(c, 1, (R, Cg), boundary))
+        if needs_mask:
+            f = f * mask(f)
+        return _like(f.to(c.dtype), state, (R, Cg))
+
+    return prolong
+
+
+def _register_transfer_forms() -> None:
+    from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
+
+    kernel_forms.register(kernel_forms.KernelForm(
+        name="restrict_fw", rank=2, stencil_form="restrict",
+        boundaries=tuple(BOUNDARIES), build=build_restrict_fw))
+    kernel_forms.register(kernel_forms.KernelForm(
+        name="prolong_bilinear", rank=2, stencil_form="prolong",
+        boundaries=tuple(BOUNDARIES), build=build_prolong_bilinear))
+
+
+_register_transfer_forms()

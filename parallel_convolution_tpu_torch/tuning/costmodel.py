@@ -383,3 +383,95 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
 def predict_gpx_per_chip(seconds_per_px_iter: float) -> float:
     """Gpixels/sec/chip implied by a per-px-iter time (the bench unit)."""
     return 1.0 / (seconds_per_px_iter * 1e9)
+
+
+# -- multigrid (the JAX package's costmodel.py:472-564) --------------------
+
+
+def predict_vcycle_seconds(terms: list[tuple[float, int, int]]) -> float:
+    """Price of one multigrid V-cycle: the SUM of its per-level sweeps.
+
+    ``terms`` is one ``(seconds_per_px_iter, pixels, sweeps)`` triple per
+    grid level (from :func:`predict_seconds_per_px_iter` on that level's
+    own block and grid).  Coarse levels are cheaper (fewer pixels, often a
+    smaller grid) but never free: on the card each sweep still pays its
+    launches.
+    """
+    return sum(spp * px * n for spp, px, n in terms)
+
+
+# Sweep counts of the V-cycle schedule, a mirror of solvers.multigrid's
+# NU_PRE / NU_POST / NU_COARSE plus its work-unit charge (residual = one
+# sweep, restriction + prolongation together one more), so that a job can
+# be priced without the solver; tests/test_torch_multigrid.py holds the
+# two equal.
+MG_PRE_SWEEPS = 2
+MG_POST_SWEEPS = 2
+MG_COARSE_SWEEPS = 16
+MG_TRANSFER_SWEEP_EQUIV = 2
+# Mirrors multigrid.MG_MIN_EXTENT / MG_MAX_LEVELS.
+MG_MIN_EXTENT = 8
+MG_MAX_LEVELS = 12
+
+
+def mg_default_levels(extent_hw: tuple[int, int],
+                      mg_levels: int | None = None,
+                      floor: int = MG_MIN_EXTENT) -> int:
+    """Level count a V-cycle schedule would plan for this global fine
+    extent: halve per level until a side would drop under ``floor``
+    (capped by ``mg_levels`` and :data:`MG_MAX_LEVELS`).  A pricing mirror
+    of ``multigrid.plan_levels``, ranking-grade: the real planner also
+    vetoes torus misalignment, enforces the block floor and moves coarse
+    levels onto smaller grids."""
+    h, w = max(1, int(extent_hw[0])), max(1, int(extent_hw[1]))
+    levels = 1
+    while (min(h, w) >> levels) >= floor and levels < MG_MAX_LEVELS:
+        levels += 1
+    if mg_levels is not None:
+        levels = max(1, min(levels, int(mg_levels)))
+    return levels
+
+
+def predict_mg_cycle_seconds(shape: tuple[int, int, int],
+                             grid: tuple[int, int], k: int,
+                             storage: str, quantize: bool,
+                             hw: HardwareModel, *,
+                             levels: int | None = None,
+                             backend: str = "shifted",
+                             ) -> tuple[float, float]:
+    """``(cycle_seconds, fine_work_units_per_cycle)`` for one V-cycle.
+
+    Per-level terms from :func:`predict_seconds_per_px_iter` on that
+    level's own (halved) geometry, summed by
+    :func:`predict_vcycle_seconds`; the second element is the
+    pixel-weighted fine-grid work units one cycle spends, the unit
+    ``mg_converge_stream`` bounds with ``max_iters``.  The grid is held
+    fixed across levels (the real schedule moves coarse levels onto
+    smaller grids, which only cheapens them).
+    """
+    C, H, W = (max(1, int(v)) for v in shape)
+    R, Q = (max(1, int(v)) for v in grid)
+    if levels is None:
+        levels = mg_default_levels((H, W))
+    levels = max(1, int(levels))
+    terms: list[tuple[float, int, int]] = []
+    wu = 0.0
+    fine_px = C * H * W
+    for lvl in range(levels):
+        h = max(1, H >> lvl)
+        w = max(1, W >> lvl)
+        block = (max(1, -(-h // R)), max(1, -(-w // Q)))
+        px = C * h * w
+        if levels == 1:
+            sweeps = MG_PRE_SWEEPS + MG_POST_SWEEPS
+        elif lvl < levels - 1:
+            sweeps = (MG_PRE_SWEEPS + MG_POST_SWEEPS
+                      + MG_TRANSFER_SWEEP_EQUIV)
+        else:
+            sweeps = MG_COARSE_SWEEPS
+        spp = predict_seconds_per_px_iter(
+            backend, storage, 1, None, (C, h, w), block, (R, Q), k,
+            False, quantize, hw)
+        terms.append((spp, px, sweeps))
+        wu += sweeps * px / fine_px
+    return predict_vcycle_seconds(terms), wu

@@ -45,8 +45,6 @@ BACKEND_FROM_REFERENCE = {
 
 _SEPARATE_CARDS = "item 10 (blocks on separate cards)"
 _VOLUMES = "item 6 (volumes)"
-MULTIGRID = "item 5 (multigrid)"
-HOST_TOOLS = "item 12 (the rest of the CLI and the host tools)"
 
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.
@@ -54,7 +52,6 @@ PENDING_KNOBS = {
     "interior_split": "item 2 (interior_split)",
     "overlap": _SEPARATE_CARDS,
     "col_mode": _SEPARATE_CARDS,
-    "mg_levels": MULTIGRID,
     "rank": _VOLUMES,
     "depth": _VOLUMES,
 }
@@ -92,10 +89,7 @@ def check_pending(**knobs) -> None:
 
 
 def check_solver(solver: str) -> None:
-    """``jacobi`` runs; ``multigrid`` is a later slice; anything else is an
-    error, as in the JAX package."""
-    if solver == "multigrid":
-        raise pending("solver='multigrid'", MULTIGRID)
+    """One of :data:`SOLVERS`, else the JAX package's error."""
     if solver not in SOLVERS:
         raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
 

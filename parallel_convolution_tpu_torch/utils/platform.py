@@ -36,3 +36,23 @@ def device_kind(device) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return dev.type
+
+
+def power_limit_w(device) -> float | None:
+    """The card's power limit in watts, as ``nvidia-smi`` reports it (a
+    card set below its maximum runs slower under load, so a time is
+    recorded beside it); None on the CPU or where ``nvidia-smi`` cannot
+    say."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.limit",
+             "--format=csv,noheader,nounits", "-i", str(dev.index or 0)],
+            capture_output=True, text=True, timeout=60)
+        return float(res.stdout.strip().splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None

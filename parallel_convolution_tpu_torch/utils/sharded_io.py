@@ -6,22 +6,28 @@ BASELINE config 4 is a 65536×65536 RGB image, a 12.9 GB u8 file, and on a
 1×1 grid its one block is the whole of it.  The reference reads each
 rank's block with MPI-IO offsets; here :func:`load_sharded` fills each
 block of the grid on its device from the file in row bands of at most
-:data:`BAND_BYTES`: ``utils.imageio.read_block`` (a NumPy memmap window)
-reads a band, the band is copied to the device, and the interleaved →
-planar change and the cast to the storage dtype run there.  The blocks
-come out as ``parallel.step._prepare`` cuts them: padded to block
-multiples, the pad rim zero.
+:data:`BAND_BYTES`: a band is read on the host and copied to the
+device, and the interleaved → planar change and the cast to the storage
+dtype run there.  The blocks come out as ``parallel.step._prepare`` cuts
+them: padded to block multiples, the pad rim zero.
 
 :func:`save_sharded` runs the other way: each block's valid part, a band
 at a time, clamped to [0, 255] and cast to u8 and made interleaved on the
 device, copied to the host and written at its file offset
 (``MPI_File_write_at``).
 
-The port has no native reader yet (ROADMAP item 12): it reads through
-NumPy only.
+A band is read through the native C++ reader
+(``native.serial_native.read_block``) or through NumPy; the bytes are the
+same.  ``reader="auto"`` takes the native one when its library is built,
+as the JAX package does, but decides once per process
+(:func:`default_reader`), so one run never mixes the two.  The JAX
+package falls back from a failed native read to NumPy without a word;
+here a failed native read raises (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,10 +36,13 @@ from parallel_convolution_tpu_torch.parallel.mesh import Grid, padded_extent
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils import imageio
 
-__all__ = ["BAND_BYTES", "load_sharded", "save_sharded"]
+__all__ = ["BAND_BYTES", "READERS", "default_reader", "load_sharded",
+           "save_sharded"]
 
 # The most file bytes one band of a block moves through the host.
 BAND_BYTES = 64 << 20
+
+READERS = ("auto", "native", "numpy")
 
 _NUMPY_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.uint8): torch.uint8}
@@ -52,6 +61,32 @@ def _torch_dtype(dtype) -> torch.dtype:
                          "np.float32 / np.uint8") from e
 
 
+@functools.cache
+def default_reader() -> str:
+    """``reader="auto"``'s choice, made at its first use in the process:
+    ``native`` when the native library is built and fresh, else
+    ``numpy``."""
+    from parallel_convolution_tpu_torch import native
+
+    return "native" if native.is_built() else "numpy"
+
+
+def _block_reader(reader: str):
+    """The band reader ``read(path, rows, cols, mode, r0, r1, c0, c1)`` ->
+    a (r1-r0, c1-c0[, 3]) u8 array, for ``reader`` in :data:`READERS`."""
+    if reader not in READERS:
+        raise ValueError(f"reader must be one of {READERS}, got {reader!r}")
+    if reader == "auto":
+        reader = default_reader()
+    if reader == "numpy":
+        return imageio.read_block
+    from parallel_convolution_tpu_torch import native
+    from parallel_convolution_tpu_torch.native import serial_native
+
+    native.load()  # builds it if needed; a failed build raises
+    return serial_native.read_block
+
+
 def _bands(r0: int, r1: int, row_bytes: int):
     """Row ranges [a, b) covering [r0, r1), each at most BAND_BYTES of
     file (at least one row)."""
@@ -61,18 +96,21 @@ def _bands(r0: int, r1: int, row_bytes: int):
 
 
 def load_sharded(path, rows: int, cols: int, mode: str, grid: Grid,
-                 dtype=np.float32) -> list[list[torch.Tensor]]:
+                 dtype=np.float32,
+                 reader: str = "auto") -> list[list[torch.Tensor]]:
     """Load a raw image straight into the grid's R×C padded (C, h, w)
     blocks on its device, in ``dtype``.
 
     h and w are the padded-to-block-multiple extents over the grid; the
     pad rim is zero, the layout ``parallel.step.iterate_prepared`` takes.
     The file is consulted once per block that holds image pixels
-    (``fault_point("io_read")``)."""
+    (``fault_point("io_read")``), a band at a time through ``reader``
+    (``auto``: :func:`default_reader`)."""
     C = imageio._channels(mode)
     R, Cg = grid.shape
     bh, bw = padded_extent(rows, R) // R, padded_extent(cols, Cg) // Cg
     dt = _torch_dtype(dtype)
+    read = _block_reader(reader)
     blocks = []
     for i in range(R):
         row = []
@@ -83,7 +121,7 @@ def load_sharded(path, rows: int, cols: int, mode: str, grid: Grid,
             if r1 > r0 and c1 > c0:
                 fault_point("io_read")  # one consult per block read
                 for a, b in _bands(r0, r1, (c1 - c0) * C):
-                    band = torch.from_numpy(imageio.read_block(
+                    band = torch.from_numpy(read(
                         path, rows, cols, mode, a, b, c0, c1)).to(grid.device)
                     out[:, a - r0:b - r0, :c1 - c0] = (
                         band[None] if C == 1 else band.permute(2, 0, 1))

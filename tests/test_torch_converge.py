@@ -11,10 +11,11 @@ count and fields within ``stencil.float_tolerance`` (FMA contraction in the
 JAX tiers).  The port's plain path equals the serial oracle
 ``run_to_convergence_f32`` exactly.  Also here: the CLI's unported flags and
 subcommands (each exits 2 naming its ROADMAP item), and the flags of items
-ported since (each runs, to the plain run's bytes).
+ported since (each runs, to the plain run's bytes or the JAX CLI's).
 """
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -33,8 +34,13 @@ from parallel_convolution_tpu_torch.models import JacobiSolver
 from parallel_convolution_tpu_torch.ops import oracle, stencil
 from parallel_convolution_tpu_torch.parallel import mesh, step
 from parallel_convolution_tpu_torch.utils import bench, imageio
+from parallel_convolution_tpu_torch.utils.config import BACKEND_FROM_REFERENCE
 
 HW = (32, 48)
+# Keys of the JAX bench row that wait for later items: the exchange
+# attribution (obs, item 9) and the topology identity (item 10).
+JAX_ONLY_BENCH_KEYS = {"exchange_fraction", "exchange_hidden_fraction",
+                       "halo_bytes", "hosts", "slice_topology"}
 
 
 def _jax_mesh(shape):
@@ -297,11 +303,18 @@ def test_jacobi_solver_matches_jax(grid_shape, backend, kw):
 
 
 def test_jacobi_solver_pending_knobs():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        JacobiSolver(solver="multigrid", device="cpu")
+    # Multigrid (item 5) is ported: the solver runs it, and Jacobi ignores
+    # mg_levels as the JAX solver does (tests/test_torch_multigrid.py
+    # holds the V-cycle against JAX).
     x = np.zeros((1, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        JacobiSolver(mg_levels=3, device="cpu").solve(x)
+    s = JacobiSolver(solver="multigrid", tol=0.1, max_iters=10, device="cpu")
+    out, cycles = s.solve(x)
+    assert cycles == 1 and s.last_mg.converged and not out.any()
+    assert JacobiSolver(mg_levels=3, tol=0.1, max_iters=5,
+                        device="cpu").solve(x)[1] == 5
+    with pytest.raises(NotImplementedError, match="item 2"):
+        JacobiSolver(solver="multigrid", interior_split=True,
+                     device="cpu").solve(x)
     with pytest.raises(NotImplementedError, match="item 10"):
         JacobiSolver(overlap=True, device="cpu").solve(x)
     with pytest.raises(NotImplementedError, match="item 2"):
@@ -310,10 +323,10 @@ def test_jacobi_solver_pending_knobs():
         JacobiSolver(solver="newton", device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         JacobiSolver(device="cpu").set_grid(mesh.make_grid((2, 2), "cpu"))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         step.sharded_converge(np.zeros((1, 8, 8), np.float32),
                               _filters("jacobi3")[1], 0.1, 5,
-                              solver="multigrid", device="cpu")
+                              solver="multigrid", overlap=True, device="cpu")
     # Dataclass fields: the JAX solver's, with grid/device for mesh.
     jnames = {f.name for f in dataclasses.fields(JJacobiSolver)}
     names = {f.name for f in dataclasses.fields(JacobiSolver)}
@@ -413,12 +426,27 @@ PENDING_ARGV = [
 ]
 # Items ported since the cases above were written: their flags now run.
 PORTED = ("item 3b", "item 4")
+# Ported items whose runs are held against the JAX CLI's on the same argv
+# (the port's --device cpu and backend names mapped back).
+PORTED_VS_JAX = ("item 5", ITEM12)
+
+
+def _jax_argv(argv):
+    names = {v: k for k, v in BACKEND_FROM_REFERENCE.items()}
+    out = []
+    for a in argv:
+        if out and out[-1] == "--device":
+            out.pop()
+            continue
+        out.append(names.get(a, a) if out and out[-1] == "--backend" else a)
+    return out
 
 
 @pytest.mark.parametrize("argv,item", PENDING_ARGV + [
     (["convert", "{src}", "8", "8", "grey", "-o", "{dst}"], ITEM12),
-    (["info"], ITEM12),
-    (["bench", "8", "8", "3", "grey", "--backend", "pallas"], ITEM12),
+    (["info", "--device", "cpu"], ITEM12),
+    (["bench", "8", "8", "3", "grey", "--backend", "cuda", "--device",
+      "cpu"], ITEM12),
     (["serial", "{src}", "8", "8", "3", "grey", "-o", "{dst}", "--impl",
       "native"], ITEM12),
 ])
@@ -430,6 +458,24 @@ def test_cli_pending_flags_exit_2_naming_their_item(tmp_path, capsys, argv,
         argv = ["run", str(src), "8", "8", "3", "grey", "-o", str(dst),
                 "--device", "cpu"] + argv
     argv = [a.format(src=src, dst=dst, tmp=tmp_path) for a in argv]
+    if item in PORTED_VS_JAX:
+        # Ported since: the port exits 0 as the JAX CLI does on the same
+        # argv, with its output file's bytes, or its JSON row's keys.
+        jdst = tmp_path / "jout.raw"
+        jargv = [str(jdst) if a == str(dst) else a for a in _jax_argv(argv)]
+        assert cli_main(argv) == 0
+        out = capsys.readouterr().out
+        assert jcli.main(jargv) == 0
+        jout = capsys.readouterr().out
+        if argv[0] == "bench":
+            row = json.loads(out.strip().splitlines()[-1])
+            jrow = json.loads(jout.strip().splitlines()[-1])
+            assert set(jrow) - set(row) <= JAX_ONLY_BENCH_KEYS
+        elif argv[0] == "info":
+            assert "blur3" in out and "backends:" in out
+        else:
+            assert dst.read_bytes() == jdst.read_bytes()
+        return
     if item in PORTED:
         # The flag works now: the run exits 0 with the plain run's bytes.
         plain = tmp_path / "plain.raw"

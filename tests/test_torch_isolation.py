@@ -67,5 +67,9 @@ def test_scan_covers_tuning_probes_and_bench():
                  "probes/rdma_ladder.py", "utils/bench.py",
                  "resilience/faults.py", "resilience/diskio.py",
                  "resilience/retry.py", "resilience/degrade.py",
-                 "utils/sharded_io.py", "utils/checkpoint.py"):
+                 "utils/sharded_io.py", "utils/checkpoint.py",
+                 "native/__init__.py", "native/build.py",
+                 "native/serial_native.py", "solvers/__init__.py",
+                 "solvers/multigrid.py", "solvers/transfer.py",
+                 "utils/debug.py"):
         assert name in scanned

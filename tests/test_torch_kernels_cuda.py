@@ -903,3 +903,93 @@ def test_error_names_come_from_the_runtime(cuda_device):
         assert lib.pc_error_name(code).decode() == name
     # A code outside them is named too, once a library is loaded.
     assert _build.error_text(800) == "cudaErrorNotPermitted (800)"
+
+
+# ---------------------------------------------------------------------------
+# Multigrid on the card: K1 (cuda) and K3 / K4 at T = 1 (cuda_rdma) as the
+# V-cycle's smoother, down to 8x8 blocks on collapsed sub-grids.
+# ---------------------------------------------------------------------------
+
+
+def _mg_field(hw, seed):
+    return np.random.default_rng(seed).standard_normal((1, *hw)).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,backend,grid_shape", [
+    ((96, 64), "cuda", (1, 1)), ((96, 64), "cuda_rdma", (2, 2)),
+    ((1030, 770), "cuda", (2, 2)), ((1030, 770), "cuda_rdma", (16, 16)),
+])
+def test_multigrid_on_card_matches_shifted(cuda_device, hw, backend,
+                                           grid_shape):
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+
+    jacobi3 = get_filter("jacobi3")
+    x = _mg_field(hw, 0)
+    grid = mesh.make_grid(grid_shape, cuda_device)
+    # shifted is bitwise grid-invariant (tests/test_torch_multigrid.py):
+    # its reference runs on one block.
+    want, wres = mg.mg_converge(x, jacobi3, 1e-3, 2000,
+                                grid=mesh.make_grid((1, 1), cuda_device))
+    stencil.reset_launch_counts()
+    got, res = mg.mg_converge(x, jacobi3, 1e-3, 2000, grid=grid,
+                              backend=backend)
+    counts = stencil.launch_counts()
+    levels = mg.plan_levels(grid, hw, 1)
+    per = mg.cycle_launches(levels, backend, 1)
+    assert counts == {k: v * res.cycles for k, v in per.items()}
+    assert sum(counts.values()) > 0 and res.backend == backend
+    if hw == (1030, 770):
+        # The coarse levels collapse onto smaller grids (2x2 → 2x1;
+        # 16x16 → 8x8, 4x4, 2x2, 1x1).
+        assert levels[-1].grid.shape != grid_shape
+    # jacobi3's taps and the transfers' weights are dyadic: a product is
+    # exact, so the kernels' FMA gives the plain bits, cycle for cycle.
+    assert res.cycles == wres.cycles and res.converged
+    assert res.residuals == wres.residuals
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,grids", [
+    ("cuda", [(1, 1), (2, 2)]), ("cuda_rdma", [(1, 1), (2, 2), (4, 4)]),
+])
+def test_multigrid_on_card_bitwise_grid_invariant(cuda_device, backend,
+                                                  grids):
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+
+    x = _mg_field((1030, 770), 1)
+    runs = [mg.mg_converge(x, get_filter("jacobi3"), 1e-3, 2000,
+                           grid=mesh.make_grid(g, cuda_device),
+                           backend=backend) for g in grids]
+    assert len({r.cycles for _, r in runs}) == 1
+    for out, _ in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape", [(1, 1), (2, 1), (2, 2)])
+@pytest.mark.parametrize("kind", ["block", "tiled"])
+@pytest.mark.parametrize("boundary", ["zero", "periodic"])
+def test_rdma_t1_on_8x8_blocks_matches_plain(cuda_device, grid_shape, kind,
+                                             boundary):
+    # The coarse levels' launches: T = 1 on 8x8 blocks of a small grid,
+    # float carry, the valid extent one short of the grid's (zero).
+    jacobi3 = get_filter("jacobi3")
+    R, C = grid_shape
+    x = torch.from_numpy(_mg_field((8 * R, 8 * C), 2)).to(cuda_device)
+    blocks = mesh.split_blocks(x, mesh.make_grid(grid_shape, cuda_device))
+    stacked = rdma.stack_blocks(blocks, grid_shape)
+    valid = None if boundary == "periodic" else (8 * R - 1, 8 * C - 1)
+    if kind == "block":
+        got = rdma.rdma_block(stacked, jacobi3, grid_shape, boundary, 1,
+                              valid, quantize=False)
+    else:
+        got = rdma.rdma_tiled(stacked, jacobi3, grid_shape, boundary, 1,
+                              valid, quantize=False, tile=(4, 8))
+    cpu = [[b.cpu() for b in row] for row in blocks]
+    want = rdma.stack_blocks(rdma.fused_rdma_step_plain(
+        cpu, jacobi3, grid_shape, boundary, False, torch.float32, 1, valid),
+        grid_shape)
+    _assert_agree(got.cpu(), want, jacobi3, 1, False)

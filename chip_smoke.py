@@ -37,6 +37,28 @@ Phases (any failure exits non-zero and prints no result line):
    (u8, fuse 8).  Each must be byte-equal to the plain ``shifted`` path run
    on the card, and a 3-iteration run must equal the NumPy oracle; the
    ``cuda_rdma`` paths must never call the halo exchange;
+4f. K2's interior split (``interior_split=True``, the 9-patch launch),
+   counted into the kernels line: ``ConvolutionModel`` on the RGB
+   1920x2520 image (blur3 ``cuda_sep`` bf16 fuse 32) at 1x1 and 2x2 and
+   on the 8192x8192 grey edge5 image (``cuda`` fuse 8) at 4x4, each with
+   and without the split: the two byte-equal and equal to ``shifted``,
+   K2's launches as the plan says (more than the single launch's, at
+   most 9 a level group and block), both runs' resident seconds;
+4g. rank-3 volumes (plain PyTorch: the JAX package's forms have no Pallas
+   kernel): fd25 at 512^3 (two fields, 1.07 GB), zero boundary, 40 sweeps
+   at fuse 4 through ``run --rank 3 --depth 512`` from a seeded raw file
+   under ``build/``, at 1x1 and 2x2, the outputs byte-equal (the peak
+   reckoned first and measured); fd7, wave and grayscott at 512^3 x 100
+   sweeps, 1x1 against 2x2 bitwise; the fd7 / fd25 ``_stack`` twins and
+   fuse 1 against fuse 4 bitwise; every form at 64^3 x 3 sweeps on 2x2,
+   zero and periodic, within 2e-5 of the port's ``oracle3``;
+   ``volume_converge`` with fd7 on the periodic manufactured problem of
+   ``scripts/volume_smoke.py`` at N = 64 to tol 1e-5 (cap 5000), its
+   iterations, readbacks and stop, the chunks byte-equal to the fixed
+   count; one sweep of every form at 512^3 timed with CUDA events, beside
+   the byte bound (``costmodel.volume_bytes_per_cell_iter`` over this
+   run's ``hbm_gbps``), the least bytes over the data sheet's rate, the
+   cost model's prediction and the peak device memory;
 4b. run to convergence (``sharded_converge``), counted into the kernels
    line: BASELINE config 5 (``JacobiSolver``: jacobi3, tol 1e-3, f32,
    ``cuda`` fuse 9, check every 10) on a seeded normal 32768x32768 field,
@@ -177,6 +199,12 @@ WINDOW = 256               # config 4's oracle windows
 HOST_GROWTH_LIMIT = 1 << 30  # config 4: at most 16 bands of host memory
 CKPT_EVERY = 25            # the checkpoint phase's snapshots
 CKPT_KILL = 20             # shard write 20: in the second snapshot at 4x4
+VOLUME_N = 512             # the volume phase's cube: 2 fields, 1.07 GB
+VOLUME_SWEEPS = 100        # fd7 / wave / grayscott, 1x1 against 2x2
+VOLUME_FD25_SWEEPS = 40    # fd25 through run --rank 3, fuse 4
+VOLUME_TOL = 1e-5          # fd7 on the N = 64 manufactured problem
+VOLUME_CAP = 5000
+VOLUME_CHECK = 50
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
@@ -616,7 +644,10 @@ def time_step(img, filt, storage, dev, separable: bool = False) -> dict:
 
 
 def time_fused(img, filt, storage, T, sep, dev) -> dict:
-    """K2 as the fused chunk of a fuse=T run on a 1x1 grid calls it."""
+    """K2 as the fused chunk of a fuse=T run on a 1x1 grid calls it, and
+    as its interior split (``split_ms``)."""
+    import torch
+
     from parallel_convolution_tpu_torch.ops import stencil
 
     r = filt.radius
@@ -632,6 +663,14 @@ def time_fused(img, filt, storage, T, sep, dev) -> dict:
     ok, err = agree(got, want, filt, T, True)
     check(ok, f"K2 at the main path's shape {tuple(p.shape)}: err {err}")
     ms = cuda_ms(lambda: stencil.fused_iterate(*args, **kw), reps=10)
+    # The same call as the interior split's 9-patch launches (a 1x1
+    # grid's block: offset (0, 0)): the same bits, its own time.
+    split = dict(kw, interior_split=True, block_off=(0, 0))
+    before = stencil.fused_iterate.launches
+    check(torch.equal(stencil.fused_iterate(*args, **split), got),
+          f"K2's interior split at {tuple(p.shape)} differs from one launch")
+    split_launches = stencil.fused_iterate.launches - before
+    split_ms = cuda_ms(lambda: stencil.fused_iterate(*args, **split), reps=10)
     plain_ms = cuda_ms(lambda: stencil.fused_iterate_plain(*args, **kw),
                        reps=2, warmup=1)
     use_sep = sep and filt.separable() is not None
@@ -643,6 +682,7 @@ def time_fused(img, filt, storage, T, sep, dev) -> dict:
     th, tw, groups = stencil.fused_plan(r, T, (h, w))
     return dict(shape=list(p.shape), dtype=str(p.dtype), T=T, tile=[th, tw],
                 groups=groups, launches_per_call=per_call,
+                split_launches_per_call=split_launches, split_ms=split_ms,
                 rim_tax=[stencil.rim_tax(r, g, (th, tw)) for g in groups],
                 **launch_shape(stencil.fused_blocks_per_sm(
                     p, filt, T, (h, w), separable=sep)),
@@ -995,6 +1035,341 @@ def expected_for(res, filt, grid_shape, shape) -> dict:
         return {k: nb * v for k, v in expected_launches(
             filt, res.fuse, block, res.tile).items()}
     return {k: 0 for k in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: K2's interior split (ROADMAP item 2)
+# ---------------------------------------------------------------------------
+
+
+def split_launches(filt, fuse: int, grid_shape, valid_hw,
+                   tile=None) -> dict:
+    """Launches of one ``ITERS``-iteration ``cuda`` / ``cuda_sep`` run with
+    the interior split: for every block, every fused step's level groups,
+    each the patches of its offset class's plan (``stencil.
+    launch_patches``), and K1 once a block for a 1-level tail."""
+    from parallel_convolution_tpu_torch.ops import stencil
+
+    R, C = grid_shape
+    bh, bw = (-(-n // g) for n, g in zip(valid_hw, grid_shape))
+    r = filt.radius
+    classes = (stencil.axis_offset_classes(R, bh),
+               stencil.axis_offset_classes(C, bw))
+
+    def per_step(T):
+        th, tw, groups = stencil.fused_plan(r, T, (bh, bw), tile)
+        n = 0
+        for i in range(R):
+            for j in range(C):
+                off = (classes[0][stencil.axis_class_index(i, R)],
+                       classes[1][stencil.axis_class_index(j, C)])
+                left = T
+                for g in groups:
+                    left -= g
+                    oh, ow = bh + 2 * r * left, bw + 2 * r * left
+                    n += len(stencil.launch_patches(
+                        valid_hw, (min(th, oh), min(tw, ow)), r * g,
+                        (oh, ow), off, r * left))
+        return n
+
+    n_chunks, rem = divmod(ITERS, fuse)
+    return {"stencil_step": R * C if rem == 1 else 0,
+            "fused_iterate": n_chunks * per_step(fuse)
+            + (per_step(rem) if rem > 1 else 0),
+            "rdma_block": 0, "rdma_tiled": 0}
+
+
+def interior_split_phase(dev, refs: dict, totals: dict) -> list:
+    """The main path with and without ``interior_split``: RGB 1920x2520
+    blur3 ``cuda_sep`` bf16 fuse 32 at 1x1 and 2x2, and the 8192x8192 grey
+    edge5 image ``cuda`` fuse 8 at 4x4.  Each pair byte-equal and equal to
+    ``shifted``; K2's launches as the plan says (at most 9 a level group
+    and block, more than the single launch's); both runs' resident
+    seconds.  The launches count into ``totals``."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    rows = []
+    cases = (
+        ("rgb 1920x2520 blur3 cuda_sep bf16 fuse 32", refs["rgb"],
+         refs["rgb_ref"], "blur3", (1, 1),
+         dict(backend="cuda_sep", storage="bf16", fuse=32)),
+        ("rgb 1920x2520 blur3 cuda_sep bf16 fuse 32", refs["rgb"],
+         refs["rgb_ref"], "blur3", (2, 2),
+         dict(backend="cuda_sep", storage="bf16", fuse=32)),
+        ("grey 8192x8192 edge5 cuda f32 fuse 8", refs["greys"]["edge5"],
+         refs["grey_refs"]["edge5"], "edge5", (4, 4),
+         dict(backend="cuda", storage="f32", fuse=8)))
+    for label, img, ref, name, gshape, kw in cases:
+        filt = get_filter(name)
+        grid = make_grid(gshape, dev)
+        hw = img.shape[:2]
+        px = hw[0] * hw[1] * (img.shape[2] if img.ndim == 3 else 1)
+        label = f"{label} grid {gshape[0]}x{gshape[1]}"
+        planar = torch.from_numpy(
+            imageio.interleaved_to_planar(img).copy()).to(
+            device=dev, dtype=torch.float32)
+        block = tuple(-(-n // g) for n, g in zip(hw, gshape))
+        plain = {k: v * gshape[0] * gshape[1] for k, v in
+                 expected_launches(filt, kw["fuse"], block).items()}
+        split = split_launches(filt, kw["fuse"], gshape, hw)
+        check(plain["fused_iterate"] < split["fused_iterate"]
+              <= 9 * plain["fused_iterate"],
+              f"{label}: {split['fused_iterate']} split launches against "
+              f"{plain['fused_iterate']} single ones")
+        row = {"path": label, "card": card_line()}
+        outs = {}
+        for key, on, expect in (("unsplit", False, plain),
+                                ("split", True, split)):
+            model = ConvolutionModel(name, grid=grid, interior_split=on,
+                                     **kw)
+            out, counts, secs = drive(f"{label} interior_split={on}",
+                                      lambda: model.run_image(img, ITERS),
+                                      expect, px)
+            for k, v in counts.items():
+                totals[k] += v
+            outs[key] = out
+            resident = [host_seconds(lambda: model.run_planar(
+                planar, ITERS))[1] for _ in range(2)]
+            row[key] = {"launches": counts, "seconds_first": secs,
+                        "seconds_resident": resident,
+                        "gpx_per_s_resident": px * ITERS / min(resident)
+                        / 1e9}
+        check(np.array_equal(outs["split"], outs["unsplit"]),
+              f"{label}: the split run differs from the single launch")
+        check(np.array_equal(outs["split"], ref),
+              f"{label}: the split run differs from shifted")
+        row["split_over_unsplit_resident"] = (
+            min(row["split"]["seconds_resident"])
+            / min(row["unsplit"]["seconds_resident"]))
+        print("interior split: " + json.dumps(row))
+        rows.append(row)
+        del planar
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4g: rank-3 volumes (ROADMAP item 6)
+# ---------------------------------------------------------------------------
+
+
+def volume_state(name: str, shape, seed: int):
+    """The seeded (2, D, H, W) f32 start of a form: [0, 1) noise, or for
+    Gray-Scott the classic bounded start (U = 1, V = 0, a perturbed blob;
+    raw noise leaves the reaction's stable basin at dt = 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if name != "grayscott":
+        return rng.random((2, *shape), dtype=np.float32)
+    vol = 0.01 * rng.random((2, *shape), dtype=np.float32)
+    vol[0] += 1.0
+    D, H, W = shape
+    blob = (slice(None), slice(H // 2 - H // 8, H // 2 + H // 8),
+            slice(W // 2 - W // 8, W // 2 + W // 8))
+    vol[0][blob] -= 0.5
+    vol[1][blob] += 0.25
+    return vol
+
+
+def reckon_volume_peak(shape, r: int, fuse: int, grid_shape,
+                       terms: int) -> int:
+    """The peak device bytes reckoned for one fused volume step on the
+    stacked grid: the state, its padded exchange, ``terms`` one-field
+    temporaries of the padded extent (the sum, the scratch product, the
+    damped update's; every term for a _stack twin) and the merged
+    output."""
+    D, H, W = shape
+    R, C = grid_shape
+    d = r * fuse
+    field = 4 * D * H * W
+    padded = 4 * (D + 2 * d) * (H + 2 * d * R) * (W + 2 * d * C)
+    return 2 * field + 2 * padded + terms * padded + 2 * padded
+
+
+def volume_phase(dev, work: Path) -> dict:
+    """Rank-3 volumes on the card (all plain PyTorch: the JAX package's
+    forms have no Pallas kernel).  fd25 at 512^3 (two fields, 1.07 GB),
+    zero boundary, 40 sweeps at fuse 4 through ``run --rank 3 --depth
+    512`` from a raw file under ``build/``, at 1x1 and 2x2, the outputs
+    byte-equal; fd7, wave and grayscott at 512^3 x 100 sweeps, 1x1 against
+    2x2 bitwise; the fd7 / fd25 _stack twins and fuse 1 against fuse 4
+    bitwise; every form at 64^3 x 3 sweeps on 2x2, zero and periodic,
+    against the port's ``oracle3`` at atol 2e-5; ``volume_converge`` with
+    fd7 on the periodic manufactured problem at N = 64 (tol 1e-5, cap
+    5000), its chunks byte-equal to the fixed count; a sweep of each form
+    timed with CUDA events, with its peak device memory."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.utils.config import (
+        VOLUME_FORMS, VOLUME_RADII,
+    )
+    from parallel_convolution_tpu_torch.volumes import driver, oracle3
+
+    out = {"card": card_line(), "forms": {}}
+    g1, g2 = make_grid((1, 1), dev), make_grid((2, 2), dev)
+    n = VOLUME_N
+    shape = (n, n, n)
+
+    # fd25 through the CLI, 1x1 and 2x2, from a raw file.
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "fd25.raw"
+    vol = volume_state("fd25", shape, 31)
+    vol.tofile(src)
+    reckoned = reckon_volume_peak(shape, VOLUME_RADII["fd25"], 4, (1, 1), 4)
+    print(f"volume fd25 {n}^3 fuse 4: reckoned peak {reckoned / 1e9:.2f} GB "
+          f"(state {vol.nbytes / 1e9:.3f} GB)")
+    cli = {}
+    for spec in ("1x1", "2x2"):
+        dst = work / f"fd25.{spec}.raw"
+        argv = ["run", str(src), str(n), str(n), str(VOLUME_FD25_SWEEPS),
+                "grey", "-o", str(dst), "--rank", "3", "--depth", str(n),
+                "--filter", "fd25", "--fuse", "4", "--mesh", spec]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        rc, secs = host_seconds(lambda: cli_main(argv))
+        check(rc == 0, f"run --rank 3 fd25 --mesh {spec}: exit {rc}")
+        cli[spec] = {"seconds": secs, "peak_bytes":
+                     torch.cuda.max_memory_allocated(dev) - base}
+    a = np.fromfile(work / "fd25.1x1.raw", np.float32)
+    b = np.fromfile(work / "fd25.2x2.raw", np.float32)
+    check(a.size == vol.size and np.isfinite(a).all(),
+          "run --rank 3 fd25: the output is not the input's size, or "
+          "not finite")
+    check(a.tobytes() == b.tobytes(),
+          "run --rank 3 fd25: 1x1 and 2x2 outputs differ")
+    out["cli_fd25"] = dict(cli, sweeps=VOLUME_FD25_SWEEPS, fuse=4,
+                           reckoned_peak_bytes=reckoned)
+    for p in work.glob("fd25*.raw"):
+        p.unlink()
+    del a, b
+
+    def run(state, name, iters, grid, **kw):
+        return driver.volume_iterate(state, name, iters, grid=grid, **kw)
+
+    # fd7, wave, grayscott at 512^3 x 100 sweeps: 1x1 against 2x2.
+    for name in ("fd7", "wave", "grayscott"):
+        vol = volume_state(name, shape, 37)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        x1, s1 = host_seconds(lambda: run(vol, name, VOLUME_SWEEPS, g1))
+        peak = torch.cuda.max_memory_allocated(dev)
+        x2, s2 = host_seconds(lambda: run(vol, name, VOLUME_SWEEPS, g2))
+        check(x1.device == x2.device == dev
+              and bool(torch.isfinite(x1).all()),
+              f"volume {name}: not on {dev}, or not finite")
+        check(torch.equal(x1, x2), f"volume {name}: 1x1 and 2x2 differ")
+        out["forms"][name] = {"sweeps": VOLUME_SWEEPS, "seconds_1x1": s1,
+                              "seconds_2x2": s2, "peak_bytes": peak}
+        del x1, x2
+
+    # The twins and fusion, bitwise at 512^3.
+    vol = volume_state("fd7", shape, 41)
+    for base, sweeps in (("fd7", 8), ("fd25", 2)):
+        torch.cuda.empty_cache()
+        x = run(vol, base, sweeps, g2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        y = run(vol, base + "_stack", sweeps, g2)
+        check(torch.equal(x, y), f"volume {base}_stack differs from {base}")
+        out["forms"].setdefault(base + "_stack", {})["peak_bytes"] = (
+            torch.cuda.max_memory_allocated(dev))
+        del x, y
+    for name, fuse in (("fd7", 4), ("fd25", 4), ("wave", 4)):
+        x = run(vol, name, 8, g1, fuse=1)
+        y = run(vol, name, 8, g1, fuse=fuse)
+        check(torch.equal(x, y), f"volume {name}: fuse 1 and {fuse} differ")
+        del x, y
+    out["bitwise"] = ("1x1 = 2x2 (fd25 CLI, fd7, wave, grayscott); "
+                      "fd7 / fd25 = their _stack twins; fuse 1 = fuse 4 "
+                      "(fd7, fd25, wave)")
+
+    # Every form against the oracle at 64^3 on 2x2, both boundaries.
+    worst = 0.0
+    for boundary in ("zero", "periodic"):
+        for name in VOLUME_FORMS:
+            small = volume_state(name, (64, 64, 64), 43)
+            got = run(small, name, 3, g2, boundary=boundary).cpu().numpy()
+            err = float(np.abs(got - oracle3.run_oracle(
+                small, name, 3, boundary)).max())
+            check(err <= 2e-5, f"volume {name} {boundary}: {err} from "
+                  "oracle3 (atol 2e-5)")
+            worst = max(worst, err)
+    out["oracle_64_max_abs_err"] = worst
+
+    # fd7 to tol on the periodic manufactured problem (scripts/
+    # volume_smoke.py): u0 = 0, f = 3 (2 pi)^2 u* h^2, u* a sine product.
+    N = 64
+    h = 1.0 / N
+    s = np.sin(2.0 * np.pi * np.arange(N) * h)
+    ustar = np.einsum("i,j,k->ijk", s, s, s)
+    problem = np.stack([np.zeros_like(ustar), 3.0 * (2.0 * np.pi) ** 2
+                        * ustar * h * h]).astype(np.float32)
+    driver.volume_converge.readbacks = 0
+    (field, iters, diff), secs = host_seconds(lambda: driver.volume_converge(
+        problem, "fd7", tol=VOLUME_TOL, max_iters=VOLUME_CAP,
+        check_every=VOLUME_CHECK, grid=g2, boundary="periodic", fuse=4))
+    fixed = run(problem, "fd7", iters, g2, boundary="periodic")
+    check(torch.equal(field, fixed),
+          "volume_converge: the chunks differ from the fixed count")
+    err = float(np.abs(field[0].double().cpu().numpy() - ustar).max())
+    out["converge_fd7_64"] = {
+        "iters": iters, "diff": diff, "tol": VOLUME_TOL, "cap": VOLUME_CAP,
+        "stopped_by": "tol" if diff < VOLUME_TOL else "cap",
+        "readbacks": driver.volume_converge.readbacks, "seconds": secs,
+        "max_err_vs_u_star": err}
+    check(diff < VOLUME_TOL, f"volume_converge: not converged in {iters}")
+
+    # One sweep of each form at 512^3 on 1x1, by CUDA events.
+    from parallel_convolution_tpu_torch.volumes import forms
+
+    for name in VOLUME_FORMS:
+        xs, valid = driver.prepare_volume(volume_state(name, shape, 47), g1)
+        stepf = forms.build_volume_step(name, (1, 1), n, valid, (n, n), 1,
+                                        "zero")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms = cuda_ms(lambda: stepf(xs), reps=3, warmup=1)
+        row = out["forms"].setdefault(name, {})
+        row.update(ms_per_sweep=ms, cells=n ** 3, fields=2,
+                   step_peak_bytes=torch.cuda.max_memory_allocated(dev)
+                   - base)
+        del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def volume_bounds(vol: dict, hbm_gbps: float) -> None:
+    """Each form's sweep beside the cost model: the byte bound
+    (``volume_bytes_per_cell_iter`` over this run's ``hbm_gbps``), the
+    least bytes (both fields read and written once) over the data sheet's
+    rate, and ``predict_volume_seconds_per_cell_iter`` on the committed
+    H100 model, at 1x1."""
+    from parallel_convolution_tpu_torch.tuning import costmodel
+    from parallel_convolution_tpu_torch.utils.config import VOLUME_RADII
+
+    for name, row in vol["forms"].items():
+        if "ms_per_sweep" not in row:
+            continue
+        cells = row["cells"]
+        row["bound_ms"] = (costmodel.volume_bytes_per_cell_iter("f32", 2)
+                           * cells / (hbm_gbps * 1e9) * 1e3)
+        row["least_bytes_ms"] = 16.0 * cells / HBM_BYTES_PER_S * 1e3
+        n = round(cells ** (1 / 3))
+        row["predicted_ms"] = costmodel.predict_volume_seconds_per_cell_iter(
+            (1, 1), (n, n), n, VOLUME_RADII[name], 1, name,
+            costmodel.H100) * cells * 1e3
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms_per_sweep"]
+        row["hbm_gbps"] = hbm_gbps
 
 
 # ---------------------------------------------------------------------------
@@ -2671,6 +3046,14 @@ def main() -> int:
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             totals, rows, refs = main_paths(dev, Path(tmp))
+            split_rows = interior_split_phase(dev, refs, totals)
+            torch.cuda.empty_cache()
+            work = here / "build" / "chip_smoke_volume"
+            try:
+                volume = volume_phase(dev, work)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            torch.cuda.empty_cache()
             keep = {}
             converge_rows = converge_phase(dev, Path(tmp), totals, keep)
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
@@ -2745,6 +3128,12 @@ def main() -> int:
         committed = {k: getattr(costmodel.H100, k) for k in measured}
         print("hardware model: " + json.dumps(
             {"measured": measured, "committed": committed, "card": card}))
+        volume_bounds(volume, measured["hbm_gbps"])
+        for name, row in volume.pop("forms").items():
+            print(f"volume {name}: " + json.dumps(row))
+        print("volume: " + json.dumps(volume))
+        for row in split_rows:
+            print("end to end interior split: " + json.dumps(row))
 
         kernels = []
         for name, t in (("stencil_step", k1), ("fused_iterate", k2),

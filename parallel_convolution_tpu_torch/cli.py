@@ -10,7 +10,9 @@ cols, loops, grey|rgb`` — and takes every subcommand and flag of its parser:
             work units); --sharded-io streams an image too large for one
             host buffer block by block, --checkpoint DIR snapshots and
             resumes it, --fallback degrades a backend that fails
-            transiently
+            transiently; --rank 3 --depth D iterates a raw float32
+            (2, D, rows, cols) volume with a rank-3 form (fd7, fd25,
+            wave, grayscott)
   serial    the same on the host: the native C++ baseline (built with g++
             on first use) or the NumPy oracle, byte for byte alike
   generate  write a deterministic test image
@@ -83,8 +85,9 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
                         "yet (ROADMAP item 10)")
     p.add_argument("--interior-split", action="store_true",
                    dest="interior_split",
-                   help="unmasked-interior launch split: not ported yet "
-                        "(ROADMAP item 2)")
+                   help="launch K2 as the 9-patch unmasked-interior split "
+                        "(cuda / cuda_sep at --fuse > 1 on the zero "
+                        "boundary; the same bytes)")
     p.add_argument("--fallback", action="store_true",
                    help="probe the backend first and, on a transient "
                         "failure, walk cuda_rdma -> cuda (warned, and named "
@@ -101,13 +104,9 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
 def _check_pending_flags(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of any ``run``
     flag of a later slice that is set."""
-    from parallel_convolution_tpu_torch.utils.config import (
-        check_pending, check_solver,
-    )
+    from parallel_convolution_tpu_torch.utils.config import check_solver
 
     check_solver(args.solver)
-    check_pending(rank=None if args.rank == 2 else args.rank,
-                  depth=args.depth)
     _check_pending_perf_flags(args)
 
 
@@ -116,7 +115,7 @@ def _check_pending_perf_flags(args) -> None:
     from parallel_convolution_tpu_torch.utils.config import check_pending
 
     check_pending(
-        interior_split=args.interior_split, overlap=args.overlap == "on",
+        overlap=args.overlap == "on",
         col_mode=None if args.col_mode == "auto" else args.col_mode)
 
 
@@ -179,7 +178,8 @@ def _tune(args) -> int:
     fuses = ([int(v) for v in args.fuses.split(",")] if args.fuses
              else None)
     result = search.tune(w, grid, dry_run=args.dry_run, fuses=fuses,
-                         iters=args.iters, max_measure=args.max_measure)
+                         iters=args.iters, max_measure=args.max_measure,
+                         interior_split=args.interior_split)
     for row in result.rows:
         print(json.dumps(row), file=sys.stderr, flush=True)
     plan = result.plan
@@ -257,10 +257,14 @@ def _parser() -> argparse.ArgumentParser:
                      help="multigrid level-count cap (default: coarsen "
                           "to the planner's floor)")
     run.add_argument("--rank", type=int, default=2, choices=[2, 3],
-                     help="2 = u8 images; 3 = float volumes, not ported "
-                          "yet (ROADMAP item 6)")
+                     help="workload rank: 2 = u8 images (the default), "
+                          "3 = (2, D, rows, cols) raw float32 volumes (two "
+                          "interleaved fields) through the rank-3 forms: "
+                          "fd7 / fd25 FD Laplacians, wave leapfrog, "
+                          "Gray-Scott reaction-diffusion")
     run.add_argument("--depth", type=int, default=None, metavar="D",
-                     help="volume depth for --rank 3 (item 6)")
+                     help="volume depth (required with --rank 3): the "
+                          "resident D axis; rows / cols split on the grid")
     run.add_argument("--sharded-io", action="store_true",
                      help="stream the image between the file and the "
                           "card's blocks in row bands: no host buffer "
@@ -322,6 +326,10 @@ def _parser() -> argparse.ArgumentParser:
     tune.add_argument("--verify-auto", action="store_true",
                       help="after emitting, resolve auto against --out and "
                            "record auto_ok (requires --emit-plans)")
+    tune.add_argument("--interior-split", action="store_true",
+                      dest="interior_split",
+                      help="measure every candidate with K2's 9-patch "
+                           "launch")
 
     conv_ = sub.add_parser(
         "convert", help="raw -> PGM/PPM for visual inspection (no deps)")
@@ -452,6 +460,8 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     _resolve_perf_knobs(args, grid)
+    if args.rank == 3:
+        return _run_volume(args, grid)
     if args.solver != "jacobi" and args.converge is None:
         print(f"--solver {args.solver} requires --converge TOL: without "
               "it the run is a fixed-count iterate and the solver choice "
@@ -482,7 +492,7 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
             check_every=args.check_every, grid=grid, backend=args.backend,
             quantize=not mg, fuse=args.fuse, tile=tile,
             boundary=args.boundary, storage=args.storage, solver=args.solver,
-            mg_levels=args.mg_levels)
+            mg_levels=args.mg_levels, interior_split=args.interior_split)
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
         x = imageio.interleaved_to_planar(img).astype(np.float32)
         out, iters = solver.solve(x)
@@ -506,7 +516,8 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
     model = ConvolutionModel(filt=args.filter_name, grid=grid,
                              backend=args.backend, storage=args.storage,
                              fuse=args.fuse, boundary=args.boundary,
-                             tile=tile, fallback=args.fallback)
+                             tile=tile, fallback=args.fallback,
+                             interior_split=args.interior_split)
     storage = args.storage
     if args.checkpoint:
         _run_checkpointed(args, model, grid, tile)
@@ -530,6 +541,60 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
                  + f", {storage}, fuse {model.effective_fuse}")
     print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
           f"grid ({label}, {device_kind(grid.device)}) -> {args.output}")
+    return 0
+
+
+def _run_volume(args, grid) -> int:
+    """The ``--rank 3`` arm of ``run`` (the JAX CLI's ``_run_volume``): the
+    input file is raw float32 ``(2, D, rows, cols)`` bytes (two interleaved
+    fields: u / v for Gray-Scott, u / u_prev for wave, field and rhs for
+    the FD forms), the output the same layout after ``loops`` sweeps, or a
+    ``--converge`` run.  Volumes stay float end to end: no u8
+    quantization.  The same exit-2 refusals and summary lines as the JAX
+    CLI."""
+    from parallel_convolution_tpu_torch.utils.config import (
+        VOLUME_FIELDS, VOLUME_FORMS,
+    )
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    if args.depth is None or args.depth < 1:
+        print("--rank 3 requires --depth D (the resident volume depth)",
+              file=sys.stderr)
+        return 2
+    if args.filter_name not in VOLUME_FORMS:
+        print(f"--rank 3 --filter must name a rank-3 form "
+              f"({', '.join(VOLUME_FORMS)}), got {args.filter_name!r}",
+              file=sys.stderr)
+        return 2
+    if args.solver != "jacobi":
+        print(f"--rank 3 supports --solver jacobi only (got "
+              f"{args.solver}): rank-3 multigrid transfer ships as "
+              "registry forms, not a CLI solver", file=sys.stderr)
+        return 2
+    want = (VOLUME_FIELDS, args.depth, args.rows, args.cols)
+    raw = np.fromfile(args.image, dtype=np.float32)
+    if raw.size != int(np.prod(want)):
+        print(f"{args.image}: {raw.size} f32 values, expected "
+              f"{int(np.prod(want))} for {want}", file=sys.stderr)
+        return 2
+    vol = raw.reshape(want)
+    fuse = max(1, args.fuse or 1)
+    r, c = grid.shape
+    if args.converge is not None:
+        out, iters, diff = driver.volume_converge(
+            vol, args.filter_name, tol=args.converge,
+            max_iters=args.loops, check_every=args.check_every, grid=grid,
+            boundary=args.boundary, fuse=fuse)
+        out.cpu().numpy().tofile(args.output)
+        print(f"volume converged after {iters} iters (diff {diff:.3g}, "
+              f"tol {args.converge}) on {r}x{c} mesh -> {args.output}")
+        return 0
+    out = driver.volume_iterate(vol, args.filter_name, args.loops, grid=grid,
+                                boundary=args.boundary, fuse=fuse)
+    out.cpu().numpy().tofile(args.output)
+    print(f"ran {args.loops} x {args.filter_name} on "
+          f"{args.depth}x{args.rows}x{args.cols} volume, {r}x{c} mesh "
+          f"-> {args.output}")
     return 0
 
 
@@ -594,7 +659,8 @@ def _bench(args) -> int:
         (args.rows, args.cols), get_filter(args.filter_name), args.loops,
         grid=grid, channels=3 if args.mode == "rgb" else 1,
         backend=args.backend, storage=args.storage, fuse=args.fuse,
-        reps=args.reps, tile=tile, fallback=args.fallback)
+        reps=args.reps, tile=tile, fallback=args.fallback,
+        interior_split=args.interior_split)
     row["power_limit_w"] = power_limit_w(grid.device)
     print(json.dumps(row))
     return 0
@@ -619,12 +685,13 @@ def _run_checkpointed(args, model, grid, tile) -> None:
         eff = step_lib._resolve_fallback(
             grid, model.filt, args.backend, True,
             max(1, min(args.fuse, args.checkpoint_every, args.loops)),
-            args.boundary, tile, "f32", tuple(blocks[0][0].shape[1:]))
+            args.boundary, tile, "f32", tuple(blocks[0][0].shape[1:]),
+            args.interior_split)
     out = checkpoint.run_checkpointed(
         blocks, model.filt, args.loops, grid, (args.rows, args.cols),
         ckpt_dir=args.checkpoint, every=args.checkpoint_every,
         backend=args.backend, fuse=args.fuse, boundary=args.boundary,
-        tile=tile, run_backend=eff)
+        tile=tile, interior_split=args.interior_split, run_backend=eff)
     del blocks
     sharded_io.save_sharded(args.output, out, args.rows, args.cols,
                             args.mode)

@@ -67,38 +67,51 @@ __device__ void fill_dense(float* __restrict__ a, const void* __restrict__ in,
   }
 }
 
+// A dropped mask axis (the interior split's patches): its bounds never bind.
+constexpr int kUnbounded = 1 << 30;
+
 template <int K, int EPI, bool SEP>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     fused_iterate_kernel(const void* __restrict__ in, int in_dtype,
                          void* __restrict__ out, int out_dtype, int Hp,
                          int Wp, int h, int w, int T, Taps tp, int off_r,
-                         int off_c, int mask, int valid_h, int valid_w,
-                         int th, int tw) {
+                         int off_c, int mask_rows, int mask_cols,
+                         int valid_h, int valid_w, int th, int tw, int ti0,
+                         int tj0) {
   extern __shared__ float smem[];
   constexpr int r = K / 2;
   const int R = r * T;
   const int w0h = th + 2 * R, S = tw + 2 * R;
   const int c = blockIdx.z;
-  const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
-  // Global image coordinates of the level-0 window's top-left corner.
-  const int row0 = off_r - R + y0, col0 = off_c - R + x0;
+  // The launch covers the patch of the tile grid at (ti0, tj0).
+  const int y0 = (blockIdx.y + ti0) * th, x0 = (blockIdx.x + tj0) * tw;
+  // Global image coordinates of the level-0 window's top-left corner, and
+  // the extent each axis masks against.  A dropped axis (mask_rows or
+  // mask_cols 0: a periodic torus, or a patch whose tiles cannot cross
+  // that pair of image edges) reads as an origin of 0 in an unbounded
+  // extent, so every mask along it is 1: the multiply by 1.0 leaves the
+  // bits of the launch that keeps it.
+  const int row0 = mask_rows ? off_r - R + y0 : 0;
+  const int col0 = mask_cols ? off_c - R + x0 : 0;
+  const int vh = mask_rows ? valid_h : kUnbounded;
+  const int vw = mask_cols ? valid_w : kUnbounded;
   const long long in_base = static_cast<long long>(c) * Hp * Wp;
   // Block-uniform: no mask of any level can be 0 inside this window.
-  const bool interior = !mask || (row0 >= 0 && row0 + w0h <= valid_h &&
-                                  col0 >= 0 && col0 + S <= valid_w);
+  const bool interior =
+      row0 >= 0 && row0 + w0h <= vh && col0 >= 0 && col0 + S <= vw;
   const bool masked = !interior;
   switch (in_dtype) {
     case kBF16:
       fill_dense<kBF16>(smem, in, in_base, Hp, Wp, y0, x0, w0h, S, masked,
-                        row0, col0, valid_h, valid_w);
+                        row0, col0, vh, vw);
       break;
     case kU8:
       fill_dense<kU8>(smem, in, in_base, Hp, Wp, y0, x0, w0h, S, masked,
-                      row0, col0, valid_h, valid_w);
+                      row0, col0, vh, vw);
       break;
     default:
       fill_dense<kF32>(smem, in, in_base, Hp, Wp, y0, x0, w0h, S, masked,
-                       row0, col0, valid_h, valid_w);
+                       row0, col0, vh, vw);
   }
   __syncthreads();
 
@@ -107,11 +120,11 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
                       static_cast<long long>(y0) * w + x0,
                   w, min(th, h - y0), min(tw, w - x0)};
   if (interior)
-    run_levels<K, EPI, SEP, false>(smem, S, th, tw, T, tp, row0, col0,
-                                   valid_h, valid_w, o);
+    run_levels<K, EPI, SEP, false>(smem, S, th, tw, T, tp, row0, col0, vh,
+                                   vw, o);
   else
-    run_levels<K, EPI, SEP, true>(smem, S, th, tw, T, tp, row0, col0,
-                                  valid_h, valid_w, o);
+    run_levels<K, EPI, SEP, true>(smem, S, th, tw, T, tp, row0, col0, vh,
+                                  vw, o);
 }
 
 }  // namespace
@@ -162,24 +175,30 @@ extern "C" int pc_stencil_step(const void* in, int in_dtype, void* out,
 extern "C" int pc_step_strip(int k) { return strip_v(k); }
 
 // K2.  epi is the store-back (Epi: float, or the magic round or rintf, with
-// or without the clip); threads is the block's thread count, a whole number
-// of warps.  With `blocks` non-null nothing launches: *blocks gets the
-// number of such blocks one SM holds.
+// or without the clip); mask_rows / mask_cols say which ghost-ring mask
+// axes run (both 0: no masks); the launch covers the gh x gw patch of the
+// output's th x tw tile grid at tile (ti0, tj0) (the interior split,
+// ops/stencil.py:split_patches; the whole grid otherwise); threads is the
+// block's thread count, a whole number of warps.  With `blocks` non-null
+// nothing launches: *blocks gets the number of such blocks one SM holds.
 extern "C" int pc_fused_iterate(const void* in, int in_dtype, void* out,
                                 int out_dtype, int C, int Hp, int Wp, int h,
                                 int w, int T, const float* taps,
                                 const float* col, const float* row, int k,
                                 int sep, int epi, int off_r, int off_c,
-                                int mask, int valid_h, int valid_w, int th,
-                                int tw, int threads, int* blocks,
-                                void* stream) {
+                                int mask_rows, int mask_cols, int valid_h,
+                                int valid_w, int th, int tw, int ti0,
+                                int tj0, int gh, int gw, int threads,
+                                int* blocks, void* stream) {
   Taps tp;
   if (!fill_taps(&tp, taps, col, row, k, sep) || T < 1 || th < 1 || tw < 1 ||
-      !threads_ok(threads))
+      !threads_ok(threads) || ti0 < 0 || tj0 < 0 || gh < 1 || gw < 1 ||
+      static_cast<long long>(ti0 + gh - 1) * th >= h ||
+      static_cast<long long>(tj0 + gw - 1) * tw >= w)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t bytes = window_bytes(k, T, th, tw);
-  const dim3 grid((w + tw - 1) / tw, (h + th - 1) / th, C);
+  const dim3 grid(gw, gh, C);
   return static_cast<int>(with_k(k, [&](auto K) {
     return with_epi(epi, [&](auto E) {
       return with_bool(sep, [&](auto SEP) {
@@ -193,7 +212,7 @@ extern "C" int pc_fused_iterate(const void* in, int in_dtype, void* out,
               blocks, kernel, threads, bytes);
         kernel<<<grid, threads, bytes, st>>>(
             in, in_dtype, out, out_dtype, Hp, Wp, h, w, T, tp, off_r, off_c,
-            mask, valid_h, valid_w, th, tw);
+            mask_rows, mask_cols, valid_h, valid_w, th, tw, ti0, tj0);
         return cudaGetLastError();
       });
     });

@@ -18,7 +18,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
 from parallel_convolution_tpu_torch.utils.config import (
-    check_pending, check_solver, pending,
+    check_solver, pending,
 )
 
 
@@ -37,8 +37,10 @@ class JacobiSolver:
     runs the geometric V-cycle (``solvers.multigrid``; ``mg_levels`` caps
     its level count, Jacobi ignores it): the same stopping measure, and
     ``last_mg`` holds the :class:`~parallel_convolution_tpu_torch.solvers.
-    multigrid.MGResult` of the latest solve.  ``interior_split``,
-    ``overlap`` and ``col_mode`` raise in :meth:`solve` (later slices).
+    multigrid.MGResult` of the latest solve.  ``interior_split`` launches
+    K2 by the 9-patch plan in Jacobi's fused chunks (the V-cycle takes it
+    and does not use it, as the JAX solver); ``overlap`` and ``col_mode``
+    raise in :meth:`solve` (a later slice).
     """
 
     filt: Filter | str = "jacobi3"
@@ -86,7 +88,6 @@ class JacobiSolver:
         if self.solver == "multigrid":
             from parallel_convolution_tpu_torch.solvers import multigrid
 
-            check_pending(interior_split=self.interior_split)
             out, res = multigrid.mg_converge(
                 x, self.filt, tol=self.tol, max_iters=self.max_iters,
                 grid=self.grid, quantize=self.quantize, backend=self.backend,

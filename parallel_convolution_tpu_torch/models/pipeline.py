@@ -55,8 +55,12 @@ class ConvolutionModel(nn.Module):
     (``measured`` | ``interpolated`` | ``predicted``, or ``explicit``)
     record what ran, and ``resolution`` the ``tuning.Resolution`` of an
     ``auto`` run.
-    The JAX model's ``interior_split``, ``overlap`` and ``col_mode`` belong
-    to later slices and raise ``NotImplementedError`` when set.
+      interior_split: launch K2 as the 9-patch plan of each block's offset
+        class (``cuda`` / ``cuda_sep`` at fuse > 1 on a ``zero`` boundary;
+        elsewhere taken and not used, as in the JAX package); the same
+        bytes.
+    The JAX model's ``overlap`` and ``col_mode`` belong to a later slice
+    and raise ``NotImplementedError`` when set.
     """
 
     def __init__(self, filt: Filter | str = "blur3", grid: Grid | None = None,
@@ -67,8 +71,7 @@ class ConvolutionModel(nn.Module):
                  col_mode: str | None = None, fallback: bool = False):
         super().__init__()
         check_backend(backend, allow_auto=True)
-        check_pending(interior_split=interior_split, overlap=overlap,
-                      col_mode=col_mode)
+        check_pending(overlap=overlap, col_mode=col_mode)
         check_run_config(storage, boundary, quantize)
         check_fuse(backend, fuse)
         if fuse is not None and int(fuse) < 1:
@@ -84,6 +87,7 @@ class ConvolutionModel(nn.Module):
         self.boundary = boundary
         self.tile = None if tile is None else tuple(int(v) for v in tile)
         self.fallback = bool(fallback)
+        self.interior_split = bool(interior_split)
         self.filter_name, self.dyadic = filt.name, filt.dyadic
         self.register_buffer("taps", torch.as_tensor(filt.taps.copy(),
                                                      device=grid.device))
@@ -121,7 +125,8 @@ class ConvolutionModel(nn.Module):
                         padded_extent(int(shape[2]), C) // C)
             backend = step_lib._resolve_fallback(
                 self.grid, self.filt, backend, self.quantize, fuse,
-                self.boundary, tile, self.storage, block_hw)
+                self.boundary, tile, self.storage, block_hw,
+                self.interior_split)
         self.effective_backend, self.effective_fuse = backend, fuse
         return backend, fuse, tile
 
@@ -133,7 +138,8 @@ class ConvolutionModel(nn.Module):
         return step_lib.sharded_iterate(
             x, self.filt, iters, grid=self.grid, quantize=self.quantize,
             backend=backend, storage=self.storage, fuse=fuse,
-            boundary=self.boundary, tile=tile)
+            boundary=self.boundary, tile=tile,
+            interior_split=self.interior_split)
 
     forward = run_planar
 
@@ -189,6 +195,7 @@ class ConvolutionModel(nn.Module):
         out = step_lib.iterate_prepared(
             blocks, self.filt, iters, self.grid, (rows, cols),
             quantize=self.quantize, backend=backend, fuse=fuse,
-            boundary=self.boundary, tile=tile)
+            boundary=self.boundary, tile=tile,
+            interior_split=self.interior_split)
         del blocks
         sharded_io.save_sharded(dst, out, rows, cols, mode)

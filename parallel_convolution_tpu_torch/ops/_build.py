@@ -78,11 +78,11 @@ _SIGNATURES = {
                             _IP, _P],
         "pc_step_strip": [_I],
         # in, in_dtype, out, out_dtype, C, Hp, Wp, h, w, T, taps, col, row,
-        # k, sep, epi, off_r, off_c, mask, valid_h, valid_w, th, tw,
-        # threads, blocks, stream
+        # k, sep, epi, off_r, off_c, mask_rows, mask_cols, valid_h,
+        # valid_w, th, tw, ti0, tj0, gh, gw, threads, blocks, stream
         "pc_fused_iterate": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                              _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _IP, _P],
+                             _I, _I, _I, _I, _I, _IP, _P],
         "pc_strip_height": [],
     },
     "rdma": {

@@ -7,7 +7,9 @@ launch counters.
   launch geometry planned here (:func:`step_plan`).
 * :func:`fused_iterate` (K2, ``csrc/stencil.cu:fused_iterate_kernel``)
   replaces ``ops/pallas_stencil.py:_fused_kernel`` (``fused_iterate_pallas``):
-  T levels on a deep-padded block in one launch.
+  T levels on a deep-padded block in one launch, or with
+  ``interior_split`` the JAX package's 9-patch plan (:func:`split_patches`)
+  of launches over the tile grid.
 
 Each wrapper takes its plain version (:func:`stencil_step_plain`,
 :func:`fused_iterate_plain`) only because the tensor it was given lies on
@@ -564,9 +566,51 @@ stencil_step.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _levels_plain(padded: torch.Tensor, offsets, filt: Filter, T: int,
+                  valid_hw, separable: bool, quantize: bool,
+                  mask_rows: bool = True, mask_cols: bool = True):
+    """T levels of a deep-padded (C, h+2rT, w+2rT) window in float32, with
+    the ghost-ring masks of the axes asked for (the JAX package's
+    ``_fused_kernel`` with ``mask_rows`` / ``mask_cols``): level 0 selected
+    to exactly 0 outside the image, then every level multiplied by a 0/1
+    row mask and a 0/1 column mask, in that order."""
+    r = filt.radius
+    C, Hp, Wp = padded.shape
+    h, w = Hp - 2 * r * T, Wp - 2 * r * T
+    dev = padded.device
+    cur = padded.to(torch.float32)
+    mask_rows = mask_rows and valid_hw is not None
+    mask_cols = mask_cols and valid_hw is not None
+    rows0 = cols0 = None
+    if mask_rows or mask_cols:
+        H, W = valid_hw
+        ok0 = torch.ones((Hp, Wp), dtype=torch.bool, device=dev)
+        if mask_rows:
+            rows0 = int(offsets[0]) - r * T + torch.arange(Hp, device=dev)
+            ok0 = ok0 & ((rows0 >= 0) & (rows0 < H))[:, None]
+        if mask_cols:
+            cols0 = int(offsets[1]) - r * T + torch.arange(Wp, device=dev)
+            ok0 = ok0 & ((cols0 >= 0) & (cols0 < W))[None, :]
+        cur = torch.where(ok0, cur, torch.zeros((), device=dev))
+    for s in range(1, T + 1):
+        ch, cw = h + 2 * r * (T - s), w + 2 * r * (T - s)
+        acc = _correlate(cur, filt, separable)
+        if quantize:
+            acc = _quantize(acc, filt.convex)
+        if rows0 is not None:
+            rows = rows0[r * s:r * s + ch]
+            acc = acc * ((rows >= 0) & (rows < H)).to(torch.float32)[:, None]
+        if cols0 is not None:
+            cols = cols0[r * s:r * s + cw]
+            acc = acc * ((cols >= 0) & (cols < W)).to(torch.float32)[None, :]
+        cur = acc
+    return cur
+
+
 def fused_iterate_plain(padded: torch.Tensor, offsets, filt: Filter, T: int,
                         valid_hw, quantize: bool = True, out_dtype=None,
-                        separable: bool = False) -> torch.Tensor:
+                        separable: bool = False, interior_split: bool = False,
+                        block_off=None, tile=None) -> torch.Tensor:
     """Plain PyTorch version of K2 (the JAX package's ``_fused_kernel`` +
     ``_iterate_levels``): T levels of a deep-padded (C, h+2rT, w+2rT)
     block → (C, h, w).
@@ -576,39 +620,51 @@ def fused_iterate_plain(padded: torch.Tensor, offsets, filt: Filter, T: int,
     (periodic: no masking).  Level 0 is selected to exactly 0 outside the
     image; every level is then multiplied by a 0/1 row mask and a 0/1
     column mask, in that order.
+
+    ``interior_split`` runs the card's launch plan: the level groups of
+    :func:`fused_plan` (at the H100's shared memory, or the ``tile``
+    given), each group's tile grid cut into the patches of
+    :func:`split_patches`, and every patch computed from its slice of the
+    group's input with its own mask axes only.  So the CPU shows that
+    every mask the plan drops is the identity.
     """
     if out_dtype is None:
         out_dtype = padded.dtype
+    block_off = _split_block_off(interior_split, valid_hw, block_off)
+    if block_off is None:
+        return _levels_plain(padded, offsets, filt, T, valid_hw, separable,
+                             quantize).to(out_dtype)
     r = filt.radius
     C, Hp, Wp = padded.shape
     h, w = Hp - 2 * r * T, Wp - 2 * r * T
-    dev = padded.device
-    cur = padded.to(torch.float32)
-    rows0 = cols0 = None
-    if valid_hw is not None:
-        H, W = valid_hw
-        rows0 = int(offsets[0]) - r * T + torch.arange(Hp, device=dev)
-        cols0 = int(offsets[1]) - r * T + torch.arange(Wp, device=dev)
-        ok0 = (((rows0 >= 0) & (rows0 < H))[:, None]
-               & ((cols0 >= 0) & (cols0 < W))[None, :])
-        cur = torch.where(ok0, cur, torch.zeros((), device=dev))
-    for s in range(1, T + 1):
-        ch, cw = h + 2 * r * (T - s), w + 2 * r * (T - s)
-        acc = _correlate(cur, filt, separable)
-        if quantize:
-            acc = _quantize(acc, filt.convex)
-        if rows0 is not None:
-            rows = rows0[r * s:r * s + ch]
-            cols = cols0[r * s:r * s + cw]
-            acc = acc * ((rows >= 0) & (rows < H)).to(torch.float32)[:, None]
-            acc = acc * ((cols >= 0) & (cols < W)).to(torch.float32)[None, :]
-        cur = acc
-    return cur.to(out_dtype)
+    th, tw, groups = fused_plan(r, T, (h, w), tile)
+    cur, left = padded, T
+    between = group_dtype(quantize, out_dtype)
+    for g in groups:
+        left -= g
+        oh, ow = h + 2 * r * left, w + 2 * r * left
+        out = torch.empty((C, oh, ow), device=padded.device,
+                          dtype=out_dtype if left == 0 else between)
+        t = (min(th, oh), min(tw, ow))
+        shift = r * left
+        origin = (int(offsets[0]) - shift, int(offsets[1]) - shift)
+        for (i0, i1), (j0, j1), (mr, mc) in launch_patches(
+                valid_hw, t, r * g, (oh, ow), block_off, shift):
+            y0, y1 = i0 * t[0], min(i1 * t[0], oh)
+            x0, x1 = j0 * t[1], min(j1 * t[1], ow)
+            window = cur[:, y0:y1 + 2 * r * g, x0:x1 + 2 * r * g]
+            out[:, y0:y1, x0:x1] = _levels_plain(
+                window, (origin[0] + y0, origin[1] + x0), filt, g, valid_hw,
+                separable, quantize, mr, mc).to(out.dtype)
+        cur = out
+    return cur
 
 
 def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
                   valid_hw, *, quantize: bool = True, out_dtype=None,
-                  separable: bool = False, tile=None) -> torch.Tensor:
+                  separable: bool = False, tile=None,
+                  interior_split: bool = False,
+                  block_off=None) -> torch.Tensor:
     """T stencil iterations of a deep-padded (C, h+2rT, w+2rT) block.
 
     The port of ``fused_iterate_pallas``: ``offsets`` is the block's
@@ -621,6 +677,16 @@ def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
     every level's values (integers in [0, 255]) exactly, at a quarter of
     float32's bytes for u8 (at BASELINE config 4 a float32 intermediate of
     a 65536² RGB block would take 51.6 GB of the card's 80).
+
+    ``interior_split=True`` (with ``valid_hw``) is the JAX package's
+    9-patch launch: each level group's launch becomes one K2 launch per
+    patch of :func:`split_patches` over that group's tile grid, the
+    middle patch with no mask, a pure-edge patch with the one mask axis
+    its tiles can cross, a corner both; each writes its tiles into the
+    one output.  It needs ``block_off``, the block's global (row0, col0)
+    exact or as per-axis (lo, hi) ranges (:func:`axis_offset_classes`),
+    and raises the JAX ``ValueError`` without one.  The bytes are the
+    single launch's: a dropped mask is a multiply by 1.0.
     """
     if out_dtype is None:
         out_dtype = padded.dtype
@@ -629,7 +695,9 @@ def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
         raise ValueError(f"T must be >= 1, got {T}")
     if padded.device.type == "cpu":
         return fused_iterate_plain(padded, offsets, filt, T, valid_hw,
-                                   quantize, out_dtype, separable)
+                                   quantize, out_dtype, separable,
+                                   interior_split, block_off, tile)
+    block_off = _split_block_off(interior_split, valid_hw, block_off)
     _check_cuda(padded, filt)
     r = filt.radius
     C, Hp, Wp = padded.shape
@@ -649,24 +717,38 @@ def fused_iterate(padded: torch.Tensor, offsets, filt: Filter, T: int,
         oh, ow = h + 2 * r * left, w + 2 * r * left
         out = torch.empty((C, oh, ow), device=padded.device,
                           dtype=out_dtype if left == 0 else between)
-        _fused_call(cur, out, (off_r - r * left, off_c - r * left), filt, g,
-                    valid_hw, quantize, separable, (min(th, oh), min(tw, ow)))
-        fused_iterate.launches += 1
+        t = (min(th, oh), min(tw, ow))
+        patches = (None,) if block_off is None else launch_patches(
+            valid_hw, t, r * g, (oh, ow), block_off, r * left)
+        for patch in patches:
+            _fused_call(cur, out, (off_r - r * left, off_c - r * left), filt,
+                        g, valid_hw, quantize, separable, t, patch=patch)
+            fused_iterate.launches += 1
         cur = out
     return cur
 
 
 def _fused_call(x, out, offsets, filt: Filter, T: int, valid_hw,
                 quantize: bool, separable: bool, tile,
-                occupancy: bool = False) -> int:
+                occupancy: bool = False, patch=None) -> int:
     """One K2 launch of T levels from ``x`` into ``out`` (both on the card),
     or with ``occupancy`` no launch: the number of such blocks one SM
-    holds (the CUDA occupancy calculator on the same instance)."""
+    holds (the CUDA occupancy calculator on the same instance).
+    ``patch`` = ((i0, i1), (j0, j1), (mask_rows, mask_cols)) runs the
+    tiles [i0, i1) x [j0, j1) of the output's tile grid with those mask
+    axes (:func:`split_patches`); None runs every tile, masked on both
+    axes when ``valid_hw`` is given."""
     sep = _sep_taps(filt, separable)
     taps, col, row = _host_taps(filt, sep)
     mask = valid_hw is not None
     vh, vw = (int(valid_hw[0]), int(valid_hw[1])) if mask else (0, 0)
     C, Hp, Wp = x.shape
+    gh, gw = -(-out.shape[1] // tile[0]), -(-out.shape[2] // tile[1])
+    if patch is None:
+        patch = ((0, gh), (0, gw), (True, True))
+    (i0, i1), (j0, j1), (mr, mc) = patch
+    if not (0 <= i0 < i1 <= gh and 0 <= j0 < j1 <= gw):
+        raise ValueError(f"patch {patch} outside the {gh}x{gw} tile grid")
     blocks = ctypes.c_int(0)
     from parallel_convolution_tpu_torch.ops import _build
 
@@ -678,11 +760,126 @@ def _fused_call(x, out, offsets, filt: Filter, T: int, valid_hw,
             DTYPE_CODES[out.dtype], C, Hp, Wp, out.shape[1], out.shape[2], T,
             _fptr(taps), _fptr(col), _fptr(row), filt.size,
             int(sep is not None), epilogue_code(filt, quantize),
-            int(offsets[0]), int(offsets[1]), int(mask), vh, vw, tile[0],
-            tile[1], FUSED_THREADS,
+            int(offsets[0]), int(offsets[1]), int(mask and mr),
+            int(mask and mc), vh, vw, tile[0], tile[1], i0, j0, i1 - i0,
+            j1 - j0, FUSED_THREADS,
             ctypes.byref(blocks) if occupancy else None, stream)
     _raise_on(err, "fused_iterate (K2)")
     return blocks.value
+
+
+# ---------------------------------------------------------------------------
+# K2's interior split: the JAX package's 9-patch launch plan
+# (ops/pallas_stencil.py: _interior_range, split_patches,
+# axis_offset_classes; parallel/step.py: _axis_class_index).  Pure integer
+# functions of the static geometry.
+# ---------------------------------------------------------------------------
+
+
+def _norm_block_off(block_off):
+    """A block offset as ((r0_lo, r0_hi), (c0_lo, c0_hi)): each component
+    exact (an int) or a (lo, hi) range, which one launch plan serves for a
+    whole class of block positions."""
+    r, c = block_off
+    r = (int(r), int(r)) if not hasattr(r, "__len__") else (int(r[0]), int(r[1]))
+    c = (int(c), int(c)) if not hasattr(c, "__len__") else (int(c[0]), int(c[1]))
+    return r, c
+
+
+def _interior_range(valid_hw, tile_hw, depth, grid_hw, block_off=(0, 0)):
+    """Inclusive (i, j) tile ranges whose level-0 windows lie inside the
+    image, for a launch whose output starts at global ``block_off``.
+
+    Tile (i, j) covers image rows [r0 + i·th − depth, r0 + i·th + th +
+    depth); it is interior iff that range lies in [0, H) (columns alike).
+    With (lo, hi) offset ranges the bounds hold for every offset in them
+    (lo decides the low edge, hi the high one).  None when no tile
+    qualifies.
+    """
+    H, W = valid_hw
+    th, tw = tile_hw
+    gh, gw = grid_hw
+    (r0l, r0h), (c0l, c0h) = _norm_block_off(block_off)
+    i_lo = max(0, -(-(depth - r0l) // th))   # smallest i: r0 + i*th >= depth
+    i_hi = (H - r0h - th - depth) // th      # largest i: end <= H
+    j_lo = max(0, -(-(depth - c0l) // tw))
+    j_hi = (W - c0h - tw - depth) // tw
+    i_hi, j_hi = min(i_hi, gh - 1), min(j_hi, gw - 1)
+    if i_lo > i_hi or j_lo > j_hi:
+        return None
+    return (i_lo, i_hi), (j_lo, j_hi)
+
+
+def split_patches(split, grid_hw):
+    """The 9-patch plan of an interior box ``split``: a list of ``((i0,
+    i1), (j0, j1), (mask_rows, mask_cols))`` patches partitioning the
+    ``grid_hw`` tile grid (half-open bounds), row band by row band: the
+    middle patch unmasked, a pure-edge patch keeping only the axis its
+    tiles can cross, a corner both."""
+    (i_lo, i_hi), (j_lo, j_hi) = split
+    gh, gw = grid_hw
+    row_bands = [(0, i_lo, True), (i_lo, i_hi + 1, False),
+                 (i_hi + 1, gh, True)]
+    col_bands = [(0, j_lo, True), (j_lo, j_hi + 1, False),
+                 (j_hi + 1, gw, True)]
+    return [((r0, r1), (c0, c1), (mr, mc))
+            for r0, r1, mr in row_bands if r1 > r0
+            for c0, c1, mc in col_bands if c1 > c0]
+
+
+def axis_offset_classes(n_blocks: int, block: int):
+    """The block-offset classes along one grid axis, as (lo, hi) ranges:
+    a block's interior geometry depends only on which image edges it can
+    touch, so the blocks of an axis fall into at most three classes --
+    the first (offset 0), the last ((n−1)·block) and the middle band
+    ([block, (n−2)·block]), in that order."""
+    if n_blocks == 1:
+        return [(0, 0)]
+    if n_blocks == 2:
+        return [(0, 0), (block, block)]
+    last = (n_blocks - 1) * block
+    return [(0, 0), (block, last - block), (last, last)]
+
+
+def axis_class_index(a: int, n: int) -> int:
+    """The index into :func:`axis_offset_classes` of block ``a`` of an
+    ``n``-block axis (the JAX package's ``step._axis_class_index``)."""
+    if n <= 2:
+        return 0 if n == 1 else int(a)
+    return 0 if a == 0 else (2 if a == n - 1 else 1)
+
+
+def _split_block_off(interior_split: bool, valid_hw, block_off):
+    """The static offset the split plans with, or None for no split
+    (periodic, or not asked).  Raises the JAX package's ``ValueError``
+    when a split is asked without ``block_off``."""
+    if not interior_split or valid_hw is None:
+        return None
+    if block_off is None:
+        raise ValueError(
+            "interior_split requires a static block_off — the global "
+            "(row0, col0) of this block, exact or as (lo, hi) ranges; "
+            "without it the unmasked-interior classification cannot be "
+            "sound for arbitrary runtime offsets")
+    return _norm_block_off(block_off)
+
+
+def launch_patches(valid_hw, tile, depth: int, out_hw, block_off,
+                   shift: int = 0):
+    """The patches of one K2 launch under the interior split: the tiles of
+    an ``out_hw`` output at ``tile``, whose level-0 windows reach
+    ``depth`` beyond the tile, for a block at ``block_off`` whose launch
+    output starts ``shift`` ghost levels' rows before it (a level group
+    before the last: ``r·left``).  One patch with both masks when no tile
+    is interior."""
+    gh, gw = -(-out_hw[0] // tile[0]), -(-out_hw[1] // tile[1])
+    (rl, rh), (cl, ch) = _norm_block_off(block_off)
+    split = _interior_range(valid_hw, tile, depth, (gh, gw),
+                            ((rl - shift, rh - shift),
+                             (cl - shift, ch - shift)))
+    if split is None:
+        return [((0, gh), (0, gw), (True, True))]
+    return split_patches(split, (gh, gw))
 
 
 def group_dtype(quantize: bool, out_dtype):

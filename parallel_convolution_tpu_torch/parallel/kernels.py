@@ -3,9 +3,11 @@ boundary)``, as in the JAX package's ``parallel/kernels.py``.
 
 ``parallel/step.py`` registers one smoother form per backend at import,
 ``solvers/transfer.py`` the multigrid transfer operators (``restrict_fw``,
-``prolong_bilinear``) under their own stencil forms, so a transfer
-operator can never be taken for a smoother.  Volumes and the overlap /
-persistent-channel capability bits come with their slices.
+``prolong_bilinear``; rank 3: ``restrict_fw``, ``prolong_trilinear``)
+under their own stencil forms, so a transfer operator can never be taken
+for a smoother, and ``volumes/forms.py`` the rank-3 forms (``smooth``
+relaxations and time-dependent ``physics``).  The overlap /
+persistent-channel capability bits come with their slice.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-STENCIL_FORMS = ("smooth", "restrict", "prolong")
+STENCIL_FORMS = ("smooth", "restrict", "prolong", "physics")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,10 +24,13 @@ class KernelForm:
 
     ``build`` is owned by the registering module.  For a smoother it is
     ``build(filt, grid, valid_hw, block_hw, quantize, fuse, boundary,
-    tile) -> step``: the per-chunk step that maps the grid's blocks to the
-    blocks ``fuse`` iterations later; for a transfer operator
-    ``build(grid_shape, valid_hw, block_hw, boundary) -> op`` over the
-    fine level's blocks (``solvers/transfer.py``).
+    tile, interior_split) -> step``: the per-chunk step that maps the
+    grid's blocks to the blocks ``fuse`` iterations later; for a transfer
+    operator ``build(grid_shape, valid_hw, block_hw, boundary) -> op``
+    over the fine level's blocks (rank 3: ``build(grid_shape, depth,
+    valid_hw, block_hw, boundary)``, ``solvers/transfer.py``); for a
+    rank-3 form ``build(grid_shape, depth, valid_hw, block_hw, fuse,
+    boundary) -> step`` over the stacked grid (``volumes/forms.py``).
     """
 
     name: str
@@ -63,6 +68,7 @@ def _ensure_default_forms() -> None:
     resolution works in any import order."""
     from parallel_convolution_tpu_torch.parallel import step  # noqa: F401
     from parallel_convolution_tpu_torch.solvers import transfer  # noqa: F401
+    from parallel_convolution_tpu_torch.volumes import forms  # noqa: F401
 
 
 def resolve(rank: int, name: str, boundary: str) -> KernelForm:

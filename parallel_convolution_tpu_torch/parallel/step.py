@@ -102,13 +102,19 @@ def _boundary_geometry(grid_hw, valid_hw, block_hw, boundary: str):
 
 def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
                      block_hw, quantize: bool, fuse: int = 1,
-                     boundary: str = "zero", tile=None):
+                     boundary: str = "zero", tile=None,
+                     interior_split: bool = False):
     """``fuse`` iterations on every block per halo exchange.
 
     fuse = 1: exchange r-deep halos, one level, re-mask the pad rim.
     fuse = T > 1: exchange T·r-deep halos once; ``cuda`` / ``cuda_sep`` run
     the T levels in K2 (which masks per level), the plain backends run T
     levels here, each re-masked on the shrinking extended block.
+    ``interior_split`` (K2 on a ``zero`` boundary only, as in the JAX
+    package) launches each block's levels as the 9-patch plan of its
+    offset class (``stencil.axis_offset_classes``): the host knows every
+    block's exact offset, but plans by class, so that the launches are
+    the JAX package's.
     """
     periodic, needs_mask = _boundary_geometry(grid.shape, valid_hw, block_hw,
                                               boundary)
@@ -119,6 +125,16 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
     on_kernels = backend in ("cuda", "cuda_sep")
     sep = backend == "cuda_sep"
     masks: dict = {}
+    split = interior_split and on_kernels and fuse > 1 and not periodic
+    if split:
+        classes = (stencil.axis_offset_classes(grid.rows, block_hw[0]),
+                   stencil.axis_offset_classes(grid.cols, block_hw[1]))
+
+    def block_off(i, j):
+        if not split:
+            return None
+        return (classes[0][stencil.axis_class_index(i, grid.rows)],
+                classes[1][stencil.axis_class_index(j, grid.cols)])
 
     def mask(index, margin, dtype):
         key = (index, margin, dtype)
@@ -148,7 +164,8 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
                         p, (i * block_hw[0], j * block_hw[1]), filt, fuse,
                         None if periodic else tuple(valid_hw),
                         quantize=quantize, out_dtype=dtype, separable=sep,
-                        tile=tile)
+                        tile=tile, interior_split=split,
+                        block_off=block_off(i, j))
                     continue
                 for t in range(fuse):
                     margin = depth - r * (t + 1)
@@ -163,12 +180,13 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
 
 def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
                      quantize: bool, fuse: int = 1, boundary: str = "zero",
-                     tile=None):
+                     tile=None, interior_split: bool = False):
     """The ``cuda_rdma`` form (the JAX package's ``_build_rdma_step``): each
     chunk is one K3 / K4 launch that reads every block's ghosts from its
     neighbours' buffers and runs ``fuse`` levels, masked against the
     global image at every level (so no outer mask at fuse = 1).  Its step
-    maps the stacked grid to the stacked grid (see :func:`_build_iterate`)."""
+    maps the stacked grid to the stacked grid (see :func:`_build_iterate`).
+    ``interior_split`` is taken and not used, as in the JAX package."""
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
     # The in-kernel exchange failing to build (pallas_rdma's site).
     fault_point("halo_exchange")
@@ -202,7 +220,8 @@ _register_smoother_forms()
 
 
 def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
-                     fuse=1, boundary="zero", tile=None):
+                     fuse=1, boundary="zero", tile=None,
+                     interior_split=False):
     """The smoother step of ``backend``, through the kernel-form registry;
     a transfer operator's name fails here (it is not a smoother)."""
     form = kernel_forms.resolve(2, backend, boundary)
@@ -212,7 +231,7 @@ def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
             "not a smoother; transfer operators are driven by "
             "solvers.multigrid, not the iterate path")
     return form.build(filt, grid, valid_hw, block_hw, quantize, fuse,
-                      boundary, tile)
+                      boundary, tile, interior_split)
 
 
 def _check_block_size(filt: Filter, block_hw) -> None:
@@ -233,7 +252,8 @@ def _check_fuse_fits(filt: Filter, block_hw, fuse: int,
 
 def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
                    valid_hw, block_hw, backend: str, fuse: int = 1,
-                   boundary: str = "zero", tile=None):
+                   boundary: str = "zero", tile=None,
+                   interior_split: bool = False):
     """The fixed-count runner for one configuration: ``iters // fuse``
     fused chunks, then one tail chunk of the remaining ``iters % fuse``
     levels."""
@@ -245,10 +265,10 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
     fuse = max(1, min(fuse, iters or 1))
     _check_fuse_fits(filt, block_hw, fuse)
     chunk = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                             backend, fuse, boundary, tile)
+                             backend, fuse, boundary, tile, interior_split)
     n_chunks, rem = divmod(iters, fuse)
     tail = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                             backend, rem, boundary, tile)
+                             backend, rem, boundary, tile, interior_split)
             if rem else None)
 
     # cuda_rdma carries the grid from chunk to chunk as one stacked
@@ -338,7 +358,8 @@ def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
 
 def _resolve_fallback(grid: Grid, filt: Filter, backend: str,
                       quantize: bool, fuse: int, boundary: str, tile,
-                      storage: str, block_hw) -> str:
+                      storage: str, block_hw,
+                      interior_split: bool = False) -> str:
     """Walk the degradation chain (``resilience.degrade``) for this
     configuration.  ``block_hw`` and ``storage`` describe the REAL run:
     the kernel and its launch shape depend on both, so a probe of another
@@ -348,7 +369,8 @@ def _resolve_fallback(grid: Grid, filt: Filter, backend: str,
     return degrade.resolve_backend(
         grid, filt, backend, quantize=quantize, fuse=int(fuse),
         boundary=boundary, tile=None if tile is None else tuple(tile),
-        storage=storage, block_hw=tuple(block_hw))
+        storage=storage, block_hw=tuple(block_hw),
+        interior_split=interior_split)
 
 
 def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
@@ -363,9 +385,11 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     storage and the global ``valid_hw`` image first; ``fallback=True``
     then probes the resolved backend once per (grid, config) per process
     and walks the degradation chain on a transient failure
-    (``resilience.degrade``, with a ``BackendDegradedWarning``)."""
-    check_pending(interior_split=interior_split, overlap=overlap,
-                  col_mode=col_mode)
+    (``resilience.degrade``, with a ``BackendDegradedWarning``).
+    ``interior_split`` launches K2 by the 9-patch plan (``cuda`` /
+    ``cuda_sep`` at fuse > 1 on a ``zero`` boundary; elsewhere taken and
+    not used, as in the JAX package)."""
+    check_pending(overlap=overlap, col_mode=col_mode)
     if blocks[0][0].dtype == torch.uint8:
         check_storage("u8", quantize)
     if check_contract:
@@ -381,10 +405,12 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     if fallback:
         backend = _resolve_fallback(
             grid, filt, backend, quantize, max(1, min(fuse, iters or 1)),
-            boundary, tile, _storage_name(blocks[0][0].dtype), block_hw)
+            boundary, tile, _storage_name(blocks[0][0].dtype), block_hw,
+            interior_split)
     run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
                          block_hw, backend, fuse, boundary,
-                         None if tile is None else tuple(tile))
+                         None if tile is None else tuple(tile),
+                         interior_split)
     return run(blocks)
 
 
@@ -423,14 +449,15 @@ def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
     they are None, through ``tuning.resolve``.
     ``quantize=True`` assumes u8-range input and raises on values outside
     [0, 255] for convex filters.  ``fallback=True``: see
-    :func:`iterate_prepared`.
+    :func:`iterate_prepared`, as ``interior_split``.
     """
     grid, blocks, valid_hw, _ = _setup_run(
         x, grid, device, backend, storage, boundary, quantize,
-        interior_split=interior_split, overlap=overlap, col_mode=col_mode)
+        overlap=overlap, col_mode=col_mode)
     out = iterate_prepared(blocks, filt, iters, grid, valid_hw,
                            quantize=quantize, backend=backend, fuse=fuse,
-                           boundary=boundary, tile=tile, fallback=fallback)
+                           boundary=boundary, tile=tile,
+                           interior_split=interior_split, fallback=fallback)
     return _global_f32(out, grid, valid_hw, stacked=False)
 
 
@@ -455,7 +482,8 @@ def _max_abs_diff(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
                           valid_hw, block_hw, backend: str,
-                          boundary: str = "zero", fuse: int = 1, tile=None):
+                          boundary: str = "zero", fuse: int = 1, tile=None,
+                          interior_split: bool = False):
     """ONE convergence chunk: ``n`` iterations and the (prev, cur) max-abs
     diff, as a 0-d f32 tensor left on the device.
 
@@ -473,7 +501,7 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
     step = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
                             backend, 1, boundary, tile)
     fused = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                              backend, fuse, boundary, tile)
+                              backend, fuse, boundary, tile, interior_split)
              if fuse > 1 and n > 1 else None)
     stacked = backend == "cuda_rdma"
 
@@ -507,7 +535,8 @@ def _multigrid(x, filt: Filter, tol, max_iters, grid, quantize, backend,
     here because the solver package imports this module)."""
     from parallel_convolution_tpu_torch.solvers import multigrid
 
-    check_pending(interior_split=interior_split)
+    # interior_split is taken and not used, as the JAX package's V-cycle
+    # does (its sweeps are single steps).
     kw = dict(grid=grid, quantize=quantize, backend=backend, storage=storage,
               boundary=boundary, fuse=fuse, tile=tile, fallback=fallback,
               overlap=overlap, mg_levels=mg_levels, col_mode=col_mode,
@@ -527,14 +556,15 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
         x, grid, device, backend, storage, boundary, quantize,
-        interior_split=interior_split, overlap=overlap, col_mode=col_mode)
+        overlap=overlap, col_mode=col_mode)
     backend, fuse, tile, _ = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
     check_backend(backend)
     if fallback:
         backend = _resolve_fallback(grid, filt, backend, quantize, fuse,
-                                    boundary, tile, storage, block_hw)
+                                    boundary, tile, storage, block_hw,
+                                    interior_split)
     _check_quantize_contract(blocks, filt, quantize)
     _check_block_size(filt, block_hw)
     tile = None if tile is None else tuple(int(v) for v in tile)
@@ -544,7 +574,7 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
 def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
                      max_iters: int, check_every: int, quantize: bool,
                      valid_hw, block_hw, backend: str, boundary: str,
-                     fuse: int, tile, counter):
+                     fuse: int, tile, counter, interior_split: bool = False):
     """The host loop: ``(carry, iters_done, diff)`` after every chunk,
     until ``diff < tol`` or ``max_iters`` (a NaN diff stops it too).  The
     diff's ``.item()`` is the chunk's one readback and fence; it counts on
@@ -557,7 +587,7 @@ def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
             fault_point("backend_compile")  # a chunk size's first build
             chunks[n] = _build_converge_chunk(
                 grid, filt, n, quantize, tuple(valid_hw), block_hw, backend,
-                boundary, fuse, tile)
+                boundary, fuse, tile, interior_split)
         state, d = chunks[n](state)
         diff = d.item()
         counter.readbacks += 1
@@ -630,7 +660,7 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
     for state, done, _ in _converge_chunks(
             grid, filt, state, tol, max_iters, check_every, quantize,
             valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge):
+            sharded_converge, interior_split):
         pass
     return _global_f32(state, grid, valid_hw, stacked), done
 
@@ -682,7 +712,7 @@ def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     for state, done, diff in _converge_chunks(
             grid, filt, state, tol, int(max_iters), int(check_every),
             quantize, valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge_stream):
+            sharded_converge_stream, interior_split):
         yield (_global_f32(state, grid, valid_hw, stacked).cpu().numpy(),
                done, diff)
 

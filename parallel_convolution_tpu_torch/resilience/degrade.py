@@ -82,15 +82,17 @@ def clear_probe_cache() -> None:
 
 
 def _probe_key(grid, filt: Filter, backend: str, quantize, fuse, boundary,
-               tile, storage, block_hw) -> tuple:
+               tile, storage, block_hw, interior_split=False) -> tuple:
     return (grid, filt.name, filt.radius, backend, bool(quantize), int(fuse),
             boundary, None if tile is None else tuple(tile), storage,
-            None if block_hw is None else tuple(block_hw))
+            None if block_hw is None else tuple(block_hw),
+            bool(interior_split))
 
 
 def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
                   fuse: int = 1, boundary: str = "zero", tile=None,
-                  storage: str = "f32", block_hw=None) -> None:
+                  storage: str = "f32", block_hw=None,
+                  interior_split: bool = False) -> None:
     """Build and run one ``fuse``-iteration chunk of ``backend`` on a
     zeros grid.
 
@@ -100,12 +102,13 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
     depend on it (``cuda_rdma`` takes K3 or K4 by the block's size, K2 its
     level groups), so the probe runs the same kernels at the same size as
     the real run.  ``None`` takes the fused slab floor (``max(8,
-    radius*fuse)`` a side) for standalone use.  Cost: one chunk of
+    radius*fuse)`` a side) for standalone use.  ``interior_split`` probes
+    the real run's K2 launch plan too (the JAX package's key).  Cost: one chunk of
     ``fuse`` iterations on one channel, once per (grid, backend, config)
     per process; its tensors are freed before it returns.
     """
     key = _probe_key(grid, filt, backend, quantize, fuse, boundary, tile,
-                     storage, block_hw)
+                     storage, block_hw, interior_split)
     if key in _PROBE_CACHE:
         err = _PROBE_CACHE[key]
         if err is not None:
@@ -113,7 +116,7 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
         return
     try:
         _run_probe(grid, filt, backend, quantize, fuse, boundary, tile,
-                   storage, block_hw)
+                   storage, block_hw, interior_split)
     except Exception as e:  # noqa: BLE001 — the verdict IS the product
         _PROBE_CACHE[key] = e
         raise
@@ -121,7 +124,7 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
 
 
 def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
-               block_hw) -> None:
+               block_hw, interior_split=False) -> None:
     from parallel_convolution_tpu_torch.parallel import step as step_lib
     from parallel_convolution_tpu_torch.parallel.mesh import split_blocks
 
@@ -137,7 +140,7 @@ def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
                     device=grid.device)
     run = step_lib._build_iterate(grid, filt, fuse, quantize, valid_hw,
                                   tuple(block_hw), backend, fuse, boundary,
-                                  tile)
+                                  tile, interior_split)
     run(split_blocks(x, grid))
     if grid.device.type == "cuda":
         torch.cuda.synchronize(grid.device)
@@ -158,7 +161,7 @@ def effective_for(requested: str) -> str | None:
 def resolve_backend(grid, filt: Filter, backend: str, *,
                     quantize: bool = True, fuse: int = 1,
                     boundary: str = "zero", tile=None, storage: str = "f32",
-                    block_hw=None) -> str:
+                    block_hw=None, interior_split: bool = False) -> str:
     """Return the first backend in the grid's ``degradation_chain``
     whose probe passes; raise at once on a terminal probe failure, and
     :class:`RetryExhausted` when every tier failed transiently (on the
@@ -173,7 +176,7 @@ def resolve_backend(grid, filt: Filter, backend: str, *,
         try:
             probe_backend(grid, filt, b, quantize=quantize, fuse=fuse,
                           boundary=boundary, tile=tile, storage=storage,
-                          block_hw=block_hw)
+                          block_hw=block_hw, interior_split=interior_split)
         except Exception as e:  # noqa: BLE001
             if classify(e) == TERMINAL:
                 raise

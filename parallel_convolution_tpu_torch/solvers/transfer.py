@@ -33,8 +33,15 @@ Grid alignment (the JAX package's contract, unchanged):
 
 With even fine blocks (the level planner's padding rule) both centerings
 keep every coarse point's stencil within its block plus a depth-1 halo.
-The rank-3 forms (``restrict_fw3``, ``prolong_trilinear``) come with the
-volumes (ROADMAP item 6).
+
+The rank-3 forms (:func:`build_restrict_fw3`,
+:func:`build_prolong_trilinear`) are the same operators with one more
+axis, over the stacked grid of (F, D, bh, bw) volume blocks: the
+separable [1/4, 1/2, 1/4] tensor product and its trilinear adjoint, the
+centering and extent rule unchanged per axis, the depth axis (whole in
+every block) coarsened in place with the planes beyond
+``coarse_extent(D)`` masked to zero.  They register under rank 3; no CLI
+path drives them (the JAX CLI refuses ``--rank 3 --solver multigrid``).
 """
 
 from __future__ import annotations
@@ -45,8 +52,8 @@ from parallel_convolution_tpu_torch.ops import rdma
 from parallel_convolution_tpu_torch.ops.filters import get_filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
 
-__all__ = ["FW_FILTER", "build_prolong_bilinear", "build_restrict_fw",
-           "coarse_extent"]
+__all__ = ["FW_FILTER", "build_prolong_bilinear", "build_prolong_trilinear",
+           "build_restrict_fw", "build_restrict_fw3", "coarse_extent"]
 
 # Full weighting IS the /16 pyramid stencil — the registry's blur3 taps.
 FW_FILTER = get_filter("blur3")
@@ -216,6 +223,114 @@ def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
     return prolong
 
 
+# -- rank 3: the same operators, one more axis ------------------------------
+
+_FW_TAPS = (0.25, 0.5, 0.25)
+
+
+def _check_even_block3(depth: int, block_hw, op: str) -> None:
+    _check_even_block(block_hw, op)
+    if int(depth) % 2:
+        raise ValueError(
+            f"{op} needs an even depth (coarse-aligned planes), got "
+            f"D={depth}")
+
+
+def _fw_axis(p: torch.Tensor, axis: int) -> torch.Tensor:
+    """One [1/4, 1/2, 1/4] pass along ``axis`` of a padded array: it
+    consumes that axis's depth-1 ghost."""
+    n = p.shape[axis]
+    lo = [slice(None)] * p.dim()
+    cc = [slice(None)] * p.dim()
+    hi = [slice(None)] * p.dim()
+    lo[axis], cc[axis], hi[axis] = (
+        slice(0, n - 2), slice(1, n - 1), slice(2, n))
+    return (_FW_TAPS[0] * p[tuple(lo)] + _FW_TAPS[1] * p[tuple(cc)]
+            + _FW_TAPS[2] * p[tuple(hi)])
+
+
+def build_restrict_fw3(grid_shape, depth: int, valid_hw, block_hw,
+                       boundary: str = "zero"):
+    """Rank-3 full weighting over the fine level's stacked volume blocks:
+    ``(F, D, bh, bw) → (F, D/2, bh/2, bw/2)`` for every block of the
+    grid.
+
+    One depth-1 6-face exchange (``volumes.halo3``), three separable FW
+    passes (the 3×3×3 tensor-product stencil), the centering subsample
+    per axis, then the masks: the coarse (H, W) validity mask of rank 2,
+    and a depth mask zeroing the coarse planes beyond ``coarse_extent(D)``
+    (the odd-centered zero coarsening drops the last plane of an even
+    depth).
+    """
+    from parallel_convolution_tpu_torch.volumes import forms, halo3
+
+    _check_even_block3(depth, block_hw, "restrict_fw(rank 3)")
+    periodic = boundary == "periodic"
+    R, Cg = grid_shape
+    cvalid = (coarse_extent(valid_hw[0], boundary),
+              coarse_extent(valid_hw[1], boundary))
+    cblock = (block_hw[0] // 2, block_hw[1] // 2)
+    cdepth, cvalid_d = int(depth) // 2, coarse_extent(depth, boundary)
+    needs_mask = not periodic and (
+        cvalid[0] != cblock[0] * R or cvalid[1] != cblock[1] * Cg)
+    off = 0 if periodic else 1
+
+    def restrict(v):
+        p = halo3.volume_halo_exchange(v, 1, (R, Cg), boundary)
+        for axis in (-3, -2, -1):
+            p = _fw_axis(p, axis)
+        c = p[..., off::2, off::2, off::2]
+        if needs_mask:
+            c = c * forms._valid_mask3(cvalid, cblock, (R, Cg), 0,
+                                       c.device).to(c.dtype)
+        if cvalid_d < cdepth:
+            dmask = (torch.arange(cdepth, device=c.device)
+                     < cvalid_d).to(c.dtype)
+            c = c * dmask[:, None, None]
+        return c.to(v.dtype).contiguous()
+
+    return restrict
+
+
+def build_prolong_trilinear(grid_shape, depth: int, valid_hw, block_hw,
+                            boundary: str = "zero"):
+    """Rank-3 trilinear prolongation on the fine level's stacked grid:
+    ``(F, D/2, bh/2, bw/2) → (F, D, bh, bw)`` for every block, three interleave
+    passes over the depth-1 6-face-padded coarse blocks, one per axis,
+    each rank 2's centering rule (odd-centered zero reads the coarse
+    ghost as 0; even-centered periodic wraps)."""
+    from parallel_convolution_tpu_torch.volumes import forms, halo3
+
+    _check_even_block3(depth, block_hw, "prolong_trilinear")
+    periodic = boundary == "periodic"
+    R, Cg = grid_shape
+    m = (int(depth) // 2, block_hw[0] // 2, block_hw[1] // 2)
+    needs_mask = not periodic and (
+        valid_hw[0] != block_hw[0] * R or valid_hw[1] != block_hw[1] * Cg)
+
+    def prolong(c):
+        p = halo3.volume_halo_exchange(c, 1, (R, Cg), boundary)
+        for axis, n in zip((-3, -2, -1), m):
+            sl_a = [slice(None)] * p.dim()
+            sl_b = [slice(None)] * p.dim()
+            if periodic:
+                # Even-centered: fine 2k = coarse k; 2k+1 = mean(k, k+1).
+                sl_a[axis], sl_b[axis] = slice(1, n + 1), slice(2, n + 2)
+                a, b = p[tuple(sl_a)], p[tuple(sl_b)]
+                p = _interleave(a, (a + b) * 0.5, axis)
+            else:
+                # Odd-centered: fine 2k+1 = coarse k; 2k = mean(k-1, k).
+                sl_a[axis], sl_b[axis] = slice(0, n), slice(1, n + 1)
+                a, b = p[tuple(sl_a)], p[tuple(sl_b)]
+                p = _interleave((a + b) * 0.5, b, axis)
+        if needs_mask:
+            p = p * forms._valid_mask3(valid_hw, block_hw, (R, Cg), 0,
+                                       p.device).to(p.dtype)
+        return p.to(c.dtype)
+
+    return prolong
+
+
 def _register_transfer_forms() -> None:
     from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
 
@@ -225,6 +340,12 @@ def _register_transfer_forms() -> None:
     kernel_forms.register(kernel_forms.KernelForm(
         name="prolong_bilinear", rank=2, stencil_form="prolong",
         boundaries=tuple(BOUNDARIES), build=build_prolong_bilinear))
+    kernel_forms.register(kernel_forms.KernelForm(
+        name="restrict_fw", rank=3, stencil_form="restrict",
+        boundaries=tuple(BOUNDARIES), build=build_restrict_fw3))
+    kernel_forms.register(kernel_forms.KernelForm(
+        name="prolong_trilinear", rank=3, stencil_form="prolong",
+        boundaries=tuple(BOUNDARIES), build=build_prolong_trilinear))
 
 
 _register_transfer_forms()

@@ -385,6 +385,67 @@ def predict_gpx_per_chip(seconds_per_px_iter: float) -> float:
     return 1.0 / (seconds_per_px_iter * 1e9)
 
 
+# -- rank-3 volumes (the JAX package's costmodel.py:413-470) ---------------
+# Taps of one application of each rank-3 form: the FD smoothers touch 6r
+# neighbours plus the rhs and the diagonal scale; the physics forms are
+# 7-point-Laplacian updates with a few pointwise reaction terms (the JAX
+# package's table, held against the registry in the tests).
+VOLUME_FORM_TAPS = {
+    "fd7": 8, "fd7_stack": 8, "fd25": 26, "fd25_stack": 26,
+    "wave": 10, "grayscott": 24,
+}
+# Whole-grid copies of one volume exchange on one card
+# (volumes/halo3.py): the interiors, the two D faces and parallel/halo.py's
+# eight row and column copies.
+VOLUME_HALO_OPS = 11
+
+
+def volume_bytes_per_cell_iter(storage: str = "f32",
+                               fields: int = 2) -> float:
+    """Device-memory bytes per CELL (one grid point of every field) per
+    iteration of a rank-3 form, the JAX package's accounting: the 6-face
+    ghost pad written and read, the output written, 4 B per field in all
+    (fusion saves exchanges, not bytes)."""
+    return 4.0 * STORAGE_BYTES[storage] * max(1, int(fields))
+
+
+def predict_volume_seconds_per_cell_iter(
+        grid: tuple[int, int], block_hw: tuple[int, int], depth: int,
+        radius: int, fuse: int, name: str, hw: HardwareModel,
+        fields: int = 2, storage: str = "f32") -> float:
+    """Roofline time per cell and iteration of one rank-3 form.
+
+    ``max(bytes, operations)`` as in the JAX package: bytes from
+    :func:`volume_bytes_per_cell_iter` over ``hw.hbm_gbps``, two FMA slots
+    a tap and field from :data:`VOLUME_FORM_TAPS` over ``hw.flop_gops``.
+    On a grid of more than one block the exchange on one card is added:
+    the ±H / ±W face slabs of every block (the whole depth-padded column,
+    ``fields·(depth + 2d)`` channels; the ±D faces are a local pad), read
+    and written once in device memory, and :data:`VOLUME_HALO_OPS` eager
+    copies on the host, a round every ``fuse`` iterations.  The forms
+    themselves are eager PyTorch ops, each a pass over the block: the
+    model does not price those passes, so it is a floor, not a forecast.
+    """
+    T = max(1, int(fuse))
+    d = radius * T
+    depth = max(1, int(depth))
+    bh, bw = block_hw
+    cells = max(1, depth * bh * bw)
+    t_hbm = volume_bytes_per_cell_iter(storage, fields) / (hw.hbm_gbps * 1e9)
+    taps = VOLUME_FORM_TAPS.get(name, 8)
+    t_flop = 2.0 * taps * max(1, int(fields)) / (hw.flop_gops * 1e9)
+    t_roof = max(t_hbm, t_flop)
+    nb = grid[0] * grid[1]
+    if nb == 1:
+        return t_roof
+    B = STORAGE_BYTES[storage]
+    ch = max(1, int(fields)) * (depth + 2 * d)
+    slab_bytes = ch * d * (2.0 * bw + 2.0 * (bh + 2 * d)) * B
+    per_round = (2.0 * slab_bytes / (hw.hbm_gbps * 1e9)
+                 + VOLUME_HALO_OPS * hw.op_s / nb)
+    return t_roof + per_round / (T * cells)
+
+
 # -- multigrid (the JAX package's costmodel.py:472-564) --------------------
 
 

@@ -217,11 +217,12 @@ class TuneResult:
 
 
 def measure(w: Workload, c: Candidate, grid, *, iters: int = 8,
-            reps: int = 2,
-            hw: costmodel.HardwareModel | None = None) -> dict:
+            reps: int = 2, hw: costmodel.HardwareModel | None = None,
+            interior_split: bool = False) -> dict:
     """One measured point: a ``bench_iterate`` row for this candidate, at
     least one full chunk long (a fuse=32 candidate timed over 8 iterations
-    would price fuse=8), plus the model's prediction beside it."""
+    would price fuse=8), plus the model's prediction beside it;
+    ``interior_split`` measures K2's 9-patch launch."""
     from parallel_convolution_tpu_torch.ops.filters import get_filter
     from parallel_convolution_tpu_torch.utils import bench
 
@@ -229,7 +230,8 @@ def measure(w: Workload, c: Candidate, grid, *, iters: int = 8,
         w.shape[1:], get_filter(w.filter_name), max(iters, c.fuse),
         grid=grid, channels=w.shape[0], backend=c.backend,
         quantize=w.quantize, storage=w.storage, fuse=c.fuse,
-        boundary=w.boundary, reps=reps, tile=c.tile)
+        boundary=w.boundary, reps=reps, tile=c.tile,
+        interior_split=interior_split)
     row["predicted_gpx_per_chip"] = costmodel.predict_gpx_per_chip(
         predict(w, c, hw))
     return row
@@ -238,7 +240,8 @@ def measure(w: Workload, c: Candidate, grid, *, iters: int = 8,
 def tune(w: Workload, grid=None, *, dry_run: bool = False, backends=None,
          fuses=None, tiles=None, iters: int = 8, reps: int = 2,
          max_measure: int = 8, prune_factor: float = 4.0,
-         hw: costmodel.HardwareModel | None = None) -> TuneResult:
+         hw: costmodel.HardwareModel | None = None,
+         interior_split: bool = False) -> TuneResult:
     """Tune one workload: rank the legal space, optionally measure.
 
     ``dry_run=True`` (or ``grid=None``) returns the model's pick with
@@ -250,6 +253,7 @@ def tune(w: Workload, grid=None, *, dry_run: bool = False, backends=None,
     carry it.  Any other failure (a CUDA launch error, a failed build, a
     lost context) is a fault of the kernels, not an illegal point, and
     propagates: a lost context would poison every later measurement.
+    ``interior_split`` measures every candidate with K2's 9-patch launch.
     """
     hw = _hw(w, hw)
     ranked = rank(w, enumerate_candidates(w, backends, fuses, tiles, hw=hw),
@@ -268,7 +272,8 @@ def tune(w: Workload, grid=None, *, dry_run: bool = False, backends=None,
                  if t <= best_t * prune_factor][:max(1, int(max_measure))]
     for _, c in shortlist:
         try:
-            row = measure(w, c, grid, iters=iters, reps=reps, hw=hw)
+            row = measure(w, c, grid, iters=iters, reps=reps, hw=hw,
+                          interior_split=interior_split)
         except ValueError as e:  # an illegal point is data
             rows.append({"backend": c.backend, "fuse": c.fuse,
                          "tile": (f"{c.tile[0]}x{c.tile[1]}" if c.tile

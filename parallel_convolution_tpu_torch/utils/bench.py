@@ -127,7 +127,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
                   quantize: bool = True, storage: str = "f32",
                   fuse: int | None = 1, boundary: str = "zero",
                   reps: int = 3, tile=None, fallback: bool = False,
-                  device=None) -> dict:
+                  device=None, interior_split: bool = False) -> dict:
     """Gpixels/s of the fixed-iteration workload on one device.
 
     The image (seeded, u8-range) is moved and cut once; each rep runs
@@ -144,6 +144,8 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     (``resilience.degrade``) on a transient failure first, probed at the
     real block and storage: the row's ``effective_backend`` is the backend
     that produced the number, ``backend`` the one asked for.
+    ``interior_split`` benches K2's 9-patch launch (``cuda`` /
+    ``cuda_sep`` at fuse > 1 on a ``zero`` boundary).
     """
     from parallel_convolution_tpu_torch.tuning import costmodel, search
     from parallel_convolution_tpu_torch.tuning.plans import Workload
@@ -160,7 +162,8 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     fuse = max(1, min(int(fuse), iters or 1))  # as _build_iterate clamps
     if fallback:
         eff = step_lib._resolve_fallback(grid, filt, eff, quantize, fuse,
-                                         boundary, tile, storage, block_hw)
+                                         boundary, tile, storage, block_hw,
+                                         interior_split)
 
     state = blocks
 
@@ -169,7 +172,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         state = step_lib.iterate_prepared(
             state, filt, iters, grid, valid_hw, quantize=quantize,
             backend=eff, fuse=fuse, boundary=boundary, tile=tile,
-            check_contract=False)
+            interior_split=interior_split, check_contract=False)
 
     secs = wall(run, grid.device, warmup=1, reps=max(1, reps))
     w = Workload.from_grid(grid, filt, (channels, H, W), storage=storage,
@@ -188,6 +191,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         "effective_backend": eff, "fuse": fuse,
         "tile": list(compiled_tile) if compiled_tile else None,
         "storage": storage, "quantize": quantize, "boundary": boundary,
+        "interior_split": bool(interior_split),
         # Overlap and column transport are inert on one card (item 10).
         "overlap": False, "col_mode": None,
         "seconds": secs, "wall_s": secs,

@@ -446,7 +446,8 @@ def run_checkpointed(blocks, filt, total_iters: int, grid: Grid, valid_hw,
             run_backend = step_lib._resolve_fallback(
                 grid, filt, backend, quantize,
                 min(fuse, every, total_iters - done), boundary, tile,
-                step_lib._storage_name(blocks[0][0].dtype), (bh, bw))
+                step_lib._storage_name(blocks[0][0].dtype), (bh, bw),
+                interior_split)
     while done < total_iters:
         chunk = min(every, total_iters - done)
         # tile is a pure performance knob (the same bytes for any value),

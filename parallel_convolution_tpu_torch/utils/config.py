@@ -33,6 +33,22 @@ BOUNDARIES = ("zero", "periodic")
 # Run-to-convergence strategies, with the JAX package's names.
 SOLVERS = ("jacobi", "multigrid")
 
+# Rank-3 volumes (``volumes/``), the JAX package's registries: the kernel
+# forms register under ``(3, name, boundary)``.  ``smooth`` forms are
+# Jacobi relaxations a converge loop may drive, ``physics`` forms
+# time-dependent integrators.  Every rank-3 form carries TWO stacked
+# fields: (u, f) for the FD forms, (u, u_prev) for wave, (U, V) for
+# Gray-Scott.
+RANKS = (2, 3)
+VOLUME_SMOOTH_FORMS = ("fd7", "fd7_stack", "fd25", "fd25_stack")
+VOLUME_PHYSICS_FORMS = ("wave", "grayscott")
+VOLUME_FORMS = VOLUME_SMOOTH_FORMS + VOLUME_PHYSICS_FORMS
+VOLUME_FIELDS = 2
+# Ghost radius of one application of each rank-3 form (fd25 is the
+# 8th-order star).
+VOLUME_RADII = {"fd7": 1, "fd7_stack": 1, "fd25": 4, "fd25_stack": 4,
+                "wave": 1, "grayscott": 1}
+
 # The JAX package's backend name -> the port's.
 BACKEND_FROM_REFERENCE = {
     "shifted": "shifted",
@@ -44,16 +60,12 @@ BACKEND_FROM_REFERENCE = {
 }
 
 _SEPARATE_CARDS = "item 10 (blocks on separate cards)"
-_VOLUMES = "item 6 (volumes)"
 
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.
 PENDING_KNOBS = {
-    "interior_split": "item 2 (interior_split)",
     "overlap": _SEPARATE_CARDS,
     "col_mode": _SEPARATE_CARDS,
-    "rank": _VOLUMES,
-    "depth": _VOLUMES,
 }
 
 

@@ -1,0 +1,75 @@
+"""6-face ghost exchange for (F, D, h, w) volume blocks (the JAX package's
+``volumes/halo3.py``).
+
+The grid splits the (H, W) plane into blocks; the depth axis D lies whole
+in every block.  So the six ghost faces are of two kinds:
+
+* the ±D faces belong to no neighbour: a local pad, zeros for the
+  ``zero`` boundary, a wrap for ``periodic``;
+* the ±H and ±W faces are rank 2's row and column slabs with the
+  depth-padded fields as channels: ``parallel/halo.py``'s ghost fill on
+  the padded grid with (F, D+2r) folded into its channel axis.
+
+Phase order (D, then rows, then columns at full padded height) brings the
+twelve edge and eight corner regions without diagonal copies, as in the
+JAX package: the row slabs carry the fresh D ghosts, the column slabs
+both.  Every block lives on one device, so the exchange writes one padded
+grid: the interiors in one copy, the D faces, then the row and column
+phases as a few whole-grid copies.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parallel_convolution_tpu_torch.parallel import halo
+from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
+
+__all__ = ["volume_halo_exchange"]
+
+
+def volume_halo_exchange(blocks: torch.Tensor, r: int, grid_shape,
+                         boundary: str = "zero") -> torch.Tensor:
+    """Pad all six faces of every (F, D, h, w) block with r-deep ghosts.
+
+    ``blocks`` is the stacked grid (R·C, F, D, h, w), block ``i * C + j``
+    at grid position (i, j); returns the stacked (R·C, F, D+2r, h+2r,
+    w+2r).  Raises the JAX package's errors: an unknown boundary, a block
+    that is not (F, D, h, w), a periodic wrap deeper than D.
+    """
+    if boundary not in BOUNDARIES:
+        raise ValueError(
+            f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
+    if blocks.dim() != 5:
+        raise ValueError(f"volume block must be (F, D, h, w), got shape "
+                         f"{tuple(blocks.shape[1:])}")
+    x = blocks
+    periodic = boundary == "periodic"
+    r = int(r)
+    R, Cg = grid_shape
+    N, F, D, h, w = x.shape
+    if N != R * Cg:
+        raise ValueError(f"expected {R * Cg} blocks for grid "
+                         f"{tuple(grid_shape)}, got {N}")
+    if periodic and D < r:
+        raise ValueError(
+            f"periodic depth wrap needs D >= ghost depth, got D={D} < r={r}")
+    d = halo._check(boundary, r, (h, w))
+    p = x.new_empty((R, Cg, F, D + 2 * d, h + 2 * d, w + 2 * d))
+    xv = x.reshape(R, Cg, F, D, h, w)
+    rows, cols = slice(d, d + h), slice(d, d + w)
+    p[..., d:d + D, rows, cols] = xv
+    # Phase 0: the resident depth axis, a local pad.
+    if periodic:
+        p[..., :d, rows, cols] = xv[..., D - d:, :, :]
+        p[..., d + D:, rows, cols] = xv[..., :d, :, :]
+    else:
+        p[..., :d, rows, cols] = 0
+        p[..., d + D:, rows, cols] = 0
+    # Phases 1 and 2: the (H, W) plane, rank 2's ghost fill with the
+    # depth-padded fields as channels.
+    if d:
+        halo._fill_ghosts(
+            p.view(R, Cg, F * (D + 2 * d), h + 2 * d, w + 2 * d), d,
+            periodic)
+    return p.view(N, F, D + 2 * d, h + 2 * d, w + 2 * d)

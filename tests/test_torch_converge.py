@@ -312,13 +312,14 @@ def test_jacobi_solver_pending_knobs():
     assert cycles == 1 and s.last_mg.converged and not out.any()
     assert JacobiSolver(mg_levels=3, tol=0.1, max_iters=5,
                         device="cpu").solve(x)[1] == 5
-    with pytest.raises(NotImplementedError, match="item 2"):
-        JacobiSolver(solver="multigrid", interior_split=True,
-                     device="cpu").solve(x)
+    # interior_split (item 2) is ported: Jacobi and the V-cycle take it
+    # (tests/test_torch_interior_split.py holds the split against JAX).
+    assert JacobiSolver(solver="multigrid", interior_split=True, tol=0.1,
+                        max_iters=10, device="cpu").solve(x)[1] == 1
     with pytest.raises(NotImplementedError, match="item 10"):
         JacobiSolver(overlap=True, device="cpu").solve(x)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        JacobiSolver(interior_split=True, device="cpu").solve(x)
+    assert JacobiSolver(interior_split=True, tol=0.1, max_iters=5,
+                        device="cpu").solve(x)[1] == 5
     with pytest.raises(ValueError, match="solver must be one of"):
         JacobiSolver(solver="newton", device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -427,8 +428,10 @@ PENDING_ARGV = [
 # Items ported since the cases above were written: their flags now run.
 PORTED = ("item 3b", "item 4")
 # Ported items whose runs are held against the JAX CLI's on the same argv
-# (the port's --device cpu and backend names mapped back).
-PORTED_VS_JAX = ("item 5", ITEM12)
+# (the port's --device cpu and backend names mapped back): the same exit
+# code (``--rank 3`` without ``--depth`` exits 2 in both) and, on 0, the
+# same output.
+PORTED_VS_JAX = ("item 2", "item 5", "item 6", ITEM12)
 
 
 def _jax_argv(argv):
@@ -463,10 +466,14 @@ def test_cli_pending_flags_exit_2_naming_their_item(tmp_path, capsys, argv,
         # argv, with its output file's bytes, or its JSON row's keys.
         jdst = tmp_path / "jout.raw"
         jargv = [str(jdst) if a == str(dst) else a for a in _jax_argv(argv)]
-        assert cli_main(argv) == 0
+        rc = cli_main(argv)
         out = capsys.readouterr().out
-        assert jcli.main(jargv) == 0
+        jrc = jcli.main(jargv)
         jout = capsys.readouterr().out
+        assert rc == jrc == (2 if argv[-2:] == ["--rank", "3"] else 0)
+        if rc:
+            assert not dst.exists() and not jdst.exists()
+            return
         if argv[0] == "bench":
             row = json.loads(out.strip().splitlines()[-1])
             jrow = json.loads(jout.strip().splitlines()[-1])

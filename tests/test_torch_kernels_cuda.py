@@ -196,6 +196,114 @@ def test_fused_level_groups_match_one_launch(cuda_device):
     assert torch.equal(got, want)
 
 
+# K2's interior split (the 9-patch launch): (filter, storage, quantize, T,
+# offsets, valid, block_off, tile).  The tiles make several level groups
+# (at most r·g = tile/4 a group), so each group plans its own patches.
+SPLIT_CASES = [
+    ("blur3", "u8", True, 32, (0, 0), (300, 900), (0, 0), (16, 64)),
+    ("blur3", "bf16", True, 32, (0, 0), (300, 900), (0, 0), None),
+    ("gaussian5", "u8", True, 9, (200, 0), (437, 613),
+     ((200, 200), (0, 0)), (32, 64)),
+    ("edge5", "f32", False, 8, (128, 256), (1000, 1000),
+     ((128, 512), (256, 256)), (32, 32)),
+    ("blur3", "f32", False, 12, (333, 0), (666, 500), (333, 0), (16, 128)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_fused_interior_split_matches_one_launch(cuda_device, case):
+    name, storage, quantize, T, off, valid, block_off, tile = case
+    f = get_filter(name)
+    r = f.radius
+    h, w = min(300, valid[0] - off[0]), min(900, valid[1] - off[1])
+    x = _data(61 + T, (2 if storage == "bf16" else 1, h + 2 * r * T,
+                       w + 2 * r * T), storage, cuda_device)
+    kw = dict(quantize=quantize, out_dtype=TORCH[storage],
+              separable=storage == "bf16", tile=tile)
+    th, tw, groups = stencil.fused_plan(r, T, (h, w), tile)
+    assert len(groups) > 1
+    patches, left = 0, T
+    for g in groups:
+        left -= g
+        oh, ow = h + 2 * r * left, w + 2 * r * left
+        patches += len(stencil.launch_patches(
+            valid, (min(th, oh), min(tw, ow)), r * g, (oh, ow), block_off,
+            r * left))
+    assert len(groups) < patches <= 9 * len(groups)
+    before = stencil.fused_iterate.launches
+    got = stencil.fused_iterate(x, off, f, T, valid, interior_split=True,
+                                block_off=block_off, **kw)
+    torch.cuda.synchronize()
+    assert stencil.fused_iterate.launches == before + patches
+    one = stencil.fused_iterate(x, off, f, T, valid, **kw)
+    # A dropped mask is a multiply by 1.0: the single launch's bits.
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    assert got.dtype == one.dtype and torch.equal(
+        got.view(bits[got.element_size()]), one.view(bits[one.element_size()]))
+    want = stencil.fused_iterate_plain(x, off, f, T, valid,
+                                       interior_split=True,
+                                       block_off=block_off, **kw)
+    _assert_agree(got, want, f, T, quantize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape,storage", [((1, 1), "bf16"),
+                                                ((2, 2), "u8"),
+                                                ((4, 4), "f32")])
+def test_sharded_interior_split_bitwise(cuda_device, grid_shape, storage):
+    # Every offset class (a 4-block axis has the first, middle and last)
+    # on an odd extent, where the pad-to-multiple rim is masked.
+    img = imageio.generate_test_image(517, 1003, "rgb", seed=4)
+    kw = dict(grid=mesh.make_grid(grid_shape, cuda_device),
+              backend="cuda_sep", storage=storage, fuse=16)
+    split = ConvolutionModel("blur3", interior_split=True, **kw)
+    stencil.reset_launch_counts()
+    got = split.run_image(img, 40)
+    n_split = stencil.launch_counts()["fused_iterate"]
+    stencil.reset_launch_counts()
+    want = ConvolutionModel("blur3", **kw).run_image(img, 40)
+    assert n_split > stencil.launch_counts()["fused_iterate"] > 0
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, oracle.run_serial_u8(img, get_filter("blur3"),
+                                                    40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", ["zero", "periodic"])
+def test_volume_forms_on_the_card(cuda_device, boundary):
+    # The rank-3 forms are plain PyTorch: on the card against the numpy
+    # oracle, and bitwise across grids, fusion and the _stack twins.
+    from parallel_convolution_tpu_torch.utils.config import VOLUME_FORMS
+    from parallel_convolution_tpu_torch.volumes import driver, oracle3
+
+    rng = np.random.default_rng(11)
+    vol = rng.random((2, 10, 24, 40) if boundary == "periodic"
+                     else (2, 10, 22, 37), dtype=np.float32)
+    g1, g2 = (mesh.make_grid(s, cuda_device) for s in ((1, 1), (2, 2)))
+    for name in VOLUME_FORMS:
+        a = driver.volume_iterate(vol, name, 3, grid=g2, boundary=boundary)
+        assert a.is_cuda
+        np.testing.assert_allclose(
+            a.cpu().numpy(), oracle3.run_oracle(vol, name, 3, boundary),
+            rtol=0, atol=2e-5)
+        assert torch.equal(a, driver.volume_iterate(
+            vol, name, 3, grid=g1, boundary=boundary))
+        fuse = 2 if name.startswith("fd25") else 3
+        assert torch.equal(a, driver.volume_iterate(
+            vol, name, 3, grid=g2, boundary=boundary, fuse=fuse))
+    for base in ("fd7", "fd25"):
+        assert torch.equal(
+            driver.volume_iterate(vol, base, 4, grid=g2, boundary=boundary),
+            driver.volume_iterate(vol, base + "_stack", 4, grid=g2,
+                                  boundary=boundary))
+    state, done, _ = driver.volume_converge(vol, "fd7", tol=0.0,
+                                            max_iters=8, check_every=3,
+                                            grid=g2, fuse=2)
+    assert done == 8 and torch.equal(
+        state, driver.volume_iterate(vol, "fd7", 8, grid=g2))
+
+
 # ---------------------------------------------------------------------------
 # The level loop of K2 / K3 / K4 (csrc/stencil_common.cuh:run_levels)
 # ---------------------------------------------------------------------------

@@ -167,5 +167,7 @@ def test_quantize_contract_and_storage_errors():
         step.sharded_iterate(bad, f, 1, grid=g, storage="u8", quantize=False)
     with pytest.raises(ValueError, match="storage='u8' requires quantize"):
         ConvolutionModel(f, device="cpu", storage="u8", quantize=False)
+    # interior_split is ported (item 2): the model takes it.
+    assert ConvolutionModel(f, device="cpu", interior_split=True).interior_split
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ConvolutionModel(f, device="cpu", interior_split=True)
+        ConvolutionModel(f, device="cpu", overlap=True)

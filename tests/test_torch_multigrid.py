@@ -65,17 +65,20 @@ def _field(hw, seed):
 
 
 def test_registry_transfer_forms_under_their_own_classes():
-    assert kernels.STENCIL_FORMS == ("smooth", "restrict", "prolong")
-    assert kernels.registered_keys("smooth") == frozenset(
+    # The volumes (item 6) add the "physics" class and the rank-3 forms.
+    assert kernels.STENCIL_FORMS == ("smooth", "restrict", "prolong",
+                                     "physics")
+    assert {k for k in kernels.registered_keys("smooth")
+            if k[0] == 2} == frozenset(
         (2, b, bd) for b in BACKENDS for bd in BOUNDARIES)
     assert kernels.registered_keys("restrict") == frozenset(
-        (2, "restrict_fw", bd) for bd in BOUNDARIES)
+        (rank, "restrict_fw", bd) for rank in (2, 3) for bd in BOUNDARIES)
     assert kernels.registered_keys("prolong") == frozenset(
-        (2, "prolong_bilinear", bd) for bd in BOUNDARIES)
-    # The JAX registry's rank-2 transfer keys, no more and no less.
+        (2, "prolong_bilinear", bd) for bd in BOUNDARIES) | frozenset(
+        (3, "prolong_trilinear", bd) for bd in BOUNDARIES)
+    # The JAX registry's transfer keys, no more and no less.
     for form in ("restrict", "prolong"):
-        assert kernels.registered_keys(form) == frozenset(
-            k for k in jkernels.registered_keys(form) if k[0] == 2)
+        assert kernels.registered_keys(form) == jkernels.registered_keys(form)
 
 
 @pytest.mark.parametrize("name", ["restrict_fw", "prolong_bilinear"])

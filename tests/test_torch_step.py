@@ -180,9 +180,12 @@ def test_step_errors():
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas")
     with pytest.raises(ValueError, match="'pallas_rdma' is 'cuda_rdma' here"):
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas_rdma")
-    for knob in ("interior_split", "overlap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            step.sharded_iterate(x, tf, 1, grid=g, **{knob: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        step.sharded_iterate(x, tf, 1, grid=g, overlap=True)
+    # interior_split is ported (item 2): the plain backend takes it.
+    np.testing.assert_array_equal(
+        step.sharded_iterate(x, tf, 1, grid=g, interior_split=True).numpy(),
+        step.sharded_iterate(x, tf, 1, grid=g).numpy())
     # fallback is ported: the probe passes, the run is the plain one.
     np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, fallback=True).numpy(),

@@ -72,6 +72,28 @@ Phases (any failure exits non-zero and prints no result line):
    --fuse 8`` (K3), each converged, byte-equal to ``shifted`` and with its
    iteration count; ``sharded_converge_stream`` there, one yield and one
    readback a chunk, its last image ``sharded_converge``'s bytes;
+4h. blocks on separate devices (ROADMAP item 10), after phase 4b,
+   counted into the kernels line: the number of cards and a slot map
+   printed first; BASELINE config 2 (RGB 1920x2520 blur3, 2x2 on 4 slots
+   of one card) through ``ConvolutionModel`` with ``cuda_rdma`` bf16 fuse
+   32 (``col_mode`` packed and strided: one K4 launch per slot a chunk,
+   K2 per slot for the later level groups, a pack per slot when packed),
+   ``cuda_sep`` bf16 fuse 32 and ``cuda`` f32 fuse 1; the 256-rank split
+   (grey 1920x2520, 16x16 on 256 slots, u8 fuse 8: K3 per slot) with both
+   transports; BASELINE config 3 (8192x8192 edge5, 4x4 on 16 slots)
+   through ``run --device <16 slots>`` with ``cuda_rdma`` (both
+   transports) and ``cuda``; ``run --converge 0.5 --check-every 10`` on
+   config 1's image at 2x2 slots with ``cuda_rdma`` and ``cuda`` (2730
+   iterations) -- each byte-equal to the one-card form and to ``shifted``,
+   its resident seconds beside the one-card form's; a 1 ms spin queued on
+   one slot's stream before every chunk of config 2's ``cuda_rdma`` run
+   leaving its bytes unchanged (the barrier); the per-slot K3 / K4 and the
+   pack at those shapes against their plain versions, timed over the
+   grid; the column-transport probe (the per-slot launches reading the
+   staging against reading in place, the pack, a barrier wait on the
+   host) that ``costmodel.pick_col_mode`` reads.  With two cards or more
+   the paths run again round-robin over the cards (``--device all``),
+   peer access on;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
    BASELINE config 5's field (32768x32768, jacobi3, tol 1e-3, f32) under
    the Jacobi run's budget of 200 fine-grid work units, through
@@ -161,13 +183,15 @@ Phases (any failure exits non-zero and prints no result line):
    warm and resident);
 8. the hardware-model constants of ``tuning.costmodel.H100`` as this run
    measures them, beside the committed ones;
-9. the ``kernels`` JSON line (seven kernels), then the last line
+9. the ``kernels`` JSON line (ten kernels: K1-K4, the per-slot K3 / K4,
+   the pack, the three probes), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -210,11 +234,19 @@ REPLACES = {
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
     "rdma_block": "parallel_convolution_tpu/ops/pallas_rdma.py:1226",
     "rdma_tiled": "parallel_convolution_tpu/ops/pallas_rdma.py:1316,1330",
+    "rdma_block_slot": "parallel_convolution_tpu/ops/pallas_rdma.py:1226",
+    "rdma_tiled_slot": "parallel_convolution_tpu/ops/pallas_rdma.py:1316,1330",
+    "rdma_pack": "parallel_convolution_tpu/ops/pallas_rdma.py:743",
     "op_chain": "scripts/vpu_op_probe.py:102",
     "smem_probe": "scripts/helper_crash_probe.py:100",
     "rdma_ladder": "scripts/tiled_repro_probe.py:101",
 }
-KERNELS = ("stencil_step", "fused_iterate", "rdma_block", "rdma_tiled")
+# The one-card kernels, then the per-slot forms of K3 / K4 and the pack
+# (a grid of slots, phase 4h).
+ONE_CARD_KERNELS = ("stencil_step", "fused_iterate", "rdma_block",
+                    "rdma_tiled")
+KERNELS = ONE_CARD_KERNELS + ("rdma_block_slot", "rdma_tiled_slot",
+                              "rdma_pack")
 PROBE_SOURCE = "parallel_convolution_tpu_torch/csrc/probes.cu"
 # K1's typed instances: 3 input dtypes x k in (1, 3, 5, 7, 9) x 2 orders x
 # 11 (output dtype, store-back) pairs (no u8 output in float mode, no rintf
@@ -225,6 +257,9 @@ SOURCES = {
     "fused_iterate": "parallel_convolution_tpu_torch/csrc/stencil.cu",
     "rdma_block": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "rdma_tiled": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "rdma_block_slot": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "rdma_tiled_slot": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "rdma_pack": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "op_chain": PROBE_SOURCE,
     "smem_probe": PROBE_SOURCE,
     "rdma_ladder": PROBE_SOURCE,
@@ -512,10 +547,10 @@ def check_rdma_kernels(dev) -> dict:
             got = mesh.join_blocks(rdma.fused_rdma_step(
                 blocks, f, (2, 2), "zero", fuse=32, valid_hw=valid))
             delta = {k: v - stencil_counts[k] for k, v in _counts().items()}
-            want_counts = {"rdma_block": int(plan.kernel == "block"),
-                           "rdma_tiled": int(plan.kernel == "tiled"),
-                           "fused_iterate": 4 * (groups - 1),
-                           "stencil_step": 0}
+            want_counts = {k: 0 for k in KERNELS}
+            want_counts.update({"rdma_block": int(plan.kernel == "block"),
+                                "rdma_tiled": int(plan.kernel == "tiled"),
+                                "fused_iterate": 4 * (groups - 1)})
             check(delta == want_counts,
                   f"fused_rdma_step {name} T=32 launched {delta}, expected "
                   f"{want_counts}")
@@ -1017,7 +1052,8 @@ def main_paths(dev, tmp: Path) -> tuple[dict, list]:
     _, resident = host_seconds(lambda: model.run_planar(planar, ITERS))
     add(label, counts, RGB_HW[0] * RGB_HW[1], secs, warm, resident)
 
-    check(all(totals.values()), f"a kernel never ran on the main path: {totals}")
+    check(all(totals[k] for k in ONE_CARD_KERNELS),
+          f"a kernel never ran on the main path: {totals}")
     refs = {"rgb": rgb, "rgb_ref": ref, "greys": greys, "grey_refs": grey_refs}
     return totals, rows, refs
 
@@ -1574,6 +1610,8 @@ def converge_phase(dev, tmp: Path, totals: dict, keep: dict) -> list:
     want = np.clip(np.rint(want.cpu().numpy()), 0, 255).astype(np.uint8)[0]
     check(want_iters < CONVERGE_CLI_MAX,
           f"shifted did not converge in {CONVERGE_CLI_MAX} iterations")
+    # The separate-devices phase runs the same converge on slots.
+    keep["cli_converge"] = (src, want, want_iters)
     block16 = tuple(-(-n // g) for n, g in zip(RGB_HW, GREY_GRID))
     grid16 = f"{GREY_GRID[0]}x{GREY_GRID[1]}"
     for tag, extra, expect in (
@@ -1648,6 +1686,425 @@ def converge_phase(dev, tmp: Path, totals: dict, keep: dict) -> list:
     rows.append({"path": label, "iters": whole_iters, "yields": len(streamed),
                  "readbacks": reads, "launches": counts, "seconds": secs})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4h: blocks on separate devices (ROADMAP item 10)
+# ---------------------------------------------------------------------------
+
+
+def slot_devices(dev, shape, layout: str):
+    """A grid's slots: every one on ``dev`` (one card), or round-robin over
+    the cards (``all``)."""
+    return [dev] * (shape[0] * shape[1]) if layout == "one card" else "all"
+
+
+def expected_slot_launches(filt, fuse: int, grid_shape, block_hw,
+                           packed: bool) -> dict:
+    """Launches of one ``ITERS``-iteration ``cuda_rdma`` run on a grid of
+    slots: per chunk one K3 or K4 launch per slot (and one pack per slot
+    with the packed transport on more than one column), and K2 once per
+    slot for each later level group."""
+    from parallel_convolution_tpu_torch.ops import rdma
+
+    counts = {k: 0 for k in KERNELS}
+    nb = grid_shape[0] * grid_shape[1]
+    n_chunks, rem = divmod(ITERS, fuse)
+    for T, n in ((fuse, n_chunks), (rem, 1 if rem else 0)):
+        if n == 0:
+            continue
+        plan = rdma.rdma_plan(filt.radius, T, block_hw)
+        counts[f"rdma_{plan.kernel}_slot"] += n * nb
+        counts["fused_iterate"] += n * nb * (len(plan.groups) - 1)
+        if packed and grid_shape[1] > 1:
+            counts["rdma_pack"] += n * nb
+    return counts
+
+
+def slot_launch_ms(run, per_slot, reps: int) -> float:
+    """CUDA-event ms of one launch on every slot of ``run`` (``per_slot(s)``
+    on slot s's stream), between the fork from and the join into the
+    current stream: the per-slot form's cost for the grid's work."""
+    def once():
+        run.fork()
+        for s, st in enumerate(run.streams):
+            per_slot(s)
+            run.launched[s].record(st)
+        run.join()
+
+    return cuda_ms(once, reps=reps)
+
+
+def first_group_plain(blocks, filt, grid_shape, T: int, levels: int,
+                      valid, out_dtype):
+    """Plain version of the first level group of a ``T``-level chunk on a
+    grid of slots, as the per-slot K3 / K4 launch computes it: each block
+    padded at depth r·T by the per-block exchange (NaN until its slab
+    lands), then ``levels`` of K2's plain levels into the block widened by
+    r·(T - levels) on each side, at that rim's global offsets."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.parallel import halo
+
+    r = filt.radius
+    ext = r * (T - levels)
+    h, w = blocks[0][0].shape[1:]
+    padded = halo.exchange_per_block(blocks, r * T, grid_shape, "zero",
+                                     dtype=torch.float32, fill=float("nan"))
+    return torch.stack([
+        stencil.fused_iterate_plain(p, (i * h - ext, j * w - ext), filt,
+                                    levels, valid, True, out_dtype)
+        for i, row in enumerate(padded) for j, p in enumerate(row)])
+
+
+def time_slot_kernels(dev, rgb, grey, big, blur3, edge5) -> dict:
+    """The per-slot kernels at the separate-devices phase's launches, each
+    over the whole grid (one launch a slot): the first level group of a
+    chunk as ``rdma._slots_step`` plans it (its kernel, its levels and its
+    widened output), beside its plain version and its bound; and the
+    column-transport probe that ``pick_col_mode`` reads: those launches
+    reading the staging (packed) against reading in place (strided), the
+    pack launches, and the host's seconds a barrier wait.  The kernels
+    line takes config 2's K4 and the 16x16 split's K3; config 3's K4 is
+    reported beside them."""
+    import torch
+
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.tuning import costmodel
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    out, probe = {}, {}
+    for key, img, storage, shape, T, filt in (
+            ("config 2", rgb, "bf16", (2, 2), 32, blur3),
+            ("config 3", big, "bf16", (4, 4), 32, edge5),
+            ("grey 16x16", grey, "u8", GREY_GRID, 8, blur3)):
+        planar = imageio.interleaved_to_planar(img)
+        grid = mesh.make_grid(shape, devices=slot_devices(dev, shape,
+                                                          "one card"))
+        blocks = convert.blocks_from_numpy(planar, grid, storage)
+        valid = planar.shape[1:]
+        C, h, w = blocks[0][0].shape
+        nb = shape[0] * shape[1]
+        r = filt.radius
+        plan = rdma.rdma_plan(r, T, (h, w), None, stencil._smem_limit(dev))
+        levels = plan.groups[0]
+        ext = r * (T - levels)
+        tiled = plan.kernel == "tiled"
+        launch = rdma.rdma_tiled_slot if tiled else rdma.rdma_block_slot
+        kind = "rdma_tiled_slot" if tiled else "rdma_block_slot"
+        mid = stencil.group_dtype(True, blocks[0][0].dtype)
+        runs = {cm: rdma.slot_carry(blocks, grid, "zero", r * T, cm).run
+                for cm in ("strided", "packed")}
+        outs = [torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
+                            device=dev) for _ in range(nb)]
+        kw = dict(ext=ext, **(dict(tile=plan.tile) if tiled else {}))
+
+        def main(run):
+            return lambda s: launch(run, 0, s, outs[s], filt, levels, valid,
+                                    **kw)
+
+        depth = r * T
+        pack = lambda s: rdma.rdma_pack(runs["packed"], 0, s, depth)
+        slot_launch_ms(runs["packed"], pack, reps=3)  # the staging filled
+        reps = 20 if T * r * r <= 8 else 10
+        ms = slot_launch_ms(runs["strided"], main(runs["strided"]), reps)
+        got = torch.stack(outs)
+        plain = lambda: first_group_plain(blocks, filt, shape, T, levels,
+                                          valid, mid)
+        want = plain()
+        ok, err = agree(got, want, filt, levels, True)
+        check(ok, f"{kind} at {key}'s blocks {shape} x {(C, h, w)}, the "
+                  f"first {levels} of {T} levels into a {ext}-pixel rim: "
+                  f"err {err}")
+        packed_ms = slot_launch_ms(runs["packed"], main(runs["packed"]),
+                                   reps)
+        check(torch.equal(torch.stack(outs), got),
+              f"{kind} at {key}: the packed transport differs from strided")
+        plain_ms = cuda_ms(plain, reps=1, warmup=1)
+        # The least work of the launch: each block's pixels once a level
+        # (the rim is its neighbours' pixels, computed by them), each
+        # block read once and its widened output written once.
+        ops = nb * C * levels * level_ops(filt, False, h, w, True, False)
+        nbytes = (nb * C * h * w * blocks[0][0].element_size()
+                  + got.numel() * got.element_size())
+        b_ms, b_by = bound(nbytes, ops)
+        row = dict(grid=list(shape), block=[C, h, w], T=T, levels=levels,
+                   ext=ext, filter=filt.name, dtype=str(got.dtype), ms=ms,
+                   packed_ms=packed_ms, plain_ms=plain_ms, max_abs_err=err,
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   fraction_of_bound=b_ms / ms)
+        if kind in out:
+            out[kind].setdefault("also", {})[key] = row
+        else:
+            out[kind] = dict(row, at=key)
+        pack_ms = slot_launch_ms(runs["packed"], pack, reps=20)
+        slabs = [rdma.staged_slabs(runs["packed"], s, depth)
+                 for s in range(nb)]
+        wants = rdma.rdma_pack_plain(blocks, shape, "zero", depth)
+        perr = max(max_abs_err(a, b) for a, b in zip(slabs, wants))
+        check(all(torch.equal(a, b) for a, b in zip(slabs, wants)),
+              f"rdma_pack at {key}: staging differs from its plain version")
+        rows = h + 2 * depth
+        elt = blocks[0][0].element_size()
+        nbytes = 2 * nb * 2 * C * rows * depth * elt
+        pb_ms, pb_by = bound(nbytes, 0.0)
+        if key == "config 2":
+            out["rdma_pack"] = dict(
+                grid=list(shape), slab=[2, C, rows, depth], ms=pack_ms,
+                plain_ms=cuda_ms(lambda: rdma.rdma_pack_plain(
+                    blocks, shape, "zero", depth), reps=2, warmup=1),
+                max_abs_err=perr, library_ms=None, bound_ms=pb_ms,
+                bound_by=pb_by, fraction_of_bound=pb_ms / pack_ms)
+        # The prices pick_col_mode reads: a padded row of one channel read
+        # in place over read from the staging, and a pack launch's fixed
+        # part (its time less its bytes at the data sheet's rate).
+        probe[key] = dict(
+            grid=list(shape), block=[C, h, w], radius=r, T=T,
+            storage=storage, strided_ms=ms, packed_ms=packed_ms,
+            pack_ms=pack_ms,
+            col_row_s=max(0.0, (ms - packed_ms) / 1e3) / (nb * 2 * C * rows),
+            pack_s=max(0.0, pack_ms / 1e3 / nb - nbytes / nb
+                       / HBM_BYTES_PER_S))
+        del runs, outs, got, want
+    waits = torch.cuda.Stream(device=dev)
+    ev = torch.cuda.Event()
+    ev.record()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        waits.wait_event(ev)
+    probe["event_s"] = (time.perf_counter() - t0) / 2000
+    # The least over the shapes: where the launches are host-bound (256
+    # slots of small blocks) the strided / packed difference is the host's
+    # noise, not the column read.
+    probe["col_row_s"] = min(p["col_row_s"] for k, p in probe.items()
+                             if isinstance(p, dict))
+    probe["pack_s"] = min(p["pack_s"] for k, p in probe.items()
+                          if isinstance(p, dict))
+    measured = dataclasses.replace(costmodel.H100,
+                                   col_row_s=probe["col_row_s"],
+                                   pack_s=probe["pack_s"],
+                                   event_s=probe["event_s"])
+    probe["picks"] = {
+        k: costmodel.pick_col_mode(p["grid"], p["block"][1:], p["radius"],
+                                   p["T"], p["storage"], measured,
+                                   p["block"][0])
+        for k, p in probe.items() if isinstance(p, dict)}
+    probe["committed"] = {k: getattr(costmodel.H100, k)
+                          for k in ("col_row_s", "pack_s", "event_s")}
+    return {"kernels": out, "probe": probe}
+
+
+def separate_devices_phase(dev, tmp: Path, refs: dict, totals: dict,
+                           keep: dict) -> dict:
+    """BASELINE configs 2 (2x2, 4 slots) and 3 (4x4, 16 slots), the 256-rank
+    split (16x16, K3 per slot) and ``run --converge`` on config 1's image
+    at 2x2, every block on a device slot of its own: the port's per-slot
+    form against its one-card form and ``shifted``, counted into the
+    kernels line; the per-slot kernels against their plain versions; the
+    column-transport probe; and a 1 ms spin before each chunk on one
+    slot's stream leaving the bytes unchanged.  With two cards or more the
+    paths run again round-robin over the cards, peer access on."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    cards = torch.cuda.device_count()
+    layouts = ["one card"] + (["all"] if cards >= 2 else [])
+    blur3, edge5 = get_filter("blur3"), get_filter("edge5")
+    rgb, rgb_ref = refs["rgb"], refs["rgb_ref"]
+    grey, grey_ref = refs["greys"]["blur3"], refs["grey_refs"]["blur3"]
+    edge_ref = refs["grey_refs"]["edge5"]
+    report = {"cards": cards, "layouts": layouts, "runs": []}
+    px2 = RGB_HW[0] * RGB_HW[1] * 3
+    block2 = tuple(-(-n // 2) for n in RGB_HW)
+    block3 = tuple(n // 4 for n in BIG_HW)
+    block16 = tuple(-(-n // g) for n, g in zip(RGB_HW, GREY_GRID))
+    per = lambda f, T, hw, nb: {k: nb * v for k, v in
+                                expected_launches(f, T, hw).items()}
+
+    def resident(model, planar):
+        return min(host_seconds(lambda: model.run_planar(planar, ITERS))[1]
+                   for _ in range(2))
+
+    for layout in layouts:
+        print(f"separate devices ({layout}): {cards} card(s); slots of 2x2 "
+              f"{mesh.make_grid((2, 2), devices=slot_devices(dev, (2, 2), layout)).slot_map()}")
+        # (a) configs 2 and 3 and the 16x16 split through the model.
+        planar_rgb = torch.from_numpy(
+            imageio.interleaved_to_planar(rgb).copy()).to(dev, torch.float32)
+        planar_grey = torch.from_numpy(grey[None].copy()).to(dev,
+                                                             torch.float32)
+        cases = []
+        for cm in ("packed", "strided"):
+            cases.append((f"config 2 rgb blur3 cuda_rdma bf16 fuse 32 "
+                          f"col_mode {cm}", rgb, rgb_ref, planar_rgb, px2,
+                          (2, 2), dict(backend="cuda_rdma", storage="bf16",
+                                       fuse=32, col_mode=cm),
+                          expected_slot_launches(blur3, 32, (2, 2), block2,
+                                                 cm == "packed")))
+        cases += [
+            ("config 2 rgb blur3 cuda_sep bf16 fuse 32", rgb, rgb_ref,
+             planar_rgb, px2, (2, 2),
+             dict(backend="cuda_sep", storage="bf16", fuse=32),
+             per(blur3, 32, block2, 4)),
+            ("config 2 rgb blur3 cuda f32 fuse 1", rgb, rgb_ref, planar_rgb,
+             px2, (2, 2), dict(backend="cuda", storage="f32", fuse=1),
+             per(blur3, 1, block2, 4))]
+        for cm in ("packed", "strided"):
+            cases.append((f"grey 16x16 blur3 cuda_rdma u8 fuse 8 col_mode "
+                          f"{cm}", grey, grey_ref, planar_grey,
+                          RGB_HW[0] * RGB_HW[1], GREY_GRID,
+                          dict(backend="cuda_rdma", storage="u8", fuse=8,
+                               col_mode=cm),
+                          expected_slot_launches(blur3, 8, GREY_GRID,
+                                                 block16, cm == "packed")))
+        for label, img, want, planar, pixels, shape, kw, expect in cases:
+            grid = mesh.make_grid(shape, devices=slot_devices(dev, shape,
+                                                              layout))
+            model = ConvolutionModel("blur3", grid=grid, **kw)
+            out, counts, secs = drive(f"{label} on {layout} slots",
+                                      lambda: model.run_image(img, ITERS),
+                                      expect, pixels,
+                                      no_halo=kw["backend"] == "cuda_rdma")
+            for k, v in counts.items():
+                totals[k] += v
+            check(np.array_equal(out, want), f"{label}: differs from shifted")
+            one = ConvolutionModel("blur3", grid=mesh.make_grid(shape, dev),
+                                   **kw)
+            check(np.array_equal(one.run_image(img, ITERS), out),
+                  f"{label}: differs from the one-card form")
+            report["runs"].append(dict(
+                path=label, layout=layout, slots=grid.slot_map()
+                if layout != "one card" else f"{shape[0] * shape[1]} x {dev}",
+                col_mode=model.effective_col_mode, launches=counts,
+                seconds_first=secs,
+                seconds_resident_slots=resident(model, planar),
+                seconds_resident_one_card=resident(one, planar)))
+        # (b) config 3 through the CLI (--device takes the slot list).
+        src = tmp / "edge5.raw"
+        dst = tmp / "edge5.slots.raw"
+        shape = (4, 4)
+        slots = slot_devices(dev, shape, layout)
+        spec = ",".join(map(str, slots)) if layout == "one card" else "all"
+        planar8k = torch.from_numpy(refs["greys"]["edge5"][None].copy()).to(
+            dev, torch.float32)
+        for backend, cm in (("cuda_rdma", "packed"), ("cuda_rdma", "strided"),
+                            ("cuda", "auto")):
+            label = (f"config 3 cli run grey 8192x8192 edge5 --backend "
+                     f"{backend} --mesh 4x4 --device <16 slots> --storage "
+                     f"bf16 --fuse 32 --col-mode {cm}")
+            argv = ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]),
+                    str(ITERS), "grey", "-o", str(dst), "--filter", "edge5",
+                    "--backend", backend, "--mesh", "4x4", "--device", spec,
+                    "--storage", "bf16", "--fuse", "32", "--col-mode", cm]
+
+            def run_cli():
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_main(argv)
+                check(rc == 0, f"{label}: the CLI exited {rc}")
+                return buf.getvalue().strip().splitlines()[-1]
+
+            expect = (expected_slot_launches(edge5, 32, shape, block3,
+                                             cm == "packed")
+                      if backend == "cuda_rdma" else
+                      per(edge5, 32, block3, 16))
+            line, counts, secs = drive(f"{label} on {layout} slots", run_cli,
+                                       expect, BIG_HW[0] * BIG_HW[1],
+                                       no_halo=backend == "cuda_rdma")
+            for k, v in counts.items():
+                totals[k] += v
+            check("slots " in line, f"{label}: said {line!r}")
+            check(np.array_equal(imageio.read_raw(dst, *BIG_HW, "grey"),
+                                 edge_ref), f"{label}: differs from shifted")
+            kw = dict(backend=backend, storage="bf16", fuse=32, col_mode=cm)
+            model = ConvolutionModel(
+                "edge5", grid=mesh.make_grid(shape, devices=slots), **kw)
+            one = ConvolutionModel("edge5", grid=mesh.make_grid(shape, dev),
+                                   **kw)
+            check(torch.equal(model.run_planar(planar8k, ITERS),
+                              one.run_planar(planar8k, ITERS)),
+                  f"{label}: differs from the one-card form")
+            report["runs"].append(dict(
+                path=label, layout=layout, said=line, launches=counts,
+                seconds_first=secs,
+                seconds_resident_slots=resident(model, planar8k),
+                seconds_resident_one_card=resident(one, planar8k)))
+        # (c) run --converge 0.5 --check-every 10 on config 1's image at
+        # 2x2 slots, against the one-card 2x2 run and shifted.
+        csrc, cwant, citers = keep["cli_converge"]
+        spec = (",".join(map(str, slot_devices(dev, (2, 2), layout)))
+                if layout == "one card" else "all")
+        for backend in ("cuda_rdma", "cuda"):
+            outs = {}
+            for where, dflag in (("slots", ["--device", spec]),
+                                 ("one card", [])):
+                cdst = tmp / f"converge.{where.replace(' ', '_')}.raw"
+                label = (f"cli run --converge 0.5 --check-every 10 grey "
+                         f"1920x2520 blur3 --backend {backend} --mesh 2x2 "
+                         f"on {where}")
+                argv = (["run", str(csrc), str(RGB_HW[0]), str(RGB_HW[1]),
+                         str(CONVERGE_CLI_MAX), "grey", "-o", str(cdst),
+                         "--converge", "0.5", "--check-every", "10",
+                         "--backend", backend, "--mesh", "2x2"] + dflag)
+                buf = io.StringIO()
+                stencil.reset_launch_counts()
+                with contextlib.redirect_stdout(buf):
+                    rc, secs = host_seconds(lambda: cli_main(argv))
+                counts = stencil.launch_counts()
+                check(rc == 0, f"{label}: the CLI exited {rc}")
+                said = buf.getvalue().strip().splitlines()[-1]
+                check(said.startswith(f"converged after {citers} iters"),
+                      f"{label}: said {said!r}, shifted ran {citers}")
+                outs[where] = imageio.read_raw(cdst, *RGB_HW, "grey")
+                check(np.array_equal(outs[where], cwant),
+                      f"{label}: differs from shifted")
+                if where == "slots":
+                    slot_kernel = ("rdma_tiled_slot" if backend == "cuda_rdma"
+                                   else "stencil_step")
+                    check(counts[slot_kernel] > 0
+                          and counts["rdma_tiled"] == 0,
+                          f"{label}: launches {counts}")
+                    for k, v in counts.items():
+                        totals[k] += v
+                report["runs"].append(dict(path=label, layout=layout,
+                                           iters=citers, launches=counts,
+                                           seconds=secs))
+                print(f"separate devices {label}: {counts}, {secs:.4f} s")
+    # (d) the skew: ~1 ms of spin on slot 1's stream before each chunk of
+    # config 2's cuda_rdma run leaves every byte where it was.
+    planar = imageio.interleaved_to_planar(rgb)
+    for cm in ("packed", "strided"):
+        grid = mesh.make_grid((2, 2), devices=slot_devices(dev, (2, 2),
+                                                           "one card"))
+        carry = rdma.slot_carry(convert.blocks_from_numpy(planar, grid,
+                                                          "bf16"),
+                                grid, "zero", 32, cm)
+        for T in (32, 32, 32, ITERS % 32):
+            with torch.cuda.stream(carry.run.streams[1]):
+                torch.cuda._sleep(2_000_000)
+            carry = rdma.fused_rdma_slots(carry, blur3, (2, 2), "zero",
+                                          fuse=T, valid_hw=RGB_HW,
+                                          col_mode=cm)
+        got = mesh.join_blocks(rdma.slot_blocks(carry, (2, 2)))
+        got = got[:, :RGB_HW[0], :RGB_HW[1]].to(torch.uint8).cpu().numpy()
+        check(np.array_equal(imageio.planar_to_interleaved(got), rgb_ref),
+              f"skew ({cm}): the skewed run differs from shifted")
+    report["skew"] = "equal under a 1 ms spin before every chunk on slot 1"
+    stencil.reset_launch_counts()  # not main-path launches
+    report["timed"] = time_slot_kernels(dev, rgb, grey,
+                                        refs["greys"]["edge5"], blur3, edge5)
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -3056,6 +3513,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             keep = {}
             converge_rows = converge_phase(dev, Path(tmp), totals, keep)
+            slots = separate_devices_phase(dev, Path(tmp), refs, totals,
+                                           keep)
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep.pop("config5"), converge_rows[0])
             torch.cuda.empty_cache()
@@ -3134,10 +3593,21 @@ def main() -> int:
         print("volume: " + json.dumps(volume))
         for row in split_rows:
             print("end to end interior split: " + json.dumps(row))
+        for row in slots.pop("runs"):
+            print("end to end separate devices: " + json.dumps(row))
+        slot_timed = slots.pop("timed")
+        for name, row in slot_timed["kernels"].items():
+            print(f"time {name}: " + json.dumps(row))
+        print("probe col_mode: " + json.dumps(
+            dict(slot_timed["probe"], card=card)))
+        print("separate devices: " + json.dumps(slots))
+        check(all(totals[k] for k in KERNELS),
+              f"a kernel never ran on a main path: {totals}")
 
         kernels = []
         for name, t in (("stencil_step", k1), ("fused_iterate", k2),
-                        ("rdma_block", k3), ("rdma_tiled", k4)):
+                        ("rdma_block", k3), ("rdma_tiled", k4),
+                        *slot_timed["kernels"].items()):
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": totals[name],

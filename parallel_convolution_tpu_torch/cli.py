@@ -55,8 +55,8 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
 
     p.add_argument("--filter", default="blur3", dest="filter_name")
     p.add_argument("--mesh", default=None, metavar="RxC",
-                   help="block grid (default 1x1); all blocks live on "
-                        "the one device")
+                   help="block grid (default 1x1; with a --device list or "
+                        "'all', dims_create of the slots)")
     # No argparse choices: check_backend names the port's counterpart of
     # a JAX backend name (pallas -> cuda, ...).
     p.add_argument("--backend", default=None,
@@ -77,12 +77,14 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
                         "for any tile)")
     p.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
                    help="interior-first overlapped halo pipeline: 'on' is "
-                        "not ported yet (ROADMAP item 10); 'auto' and "
+                        "not ported yet (ROADMAP item 10b); 'auto' and "
                         "'off' run the serialized order")
     p.add_argument("--col-mode", default="auto", dest="col_mode",
                    choices=["auto", "packed", "strided"],
-                   help="column-slab transport between cards: not ported "
-                        "yet (ROADMAP item 10)")
+                   help="cuda_rdma's column-slab transport between the "
+                        "slots of a grid of slots: stage the slabs first "
+                        "(packed) or read them in place (strided); auto "
+                        "asks the cost model; the same bytes")
     p.add_argument("--interior-split", action="store_true",
                    dest="interior_split",
                    help="launch K2 as the 9-patch unmasked-interior split "
@@ -94,8 +96,11 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
                         "in the summary line); on the card a refused cuda "
                         "raises, on the CPU it steps down to shifted")
     p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu; without CUDA the default "
-                        "raises")
+                   help="cuda (default) or cpu, every block on that "
+                        "device; 'all' (a slot per block, round-robin over "
+                        "the cards) or a comma list of RxC slots, a device "
+                        "per block (e.g. cuda:0,cuda:0,cuda:0,cuda:0 or "
+                        "cpu,cpu); without CUDA the default raises")
     p.add_argument("--fast", action="store_true",
                    help="on the card, fill unset --backend/--storage/"
                         "--fuse with cuda_sep / bf16 / 32")
@@ -114,9 +119,7 @@ def _check_pending_perf_flags(args) -> None:
     """As :func:`_check_pending_flags`, for the knobs run and bench share."""
     from parallel_convolution_tpu_torch.utils.config import check_pending
 
-    check_pending(
-        overlap=args.overlap == "on",
-        col_mode=None if args.col_mode == "auto" else args.col_mode)
+    check_pending(overlap=args.overlap == "on")
 
 
 def _parse_tile(spec: str | None):
@@ -492,7 +495,8 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
             check_every=args.check_every, grid=grid, backend=args.backend,
             quantize=not mg, fuse=args.fuse, tile=tile,
             boundary=args.boundary, storage=args.storage, solver=args.solver,
-            mg_levels=args.mg_levels, interior_split=args.interior_split)
+            mg_levels=args.mg_levels, interior_split=args.interior_split,
+            col_mode=args.col_mode)
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
         x = imageio.interleaved_to_planar(img).astype(np.float32)
         out, iters = solver.solve(x)
@@ -517,7 +521,8 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
                              backend=args.backend, storage=args.storage,
                              fuse=args.fuse, boundary=args.boundary,
                              tile=tile, fallback=args.fallback,
-                             interior_split=args.interior_split)
+                             interior_split=args.interior_split,
+                             col_mode=args.col_mode)
     storage = args.storage
     if args.checkpoint:
         _run_checkpointed(args, model, grid, tile)
@@ -539,6 +544,9 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         label = ((args.backend if eff == args.backend
                   else f"{args.backend} degraded to {eff}")
                  + f", {storage}, fuse {model.effective_fuse}")
+    if grid.slotted:
+        label += (f", slots {grid.slot_map()}, col_mode "
+                  f"{model.effective_col_mode}")
     print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
           f"grid ({label}, {device_kind(grid.device)}) -> {args.output}")
     return 0
@@ -625,8 +633,10 @@ def _info(args) -> int:
     print(f"backend: {dev.type}  devices: {len(devs)}")
     for d in devs[:8]:
         print(f"  {d}: {device_kind(d)}")
-    print(f"default grid: {dims_create(len(devs))} (one card per block "
-          "comes with ROADMAP item 10; today every block is on one device)")
+    shape = dims_create(len(devs))
+    slots = ",".join(str(d) for d in devs) if dev.type == "cuda" else "cpu"
+    print(f"default grid: {shape} over {len(devs)} device(s); --device "
+          f"all would use the slots {slots}")
     print(f"filters: {', '.join(sorted(FILTERS))}")
     print(f"backends: {', '.join(BACKENDS)}")
     print(f"storages: {', '.join(STORAGES)}  "
@@ -660,7 +670,7 @@ def _bench(args) -> int:
         grid=grid, channels=3 if args.mode == "rgb" else 1,
         backend=args.backend, storage=args.storage, fuse=args.fuse,
         reps=args.reps, tile=tile, fallback=args.fallback,
-        interior_split=args.interior_split)
+        interior_split=args.interior_split, col_mode=args.col_mode)
     row["power_limit_w"] = power_limit_w(grid.device)
     print(json.dumps(row))
     return 0

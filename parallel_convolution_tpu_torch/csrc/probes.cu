@@ -223,8 +223,8 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
   const int warps = blockDim.x >> 5;
   if constexpr (RUNG == 3) {
     // + the T levels: K4's tile body, exactly as csrc/rdma.cu runs it.
-    rdma_tile<K, EPI>(g, b, c, y0, x0, th, tw, /*E=*/0, T, tp, mask, valid_h,
-                      valid_w, out, out_dtype);
+    rdma_tile<K, EPI, false>(g, b, c, y0, x0, th, tw, /*E=*/0, T, tp, mask,
+                             valid_h, valid_w, out, out_dtype);
   } else if constexpr (RUNG == 2) {
     // + the r*T-deep ghost window from the neighbours, written whole into
     // the padded (h+2d, w+2d) output.  Neighbouring tiles' windows overlap

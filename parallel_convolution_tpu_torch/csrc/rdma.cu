@@ -41,6 +41,20 @@
 // that block's edge (the hazard the TPU's _neighbor_barrier closes between
 // devices); stream order between launches stands in for the barrier.
 //
+// The per-device form (a grid of slots, ops/rdma.py): the same kernels take
+// a subset of the grid's blocks, [b0, b0 + count), one launch per slot on
+// that slot's device and stream.  The pointer table holds every block's
+// address on its own device; with peer access between distinct cards
+// (pc_enable_peer) a neighbour's edge is read over NVLink straight from its
+// buffer, on one card the same pointer is local.  The wrapper's barrier
+// between slots (events, no host synchronisation) stands in for the TPU's
+// _neighbor_barrier.  The packed column transport adds rdma_pack_kernel:
+// each slot first stages its two edge column slabs, at the row-padded
+// height, in a contiguous buffer on its own device, which the left and
+// right neighbours' K3 / K4 then read densely (the JAX package's
+// _packed_slab_copy); the strided transport reads the edge columns in
+// place.  The two give the same bytes.
+//
 // The grid, the level-0 gather and the tile body live in rdma_common.cuh,
 // which csrc/probes.cu's construct ladder shares.
 //
@@ -65,7 +79,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_block_kernel(BlockGrid g, void* __restrict__ out, int out_dtype,
                       int E, int T, Taps tp, int mask, int valid_h,
                       int valid_w) {
-  const int b = blockIdx.x / g.C, c = blockIdx.x % g.C;
+  const int b = g.b0 + blockIdx.x / g.C, c = blockIdx.x % g.C;
   rdma_tile<K, EPI>(g, b, c, 0, 0, g.h + 2 * E, g.w + 2 * E, E, T, tp, mask,
                     valid_h, valid_w, out, out_dtype);
 }
@@ -76,13 +90,46 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_tiled_kernel(BlockGrid g, void* __restrict__ out, int out_dtype,
                       int E, int T, Taps tp, int mask, int valid_h,
                       int valid_w, int th, int tw) {
-  const int b = blockIdx.z / g.C, c = blockIdx.z % g.C;
+  const int b = g.b0 + blockIdx.z / g.C, c = blockIdx.z % g.C;
   rdma_tile<K, EPI>(g, b, c, blockIdx.y * th, blockIdx.x * tw, th, tw, E, T,
                     tp, mask, valid_h, valid_w, out, out_dtype);
 }
 
+// The packed transport's gather: for every block b of [b0, b0 + count),
+// its two edge column slabs at ring depth D and row-padded height into its
+// staging (staged_index's layout), in the input dtype, rows beyond the
+// block from its upper / lower neighbour (zeros where there is none: the
+// reader masks the image edge by global coordinates anyway).  One thread a
+// staged element, column fastest.
+template <typename E>
+__global__ void rdma_pack_kernel(BlockGrid g, int count, int D) {
+  const int h = g.h, w = g.w, H2 = h + 2 * D;
+  const long long per = 2LL * g.C * H2 * D;
+  const long long total = per * count;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int b = g.b0 + static_cast<int>(i / per);
+    long long r = i % per;
+    const int col = static_cast<int>(r % D);
+    const int row = static_cast<int>((r / D) % H2);
+    const int c = static_cast<int>((r / (static_cast<long long>(D) * H2)) %
+                                   g.C);
+    const int side = static_cast<int>(r / (static_cast<long long>(D) * H2 *
+                                           g.C));
+    const int ly = row - D;
+    const int di = ly < 0 ? 0 : (ly < h ? 1 : 2);
+    const E* src = static_cast<const E*>(source_block(g, b, di * 3 + 1));
+    const int lx = side == 0 ? col : w - D + col;
+    E v = E(0);
+    if (src != nullptr)
+      v = src[(static_cast<long long>(c) * h + ly - (di - 1) * h) * w + lx];
+    reinterpret_cast<E*>(g.stage[b])[r] = v;
+  }
+}
+
 template <int K, int EPI>
-cudaError_t launch_rdma(int tiled, const BlockGrid& g, int nb, void* out,
+cudaError_t launch_rdma(int tiled, const BlockGrid& g, int count, void* out,
                         int out_dtype, int E, int T, const Taps& tp, int mask,
                         int valid_h, int valid_w, int th, int tw, int threads,
                         int* blocks, cudaStream_t stream) {
@@ -99,7 +146,7 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int nb, void* out,
     if (blocks)
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, rdma_tiled_kernel<K, EPI>, threads, bytes);
-    const dim3 grid((ow + tw - 1) / tw, (oh + th - 1) / th, nb * g.C);
+    const dim3 grid((ow + tw - 1) / tw, (oh + th - 1) / th, count * g.C);
     rdma_tiled_kernel<K, EPI><<<grid, threads, bytes, stream>>>(
         g, out, out_dtype, E, T, tp, mask, valid_h, valid_w, th, tw);
   } else {
@@ -108,7 +155,7 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int nb, void* out,
     if (blocks)
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, rdma_block_kernel<K, EPI>, threads, bytes);
-    rdma_block_kernel<K, EPI><<<nb * g.C, threads, bytes, stream>>>(
+    rdma_block_kernel<K, EPI><<<count * g.C, threads, bytes, stream>>>(
         g, out, out_dtype, E, T, tp, mask, valid_h, valid_w);
   }
   return cudaGetLastError();
@@ -116,34 +163,96 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int nb, void* out,
 
 }  // namespace
 
-// Returns a cudaError_t value: 0 on a successful launch.  `ptrs` (nb int64
-// addresses) and `nbr` (nb x 9 int32) are device arrays; `out` is one device
-// buffer of nb x (C, h+2E, w+2E) blocks; taps is a host array of k*k floats.
+// Returns a cudaError_t value: 0 on a successful launch.  `ptrs` (2 x nb
+// int64: every block's address, then every block's staging address or 0)
+// and `nbr` (nb x 9 int32) are device arrays on the launching device; the
+// launch computes blocks [b0, b0 + count) into `out`, one device buffer of
+// count x (C, h+2E, w+2E) blocks; taps is a host array of k*k floats.
 // tiled = 0 launches K3 (th, tw unused), 1 launches K4; epi is the
 // store-back (Epi, stencil_common.cuh); threads is the block's thread count,
 // a whole number of warps.  With `blocks` non-null nothing launches:
 // *blocks gets the number of such blocks one SM holds.
 extern "C" int pc_rdma_step(int tiled, const long long* ptrs, const int* nbr,
                             int in_dtype, void* out, int out_dtype, int nb,
-                            int gcols, int C, int h, int w, int E, int T,
-                            const float* taps, int k, int epi, int mask,
-                            int valid_h, int valid_w, int th, int tw,
-                            int threads, int* blocks, void* stream) {
+                            int gcols, int b0, int count, int C, int h, int w,
+                            int E, int T, const float* taps, int k, int epi,
+                            int mask, int valid_h, int valid_w, int th,
+                            int tw, int threads, int* blocks, void* stream) {
   Taps tp;
   if (!fill_taps(&tp, taps, nullptr, nullptr, k, 0) || T < 1 || nb < 1 ||
-      gcols < 1 || nb % gcols != 0 || C < 1 || h < 1 || w < 1 || E < 0 ||
+      gcols < 1 || nb % gcols != 0 || b0 < 0 || count < 1 ||
+      b0 + count > nb || C < 1 || h < 1 || w < 1 || E < 0 ||
       (k / 2) * T + E > (h < w ? h : w) || th < 1 || tw < 1 ||
-      (tiled && nb * C > 65535) || !threads_ok(threads))
+      (tiled && count * C > 65535) || !threads_ok(threads))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
+  BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
+  g.stage = ptrs + nb;
+  g.b0 = b0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_k(k, [&](auto K) {
     return with_epi(epi, [&](auto E_) {
       return launch_rdma<decltype(K)::value, decltype(E_)::value>(
-          tiled, g, nb, out, out_dtype, E, T, tp, mask, valid_h, valid_w, th,
-          tw, threads, blocks, st);
+          tiled, g, count, out, out_dtype, E, T, tp, mask, valid_h, valid_w,
+          th, tw, threads, blocks, st);
     });
   }));
+}
+
+// The packed transport's gather (rdma_pack_kernel) for blocks [b0, b0 +
+// count) at ring depth D: `ptrs` as pc_rdma_step's, every staging address
+// of the range non-zero, (2, C, h + 2D, D) elements each.
+extern "C" int pc_rdma_pack(const long long* ptrs, const int* nbr,
+                            int in_dtype, int nb, int gcols, int b0,
+                            int count, int C, int h, int w, int D,
+                            void* stream) {
+  if (nb < 1 || gcols < 1 || nb % gcols != 0 || b0 < 0 || count < 1 ||
+      b0 + count > nb || C < 1 || h < 1 || w < 1 || D < 1 ||
+      D > (h < w ? h : w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
+  g.stage = ptrs + nb;
+  g.b0 = b0;
+  const long long total = 2LL * C * (h + 2LL * D) * D * count;
+  const int threads = 256;
+  const int grid = static_cast<int>(
+      (total + threads - 1) / threads < 8192 ? (total + threads - 1) / threads
+                                             : 8192);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (in_dtype) {
+    case kU8:
+      rdma_pack_kernel<unsigned char><<<grid, threads, 0, st>>>(g, count, D);
+      break;
+    case kBF16:
+      rdma_pack_kernel<unsigned short><<<grid, threads, 0, st>>>(g, count, D);
+      break;
+    default:
+      rdma_pack_kernel<float><<<grid, threads, 0, st>>>(g, count, D);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Peer access from `device` to `peer` (a grid of slots over several cards
+// reads its neighbours' buffers in place).  0 when enabled (or already
+// enabled); cudaErrorPeerAccessUnsupported when the pair cannot, else the
+// runtime's error.  Restores the calling thread's device.
+extern "C" int pc_enable_peer(int device, int peer) {
+  int can = 0;
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  int cur = 0;
+  e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaSetDevice(device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear the sticky-free error state
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(cur);
+  return static_cast<int>(e != cudaSuccess ? e : back);
 }
 
 PC_EXPORT_ERROR_NAME

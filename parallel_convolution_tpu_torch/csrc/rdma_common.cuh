@@ -1,8 +1,9 @@
 // The body of K3 / K4 (csrc/rdma.cu), shared with the construct ladder of
 // csrc/probes.cu, whose last rung is K4 itself: the grid of blocks as the
 // kernels see it, the level-0 window gather from a block and its eight
-// neighbours, and one output tile of T levels (the level loop of
-// stencil_common.cuh).
+// neighbours (or, with the packed column transport, from its upper and
+// lower neighbours and the left and right neighbours' staged slabs), and
+// one output tile of T levels (the level loop of stencil_common.cuh).
 
 #pragma once
 
@@ -18,6 +19,11 @@ struct BlockGrid {
   int gcols;              // grid columns: block b sits at (b / gcols, b % gcols)
   int C, h, w;
   int in_dtype;
+  // device: per block the address of its staged column slabs (the packed
+  // transport, rdma_pack_kernel), 0 where a block stages none (strided);
+  // null: no staging at all.
+  const long long* stage = nullptr;
+  int b0 = 0;  // the first block a launch computes; its output is block 0
 };
 
 __device__ __forceinline__ const void* source_block(const BlockGrid& g, int b,
@@ -26,14 +32,37 @@ __device__ __forceinline__ const void* source_block(const BlockGrid& g, int b,
   return s < 0 ? nullptr : reinterpret_cast<const void*>(g.ptrs[s]);
 }
 
+// The staged column slabs of the neighbour in `slot` (3: left, 5: right),
+// or null where it has none (no neighbour, or the strided transport).
+__device__ __forceinline__ const void* staged_block(const BlockGrid& g, int b,
+                                                    int slot) {
+  if (g.stage == nullptr) return nullptr;
+  const int s = g.nbr[b * 9 + slot];
+  return s < 0 ? nullptr : reinterpret_cast<const void*>(g.stage[s]);
+}
+
+// Layout of one block's staging at ring depth d: (2, C, h + 2d, d) in the
+// input dtype; side 0 holds the block's first d columns, side 1 its last
+// d, each at the row-padded height (rows -d .. h+d-1, the rows beyond the
+// block from its upper / lower neighbour: the corners' first hop).
+__device__ __forceinline__ long long staged_index(const BlockGrid& g, int side,
+                                                  int c, int ly, int col,
+                                                  int d) {
+  return ((static_cast<long long>(side) * g.C + c) * (g.h + 2 * d) + ly + d) *
+             d + col;
+}
+
 // Fill the w0h x S window `a` (row stride S) whose top-left is the
 // block-local (ly0, lx0) of block b, channel c: each window row comes from
 // the block row above, this one or the one below (di), each column from the
 // block column left, this one or right (dj).  Positions beyond the d-deep
 // ring (the ragged last tile) and, when `masked`, outside the global image
 // read as exactly 0; (row0, col0) are the window's global coordinates.
-// A 1-D block: each warp fills whole rows.  The caller synchronises.
-template <int DT>
+// With STAGED, a ghost column of a neighbour that stages its slabs (the
+// packed transport) is read from that staging instead.  A 1-D block: each
+// warp fills whole rows.
+// The caller synchronises.
+template <int DT, bool STAGED>
 __device__ void fill_window_as(const BlockGrid& g, int b, int c, int ly0,
                                int lx0, int w0h, int S, int d, bool masked,
                                int row0, int col0, int valid_h, int valid_w,
@@ -51,17 +80,46 @@ __device__ void fill_window_as(const BlockGrid& g, int b, int c, int ly0,
     const void* src_l = source_block(g, b, di * 3);
     const void* src_c = source_block(g, b, di * 3 + 1);
     const void* src_r = source_block(g, b, di * 3 + 2);
-    for (int wx = lane; wx < S; wx += 32) {
-      const int lx = lx0 + wx;
-      const int dj = lx < 0 ? 0 : (lx < w ? 1 : 2);
-      const void* p = dj == 0 ? src_l : (dj == 1 ? src_c : src_r);
-      const bool ok = row_ok && p != nullptr && lx >= -d && lx < w + d &&
-                      (!masked || (col0 + wx >= 0 && col0 + wx < valid_w));
-      a[wy * S + wx] = ok ? load_as<DT>(p, line + lx - (dj - 1) * w) : 0.f;
+    if constexpr (STAGED) {
+      // Packed: the ghost columns (corners included) from the left /
+      // right neighbour's staged slabs, its right / left side.
+      const void* stg_l = staged_block(g, b, 3);
+      const void* stg_r = staged_block(g, b, 5);
+      for (int wx = lane; wx < S; wx += 32) {
+        const int lx = lx0 + wx;
+        const int dj = lx < 0 ? 0 : (lx < w ? 1 : 2);
+        const bool in_ring =
+            row_ok && lx >= -d && lx < w + d &&
+            (!masked || (col0 + wx >= 0 && col0 + wx < valid_w));
+        const void* stg = dj == 0 ? stg_l : (dj == 2 ? stg_r : nullptr);
+        float v = 0.f;
+        if (stg != nullptr) {
+          if (in_ring)
+            v = load_as<DT>(stg, dj == 0
+                                     ? staged_index(g, 1, c, ly, lx + d, d)
+                                     : staged_index(g, 0, c, ly, lx - w, d));
+        } else {
+          const void* p = dj == 0 ? src_l : (dj == 1 ? src_c : src_r);
+          if (in_ring && p != nullptr)
+            v = load_as<DT>(p, line + lx - (dj - 1) * w);
+        }
+        a[wy * S + wx] = v;
+      }
+    } else {
+      for (int wx = lane; wx < S; wx += 32) {
+        const int lx = lx0 + wx;
+        const int dj = lx < 0 ? 0 : (lx < w ? 1 : 2);
+        const void* p = dj == 0 ? src_l : (dj == 1 ? src_c : src_r);
+        const bool ok = row_ok && p != nullptr && lx >= -d && lx < w + d &&
+                        (!masked || (col0 + wx >= 0 && col0 + wx < valid_w));
+        a[wy * S + wx] =
+            ok ? load_as<DT>(p, line + lx - (dj - 1) * w) : 0.f;
+      }
     }
   }
 }
 
+template <bool STAGED = false>
 __device__ __forceinline__ void fill_window(const BlockGrid& g, int b, int c,
                                             int ly0, int lx0, int w0h, int S,
                                             int d, bool masked, int row0,
@@ -69,16 +127,16 @@ __device__ __forceinline__ void fill_window(const BlockGrid& g, int b, int c,
                                             int valid_w, float* a) {
   switch (g.in_dtype) {
     case kBF16:
-      fill_window_as<kBF16>(g, b, c, ly0, lx0, w0h, S, d, masked, row0, col0,
-                            valid_h, valid_w, a);
+      fill_window_as<kBF16, STAGED>(g, b, c, ly0, lx0, w0h, S, d, masked,
+                                    row0, col0, valid_h, valid_w, a);
       break;
     case kU8:
-      fill_window_as<kU8>(g, b, c, ly0, lx0, w0h, S, d, masked, row0, col0,
-                          valid_h, valid_w, a);
+      fill_window_as<kU8, STAGED>(g, b, c, ly0, lx0, w0h, S, d, masked, row0,
+                                  col0, valid_h, valid_w, a);
       break;
     default:
-      fill_window_as<kF32>(g, b, c, ly0, lx0, w0h, S, d, masked, row0, col0,
-                           valid_h, valid_w, a);
+      fill_window_as<kF32, STAGED>(g, b, c, ly0, lx0, w0h, S, d, masked,
+                                   row0, col0, valid_h, valid_w, a);
   }
 }
 
@@ -87,8 +145,10 @@ __device__ __forceinline__ void fill_window(const BlockGrid& g, int b, int c,
 // block extended by E on every side); the level-0 window reaches
 // d = r*T + E <= min(h, w) beyond the block, so every window position lies
 // in the block or in one of its eight neighbours.  Shared memory: one f32
-// buffer of the (th+2rT) x (tw+2rT) window.
-template <int K, int EPI>
+// buffer of the (th+2rT) x (tw+2rT) window.  STAGED reads the staged
+// column slabs of the packed transport where a neighbour has them (K3 /
+// K4); the construct ladder of csrc/probes.cu runs the strided form.
+template <int K, int EPI, bool STAGED = true>
 __device__ void rdma_tile(const BlockGrid& g, int b, int c, int y0, int x0,
                           int th, int tw, int E, int T, const Taps& tp,
                           int mask, int valid_h, int valid_w,
@@ -105,13 +165,13 @@ __device__ void rdma_tile(const BlockGrid& g, int b, int c, int y0, int x0,
   const bool interior = !mask || (row0 >= 0 && row0 + w0h <= valid_h &&
                                   col0 >= 0 && col0 + S <= valid_w);
 
-  fill_window(g, b, c, ly0, lx0, w0h, S, d, !interior, row0, col0, valid_h,
-              valid_w, smem);
+  fill_window<STAGED>(g, b, c, ly0, lx0, w0h, S, d, !interior, row0, col0,
+                      valid_h, valid_w, smem);
   __syncthreads();
 
   const int oh = h + 2 * E, ow = w + 2 * E;
   const TileOut o{out, out_dtype,
-                  (static_cast<long long>(b) * g.C + c) * oh *
+                  (static_cast<long long>(b - g.b0) * g.C + c) * oh *
                           static_cast<long long>(ow) +
                       static_cast<long long>(y0) * ow + x0,
                   ow, min(th, oh - y0), min(tw, ow - x0)};

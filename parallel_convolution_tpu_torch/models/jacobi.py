@@ -18,7 +18,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
 from parallel_convolution_tpu_torch.utils.config import (
-    check_solver, pending,
+    check_pending, check_solver, pending,
 )
 
 
@@ -39,8 +39,10 @@ class JacobiSolver:
     ``last_mg`` holds the :class:`~parallel_convolution_tpu_torch.solvers.
     multigrid.MGResult` of the latest solve.  ``interior_split`` launches
     K2 by the 9-patch plan in Jacobi's fused chunks (the V-cycle takes it
-    and does not use it, as the JAX solver); ``overlap`` and ``col_mode``
-    raise in :meth:`solve` (a later slice).
+    and does not use it, as the JAX solver).  ``col_mode`` is
+    ``cuda_rdma``'s column transport on a grid of slots (``grid=
+    mesh.make_grid(devices=...)``); ``overlap=True`` raises in
+    :meth:`solve` (ROADMAP item 10b).
     """
 
     filt: Filter | str = "jacobi3"
@@ -85,6 +87,7 @@ class JacobiSolver:
         Jacobi iterations run, or the V-cycles for ``solver="multigrid"``
         (whose fine-grid work units and level schedule land in
         ``self.last_mg``)."""
+        check_pending(overlap=self.overlap)
         if self.solver == "multigrid":
             from parallel_convolution_tpu_torch.solvers import multigrid
 

@@ -18,7 +18,8 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
 )
 from parallel_convolution_tpu_torch.utils import imageio
 from parallel_convolution_tpu_torch.utils.config import (
-    AUTO, check_backend, check_fuse, check_pending, check_run_config,
+    AUTO, COL_MODE_CHOICES, check_backend, check_fuse, check_pending,
+    check_run_config,
 )
 
 
@@ -28,7 +29,9 @@ class ConvolutionModel(nn.Module):
     Args:
       filt: a :class:`Filter` or registry name (default: the reference's
         blur kernel).  Its taps are the module's ``taps`` buffer.
-      grid: the block grid; default 1×1 on ``device``.
+      grid: the block grid; default 1×1 on ``device``; a grid of slots
+        (``mesh.make_grid(devices=...)``) runs each block on its slot's
+        device.
       backend: ``shifted`` | ``separable`` | ``xla_conv`` (plain PyTorch),
         ``cuda`` | ``cuda_sep`` | ``cuda_rdma`` (the CUDA kernels; the JAX
         package's ``pallas`` | ``pallas_sep`` | ``pallas_rdma``), or
@@ -59,8 +62,11 @@ class ConvolutionModel(nn.Module):
         class (``cuda`` / ``cuda_sep`` at fuse > 1 on a ``zero`` boundary;
         elsewhere taken and not used, as in the JAX package); the same
         bytes.
-    The JAX model's ``overlap`` and ``col_mode`` belong to a later slice
-    and raise ``NotImplementedError`` when set.
+      col_mode: ``cuda_rdma``'s column-slab transport on a grid of slots
+        (``packed`` | ``strided`` | ``auto``; None = auto); the resolved
+        value lands in ``effective_col_mode`` after each run.
+    ``overlap=True`` (the JAX model's interior-first pipeline) is ROADMAP
+    item 10b and raises ``NotImplementedError``.
     """
 
     def __init__(self, filt: Filter | str = "blur3", grid: Grid | None = None,
@@ -71,7 +77,10 @@ class ConvolutionModel(nn.Module):
                  col_mode: str | None = None, fallback: bool = False):
         super().__init__()
         check_backend(backend, allow_auto=True)
-        check_pending(overlap=overlap, col_mode=col_mode)
+        check_pending(overlap=overlap)
+        if col_mode is not None and col_mode not in COL_MODE_CHOICES:
+            raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, "
+                             f"got {col_mode!r}")
         check_run_config(storage, boundary, quantize)
         check_fuse(backend, fuse)
         if fuse is not None and int(fuse) < 1:
@@ -88,12 +97,14 @@ class ConvolutionModel(nn.Module):
         self.tile = None if tile is None else tuple(int(v) for v in tile)
         self.fallback = bool(fallback)
         self.interior_split = bool(interior_split)
+        self.col_mode = col_mode
         self.filter_name, self.dyadic = filt.name, filt.dyadic
         self.register_buffer("taps", torch.as_tensor(filt.taps.copy(),
                                                      device=grid.device))
         # What the last run used (None until a run).
         self.effective_backend: str | None = None
         self.effective_fuse: int | None = None
+        self.effective_col_mode: str | None = None
         self.plan_source = "explicit"
         self.resolution = None
 
@@ -103,11 +114,13 @@ class ConvolutionModel(nn.Module):
         return Filter(self.filter_name, self.taps.detach().cpu().numpy(),
                       self.dyadic)
 
-    def _resolved_knobs(self, shape) -> tuple[str, int, object]:
-        """(backend, fuse, tile) for a (C, H, W) image, resolved through the
-        tuning package when ``backend="auto"``, then, with ``fallback``,
-        through the degradation walk, probed at the image's real block
-        size and storage; recorded on the model."""
+    def _resolved_knobs(self, shape) -> tuple[str, int, object, str]:
+        """(backend, fuse, tile, col_mode) for a (C, H, W) image, resolved
+        through the tuning package when ``backend="auto"``, the column
+        transport through ``step.resolve_col_mode``, then, with
+        ``fallback``, through the degradation walk, probed at the image's
+        real block size and storage (``col_mode`` re-clamped to the tier);
+        recorded on the model."""
         backend, fuse, tile = self.backend, self.fuse, self.tile
         self.resolution, self.plan_source = None, "explicit"
         if backend == AUTO:
@@ -119,27 +132,32 @@ class ConvolutionModel(nn.Module):
                 boundary=self.boundary, fuse=fuse, tile=tile)
             backend, fuse, tile = res.backend, res.fuse, res.tile
             self.resolution, self.plan_source = res, res.source
+        R, C = self.grid.shape
+        block_hw = (padded_extent(int(shape[1]), R) // R,
+                    padded_extent(int(shape[2]), C) // C)
+        col_mode = step_lib.resolve_col_mode(
+            self.col_mode, backend, self.grid, block_hw, self.filt.radius,
+            fuse, self.storage)
         if self.fallback:
-            R, C = self.grid.shape
-            block_hw = (padded_extent(int(shape[1]), R) // R,
-                        padded_extent(int(shape[2]), C) // C)
             backend = step_lib._resolve_fallback(
                 self.grid, self.filt, backend, self.quantize, fuse,
                 self.boundary, tile, self.storage, block_hw,
-                self.interior_split)
+                self.interior_split, col_mode)
+            col_mode = step_lib.clamp_col_mode(col_mode, backend)
         self.effective_backend, self.effective_fuse = backend, fuse
-        return backend, fuse, tile
+        self.effective_col_mode = col_mode
+        return backend, fuse, tile, col_mode
 
     # -- array-level API ----------------------------------------------------
     def run_planar(self, x, iters: int) -> torch.Tensor:
         """(C, H, W) in (numpy or tensor) → (C, H, W) f32 tensor on the
         grid's device after ``iters`` iterations."""
-        backend, fuse, tile = self._resolved_knobs(x.shape)
+        backend, fuse, tile, col_mode = self._resolved_knobs(x.shape)
         return step_lib.sharded_iterate(
             x, self.filt, iters, grid=self.grid, quantize=self.quantize,
             backend=backend, storage=self.storage, fuse=fuse,
             boundary=self.boundary, tile=tile,
-            interior_split=self.interior_split)
+            interior_split=self.interior_split, col_mode=col_mode)
 
     forward = run_planar
 
@@ -190,12 +208,12 @@ class ConvolutionModel(nn.Module):
         blocks = sharded_io.load_sharded(
             src, rows, cols, mode, self.grid,
             dtype=step_lib.STORAGE_DTYPES[self.storage])
-        backend, fuse, tile = self._resolved_knobs(
+        backend, fuse, tile, col_mode = self._resolved_knobs(
             (blocks[0][0].shape[0], rows, cols))
         out = step_lib.iterate_prepared(
             blocks, self.filt, iters, self.grid, (rows, cols),
             quantize=self.quantize, backend=backend, fuse=fuse,
             boundary=self.boundary, tile=tile,
-            interior_split=self.interior_split)
+            interior_split=self.interior_split, col_mode=col_mode)
         del blocks
         sharded_io.save_sharded(dst, out, rows, cols, mode)

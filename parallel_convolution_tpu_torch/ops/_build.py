@@ -86,11 +86,16 @@ _SIGNATURES = {
         "pc_strip_height": [],
     },
     "rdma": {
-        # tiled, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, C, h, w,
-        # E, T, taps, k, epi, mask, valid_h, valid_w, th, tw, threads,
-        # blocks, stream
+        # tiled, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, b0, count,
+        # C, h, w, E, T, taps, k, epi, mask, valid_h, valid_w, th, tw,
+        # threads, blocks, stream
         "pc_rdma_step": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _I, _I, _I, _I, _I, _I, _I, _IP, _P],
+                         _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _IP,
+                         _P],
+        # ptrs, nbr, in_dtype, nb, gcols, b0, count, C, h, w, D, stream
+        "pc_rdma_pack": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # device, peer
+        "pc_enable_peer": [_I, _I],
     },
     "probes": {
         # op, in, out, n, af, bf, ai, bi, stream

@@ -23,6 +23,34 @@ The wrapper takes the plain version (:func:`fused_rdma_step_plain`: the
 halo exchange, then K2's plain version on every block) only because the
 blocks it was given lie on the CPU.  On CUDA tensors it launches K3 or K4
 or raises; there is no fallback.
+
+**On a grid of slots** (``mesh.Grid.devices``; :func:`fused_rdma_slots`)
+the same kernels run in their per-device form, the port of the TPU
+kernels' one program per device: one launch per slot
+(:func:`rdma_block_slot`, :func:`rdma_tiled_slot`), on the slot's own
+device and stream, computing that slot's block from a pointer table that
+holds every block's address on its own device.  The carry is one stacked
+tensor per device (:class:`SlotCarry`), double-buffered.  The barrier
+between slots, the counterpart of ``_neighbor_barrier``, is events: a
+slot's launch waits on its neighbours' previous launches and nothing else,
+with no host synchronisation.  It closes both hazards:
+
+* **read after write**: launch N+1 of a slot reads its neighbours'
+  outputs of launch N;
+* **write after read**: launch N+1 writes the buffer that launch N read
+  (the TPU's cross-invocation race), which the neighbours' launches N
+  read too.  The buffers are held for the whole run, never freed to
+  PyTorch's caching allocator between launches, because the allocator
+  would hand memory that another stream (or card) still reads to the next
+  allocation on the owner's stream at once, and ``record_stream`` does not
+  cover a stream of another device.
+
+With ``col_mode="packed"`` each slot first gathers its two edge column
+slabs into its staging (:func:`rdma_pack`), and its left and right
+neighbours wait on that before they read it: the TPU's two phases.  Peer
+access between distinct cards is enabled up front and a refusal raises:
+there is no host-staged fallback.  On the CPU a grid of slots runs
+:func:`fused_rdma_slots_plain`, the JAX semantics literally.
 """
 
 from __future__ import annotations
@@ -176,10 +204,12 @@ def _bind(tiled: bool, x: torch.Tensor, filt: Filter, grid_shape,
     dev = x.device
     nbr = channels.device_table((R, Cg), boundary, dev)
     # The pointer table: block b of the stacked grid starts b strides past
-    # its base.  Built on the card, so no host copy waits on it.
+    # its base; no block stages columns (the second half, 0).  Built on
+    # the card, so no host copy waits on it.
     stride = C * h * w * x.element_size()
-    ptrs = torch.arange(nb, dtype=torch.int64, device=dev).mul_(stride).add_(
-        x.data_ptr())
+    ptrs = torch.zeros(2 * nb, dtype=torch.int64, device=dev)
+    ptrs[:nb] = torch.arange(nb, dtype=torch.int64, device=dev).mul_(
+        stride).add_(x.data_ptr())
     out = torch.empty((nb, C, oh, ow), dtype=out_dtype, device=dev)
     mask = boundary == "zero" and valid_hw is not None
     vh, vw = (int(valid_hw[0]), int(valid_hw[1])) if mask else (0, 0)
@@ -196,7 +226,7 @@ def _bind(tiled: bool, x: torch.Tensor, filt: Filter, grid_shape,
             err = lib.pc_rdma_step(
                 int(tiled), ptrs.data_ptr(), nbr.data_ptr(),
                 stencil.DTYPE_CODES[x.dtype], out.data_ptr(),
-                stencil.DTYPE_CODES[out_dtype], nb, Cg, C, h, w, ext,
+                stencil.DTYPE_CODES[out_dtype], nb, Cg, 0, nb, C, h, w, ext,
                 levels, stencil._fptr(taps), filt.size, epi, int(mask), vh,
                 vw, th, tw, stencil.FUSED_THREADS,
                 ctypes.byref(blocks) if occupancy else None, stream)
@@ -316,3 +346,406 @@ def fused_rdma_step(blocks, filt: Filter, grid_shape, boundary: str = "zero",
     return unstack_blocks(fused_rdma_stacked(
         stack_blocks(blocks, grid_shape), filt, grid_shape, boundary,
         quantize, out_dtype, fuse, valid_hw, tile), grid_shape)
+
+
+# ---------------------------------------------------------------------------
+# A grid of slots: K3 / K4 per device, behind the barrier between slots
+# ---------------------------------------------------------------------------
+
+
+def fused_rdma_slots_plain(blocks, filt: Filter, grid_shape,
+                           boundary: str = "zero", quantize: bool = True,
+                           out_dtype=None, fuse: int = 1, valid_hw=None,
+                           col_mode: str = "strided"
+                           ) -> list[list[torch.Tensor]]:
+    """Plain PyTorch version of K3 / K4 per device, the JAX semantics
+    literally: each block in a padded f32 buffer of its own whose ghosts
+    are NaN until their slab lands, rows pushed first, then columns at the
+    full padded height (``packed``: through each block's staging tensor),
+    then K2's plain levels on every block at its global offsets."""
+    T = int(fuse)
+    h, w = blocks[0][0].shape[1:]
+    padded = halo.exchange_per_block(
+        blocks, filt.radius * T, grid_shape, boundary, dtype=torch.float32,
+        fill=float("nan"), packed=col_mode == "packed")
+    vhw = None if boundary == "periodic" else valid_hw
+    dtype = out_dtype if out_dtype is not None else blocks[0][0].dtype
+    return [[stencil.fused_iterate_plain(p, (i * h, j * w), filt, T, vhw,
+                                         quantize, dtype)
+             for j, p in enumerate(row)] for i, row in enumerate(padded)]
+
+
+def rdma_pack_plain(blocks, grid_shape, boundary: str,
+                    depth: int) -> list[torch.Tensor]:
+    """Plain version of :func:`rdma_pack`: every block's staging, (2, C,
+    h + 2d, d) in its dtype (side 0 its first d columns, side 1 its last
+    d, at the row-padded height), by slice copies of the per-block
+    exchange's row phase."""
+    d = int(depth)
+    w = blocks[0][0].shape[2]
+    padded = halo.exchange_per_block(blocks, d, grid_shape, boundary)
+    return [torch.stack([p[:, :, d:2 * d], p[:, :, w:w + d]])
+            for row in padded for p in row]
+
+
+_STREAMS: dict[tuple[str, ...], list] = {}
+_PEERS: set[tuple[int, int]] = set()
+
+
+def _slot_streams(slots) -> list:
+    """One CUDA stream per slot, made once a process for a slot map."""
+    key = tuple(str(d) for d in slots)
+    if key not in _STREAMS:
+        _STREAMS[key] = [torch.cuda.Stream(device=d) for d in slots]
+    return _STREAMS[key]
+
+
+def enable_peers(devices) -> None:
+    """Peer access between every pair of distinct cards in ``devices``;
+    raises with the runtime's cause where a pair is refused (a grid of
+    slots over those cards reads its neighbours' buffers in place and has
+    no host-staged fallback)."""
+    from parallel_convolution_tpu_torch.ops import _build
+
+    idx = sorted({torch.device(d).index for d in devices})
+    if len(idx) < 2:
+        return
+    lib = _build.load_library("rdma")
+    for a in idx:
+        for b in idx:
+            if a != b and (a, b) not in _PEERS:
+                err = lib.pc_enable_peer(a, b)
+                if err:
+                    raise RuntimeError(
+                        f"peer access from cuda:{a} to cuda:{b} refused "
+                        f"({_build.error_text(err)}): a grid of slots over "
+                        "these cards reads its neighbours' buffers in place")
+                _PEERS.add((a, b))
+
+
+class _SlotRun:
+    """The per-run state of ``cuda_rdma`` on a grid of slots on the card:
+    streams, events, the double-buffered carry, the staging, and the
+    pointer tables (one per buffer set and device, built once)."""
+
+    def __init__(self, grid, blocks, boundary: str, depth: int,
+                 col_mode: str):
+        R, Cg = self.grid_shape = tuple(grid.shape)
+        self.boundary = boundary
+        self.slots = grid.slots
+        self.devices = list(dict.fromkeys(self.slots))
+        enable_peers(self.devices)
+        self.where, seen = [], {}
+        for d in self.slots:
+            self.where.append((self.devices.index(d), seen.get(d, 0)))
+            seen[d] = seen.get(d, 0) + 1
+        flat = [b for row in blocks for b in row]
+        C, h, w = flat[0].shape
+        self.block_shape, self.dtype = (C, h, w), flat[0].dtype
+        self.depth = int(depth)
+        # The two buffers the launches alternate between: the input stacked
+        # per device (a private copy) and one more.  Allocated on each
+        # device's current stream, which the slot streams wait on before
+        # their first launch.
+        x = [torch.stack([b for b, d in zip(flat, self.slots) if d == dev])
+             for dev in self.devices]
+        self.bufs = [x, [torch.empty_like(p) for p in x]]
+        self.packed = col_mode == "packed" and Cg > 1
+        stage_addr = [0] * len(flat)
+        if self.packed:
+            n = 2 * C * (h + 2 * self.depth) * self.depth
+            self.stage = [torch.empty((len(p), n), dtype=self.dtype,
+                                      device=p.device) for p in x]
+            stage_addr = [self.stage[di][k].data_ptr()
+                          for di, k in self.where]
+        table = channels.neighbour_table(self.grid_shape, boundary)
+        self.tables = [[torch.tensor(
+            [bufs[di][k].data_ptr() for di, k in self.where] + stage_addr,
+            dtype=torch.int64, device=dev) for dev in self.devices]
+            for bufs in self.bufs]
+        self.nbr = [channels.device_table(self.grid_shape, boundary, dev)
+                    for dev in self.devices]
+        # The barrier's partners: every block a slot's launch reads (its
+        # eight neighbours), and the column neighbours whose staging it
+        # reads.
+        self.neighbours = [sorted({n for n in row if n >= 0} - {s})
+                           for s, row in enumerate(table)]
+        self.col_neighbours = [sorted({row[3], row[5]} - {-1, s})
+                               for s, row in enumerate(table)]
+        self.streams = _slot_streams(self.slots)
+        self.launched = [torch.cuda.Event() for _ in self.slots]
+        self.staged = [torch.cuda.Event() for _ in self.slots]
+        self.joined = True
+
+    def buffer_set(self, parts) -> int:
+        ptr = parts[0].data_ptr()
+        for i, bufs in enumerate(self.bufs):
+            if bufs[0].data_ptr() == ptr:
+                return i
+        raise ValueError("not a carry of this run")
+
+    def fork(self) -> None:
+        """Every slot stream after what the current stream of every device
+        of the run has enqueued (the inputs, the buffers' allocation, a
+        diff read): a slot reads its neighbours' blocks, which may live on
+        other devices, and its first launch has no neighbour's event to
+        wait on."""
+        for st in self.streams:
+            for dev in self.devices:
+                st.wait_stream(torch.cuda.current_stream(dev))
+        self.joined = False
+
+    def join(self) -> None:
+        """Every device's current stream after every slot's launches: the
+        carry may then be read there, and freed."""
+        for dev in self.devices:
+            cur = torch.cuda.current_stream(dev)
+            for ev in self.launched:
+                cur.wait_event(ev)
+        self.joined = True
+
+
+class SlotCarry(NamedTuple):
+    """The ``cuda_rdma`` carry on a grid of slots on the card: ``parts[i]``
+    stacks the blocks of ``run.devices[i]``'s slots, in slot order."""
+
+    run: _SlotRun
+    parts: list
+
+
+def slot_carry(blocks, grid, boundary: str, depth: int,
+               col_mode: str = "strided"):
+    """The carry a grid of slots starts from: on the card a
+    :class:`SlotCarry` whose buffers and staging fit ``depth`` = r·fuse
+    ghosts; on the CPU the blocks themselves."""
+    if blocks[0][0].device.type == "cpu":
+        return blocks
+    run = _SlotRun(grid, blocks, boundary, depth, col_mode)
+    return SlotCarry(run, run.bufs[0])
+
+
+def slot_blocks(carry, grid_shape) -> list[list[torch.Tensor]]:
+    """The R×C blocks of a carry (views of its buffers on the card, after
+    joining the slot streams)."""
+    if not isinstance(carry, SlotCarry):
+        return carry
+    run = carry.run
+    run.join()
+    flat = [carry.parts[di][k] for di, k in run.where]
+    Cg = grid_shape[1]
+    return [flat[i * Cg:(i + 1) * Cg] for i in range(grid_shape[0])]
+
+
+def _slot_binder(run: _SlotRun, tiled: bool, filt: Filter, levels: int,
+                 ext: int, quantize: bool, valid_hw, tile):
+    """Check one per-slot K3 / K4 launch shape and bind what every slot's
+    launch shares; returns ``fire(src, s, out)``, which launches slot
+    ``s``'s block of the buffer set ``src`` into ``out`` on its device and
+    stream and counts it on its wrapper."""
+    from parallel_convolution_tpu_torch.ops import _build
+
+    C, h, w = run.block_shape
+    oh, ow = h + 2 * ext, w + 2 * ext
+    th, tw = tile if tiled else (oh, ow)
+    th, tw = max(1, min(int(th), oh)), max(1, min(int(tw), ow))
+    if filt.radius * levels + ext > min(h, w):
+        raise ValueError(f"{levels} levels of radius {filt.radius} plus "
+                         f"{ext} ghost rows need blocks >= "
+                         f"{filt.radius * levels + ext}, got {(h, w)}")
+    need = stencil.fused_smem_bytes(filt.radius, levels, (th, tw))
+    for dev in run.devices:
+        if need > stencil._smem_limit(dev):
+            raise ValueError(
+                f"a {(th, tw)} tile at {levels} levels of radius "
+                f"{filt.radius} needs {need} B of shared memory, above "
+                f"{dev}'s {stencil._smem_limit(dev)} B")
+    mask = run.boundary == "zero" and valid_hw is not None
+    vh, vw = (int(valid_hw[0]), int(valid_hw[1])) if mask else (0, 0)
+    taps = np.ascontiguousarray(filt.taps.reshape(-1), dtype=np.float32)
+    args = (len(run.slots), run.grid_shape[1])
+    epi = stencil.epilogue_code(filt, quantize)
+    lib = _build.load_library("rdma")
+    wrapper = rdma_tiled_slot if tiled else rdma_block_slot
+    in_code = stencil.DTYPE_CODES[run.dtype]
+
+    def fire(src: int, s: int, out) -> None:
+        di, _ = run.where[s]
+        dev = run.slots[s]
+        with torch.cuda.device(dev):
+            err = lib.pc_rdma_step(
+                int(tiled), run.tables[src][di].data_ptr(),
+                run.nbr[di].data_ptr(), in_code, out.data_ptr(),
+                stencil.DTYPE_CODES[out.dtype], *args, s, 1, C, h, w, ext,
+                levels, stencil._fptr(taps), filt.size, epi, int(mask), vh,
+                vw, th, tw, stencil.FUSED_THREADS, None,
+                run.streams[s].cuda_stream)
+        stencil._raise_on(err, f"{wrapper.__name__} (slot {s} on {dev})")
+        wrapper.launches += 1
+
+    return fire
+
+
+def rdma_block_slot(run: _SlotRun, src: int, s: int, out, filt: Filter,
+                    levels: int, valid_hw, *, quantize: bool = True,
+                    ext: int = 0) -> None:
+    """K3 for slot ``s`` alone: its block of the buffer set ``src`` into
+    ``out`` (its (C, h+2·ext, w+2·ext) output), on its device and
+    stream."""
+    _slot_binder(run, False, filt, levels, ext, quantize, valid_hw,
+                 None)(src, s, out)
+
+
+rdma_block_slot.launches = 0
+
+
+def rdma_tiled_slot(run: _SlotRun, src: int, s: int, out, filt: Filter,
+                    levels: int, valid_hw, *, quantize: bool = True,
+                    ext: int = 0, tile=None) -> None:
+    """K4 for slot ``s`` alone, as :func:`rdma_block_slot`."""
+    _slot_binder(run, True, filt, levels, ext, quantize, valid_hw,
+                 tile if tile is not None else stencil.FUSED_TILE)(
+        src, s, out)
+
+
+rdma_tiled_slot.launches = 0
+
+
+def rdma_pack(run: _SlotRun, src: int, s: int, depth: int) -> None:
+    """The packed transport's gather for slot ``s``: its block's two edge
+    column slabs of the buffer set ``src``, ``depth`` deep at the
+    row-padded height, into its staging, on its device and stream."""
+    from parallel_convolution_tpu_torch.ops import _build
+
+    di, _ = run.where[s]
+    C, h, w = run.block_shape
+    if not run.packed or depth > run.depth:
+        raise ValueError(f"slot {s} has no staging for depth {depth}")
+    with torch.cuda.device(run.slots[s]):
+        err = _build.load_library("rdma").pc_rdma_pack(
+            run.tables[src][di].data_ptr(), run.nbr[di].data_ptr(),
+            stencil.DTYPE_CODES[run.dtype], len(run.slots),
+            run.grid_shape[1], s, 1, C, h, w, int(depth),
+            run.streams[s].cuda_stream)
+    stencil._raise_on(err, f"rdma_pack (slot {s} on {run.slots[s]})")
+    rdma_pack.launches += 1
+
+
+rdma_pack.launches = 0
+
+
+def staged_slabs(run: _SlotRun, s: int, depth: int) -> torch.Tensor:
+    """Slot ``s``'s staging as (2, C, h + 2·depth, depth), as the last
+    pack at ``depth`` wrote it (after :meth:`_SlotRun.join`)."""
+    di, k = run.where[s]
+    C, h, _ = run.block_shape
+    n = 2 * C * (h + 2 * depth) * depth
+    return run.stage[di][k][:n].view(2, C, h + 2 * depth, depth)
+
+
+def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
+                T: int, valid_hw, tile, col_mode: str) -> SlotCarry:
+    run = carry.run
+    C, h, w = run.block_shape
+    r = filt.radius
+    if out_dtype != run.dtype:
+        raise ValueError(f"the carry stays {run.dtype} on a grid of slots, "
+                         f"got out_dtype {out_dtype}")
+    if r * T > run.depth:
+        raise ValueError(f"a {T}-level step needs {r * T} ghosts, the run "
+                         f"was entered for {run.depth}")
+    for dev in run.devices:
+        stencil._check_cuda(run.bufs[0][run.devices.index(dev)][0], filt)
+    plan = rdma_plan(r, T, (h, w), tile, stencil._smem_limit(run.devices[0]))
+    rest = T - plan.groups[0]
+    ext = r * rest
+    if plan.kernel == "tiled" and C > 65535:
+        raise ValueError(f"rdma_tiled_slot: {C} channels above the launch "
+                         "grid's 65535")
+    cplan = channels.plan_for(channels.ChannelKey(
+        run.grid_shape, (h, w), r, T, str(run.dtype), run.boundary,
+        "monolithic", col_mode))
+    src = run.buffer_set(carry.parts)
+    dst = 1 - src
+    if run.joined:
+        run.fork()
+    streams = run.streams
+    # The barrier: a slot's launch reads its neighbours' outputs of their
+    # last launch (read after write) and overwrites the buffer their last
+    # launch read (write after read), so it waits on their last launch
+    # and on nothing else.  Every wait is enqueued before any of this
+    # step's records, so each names the previous launch.
+    for s, st in enumerate(streams):
+        for n in run.neighbours[s]:
+            st.wait_event(run.launched[n])
+    if cplan.packed_cols and run.packed:
+        depth = cplan.col_slabs[0].src_cols[1] - cplan.col_slabs[0].src_cols[0]
+        for s, st in enumerate(streams):
+            rdma_pack(run, src, s, depth)
+            run.staged[s].record(st)
+        for s, st in enumerate(streams):
+            for n in run.col_neighbours[s]:
+                st.wait_event(run.staged[n])
+    vhw = None if run.boundary == "periodic" else valid_hw
+    mid = stencil.group_dtype(quantize, out_dtype)
+    fire = _slot_binder(run, plan.kernel == "tiled", filt, plan.groups[0],
+                        ext, quantize, valid_hw,
+                        plan.tile if plan.kernel == "tiled" else None)
+    for s, st in enumerate(streams):
+        di, k = run.where[s]
+        dev = run.slots[s]
+        target = run.bufs[dst][di][k]
+        out = target
+        if rest:
+            # Allocated on the slot's stream, which alone uses it.
+            with torch.cuda.device(dev), torch.cuda.stream(st):
+                out = torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
+                                  device=dev)
+        fire(src, s, out)
+        if rest:
+            i, j = divmod(s, run.grid_shape[1])
+            with torch.cuda.device(dev), torch.cuda.stream(st):
+                target.copy_(stencil.fused_iterate(
+                    out, (i * h, j * w), filt, rest, vhw, quantize=quantize,
+                    out_dtype=out_dtype, tile=tile))
+        run.launched[s].record(st)
+    return SlotCarry(run, run.bufs[dst])
+
+
+def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
+                     quantize: bool = True, out_dtype=None, fuse: int = 1,
+                     valid_hw=None, tile=None, col_mode: str = "strided"):
+    """``fuse`` iterations of every block of a grid of slots, the exchange
+    inside the kernels: one K3 / K4 launch per slot on its own device and
+    stream (plus, with ``col_mode="packed"``, one pack per slot first, and
+    K2 per slot for later level groups), behind the barrier between slots.
+    ``carry`` is :func:`slot_carry`'s; returns the next carry.  On the CPU
+    the carry is the blocks and :func:`fused_rdma_slots_plain` runs."""
+    T = int(fuse)
+    if T < 1:
+        raise ValueError(f"fuse must be >= 1, got {fuse}")
+    if col_mode not in channels.COL_MODES:
+        raise ValueError(f"col_mode must be one of {channels.COL_MODES} at "
+                         f"the kernel layer, got {col_mode!r}")
+    if boundary not in BOUNDARIES:
+        raise ValueError(f"boundary must be one of {BOUNDARIES}, got "
+                         f"{boundary!r}")
+    if not isinstance(carry, SlotCarry):
+        b0 = carry[0][0]
+        if b0.device.type != "cpu":
+            raise ValueError("on the card a grid of slots carries a "
+                             "SlotCarry (rdma.slot_carry)")
+        _check_depth(filt.radius, T, b0.shape[1:])
+        return fused_rdma_slots_plain(carry, filt, grid_shape, boundary,
+                                      quantize, out_dtype, T, valid_hw,
+                                      col_mode)
+    run = carry.run
+    _check_depth(filt.radius, T, run.block_shape[1:])
+    if out_dtype is None:
+        out_dtype = run.dtype
+    stencil._check_common(run.bufs[0][0][0], filt, quantize, out_dtype)
+    if T > 1 and boundary != "periodic" and valid_hw is None:
+        raise ValueError("fuse > 1 with a zero boundary needs valid_hw")
+    if boundary != run.boundary:
+        raise ValueError(f"the run was entered for boundary {run.boundary!r}")
+    return _slots_step(carry, filt, quantize, out_dtype, T, valid_hw, tile,
+                       col_mode)

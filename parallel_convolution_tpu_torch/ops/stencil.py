@@ -910,13 +910,14 @@ fused_iterate.launches = 0
 
 def reset_launch_counts() -> None:
     """Zero the launch counters of every kernel of the port (K1, K2 here;
-    K3, K4 in ops/rdma.py)."""
+    K3, K4, their per-slot launches and the pack in ops/rdma.py)."""
     from parallel_convolution_tpu_torch.ops import rdma
 
     stencil_step.launches = 0
     fused_iterate.launches = 0
-    rdma.rdma_block.launches = 0
-    rdma.rdma_tiled.launches = 0
+    for fn in (rdma.rdma_block, rdma.rdma_tiled, rdma.rdma_block_slot,
+               rdma.rdma_tiled_slot, rdma.rdma_pack):
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
@@ -926,4 +927,7 @@ def launch_counts() -> dict:
     return {"stencil_step": stencil_step.launches,
             "fused_iterate": fused_iterate.launches,
             "rdma_block": rdma.rdma_block.launches,
-            "rdma_tiled": rdma.rdma_tiled.launches}
+            "rdma_tiled": rdma.rdma_tiled.launches,
+            "rdma_block_slot": rdma.rdma_block_slot.launches,
+            "rdma_tiled_slot": rdma.rdma_tiled_slot.launches,
+            "rdma_pack": rdma.rdma_pack.launches}

@@ -78,7 +78,8 @@ def halo_exchange(blocks: list[list[torch.Tensor]], depth: int,
                   boundary: str = "zero") -> list[list[torch.Tensor]]:
     """Pad every (C, h, w) block to (C, h+2d, w+2d) with its neighbours'
     edges.  Returns new tensors (views of one padded grid); the input
-    blocks are not modified."""
+    blocks are not modified.  A grid of slots pads with
+    :func:`exchange_per_block`."""
     halo_exchange.calls += 1
     R, Cg = grid_shape
     b0 = blocks[0][0]
@@ -116,3 +117,82 @@ def halo_exchange_stacked(x: torch.Tensor, depth: int,
     if d:
         _fill_ghosts(p, d, boundary == "periodic")
     return p.reshape(nb, C, h + 2 * d, w + 2 * d)
+
+
+def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
+                       grid_shape: tuple[int, int], boundary: str = "zero",
+                       *, dtype=None, fill=None,
+                       packed: bool = False) -> list[list[torch.Tensor]]:
+    """The exchange on a grid of slots: each block padded in a buffer of
+    its own, on its own device, in ``dtype`` (default the block's), every
+    ghost filled by the two phases, each a copy of one edge slab from the
+    neighbour's device.
+
+    1. rows: the top / bottom ``d`` ghost rows (interior columns) from the
+       upper / lower neighbour's last / first ``d`` rows;
+    2. columns at full padded height from the left / right neighbour's
+       row-padded buffer, so the corners arrive in two hops.  With
+       ``packed`` each block first stages its two edge column slabs in a
+       contiguous buffer (the ``packed`` transport), which its neighbours
+       read instead.
+
+    ``fill`` (e.g. NaN) is written into every buffer first, so a ghost
+    that no slab reaches shows; a missing neighbour (zero boundary) writes
+    zeros.  The inputs are not modified.
+    """
+    R, Cg = grid_shape
+    d = _check(boundary, depth, blocks[0][0].shape[1:])
+    periodic = boundary == "periodic"
+    C, h, w = blocks[0][0].shape
+    dtype = blocks[0][0].dtype if dtype is None else dtype
+
+    def nbr(i, j):
+        ii = i % R if periodic else i
+        jj = j % Cg if periodic else j
+        return (ii, jj) if 0 <= ii < R and 0 <= jj < Cg else None
+
+    pads = []
+    for row in blocks:
+        prow = []
+        for b in row:
+            p = (b.new_empty((C, h + 2 * d, w + 2 * d), dtype=dtype)
+                 if fill is None else
+                 b.new_full((C, h + 2 * d, w + 2 * d), fill, dtype=dtype))
+            p[:, d:d + h, d:d + w] = b
+            prow.append(p)
+        pads.append(prow)
+    cols = slice(d, d + w)
+    for i in range(R):  # phase 1: rows
+        for j in range(Cg):
+            p = pads[i][j]
+            for dst, src_rows, n in ((slice(0, d), slice(h - d, h),
+                                      nbr(i - 1, j)),
+                                     (slice(d + h, h + 2 * d), slice(0, d),
+                                      nbr(i + 1, j))):
+                if n is None:
+                    p[:, dst, cols] = 0
+                else:
+                    p[:, dst, cols] = blocks[n[0]][n[1]][:, src_rows, :]
+    # Phase 2: columns.  The sources are interior columns, which this
+    # phase does not write.
+    src_left, src_right = slice(d, 2 * d), slice(w, w + d)
+    if packed:
+        stage = [[(p[:, :, src_left].contiguous(),
+                   p[:, :, src_right].contiguous()) for p in prow]
+                 for prow in pads]
+    for i in range(R):
+        for j in range(Cg):
+            p = pads[i][j]
+            # My left ghost is the left neighbour's right edge; my right
+            # ghost the right neighbour's left edge.
+            for dst, side, n in ((slice(0, d), 1, nbr(i, j - 1)),
+                                 (slice(d + w, w + 2 * d), 0,
+                                  nbr(i, j + 1))):
+                if n is None:
+                    p[:, :, dst] = 0
+                elif packed:
+                    p[:, :, dst] = stage[n[0]][n[1]][side]
+                else:
+                    p[:, :, dst] = pads[n[0]][n[1]][
+                        :, :, (src_left, src_right)[side]]
+    return pads

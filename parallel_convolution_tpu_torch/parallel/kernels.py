@@ -6,8 +6,12 @@ boundary)``, as in the JAX package's ``parallel/kernels.py``.
 ``prolong_bilinear``; rank 3: ``restrict_fw``, ``prolong_trilinear``)
 under their own stencil forms, so a transfer operator can never be taken
 for a smoother, and ``volumes/forms.py`` the rank-3 forms (``smooth``
-relaxations and time-dependent ``physics``).  The overlap /
-persistent-channel capability bits come with their slice.
+relaxations and time-dependent ``physics``).  Two capability bits, as
+in the JAX package: ``persistent_capable`` (the form moves column slabs
+between the blocks of a grid of slots, so ``col_mode`` selects its
+transport; ``cuda_rdma``) and ``overlap_capable`` (the JAX form has an
+interior-first overlapped pipeline; the port's is ROADMAP item 10b, so a
+request for it raises, ``parallel.step.resolve_overlap``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ class KernelForm:
 
     ``build`` is owned by the registering module.  For a smoother it is
     ``build(filt, grid, valid_hw, block_hw, quantize, fuse, boundary,
-    tile, interior_split) -> step``: the per-chunk step that maps the
+    tile, interior_split, col_mode) -> step``: the per-chunk step that maps the
     grid's blocks to the blocks ``fuse`` iterations later; for a transfer
     operator ``build(grid_shape, valid_hw, block_hw, boundary) -> op``
     over the fine level's blocks (rank 3: ``build(grid_shape, depth,
@@ -37,6 +41,8 @@ class KernelForm:
     rank: int = 2
     stencil_form: str = "smooth"
     boundaries: tuple[str, ...] = ("zero", "periodic")
+    overlap_capable: bool = False
+    persistent_capable: bool = False
     build: Callable | None = None
 
     def __post_init__(self) -> None:
@@ -92,3 +98,30 @@ def registered_keys(stencil_form: str | None = None) -> frozenset:
     _ensure_default_forms()
     return frozenset(k for k, f in _FORMS.items()
                      if stencil_form is None or f.stencil_form == stencil_form)
+
+
+def _capable(name: str, rank: int, bit: str) -> bool:
+    _ensure_default_forms()
+    for bd in ("zero", "periodic"):
+        form = _FORMS.get((int(rank), str(name), bd))
+        if form is not None:
+            return getattr(form, bit)
+    return False
+
+
+def overlap_capable(name: str, rank: int = 2) -> bool:
+    """Whether ``name``'s JAX form has an interior-first overlapped halo
+    pipeline.  Unknown names are not capable."""
+    return _capable(name, rank, "overlap_capable")
+
+
+def persistent_capable(name: str, rank: int = 2) -> bool:
+    """Whether ``name`` moves column slabs between slots (``col_mode``
+    selects how).  Unknown names are not capable."""
+    return _capable(name, rank, "persistent_capable")
+
+
+def clamp_overlap(overlap, name: str, rank: int = 2) -> bool:
+    """The one overlap-legality clamp: a resolved or degraded backend keeps
+    ``overlap=True`` only if its form is overlap-capable."""
+    return bool(overlap) and overlap_capable(name, rank)

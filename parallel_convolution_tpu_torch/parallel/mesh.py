@@ -1,10 +1,23 @@
-"""The block grid of the PyTorch port (the JAX package's ``parallel/mesh.py``).
+"""The block grid of the PyTorch port (the JAX package's ``parallel/mesh.py``:
+``make_grid_mesh`` / ``mesh_from_spec``).
 
-The JAX package maps an R×C grid of blocks onto an R×C mesh of devices.
-In this slice every block lives on one device (one card, or the CPU): a
-:class:`Grid` is the grid shape plus that device, and the image state is an
-R×C list of lists of ``(C, h, w)`` block tensors.  Axis convention as in
-the JAX package: grid rows split H, grid columns split W.
+The JAX package maps an R×C grid of blocks onto an R×C mesh of devices, one
+device per block.  The port has two forms of :class:`Grid`:
+
+* one device: the grid shape plus the device every block lives on (one
+  card, or the CPU);
+* a grid of **slots** (``devices``): one slot per block, row-major, each
+  naming the torch device its block lives on.  Slots may repeat a device:
+  on the CPU every slot is ``cpu``, on one card every slot is ``cuda:0``,
+  over several cards the slots go round-robin.  Code written per slot has
+  one allocation per block, and for ``cuda_rdma`` one stream and one
+  launch per slot behind a barrier between slots (``ops/rdma.py``), so a
+  grid of slots on one card runs what separate cards run, and over several
+  cards it runs across them.
+
+The image state is an R×C list of lists of ``(C, h, w)`` block tensors,
+each on its slot's device.  Axis convention as in the JAX package: grid
+rows split H, grid columns split W.
 """
 
 from __future__ import annotations
@@ -14,6 +27,7 @@ import math
 
 import torch
 
+from parallel_convolution_tpu_torch.utils.config import SLOTS_ITEM, pending
 from parallel_convolution_tpu_torch.utils.platform import resolve_device
 
 
@@ -21,9 +35,8 @@ def dims_create(n: int) -> tuple[int, int]:
     """Near-square factorization of ``n`` — the MPI_Dims_create contract.
 
     Returns (R, C) with R*C == n and R <= C, R as close to sqrt(n) as the
-    factorization allows (the JAX package's default mesh over its devices;
-    here the default grid over the cards, which blocks on separate cards,
-    item 10, will use).
+    factorization allows: the default grid over the cards (``make_grid(
+    devices="all")``), as the JAX package's default mesh over its devices.
     """
     if n < 1:
         raise ValueError("need at least one device")
@@ -41,53 +54,158 @@ def padded_extent(total: int, parts: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """An R×C grid of blocks, all on ``device``."""
+    """An R×C grid of blocks: all on ``device``, or with ``devices`` one
+    slot per block (row-major; a device may repeat), ``device`` then being
+    slot 0's (the device results are gathered on)."""
 
     rows: int = 1
     cols: int = 1
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
+    devices: tuple[torch.device, ...] | None = None
 
     def __post_init__(self) -> None:
         if self.rows < 1 or self.cols < 1:
             raise ValueError(f"grid shape must be positive, got "
                              f"{(self.rows, self.cols)}")
-        object.__setattr__(self, "device", torch.device(self.device))
+        if self.devices is None:
+            object.__setattr__(self, "device", torch.device(self.device))
+            return
+        devs = tuple(torch.device(d) for d in self.devices)
+        if len(devs) != self.rows * self.cols:
+            raise ValueError(f"a {self.rows}x{self.cols} grid needs "
+                             f"{self.rows * self.cols} slots, got {len(devs)}")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError("the slots of one grid are all cpu or all cuda, "
+                             f"got {[str(d) for d in devs]}")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "device", devs[0])
 
     @property
     def shape(self) -> tuple[int, int]:
         return self.rows, self.cols
 
+    @property
+    def slotted(self) -> bool:
+        """Whether every block has a slot of its own (``devices``)."""
+        return self.devices is not None
 
-def make_grid(shape: tuple[int, int] | None = None, device=None) -> Grid:
-    """A grid of ``shape`` (default 1×1) on ``device`` (default: the card;
-    raises without CUDA unless ``device='cpu'``)."""
-    r, c = shape if shape is not None else (1, 1)
-    return Grid(int(r), int(c), resolve_device(device))
+    @property
+    def slots(self) -> tuple[torch.device, ...]:
+        """The device of every block, row-major."""
+        if self.devices is not None:
+            return self.devices
+        return (self.device,) * (self.rows * self.cols)
+
+    def slot_device(self, i: int, j: int) -> torch.device:
+        return self.slots[i * self.cols + j]
+
+    def slot_map(self) -> str:
+        """The slots as ``--device`` takes them (a comma list)."""
+        return ",".join(str(d) for d in self.slots)
+
+
+def _slot_device(spec) -> torch.device:
+    """One slot's device: ``cpu`` or an existing card; a card the machine
+    does not have raises (a slot is never mapped elsewhere)."""
+    dev = torch.device(spec)
+    if dev.type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if dev.index is None:
+            dev = resolve_device(dev)
+        if not 0 <= dev.index < n:
+            raise RuntimeError(f"slot {str(spec)!r} names a card this "
+                               f"machine does not have ({n} visible)")
+        return dev
+    return resolve_device(dev)
+
+
+def make_grid(shape: tuple[int, int] | None = None, device=None,
+              devices=None) -> Grid:
+    """A grid of ``shape`` on ``device`` (default: the card; raises without
+    CUDA unless ``device='cpu'``), as today's one-device grid.
+
+    ``devices`` makes a grid of slots: a list of R·C devices (row-major,
+    repeats allowed), or ``"all"``: round-robin over
+    ``torch.cuda.device_count()`` cards, or every slot ``cpu`` when
+    ``device='cpu'``.  The default shape is then ``dims_create`` of the
+    slot count (of the cards for ``"all"``).  ``"all"`` in a job of
+    several processes would span them: that is ROADMAP item 10c and
+    raises ``NotImplementedError``.
+    """
+    if devices is None:
+        r, c = shape if shape is not None else (1, 1)
+        return Grid(int(r), int(c), resolve_device(device))
+    if isinstance(devices, str) and devices == "all":
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        if multihost.process_count() > 1:
+            raise pending("a grid over the devices of several processes",
+                          SLOTS_ITEM)
+        if device is not None and torch.device(device).type == "cpu":
+            r, c = shape if shape is not None else (1, 1)
+            return Grid(int(r), int(c), devices=("cpu",) * (int(r) * int(c)))
+        resolve_device(device)  # raises without CUDA
+        n = torch.cuda.device_count()
+        r, c = shape if shape is not None else dims_create(n)
+        return Grid(int(r), int(c), devices=tuple(
+            torch.device("cuda", k % n) for k in range(int(r) * int(c))))
+    if isinstance(devices, str):
+        devices = [d for d in devices.split(",") if d.strip()]
+    devs = tuple(_slot_device(d.strip() if isinstance(d, str) else d)
+                 for d in devices)
+    if device is not None and resolve_device(device) != devs[0]:
+        raise ValueError(f"device={device!r} is not slot 0's {devs[0]}")
+    r, c = shape if shape is not None else dims_create(len(devs))
+    return Grid(int(r), int(c), devices=devs)
 
 
 def grid_from_spec(spec: str | None, device=None) -> Grid:
-    """The grid a CLI ``--mesh RxC`` flag names (None/empty → 1×1)."""
-    if not spec:
-        return make_grid(device=device)
-    try:
-        r, c = (int(v) for v in spec.lower().split("x"))
-    except ValueError as e:
-        raise ValueError(f"grid spec must be RxC, got {spec!r}") from e
-    return make_grid((r, c), device)
+    """The grid the CLI's ``--mesh RxC`` and ``--device`` flags name
+    (``--mesh`` None/empty: 1×1, or ``dims_create`` of the slots).
+    ``--device`` is ``cpu`` / ``cuda[:N]`` (one device), ``all`` (a slot
+    per block, round-robin over the cards) or a comma list of R·C slots."""
+    shape = None
+    if spec:
+        try:
+            shape = tuple(int(v) for v in spec.lower().split("x"))
+            if len(shape) != 2:
+                raise ValueError
+        except ValueError as e:
+            raise ValueError(f"grid spec must be RxC, got {spec!r}") from e
+    if isinstance(device, str) and (device == "all" or "," in device):
+        return make_grid(shape, devices=device)
+    return make_grid(shape, device)
 
 
 def split_blocks(x: torch.Tensor, grid: Grid) -> list[list[torch.Tensor]]:
-    """Cut a (C, R*h, C*w) tensor into the grid's R×C contiguous blocks."""
+    """Cut a (C, R*h, C*w) tensor into the grid's R×C contiguous blocks,
+    each on its slot's device."""
     R, Cc = grid.shape
     _, Hp, Wp = x.shape
     if Hp % R or Wp % Cc:
         raise ValueError(f"extent {(Hp, Wp)} not divisible by grid {(R, Cc)}")
     bh, bw = Hp // R, Wp // Cc
-    return [[x[:, i * bh:(i + 1) * bh, j * bw:(j + 1) * bw].contiguous()
+    if not grid.slotted:
+        return [[x[:, i * bh:(i + 1) * bh, j * bw:(j + 1) * bw].contiguous()
+                 for j in range(Cc)] for i in range(R)]
+    # One allocation per block, even where slots share a device.
+    return [[x[:, i * bh:(i + 1) * bh, j * bw:(j + 1) * bw].to(
+                grid.slot_device(i, j), copy=True,
+                memory_format=torch.contiguous_format)
              for j in range(Cc)] for i in range(R)]
 
 
-def join_blocks(blocks: list[list[torch.Tensor]]) -> torch.Tensor:
-    """Inverse of :func:`split_blocks`."""
-    return torch.cat([torch.cat(row, dim=2) for row in blocks], dim=1)
+def join_blocks(blocks: list[list[torch.Tensor]], device=None) -> torch.Tensor:
+    """Inverse of :func:`split_blocks`, gathered on ``device`` (default: the
+    first block's)."""
+    dev = blocks[0][0].device if device is None else torch.device(device)
+    return torch.cat([torch.cat([b.to(dev) for b in row], dim=2)
+                      for row in blocks], dim=1)
+
+
+def check_no_slots(grid: Grid | None, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 10c where ``grid``
+    is a grid of slots and ``what`` does not run on one yet."""
+    if grid is not None and grid.slotted:
+        raise pending(f"{what} on a grid of slots", SLOTS_ITEM)

@@ -31,10 +31,19 @@ same steps, each ending in one single step that forms the (prev, cur) pair
 and the max-abs diff over every block.  The JAX package loops on the device
 (``lax.while_loop``); here the host loops, and the one readback of each
 chunk's diff is the run's fence.
+
+On a grid of slots (``mesh.Grid.devices``: a device per block) every
+backend runs per slot: each block's work on its own device, the halo
+exchange a copy of each edge slab between devices, ``cuda_rdma`` one
+K3 / K4 launch per slot behind the barrier between slots
+(``ops/rdma.py``), its column transport ``col_mode``; the convergence
+diff is the max over the slots, gathered once per chunk with one
+readback.
 """
 
 from __future__ import annotations
 
+import warnings
 from functools import partial
 
 import numpy as np
@@ -48,11 +57,12 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils.config import (
-    AUTO, BACKENDS, BOUNDARIES, STORAGES, check_backend, check_pending,
-    check_run_config, check_solver, check_storage,
+    AUTO, BACKENDS, BOUNDARIES, COL_MODE_CHOICES, OVERLAP_ITEM, STORAGES,
+    check_backend, check_run_config, check_solver, check_storage, pending,
 )
 
-__all__ = ["STORAGE_DTYPES", "iterate_prepared", "sharded_converge",
+__all__ = ["STORAGE_DTYPES", "clamp_col_mode", "iterate_prepared",
+           "resolve_col_mode", "resolve_overlap", "sharded_converge",
            "sharded_converge_stream", "sharded_iterate"]
 
 # Iteration-carry dtypes.  Quantized states are exact small integers, so
@@ -103,7 +113,7 @@ def _boundary_geometry(grid_hw, valid_hw, block_hw, boundary: str):
 def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
                      block_hw, quantize: bool, fuse: int = 1,
                      boundary: str = "zero", tile=None,
-                     interior_split: bool = False):
+                     interior_split: bool = False, col_mode: str = "packed"):
     """``fuse`` iterations on every block per halo exchange.
 
     fuse = 1: exchange r-deep halos, one level, re-mask the pad rim.
@@ -114,7 +124,9 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
     package) launches each block's levels as the 9-patch plan of its
     offset class (``stencil.axis_offset_classes``): the host knows every
     block's exact offset, but plans by class, so that the launches are
-    the JAX package's.
+    the JAX package's.  On a grid of slots each block runs on its slot's
+    device and the exchange copies slabs between them; ``col_mode`` is
+    taken and not used (no column transport of its own).
     """
     periodic, needs_mask = _boundary_geometry(grid.shape, valid_hw, block_hw,
                                               boundary)
@@ -140,7 +152,7 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
         key = (index, margin, dtype)
         if key not in masks:
             masks[key] = _valid_mask(valid_hw, block_hw, index, margin,
-                                     grid.device).to(dtype)
+                                     grid.slot_device(*index)).to(dtype)
         return masks[key]
 
     def correlate_level(p, out_dtype):
@@ -153,7 +165,9 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
 
     def step(blocks):
         depth = r * fuse
-        padded = halo.halo_exchange(blocks, depth, grid.shape, boundary)
+        exchange = (halo.exchange_per_block if grid.slotted
+                    else halo.halo_exchange)
+        padded = exchange(blocks, depth, grid.shape, boundary)
         out = [[None] * grid.cols for _ in range(grid.rows)]
         for i in range(grid.rows):
             for j in range(grid.cols):
@@ -180,16 +194,29 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
 
 def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
                      quantize: bool, fuse: int = 1, boundary: str = "zero",
-                     tile=None, interior_split: bool = False):
+                     tile=None, interior_split: bool = False,
+                     col_mode: str = "packed"):
     """The ``cuda_rdma`` form (the JAX package's ``_build_rdma_step``): each
     chunk is one K3 / K4 launch that reads every block's ghosts from its
     neighbours' buffers and runs ``fuse`` levels, masked against the
     global image at every level (so no outer mask at fuse = 1).  Its step
     maps the stacked grid to the stacked grid (see :func:`_build_iterate`).
-    ``interior_split`` is taken and not used, as in the JAX package."""
+    On a grid of slots it is one launch per slot, the carry a
+    ``rdma.SlotCarry`` (the blocks on the CPU), the column slabs moved by
+    ``col_mode``.  ``interior_split`` is taken and not used, as in the JAX
+    package."""
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
     # The in-kernel exchange failing to build (pallas_rdma's site).
     fault_point("halo_exchange")
+    vhw = None if periodic else tuple(valid_hw)
+
+    if grid.slotted:
+        def slot_step(carry):
+            return rdma.fused_rdma_slots(
+                carry, filt, grid.shape, boundary, quantize=quantize,
+                fuse=fuse, valid_hw=vhw, tile=tile, col_mode=col_mode)
+
+        return slot_step
 
     def step(x):
         # x is the stacked grid (rdma.stack_blocks).  The kernel writes a
@@ -201,8 +228,7 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
         # barrier.
         return rdma.fused_rdma_stacked(
             x, filt, grid.shape, boundary, quantize=quantize,
-            out_dtype=x.dtype, fuse=fuse,
-            valid_hw=None if periodic else tuple(valid_hw), tile=tile)
+            out_dtype=x.dtype, fuse=fuse, valid_hw=vhw, tile=tile)
 
     return step
 
@@ -213,7 +239,9 @@ def _register_smoother_forms() -> None:
                  else partial(_build_halo_step, name))
         kernel_forms.register(kernel_forms.KernelForm(
             name=name, rank=2, stencil_form="smooth",
-            boundaries=tuple(BOUNDARIES), build=build))
+            boundaries=tuple(BOUNDARIES),
+            overlap_capable=name == "cuda_rdma",
+            persistent_capable=name == "cuda_rdma", build=build))
 
 
 _register_smoother_forms()
@@ -221,7 +249,7 @@ _register_smoother_forms()
 
 def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
                      fuse=1, boundary="zero", tile=None,
-                     interior_split=False):
+                     interior_split=False, col_mode="packed"):
     """The smoother step of ``backend``, through the kernel-form registry;
     a transfer operator's name fails here (it is not a smoother)."""
     form = kernel_forms.resolve(2, backend, boundary)
@@ -231,7 +259,7 @@ def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
             "not a smoother; transfer operators are driven by "
             "solvers.multigrid, not the iterate path")
     return form.build(filt, grid, valid_hw, block_hw, quantize, fuse,
-                      boundary, tile, interior_split)
+                      boundary, tile, interior_split, col_mode)
 
 
 def _check_block_size(filt: Filter, block_hw) -> None:
@@ -250,10 +278,31 @@ def _check_fuse_fits(filt: Filter, block_hw, fuse: int,
             f"{tuple(block_hw)}{note}")
 
 
+def _carry_in(blocks, grid: Grid, backend: str, boundary: str, depth: int,
+              col_mode: str):
+    """The chunk loops' carry: the blocks, or for ``cuda_rdma`` the stacked
+    grid (one device: no per-block work on the host per launch) or
+    ``rdma.slot_carry``'s (a grid of slots, ``depth`` ghosts at most)."""
+    if backend != "cuda_rdma":
+        return blocks
+    if grid.slotted:
+        return rdma.slot_carry(blocks, grid, boundary, depth, col_mode)
+    return rdma.stack_blocks(blocks, grid.shape)
+
+
+def _carry_out(state, grid: Grid, backend: str):
+    """Inverse of :func:`_carry_in`: the R×C blocks."""
+    if backend != "cuda_rdma":
+        return state
+    if grid.slotted:
+        return rdma.slot_blocks(state, grid.shape)
+    return rdma.unstack_blocks(state, grid.shape)
+
+
 def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
                    valid_hw, block_hw, backend: str, fuse: int = 1,
                    boundary: str = "zero", tile=None,
-                   interior_split: bool = False):
+                   interior_split: bool = False, col_mode: str = "packed"):
     """The fixed-count runner for one configuration: ``iters // fuse``
     fused chunks, then one tail chunk of the remaining ``iters % fuse``
     levels."""
@@ -265,23 +314,22 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
     fuse = max(1, min(fuse, iters or 1))
     _check_fuse_fits(filt, block_hw, fuse)
     chunk = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                             backend, fuse, boundary, tile, interior_split)
+                             backend, fuse, boundary, tile, interior_split,
+                             col_mode)
     n_chunks, rem = divmod(iters, fuse)
     tail = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                             backend, rem, boundary, tile, interior_split)
+                             backend, rem, boundary, tile, interior_split,
+                             col_mode)
             if rem else None)
 
-    # cuda_rdma carries the grid from chunk to chunk as one stacked
-    # (R·C, C, h, w) tensor: no per-block work on the host per launch.
-    stacked = backend == "cuda_rdma"
-
     def run(blocks):
-        state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
+        state = _carry_in(blocks, grid, backend, boundary,
+                          filt.radius * fuse, col_mode)
         for _ in range(n_chunks):
             state = chunk(state)
         if tail is not None:
             state = tail(state)
-        return rdma.unstack_blocks(state, grid.shape) if stacked else state
+        return _carry_out(state, grid, backend)
 
     return run
 
@@ -321,10 +369,10 @@ def _prepare(x, grid: Grid, storage: str = "f32"):
     return split_blocks(x, grid), (H, W), (Hp // R, Wp // Cg)
 
 
-def _global_f32(state, grid: Grid, valid_hw, stacked: bool) -> torch.Tensor:
-    """The carry as the global (C, H, W) f32 field at the valid extent."""
-    blocks = rdma.unstack_blocks(state, grid.shape) if stacked else state
-    full = join_blocks(blocks)
+def _global_f32(blocks, grid: Grid, valid_hw) -> torch.Tensor:
+    """The grid's blocks as the global (C, H, W) f32 field at the valid
+    extent, on the grid's device."""
+    full = join_blocks(blocks, grid.device)
     return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)
 
 
@@ -333,6 +381,58 @@ def _storage_name(dtype) -> str:
         if dt == dtype:
             return name
     raise ValueError(f"no storage holds dtype {dtype}")
+
+
+def resolve_overlap(overlap: bool | None, backend: str, grid: Grid) -> bool:
+    """The overlap knob a launch would run with (the JAX package's
+    ``resolve_overlap``, as far as its clamps go).  ``None`` / False is the
+    serialized order; True on a backend with no overlapped pipeline runs
+    serialized with a one-time warning; True on ``cuda_rdma`` raises: its
+    interior-first pipeline is ROADMAP item 10b."""
+    if not overlap:
+        return False
+    if not kernel_forms.overlap_capable(backend):
+        if backend not in _OVERLAP_WARNED:
+            _OVERLAP_WARNED.add(backend)
+            warnings.warn(
+                f"overlap=True requested but backend {backend!r} has no "
+                "overlapped halo pipeline (cuda_rdma only); running "
+                "serialized", UserWarning, stacklevel=3)
+        return False
+    raise pending(f"overlap=True on {backend!r}", OVERLAP_ITEM)
+
+
+_OVERLAP_WARNED: set[str] = set()
+
+
+def resolve_col_mode(col_mode, backend: str, grid: Grid, block_hw,
+                     radius: int, fuse: int, storage: str) -> str:
+    """The column-slab transport a run uses (the JAX package's
+    ``resolve_col_mode``).  Only ``cuda_rdma`` on a grid of slots with more
+    than one column moves column slabs between slots; everywhere else the
+    knob is inert and normalises to the canonical ``"packed"`` (one label a
+    program).  There ``None`` / ``"auto"`` ask the cost model
+    (``costmodel.pick_col_mode``, on the card's measured prices) and an
+    explicit transport is kept: the two give the same bytes."""
+    if col_mode is not None and col_mode not in COL_MODE_CHOICES:
+        raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, got "
+                         f"{col_mode!r}")
+    if (not kernel_forms.persistent_capable(backend) or not grid.slotted
+            or grid.cols <= 1):
+        return "packed"
+    if col_mode in (None, "auto"):
+        from parallel_convolution_tpu_torch.tuning import costmodel
+
+        return costmodel.pick_col_mode(
+            grid.shape, tuple(int(b) for b in block_hw), int(radius),
+            max(1, int(fuse)), storage, costmodel.hardware_for_grid(grid))
+    return col_mode
+
+
+def clamp_col_mode(col_mode: str, backend: str) -> str:
+    """Re-clamp a resolved ``col_mode`` after a degrade walk: a backend
+    with no column transport normalises to the canonical ``"packed"``."""
+    return col_mode if kernel_forms.persistent_capable(backend) else "packed"
 
 
 def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
@@ -359,18 +459,37 @@ def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
 def _resolve_fallback(grid: Grid, filt: Filter, backend: str,
                       quantize: bool, fuse: int, boundary: str, tile,
                       storage: str, block_hw,
-                      interior_split: bool = False) -> str:
+                      interior_split: bool = False,
+                      col_mode: str = "packed") -> str:
     """Walk the degradation chain (``resilience.degrade``) for this
     configuration.  ``block_hw`` and ``storage`` describe the REAL run:
     the kernel and its launch shape depend on both, so a probe of another
-    geometry could pass where the real launch fails."""
+    geometry could pass where the real launch fails; ``col_mode`` is
+    re-clamped for each tier."""
     from parallel_convolution_tpu_torch.resilience import degrade
 
     return degrade.resolve_backend(
         grid, filt, backend, quantize=quantize, fuse=int(fuse),
         boundary=boundary, tile=None if tile is None else tuple(tile),
         storage=storage, block_hw=tuple(block_hw),
-        interior_split=interior_split)
+        interior_split=interior_split, col_mode=col_mode)
+
+
+def _run_knobs(grid: Grid, filt: Filter, backend: str, fuse: int, tile,
+               storage: str, quantize: bool, boundary: str, block_hw,
+               interior_split: bool, fallback: bool, overlap, col_mode):
+    """The knobs after ``auto``: overlap's clamps, the column transport
+    resolved, the fallback walk (``col_mode`` re-clamped to the tier it
+    lands on).  Returns ``(backend, col_mode)``."""
+    resolve_overlap(overlap, backend, grid)
+    col_mode = resolve_col_mode(col_mode, backend, grid, block_hw,
+                                filt.radius, fuse, storage)
+    if fallback:
+        backend = _resolve_fallback(grid, filt, backend, quantize, fuse,
+                                    boundary, tile, storage, block_hw,
+                                    interior_split, col_mode)
+        col_mode = clamp_col_mode(col_mode, backend)
+    return backend, col_mode
 
 
 def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
@@ -388,40 +507,41 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     (``resilience.degrade``, with a ``BackendDegradedWarning``).
     ``interior_split`` launches K2 by the 9-patch plan (``cuda`` /
     ``cuda_sep`` at fuse > 1 on a ``zero`` boundary; elsewhere taken and
-    not used, as in the JAX package)."""
-    check_pending(overlap=overlap, col_mode=col_mode)
+    not used, as in the JAX package).  ``col_mode`` (``packed`` /
+    ``strided`` / ``auto``) is ``cuda_rdma``'s column transport on a grid
+    of slots (:func:`resolve_col_mode`); ``overlap`` see
+    :func:`resolve_overlap`."""
     if blocks[0][0].dtype == torch.uint8:
         check_storage("u8", quantize)
     if check_contract:
         _check_quantize_contract(blocks, filt, quantize)
+    storage = _storage_name(blocks[0][0].dtype)
     backend, fuse, tile, _ = _resolve_auto(
-        grid, filt, backend, fuse, tile, _storage_name(blocks[0][0].dtype),
-        quantize, boundary, valid_hw, blocks[0][0].shape[0])
+        grid, filt, backend, fuse, tile, storage, quantize, boundary,
+        valid_hw, blocks[0][0].shape[0])
     check_backend(backend)
     block_hw = tuple(blocks[0][0].shape[1:])
     fuse = int(fuse)
     if fuse < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
-    if fallback:
-        backend = _resolve_fallback(
-            grid, filt, backend, quantize, max(1, min(fuse, iters or 1)),
-            boundary, tile, _storage_name(blocks[0][0].dtype), block_hw,
-            interior_split)
+    backend, col_mode = _run_knobs(
+        grid, filt, backend, max(1, min(fuse, iters or 1)), tile, storage,
+        quantize, boundary, block_hw, interior_split, fallback, overlap,
+        col_mode)
     run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
                          block_hw, backend, fuse, boundary,
                          None if tile is None else tuple(tile),
-                         interior_split)
+                         interior_split, col_mode)
     return run(blocks)
 
 
 def _setup_run(x, grid, device, backend: str, storage: str, boundary: str,
-               quantize: bool, **pending_knobs):
+               quantize: bool):
     """The prologue of every entry point on a global image: the backend
-    and pending-knob checks, the default grid (1×1 on ``device``, the card
-    unless told otherwise), the run configuration, and the prepared blocks.
+    check, the default grid (1×1 on ``device``, the card unless told
+    otherwise), the run configuration, and the prepared blocks.
     Returns ``(grid, blocks, valid_hw, block_hw)``."""
     check_backend(backend, allow_auto=True)
-    check_pending(**pending_knobs)
     if grid is None:
         grid = make_grid(device=device)
     elif device is not None and grid.device != torch.device(device):
@@ -443,22 +563,24 @@ def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,
     grid shape, whichever backend ``auto`` picks).
 
     ``grid`` defaults to 1×1 on ``device`` (default: the card — it raises
-    without CUDA; tests pass ``device='cpu'``).  ``storage`` is the carry
-    dtype; ``tile`` = (rows, cols) overrides the CUDA kernels' output tile.
-    ``backend='auto'`` picks the backend, and ``fuse`` / ``tile`` where
-    they are None, through ``tuning.resolve``.
+    without CUDA; tests pass ``device='cpu'``); a grid of slots
+    (``mesh.make_grid(devices=...)``) runs each block on its slot's device.
+    ``storage`` is the carry dtype; ``tile`` = (rows, cols) overrides the
+    CUDA kernels' output tile.  ``backend='auto'`` picks the backend, and
+    ``fuse`` / ``tile`` where they are None, through ``tuning.resolve``.
     ``quantize=True`` assumes u8-range input and raises on values outside
     [0, 255] for convex filters.  ``fallback=True``: see
-    :func:`iterate_prepared`, as ``interior_split``.
+    :func:`iterate_prepared`, as ``interior_split``, ``overlap`` and
+    ``col_mode``.
     """
     grid, blocks, valid_hw, _ = _setup_run(
-        x, grid, device, backend, storage, boundary, quantize,
-        overlap=overlap, col_mode=col_mode)
+        x, grid, device, backend, storage, boundary, quantize)
     out = iterate_prepared(blocks, filt, iters, grid, valid_hw,
                            quantize=quantize, backend=backend, fuse=fuse,
                            boundary=boundary, tile=tile,
-                           interior_split=interior_split, fallback=fallback)
-    return _global_f32(out, grid, valid_hw, stacked=False)
+                           interior_split=interior_split, fallback=fallback,
+                           overlap=overlap, col_mode=col_mode)
+    return _global_f32(out, grid, valid_hw)
 
 
 # ---------------------------------------------------------------------------
@@ -480,18 +602,36 @@ def _max_abs_diff(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.maximum(hi, -lo)
 
 
+def _carry_diff(cur, prev, grid: Grid, backend: str) -> torch.Tensor:
+    """The MPI_Allreduce (``lax.pmax`` in the JAX package): the max-abs
+    change of one iteration over every block and channel, the pad rim
+    included (zero in both), as a 0-d tensor on the grid's device.  Each
+    device's share is reduced where it lives and the shares are gathered
+    once (a NaN on any slot stays NaN)."""
+    if backend == "cuda_rdma" and not grid.slotted:
+        return _max_abs_diff(cur, prev)
+    if isinstance(cur, rdma.SlotCarry):
+        cur.run.join()
+        diffs = [_max_abs_diff(c, p) for c, p in zip(cur.parts, prev.parts)]
+    else:
+        diffs = [_max_abs_diff(c, p) for cur_row, prev_row in zip(cur, prev)
+                 for c, p in zip(cur_row, prev_row)]
+    return torch.stack([d.to(grid.device) for d in diffs]).amax()
+
+
 def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
                           valid_hw, block_hw, backend: str,
                           boundary: str = "zero", fuse: int = 1, tile=None,
-                          interior_split: bool = False):
+                          interior_split: bool = False,
+                          col_mode: str = "packed"):
     """ONE convergence chunk: ``n`` iterations and the (prev, cur) max-abs
     diff, as a 0-d f32 tensor left on the device.
 
     ``n - 1`` iterations run as ``(n-1)//fuse`` fused steps and
     ``(n-1)%fuse`` single ones, then ONE single step forms the pair, so
     any fuse gives the bytes of fuse 1.  The chunk maps the carry to the
-    carry: the blocks, or for ``cuda_rdma`` the stacked grid.  ``tol`` is
-    not part of it: the host compares.
+    carry (:func:`_carry_in`).  ``tol`` is not part of it: the host
+    compares.
     """
     # Fuse at most the n-1 pre-pair iterations; a 1-iteration chunk has
     # no pre-pair work at all.  The check below is the stream's, as in
@@ -499,11 +639,11 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
     fuse = max(1, min(fuse, max(1, n - 1)))
     _check_fuse_fits(filt, block_hw, fuse)
     step = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                            backend, 1, boundary, tile)
+                            backend, 1, boundary, tile, False, col_mode)
     fused = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                              backend, fuse, boundary, tile, interior_split)
+                              backend, fuse, boundary, tile, interior_split,
+                              col_mode)
              if fuse > 1 and n > 1 else None)
-    stacked = backend == "cuda_rdma"
 
     def chunk(state):
         prev = state
@@ -516,14 +656,7 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
             for _ in range((n - 1) % fuse):
                 prev = step(prev)
         cur = step(prev)
-        # The MPI_Allreduce (lax.pmax in the JAX package): the global max
-        # of one iteration's change over every block and channel, the pad
-        # rim included (zero in both).
-        if stacked:
-            return cur, _max_abs_diff(cur, prev)
-        diffs = [_max_abs_diff(c, p) for cur_row, prev_row in zip(cur, prev)
-                 for c, p in zip(cur_row, prev_row)]
-        return cur, torch.stack(diffs).amax()
+        return cur, _carry_diff(cur, prev, grid, backend)
 
     return chunk
 
@@ -555,26 +688,26 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
     if int(check_every) < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
-        x, grid, device, backend, storage, boundary, quantize,
-        overlap=overlap, col_mode=col_mode)
+        x, grid, device, backend, storage, boundary, quantize)
     backend, fuse, tile, _ = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
     check_backend(backend)
-    if fallback:
-        backend = _resolve_fallback(grid, filt, backend, quantize, fuse,
-                                    boundary, tile, storage, block_hw,
-                                    interior_split)
+    backend, col_mode = _run_knobs(
+        grid, filt, backend, int(fuse), tile, storage, quantize, boundary,
+        block_hw, interior_split, fallback, overlap, col_mode)
     _check_quantize_contract(blocks, filt, quantize)
     _check_block_size(filt, block_hw)
     tile = None if tile is None else tuple(int(v) for v in tile)
-    return grid, blocks, valid_hw, block_hw, backend, int(fuse), tile
+    return (grid, blocks, valid_hw, block_hw, backend, int(fuse), tile,
+            col_mode)
 
 
 def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
                      max_iters: int, check_every: int, quantize: bool,
                      valid_hw, block_hw, backend: str, boundary: str,
-                     fuse: int, tile, counter, interior_split: bool = False):
+                     fuse: int, tile, counter, interior_split: bool = False,
+                     col_mode: str = "packed"):
     """The host loop: ``(carry, iters_done, diff)`` after every chunk,
     until ``diff < tol`` or ``max_iters`` (a NaN diff stops it too).  The
     diff's ``.item()`` is the chunk's one readback and fence; it counts on
@@ -587,7 +720,7 @@ def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
             fault_point("backend_compile")  # a chunk size's first build
             chunks[n] = _build_converge_chunk(
                 grid, filt, n, quantize, tuple(valid_hw), block_hw, backend,
-                boundary, fuse, tile, interior_split)
+                boundary, fuse, tile, interior_split, col_mode)
         state, d = chunks[n](state)
         diff = d.item()
         counter.readbacks += 1
@@ -614,8 +747,10 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
     iteration knobs of :func:`sharded_iterate`: a chunk fuses at most its
     ``check_every - 1`` pre-pair iterations, so the whole run clamps the
     fuse to that.  ``grid`` defaults to 1×1 on ``device`` (default: the
-    card; it raises without CUDA).  ``fallback=True`` probes the backend
-    first, as :func:`iterate_prepared` does.
+    card; it raises without CUDA); on a grid of slots the diff is the max
+    over the slots, still one readback a chunk.  ``fallback=True`` probes
+    the backend first, as :func:`iterate_prepared` does; ``overlap`` and
+    ``col_mode`` as there.
 
     ``solver='multigrid'`` runs the geometric V-cycle instead
     (``solvers.multigrid.mg_converge``, its level count capped by
@@ -634,7 +769,8 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
                               interior_split, fallback, overlap, mg_levels,
                               col_mode, device, stream=False)
         return out, res.cycles
-    grid, blocks, valid_hw, block_hw, backend, fuse, tile = _converge_setup(
+    (grid, blocks, valid_hw, block_hw, backend, fuse, tile,
+     col_mode) = _converge_setup(
         x, filt, check_every, grid, quantize, backend, storage, boundary,
         fuse, tile, interior_split, fallback, overlap, solver, col_mode,
         device)
@@ -650,19 +786,19 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
                      f"check_every={check_every} chunk fuses at most its "
                      "n-1 pre-pair iterations)"
                      if fuse != requested_fuse else "")
-    # cuda_rdma carries the stacked grid, stacked once for the run; the
-    # input blocks are not kept past the first chunk.
-    stacked = backend == "cuda_rdma"
-    state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
+    # The carry is made once for the run; the input blocks are not kept
+    # past the first chunk.
+    state = _carry_in(blocks, grid, backend, boundary, filt.radius * fuse,
+                      col_mode)
     del blocks
     done = 0
     # The obs "device" span of the run (item 9) opens here.
     for state, done, _ in _converge_chunks(
             grid, filt, state, tol, max_iters, check_every, quantize,
             valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge, interior_split):
+            sharded_converge, interior_split, col_mode):
         pass
-    return _global_f32(state, grid, valid_hw, stacked), done
+    return _global_f32(_carry_out(state, grid, backend), grid, valid_hw), done
 
 
 sharded_converge.readbacks = 0
@@ -702,19 +838,21 @@ def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
                 mg_levels, col_mode, device, stream=True):
             yield out, cycles, residual
         return
-    grid, blocks, valid_hw, block_hw, backend, fuse, tile = _converge_setup(
+    (grid, blocks, valid_hw, block_hw, backend, fuse, tile,
+     col_mode) = _converge_setup(
         x, filt, check_every, grid, quantize, backend, storage, boundary,
         fuse, tile, interior_split, fallback, overlap, solver, col_mode,
         device)
-    stacked = backend == "cuda_rdma"
-    state = rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
+    state = _carry_in(blocks, grid, backend, boundary,
+                      filt.radius * max(1, min(fuse, int(check_every) - 1)),
+                      col_mode)
     del blocks
     for state, done, diff in _converge_chunks(
             grid, filt, state, tol, int(max_iters), int(check_every),
             quantize, valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge_stream, interior_split):
-        yield (_global_f32(state, grid, valid_hw, stacked).cpu().numpy(),
-               done, diff)
+            sharded_converge_stream, interior_split, col_mode):
+        yield (_global_f32(_carry_out(state, grid, backend), grid,
+                           valid_hw).cpu().numpy(), done, diff)
 
 
 sharded_converge_stream.readbacks = 0

@@ -82,19 +82,22 @@ def clear_probe_cache() -> None:
 
 
 def _probe_key(grid, filt: Filter, backend: str, quantize, fuse, boundary,
-               tile, storage, block_hw, interior_split=False) -> tuple:
+               tile, storage, block_hw, interior_split=False,
+               col_mode="packed") -> tuple:
     return (grid, filt.name, filt.radius, backend, bool(quantize), int(fuse),
             boundary, None if tile is None else tuple(tile), storage,
             None if block_hw is None else tuple(block_hw),
-            bool(interior_split))
+            bool(interior_split), col_mode)
 
 
 def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
                   fuse: int = 1, boundary: str = "zero", tile=None,
                   storage: str = "f32", block_hw=None,
-                  interior_split: bool = False) -> None:
+                  interior_split: bool = False,
+                  col_mode: str = "packed") -> None:
     """Build and run one ``fuse``-iteration chunk of ``backend`` on a
-    zeros grid.
+    zeros grid (on a grid of slots: every slot's launch at its own block
+    on its own device), with ``col_mode`` clamped to ``backend``.
 
     Raises whatever the build or the launch raised (replayed from the
     cache on repeat calls); returns None on (possibly cached) success.
@@ -107,8 +110,11 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
     ``fuse`` iterations on one channel, once per (grid, backend, config)
     per process; its tensors are freed before it returns.
     """
+    from parallel_convolution_tpu_torch.parallel.step import clamp_col_mode
+
+    col_mode = clamp_col_mode(col_mode, backend)
     key = _probe_key(grid, filt, backend, quantize, fuse, boundary, tile,
-                     storage, block_hw, interior_split)
+                     storage, block_hw, interior_split, col_mode)
     if key in _PROBE_CACHE:
         err = _PROBE_CACHE[key]
         if err is not None:
@@ -116,7 +122,7 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
         return
     try:
         _run_probe(grid, filt, backend, quantize, fuse, boundary, tile,
-                   storage, block_hw, interior_split)
+                   storage, block_hw, interior_split, col_mode)
     except Exception as e:  # noqa: BLE001 — the verdict IS the product
         _PROBE_CACHE[key] = e
         raise
@@ -124,7 +130,7 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
 
 
 def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
-               block_hw, interior_split=False) -> None:
+               block_hw, interior_split=False, col_mode="packed") -> None:
     from parallel_convolution_tpu_torch.parallel import step as step_lib
     from parallel_convolution_tpu_torch.parallel.mesh import split_blocks
 
@@ -140,10 +146,11 @@ def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
                     device=grid.device)
     run = step_lib._build_iterate(grid, filt, fuse, quantize, valid_hw,
                                   tuple(block_hw), backend, fuse, boundary,
-                                  tile, interior_split)
+                                  tile, interior_split, col_mode)
     run(split_blocks(x, grid))
-    if grid.device.type == "cuda":
-        torch.cuda.synchronize(grid.device)
+    for dev in dict.fromkeys(grid.slots):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 # requested backend -> effective backend of the most recent resolution in
@@ -161,9 +168,11 @@ def effective_for(requested: str) -> str | None:
 def resolve_backend(grid, filt: Filter, backend: str, *,
                     quantize: bool = True, fuse: int = 1,
                     boundary: str = "zero", tile=None, storage: str = "f32",
-                    block_hw=None, interior_split: bool = False) -> str:
+                    block_hw=None, interior_split: bool = False,
+                    col_mode: str = "packed") -> str:
     """Return the first backend in the grid's ``degradation_chain``
-    whose probe passes; raise at once on a terminal probe failure, and
+    whose probe passes (``col_mode`` re-clamped for each tier: only
+    ``cuda_rdma`` moves column slabs); raise at once on a terminal probe failure, and
     :class:`RetryExhausted` when every tier failed transiently (on the
     card, a refused ``cuda`` is the last tier).
 
@@ -176,7 +185,8 @@ def resolve_backend(grid, filt: Filter, backend: str, *,
         try:
             probe_backend(grid, filt, b, quantize=quantize, fuse=fuse,
                           boundary=boundary, tile=tile, storage=storage,
-                          block_hw=block_hw, interior_split=interior_split)
+                          block_hw=block_hw, interior_split=interior_split,
+                          col_mode=col_mode)
         except Exception as e:  # noqa: BLE001
             if classify(e) == TERMINAL:
                 raise

@@ -59,12 +59,13 @@ from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, join_blocks, make_grid, padded_extent, split_blocks,
+    Grid, check_no_slots, join_blocks, make_grid, padded_extent,
+    split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.solvers.transfer import coarse_extent
 from parallel_convolution_tpu_torch.utils.config import (
-    check_backend, check_pending, check_run_config,
+    COL_MODE_CHOICES, check_backend, check_pending, check_run_config,
 )
 
 __all__ = ["MG_BLOCK_FLOOR", "MGResult", "Level", "cycle_launches",
@@ -134,7 +135,8 @@ class MGResult:
     overlap: bool
     wall_s: float
     predicted_s_per_cycle: float | None = None
-    # No column transport between blocks on one card (item 10).
+    # The column transport (inert: multigrid runs on one device; a grid
+    # of slots is item 10c).
     col_mode: str | None = None
     residuals: list[float] = dataclasses.field(default_factory=list)
 
@@ -265,9 +267,11 @@ def cycle_launches(levels, backend: str, radius: int, nu_pre: int = NU_PRE,
     smoother step is one K1 launch per block (``cuda`` / ``cuda_sep``), or
     one K3 or K4 launch for the level's grid (``cuda_rdma``, whichever
     ``rdma.rdma_plan`` picks for the level's block at T = 1).  The plain
-    backends launch nothing."""
+    backends launch nothing (and nothing runs on a grid of slots: item
+    10c), keyed as ``stencil.launch_counts``."""
     counts = {"stencil_step": 0, "fused_iterate": 0, "rdma_block": 0,
-              "rdma_tiled": 0}
+              "rdma_tiled": 0, "rdma_block_slot": 0, "rdma_tiled_slot": 0,
+              "rdma_pack": 0}
     for lv, n in zip(levels, _level_sweeps(levels, nu_pre, nu_post,
                                            nu_coarse)):
         if backend in ("cuda", "cuda_sep"):
@@ -520,7 +524,11 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
             f"solver='multigrid' requires storage='f32', got {storage!r} "
             "(residual/correction fields need full float carries)")
     check_backend(backend, allow_auto=True)
-    check_pending(overlap=overlap, col_mode=col_mode)
+    check_pending(overlap=overlap)
+    check_no_slots(grid, "multigrid")
+    if col_mode is not None and col_mode not in COL_MODE_CHOICES:
+        raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, got "
+                         f"{col_mode!r}")
     check_run_config(storage, boundary, quantize)
     if grid is None:
         grid = make_grid(device=device)
@@ -672,8 +680,9 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     ignored (smoothing sweeps are fuse 1).  ``backend`` names the smoother
     (``auto`` resolves through ``tuning``); the transfer operators always
     run their registered stencils.  ``grid`` defaults to 1×1 on ``device``
-    (default: the card; it raises without CUDA).  ``overlap`` and
-    ``col_mode`` belong to blocks on separate cards and raise (item 10).
+    (default: the card; it raises without CUDA); a grid of slots raises
+    (ROADMAP item 10c), so ``col_mode`` is checked and inert, and
+    ``overlap=True`` raises (item 10b).
     ``mg_converge_stream.readbacks`` counts the readbacks.
     """
     s = _setup(x, filt, grid, quantize, backend, storage, boundary, fuse,
@@ -721,7 +730,7 @@ def mg_converge(x, filt: Filter, tol: float, max_iters: int,
         converged=diff < tol, levels=len(levels),
         level_grids=[f"{lv.grid.rows}x{lv.grid.cols}" for lv in levels],
         level_shapes=[f"{lv.valid_hw[0]}x{lv.valid_hw[1]}" for lv in levels],
-        backend=s.backend, overlap=False,
+        backend=s.backend, overlap=False, col_mode="packed",
         wall_s=round(time.perf_counter() - t0, 4),
         predicted_s_per_cycle=_predict_cycle_seconds(
             levels, _level_sweeps(levels, nu_pre, nu_post, nu_coarse), filt,

@@ -45,8 +45,10 @@ class Resolution:
 
     ``source`` is ``measured`` (a measured plan), ``interpolated`` (nearest
     same-card size bucket or grid) or ``predicted`` (cost model only, or a
-    plan a dry-run tune wrote).  ``overlap`` and ``col_mode`` keep the JAX
-    package's fields at their inert one-card values.
+    plan a dry-run tune wrote).  ``overlap`` and ``col_mode`` are the JAX
+    package's fields: ``overlap`` False (its pipeline is item 10b),
+    ``col_mode`` the plan's or the model's column transport (a grid of
+    slots; elsewhere the canonical "packed").
     """
 
     backend: str
@@ -127,7 +129,10 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
             fuse=int(fuse) if fuse is not None else p_fuse,
             tile=tuple(tile) if tile is not None else p_tile,
             source=plan.source, predicted_gpx=plan.predicted_gpx,
-            key=w.key())
+            key=w.key(),
+            col_mode=(plan.col_mode if plan.col_mode in
+                      search._legal_col_modes(w, plan.backend)
+                      else "packed"))
     else:
         p = search.tune(
             w, dry_run=True, fuses=[int(fuse)] if fuse is not None else None,
@@ -136,7 +141,8 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
             backend=p.backend,
             fuse=int(fuse) if fuse is not None else p.fuse,
             tile=tuple(tile) if tile is not None else p.tile,
-            source="predicted", predicted_gpx=p.predicted_gpx, key=w.key())
+            source="predicted", predicted_gpx=p.predicted_gpx, key=w.key(),
+            col_mode=p.col_mode)
     _LAST.append(res)
     del _LAST[:-4]  # bounded history; only the last is ever read
     return res

@@ -33,10 +33,15 @@ assumes one block per TPU chip:
 * **The quantize** is priced from probe 5a: the two-add magic round where
   the filter admits it (``stencil.round_mode``, the JAX package's L1
   rule), ``rintf`` above the bound.
-* **Overlap and column mode** are inert on one card: every block is in one
-  launch, so no transfer is in flight to hide, and there is no column
-  transport.  The model has no term for them; candidates carry ``False``
-  and ``"packed"`` (``search.Candidate``).
+* **A grid of slots** (a device per block, ``mesh.Grid.devices``) pays a
+  launch per slot and chunk, the barrier's event waits, and, over several
+  cards, the ghost bytes at the peer link's rate
+  (:func:`slot_seconds_per_chunk`).  Its column transport is
+  :func:`col_transport_seconds_per_round`: ``strided`` reads the
+  neighbour's edge columns in place, ``packed`` stages them first, each
+  priced from constants measured on the card (``col_row_s``,
+  ``pack_s``), and :func:`pick_col_mode` takes the cheaper.  Overlap
+  (item 10b) has no term; candidates carry ``False``.
 
 Pure arithmetic on Python numbers plus the planners' arithmetic: no device
 access, so it runs the same on the CPU and beside the card.
@@ -50,6 +55,7 @@ from parallel_convolution_tpu_torch.ops.rdma import rdma_plan
 from parallel_convolution_tpu_torch.ops.stencil import (
     H100_SMEM_OPTIN, STEP_TILE, fused_plan,
 )
+from parallel_convolution_tpu_torch.utils.config import COL_MODES
 
 STORAGE_BYTES = {"f32": 4, "bf16": 2, "u8": 1}
 
@@ -92,7 +98,12 @@ class HardwareModel:
     call and ``op_s`` per eager PyTorch op; ``smem_optin`` the opt-in
     shared memory per block that legality is decided against.
     ``plain_kernels`` marks a host where the CUDA backends run their plain
-    versions (the interpret penalty applies).
+    versions (the interpret penalty applies).  On a grid of slots:
+    ``col_row_s`` the seconds one padded row of one channel of a column
+    slab costs K3 / K4 read in place (``strided``) over a dense read,
+    ``pack_s`` the fixed seconds of one slot's pack launch (``packed``),
+    ``event_s`` the host's seconds per barrier wait, and ``link_gbps``
+    the rate ghost bytes cross between two cards.
     """
 
     name: str
@@ -106,6 +117,10 @@ class HardwareModel:
     op_s: float
     smem_optin: int = H100_SMEM_OPTIN
     plain_kernels: bool = False
+    col_row_s: float = 0.0
+    pack_s: float = 0.0
+    event_s: float = 0.0
+    link_gbps: float = 450.0
 
 
 # NVIDIA H100 80GB HBM3 at a 700 W power limit, every rate from a run of
@@ -124,11 +139,19 @@ class HardwareModel:
 #                        "add"); rint_quantize_slots the same of "rint+add"
 #   launch_s, op_s  "time host calls": a K1 wrapper call and a slice copy
 #                on a tiny block, host clock over many calls
+#   col_row_s, pack_s, event_s  "probe col_mode": the per-slot K4
+#                launches at BASELINE config 2's blocks (2x2 slots, bf16,
+#                T = 32) reading the columns in place against from the
+#                staging, a slot's pack launch (its time less its bytes),
+#                and the host's seconds a stream's wait on an event
+#   link_gbps    NVLink 4 (the data sheet's 450 GB/s a direction): no run
+#                here had two cards
 H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=2330.3,
                      flop_gops=46588.8, tap_gops=15984.7,
                      sep_tap_gops=13763.8, quantize_slots=1.806,
                      rint_quantize_slots=5.559, launch_s=51.15e-6,
-                     op_s=9.74e-6)
+                     op_s=9.74e-6, col_row_s=1.234e-10, pack_s=2.496e-5,
+                     event_s=2.097e-6)
 
 # Generic host: rough figures; on the CPU the model only has to crush the
 # kernels (their plain versions run there) and rank the plain backends
@@ -194,9 +217,13 @@ def chunk_groups(backend: str, fuse: int, tile, block_hw, radius: int,
 
 
 def rdma_is_tiled(block_hw, radius: int, fuse: int,
-                  smem_limit: int = H100_SMEM_OPTIN) -> bool:
+                  smem_limit: int = H100_SMEM_OPTIN,
+                  col_mode: str = "strided", grid=None) -> bool:
     """Whether ``cuda_rdma`` runs K4 (tiled) rather than K3 (whole block):
-    ``rdma.rdma_plan``'s choice."""
+    ``rdma.rdma_plan``'s choice.  ``col_mode`` / ``grid`` are the JAX
+    signature's: there the packed staging took VMEM beside the block; on
+    the card it lives in device memory, so the choice does not depend on
+    them."""
     return rdma_plan(radius, max(1, int(fuse)), block_hw, None,
                      smem_limit).kernel == "tiled"
 
@@ -344,19 +371,97 @@ def host_seconds_per_chunk(backend: str, grid, fuse: int, groups, k: int,
     return launches * hw.launch_s + ops * hw.op_s
 
 
+def col_transport_seconds_per_round(block_hw, radius: int, fuse: int,
+                                    storage: str, hw: HardwareModel,
+                                    col_mode: str = "packed",
+                                    channels: int = 1) -> float:
+    """Extra seconds one slot pays a round to take its two column slabs,
+    cut at the row-padded height (``bh + 2d``: the corners ride the column
+    phase), from its neighbours.
+
+    ``strided`` reads them in place: ``col_row_s`` a padded row and
+    channel, both sides.  ``packed`` pays the pack launch (``pack_s``)
+    and the staging written and read back densely at ``hbm_gbps``.  The
+    JAX formula's structure (a descriptor a row against the staging
+    copies) with the card's measured prices."""
+    if col_mode not in COL_MODES:
+        raise ValueError(f"col_mode must be one of {COL_MODES}, "
+                         f"got {col_mode!r}")
+    d = radius * max(1, int(fuse))
+    rows = block_hw[0] + 2 * d
+    if col_mode == "strided":
+        return 2.0 * rows * channels * hw.col_row_s
+    slab_bytes = rows * d * STORAGE_BYTES[storage] * channels
+    return hw.pack_s + 2.0 * 2.0 * slab_bytes / (hw.hbm_gbps * 1e9)
+
+
+def pick_col_mode(grid, block_hw, radius: int, fuse: int, storage: str,
+                  hw: HardwareModel, channels: int = 1) -> str:
+    """The cheaper column transport for this decomposition (``auto``'s
+    verdict); a grid of one column has no column partner, and its
+    canonical label is ``"packed"`` (both transports are the same
+    program there)."""
+    if grid[1] <= 1:
+        return "packed"
+    packed = col_transport_seconds_per_round(block_hw, radius, fuse,
+                                             storage, hw, "packed", channels)
+    strided = col_transport_seconds_per_round(block_hw, radius, fuse,
+                                              storage, hw, "strided",
+                                              channels)
+    return "packed" if packed <= strided else "strided"
+
+
+def slot_seconds_per_chunk(backend: str, grid, fuse: int, groups, block_hw,
+                           radius: int, storage: str, channels: int,
+                           hw: HardwareModel, col_mode: str = "packed",
+                           cards: int = 1) -> float:
+    """What a grid of slots adds to one chunk over the one-device grid.
+
+    ``cuda_rdma``: a launch per slot and level group (the one-device form
+    launches once for the grid), the pack launches with ``packed``, up to
+    eight barrier waits a slot, and the column transport of every slot,
+    which share the card(s).  Every backend, over several cards: the
+    ghost bytes of every block (two phases, depth r·T) at ``link_gbps``,
+    the cards in parallel."""
+    R, C = grid
+    nb = R * C
+    T = max(1, int(fuse))
+    d = radius * T
+    t = 0.0
+    if cards > 1:
+        ghost = (2.0 * (block_hw[0] + block_hw[1] + 2 * d) * d * channels
+                 * STORAGE_BYTES[storage])
+        t += nb * ghost / (hw.link_gbps * 1e9) / cards
+    if backend != "cuda_rdma":
+        return t
+    packed = col_mode == "packed" and C > 1
+    launches = nb * (len(groups) + (1 if packed else 0)) - 1
+    waits = nb * (min(8, nb - 1) + (2 if packed else 0))
+    col = (col_transport_seconds_per_round(block_hw, radius, T, storage, hw,
+                                           col_mode, channels)
+           if C > 1 else 0.0)
+    return (launches * hw.launch_s + waits * hw.event_s
+            + nb * col / max(1, cards) + t)
+
+
 def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
                                 shape, block_hw, grid, k: int,
                                 separable: bool, quantize: bool,
                                 hw: HardwareModel,
                                 ragged: bool = False,
-                                magic_round: bool = True) -> float:
+                                magic_round: bool = True,
+                                col_mode: str = "packed",
+                                slotted: bool = False,
+                                cards: int = 1) -> float:
     """Seconds per pixel (of the C·H·W grid) per iteration:
     ``max(bytes, operations)`` on the card plus the host's issue time.
 
     Bytes go at ``hbm_gbps``; the fused kernels' slots at ``tap_gops``
     (``sep_tap_gops`` in the separable order), the plain backends' at
-    ``flop_gops``.  The JAX model's overlap and column-mode terms do not
-    exist on one card.
+    ``flop_gops``.  On a grid of slots (``slotted``, over ``cards``
+    cards) :func:`slot_seconds_per_chunk` adds the per-slot launches, the
+    barrier and ``col_mode``'s column transport; the JAX model's overlap
+    term (item 10b) has no counterpart.
     """
     radius = k // 2
     T = max(1, int(fuse))
@@ -373,8 +478,13 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
     groups = chunk_groups(backend, T, tile, block_hw, radius, hw.smem_optin)
     pixels = shape[0] * grid[0] * grid[1] * block_hw[0] * block_hw[1]
     t_host = host_seconds_per_chunk(backend, grid, T, groups, k, quantize,
-                                    storage, ragged, hw) / (T * pixels)
-    t = max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9)) + t_host
+                                    storage, ragged, hw)
+    if slotted:
+        t_host += slot_seconds_per_chunk(backend, grid, T, groups, block_hw,
+                                         radius, storage, shape[0], hw,
+                                         col_mode, cards)
+    t = (max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9))
+         + t_host / (T * pixels))
     if backend in CUDA_BACKENDS and hw.plain_kernels:
         t *= INTERPRET_PENALTY
     return t

@@ -101,6 +101,12 @@ class Workload:
     # Whether the kernels round with the magic number (ops/stencil.py
     # round_mode): a function of the filter, so not part of the key.
     magic_round: bool = True
+    # A grid of slots (a device per block) and the cards it spans.  Part
+    # of the key only when set, as check_every: the two layouts rank the
+    # backends and column transports differently, and a one-device key
+    # stays the JAX package's.
+    slotted: bool = False
+    cards: int = 1
 
     @property
     def block_hw(self) -> tuple[int, int]:
@@ -139,6 +145,8 @@ class Workload:
             boundary=boundary,
             check_every=None if check_every is None else int(check_every),
             magic_round=round_mode(filt.taps) == "magic",
+            slotted=bool(grid.slotted),
+            cards=len(set(grid.slots)),
         )
 
     def key_fields(self) -> dict:
@@ -146,7 +154,9 @@ class Workload:
 
         ``check_every`` appears only when set: fixed-count keys are
         byte-identical to the pre-round-10 schema, so existing plan
-        files stay valid without a schema bump.
+        files stay valid without a schema bump.  ``slotted`` (and
+        ``cards`` above 1) likewise: a plan tuned on one device does not
+        answer a grid of slots, nor the reverse.
         """
         C, H, W = self.shape
         fields = {
@@ -164,6 +174,10 @@ class Workload:
         }
         if self.check_every is not None:
             fields["check_every"] = int(self.check_every)
+        if self.slotted:
+            fields["slotted"] = True
+            if self.cards > 1:
+                fields["cards"] = int(self.cards)
         return fields
 
     def key(self) -> str:

@@ -56,14 +56,28 @@ _PREFERENCE = ("shifted", "xla_conv", "separable", "cuda_sep", "cuda",
 @dataclasses.dataclass(frozen=True)
 class Candidate:
     """One point of the knob space: (backend, fuse, tile, overlap,
-    col_mode).  ``overlap`` and ``col_mode`` keep the JAX package's fields;
-    on one card they are always False and "packed"."""
+    col_mode), the JAX package's fields.  ``overlap`` is always False (its
+    pipeline is item 10b); ``col_mode`` varies where a column transport
+    exists (:func:`_legal_col_modes`), else it is "packed"."""
 
     backend: str
     fuse: int = 1
     tile: tuple[int, int] | None = None
     overlap: bool = False
     col_mode: str = "packed"
+
+
+def _legal_col_modes(w: Workload, backend: str,
+                     col_mode: str | None = None) -> list[str]:
+    """Column-transport options for one backend (the JAX package's):
+    only ``cuda_rdma`` on a grid of slots with more than one column has
+    the A/B; everywhere else the knob is inert and normalises to the
+    canonical "packed".  An explicit request narrows the A/B to it."""
+    if backend != "cuda_rdma" or not w.slotted or w.grid[1] <= 1:
+        return ["packed"]
+    if col_mode in (None, "auto"):
+        return ["packed", "strided"]
+    return [col_mode]
 
 
 def _sep_byte_safe(w: Workload) -> bool:
@@ -169,7 +183,8 @@ def enumerate_candidates(w: Workload, backends=None, fuses=None,
             for t in _legal_tiles(w, b, tiles if tiles is not None
                                   else TILE_MENU, strict=tiles is not None,
                                   fuse=T, hw=hw):
-                out.append(Candidate(b, T, t))
+                for cm in _legal_col_modes(w, b):
+                    out.append(Candidate(b, T, t, col_mode=cm))
     if not out:
         raise ValueError(
             f"no legal candidates for {w.filter_name} {w.shape} on grid "
@@ -183,7 +198,8 @@ def predict(w: Workload, c: Candidate,
     return costmodel.predict_seconds_per_px_iter(
         c.backend, w.storage, c.fuse, c.tile, w.shape, w.block_hw, w.grid,
         w.taps_k, w.separable, w.quantize, _hw(w, hw), ragged=w.ragged,
-        magic_round=w.magic_round)
+        magic_round=w.magic_round, col_mode=c.col_mode, slotted=w.slotted,
+        cards=w.cards)
 
 
 def _pref(backend: str) -> int:
@@ -231,7 +247,7 @@ def measure(w: Workload, c: Candidate, grid, *, iters: int = 8,
         grid=grid, channels=w.shape[0], backend=c.backend,
         quantize=w.quantize, storage=w.storage, fuse=c.fuse,
         boundary=w.boundary, reps=reps, tile=c.tile,
-        interior_split=interior_split)
+        interior_split=interior_split, col_mode=c.col_mode)
     row["predicted_gpx_per_chip"] = costmodel.predict_gpx_per_chip(
         predict(w, c, hw))
     return row

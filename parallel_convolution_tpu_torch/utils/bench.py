@@ -127,7 +127,9 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
                   quantize: bool = True, storage: str = "f32",
                   fuse: int | None = 1, boundary: str = "zero",
                   reps: int = 3, tile=None, fallback: bool = False,
-                  device=None, interior_split: bool = False) -> dict:
+                  device=None, interior_split: bool = False,
+                  overlap: bool | None = None,
+                  col_mode: str | None = None) -> dict:
     """Gpixels/s of the fixed-iteration workload on one device.
 
     The image (seeded, u8-range) is moved and cut once; each rep runs
@@ -145,8 +147,14 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     real block and storage: the row's ``effective_backend`` is the backend
     that produced the number, ``backend`` the one asked for.
     ``interior_split`` benches K2's 9-patch launch (``cuda`` /
-    ``cuda_sep`` at fuse > 1 on a ``zero`` boundary).
+    ``cuda_sep`` at fuse > 1 on a ``zero`` boundary).  On a grid of slots
+    the row stamps the slots and the resolved ``col_mode``
+    (``cuda_rdma``'s column transport); ``overlap=True`` raises (ROADMAP
+    item 10b).
     """
+    from parallel_convolution_tpu_torch.utils.config import check_pending
+
+    check_pending(overlap=overlap)
     from parallel_convolution_tpu_torch.tuning import costmodel, search
     from parallel_convolution_tpu_torch.tuning.plans import Workload
 
@@ -160,10 +168,9 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, channels)
     fuse = max(1, min(int(fuse), iters or 1))  # as _build_iterate clamps
-    if fallback:
-        eff = step_lib._resolve_fallback(grid, filt, eff, quantize, fuse,
-                                         boundary, tile, storage, block_hw,
-                                         interior_split)
+    eff, col_mode = step_lib._run_knobs(
+        grid, filt, eff, fuse, tile, storage, quantize, boundary, block_hw,
+        interior_split, fallback, None, col_mode)
 
     state = blocks
 
@@ -172,7 +179,8 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         state = step_lib.iterate_prepared(
             state, filt, iters, grid, valid_hw, quantize=quantize,
             backend=eff, fuse=fuse, boundary=boundary, tile=tile,
-            interior_split=interior_split, check_contract=False)
+            interior_split=interior_split, check_contract=False,
+            col_mode=col_mode)
 
     secs = wall(run, grid.device, warmup=1, reps=max(1, reps))
     w = Workload.from_grid(grid, filt, (channels, H, W), storage=storage,
@@ -184,6 +192,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         w, search.Candidate(eff, fuse, tile), hw))
     on_card = grid.device.type == "cuda"
     gpx = H * W * channels * iters / secs / 1e9
+    chips = len(set(grid.slots))
     return {
         "workload": f"{filt.name} {H}x{W}x{channels} {iters} iters",
         "shape": [channels, H, W], "filter": filt.name, "iters": iters,
@@ -192,19 +201,20 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         "tile": list(compiled_tile) if compiled_tile else None,
         "storage": storage, "quantize": quantize, "boundary": boundary,
         "interior_split": bool(interior_split),
-        # Overlap and column transport are inert on one card (item 10).
-        "overlap": False, "col_mode": None,
+        # The resolved knobs: overlap is the serialized order (its
+        # pipeline is item 10b), col_mode the column transport.
+        "overlap": False, "col_mode": col_mode,
+        "slots": grid.slot_map() if grid.slotted else None,
         "seconds": secs, "wall_s": secs,
-        # All blocks on the one card: the chip's rate is the whole rate.
-        "gpixels_per_s": gpx, "gpixels_per_s_per_chip": gpx,
+        "gpixels_per_s": gpx, "gpixels_per_s_per_chip": gpx / chips,
         "predicted_gpx_per_chip": predicted,
         "plan_source": source or "explicit", "plan_key": w.key(),
         "platform": "gpu" if on_card else "cpu",
         "device": device_kind(grid.device),
         "device_kind": device_kind(grid.device),
         "mesh": f"{grid.rows}x{grid.cols}",
-        # Blocks, all on the one device (the JAX row's mesh.size).
-        "devices": grid.rows * grid.cols,
+        # Blocks (the JAX row's mesh.size), and the distinct devices.
+        "devices": grid.rows * grid.cols, "chips": chips,
         "timing": "cuda-events" if on_card else "host-clock",
     }
 
@@ -295,8 +305,11 @@ def bench_converge(shape, filt: Filter, tol: float, max_iters: int,
             pass
         row.update({
             "effective_backend": eff,
-            # No column transport between blocks on one card (item 10).
-            "col_mode": None,
+            # The column transport the run resolved (auto, as the
+            # stream's own resolution).
+            "col_mode": step_lib.resolve_col_mode(
+                None, eff, grid, w.block_hw, filt.radius, int(fuse or 1),
+                storage),
             "converged": diff is not None and diff < tol,
             "residual": diff,
             "iters": iters,

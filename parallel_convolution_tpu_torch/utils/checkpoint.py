@@ -47,7 +47,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from parallel_convolution_tpu_torch.parallel.mesh import Grid, padded_extent
+from parallel_convolution_tpu_torch.parallel.mesh import (
+    Grid, check_no_slots, padded_extent,
+)
 from parallel_convolution_tpu_torch.resilience import diskio
 from parallel_convolution_tpu_torch.resilience.faults import (
     InjectedFault, fault_point,
@@ -320,6 +322,7 @@ def load_state(ckpt_dir, grid: Grid,
     snapshot's, each block is assembled from the shards it overlaps, and
     ``meta['resharded_from']`` records the source grid.
     """
+    check_no_slots(grid, "checkpoints")
     candidates = _candidate_snaps(ckpt_dir)
     if not candidates:
         raise FileNotFoundError(f"no checkpoint at {ckpt_dir}")
@@ -393,6 +396,7 @@ def run_checkpointed(blocks, filt, total_iters: int, grid: Grid, valid_hw,
     """
     from parallel_convolution_tpu_torch.parallel import step as step_lib
 
+    check_no_slots(grid, "checkpoints")
     # Resume-compatibility config; the grid is not part of it.
     config = {
         "filter": filt.name,

@@ -59,13 +59,23 @@ BACKEND_FROM_REFERENCE = {
     "pallas_rdma": "cuda_rdma",
 }
 
-_SEPARATE_CARDS = "item 10 (blocks on separate cards)"
+# Column-slab transports between the blocks of a grid of slots (the JAX
+# package's registry): "packed" gathers each block's edge column slabs
+# into a contiguous staging buffer that the neighbours read densely,
+# "strided" reads the neighbour's edge columns in place; "auto" lets the
+# cost model pick (user surfaces only).
+COL_MODES = ("packed", "strided")
+COL_MODE_CHOICES = COL_MODES + ("auto",)
+
+OVERLAP_ITEM = "item 10b (the overlapped pipeline)"
+# What a grid of slots does not run yet, and a grid over processes.
+SLOTS_ITEM = ("item 10c (grids over processes; multigrid, volumes, "
+              "sharded IO and checkpoints on slots)")
 
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.
 PENDING_KNOBS = {
-    "overlap": _SEPARATE_CARDS,
-    "col_mode": _SEPARATE_CARDS,
+    "overlap": OVERLAP_ITEM,
 }
 
 

@@ -32,7 +32,9 @@ import functools
 import numpy as np
 import torch
 
-from parallel_convolution_tpu_torch.parallel.mesh import Grid, padded_extent
+from parallel_convolution_tpu_torch.parallel.mesh import (
+    Grid, check_no_slots, padded_extent,
+)
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils import imageio
 
@@ -106,6 +108,7 @@ def load_sharded(path, rows: int, cols: int, mode: str, grid: Grid,
     The file is consulted once per block that holds image pixels
     (``fault_point("io_read")``), a band at a time through ``reader``
     (``auto``: :func:`default_reader`)."""
+    check_no_slots(grid, "sharded IO")
     C = imageio._channels(mode)
     R, Cg = grid.shape
     bh, bw = padded_extent(rows, R) // R, padded_extent(cols, Cg) // Cg

@@ -29,7 +29,7 @@ import torch
 
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, make_grid, padded_extent,
+    Grid, check_no_slots, make_grid, padded_extent,
 )
 from parallel_convolution_tpu_torch.utils.config import VOLUME_RADII
 
@@ -64,6 +64,7 @@ def prepare_volume(state, grid: Grid, boundary: str = "zero"):
     if x.dim() != 4:
         raise ValueError(
             f"volume state must be (F, D, H, W), got {tuple(x.shape)}")
+    check_no_slots(grid, "volumes")
     valid_hw, (bh, bw), (Hp, Wp) = _geometry(x.shape, grid.shape, boundary)
     x = x.to(device=grid.device, dtype=torch.float32)
     H, W = valid_hw

@@ -412,7 +412,7 @@ def test_cli_converge_matches_jax_cli(tmp_path, capsys, loops, extra,
 
 ITEM12 = "item 12"
 PENDING_ARGV = [
-    (["--overlap", "on"], "item 10"),
+    (["--overlap", "on"], "item 10b"),
     (["--col-mode", "packed"], "item 10"),
     (["--col-mode", "strided"], "item 10"),
     (["--interior-split"], "item 2"),
@@ -426,7 +426,7 @@ PENDING_ARGV = [
     (["--checkpoint-every", "5"], "item 4"),
 ]
 # Items ported since the cases above were written: their flags now run.
-PORTED = ("item 3b", "item 4")
+PORTED = ("item 3b", "item 4", "item 10")
 # Ported items whose runs are held against the JAX CLI's on the same argv
 # (the port's --device cpu and backend names mapped back): the same exit
 # code (``--rank 3`` without ``--depth`` exits 2 in both) and, on 0, the

@@ -633,7 +633,8 @@ def test_rdma_deep_chunk_in_level_groups(cuda_device, name, bhw, kernel,
     assert stencil.launch_counts() == {
         "stencil_step": 0, "fused_iterate": 4 * (groups - 1),
         "rdma_block": int(kernel == "block"),
-        "rdma_tiled": int(kernel == "tiled")}
+        "rdma_tiled": int(kernel == "tiled"), "rdma_block_slot": 0,
+        "rdma_tiled_slot": 0, "rdma_pack": 0}
     assert halo.halo_exchange.calls == 0
     want = mesh.join_blocks(rdma.fused_rdma_step_plain(
         blocks, f, (2, 2), "zero", fuse=32, valid_hw=valid))
@@ -1101,3 +1102,252 @@ def test_rdma_t1_on_8x8_blocks_matches_plain(cuda_device, grid_shape, kind,
         cpu, jacobi3, grid_shape, boundary, False, torch.float32, 1, valid),
         grid_shape)
     _assert_agree(got.cpu(), want, jacobi3, 1, False)
+
+
+# K3 / K4 per device on a grid of slots (every slot on this card): one
+# launch per slot behind the barrier between slots, both column transports,
+# against their plain version (the JAX semantics literally) and against the
+# one-launch form, bit for bit.
+SLOT_GRIDS = [((2, 2), "zero"), ((1, 4), "periodic"), ((2, 3), "zero"),
+              ((4, 1), "periodic"), ((3, 3), "periodic")]
+
+
+def _slot_grid(grid_shape, device):
+    return mesh.make_grid(grid_shape,
+                          devices=[device] * (grid_shape[0] * grid_shape[1]))
+
+
+def _slot_chunk(blocks, grid_shape, f, boundary, T, valid, col_mode,
+                quantize, device, chunks=1):
+    carry = rdma.slot_carry(blocks, _slot_grid(grid_shape, device), boundary,
+                            f.radius * T, col_mode)
+    for _ in range(chunks):
+        carry = rdma.fused_rdma_slots(carry, f, grid_shape, boundary,
+                                      quantize=quantize, fuse=T,
+                                      valid_hw=valid, col_mode=col_mode)
+    return mesh.join_blocks(rdma.slot_blocks(carry, grid_shape)), carry
+
+
+def _valid(grid_shape, bhw, boundary):
+    return (None if boundary == "periodic" else
+            (grid_shape[0] * bhw[0] - 2, grid_shape[1] * bhw[1] - 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+@pytest.mark.parametrize("storage,quantize", RDMA_MODES)
+@pytest.mark.parametrize("grid_shape,boundary", SLOT_GRIDS)
+def test_rdma_slots_match_plain_and_one_launch(cuda_device, grid_shape,
+                                               boundary, storage, quantize,
+                                               col_mode):
+    f = get_filter("edge5" if quantize else "blur3")
+    bhw = (23, 37)
+    R, C = grid_shape
+    blocks = _grid_blocks(61, grid_shape, bhw, storage, cuda_device)
+    valid = _valid(grid_shape, bhw, boundary)
+    kw = dict(quantize=quantize, out_dtype=TORCH[storage])
+    for T in (1, 3):
+        before = (rdma.rdma_block_slot.launches, rdma.rdma_pack.launches,
+                  rdma.rdma_block.launches)
+        got, _ = _slot_chunk(blocks, grid_shape, f, boundary, T, valid,
+                             col_mode, quantize, cuda_device)
+        torch.cuda.synchronize()
+        packed = col_mode == "packed" and C > 1
+        assert (rdma.rdma_block_slot.launches, rdma.rdma_pack.launches,
+                rdma.rdma_block.launches) == (
+            before[0] + R * C, before[1] + (R * C if packed else 0),
+            before[2])
+        want = mesh.join_blocks(rdma.fused_rdma_slots_plain(
+            blocks, f, grid_shape, boundary, fuse=T, valid_hw=valid,
+            col_mode=col_mode, **kw))
+        _assert_agree(got, want, f, T, quantize)
+        one = mesh.join_blocks(rdma.unstack_blocks(rdma.rdma_block(
+            rdma.stack_blocks(blocks, grid_shape), f, grid_shape, boundary,
+            T, valid, **kw), grid_shape))
+        assert torch.equal(got, one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["u8", "bf16", "f32"])
+@pytest.mark.parametrize("grid_shape,boundary", SLOT_GRIDS)
+def test_rdma_tiled_slots_packed_equal_strided(cuda_device, monkeypatch,
+                                               grid_shape, boundary, storage):
+    # A shared-memory limit of 32 KB sends (70, 90) blocks at T = 3 to K4.
+    monkeypatch.setattr(stencil, "_smem_limit", lambda dev: 32 * 1024)
+    f = get_filter("gaussian5")
+    bhw = (70, 90)
+    assert rdma.rdma_plan(2, 3, bhw, None, 32 * 1024).kernel == "tiled"
+    blocks = _grid_blocks(62, grid_shape, bhw, storage, cuda_device,
+                          channels=1)
+    valid = _valid(grid_shape, bhw, boundary)
+    before = rdma.rdma_tiled_slot.launches
+    got = {cm: _slot_chunk(blocks, grid_shape, f, boundary, 3, valid, cm,
+                           True, cuda_device, chunks=2)[0]
+           for cm in ("packed", "strided")}
+    torch.cuda.synchronize()
+    n = grid_shape[0] * grid_shape[1]
+    assert rdma.rdma_tiled_slot.launches == before + 4 * n
+    assert torch.equal(got["packed"], got["strided"])
+    want = blocks
+    for _ in range(2):
+        want = rdma.fused_rdma_slots_plain(want, f, grid_shape, boundary,
+                                           fuse=3, valid_hw=valid)
+    assert torch.equal(got["packed"], mesh.join_blocks(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+@pytest.mark.parametrize("storage", ["bf16", "u8"])
+def test_rdma_slots_deep_chunk_in_level_groups(cuda_device, col_mode,
+                                               storage):
+    # 32 levels of edge5 on (130, 136) blocks: K4 for 8 levels, then K2
+    # per slot for 3 x 8, each on the slot's stream.
+    f = get_filter("edge5")
+    bhw = (130, 136)
+    plan = rdma.rdma_plan(2, 32, bhw)
+    assert plan.kernel == "tiled" and len(plan.groups) == 4
+    blocks = _grid_blocks(63, (2, 2), bhw, storage, cuda_device, channels=1)
+    valid = (2 * bhw[0] - 1, 2 * bhw[1] - 5)
+    before = stencil.launch_counts()
+    got, _ = _slot_chunk(blocks, (2, 2), f, "zero", 32, valid, col_mode,
+                         True, cuda_device)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in stencil.launch_counts().items()}
+    assert delta["rdma_tiled_slot"] == 4 and delta["fused_iterate"] == 12
+    assert delta["rdma_tiled"] == delta["rdma_block"] == 0
+    want = mesh.join_blocks(rdma.fused_rdma_step(blocks, f, (2, 2), "zero",
+                                                 fuse=32, valid_hw=valid))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["u8", "bf16", "f32"])
+@pytest.mark.parametrize("grid_shape,boundary", [((2, 2), "zero"),
+                                                 ((1, 4), "periodic"),
+                                                 ((3, 3), "periodic")])
+def test_rdma_pack_matches_plain(cuda_device, grid_shape, boundary, storage):
+    f = get_filter("blur3")
+    bhw = (23, 37)
+    blocks = _grid_blocks(64, grid_shape, bhw, storage, cuda_device)
+    before = rdma.rdma_pack.launches
+    _, carry = _slot_chunk(blocks, grid_shape, f, boundary, 4,
+                           _valid(grid_shape, bhw, boundary), "packed", True,
+                           cuda_device)
+    carry.run.join()
+    torch.cuda.synchronize()
+    assert rdma.rdma_pack.launches == before + grid_shape[0] * grid_shape[1]
+    want = rdma.rdma_pack_plain(blocks, grid_shape, boundary, 4)
+    for s, w in enumerate(want):
+        assert torch.equal(rdma.staged_slabs(carry.run, s, 4), w), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+def test_rdma_slots_barrier_holds_under_skew(cuda_device, col_mode):
+    # About 1 ms of spin on one slot's stream before each of 12 chunks: the
+    # other slots run ahead as far as the barrier lets them, and the bytes
+    # do not move.  Without the barrier's waits their next launch would
+    # read that slot's block before it is written.
+    f = get_filter("blur3")
+    R, C = 4, 4
+    blocks = _grid_blocks(65, (R, C), (64, 64), "u8", cuda_device,
+                          channels=1)
+    valid = (R * 64 - 2, C * 64 - 3)
+
+    def run(skew):
+        carry = rdma.slot_carry(blocks, _slot_grid((R, C), cuda_device),
+                                "zero", 1, col_mode)
+        for _ in range(12):
+            if skew:
+                with torch.cuda.stream(carry.run.streams[5]):
+                    torch.cuda._sleep(2_000_000)
+            carry = rdma.fused_rdma_slots(carry, f, (R, C), "zero",
+                                          fuse=1, valid_hw=valid,
+                                          col_mode=col_mode)
+        return mesh.join_blocks(rdma.slot_blocks(carry, (R, C)))
+
+    steady = run(False)
+    assert torch.equal(run(True), steady)
+    want = rdma.stack_blocks(blocks, (R, C))
+    for _ in range(12):
+        want = rdma.rdma_block(want, f, (R, C), "zero", 1, valid)
+    assert torch.equal(steady, mesh.join_blocks(rdma.unstack_blocks(
+        want, (R, C))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+def test_rdma_slots_across_cards_match_one_card(cuda_device, col_mode):
+    # Slots round-robin over two cards, peer access on: each slot's first
+    # launch reads blocks stacked on the other card, and a spin on one
+    # slot's stream before every chunk leaves the bytes where one card
+    # puts them.
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: slots on one card cannot show a "
+                    "cross-card order")
+    f = get_filter("blur3")
+    R, C = 2, 4
+    blocks = _grid_blocks(67, (R, C), (64, 64), "u8", cuda_device,
+                          channels=1)
+    valid = (R * 64 - 2, C * 64 - 3)
+    grid = mesh.make_grid((R, C), devices=[f"cuda:{s % 2}"
+                                           for s in range(R * C)])
+    carry = rdma.slot_carry(mesh.split_blocks(mesh.join_blocks(blocks),
+                                              grid),
+                            grid, "zero", 1, col_mode)
+    for _ in range(12):
+        with torch.cuda.stream(carry.run.streams[1]):
+            torch.cuda._sleep(2_000_000)
+        carry = rdma.fused_rdma_slots(carry, f, (R, C), "zero", fuse=1,
+                                      valid_hw=valid, col_mode=col_mode)
+    got = mesh.join_blocks(rdma.slot_blocks(carry, (R, C)), cuda_device)
+    want = rdma.stack_blocks(blocks, (R, C))
+    for _ in range(12):
+        want = rdma.rdma_block(want, f, (R, C), "zero", 1, valid)
+    assert torch.equal(got, mesh.join_blocks(rdma.unstack_blocks(
+        want, (R, C))))
+
+
+@pytest.mark.cuda
+def test_slot_naming_a_missing_card_raises(cuda_device):
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="does not have"):
+        mesh.make_grid((1, 2), devices=["cuda:0", f"cuda:{n}"])
+    grid = mesh.make_grid(devices="all")
+    assert grid.slots == tuple(torch.device("cuda", k) for k in range(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,storage,fuse", [
+    ("cuda_rdma", "u8", 4), ("cuda_rdma", "bf16", 1), ("cuda", "f32", 1),
+    ("cuda_sep", "bf16", 4), ("shifted", "f32", 2)])
+def test_model_on_slots_matches_one_card(cuda_device, backend, storage,
+                                         fuse):
+    img = imageio.generate_test_image(157, 203, "rgb", seed=66)
+    want = oracle.run_serial_u8(img, get_filter("blur3"), 9)
+    for cm in ("packed", "strided"):
+        model = ConvolutionModel("blur3", grid=_slot_grid((2, 3),
+                                                          cuda_device),
+                                 backend=backend, storage=storage,
+                                 fuse=fuse, col_mode=cm)
+        assert np.array_equal(model.run_image(img, 9), want)
+        assert model.effective_col_mode == (
+            cm if backend == "cuda_rdma" else "packed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda_rdma", "cuda"])
+def test_converge_on_slots_matches_one_card(cuda_device, backend):
+    from parallel_convolution_tpu_torch.parallel import step
+
+    x = torch.from_numpy(_mg_field((130, 170), 3))
+    jacobi3 = get_filter("jacobi3")
+    kw = dict(check_every=10, backend=backend, fuse=4)
+    one, n1 = step.sharded_converge(
+        x, jacobi3, 1e-3, 500, grid=mesh.make_grid((2, 2), cuda_device),
+        **kw)
+    for cm in ("packed", "strided"):
+        got, n = step.sharded_converge(
+            x, jacobi3, 1e-3, 500, grid=_slot_grid((2, 2), cuda_device),
+            col_mode=cm, **kw)
+        assert n == n1 and torch.equal(got, one)

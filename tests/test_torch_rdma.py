@@ -240,8 +240,8 @@ def test_neighbor_table_matches_halo_exchange(grid_shape, boundary):
     x = torch.from_numpy(np.random.default_rng(R * 10 + C).integers(
         0, 256, size=(2, 6 * R, 5 * C)).astype(np.float32))
     blocks = mesh.split_blocks(x, mesh.make_grid(grid_shape, "cpu"))
-    table = channels.plan_for(grid_shape, boundary)
-    assert channels.plan_for(grid_shape, boundary) is table
+    table = channels.neighbour_table(grid_shape, boundary)
+    assert channels.neighbour_table(grid_shape, boundary) is table
     # The stacked grid the kernels take, and back: the same blocks.
     stacked = rdma.stack_blocks(blocks, grid_shape)
     assert stacked.shape == (R * C, 2, 6, 5)
@@ -259,4 +259,4 @@ def test_neighbor_table_matches_halo_exchange(grid_shape, boundary):
         assert all(table[b][channels.OFFSETS.index((di, 0))] == b
                    for b in range(C) for di in (-1, 1))
     with pytest.raises(ValueError, match="boundary"):
-        channels.plan_for(grid_shape, "reflect")
+        channels.neighbour_table(grid_shape, "reflect")

@@ -180,8 +180,18 @@ def test_step_errors():
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas")
     with pytest.raises(ValueError, match="'pallas_rdma' is 'cuda_rdma' here"):
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas_rdma")
+    # overlap=True on a backend without the overlapped pipeline runs
+    # serialized with a warning (the JAX package's clamp); on cuda_rdma
+    # the pipeline is item 10b.
+    step._OVERLAP_WARNED.discard("cuda")  # the warning is once a process
+    with pytest.warns(UserWarning, match="running serialized"):
+        step.resolve_overlap(True, "cuda", g)
+    np.testing.assert_array_equal(
+        step.sharded_iterate(x, tf, 1, grid=g, overlap=True).numpy(),
+        step.sharded_iterate(x, tf, 1, grid=g).numpy())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        step.sharded_iterate(x, tf, 1, grid=g, overlap=True)
+        step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma",
+                             overlap=True)
     # interior_split is ported (item 2): the plain backend takes it.
     np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, interior_split=True).numpy(),
@@ -190,7 +200,16 @@ def test_step_errors():
     np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, fallback=True).numpy(),
         step.sharded_iterate(x, tf, 1, grid=g).numpy())
-    for kw in ({"overlap": True}, {"col_mode": "packed"}):
-        with pytest.raises(NotImplementedError,
-                           match="item 10 \\(blocks on separate cards\\)"):
-            step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma", **kw)
+    with pytest.raises(NotImplementedError,
+                       match="item 10b \\(the overlapped pipeline\\)"):
+        step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma",
+                             overlap=True)
+    # col_mode is ported (item 10): both transports give the plain bytes.
+    for cm in ("packed", "strided", "auto"):
+        np.testing.assert_array_equal(
+            step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma",
+                                 col_mode=cm).numpy(),
+            step.sharded_iterate(x, tf, 1, grid=g).numpy())
+    with pytest.raises(ValueError, match="col_mode must be one of"):
+        step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma",
+                             col_mode="dense")

@@ -25,7 +25,7 @@ import torch
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
-from parallel_convolution_tpu_torch.utils.platform import device_kind
+from parallel_convolution_tpu_torch.utils.platform import device_kind, topology
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2,
@@ -136,9 +136,9 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     ``iterate_prepared`` from the previous rep's blocks, so only the
     iteration is timed.  The row carries the JAX row's keys (``workload``,
     ``mesh``, ``devices`` = blocks, ``plan_key``, ``wall_s``,
-    ``gpixels_per_s``, ``timing``, ...) beside the port's own; the JAX
-    row's exchange attribution (obs, item 9) and topology (item 10) wait
-    for their items.  ``backend="auto"`` (with ``fuse=None`` /
+    ``gpixels_per_s``, ``timing``, ``hosts``, ``slice_topology``, ...)
+    beside the port's own; the JAX row's exchange attribution (obs, item
+    9) waits for its item.  ``backend="auto"`` (with ``fuse=None`` /
     ``tile=None``) resolves through ``tuning`` first; the row records the
     backend, fuse and tile the run ACTUALLY used and ``plan_source``
     (``explicit`` for a named backend), beside the cost model's prediction
@@ -215,6 +215,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         "mesh": f"{grid.rows}x{grid.cols}",
         # Blocks (the JAX row's mesh.size), and the distinct devices.
         "devices": grid.rows * grid.cols, "chips": chips,
+        **topology(grid),
         "timing": "cuda-events" if on_card else "host-clock",
     }
 
@@ -270,6 +271,7 @@ def bench_converge(shape, filt: Filter, tol: float, max_iters: int,
         # Blocks, all on the one device (the JAX row's mesh.size).
         "devices": grid.rows * grid.cols,
         "tol": float(tol),
+        **topology(grid),
     }
     t0 = time.perf_counter()
     if solver == "multigrid":

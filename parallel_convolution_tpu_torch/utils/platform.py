@@ -38,6 +38,25 @@ def device_kind(device) -> str:
     return dev.type
 
 
+def topology(grid=None) -> dict:
+    """``{"hosts": N, "slice_topology": "1xD:kind"}`` of a run, the JAX
+    package's row-keying identity (``utils/platform.py:topology``): ``hosts``
+    the processes of the job (``multihost.process_count``), ``D`` the
+    distinct devices of ``grid`` (its slots; one for a one-device grid) and
+    ``kind`` :func:`device_kind` of its first, spaces as underscores.  Never
+    raises: a row is stamped ``1x0:unknown`` rather than lost."""
+    try:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        hosts = max(1, int(multihost.process_count()))
+        devs = (list(dict.fromkeys(grid.slots)) if grid is not None
+                else [resolve_device(None)])
+        kind = device_kind(devs[0]).replace(" ", "_") or "unknown"
+    except Exception:  # noqa: BLE001 -- stamping a row must never fail
+        return {"hosts": 1, "slice_topology": "1x0:unknown"}
+    return {"hosts": hosts, "slice_topology": f"1x{len(devs)}:{kind}"}
+
+
 def power_limit_w(device) -> float | None:
     """The card's power limit in watts, as ``nvidia-smi`` reports it (a
     card set below its maximum runs slower under load, so a time is

@@ -40,7 +40,7 @@ HW = (32, 48)
 # Keys of the JAX bench row that wait for later items: the exchange
 # attribution (obs, item 9) and the topology identity (item 10).
 JAX_ONLY_BENCH_KEYS = {"exchange_fraction", "exchange_hidden_fraction",
-                       "halo_bytes", "hosts", "slice_topology"}
+                       "halo_bytes"}
 
 
 def _jax_mesh(shape):
@@ -371,13 +371,26 @@ def test_bench_converge_row_keys_match_jax():
     row = bench.bench_converge(HW, tf, 0.26, 30,
                                grid=mesh.make_grid((2, 2), "cpu"),
                                backend="cuda", fuse=3)
-    topology = {"hosts", "slice_topology"}
-    assert set(row) == (set(jrow) - topology) | {"readbacks"}
+    assert set(row) == set(jrow) | {"readbacks"}
+    assert row["hosts"] == jrow["hosts"] == 1
     assert row["iters"] == jrow["iters"] == 30
     assert row["readbacks"] == 3 and row["converged"] is False
     assert row["residual"] == pytest.approx(jrow["residual"], rel=1e-5)
     assert row["checksum"] == pytest.approx(jrow["checksum"], rel=1e-5)
     assert (row["platform"], row["device_kind"]) == ("cpu", "cpu")
+
+
+def test_bench_rows_stamp_topology_on_slots():
+    # One process; the CPU slots are one distinct device, as the JAX
+    # string counts devices: "1x<devices>:<kind>".
+    _, tf = _filters("jacobi3")
+    slots = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    rows = [bench.bench_iterate((16, 16), tf, 2, grid=slots, reps=1),
+            bench.bench_converge((16, 16), tf, 0.1, 4, grid=slots)]
+    for row in rows:
+        assert (row["hosts"], row["slice_topology"]) == (1, "1x1:cpu")
+    one = bench.bench_iterate((16, 16), tf, 2, device="cpu", reps=1)
+    assert (one["hosts"], one["slice_topology"]) == (1, "1x1:cpu")
 
 
 # (loops, port flags, JAX flags): the plain run converges after 290

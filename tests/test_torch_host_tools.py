@@ -40,7 +40,7 @@ REPO = Path(__file__).resolve().parent.parent
 # Keys of the JAX bench row that wait for later items: the exchange
 # attribution (obs, item 9) and the topology identity (item 10).
 JAX_ONLY_BENCH_KEYS = {"exchange_fraction", "exchange_hidden_fraction",
-                       "halo_bytes", "hosts", "slice_topology"}
+                       "halo_bytes"}
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain")

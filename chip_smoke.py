@@ -94,6 +94,24 @@ Phases (any failure exits non-zero and prints no result line):
    host) that ``costmodel.pick_col_mode`` reads.  With two cards or more
    the paths run again round-robin over the cards (``--device all``),
    peer access on;
+4i. the overlapped pipeline (ROADMAP item 10b), after phase 4h, counted
+   into the kernels line: BASELINE config 2 (2x2 on 4 slots, bf16 fuse
+   32) and the 256-rank split (16x16 on 256 slots, u8 fuse 8: K3) through
+   ``ConvolutionModel(overlap=True)``, BASELINE config 3 (4x4 on 16
+   slots) through ``run --overlap on --device <16 slots>``, and ``run
+   --converge 0.5 --overlap on`` on config 1's image at 2x2 slots, each
+   with both column transports and in three schedules: overlapped and
+   partitioned (each slot's K3 / K4 region by region, the interior with
+   no wait; the launches as ``rdma.overlap_regions`` counts them),
+   overlapped in the JAX phase order (``partitioned=False``) and
+   serialized; each byte-equal to the serialized per-slot run, the
+   one-card form and ``shifted``, the resident seconds of each schedule
+   printed; the skew check (a 10 ms spin on slot 0 before every chunk of
+   config 2) with overlap on, both schedules and transports; the region
+   launches of K3 and K4 at the paths' first level groups, assembled and
+   held against the plain first group, timed beside the same group as
+   one launch a slot.  With two cards or more the paths run again
+   round-robin over the cards;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
    BASELINE config 5's field (32768x32768, jacobi3, tol 1e-3, f32) under
    the Jacobi run's budget of 200 fine-grid work units, through
@@ -183,8 +201,9 @@ Phases (any failure exits non-zero and prints no result line):
    warm and resident);
 8. the hardware-model constants of ``tuning.costmodel.H100`` as this run
    measures them, beside the committed ones;
-9. the ``kernels`` JSON line (ten kernels: K1-K4, the per-slot K3 / K4,
-   the pack, the three probes), then the last line
+9. the ``kernels`` JSON line (twelve kernels: K1-K4, the per-slot K3 /
+   K4, the pack, their region launches, the three probes), then the last
+   line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -237,16 +256,20 @@ REPLACES = {
     "rdma_block_slot": "parallel_convolution_tpu/ops/pallas_rdma.py:1226",
     "rdma_tiled_slot": "parallel_convolution_tpu/ops/pallas_rdma.py:1316,1330",
     "rdma_pack": "parallel_convolution_tpu/ops/pallas_rdma.py:743",
+    "rdma_block_region": "parallel_convolution_tpu/ops/pallas_rdma.py:303,486",
+    "rdma_tiled_region": "parallel_convolution_tpu/ops/pallas_rdma.py:619,884",
     "op_chain": "scripts/vpu_op_probe.py:102",
     "smem_probe": "scripts/helper_crash_probe.py:100",
     "rdma_ladder": "scripts/tiled_repro_probe.py:101",
 }
 # The one-card kernels, then the per-slot forms of K3 / K4 and the pack
-# (a grid of slots, phase 4h).
+# (a grid of slots, phase 4h), then their region launches (the overlapped
+# pipeline, phase 4i).
 ONE_CARD_KERNELS = ("stencil_step", "fused_iterate", "rdma_block",
                     "rdma_tiled")
 KERNELS = ONE_CARD_KERNELS + ("rdma_block_slot", "rdma_tiled_slot",
-                              "rdma_pack")
+                              "rdma_pack", "rdma_block_region",
+                              "rdma_tiled_region")
 PROBE_SOURCE = "parallel_convolution_tpu_torch/csrc/probes.cu"
 # K1's typed instances: 3 input dtypes x k in (1, 3, 5, 7, 9) x 2 orders x
 # 11 (output dtype, store-back) pairs (no u8 output in float mode, no rintf
@@ -260,6 +283,8 @@ SOURCES = {
     "rdma_block_slot": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "rdma_tiled_slot": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "rdma_pack": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "rdma_block_region": "parallel_convolution_tpu_torch/csrc/rdma.cu",
+    "rdma_tiled_region": "parallel_convolution_tpu_torch/csrc/rdma.cu",
     "op_chain": PROBE_SOURCE,
     "smem_probe": PROBE_SOURCE,
     "rdma_ladder": PROBE_SOURCE,
@@ -2108,6 +2133,380 @@ def separate_devices_phase(dev, tmp: Path, refs: dict, totals: dict,
 
 
 # ---------------------------------------------------------------------------
+# Phase 4i: the overlapped pipeline (ROADMAP item 10b)
+# ---------------------------------------------------------------------------
+
+
+def expected_overlap_launches(filt, fuse: int, grid_shape, block_hw,
+                              packed: bool) -> dict:
+    """Launches of one ``ITERS``-iteration overlapped ``cuda_rdma`` run on a
+    grid of slots: per chunk and slot the first level group's K3 or K4
+    region by region (``rdma.overlap_regions`` on its rim-extended
+    output), K2 for each later group, and a pack with the packed transport
+    on more than one column."""
+    from parallel_convolution_tpu_torch.ops import rdma
+
+    counts = {k: 0 for k in KERNELS}
+    nb = grid_shape[0] * grid_shape[1]
+    r = filt.radius
+    n_chunks, rem = divmod(ITERS, fuse)
+    for T, n in ((fuse, n_chunks), (rem, 1 if rem else 0)):
+        if n == 0:
+            continue
+        plan = rdma.rdma_plan(r, T, block_hw)
+        ext = r * (T - plan.groups[0])
+        regions = sum(len(g) for g in rdma.overlap_regions(
+            block_hw[0] + 2 * ext, block_hw[1] + 2 * ext, r * T))
+        counts[f"rdma_{plan.kernel}_region"] += n * nb * regions
+        counts["fused_iterate"] += n * nb * (len(plan.groups) - 1)
+        if packed and grid_shape[1] > 1:
+            counts["rdma_pack"] += n * nb
+    return counts
+
+
+def slot_kernel_run(planar, grid, filt, storage: str, fuse: int, col_mode,
+                    skew: bool = False, **kw):
+    """``ITERS`` iterations of ``cuda_rdma`` on the grid of slots straight
+    at the kernel layer (``rdma.fused_rdma_slots``: ``kw`` its overlap and
+    partitioned), ``skew`` a ~10 ms spin on slot 0's stream before every
+    chunk (slot 0 is a neighbour of every slot of a 2x2 grid, the
+    diagonal of slot 3; and the host enqueues a step of region launches in
+    about a millisecond, so phase 4h's 1 ms would leave no skew on the
+    card); the interleaved u8 image."""
+    import torch
+
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    shape = grid.shape
+    valid = planar.shape[1:]
+    carry = rdma.slot_carry(convert.blocks_from_numpy(planar, grid, storage),
+                            grid, "zero", filt.radius * fuse, col_mode)
+    n, rem = divmod(ITERS, fuse)
+    for T in [fuse] * n + ([rem] if rem else []):
+        if skew:
+            with torch.cuda.stream(carry.run.streams[0]):
+                torch.cuda._sleep(20_000_000)
+        carry = rdma.fused_rdma_slots(carry, filt, shape, "zero", fuse=T,
+                                      valid_hw=valid, col_mode=col_mode,
+                                      **kw)
+    got = mesh.join_blocks(rdma.slot_blocks(carry, shape))
+    got = got[:, :valid[0], :valid[1]].to(torch.uint8).cpu().numpy()
+    return imageio.planar_to_interleaved(got)
+
+
+@contextlib.contextmanager
+def phase_order():
+    """Every overlapped step in the JAX phase order (``partitioned=False``)
+    while it is open: the entry points pass the knob's default."""
+    import functools
+
+    from parallel_convolution_tpu_torch.ops import rdma
+
+    inner = rdma.fused_rdma_slots
+    rdma.fused_rdma_slots = functools.partial(inner, partitioned=False)
+    try:
+        yield
+    finally:
+        rdma.fused_rdma_slots = inner
+
+
+def time_region_kernels(dev, rgb, grey, big, blur3, edge5) -> dict:
+    """The overlapped pipeline's region launches of K3 / K4 at the phase's
+    shapes, each over the whole grid: the first level group of a chunk as
+    ``rdma._slots_step`` plans it, its regions (``rdma.overlap_schedule``)
+    launched one after another on every slot (the waits left out: the
+    launches alone), assembled into the widened output and held against
+    the plain first group; beside it the same group as one launch a slot
+    (``rdma_*_slot``), in the same call."""
+    import torch
+
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    out = {}
+    for key, img, storage, shape, T, filt in (
+            ("config 2", rgb, "bf16", (2, 2), 32, blur3),
+            ("config 3", big, "bf16", (4, 4), 32, edge5),
+            ("grey 16x16", grey, "u8", GREY_GRID, 8, blur3)):
+        planar = imageio.interleaved_to_planar(img)
+        grid = mesh.make_grid(shape, devices=slot_devices(dev, shape,
+                                                          "one card"))
+        blocks = convert.blocks_from_numpy(planar, grid, storage)
+        valid = planar.shape[1:]
+        C, h, w = blocks[0][0].shape
+        nb = shape[0] * shape[1]
+        r = filt.radius
+        plan = rdma.rdma_plan(r, T, (h, w), None, stencil._smem_limit(dev))
+        levels = plan.groups[0]
+        ext = r * (T - levels)
+        tiled = plan.kernel == "tiled"
+        region = rdma.rdma_tiled_region if tiled else rdma.rdma_block_region
+        whole = rdma.rdma_tiled_slot if tiled else rdma.rdma_block_slot
+        kind = region.__name__
+        mid = stencil.group_dtype(True, blocks[0][0].dtype)
+        run = rdma.slot_carry(blocks, grid, "zero", r * T, "strided").run
+        outs = [torch.full((C, h + 2 * ext, w + 2 * ext), float("nan"),
+                           dtype=mid, device=dev) if mid.is_floating_point
+                else torch.zeros((C, h + 2 * ext, w + 2 * ext), dtype=mid,
+                                 device=dev) for _ in range(nb)]
+        kw = dict(ext=ext, **(dict(tile=plan.tile) if tiled else {}))
+        sched = rdma.overlap_schedule(h + 2 * ext, w + 2 * ext, r * T, ext)
+
+        def regions(s):
+            for _, rect, _ in sched:
+                region(run, 0, s, outs[s], filt, levels, valid, rect, **kw)
+
+        reps = 20 if T * r * r <= 8 else 10
+        ms = slot_launch_ms(run, regions, reps)
+        got = torch.stack(outs)
+        want = first_group_plain(blocks, filt, shape, T, levels, valid, mid)
+        ok, err = agree(got, want, filt, levels, True)
+        check(ok, f"{kind} at {key}'s blocks {shape} x {(C, h, w)}, "
+                  f"{len(sched)} regions of the first {levels} of {T} "
+                  f"levels into a {ext}-pixel rim: err {err}")
+        whole_ms = slot_launch_ms(
+            run, lambda s: whole(run, 0, s, outs[s], filt, levels, valid,
+                                 **kw), reps)
+        check(torch.equal(torch.stack(outs), got),
+              f"{kind} at {key}: the regions differ from the whole launch")
+        plain_ms = cuda_ms(lambda: first_group_plain(
+            blocks, filt, shape, T, levels, valid, mid), reps=1, warmup=1)
+        ops = nb * C * levels * level_ops(filt, False, h, w, True, False)
+        nbytes = (nb * C * h * w * blocks[0][0].element_size()
+                  + got.numel() * got.element_size())
+        b_ms, b_by = bound(nbytes, ops)
+        row = dict(grid=list(shape), block=[C, h, w], T=T, levels=levels,
+                   ext=ext, filter=filt.name, dtype=str(got.dtype),
+                   regions=[lab for lab, _, _ in sched], ms=ms,
+                   whole_launch_ms=whole_ms, plain_ms=plain_ms,
+                   max_abs_err=err, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by, fraction_of_bound=b_ms / ms)
+        if kind in out:
+            out[kind].setdefault("also", {})[key] = row
+        else:
+            out[kind] = dict(row, at=key)
+        del run, outs, got, want
+    return out
+
+
+def overlap_phase(dev, tmp: Path, refs: dict, totals: dict,
+                  keep: dict) -> dict:
+    """BASELINE configs 2 (2x2, 4 slots) and 3 (4x4, 16 slots), the 256-rank
+    split and ``run --converge`` on config 1's image at 2x2 slots, with
+    ``cuda_rdma``'s overlapped pipeline, each in its three schedules:
+    overlapped and partitioned through the entry points (counted into
+    the kernels line), overlapped in the JAX phase order
+    (``partitioned=False``) and serialized; both column transports; each
+    byte-equal to the serialized per-slot run, to the one-card form and
+    to ``shifted``, with both resident times.  Then the skew check with
+    overlap on, and the region launches timed.  With two cards or more
+    the paths run again round-robin over the cards."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    cards = torch.cuda.device_count()
+    layouts = ["one card"] + (["all"] if cards >= 2 else [])
+    blur3, edge5 = get_filter("blur3"), get_filter("edge5")
+    rgb, grey, big = refs["rgb"], refs["greys"]["blur3"], refs["greys"]["edge5"]
+    report = {"cards": cards, "layouts": layouts, "runs": []}
+    block2 = tuple(-(-n // 2) for n in RGB_HW)
+    block3 = tuple(n // 4 for n in BIG_HW)
+    block16 = tuple(-(-n // g) for n, g in zip(RGB_HW, GREY_GRID))
+
+    def resident(model, planar):
+        return min(host_seconds(lambda: model.run_planar(planar, ITERS))[1]
+                   for _ in range(2))
+
+    for layout in layouts:
+        cases = []
+        for cm in ("packed", "strided"):
+            cases += [
+                (f"config 2 rgb blur3 cuda_rdma bf16 fuse 32 col_mode {cm}",
+                 rgb, refs["rgb_ref"], (2, 2), "blur3", "bf16", 32, cm,
+                 block2),
+                (f"grey 16x16 blur3 cuda_rdma u8 fuse 8 col_mode {cm}", grey,
+                 refs["grey_refs"]["blur3"], GREY_GRID, "blur3", "u8", 8, cm,
+                 block16)]
+        for label, img, want, shape, name, storage, fuse, cm, bhw in cases:
+            filt = get_filter(name)
+            grid = mesh.make_grid(shape, devices=slot_devices(dev, shape,
+                                                              layout))
+            kw = dict(backend="cuda_rdma", storage=storage, fuse=fuse,
+                      col_mode=cm)
+            model = ConvolutionModel(name, grid=grid, overlap=True, **kw)
+            out, counts, secs = drive(
+                f"overlapped {label} on {layout} slots",
+                lambda: model.run_image(img, ITERS),
+                expected_overlap_launches(filt, fuse, shape, bhw,
+                                          cm == "packed"),
+                int(np.prod(img.shape)), no_halo=True)
+            for k, v in counts.items():
+                totals[k] += v
+            check(model.effective_overlap is True,
+                  f"{label}: the model ran with overlap "
+                  f"{model.effective_overlap}")
+            check(np.array_equal(out, want), f"{label}: overlapped differs "
+                                             "from shifted")
+            planar = imageio.interleaved_to_planar(img)
+            phase = slot_kernel_run(planar, grid, filt, storage, fuse, cm,
+                                    overlap=True, partitioned=False)
+            serial = ConvolutionModel(name, grid=grid, **kw)
+            one = ConvolutionModel(name, grid=mesh.make_grid(shape, dev),
+                                   **kw)
+            for what, other in (("the phase order", phase),
+                                ("the serialized per-slot run",
+                                 serial.run_image(img, ITERS)),
+                                ("the one-card form",
+                                 one.run_image(img, ITERS))):
+                check(np.array_equal(out, other),
+                      f"{label}: overlapped differs from {what}")
+            resident_in = torch.from_numpy(planar.copy()).to(dev,
+                                                             torch.float32)
+            with phase_order():
+                phase_s = resident(model, resident_in)
+            report["runs"].append(dict(
+                path=label, layout=layout, launches=counts,
+                seconds_first=secs,
+                seconds_resident_overlapped=resident(model, resident_in),
+                seconds_resident_phase_order=phase_s,
+                seconds_resident_serialized=resident(serial, resident_in),
+                seconds_resident_one_card=resident(one, resident_in)))
+        # Config 3 through the CLI: --overlap on with the 16 slots.
+        src, dst = tmp / "edge5.raw", tmp / "edge5.overlap.raw"
+        shape = (4, 4)
+        slots = slot_devices(dev, shape, layout)
+        spec = ",".join(map(str, slots)) if layout == "one card" else "all"
+        planar8k = torch.from_numpy(big[None].copy()).to(dev, torch.float32)
+        for cm in ("strided", "packed"):
+            label = (f"config 3 cli run grey 8192x8192 edge5 --backend "
+                     f"cuda_rdma --mesh 4x4 --device <16 slots> --storage "
+                     f"bf16 --fuse 32 --col-mode {cm} --overlap on")
+            argv = ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]),
+                    str(ITERS), "grey", "-o", str(dst), "--filter", "edge5",
+                    "--backend", "cuda_rdma", "--mesh", "4x4", "--device",
+                    spec, "--storage", "bf16", "--fuse", "32", "--col-mode",
+                    cm, "--overlap", "on"]
+
+            def run_cli():
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_main(argv)
+                check(rc == 0, f"{label}: the CLI exited {rc}")
+                return buf.getvalue().strip().splitlines()[-1]
+
+            line, counts, secs = drive(
+                f"{label} on {layout} slots", run_cli,
+                expected_overlap_launches(edge5, 32, shape, block3,
+                                          cm == "packed"),
+                BIG_HW[0] * BIG_HW[1], no_halo=True)
+            for k, v in counts.items():
+                totals[k] += v
+            check("overlapped halo pipeline" in line,
+                  f"{label}: said {line!r}")
+            got = imageio.read_raw(dst, *BIG_HW, "grey")
+            check(np.array_equal(got, refs["grey_refs"]["edge5"]),
+                  f"{label}: differs from shifted")
+            grid = mesh.make_grid(shape, devices=slots)
+            kw = dict(backend="cuda_rdma", storage="bf16", fuse=32,
+                      col_mode=cm)
+            model = ConvolutionModel("edge5", grid=grid, overlap=True, **kw)
+            serial = ConvolutionModel("edge5", grid=grid, **kw)
+            one = ConvolutionModel("edge5", grid=mesh.make_grid(shape, dev),
+                                   **kw)
+            phase = slot_kernel_run(big[None], grid, edge5, "bf16", 32, cm,
+                                    overlap=True, partitioned=False)
+            check(np.array_equal(phase, got),
+                  f"{label}: differs from the phase order")
+            ser_out = serial.run_planar(planar8k, ITERS)
+            check(torch.equal(model.run_planar(planar8k, ITERS), ser_out)
+                  and torch.equal(one.run_planar(planar8k, ITERS), ser_out),
+                  f"{label}: differs from the serialized per-slot run or "
+                  "the one-card form")
+            with phase_order():
+                phase_s = resident(model, planar8k)
+            report["runs"].append(dict(
+                path=label, layout=layout, said=line, launches=counts,
+                seconds_first=secs,
+                seconds_resident_overlapped=resident(model, planar8k),
+                seconds_resident_phase_order=phase_s,
+                seconds_resident_serialized=resident(serial, planar8k),
+                seconds_resident_one_card=resident(one, planar8k)))
+        # run --converge 0.5 --check-every 10 on config 1's image at 2x2.
+        csrc, cwant, citers = keep["cli_converge"]
+        spec = (",".join(map(str, slot_devices(dev, (2, 2), layout)))
+                if layout == "one card" else "all")
+        for cm in ("strided", "packed"):
+            seconds = {}
+            for sched, flags in (("overlapped", ["--overlap", "on"]),
+                                 ("phase order", ["--overlap", "on"]),
+                                 ("serialized", [])):
+                cdst = tmp / f"converge.{sched.replace(' ', '_')}.raw"
+                label = (f"cli run --converge 0.5 --check-every 10 grey "
+                         f"1920x2520 blur3 --backend cuda_rdma --mesh 2x2 "
+                         f"--device <4 slots> --col-mode {cm} ({sched})")
+                argv = (["run", str(csrc), str(RGB_HW[0]), str(RGB_HW[1]),
+                         str(CONVERGE_CLI_MAX), "grey", "-o", str(cdst),
+                         "--converge", "0.5", "--check-every", "10",
+                         "--backend", "cuda_rdma", "--mesh", "2x2",
+                         "--device", spec, "--col-mode", cm] + flags)
+                buf = io.StringIO()
+                stencil.reset_launch_counts()
+                with contextlib.redirect_stdout(buf), (
+                        phase_order() if sched == "phase order"
+                        else contextlib.nullcontext()):
+                    rc, secs = host_seconds(lambda: cli_main(argv))
+                counts = stencil.launch_counts()
+                check(rc == 0, f"{label}: the CLI exited {rc}")
+                said = buf.getvalue().strip().splitlines()[-1]
+                check(said.startswith(f"converged after {citers} iters"),
+                      f"{label}: said {said!r}, shifted ran {citers}")
+                check(np.array_equal(imageio.read_raw(cdst, *RGB_HW, "grey"),
+                                     cwant), f"{label}: differs from shifted")
+                overlapped = sched != "serialized"
+                check((counts["rdma_tiled_region"] > 0) == overlapped
+                      and (counts["rdma_tiled_slot"] > 0) != overlapped,
+                      f"{label}: launches {counts}")
+                if sched == "overlapped":
+                    for k, v in counts.items():
+                        totals[k] += v
+                seconds[sched] = secs
+                report["runs"].append(dict(path=label, layout=layout,
+                                           iters=citers, launches=counts,
+                                           seconds=secs))
+                print(f"overlap {label}: {counts}, {secs:.4f} s")
+    # The skew: ~10 ms of spin on slot 0's stream before each chunk of
+    # config 2's run, overlapped, in both schedules and transports.
+    planar = imageio.interleaved_to_planar(rgb)
+    grid = mesh.make_grid((2, 2), devices=slot_devices(dev, (2, 2),
+                                                       "one card"))
+    for cm in ("packed", "strided"):
+        for partitioned in (True, False):
+            got = slot_kernel_run(planar, grid, blur3, "bf16", 32, cm,
+                                  skew=True, overlap=True,
+                                  partitioned=partitioned)
+            check(np.array_equal(got, refs["rgb_ref"]),
+                  f"skew ({cm}, partitioned={partitioned}): the skewed "
+                  "overlapped run differs from shifted")
+    report["skew"] = ("equal under a 10 ms spin before every chunk on slot "
+                      "0, overlapped, both schedules and transports")
+    stencil.reset_launch_counts()  # not main-path launches
+    report["timed"] = time_region_kernels(dev, rgb, grey, big, blur3, edge5)
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 4d: multigrid (ROADMAP item 5)
 # ---------------------------------------------------------------------------
 
@@ -3515,6 +3914,9 @@ def main() -> int:
             converge_rows = converge_phase(dev, Path(tmp), totals, keep)
             slots = separate_devices_phase(dev, Path(tmp), refs, totals,
                                            keep)
+            t0 = time.perf_counter()
+            overlap = overlap_phase(dev, Path(tmp), refs, totals, keep)
+            overlap["seconds"] = time.perf_counter() - t0
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep.pop("config5"), converge_rows[0])
             torch.cuda.empty_cache()
@@ -3601,13 +4003,20 @@ def main() -> int:
         print("probe col_mode: " + json.dumps(
             dict(slot_timed["probe"], card=card)))
         print("separate devices: " + json.dumps(slots))
+        for row in overlap.pop("runs"):
+            print("end to end overlap: " + json.dumps(row))
+        region_timed = overlap.pop("timed")
+        for name, row in region_timed.items():
+            print(f"time {name}: " + json.dumps(row))
+        print("overlap: " + json.dumps(overlap))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 
         kernels = []
         for name, t in (("stencil_step", k1), ("fused_iterate", k2),
                         ("rdma_block", k3), ("rdma_tiled", k4),
-                        *slot_timed["kernels"].items()):
+                        *slot_timed["kernels"].items(),
+                        *region_timed.items()):
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": totals[name],

@@ -76,9 +76,13 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
                    help="output tile of the CUDA kernels (same bytes "
                         "for any tile)")
     p.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
-                   help="interior-first overlapped halo pipeline: 'on' is "
-                        "not ported yet (ROADMAP item 10b); 'auto' and "
-                        "'off' run the serialized order")
+                   help="interior-first overlapped halo pipeline: 'on' "
+                        "launches cuda_rdma's kernels region by region on a "
+                        "grid of slots, the interior first with no wait "
+                        "(elsewhere it warns and runs serialized; on the "
+                        "CPU only with PCTPU_OVERLAP_INTERPRET=1); 'auto' "
+                        "is off for an explicit backend and the tuner's "
+                        "choice under --backend auto; the same bytes")
     p.add_argument("--col-mode", default="auto", dest="col_mode",
                    choices=["auto", "packed", "strided"],
                    help="cuda_rdma's column-slab transport between the "
@@ -104,22 +108,6 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fast", action="store_true",
                    help="on the card, fill unset --backend/--storage/"
                         "--fuse with cuda_sep / bf16 / 32")
-
-
-def _check_pending_flags(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of any ``run``
-    flag of a later slice that is set."""
-    from parallel_convolution_tpu_torch.utils.config import check_solver
-
-    check_solver(args.solver)
-    _check_pending_perf_flags(args)
-
-
-def _check_pending_perf_flags(args) -> None:
-    """As :func:`_check_pending_flags`, for the knobs run and bench share."""
-    from parallel_convolution_tpu_torch.utils.config import check_pending
-
-    check_pending(overlap=args.overlap == "on")
 
 
 def _parse_tile(spec: str | None):
@@ -161,6 +149,9 @@ def _resolve_perf_knobs(args, grid) -> None:
         args.storage = "f32"
     if args.fuse is None and args.backend != "auto":
         args.fuse = 1
+    # --overlap: 'auto' -> None (off for an explicit backend, the tuner's
+    # verdict under auto); on / off -> a request (step.resolve_overlap).
+    args.overlap = {"auto": None, "on": True, "off": False}[args.overlap]
 
 
 def _tune(args) -> int:
@@ -180,9 +171,10 @@ def _tune(args) -> int:
     w = Workload.from_grid(grid, filt, shape, storage=args.storage)
     fuses = ([int(v) for v in args.fuses.split(",")] if args.fuses
              else None)
-    result = search.tune(w, grid, dry_run=args.dry_run, fuses=fuses,
-                         iters=args.iters, max_measure=args.max_measure,
-                         interior_split=args.interior_split)
+    result = search.tune(
+        w, grid, dry_run=args.dry_run, fuses=fuses, iters=args.iters,
+        max_measure=args.max_measure, interior_split=args.interior_split,
+        overlap={"auto": None, "on": True, "off": False}[args.overlap])
     for row in result.rows:
         print(json.dumps(row), file=sys.stderr, flush=True)
     plan = result.plan
@@ -329,6 +321,13 @@ def _parser() -> argparse.ArgumentParser:
     tune.add_argument("--verify-auto", action="store_true",
                       help="after emitting, resolve auto against --out and "
                            "record auto_ok (requires --emit-plans)")
+    tune.add_argument("--overlap", default="auto",
+                      choices=["auto", "on", "off"],
+                      help="the overlapped pipeline in the candidate space: "
+                           "auto enumerates both where it is legal "
+                           "(cuda_rdma on a grid of slots with an "
+                           "interior), on / off a request clamped to that; "
+                           "the plan keeps the winner's")
     tune.add_argument("--interior-split", action="store_true",
                       dest="interior_split",
                       help="measure every candidate with K2's 9-patch "
@@ -453,9 +452,10 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         ConvolutionModel, JacobiSolver,
     )
     from parallel_convolution_tpu_torch.parallel.mesh import grid_from_spec
+    from parallel_convolution_tpu_torch.utils.config import check_solver
     from parallel_convolution_tpu_torch.utils.platform import device_kind
 
-    _check_pending_flags(args)
+    check_solver(args.solver)
     try:
         tile = _parse_tile(args.tile)
         grid = grid_from_spec(args.mesh, args.device)
@@ -496,7 +496,7 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
             quantize=not mg, fuse=args.fuse, tile=tile,
             boundary=args.boundary, storage=args.storage, solver=args.solver,
             mg_levels=args.mg_levels, interior_split=args.interior_split,
-            col_mode=args.col_mode)
+            overlap=args.overlap, col_mode=args.col_mode)
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
         x = imageio.interleaved_to_planar(img).astype(np.float32)
         out, iters = solver.solve(x)
@@ -522,7 +522,7 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
                              fuse=args.fuse, boundary=args.boundary,
                              tile=tile, fallback=args.fallback,
                              interior_split=args.interior_split,
-                             col_mode=args.col_mode)
+                             overlap=args.overlap, col_mode=args.col_mode)
     storage = args.storage
     if args.checkpoint:
         _run_checkpointed(args, model, grid, tile)
@@ -547,6 +547,8 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
     if grid.slotted:
         label += (f", slots {grid.slot_map()}, col_mode "
                   f"{model.effective_col_mode}")
+    if model.effective_overlap:
+        label += ", overlapped halo pipeline"
     print(f"ran {args.loops} x {args.filter_name} on {grid.rows}x{grid.cols} "
           f"grid ({label}, {device_kind(grid.device)}) -> {args.output}")
     return 0
@@ -637,6 +639,13 @@ def _info(args) -> int:
     slots = ",".join(str(d) for d in devs) if dev.type == "cuda" else "cpu"
     print(f"default grid: {shape} over {len(devs)} device(s); --device "
           f"all would use the slots {slots}")
+    from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+    from parallel_convolution_tpu_torch.parallel.step import overlap_clamp
+
+    clamp = overlap_clamp("cuda_rdma", make_grid((1, 2), devices=[dev, dev]))
+    print("overlap: --overlap on with cuda_rdma on a grid of slots of "
+          f"{dev} resolves to "
+          + ("on" if clamp is None else f"off ({clamp[1]})"))
     print(f"filters: {', '.join(sorted(FILTERS))}")
     print(f"backends: {', '.join(BACKENDS)}")
     print(f"storages: {', '.join(STORAGES)}  "
@@ -657,7 +666,6 @@ def _bench(args) -> int:
     from parallel_convolution_tpu_torch.utils import bench as bench_lib
     from parallel_convolution_tpu_torch.utils.platform import power_limit_w
 
-    _check_pending_perf_flags(args)
     try:
         tile = _parse_tile(args.tile)
         grid = grid_from_spec(args.mesh, args.device)
@@ -670,7 +678,8 @@ def _bench(args) -> int:
         grid=grid, channels=3 if args.mode == "rgb" else 1,
         backend=args.backend, storage=args.storage, fuse=args.fuse,
         reps=args.reps, tile=tile, fallback=args.fallback,
-        interior_split=args.interior_split, col_mode=args.col_mode)
+        interior_split=args.interior_split, overlap=args.overlap,
+        col_mode=args.col_mode)
     row["power_limit_w"] = power_limit_w(grid.device)
     print(json.dumps(row))
     return 0

@@ -55,6 +55,19 @@
 // _packed_slab_copy); the strided transport reads the edge columns in
 // place.  The two give the same bytes.
 //
+// The overlapped pipeline (ops/rdma.py, overlap=True on a grid of slots)
+// -- replaces the overlap=True / partitioned schedules of _rdma_kernel
+// (pallas_rdma.py:486-553) and _rdma_tiled_kernel (:830-965): the same two
+// kernels launched on one output rectangle at a time, (y0, x0, rh, rw) at
+// run time (no new instance).  K3 takes the rectangle as its one tile; K4
+// covers it with its tiles, each clipped at the rectangle's edge so that
+// it reads nothing outside the rectangle's level-0 window.  Each slot
+// launches its interior first with no wait and every band after its own
+// neighbours' events: the TPU's interior computed while the slabs are in
+// flight becomes the interior computed while the neighbours' previous
+// launches may still run.  What bounds a region launch: the same as its
+// kernel's, and a thin band (r*T rows) fills few of K4's 64-row tiles.
+//
 // The grid, the level-0 gather and the tile body live in rdma_common.cuh,
 // which csrc/probes.cu's construct ladder shares.
 //
@@ -73,26 +86,30 @@ using namespace pc;
 
 namespace {
 
-// K3: one CUDA block per (grid block, channel), the whole block as one tile.
+// K3: one CUDA block per (grid block, channel), the output rectangle
+// (y0, x0, rh, rw) as one tile; the whole output is (0, 0, h+2E, w+2E).
 template <int K, int EPI>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_block_kernel(BlockGrid g, void* __restrict__ out, int out_dtype,
                       int E, int T, Taps tp, int mask, int valid_h,
-                      int valid_w) {
+                      int valid_w, Rect rc) {
   const int b = g.b0 + blockIdx.x / g.C, c = blockIdx.x % g.C;
-  rdma_tile<K, EPI>(g, b, c, 0, 0, g.h + 2 * E, g.w + 2 * E, E, T, tp, mask,
+  rdma_tile<K, EPI>(g, b, c, rc.y0, rc.x0, rc.h, rc.w, E, T, tp, mask,
                     valid_h, valid_w, out, out_dtype);
 }
 
-// K4: one CUDA block per (th x tw output tile, grid block, channel).
+// K4: one CUDA block per (th x tw tile of the output rectangle, grid block,
+// channel); a tile is clipped at the rectangle's edge: it stores nothing
+// beyond it and reads nothing beyond the rectangle's level-0 window.
 template <int K, int EPI>
 __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
     rdma_tiled_kernel(BlockGrid g, void* __restrict__ out, int out_dtype,
                       int E, int T, Taps tp, int mask, int valid_h,
-                      int valid_w, int th, int tw) {
+                      int valid_w, int th, int tw, Rect rc) {
   const int b = g.b0 + blockIdx.z / g.C, c = blockIdx.z % g.C;
-  rdma_tile<K, EPI>(g, b, c, blockIdx.y * th, blockIdx.x * tw, th, tw, E, T,
-                    tp, mask, valid_h, valid_w, out, out_dtype);
+  const int y = rc.y0 + blockIdx.y * th, x = rc.x0 + blockIdx.x * tw;
+  rdma_tile<K, EPI>(g, b, c, y, x, th, tw, E, T, tp, mask, valid_h, valid_w,
+                    out, out_dtype, rc.y0 + rc.h, rc.x0 + rc.w);
 }
 
 // The packed transport's gather: for every block b of [b0, b0 + count),
@@ -131,13 +148,15 @@ __global__ void rdma_pack_kernel(BlockGrid g, int count, int D) {
 template <int K, int EPI>
 cudaError_t launch_rdma(int tiled, const BlockGrid& g, int count, void* out,
                         int out_dtype, int E, int T, const Taps& tp, int mask,
-                        int valid_h, int valid_w, int th, int tw, int threads,
-                        int* blocks, cudaStream_t stream) {
-  const int oh = g.h + 2 * E, ow = g.w + 2 * E;
+                        int valid_h, int valid_w, int th, int tw,
+                        const Rect& rc, int threads, int* blocks,
+                        cudaStream_t stream) {
   if (!tiled) {
-    th = oh;
-    tw = ow;
+    th = rc.h;
+    tw = rc.w;
   }
+  th = th < rc.h ? th : rc.h;
+  tw = tw < rc.w ? tw : rc.w;
   const size_t bytes = window_bytes(K, T, th, tw);
   cudaError_t e;
   if (tiled) {
@@ -146,9 +165,9 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int count, void* out,
     if (blocks)
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, rdma_tiled_kernel<K, EPI>, threads, bytes);
-    const dim3 grid((ow + tw - 1) / tw, (oh + th - 1) / th, count * g.C);
+    const dim3 grid((rc.w + tw - 1) / tw, (rc.h + th - 1) / th, count * g.C);
     rdma_tiled_kernel<K, EPI><<<grid, threads, bytes, stream>>>(
-        g, out, out_dtype, E, T, tp, mask, valid_h, valid_w, th, tw);
+        g, out, out_dtype, E, T, tp, mask, valid_h, valid_w, th, tw, rc);
   } else {
     e = allow_smem(rdma_block_kernel<K, EPI>, bytes);
     if (e != cudaSuccess) return e;
@@ -156,7 +175,7 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int count, void* out,
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           blocks, rdma_block_kernel<K, EPI>, threads, bytes);
     rdma_block_kernel<K, EPI><<<count * g.C, threads, bytes, stream>>>(
-        g, out, out_dtype, E, T, tp, mask, valid_h, valid_w);
+        g, out, out_dtype, E, T, tp, mask, valid_h, valid_w, rc);
   }
   return cudaGetLastError();
 }
@@ -167,8 +186,11 @@ cudaError_t launch_rdma(int tiled, const BlockGrid& g, int count, void* out,
 // int64: every block's address, then every block's staging address or 0)
 // and `nbr` (nb x 9 int32) are device arrays on the launching device; the
 // launch computes blocks [b0, b0 + count) into `out`, one device buffer of
-// count x (C, h+2E, w+2E) blocks; taps is a host array of k*k floats.
-// tiled = 0 launches K3 (th, tw unused), 1 launches K4; epi is the
+// count x (C, h+2E, w+2E) blocks, and of each only the rectangle of rh x rw
+// outputs at (y0, x0) of that frame (the whole block: 0, 0, h+2E, w+2E;
+// the overlapped pipeline launches its regions one by one); taps is a host
+// array of k*k floats.  tiled = 0 launches K3 (th, tw unused), 1 launches
+// K4 with th x tw tiles over the rectangle; epi is the
 // store-back (Epi, stencil_common.cuh); threads is the block's thread count,
 // a whole number of warps.  With `blocks` non-null nothing launches:
 // *blocks gets the number of such blocks one SM holds.
@@ -177,12 +199,15 @@ extern "C" int pc_rdma_step(int tiled, const long long* ptrs, const int* nbr,
                             int gcols, int b0, int count, int C, int h, int w,
                             int E, int T, const float* taps, int k, int epi,
                             int mask, int valid_h, int valid_w, int th,
-                            int tw, int threads, int* blocks, void* stream) {
+                            int tw, int y0, int x0, int rh, int rw,
+                            int threads, int* blocks, void* stream) {
   Taps tp;
   if (!fill_taps(&tp, taps, nullptr, nullptr, k, 0) || T < 1 || nb < 1 ||
       gcols < 1 || nb % gcols != 0 || b0 < 0 || count < 1 ||
       b0 + count > nb || C < 1 || h < 1 || w < 1 || E < 0 ||
-      (k / 2) * T + E > (h < w ? h : w) || th < 1 || tw < 1 ||
+      (k / 2) * T + E > (h < w ? h : w) || th < 1 || tw < 1 || y0 < 0 ||
+      x0 < 0 || rh < 1 || rw < 1 || y0 + rh > h + 2 * E ||
+      x0 + rw > w + 2 * E ||
       (tiled && count * C > 65535) || !threads_ok(threads))
     return static_cast<int>(cudaErrorInvalidValue);
   BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
@@ -193,7 +218,7 @@ extern "C" int pc_rdma_step(int tiled, const long long* ptrs, const int* nbr,
     return with_epi(epi, [&](auto E_) {
       return launch_rdma<decltype(K)::value, decltype(E_)::value>(
           tiled, g, count, out, out_dtype, E, T, tp, mask, valid_h, valid_w,
-          th, tw, threads, blocks, st);
+          th, tw, Rect{y0, x0, rh, rw}, threads, blocks, st);
     });
   }));
 }

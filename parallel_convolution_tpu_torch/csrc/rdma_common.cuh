@@ -26,6 +26,12 @@ struct BlockGrid {
   int b0 = 0;  // the first block a launch computes; its output is block 0
 };
 
+// A rectangle of a launch's output frame: rows [y0, y0 + h), columns
+// [x0, x0 + w).
+struct Rect {
+  int y0, x0, h, w;
+};
+
 __device__ __forceinline__ const void* source_block(const BlockGrid& g, int b,
                                                     int slot) {
   const int s = g.nbr[b * 9 + slot];
@@ -58,22 +64,27 @@ __device__ __forceinline__ long long staged_index(const BlockGrid& g, int side,
 // block column left, this one or right (dj).  Positions beyond the d-deep
 // ring (the ragged last tile) and, when `masked`, outside the global image
 // read as exactly 0; (row0, col0) are the window's global coordinates.
-// With STAGED, a ghost column of a neighbour that stages its slabs (the
-// packed transport) is read from that staging instead.  A 1-D block: each
-// warp fills whole rows.
+// Block-local rows from ly_lim on and columns from lx_lim on are not read
+// either (0): a tile reads nothing beyond the cones of the outputs it
+// stores (a region of the overlapped pipeline reads no ghost it has not
+// waited for).  With STAGED, a ghost column of a neighbour that stages
+// its slabs (the packed transport) is read from that staging instead.  A
+// 1-D block: each warp fills whole rows.
 // The caller synchronises.
 template <int DT, bool STAGED>
 __device__ void fill_window_as(const BlockGrid& g, int b, int c, int ly0,
                                int lx0, int w0h, int S, int d, bool masked,
                                int row0, int col0, int valid_h, int valid_w,
+                               int ly_lim, int lx_lim,
                                float* __restrict__ a) {
   const int h = g.h, w = g.w;
+  const int ly_end = min(h + d, ly_lim), lx_end = min(w + d, lx_lim);
   const long long plane = static_cast<long long>(c) * h * w;
   const int lane = threadIdx.x & 31, rows_step = blockDim.x >> 5;
   for (int wy = threadIdx.x >> 5; wy < w0h; wy += rows_step) {
     const int ly = ly0 + wy;
     const int di = ly < 0 ? 0 : (ly < h ? 1 : 2);
-    const bool row_ok = ly >= -d && ly < h + d &&
+    const bool row_ok = ly >= -d && ly < ly_end &&
                         (!masked || (row0 + wy >= 0 && row0 + wy < valid_h));
     const long long line =
         plane + static_cast<long long>(ly - (di - 1) * h) * w;
@@ -89,7 +100,7 @@ __device__ void fill_window_as(const BlockGrid& g, int b, int c, int ly0,
         const int lx = lx0 + wx;
         const int dj = lx < 0 ? 0 : (lx < w ? 1 : 2);
         const bool in_ring =
-            row_ok && lx >= -d && lx < w + d &&
+            row_ok && lx >= -d && lx < lx_end &&
             (!masked || (col0 + wx >= 0 && col0 + wx < valid_w));
         const void* stg = dj == 0 ? stg_l : (dj == 2 ? stg_r : nullptr);
         float v = 0.f;
@@ -110,7 +121,7 @@ __device__ void fill_window_as(const BlockGrid& g, int b, int c, int ly0,
         const int lx = lx0 + wx;
         const int dj = lx < 0 ? 0 : (lx < w ? 1 : 2);
         const void* p = dj == 0 ? src_l : (dj == 1 ? src_c : src_r);
-        const bool ok = row_ok && p != nullptr && lx >= -d && lx < w + d &&
+        const bool ok = row_ok && p != nullptr && lx >= -d && lx < lx_end &&
                         (!masked || (col0 + wx >= 0 && col0 + wx < valid_w));
         a[wy * S + wx] =
             ok ? load_as<DT>(p, line + lx - (dj - 1) * w) : 0.f;
@@ -124,19 +135,23 @@ __device__ __forceinline__ void fill_window(const BlockGrid& g, int b, int c,
                                             int ly0, int lx0, int w0h, int S,
                                             int d, bool masked, int row0,
                                             int col0, int valid_h,
-                                            int valid_w, float* a) {
+                                            int valid_w, float* a,
+                                            int ly_lim = 1 << 30,
+                                            int lx_lim = 1 << 30) {
   switch (g.in_dtype) {
     case kBF16:
       fill_window_as<kBF16, STAGED>(g, b, c, ly0, lx0, w0h, S, d, masked,
-                                    row0, col0, valid_h, valid_w, a);
+                                    row0, col0, valid_h, valid_w, ly_lim,
+                                    lx_lim, a);
       break;
     case kU8:
       fill_window_as<kU8, STAGED>(g, b, c, ly0, lx0, w0h, S, d, masked, row0,
-                                  col0, valid_h, valid_w, a);
+                                  col0, valid_h, valid_w, ly_lim, lx_lim, a);
       break;
     default:
       fill_window_as<kF32, STAGED>(g, b, c, ly0, lx0, w0h, S, d, masked,
-                                   row0, col0, valid_h, valid_w, a);
+                                   row0, col0, valid_h, valid_w, ly_lim,
+                                   lx_lim, a);
   }
 }
 
@@ -147,12 +162,16 @@ __device__ __forceinline__ void fill_window(const BlockGrid& g, int b, int c,
 // in the block or in one of its eight neighbours.  Shared memory: one f32
 // buffer of the (th+2rT) x (tw+2rT) window.  STAGED reads the staged
 // column slabs of the packed transport where a neighbour has them (K3 /
-// K4); the construct ladder of csrc/probes.cu runs the strided form.
+// K4); the construct ladder of csrc/probes.cu runs the strided form.  The
+// tile stores no output at or beyond row ye or column xe (the far edges of
+// an output rectangle; the output's own by default), and reads nothing
+// beyond the level-0 window of what it stores.
 template <int K, int EPI, bool STAGED = true>
 __device__ void rdma_tile(const BlockGrid& g, int b, int c, int y0, int x0,
                           int th, int tw, int E, int T, const Taps& tp,
                           int mask, int valid_h, int valid_w,
-                          void* __restrict__ out, int out_dtype) {
+                          void* __restrict__ out, int out_dtype,
+                          int ye = 1 << 30, int xe = 1 << 30) {
   extern __shared__ float smem[];
   constexpr int r = K / 2;
   const int R = r * T, d = R + E;
@@ -166,7 +185,7 @@ __device__ void rdma_tile(const BlockGrid& g, int b, int c, int y0, int x0,
                                   col0 >= 0 && col0 + S <= valid_w);
 
   fill_window<STAGED>(g, b, c, ly0, lx0, w0h, S, d, !interior, row0, col0,
-                      valid_h, valid_w, smem);
+                      valid_h, valid_w, smem, ye - E + R, xe - E + R);
   __syncthreads();
 
   const int oh = h + 2 * E, ow = w + 2 * E;
@@ -174,7 +193,8 @@ __device__ void rdma_tile(const BlockGrid& g, int b, int c, int y0, int x0,
                   (static_cast<long long>(b - g.b0) * g.C + c) * oh *
                           static_cast<long long>(ow) +
                       static_cast<long long>(y0) * ow + x0,
-                  ow, min(th, oh - y0), min(tw, ow - x0)};
+                  ow, min(min(th, oh - y0), ye - y0),
+                  min(min(tw, ow - x0), xe - x0)};
   if (interior)
     run_levels<K, EPI, false, false>(smem, S, th, tw, T, tp, row0, col0,
                                      valid_h, valid_w, o);

@@ -17,9 +17,7 @@ import torch
 from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
-from parallel_convolution_tpu_torch.utils.config import (
-    check_pending, check_solver, pending,
-)
+from parallel_convolution_tpu_torch.utils.config import check_solver, pending
 
 
 @dataclasses.dataclass
@@ -41,8 +39,8 @@ class JacobiSolver:
     K2 by the 9-patch plan in Jacobi's fused chunks (the V-cycle takes it
     and does not use it, as the JAX solver).  ``col_mode`` is
     ``cuda_rdma``'s column transport on a grid of slots (``grid=
-    mesh.make_grid(devices=...)``); ``overlap=True`` raises in
-    :meth:`solve` (ROADMAP item 10b).
+    mesh.make_grid(devices=...)``), and ``overlap=True`` its overlapped
+    pipeline there (clamped elsewhere: ``step.resolve_overlap``).
     """
 
     filt: Filter | str = "jacobi3"
@@ -87,7 +85,6 @@ class JacobiSolver:
         Jacobi iterations run, or the V-cycles for ``solver="multigrid"``
         (whose fine-grid work units and level schedule land in
         ``self.last_mg``)."""
-        check_pending(overlap=self.overlap)
         if self.solver == "multigrid":
             from parallel_convolution_tpu_torch.solvers import multigrid
 

@@ -12,14 +12,14 @@ import torch
 from torch import nn
 
 from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
+from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, make_grid, padded_extent,
 )
 from parallel_convolution_tpu_torch.utils import imageio
 from parallel_convolution_tpu_torch.utils.config import (
-    AUTO, COL_MODE_CHOICES, check_backend, check_fuse, check_pending,
-    check_run_config,
+    AUTO, COL_MODE_CHOICES, check_backend, check_fuse, check_run_config,
 )
 
 
@@ -65,8 +65,10 @@ class ConvolutionModel(nn.Module):
       col_mode: ``cuda_rdma``'s column-slab transport on a grid of slots
         (``packed`` | ``strided`` | ``auto``; None = auto); the resolved
         value lands in ``effective_col_mode`` after each run.
-    ``overlap=True`` (the JAX model's interior-first pipeline) is ROADMAP
-    item 10b and raises ``NotImplementedError``.
+      overlap: the interior-first overlapped pipeline, a request clamped
+        by ``step.resolve_overlap`` (``cuda_rdma`` on a grid of slots
+        only); None = off, or the tuner's verdict under ``auto``.  The
+        value the last run used lands in ``effective_overlap``.
     """
 
     def __init__(self, filt: Filter | str = "blur3", grid: Grid | None = None,
@@ -77,7 +79,6 @@ class ConvolutionModel(nn.Module):
                  col_mode: str | None = None, fallback: bool = False):
         super().__init__()
         check_backend(backend, allow_auto=True)
-        check_pending(overlap=overlap)
         if col_mode is not None and col_mode not in COL_MODE_CHOICES:
             raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, "
                              f"got {col_mode!r}")
@@ -98,6 +99,7 @@ class ConvolutionModel(nn.Module):
         self.fallback = bool(fallback)
         self.interior_split = bool(interior_split)
         self.col_mode = col_mode
+        self.overlap = overlap
         self.filter_name, self.dyadic = filt.name, filt.dyadic
         self.register_buffer("taps", torch.as_tensor(filt.taps.copy(),
                                                      device=grid.device))
@@ -105,6 +107,7 @@ class ConvolutionModel(nn.Module):
         self.effective_backend: str | None = None
         self.effective_fuse: int | None = None
         self.effective_col_mode: str | None = None
+        self.effective_overlap: bool | None = None
         self.plan_source = "explicit"
         self.resolution = None
 
@@ -114,14 +117,15 @@ class ConvolutionModel(nn.Module):
         return Filter(self.filter_name, self.taps.detach().cpu().numpy(),
                       self.dyadic)
 
-    def _resolved_knobs(self, shape) -> tuple[str, int, object, str]:
-        """(backend, fuse, tile, col_mode) for a (C, H, W) image, resolved
-        through the tuning package when ``backend="auto"``, the column
-        transport through ``step.resolve_col_mode``, then, with
+    def _resolved_knobs(self, shape) -> tuple[str, int, object, str, bool]:
+        """(backend, fuse, tile, col_mode, overlap) for a (C, H, W) image,
+        resolved through the tuning package when ``backend="auto"``, the
+        column transport and the overlap through ``step``, then, with
         ``fallback``, through the degradation walk, probed at the image's
-        real block size and storage (``col_mode`` re-clamped to the tier);
-        recorded on the model."""
+        real block size and storage (``col_mode`` and ``overlap``
+        re-clamped to the tier); recorded on the model."""
         backend, fuse, tile = self.backend, self.fuse, self.tile
+        overlap = self.overlap
         self.resolution, self.plan_source = None, "explicit"
         if backend == AUTO:
             from parallel_convolution_tpu_torch import tuning
@@ -131,6 +135,8 @@ class ConvolutionModel(nn.Module):
                 storage=self.storage, quantize=self.quantize,
                 boundary=self.boundary, fuse=fuse, tile=tile)
             backend, fuse, tile = res.backend, res.fuse, res.tile
+            if overlap is None:
+                overlap = res.overlap
             self.resolution, self.plan_source = res, res.source
         R, C = self.grid.shape
         block_hw = (padded_extent(int(shape[1]), R) // R,
@@ -138,26 +144,30 @@ class ConvolutionModel(nn.Module):
         col_mode = step_lib.resolve_col_mode(
             self.col_mode, backend, self.grid, block_hw, self.filt.radius,
             fuse, self.storage)
+        overlap = step_lib.resolve_overlap(overlap, backend, self.grid)
         if self.fallback:
             backend = step_lib._resolve_fallback(
                 self.grid, self.filt, backend, self.quantize, fuse,
                 self.boundary, tile, self.storage, block_hw,
-                self.interior_split, col_mode)
+                self.interior_split, col_mode, overlap)
             col_mode = step_lib.clamp_col_mode(col_mode, backend)
+            overlap = kernel_forms.clamp_overlap(overlap, backend)
         self.effective_backend, self.effective_fuse = backend, fuse
-        self.effective_col_mode = col_mode
-        return backend, fuse, tile, col_mode
+        self.effective_col_mode, self.effective_overlap = col_mode, overlap
+        return backend, fuse, tile, col_mode, overlap
 
     # -- array-level API ----------------------------------------------------
     def run_planar(self, x, iters: int) -> torch.Tensor:
         """(C, H, W) in (numpy or tensor) → (C, H, W) f32 tensor on the
         grid's device after ``iters`` iterations."""
-        backend, fuse, tile, col_mode = self._resolved_knobs(x.shape)
+        backend, fuse, tile, col_mode, overlap = self._resolved_knobs(
+            x.shape)
         return step_lib.sharded_iterate(
             x, self.filt, iters, grid=self.grid, quantize=self.quantize,
             backend=backend, storage=self.storage, fuse=fuse,
             boundary=self.boundary, tile=tile,
-            interior_split=self.interior_split, col_mode=col_mode)
+            interior_split=self.interior_split, overlap=overlap,
+            col_mode=col_mode)
 
     forward = run_planar
 
@@ -208,12 +218,13 @@ class ConvolutionModel(nn.Module):
         blocks = sharded_io.load_sharded(
             src, rows, cols, mode, self.grid,
             dtype=step_lib.STORAGE_DTYPES[self.storage])
-        backend, fuse, tile, col_mode = self._resolved_knobs(
+        backend, fuse, tile, col_mode, overlap = self._resolved_knobs(
             (blocks[0][0].shape[0], rows, cols))
         out = step_lib.iterate_prepared(
             blocks, self.filt, iters, self.grid, (rows, cols),
             quantize=self.quantize, backend=backend, fuse=fuse,
             boundary=self.boundary, tile=tile,
-            interior_split=self.interior_split, col_mode=col_mode)
+            interior_split=self.interior_split, overlap=overlap,
+            col_mode=col_mode)
         del blocks
         sharded_io.save_sharded(dst, out, rows, cols, mode)

@@ -88,10 +88,10 @@ _SIGNATURES = {
     "rdma": {
         # tiled, ptrs, nbr, in_dtype, out, out_dtype, nb, gcols, b0, count,
         # C, h, w, E, T, taps, k, epi, mask, valid_h, valid_w, th, tw,
-        # threads, blocks, stream
+        # y0, x0, rh, rw, threads, blocks, stream
         "pc_rdma_step": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _IP,
-                         _P],
+                         _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _IP, _P],
         # ptrs, nbr, in_dtype, nb, gcols, b0, count, C, h, w, D, stream
         "pc_rdma_pack": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         # device, peer

@@ -51,6 +51,23 @@ neighbours wait on that before they read it: the TPU's two phases.  Peer
 access between distinct cards is enabled up front and a refusal raises:
 there is no host-staged fallback.  On the CPU a grid of slots runs
 :func:`fused_rdma_slots_plain`, the JAX semantics literally.
+
+**The overlapped pipeline** (``overlap=True``, ``partitioned``: the TPU
+kernels' interior-first schedules, ``_rdma_kernel`` and
+``_rdma_tiled_kernel`` with ``overlap=True``).  On the TPU the exchange is
+DMA traffic in flight while the interior computes; here every ghost is
+read in place, and the exchange is the barrier.  So each slot launches its
+K3 / K4 region by region (:func:`rdma_block_region`,
+:func:`rdma_tiled_region`: the same kernels on an output rectangle): the
+interior of :func:`overlap_regions` first, with no wait, then each band
+after exactly the events of the neighbours its read window covers
+(:func:`region_neighbours`; :func:`overlap_schedule`).  A slot that runs
+late holds back only the bands next to it, not its neighbours' interiors.
+The corners are read from the diagonal block, so a column band waits on
+the diagonals too, where the TPU's wait set names the row and column slabs
+that carried them.  On the CPU :func:`fused_rdma_slots_plain` runs the
+same schedule from buffers whose unwaited ghosts are NaN, and raises if a
+NaN reaches a region: a missed wait.
 """
 
 from __future__ import annotations
@@ -130,6 +147,144 @@ def _check_stacked(x: torch.Tensor, grid_shape) -> None:
     if x.dim() != 4 or x.shape[0] != R * Cg:
         raise ValueError(f"expected a stacked ({R * Cg}, C, h, w) grid for "
                          f"grid {tuple(grid_shape)}, got {tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# The overlapped pipeline's geometry (the JAX package's pallas_rdma.py:202-281)
+# ---------------------------------------------------------------------------
+
+
+def overlap_regions(h: int, w: int, d: int):
+    """The interior-first output partition of one (h, w) block at ghost
+    depth ``d``, as ``(interior, row_bands, col_bands)``, each a list of
+    half-open ``(r0, r1, c0, c1)`` rectangles (empties dropped): the
+    interior ``d`` clear of every edge, the top and bottom bands on the
+    interior columns, the full-height left and right bands.  The three
+    tile the block exactly for any geometry; the interior is empty where
+    ``min(h, w) <= 2d``.  (The JAX package's ``overlap_regions``.)"""
+    t, b = min(d, h), max(h - d, min(d, h))
+    l, rt = min(d, w), max(w - d, min(d, w))
+    interior = [(t, b, l, rt)]
+    row_bands = [(0, t, l, rt), (b, h, l, rt)]
+    col_bands = [(0, h, 0, l), (0, h, rt, w)]
+    keep = lambda rs: [x for x in rs if x[0] < x[1] and x[2] < x[3]]
+    return keep(interior), keep(row_bands), keep(col_bands)
+
+
+def overlap_region_slabs(h: int, w: int, d: int):
+    """The labelled partition with each region's slab wait set, as the JAX
+    package's TPU kernels wait: ``[(label, (r0, r1, c0, c1),
+    frozenset(directions))]`` in compute order (interior, top, bottom,
+    left, right; empties dropped), a direction in the set where the
+    region's (rows + 2d, cols + 2d) read window overlaps that slab's
+    inbound write (row slabs on the interior columns, column slabs at the
+    full padded height: the corners' second hop).  (The JAX package's
+    ``overlap_region_slabs``.)"""
+    interior, row_bands, col_bands = overlap_regions(h, w, d)
+    writes = {
+        "up": ((0, d), (d, d + w)),
+        "down": ((h + d, h + 2 * d), (d, d + w)),
+        "left": ((0, h + 2 * d), (0, d)),
+        "right": ((0, h + 2 * d), (w + d, w + 2 * d)),
+    }
+
+    def waits(rect):
+        r0, r1, c0, c1 = rect
+        rr, cc = (r0, r1 + 2 * d), (c0, c1 + 2 * d)
+        return frozenset(
+            name for name, (gr, gc) in writes.items()
+            if rr[0] < gr[1] and gr[0] < rr[1]
+            and cc[0] < gc[1] and gc[0] < cc[1])
+
+    out = [("interior", rect, waits(rect)) for rect in interior]
+    for rect in row_bands:
+        out.append(("top" if rect[0] == 0 else "bottom", rect, waits(rect)))
+    for rect in col_bands:
+        out.append(("left" if rect[2] == 0 else "right", rect, waits(rect)))
+    return out
+
+
+def tiled_window_hazards(wi, wj, *, th, tw, h, w, sub_v, lane=128):
+    """Whether the JAX tiled kernel's ``(wi, wj)`` window, whose read
+    region is ``(th + 2*sub_v, tw + 2*lane)``, overlaps each direction's
+    transferred band.  (The JAX package's ``tiled_window_hazards``; the
+    port's K4 reads its window's neighbours in place and needs no window
+    ledger: a region launch waits before it starts.)"""
+    ext_h, ext_w = th + 2 * sub_v, tw + 2 * lane
+    return {"up": wi == 0, "down": wi * th + ext_h > h + sub_v,
+            "left": wj == 0, "right": wj * tw + ext_w > w + lane}
+
+
+# The eight neighbours of a block, as (row, column) offsets; the
+# neighbour table's entry of offset (di, dj) is (di + 1) * 3 + dj + 1.
+NEIGHBOURS = tuple(o for o in channels.OFFSETS if o != (0, 0))
+
+
+def covered_neighbours(rect, h: int, w: int, depth: int) -> frozenset:
+    """The neighbours whose cells the window ``rect`` ± ``depth`` covers,
+    ``rect`` a half-open (r0, r1, c0, c1) in the (h, w) block's own
+    coordinates (it may reach beyond the block by the output's rim)."""
+    r0, r1, c0, c1 = rect
+
+    def axis(lo, hi, n):
+        return {k for k, (a, b) in ((-1, (lo, min(hi, 0))),
+                                    (0, (max(lo, 0), min(hi, n))),
+                                    (1, (max(lo, n), hi))) if a < b}
+
+    rows = axis(r0 - depth, r1 + depth, h)
+    cols = axis(c0 - depth, c1 + depth, w)
+    return frozenset((di, dj) for di in rows for dj in cols) - {(0, 0)}
+
+
+def region_neighbours(oh: int, ow: int, d: int, ext: int):
+    """The overlapped pipeline's regions of one launch and, for each, the
+    neighbours it waits for: ``[(label, (r0, r1, c0, c1), frozenset of
+    (di, dj))]`` in the JAX package's compute order (interior, top,
+    bottom, left, right), the regions those of :func:`overlap_regions` on
+    the launch's (oh, ow) = (h + 2·ext, w + 2·ext) output at the chunk's
+    ghost depth ``d`` = r·T.  A region's set is every neighbour whose
+    cells its level-0 read window covers: the output rectangle shifted
+    by ``-ext`` into the block's frame, widened by the launch's reach
+    ``d - ext``.  Read after write: it reads their edges.  At ``ext`` = 0
+    the same set is the neighbours whose last reads its writes must
+    follow, since a neighbour read this block ``d`` deep toward itself.
+    The interior, where there is one, waits for none.  The set is the JAX
+    wait set (:func:`overlap_region_slabs`, at ``ext`` = 0) plus each
+    diagonal whose row and column directions are both in it: the port
+    reads the corners from the diagonal block, where the TPU carried them
+    in a second hop."""
+    h, w = oh - 2 * ext, ow - 2 * ext
+    reach = d - ext
+    return [(label, rect, covered_neighbours(
+        (rect[0] - ext, rect[1] - ext, rect[2] - ext, rect[3] - ext),
+        h, w, reach))
+        for label, rect, _ in overlap_region_slabs(oh, ow, d)]
+
+
+def overlap_schedule(oh: int, ow: int, d: int, ext: int,
+                     partitioned: bool = True):
+    """The region launches of one overlapped chunk, in order, each with
+    the neighbours waited for before it: ``[(label, rect, waits)]``.
+    ``partitioned`` (the JAX default): each region after its own
+    :func:`region_neighbours`.  ``partitioned=False`` is the JAX phase
+    order, kept to compare against: the interior first, then both row
+    bands after the upper and lower neighbours, then both column bands
+    after all eight."""
+    regions = region_neighbours(oh, ow, d, ext)
+    if partitioned:
+        return regions
+    rows = frozenset({(-1, 0), (1, 0)})
+    out = []
+    for label, rect, waits in regions:
+        if not waits:
+            out.append((label, rect, waits))
+    for label, rect, waits in regions:
+        if waits and all(dj == 0 for _, dj in waits):
+            out.append((label, rect, rows))
+    for label, rect, waits in regions:
+        if any(dj for _, dj in waits):
+            out.append((label, rect, frozenset(NEIGHBOURS)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +383,7 @@ def _bind(tiled: bool, x: torch.Tensor, filt: Filter, grid_shape,
                 stencil.DTYPE_CODES[x.dtype], out.data_ptr(),
                 stencil.DTYPE_CODES[out_dtype], nb, Cg, 0, nb, C, h, w, ext,
                 levels, stencil._fptr(taps), filt.size, epi, int(mask), vh,
-                vw, th, tw, stencil.FUSED_THREADS,
+                vw, th, tw, 0, 0, oh, ow, stencil.FUSED_THREADS,
                 ctypes.byref(blocks) if occupancy else None, stream)
         stencil._raise_on(err, what)
         return blocks.value
@@ -356,13 +511,26 @@ def fused_rdma_step(blocks, filt: Filter, grid_shape, boundary: str = "zero",
 def fused_rdma_slots_plain(blocks, filt: Filter, grid_shape,
                            boundary: str = "zero", quantize: bool = True,
                            out_dtype=None, fuse: int = 1, valid_hw=None,
-                           col_mode: str = "strided"
+                           col_mode: str = "strided", overlap: bool = False,
+                           partitioned: bool = True
                            ) -> list[list[torch.Tensor]]:
     """Plain PyTorch version of K3 / K4 per device, the JAX semantics
     literally: each block in a padded f32 buffer of its own whose ghosts
     are NaN until their slab lands, rows pushed first, then columns at the
-    full padded height (``packed``: through each block's staging tensor),
-    then K2's plain levels on every block at its global offsets."""
+    full padded height (``packed``: through each block's staging), then
+    K2's plain levels on every block at its global offsets.
+
+    ``overlap=True`` runs the card's overlapped schedule instead
+    (:func:`overlap_schedule`, ``partitioned`` as there): the launch
+    :func:`rdma_plan` makes at the card's shared memory, region by region
+    in schedule order, each from the padded buffer in which only the
+    neighbours waited for so far have been filled (the rest NaN), then
+    K2's plain levels for the later level groups.  A NaN in any region's
+    output raises: a missed wait shows in every dtype."""
+    if overlap:
+        return _overlap_plain(blocks, filt, grid_shape, boundary, quantize,
+                              out_dtype, int(fuse), valid_hw, col_mode,
+                              partitioned)
     T = int(fuse)
     h, w = blocks[0][0].shape[1:]
     padded = halo.exchange_per_block(
@@ -373,6 +541,86 @@ def fused_rdma_slots_plain(blocks, filt: Filter, grid_shape,
     return [[stencil.fused_iterate_plain(p, (i * h, j * w), filt, T, vhw,
                                          quantize, dtype)
              for j, p in enumerate(row)] for i, row in enumerate(padded)]
+
+
+def _overlap_plain(blocks, filt: Filter, grid_shape, boundary: str,
+                   quantize: bool, out_dtype, T: int, valid_hw,
+                   col_mode: str, partitioned: bool):
+    R, Cg = grid_shape
+    C, h, w = blocks[0][0].shape
+    r = filt.radius
+    d = r * T
+    plan = rdma_plan(r, T, (h, w))
+    g0 = plan.groups[0]
+    ext, reach = r * (T - g0), r * g0
+    dtype = out_dtype if out_dtype is not None else blocks[0][0].dtype
+    mid = stencil.group_dtype(quantize, dtype) if ext else dtype
+    vhw = None if boundary == "periodic" else valid_hw
+    periodic = boundary == "periodic"
+    stage = (rdma_pack_plain(blocks, grid_shape, boundary, d)
+             if col_mode == "packed" and Cg > 1 else None)
+    sched = overlap_schedule(h + 2 * ext, w + 2 * ext, d, ext, partitioned)
+
+    def nbr(i, j):
+        ii, jj = (i % R, j % Cg) if periodic else (i, j)
+        return (ii, jj) if 0 <= ii < R and 0 <= jj < Cg else None
+
+    def spans(k, n):  # (buffer slice, source slice) of offset k on an axis
+        return ((slice(0, d), slice(n - d, n)), (slice(d, d + n), slice(0, n)),
+                (slice(d + n, n + 2 * d), slice(0, d)))[k + 1]
+
+    out = []
+    for i in range(R):
+        row = []
+        for j in range(Cg):
+            p = torch.full((C, h + 2 * d, w + 2 * d), float("nan"),
+                           device=blocks[i][j].device)
+            p[:, d:d + h, d:d + w] = blocks[i][j]
+
+            def fill(di, dj):
+                (pr, sr), (pc, sc) = spans(di, h), spans(dj, w)
+                n = nbr(i + di, j + dj)
+                if n is None:
+                    p[:, pr, pc] = 0
+                elif stage is not None and dj:
+                    # Packed: the column ghosts, corners included, from
+                    # the column neighbour's staging (side 1 its right
+                    # edge, side 0 its left), at the row-padded height.
+                    k = nbr(i, j + dj)
+                    st = stage[k[0] * Cg + k[1]][1 if dj < 0 else 0]
+                    p[:, pr, pc] = st[:, pr].to(p.dtype)
+                else:
+                    p[:, pr, pc] = blocks[n[0]][n[1]][:, sr, sc].to(p.dtype)
+
+            pending = set()
+            for di, dj in NEIGHBOURS:
+                if nbr(i + di, j + dj) in (None, (i, j)):
+                    fill(di, dj)  # no neighbour, or this block itself
+                else:
+                    pending.add((di, dj))
+            res = torch.empty((C, h + 2 * ext, w + 2 * ext),
+                              dtype=torch.float32, device=p.device)
+            for label, (r0, r1, c0, c1), waits in sched:
+                for off in sorted(pending & waits):
+                    fill(*off)
+                pending -= waits
+                part = stencil.fused_iterate_plain(
+                    p[:, r0:r1 + 2 * reach, c0:c1 + 2 * reach],
+                    (i * h + r0 - ext, j * w + c0 - ext), filt, g0, vhw,
+                    quantize, torch.float32)
+                if torch.isnan(part).any():
+                    raise RuntimeError(
+                        f"missed wait: block {(i, j)}'s {label} region "
+                        f"{(r0, r1, c0, c1)} read a ghost its waits "
+                        f"{sorted(waits)} did not cover")
+                res[:, r0:r1, c0:c1] = part
+            res = res.to(mid)
+            if ext:
+                res = stencil.fused_iterate_plain(
+                    res, (i * h, j * w), filt, T - g0, vhw, quantize, dtype)
+            row.append(res)
+        out.append(row)
+    return out
 
 
 def rdma_pack_plain(blocks, grid_shape, boundary: str,
@@ -472,6 +720,10 @@ class _SlotRun:
                            for s, row in enumerate(table)]
         self.col_neighbours = [sorted({row[3], row[5]} - {-1, s})
                                for s, row in enumerate(table)]
+        self.table = table
+        # The ghost depth the last step read (the overlapped pipeline's
+        # write-after-read waits look at it).
+        self.last_depth = 0
         self.streams = _slot_streams(self.slots)
         self.launched = [torch.cuda.Event() for _ in self.slots]
         self.staged = [torch.cuda.Event() for _ in self.slots]
@@ -539,9 +791,11 @@ def slot_blocks(carry, grid_shape) -> list[list[torch.Tensor]]:
 def _slot_binder(run: _SlotRun, tiled: bool, filt: Filter, levels: int,
                  ext: int, quantize: bool, valid_hw, tile):
     """Check one per-slot K3 / K4 launch shape and bind what every slot's
-    launch shares; returns ``fire(src, s, out)``, which launches slot
-    ``s``'s block of the buffer set ``src`` into ``out`` on its device and
-    stream and counts it on its wrapper."""
+    launch shares; returns ``fire(src, s, out, rect=None)``, which launches
+    slot ``s``'s block of the buffer set ``src`` into ``out`` on its device
+    and stream and counts it on its wrapper: the whole output, or only the
+    half-open output rectangle ``rect`` = (r0, r1, c0, c1) (a region of the
+    overlapped pipeline, counted on the region wrapper)."""
     from parallel_convolution_tpu_torch.ops import _build
 
     C, h, w = run.block_shape
@@ -565,21 +819,28 @@ def _slot_binder(run: _SlotRun, tiled: bool, filt: Filter, levels: int,
     args = (len(run.slots), run.grid_shape[1])
     epi = stencil.epilogue_code(filt, quantize)
     lib = _build.load_library("rdma")
-    wrapper = rdma_tiled_slot if tiled else rdma_block_slot
+    whole = (0, oh, 0, ow)
     in_code = stencil.DTYPE_CODES[run.dtype]
 
-    def fire(src: int, s: int, out) -> None:
+    def fire(src: int, s: int, out, rect=None) -> None:
         di, _ = run.where[s]
         dev = run.slots[s]
+        r0, r1, c0, c1 = whole if rect is None else rect
+        if rect is None:
+            wrapper = rdma_tiled_slot if tiled else rdma_block_slot
+        else:
+            wrapper = rdma_tiled_region if tiled else rdma_block_region
         with torch.cuda.device(dev):
             err = lib.pc_rdma_step(
                 int(tiled), run.tables[src][di].data_ptr(),
                 run.nbr[di].data_ptr(), in_code, out.data_ptr(),
                 stencil.DTYPE_CODES[out.dtype], *args, s, 1, C, h, w, ext,
                 levels, stencil._fptr(taps), filt.size, epi, int(mask), vh,
-                vw, th, tw, stencil.FUSED_THREADS, None,
-                run.streams[s].cuda_stream)
-        stencil._raise_on(err, f"{wrapper.__name__} (slot {s} on {dev})")
+                vw, th, tw, r0, c0, r1 - r0, c1 - c0, stencil.FUSED_THREADS,
+                None, run.streams[s].cuda_stream)
+        where = "" if rect is None else f" region {tuple(rect)}"
+        stencil._raise_on(err, f"{wrapper.__name__} (slot {s} on {dev}"
+                               f"{where})")
         wrapper.launches += 1
 
     return fire
@@ -608,6 +869,34 @@ def rdma_tiled_slot(run: _SlotRun, src: int, s: int, out, filt: Filter,
 
 
 rdma_tiled_slot.launches = 0
+
+
+def rdma_block_region(run: _SlotRun, src: int, s: int, out, filt: Filter,
+                      levels: int, valid_hw, rect, *, quantize: bool = True,
+                      ext: int = 0) -> None:
+    """K3 for slot ``s`` on one region of its output, the half-open
+    ``rect`` = (r0, r1, c0, c1) of the (h+2·ext, w+2·ext) frame (the
+    overlapped pipeline's launch, :func:`overlap_schedule`), as
+    :func:`rdma_block_slot` otherwise; ``out`` outside ``rect`` is not
+    written."""
+    _slot_binder(run, False, filt, levels, ext, quantize, valid_hw,
+                 None)(src, s, out, rect)
+
+
+rdma_block_region.launches = 0
+
+
+def rdma_tiled_region(run: _SlotRun, src: int, s: int, out, filt: Filter,
+                      levels: int, valid_hw, rect, *, quantize: bool = True,
+                      ext: int = 0, tile=None) -> None:
+    """K4 for slot ``s`` on one region of its output, as
+    :func:`rdma_block_region`, its tiles clipped at the region's edge."""
+    _slot_binder(run, True, filt, levels, ext, quantize, valid_hw,
+                 tile if tile is not None else stencil.FUSED_TILE)(
+        src, s, out, rect)
+
+
+rdma_tiled_region.launches = 0
 
 
 def rdma_pack(run: _SlotRun, src: int, s: int, depth: int) -> None:
@@ -643,7 +932,8 @@ def staged_slabs(run: _SlotRun, s: int, depth: int) -> torch.Tensor:
 
 
 def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
-                T: int, valid_hw, tile, col_mode: str) -> SlotCarry:
+                T: int, valid_hw, tile, col_mode: str, overlap: bool = False,
+                partitioned: bool = True) -> SlotCarry:
     run = carry.run
     C, h, w = run.block_shape
     r = filt.radius
@@ -669,57 +959,141 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
     if run.joined:
         run.fork()
     streams = run.streams
-    # The barrier: a slot's launch reads its neighbours' outputs of their
-    # last launch (read after write) and overwrites the buffer their last
-    # launch read (write after read), so it waits on their last launch
-    # and on nothing else.  Every wait is enqueued before any of this
-    # step's records, so each names the previous launch.
-    for s, st in enumerate(streams):
-        for n in run.neighbours[s]:
-            st.wait_event(run.launched[n])
-    if cplan.packed_cols and run.packed:
-        depth = cplan.col_slabs[0].src_cols[1] - cplan.col_slabs[0].src_cols[0]
-        for s, st in enumerate(streams):
-            rdma_pack(run, src, s, depth)
-            run.staged[s].record(st)
-        for s, st in enumerate(streams):
-            for n in run.col_neighbours[s]:
-                st.wait_event(run.staged[n])
+    staged = cplan.packed_cols and run.packed
+    depth = (cplan.col_slabs[0].src_cols[1] - cplan.col_slabs[0].src_cols[0]
+             if staged else 0)
     vhw = None if run.boundary == "periodic" else valid_hw
     mid = stencil.group_dtype(quantize, out_dtype)
     fire = _slot_binder(run, plan.kernel == "tiled", filt, plan.groups[0],
                         ext, quantize, valid_hw,
                         plan.tile if plan.kernel == "tiled" else None)
+    outs = []
     for s, st in enumerate(streams):
         di, k = run.where[s]
-        dev = run.slots[s]
-        target = run.bufs[dst][di][k]
-        out = target
+        out = run.bufs[dst][di][k]
         if rest:
             # Allocated on the slot's stream, which alone uses it.
-            with torch.cuda.device(dev), torch.cuda.stream(st):
+            with torch.cuda.device(run.slots[s]), torch.cuda.stream(st):
                 out = torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
-                                  device=dev)
-        fire(src, s, out)
+                                  device=run.slots[s])
+        outs.append(out)
+    if overlap:
+        _overlap_launches(run, fire, src, outs, r * T, ext, partitioned,
+                          staged, depth)
+    else:
+        # The barrier: a slot's launch reads its neighbours' outputs of
+        # their last launch (read after write) and overwrites the buffer
+        # their last launch read (write after read), so it waits on their
+        # last launch and on nothing else.  Every wait is enqueued before
+        # any of this step's records, so each names the previous launch.
+        for s, st in enumerate(streams):
+            for n in run.neighbours[s]:
+                st.wait_event(run.launched[n])
+        if staged:
+            for s, st in enumerate(streams):
+                rdma_pack(run, src, s, depth)
+                run.staged[s].record(st)
+            for s, st in enumerate(streams):
+                for n in run.col_neighbours[s]:
+                    st.wait_event(run.staged[n])
+        for s in range(len(streams)):
+            fire(src, s, outs[s])
+    for s, st in enumerate(streams):
         if rest:
+            di, k = run.where[s]
             i, j = divmod(s, run.grid_shape[1])
-            with torch.cuda.device(dev), torch.cuda.stream(st):
-                target.copy_(stencil.fused_iterate(
-                    out, (i * h, j * w), filt, rest, vhw, quantize=quantize,
-                    out_dtype=out_dtype, tile=tile))
+            with torch.cuda.device(run.slots[s]), torch.cuda.stream(st):
+                run.bufs[dst][di][k].copy_(stencil.fused_iterate(
+                    outs[s], (i * h, j * w), filt, rest, vhw,
+                    quantize=quantize, out_dtype=out_dtype, tile=tile))
         run.launched[s].record(st)
+    run.last_depth = r * T
     return SlotCarry(run, run.bufs[dst])
+
+
+def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
+                      partitioned: bool, staged: bool, depth: int) -> None:
+    """The overlapped pipeline's launches of one step (:func:`overlap_schedule`
+    on every slot), before any of the step's ``launched`` records:
+
+    1. every slot's interior, with no wait: its level-0 window lies in its
+       own block, and its writes miss the ``d``-deep edges its neighbours
+       read (at ``ext`` > 0 it writes a buffer of its own);
+    2. with the packed transport, every slot's pack, after its upper and
+       lower neighbours (it reads their rows) and its left and right ones
+       (their last launch read its staging), then its ``staged`` record;
+    3. every slot's bands in order, each after the events of the
+       neighbours its read window covers that the slot has not waited for
+       yet (and, packed, the ``staged`` event of each column neighbour it
+       reads), then the waits on every neighbour left, so the step's later
+       work (K2's level groups and the copy into the carry, which writes
+       the whole block) and the next step come after all eight.
+
+    Where the previous step read deeper than ``d`` (a single step after a
+    fused chunk) and a region writes the carry itself (``ext`` = 0), the
+    region also waits for the neighbours whose earlier reads its rows
+    reach at that depth: the write-after-read half of the barrier."""
+    _, h, w = run.block_shape
+    sched = overlap_schedule(h + 2 * ext, w + 2 * ext, d, ext, partitioned)
+    prev = run.last_depth if ext == 0 else 0
+    waited = [set() for _ in run.slots]
+    seen = [set() for _ in run.slots]
+
+    def wait(s, offsets):
+        row = run.table[s]
+        for di, dj in sorted(offsets):
+            n = row[(di + 1) * 3 + dj + 1]
+            if n < 0 or n == s or n in waited[s]:
+                continue
+            run.streams[s].wait_event(run.launched[n])
+            waited[s].add(n)
+
+    def waits_of(rect, offsets):
+        if prev > d:
+            offsets = offsets | covered_neighbours(rect, h, w, prev)
+        return offsets
+
+    for s in range(len(run.slots)):
+        for label, rect, offsets in sched:
+            if label == "interior":
+                wait(s, waits_of(rect, offsets))
+                fire(src, s, outs[s], rect)
+    if staged:
+        for s, st in enumerate(run.streams):
+            wait(s, {(-1, 0), (1, 0), (0, -1), (0, 1)})
+            rdma_pack(run, src, s, depth)
+            run.staged[s].record(st)
+    for s, st in enumerate(run.streams):
+        for label, rect, offsets in sched:
+            if label == "interior":
+                continue
+            offsets = waits_of(rect, offsets)
+            wait(s, offsets)
+            if staged:
+                for dj in sorted({dj for _, dj in offsets if dj}):
+                    n = run.table[s][4 + dj]
+                    if n >= 0 and n != s and n not in seen[s]:
+                        st.wait_event(run.staged[n])
+                        seen[s].add(n)
+            fire(src, s, outs[s], rect)
+        wait(s, NEIGHBOURS)
 
 
 def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
                      quantize: bool = True, out_dtype=None, fuse: int = 1,
-                     valid_hw=None, tile=None, col_mode: str = "strided"):
+                     valid_hw=None, tile=None, col_mode: str = "strided",
+                     overlap: bool = False, partitioned: bool = True):
     """``fuse`` iterations of every block of a grid of slots, the exchange
     inside the kernels: one K3 / K4 launch per slot on its own device and
     stream (plus, with ``col_mode="packed"``, one pack per slot first, and
     K2 per slot for later level groups), behind the barrier between slots.
-    ``carry`` is :func:`slot_carry`'s; returns the next carry.  On the CPU
-    the carry is the blocks and :func:`fused_rdma_slots_plain` runs."""
+    ``overlap=True`` launches each slot's K3 / K4 region by region instead
+    (:func:`overlap_schedule`; ``partitioned`` as there, the JAX
+    ``fused_rdma_step`` defaults): the interior first with no wait, each
+    band after its own neighbours' events.  ``carry`` is
+    :func:`slot_carry`'s; returns the next carry.  On the CPU the carry is
+    the blocks and :func:`fused_rdma_slots_plain` runs (its overlapped
+    schedule with ``overlap``)."""
     T = int(fuse)
     if T < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
@@ -737,7 +1111,7 @@ def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
         _check_depth(filt.radius, T, b0.shape[1:])
         return fused_rdma_slots_plain(carry, filt, grid_shape, boundary,
                                       quantize, out_dtype, T, valid_hw,
-                                      col_mode)
+                                      col_mode, overlap, partitioned)
     run = carry.run
     _check_depth(filt.radius, T, run.block_shape[1:])
     if out_dtype is None:
@@ -748,4 +1122,4 @@ def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
     if boundary != run.boundary:
         raise ValueError(f"the run was entered for boundary {run.boundary!r}")
     return _slots_step(carry, filt, quantize, out_dtype, T, valid_hw, tile,
-                       col_mode)
+                       col_mode, bool(overlap), bool(partitioned))

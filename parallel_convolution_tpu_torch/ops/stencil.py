@@ -910,13 +910,15 @@ fused_iterate.launches = 0
 
 def reset_launch_counts() -> None:
     """Zero the launch counters of every kernel of the port (K1, K2 here;
-    K3, K4, their per-slot launches and the pack in ops/rdma.py)."""
+    K3, K4, their per-slot and per-region launches and the pack in
+    ops/rdma.py)."""
     from parallel_convolution_tpu_torch.ops import rdma
 
     stencil_step.launches = 0
     fused_iterate.launches = 0
     for fn in (rdma.rdma_block, rdma.rdma_tiled, rdma.rdma_block_slot,
-               rdma.rdma_tiled_slot, rdma.rdma_pack):
+               rdma.rdma_tiled_slot, rdma.rdma_block_region,
+               rdma.rdma_tiled_region, rdma.rdma_pack):
         fn.launches = 0
 
 
@@ -930,4 +932,6 @@ def launch_counts() -> dict:
             "rdma_tiled": rdma.rdma_tiled.launches,
             "rdma_block_slot": rdma.rdma_block_slot.launches,
             "rdma_tiled_slot": rdma.rdma_tiled_slot.launches,
+            "rdma_block_region": rdma.rdma_block_region.launches,
+            "rdma_tiled_region": rdma.rdma_tiled_region.launches,
             "rdma_pack": rdma.rdma_pack.launches}

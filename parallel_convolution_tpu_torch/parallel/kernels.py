@@ -9,9 +9,9 @@ for a smoother, and ``volumes/forms.py`` the rank-3 forms (``smooth``
 relaxations and time-dependent ``physics``).  Two capability bits, as
 in the JAX package: ``persistent_capable`` (the form moves column slabs
 between the blocks of a grid of slots, so ``col_mode`` selects its
-transport; ``cuda_rdma``) and ``overlap_capable`` (the JAX form has an
-interior-first overlapped pipeline; the port's is ROADMAP item 10b, so a
-request for it raises, ``parallel.step.resolve_overlap``).
+transport; ``cuda_rdma``) and ``overlap_capable`` (the form has an
+interior-first overlapped pipeline: ``cuda_rdma`` on a grid of slots
+launches its kernels region by region, ``parallel.step.resolve_overlap``).
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def _capable(name: str, rank: int, bit: str) -> bool:
 
 
 def overlap_capable(name: str, rank: int = 2) -> bool:
-    """Whether ``name``'s JAX form has an interior-first overlapped halo
+    """Whether ``name``'s form has an interior-first overlapped halo
     pipeline.  Unknown names are not capable."""
     return _capable(name, rank, "overlap_capable")
 

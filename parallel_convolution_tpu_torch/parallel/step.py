@@ -36,13 +36,15 @@ On a grid of slots (``mesh.Grid.devices``: a device per block) every
 backend runs per slot: each block's work on its own device, the halo
 exchange a copy of each edge slab between devices, ``cuda_rdma`` one
 K3 / K4 launch per slot behind the barrier between slots
-(``ops/rdma.py``), its column transport ``col_mode``; the convergence
-diff is the max over the slots, gathered once per chunk with one
-readback.
+(``ops/rdma.py``), its column transport ``col_mode``, and with
+``overlap=True`` each slot's launch region by region, the interior first
+with no wait (:func:`resolve_overlap`); the convergence diff is the max
+over the slots, gathered once per chunk with one readback.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from functools import partial
 
@@ -57,13 +59,13 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils.config import (
-    AUTO, BACKENDS, BOUNDARIES, COL_MODE_CHOICES, OVERLAP_ITEM, STORAGES,
-    check_backend, check_run_config, check_solver, check_storage, pending,
+    AUTO, BACKENDS, BOUNDARIES, COL_MODE_CHOICES, OVERLAP_INTERPRET_ENV,
+    STORAGES, check_backend, check_run_config, check_solver, check_storage,
 )
 
 __all__ = ["STORAGE_DTYPES", "clamp_col_mode", "iterate_prepared",
-           "resolve_col_mode", "resolve_overlap", "sharded_converge",
-           "sharded_converge_stream", "sharded_iterate"]
+           "overlap_clamp", "resolve_col_mode", "resolve_overlap",
+           "sharded_converge", "sharded_converge_stream", "sharded_iterate"]
 
 # Iteration-carry dtypes.  Quantized states are exact small integers, so
 # bf16 (exact for 0..255) and u8 carries lose nothing; accumulation is
@@ -113,7 +115,8 @@ def _boundary_geometry(grid_hw, valid_hw, block_hw, boundary: str):
 def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
                      block_hw, quantize: bool, fuse: int = 1,
                      boundary: str = "zero", tile=None,
-                     interior_split: bool = False, col_mode: str = "packed"):
+                     interior_split: bool = False, col_mode: str = "packed",
+                     overlap: bool = False):
     """``fuse`` iterations on every block per halo exchange.
 
     fuse = 1: exchange r-deep halos, one level, re-mask the pad rim.
@@ -195,7 +198,7 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
 def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
                      quantize: bool, fuse: int = 1, boundary: str = "zero",
                      tile=None, interior_split: bool = False,
-                     col_mode: str = "packed"):
+                     col_mode: str = "packed", overlap: bool = False):
     """The ``cuda_rdma`` form (the JAX package's ``_build_rdma_step``): each
     chunk is one K3 / K4 launch that reads every block's ghosts from its
     neighbours' buffers and runs ``fuse`` levels, masked against the
@@ -203,8 +206,9 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
     maps the stacked grid to the stacked grid (see :func:`_build_iterate`).
     On a grid of slots it is one launch per slot, the carry a
     ``rdma.SlotCarry`` (the blocks on the CPU), the column slabs moved by
-    ``col_mode``.  ``interior_split`` is taken and not used, as in the JAX
-    package."""
+    ``col_mode``, and with ``overlap`` (resolved: :func:`resolve_overlap`
+    keeps it only on a grid of slots) each slot's launch region by region.
+    ``interior_split`` is taken and not used, as in the JAX package."""
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
     # The in-kernel exchange failing to build (pallas_rdma's site).
     fault_point("halo_exchange")
@@ -214,7 +218,8 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
         def slot_step(carry):
             return rdma.fused_rdma_slots(
                 carry, filt, grid.shape, boundary, quantize=quantize,
-                fuse=fuse, valid_hw=vhw, tile=tile, col_mode=col_mode)
+                fuse=fuse, valid_hw=vhw, tile=tile, col_mode=col_mode,
+                overlap=overlap)
 
         return slot_step
 
@@ -249,7 +254,7 @@ _register_smoother_forms()
 
 def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
                      fuse=1, boundary="zero", tile=None,
-                     interior_split=False, col_mode="packed"):
+                     interior_split=False, col_mode="packed", overlap=False):
     """The smoother step of ``backend``, through the kernel-form registry;
     a transfer operator's name fails here (it is not a smoother)."""
     form = kernel_forms.resolve(2, backend, boundary)
@@ -259,7 +264,8 @@ def _make_block_step(filt, grid, valid_hw, block_hw, quantize, backend,
             "not a smoother; transfer operators are driven by "
             "solvers.multigrid, not the iterate path")
     return form.build(filt, grid, valid_hw, block_hw, quantize, fuse,
-                      boundary, tile, interior_split, col_mode)
+                      boundary, tile, interior_split, col_mode,
+                      overlap=overlap)
 
 
 def _check_block_size(filt: Filter, block_hw) -> None:
@@ -302,7 +308,8 @@ def _carry_out(state, grid: Grid, backend: str):
 def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
                    valid_hw, block_hw, backend: str, fuse: int = 1,
                    boundary: str = "zero", tile=None,
-                   interior_split: bool = False, col_mode: str = "packed"):
+                   interior_split: bool = False, col_mode: str = "packed",
+                   overlap: bool = False):
     """The fixed-count runner for one configuration: ``iters // fuse``
     fused chunks, then one tail chunk of the remaining ``iters % fuse``
     levels."""
@@ -315,11 +322,11 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
     _check_fuse_fits(filt, block_hw, fuse)
     chunk = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
                              backend, fuse, boundary, tile, interior_split,
-                             col_mode)
+                             col_mode, overlap)
     n_chunks, rem = divmod(iters, fuse)
     tail = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
                              backend, rem, boundary, tile, interior_split,
-                             col_mode)
+                             col_mode, overlap)
             if rem else None)
 
     def run(blocks):
@@ -384,25 +391,63 @@ def _storage_name(dtype) -> str:
 
 
 def resolve_overlap(overlap: bool | None, backend: str, grid: Grid) -> bool:
-    """The overlap knob a launch would run with (the JAX package's
-    ``resolve_overlap``, as far as its clamps go).  ``None`` / False is the
-    serialized order; True on a backend with no overlapped pipeline runs
-    serialized with a one-time warning; True on ``cuda_rdma`` raises: its
-    interior-first pipeline is ROADMAP item 10b."""
+    """The overlap knob a run ACTUALLY uses (the JAX package's
+    ``resolve_overlap``).  ``None`` / False is the serialized order.
+    ``True`` is a request, clamped with a one-time warning, after which
+    every row stamps False:
+
+    * a backend with no overlapped pipeline (``cuda_rdma`` only) runs
+      serialized;
+    * a grid on the CPU runs serialized: its plain version has nothing in
+      flight to hide, unless ``PCTPU_OVERLAP_INTERPRET`` is set (to 1),
+      the JAX package's escape hatch for byte proofs, which runs the
+      plain overlapped schedule (``rdma.fused_rdma_slots_plain``);
+    * a ``cuda_rdma`` grid that is not slotted runs serialized: all of
+      its blocks share one launch, so no block waits on another (the
+      counterpart of ``overlap_legal``'s "no collective to hide").
+
+    On a grid of slots ``cuda_rdma`` keeps it: each slot's K3 / K4 runs
+    region by region, the interior first with no wait
+    (``rdma.overlap_schedule``)."""
     if not overlap:
         return False
-    if not kernel_forms.overlap_capable(backend):
-        if backend not in _OVERLAP_WARNED:
-            _OVERLAP_WARNED.add(backend)
-            warnings.warn(
-                f"overlap=True requested but backend {backend!r} has no "
-                "overlapped halo pipeline (cuda_rdma only); running "
-                "serialized", UserWarning, stacklevel=3)
+    clamp = overlap_clamp(backend, grid)
+    if clamp is not None:
+        cause, msg = clamp
+        if cause not in _OVERLAP_WARNED:
+            _OVERLAP_WARNED.add(cause)
+            warnings.warn(f"{msg} -- rows stamp overlap=False", UserWarning,
+                          stacklevel=2)
         return False
-    raise pending(f"overlap=True on {backend!r}", OVERLAP_ITEM)
+    return True
 
 
 _OVERLAP_WARNED: set[str] = set()
+
+
+def overlap_clamp(backend: str, grid: Grid) -> tuple[str, str] | None:
+    """``(cause, message)`` of the clamp :func:`resolve_overlap` applies
+    to an overlap request for ``backend`` on ``grid``, or None where the
+    request stands."""
+    if not kernel_forms.overlap_capable(backend):
+        return (f"backend:{backend}",
+                f"overlap=True requested but backend {backend!r} has no "
+                "overlapped halo pipeline (cuda_rdma only); running "
+                "serialized")
+    if grid.device.type == "cpu" and not os.environ.get(
+            OVERLAP_INTERPRET_ENV):
+        return ("cpu",
+                "overlap=True force-serialized on a CPU grid (its plain "
+                "version has nothing in flight to hide; set "
+                f"{OVERLAP_INTERPRET_ENV}=1 to run the overlapped schedule "
+                "anyway for byte proofs)")
+    if not grid.slotted:
+        return ("unslotted",
+                f"overlap=True force-serialized: {backend!r} on a grid that "
+                "is not slotted runs every block in one launch, with no "
+                "wait between blocks to hide (give each block a slot: "
+                "--device)")
+    return None
 
 
 def resolve_col_mode(col_mode, backend: str, grid: Grid, block_hw,
@@ -456,40 +501,52 @@ def _resolve_auto(grid: Grid, filt: Filter, backend: str, fuse, tile,
     return res.backend, res.fuse, res.tile, res.source
 
 
+def _auto_overlap(overlap, source):
+    """The overlap request after :func:`_resolve_auto`: an unset one
+    (None) takes the tuner's verdict when ``auto`` resolved (``source``
+    set), else it stays as asked."""
+    if overlap is None and source is not None:
+        from parallel_convolution_tpu_torch import tuning
+
+        return tuning.last_resolution().overlap
+    return overlap
+
+
 def _resolve_fallback(grid: Grid, filt: Filter, backend: str,
                       quantize: bool, fuse: int, boundary: str, tile,
                       storage: str, block_hw,
                       interior_split: bool = False,
-                      col_mode: str = "packed") -> str:
+                      col_mode: str = "packed", overlap: bool = False) -> str:
     """Walk the degradation chain (``resilience.degrade``) for this
     configuration.  ``block_hw`` and ``storage`` describe the REAL run:
     the kernel and its launch shape depend on both, so a probe of another
-    geometry could pass where the real launch fails; ``col_mode`` is
-    re-clamped for each tier."""
+    geometry could pass where the real launch fails; ``col_mode`` and
+    ``overlap`` are re-clamped for each tier."""
     from parallel_convolution_tpu_torch.resilience import degrade
 
     return degrade.resolve_backend(
         grid, filt, backend, quantize=quantize, fuse=int(fuse),
         boundary=boundary, tile=None if tile is None else tuple(tile),
         storage=storage, block_hw=tuple(block_hw),
-        interior_split=interior_split, col_mode=col_mode)
+        interior_split=interior_split, col_mode=col_mode, overlap=overlap)
 
 
 def _run_knobs(grid: Grid, filt: Filter, backend: str, fuse: int, tile,
                storage: str, quantize: bool, boundary: str, block_hw,
                interior_split: bool, fallback: bool, overlap, col_mode):
     """The knobs after ``auto``: overlap's clamps, the column transport
-    resolved, the fallback walk (``col_mode`` re-clamped to the tier it
-    lands on).  Returns ``(backend, col_mode)``."""
-    resolve_overlap(overlap, backend, grid)
+    resolved, the fallback walk (``col_mode`` and ``overlap`` re-clamped
+    to the tier it lands on).  Returns ``(backend, col_mode, overlap)``."""
+    overlap = resolve_overlap(overlap, backend, grid)
     col_mode = resolve_col_mode(col_mode, backend, grid, block_hw,
                                 filt.radius, fuse, storage)
     if fallback:
         backend = _resolve_fallback(grid, filt, backend, quantize, fuse,
                                     boundary, tile, storage, block_hw,
-                                    interior_split, col_mode)
+                                    interior_split, col_mode, overlap)
         col_mode = clamp_col_mode(col_mode, backend)
-    return backend, col_mode
+        overlap = kernel_forms.clamp_overlap(overlap, backend)
+    return backend, col_mode, overlap
 
 
 def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
@@ -516,22 +573,23 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     if check_contract:
         _check_quantize_contract(blocks, filt, quantize)
     storage = _storage_name(blocks[0][0].dtype)
-    backend, fuse, tile, _ = _resolve_auto(
+    backend, fuse, tile, source = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, blocks[0][0].shape[0])
+    overlap = _auto_overlap(overlap, source)
     check_backend(backend)
     block_hw = tuple(blocks[0][0].shape[1:])
     fuse = int(fuse)
     if fuse < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
-    backend, col_mode = _run_knobs(
+    backend, col_mode, overlap = _run_knobs(
         grid, filt, backend, max(1, min(fuse, iters or 1)), tile, storage,
         quantize, boundary, block_hw, interior_split, fallback, overlap,
         col_mode)
     run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
                          block_hw, backend, fuse, boundary,
                          None if tile is None else tuple(tile),
-                         interior_split, col_mode)
+                         interior_split, col_mode, overlap)
     return run(blocks)
 
 
@@ -623,7 +681,7 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
                           valid_hw, block_hw, backend: str,
                           boundary: str = "zero", fuse: int = 1, tile=None,
                           interior_split: bool = False,
-                          col_mode: str = "packed"):
+                          col_mode: str = "packed", overlap: bool = False):
     """ONE convergence chunk: ``n`` iterations and the (prev, cur) max-abs
     diff, as a 0-d f32 tensor left on the device.
 
@@ -639,10 +697,11 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
     fuse = max(1, min(fuse, max(1, n - 1)))
     _check_fuse_fits(filt, block_hw, fuse)
     step = _make_block_step(filt, grid, valid_hw, block_hw, quantize,
-                            backend, 1, boundary, tile, False, col_mode)
+                            backend, 1, boundary, tile, False, col_mode,
+                            overlap)
     fused = (_make_block_step(filt, grid, valid_hw, block_hw, quantize,
                               backend, fuse, boundary, tile, interior_split,
-                              col_mode)
+                              col_mode, overlap)
              if fuse > 1 and n > 1 else None)
 
     def chunk(state):
@@ -689,25 +748,26 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
         x, grid, device, backend, storage, boundary, quantize)
-    backend, fuse, tile, _ = _resolve_auto(
+    backend, fuse, tile, source = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
+    overlap = _auto_overlap(overlap, source)
     check_backend(backend)
-    backend, col_mode = _run_knobs(
+    backend, col_mode, overlap = _run_knobs(
         grid, filt, backend, int(fuse), tile, storage, quantize, boundary,
         block_hw, interior_split, fallback, overlap, col_mode)
     _check_quantize_contract(blocks, filt, quantize)
     _check_block_size(filt, block_hw)
     tile = None if tile is None else tuple(int(v) for v in tile)
     return (grid, blocks, valid_hw, block_hw, backend, int(fuse), tile,
-            col_mode)
+            col_mode, overlap)
 
 
 def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
                      max_iters: int, check_every: int, quantize: bool,
                      valid_hw, block_hw, backend: str, boundary: str,
                      fuse: int, tile, counter, interior_split: bool = False,
-                     col_mode: str = "packed"):
+                     col_mode: str = "packed", overlap: bool = False):
     """The host loop: ``(carry, iters_done, diff)`` after every chunk,
     until ``diff < tol`` or ``max_iters`` (a NaN diff stops it too).  The
     diff's ``.item()`` is the chunk's one readback and fence; it counts on
@@ -720,7 +780,7 @@ def _converge_chunks(grid: Grid, filt: Filter, state, tol: float,
             fault_point("backend_compile")  # a chunk size's first build
             chunks[n] = _build_converge_chunk(
                 grid, filt, n, quantize, tuple(valid_hw), block_hw, backend,
-                boundary, fuse, tile, interior_split, col_mode)
+                boundary, fuse, tile, interior_split, col_mode, overlap)
         state, d = chunks[n](state)
         diff = d.item()
         counter.readbacks += 1
@@ -769,8 +829,8 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
                               interior_split, fallback, overlap, mg_levels,
                               col_mode, device, stream=False)
         return out, res.cycles
-    (grid, blocks, valid_hw, block_hw, backend, fuse, tile,
-     col_mode) = _converge_setup(
+    (grid, blocks, valid_hw, block_hw, backend, fuse, tile, col_mode,
+     overlap) = _converge_setup(
         x, filt, check_every, grid, quantize, backend, storage, boundary,
         fuse, tile, interior_split, fallback, overlap, solver, col_mode,
         device)
@@ -796,7 +856,7 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
     for state, done, _ in _converge_chunks(
             grid, filt, state, tol, max_iters, check_every, quantize,
             valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge, interior_split, col_mode):
+            sharded_converge, interior_split, col_mode, overlap):
         pass
     return _global_f32(_carry_out(state, grid, backend), grid, valid_hw), done
 
@@ -838,8 +898,8 @@ def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
                 mg_levels, col_mode, device, stream=True):
             yield out, cycles, residual
         return
-    (grid, blocks, valid_hw, block_hw, backend, fuse, tile,
-     col_mode) = _converge_setup(
+    (grid, blocks, valid_hw, block_hw, backend, fuse, tile, col_mode,
+     overlap) = _converge_setup(
         x, filt, check_every, grid, quantize, backend, storage, boundary,
         fuse, tile, interior_split, fallback, overlap, solver, col_mode,
         device)
@@ -850,7 +910,7 @@ def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     for state, done, diff in _converge_chunks(
             grid, filt, state, tol, int(max_iters), int(check_every),
             quantize, valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge_stream, interior_split, col_mode):
+            sharded_converge_stream, interior_split, col_mode, overlap):
         yield (_global_f32(_carry_out(state, grid, backend), grid,
                            valid_hw).cpu().numpy(), done, diff)
 

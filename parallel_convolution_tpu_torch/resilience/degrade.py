@@ -83,21 +83,22 @@ def clear_probe_cache() -> None:
 
 def _probe_key(grid, filt: Filter, backend: str, quantize, fuse, boundary,
                tile, storage, block_hw, interior_split=False,
-               col_mode="packed") -> tuple:
+               col_mode="packed", overlap=False) -> tuple:
     return (grid, filt.name, filt.radius, backend, bool(quantize), int(fuse),
             boundary, None if tile is None else tuple(tile), storage,
             None if block_hw is None else tuple(block_hw),
-            bool(interior_split), col_mode)
+            bool(interior_split), col_mode, bool(overlap))
 
 
 def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
                   fuse: int = 1, boundary: str = "zero", tile=None,
                   storage: str = "f32", block_hw=None,
                   interior_split: bool = False,
-                  col_mode: str = "packed") -> None:
+                  col_mode: str = "packed", overlap: bool = False) -> None:
     """Build and run one ``fuse``-iteration chunk of ``backend`` on a
     zeros grid (on a grid of slots: every slot's launch at its own block
-    on its own device), with ``col_mode`` clamped to ``backend``.
+    on its own device, region by region with ``overlap``), with
+    ``col_mode`` and ``overlap`` clamped to ``backend``.
 
     Raises whatever the build or the launch raised (replayed from the
     cache on repeat calls); returns None on (possibly cached) success.
@@ -110,11 +111,13 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
     ``fuse`` iterations on one channel, once per (grid, backend, config)
     per process; its tensors are freed before it returns.
     """
+    from parallel_convolution_tpu_torch.parallel.kernels import clamp_overlap
     from parallel_convolution_tpu_torch.parallel.step import clamp_col_mode
 
     col_mode = clamp_col_mode(col_mode, backend)
+    overlap = clamp_overlap(overlap, backend)
     key = _probe_key(grid, filt, backend, quantize, fuse, boundary, tile,
-                     storage, block_hw, interior_split, col_mode)
+                     storage, block_hw, interior_split, col_mode, overlap)
     if key in _PROBE_CACHE:
         err = _PROBE_CACHE[key]
         if err is not None:
@@ -122,7 +125,7 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
         return
     try:
         _run_probe(grid, filt, backend, quantize, fuse, boundary, tile,
-                   storage, block_hw, interior_split, col_mode)
+                   storage, block_hw, interior_split, col_mode, overlap)
     except Exception as e:  # noqa: BLE001 — the verdict IS the product
         _PROBE_CACHE[key] = e
         raise
@@ -130,7 +133,8 @@ def probe_backend(grid, filt: Filter, backend: str, *, quantize: bool = True,
 
 
 def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
-               block_hw, interior_split=False, col_mode="packed") -> None:
+               block_hw, interior_split=False, col_mode="packed",
+               overlap=False) -> None:
     from parallel_convolution_tpu_torch.parallel import step as step_lib
     from parallel_convolution_tpu_torch.parallel.mesh import split_blocks
 
@@ -146,7 +150,7 @@ def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
                     device=grid.device)
     run = step_lib._build_iterate(grid, filt, fuse, quantize, valid_hw,
                                   tuple(block_hw), backend, fuse, boundary,
-                                  tile, interior_split, col_mode)
+                                  tile, interior_split, col_mode, overlap)
     run(split_blocks(x, grid))
     for dev in dict.fromkeys(grid.slots):
         if dev.type == "cuda":
@@ -169,10 +173,11 @@ def resolve_backend(grid, filt: Filter, backend: str, *,
                     quantize: bool = True, fuse: int = 1,
                     boundary: str = "zero", tile=None, storage: str = "f32",
                     block_hw=None, interior_split: bool = False,
-                    col_mode: str = "packed") -> str:
+                    col_mode: str = "packed", overlap: bool = False) -> str:
     """Return the first backend in the grid's ``degradation_chain``
-    whose probe passes (``col_mode`` re-clamped for each tier: only
-    ``cuda_rdma`` moves column slabs); raise at once on a terminal probe failure, and
+    whose probe passes (``col_mode`` and ``overlap`` re-clamped for each
+    tier, ``kernels.clamp_overlap``: only ``cuda_rdma`` moves column slabs
+    and has the overlapped pipeline); raise at once on a terminal probe failure, and
     :class:`RetryExhausted` when every tier failed transiently (on the
     card, a refused ``cuda`` is the last tier).
 
@@ -186,7 +191,7 @@ def resolve_backend(grid, filt: Filter, backend: str, *,
             probe_backend(grid, filt, b, quantize=quantize, fuse=fuse,
                           boundary=boundary, tile=tile, storage=storage,
                           block_hw=block_hw, interior_split=interior_split,
-                          col_mode=col_mode)
+                          col_mode=col_mode, overlap=overlap)
         except Exception as e:  # noqa: BLE001
             if classify(e) == TERMINAL:
                 raise

@@ -65,7 +65,7 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.solvers.transfer import coarse_extent
 from parallel_convolution_tpu_torch.utils.config import (
-    COL_MODE_CHOICES, check_backend, check_pending, check_run_config,
+    COL_MODE_CHOICES, check_backend, check_run_config,
 )
 
 __all__ = ["MG_BLOCK_FLOOR", "MGResult", "Level", "cycle_launches",
@@ -271,6 +271,7 @@ def cycle_launches(levels, backend: str, radius: int, nu_pre: int = NU_PRE,
     10c), keyed as ``stencil.launch_counts``."""
     counts = {"stencil_step": 0, "fused_iterate": 0, "rdma_block": 0,
               "rdma_tiled": 0, "rdma_block_slot": 0, "rdma_tiled_slot": 0,
+              "rdma_block_region": 0, "rdma_tiled_region": 0,
               "rdma_pack": 0}
     for lv, n in zip(levels, _level_sweeps(levels, nu_pre, nu_post,
                                            nu_coarse)):
@@ -524,7 +525,6 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
             f"solver='multigrid' requires storage='f32', got {storage!r} "
             "(residual/correction fields need full float carries)")
     check_backend(backend, allow_auto=True)
-    check_pending(overlap=overlap)
     check_no_slots(grid, "multigrid")
     if col_mode is not None and col_mode not in COL_MODE_CHOICES:
         raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, got "
@@ -547,6 +547,9 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, channels)
     check_backend(backend)
+    # Warned and clamped: a one-device grid runs every block in one launch
+    # (multigrid on slots is item 10c), so the V-cycle stamps False.
+    step_lib.resolve_overlap(overlap, backend, grid)
     tile = None if tile is None else tuple(int(v) for v in tile)
     levels = plan_levels(grid, valid_hw, filt.radius, boundary, mg_levels)
     fine = levels[0]
@@ -682,7 +685,8 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     run their registered stencils.  ``grid`` defaults to 1×1 on ``device``
     (default: the card; it raises without CUDA); a grid of slots raises
     (ROADMAP item 10c), so ``col_mode`` is checked and inert, and
-    ``overlap=True`` raises (item 10b).
+    ``overlap=True`` is clamped (``step.resolve_overlap``: multigrid runs
+    on one device, where no block waits on another) and stamped False.
     ``mg_converge_stream.readbacks`` counts the readbacks.
     """
     s = _setup(x, filt, grid, quantize, backend, storage, boundary, fuse,

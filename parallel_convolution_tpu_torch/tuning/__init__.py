@@ -46,9 +46,10 @@ class Resolution:
     ``source`` is ``measured`` (a measured plan), ``interpolated`` (nearest
     same-card size bucket or grid) or ``predicted`` (cost model only, or a
     plan a dry-run tune wrote).  ``overlap`` and ``col_mode`` are the JAX
-    package's fields: ``overlap`` False (its pipeline is item 10b),
-    ``col_mode`` the plan's or the model's column transport (a grid of
-    slots; elsewhere the canonical "packed").
+    package's fields: ``overlap`` the plan's or the model's verdict on the
+    overlapped pipeline, clamped to ``costmodel.overlap_legal`` at the
+    knobs resolved, ``col_mode`` the plan's or the model's column
+    transport (a grid of slots; elsewhere the canonical "packed").
     """
 
     backend: str
@@ -91,7 +92,8 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
             quantize: bool = True, boundary: str = "zero",
             fuse: int | None = None, tile: tuple[int, int] | None = None,
             plans: PlanCache | None = None,
-            check_every: int | None = None) -> Resolution:
+            check_every: int | None = None,
+            overlap: bool | None = None) -> Resolution:
     """Resolve ``backend="auto"`` (and an unset fuse / tile) for one
     workload on ``grid``.
 
@@ -100,7 +102,9 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
     backend raises ``ValueError`` (never silently run as fuse=1 or the
     default tile).  ``plans=None`` consults the ambient cache
     (``PCTPU_PLAN_FILE``).  ``check_every`` keys a convergence workload
-    and caps the fuse at ``check_every - 1``.  Deterministic: two
+    and caps the fuse at ``check_every - 1``.  ``overlap`` True / False
+    overrides the plan's or the model's verdict; either way the result is
+    clamped to legality at the knobs resolved.  Deterministic: two
     processes on the same device resolve identically.
     """
     if check_every is not None and fuse is not None:
@@ -124,25 +128,30 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
             f"legality for {w.filter_name} {w.shape} on grid {w.grid}")
     if plan is not None:
         p_fuse, p_tile = _legal_plan_knobs(w, plan, hw)
+        r_fuse = int(fuse) if fuse is not None else p_fuse
+        want = plan.overlap if overlap is None else overlap
         res = Resolution(
             backend=plan.backend,
-            fuse=int(fuse) if fuse is not None else p_fuse,
+            fuse=r_fuse,
             tile=tuple(tile) if tile is not None else p_tile,
             source=plan.source, predicted_gpx=plan.predicted_gpx,
             key=w.key(),
+            overlap=search._legal_overlaps(w, plan.backend, r_fuse,
+                                           bool(want), hw)[0],
             col_mode=(plan.col_mode if plan.col_mode in
                       search._legal_col_modes(w, plan.backend)
                       else "packed"))
     else:
         p = search.tune(
             w, dry_run=True, fuses=[int(fuse)] if fuse is not None else None,
-            tiles=[tuple(tile)] if tile is not None else None, hw=hw).plan
+            tiles=[tuple(tile)] if tile is not None else None, hw=hw,
+            overlap=overlap).plan
         res = Resolution(
             backend=p.backend,
             fuse=int(fuse) if fuse is not None else p.fuse,
             tile=tuple(tile) if tile is not None else p.tile,
             source="predicted", predicted_gpx=p.predicted_gpx, key=w.key(),
-            col_mode=p.col_mode)
+            overlap=p.overlap, col_mode=p.col_mode)
     _LAST.append(res)
     del _LAST[:-4]  # bounded history; only the last is ever read
     return res

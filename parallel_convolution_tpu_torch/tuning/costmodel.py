@@ -40,8 +40,15 @@ assumes one block per TPU chip:
   :func:`col_transport_seconds_per_round`: ``strided`` reads the
   neighbour's edge columns in place, ``packed`` stages them first, each
   priced from constants measured on the card (``col_row_s``,
-  ``pack_s``), and :func:`pick_col_mode` takes the cheaper.  Overlap
-  (item 10b) has no term; candidates carry ``False``.
+  ``pack_s``), and :func:`pick_col_mode` takes the cheaper.
+* **Overlap** (:func:`overlap_legal`) is the JAX term: the exchange rides
+  under the compute, ``max(compute, exchange)`` in place of the sum, the
+  exchange being a grid of slots' device-side part
+  (:func:`slot_exchange_seconds_per_chunk`: the column transport and the
+  ghost bytes between cards).  It is not free on the host: each slot
+  launches its first level group region by region (five launches where
+  one did), which :func:`slot_seconds_per_chunk` charges at
+  ``launch_s``.
 
 Pure arithmetic on Python numbers plus the planners' arithmetic: no device
 access, so it runs the same on the CPU and beside the card.
@@ -51,7 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from parallel_convolution_tpu_torch.ops.rdma import rdma_plan
+from parallel_convolution_tpu_torch.ops.rdma import overlap_regions, rdma_plan
 from parallel_convolution_tpu_torch.ops.stencil import (
     H100_SMEM_OPTIN, STEP_TILE, fused_plan,
 )
@@ -226,6 +233,33 @@ def rdma_is_tiled(block_hw, radius: int, fuse: int,
     them."""
     return rdma_plan(radius, max(1, int(fuse)), block_hw, None,
                      smem_limit).kernel == "tiled"
+
+
+def overlap_legal(backend: str, grid, block_hw, radius: int, fuse: int,
+                  slotted: bool) -> bool:
+    """Whether the interior-first overlapped pipeline applies (the JAX
+    package's ``overlap_legal`` on the port's terms): ``cuda_rdma``, a grid
+    of slots (on a one-device grid every block is in one launch and none
+    waits on another) of more than one block, and a non-empty interior,
+    ``min(block) > 2·r·fuse`` (else the whole block is rim and the
+    pipeline degenerates to the serialized order).  Mirrors the kernels'
+    own region partition (``rdma.overlap_regions``)."""
+    if backend != "cuda_rdma" or not slotted:
+        return False
+    if grid[0] * grid[1] == 1:
+        return False
+    d = radius * max(1, int(fuse))
+    return min(block_hw) > 2 * d
+
+
+def overlap_launches(block_hw, radius: int, fuse: int, groups) -> int:
+    """The region launches of one slot's first level group under the
+    overlapped pipeline: the non-empty regions of ``rdma.overlap_regions``
+    on the launch's rim-extended output."""
+    T = max(1, int(fuse))
+    ext = radius * (T - groups[0])
+    h, w = block_hw[0] + 2 * ext, block_hw[1] + 2 * ext
+    return sum(len(g) for g in overlap_regions(h, w, radius * T))
 
 
 def rim_overhead(fuse: int, tile_hw, radius: int) -> float:
@@ -411,18 +445,17 @@ def pick_col_mode(grid, block_hw, radius: int, fuse: int, storage: str,
     return "packed" if packed <= strided else "strided"
 
 
-def slot_seconds_per_chunk(backend: str, grid, fuse: int, groups, block_hw,
-                           radius: int, storage: str, channels: int,
-                           hw: HardwareModel, col_mode: str = "packed",
-                           cards: int = 1) -> float:
-    """What a grid of slots adds to one chunk over the one-device grid.
-
-    ``cuda_rdma``: a launch per slot and level group (the one-device form
-    launches once for the grid), the pack launches with ``packed``, up to
-    eight barrier waits a slot, and the column transport of every slot,
-    which share the card(s).  Every backend, over several cards: the
-    ghost bytes of every block (two phases, depth r·T) at ``link_gbps``,
-    the cards in parallel."""
+def slot_exchange_seconds_per_chunk(backend: str, grid, fuse: int, block_hw,
+                                    radius: int, storage: str, channels: int,
+                                    hw: HardwareModel,
+                                    col_mode: str = "packed",
+                                    cards: int = 1) -> float:
+    """The device-side exchange of one chunk on a grid of slots, the part
+    the overlapped pipeline can hide under the compute: over several
+    cards the ghost bytes of every block (two phases, depth r·T) at
+    ``link_gbps``, the cards in parallel (every backend); for
+    ``cuda_rdma`` the column transport of every slot, which share the
+    card(s)."""
     R, C = grid
     nb = R * C
     T = max(1, int(fuse))
@@ -432,16 +465,37 @@ def slot_seconds_per_chunk(backend: str, grid, fuse: int, groups, block_hw,
         ghost = (2.0 * (block_hw[0] + block_hw[1] + 2 * d) * d * channels
                  * STORAGE_BYTES[storage])
         t += nb * ghost / (hw.link_gbps * 1e9) / cards
+    if backend == "cuda_rdma" and C > 1:
+        t += nb * col_transport_seconds_per_round(
+            block_hw, radius, T, storage, hw, col_mode,
+            channels) / max(1, cards)
+    return t
+
+
+def slot_seconds_per_chunk(backend: str, grid, fuse: int, groups, block_hw,
+                           radius: int, storage: str, channels: int,
+                           hw: HardwareModel, col_mode: str = "packed",
+                           cards: int = 1, overlap: bool = False) -> float:
+    """What a grid of slots adds to one chunk over the one-device grid:
+    :func:`slot_exchange_seconds_per_chunk`, and for ``cuda_rdma`` the
+    host's launches and waits: a launch per slot and level group (the
+    one-device form launches once for the grid), with ``overlap`` the
+    first group's region launches (:func:`overlap_launches`) in place of
+    one, the pack launches with ``packed``, and up to eight barrier waits
+    a slot."""
+    R, C = grid
+    nb = R * C
+    t = slot_exchange_seconds_per_chunk(backend, grid, fuse, block_hw,
+                                        radius, storage, channels, hw,
+                                        col_mode, cards)
     if backend != "cuda_rdma":
         return t
     packed = col_mode == "packed" and C > 1
-    launches = nb * (len(groups) + (1 if packed else 0)) - 1
+    first = (overlap_launches(block_hw, radius, fuse, groups) if overlap
+             else 1)
+    launches = nb * (len(groups) - 1 + first + (1 if packed else 0)) - 1
     waits = nb * (min(8, nb - 1) + (2 if packed else 0))
-    col = (col_transport_seconds_per_round(block_hw, radius, T, storage, hw,
-                                           col_mode, channels)
-           if C > 1 else 0.0)
-    return (launches * hw.launch_s + waits * hw.event_s
-            + nb * col / max(1, cards) + t)
+    return t + launches * hw.launch_s + waits * hw.event_s
 
 
 def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
@@ -452,16 +506,22 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
                                 magic_round: bool = True,
                                 col_mode: str = "packed",
                                 slotted: bool = False,
-                                cards: int = 1) -> float:
+                                cards: int = 1,
+                                overlap: bool = False) -> float:
     """Seconds per pixel (of the C·H·W grid) per iteration:
-    ``max(bytes, operations)`` on the card plus the host's issue time.
+    ``max(bytes, operations)`` on the card plus the exchange plus the
+    host's issue time.
 
     Bytes go at ``hbm_gbps``; the fused kernels' slots at ``tap_gops``
     (``sep_tap_gops`` in the separable order), the plain backends' at
     ``flop_gops``.  On a grid of slots (``slotted``, over ``cards``
     cards) :func:`slot_seconds_per_chunk` adds the per-slot launches, the
-    barrier and ``col_mode``'s column transport; the JAX model's overlap
-    term (item 10b) has no counterpart.
+    barrier and the exchange (``col_mode``'s column transport, the ghost
+    bytes between cards).  ``overlap=True`` (legal only per
+    :func:`overlap_legal`; an illegal request prices the serialized form,
+    as the dispatch layer clamps it) is the JAX term: the exchange rides
+    under the compute, ``max(compute, exchange)`` in place of the sum,
+    and the host pays the region launches.
     """
     radius = k // 2
     T = max(1, int(fuse))
@@ -479,11 +539,19 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
     pixels = shape[0] * grid[0] * grid[1] * block_hw[0] * block_hw[1]
     t_host = host_seconds_per_chunk(backend, grid, T, groups, k, quantize,
                                     storage, ragged, hw)
+    ov = overlap and overlap_legal(backend, grid, block_hw, radius, T,
+                                   slotted)
+    t_ex = 0.0
     if slotted:
-        t_host += slot_seconds_per_chunk(backend, grid, T, groups, block_hw,
-                                         radius, storage, shape[0], hw,
-                                         col_mode, cards)
-    t = (max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9))
+        t_ex = slot_exchange_seconds_per_chunk(
+            backend, grid, T, block_hw, radius, storage, shape[0], hw,
+            col_mode, cards)
+        t_host += slot_seconds_per_chunk(
+            backend, grid, T, groups, block_hw, radius, storage, shape[0],
+            hw, col_mode, cards, ov) - t_ex
+    compute = max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9))
+    ex = t_ex / (T * pixels)
+    t = ((max(compute, ex) if ov else compute + ex)
          + t_host / (T * pixels))
     if backend in CUDA_BACKENDS and hw.plain_kernels:
         t *= INTERPRET_PENALTY

@@ -21,7 +21,10 @@ shared memory:
   no tile);
 * the separable backends only where they are byte-safe: an exactly rank-1
   filter, in quantize mode, with dyadic taps — ``auto`` never picks a
-  backend that changes bytes.
+  backend that changes bytes;
+* overlap only where ``costmodel.overlap_legal`` holds (``cuda_rdma`` on
+  a grid of slots with an interior), and not on a host whose kernels run
+  their plain versions, where the dispatch layer clamps it.
 
 ``tune(..., dry_run=True)`` never touches a device: it returns the
 model-ranked best with ``source="predicted"``.
@@ -30,10 +33,12 @@ model-ranked best with ``source="predicted"``.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from parallel_convolution_tpu_torch.ops import rdma, stencil
 from parallel_convolution_tpu_torch.tuning import costmodel
 from parallel_convolution_tpu_torch.tuning.plans import Plan, Workload
+from parallel_convolution_tpu_torch.utils.config import OVERLAP_INTERPRET_ENV
 
 __all__ = ["Candidate", "enumerate_candidates", "rank", "tune",
            "TuneResult"]
@@ -56,9 +61,10 @@ _PREFERENCE = ("shifted", "xla_conv", "separable", "cuda_sep", "cuda",
 @dataclasses.dataclass(frozen=True)
 class Candidate:
     """One point of the knob space: (backend, fuse, tile, overlap,
-    col_mode), the JAX package's fields.  ``overlap`` is always False (its
-    pipeline is item 10b); ``col_mode`` varies where a column transport
-    exists (:func:`_legal_col_modes`), else it is "packed"."""
+    col_mode), the JAX package's fields.  ``overlap`` varies where the
+    overlapped pipeline is legal (:func:`_legal_overlaps`), ``col_mode``
+    where a column transport exists (:func:`_legal_col_modes`); elsewhere
+    they are False and "packed"."""
 
     backend: str
     fuse: int = 1
@@ -78,6 +84,28 @@ def _legal_col_modes(w: Workload, backend: str,
     if col_mode in (None, "auto"):
         return ["packed", "strided"]
     return [col_mode]
+
+
+def _legal_overlaps(w: Workload, backend: str, fuse: int,
+                    overlap: bool | None = None,
+                    hw: costmodel.HardwareModel | None = None) -> list[bool]:
+    """Overlap options for one (backend, fuse) point (the JAX package's):
+    ``[False, True]`` where ``costmodel.overlap_legal`` holds, else
+    ``[False]``.  ``overlap`` is a request, not a pin: an explicit True is
+    clamped to legality (the serialized form always exists, and every
+    artifact stamps the resolved value).  On a host whose kernels run
+    their plain versions only the serialized form is enumerated, unless
+    the byte-proof hatch (``PCTPU_OVERLAP_INTERPRET``) is set: the
+    dispatch layer clamps overlap there, so a True candidate would
+    measure the serialized run under an overlap label."""
+    legal = costmodel.overlap_legal(backend, w.grid, w.block_hw, w.radius,
+                                    fuse, w.slotted)
+    if (legal and _hw(w, hw).plain_kernels
+            and not os.environ.get(OVERLAP_INTERPRET_ENV)):
+        legal = False
+    if overlap is None:
+        return [False, True] if legal else [False]
+    return [bool(overlap) and legal]
 
 
 def _sep_byte_safe(w: Workload) -> bool:
@@ -169,12 +197,13 @@ def _legal_tiles(w: Workload, backend: str, menu, strict: bool = False,
 def enumerate_candidates(w: Workload, backends=None, fuses=None,
                          tiles=None,
                          hw: costmodel.HardwareModel | None = None,
-                         ) -> list[Candidate]:
+                         overlap: bool | None = None) -> list[Candidate]:
     """The deterministic legal candidate list for one workload.
 
     ``backends`` / ``fuses`` / ``tiles`` pin a sub-space (an explicit knob
     is honoured verbatim; legality still filters it, so an impossible pin
-    dies here with an empty-space error rather than inside a launch).
+    dies here with an empty-space error rather than inside a launch);
+    ``overlap`` is a request clamped to legality (:func:`_legal_overlaps`).
     """
     out = []
     for b in (backends if backends is not None else _legal_backends(w)):
@@ -183,8 +212,9 @@ def enumerate_candidates(w: Workload, backends=None, fuses=None,
             for t in _legal_tiles(w, b, tiles if tiles is not None
                                   else TILE_MENU, strict=tiles is not None,
                                   fuse=T, hw=hw):
-                for cm in _legal_col_modes(w, b):
-                    out.append(Candidate(b, T, t, col_mode=cm))
+                for ov in _legal_overlaps(w, b, T, overlap, hw):
+                    for cm in _legal_col_modes(w, b):
+                        out.append(Candidate(b, T, t, ov, cm))
     if not out:
         raise ValueError(
             f"no legal candidates for {w.filter_name} {w.shape} on grid "
@@ -199,7 +229,7 @@ def predict(w: Workload, c: Candidate,
         c.backend, w.storage, c.fuse, c.tile, w.shape, w.block_hw, w.grid,
         w.taps_k, w.separable, w.quantize, _hw(w, hw), ragged=w.ragged,
         magic_round=w.magic_round, col_mode=c.col_mode, slotted=w.slotted,
-        cards=w.cards)
+        cards=w.cards, overlap=c.overlap)
 
 
 def _pref(backend: str) -> int:
@@ -247,7 +277,8 @@ def measure(w: Workload, c: Candidate, grid, *, iters: int = 8,
         grid=grid, channels=w.shape[0], backend=c.backend,
         quantize=w.quantize, storage=w.storage, fuse=c.fuse,
         boundary=w.boundary, reps=reps, tile=c.tile,
-        interior_split=interior_split, col_mode=c.col_mode)
+        interior_split=interior_split, overlap=c.overlap,
+        col_mode=c.col_mode)
     row["predicted_gpx_per_chip"] = costmodel.predict_gpx_per_chip(
         predict(w, c, hw))
     return row
@@ -257,7 +288,8 @@ def tune(w: Workload, grid=None, *, dry_run: bool = False, backends=None,
          fuses=None, tiles=None, iters: int = 8, reps: int = 2,
          max_measure: int = 8, prune_factor: float = 4.0,
          hw: costmodel.HardwareModel | None = None,
-         interior_split: bool = False) -> TuneResult:
+         interior_split: bool = False,
+         overlap: bool | None = None) -> TuneResult:
     """Tune one workload: rank the legal space, optionally measure.
 
     ``dry_run=True`` (or ``grid=None``) returns the model's pick with
@@ -269,11 +301,12 @@ def tune(w: Workload, grid=None, *, dry_run: bool = False, backends=None,
     carry it.  Any other failure (a CUDA launch error, a failed build, a
     lost context) is a fault of the kernels, not an illegal point, and
     propagates: a lost context would poison every later measurement.
-    ``interior_split`` measures every candidate with K2's 9-patch launch.
+    ``interior_split`` measures every candidate with K2's 9-patch launch;
+    ``overlap`` is a request (:func:`_legal_overlaps`).
     """
     hw = _hw(w, hw)
-    ranked = rank(w, enumerate_candidates(w, backends, fuses, tiles, hw=hw),
-                  hw)
+    ranked = rank(w, enumerate_candidates(w, backends, fuses, tiles, hw=hw,
+                                          overlap=overlap), hw)
     best_t, best_c = ranked[0]
     predicted_gpx = costmodel.predict_gpx_per_chip(best_t)
     if dry_run or grid is None:

@@ -149,12 +149,10 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     ``interior_split`` benches K2's 9-patch launch (``cuda`` /
     ``cuda_sep`` at fuse > 1 on a ``zero`` boundary).  On a grid of slots
     the row stamps the slots and the resolved ``col_mode``
-    (``cuda_rdma``'s column transport); ``overlap=True`` raises (ROADMAP
-    item 10b).
+    (``cuda_rdma``'s column transport); ``overlap`` is a request, and the
+    row stamps the value the run used (``step.resolve_overlap``'s clamps,
+    the tuner's verdict under ``auto``).
     """
-    from parallel_convolution_tpu_torch.utils.config import check_pending
-
-    check_pending(overlap=overlap)
     from parallel_convolution_tpu_torch.tuning import costmodel, search
     from parallel_convolution_tpu_torch.tuning.plans import Workload
 
@@ -168,9 +166,10 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, channels)
     fuse = max(1, min(int(fuse), iters or 1))  # as _build_iterate clamps
-    eff, col_mode = step_lib._run_knobs(
+    overlap = step_lib._auto_overlap(overlap, source)
+    eff, col_mode, overlap = step_lib._run_knobs(
         grid, filt, eff, fuse, tile, storage, quantize, boundary, block_hw,
-        interior_split, fallback, None, col_mode)
+        interior_split, fallback, overlap, col_mode)
 
     state = blocks
 
@@ -180,7 +179,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
             state, filt, iters, grid, valid_hw, quantize=quantize,
             backend=eff, fuse=fuse, boundary=boundary, tile=tile,
             interior_split=interior_split, check_contract=False,
-            col_mode=col_mode)
+            overlap=overlap, col_mode=col_mode)
 
     secs = wall(run, grid.device, warmup=1, reps=max(1, reps))
     w = Workload.from_grid(grid, filt, (channels, H, W), storage=storage,
@@ -189,7 +188,7 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     compiled_tile = costmodel.effective_tile(eff, tile, block_hw,
                                              filt.radius, fuse, hw.smem_optin)
     predicted = costmodel.predict_gpx_per_chip(search.predict(
-        w, search.Candidate(eff, fuse, tile), hw))
+        w, search.Candidate(eff, fuse, tile, overlap, col_mode), hw))
     on_card = grid.device.type == "cuda"
     gpx = H * W * channels * iters / secs / 1e9
     chips = len(set(grid.slots))
@@ -201,9 +200,9 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         "tile": list(compiled_tile) if compiled_tile else None,
         "storage": storage, "quantize": quantize, "boundary": boundary,
         "interior_split": bool(interior_split),
-        # The resolved knobs: overlap is the serialized order (its
-        # pipeline is item 10b), col_mode the column transport.
-        "overlap": False, "col_mode": col_mode,
+        # The resolved knobs: the overlap the run used, the column
+        # transport.
+        "overlap": overlap, "col_mode": col_mode,
         "slots": grid.slot_map() if grid.slotted else None,
         "seconds": secs, "wall_s": secs,
         "gpixels_per_s": gpx, "gpixels_per_s_per_chip": gpx / chips,

@@ -67,16 +67,18 @@ BACKEND_FROM_REFERENCE = {
 COL_MODES = ("packed", "strided")
 COL_MODE_CHOICES = COL_MODES + ("auto",)
 
-OVERLAP_ITEM = "item 10b (the overlapped pipeline)"
+# The escape hatch that runs the overlapped pipeline's plain schedule on a
+# CPU grid of slots anyway, for byte proofs (the JAX package's constant of
+# the same name and value): without it ``overlap=True`` is clamped there.
+OVERLAP_INTERPRET_ENV = "PCTPU_OVERLAP_INTERPRET"
+
 # What a grid of slots does not run yet, and a grid over processes.
 SLOTS_ITEM = ("item 10c (grids over processes; multigrid, volumes, "
               "sharded IO and checkpoints on slots)")
 
 # Knobs of the JAX entry points and CLI that later slices port:
-# name -> ROADMAP item.
-PENDING_KNOBS = {
-    "overlap": OVERLAP_ITEM,
-}
+# name -> ROADMAP item.  None is left: every knob is ported.
+PENDING_KNOBS: dict[str, str] = {}
 
 
 def pending(what: str, item: str) -> NotImplementedError:
@@ -100,14 +102,6 @@ def check_fuse(backend: str, fuse) -> None:
     """``fuse=None`` asks the tuner for the depth, which only ``auto`` does."""
     if fuse is None and backend != AUTO:
         raise ValueError("fuse=None means 'tune it' and needs backend='auto'")
-
-
-def check_pending(**knobs) -> None:
-    """Raise ``NotImplementedError`` for any requested knob of a later
-    slice (a knob is requested when it is truthy and not None)."""
-    for name, value in knobs.items():
-        if value:
-            raise pending(f"{name}={value!r}", PENDING_KNOBS[name])
 
 
 def check_solver(solver: str) -> None:

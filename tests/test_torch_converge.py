@@ -37,8 +37,8 @@ from parallel_convolution_tpu_torch.utils import bench, imageio
 from parallel_convolution_tpu_torch.utils.config import BACKEND_FROM_REFERENCE
 
 HW = (32, 48)
-# Keys of the JAX bench row that wait for later items: the exchange
-# attribution (obs, item 9) and the topology identity (item 10).
+# Keys of the JAX bench row that wait for a later item: the exchange
+# attribution (obs, item 9).
 JAX_ONLY_BENCH_KEYS = {"exchange_fraction", "exchange_hidden_fraction",
                        "halo_bytes"}
 
@@ -316,18 +316,20 @@ def test_jacobi_solver_pending_knobs():
     # (tests/test_torch_interior_split.py holds the split against JAX).
     assert JacobiSolver(solver="multigrid", interior_split=True, tol=0.1,
                         max_iters=10, device="cpu").solve(x)[1] == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        JacobiSolver(overlap=True, device="cpu").solve(x)
+    # overlap (item 10b) is ported: on one CPU device it is clamped and
+    # the solve is the serialized one.
+    assert JacobiSolver(overlap=True, tol=0.1, max_iters=5,
+                        device="cpu").solve(x)[1] == 5
     assert JacobiSolver(interior_split=True, tol=0.1, max_iters=5,
                         device="cpu").solve(x)[1] == 5
     with pytest.raises(ValueError, match="solver must be one of"):
         JacobiSolver(solver="newton", device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         JacobiSolver(device="cpu").set_grid(mesh.make_grid((2, 2), "cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step.sharded_converge(np.zeros((1, 8, 8), np.float32),
-                              _filters("jacobi3")[1], 0.1, 5,
-                              solver="multigrid", overlap=True, device="cpu")
+    assert step.sharded_converge(np.zeros((1, 8, 8), np.float32),
+                                 _filters("jacobi3")[1], 0.1, 5,
+                                 solver="multigrid", overlap=True,
+                                 device="cpu")[1] == 1
     # Dataclass fields: the JAX solver's, with grid/device for mesh.
     jnames = {f.name for f in dataclasses.fields(JJacobiSolver)}
     names = {f.name for f in dataclasses.fields(JacobiSolver)}
@@ -439,7 +441,7 @@ PENDING_ARGV = [
     (["--checkpoint-every", "5"], "item 4"),
 ]
 # Items ported since the cases above were written: their flags now run.
-PORTED = ("item 3b", "item 4", "item 10")
+PORTED = ("item 3b", "item 4", "item 10", "item 10b")
 # Ported items whose runs are held against the JAX CLI's on the same argv
 # (the port's --device cpu and backend names mapped back): the same exit
 # code (``--rank 3`` without ``--depth`` exits 2 in both) and, on 0, the

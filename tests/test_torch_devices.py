@@ -549,26 +549,36 @@ def test_model_bench_and_degrade_on_slots(rgb_small):
 # ------------------------------------------------ pending: 10b and 10c
 
 
-def test_overlap_names_10b_and_slots_name_10c(tmp_path):
+def test_overlap_names_10b_and_slots_name_10c(tmp_path, monkeypatch):
+    # Item 10b is ported: overlap on cuda_rdma over slots runs (its plain
+    # schedule on the CPU, with the byte-proof hatch set), byte-equal to
+    # the serialized run, through every entry point that takes it.
     _, tf = _filters("blur3")
     jacobi3 = _filters("jacobi3")[1]
-    x = np.zeros((1, 16, 16), np.float32)
-    assert config.PENDING_KNOBS == {"overlap": config.OVERLAP_ITEM}
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        step.sharded_iterate(x, tf, 1, grid=_slots((2, 2)),
-                             backend="cuda_rdma", overlap=True)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        ConvolutionModel(tf, device="cpu", overlap=True)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        JacobiSolver(overlap=True, device="cpu").solve(x)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        bench.bench_iterate((16, 16), tf, 1, device="cpu", overlap=True)
+    x = np.random.default_rng(3).integers(0, 256, (1, 16, 16)).astype(
+        np.float32)
+    assert config.PENDING_KNOBS == {}
+    monkeypatch.setenv(config.OVERLAP_INTERPRET_ENV, "1")
+    slots = _slots((2, 2))
+    kw = dict(grid=slots, backend="cuda_rdma", fuse=2)
+    want = step.sharded_iterate(x, tf, 4, **kw)
+    assert torch.equal(step.sharded_iterate(x, tf, 4, overlap=True, **kw),
+                       want)
+    model = ConvolutionModel(tf, overlap=True, **kw)
+    assert torch.equal(model.run_planar(x, 4), want)
+    assert model.effective_overlap is True
+    solver = JacobiSolver(overlap=True, tol=0.1, max_iters=6, grid=slots,
+                          backend="cuda_rdma")
+    np.testing.assert_array_equal(
+        solver.solve(x)[0], JacobiSolver(tol=0.1, max_iters=6, grid=slots,
+                                         backend="cuda_rdma").solve(x)[0])
+    assert bench.bench_iterate((16, 16), tf, 1, overlap=True, reps=1,
+                               **kw)["overlap"] is True
     assert not step.resolve_overlap(None, "cuda_rdma", _slots((2, 2)))
     from parallel_convolution_tpu_torch.solvers import multigrid
     from parallel_convolution_tpu_torch.utils import checkpoint, sharded_io
     from parallel_convolution_tpu_torch.volumes import driver
 
-    slots = _slots((2, 2))
     for call in (
             lambda: multigrid.mg_converge(x, jacobi3, 1e-3, 10, grid=slots),
             lambda: step.sharded_converge(x, jacobi3, 1e-3, 10, grid=slots,
@@ -605,9 +615,12 @@ def test_cli_runs_a_grid_of_slots(tmp_path, capsys, rgb_small):
     # --mesh left out: dims_create of the slots.
     rc, _ = _cli_run(tmp_path, rgb_small, ["--device", "cpu,cpu"])
     assert rc == 0 and "on 1x2 grid" in capsys.readouterr().out
-    rc, _ = _cli_run(tmp_path, rgb_small, [
+    # --overlap on (item 10b, ported): on CPU slots it warns and runs
+    # serialized unless the byte-proof hatch is set (test_torch_overlap.py).
+    rc, dst = _cli_run(tmp_path, rgb_small, [
         "--device", "cpu,cpu,cpu,cpu", "--mesh", "2x2", "--overlap", "on"])
-    assert rc == 2 and "item 10b (" in capsys.readouterr().err
+    assert rc == 0 and "overlapped" not in capsys.readouterr().out
+    np.testing.assert_array_equal(imageio.read_raw(dst, 24, 36, "rgb"), want)
     rc, _ = _cli_run(tmp_path, rgb_small, [
         "--device", "cpu,cpu,cpu,cpu", "--mesh", "2x2", "--converge", "0.5",
         "--solver", "multigrid"])

@@ -37,8 +37,8 @@ from parallel_convolution_tpu_torch.utils import bench, debug, imageio
 from parallel_convolution_tpu_torch.utils import sharded_io
 
 REPO = Path(__file__).resolve().parent.parent
-# Keys of the JAX bench row that wait for later items: the exchange
-# attribution (obs, item 9) and the topology identity (item 10).
+# Keys of the JAX bench row that wait for a later item: the exchange
+# attribution (obs, item 9).
 JAX_ONLY_BENCH_KEYS = {"exchange_fraction", "exchange_hidden_fraction",
                        "halo_bytes"}
 

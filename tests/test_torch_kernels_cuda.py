@@ -634,7 +634,8 @@ def test_rdma_deep_chunk_in_level_groups(cuda_device, name, bhw, kernel,
         "stencil_step": 0, "fused_iterate": 4 * (groups - 1),
         "rdma_block": int(kernel == "block"),
         "rdma_tiled": int(kernel == "tiled"), "rdma_block_slot": 0,
-        "rdma_tiled_slot": 0, "rdma_pack": 0}
+        "rdma_tiled_slot": 0, "rdma_block_region": 0,
+        "rdma_tiled_region": 0, "rdma_pack": 0}
     assert halo.halo_exchange.calls == 0
     want = mesh.join_blocks(rdma.fused_rdma_step_plain(
         blocks, f, (2, 2), "zero", fuse=32, valid_hw=valid))
@@ -1118,13 +1119,14 @@ def _slot_grid(grid_shape, device):
 
 
 def _slot_chunk(blocks, grid_shape, f, boundary, T, valid, col_mode,
-                quantize, device, chunks=1):
+                quantize, device, chunks=1, **kw):
     carry = rdma.slot_carry(blocks, _slot_grid(grid_shape, device), boundary,
                             f.radius * T, col_mode)
     for _ in range(chunks):
         carry = rdma.fused_rdma_slots(carry, f, grid_shape, boundary,
                                       quantize=quantize, fuse=T,
-                                      valid_hw=valid, col_mode=col_mode)
+                                      valid_hw=valid, col_mode=col_mode,
+                                      **kw)
     return mesh.join_blocks(rdma.slot_blocks(carry, grid_shape)), carry
 
 
@@ -1304,6 +1306,186 @@ def test_rdma_slots_across_cards_match_one_card(cuda_device, col_mode):
     want = rdma.stack_blocks(blocks, (R, C))
     for _ in range(12):
         want = rdma.rdma_block(want, f, (R, C), "zero", 1, valid)
+    assert torch.equal(got, mesh.join_blocks(rdma.unstack_blocks(
+        want, (R, C))))
+
+
+# The overlapped pipeline (item 10b): K3 / K4 per slot launched region by
+# region, the interior first with no wait, each band behind its own
+# neighbours' events; byte-equal to the serialized per-slot form.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block", "tiled"])
+@pytest.mark.parametrize("ext", [0, 3])
+def test_rdma_region_launches_tile_the_whole_launch(cuda_device, monkeypatch,
+                                                    kernel, ext):
+    if kernel == "tiled":
+        monkeypatch.setattr(stencil, "_smem_limit", lambda dev: 32 * 1024)
+    f = get_filter("gaussian5")
+    bhw, levels = (70, 90), 2
+    T = levels + ext // f.radius if ext else levels
+    ext = f.radius * (T - levels)
+    blocks = _grid_blocks(68, (2, 2), bhw, "u8", cuda_device)
+    valid = (2 * bhw[0] - 3, 2 * bhw[1] - 1)
+    run = rdma.slot_carry(blocks, _slot_grid((2, 2), cuda_device), "zero",
+                          f.radius * T, "strided").run
+    whole = rdma.rdma_tiled_slot if kernel == "tiled" else \
+        rdma.rdma_block_slot
+    region = rdma.rdma_tiled_region if kernel == "tiled" else \
+        rdma.rdma_block_region
+    kw = dict(ext=ext, **({"tile": (32, 64)} if kernel == "tiled" else {}))
+    oh, ow = bhw[0] + 2 * ext, bhw[1] + 2 * ext
+    run.fork()
+    for s in range(4):
+        want = torch.full((2, oh, ow), 7, dtype=torch.uint8,
+                          device=cuda_device)
+        whole(run, 0, s, want, f, levels, valid, **kw)
+        # The whole output as one region: today's launch, byte for byte.
+        got = torch.full_like(want, 9)
+        region(run, 0, s, got, f, levels, valid, (0, oh, 0, ow), **kw)
+        # The five regions together: the whole, no gap and no overlap.
+        parts = torch.full_like(want, 9)
+        before = region.launches
+        for _, rect, _ in rdma.overlap_schedule(oh, ow, f.radius * T, ext):
+            region(run, 0, s, parts, f, levels, valid, rect, **kw)
+        run.join()
+        torch.cuda.synchronize()
+        assert region.launches == before + 5
+        assert torch.equal(got, want) and torch.equal(parts, want), s
+    with pytest.raises(RuntimeError, match="slot 0 on .* region"):
+        region(run, 0, 0, parts, f, levels, valid, (0, oh + 1, 0, ow), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitioned", [True, False])
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+@pytest.mark.parametrize("grid_shape,boundary", SLOT_GRIDS)
+def test_rdma_slots_overlap_equals_serialized(cuda_device, grid_shape,
+                                              boundary, col_mode,
+                                              partitioned):
+    f = get_filter("edge5")
+    bhw = (23, 37)
+    R, C = grid_shape
+    blocks = _grid_blocks(69, grid_shape, bhw, "u8", cuda_device)
+    valid = _valid(grid_shape, bhw, boundary)
+    for T in (1, 3, 5):
+        want, _ = _slot_chunk(blocks, grid_shape, f, boundary, T, valid,
+                              col_mode, True, cuda_device, chunks=2)
+        before = rdma.rdma_block_region.launches
+        got, _ = _slot_chunk(blocks, grid_shape, f, boundary, T, valid,
+                             col_mode, True, cuda_device, chunks=2,
+                             overlap=True, partitioned=partitioned)
+        torch.cuda.synchronize()
+        n = sum(len(g) for g in rdma.overlap_regions(*bhw, f.radius * T))
+        assert rdma.rdma_block_region.launches == before + 2 * n * R * C
+        assert torch.equal(got, want), T
+    plain = rdma.fused_rdma_slots_plain(blocks, f, grid_shape, boundary,
+                                        fuse=5, valid_hw=valid,
+                                        col_mode=col_mode, overlap=True,
+                                        partitioned=partitioned)
+    one, _ = _slot_chunk(blocks, grid_shape, f, boundary, 5, valid,
+                         col_mode, True, cuda_device, overlap=True,
+                         partitioned=partitioned)
+    assert torch.equal(one, mesh.join_blocks(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+@pytest.mark.parametrize("storage", ["bf16", "u8"])
+def test_rdma_slots_overlap_deep_chunk_and_tails(cuda_device, col_mode,
+                                                 storage):
+    # 32 levels of edge5 on (130, 136) blocks: K4's regions write a
+    # 48-pixel rim, then K2 per slot for the later groups (rest > 0, the
+    # copy into the carry after all eight waits); then single steps after
+    # the fused chunk (the previous step read deeper than this one writes
+    # clear of) and a fused chunk again.
+    f = get_filter("edge5")
+    bhw = (130, 136)
+    blocks = _grid_blocks(70, (2, 2), bhw, storage, cuda_device, channels=1)
+    valid = (2 * bhw[0] - 1, 2 * bhw[1] - 5)
+    grid = _slot_grid((2, 2), cuda_device)
+
+    def run(**kw):
+        carry = rdma.slot_carry(blocks, grid, "zero", 64, col_mode)
+        for T in (32, 1, 1, 8, 32):
+            carry = rdma.fused_rdma_slots(carry, f, (2, 2), "zero", fuse=T,
+                                          valid_hw=valid, col_mode=col_mode,
+                                          **kw)
+        return mesh.join_blocks(rdma.slot_blocks(carry, (2, 2)))
+
+    before = stencil.launch_counts()
+    got = run(overlap=True)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in stencil.launch_counts().items()}
+    assert delta["rdma_tiled_region"] == 2 * 4 * 5
+    assert delta["rdma_tiled_slot"] == delta["rdma_block_slot"] == 0
+    assert torch.equal(got, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_shape,late", [((2, 2), 0), ((4, 4), 5)])
+@pytest.mark.parametrize("partitioned", [True, False])
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+def test_rdma_slots_overlap_holds_under_skew(cuda_device, col_mode,
+                                             partitioned, grid_shape, late):
+    # The barrier test with the overlapped pipeline: a spin on slot
+    # ``late`` before every chunk; its neighbours' interiors run ahead,
+    # their bands wait for it, and the bytes do not move.  ~10 ms, not the
+    # serialized test's 1 ms: the host may take longer than 1 ms to
+    # enqueue a step of region launches, and a shorter spin would leave no
+    # skew on the card.  On 2x2 every stream has a hardware queue of its
+    # own (there are 8 by default), so no queue the streams share orders
+    # the late slot before its diagonal, slot 3, and hides a missed wait.
+    f = get_filter("blur3")
+    R, C = grid_shape
+    blocks = _grid_blocks(71, (R, C), (64, 64), "u8", cuda_device,
+                          channels=1)
+    valid = (R * 64 - 2, C * 64 - 3)
+
+    def run(skew, **kw):
+        carry = rdma.slot_carry(blocks, _slot_grid((R, C), cuda_device),
+                                "zero", 4, col_mode)
+        for T in (4, 1, 4, 4, 1, 1, 4, 4, 1, 4, 4, 4):
+            if skew:
+                with torch.cuda.stream(carry.run.streams[late]):
+                    torch.cuda._sleep(20_000_000)
+            carry = rdma.fused_rdma_slots(carry, f, (R, C), "zero", fuse=T,
+                                          valid_hw=valid, col_mode=col_mode,
+                                          **kw)
+        return mesh.join_blocks(rdma.slot_blocks(carry, (R, C)))
+
+    steady = run(False)
+    assert torch.equal(run(True, overlap=True, partitioned=partitioned),
+                       steady)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_mode", ["packed", "strided"])
+def test_rdma_slots_overlap_across_cards(cuda_device, col_mode):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: slots on one card cannot show a "
+                    "cross-card order")
+    f = get_filter("blur3")
+    R, C = 2, 4
+    blocks = _grid_blocks(72, (R, C), (64, 64), "u8", cuda_device,
+                          channels=1)
+    valid = (R * 64 - 2, C * 64 - 3)
+    grid = mesh.make_grid((R, C), devices=[f"cuda:{s % 2}"
+                                           for s in range(R * C)])
+    carry = rdma.slot_carry(mesh.split_blocks(mesh.join_blocks(blocks),
+                                              grid),
+                            grid, "zero", 2, col_mode)
+    for _ in range(12):
+        with torch.cuda.stream(carry.run.streams[1]):
+            torch.cuda._sleep(2_000_000)
+        carry = rdma.fused_rdma_slots(carry, f, (R, C), "zero", fuse=2,
+                                      valid_hw=valid, col_mode=col_mode,
+                                      overlap=True)
+    got = mesh.join_blocks(rdma.slot_blocks(carry, (R, C)), cuda_device)
+    want = rdma.stack_blocks(blocks, (R, C))
+    for _ in range(12):
+        want = rdma.rdma_block(want, f, (R, C), "zero", 2, valid)
     assert torch.equal(got, mesh.join_blocks(rdma.unstack_blocks(
         want, (R, C))))
 

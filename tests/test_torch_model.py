@@ -169,5 +169,9 @@ def test_quantize_contract_and_storage_errors():
         ConvolutionModel(f, device="cpu", storage="u8", quantize=False)
     # interior_split is ported (item 2): the model takes it.
     assert ConvolutionModel(f, device="cpu", interior_split=True).interior_split
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ConvolutionModel(f, device="cpu", overlap=True)
+    # overlap is ported (item 10b): the model takes it; on one CPU device
+    # every run clamps it to the serialized order.
+    model = ConvolutionModel(f, device="cpu", overlap=True)
+    assert model.overlap is True
+    model.run_planar(np.zeros((1, 8, 8), np.float32), 1)
+    assert model.effective_overlap is False

@@ -206,10 +206,12 @@ def test_cpu_wrappers_count_no_launches():
     rdma.fused_rdma_step([[x, x]], tf, (1, 2), fuse=2, valid_hw=(12, 24))
     rdma.fused_rdma_slots([[x, x]], tf, (1, 2), fuse=2, valid_hw=(12, 24),
                           col_mode="packed")
+    rdma.fused_rdma_slots([[x, x]], tf, (1, 2), fuse=2, valid_hw=(12, 24),
+                          col_mode="packed", overlap=True)
     assert stencil.launch_counts() == {
         "stencil_step": 0, "fused_iterate": 0, "rdma_block": 0,
         "rdma_tiled": 0, "rdma_block_slot": 0, "rdma_tiled_slot": 0,
-        "rdma_pack": 0}
+        "rdma_block_region": 0, "rdma_tiled_region": 0, "rdma_pack": 0}
 
 
 # ---------------------------------------------------------------- round mode

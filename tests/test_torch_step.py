@@ -166,7 +166,7 @@ def test_iterate_prepared_keeps_padded_blocks():
     np.testing.assert_array_equal(got[0], oracle.run_serial_u8(img, tf, 3))
 
 
-def test_step_errors():
+def test_step_errors(monkeypatch):
     _, tf = _filters("blur3")
     x = np.zeros((1, 24, 36), np.float32)
     g = mesh.make_grid((2, 2), "cpu")
@@ -182,16 +182,17 @@ def test_step_errors():
         step.sharded_iterate(x, tf, 1, grid=g, backend="pallas_rdma")
     # overlap=True on a backend without the overlapped pipeline runs
     # serialized with a warning (the JAX package's clamp); on cuda_rdma
-    # the pipeline is item 10b.
-    step._OVERLAP_WARNED.discard("cuda")  # the warning is once a process
+    # (item 10b, ported) a grid that is not a grid of slots clamps too.
+    step._OVERLAP_WARNED.discard("backend:cuda")  # once a process
     with pytest.warns(UserWarning, match="running serialized"):
-        step.resolve_overlap(True, "cuda", g)
+        assert step.resolve_overlap(True, "cuda", g) is False
     np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, overlap=True).numpy(),
         step.sharded_iterate(x, tf, 1, grid=g).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma",
-                             overlap=True)
+                             overlap=True).numpy(),
+        step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma").numpy())
     # interior_split is ported (item 2): the plain backend takes it.
     np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, interior_split=True).numpy(),
@@ -200,10 +201,12 @@ def test_step_errors():
     np.testing.assert_array_equal(
         step.sharded_iterate(x, tf, 1, grid=g, fallback=True).numpy(),
         step.sharded_iterate(x, tf, 1, grid=g).numpy())
-    with pytest.raises(NotImplementedError,
-                       match="item 10b \\(the overlapped pipeline\\)"):
-        step.sharded_iterate(x, tf, 1, grid=g, backend="cuda_rdma",
-                             overlap=True)
+    # overlap is ported (item 10b): on cuda_rdma a grid that is not a
+    # grid of slots clamps it, even with the CPU's byte-proof hatch set.
+    monkeypatch.setenv("PCTPU_OVERLAP_INTERPRET", "1")
+    step._OVERLAP_WARNED.discard("unslotted")
+    with pytest.warns(UserWarning, match="not slotted"):
+        assert step.resolve_overlap(True, "cuda_rdma", g) is False
     # col_mode is ported (item 10): both transports give the plain bytes.
     for cm in ("packed", "strided", "auto"):
         np.testing.assert_array_equal(

@@ -89,7 +89,10 @@ Phases (any failure exits non-zero and prints no result line):
    one slot's stream before every chunk of config 2's ``cuda_rdma`` run
    leaving its bytes unchanged (the barrier); the per-slot K3 / K4 and the
    pack at those shapes against their plain versions, timed over the
-   grid; the column-transport probe (the per-slot launches reading the
+   grid; the pack alone at each of the three shapes (one slot's launches
+   queued ahead on its stream, beside an empty kernel's there, its vector
+   width and byte bound, and the parent's time where it was measured);
+   the column-transport probe (the per-slot launches reading the
    staging against reading in place, the pack, a barrier wait on the
    host) that ``costmodel.pick_col_mode`` reads.  With two cards or more
    the paths run again round-robin over the cards (``--device all``),
@@ -185,7 +188,8 @@ Phases (any failure exits non-zero and prints no result line):
    5a ``op_chain`` prices ten op chains (every row printed; the f32 FMA
    rate at most 105% of the data sheet's), 5b ``smem_probe`` steps across
    the shared-memory limits (each step within a limit ``ok``, each above it
-   a ``clean_refusal``), 5c ``rdma_ladder`` takes K4 apart construct by
+   a ``clean_refusal``) and is timed beside ``torch.add`` both per call and
+   queued ahead (the device's time), 5c ``rdma_ladder`` takes K4 apart construct by
    construct (every rung equal to its plain version, r3 byte-equal to K4);
    launches counted by the probes themselves;
 7. ``backend="auto"``: ``ConvolutionModel(backend="auto", fuse=None)`` on
@@ -262,6 +266,24 @@ REPLACES = {
     "smem_probe": "scripts/helper_crash_probe.py:100",
     "rdma_ladder": "scripts/tiled_repro_probe.py:101",
 }
+# The pack and 5b of the parent commit of their redesign, measured by
+# parallel_convolution_tpu_torch/probes/pack_ab.py on an H100 80GB HBM3 at
+# 700 W beside the redesigned kernels (the means of its parent turns):
+# device_ms queued ahead, host_ms back to back, slot_launch_ms every slot
+# between a fork and a join.
+PACK_PARENT_MS = {
+    "config 2": {"device_ms": 0.004974848031997681,
+                 "host_ms": 0.013226848125457763,
+                 "slot_launch_ms": 0.10507519721984863},
+    "config 3": {"device_ms": 0.006008319854736328,
+                 "host_ms": 0.012163551807403564,
+                 "slot_launch_ms": 0.45226079940795905},
+    "grey 16x16": {"device_ms": 0.003482143998146057,
+                   "host_ms": 0.013566751956939698,
+                   "slot_launch_ms": 7.150134887695312},
+}
+SMEM_PARENT_MS = {"ms": 0.028789119720458986,
+                  "device_ms": 0.002914799898862839}
 # The one-card kernels, then the per-slot forms of K3 / K4 and the pack
 # (a grid of slots, phase 4h), then their region launches (the overlapped
 # pipeline, phase 4i).
@@ -1783,6 +1805,32 @@ def first_group_plain(blocks, filt, grid_shape, T: int, levels: int,
         for i, row in enumerate(padded) for j, p in enumerate(row)])
 
 
+def time_pack_alone(run, depth: int, nbytes: float) -> dict:
+    """Slot 0's pack alone (``rdma.rdma_pack``), on its stream: launched
+    back to back and queued ahead of the card (``device_ms``, the kernel's
+    own time), beside an empty kernel (``torch.cuda._sleep(0)``) timed the
+    same way on that stream (``floor_ms``: the launch's floor) and the
+    same calls not queued ahead (``host_ms``); ``vec`` is the bytes a
+    thread moves (``rdma.pack_plan``), ``bound_ms`` one slot's staging
+    (``nbytes``) read once and written once."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import rdma
+
+    one = lambda: rdma.rdma_pack(run, 0, 0, depth)  # noqa: E731
+    with torch.cuda.stream(run.streams[0]):
+        device_ms = cuda_ms(one, reps=500, warmup=20, queue_ahead=True)
+        floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), reps=500,
+                           warmup=20, queue_ahead=True)
+        host_ms = cuda_ms(one, reps=500, warmup=20)
+    b_ms, b_by = bound(nbytes, 0.0)
+    return dict(vec=run.pack_plans[(0, 0, depth, 1)].vec,
+                threads=list(run.pack_plans[(0, 0, depth, 1)].threads),
+                device_ms=device_ms, floor_ms=floor_ms, host_ms=host_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                over_floor=device_ms / max(b_ms, floor_ms))
+
+
 def time_slot_kernels(dev, rgb, grey, big, blur3, edge5) -> dict:
     """The per-slot kernels at the separate-devices phase's launches, each
     over the whole grid (one launch a slot): the first level group of a
@@ -1876,13 +1924,18 @@ def time_slot_kernels(dev, rgb, grey, big, blur3, edge5) -> dict:
         elt = blocks[0][0].element_size()
         nbytes = 2 * nb * 2 * C * rows * depth * elt
         pb_ms, pb_by = bound(nbytes, 0.0)
+        alone = time_pack_alone(runs["packed"], depth, nbytes / nb)
+        alone.update(slot_launch_ms=pack_ms,
+                     parent=PACK_PARENT_MS.get(key))
         if key == "config 2":
             out["rdma_pack"] = dict(
                 grid=list(shape), slab=[2, C, rows, depth], ms=pack_ms,
                 plain_ms=cuda_ms(lambda: rdma.rdma_pack_plain(
                     blocks, shape, "zero", depth), reps=2, warmup=1),
                 max_abs_err=perr, library_ms=None, bound_ms=pb_ms,
-                bound_by=pb_by, fraction_of_bound=pb_ms / pack_ms)
+                bound_by=pb_by, fraction_of_bound=pb_ms / pack_ms,
+                device_ms=alone["device_ms"], alone={})
+        out["rdma_pack"]["alone"][key] = alone
         # The prices pick_col_mode reads: a padded row of one channel read
         # in place over read from the staging, and a pack launch's fixed
         # part (its time less its bytes at the data sheet's rate).
@@ -3504,6 +3557,18 @@ def probe_phase(dev) -> dict:
                        reps=50)
     probe_plain_ms = cuda_ms(lambda: smem_budget.smem_probe_plain(x), reps=50)
     probe_lib_ms = cuda_ms(lambda: torch.add(x, 1.0), reps=50)
+    # The same two calls queued ahead of the card: each one's device time.
+    probe_dev_ms = cuda_ms(
+        lambda: smem_budget.smem_probe(x, 100 * 1024, True), reps=200,
+        warmup=20, queue_ahead=True)
+    probe_lib_dev_ms = cuda_ms(lambda: torch.add(x, 1.0), reps=200,
+                               warmup=20, queue_ahead=True)
+    print("probe smem_probe times: " + json.dumps(dict(
+        shape=list(smem_budget.SHAPE), bytes=100 * 1024, ms=probe_ms,
+        device_ms=probe_dev_ms, add_ms=probe_lib_ms,
+        add_device_ms=probe_lib_dev_ms,
+        bound_ms=bound(2.0 * x.numel() * 4, float(x.numel()))[0],
+        parent=SMEM_PARENT_MS)))
     got = smem_budget.smem_probe(x, 100 * 1024, True)[0]
     probe_err = max_abs_err(got, smem_budget.smem_probe_plain(x))
 

@@ -22,8 +22,16 @@
 //    overrun fails cleanly or kills the compile helper).  Here out = in + 1
 //    with a dynamic shared-memory scratch of a given size, with or without
 //    the opt-in attribute: the question is whether a launch above the
-//    card's limits is refused cleanly or loses the context.  Trivial work;
-//    bound by launch latency.
+//    card's limits is refused cleanly or loses the context.  Bound by
+//    bytes (one read and one write of each float) and, at the probe's
+//    512 KB, by the launch.  The design keeps the probe's question and
+//    pays no more than torch.add for the answer: the attribute is raised
+//    only when its accepted size changes (a refusal is asked again every
+//    time), the grid is one wave (the blocks the occupancy calculator fits
+//    at that size on every SM, never more than the work), each thread
+//    strides over float4s where both pointers are 16-byte aligned, a
+//    scalar tail after them, and over floats otherwise, and its first load
+//    is in flight while the block touches its scratch.
 //
 // 5c rdma_ladder_kernel -- replaces scripts/tiled_repro_probe.py:101-218 (a
 //    ladder of Pallas kernels, each adding one construct of the tiled RDMA
@@ -186,14 +194,28 @@ cudaError_t launch_chain(const void* in, void* out, long long n,
 // 5b: smem_probe
 // ---------------------------------------------------------------------------
 
+constexpr int kProbeThreads = 256;
+constexpr int kProbeDevices = 64;
+
 // OPT = 1 is the instance whose dynamic shared-memory attribute the probe
 // raises; OPT = 0 keeps the default, so "without opt-in" stays true however
-// the steps are ordered.
-template <int OPT>
-__global__ void smem_probe_kernel(const float* __restrict__ in,
-                                  float* __restrict__ out, int n, int words) {
+// the steps are ordered.  Every block holds the whole scratch and touches
+// its first and last word; VEC4: the float4 body (n / 4 float4s, then a
+// scalar tail of n % 4), else floats.  Each thread's first load starts
+// before the scratch's barrier, so that the two latencies overlap.
+template <int OPT, bool VEC4>
+__global__ void __launch_bounds__(kProbeThreads)
+    smem_probe_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      int n, int words) {
   extern __shared__ float scratch[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float4* in4 = reinterpret_cast<const float4*>(in);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const int stride = gridDim.x * blockDim.x;
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n4 = VEC4 ? n >> 2 : 0;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i0 < n4) v = in4[i0];
+  const float s = !VEC4 && i0 < n ? in[i0] : 0.f;
   // Write the scratch's first and last word and read one back, so the
   // allocation is used: out = in + 1 + 0.
   if (threadIdx.x == 0 && words > 0) {
@@ -202,7 +224,67 @@ __global__ void smem_probe_kernel(const float* __restrict__ in,
   }
   __syncthreads();
   const float z = words > 0 ? scratch[(words - 1) * (threadIdx.x & 1)] : 0.f;
-  if (i < n) out[i] = in[i] + 1.f + z;
+  for (int j = i0; j < n4; j += stride) {
+    if (j != i0) v = in4[j];
+    v.x = v.x + 1.f + z;
+    v.y = v.y + 1.f + z;
+    v.z = v.z + 1.f + z;
+    v.w = v.w + 1.f + z;
+    out4[j] = v;
+  }
+  for (int j = (n4 << 2) + i0; j < n; j += stride)
+    out[j] = (!VEC4 && j == i0 ? s : in[j]) + 1.f + z;
+}
+
+// Per device and instance: the size the attribute last accepted (-1:
+// none, or unknown after a refusal), and the one-wave grid of the last
+// size whose occupancy was read.  The probe is driven from one host
+// thread.
+struct ProbeState {
+  long long accepted = -1;
+  long long wave_bytes = -1;
+  int wave = 0;
+};
+ProbeState g_probe[2][2][kProbeDevices];
+
+template <int OPT, bool VEC4>
+cudaError_t launch_probe(int device, const float* in, float* out, int n,
+                         long long bytes, int* attr_err, cudaStream_t st) {
+  ProbeState& ps = g_probe[OPT][VEC4][device];
+  if (OPT && ps.accepted != bytes) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        smem_probe_kernel<OPT, VEC4>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    *attr_err = static_cast<int>(e);
+    ps.accepted = e == cudaSuccess ? bytes : -1;
+    ps.wave_bytes = -1;
+  }
+  if (ps.wave_bytes != bytes) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, smem_probe_kernel<OPT, VEC4>, kProbeThreads,
+            static_cast<size_t>(bytes)) ==
+            cudaSuccess &&
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) == cudaSuccess &&
+        per_sm > 0) {
+      ps.wave = per_sm * sms;
+      ps.wave_bytes = bytes;
+    } else {
+      // No block fits (the launch is refused below, which is the datum):
+      // nothing is kept, and the query's error is not the launch's.
+      cudaGetLastError();
+      ps.wave = 0;
+    }
+  }
+  const int units = VEC4 ? (n + 3) / 4 : n;
+  const int work = (units + kProbeThreads - 1) / kProbeThreads;
+  const int blocks = ps.wave > 0 && ps.wave < work ? ps.wave : work;
+  smem_probe_kernel<OPT, VEC4>
+      <<<blocks, kProbeThreads, static_cast<size_t>(bytes), st>>>(
+          in, out, n, static_cast<int>(bytes / sizeof(float)));
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -315,27 +397,33 @@ extern "C" int pc_op_chain(int op, const void* in, void* out, long long n,
 }
 
 // 5b.  One launch of out = in + 1 (n floats) with `bytes` of dynamic
-// shared memory; with opt_in the attribute is raised to `bytes` first and
-// its return code lands in *attr_err.  Returns the launch's code.
+// shared memory; with opt_in the attribute is raised to `bytes` first
+// (unless it last accepted that size on this device) and its return code
+// lands in *attr_err (0 when it was not asked).  Returns the launch's code.
 extern "C" int pc_smem_probe(const float* in, float* out, int n,
                              long long bytes, int opt_in, int* attr_err,
                              void* stream) {
   *attr_err = 0;
-  if (n < 1 || bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int words = static_cast<int>(bytes / sizeof(float));
-  const dim3 grid((n + 255) / 256), block(256);
+  if (n < 1 || bytes < 0 || bytes > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  const cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device < 0 || device >= kProbeDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  const bool vec4 = (reinterpret_cast<uintptr_t>(in) |
+                     reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (opt_in) {
-    *attr_err = static_cast<int>(cudaFuncSetAttribute(
-        smem_probe_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes)));
-    smem_probe_kernel<1><<<grid, block, static_cast<size_t>(bytes), st>>>(
-        in, out, n, words);
-  } else {
-    smem_probe_kernel<0><<<grid, block, static_cast<size_t>(bytes), st>>>(
-        in, out, n, words);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t r;
+  if (opt_in)
+    r = vec4 ? launch_probe<1, true>(device, in, out, n, bytes, attr_err, st)
+             : launch_probe<1, false>(device, in, out, n, bytes, attr_err,
+                                      st);
+  else
+    r = vec4 ? launch_probe<0, true>(device, in, out, n, bytes, attr_err, st)
+             : launch_probe<0, false>(device, in, out, n, bytes, attr_err,
+                                      st);
+  return static_cast<int>(r);
 }
 
 // The runtime's own reading of the opt-in limit (5b prints it beside

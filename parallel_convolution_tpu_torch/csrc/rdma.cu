@@ -112,36 +112,73 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks(K))
                     out, out_dtype, rc.y0 + rc.h, rc.x0 + rc.w);
 }
 
-// The packed transport's gather: for every block b of [b0, b0 + count),
-// its two edge column slabs at ring depth D and row-padded height into its
-// staging (staged_index's layout), in the input dtype, rows beyond the
-// block from its upper / lower neighbour (zeros where there is none: the
-// reader masks the image edge by global coordinates anyway).  One thread a
-// staged element, column fastest.
-template <typename E>
-__global__ void rdma_pack_kernel(BlockGrid g, int count, int D) {
+// The packed transport's gather (rdma_pack_kernel; replaces the JAX
+// package's _packed_slab_copy / _pack_cols, pallas_rdma.py:293 and :743):
+// for every block b of [b0, b0 + count), its two edge column slabs at ring
+// depth D and row-padded height into its staging (staged_index's layout),
+// in the input dtype, rows beyond the block from its upper / lower
+// neighbour (zeros where there is none: the reader masks the image edge by
+// global coordinates anyway).
+//
+// What bounds it on the H100: bytes, and at the main path's slabs (a few
+// hundred KB a block) the launch itself -- 2 * C * (h + 2D) * D elements
+// read once and written once.  The design moves them as plain copies:
+//   - a staged row is D contiguous elements, D * elt bytes; the source row
+//     segment is contiguous too, at column 0 or w - D of the block row.  A
+//     thread moves one vector of V bytes (V = sizeof(Vec): 16, 8, 4, 2 or
+//     1), and neighbouring threads (threadIdx.x) move neighbouring vectors
+//     of one staged row, so loads and stores are coalesced.  The host
+//     (ops/rdma.py:pack_plan) picks the widest V that divides both base
+//     addresses, the row pitch w * elt, the right slab's offset
+//     (w - D) * elt and D * elt, and the launch shape; one instance a V,
+//     the element type does not matter to a copy;
+//   - blockIdx.z runs over (block of the range, side, channel) and
+//     blockIdx.y / threadIdx.y over the h + 2D staged rows, both
+//     grid-strided: one 32-bit division a (block, side, channel), none an
+//     element;
+//   - the upper, own and lower blocks' addresses are read from the
+//     neighbour table once a thread, and each row picks one of the three
+//     from its row alone;
+//   - index math is 32-bit but for each row's two base offsets (the source
+//     plane and the staging), which are 64-bit.
+// Why not TMA: a tensor map needs a global row pitch that is a multiple
+// of 16 bytes, which config 2's blocks (2520 B) and the 256-rank split's
+// (158 B) do not have, and a gather of 8-96-byte row segments that every
+// byte visits once has no shared-memory reuse for a bulk copy to win.
+template <typename Vec>
+__global__ void __launch_bounds__(256)
+    rdma_pack_kernel(BlockGrid g, int count, int D, int elt) {
   const int h = g.h, w = g.w, H2 = h + 2 * D;
-  const long long per = 2LL * g.C * H2 * D;
-  const long long total = per * count;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int b = g.b0 + static_cast<int>(i / per);
-    long long r = i % per;
-    const int col = static_cast<int>(r % D);
-    const int row = static_cast<int>((r / D) % H2);
-    const int c = static_cast<int>((r / (static_cast<long long>(D) * H2)) %
-                                   g.C);
-    const int side = static_cast<int>(r / (static_cast<long long>(D) * H2 *
-                                           g.C));
-    const int ly = row - D;
-    const int di = ly < 0 ? 0 : (ly < h ? 1 : 2);
-    const E* src = static_cast<const E*>(source_block(g, b, di * 3 + 1));
-    const int lx = side == 0 ? col : w - D + col;
-    E v = E(0);
-    if (src != nullptr)
-      v = src[(static_cast<long long>(c) * h + ly - (di - 1) * h) * w + lx];
-    reinterpret_cast<E*>(g.stage[b])[r] = v;
+  const int nv = D * elt / static_cast<int>(sizeof(Vec));  // vectors a row
+  const int per = 2 * g.C, nz = count * per;
+  const int row_bytes = D * elt, pitch = w * elt;
+  for (int z = blockIdx.z; z < nz; z += gridDim.z) {
+    const int bi = z / per, sc = z - bi * per;
+    const int side = sc / g.C, c = sc - side * g.C;
+    const int b = g.b0 + bi;
+    const char* up = static_cast<const char*>(source_block(g, b, 1));
+    const char* own = static_cast<const char*>(source_block(g, b, 4));
+    const char* down = static_cast<const char*>(source_block(g, b, 7));
+    const int col0 = side == 0 ? 0 : (w - D) * elt;
+    char* stage = reinterpret_cast<char*>(g.stage[b]) +
+                  static_cast<long long>(side * g.C + c) * H2 * row_bytes;
+    for (int row = blockIdx.y * blockDim.y + threadIdx.y; row < H2;
+         row += gridDim.y * blockDim.y) {
+      const int ly = row - D;
+      // The source row: the upper neighbour's last D rows, the block's
+      // own, or the lower neighbour's first D.
+      const char* src = ly < 0 ? up : (ly < h ? own : down);
+      const int sy = ly < 0 ? ly + h : (ly < h ? ly : ly - h);
+      Vec* dst = reinterpret_cast<Vec*>(
+          stage + static_cast<long long>(row) * row_bytes);
+      if (src != nullptr) {
+        const Vec* s = reinterpret_cast<const Vec*>(
+            src + (static_cast<long long>(c) * h + sy) * pitch + col0);
+        for (int v = threadIdx.x; v < nv; v += blockDim.x) dst[v] = s[v];
+      } else {
+        for (int v = threadIdx.x; v < nv; v += blockDim.x) dst[v] = Vec{};
+      }
+    }
   }
 }
 
@@ -223,35 +260,63 @@ extern "C" int pc_rdma_step(int tiled, const long long* ptrs, const int* nbr,
   }));
 }
 
+// One pack launch's arguments, made once by the host for a slot (ops/
+// rdma.py:_PackArgs mirrors it field for field) and passed by address, so
+// that a launch costs the host one ctypes argument: `ptrs` and `nbr` as
+// pc_rdma_step's (device arrays), the stream, blocks [b0, b0 + count) of
+// nb (gcols to a grid row), each (C, h, w) in in_dtype, at ring depth D;
+// the launch shape as ops/rdma.py:pack_plan gives it.
+struct PackArgs {
+  long long ptrs, nbr, stream;
+  int in_dtype, nb, gcols, b0, count, C, h, w, D;
+  int vec, tx, ty, gy, gz;
+};
+
 // The packed transport's gather (rdma_pack_kernel) for blocks [b0, b0 +
-// count) at ring depth D: `ptrs` as pc_rdma_step's, every staging address
-// of the range non-zero, (2, C, h + 2D, D) elements each.
-extern "C" int pc_rdma_pack(const long long* ptrs, const int* nbr,
-                            int in_dtype, int nb, int gcols, int b0,
-                            int count, int C, int h, int w, int D,
-                            void* stream) {
+// count) at ring depth D: every staging address of the range non-zero,
+// (2, C, h + 2D, D) elements each.  `vec` bytes a thread (16, 8, 4, 2 or
+// 1; it must divide every block's and staging's address, which the caller
+// has checked, and w * elt and D * elt, checked here), tx x ty threads, a
+// 1 x gy x gz grid.
+extern "C" int pc_rdma_pack(const PackArgs* a) {
+  const int in_dtype = a->in_dtype, nb = a->nb, gcols = a->gcols;
+  const int b0 = a->b0, count = a->count, C = a->C, h = a->h, w = a->w;
+  const int D = a->D, vec = a->vec, tx = a->tx, ty = a->ty, gy = a->gy;
+  const int gz = a->gz;
+  const int elt = in_dtype == kU8 ? 1 : (in_dtype == kBF16 ? 2 : 4);
   if (nb < 1 || gcols < 1 || nb % gcols != 0 || b0 < 0 || count < 1 ||
       b0 + count > nb || C < 1 || h < 1 || w < 1 || D < 1 ||
-      D > (h < w ? h : w))
+      D > (h < w ? h : w) || (in_dtype != kU8 && in_dtype != kBF16 &&
+                              in_dtype != kF32) ||
+      vec < 1 || vec > 16 || (vec & (vec - 1)) != 0 ||
+      (w * elt) % vec != 0 || (D * elt) % vec != 0 || tx < 1 || ty < 1 ||
+      tx * ty > 256 || gy < 1 || gy > 65535 || gz < 1 || gz > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long* ptrs = reinterpret_cast<const long long*>(a->ptrs);
+  const int* nbr = reinterpret_cast<const int*>(a->nbr);
   BlockGrid g{ptrs, nbr, gcols, C, h, w, in_dtype};
   g.stage = ptrs + nb;
   g.b0 = b0;
-  const long long total = 2LL * C * (h + 2LL * D) * D * count;
-  const int threads = 256;
-  const int grid = static_cast<int>(
-      (total + threads - 1) / threads < 8192 ? (total + threads - 1) / threads
-                                             : 8192);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (in_dtype) {
-    case kU8:
-      rdma_pack_kernel<unsigned char><<<grid, threads, 0, st>>>(g, count, D);
+  const dim3 grid(1, gy, gz), block(tx, ty);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a->stream);
+  switch (vec) {
+    case 16:
+      rdma_pack_kernel<uint4><<<grid, block, 0, st>>>(g, count, D, elt);
       break;
-    case kBF16:
-      rdma_pack_kernel<unsigned short><<<grid, threads, 0, st>>>(g, count, D);
+    case 8:
+      rdma_pack_kernel<uint2><<<grid, block, 0, st>>>(g, count, D, elt);
+      break;
+    case 4:
+      rdma_pack_kernel<unsigned int><<<grid, block, 0, st>>>(g, count, D,
+                                                             elt);
+      break;
+    case 2:
+      rdma_pack_kernel<unsigned short><<<grid, block, 0, st>>>(g, count, D,
+                                                               elt);
       break;
     default:
-      rdma_pack_kernel<float><<<grid, threads, 0, st>>>(g, count, D);
+      rdma_pack_kernel<unsigned char><<<grid, block, 0, st>>>(g, count, D,
+                                                              elt);
   }
   return static_cast<int>(cudaGetLastError());
 }

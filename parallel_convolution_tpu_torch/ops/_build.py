@@ -92,8 +92,8 @@ _SIGNATURES = {
         "pc_rdma_step": [_I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _IP, _P],
-        # ptrs, nbr, in_dtype, nb, gcols, b0, count, C, h, w, D, stream
-        "pc_rdma_pack": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # the address of a PackArgs (ops/rdma.py:_PackArgs)
+        "pc_rdma_pack": [_P],
         # device, peer
         "pc_enable_peer": [_I, _I],
     },

@@ -636,6 +636,57 @@ def rdma_pack_plain(blocks, grid_shape, boundary: str,
             for row in padded for p in row]
 
 
+# The pack's launch (csrc/rdma.cu:rdma_pack_kernel): bytes a thread moves,
+# widest first, and threads a CUDA block.
+PACK_VECTORS = (16, 8, 4, 2, 1)
+PACK_THREADS = 256
+_GRID_MAX = 65535
+
+
+class _PackArgs(ctypes.Structure):
+    """One pack launch's arguments, ``csrc/rdma.cu:PackArgs`` field for
+    field."""
+
+    _fields_ = ([(n, ctypes.c_longlong) for n in ("ptrs", "nbr", "stream")]
+                + [(n, ctypes.c_int) for n in (
+                    "in_dtype", "nb", "gcols", "b0", "count", "C", "h", "w",
+                    "D", "vec", "tx", "ty", "gy", "gz")])
+
+
+class PackPlan(NamedTuple):
+    """One pack launch: ``vec`` bytes a thread; ``threads`` = (tx, ty),
+    tx threads along a staged row's vectors and ty rows; ``grid`` = (1,
+    gy, gz), gy row tiles of the h + 2D staged rows and gz (block, side,
+    channel) triples, both grid-strided."""
+
+    vec: int
+    threads: tuple[int, int]
+    grid: tuple[int, int, int]
+
+
+def pack_plan(C: int, h: int, w: int, D: int, elt: int, addrs,
+              count: int = 1) -> PackPlan:
+    """The pack's launch for ``count`` blocks of (C, h, w) elements of
+    ``elt`` bytes at ring depth ``D``: the widest vector that divides
+    every byte address in ``addrs`` (the blocks the launch reads and the
+    stagings it writes), the row pitch ``w·elt``, the right slab's column
+    offset ``(w − D)·elt`` and a staged row's ``D·elt`` bytes (every
+    vector a thread moves then lies aligned, on both sides), and a
+    256-thread block of tx × ty with tx the power of two that covers a
+    row's vectors (at most 256)."""
+    if not 1 <= D <= min(h, w) or min(C, count, elt) < 1:
+        raise ValueError(f"no pack of depth {D} for {count} blocks of "
+                         f"{(C, h, w)} x {elt} B")
+    offsets = (w * elt, (w - D) * elt, D * elt, *(int(a) for a in addrs))
+    vec = next(v for v in PACK_VECTORS if all(o % v == 0 for o in offsets))
+    nv = D * elt // vec
+    tx = min(1 << (nv - 1).bit_length(), PACK_THREADS)
+    ty = PACK_THREADS // tx
+    return PackPlan(vec, (tx, ty),
+                    (1, min(-(-(h + 2 * D) // ty), _GRID_MAX),
+                     min(count * 2 * C, _GRID_MAX)))
+
+
 _STREAMS: dict[tuple[str, ...], list] = {}
 _PEERS: set[tuple[int, int]] = set()
 
@@ -728,6 +779,53 @@ class _SlotRun:
         self.launched = [torch.cuda.Event() for _ in self.slots]
         self.staged = [torch.cuda.Event() for _ in self.slots]
         self.joined = True
+        # The pack's ctypes arguments and plan by (buffer set, first slot,
+        # depth, count), every slot's at the run's depth made here.
+        self.index = [torch.device(d).index for d in self.slots]
+        self.packs, self.pack_plans = {}, {}
+        if self.packed:
+            from parallel_convolution_tpu_torch.ops import _build
+
+            self.pack_fn = _build.load_library("rdma").pc_rdma_pack
+            for src in range(len(self.bufs)):
+                for s in range(len(self.slots)):
+                    self.pack_args(src, s, self.depth)
+
+    def pack_args(self, src: int, s: int, depth: int,
+                  count: int = 1) -> tuple:
+        """``(args, address)``: the :class:`_PackArgs` of the pack of
+        slots ``[s, s + count)`` (one device) of the buffer set ``src`` at
+        ``depth``, planned (:func:`pack_plan`) from the addresses that
+        launch reads and writes, and its address; made once."""
+        key = (src, s, depth, count)
+        if key in self.packs:
+            return self.packs[key]
+        span = range(s, s + count)
+        if (not self.packed or not 1 <= depth <= self.depth or count < 1
+                or s < 0 or s + count > len(self.slots)
+                or len({self.slots[b] for b in span}) != 1):
+            raise ValueError(f"slots {s}..{s + count - 1} have no staging "
+                             f"for depth {depth} on one device")
+        C, h, w = self.block_shape
+        bufs = self.bufs[src]
+        elt = bufs[0].element_size()
+        addrs = [self.stage[self.where[b][0]][self.where[b][1]].data_ptr()
+                 for b in span]
+        for b in span:
+            for n in (self.table[b][1], b, self.table[b][7]):
+                if n >= 0:
+                    di, k = self.where[n]
+                    addrs.append(bufs[di][k].data_ptr())
+        plan = pack_plan(C, h, w, depth, elt, addrs, count)
+        di = self.where[s][0]
+        args = _PackArgs(
+            self.tables[src][di].data_ptr(), self.nbr[di].data_ptr(),
+            self.streams[s].cuda_stream, stencil.DTYPE_CODES[self.dtype],
+            len(self.slots), self.grid_shape[1], s, count, C, h, w, depth,
+            plan.vec, *plan.threads, *plan.grid[1:])
+        self.packs[key] = (args, ctypes.addressof(args))
+        self.pack_plans[key] = plan
+        return self.packs[key]
 
     def buffer_set(self, parts) -> int:
         ptr = parts[0].data_ptr()
@@ -899,23 +997,23 @@ def rdma_tiled_region(run: _SlotRun, src: int, s: int, out, filt: Filter,
 rdma_tiled_region.launches = 0
 
 
-def rdma_pack(run: _SlotRun, src: int, s: int, depth: int) -> None:
-    """The packed transport's gather for slot ``s``: its block's two edge
-    column slabs of the buffer set ``src``, ``depth`` deep at the
-    row-padded height, into its staging, on its device and stream."""
-    from parallel_convolution_tpu_torch.ops import _build
-
-    di, _ = run.where[s]
-    C, h, w = run.block_shape
-    if not run.packed or depth > run.depth:
-        raise ValueError(f"slot {s} has no staging for depth {depth}")
-    with torch.cuda.device(run.slots[s]):
-        err = _build.load_library("rdma").pc_rdma_pack(
-            run.tables[src][di].data_ptr(), run.nbr[di].data_ptr(),
-            stencil.DTYPE_CODES[run.dtype], len(run.slots),
-            run.grid_shape[1], s, 1, C, h, w, int(depth),
-            run.streams[s].cuda_stream)
-    stencil._raise_on(err, f"rdma_pack (slot {s} on {run.slots[s]})")
+def rdma_pack(run: _SlotRun, src: int, s: int, depth: int,
+              count: int = 1) -> None:
+    """The packed transport's gather for slot ``s`` (with ``count`` > 1,
+    slots ``[s, s + count)`` of one device in one launch): its block's two
+    edge column slabs of the buffer set ``src``, ``depth`` deep at the
+    row-padded height, into its staging, on its device and stream.  One
+    ctypes call with the address of the arguments the run made once
+    (:meth:`_SlotRun.pack_args`), in the slot's device only where it is
+    not the current one."""
+    addr = run.pack_args(src, s, depth, count)[1]
+    if run.index[s] == torch.cuda.current_device():
+        err = run.pack_fn(addr)
+    else:
+        with torch.cuda.device(run.index[s]):
+            err = run.pack_fn(addr)
+    if err:
+        stencil._raise_on(err, f"rdma_pack (slot {s} on {run.slots[s]})")
     rdma_pack.launches += 1
 
 

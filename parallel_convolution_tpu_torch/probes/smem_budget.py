@@ -5,8 +5,15 @@ a 4 to 32 MB VMEM scratch, stepping across the scoped-VMEM budget to see
 whether an overrun fails as a clean resource error or crashes the compile
 helper).
 
-What bounds it on this card: nothing but launch latency; the work is
-trivial.  What it measures: the card's question in place of the TPU's.
+What bounds it on this card: bytes (a read and a write of each float)
+and, at 512 KB, the launch.  Its design pays no more than
+``torch.add`` for the answer: the attribute is raised only when the size
+it last accepted changes (a refused size is asked again every time), the
+grid is one wave at that size (the occupancy calculator's blocks per SM
+times the SMs, never more than the work), each thread strides over
+``float4``s (a scalar tail; floats where a pointer is not 16-byte
+aligned), and the wrapper enters the card only where it is not the current
+one.  What it measures: the card's question in place of the TPU's.
 The kernel computes out = in + 1 on a (256, 512) f32 array with a dynamic
 shared-memory scratch it writes and reads, at sizes stepping across the
 card's two limits — 48 KB without the opt-in attribute, and the opt-in
@@ -78,25 +85,31 @@ def smem_probe_plain(x: torch.Tensor) -> torch.Tensor:
 def smem_probe(x: torch.Tensor, nbytes: int,
                opt_in: bool) -> tuple[torch.Tensor, int, int]:
     """One launch with ``nbytes`` of dynamic shared memory (the attribute
-    raised first when ``opt_in``).  Returns ``(out, attr_err,
-    launch_err)``: a refusal is the datum, not an exception.  On a CPU
-    tensor the plain version, with both codes 0."""
+    raised first when ``opt_in``, where it did not last accept that size).
+    Returns ``(out, attr_err, launch_err)``: a refusal is the datum, not
+    an exception.  On a CPU tensor the plain version, with both codes 0.
+    The launch runs on the current stream of ``x``'s card, entering that
+    card only where it is not the current one."""
     if x.dtype != torch.float32:
         raise ValueError(f"smem_probe takes float32, got {x.dtype}")
     if x.device.type == "cpu":
         return smem_probe_plain(x), 0, 0
     if x.device.type != "cuda" or not x.is_contiguous() or x.numel() == 0:
         raise ValueError("smem_probe takes a non-empty contiguous tensor")
-    out = torch.empty_like(x)
-    attr = ctypes.c_int(0)
     from parallel_convolution_tpu_torch.ops import _build
 
-    lib = _build.load_library("probes")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pc_smem_probe(x.data_ptr(), out.data_ptr(), x.numel(),
-                                int(nbytes), int(opt_in), ctypes.byref(attr),
-                                stream)
+    out = torch.empty_like(x)
+    attr = ctypes.c_int(0)
+    fn = _build.load_library("probes").pc_smem_probe
+    idx = x.device.index
+    args = (x.data_ptr(), out.data_ptr(), x.numel(), int(nbytes),
+            int(opt_in), ctypes.byref(attr))
+    # The raw current stream: no Stream object a call.
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err == 0:
         smem_probe.launches += 1
     return out, attr.value, err

@@ -150,14 +150,17 @@ class HardwareModel:
 #                launches at BASELINE config 2's blocks (2x2 slots, bf16,
 #                T = 32) reading the columns in place against from the
 #                staging, a slot's pack launch (its time less its bytes),
-#                and the host's seconds a stream's wait on an event
+#                and the host's seconds a stream's wait on an event;
+#                pack_s re-read on the redesigned pack (rdma_pack_kernel's
+#                vector copy, one ctypes argument a launch): the least of
+#                the three shapes, config 2's
 #   link_gbps    NVLink 4 (the data sheet's 450 GB/s a direction): no run
 #                here had two cards
 H100 = HardwareModel("NVIDIA H100 80GB HBM3", hbm_gbps=2330.3,
                      flop_gops=46588.8, tap_gops=15984.7,
                      sep_tap_gops=13763.8, quantize_slots=1.806,
                      rint_quantize_slots=5.559, launch_s=51.15e-6,
-                     op_s=9.74e-6, col_row_s=1.234e-10, pack_s=2.496e-5,
+                     op_s=9.74e-6, col_row_s=1.234e-10, pack_s=1.479e-5,
                      event_s=2.097e-6)
 
 # Generic host: rough figures; on the CPU the model only has to crush the

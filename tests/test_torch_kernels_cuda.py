@@ -697,6 +697,50 @@ def test_smem_probe_steps_classify(cuda_device):
 
 
 @pytest.mark.cuda
+def test_smem_probe_refusals_survive_the_attribute_cache(cuda_device):
+    # Sizes alternate across the limits: the attribute is raised only when
+    # the size it last accepted changes, and a refused size is asked again
+    # every time, so each step is right or refused as smem_budget.fits says.
+    limit = stencil._smem_limit(cuda_device)
+    x = (torch.arange(131072, dtype=torch.float32, device=cuda_device)
+         .reshape(smem_budget.SHAPE) % 251.0)
+    steps = [(100 * 1024, True), (limit + 1, True), (limit + 1, True),
+             (100 * 1024, True), (48 * 1024, False), (limit, True),
+             (48 * 1024 + 1, False), (100 * 1024, True), (0, False)]
+    for nbytes, opt in steps:
+        out, attr, err = smem_budget.smem_probe(x, nbytes, opt)
+        torch.cuda.synchronize()
+        if smem_budget.fits(nbytes, opt, limit):
+            assert (attr, err) == (0, 0), (nbytes, opt)
+            assert torch.equal(out, x + 1), (nbytes, opt)
+        else:
+            assert attr or err, (nbytes, opt)
+            # Refused cleanly: the next launch runs.
+            c_out, *codes = smem_budget.smem_probe(x[:1], 0, False)
+            torch.cuda.synchronize()
+            assert codes == [0, 0] and torch.equal(c_out, x[:1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(131072, 0), (131071, 0), (131072, 1),
+                                      (131069, 3), (5, 0), (3, 0)])
+@pytest.mark.parametrize("nbytes,opt", [(100 * 1024, True), (0, False)])
+def test_smem_probe_float4_body_and_tail(cuda_device, n, offset, nbytes,
+                                         opt):
+    # float4s where both pointers are 16-byte aligned (a scalar tail of
+    # n % 4), floats where the input is a view 4·offset bytes in.
+    base = torch.rand(n + offset, device=cuda_device) * 100
+    x = base[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = smem_budget.smem_probe.launches
+    out, attr, err = smem_budget.smem_probe(x, nbytes, opt)
+    torch.cuda.synchronize()
+    assert (attr, err) == (0, 0)
+    assert smem_budget.smem_probe.launches == before + 1
+    assert torch.equal(out, smem_budget.smem_probe_plain(x))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("grid_shape,boundary", [((2, 2), "zero"),
                                                  ((1, 3), "periodic")])
 @pytest.mark.parametrize("rung", rdma_ladder.RUNGS)
@@ -1222,25 +1266,53 @@ def test_rdma_slots_deep_chunk_in_level_groups(cuda_device, col_mode,
     assert torch.equal(got, want)
 
 
+# (block, depth, storage, the vector the plan picks): every instance of the
+# pack (16, 8, 4, 2 and 1 bytes a thread) in every dtype it reaches, D up
+# to the block's width.
+PACK_CASES = [((8, 64), 8, "bf16", 16), ((8, 36), 4, "bf16", 8),
+              ((20, 64), 16, "u8", 16), ((9, 12), 4, "u8", 4),
+              ((8, 30), 6, "u8", 2), ((11, 7), 7, "u8", 1),
+              ((8, 16), 4, "f32", 16), ((6, 6), 6, "f32", 8),
+              ((5, 7), 3, "f32", 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("storage", ["u8", "bf16", "f32"])
+@pytest.mark.parametrize("bhw,depth,storage,vec", PACK_CASES)
 @pytest.mark.parametrize("grid_shape,boundary", [((2, 2), "zero"),
-                                                 ((1, 4), "periodic"),
+                                                 ((1, 4), "zero"),
+                                                 ((2, 3), "zero"),
                                                  ((3, 3), "periodic")])
-def test_rdma_pack_matches_plain(cuda_device, grid_shape, boundary, storage):
-    f = get_filter("blur3")
-    bhw = (23, 37)
+def test_rdma_pack_matches_plain(cuda_device, grid_shape, boundary, bhw,
+                                 depth, storage, vec):
+    # One launch a slot, as the slot paths make them, then the whole grid
+    # and a range of it in one launch each (count > 1) into cleared
+    # stagings; (1, 4) and (2, 3) under zero have blocks with no upper or
+    # lower neighbour.  Byte-equal to the plain version.
     blocks = _grid_blocks(64, grid_shape, bhw, storage, cuda_device)
+    n = grid_shape[0] * grid_shape[1]
+    run = rdma.slot_carry(blocks, _slot_grid(grid_shape, cuda_device),
+                          boundary, depth, "packed").run
+    want = rdma.rdma_pack_plain(blocks, grid_shape, boundary, depth)
     before = rdma.rdma_pack.launches
-    _, carry = _slot_chunk(blocks, grid_shape, f, boundary, 4,
-                           _valid(grid_shape, bhw, boundary), "packed", True,
-                           cuda_device)
-    carry.run.join()
+    run.fork()
+    for s in range(n):
+        rdma.rdma_pack(run, 0, s, depth)
+    run.join()
     torch.cuda.synchronize()
-    assert rdma.rdma_pack.launches == before + grid_shape[0] * grid_shape[1]
-    want = rdma.rdma_pack_plain(blocks, grid_shape, boundary, 4)
+    assert rdma.rdma_pack.launches == before + n
+    assert {run.pack_plans[(0, s, depth, 1)].vec for s in range(n)} == {vec}
     for s, w in enumerate(want):
-        assert torch.equal(rdma.staged_slabs(carry.run, s, 4), w), s
+        assert torch.equal(rdma.staged_slabs(run, s, depth), w), s
+    for b0, count in ((0, n), (1, n - 2)):
+        for st in run.stage:
+            st.fill_(7)
+        torch.cuda.synchronize()
+        rdma.rdma_pack(run, 0, b0, depth, count=count)
+        torch.cuda.synchronize()
+        assert run.pack_plans[(0, b0, depth, count)].vec == vec
+        for s in range(b0, b0 + count):
+            assert torch.equal(rdma.staged_slabs(run, s, depth), want[s]), s
+    assert rdma.rdma_pack.launches == before + n + 2
 
 
 @pytest.mark.cuda

@@ -115,6 +115,25 @@ Phases (any failure exits non-zero and prints no result line):
    held against the plain first group, timed beside the same group as
    one launch a slot.  With two cards or more the paths run again
    round-robin over the cards;
+4j. the rest on a grid of slots and a grid over two processes (ROADMAP
+   item 10c), after phase 4d, counted into the kernels line: BASELINE
+   config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 200 work units)
+   on 2x2 slots with ``cuda`` (K1 per slot) and ``cuda_rdma`` (K3 / K4 per
+   slot), each bit-equal to the one-card 2x2 run of its backend (freed
+   before the slot run), the same cycles, work units and level grids, the
+   peak reckoned and measured; fd25 at 512³ x 40 sweeps fuse 4 through
+   ``run --rank 3`` on 2x2 slots, the bytes of phase 4g's 1x1 run;
+   BASELINE config 4 on 16 slots (``run --sharded-io --storage u8 --fuse
+   32 --backend cuda_rdma --device <16 slots>``, in phase 4c), its file
+   CRC-equal band by band to the 4x4 one-card run's; the checkpoint kill
+   and resume on config 3's image at 4x4 slots, resharded onto 2x2 slots
+   and onto one device, each byte-equal to ``shifted``; two spawned
+   processes sharing the card (2 slots each of a 2x2 grid, gloo) running
+   the JAX package's two-process job (``utils/multihost_job.py``) at
+   config 2's size with ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32,
+   byte-equal to the same job in one process, the resume bit-identical,
+   ``broadcast_scalar`` agreed; each run's first and resident seconds
+   beside its one-card (or one-process) form;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
    BASELINE config 5's field (32768x32768, jacobi3, tol 1e-3, f32) under
    the Jacobi run's budget of 200 fine-grid work units, through
@@ -215,6 +234,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -1331,7 +1351,8 @@ def volume_phase(dev, work: Path) -> dict:
     check(a.tobytes() == b.tobytes(),
           "run --rank 3 fd25: 1x1 and 2x2 outputs differ")
     out["cli_fd25"] = dict(cli, sweeps=VOLUME_FD25_SWEEPS, fuse=4,
-                           reckoned_peak_bytes=reckoned)
+                           reckoned_peak_bytes=reckoned,
+                           sha256_1x1=hashlib.sha256(a.tobytes()).hexdigest())
     for p in work.glob("fd25*.raw"):
         p.unlink()
     del a, b
@@ -2577,7 +2598,8 @@ def mg_counted(label, fn, levels, backend, totals: dict):
     (out, res), secs = host_seconds(fn)
     counts = stencil.launch_counts()
     reads = mg.mg_converge.readbacks - reads
-    per = mg.cycle_launches(levels, backend, 1)
+    per = mg.cycle_launches(levels, backend, 1, col_mode=res.col_mode,
+                            overlap=res.overlap)
     want = {k: v * res.cycles for k, v in per.items()}
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     check(any(counts.values()), f"{label}: no kernel launched")
@@ -2786,6 +2808,282 @@ def multigrid_phase(dev, tmp: Path, totals: dict, field,
                      "bytes_differing_from_shifted": int((delta > 0).sum()),
                      "seconds_first": secs, "seconds_warm": warm,
                      "card": card})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4j: multigrid, volumes, checkpoints and a grid over two processes
+# on slots (ROADMAP item 10c); config 4 on 16 slots runs in phase 4c
+# ---------------------------------------------------------------------------
+
+
+def reckon_mg_slots_peak(field_bytes: int, backend: str) -> int:
+    """The peak device bytes reckoned for config 5's V-cycle on a grid of
+    slots: the caller's field and the fine state, then a fine sweep's
+    working set (the per-block exchange's padded copy or, for
+    ``cuda_rdma``, the level's two run buffers; the stencil's output; the
+    damped update and its temporary; the readout's f32 difference), and
+    the coarse levels' errors and residuals (a third of a field)."""
+    working = 4 if backend == "cuda" else 5
+    return int(field_bytes * (2 + working + 1 / 3))
+
+
+def ckpt_slots_argv(src: Path, dst: Path, ck: Path, mesh_spec: str,
+                    device: str) -> list:
+    return ckpt_argv(src, dst, ck, mesh_spec) + ["--device", device,
+                                                 "--col-mode", "strided"]
+
+
+def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
+                     field, volume_sha: str) -> dict:
+    """Phase 4j: (a) BASELINE config 5 under the V-cycle (32768² jacobi3,
+    tol 1e-3, 200 work units) on 2x2 slots with ``cuda`` (K1 per slot) and
+    ``cuda_rdma`` (K3 / K4 per slot), each bit-equal to the one-card 2x2
+    run of its backend (its field kept on the host, the card's copy freed
+    before the slot run), the same cycles, work units and level grids, the
+    peak reckoned and measured; (b) fd25 at 512³ x 40 sweeps fuse 4
+    through ``run --rank 3 --device <4 slots>``, the bytes of phase 4g's
+    1x1 run; (c) checkpoints on config 3's image at 4x4 slots: a child
+    dies in the second snapshot, the run resumes on 16 slots, and a
+    second torn run reshards onto 2x2 slots and a third onto one device,
+    each byte-equal to ``shifted``; (d) two spawned processes sharing the
+    card, 2 slots each of a 2x2 grid over gloo, running the JAX package's
+    two-process job (``utils/multihost_job.py``) at config 2's size with
+    ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32, byte-equal to the
+    same job in one process, the resume bit-identical, the broadcast
+    agreed.  Every run counted into the kernels line (the two ranks'
+    launches as they report them)."""
+    card = card_line()
+    return {"card": card,
+            "multigrid": multigrid_slots_leg(dev, totals, field, card),
+            "volume": volume_slots_leg(dev, here, volume_sha, card),
+            "checkpoint": checkpoint_slots_leg(tmp, here, refs, totals),
+            "two_processes": two_process_leg(tmp, totals, card)}
+
+
+def multigrid_slots_leg(dev, totals: dict, field, card: str) -> list:
+    """Phase 4j (a): config 5's V-cycle on 2x2 slots, ``cuda`` and
+    ``cuda_rdma``, each against the one-card 2x2 run of its backend."""
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+
+    rows = []
+    slots4 = [dev] * 4
+    jacobi3 = get_filter("jacobi3")
+    H, W = CONVERGE_HW
+    field_bytes = field.numel() * field.element_size()
+    band = 2048
+    for backend in ("cuda", "cuda_rdma"):
+        one = mesh.make_grid((2, 2), dev)
+        slots = mesh.make_grid((2, 2), devices=slots4)
+        solve = (lambda g: lambda: mg.mg_converge(
+            field, jacobi3, 1e-3, CONVERGE_MAX_ITERS, grid=g,
+            backend=backend))
+        (ref, rres), one_s = host_seconds(solve(one))
+        _, one_resident = host_seconds(solve(one))
+        stencil.reset_launch_counts()  # the reference is not this path
+        ref_host = ref.cpu()
+        del ref
+        torch.cuda.empty_cache()
+        label = (f"4j config 5 multigrid jacobi3 {H}x{W} f32 {backend} "
+                 "2x2 slots")
+        reckoned = reckon_mg_slots_peak(field_bytes, backend)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        levels = mg.plan_levels(slots, CONVERGE_HW, 1)
+        out, res, counts, per, first = mg_counted(
+            label, solve(slots), levels, backend, totals)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check(res.cycles == rres.cycles and res.work_units == rres.work_units
+              and res.level_grids == rres.level_grids
+              and res.residuals == rres.residuals,
+              f"{label}: {res.cycles} cycles / {res.work_units} units / "
+              f"{res.level_grids} against the one-card {rres.cycles} / "
+              f"{rres.work_units} / {rres.level_grids}")
+        same = all(torch.equal(out[:, a:a + band].cpu(),
+                               ref_host[:, a:a + band])
+                   for a in range(0, H, band))
+        check(same, f"{label}: differs from the one-card 2x2 field")
+        check(all(lv.grid.slots == slots.slots[:lv.grid.rows * lv.grid.cols]
+                  for lv in levels), f"{label}: a level off the first slots")
+        del out, ref_host
+        stencil.reset_launch_counts()
+        _, resident = host_seconds(solve(slots))
+        stencil.reset_launch_counts()  # counted once, in the first run
+        torch.cuda.empty_cache()
+        row = mg_row(label, res, counts, per, first, seconds_first=first,
+                     seconds_resident=resident, one_card_first=one_s,
+                     one_card_resident=one_resident, col_mode=res.col_mode,
+                     reckoned_peak_bytes=reckoned, peak_bytes=peak,
+                     fields_at_peak=peak / field_bytes,
+                     bitwise_one_card=True, card=card)
+        rows.append(row)
+        print(f"4j {label}: first {first:.4f} s, resident {resident:.4f} s "
+              f"(one card: {one_s:.4f} / {one_resident:.4f} s); peak "
+              f"{peak / 1e9:.2f} GB, reckoned {reckoned / 1e9:.2f} GB")
+    return rows
+
+
+def volume_slots_leg(dev, here: Path, volume_sha: str, card: str) -> dict:
+    """Phase 4j (b): fd25 at 512^3 through ``run --rank 3`` on 2x2 slots,
+    the bytes of phase 4g's 1x1 run (``volume_sha``)."""
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+
+    slots4 = [dev] * 4
+    n = VOLUME_N
+    work = here / "build" / "chip_smoke_volume"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        src, dst = work / "fd25.raw", work / "fd25.slots.raw"
+        volume_state("fd25", (n, n, n), 31).tofile(src)
+        argv = ["run", str(src), str(n), str(n), str(VOLUME_FD25_SWEEPS),
+                "grey", "-o", str(dst), "--rank", "3", "--depth", str(n),
+                "--filter", "fd25", "--fuse", "4", "--mesh", "2x2",
+                "--device", ",".join(str(d) for d in slots4)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        rc, secs = host_seconds(lambda: cli_main(argv))
+        check(rc == 0, f"4j run --rank 3 fd25 on slots: exit {rc}")
+        digest = hashlib.sha256(dst.read_bytes()).hexdigest()
+        check(digest == volume_sha, "4j run --rank 3 fd25 on 2x2 slots: "
+              "the bytes differ from phase 4g's 1x1 run")
+        return {"path": f"fd25 {n}^3 x {VOLUME_FD25_SWEEPS} fuse 4, run "
+                "--rank 3, 2x2 slots", "seconds": secs, "bitwise_1x1": True,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                "card": card}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def checkpoint_slots_leg(tmp: Path, here: Path, refs: dict,
+                         totals: dict) -> dict:
+    """Phase 4j (c): config 3's image with ``--checkpoint`` at 4x4 slots,
+    torn in its second snapshot by a child process, resumed on 16 slots,
+    on 2x2 slots and on one device, each byte-equal to ``shifted``."""
+    import warnings
+
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    src = tmp / "edge5.raw"  # written by main_paths
+    want = refs["grey_refs"]["edge5"]
+    slots16 = ",".join(["cuda:0"] * 16)
+    bh = BIG_HW[0]
+    rest = ITERS - CKPT_EVERY
+
+    def resumed(label, argv, expect):
+        def run():
+            rc = cli_main(argv)
+            check(rc == 0, f"{label}: the CLI exited {rc}")
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, counts, secs = drive(label, run, expect, bh * BIG_HW[1])
+        for k, v in counts.items():
+            totals[k] += v
+        check(np.array_equal(imageio.read_raw(argv[7], *BIG_HW, "grey"),
+                             want), f"{label}: differs from shifted")
+        return {"launches": counts, "seconds": secs,
+                "warnings": [str(w.message) for w in caught
+                             if "resharding" in str(w.message)]}
+
+    def torn(ck):
+        killed = killed_run(ckpt_slots_argv(src, tmp / "ck_dead.raw", ck,
+                                            "4x4", slots16), here)
+        latest = (ck / "LATEST").read_text()
+        check(latest == f"it_{CKPT_EVERY:08d}",
+              f"4j checkpoint: LATEST is {latest} after the kill")
+        return killed
+
+    ckpt = {}
+    for key, mesh_spec, device, expect in (
+            ("resume on 4x4 slots", "4x4", slots16,
+             {"rdma_tiled_slot": rest * 16}),
+            ("reshard onto 2x2 slots", "2x2", ",".join(["cuda:0"] * 4),
+             {"rdma_tiled_slot": rest * 4}),
+            ("reshard onto one device", "1x1", "cuda:0",
+             {"rdma_tiled": rest})):
+        ck = tmp / f"ck4j_{mesh_spec}"
+        killed = torn(ck)
+        row = resumed(f"4j checkpoint {key} from {CKPT_EVERY}",
+                      ckpt_slots_argv(src, tmp / "ck4j.raw", ck, mesh_spec,
+                                      device), expect)
+        check(mesh_spec == "4x4" or any(
+            "from grid 4x4 onto " + mesh_spec in m for m in row["warnings"]),
+            f"4j checkpoint {key}: no reshard warning")
+        ckpt[key] = dict(row, killed=killed)
+        shutil.rmtree(ck, ignore_errors=True)
+    return ckpt
+
+
+def two_process_leg(tmp: Path, totals: dict, card: str) -> list:
+    """Phase 4j (d): the two-process job on the card (2 ranks, 2 slots of
+    ``cuda:0`` each, gloo) against the same job in this process, at
+    config 2's size, ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32.
+    The kernels are built (``main``) before any rank starts."""
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.utils import multihost_job
+
+    rows = []
+    print("4j two processes: two CUDA contexts time-slice one card, so "
+          "their seconds measure the cost of the path, not scaling")
+    rows_, cols_ = RGB_HW
+    for backend, storage, fuse in (("cuda", "f32", 1),
+                                   ("cuda_sep", "bf16", 32)):
+        kw = dict(device="cuda", shape=(2, 2), rows=rows_, cols=cols_,
+                  mode="rgb", iters=ITERS, every=ITERS // 2, filt="blur3",
+                  backend=backend, storage=storage, fuse=fuse, seed=1)
+        label = f"4j two processes config 2 {backend} {storage} fuse {fuse}"
+        w1, w2 = tmp / f"job1_{backend}", tmp / f"job2_{backend}"
+        stencil.reset_launch_counts()
+        one, one_s = host_seconds(lambda: multihost_job.job(
+            None, 1, None, w1, **kw))
+        one_counts = stencil.launch_counts()  # the resident run's too
+        check(one["slots"] == "cuda:0,cuda:0,cuda:0,cuda:0"
+              and not one["owners"], f"{label}: the one-process grid is "
+              f"{one['slots']} owned by {one['owners']}")
+        stencil.reset_launch_counts()
+        two, two_s = host_seconds(lambda: multihost_job.spawn(
+            2, w2, timeout=400, **kw))
+        sent = {k: two[0]["launches"][k] + two[1]["launches"][k]
+                for k in one_counts}
+        check(sent == one["launches"] and any(sent.values()),
+              f"{label}: the ranks launched {sent}, one process "
+              f"{one['launches']}")
+        for k, v in sent.items():
+            totals[k] += v + one["launches"][k]
+        out1 = (w1 / "out.raw").read_bytes()
+        out2 = (w2 / "out.raw").read_bytes()
+        check(out1 == out2, f"{label}: the two-process output differs from "
+                            "the one-process one")
+        check(all(r["broadcast"] == 7.0 for r in two)
+              and [r["owners"] for r in two] == [[0, 0, 1, 1]] * 2,
+              f"{label}: broadcast / owners {two}")
+        if storage != "bf16":
+            check(one["resume_bitexact"] is True
+                  and all(r["resume_bitexact"] is True for r in two),
+                  f"{label}: the resume is not bit-identical")
+        row = {"path": label, "launches_two": sent,
+               "first_s_two": max(r["first_s"] for r in two),
+               "resident_s_two": max(r["resident_s"] for r in two),
+               "spawn_to_end_s": two_s, "first_s_one": one["first_s"],
+               "resident_s_one": one["resident_s"], "one_process_s": one_s,
+               "bitwise_one_process": True,
+               "resume_bitexact": two[0]["resume_bitexact"], "card": card}
+        rows.append(row)
+        print(f"{label}: two processes first {row['first_s_two']:.4f} s, "
+              f"resident {row['resident_s_two']:.4f} s; one process "
+              f"{one['first_s']:.4f} / {one['resident_s']:.4f} s")
+        shutil.rmtree(w1, ignore_errors=True)
+        shutil.rmtree(w2, ignore_errors=True)
     return rows
 
 
@@ -3166,12 +3464,20 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
               "write_input_s": write_seeded_raw(src, side, dev, seed=4)}
     px = 3 * side * side
     runs = {}
+    slots16 = ",".join(["cuda:0"] * 16)
     for key, flags, expect, no_halo in (
             ("1x1 cuda_sep", ["--backend", "cuda_sep"],
              expected_launches(blur3, 32, (side, side)), False),
             ("4x4 cuda_rdma", ["--backend", "cuda_rdma", "--mesh", "4x4"],
              expected_rdma_launches(blur3, 32, (4, 4),
-                                    (side // 4, side // 4)), True)):
+                                    (side // 4, side // 4)), True),
+            # Phase 4j: the same on 16 slots of the card (per-slot K4 and
+            # K2, strided columns), its file the 4x4 run's band by band.
+            ("4x4 cuda_rdma 16 slots",
+             ["--backend", "cuda_rdma", "--mesh", "4x4", "--device", slots16,
+              "--col-mode", "strided"],
+             expected_slot_launches(blur3, 32, (4, 4),
+                                    (side // 4, side // 4), False), True)):
         label = f"config 4 {side}x{side} rgb blur3 {key} u8 fuse 32"
         argv = ["run", str(src), str(side), str(side), str(ITERS), "rgb",
                 "-o", str(dst), "--sharded-io", "--storage", "u8",
@@ -3212,6 +3518,10 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
     check(runs["1x1 cuda_sep"]["crcs"] == runs["4x4 cuda_rdma"]["crcs"],
           "config 4: the 4x4 cuda_rdma output differs from the 1x1 cuda_sep "
           "output")
+    check(runs["4x4 cuda_rdma 16 slots"]["crcs"]
+          == runs["4x4 cuda_rdma"]["crcs"],
+          "config 4 (phase 4j): the 16-slot output differs from the 4x4 "
+          "one-card output")
     src.unlink()
     for row in runs.values():
         row["crcs"] = len(row["crcs"])
@@ -3235,6 +3545,13 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
     c = runs["4x4 cuda_rdma"]["launches"]
     runs["4x4 cuda_rdma"]["kernels_s"] = (
         (c["rdma_tiled"] - tail) * k["rdma_tiled 4x4 T=16 group"]["ms"]
+        + tail * k["rdma_tiled 4x4 T=4 tail"]["ms"]
+        + c["fused_iterate"]
+        * k["fused_iterate 4x4 block T=16 group"]["ms"]) / 1e3
+    c = runs["4x4 cuda_rdma 16 slots"]["launches"]
+    runs["4x4 cuda_rdma 16 slots"]["kernels_s"] = (
+        (c["rdma_tiled_slot"] - 16 * tail)
+        * k["rdma_tiled 4x4 T=16 group"]["ms"] / 16
         + tail * k["rdma_tiled 4x4 T=4 tail"]["ms"]
         + c["fused_iterate"]
         * k["fused_iterate 4x4 block T=16 group"]["ms"]) / 1e3
@@ -3938,6 +4255,16 @@ def main() -> int:
               f"the checkout at {here}", file=sys.stderr)
         return 1
 
+    start = last = time.perf_counter()
+    laps = {}
+
+    def lap(name: str) -> None:
+        """The seconds since the previous lap, under ``name``."""
+        nonlocal last
+        now = time.perf_counter()
+        laps[name] = now - last
+        last = now
+
     try:
         card = card_line()
         print(f"card: {card}")
@@ -3960,43 +4287,64 @@ def main() -> int:
         for name in _build.SOURCES:
             _build.load_library(name)
         print_ptxas()
+        lap("2 build")
 
         check_kernels(dev)
         check_rdma_kernels(dev)
+        lap("3 kernel checks")
         probe = probe_phase(dev)
+        lap("6 probes")
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             totals, rows, refs = main_paths(dev, Path(tmp))
+            lap("4 main paths")
             split_rows = interior_split_phase(dev, refs, totals)
+            lap("4f interior split")
             torch.cuda.empty_cache()
             work = here / "build" / "chip_smoke_volume"
             try:
                 volume = volume_phase(dev, work)
             finally:
                 shutil.rmtree(work, ignore_errors=True)
+            lap("4g volumes")
             torch.cuda.empty_cache()
             keep = {}
             converge_rows = converge_phase(dev, Path(tmp), totals, keep)
+            lap("4b converge")
             slots = separate_devices_phase(dev, Path(tmp), refs, totals,
                                            keep)
+            lap("4h slots")
             t0 = time.perf_counter()
             overlap = overlap_phase(dev, Path(tmp), refs, totals, keep)
             overlap["seconds"] = time.perf_counter() - t0
+            lap("4i overlap")
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
-                                      keep.pop("config5"), converge_rows[0])
+                                      keep["config5"], converge_rows[0])
+            lap("4d multigrid")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            rest = slots_rest_phase(dev, Path(tmp), here, refs, totals,
+                                    keep.pop("config5"),
+                                    volume["cli_fd25"]["sha256_1x1"])
+            rest["seconds"] = time.perf_counter() - t0
+            lap("4j the rest on slots")
             torch.cuda.empty_cache()
             auto_rows = auto_paths(dev, Path(tmp), refs, rows, totals)
             picks = tune_auto_grids(Path(tmp))
             tuned = measured_tune(dev, Path(tmp), refs, totals)
+            lap("7 auto and tune")
             ckpt = checkpoint_phase(dev, Path(tmp), here, refs, totals)
             fallback = fallback_phase(dev, Path(tmp), refs, totals)
+            lap("4c checkpoint and fallback")
         work = here / "build" / "chip_smoke_config4"
         try:
             config4 = config4_phase(dev, work, totals)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        lap("4c config 4 (its 16 slots: 4j)")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             host_tools = host_tools_phase(dev, Path(tmp), native_s)
+        lap("4e host tools")
 
         rgb = imageio.generate_test_image(*RGB_HW, "rgb", seed=1)
         grey8k = imageio.generate_test_image(*BIG_HW, "grey", seed=2)
@@ -4074,6 +4422,11 @@ def main() -> int:
         for name, row in region_timed.items():
             print(f"time {name}: " + json.dumps(row))
         print("overlap: " + json.dumps(overlap))
+        for row in rest.pop("multigrid"):
+            print("end to end 4j multigrid: " + json.dumps(row))
+        for row in rest.pop("two_processes"):
+            print("end to end 4j two processes: " + json.dumps(row))
+        print("4j: " + json.dumps(rest))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 
@@ -4098,6 +4451,9 @@ def main() -> int:
                 "library_ms": e["library_ms"]})
         print("fraction of bound: " + json.dumps(
             {k["name"]: k["bound_ms"] / k["ms"] for k in kernels}))
+        lap("5 and 8 kernel times, hardware model")
+        print("phase seconds: " + json.dumps(
+            dict(laps, total=time.perf_counter() - start)))
         print(f"card: {card}")
         print(json.dumps({"kernels": kernels}))
     except SmokeFailure as e:

@@ -451,11 +451,15 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
     from parallel_convolution_tpu_torch.models import (
         ConvolutionModel, JacobiSolver,
     )
+    from parallel_convolution_tpu_torch.parallel import multihost
     from parallel_convolution_tpu_torch.parallel.mesh import grid_from_spec
     from parallel_convolution_tpu_torch.utils.config import check_solver
     from parallel_convolution_tpu_torch.utils.platform import device_kind
 
     check_solver(args.solver)
+    # One process of a job (torchrun's WORLD_SIZE / RANK / MASTER_ADDR /
+    # MASTER_PORT): --device all then spans every process's slots.
+    multihost.initialize()
     try:
         tile = _parse_tile(args.tile)
         grid = grid_from_spec(args.mesh, args.device)
@@ -693,28 +697,35 @@ def _run_checkpointed(args, model, grid, tile) -> None:
     snapshot.  ``--fallback`` is resolved once here, at the loaded blocks,
     and every chunk runs the tier it picked; the model records it."""
     from parallel_convolution_tpu_torch.parallel import step as step_lib
+    from parallel_convolution_tpu_torch.parallel.mesh import first_block
     from parallel_convolution_tpu_torch.utils import checkpoint, sharded_io
 
     blocks = sharded_io.load_sharded(args.image, args.rows, args.cols,
                                      args.mode, grid)
+    block_hw = tuple(first_block(blocks).shape[1:])
+    fuse = max(1, min(args.fuse, args.checkpoint_every, args.loops))
     eff = args.backend
     if args.fallback:
         # (--backend auto stops in run_checkpointed, at min(fuse=None,
         # every), as in the JAX package: ROADMAP Queue 3.)
         eff = step_lib._resolve_fallback(
-            grid, model.filt, args.backend, True,
-            max(1, min(args.fuse, args.checkpoint_every, args.loops)),
-            args.boundary, tile, "f32", tuple(blocks[0][0].shape[1:]),
-            args.interior_split)
+            grid, model.filt, args.backend, True, fuse, args.boundary, tile,
+            "f32", block_hw, args.interior_split)
+    # The column transport and the overlap as every chunk resolves them.
+    col_mode = step_lib.resolve_col_mode(args.col_mode, eff, grid, block_hw,
+                                         model.filt.radius, fuse, "f32")
+    overlap = step_lib.resolve_overlap(args.overlap, eff, grid)
     out = checkpoint.run_checkpointed(
         blocks, model.filt, args.loops, grid, (args.rows, args.cols),
         ckpt_dir=args.checkpoint, every=args.checkpoint_every,
         backend=args.backend, fuse=args.fuse, boundary=args.boundary,
-        tile=tile, interior_split=args.interior_split, run_backend=eff)
+        tile=tile, interior_split=args.interior_split, overlap=overlap,
+        col_mode=col_mode, run_backend=eff)
     del blocks
     sharded_io.save_sharded(args.output, out, args.rows, args.cols,
                             args.mode)
     model.effective_backend, model.effective_fuse = eff, args.fuse
+    model.effective_col_mode, model.effective_overlap = col_mode, overlap
 
 
 if __name__ == "__main__":

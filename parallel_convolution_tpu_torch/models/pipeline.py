@@ -15,7 +15,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, make_grid, padded_extent,
+    Grid, first_block, make_grid, padded_extent,
 )
 from parallel_convolution_tpu_torch.utils import imageio
 from parallel_convolution_tpu_torch.utils.config import (
@@ -126,6 +126,7 @@ class ConvolutionModel(nn.Module):
         re-clamped to the tier); recorded on the model."""
         backend, fuse, tile = self.backend, self.fuse, self.tile
         overlap = self.overlap
+        step_lib._check_processes(self.grid, backend, self.fallback)
         self.resolution, self.plan_source = None, "explicit"
         if backend == AUTO:
             from parallel_convolution_tpu_torch import tuning
@@ -204,7 +205,17 @@ class ConvolutionModel(nn.Module):
                      mode: str, iters: int) -> None:
         """raw file → raw file, the reference's ``main()`` end to end."""
         img = imageio.read_raw(src, rows, cols, mode)
-        imageio.write_raw(dst, self.run_image(img, iters))
+        out = self.run_image(img, iters)
+        if not self.grid.spans_processes:
+            imageio.write_raw(dst, out)
+            return
+        # Every rank of a grid over several processes holds the result:
+        # rank 0 writes it, the others wait for the file.
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        if multihost.rank() == 0:
+            imageio.write_raw(dst, out)
+        multihost.barrier("output-written")
 
     def run_raw_file_sharded(self, src: str, dst: str, rows: int, cols: int,
                              mode: str, iters: int) -> None:
@@ -219,7 +230,7 @@ class ConvolutionModel(nn.Module):
             src, rows, cols, mode, self.grid,
             dtype=step_lib.STORAGE_DTYPES[self.storage])
         backend, fuse, tile, col_mode, overlap = self._resolved_knobs(
-            (blocks[0][0].shape[0], rows, cols))
+            (first_block(blocks).shape[0], rows, cols))
         out = step_lib.iterate_prepared(
             blocks, self.filt, iters, self.grid, (rows, cols),
             quantize=self.quantize, backend=backend, fuse=fuse,

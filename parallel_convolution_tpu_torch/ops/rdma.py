@@ -874,6 +874,30 @@ def slot_carry(blocks, grid, boundary: str, depth: int,
     return SlotCarry(run, run.bufs[0])
 
 
+def load_carry(run: _SlotRun, blocks) -> SlotCarry:
+    """A run's carry holding other blocks: the R×C blocks copied into its
+    first buffer set, after its slot streams are joined (the multigrid
+    smoother's way to reuse one run, its streams, buffers and pointer
+    tables, for every sweep of a level).  Views of the run's buffers from
+    an earlier step stay valid until the next step writes them."""
+    if not run.joined:
+        run.join()
+    flat = [b for row in blocks for b in row]
+    for (di, k), b in zip(run.where, flat):
+        run.bufs[0][di][k].copy_(b)
+    return SlotCarry(run, run.bufs[0])
+
+
+def slot_channel_key(grid_shape, block_hw, radius: int, fuse: int, dtype,
+                     boundary: str, col_mode: str) -> channels.ChannelKey:
+    """The exchange identity a per-slot K3 / K4 step binds
+    (``channels.plan_for``): the monolithic plan, whose column slabs give
+    the staging's depth, for K3 and K4 alike."""
+    return channels.ChannelKey(tuple(grid_shape), tuple(block_hw),
+                               int(radius), int(fuse), str(dtype), boundary,
+                               "monolithic", col_mode)
+
+
 def slot_blocks(carry, grid_shape) -> list[list[torch.Tensor]]:
     """The R×C blocks of a carry (views of its buffers on the card, after
     joining the slot streams)."""
@@ -1049,9 +1073,8 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
     if plan.kernel == "tiled" and C > 65535:
         raise ValueError(f"rdma_tiled_slot: {C} channels above the launch "
                          "grid's 65535")
-    cplan = channels.plan_for(channels.ChannelKey(
-        run.grid_shape, (h, w), r, T, str(run.dtype), run.boundary,
-        "monolithic", col_mode))
+    cplan = channels.plan_for(slot_channel_key(
+        run.grid_shape, (h, w), r, T, run.dtype, run.boundary, col_mode))
     src = run.buffer_set(carry.parts)
     dst = 1 - src
     if run.joined:

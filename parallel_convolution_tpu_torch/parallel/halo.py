@@ -10,12 +10,14 @@ Two phases, as in the JAX package's ``halo_exchange``:
    ghosts arrive in two hops, with no diagonal copies.
 
 A block on the image edge gets zeros (boundary ``zero``, the reference's
-ghost ring) or its wrap-around neighbour (``periodic``, a torus).  All
-blocks live on one device, so an exchange copies the blocks into one
+ghost ring) or its wrap-around neighbour (``periodic``, a torus).  Where
+all blocks live on one device, an exchange copies the blocks into one
 padded grid (R, C_grid, C, h+2d, w+2d) and fills every ghost ring with a
 few whole-grid copies (:func:`_fill_ghosts`), for a list of blocks
 (:func:`halo_exchange`) and for the stacked grid
-(:func:`halo_exchange_stacked`) alike.  ``halo_exchange.calls`` counts the
+(:func:`halo_exchange_stacked`) alike; on a grid of slots each block pads
+in a buffer of its own (:func:`exchange_per_block`), its slabs copied
+between devices, or between processes.  ``halo_exchange.calls`` counts the
 calls on a list of blocks, so a run can show that a path (the
 ``cuda_rdma`` backend on the card) never made one.
 """
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from parallel_convolution_tpu_torch.parallel.mesh import first_block
 from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
 
 
@@ -121,8 +124,8 @@ def halo_exchange_stacked(x: torch.Tensor, depth: int,
 
 def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
                        grid_shape: tuple[int, int], boundary: str = "zero",
-                       *, dtype=None, fill=None,
-                       packed: bool = False) -> list[list[torch.Tensor]]:
+                       *, dtype=None, fill=None, packed: bool = False,
+                       owners=None) -> list[list[torch.Tensor]]:
     """The exchange on a grid of slots: each block padded in a buffer of
     its own, on its own device, in ``dtype`` (default the block's), every
     ghost filled by the two phases, each a copy of one edge slab from the
@@ -139,22 +142,44 @@ def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
     ``fill`` (e.g. NaN) is written into every buffer first, so a ghost
     that no slab reaches shows; a missing neighbour (zero boundary) writes
     zeros.  The inputs are not modified.
+
+    On a grid over several processes ``owners`` names each block's rank
+    (row-major) and ``blocks`` holds ``None`` where another rank holds
+    the block: a ghost whose neighbour lives on another rank arrives by a
+    ``torch.distributed`` send / receive of that edge slab
+    (``multihost.swap``: every receive posted first), each phase ending
+    before the next begins, and the result holds ``None`` there too.
     """
     R, Cg = grid_shape
-    d = _check(boundary, depth, blocks[0][0].shape[1:])
+    mine = first_block(blocks)
+    d = _check(boundary, depth, mine.shape[1:])
     periodic = boundary == "periodic"
-    C, h, w = blocks[0][0].shape
-    dtype = blocks[0][0].dtype if dtype is None else dtype
+    C, h, w = mine.shape
+    dtype = mine.dtype if dtype is None else dtype
+    rank = 0
+    if owners is not None:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        rank = multihost.rank()
 
     def nbr(i, j):
         ii = i % R if periodic else i
         jj = j % Cg if periodic else j
         return (ii, jj) if 0 <= ii < R and 0 <= jj < Cg else None
 
+    def owner(n):
+        return rank if owners is None else owners[n[0] * Cg + n[1]]
+
+    def tag(n, side):  # the receiving ghost: block n's side 0..3
+        return (n[0] * Cg + n[1]) * 4 + side
+
     pads = []
     for row in blocks:
         prow = []
         for b in row:
+            if b is None:
+                prow.append(None)
+                continue
             p = (b.new_empty((C, h + 2 * d, w + 2 * d), dtype=dtype)
                  if fill is None else
                  b.new_full((C, h + 2 * d, w + 2 * d), fill, dtype=dtype))
@@ -162,37 +187,72 @@ def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
             prow.append(p)
         pads.append(prow)
     cols = slice(d, d + w)
-    for i in range(R):  # phase 1: rows
-        for j in range(Cg):
-            p = pads[i][j]
-            for dst, src_rows, n in ((slice(0, d), slice(h - d, h),
-                                      nbr(i - 1, j)),
-                                     (slice(d + h, h + 2 * d), slice(0, d),
-                                      nbr(i + 1, j))):
-                if n is None:
-                    p[:, dst, cols] = 0
-                else:
-                    p[:, dst, cols] = blocks[n[0]][n[1]][:, src_rows, :]
-    # Phase 2: columns.  The sources are interior columns, which this
-    # phase does not write.
-    src_left, src_right = slice(d, 2 * d), slice(w, w + d)
-    if packed:
-        stage = [[(p[:, :, src_left].contiguous(),
-                   p[:, :, src_right].contiguous()) for p in prow]
-                 for prow in pads]
+    # Phase 1: rows.  Side 0 / 1 is the top / bottom ghost.
+    sends, recvs = [], []
     for i in range(R):
         for j in range(Cg):
             p = pads[i][j]
+            if p is None:
+                continue
+            for side, dst, src_rows, n in (
+                    (0, slice(0, d), slice(h - d, h), nbr(i - 1, j)),
+                    (1, slice(d + h, h + 2 * d), slice(0, d),
+                     nbr(i + 1, j))):
+                if n is None:
+                    p[:, dst, cols] = 0
+                elif owner(n) != rank:
+                    recvs.append((owner(n), tag((i, j), side),
+                                  p[:, dst, cols]))
+                else:
+                    p[:, dst, cols] = blocks[n[0]][n[1]][:, src_rows, :]
+            # My last rows are my lower neighbour's top ghost, my first
+            # rows my upper neighbour's bottom ghost.
+            for side, src_rows, n in ((0, slice(h - d, h), nbr(i + 1, j)),
+                                      (1, slice(0, d), nbr(i - 1, j))):
+                if n is not None and owner(n) != rank:
+                    sends.append((owner(n), tag(n, side),
+                                  blocks[i][j][:, src_rows, :].to(dtype)))
+    _swap(sends, recvs)
+    # Phase 2: columns (side 2 / 3: the left / right ghost).  The sources
+    # are interior columns, which this phase does not write.
+    src_left, src_right = slice(d, 2 * d), slice(w, w + d)
+    if packed:
+        stage = [[None if p is None else (p[:, :, src_left].contiguous(),
+                                          p[:, :, src_right].contiguous())
+                  for p in prow] for prow in pads]
+    sends, recvs = [], []
+    for i in range(R):
+        for j in range(Cg):
+            p = pads[i][j]
+            if p is None:
+                continue
             # My left ghost is the left neighbour's right edge; my right
             # ghost the right neighbour's left edge.
-            for dst, side, n in ((slice(0, d), 1, nbr(i, j - 1)),
-                                 (slice(d + w, w + 2 * d), 0,
-                                  nbr(i, j + 1))):
+            for side, dst, src, n in ((2, slice(0, d), 1, nbr(i, j - 1)),
+                                      (3, slice(d + w, w + 2 * d), 0,
+                                       nbr(i, j + 1))):
                 if n is None:
                     p[:, :, dst] = 0
+                elif owner(n) != rank:
+                    recvs.append((owner(n), tag((i, j), side),
+                                  p[:, :, dst]))
                 elif packed:
-                    p[:, :, dst] = stage[n[0]][n[1]][side]
+                    p[:, :, dst] = stage[n[0]][n[1]][src]
                 else:
                     p[:, :, dst] = pads[n[0]][n[1]][
-                        :, :, (src_left, src_right)[side]]
+                        :, :, (src_left, src_right)[src]]
+            for side, src, n in ((2, src_right, nbr(i, j + 1)),
+                                 (3, src_left, nbr(i, j - 1))):
+                if n is not None and owner(n) != rank:
+                    sends.append((owner(n), tag(n, side), p[:, :, src]))
+    _swap(sends, recvs)
     return pads
+
+
+def _swap(sends, recvs) -> None:
+    """``multihost.swap`` of one phase's slabs between ranks (none in one
+    process)."""
+    if sends or recvs:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        multihost.swap(sends, recvs)

@@ -15,6 +15,13 @@ device per block.  The port has two forms of :class:`Grid`:
   grid of slots on one card runs what separate cards run, and over several
   cards it runs across them.
 
+A grid of slots may span the processes of a job (``make_grid(devices=
+"all")`` with several processes, ``parallel/multihost.py``): ``owners``
+names the rank that owns each slot, row-major, each rank owning an equal
+share, and ``rank`` is this process's.  Each process holds only its own
+blocks; the others' entries in a list of blocks are ``None``
+(:func:`local_blocks` walks what this process holds).
+
 The image state is an R×C list of lists of ``(C, h, w)`` block tensors,
 each on its slot's device.  Axis convention as in the JAX package: grid
 rows split H, grid columns split W.
@@ -27,7 +34,7 @@ import math
 
 import torch
 
-from parallel_convolution_tpu_torch.utils.config import SLOTS_ITEM, pending
+from parallel_convolution_tpu_torch.utils.config import PROCESSES_ITEM, pending
 from parallel_convolution_tpu_torch.utils.platform import resolve_device
 
 
@@ -56,13 +63,18 @@ def padded_extent(total: int, parts: int) -> int:
 class Grid:
     """An R×C grid of blocks: all on ``device``, or with ``devices`` one
     slot per block (row-major; a device may repeat), ``device`` then being
-    slot 0's (the device results are gathered on)."""
+    slot 0's (the device results are gathered on).  ``owners`` (a grid of
+    slots over several processes) is the rank owning each slot and
+    ``rank`` this process's; ``device`` is then this process's first
+    slot's."""
 
     rows: int = 1
     cols: int = 1
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
     devices: tuple[torch.device, ...] | None = None
+    owners: tuple[int, ...] | None = None
+    rank: int = 0
 
     def __post_init__(self) -> None:
         if self.rows < 1 or self.cols < 1:
@@ -79,7 +91,16 @@ class Grid:
             raise ValueError("the slots of one grid are all cpu or all cuda, "
                              f"got {[str(d) for d in devs]}")
         object.__setattr__(self, "devices", devs)
-        object.__setattr__(self, "device", devs[0])
+        if self.owners is None:
+            object.__setattr__(self, "device", devs[0])
+            return
+        owners = tuple(int(o) for o in self.owners)
+        if len(owners) != len(devs) or self.rank not in owners:
+            raise ValueError(f"owners {owners} do not give each of the "
+                             f"{len(devs)} slots a rank, rank {self.rank} "
+                             "among them")
+        object.__setattr__(self, "owners", owners)
+        object.__setattr__(self, "device", devs[owners.index(self.rank)])
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -103,6 +124,16 @@ class Grid:
     def slot_map(self) -> str:
         """The slots as ``--device`` takes them (a comma list)."""
         return ",".join(str(d) for d in self.slots)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the slots belong to more than one process."""
+        return self.owners is not None and len(set(self.owners)) > 1
+
+    def is_local(self, i: int, j: int) -> bool:
+        """Whether this process holds block (i, j)."""
+        return self.owners is None or (
+            self.owners[i * self.cols + j] == self.rank)
 
 
 def _slot_device(spec) -> torch.device:
@@ -130,8 +161,9 @@ def make_grid(shape: tuple[int, int] | None = None, device=None,
     ``torch.cuda.device_count()`` cards, or every slot ``cpu`` when
     ``device='cpu'``.  The default shape is then ``dims_create`` of the
     slot count (of the cards for ``"all"``).  ``"all"`` in a job of
-    several processes would span them: that is ROADMAP item 10c and
-    raises ``NotImplementedError``.
+    several processes spans them: each rank owns an equal row-major share
+    of the slots, round-robin over its own cards (or ``cpu``), and holds
+    only its blocks (:func:`_process_grid`).
     """
     if devices is None:
         r, c = shape if shape is not None else (1, 1)
@@ -140,8 +172,7 @@ def make_grid(shape: tuple[int, int] | None = None, device=None,
         from parallel_convolution_tpu_torch.parallel import multihost
 
         if multihost.process_count() > 1:
-            raise pending("a grid over the devices of several processes",
-                          SLOTS_ITEM)
+            return _process_grid(shape, device)
         if device is not None and torch.device(device).type == "cpu":
             r, c = shape if shape is not None else (1, 1)
             return Grid(int(r), int(c), devices=("cpu",) * (int(r) * int(c)))
@@ -158,6 +189,39 @@ def make_grid(shape: tuple[int, int] | None = None, device=None,
         raise ValueError(f"device={device!r} is not slot 0's {devs[0]}")
     r, c = shape if shape is not None else dims_create(len(devs))
     return Grid(int(r), int(c), devices=devs)
+
+
+def _process_grid(shape, device) -> Grid:
+    """``devices="all"`` in a job of ``n`` processes: R·C slots (default
+    ``dims_create`` of every process's devices), rank ``r`` owning slots
+    ``[r·k, (r+1)·k)`` with ``k = R·C / n``, round-robin over its own cards
+    (every slot ``cpu`` with ``device='cpu'``).  The halo slabs between
+    ranks travel through ``torch.distributed`` point-to-point calls on host
+    memory, which gloo carries; an NCCL group (one card a process) is
+    item 10d."""
+    from parallel_convolution_tpu_torch.parallel import multihost
+
+    info = multihost.process_info()
+    n, rank = info["process_count"], info["process_index"]
+    if multihost.backend() != "gloo":
+        raise pending(f"a grid over the processes of a "
+                      f"{multihost.backend()} group", PROCESSES_ITEM)
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        resolve_device(device)  # raises without CUDA
+    local = 1 if cpu else torch.cuda.device_count()
+    r, c = shape if shape is not None else dims_create(
+        info["global_devices"] if not cpu else n)
+    r, c = int(r), int(c)
+    if (r * c) % n:
+        raise ValueError(f"a {r}x{c} grid does not split into equal shares "
+                         f"of {n} processes")
+    k = r * c // n
+    owners = tuple(s // k for s in range(r * c))
+    devs = tuple(torch.device("cpu") if cpu
+                 else torch.device("cuda", (s % k) % local)
+                 for s in range(r * c))
+    return Grid(r, c, devices=devs, owners=owners, rank=rank)
 
 
 def grid_from_spec(spec: str | None, device=None) -> Grid:
@@ -180,7 +244,8 @@ def grid_from_spec(spec: str | None, device=None) -> Grid:
 
 def split_blocks(x: torch.Tensor, grid: Grid) -> list[list[torch.Tensor]]:
     """Cut a (C, R*h, C*w) tensor into the grid's R×C contiguous blocks,
-    each on its slot's device."""
+    each on its slot's device (``None`` where another process holds
+    it)."""
     R, Cc = grid.shape
     _, Hp, Wp = x.shape
     if Hp % R or Wp % Cc:
@@ -193,6 +258,7 @@ def split_blocks(x: torch.Tensor, grid: Grid) -> list[list[torch.Tensor]]:
     return [[x[:, i * bh:(i + 1) * bh, j * bw:(j + 1) * bw].to(
                 grid.slot_device(i, j), copy=True,
                 memory_format=torch.contiguous_format)
+             if grid.is_local(i, j) else None
              for j in range(Cc)] for i in range(R)]
 
 
@@ -204,8 +270,56 @@ def join_blocks(blocks: list[list[torch.Tensor]], device=None) -> torch.Tensor:
                       for row in blocks], dim=1)
 
 
-def check_no_slots(grid: Grid | None, what: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 10c where ``grid``
-    is a grid of slots and ``what`` does not run on one yet."""
-    if grid is not None and grid.slotted:
-        raise pending(f"{what} on a grid of slots", SLOTS_ITEM)
+def local_blocks(blocks):
+    """``((i, j), block)`` for every block this process holds (a grid over
+    several processes leaves the others' entries ``None``)."""
+    for i, row in enumerate(blocks):
+        for j, b in enumerate(row):
+            if b is not None:
+                yield (i, j), b
+
+
+def first_block(blocks) -> torch.Tensor:
+    """The first block this process holds (its shape and dtype are every
+    block's)."""
+    return next(local_blocks(blocks))[1]
+
+
+def reblock(blocks, valid_hw, grid: Grid, block_hw) -> list[list[torch.Tensor]]:
+    """Move the blocks of one grid onto ``(grid, block_hw)`` by the
+    reshard rule (crop to the valid extent, re-pad, re-block), each target
+    block assembled on its slot's device from the source blocks it
+    overlaps, its rim beyond ``valid_hw`` zero: no device ever holds more
+    than its own block and one piece of a source block.  The source
+    blocks are any equal-sized R'×C' grid of (C, h', w') blocks (one
+    process)."""
+    H, W = (int(v) for v in valid_hw)
+    src = first_block(blocks)
+    C, sbh, sbw = src.shape
+    bh, bw = (int(v) for v in block_hw)
+    out = []
+    for i in range(grid.rows):
+        row = []
+        for j in range(grid.cols):
+            dev = grid.slot_device(i, j)
+            b = torch.zeros((C, bh, bw), dtype=src.dtype, device=dev)
+            r0, c0 = i * bh, j * bw
+            r1, c1 = min(r0 + bh, H), min(c0 + bw, W)
+            for si in range(r0 // sbh, -(-r1 // sbh)) if r1 > r0 else ():
+                for sj in range(c0 // sbw, -(-c1 // sbw)) if c1 > c0 else ():
+                    g0, g1 = max(r0, si * sbh), min(r1, (si + 1) * sbh)
+                    h0, h1 = max(c0, sj * sbw), min(c1, (sj + 1) * sbw)
+                    b[:, g0 - r0:g1 - r0, h0 - c0:h1 - c0] = blocks[si][sj][
+                        :, g0 - si * sbh:g1 - si * sbh,
+                        h0 - sj * sbw:h1 - sj * sbw].to(dev)
+            row.append(b)
+        out.append(row)
+    return out
+
+
+def check_one_process(grid: Grid | None, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 10d where ``grid``
+    spans processes and ``what`` does not run across them yet."""
+    if grid is not None and grid.spans_processes:
+        raise pending(f"{what} on a grid over several processes",
+                      PROCESSES_ITEM)

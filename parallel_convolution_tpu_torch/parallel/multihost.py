@@ -13,10 +13,17 @@ helpers keep the JAX contracts (``process_info`` / ``barrier`` /
 
 Nothing tells a program of a cluster: the caller gives the address, the
 process count and its rank (or the ``MASTER_ADDR`` / ``MASTER_PORT`` /
-``WORLD_SIZE`` / ``RANK`` environment of ``torchrun``).  A grid whose slots
-span processes is ROADMAP item 10c: ``mesh.make_grid(devices="all")``
-raises ``NotImplementedError`` naming it in a job of several processes
-(:func:`process_count`, which makes no collective call).
+``WORLD_SIZE`` / ``RANK`` environment of ``torchrun``).
+
+In a job of several processes ``mesh.make_grid(devices="all")`` spans
+them: each rank owns an equal share of the slots and holds only its
+blocks.  What crosses ranks goes through this module and host memory, the
+transport gloo carries (two ranks on one card share it; NCCL refuses
+that): the halo slabs (:func:`swap`, point to point), the convergence
+diff (:func:`all_max`), a block another rank holds (:func:`fill_blocks`)
+and small objects (:func:`gather_object`).  ``cuda_rdma``, which reads
+its neighbours' buffers in place, and the NCCL transport (one card a
+process) are ROADMAP item 10d.
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ def initialize(coordinator_address: str | None = None,
     in the environment) and when the group already exists.
 
     ``coordinator_address`` is ``host:port`` (or a ``tcp://`` / ``env://``
-    URL); ``backend`` defaults to ``gloo`` without CUDA and ``nccl``
-    with it.
+    URL); ``backend`` defaults to ``nccl`` where every process can have a
+    card of its own (at least ``num_processes`` visible), else ``gloo``:
+    without CUDA, and whenever two ranks share a card, which NCCL refuses.
     """
     import torch.distributed as dist
 
@@ -58,8 +66,12 @@ def initialize(coordinator_address: str | None = None,
         url = coordinator_address
     else:
         url = f"tcp://{coordinator_address}"
+    if backend is None:
+        own_card = (torch.cuda.is_available()
+                    and torch.cuda.device_count() >= int(num_processes))
+        backend = "nccl" if own_card else "gloo"
     dist.init_process_group(
-        backend or ("nccl" if torch.cuda.is_available() else "gloo"),
+        backend,
         init_method=url, world_size=int(num_processes), rank=int(process_id))
 
 
@@ -67,6 +79,18 @@ def process_count() -> int:
     """The processes of the job (1 without a group); no collective."""
     dist = _dist()
     return 1 if dist is None else dist.get_world_size()
+
+
+def rank() -> int:
+    """This process's rank (0 without a group); no collective."""
+    dist = _dist()
+    return 0 if dist is None else dist.get_rank()
+
+
+def backend() -> str | None:
+    """The group's backend name, None without a group."""
+    dist = _dist()
+    return None if dist is None else str(dist.get_backend())
 
 
 def _local_devices() -> int:
@@ -107,3 +131,91 @@ def broadcast_scalar(value: float) -> float:
     t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
     dist.broadcast(t, src=0)
     return float(t.item())
+
+
+def gather_object(obj) -> list:
+    """Every rank's ``obj``, in rank order, on every rank (``[obj]``
+    without a group)."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def all_max(x: torch.Tensor) -> torch.Tensor:
+    """The max over ranks of a 0-d tensor, as a 0-d f32 host tensor, NaN
+    if any rank's is NaN: gloo's MAX need not carry a NaN, so a NaN flag
+    is reduced beside the value (NaN taken as -inf there), in one call.
+    The copy to the host is the caller's one readback."""
+    dist = _dist()
+    if dist is None or dist.get_world_size() == 1:
+        return x
+    v = x.detach().to("cpu", torch.float64).reshape(())
+    nan = bool(torch.isnan(v))
+    buf = torch.tensor([float("-inf") if nan else float(v), float(nan)],
+                       dtype=torch.float64)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+    return torch.tensor(float("nan") if buf[1] > 0 else float(buf[0]),
+                        dtype=torch.float32)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes, flat, in host memory (pinned for a card's)."""
+    flat = t.contiguous().reshape(-1).view(torch.uint8)
+    if flat.device.type == "cpu":
+        return flat
+    host = torch.empty(flat.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat)
+    return host
+
+
+def _host_buffer(nbytes: int, device) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def swap(sends, recvs) -> None:
+    """One round of point-to-point slabs between ranks.  ``sends`` are
+    ``(rank, tag, tensor)``; ``recvs`` are ``(rank, tag, out)``, each
+    ``out`` a tensor (any device) the slab is written into.  Every receive
+    is posted before any send, all of them non-blocking, and the round
+    ends when all have completed, so no ring of ranks deadlocks; a card's
+    slab is staged through pinned host memory (gloo's point-to-point calls
+    take host tensors).  Tags name the receiving slab, so one round may
+    carry several slabs between the same two ranks."""
+    dist = _dist()
+    landing, reqs = [], []
+    for src, tag, out in recvs:
+        buf = _host_buffer(out.numel() * out.element_size(), out.device)
+        reqs.append(dist.irecv(buf, src=int(src), tag=int(tag)))
+        landing.append((buf, out))
+    staged = [(dst, tag, _to_host(t)) for dst, tag, t in sends]
+    for dst, tag, buf in staged:
+        reqs.append(dist.isend(buf, dst=int(dst), tag=int(tag)))
+    for req in reqs:
+        req.wait()
+    for buf, out in landing:
+        out.copy_(buf.view(out.dtype).view(out.shape))
+
+
+def fill_blocks(blocks, owners) -> list:
+    """The R×C blocks with every entry filled: each block is broadcast from
+    the rank that holds it (``owners``, row-major) through host memory,
+    and lands on the device of this process's first block (a grid over
+    several processes: every rank calls this)."""
+    dist = _dist()
+    mine = next(b for row in blocks for b in row if b is not None)
+    cols = len(blocks[0])
+    out = [list(row) for row in blocks]
+    for k, owner in enumerate(owners):
+        i, j = divmod(k, cols)
+        buf = (_to_host(out[i][j]) if out[i][j] is not None
+               else _host_buffer(mine.numel() * mine.element_size(),
+                                 mine.device))
+        dist.broadcast(buf, src=int(owner))
+        if out[i][j] is None:
+            out[i][j] = buf.view(mine.dtype).view(mine.shape).to(
+                mine.device)
+    return out

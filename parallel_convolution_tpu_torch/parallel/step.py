@@ -40,6 +40,13 @@ K3 / K4 launch per slot behind the barrier between slots
 ``overlap=True`` each slot's launch region by region, the interior first
 with no wait (:func:`resolve_overlap`); the convergence diff is the max
 over the slots, gathered once per chunk with one readback.
+
+A grid of slots may span processes (``mesh.make_grid(devices="all")`` in
+a job of several, ``parallel/multihost.py``): each rank steps only its
+blocks, the exchange sends a slab between ranks where a neighbour lives on
+another, and the diff is reduced across ranks (``multihost.all_max``, a
+NaN on any rank stopping every rank after the same chunk).  ``cuda_rdma``,
+``auto`` and ``fallback`` there are ROADMAP item 10d.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ from parallel_convolution_tpu_torch.ops import conv, rdma, stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, join_blocks, make_grid, padded_extent, split_blocks,
+    Grid, check_one_process, first_block, join_blocks, local_blocks,
+    make_grid, padded_extent, split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils.config import (
@@ -128,8 +136,9 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
     offset class (``stencil.axis_offset_classes``): the host knows every
     block's exact offset, but plans by class, so that the launches are
     the JAX package's.  On a grid of slots each block runs on its slot's
-    device and the exchange copies slabs between them; ``col_mode`` is
-    taken and not used (no column transport of its own).
+    device and the exchange copies slabs between them (between ranks on a
+    grid over processes, where each rank steps its own blocks);
+    ``col_mode`` is taken and not used (no column transport of its own).
     """
     periodic, needs_mask = _boundary_geometry(grid.shape, valid_hw, block_hw,
                                               boundary)
@@ -168,28 +177,28 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
 
     def step(blocks):
         depth = r * fuse
-        exchange = (halo.exchange_per_block if grid.slotted
-                    else halo.halo_exchange)
-        padded = exchange(blocks, depth, grid.shape, boundary)
+        padded = (halo.exchange_per_block(blocks, depth, grid.shape, boundary,
+                                          owners=grid.owners)
+                  if grid.slotted else
+                  halo.halo_exchange(blocks, depth, grid.shape, boundary))
         out = [[None] * grid.cols for _ in range(grid.rows)]
-        for i in range(grid.rows):
-            for j in range(grid.cols):
-                p, dtype = padded[i][j], blocks[i][j].dtype
-                if on_kernels and fuse > 1:
-                    # All T levels in K2: one device-memory round trip.
-                    out[i][j] = stencil.fused_iterate(
-                        p, (i * block_hw[0], j * block_hw[1]), filt, fuse,
-                        None if periodic else tuple(valid_hw),
-                        quantize=quantize, out_dtype=dtype, separable=sep,
-                        tile=tile, interior_split=split,
-                        block_off=block_off(i, j))
-                    continue
-                for t in range(fuse):
-                    margin = depth - r * (t + 1)
-                    p = correlate_level(p, dtype)
-                    if not periodic and (needs_mask or margin > 0):
-                        p = p * mask((i, j), margin, p.dtype)
-                out[i][j] = p.to(dtype)
+        for (i, j), p in local_blocks(padded):
+            dtype = blocks[i][j].dtype
+            if on_kernels and fuse > 1:
+                # All T levels in K2: one device-memory round trip.
+                out[i][j] = stencil.fused_iterate(
+                    p, (i * block_hw[0], j * block_hw[1]), filt, fuse,
+                    None if periodic else tuple(valid_hw),
+                    quantize=quantize, out_dtype=dtype, separable=sep,
+                    tile=tile, interior_split=split,
+                    block_off=block_off(i, j))
+                continue
+            for t in range(fuse):
+                margin = depth - r * (t + 1)
+                p = correlate_level(p, dtype)
+                if not periodic and (needs_mask or margin > 0):
+                    p = p * mask((i, j), margin, p.dtype)
+            out[i][j] = p.to(dtype)
         return out
 
     return step
@@ -208,7 +217,10 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
     ``rdma.SlotCarry`` (the blocks on the CPU), the column slabs moved by
     ``col_mode``, and with ``overlap`` (resolved: :func:`resolve_overlap`
     keeps it only on a grid of slots) each slot's launch region by region.
-    ``interior_split`` is taken and not used, as in the JAX package."""
+    ``interior_split`` is taken and not used, as in the JAX package.  A
+    grid over several processes raises (ROADMAP item 10d: the launch reads
+    its neighbours' buffers in place)."""
+    check_one_process(grid, "backend 'cuda_rdma'")
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
     # The in-kernel exchange failing to build (pallas_rdma's site).
     fault_point("halo_exchange")
@@ -344,13 +356,20 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
 def _check_quantize_contract(blocks, filt: Filter, quantize: bool) -> None:
     """Fail loudly on out-of-contract quantize-mode inputs: convex filters
     skip the store-back clip, so float values outside [0, 255] would
-    propagate unclipped instead of being clipped on the first store-back."""
+    propagate unclipped instead of being clipped on the first store-back.
+    On a grid over several processes the range is every rank's."""
     if not (quantize and filt.convex):
         return
-    if blocks[0][0].dtype == torch.uint8:
+    if first_block(blocks).dtype == torch.uint8:
         return
-    lo = min(float(b.min()) for row in blocks for b in row if b.numel())
-    hi = max(float(b.max()) for row in blocks for b in row if b.numel())
+    held = [b for _, b in local_blocks(blocks) if b.numel()]
+    lo = min((float(b.min()) for b in held), default=0.0)
+    hi = max((float(b.max()) for b in held), default=0.0)
+    if any(b is None for row in blocks for b in row):
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        ranges = multihost.gather_object((lo, hi))
+        lo, hi = min(r[0] for r in ranges), max(r[1] for r in ranges)
     if lo < 0.0 or hi > 255.0:
         raise ValueError(
             f"quantize=True input has values in [{lo}, {hi}], outside the "
@@ -378,7 +397,12 @@ def _prepare(x, grid: Grid, storage: str = "f32"):
 
 def _global_f32(blocks, grid: Grid, valid_hw) -> torch.Tensor:
     """The grid's blocks as the global (C, H, W) f32 field at the valid
-    extent, on the grid's device."""
+    extent, on the grid's device (on every rank of a grid over several
+    processes: each block broadcast from its rank)."""
+    if grid.spans_processes:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        blocks = multihost.fill_blocks(blocks, grid.owners)
     full = join_blocks(blocks, grid.device)
     return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)
 
@@ -568,17 +592,19 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     ``strided`` / ``auto``) is ``cuda_rdma``'s column transport on a grid
     of slots (:func:`resolve_col_mode`); ``overlap`` see
     :func:`resolve_overlap`."""
-    if blocks[0][0].dtype == torch.uint8:
+    b0 = first_block(blocks)
+    if b0.dtype == torch.uint8:
         check_storage("u8", quantize)
+    _check_processes(grid, backend, fallback)
     if check_contract:
         _check_quantize_contract(blocks, filt, quantize)
-    storage = _storage_name(blocks[0][0].dtype)
+    storage = _storage_name(b0.dtype)
     backend, fuse, tile, source = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
-        valid_hw, blocks[0][0].shape[0])
+        valid_hw, b0.shape[0])
     overlap = _auto_overlap(overlap, source)
     check_backend(backend)
-    block_hw = tuple(blocks[0][0].shape[1:])
+    block_hw = tuple(b0.shape[1:])
     fuse = int(fuse)
     if fuse < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
@@ -591,6 +617,16 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
                          None if tile is None else tuple(tile),
                          interior_split, col_mode, overlap)
     return run(blocks)
+
+
+def _check_processes(grid: Grid, backend: str, fallback: bool) -> None:
+    """What a grid over several processes does not run yet raises (ROADMAP
+    item 10d): ``cuda_rdma``, ``auto`` (its measured tune and plans are
+    one process's) and ``fallback`` (its probe launches per process)."""
+    if backend in ("cuda_rdma", AUTO):
+        check_one_process(grid, f"backend {backend!r}")
+    if fallback:
+        check_one_process(grid, "fallback=True")
 
 
 def _setup_run(x, grid, device, backend: str, storage: str, boundary: str,
@@ -665,16 +701,24 @@ def _carry_diff(cur, prev, grid: Grid, backend: str) -> torch.Tensor:
     change of one iteration over every block and channel, the pad rim
     included (zero in both), as a 0-d tensor on the grid's device.  Each
     device's share is reduced where it lives and the shares are gathered
-    once (a NaN on any slot stays NaN)."""
+    once (a NaN on any slot stays NaN).  On a grid over several processes
+    each rank reduces its blocks and the ranks their shares
+    (``multihost.all_max``: the 0-d result on the host, NaN if any rank's
+    is)."""
     if backend == "cuda_rdma" and not grid.slotted:
         return _max_abs_diff(cur, prev)
     if isinstance(cur, rdma.SlotCarry):
         cur.run.join()
         diffs = [_max_abs_diff(c, p) for c, p in zip(cur.parts, prev.parts)]
     else:
-        diffs = [_max_abs_diff(c, p) for cur_row, prev_row in zip(cur, prev)
-                 for c, p in zip(cur_row, prev_row)]
-    return torch.stack([d.to(grid.device) for d in diffs]).amax()
+        diffs = [_max_abs_diff(c, prev[i][j])
+                 for (i, j), c in local_blocks(cur)]
+    d = torch.stack([d.to(grid.device) for d in diffs]).amax()
+    if grid.spans_processes:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        d = multihost.all_max(d)
+    return d
 
 
 def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
@@ -748,9 +792,10 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
         x, grid, device, backend, storage, boundary, quantize)
+    _check_processes(grid, backend, fallback)
     backend, fuse, tile, source = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
-        valid_hw, blocks[0][0].shape[0], check_every=int(check_every))
+        valid_hw, first_block(blocks).shape[0], check_every=int(check_every))
     overlap = _auto_overlap(overlap, source)
     check_backend(backend)
     backend, col_mode, overlap = _run_knobs(

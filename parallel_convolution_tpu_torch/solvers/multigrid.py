@@ -26,9 +26,20 @@ It runs on the machinery the rest of the port has:
   (halve the larger grid axis); a level's state moves by the reshard rule
   (crop to the valid extent, re-pad, re-block), here on the device: the
   JAX package makes a host round trip, the values are the same.
+* **On a grid of slots** (``mesh.Grid.devices``) a coarse level's
+  sub-grid is the first ``g0·g1`` slots, as the JAX package's sub-mesh is
+  its first devices; each block is smoothed and transferred on its slot's
+  device over the per-block exchange (``halo.exchange_per_block``), K1
+  per slot for ``cuda`` / ``cuda_sep`` and one K3 / K4 launch per slot
+  for ``cuda_rdma`` (``rdma.fused_rdma_slots``, its column transport
+  ``col_mode``, the fine level's sweeps overlapped with ``overlap``); a
+  level's state moves between sub-grids block by block
+  (``mesh.reblock``: each target block gathered from the source blocks
+  it overlaps, on its own device).
 
 The level state is the backend's carry: the R×C list of ``(C, h, w)``
-blocks, or for ``cuda_rdma`` the stacked ``(R·C, C, h, w)`` grid.
+blocks, or for ``cuda_rdma`` on one device the stacked ``(R·C, C, h, w)``
+grid.
 
 The equation solved is the one the Jacobi path iterates: ``u = mask(S u)``
 (S the filter stencil, mask the zero ghost-ring / pad-rim invariant), i.e.
@@ -59,7 +70,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_no_slots, join_blocks, make_grid, padded_extent,
+    Grid, check_one_process, join_blocks, make_grid, padded_extent, reblock,
     split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
@@ -69,8 +80,9 @@ from parallel_convolution_tpu_torch.utils.config import (
 )
 
 __all__ = ["MG_BLOCK_FLOOR", "MGResult", "Level", "cycle_launches",
-           "cycle_work_units", "float_tolerance", "mg_converge", "mg_converge_stream",
-           "plan_levels"]
+           "cycle_work_units", "float_tolerance", "level_channel_keys",
+           "mg_converge", "mg_converge_stream", "plan_levels",
+           "warm_level_channels"]
 
 # The tile floor: a level whose block would dip below this on the
 # inherited grid collapses onto a smaller grid instead (sub-tile blocks are
@@ -135,8 +147,8 @@ class MGResult:
     overlap: bool
     wall_s: float
     predicted_s_per_cycle: float | None = None
-    # The column transport (inert: multigrid runs on one device; a grid
-    # of slots is item 10c).
+    # The column transport the run used (``step.resolve_col_mode``: the
+    # canonical "packed" wherever it is inert).
     col_mode: str | None = None
     residuals: list[float] = dataclasses.field(default_factory=list)
 
@@ -188,7 +200,11 @@ def plan_levels(grid: Grid, valid_hw, radius: int, boundary: str = "zero",
       extents);
     * every non-coarsest level pads its blocks even (transfer locality);
     * a coarse level lands on the first shrink-ladder rung whose block
-      clears ``floor``; a sub-grid is a smaller grid on the same device.
+      clears ``floor``; a sub-grid is a smaller grid on the same device,
+      or on a grid of slots the first ``g0·g1`` slots (the JAX package's
+      ``devices[:g0*g1]``), and a level whose grid repeats the previous
+      level's reuses its ``Grid`` object, so builds key on one grid a
+      shape.
     """
     valid_hw = (int(valid_hw[0]), int(valid_hw[1]))
     periodic = boundary == "periodic"
@@ -217,7 +233,14 @@ def plan_levels(grid: Grid, valid_hw, radius: int, boundary: str = "zero",
             if g is None:
                 break  # periodic level with no host at any rung: stop
         block = _level_block(cur_valid, g, 2 if more else 1)
-        sub = grid if g == grid.shape else Grid(g[0], g[1], grid.device)
+        if levels and levels[-1].grid.shape == g:
+            sub = levels[-1].grid
+        elif g == grid.shape:
+            sub = grid
+        elif grid.slotted:
+            sub = Grid(g[0], g[1], devices=grid.slots[:g[0] * g[1]])
+        else:
+            sub = Grid(g[0], g[1], grid.device)
         levels.append(Level(sub, cur_valid, block))
         if not more:
             break
@@ -253,7 +276,8 @@ def cycle_work_units(levels, nu_pre: int = NU_PRE, nu_post: int = NU_POST,
 
 def _level_sweeps(levels, nu_pre, nu_post, nu_coarse) -> list[int]:
     """Smoother-step applications per level per cycle (each is one K1
-    launch per block, or one K3 / K4 launch for the grid, on the card)."""
+    launch per block, or one K3 / K4 launch for the grid or per slot, on
+    the card)."""
     if len(levels) == 1:
         return [nu_pre + nu_post]
     return [(nu_coarse if i == len(levels) - 1 else nu_pre + nu_post + 1)
@@ -261,25 +285,42 @@ def _level_sweeps(levels, nu_pre, nu_post, nu_coarse) -> list[int]:
 
 
 def cycle_launches(levels, backend: str, radius: int, nu_pre: int = NU_PRE,
-                   nu_post: int = NU_POST,
-                   nu_coarse: int = NU_COARSE) -> dict:
+                   nu_post: int = NU_POST, nu_coarse: int = NU_COARSE,
+                   col_mode: str = "packed", overlap: bool = False) -> dict:
     """Kernel launches of one V-cycle on the card, by wrapper: every
-    smoother step is one K1 launch per block (``cuda`` / ``cuda_sep``), or
-    one K3 or K4 launch for the level's grid (``cuda_rdma``, whichever
-    ``rdma.rdma_plan`` picks for the level's block at T = 1).  The plain
-    backends launch nothing (and nothing runs on a grid of slots: item
-    10c), keyed as ``stencil.launch_counts``."""
+    smoother step is one K1 launch per block or slot (``cuda`` /
+    ``cuda_sep``), or for ``cuda_rdma`` one K3 or K4 launch for the
+    level's grid (whichever ``rdma.rdma_plan`` picks for the level's block
+    at T = 1) or, on a grid of slots, one per slot (``rdma_*_slot``; a
+    pack per slot first with ``col_mode="packed"`` on more than one
+    column), the fine level's pre- and post-smoothing sweeps region by
+    region with ``overlap`` (``rdma_*_region``, the resolved knob: the
+    residual's sweep is not overlapped, as in the JAX package).  The plain
+    backends launch nothing; keyed as ``stencil.launch_counts``."""
+    from parallel_convolution_tpu_torch.tuning import costmodel
+
     counts = {"stencil_step": 0, "fused_iterate": 0, "rdma_block": 0,
               "rdma_tiled": 0, "rdma_block_slot": 0, "rdma_tiled_slot": 0,
               "rdma_block_region": 0, "rdma_tiled_region": 0,
               "rdma_pack": 0}
-    for lv, n in zip(levels, _level_sweeps(levels, nu_pre, nu_post,
-                                           nu_coarse)):
+    sweeps = _level_sweeps(levels, nu_pre, nu_post, nu_coarse)
+    for i, (lv, n) in enumerate(zip(levels, sweeps)):
+        nb = lv.grid.rows * lv.grid.cols
         if backend in ("cuda", "cuda_sep"):
-            counts["stencil_step"] += n * lv.grid.rows * lv.grid.cols
-        elif backend == "cuda_rdma":
-            kind = rdma.rdma_plan(radius, 1, lv.block_hw).kernel
-            counts["rdma_" + kind] += n
+            counts["stencil_step"] += n * nb
+            continue
+        if backend != "cuda_rdma":
+            continue
+        plan = rdma.rdma_plan(radius, 1, lv.block_hw)
+        if not lv.grid.slotted:
+            counts["rdma_" + plan.kernel] += n
+            continue
+        lapped = (nu_pre + nu_post) if overlap and i == 0 else 0
+        counts[f"rdma_{plan.kernel}_slot"] += (n - lapped) * nb
+        counts[f"rdma_{plan.kernel}_region"] += lapped * nb * (
+            costmodel.overlap_launches(lv.block_hw, radius, 1, plan.groups))
+        if col_mode == "packed" and lv.grid.cols > 1:
+            counts["rdma_pack"] += n * nb
     return counts
 
 
@@ -303,9 +344,35 @@ def float_tolerance(filt: Filter, cycles: int, scale: float,
     return rtol, atol * float(scale) / 255.0
 
 
-# The JAX package's level_channel_keys / warm_level_channels bind each
-# level's persistent halo channels for the partitioned RDMA schedule: they
-# come with blocks on separate cards (ROADMAP item 10).
+def level_channel_keys(levels, radius: int, boundary: str, col_mode: str,
+                       channels: int = 1, storage: str = "f32"):
+    """The per-level channel identities of one V-cycle schedule (the JAX
+    package's ``level_channel_keys``): each level's exchange identity at
+    fuse 1, the one its per-slot K3 / K4 launches bind
+    (``rdma.slot_channel_key``), computed once on the schedule, so that
+    after :func:`warm_level_channels` ``channels.stats()["builds"]`` is the
+    number of distinct level identities however many cycles run.
+    ``channels`` is the JAX signature's (the identity does not depend on
+    it)."""
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "u8": torch.uint8}[storage]
+    return tuple(rdma.slot_channel_key(lv.grid.shape, lv.block_hw,
+                                       int(radius), 1, dtype, boundary,
+                                       col_mode)
+                 for lv in levels)
+
+
+def warm_level_channels(levels, radius: int, boundary: str, col_mode: str,
+                        channels: int = 1, storage: str = "f32"):
+    """Bind every level's channel plan up front (idempotent: repeat calls
+    hit the cache); returns the identity tuple."""
+    from parallel_convolution_tpu_torch.parallel import channels as chan
+
+    keys = level_channel_keys(levels, radius, boundary, col_mode, channels,
+                              storage)
+    for k in keys:
+        chan.plan_for(k)
+    return keys
 
 # ---------------------------------------------------------------------------
 # Level states: the backend's carry
@@ -328,10 +395,12 @@ def _map(fn, *states):
 
 def _max_change(cur, prev) -> torch.Tensor:
     """max |cur − prev| over a level state, as a 0-d f32 tensor on its
-    device (a NaN stays NaN)."""
+    (first block's) device: each block's share reduced where it lives,
+    the shares gathered once (a NaN stays NaN)."""
     if torch.is_tensor(cur):
         return step_lib._max_abs_diff(cur, prev)
-    return torch.stack([step_lib._max_abs_diff(c, p)
+    dev = cur[0][0].device
+    return torch.stack([step_lib._max_abs_diff(c, p).to(dev)
                         for rc, rp in zip(cur, prev)
                         for c, p in zip(rc, rp)]).amax()
 
@@ -340,8 +409,11 @@ def _place(full: torch.Tensor, valid_hw, grid: Grid, block_hw,
            stacked: bool):
     """A global (C, ≥H, ≥W) field cropped to ``valid_hw``, zero-padded to
     ``block_hw`` blocks over ``grid`` and cut into them: the carry, stacked
-    for ``cuda_rdma``."""
+    for ``cuda_rdma`` on one device.  On a grid of slots each block is cut
+    from ``full`` where it lies and copied onto its slot's device."""
     H, W = (int(v) for v in valid_hw)
+    if grid.slotted:
+        return reblock([[full]], (H, W), grid, block_hw)
     R, Cg = grid.shape
     th, tw = block_hw[0] * R, block_hw[1] * Cg
     x = full[:, :H, :W]
@@ -353,19 +425,26 @@ def _place(full: torch.Tensor, valid_hw, grid: Grid, block_hw,
 
 def _fit_to(state, valid_hw, src: Grid, grid: Grid, block_hw, stacked: bool):
     """Move a level state onto ``(grid, block_hw)``: the reshard rule
-    (crop to the valid extent, re-pad, re-block), on the device.  The
-    state itself when it is already there."""
+    (crop to the valid extent, re-pad, re-block), on the device; on a
+    grid of slots block by block (``mesh.reblock``), no block ever
+    gathered beyond what its target needs.  The state itself when it is
+    already there."""
     blocks = _blocks(state, src)
     if src == grid and tuple(blocks[0][0].shape[1:]) == tuple(block_hw):
         return state
+    if grid.slotted:
+        return reblock(blocks, valid_hw, grid, block_hw)
     return _place(join_blocks(blocks), valid_hw, grid, block_hw, stacked)
 
 
-def _global(state, grid: Grid, valid_hw) -> torch.Tensor:
-    """The (C, H, W) field of a level state at its valid extent."""
+def _global(state, grid: Grid, valid_hw, device=None) -> torch.Tensor:
+    """The (C, H, W) field of a level state at its valid extent, on
+    ``device`` (default: the grid's)."""
     blocks = _blocks(state, grid)
-    full = blocks[0][0] if grid.shape == (1, 1) else join_blocks(blocks)
-    return full[:, :valid_hw[0], :valid_hw[1]]
+    device = grid.device if device is None else torch.device(device)
+    full = (blocks[0][0] if grid.shape == (1, 1)
+            else join_blocks(blocks, device))
+    return full[:, :valid_hw[0], :valid_hw[1]].to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -373,13 +452,61 @@ def _global(state, grid: Grid, valid_hw) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _smoother(lv: Level, filt: Filter, backend: str, boundary: str, tile):
-    """The level's smoother step: the iterate path's fuse-1 step of
-    ``backend`` on the level's grid and blocks, float carry."""
+@dataclasses.dataclass
+class _Solve:
+    """One solve's resolved configuration, its fine-level state, and on a
+    card's grid of slots the ``cuda_rdma`` run of each level (made at the
+    level's first sweep and reused by every later one)."""
+
+    levels: list
+    backend: str
+    boundary: str
+    tile: tuple[int, int] | None
+    channels: int
+    valid_hw: tuple[int, int]
+    u: object
+    col_mode: str = "packed"
+    overlap: bool = False
+    runs: dict = dataclasses.field(default_factory=dict)
+
+
+def _slot_carry(s: _Solve, lv: Level, filt: Filter, blocks):
+    """The ``cuda_rdma`` carry of a level on a grid of slots: on the card
+    the level's one run (its streams, buffers and pointer tables made
+    once a solve), the blocks copied into its input buffers; on the CPU
+    the blocks."""
+    if blocks[0][0].device.type == "cpu":
+        return blocks
+    run = s.runs.get(lv)
+    if run is None:
+        carry = rdma.slot_carry(blocks, lv.grid, s.boundary, filt.radius,
+                                s.col_mode)
+        s.runs[lv] = carry.run
+        return carry
+    return rdma.load_carry(run, blocks)
+
+
+def _smoother(lv: Level, filt: Filter, s: _Solve, overlap: bool = False):
+    """The level's smoother step: the iterate path's fuse-1 step of the
+    solve's backend on the level's grid and blocks, float carry, its
+    column transport the solve's and ``overlap`` as given.  On a grid of
+    slots ``cuda_rdma`` maps blocks to blocks through the level's run
+    (:func:`_slot_carry`): the result is views of the run's output
+    buffers, valid until the level's next sweep, which every program here
+    consumes first."""
     fault_point("backend_compile")  # a level program's build
     step_lib._check_block_size(filt, lv.block_hw)
-    return step_lib._make_block_step(filt, lv.grid, lv.valid_hw, lv.block_hw,
-                                     False, backend, 1, boundary, tile)
+    step = step_lib._make_block_step(filt, lv.grid, lv.valid_hw, lv.block_hw,
+                                     False, s.backend, 1, s.boundary, s.tile,
+                                     False, s.col_mode, overlap)
+    if s.backend != "cuda_rdma" or not lv.grid.slotted:
+        return step
+
+    def slot_step(blocks):
+        return rdma.slot_blocks(step(_slot_carry(s, lv, filt, blocks)),
+                                lv.grid.shape)
+
+    return slot_step
 
 
 def _damped(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -391,15 +518,14 @@ def _damped(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return out.to(v.dtype)
 
 
-def _build_smooth_rhs(lv: Level, filt: Filter, n: int, backend: str,
-                      boundary: str, tile):
+def _build_smooth_rhs(lv: Level, filt: Filter, n: int, s: _Solve):
     """``n`` damped error-equation sweeps:
     ``e ← (1−ω)·e + ω·(mask(S e) + r)``; the restricted residual ``r`` is
     masked, so the convex combination keeps the masking invariant."""
-    step = _smoother(lv, filt, backend, boundary, tile)
+    step = _smoother(lv, filt, s)
 
-    def sweep(v, s, r):
-        return _damped(v, s + r)
+    def sweep(v, sv, r):
+        return _damped(v, sv + r)
 
     def run(e, r):
         for _ in range(n):
@@ -409,30 +535,38 @@ def _build_smooth_rhs(lv: Level, filt: Filter, n: int, backend: str,
     return run
 
 
-def _build_fine_smooth(lv: Level, filt: Filter, n: int, backend: str,
-                       boundary: str, tile, with_diff: bool):
+def _build_fine_smooth(lv: Level, filt: Filter, n: int, s: _Solve,
+                       with_diff: bool):
     """``n`` damped fine-grid sweeps of the homogeneous equation:
-    ``u ← (1−ω)·u + ω·mask(S u)``.
+    ``u ← (1−ω)·u + ω·mask(S u)``, overlapped where the solve resolved
+    ``overlap`` (the JAX package overlaps the fine sweeps only).
 
     ``with_diff=True`` also returns the max-abs undamped change
     ``max|S u − u|`` of the last sweep, as a 0-d tensor on the device:
     the measure ``sharded_converge`` stops on, from the last sweep's own
     stencil application (it costs no extra step)."""
-    step = _smoother(lv, filt, backend, boundary, tile)
+    step = _smoother(lv, filt, s, s.overlap)
 
     def run(u):
         for _ in range(max(0, n - 1) if with_diff else n):
             u = _map(_damped, u, step(u))
         if not with_diff:
             return u
-        s = step(u)
-        return _map(_damped, u, s), _max_change(s, u)
+        su = step(u)
+        return _map(_damped, u, su), _max_change(su, u)
 
     return run
 
 
-def _build_residual_restrict(lv: Level, filt: Filter, backend: str,
-                             boundary: str, tile, fine: bool):
+def _transfer(name: str, lv: Level, boundary: str):
+    """A registered transfer operator on the level's grid: all blocks at
+    once on one device, per block on a grid of slots."""
+    build = kernel_forms.resolve(2, name, boundary).build
+    args = (lv.grid.shape, lv.valid_hw, lv.block_hw, boundary)
+    return build(*args, per_block=True) if lv.grid.slotted else build(*args)
+
+
+def _build_residual_restrict(lv: Level, filt: Filter, s: _Solve, fine: bool):
     """Residual, full-weighting restriction and the ×4 in one program, on
     the level's grid (the result at half blocks, in the carry's form).
 
@@ -441,21 +575,20 @@ def _build_residual_restrict(lv: Level, filt: Filter, backend: str,
     ``fine=False`` : ``(e, r) → 4·restrict(S e + r − e)`` (a coarse level's
     error equation ``A e = r``).
     """
-    step = _smoother(lv, filt, backend, boundary, tile)
-    restrict = kernel_forms.resolve(2, "restrict_fw", boundary).build(
-        lv.grid.shape, lv.valid_hw, lv.block_hw, boundary)
+    step = _smoother(lv, filt, s)
+    restrict = _transfer("restrict_fw", lv, s.boundary)
 
     def coarse(res):
         return _map(lambda c: COARSE_FACTOR * c, restrict(res))
 
     if fine:
         def run(u):
-            return coarse(_map(lambda s, v: (s - v).to(torch.float32),
+            return coarse(_map(lambda su, v: (su - v).to(torch.float32),
                                step(u), u))
     else:
         def run(e, r):
-            return coarse(_map(lambda s, v, r_: (s + r_ - v).to(torch.float32),
-                               step(e), e, r))
+            return coarse(_map(lambda se, v, r_: (se + r_ - v).to(
+                torch.float32), step(e), e, r))
     return run
 
 
@@ -464,8 +597,7 @@ def _build_prolong_correct(lv: Level, boundary: str):
     registry's ``prolong_bilinear``) and the correction add, on the fine
     level's grid; ``e_c`` arrives there at half blocks."""
     fault_point("backend_compile")
-    prolong = kernel_forms.resolve(2, "prolong_bilinear", boundary).build(
-        lv.grid.shape, lv.valid_hw, lv.block_hw, boundary)
+    prolong = _transfer("prolong_bilinear", lv, boundary)
 
     def run(u, ec):
         return _map(lambda a, b: (a + b.to(a.dtype)).to(a.dtype), u,
@@ -498,23 +630,12 @@ def _predict_cycle_seconds(levels, sweeps, filt: Filter, backend: str,
     return costmodel.predict_vcycle_seconds(terms)
 
 
-@dataclasses.dataclass
-class _Solve:
-    """One solve's resolved configuration and its fine-level state."""
-
-    levels: list
-    backend: str
-    boundary: str
-    tile: tuple[int, int] | None
-    channels: int
-    valid_hw: tuple[int, int]
-    u: object
-
-
 def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
            tile, fallback, overlap, col_mode, mg_levels, device) -> _Solve:
-    """The checks, the default grid, the resolved backend and the level
-    schedule of one solve, and the input placed on the fine level."""
+    """The checks, the default grid, the resolved backend, overlap and
+    column transport (the JAX package's order), the level schedule and
+    its warmed channel plans of one solve, and the input placed on the
+    fine level."""
     if quantize:
         raise ValueError(
             "solver='multigrid' requires quantize=False: corrections are "
@@ -525,7 +646,7 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
             f"solver='multigrid' requires storage='f32', got {storage!r} "
             "(residual/correction fields need full float carries)")
     check_backend(backend, allow_auto=True)
-    check_no_slots(grid, "multigrid")
+    check_one_process(grid, "multigrid")
     if col_mode is not None and col_mode not in COL_MODE_CHOICES:
         raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, got "
                          f"{col_mode!r}")
@@ -536,32 +657,45 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
         raise ValueError(f"grid is on {grid.device}, device={device!r}")
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    x = x.to(device=grid.device, dtype=torch.float32)
+    # On a grid of slots the field stays where it is given: each block is
+    # cut from it and copied onto its slot's device.
+    x = x.to(device=x.device if grid.slotted else grid.device,
+             dtype=torch.float32)
     if x.dim() != 3:
         raise ValueError(f"expected a (C, H, W) field, got {tuple(x.shape)}")
     channels, H, W = x.shape
     valid_hw = (int(H), int(W))
     # fuse is resolved and ignored: smoothing sweeps are fuse 1 (the
     # V-cycle itself is the exchange-amortization lever here).
-    backend, _, tile, _ = step_lib._resolve_auto(
+    backend, _, tile, source = step_lib._resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, channels)
+    overlap = step_lib._auto_overlap(overlap, source)
     check_backend(backend)
-    # Warned and clamped: a one-device grid runs every block in one launch
-    # (multigrid on slots is item 10c), so the V-cycle stamps False.
-    step_lib.resolve_overlap(overlap, backend, grid)
+    overlap = step_lib.resolve_overlap(overlap, backend, grid)
     tile = None if tile is None else tuple(int(v) for v in tile)
     levels = plan_levels(grid, valid_hw, filt.radius, boundary, mg_levels)
     fine = levels[0]
+    col_mode = step_lib.resolve_col_mode(col_mode, backend, grid,
+                                         fine.block_hw, filt.radius, 1,
+                                         storage)
     if fallback:
         # Probed on the REAL fine block (plan_levels pads even only when a
         # coarser level follows): the kernel's launch shape keys on it.
         backend = step_lib._resolve_fallback(
             grid, filt, backend, quantize, 1, boundary, tile, storage,
-            fine.block_hw)
+            fine.block_hw, False, col_mode, overlap)
+        overlap = kernel_forms.clamp_overlap(overlap, backend)
+        col_mode = step_lib.clamp_col_mode(col_mode, backend)
+    if kernel_forms.persistent_capable(backend):
+        # Each level's exchange identity bound once, up front: every
+        # cycle's per-slot launches bind these same plans.
+        warm_level_channels(levels, filt.radius, boundary, col_mode,
+                            channels, storage)
     u = _place(x, valid_hw, fine.grid, fine.block_hw,
-               backend == "cuda_rdma")
-    return _Solve(levels, backend, boundary, tile, channels, valid_hw, u)
+               backend == "cuda_rdma" and not fine.grid.slotted)
+    return _Solve(levels, backend, boundary, tile, channels, valid_hw, u,
+                  col_mode, bool(overlap))
 
 
 def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
@@ -572,8 +706,8 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
     ``residual < tol`` or the work-unit budget ``max_iters`` is spent (a
     NaN residual stops it too).  The residual's ``.item()`` is the cycle's
     one readback and fence; it counts on ``counter.readbacks``."""
-    levels, backend, boundary, tile = s.levels, s.backend, s.boundary, s.tile
-    stacked = backend == "cuda_rdma"
+    levels = s.levels
+    stacked = s.backend == "cuda_rdma" and not levels[0].grid.slotted
     last = len(levels) - 1
     fine = levels[0]
     wu_cycle = cycle_work_units(levels, nu_pre, nu_post, nu_coarse)
@@ -583,26 +717,19 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
         # Degenerate single-level schedule: the cycle is pure damped
         # smoothing (plan_levels refused to coarsen — tiny image or
         # periodic misalignment).
-        smooth = _build_fine_smooth(fine, filt, nu_pre + nu_post, backend,
-                                    boundary, tile, True)
+        smooth = _build_fine_smooth(fine, filt, nu_pre + nu_post, s, True)
     else:
-        pre = _build_fine_smooth(fine, filt, nu_pre, backend, boundary, tile,
-                                 False)
-        post = _build_fine_smooth(fine, filt, nu_post, backend, boundary,
-                                  tile, True)
-        resid = [_build_residual_restrict(lv, filt, backend, boundary, tile,
-                                          i == 0)
+        pre = _build_fine_smooth(fine, filt, nu_pre, s, False)
+        post = _build_fine_smooth(fine, filt, nu_post, s, True)
+        resid = [_build_residual_restrict(lv, filt, s, i == 0)
                  for i, lv in enumerate(levels[:-1])]
-        prolong = [_build_prolong_correct(lv, boundary)
+        prolong = [_build_prolong_correct(lv, s.boundary)
                    for lv in levels[:-1]]
-        pre_c = [None] + [_build_smooth_rhs(lv, filt, nu_pre, backend,
-                                            boundary, tile)
+        pre_c = [None] + [_build_smooth_rhs(lv, filt, nu_pre, s)
                           for lv in levels[1:-1]]
-        post_c = [None] + [_build_smooth_rhs(lv, filt, nu_post, backend,
-                                             boundary, tile)
+        post_c = [None] + [_build_smooth_rhs(lv, filt, nu_post, s)
                            for lv in levels[1:-1]]
-        coarsest = _build_smooth_rhs(levels[-1], filt, nu_coarse, backend,
-                                     boundary, tile)
+        coarsest = _build_smooth_rhs(levels[-1], filt, nu_coarse, s)
 
     def down(i: int, rc):
         """Level ``i``'s restricted residual onto level ``i + 1``."""
@@ -683,10 +810,12 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     ignored (smoothing sweeps are fuse 1).  ``backend`` names the smoother
     (``auto`` resolves through ``tuning``); the transfer operators always
     run their registered stencils.  ``grid`` defaults to 1×1 on ``device``
-    (default: the card; it raises without CUDA); a grid of slots raises
-    (ROADMAP item 10c), so ``col_mode`` is checked and inert, and
-    ``overlap=True`` is clamped (``step.resolve_overlap``: multigrid runs
-    on one device, where no block waits on another) and stamped False.
+    (default: the card; it raises without CUDA); on a grid of slots every
+    level runs per slot (coarse levels on the first slots), ``col_mode``
+    is ``cuda_rdma``'s column transport there (``step.resolve_col_mode``)
+    and ``overlap`` overlaps the fine level's sweeps
+    (``step.resolve_overlap``: clamped, with a warning, off a grid of
+    slots).  A grid over several processes raises (ROADMAP item 10d).
     ``mg_converge_stream.readbacks`` counts the readbacks.
     """
     s = _setup(x, filt, grid, quantize, backend, storage, boundary, fuse,
@@ -694,7 +823,7 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     fine = s.levels[0]
     for cycles, diff, wu in _cycles(s, filt, tol, max_iters, nu_pre,
                                     nu_post, nu_coarse, mg_converge_stream):
-        yield (_global(s.u, fine.grid, s.valid_hw).cpu().numpy(), cycles,
+        yield (_global(s.u, fine.grid, s.valid_hw, "cpu").numpy(), cycles,
                diff, wu)
 
 
@@ -717,7 +846,9 @@ def mg_converge(x, filt: Filter, tol: float, max_iters: int,
     ``max_iters`` bounds fine-grid work units (the budget a plain Jacobi
     run would spend as iterations), so the two solvers are comparable
     under one cap.  The arguments are :func:`mg_converge_stream`'s;
-    ``mg_converge.readbacks`` counts the readbacks (one a cycle).
+    ``mg_converge.readbacks`` counts the readbacks (one a cycle).  The
+    result stamps the backend, ``overlap`` and ``col_mode`` the solve
+    resolved and ran with (the JAX package re-derives the same).
     """
     t0 = time.perf_counter()
     s = _setup(x, filt, grid, quantize, backend, storage, boundary, fuse,
@@ -734,7 +865,7 @@ def mg_converge(x, filt: Filter, tol: float, max_iters: int,
         converged=diff < tol, levels=len(levels),
         level_grids=[f"{lv.grid.rows}x{lv.grid.cols}" for lv in levels],
         level_shapes=[f"{lv.valid_hw[0]}x{lv.valid_hw[1]}" for lv in levels],
-        backend=s.backend, overlap=False, col_mode="packed",
+        backend=s.backend, overlap=s.overlap, col_mode=s.col_mode,
         wall_s=round(time.perf_counter() - t0, 4),
         predicted_s_per_cycle=_predict_cycle_seconds(
             levels, _level_sweeps(levels, nu_pre, nu_post, nu_coarse), filt,

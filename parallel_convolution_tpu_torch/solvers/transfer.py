@@ -15,7 +15,10 @@ the form given):
 * ghost cells come from the same two-phase halo exchange
   (``halo.halo_exchange_stacked``, depth 1: both operators touch at most
   one neighbour point), and every step runs on all blocks at once, a few
-  ops however many blocks the grid has;
+  ops however many blocks the grid has; built with ``per_block=True`` (a
+  grid of slots) each block is exchanged in a buffer of its own
+  (``halo.exchange_per_block``) and transferred on its own device, the
+  same values;
 * out-of-image positions are re-masked through ``step._valid_mask``, so
   the pad-to-multiple rim behaves like the serial zero-pad formula.
 
@@ -130,7 +133,46 @@ def _correlate_subsampled(padded: torch.Tensor, off: int,
     return acc
 
 
-def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero"):
+def _block_mask(valid_hw, block_hw):
+    """The (1, h, w) validity mask of block (i, j), per device and dtype,
+    cached (the per-block twin of :func:`_masker`)."""
+    from parallel_convolution_tpu_torch.parallel.step import _valid_mask
+
+    masks: dict = {}
+
+    def mask(index, like: torch.Tensor) -> torch.Tensor:
+        key = (index, like.device, like.dtype)
+        if key not in masks:
+            masks[key] = _valid_mask(valid_hw, block_hw, index,
+                                     device=like.device).to(like.dtype)
+        return masks[key]
+
+    return mask
+
+
+def _per_block(op, grid_shape, boundary: str, needs_mask: bool, mask):
+    """``op`` (a padded block → its result) over an R×C list of blocks on
+    their own devices: one depth-1 per-block exchange, then each block's
+    result on its device, masked where ``needs_mask``."""
+    def run(blocks):
+        padded = halo.exchange_per_block(blocks, 1, tuple(grid_shape),
+                                         boundary)
+        out = []
+        for i, row in enumerate(padded):
+            orow = []
+            for j, p in enumerate(row):
+                c = op(p)
+                if needs_mask:
+                    c = c * mask((i, j), c)
+                orow.append(c.to(blocks[i][j].dtype))
+            out.append(orow)
+        return out
+
+    return run
+
+
+def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero",
+                      per_block: bool = False):
     """Full-weighting restriction over the fine level's blocks:
     ``(C, bh, bw) → (C, bh/2, bw/2)`` for every block of the
     ``grid_shape`` grid.
@@ -138,7 +180,8 @@ def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero"):
     One depth-1 halo exchange, one ``blur3``-tap correlation (the full
     weighting stencil) at the centering subsample (odd fine indices for
     zero, even for periodic), and the coarse validity mask: positions
-    beyond ``coarse_extent(valid)`` are zero.
+    beyond ``coarse_extent(valid)`` are zero.  ``per_block`` (a grid of
+    slots): the blocks list in, each block on its own device.
     """
     _check_even_block(block_hw, "restrict_fw")
     periodic = boundary == "periodic"
@@ -152,6 +195,10 @@ def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero"):
     # or 0 (even-centered, periodic); with even blocks, fine 2k+off lies
     # inside the block and the taps reach one cell beyond at most.
     off = 0 if periodic else 1
+    if per_block:
+        return _per_block(lambda p: _correlate_subsampled(p, off, cblock),
+                          (R, Cg), boundary, needs_mask,
+                          _block_mask(cvalid, cblock))
     mask = _masker(cvalid, cblock, (R, Cg))
 
     def restrict(state):
@@ -174,7 +221,7 @@ def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
-                           boundary: str = "zero"):
+                           boundary: str = "zero", per_block: bool = False):
     """Bilinear prolongation over the fine level's grid: every block's
     ``(C, bh/2, bw/2)`` coarse correction (already moved onto the fine
     grid at half blocks) → ``(C, bh, bw)``.
@@ -184,7 +231,7 @@ def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
     tensor product of the 1-D ``[1/2, 1, 1/2]`` stencil, as two interleave
     passes over the depth-1 halo-padded coarse block.  Beyond-extent
     coarse reads are the boundary's ghost convention: 0 for zero, wrap for
-    periodic.
+    periodic.  ``per_block`` as in :func:`build_restrict_fw`.
     """
     _check_even_block(block_hw, "prolong_bilinear")
     periodic = boundary == "periodic"
@@ -212,6 +259,10 @@ def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
         al = rows[..., 0:n]
         bl = rows[..., 1:n + 1]
         return _interleave((al + bl) * 0.5, bl, axis=-1)   # (..., 2m, 2n)
+
+    if per_block:
+        return _per_block(interpolate, (R, Cg), boundary, needs_mask,
+                          _block_mask(valid_hw, block_hw))
 
     def prolong(state):
         c = _stacked(state)

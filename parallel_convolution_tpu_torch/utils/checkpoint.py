@@ -33,6 +33,15 @@ source shards it overlaps (memmap windows), its pad rim re-derived.
 Fault sites ``checkpoint_write_shard`` / ``checkpoint_write_meta`` (through
 ``resilience.diskio``) and ``io_read`` let tests kill a save between any
 two writes.
+
+On a grid of slots each block is saved from and loaded onto its slot's
+device.  On a grid over several processes each rank writes only its own
+shards, each under a temporary name of its own; the shards' CRCs are
+gathered to rank 0, which alone writes ``meta.json`` (every shard listed,
+the single-process format) and then flips ``LATEST``, each after a
+barrier; a resume loads on each rank only its own blocks.  Every writer's
+temporary names are its own (the JAX package's ``meta.json.tmp`` and
+``LATEST.tmp`` are shared by every process, which races).
 """
 
 from __future__ import annotations
@@ -47,8 +56,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from parallel_convolution_tpu_torch.parallel import multihost
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_no_slots, padded_extent,
+    Grid, first_block, local_blocks, padded_extent,
 )
 from parallel_convolution_tpu_torch.resilience import diskio
 from parallel_convolution_tpu_torch.resilience.faults import (
@@ -196,16 +206,28 @@ def _host_block(block: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(block.detach().cpu().numpy())
 
 
+def _own_tmp(path: Path) -> Path:
+    """A temporary name beside ``path`` that no other writer uses: the
+    rank and the process id in it."""
+    return path.with_name(f"{path.name}.{multihost.rank()}.{os.getpid()}"
+                          ".tmp")
+
+
 def save_state(ckpt_dir, blocks, meta: dict) -> None:
     """Snapshot the grid's padded blocks + metadata.
 
     ``blocks`` is the R×C list of (C, h, w) blocks (the ``cuda_rdma``
-    carry is unstacked at ``iterate_prepared``'s return).  Crash-safe by construction: each snapshot is its own
+    carry is unstacked at ``iterate_prepared``'s return), ``None`` where
+    another process of the job holds a block: every rank of such a job
+    calls this, writes its own shards, and rank 0 writes the meta and the
+    pointer.  Crash-safe by construction: each snapshot is its own
     ``it_<NNNNNNNN>/`` directory, every shard is serialized in memory
-    first and written atomically (tmp + rename) with its CRC32 recorded,
-    meta is written last inside the directory, and the ``LATEST`` pointer
-    flips atomically only after the snapshot is complete.  Older snapshots
-    beyond KEEP_SNAPSHOTS are pruned.
+    first and written atomically (a temporary name of the writer's own,
+    then a rename) with its CRC32 recorded, meta is written last inside
+    the directory, after every shard of every rank (a barrier), and the
+    ``LATEST`` pointer flips atomically only after the snapshot is
+    complete (another barrier).  Older snapshots beyond KEEP_SNAPSHOTS are
+    pruned.
 
     Fault sites: ``checkpoint_write_shard`` before each shard write;
     ``checkpoint_write_meta`` twice — before the meta write and before the
@@ -215,30 +237,52 @@ def save_state(ckpt_dir, blocks, meta: dict) -> None:
     d.mkdir(parents=True, exist_ok=True)
     snap = _snap_dir(d, meta["iters_done"])
     snap.mkdir(exist_ok=True)
+    spans = any(b is None for row in blocks for b in row)
     shards: dict[str, dict] = {}
-    for r, row in enumerate(blocks):
-        for c, block in enumerate(row):
-            name = f"shard_{r}_{c}.npy"
-            buf = io.BytesIO()
-            np.save(buf, _host_block(block))
-            raw = buf.getvalue()
-            diskio.consult("checkpoint_write_shard")
-            tmp = snap / (name + ".tmp")
-            tmp.write_bytes(raw)
-            os.replace(tmp, snap / name)
-            shards[name] = {"crc32": zlib.crc32(raw), "bytes": len(raw)}
-    meta = dict(meta, shards=shards)
-    diskio.consult("checkpoint_write_meta")
-    # The JAX package's shared meta.json.tmp name, kept (ROADMAP Queue 3:
-    # two writers of one directory can race on it).
-    tmp = snap / (META_NAME + ".tmp")
-    tmp.write_text(json.dumps(meta))
-    os.replace(tmp, snap / META_NAME)
-    diskio.consult("checkpoint_write_meta")
-    ptr_tmp = d / (LATEST_NAME + ".tmp")
-    ptr_tmp.write_text(snap.name)
-    os.replace(ptr_tmp, d / LATEST_NAME)
+    for (r, c), block in local_blocks(blocks):
+        name = f"shard_{r}_{c}.npy"
+        buf = io.BytesIO()
+        np.save(buf, _host_block(block))
+        raw = buf.getvalue()
+        diskio.consult("checkpoint_write_shard")
+        tmp = _own_tmp(snap / name)
+        tmp.write_bytes(raw)
+        os.replace(tmp, snap / name)
+        shards[name] = {"crc32": zlib.crc32(raw), "bytes": len(raw)}
+    if spans:
+        # Every rank's shards are on disk once the records are gathered.
+        for part in multihost.gather_object(shards):
+            shards.update(part)
+        shards = dict(sorted(shards.items(), key=lambda kv: _shard_rc(
+            kv[0])))
+    lead = not spans or multihost.rank() == 0
+    if lead:
+        meta = dict(meta, shards=shards)
+        diskio.consult("checkpoint_write_meta")
+        tmp = _own_tmp(snap / META_NAME)
+        tmp.write_text(json.dumps(meta))
+        os.replace(tmp, snap / META_NAME)
+    if spans:
+        multihost.barrier("checkpoint-meta")
+    if lead:
+        diskio.consult("checkpoint_write_meta")
+        ptr_tmp = _own_tmp(d / LATEST_NAME)
+        ptr_tmp.write_text(snap.name)
+        os.replace(ptr_tmp, d / LATEST_NAME)
+        _prune(d)
+    if spans:
+        multihost.barrier("checkpoint-latest")
     # The obs "save" histogram, byte counter and event go here with item 9.
+
+
+def _shard_rc(name: str) -> tuple[int, int]:
+    """(r, c) of ``shard_<r>_<c>.npy``."""
+    r, c = name[len("shard_"):-len(".npy")].split("_")
+    return int(r), int(c)
+
+
+def _prune(d: Path) -> None:
+    """Remove the snapshots beyond the newest KEEP_SNAPSHOTS."""
     try:
         snaps = sorted(p for p in d.iterdir()
                        if p.is_dir() and p.name.startswith("it_"))
@@ -311,8 +355,9 @@ def _reshard_block(snap: Path, meta: dict, target_shape, index,
 
 def load_state(ckpt_dir, grid: Grid,
                fallback: bool = False) -> tuple[list[list[torch.Tensor]], dict]:
-    """Restore the snapshot's blocks onto ``grid`` — ANY grid shape — on
-    its device.
+    """Restore the snapshot's blocks onto ``grid`` — ANY grid shape, one
+    device or slots — each on its slot's device (on a grid over several
+    processes only this rank's, the others ``None``).
 
     Validates completeness and every shard's CRC32 first; a torn snapshot
     raises :class:`CheckpointCorrupt` — unless ``fallback=True``: then it
@@ -322,7 +367,6 @@ def load_state(ckpt_dir, grid: Grid,
     snapshot's, each block is assembled from the shards it overlaps, and
     ``meta['resharded_from']`` records the source grid.
     """
-    check_no_slots(grid, "checkpoints")
     candidates = _candidate_snaps(ckpt_dir)
     if not candidates:
         raise FileNotFoundError(f"no checkpoint at {ckpt_dir}")
@@ -344,7 +388,8 @@ def load_state(ckpt_dir, grid: Grid,
         src_grid = tuple(meta["grid"])
         if src_grid == shape_rc:
             blocks = [[torch.from_numpy(np.load(snap / f"shard_{r}_{c}.npy"))
-                       .to(grid.device) for c in range(shape_rc[1])]
+                       .to(grid.slot_device(r, c)) if grid.is_local(r, c)
+                       else None for c in range(shape_rc[1])]
                       for r in range(shape_rc[0])]
         else:
             H, W = _valid_hw_of(meta)
@@ -352,7 +397,8 @@ def load_state(ckpt_dir, grid: Grid,
                      padded_extent(W, shape_rc[1]))
             block_hw = (shape[1] // shape_rc[0], shape[2] // shape_rc[1])
             blocks = [[torch.from_numpy(_reshard_block(
-                snap, meta, shape, (r, c), block_hw)).to(grid.device)
+                snap, meta, shape, (r, c), block_hw)).to(
+                    grid.slot_device(r, c)) if grid.is_local(r, c) else None
                 for c in range(shape_rc[1])] for r in range(shape_rc[0])]
             meta = dict(meta, resharded_from=list(src_grid),
                         grid=list(shape_rc), shape=list(shape))
@@ -392,11 +438,13 @@ def run_checkpointed(blocks, filt, total_iters: int, grid: Grid, valid_hw,
     once, before the first chunk, at the real blocks; every chunk runs the
     tier it picked.  ``run_backend`` is that tier when the caller resolved
     it already (the CLI, which labels its summary with it); the snapshot
-    config records the requested ``backend`` either way.
+    config records the requested ``backend`` either way.  On a grid of
+    slots every chunk runs per slot; on a grid over several processes
+    every rank calls this with its own blocks (``None`` elsewhere), saves
+    its own shards and resumes its own blocks.
     """
     from parallel_convolution_tpu_torch.parallel import step as step_lib
 
-    check_no_slots(grid, "checkpoints")
     # Resume-compatibility config; the grid is not part of it.
     config = {
         "filter": filt.name,
@@ -443,14 +491,14 @@ def run_checkpointed(blocks, filt, total_iters: int, grid: Grid, valid_hw,
     # The quantize-range contract once, on the entry state; chunk inputs
     # are prior chunk outputs, in contract by induction.
     step_lib._check_quantize_contract(blocks, filt, quantize)
-    C, bh, bw = blocks[0][0].shape
+    C, bh, bw = first_block(blocks).shape
     if run_backend is None:
         run_backend = backend
         if fallback and done < total_iters:
             run_backend = step_lib._resolve_fallback(
                 grid, filt, backend, quantize,
                 min(fuse, every, total_iters - done), boundary, tile,
-                step_lib._storage_name(blocks[0][0].dtype), (bh, bw),
+                step_lib._storage_name(first_block(blocks).dtype), (bh, bw),
                 interior_split)
     while done < total_iters:
         chunk = min(every, total_iters - done)

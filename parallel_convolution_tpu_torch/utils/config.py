@@ -72,9 +72,9 @@ COL_MODE_CHOICES = COL_MODES + ("auto",)
 # the same name and value): without it ``overlap=True`` is clamped there.
 OVERLAP_INTERPRET_ENV = "PCTPU_OVERLAP_INTERPRET"
 
-# What a grid of slots does not run yet, and a grid over processes.
-SLOTS_ITEM = ("item 10c (grids over processes; multigrid, volumes, "
-              "sharded IO and checkpoints on slots)")
+# What a grid of slots over several processes does not run yet.
+PROCESSES_ITEM = ("item 10d (cuda_rdma, multigrid and volumes across "
+                  "processes; the NCCL transport, one card a process)")
 
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.  None is left: every knob is ported.

@@ -23,6 +23,11 @@ as the JAX package does, but decides once per process
 (:func:`default_reader`), so one run never mixes the two.  The JAX
 package falls back from a failed native read to NumPy without a word;
 here a failed native read raises (ROADMAP Queue 3).
+
+On a grid of slots each block is allocated on its slot's device; on a
+grid over several processes each rank reads and writes only the blocks
+it holds (the JAX package's addressable shards), the others ``None``,
+and a save that allocates the file has rank 0 do it before a barrier.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_no_slots, padded_extent,
+    Grid, first_block, local_blocks, padded_extent,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils import imageio
@@ -101,14 +106,14 @@ def load_sharded(path, rows: int, cols: int, mode: str, grid: Grid,
                  dtype=np.float32,
                  reader: str = "auto") -> list[list[torch.Tensor]]:
     """Load a raw image straight into the grid's R×C padded (C, h, w)
-    blocks on its device, in ``dtype``.
+    blocks, each on its slot's device, in ``dtype``.
 
     h and w are the padded-to-block-multiple extents over the grid; the
     pad rim is zero, the layout ``parallel.step.iterate_prepared`` takes.
     The file is consulted once per block that holds image pixels
     (``fault_point("io_read")``), a band at a time through ``reader``
-    (``auto``: :func:`default_reader`)."""
-    check_no_slots(grid, "sharded IO")
+    (``auto``: :func:`default_reader`).  On a grid over several processes
+    only this rank's blocks are read; the others are ``None``."""
     C = imageio._channels(mode)
     R, Cg = grid.shape
     bh, bw = padded_extent(rows, R) // R, padded_extent(cols, Cg) // Cg
@@ -118,14 +123,18 @@ def load_sharded(path, rows: int, cols: int, mode: str, grid: Grid,
     for i in range(R):
         row = []
         for j in range(Cg):
+            if not grid.is_local(i, j):
+                row.append(None)
+                continue
+            dev = grid.slot_device(i, j)
             r0, c0 = i * bh, j * bw
             r1, c1 = min(r0 + bh, rows), min(c0 + bw, cols)
-            out = torch.zeros((C, bh, bw), dtype=dt, device=grid.device)
+            out = torch.zeros((C, bh, bw), dtype=dt, device=dev)
             if r1 > r0 and c1 > c0:
                 fault_point("io_read")  # one consult per block read
                 for a, b in _bands(r0, r1, (c1 - c0) * C):
                     band = torch.from_numpy(read(
-                        path, rows, cols, mode, a, b, c0, c1)).to(grid.device)
+                        path, rows, cols, mode, a, b, c0, c1)).to(dev)
                     out[:, a - r0:b - r0, :c1 - c0] = (
                         band[None] if C == 1 else band.permute(2, 0, 1))
             row.append(out)
@@ -140,7 +149,10 @@ def save_sharded(path, blocks, rows: int, cols: int, mode: str,
     ``blocks`` is the R×C list of (C, h, w) blocks, or the stacked
     ``cuda_rdma`` carry (R·C, C, h, w) with its ``grid_shape``.  Each
     block writes only its valid (non-pad) part at its file offset, a band
-    at a time; ``allocate`` first creates the file at the image's size."""
+    at a time; ``allocate`` first creates the file at the image's size.
+    Blocks another process holds are ``None`` and are written by it:
+    with ``allocate`` rank 0 alone creates the file, and every rank waits
+    for it at a barrier before writing."""
     if torch.is_tensor(blocks):
         from parallel_convolution_tpu_torch.ops import rdma
 
@@ -148,19 +160,24 @@ def save_sharded(path, blocks, rows: int, cols: int, mode: str,
             raise ValueError("a stacked (R*C, C, h, w) grid needs its "
                              "grid_shape")
         blocks = rdma.unstack_blocks(blocks, tuple(grid_shape))
+    spans = any(b is None for row in blocks for b in row)
     if allocate:
-        imageio.allocate_raw(path, rows, cols, mode)
-    C, bh, bw = blocks[0][0].shape
-    for i, row in enumerate(blocks):
-        for j, blk in enumerate(row):
-            r0, c0 = i * bh, j * bw
-            r1, c1 = min(r0 + bh, rows), min(c0 + bw, cols)
-            if r1 <= r0 or c1 <= c0:
-                continue  # the block lies entirely in the pad rim
-            for a, b in _bands(r0, r1, (c1 - c0) * C):
-                band = blk[:, a - r0:b - r0, :c1 - c0]
-                if band.dtype != torch.uint8:
-                    band = band.clamp(0, 255).to(torch.uint8)
-                band = band[0] if C == 1 else band.permute(1, 2, 0)
-                imageio.write_block(path, rows, cols, mode, a, c0,
-                                    band.contiguous().cpu().numpy())
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        if not spans or multihost.rank() == 0:
+            imageio.allocate_raw(path, rows, cols, mode)
+        if spans:
+            multihost.barrier("output-allocated")
+    C, bh, bw = first_block(blocks).shape
+    for (i, j), blk in local_blocks(blocks):
+        r0, c0 = i * bh, j * bw
+        r1, c1 = min(r0 + bh, rows), min(c0 + bw, cols)
+        if r1 <= r0 or c1 <= c0:
+            continue  # the block lies entirely in the pad rim
+        for a, b in _bands(r0, r1, (c1 - c0) * C):
+            band = blk[:, a - r0:b - r0, :c1 - c0]
+            if band.dtype != torch.uint8:
+                band = band.clamp(0, 255).to(torch.uint8)
+            band = band[0] if C == 1 else band.permute(1, 2, 0)
+            imageio.write_block(path, rows, cols, mode, a, c0,
+                                band.contiguous().cpu().numpy())

@@ -16,6 +16,13 @@ name, boundary)``); the schedule mirrors rank 2's (``parallel/step.py``):
   ``sharded_converge`` does, and the chunks land on the fixed count's
   bytes.
 
+On a grid of slots (``mesh.Grid.devices``) the state is the R×C list of
+(F, D, bh, bw) blocks, each on its slot's device, each step a per-block
+6-face exchange (``halo3.volume_exchange_per_block``) and the form on
+every block where it lives; the converge diff is reduced on each slot and
+gathered once a chunk, still one readback.  A grid over several processes
+raises (ROADMAP item 10d).
+
 The entry points run on the card unless the grid (or ``device``) says the
 CPU.
 """
@@ -29,7 +36,8 @@ import torch
 
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_no_slots, make_grid, padded_extent,
+    Grid, check_one_process, join_blocks, make_grid, padded_extent,
+    split_blocks,
 )
 from parallel_convolution_tpu_torch.utils.config import VOLUME_RADII
 
@@ -58,27 +66,41 @@ def _geometry(state_shape, grid_shape, boundary: str):
 def prepare_volume(state, grid: Grid, boundary: str = "zero"):
     """A (F, D, H, W) volume (numpy or tensor) as float32 on the grid's
     device, (H, W) padded to block multiples and cut into the stacked
-    grid (R·C, F, D, bh, bw); returns ``(stacked, valid_hw)``."""
+    grid (R·C, F, D, bh, bw); returns ``(stacked, valid_hw)``.  On a grid
+    of slots the state is instead the R×C list of (F, D, bh, bw) blocks,
+    each copied onto its slot's device."""
     x = torch.as_tensor(np.asarray(state) if not torch.is_tensor(state)
                         else state)
     if x.dim() != 4:
         raise ValueError(
             f"volume state must be (F, D, H, W), got {tuple(x.shape)}")
-    check_no_slots(grid, "volumes")
+    check_one_process(grid, "volumes")
     valid_hw, (bh, bw), (Hp, Wp) = _geometry(x.shape, grid.shape, boundary)
-    x = x.to(device=grid.device, dtype=torch.float32)
+    x = x.to(device=x.device if grid.slotted else grid.device,
+             dtype=torch.float32)
     H, W = valid_hw
     if (Hp, Wp) != (H, W):
         x = torch.nn.functional.pad(x, (0, Wp - W, 0, Hp - H))
     F, D = x.shape[:2]
     R, C = grid.shape
+    if grid.slotted:
+        blocks = split_blocks(x.reshape(F * D, Hp, Wp), grid)
+        return [[b.view(F, D, bh, bw) for b in row] for row in blocks], \
+            valid_hw
     x = x.reshape(F, D, R, bh, C, bw).permute(2, 4, 0, 1, 3, 5)
     return x.reshape(R * C, F, D, bh, bw).contiguous(), valid_hw
 
 
-def unstack_volume(xs: torch.Tensor, grid_shape, valid_hw) -> torch.Tensor:
-    """The stacked grid (R·C, F, D, bh, bw) as the global (F, D, H, W)
-    volume at its valid extent."""
+def unstack_volume(xs, grid_shape, valid_hw, device=None) -> torch.Tensor:
+    """The stacked grid (R·C, F, D, bh, bw), or a grid of slots' R×C list
+    of blocks (gathered on ``device``, default the first block's), as the
+    global (F, D, H, W) volume at its valid extent."""
+    if not torch.is_tensor(xs):
+        F, D, bh, bw = xs[0][0].shape
+        full = join_blocks([[b.reshape(F * D, bh, bw) for b in row]
+                            for row in xs], device)
+        full = full.view(F, D, *full.shape[1:])
+        return full[:, :, :valid_hw[0], :valid_hw[1]].contiguous()
     R, C = grid_shape
     N, F, D, bh, bw = xs.shape
     full = xs.reshape(R, C, F, D, bh, bw).permute(2, 3, 0, 4, 1, 5)
@@ -87,10 +109,27 @@ def unstack_volume(xs: torch.Tensor, grid_shape, valid_hw) -> torch.Tensor:
 
 
 def _resolve_step(name: str, boundary: str, grid_shape, depth, valid_hw,
-                  block_hw, fuse: int):
-    """One chunk step through the registry: the ONLY dispatch."""
+                  block_hw, fuse: int, per_block: bool = False):
+    """One chunk step through the registry: the ONLY dispatch
+    (``per_block``: a grid of slots' list of blocks)."""
     form = kernel_forms.resolve(3, name, boundary)
+    if per_block:
+        return form.build(grid_shape, depth, valid_hw, block_hw, fuse,
+                          boundary, per_block=True)
     return form.build(grid_shape, depth, valid_hw, block_hw, fuse, boundary)
+
+
+def _max_diff(cur, prev) -> torch.Tensor:
+    """max |cur − prev| over a state as a 0-d f32 tensor: the stacked
+    grid at once, or each slot's block where it lives, gathered once."""
+    from parallel_convolution_tpu_torch.parallel.step import _max_abs_diff
+
+    if torch.is_tensor(cur):
+        return _max_abs_diff(cur, prev)
+    dev = cur[0][0].device
+    return torch.stack([_max_abs_diff(c, p).to(dev)
+                        for rc, rp in zip(cur, prev)
+                        for c, p in zip(rc, rp)]).amax()
 
 
 def _check_fuse(name: str, block_hw, fuse: int) -> None:
@@ -105,15 +144,17 @@ def _check_fuse(name: str, block_hw, fuse: int) -> None:
 
 @lru_cache(maxsize=64)
 def _build_volume_iterate(grid_shape, name: str, iters: int, depth: int,
-                          valid_hw, block_hw, fuse: int, boundary: str):
-    """The fixed-count runner of one configuration: stacked → stacked."""
+                          valid_hw, block_hw, fuse: int, boundary: str,
+                          per_block: bool = False):
+    """The fixed-count runner of one configuration: stacked → stacked (or
+    blocks → blocks with ``per_block``)."""
     fuse = max(1, min(int(fuse), iters or 1))
     _check_fuse(name, block_hw, fuse)
     chunk = _resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                          block_hw, fuse)
+                          block_hw, fuse, per_block)
     n_chunks, rem = divmod(int(iters), fuse)
     tail = (_resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                          block_hw, rem) if rem else None)
+                          block_hw, rem, per_block) if rem else None)
 
     def run(xs):
         for _ in range(n_chunks):
@@ -128,17 +169,15 @@ def _build_volume_iterate(grid_shape, name: str, iters: int, depth: int,
 @lru_cache(maxsize=64)
 def _build_volume_converge_chunk(grid_shape, name: str, n: int, depth: int,
                                  valid_hw, block_hw, fuse: int,
-                                 boundary: str):
+                                 boundary: str, per_block: bool = False):
     """ONE convergence chunk: ``n`` iterations and the (prev, cur) max-abs
     diff as a 0-d f32 tensor on the device (rank 2's chunk math)."""
-    from parallel_convolution_tpu_torch.parallel.step import _max_abs_diff
-
     fuse = max(1, min(int(fuse), max(1, n - 1)))
     _check_fuse(name, block_hw, fuse)
     step = _resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                         block_hw, 1)
+                         block_hw, 1, per_block)
     fused = (_resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                           block_hw, fuse)
+                           block_hw, fuse, per_block)
              if fuse > 1 and n > 1 else None)
 
     def chunk(xs):
@@ -152,7 +191,7 @@ def _build_volume_converge_chunk(grid_shape, name: str, n: int, depth: int,
             for _ in range((n - 1) % fuse):
                 prev = step(prev)
         cur = step(prev)
-        return cur, _max_abs_diff(cur, prev)
+        return cur, _max_diff(cur, prev)
 
     return chunk
 
@@ -160,10 +199,11 @@ def _build_volume_converge_chunk(grid_shape, name: str, n: int, depth: int,
 def converge_chunk_fn(grid: Grid, name: str, n: int, depth: int, valid_hw,
                       block_hw, fuse: int, boundary: str):
     """The chunk of a chunk driver (the JAX package's cached surface):
-    ``fn(stacked) -> (stacked, diff)``, ``diff`` left on the device."""
+    ``fn(stacked) -> (stacked, diff)``, ``diff`` left on the device (on a
+    grid of slots the state is its list of blocks)."""
     return _build_volume_converge_chunk(
         tuple(grid.shape), str(name), int(n), int(depth), tuple(valid_hw),
-        tuple(block_hw), int(fuse), str(boundary))
+        tuple(block_hw), int(fuse), str(boundary), grid.slotted)
 
 
 def volume_iterate(state, name: str, iters: int, *, grid: Grid | None = None,
@@ -178,10 +218,17 @@ def volume_iterate(state, name: str, iters: int, *, grid: Grid | None = None,
     if int(iters) < 1:
         return torch.as_tensor(np.asarray(state, np.float32)).to(grid.device)
     xs, valid_hw = prepare_volume(state, grid, boundary)
+    shape = _block_shape(xs)
     run = _build_volume_iterate(
-        tuple(grid.shape), str(name), int(iters), int(xs.shape[2]),
-        valid_hw, tuple(xs.shape[-2:]), int(fuse), str(boundary))
-    return unstack_volume(run(xs), grid.shape, valid_hw)
+        tuple(grid.shape), str(name), int(iters), shape[1], valid_hw,
+        shape[2:], int(fuse), str(boundary), grid.slotted)
+    return unstack_volume(run(xs), grid.shape, valid_hw, grid.device)
+
+
+def _block_shape(xs) -> tuple[int, ...]:
+    """(F, D, bh, bw) of a state's blocks."""
+    b = xs[0] if torch.is_tensor(xs) else xs[0][0]
+    return tuple(int(v) for v in b.shape)
 
 
 def _converge_chunks(state, name, tol, max_iters, check_every, grid,
@@ -191,7 +238,8 @@ def _converge_chunks(state, name, tol, max_iters, check_every, grid,
     it, as in the JAX package).  The diff's ``.item()`` is the chunk's one
     readback; it counts on ``counter.readbacks``."""
     xs, valid_hw = prepare_volume(state, grid, boundary)
-    depth, block_hw = int(xs.shape[2]), tuple(xs.shape[-2:])
+    shape = _block_shape(xs)
+    depth, block_hw = shape[1], shape[2:]
     done = 0
     check_every = max(1, int(check_every))
     max_iters = max(1, int(max_iters))
@@ -221,8 +269,8 @@ def volume_converge_stream(state, name: str, *, tol: float, max_iters: int,
     for xs, done, diff, valid_hw in _converge_chunks(
             state, name, tol, max_iters, check_every, grid, boundary, fuse,
             volume_converge_stream):
-        yield (unstack_volume(xs, grid.shape, valid_hw).cpu().numpy(), done,
-               diff)
+        yield (unstack_volume(xs, grid.shape, valid_hw, "cpu").cpu().numpy(),
+               done, diff)
 
 
 volume_converge_stream.readbacks = 0
@@ -241,7 +289,7 @@ def volume_converge(state, name: str, *, tol: float, max_iters: int,
                                 grid, boundary, fuse, volume_converge):
         pass
     xs, done, diff, valid_hw = row
-    return unstack_volume(xs, grid.shape, valid_hw), done, diff
+    return unstack_volume(xs, grid.shape, valid_hw, grid.device), done, diff
 
 
 volume_converge.readbacks = 0

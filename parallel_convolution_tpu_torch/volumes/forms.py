@@ -215,7 +215,7 @@ def _valid_mask3(valid_hw, block_hw, grid_shape, margin: int, device):
 
 
 def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
-                      fuse: int, boundary: str):
+                      fuse: int, boundary: str, per_block: bool = False):
     """The registered build: one chunk step of form ``name``.
 
     ``step`` maps the stacked (R·C, F, depth, bh, bw) grid to the same
@@ -225,7 +225,11 @@ def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
     pad-to-multiple rim, and the D ghost ring, while non-empty, is
     re-zeroed (the JAX package's crop and re-pad); periodic wraps exactly
     and never masks.  Raises the JAX ``ValueError`` when the ghost depth
-    exceeds the block.
+    exceeds the block.  ``per_block`` (a grid of slots): ``step`` maps the
+    R×C list of (F, depth, bh, bw) blocks to the next, each stepped on its
+    slot's device after the per-block exchange
+    (``halo3.volume_exchange_per_block``), the same ops on each, so the
+    same values.
     """
     r = form_radius(name)
     fuse = max(1, int(fuse))
@@ -250,20 +254,43 @@ def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
                                       device)
         return masks[key]
 
-    def step(x):
-        p = halo3.volume_halo_exchange(x, d, (R, Cg), boundary)
+    def levels(p, mask_of):
         for t in range(fuse):
             margin = d - r * (t + 1)
             p = apply_fn(p)
             if not periodic and (needs_mask or margin > 0):
-                p.mul_(mask(margin, p.device))
+                p.mul_(mask_of(margin, p.device))
                 if margin > 0:
                     # The zero D faces of the shrinking ghost ring.
                     p[:, :, :margin] = 0
                     p[:, :, margin + depth:] = 0
         return p
 
-    return step
+    def step(x):
+        return levels(halo3.volume_halo_exchange(x, d, (R, Cg), boundary),
+                      mask)
+
+    if not per_block:
+        return step
+    from parallel_convolution_tpu_torch.parallel.step import _valid_mask
+
+    def block_mask(index):
+        def mask_of(margin, device):
+            key = (index, margin, device)
+            if key not in masks:
+                masks[key] = _valid_mask(valid_hw, (bh, bw), index, margin,
+                                         device)[None, None]
+            return masks[key]
+        return mask_of
+
+    def step_blocks(blocks):
+        padded = halo3.volume_exchange_per_block(blocks, d, (R, Cg),
+                                                 boundary)
+        # Each block as a stack of one: the forms act on (N, F, ...).
+        return [[levels(p[None], block_mask((i, j)))[0]
+                 for j, p in enumerate(row)] for i, row in enumerate(padded)]
+
+    return step_blocks
 
 
 def _register_volume_forms() -> None:

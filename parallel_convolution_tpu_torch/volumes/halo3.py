@@ -13,9 +13,13 @@ in every block.  So the six ghost faces are of two kinds:
 Phase order (D, then rows, then columns at full padded height) brings the
 twelve edge and eight corner regions without diagonal copies, as in the
 JAX package: the row slabs carry the fresh D ghosts, the column slabs
-both.  Every block lives on one device, so the exchange writes one padded
-grid: the interiors in one copy, the D faces, then the row and column
-phases as a few whole-grid copies.
+both.  Where every block lives on one device, the exchange writes one
+padded grid: the interiors in one copy, the D faces, then the row and
+column phases as a few whole-grid copies (:func:`volume_halo_exchange`).
+On a grid of slots each block is padded on its own device
+(:func:`volume_exchange_per_block`): D locally, then rank 2's per-block
+exchange (``halo.exchange_per_block``) with the depth-padded fields as
+channels, one slab between devices a ghost face.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from parallel_convolution_tpu_torch.parallel import halo
 from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
 
-__all__ = ["volume_halo_exchange"]
+__all__ = ["volume_exchange_per_block", "volume_halo_exchange"]
 
 
 def volume_halo_exchange(blocks: torch.Tensor, r: int, grid_shape,
@@ -73,3 +77,53 @@ def volume_halo_exchange(blocks: torch.Tensor, r: int, grid_shape,
             p.view(R, Cg, F * (D + 2 * d), h + 2 * d, w + 2 * d), d,
             periodic)
     return p.view(N, F, D + 2 * d, h + 2 * d, w + 2 * d)
+
+
+def _check_volume(boundary: str, D: int, r: int) -> None:
+    if boundary not in BOUNDARIES:
+        raise ValueError(
+            f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
+    if boundary == "periodic" and D < r:
+        raise ValueError(
+            f"periodic depth wrap needs D >= ghost depth, got D={D} < r={r}")
+
+
+def _pad_depth(b: torch.Tensor, d: int, periodic: bool) -> torch.Tensor:
+    """Phase 0 on one (F, D, h, w) block: its D faces, a local pad (zeros,
+    or the wrap)."""
+    F, D, h, w = b.shape
+    p = b.new_empty((F, D + 2 * d, h, w))
+    p[:, d:d + D] = b
+    if periodic:
+        p[:, :d] = b[:, D - d:]
+        p[:, d + D:] = b[:, :d]
+    else:
+        p[:, :d] = 0
+        p[:, d + D:] = 0
+    return p
+
+
+def volume_exchange_per_block(blocks, r: int, grid_shape,
+                              boundary: str = "zero"):
+    """:func:`volume_halo_exchange` on a grid of slots: ``blocks`` is the
+    R×C list of (F, D, h, w) blocks, each on its slot's device; returns the
+    R×C list of (F, D+2r, h+2r, w+2r) padded blocks on the same devices,
+    the same values block for block.  D stays resident: each block pads
+    its D faces locally, then (H, W) is exchanged in the two phases of
+    ``halo.exchange_per_block`` with (F, D+2r) folded into the channel
+    axis, so the row slabs carry the fresh D ghosts and the corners
+    arrive in two hops."""
+    b0 = blocks[0][0]
+    if b0.dim() != 4:
+        raise ValueError(f"volume block must be (F, D, h, w), got shape "
+                         f"{tuple(b0.shape)}")
+    F, D, h, w = b0.shape
+    r = int(r)
+    _check_volume(boundary, D, r)
+    d = halo._check(boundary, r, (h, w))
+    periodic = boundary == "periodic"
+    folded = [[_pad_depth(b, d, periodic).view(F * (D + 2 * d), h, w)
+               for b in row] for row in blocks]
+    padded = halo.exchange_per_block(folded, d, tuple(grid_shape), boundary)
+    return [[p.view(F, D + 2 * d, h + 2 * d, w + 2 * d) for p in row]
+            for row in padded]

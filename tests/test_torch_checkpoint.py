@@ -376,3 +376,61 @@ def test_run_checkpointed_resolves_the_fallback_once(tmp_path, grey_odd,
     np.testing.assert_array_equal(_u8(out, grey_odd.shape)[0],
                                   oracle.run_serial_u8(grey_odd, tf, 7))
     degrade.clear_probe_cache()
+
+
+# ------------------------------------------------- on a grid of slots (10c)
+
+
+def _slots(shape):
+    return mesh.make_grid(shape, devices=["cpu"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("src,dst", [
+    ("2x2 slots", "1x1"), ("2x2 slots", "3x2 slots"), ("2x2", "2x3 slots"),
+    ("2x2 slots", "2x2 slots")])
+def test_save_on_slots_resume_on_another_grid(tmp_path, rgb_small, src, dst):
+    def grid_of(spec):
+        shape = tuple(int(v) for v in spec.split()[0].split("x"))
+        return _slots(shape) if "slots" in spec else mesh.make_grid(shape,
+                                                                    "cpu")
+
+    _, tf = _filters()
+    hw = rgb_small.shape[:2]
+    planar = imageio.interleaved_to_planar(rgb_small).astype(np.float32)
+    g0, g1 = grid_of(src), grid_of(dst)
+    ck = tmp_path / "ck"
+    blocks = convert.blocks_from_numpy(planar, g0, "f32")
+    with faults.injected("checkpoint_write_shard:5"):
+        with pytest.raises(faults.InjectedFault):
+            checkpoint.run_checkpointed(blocks, tf, 7, g0, hw, ck, 2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", checkpoint.CheckpointWarning)
+        out = checkpoint.run_checkpointed(None, tf, 7, g1, hw, ck, 2)
+    for (i, j), b in mesh.local_blocks(out):
+        assert b.device == g1.slot_device(i, j)
+    np.testing.assert_array_equal(
+        convert.to_numpy(out, hw).astype(np.uint8),
+        imageio.interleaved_to_planar(oracle.run_serial_u8(rgb_small, tf,
+                                                           7)))
+
+
+def test_snapshot_on_slots_is_the_one_device_bytes(tmp_path, grey_odd):
+    # The JAX format byte for byte: shard files and meta of a snapshot
+    # written from slots are the one-device grid's, and JAX resumes it.
+    _, tf = _filters()
+    hw = grey_odd.shape[:2]
+    outs = {}
+    for name, g in (("slots", _slots((2, 2))),
+                    ("one", mesh.make_grid((2, 2), "cpu"))):
+        ck = tmp_path / name
+        checkpoint.run_checkpointed(_blocks(grey_odd, (2, 2)), tf, 5, g, hw,
+                                    ck, 2)
+        snap = ck / "it_00000004"
+        outs[name] = {p.name: p.read_bytes() for p in snap.iterdir()}
+        assert not list(ck.rglob("*.tmp"))
+    assert outs["slots"] == outs["one"]
+    jout = jcheckpoint.run_checkpointed(
+        None, _filters()[0], 5, _jax_mesh((2, 2)), hw, tmp_path / "slots", 2)
+    np.testing.assert_array_equal(
+        np.asarray(jout)[0, :hw[0], :hw[1]].astype(np.uint8),
+        oracle.run_serial_u8(grey_odd, tf, 5))

@@ -546,7 +546,7 @@ def test_model_bench_and_degrade_on_slots(rgb_small):
         ConvolutionModel(tf, device="cpu", col_mode="dense")
 
 
-# ------------------------------------------------ pending: 10b and 10c
+# ------------------------------------------------ ported: 10b and 10c
 
 
 def test_overlap_names_10b_and_slots_name_10c(tmp_path, monkeypatch):
@@ -575,21 +575,27 @@ def test_overlap_names_10b_and_slots_name_10c(tmp_path, monkeypatch):
     assert bench.bench_iterate((16, 16), tf, 1, overlap=True, reps=1,
                                **kw)["overlap"] is True
     assert not step.resolve_overlap(None, "cuda_rdma", _slots((2, 2)))
+    # Item 10c is ported: multigrid, volumes, sharded IO and checkpoints
+    # run on the slots, each equal to the one-device grid's run.
     from parallel_convolution_tpu_torch.solvers import multigrid
     from parallel_convolution_tpu_torch.utils import checkpoint, sharded_io
     from parallel_convolution_tpu_torch.volumes import driver
 
+    one = mesh.make_grid((2, 2), "cpu")
+    vol = np.random.default_rng(4).random((2, 4, 8, 8), dtype=np.float32)
+    imageio.write_raw(tmp_path / "x.raw", x[0].astype(np.uint8))
     for call in (
-            lambda: multigrid.mg_converge(x, jacobi3, 1e-3, 10, grid=slots),
-            lambda: step.sharded_converge(x, jacobi3, 1e-3, 10, grid=slots,
-                                          solver="multigrid"),
-            lambda: driver.volume_iterate(np.zeros((2, 4, 8, 8), np.float32),
-                                          "fd7", 1, grid=slots),
-            lambda: sharded_io.load_sharded(tmp_path / "x.raw", 16, 16,
-                                            "grey", slots),
-            lambda: checkpoint.load_state(tmp_path, slots)):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            call()
+            lambda g: multigrid.mg_converge(x, jacobi3, 1e-3, 10, grid=g)[0],
+            lambda g: step.sharded_converge(x, jacobi3, 1e-3, 10, grid=g,
+                                            solver="multigrid")[0],
+            lambda g: driver.volume_iterate(vol, "fd7", 1, grid=g),
+            lambda g: mesh.join_blocks(sharded_io.load_sharded(
+                tmp_path / "x.raw", 16, 16, "grey", g)),
+            lambda g: mesh.join_blocks(checkpoint.run_checkpointed(
+                sharded_io.load_sharded(tmp_path / "x.raw", 16, 16, "grey",
+                                        g), tf, 4, g, (16, 16),
+                tmp_path / f"ck{g.slotted}", 2))):
+        assert torch.equal(call(slots), call(one))
 
 
 def _cli_run(tmp_path, img, extra):
@@ -621,13 +627,26 @@ def test_cli_runs_a_grid_of_slots(tmp_path, capsys, rgb_small):
         "--device", "cpu,cpu,cpu,cpu", "--mesh", "2x2", "--overlap", "on"])
     assert rc == 0 and "overlapped" not in capsys.readouterr().out
     np.testing.assert_array_equal(imageio.read_raw(dst, 24, 36, "rgb"), want)
-    rc, _ = _cli_run(tmp_path, rgb_small, [
+    # Item 10c: multigrid, --sharded-io and --checkpoint run on slots.
+    rc, mg_dst = _cli_run(tmp_path, rgb_small, [
         "--device", "cpu,cpu,cpu,cpu", "--mesh", "2x2", "--converge", "0.5",
         "--solver", "multigrid"])
-    assert rc == 2 and "item 10c (" in capsys.readouterr().err
-    rc, _ = _cli_run(tmp_path, rgb_small, [
-        "--device", "cpu,cpu,cpu,cpu", "--mesh", "2x2", "--sharded-io"])
-    assert rc == 2 and "item 10c (" in capsys.readouterr().err
+    assert rc == 0 and "V-cycles" in capsys.readouterr().out
+    mg_slots = imageio.read_raw(mg_dst, 24, 36, "rgb")
+    rc, mg_dst = _cli_run(tmp_path, rgb_small, [
+        "--device", "cpu", "--mesh", "2x2", "--converge", "0.5",
+        "--solver", "multigrid"])
+    assert rc == 0
+    np.testing.assert_array_equal(imageio.read_raw(mg_dst, 24, 36, "rgb"),
+                                  mg_slots)
+    for extra in (["--sharded-io"],
+                  ["--checkpoint", str(tmp_path / "ck"),
+                   "--checkpoint-every", "4"]):
+        rc, dst = _cli_run(tmp_path, rgb_small, [
+            "--device", "cpu,cpu,cpu,cpu", "--mesh", "2x2"] + extra)
+        assert rc == 0 and "slots cpu,cpu,cpu,cpu" in capsys.readouterr().out
+        np.testing.assert_array_equal(imageio.read_raw(dst, 24, 36, "rgb"),
+                                      want)
     rc, _ = _cli_run(tmp_path, rgb_small, [
         "--device", "cpu,cpu,cpu", "--mesh", "2x2"])
     assert rc == 2 and "needs 4 slots" in capsys.readouterr().err

@@ -1605,3 +1605,100 @@ def test_converge_on_slots_matches_one_card(cuda_device, backend):
             x, jacobi3, 1e-3, 500, grid=_slot_grid((2, 2), cuda_device),
             col_mode=cm, **kw)
         assert n == n1 and torch.equal(got, one)
+
+
+# ------------------------------------------- item 10c: the rest on slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,col_mode,overlap", [
+    ("cuda", None, False), ("cuda_rdma", "strided", False),
+    ("cuda_rdma", "packed", False), ("cuda_rdma", "strided", True)])
+def test_multigrid_on_slots_matches_one_card(cuda_device, backend, col_mode,
+                                             overlap):
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+
+    jacobi3 = get_filter("jacobi3")
+    x = _mg_field((256, 256), 5)
+    one, ores = mg.mg_converge(x, jacobi3, 1e-3, 2000,
+                               grid=mesh.make_grid((2, 2), cuda_device),
+                               backend=backend)
+    slots = _slot_grid((2, 2), cuda_device)
+    stencil.reset_launch_counts()
+    got, res = mg.mg_converge(x, jacobi3, 1e-3, 2000, grid=slots,
+                              backend=backend, col_mode=col_mode,
+                              overlap=overlap)
+    counts = stencil.launch_counts()
+    levels = mg.plan_levels(slots, (256, 256), 1)
+    assert [lv.grid.slots for lv in levels[1:]] == [
+        slots.slots[:lv.grid.rows * lv.grid.cols] for lv in levels[1:]]
+    per = mg.cycle_launches(levels, backend, 1, col_mode=res.col_mode,
+                            overlap=res.overlap)
+    assert counts == {k: v * res.cycles for k, v in per.items()}
+    assert res.overlap is overlap and (
+        backend != "cuda_rdma" or res.col_mode == col_mode)
+    assert (res.cycles, res.residuals, res.level_grids) == (
+        ores.cycles, ores.residuals, ores.level_grids)
+    assert torch.equal(got, one)
+
+
+@pytest.mark.cuda
+def test_volumes_io_and_checkpoints_on_slots_match_one_card(cuda_device,
+                                                            tmp_path):
+    from parallel_convolution_tpu_torch.utils import checkpoint, sharded_io
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    slots, one = _slot_grid((2, 2), cuda_device), mesh.make_grid(
+        (2, 2), cuda_device)
+    vol = np.random.default_rng(8).random((2, 16, 40, 36), dtype=np.float32)
+    a = driver.volume_iterate(vol, "fd25", 4, grid=slots, fuse=2)
+    assert torch.equal(a, driver.volume_iterate(vol, "fd25", 4, grid=one,
+                                                fuse=2))
+    img = imageio.generate_test_image(45, 61, "rgb", seed=9)
+    src = tmp_path / "in.raw"
+    imageio.write_raw(src, img)
+    blur3 = get_filter("blur3")
+    blocks = sharded_io.load_sharded(src, 45, 61, "rgb", slots)
+    assert all(b.device == cuda_device or b.device.index == 0
+               for row in blocks for b in row)
+    out = checkpoint.run_checkpointed(blocks, blur3, 6, slots, (45, 61),
+                                      tmp_path / "ck", 2, backend="cuda_rdma",
+                                      col_mode="strided")
+    dst = tmp_path / "out.raw"
+    sharded_io.save_sharded(dst, out, 45, 61, "rgb")
+    want = oracle.run_serial_u8(img, blur3, 6)
+    np.testing.assert_array_equal(imageio.read_raw(dst, 45, 61, "rgb"), want)
+    # Resumed from iteration 4 on another grid: the same bytes.
+    again = checkpoint.run_checkpointed(None, blur3, 6, one, (45, 61),
+                                        tmp_path / "ck", 2,
+                                        backend="cuda_rdma")
+    sharded_io.save_sharded(dst, again, 45, 61, "rgb")
+    np.testing.assert_array_equal(imageio.read_raw(dst, 45, 61, "rgb"), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,storage,fuse", [("cuda", "f32", 1),
+                                                  ("cuda_sep", "bf16", 4)])
+def test_two_processes_share_the_card(cuda_device, tmp_path, backend,
+                                      storage, fuse):
+    # Two spawned ranks, 2 slots of cuda:0 each, gloo between them: the
+    # oracle's bytes, the resume bit-identical, both ranks launching.
+    from parallel_convolution_tpu_torch.ops import _build
+    from parallel_convolution_tpu_torch.utils import multihost_job
+
+    _build.build_all()  # never two processes building at once
+    rows = multihost_job.spawn(2, tmp_path, timeout=600, device="cuda",
+                               rows=61, cols=75, mode="rgb", iters=9,
+                               every=4, backend=backend, storage=storage,
+                               fuse=fuse)
+    want = oracle.run_serial_u8(
+        imageio.generate_test_image(61, 75, "rgb", seed=3),
+        get_filter("blur3"), 9)
+    np.testing.assert_array_equal(
+        imageio.read_raw(tmp_path / "out.raw", 61, 75, "rgb"), want)
+    for rank, row in enumerate(rows):
+        assert row["slots"] == "cuda:0,cuda:0,cuda:0,cuda:0"
+        assert row["owners"] == [0, 0, 1, 1] and row["broadcast"] == 7.0
+        assert row["resume_bitexact"] in ((True,) if storage != "bf16"
+                                          else (None,))
+        assert sum(row["launches"].values()) > 0

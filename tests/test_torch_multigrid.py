@@ -567,3 +567,154 @@ def test_multigrid_solve_leaves_no_reference_cycle(backend):
         assert gc.collect() == 0
     finally:
         gc.enable()
+
+
+# ------------------------------------------------- on a grid of slots (10c)
+
+
+def _slots(shape):
+    return mesh.make_grid(shape, devices=["cpu"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("grid_shape", [(2, 2), (2, 4)])
+def test_mg_converge_on_slots_matches_jax(grid_shape):
+    x = _field((64, 48), 2)
+    jrows = list(jmg.mg_converge_stream(x, JJACOBI, 1e-4, 20000,
+                                        mesh=_jmesh(grid_shape)))
+    _, jres = jmg.mg_converge(x, JJACOBI, 1e-4, 20000,
+                              mesh=_jmesh(grid_shape))
+    l1 = float(np.abs(JACOBI.taps).sum())
+    for backend in ("shifted", "cuda", "cuda_rdma"):
+        slots = _slots(grid_shape)
+        rows = list(mg.mg_converge_stream(x, JACOBI, 1e-4, 20000, grid=slots,
+                                          backend=backend))
+        out, res = mg.mg_converge(x, JACOBI, 1e-4, 20000, grid=slots,
+                                  backend=backend)
+        assert len(rows) == len(jrows) == res.cycles == jres.cycles
+        assert res.work_units == pytest.approx(jres.work_units)
+        assert res.level_grids == jres.level_grids
+        assert res.level_shapes == jres.level_shapes
+        for (g, gc, gd, _), (w, _, wd, _) in zip(rows, jrows):
+            rtol, atol = mg.float_tolerance(JACOBI, gc, np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+            assert abs(gd - wd) <= (1 + l1) * atol
+        # The resolved knobs: the JAX stamps where the backend has no
+        # column transport, the cost model's pick where it has.
+        want_cm = step.resolve_col_mode(
+            None, backend, slots, mg.plan_levels(slots, (64, 48),
+                                                 1)[0].block_hw, 1, 1, "f32")
+        assert (res.col_mode, res.overlap) == (want_cm, False)
+        if backend == "shifted":
+            assert (res.col_mode, res.overlap) == (jres.col_mode,
+                                                   jres.overlap)
+        # Bit for bit the port's one-device run of the same backend.
+        one, ores = mg.mg_converge(x, JACOBI, 1e-4, 20000,
+                                   grid=_grid(grid_shape), backend=backend)
+        assert torch.equal(out, one) and res.residuals == ores.residuals
+
+
+def test_coarse_levels_take_the_first_slots():
+    slots = mesh.make_grid((2, 4), devices=",".join(["cpu"] * 8))
+    levels = mg.plan_levels(slots, (96, 48), 1)
+    jlevels = jmg.plan_levels(_jmesh((2, 4)), (96, 48), 1)
+    assert [lv.grid.shape for lv in levels] == [lv.grid for lv in jlevels]
+    assert levels[0].grid is slots
+    for prev, lv in zip(levels, levels[1:]):
+        g0, g1 = lv.grid.shape
+        assert lv.grid.slotted and lv.grid.slots == slots.slots[:g0 * g1]
+        if lv.grid.shape == prev.grid.shape:
+            assert lv.grid is prev.grid  # one Grid object a shape
+    assert len({id(lv.grid) for lv in levels}) == len(
+        {lv.grid.shape for lv in levels})
+
+
+def test_level_channel_builds_are_the_distinct_level_identities():
+    from parallel_convolution_tpu_torch.parallel import channels
+
+    x = _field((64, 48), 3)
+    slots = _slots((2, 4))
+    levels = mg.plan_levels(slots, (64, 48), 1)
+    wu = mg.cycle_work_units(levels)
+    channels.reset()
+    _, res = mg.mg_converge(x, JACOBI, 0.0, 3 * wu - 1e-6, grid=slots,
+                            backend="cuda_rdma", col_mode="strided")
+    assert res.cycles == 3
+    keys = mg.level_channel_keys(levels, 1, "zero", "strided")
+    jkeys = jmg.level_channel_keys(jmg.plan_levels(_jmesh((2, 4)), (64, 48),
+                                                   1), 1, "zero", "strided")
+    assert channels.stats()["builds"] == len(set(keys)) == len(set(jkeys))
+    assert mg.warm_level_channels(levels, 1, "zero", "strided") == keys
+    assert channels.stats()["builds"] == len(set(keys))
+
+
+def test_slots_overlap_and_launch_counts():
+    # overlap on CPU slots runs the plain overlapped schedule with the
+    # byte-proof hatch, stamped True, the same field; the launch counts
+    # are per slot.
+    import os
+
+    x = _field((64, 48), 4)
+    slots = _slots((2, 2))
+    ref, rres = mg.mg_converge(x, JACOBI, 1e-3, 5000, grid=slots,
+                               backend="cuda_rdma")
+    os.environ["PCTPU_OVERLAP_INTERPRET"] = "1"
+    try:
+        out, res = mg.mg_converge(x, JACOBI, 1e-3, 5000, grid=slots,
+                                  backend="cuda_rdma", overlap=True,
+                                  col_mode="packed")
+    finally:
+        del os.environ["PCTPU_OVERLAP_INTERPRET"]
+    assert res.overlap is True and res.col_mode == "packed"
+    assert torch.equal(out, ref) and res.cycles == rres.cycles
+    levels = mg.plan_levels(slots, (64, 48), 1)
+    sweeps = [mg.NU_PRE + mg.NU_POST + 1] * (len(levels) - 1) + [
+        mg.NU_COARSE]
+    k1 = mg.cycle_launches(levels, "cuda", 1)
+    assert k1["stencil_step"] == sum(
+        n * lv.grid.rows * lv.grid.cols for lv, n in zip(levels, sweeps))
+    lapped = mg.cycle_launches(levels, "cuda_rdma", 1, col_mode="packed",
+                               overlap=True)
+    plain = mg.cycle_launches(levels, "cuda_rdma", 1, col_mode="strided")
+    assert plain["rdma_pack"] == 0 and lapped["rdma_pack"] == sum(
+        n * lv.grid.rows * lv.grid.cols
+        for lv, n in zip(levels, sweeps) if lv.grid.cols > 1)
+    slot_total = plain["rdma_block_slot"] + plain["rdma_tiled_slot"]
+    assert slot_total == sum(n * lv.grid.rows * lv.grid.cols
+                             for lv, n in zip(levels, sweeps))
+    assert lapped["rdma_block_region"] + lapped["rdma_tiled_region"] > 0
+    assert plain["rdma_block"] == plain["rdma_tiled"] == 0
+
+
+def test_cli_multigrid_on_slots_matches_jax_cli(tmp_path, capsys):
+    img = imageio.generate_test_image(40, 36, "grey", seed=6)
+    src = tmp_path / "in.raw"
+    imageio.write_raw(src, img)
+    argv = [str(src), "40", "36", "2000", "grey", "--converge", "0.5",
+            "--solver", "multigrid", "--mesh", "2x2"]
+    assert jcli.main(["run"] + argv + ["-o", str(tmp_path / "j.raw")]) == 0
+    jline = capsys.readouterr().out.strip().splitlines()[-1]
+    for backend in ("cuda", "cuda_rdma"):
+        dst = tmp_path / f"{backend}.raw"
+        assert cli_main(["run"] + argv + [
+            "-o", str(dst), "--backend", backend,
+            "--device", "cpu,cpu,cpu,cpu"]) == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert line.split(" ->")[0].split(" (")[0] == \
+            jline.split(" ->")[0].split(" (")[0]
+        got = imageio.read_raw(dst, 40, 36, "grey")
+        want = imageio.read_raw(tmp_path / "j.raw", 40, 36, "grey")
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_bench_converge_multigrid_row_on_slots():
+    hw = (48, 64)
+    one = bench.bench_converge(hw, JACOBI, 1e-3, 5000, grid=_grid((2, 2)),
+                               solver="multigrid", backend="cuda_rdma")
+    row = bench.bench_converge(hw, JACOBI, 1e-3, 5000, grid=_slots((2, 2)),
+                               solver="multigrid", backend="cuda_rdma")
+    for k in ("cycles", "mg_levels", "mg_level_shapes", "work_units_to_tol",
+              "converged", "residual", "checksum", "readbacks", "hosts"):
+        assert row[k] == one[k], k
+    assert row["slice_topology"] == "1x1:cpu" and row["overlap"] is False
+    assert row["col_mode"] == step.resolve_col_mode(
+        None, "cuda_rdma", _slots((2, 2)), (24, 32), 1, 1, "f32")

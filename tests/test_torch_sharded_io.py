@@ -228,3 +228,49 @@ def test_cli_sharded_io_matches_jax_cli(tmp_path, capsys, extra):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("ran 6 x blur3 on ")
     assert out.read_bytes() == jout.read_bytes()
+
+
+# ------------------------------------------------- on a grid of slots (10c)
+
+
+def _slots(shape):
+    return mesh.make_grid(shape, devices=["cpu"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("grid_shape", [(2, 2), (2, 3)])
+@pytest.mark.parametrize("storage", ["f32", "u8"])
+def test_load_save_on_slots_round_trip(tmp_path, small_bands, grid_shape,
+                                       storage):
+    img, src = _raw(tmp_path, 23, 37, "rgb", seed=41)
+    slots = _slots(grid_shape)
+    blocks = sharded_io.load_sharded(src, 23, 37, "rgb", slots,
+                                     dtype=TORCH[storage])
+    one = sharded_io.load_sharded(src, 23, 37, "rgb",
+                                  mesh.make_grid(grid_shape, "cpu"),
+                                  dtype=TORCH[storage])
+    ptrs = {b.data_ptr() for row in blocks for b in row}
+    assert len(ptrs) == grid_shape[0] * grid_shape[1]  # a block a slot
+    for row, orow in zip(blocks, one):
+        for b, o in zip(row, orow):
+            assert torch.equal(b, o)
+    dst = tmp_path / "round.raw"
+    sharded_io.save_sharded(dst, blocks, 23, 37, "rgb")
+    assert dst.read_bytes() == open(src, "rb").read()
+
+
+@pytest.mark.parametrize("backend,storage,fuse", [
+    ("cuda_rdma", "u8", 3), ("cuda_sep", "bf16", 2), ("cuda", "f32", 1)])
+def test_run_raw_file_sharded_on_slots_is_jax_bytes(tmp_path, small_bands,
+                                                    backend, storage, fuse):
+    img, src = _raw(tmp_path, 29, 35, "grey", seed=43)
+    dst, jdst = tmp_path / "out.raw", tmp_path / "jout.raw"
+    model = ConvolutionModel("blur3", grid=_slots((2, 2)), backend=backend,
+                             storage=storage, fuse=fuse)
+    model.run_raw_file_sharded(src, str(dst), 29, 35, "grey", 5)
+    JModel(filt="blur3", mesh=_jax_mesh((2, 2)), backend=JAX_NAME[backend],
+           storage=storage, fuse=fuse).run_raw_file_sharded(
+        src, str(jdst), 29, 35, "grey", 5)
+    assert dst.read_bytes() == jdst.read_bytes()
+    np.testing.assert_array_equal(
+        imageio.read_raw(dst, 29, 35, "grey"),
+        oracle.run_serial_u8(img, get_filter("blur3"), 5))

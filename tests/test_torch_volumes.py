@@ -434,3 +434,61 @@ def test_cli_rank3_needs_depth(tmp_path, capsys):
                      str(tmp_path / "o.raw"), "--rank", "3", "--device",
                      "cpu"]) == 2
     assert "--depth" in capsys.readouterr().err
+
+
+# ------------------------------------------------- on a grid of slots (10c)
+
+
+def _slots(shape):
+    return mesh.make_grid(shape, devices=["cpu"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("grid_shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_volumes_on_slots_match_jax_and_one_device(grid_shape, boundary):
+    vol = _vol(np.random.default_rng(21), 8, 16, 24)
+    slots, one = _slots(grid_shape), _grid(grid_shape)
+    for name, fuse in (("fd7", 2), ("fd25", 1), ("wave", 2),
+                       ("grayscott", 1)):
+        got = driver.volume_iterate(vol, name, 3, grid=slots,
+                                    boundary=boundary, fuse=fuse)
+        assert got.numpy().tobytes() == driver.volume_iterate(
+            vol, name, 3, grid=one, boundary=boundary,
+            fuse=fuse).numpy().tobytes()
+        want = jdriver.volume_iterate(vol, name, 3,
+                                      mesh=_jax_mesh(grid_shape),
+                                      boundary=boundary, fuse=fuse)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    driver.volume_converge.readbacks = 0
+    state, done, diff = driver.volume_converge(
+        vol, "fd7", tol=0.0, max_iters=9, check_every=4, grid=slots,
+        boundary=boundary, fuse=2)
+    assert driver.volume_converge.readbacks == 3 and done == 9
+    ostate, odone, odiff = driver.volume_converge(
+        vol, "fd7", tol=0.0, max_iters=9, check_every=4, grid=one,
+        boundary=boundary, fuse=2)
+    assert torch.equal(state, ostate) and (done, diff) == (odone, odiff)
+    jstate, jdone, jdiff = jdriver.volume_converge(
+        vol, "fd7", tol=0.0, max_iters=9, check_every=4,
+        mesh=_jax_mesh(grid_shape), boundary=boundary)
+    assert jdone == done and abs(jdiff - diff) <= ATOL
+    np.testing.assert_allclose(state.numpy(), jstate, rtol=0, atol=ATOL)
+    rows = list(driver.volume_converge_stream(
+        vol, "fd7", tol=0.0, max_iters=9, check_every=4, grid=slots,
+        boundary=boundary))
+    assert [r[1] for r in rows] == [4, 8, 9]
+    assert rows[-1][0].tobytes() == ostate.numpy().tobytes()
+
+
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+@pytest.mark.parametrize("r", [1, 2])
+def test_volume_exchange_per_block_is_the_stacked_exchange(boundary, r):
+    vol = torch.from_numpy(_vol(np.random.default_rng(23), 6, 16, 24))
+    slots = _slots((2, 4))
+    blocks, _ = driver.prepare_volume(vol, slots, boundary)
+    stacked, _ = driver.prepare_volume(vol, _grid((2, 4)), boundary)
+    got = halo3.volume_exchange_per_block(blocks, r, (2, 4), boundary)
+    want = halo3.volume_halo_exchange(stacked, r, (2, 4), boundary)
+    for k, b in enumerate(p for row in got for p in row):
+        assert torch.equal(b, want[k])
+    assert blocks[0][0].data_ptr() != blocks[0][1].data_ptr()

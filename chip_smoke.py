@@ -2623,7 +2623,7 @@ def mg_row(label, res, counts, per, secs, **extra) -> dict:
 
 
 def multigrid_phase(dev, tmp: Path, totals: dict, field,
-                    jacobi_row: dict) -> list:
+                    jacobi_row: dict, keep: dict) -> list:
     """BASELINE config 5 with ``--solver multigrid``: the field of the
     Jacobi phase on the card, jacobi3, tol 1e-3, f32, the Jacobi phase's
     budget in fine-grid work units, with ``cuda`` at 1x1 (through
@@ -2632,7 +2632,9 @@ def multigrid_phase(dev, tmp: Path, totals: dict, field,
     same residuals and the same field bit for bit); then
     ``run --converge 0.5 --solver multigrid`` through the CLI on the grey
     1920x2520 image with ``cuda`` and with ``cuda_rdma`` at 16x16 (coarse
-    levels on sub-grids), against the CLI's ``shifted`` run."""
+    levels on sub-grids), against the CLI's ``shifted`` run.  The shifted
+    field and residuals go into ``keep["mg_shifted"]`` (the field on the
+    host) for phase 4j's plain reference."""
     import numpy as np
     import torch
 
@@ -2730,6 +2732,7 @@ def multigrid_phase(dev, tmp: Path, totals: dict, field,
           f"{label}: {res_c.cycles} cycles against shifted's "
           f"{res_d.cycles}, residuals {res_c.residuals} against "
           f"{res_d.residuals}, max err {err_c} (max |field| {field_max})")
+    keep["mg_shifted"] = (out_d.cpu(), res_d.residuals)
     del out_c, out_d
     rows.append(mg_row(label, res_c, counts, per, secs,
                        max_abs_err_vs_shifted=err_c, bitwise_shifted=True,
@@ -2835,13 +2838,14 @@ def ckpt_slots_argv(src: Path, dst: Path, ck: Path, mesh_spec: str,
 
 
 def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
-                     field, volume_sha: str) -> dict:
+                     field, volume_sha: str, mg_shifted) -> dict:
     """Phase 4j: (a) BASELINE config 5 under the V-cycle (32768² jacobi3,
     tol 1e-3, 200 work units) on 2x2 slots with ``cuda`` (K1 per slot) and
     ``cuda_rdma`` (K3 / K4 per slot), each bit-equal to the one-card 2x2
     run of its backend (its field kept on the host, the card's copy freed
-    before the slot run), the same cycles, work units and level grids, the
-    peak reckoned and measured; (b) fd25 at 512³ x 40 sweeps fuse 4
+    before the slot run) and both to phase 4d's plain ``shifted`` field
+    and residuals (``mg_shifted``), the same cycles, work units and level
+    grids, the peak reckoned and measured; (b) fd25 at 512³ x 40 sweeps fuse 4
     through ``run --rank 3 --device <4 slots>``, the bytes of phase 4g's
     1x1 run; (c) checkpoints on config 3's image at 4x4 slots: a child
     dies in the second snapshot, the run resumes on 16 slots, and a
@@ -2850,20 +2854,28 @@ def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
     card, 2 slots each of a 2x2 grid over gloo, running the JAX package's
     two-process job (``utils/multihost_job.py``) at config 2's size with
     ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32, byte-equal to the
-    same job in one process, the resume bit-identical, the broadcast
-    agreed.  Every run counted into the kernels line (the two ranks'
+    same job in one process and both to the plain ``shifted`` config 2
+    output of the main paths (``refs["rgb_ref"]``), the resume
+    bit-identical (the f32 leg: a snapshot holds f32 or u8 blocks, so the
+    bf16 leg runs the sharded load, iterate and save without one), the
+    broadcast agreed.  Every run counted into the kernels line (the two ranks'
     launches as they report them)."""
     card = card_line()
     return {"card": card,
-            "multigrid": multigrid_slots_leg(dev, totals, field, card),
+            "multigrid": multigrid_slots_leg(dev, totals, field, mg_shifted,
+                                             card),
             "volume": volume_slots_leg(dev, here, volume_sha, card),
             "checkpoint": checkpoint_slots_leg(tmp, here, refs, totals),
-            "two_processes": two_process_leg(tmp, totals, card)}
+            "two_processes": two_process_leg(tmp, totals, refs, card)}
 
 
-def multigrid_slots_leg(dev, totals: dict, field, card: str) -> list:
+def multigrid_slots_leg(dev, totals: dict, field, mg_shifted,
+                        card: str) -> list:
     """Phase 4j (a): config 5's V-cycle on 2x2 slots, ``cuda`` and
-    ``cuda_rdma``, each against the one-card 2x2 run of its backend."""
+    ``cuda_rdma``, each against the one-card 2x2 run of its backend and
+    both against the plain ``shifted`` field and residuals of phase 4d
+    (``mg_shifted``: the field on the host).  jacobi3's taps and the
+    transfers' weights are dyadic, so the fields are equal, not close."""
     import torch
 
     from parallel_convolution_tpu_torch.ops import stencil
@@ -2877,6 +2889,7 @@ def multigrid_slots_leg(dev, totals: dict, field, card: str) -> list:
     H, W = CONVERGE_HW
     field_bytes = field.numel() * field.element_size()
     band = 2048
+    shifted, shifted_residuals = mg_shifted
     for backend in ("cuda", "cuda_rdma"):
         one = mesh.make_grid((2, 2), dev)
         slots = mesh.make_grid((2, 2), devices=slots4)
@@ -2904,10 +2917,15 @@ def multigrid_slots_leg(dev, totals: dict, field, card: str) -> list:
               f"{label}: {res.cycles} cycles / {res.work_units} units / "
               f"{res.level_grids} against the one-card {rres.cycles} / "
               f"{rres.work_units} / {rres.level_grids}")
-        same = all(torch.equal(out[:, a:a + band].cpu(),
-                               ref_host[:, a:a + band])
-                   for a in range(0, H, band))
+        same = plain = True
+        for a in range(0, H, band):
+            got = out[:, a:a + band].cpu()
+            same = same and torch.equal(got, ref_host[:, a:a + band])
+            plain = plain and torch.equal(got, shifted[:, a:a + band])
         check(same, f"{label}: differs from the one-card 2x2 field")
+        check(plain and rres.residuals == shifted_residuals,
+              f"{label}: differs from the plain shifted field (residuals "
+              f"{rres.residuals} against {shifted_residuals})")
         check(all(lv.grid.slots == slots.slots[:lv.grid.rows * lv.grid.cols]
                   for lv in levels), f"{label}: a level off the first slots")
         del out, ref_host
@@ -2920,7 +2938,7 @@ def multigrid_slots_leg(dev, totals: dict, field, card: str) -> list:
                      one_card_resident=one_resident, col_mode=res.col_mode,
                      reckoned_peak_bytes=reckoned, peak_bytes=peak,
                      fields_at_peak=peak / field_bytes,
-                     bitwise_one_card=True, card=card)
+                     bitwise_one_card=True, bitwise_shifted=True, card=card)
         rows.append(row)
         print(f"4j {label}: first {first:.4f} s, resident {resident:.4f} s "
               f"(one card: {one_s:.4f} / {one_resident:.4f} s); peak "
@@ -3024,11 +3042,18 @@ def checkpoint_slots_leg(tmp: Path, here: Path, refs: dict,
     return ckpt
 
 
-def two_process_leg(tmp: Path, totals: dict, card: str) -> list:
+def two_process_leg(tmp: Path, totals: dict, refs: dict,
+                    card: str) -> list:
     """Phase 4j (d): the two-process job on the card (2 ranks, 2 slots of
     ``cuda:0`` each, gloo) against the same job in this process, at
-    config 2's size, ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32.
-    The kernels are built (``main``) before any rank starts."""
+    config 2's size, ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32;
+    both outputs against the plain ``shifted`` run of the main paths on
+    the same image (``refs``: seed 1, blur3 x ITERS).  The kernels are
+    built (``main``) before any rank starts."""
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.utils import imageio
+
     from parallel_convolution_tpu_torch.ops import stencil
     from parallel_convolution_tpu_torch.utils import multihost_job
 
@@ -3064,6 +3089,12 @@ def two_process_leg(tmp: Path, totals: dict, card: str) -> list:
         out2 = (w2 / "out.raw").read_bytes()
         check(out1 == out2, f"{label}: the two-process output differs from "
                             "the one-process one")
+        check(np.array_equal(imageio.read_raw(w1 / "in.raw", rows_, cols_,
+                                              "rgb"), refs["rgb"]),
+              f"{label}: the job's input is not config 2's image")
+        check(np.array_equal(imageio.read_raw(w2 / "out.raw", rows_, cols_,
+                                              "rgb"), refs["rgb_ref"]),
+              f"{label}: differs from the plain shifted output")
         check(all(r["broadcast"] == 7.0 for r in two)
               and [r["owners"] for r in two] == [[0, 0, 1, 1]] * 2,
               f"{label}: broadcast / owners {two}")
@@ -3076,7 +3107,7 @@ def two_process_leg(tmp: Path, totals: dict, card: str) -> list:
                "resident_s_two": max(r["resident_s"] for r in two),
                "spawn_to_end_s": two_s, "first_s_one": one["first_s"],
                "resident_s_one": one["resident_s"], "one_process_s": one_s,
-               "bitwise_one_process": True,
+               "bitwise_one_process": True, "bitwise_shifted": True,
                "resume_bitexact": two[0]["resume_bitexact"], "card": card}
         rows.append(row)
         print(f"{label}: two processes first {row['first_s_two']:.4f} s, "
@@ -4319,13 +4350,14 @@ def main() -> int:
             overlap["seconds"] = time.perf_counter() - t0
             lap("4i overlap")
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
-                                      keep["config5"], converge_rows[0])
+                                      keep["config5"], converge_rows[0], keep)
             lap("4d multigrid")
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             rest = slots_rest_phase(dev, Path(tmp), here, refs, totals,
                                     keep.pop("config5"),
-                                    volume["cli_fd25"]["sha256_1x1"])
+                                    volume["cli_fd25"]["sha256_1x1"],
+                                    keep.pop("mg_shifted"))
             rest["seconds"] = time.perf_counter() - t0
             lap("4j the rest on slots")
             torch.cuda.empty_cache()

@@ -723,7 +723,7 @@ def _run_checkpointed(args, model, grid, tile) -> None:
         col_mode=col_mode, run_backend=eff)
     del blocks
     sharded_io.save_sharded(args.output, out, args.rows, args.cols,
-                            args.mode)
+                            args.mode, grid=grid)
     model.effective_backend, model.effective_fuse = eff, args.fuse
     model.effective_col_mode, model.effective_overlap = col_mode, overlap
 

@@ -213,7 +213,7 @@ class ConvolutionModel(nn.Module):
         # rank 0 writes it, the others wait for the file.
         from parallel_convolution_tpu_torch.parallel import multihost
 
-        if multihost.rank() == 0:
+        if self.grid.rank == 0:
             imageio.write_raw(dst, out)
         multihost.barrier("output-written")
 
@@ -238,4 +238,4 @@ class ConvolutionModel(nn.Module):
             interior_split=self.interior_split, overlap=overlap,
             col_mode=col_mode)
         del blocks
-        sharded_io.save_sharded(dst, out, rows, cols, mode)
+        sharded_io.save_sharded(dst, out, rows, cols, mode, grid=self.grid)

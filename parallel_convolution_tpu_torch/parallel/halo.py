@@ -125,7 +125,7 @@ def halo_exchange_stacked(x: torch.Tensor, depth: int,
 def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
                        grid_shape: tuple[int, int], boundary: str = "zero",
                        *, dtype=None, fill=None, packed: bool = False,
-                       owners=None) -> list[list[torch.Tensor]]:
+                       grid=None) -> list[list[torch.Tensor]]:
     """The exchange on a grid of slots: each block padded in a buffer of
     its own, on its own device, in ``dtype`` (default the block's), every
     ghost filled by the two phases, each a copy of one edge slab from the
@@ -143,9 +143,10 @@ def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
     that no slab reaches shows; a missing neighbour (zero boundary) writes
     zeros.  The inputs are not modified.
 
-    On a grid over several processes ``owners`` names each block's rank
-    (row-major) and ``blocks`` holds ``None`` where another rank holds
-    the block: a ghost whose neighbour lives on another rank arrives by a
+    On a ``grid`` over several processes (its ``owners`` name each
+    block's rank, row-major, and its ``rank`` this process's) ``blocks``
+    holds ``None`` where another rank holds the block: a ghost whose
+    neighbour lives on another rank arrives by a
     ``torch.distributed`` send / receive of that edge slab
     (``multihost.swap``: every receive posted first), each phase ending
     before the next begins, and the result holds ``None`` there too.
@@ -156,11 +157,8 @@ def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
     periodic = boundary == "periodic"
     C, h, w = mine.shape
     dtype = mine.dtype if dtype is None else dtype
-    rank = 0
-    if owners is not None:
-        from parallel_convolution_tpu_torch.parallel import multihost
-
-        rank = multihost.rank()
+    owners = grid.owners if grid is not None else None
+    rank = grid.rank if owners is not None else 0
 
     def nbr(i, j):
         ii = i % R if periodic else i

@@ -279,6 +279,19 @@ def local_blocks(blocks):
                 yield (i, j), b
 
 
+def spans(grid: Grid | None, blocks) -> bool:
+    """Whether ``blocks`` are this process's share of ``grid``, a grid
+    over several processes (``grid.spans_processes``).  Blocks with
+    another process's holes (``None``) and no such grid raise: the caller
+    must pass the grid the blocks belong to."""
+    if grid is not None and grid.spans_processes:
+        return True
+    if any(b is None for row in blocks for b in row):
+        raise ValueError("blocks that another process holds (None) need "
+                         "the grid over the processes (grid=)")
+    return False
+
+
 def first_block(blocks) -> torch.Tensor:
     """The first block this process holds (its shape and dtype are every
     block's)."""

@@ -63,7 +63,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, check_one_process, first_block, join_blocks, local_blocks,
-    make_grid, padded_extent, split_blocks,
+    make_grid, padded_extent, spans, split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils.config import (
@@ -178,7 +178,7 @@ def _build_halo_step(backend: str, filt: Filter, grid: Grid, valid_hw,
     def step(blocks):
         depth = r * fuse
         padded = (halo.exchange_per_block(blocks, depth, grid.shape, boundary,
-                                          owners=grid.owners)
+                                          grid=grid)
                   if grid.slotted else
                   halo.halo_exchange(blocks, depth, grid.shape, boundary))
         out = [[None] * grid.cols for _ in range(grid.rows)]
@@ -353,7 +353,8 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
     return run
 
 
-def _check_quantize_contract(blocks, filt: Filter, quantize: bool) -> None:
+def _check_quantize_contract(blocks, filt: Filter, quantize: bool,
+                             grid: Grid | None = None) -> None:
     """Fail loudly on out-of-contract quantize-mode inputs: convex filters
     skip the store-back clip, so float values outside [0, 255] would
     propagate unclipped instead of being clipped on the first store-back.
@@ -365,7 +366,7 @@ def _check_quantize_contract(blocks, filt: Filter, quantize: bool) -> None:
     held = [b for _, b in local_blocks(blocks) if b.numel()]
     lo = min((float(b.min()) for b in held), default=0.0)
     hi = max((float(b.max()) for b in held), default=0.0)
-    if any(b is None for row in blocks for b in row):
+    if spans(grid, blocks):
         from parallel_convolution_tpu_torch.parallel import multihost
 
         ranges = multihost.gather_object((lo, hi))
@@ -597,7 +598,7 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
         check_storage("u8", quantize)
     _check_processes(grid, backend, fallback)
     if check_contract:
-        _check_quantize_contract(blocks, filt, quantize)
+        _check_quantize_contract(blocks, filt, quantize, grid)
     storage = _storage_name(b0.dtype)
     backend, fuse, tile, source = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
@@ -696,6 +697,18 @@ def _max_abs_diff(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.maximum(hi, -lo)
 
 
+def _slots_max_diff(cur, prev, device=None) -> torch.Tensor:
+    """max |cur − prev| over a state as a 0-d f32 tensor: the stacked grid
+    at once, or each block this process holds reduced where it lives and
+    the shares gathered once on ``device`` (default: the first block's; a
+    NaN on any slot stays NaN)."""
+    if torch.is_tensor(cur):
+        return _max_abs_diff(cur, prev)
+    diffs = [_max_abs_diff(c, prev[i][j]) for (i, j), c in local_blocks(cur)]
+    dev = diffs[0].device if device is None else device
+    return torch.stack([d.to(dev) for d in diffs]).amax()
+
+
 def _carry_diff(cur, prev, grid: Grid, backend: str) -> torch.Tensor:
     """The MPI_Allreduce (``lax.pmax`` in the JAX package): the max-abs
     change of one iteration over every block and channel, the pad rim
@@ -709,11 +722,9 @@ def _carry_diff(cur, prev, grid: Grid, backend: str) -> torch.Tensor:
         return _max_abs_diff(cur, prev)
     if isinstance(cur, rdma.SlotCarry):
         cur.run.join()
-        diffs = [_max_abs_diff(c, p) for c, p in zip(cur.parts, prev.parts)]
+        d = _slots_max_diff([cur.parts], [prev.parts], grid.device)
     else:
-        diffs = [_max_abs_diff(c, prev[i][j])
-                 for (i, j), c in local_blocks(cur)]
-    d = torch.stack([d.to(grid.device) for d in diffs]).amax()
+        d = _slots_max_diff(cur, prev, grid.device)
     if grid.spans_processes:
         from parallel_convolution_tpu_torch.parallel import multihost
 
@@ -801,7 +812,7 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
     backend, col_mode, overlap = _run_knobs(
         grid, filt, backend, int(fuse), tile, storage, quantize, boundary,
         block_hw, interior_split, fallback, overlap, col_mode)
-    _check_quantize_contract(blocks, filt, quantize)
+    _check_quantize_contract(blocks, filt, quantize, grid)
     _check_block_size(filt, block_hw)
     tile = None if tile is None else tuple(int(v) for v in tile)
     return (grid, blocks, valid_hw, block_hw, backend, int(fuse), tile,

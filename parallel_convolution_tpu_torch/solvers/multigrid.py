@@ -393,18 +393,6 @@ def _map(fn, *states):
     return [[fn(*bs) for bs in zip(*rows)] for rows in zip(*states)]
 
 
-def _max_change(cur, prev) -> torch.Tensor:
-    """max |cur − prev| over a level state, as a 0-d f32 tensor on its
-    (first block's) device: each block's share reduced where it lives,
-    the shares gathered once (a NaN stays NaN)."""
-    if torch.is_tensor(cur):
-        return step_lib._max_abs_diff(cur, prev)
-    dev = cur[0][0].device
-    return torch.stack([step_lib._max_abs_diff(c, p).to(dev)
-                        for rc, rp in zip(cur, prev)
-                        for c, p in zip(rc, rp)]).amax()
-
-
 def _place(full: torch.Tensor, valid_hw, grid: Grid, block_hw,
            stacked: bool):
     """A global (C, ≥H, ≥W) field cropped to ``valid_hw``, zero-padded to
@@ -553,7 +541,7 @@ def _build_fine_smooth(lv: Level, filt: Filter, n: int, s: _Solve,
         if not with_diff:
             return u
         su = step(u)
-        return _map(_damped, u, su), _max_change(su, u)
+        return _map(_damped, u, su), step_lib._slots_max_diff(su, u)
 
     return run
 

@@ -58,7 +58,7 @@ import torch
 
 from parallel_convolution_tpu_torch.parallel import multihost
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, first_block, local_blocks, padded_extent,
+    Grid, first_block, local_blocks, padded_extent, spans,
 )
 from parallel_convolution_tpu_torch.resilience import diskio
 from parallel_convolution_tpu_torch.resilience.faults import (
@@ -213,15 +213,16 @@ def _own_tmp(path: Path) -> Path:
                           ".tmp")
 
 
-def save_state(ckpt_dir, blocks, meta: dict) -> None:
+def save_state(ckpt_dir, blocks, meta: dict,
+               grid: Grid | None = None) -> None:
     """Snapshot the grid's padded blocks + metadata.
 
     ``blocks`` is the R×C list of (C, h, w) blocks (the ``cuda_rdma``
-    carry is unstacked at ``iterate_prepared``'s return), ``None`` where
-    another process of the job holds a block: every rank of such a job
-    calls this, writes its own shards, and rank 0 writes the meta and the
-    pointer.  Crash-safe by construction: each snapshot is its own
-    ``it_<NNNNNNNN>/`` directory, every shard is serialized in memory
+    carry is unstacked at ``iterate_prepared``'s return).  On a ``grid``
+    over several processes they are ``None`` where another rank holds a
+    block: every rank calls this with the grid, writes its own shards, and
+    rank 0 writes the meta and the pointer.  Crash-safe by construction:
+    each snapshot is its own ``it_<NNNNNNNN>/`` directory, every shard is serialized in memory
     first and written atomically (a temporary name of the writer's own,
     then a rename) with its CRC32 recorded, meta is written last inside
     the directory, after every shard of every rank (a barrier), and the
@@ -233,11 +234,11 @@ def save_state(ckpt_dir, blocks, meta: dict) -> None:
     ``checkpoint_write_meta`` twice — before the meta write and before the
     LATEST flip.
     """
+    shared = spans(grid, blocks)
     d = Path(ckpt_dir)
     d.mkdir(parents=True, exist_ok=True)
     snap = _snap_dir(d, meta["iters_done"])
     snap.mkdir(exist_ok=True)
-    spans = any(b is None for row in blocks for b in row)
     shards: dict[str, dict] = {}
     for (r, c), block in local_blocks(blocks):
         name = f"shard_{r}_{c}.npy"
@@ -249,20 +250,20 @@ def save_state(ckpt_dir, blocks, meta: dict) -> None:
         tmp.write_bytes(raw)
         os.replace(tmp, snap / name)
         shards[name] = {"crc32": zlib.crc32(raw), "bytes": len(raw)}
-    if spans:
+    if shared:
         # Every rank's shards are on disk once the records are gathered.
         for part in multihost.gather_object(shards):
             shards.update(part)
         shards = dict(sorted(shards.items(), key=lambda kv: _shard_rc(
             kv[0])))
-    lead = not spans or multihost.rank() == 0
+    lead = not shared or grid.rank == 0
     if lead:
         meta = dict(meta, shards=shards)
         diskio.consult("checkpoint_write_meta")
         tmp = _own_tmp(snap / META_NAME)
         tmp.write_text(json.dumps(meta))
         os.replace(tmp, snap / META_NAME)
-    if spans:
+    if shared:
         multihost.barrier("checkpoint-meta")
     if lead:
         diskio.consult("checkpoint_write_meta")
@@ -270,7 +271,7 @@ def save_state(ckpt_dir, blocks, meta: dict) -> None:
         ptr_tmp.write_text(snap.name)
         os.replace(ptr_tmp, d / LATEST_NAME)
         _prune(d)
-    if spans:
+    if shared:
         multihost.barrier("checkpoint-latest")
     # The obs "save" histogram, byte counter and event go here with item 9.
 
@@ -490,7 +491,7 @@ def run_checkpointed(blocks, filt, total_iters: int, grid: Grid, valid_hw,
         raise ValueError("no checkpoint found and no initial state given")
     # The quantize-range contract once, on the entry state; chunk inputs
     # are prior chunk outputs, in contract by induction.
-    step_lib._check_quantize_contract(blocks, filt, quantize)
+    step_lib._check_quantize_contract(blocks, filt, quantize, grid)
     C, bh, bw = first_block(blocks).shape
     if run_backend is None:
         run_backend = backend
@@ -518,5 +519,6 @@ def run_checkpointed(blocks, filt, total_iters: int, grid: Grid, valid_hw,
                 ckpt_dir, blocks,
                 {**config, "grid": list(grid.shape), "iters_done": done,
                  "shape": [C, grid.rows * bh, grid.cols * bw]},
+                grid,
             )
     return blocks

@@ -18,10 +18,13 @@ Spawn the ranks from one parent (``spawn``: CUDA does not survive
 ``fork``), or run one rank a process under ``torchrun``:
 
     python -m parallel_convolution_tpu_torch.utils.multihost_job \\
-        --processes 2 --device cpu --work /tmp/job
+        --processes 2 --device cpu --backend shifted --work /tmp/job
     torchrun --nproc-per-node 2 -m parallel_convolution_tpu_torch.utils.multihost_job \\
-        --device cuda --work /tmp/job --rows 1920 --cols 2520 --mode rgb \\
+        --work /tmp/job --rows 1920 --cols 2520 --mode rgb \\
         --iters 100 --every 50 --backend cuda
+
+Like the port's other entry points it runs on the card unless
+``--device cpu`` asks for the CPU.
 
 Two ranks may share one card (its slots then time-slice between two CUDA
 contexts); the group is gloo, whose point-to-point calls carry the halo
@@ -49,12 +52,14 @@ def free_port() -> int:
 
 
 def job(rank: int | None, processes: int | None, port: int | None, work,
-        *, device: str = "cpu", shape=(2, 2), rows: int = 37,
+        *, device: str | None = None, shape=(2, 2), rows: int = 37,
         cols: int = 53, mode: str = "grey", iters: int = 4, every: int = 2,
-        filt: str = "blur3", backend: str = "shifted", storage: str = "f32",
+        filt: str = "blur3", backend: str = "cuda", storage: str = "f32",
         fuse: int = 1, seed: int = 3) -> dict:
     """This rank's share of the job; returns its result row.  ``rank`` /
-    ``processes`` / ``port`` None read torchrun's environment."""
+    ``processes`` / ``port`` None read torchrun's environment.  ``device``
+    None is the card (raising without CUDA); ``"cpu"`` runs the plain
+    versions."""
     import torch
 
     from parallel_convolution_tpu_torch.models import ConvolutionModel
@@ -116,7 +121,7 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
                 imageio.allocate_raw(dst, rows, cols, mode)
             multihost.barrier("output-allocated")
             sharded_io.save_sharded(dst, out, rows, cols, mode,
-                                    allocate=False)
+                                    allocate=False, grid=grid)
             multihost.barrier("output-saved")
             return blocks, out
 
@@ -191,7 +196,9 @@ def main(argv=None) -> int:
                     help="spawn this many ranks (default: one rank of "
                          "torchrun's job)")
     ap.add_argument("--work", required=True)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda (default: the card; raises without "
+                         "CUDA)")
     ap.add_argument("--mesh", default="2x2")
     ap.add_argument("--rows", type=int, default=37)
     ap.add_argument("--cols", type=int, default=53)
@@ -199,7 +206,7 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--every", type=int, default=2)
     ap.add_argument("--filter", default="blur3")
-    ap.add_argument("--backend", default="shifted")
+    ap.add_argument("--backend", default="cuda")
     ap.add_argument("--storage", default="f32")
     ap.add_argument("--fuse", type=int, default=1)
     args = ap.parse_args(argv)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, first_block, local_blocks, padded_extent,
+    Grid, first_block, local_blocks, padded_extent, spans,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils import imageio
@@ -143,16 +143,18 @@ def load_sharded(path, rows: int, cols: int, mode: str, grid: Grid,
 
 
 def save_sharded(path, blocks, rows: int, cols: int, mode: str,
-                 allocate: bool = True, grid_shape=None) -> None:
+                 allocate: bool = True, grid_shape=None,
+                 grid: Grid | None = None) -> None:
     """Write the grid's padded blocks back to a raw file.
 
     ``blocks`` is the R×C list of (C, h, w) blocks, or the stacked
     ``cuda_rdma`` carry (R·C, C, h, w) with its ``grid_shape``.  Each
     block writes only its valid (non-pad) part at its file offset, a band
     at a time; ``allocate`` first creates the file at the image's size.
-    Blocks another process holds are ``None`` and are written by it:
-    with ``allocate`` rank 0 alone creates the file, and every rank waits
-    for it at a barrier before writing."""
+    On a ``grid`` over several processes the blocks another process holds
+    are ``None`` and are written by it: with ``allocate`` rank 0 alone
+    creates the file, and every rank waits for it at a barrier before
+    writing."""
     if torch.is_tensor(blocks):
         from parallel_convolution_tpu_torch.ops import rdma
 
@@ -160,13 +162,13 @@ def save_sharded(path, blocks, rows: int, cols: int, mode: str,
             raise ValueError("a stacked (R*C, C, h, w) grid needs its "
                              "grid_shape")
         blocks = rdma.unstack_blocks(blocks, tuple(grid_shape))
-    spans = any(b is None for row in blocks for b in row)
+    shared = spans(grid, blocks)
     if allocate:
-        from parallel_convolution_tpu_torch.parallel import multihost
-
-        if not spans or multihost.rank() == 0:
+        if not shared or grid.rank == 0:
             imageio.allocate_raw(path, rows, cols, mode)
-        if spans:
+        if shared:
+            from parallel_convolution_tpu_torch.parallel import multihost
+
             multihost.barrier("output-allocated")
     C, bh, bw = first_block(blocks).shape
     for (i, j), blk in local_blocks(blocks):

@@ -39,6 +39,7 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, check_one_process, join_blocks, make_grid, padded_extent,
     split_blocks,
 )
+from parallel_convolution_tpu_torch.parallel.step import _slots_max_diff
 from parallel_convolution_tpu_torch.utils.config import VOLUME_RADII
 
 __all__ = ["converge_chunk_fn", "prepare_volume", "unstack_volume",
@@ -119,19 +120,6 @@ def _resolve_step(name: str, boundary: str, grid_shape, depth, valid_hw,
     return form.build(grid_shape, depth, valid_hw, block_hw, fuse, boundary)
 
 
-def _max_diff(cur, prev) -> torch.Tensor:
-    """max |cur − prev| over a state as a 0-d f32 tensor: the stacked
-    grid at once, or each slot's block where it lives, gathered once."""
-    from parallel_convolution_tpu_torch.parallel.step import _max_abs_diff
-
-    if torch.is_tensor(cur):
-        return _max_abs_diff(cur, prev)
-    dev = cur[0][0].device
-    return torch.stack([_max_abs_diff(c, p).to(dev)
-                        for rc, rp in zip(cur, prev)
-                        for c, p in zip(rc, rp)]).amax()
-
-
 def _check_fuse(name: str, block_hw, fuse: int) -> None:
     # An unknown name falls through (radius 1): resolution then raises the
     # registry's error naming the registered forms.
@@ -191,7 +179,7 @@ def _build_volume_converge_chunk(grid_shape, name: str, n: int, depth: int,
             for _ in range((n - 1) % fuse):
                 prev = step(prev)
         cur = step(prev)
-        return cur, _max_diff(cur, prev)
+        return cur, _slots_max_diff(cur, prev)
 
     return chunk
 

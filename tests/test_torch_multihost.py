@@ -110,7 +110,8 @@ def _checks(rank: int, port: int, work: str):
         for it in (1, 2, 3):
             checkpoint.save_state(work, blocks, {"iters_done": it,
                                                  "grid": [2, 2],
-                                                 "shape": [3, 12, 18]})
+                                                 "shape": [3, 12, 18]},
+                                  grid)
     finally:
         checkpoint.os.replace = real_replace
     row["renamed"] = renamed
@@ -234,7 +235,8 @@ def test_concurrent_saves_share_no_temp_file(two_ranks):
 
 
 def test_multihost_worker_job_is_the_oracles_bytes(tmp_path):
-    rows = multihost_job.spawn(2, tmp_path, timeout=300)
+    rows = multihost_job.spawn(2, tmp_path, timeout=300, device="cpu",
+                               backend="shifted")
     want = oracle.run_serial_u8(
         imageio.generate_test_image(37, 53, "grey", seed=3),
         get_filter("blur3"), 4)
@@ -276,3 +278,37 @@ def test_initialize_picks_gloo_when_ranks_share_a_card(monkeypatch, cuda,
     multihost.initialize("localhost:1234", num_processes=2, process_id=1)
     assert seen == {"backend": want, "init_method": "tcp://localhost:1234",
                     "world_size": 2, "rank": 1}
+
+
+@pytest.mark.parametrize("entry", ["job", "main"])
+def test_job_runs_on_the_card_unless_asked(entry, monkeypatch, tmp_path):
+    # Like the port's other entry points the job defaults to the card, and
+    # raises where there is none rather than run the plain path on the host.
+    import torch
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "job":
+            multihost_job.job(None, 1, None, tmp_path)
+        else:
+            multihost_job.main(["--work", str(tmp_path)])
+
+
+@pytest.mark.parametrize("save", ["sharded_io", "checkpoint"])
+def test_saving_another_ranks_holes_needs_the_grid(save, tmp_path):
+    # Blocks with None entries are one rank's share: which rank writes the
+    # shared file comes from the grid, never from the holes.
+    import torch
+
+    from parallel_convolution_tpu_torch.utils import checkpoint, sharded_io
+
+    blocks = [[torch.zeros((1, 4, 4)), None]]
+    with pytest.raises(ValueError, match="grid="):
+        if save == "sharded_io":
+            sharded_io.save_sharded(tmp_path / "o.raw", blocks, 4, 8, "grey")
+        else:
+            checkpoint.save_state(tmp_path / "ck", blocks,
+                                  {"iters_done": 1, "grid": [1, 2],
+                                   "shape": [1, 4, 8]})
+    assert not list(tmp_path.iterdir())

@@ -115,6 +115,31 @@ Phases (any failure exits non-zero and prints no result line):
    held against the plain first group, timed beside the same group as
    one launch a slot.  With two cards or more the paths run again
    round-robin over the cards;
+4k. obs (ROADMAP item 9), after phase 4i, counted into the kernels
+   line, with ``metrics.set_enabled(True)`` and an ``EventLog`` in the
+   phase's directory: BASELINE config 2 (RGB 1920x2520 blur3 x 100, seed
+   1) through ``ConvolutionModel`` with ``cuda_sep`` bf16 fuse 32 at 1x1,
+   ``cuda`` f32 fuse 1 at 2x2 and ``cuda_rdma`` bf16 fuse 32 at 2x2, each
+   equal to ``shifted``, every event valid (``validate_event``), the
+   ``exchange`` event's per-direction bytes ``halo_bytes_total``'s and
+   ``pctpu_iterations_total`` up by 100; the resident seconds with obs on
+   over off, six turns each way, on ``cuda`` f32 fuse 1 at 2x2 and the
+   256-slot ``cuda_rdma`` u8 fuse 8 split (the least on over the least
+   off at most 1.25x: a synchronize or a per-launch hook would show; the
+   medians' ratio printed beside it); each run's predicted exchange share, and
+   for the fuse-1 run a measured one (100 rounds x ``bench_halo_p50`` at
+   its block over its resident seconds); ``run --converge 0.5
+   --check-every 10`` on config 1's image with ``cuda_rdma`` at 2x2: one
+   ``device`` span whose ``iters`` is the count the run printed, its
+   ``exchange`` / ``compute`` children in ``obs.trace_report``'s tree, the
+   bytes of ``shifted``; a checkpoint of config 3's image (8192² u8) saved
+   on 2x2 and loaded there and onto 4x4, the ``checkpoint_save`` /
+   ``_load`` / ``_reshard`` events carrying the shard files' bytes on disk;
+   the ``cuda_sep`` and the fuse-1 runs under
+   ``utils.tracing.device_trace``, the Chrome JSON holding
+   ``fused_iterate_kernel`` and ``stencil_step_kernel`` events as many as
+   the counters gave; ``obs.report`` clean on the phase's log, and
+   ``render_text`` parsed back by ``parse_text``;
 4j. the rest on a grid of slots and a grid over two processes (ROADMAP
    item 10c), after phase 4d, counted into the kernels line: BASELINE
    config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 200 work units)
@@ -2581,6 +2606,300 @@ def overlap_phase(dev, tmp: Path, refs: dict, totals: dict,
 
 
 # ---------------------------------------------------------------------------
+# Phase 4k: obs on the main path (ROADMAP item 9)
+# ---------------------------------------------------------------------------
+
+# obs-on resident seconds over obs-off at most this on a host-bound path: a
+# synchronize or a per-launch hook would show as more.
+OBS_OVERHEAD_LIMIT = 1.25
+OBS_TURNS = 6              # off, on / on, off turns
+
+
+def obs_resident(metrics, fn) -> dict:
+    """Resident seconds of ``fn`` with obs off and on, in turns (off, on,
+    on, off, ...): ``ratio`` is the least on over the least off (a cost
+    of obs raises every run, the least too, while the host's noise
+    spreads single runs 1.8x apart on one card), beside the medians."""
+    import statistics
+
+    times = {False: [], True: []}
+    fn()  # warm
+    for i in range(OBS_TURNS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            metrics.set_enabled(on)
+            times[on].append(host_seconds(fn)[1])
+    metrics.set_enabled(True)
+    off, on = min(times[False]), min(times[True])
+    med_off, med_on = (statistics.median(times[k]) for k in (False, True))
+    return {"seconds_off": off, "seconds_on": on, "ratio": on / off,
+            "median_ratio": med_on / med_off, "turns_off": times[False],
+            "turns_on": times[True]}
+
+
+def check_exposition(metrics) -> int:
+    """``render_text`` parsed back by ``parse_text``: every counter and
+    gauge series, and every histogram's count and sum, as the snapshot
+    holds them.  Returns the series checked."""
+    parsed = metrics.parse_text(metrics.render_text())
+    n = 0
+    for m in metrics.snapshot()["metrics"]:
+        for s in m["series"]:
+            if m["kind"] == "histogram":
+                want = {f"{m['name']}_count": s["count"],
+                        f"{m['name']}_sum": s["sum"]}
+            else:
+                want = {m["name"]: s["value"]}
+            for name, value in want.items():
+                got = [v for lbl, v in parsed.get(name, [])
+                       if lbl == {k: str(x) for k, x in s["labels"].items()}]
+                check(got == [float(value)],
+                      f"obs: {name}{s['labels']} parsed back as {got}, "
+                      f"the snapshot holds {value}")
+                n += 1
+    return n
+
+
+def obs_phase(dev, tmp: Path, refs: dict, totals: dict, keep: dict) -> dict:
+    """Metrics, the event log, spans, halo attribution and the device trace
+    on the main path, obs on, at config 2's full width; the launches
+    counted into ``totals``.  See the module docstring, phase 4k."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.obs import (
+        attribution, events, metrics, report, trace, trace_report,
+    )
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+    from parallel_convolution_tpu_torch.utils import (
+        bench, checkpoint, imageio, tracing,
+    )
+
+    work = tmp / "obs"
+    metrics.set_enabled(True)
+    metrics.reset()
+    log = events.configure(work / "events.jsonl", max_bytes=64 << 20)
+    out = {"runs": [], "card": card_line()}
+    dirs = attribution.DIRECTIONS
+    blur3 = get_filter("blur3")
+    rgb, ref = refs["rgb"], refs["rgb_ref"]
+    px = RGB_HW[0] * RGB_HW[1] * 3
+    block2 = tuple(-(-n // 2) for n in RGB_HW)
+    grid2 = mesh.make_grid((2, 2), dev)
+    planar = torch.from_numpy(imageio.interleaved_to_planar(rgb).copy()).to(
+        device=dev, dtype=torch.float32)
+
+    def new_events(n0: int) -> list:
+        recs = events.read_events(log.path)[n0:]
+        for r in recs:
+            check(events.validate_event(r) == [],
+                  f"obs: invalid event {r}: {events.validate_event(r)}")
+        return recs
+
+    def counted(fn):
+        stencil.reset_launch_counts()
+        res = fn()
+        counts = stencil.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        return res, counts
+
+    iters_m = metrics.counter("pctpu_iterations_total", "", ("backend",))
+    models = {}
+    for label, grid, kw, expect, gshape, block in (
+            ("cuda_sep bf16 fuse 32 1x1", None,
+             dict(backend="cuda_sep", storage="bf16", fuse=32),
+             expected_launches(blur3, 32, RGB_HW), (1, 1), RGB_HW),
+            ("cuda f32 fuse 1 2x2", grid2,
+             dict(backend="cuda", storage="f32", fuse=1),
+             {k: 4 * v for k, v in expected_launches(blur3, 1,
+                                                      block2).items()},
+             (2, 2), block2),
+            ("cuda_rdma bf16 fuse 32 2x2", grid2,
+             dict(backend="cuda_rdma", storage="bf16", fuse=32),
+             expected_rdma_launches(blur3, 32, (2, 2), block2), (2, 2),
+             block2)):
+        model = (ConvolutionModel("blur3", device=dev, **kw) if grid is None
+                 else ConvolutionModel("blur3", grid=grid, **kw))
+        models[label] = model
+        n0 = len(events.read_events(log.path))
+        before = iters_m.value(backend=kw["backend"])
+        img, counts, secs = drive(f"obs rgb 1920x2520 blur3 {label}",
+                                  lambda: model.run_image(rgb, ITERS), expect,
+                                  px, no_halo=kw["backend"] == "cuda_rdma")
+        for k, v in counts.items():
+            totals[k] += v
+        check(np.array_equal(img, ref), f"obs {label}: differs from shifted")
+        ex = [r for r in new_events(n0) if r["kind"] == "exchange"]
+        fuse = min(model.effective_fuse, ITERS)   # iterate_prepared's clamp
+        want = attribution.halo_bytes_total(gshape, block, 1, fuse, ITERS, 3,
+                                            kw["storage"])
+        check(len(ex) == 1 and ex[0]["fuse"] == fuse,
+              f"obs {label}: {len(ex)} exchange events, fuse "
+              f"{[r['fuse'] for r in ex]} for {fuse}")
+        check(ex[0]["halo_bytes"] == {d: want[d] for d in dirs}
+              and ex[0]["rounds"] == want["rounds"],
+              f"obs {label}: exchange {ex[0]['halo_bytes']} "
+              f"{ex[0]['rounds']} rounds, halo_bytes_total says {want}")
+        got_iters = iters_m.value(backend=kw["backend"]) - before
+        check(got_iters == ITERS,
+              f"obs {label}: pctpu_iterations_total +{got_iters}")
+        out["runs"].append({"path": label, "launches": counts,
+                            "seconds_first": secs,
+                            "halo_bytes": ex[0]["halo_bytes"],
+                            "rounds": ex[0]["rounds"],
+                            "predicted_exchange_fraction":
+                                ex[0]["exchange_fraction"]})
+
+    # Overhead on two host-bound paths: obs on / off, resident, in turns.
+    fuse1 = models["cuda f32 fuse 1 2x2"]
+    grey = refs["greys"]["blur3"]
+    grey_planar = torch.from_numpy(grey[None].copy()).to(
+        device=dev, dtype=torch.float32)
+    slots256 = mesh.make_grid(GREY_GRID, devices=slot_devices(
+        dev, GREY_GRID, "one card"))
+    split = ConvolutionModel("blur3", grid=slots256, backend="cuda_rdma",
+                             storage="u8", fuse=8)
+    check(np.array_equal(split.run_image(grey, ITERS),
+                         refs["grey_refs"]["blur3"]),
+          "obs: the 256-slot split differs from shifted")
+    out["overhead"] = {}
+    for label, model, x in (("cuda f32 fuse 1 2x2", fuse1, planar),
+                            ("cuda_rdma u8 fuse 8 256 slots", split,
+                             grey_planar)):
+        row, counts = counted(lambda: obs_resident(
+            metrics, lambda: model.run_planar(x, ITERS)))
+        row["launches"] = counts
+        out["overhead"][label] = row
+        check(row["ratio"] <= OBS_OVERHEAD_LIMIT,
+              f"obs overhead {label}: on / off {row['ratio']:.3f} above "
+              f"{OBS_OVERHEAD_LIMIT}")
+
+    # The predicted exchange share of the fuse-1 run beside a measured one:
+    # its rounds x the halo exchange's p50 at that block over its resident
+    # seconds (no gate: the first card reading of the model's term).
+    halo = bench.bench_halo_p50(block2, r=1, grid=grid2, channels=3,
+                                trials=9, chain_rounds=64)
+    res_off = out["overhead"]["cuda f32 fuse 1 2x2"]["seconds_off"]  # least
+    out["attribution"] = {
+        run["path"]: {"predicted": run["predicted_exchange_fraction"]}
+        for run in out["runs"]}
+    out["attribution"]["cuda f32 fuse 1 2x2"].update(
+        halo_p50_us=halo["p50_us"], rounds=ITERS, resident_s=res_off,
+        measured=(None if halo["p50_us"] is None
+                  else ITERS * halo["p50_us"] * 1e-6 / res_off))
+
+    # run --converge on config 1's image, cuda_rdma 2x2: one device span.
+    csrc, cwant, citers = keep["cli_converge"]
+    cdst = work / "converge.raw"
+    argv = ["run", str(csrc), str(RGB_HW[0]), str(RGB_HW[1]),
+            str(CONVERGE_CLI_MAX), "grey", "-o", str(cdst), "--converge",
+            "0.5", "--check-every", "10", "--backend", "cuda_rdma",
+            "--mesh", "2x2"]
+    n0 = len(events.read_events(log.path))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (rc, secs), counts = counted(lambda: host_seconds(
+            lambda: cli_main(argv)))
+    check(rc == 0, f"obs converge: the CLI exited {rc}")
+    said = buf.getvalue().strip().splitlines()[-1]
+    check(said.startswith(f"converged after {citers} iters"),
+          f"obs converge: said {said!r}, shifted ran {citers}")
+    check(np.array_equal(imageio.read_raw(cdst, *RGB_HW, "grey"), cwant),
+          "obs converge: differs from shifted")
+    recs = new_events(n0)
+    spans = trace.span_records(recs)
+    dev_spans = [s for s in spans if s["name"] == "device"]
+    check(len(dev_spans) == 1 and dev_spans[0]["attrs"]["iters"] == citers,
+          f"obs converge: device spans {dev_spans}, {citers} iterations")
+    tree = trace.build_trees(spans)[dev_spans[0]["trace_id"]]
+    kids = sorted(tree["spans"][k]["name"]
+                  for k in tree["children"].get(dev_spans[0]["span_id"], []))
+    check(kids == ["compute", "exchange"] and not tree["orphans"],
+          f"obs converge: the device span's children {kids}")
+    rep, rrc = trace_report.analyze(recs)
+    check(rrc == 0, f"obs converge: trace_report found {rep['problems']}")
+    ex = [r for r in recs if r["kind"] == "exchange"]
+    out["converge"] = {"iters": citers, "seconds": secs, "launches": counts,
+                       "device_span_s": dev_spans[0]["dur_s"],
+                       "children": kids, "trace_report": {
+                           k: rep[k] for k in ("spans", "traces",
+                                               "orphan_spans")},
+                       "predicted_exchange_fraction":
+                           ex[0]["exchange_fraction"]}
+
+    # A checkpoint save at config 3's size on 2x2, loaded back there and
+    # onto 4x4: the events carry the bytes of the shard files on disk.
+    img8k = refs["greys"]["edge5"]
+    blocks, valid_hw, _ = step._prepare(img8k[None], grid2, "u8")
+    ck = work / "ck"
+    n0 = len(events.read_events(log.path))
+    checkpoint.save_state(ck, blocks, {
+        "grid": [2, 2], "iters_done": 25, "shape": [1, *BIG_HW],
+        "valid_hw": list(valid_hw)}, grid2)
+    loaded, _ = checkpoint.load_state(ck, grid2)
+    check(all(torch.equal(loaded[i][j], blocks[i][j])
+              for i in range(2) for j in range(2)),
+          "obs checkpoint: the loaded blocks differ from the saved ones")
+    del loaded
+    resharded, meta = checkpoint.load_state(ck, mesh.make_grid((4, 4), dev))
+    check(meta["resharded_from"] == [2, 2],
+          "obs checkpoint: the 4x4 load did not reshard")
+    del resharded, blocks
+    on_disk = sum(p.stat().st_size
+                  for p in (ck / "it_00000025").glob("shard_*.npy"))
+    ops = [(r["kind"], r["bytes"]) for r in new_events(n0)
+           if r["kind"].startswith("checkpoint_")]
+    check(ops == [("checkpoint_save", on_disk), ("checkpoint_load", on_disk),
+                  ("checkpoint_reshard", on_disk)],
+          f"obs checkpoint: events {ops}, {on_disk} bytes on disk")
+    out["checkpoint"] = {"events": ops, "bytes_on_disk": on_disk}
+
+    # The device trace: the hand-written kernels at the counted launches.
+    out["device_trace"] = {}
+    for label in ("cuda_sep bf16 fuse 32 1x1", "cuda f32 fuse 1 2x2"):
+        model = models[label]
+
+        def traced():
+            with tracing.device_trace(work / "trace") as tr:
+                img = model.run_image(rgb, ITERS)
+            return tr, img
+
+        (tr, img), counts = counted(traced)
+        check(np.array_equal(img, ref),
+              f"obs device trace {label}: differs from shifted")
+        seen = tracing.kernel_counts(tr, ("stencil_step_kernel",
+                                          "fused_iterate_kernel"))
+        want = {"stencil_step_kernel": counts["stencil_step"],
+                "fused_iterate_kernel": counts["fused_iterate"]}
+        check(seen == want and sum(want.values()) > 0,
+              f"obs device trace {label}: the trace holds {seen}, the "
+              f"counters say {want}")
+        names = sorted({e["name"] for e in tr.events()
+                        if e.get("cat") == "kernel"})
+        out["device_trace"][label] = {"kernels": seen, "names": names[:4],
+                                      "bytes": tr.path.stat().st_size}
+
+    # The timeline as a whole, and the exposition.
+    metrics.dump(work / "snapshot.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rrc = report.main(["--events", str(log.path), "--metrics",
+                           str(work / "snapshot.json"), "--quiet", "--out",
+                           str(work / "report.json")])
+    check(rrc == 0, "obs: obs.report failed on the phase's log")
+    summary = json.loads((work / "report.json").read_text())
+    out["report"] = {"events": summary["events"]["count"],
+                     "kinds": summary["events"]["kinds"],
+                     "exchange": summary["exchange"]}
+    out["exposition_series"] = check_exposition(metrics)
+    events.deconfigure()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4d: multigrid (ROADMAP item 5)
 # ---------------------------------------------------------------------------
 
@@ -4349,6 +4668,8 @@ def main() -> int:
             overlap = overlap_phase(dev, Path(tmp), refs, totals, keep)
             overlap["seconds"] = time.perf_counter() - t0
             lap("4i overlap")
+            obs = obs_phase(dev, Path(tmp), refs, totals, keep)
+            lap("4k obs")
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep["config5"], converge_rows[0], keep)
             lap("4d multigrid")
@@ -4459,6 +4780,12 @@ def main() -> int:
         for row in rest.pop("two_processes"):
             print("end to end 4j two processes: " + json.dumps(row))
         print("4j: " + json.dumps(rest))
+        for row in obs.pop("runs"):
+            print("end to end 4k obs: " + json.dumps(row))
+        for key in ("overhead", "attribution", "converge", "checkpoint",
+                    "device_trace", "report"):
+            print(f"obs {key}: " + json.dumps(obs.pop(key)))
+        print("4k: " + json.dumps(obs))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 

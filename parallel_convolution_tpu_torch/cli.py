@@ -28,7 +28,8 @@ A flag or subcommand that a later slice ports exits 2 with the
 ``NotImplementedError`` that names its item in ROADMAP.md.  ``PCTPU_FAULTS``
 / ``PCTPU_FAULT_SEED`` and ``PCTPU_DISK_MODES`` install a fault plan and
 disk modes at start (``resilience.faults``, ``resilience.diskio``), as in
-the JAX CLI.
+the JAX CLI; ``PCTPU_OBS_EVENTS`` names the event log the run appends to
+(``obs.events``; ``PCTPU_OBS=0`` turns every obs hook off).
 """
 
 from __future__ import annotations
@@ -359,12 +360,17 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from parallel_convolution_tpu_torch.obs import events
     from parallel_convolution_tpu_torch.resilience import diskio, faults
 
     # Injected-fault drills run end to end through the CLI (no-op unless
-    # PCTPU_FAULTS / PCTPU_DISK_MODES are set).
+    # PCTPU_FAULTS / PCTPU_DISK_MODES are set), and PCTPU_OBS_EVENTS
+    # names the event log a run appends to (a log already installed in
+    # this process stays: its seq stream goes on).
     faults.install_from_env()
     diskio.install_from_env()
+    if events.get_log() is None:
+        events.install_from_env()
     ap = _parser()
     args = ap.parse_args(argv)
     try:

@@ -35,6 +35,7 @@ import subprocess
 import time
 from pathlib import Path
 
+from parallel_convolution_tpu_torch.obs import events as obs_events
 
 
 def _stencil_parts(*extra):
@@ -245,6 +246,8 @@ def build_all(names=SOURCES) -> dict:
             lib.with_suffix(".log").write_text(log)
             lib.with_suffix(".sha256").write_text(digest)
             done[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            obs_events.note_compile("nvcc", f"lib{name}", parts=len(parts),
+                                    seconds=round(done[name]["seconds"], 3))
     finally:  # no compiler outlives a failed build; no object file stays
         for parts, *_ in jobs.values():
             for proc, obj, _ in parts:

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from parallel_convolution_tpu_torch.obs import events as obs_events
 from parallel_convolution_tpu_torch.ops import conv
 from parallel_convolution_tpu_torch.ops.filters import Filter
 
@@ -515,9 +516,14 @@ def _step_launch(library: str, device: torch.device, shape: tuple, in_dtype,
                                       ctypes.byref(blocks), stream),
                   "stencil_step (K1) occupancy")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _StepLaunch(lib.pc_stencil_step, in_code, tuple(args.values()),
-                       plan, blocks.value,
-                       step_grid(plan, blocks.value, sms))
+    launch = _StepLaunch(lib.pc_stencil_step, in_code, tuple(args.values()),
+                         plan, blocks.value, step_grid(plan, blocks.value, sms))
+    # A new plan is built once (this cache's miss): the port's "compile".
+    obs_events.note_compile(
+        "step_plan", "cuda_sep" if separable else "cuda",
+        shape=list(shape), k=filt.size, tile=list(plan.tile),
+        blocks_per_sm=launch.blocks_per_sm, grid=launch.grid)
+    return launch
 
 
 @functools.lru_cache(maxsize=None)

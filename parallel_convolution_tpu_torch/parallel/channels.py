@@ -16,7 +16,9 @@ same bytes as a direct read of the diagonal block.
 **The channel plan** (:class:`ChannelKey`, :class:`ChannelPlan`,
 :func:`plan_for`): the slab rectangles each direction moves, built once per
 exchange identity and cached process-globally, with build / hit counters
-(:func:`stats`, :func:`reset`) that show reuse.  Row slabs run at interior
+(:func:`stats`, :func:`reset`) that show reuse, mirrored into the obs
+counters ``pctpu_channel_builds_total`` / ``pctpu_channel_reuse_total``.
+Row slabs run at interior
 columns, column slabs at the row-padded height (the corners ride the
 column phase).  On a grid of slots the ``packed`` column transport
 (``col_mode``) stages each block's two column slabs, at the monolithic
@@ -35,6 +37,7 @@ import threading
 
 import torch
 
+from parallel_convolution_tpu_torch.obs import metrics as obs_metrics
 from parallel_convolution_tpu_torch.utils.config import (
     BOUNDARIES, COL_MODE_CHOICES, COL_MODES,
 )
@@ -242,13 +245,27 @@ def plan_for(key: ChannelKey) -> ChannelPlan:
         plan = _PLANS.get(key)
         if plan is not None:
             _STATS["hits"] += 1
+            _note("hits")
             return plan
         rows, cols, rw, cw = (_tiled_slabs(key) if key.kernel == "tiled"
                               else _monolithic_slabs(key))
         plan = ChannelPlan(key, rows, cols, rw, cw)
         _PLANS[key] = plan
         _STATS["builds"] += 1
+        _note("builds")
         return plan
+
+
+def _note(which: str) -> None:
+    """Mirror one build / hit into the obs registry (one branch when obs
+    is off; the counters here stay authoritative either way)."""
+    if not obs_metrics.enabled():
+        return
+    name = ("pctpu_channel_builds_total" if which == "builds"
+            else "pctpu_channel_reuse_total")
+    obs_metrics.counter(
+        name, "halo channel-plan descriptor builds vs cache reuses",
+        ()).inc()
 
 
 def stats() -> dict:

@@ -52,12 +52,16 @@ NaN on any rank stopping every rank after the same chunk).  ``cuda_rdma``,
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from functools import partial
 
 import numpy as np
 import torch
 
+from parallel_convolution_tpu_torch.obs import (
+    events as obs_events, metrics as obs_metrics, trace as obs_trace,
+)
 from parallel_convolution_tpu_torch.ops import conv, rdma, stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
@@ -90,6 +94,56 @@ _PLAIN_CORRELATES = {
     "xla_conv": conv.correlate_padded_conv2d,
     "separable": conv.correlate_padded_separable,
 }
+
+
+def _note_compile(builder: str, backend: str, grid, iters: int, fuse: int,
+                  boundary: str, block_hw) -> None:
+    """The JAX package's build telemetry with its fields: the ``compile``
+    event and ``pctpu_compiles_total`` (``obs.events.note_compile``, which
+    says what the port counts).  One branch when obs is off."""
+    if not obs_metrics.enabled():
+        return
+    obs_events.note_compile(
+        builder, backend, grid=f"{grid[0]}x{grid[1]}", iters=int(iters),
+        fuse=int(fuse), boundary=boundary, block=[int(b) for b in block_hw])
+
+
+def _obs_model(grid: Grid, filt: Filter, block_hw, channels: int,
+               valid_hw) -> dict:
+    """The run's padded (C, H, W) ``shape``, its device's identity and the
+    cost model's view of the grid (slots, cards, the ragged rim, the
+    round, the hardware), as keywords of ``obs.attribution``'s
+    ``record_step`` and ``predicted_exchange_split``."""
+    from parallel_convolution_tpu_torch.tuning import costmodel
+    from parallel_convolution_tpu_torch.utils.platform import device_kind
+
+    shape = (int(channels), grid.rows * block_hw[0], grid.cols * block_hw[1])
+    return dict(shape=shape,
+                platform="gpu" if grid.device.type == "cuda" else "cpu",
+                device_kind=device_kind(grid.device), slotted=grid.slotted,
+                cards=len(set(grid.slots)),
+                ragged=tuple(valid_hw) != shape[1:],
+                magic_round=stencil.round_mode(filt.taps) == "magic",
+                hw=costmodel.hardware_for_grid(grid))
+
+
+def _record_step_obs(backend: str, grid: Grid, filt: Filter, block_hw,
+                     fuse: int, iters: int, channels: int, storage: str,
+                     boundary: str, wall_s: float | None, valid_hw,
+                     quantize: bool, tile, source: str,
+                     overlap: bool = False, col_mode: str = "packed",
+                     mg_level: int | None = None) -> dict | None:
+    """``obs.attribution.record_step`` for one run on ``grid``
+    (:func:`_obs_model`); its attribution dict, None when obs is off."""
+    from parallel_convolution_tpu_torch.obs import attribution
+
+    return attribution.record_step(
+        backend=backend, grid=grid.shape, block_hw=tuple(block_hw),
+        radius=filt.radius, fuse=fuse, iters=iters, channels=channels,
+        storage=storage, boundary=boundary, wall_s=wall_s,
+        quantize=quantize, tile=tile, source=source, overlap=overlap,
+        col_mode=col_mode, mg_level=mg_level,
+        **_obs_model(grid, filt, block_hw, channels, valid_hw))
 
 
 def _valid_mask(valid_hw, block_hw, index, margin: int = 0,
@@ -613,11 +667,22 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
         grid, filt, backend, max(1, min(fuse, iters or 1)), tile, storage,
         quantize, boundary, block_hw, interior_split, fallback, overlap,
         col_mode)
+    tile = None if tile is None else tuple(tile)
     run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
-                         block_hw, backend, fuse, boundary,
-                         None if tile is None else tuple(tile),
+                         block_hw, backend, fuse, boundary, tile,
                          interior_split, col_mode, overlap)
-    return run(blocks)
+    out = run(blocks)
+    if obs_metrics.enabled():
+        # Halo bytes, rounds and the exchange event, with NO wall and NO
+        # synchronize: this entry returns before the card finishes, and a
+        # fence here would serialize the caller's next work behind it.
+        # The wall series come from callers that fence (bench, converge).
+        _record_step_obs(backend, grid, filt, block_hw,
+                         max(1, min(fuse, iters or 1)), iters, b0.shape[0],
+                         storage, boundary, None, valid_hw, quantize, tile,
+                         source="iterate_prepared", overlap=overlap,
+                         col_mode=col_mode)
+    return out
 
 
 def _check_processes(grid: Grid, backend: str, fallback: bool) -> None:
@@ -904,16 +969,31 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
                      if fuse != requested_fuse else "")
     # The carry is made once for the run; the input blocks are not kept
     # past the first chunk.
+    channels = first_block(blocks).shape[0]
     state = _carry_in(blocks, grid, backend, boundary, filt.radius * fuse,
                       col_mode)
     del blocks
     done = 0
-    # The obs "device" span of the run (item 9) opens here.
-    for state, done, _ in _converge_chunks(
-            grid, filt, state, tol, max_iters, check_every, quantize,
-            valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge, interior_split, col_mode, overlap):
-        pass
+    t0 = time.perf_counter()
+    # The run ends in a readback (each chunk's diff), so it gets a real
+    # device span: the root of a fresh trace for a bare call, a child of
+    # the caller's span when one is active.  record_step then hangs the
+    # model-attributed exchange / compute children off it.
+    with obs_trace.span("device", source="sharded_converge",
+                        backend=backend) as dsp:
+        for state, done, _ in _converge_chunks(
+                grid, filt, state, tol, max_iters, check_every, quantize,
+                valid_hw, block_hw, backend, boundary, fuse, tile,
+                sharded_converge, interior_split, col_mode, overlap):
+            pass
+        dsp.set(iters=done)
+    if obs_metrics.enabled():
+        with obs_trace.attach(dsp.context):
+            _record_step_obs(backend, grid, filt, block_hw, fuse, done,
+                             channels, storage, boundary,
+                             time.perf_counter() - t0, valid_hw, quantize,
+                             tile, source="sharded_converge",
+                             overlap=overlap, col_mode=col_mode)
     return _global_f32(_carry_out(state, grid, backend), grid, valid_hw), done
 
 

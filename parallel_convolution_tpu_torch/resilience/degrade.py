@@ -28,6 +28,9 @@ import warnings
 
 import torch
 
+from parallel_convolution_tpu_torch.obs import (
+    events as obs_events, metrics as obs_metrics,
+)
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.resilience.retry import (
     TERMINAL, RetryExhausted, classify,
@@ -203,8 +206,14 @@ def resolve_backend(grid, filt: Filter, backend: str, *,
                 f"failure: {last!r}",
                 BackendDegradedWarning, stacklevel=2,
             )
-        # The obs counter pctpu_degrades_total and "degrade" event go here
-        # with item 9.
+            if obs_metrics.enabled():
+                obs_metrics.counter(
+                    "pctpu_degrades_total",
+                    "backend degradation walks that resolved a lower tier",
+                    ("requested", "effective")).inc(
+                    requested=backend, effective=b)
+                obs_events.emit("degrade", requested=backend, effective=b,
+                                cause=repr(last)[:200])
         _LAST_RESOLVED[backend] = b
         return b
     raise RetryExhausted(

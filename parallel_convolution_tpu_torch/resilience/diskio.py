@@ -1,7 +1,7 @@
 """Guarded disk IO: storage-shaped failure injection at the port's durable
 surfaces (its own copy of the JAX package's ``resilience/diskio.py``, the
 part the checkpoints call: :func:`consult`, the modes and their
-installation from ``PCTPU_DISK_MODES``).
+installation from ``PCTPU_DISK_MODES``, and the injection counts).
 
 The seeded ``PCTPU_FAULTS`` plan (:mod:`.faults`) decides WHEN a disk
 surface fails; a per-site **disk mode** map decides WHAT the failure looks
@@ -17,8 +17,9 @@ With no mode installed for a triggered site the raw
 :class:`~.faults.InjectedFault` re-raises untranslated.  With no fault
 plan installed at all, a consult is one global load and an ``is None``
 test.  The JAX package's write wrappers (``guarded_write``,
-``guarded_fsync``, ``guarded_open``, ``guarded_replace``) serve its WAL,
-cache and event log, and come with serving (ROADMAP items 8, 9).
+``guarded_fsync``, ``guarded_open``, ``guarded_replace``) serve its WAL
+and cache, and come with serving (ROADMAP item 8); the event log
+(``obs.events``) and ``utils.evidence_io`` consult their sites here.
 
 Stdlib only.
 """
@@ -27,14 +28,16 @@ from __future__ import annotations
 
 import errno
 import os
+import threading
 import time
 
 from parallel_convolution_tpu_torch.resilience.faults import (
     InjectedFault, fault_point,
 )
 
-__all__ = ["DISK_SITES", "consult", "install_from_env", "install_modes",
-           "modes_from_env", "modes_from_spec", "uninstall_modes"]
+__all__ = ["DISK_SITES", "consult", "injected_counts", "install_from_env",
+           "install_modes", "modes_from_env", "modes_from_spec",
+           "uninstall_modes"]
 
 # site -> the disk failure shapes it can take: the JAX package's table, so
 # that every PCTPU_DISK_MODES spec it takes parses here too.
@@ -51,12 +54,15 @@ DISK_SITES = {
     "evidence_write": ("enospc", "eio", "torn_write", "slow_write"),
 }
 
-# Literal consults of the sites the port's checkpoints reach.
+# Literal consults of the sites the port reaches: its checkpoints, the
+# event log and the shared-evidence writer.
 _CONSULTS = {
     "checkpoint_write_shard":
         lambda: fault_point("checkpoint_write_shard"),
     "checkpoint_write_meta":
         lambda: fault_point("checkpoint_write_meta"),
+    "events_emit": lambda: fault_point("events_emit"),
+    "evidence_write": lambda: fault_point("evidence_write"),
 }
 
 # Mean injected stall for slow_write.
@@ -65,6 +71,8 @@ SLOW_WRITE_S = 0.05
 # The process-global mode map, installed next to the fault plan and read
 # without a lock (the faults._PLAN rule).
 _MODES: dict[str, str] = {}
+_COUNTS: dict[tuple[str, str], int] = {}   # (site, mode) -> injections
+_COUNTS_LOCK = threading.Lock()
 
 
 def modes_from_spec(spec: str) -> dict[str, str]:
@@ -122,10 +130,32 @@ def install_from_env(env: dict | None = None) -> dict[str, str]:
     return modes
 
 
+def injected_counts() -> dict[str, int]:
+    """``"site=mode" -> count`` of injections actually translated here
+    (the raw trigger counts live on the fault plan)."""
+    with _COUNTS_LOCK:
+        return {f"{s}={m}": n for (s, m), n in sorted(_COUNTS.items())}
+
+
+def _note(site: str, mode: str) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[(site, mode)] = _COUNTS.get((site, mode), 0) + 1
+    # Metrics only, no event: the fault plan already emitted the
+    # fault_trigger event, and the events_emit site consulting back into
+    # the event log is the recursion this avoids.
+    from parallel_convolution_tpu_torch.obs import metrics
+
+    if metrics.enabled():
+        metrics.counter(
+            "pctpu_disk_faults_total",
+            "storage-shaped failures injected by resilience.diskio",
+            ("site", "mode")).inc(site=site, mode=mode)
+
+
 def _trigger(site: str) -> str | None:
     """Consult the site; returns the installed disk mode when the plan
-    fires, None when it doesn't.  A triggered site with NO installed mode
-    re-raises the raw InjectedFault."""
+    fires (counted), None when it doesn't.  A triggered site with NO
+    installed mode re-raises the raw InjectedFault."""
     try:
         _CONSULTS[site]()
         return None
@@ -133,8 +163,7 @@ def _trigger(site: str) -> str | None:
         mode = _MODES.get(site)
         if mode is None:
             raise
-        # The JAX package's injection count and its obs counter
-        # pctpu_disk_faults_total go here with item 9.
+        _note(site, mode)
         return mode
 
 

@@ -157,8 +157,18 @@ class FaultPlan:
             if fire:
                 self._fired.append((site, hit))
         if fire:
-            # The obs counter and "fault_trigger" event go here with
-            # ROADMAP item 9.
+            # Telemetry before the raise: the timeline shows the trigger
+            # even when the fault kills the run.  Imported here: obs.events
+            # imports this module (its events_emit site).
+            from parallel_convolution_tpu_torch.obs import events, metrics
+
+            if metrics.enabled():
+                metrics.counter(
+                    "pctpu_faults_fired_total",
+                    "injected faults that actually raised, per site",
+                    ("site",)).inc(site=site)
+                events.emit("fault_trigger", site=site, hit=hit,
+                            transient=not rule.terminal)
             raise InjectedFault(site, hit, transient=not rule.terminal)
 
     @property

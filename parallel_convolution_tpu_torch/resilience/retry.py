@@ -52,6 +52,9 @@ import dataclasses
 import random
 import time
 
+from parallel_convolution_tpu_torch.obs import (
+    events as obs_events, metrics as obs_metrics,
+)
 from parallel_convolution_tpu_torch.resilience.faults import InjectedFault
 
 TRANSIENT = "transient"
@@ -197,7 +200,13 @@ def with_retry(fn, policy: RetryPolicy | None = None, *,
             if attempt == policy.max_attempts:
                 break
             d = policy.delay(attempt, rng)
-            # The obs counter and "retry" event go here with item 9.
+            if obs_metrics.enabled():
+                obs_metrics.counter(
+                    "pctpu_retries_total",
+                    "transient failures healed by with_retry backoff",
+                    ("error",)).inc(error=type(e).__name__)
+                obs_events.emit("retry", attempt=attempt,
+                                error=repr(e)[:200], delay_s=round(d, 4))
             if on_retry is not None:
                 on_retry(attempt, e, d)
             sleep(d)

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from parallel_convolution_tpu_torch.obs import metrics as obs_metrics
 from parallel_convolution_tpu_torch.ops import rdma
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
@@ -511,6 +512,8 @@ def _build_smooth_rhs(lv: Level, filt: Filter, n: int, s: _Solve):
     ``e ← (1−ω)·e + ω·(mask(S e) + r)``; the restricted residual ``r`` is
     masked, so the convex combination keeps the masking invariant."""
     step = _smoother(lv, filt, s)
+    step_lib._note_compile("mg_smooth", s.backend, lv.grid.shape, n, 1,
+                           s.boundary, lv.block_hw)
 
     def sweep(v, sv, r):
         return _damped(v, sv + r)
@@ -534,6 +537,8 @@ def _build_fine_smooth(lv: Level, filt: Filter, n: int, s: _Solve,
     the measure ``sharded_converge`` stops on, from the last sweep's own
     stencil application (it costs no extra step)."""
     step = _smoother(lv, filt, s, s.overlap)
+    step_lib._note_compile("mg_fine", s.backend, lv.grid.shape, n, 1,
+                           s.boundary, lv.block_hw)
 
     def run(u):
         for _ in range(max(0, n - 1) if with_diff else n):
@@ -564,6 +569,8 @@ def _build_residual_restrict(lv: Level, filt: Filter, s: _Solve, fine: bool):
     error equation ``A e = r``).
     """
     step = _smoother(lv, filt, s)
+    step_lib._note_compile("mg_restrict", s.backend, lv.grid.shape, 1, 1,
+                           s.boundary, lv.block_hw)
     restrict = _transfer("restrict_fw", lv, s.boundary)
 
     def coarse(res):
@@ -585,6 +592,8 @@ def _build_prolong_correct(lv: Level, boundary: str):
     registry's ``prolong_bilinear``) and the correction add, on the fine
     level's grid; ``e_c`` arrives there at half blocks."""
     fault_point("backend_compile")
+    step_lib._note_compile("mg_prolong", "prolong_bilinear", lv.grid.shape,
+                           1, 1, boundary, lv.block_hw)
     prolong = _transfer("prolong_bilinear", lv, boundary)
 
     def run(u, ec):
@@ -597,6 +606,23 @@ def _build_prolong_correct(lv: Level, boundary: str):
 # ---------------------------------------------------------------------------
 # The solver
 # ---------------------------------------------------------------------------
+
+
+def _mg_obs(s: _Solve, sweeps, filt: Filter, cycle_wall: float) -> None:
+    """One cycle's telemetry (the JAX package's ``_mg_obs``): an exchange
+    attribution per LEVEL (the ``pctpu_mg_level``-labeled sweep counter,
+    the exchange event with the level stamped; no wall: the levels share
+    the cycle's one readback) and the cycle-wall histogram."""
+    if not obs_metrics.enabled():
+        return
+    for i, (lv, n) in enumerate(zip(s.levels, sweeps)):
+        step_lib._record_step_obs(
+            s.backend, lv.grid, filt, lv.block_hw, 1, n, s.channels, "f32",
+            s.boundary, None, lv.valid_hw, False, None, source="multigrid",
+            overlap=s.overlap and i == 0, mg_level=i)
+    obs_metrics.histogram(
+        "pctpu_mg_cycle_seconds", "wall of one multigrid V-cycle",
+        ("backend",)).observe(cycle_wall, backend=s.backend)
 
 
 def _predict_cycle_seconds(levels, sweeps, filt: Filter, backend: str,
@@ -747,10 +773,12 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
             e = post_c[i](prolong[i](es.pop(i), up(i, e)), rs.pop(i))
         return e
 
+    sweeps = _level_sweeps(levels, nu_pre, nu_post, nu_coarse)
     u, s.u = s.u, None
     cycles, wu, diff = 0, 0.0, float("inf")
     max_wu = float(max_iters)
     while wu < max_wu and diff >= tol:
+        t0 = time.perf_counter()
         if last == 0:
             u, d = smooth(u)
         else:
@@ -766,8 +794,7 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
         counter.readbacks += 1
         cycles += 1
         wu += wu_cycle
-        # The JAX package's _mg_obs records each level's sweeps and the
-        # cycle's wall here (obs, ROADMAP item 9).
+        _mg_obs(s, sweeps, filt, time.perf_counter() - t0)
         s.u = u
         yield cycles, diff, round(wu, 3)
         u, s.u = s.u, None

@@ -57,6 +57,7 @@ access, so it runs the same on the CPU and beside the card.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 from parallel_convolution_tpu_torch.ops.rdma import overlap_regions, rdma_plan
 from parallel_convolution_tpu_torch.ops.stencil import (
@@ -392,20 +393,33 @@ def host_seconds_per_chunk(backend: str, grid, fuse: int, groups, k: int,
     """
     nb = grid[0] * grid[1]
     T = max(1, int(fuse))
+    halo = halo_host_seconds_per_chunk(backend, grid, hw)
     if backend in PLAIN_BACKENDS:
         if hw.plain_kernels:
             return 0.0
         per_level = {"shifted": 1 + 2 * k * k, "separable": 2 + 4 * k,
                      "xla_conv": 3}[backend] + (2 if quantize else 0) + 1
         convert = 0 if storage == "f32" else 2
-        return nb * (HALO_OPS_PER_BLOCK + convert + T * per_level) * hw.op_s
+        return halo + nb * (convert + T * per_level) * hw.op_s
     if backend == "cuda_rdma":
         later = len(groups) - 1
         return ((1 + nb * later) * hw.launch_s
                 + (4 + (1 if later else 0)) * hw.op_s)
     launches = nb * (T if T == 1 else len(groups))
-    ops = nb * (HALO_OPS_PER_BLOCK + (1 if T == 1 and ragged else 0))
-    return launches * hw.launch_s + ops * hw.op_s
+    ops = nb * (1 if T == 1 and ragged else 0)
+    return halo + launches * hw.launch_s + ops * hw.op_s
+
+
+def halo_host_seconds_per_chunk(backend: str, grid,
+                                hw: HardwareModel) -> float:
+    """The host's part of one chunk's halo exchange over the whole grid:
+    ``halo.halo_exchange``'s :data:`HALO_OPS_PER_BLOCK` PyTorch ops per
+    block, for every backend that exchanges outside its kernel (none for
+    ``cuda_rdma``, none for the plain backends on the host model)."""
+    if backend == "cuda_rdma" or (backend in PLAIN_BACKENDS
+                                  and hw.plain_kernels):
+        return 0.0
+    return grid[0] * grid[1] * HALO_OPS_PER_BLOCK * hw.op_s
 
 
 def col_transport_seconds_per_round(block_hw, radius: int, fuse: int,
@@ -501,31 +515,42 @@ def slot_seconds_per_chunk(backend: str, grid, fuse: int, groups, block_hw,
     return t + launches * hw.launch_s + waits * hw.event_s
 
 
-def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
-                                shape, block_hw, grid, k: int,
-                                separable: bool, quantize: bool,
-                                hw: HardwareModel,
-                                ragged: bool = False,
-                                magic_round: bool = True,
-                                col_mode: str = "packed",
-                                slotted: bool = False,
-                                cards: int = 1,
-                                overlap: bool = False) -> float:
-    """Seconds per pixel (of the C·H·W grid) per iteration:
-    ``max(bytes, operations)`` on the card plus the exchange plus the
-    host's issue time.
+class PredictTerms(NamedTuple):
+    """The terms of one prediction, in seconds per pixel and iteration
+    (:func:`predict_terms`).
 
-    Bytes go at ``hbm_gbps``; the fused kernels' slots at ``tap_gops``
-    (``sep_tap_gops`` in the separable order), the plain backends' at
-    ``flop_gops``.  On a grid of slots (``slotted``, over ``cards``
-    cards) :func:`slot_seconds_per_chunk` adds the per-slot launches, the
-    barrier and the exchange (``col_mode``'s column transport, the ghost
-    bytes between cards).  ``overlap=True`` (legal only per
-    :func:`overlap_legal`; an illegal request prices the serialized form,
-    as the dispatch layer clamps it) is the JAX term: the exchange rides
-    under the compute, ``max(compute, exchange)`` in place of the sum,
-    and the host pays the region launches.
-    """
+    ``compute`` is ``max(bytes, operations)`` on the device; ``exchange``
+    the device-side exchange of a grid of slots
+    (:func:`slot_exchange_seconds_per_chunk`); ``host`` the host's issue
+    time, of which ``halo_host`` is the halo exchange's PyTorch ops
+    (:func:`halo_host_seconds_per_chunk`); ``overlap`` whether the
+    exchange rides under the compute (:func:`overlap_legal` held);
+    ``penalty`` the interpret penalty of a CPU grid's CUDA backends (1
+    elsewhere).  :attr:`seconds` is the model's time."""
+
+    compute: float
+    exchange: float
+    host: float
+    halo_host: float
+    overlap: bool
+    penalty: float
+
+    @property
+    def seconds(self) -> float:
+        device = (max(self.compute, self.exchange) if self.overlap
+                  else self.compute + self.exchange)
+        return (device + self.host) * self.penalty
+
+
+def predict_terms(backend: str, storage: str, fuse: int, tile, shape,
+                  block_hw, grid, k: int, separable: bool, quantize: bool,
+                  hw: HardwareModel, ragged: bool = False,
+                  magic_round: bool = True, col_mode: str = "packed",
+                  slotted: bool = False, cards: int = 1,
+                  overlap: bool = False) -> PredictTerms:
+    """The terms of :func:`predict_seconds_per_px_iter` (its arguments),
+    kept apart so that ``obs.attribution``'s exchange split and the
+    tuner's ranking read one model."""
     radius = k // 2
     T = max(1, int(fuse))
     sep = separable and backend in SEPARABLE_BACKENDS
@@ -552,13 +577,45 @@ def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
         t_host += slot_seconds_per_chunk(
             backend, grid, T, groups, block_hw, radius, storage, shape[0],
             hw, col_mode, cards, ov) - t_ex
-    compute = max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9))
-    ex = t_ex / (T * pixels)
-    t = ((max(compute, ex) if ov else compute + ex)
-         + t_host / (T * pixels))
-    if backend in CUDA_BACKENDS and hw.plain_kernels:
-        t *= INTERPRET_PENALTY
-    return t
+    per = T * pixels
+    penalty = (INTERPRET_PENALTY if backend in CUDA_BACKENDS
+               and hw.plain_kernels else 1.0)
+    return PredictTerms(
+        compute=max(nbytes / (hw.hbm_gbps * 1e9), ops / (rate * 1e9)),
+        exchange=t_ex / per, host=t_host / per,
+        halo_host=halo_host_seconds_per_chunk(backend, grid, hw) / per,
+        overlap=ov, penalty=penalty)
+
+
+def predict_seconds_per_px_iter(backend: str, storage: str, fuse: int, tile,
+                                shape, block_hw, grid, k: int,
+                                separable: bool, quantize: bool,
+                                hw: HardwareModel,
+                                ragged: bool = False,
+                                magic_round: bool = True,
+                                col_mode: str = "packed",
+                                slotted: bool = False,
+                                cards: int = 1,
+                                overlap: bool = False) -> float:
+    """Seconds per pixel (of the C·H·W grid) per iteration:
+    ``max(bytes, operations)`` on the card plus the exchange plus the
+    host's issue time (:func:`predict_terms`).
+
+    Bytes go at ``hbm_gbps``; the fused kernels' slots at ``tap_gops``
+    (``sep_tap_gops`` in the separable order), the plain backends' at
+    ``flop_gops``.  On a grid of slots (``slotted``, over ``cards``
+    cards) :func:`slot_seconds_per_chunk` adds the per-slot launches, the
+    barrier and the exchange (``col_mode``'s column transport, the ghost
+    bytes between cards).  ``overlap=True`` (legal only per
+    :func:`overlap_legal`; an illegal request prices the serialized form,
+    as the dispatch layer clamps it) is the JAX term: the exchange rides
+    under the compute, ``max(compute, exchange)`` in place of the sum,
+    and the host pays the region launches.
+    """
+    return predict_terms(backend, storage, fuse, tile, shape, block_hw,
+                         grid, k, separable, quantize, hw, ragged,
+                         magic_round, col_mode, slotted, cards,
+                         overlap).seconds
 
 
 def predict_gpx_per_chip(seconds_per_px_iter: float) -> float:

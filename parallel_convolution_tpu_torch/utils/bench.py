@@ -137,8 +137,10 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     iteration is timed.  The row carries the JAX row's keys (``workload``,
     ``mesh``, ``devices`` = blocks, ``plan_key``, ``wall_s``,
     ``gpixels_per_s``, ``timing``, ``hosts``, ``slice_topology``, ...)
-    beside the port's own; the JAX row's exchange attribution (obs, item
-    9) waits for its item.  ``backend="auto"`` (with ``fuse=None`` /
+    beside the port's own, the exchange attribution among them
+    (``exchange_fraction``, ``exchange_hidden_fraction``, ``halo_bytes``:
+    ``obs.attribution``; the run also feeds the drift series per
+    ``plan_key``).  ``backend="auto"`` (with ``fuse=None`` /
     ``tile=None``) resolves through ``tuning`` first; the row records the
     backend, fuse and tile the run ACTUALLY used and ``plan_source``
     (``explicit`` for a named backend), beside the cost model's prediction
@@ -192,6 +194,32 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
     on_card = grid.device.type == "cuda"
     gpx = H * W * channels * iters / secs / 1e9
     chips = len(set(grid.slots))
+    # The exchange attribution (obs.attribution): the analytic
+    # per-direction ghost bytes of this decomposition and the cost model's
+    # exchange share.  record_step feeds the metric series AND returns
+    # what the row stamps; with obs off the row's fields are computed
+    # directly (arithmetic, always on).
+    from parallel_convolution_tpu_torch.obs import attribution
+
+    att = step_lib._record_step_obs(
+        eff, grid, filt, block_hw, fuse, iters, channels, storage, boundary,
+        secs, valid_hw, quantize, tile, source="bench", overlap=overlap,
+        col_mode=col_mode)
+    if att is None:
+        split = attribution.predicted_exchange_split(
+            grid.shape, block_hw, filt.radius, fuse, backend=eff,
+            storage=storage, tile=tile, quantize=quantize,
+            separable=eff in costmodel.SEPARABLE_BACKENDS, overlap=overlap,
+            col_mode=col_mode,
+            **step_lib._obs_model(grid, filt, block_hw, channels, valid_hw))
+        att = {"halo_bytes": attribution.halo_bytes_total(
+                   grid.shape, block_hw, filt.radius, fuse, iters, channels,
+                   storage, boundary),
+               "exchange_fraction": split["exchange_fraction"],
+               "exchange_hidden_fraction": split["exchange_hidden_fraction"]}
+    # The drift series (the cost model's recalibration input): this
+    # measurement against the model's figure, per plan key.
+    attribution.record_drift(w.key(), eff, predicted, gpx / chips)
     return {
         "workload": f"{filt.name} {H}x{W}x{channels} {iters} iters",
         "shape": [channels, H, W], "filter": filt.name, "iters": iters,
@@ -216,6 +244,13 @@ def bench_iterate(shape, filt: Filter, iters: int, grid: Grid | None = None,
         "devices": grid.rows * grid.cols, "chips": chips,
         **topology(grid),
         "timing": "cuda-events" if on_card else "host-clock",
+        # The model's exposed exchange share of one iteration, the share
+        # the overlapped pipeline hides (0.0 serialized), and the ghost
+        # bytes this run moved (whole grid, all rounds, per direction).
+        "exchange_fraction": round(att["exchange_fraction"], 4),
+        "exchange_hidden_fraction": round(att["exchange_hidden_fraction"],
+                                          4),
+        "halo_bytes": att["halo_bytes"],
     }
 
 

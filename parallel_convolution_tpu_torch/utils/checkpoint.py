@@ -42,6 +42,13 @@ the single-process format) and then flips ``LATEST``, each after a
 barrier; a resume loads on each rank only its own blocks.  Every writer's
 temporary names are its own (the JAX package's ``meta.json.tmp`` and
 ``LATEST.tmp`` are shared by every process, which races).
+
+Each save, load, reshard and quarantine is observed (``obs``): the
+``pctpu_checkpoint_seconds{op}`` histogram, ``pctpu_checkpoint_bytes_total
+{op}`` (the shard files' bytes: the ones this process wrote for a save,
+the snapshot's for a load) and the ``checkpoint_save`` /
+``checkpoint_load`` / ``checkpoint_reshard`` / ``quarantine`` events;
+every rank of a job emits its own.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import time
 import warnings
 import zlib
 from pathlib import Path
@@ -56,6 +64,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from parallel_convolution_tpu_torch.obs import (
+    events as obs_events, metrics as obs_metrics,
+)
 from parallel_convolution_tpu_torch.parallel import multihost
 from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, first_block, local_blocks, padded_extent, spans,
@@ -68,6 +79,37 @@ from parallel_convolution_tpu_torch.resilience.faults import (
 __all__ = ["KEEP_SNAPSHOTS", "LATEST_NAME", "META_NAME", "CheckpointCorrupt",
            "CheckpointWarning", "load_meta", "load_state", "run_checkpointed",
            "save_state"]
+
+
+
+def _note_ckpt(op: str, wall_s: float, nbytes: int, **fields) -> None:
+    """One checkpoint op's telemetry: the duration histogram, the byte
+    counter and the ``checkpoint_<op>`` event.  One branch when obs is
+    off."""
+    if not obs_metrics.enabled():
+        return
+    obs_metrics.histogram(
+        "pctpu_checkpoint_seconds", "checkpoint operation wall time",
+        ("op",)).observe(wall_s, op=op)
+    obs_metrics.counter(
+        "pctpu_checkpoint_bytes_total", "checkpoint bytes written/read",
+        ("op",)).inc(nbytes, op=op)
+    obs_events.emit(f"checkpoint_{op}", wall_s=round(wall_s, 6),
+                    bytes=int(nbytes), **fields)
+
+
+def _note_quarantine(snap_name: str, problems) -> None:
+    if not obs_metrics.enabled():
+        return
+    c = obs_metrics.counter(
+        "pctpu_quarantines_total",
+        "shard validation failures by cause (missing/truncated/...)",
+        ("cause",))
+    for cause, _shard in problems:
+        c.inc(cause=cause)
+    obs_events.emit("quarantine", snap=snap_name,
+                    problems=[[c_, s] for c_, s in problems][:16])
+
 
 META_NAME = "meta.json"
 LATEST_NAME = "LATEST"
@@ -234,6 +276,7 @@ def save_state(ckpt_dir, blocks, meta: dict,
     ``checkpoint_write_meta`` twice — before the meta write and before the
     LATEST flip.
     """
+    t_save0 = time.perf_counter()
     shared = spans(grid, blocks)
     d = Path(ckpt_dir)
     d.mkdir(parents=True, exist_ok=True)
@@ -250,6 +293,9 @@ def save_state(ckpt_dir, blocks, meta: dict,
         tmp.write_bytes(raw)
         os.replace(tmp, snap / name)
         shards[name] = {"crc32": zlib.crc32(raw), "bytes": len(raw)}
+    # This process's shards: on a grid over several processes each rank
+    # emits its own save event with the bytes it wrote.
+    own = len(shards), sum(v["bytes"] for v in shards.values())
     if shared:
         # Every rank's shards are on disk once the records are gathered.
         for part in multihost.gather_object(shards):
@@ -273,7 +319,9 @@ def save_state(ckpt_dir, blocks, meta: dict,
         _prune(d)
     if shared:
         multihost.barrier("checkpoint-latest")
-    # The obs "save" histogram, byte counter and event go here with item 9.
+    _note_ckpt("save", time.perf_counter() - t_save0, own[1],
+               snap=snap.name, iters_done=int(meta["iters_done"]),
+               shards=own[0])
 
 
 def _shard_rc(name: str) -> tuple[int, int]:
@@ -368,6 +416,7 @@ def load_state(ckpt_dir, grid: Grid,
     snapshot's, each block is assembled from the shards it overlaps, and
     ``meta['resharded_from']`` records the source grid.
     """
+    t_load0 = time.perf_counter()
     candidates = _candidate_snaps(ckpt_dir)
     if not candidates:
         raise FileNotFoundError(f"no checkpoint at {ckpt_dir}")
@@ -378,7 +427,7 @@ def load_state(ckpt_dir, grid: Grid,
             meta = _read_meta(snap)
             _validate_snapshot(snap, meta)
         except CheckpointCorrupt as e:
-            # The obs quarantine counter and event go here with item 9.
+            _note_quarantine(e.snap or snap.name, e.problems)
             if not fallback:
                 raise
             warnings.warn(
@@ -408,7 +457,14 @@ def load_state(ckpt_dir, grid: Grid,
                 f"{src_grid[0]}x{src_grid[1]} onto "
                 f"{shape_rc[0]}x{shape_rc[1]}",
                 CheckpointWarning, stacklevel=2)
-        # The obs "load" / "reshard" histogram and event go here (item 9).
+        nbytes = sum(v.get("bytes", 0)
+                     for v in meta.get("shards", {}).values())
+        _note_ckpt("load" if src_grid == shape_rc else "reshard",
+                   time.perf_counter() - t_load0, nbytes, snap=snap.name,
+                   iters_done=int(meta.get("iters_done", 0)),
+                   grid=f"{shape_rc[0]}x{shape_rc[1]}",
+                   **({"resharded_from": f"{src_grid[0]}x{src_grid[1]}"}
+                      if src_grid != shape_rc else {}))
         return blocks, meta
     raise CheckpointCorrupt(
         f"no valid snapshot in {ckpt_dir}: every candidate is torn "

@@ -70,6 +70,11 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
         checkpoint, imageio, sharded_io,
     )
 
+    from parallel_convolution_tpu_torch.obs import events
+
+    # Every rank appends to the one PCTPU_OBS_EVENTS log (if set), each
+    # its own seq stream under its pid.
+    events.install_from_env()
     multihost.initialize(None if port is None else f"localhost:{port}",
                          num_processes=processes, process_id=rank,
                          backend="gloo")

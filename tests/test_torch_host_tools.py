@@ -37,10 +37,9 @@ from parallel_convolution_tpu_torch.utils import bench, debug, imageio
 from parallel_convolution_tpu_torch.utils import sharded_io
 
 REPO = Path(__file__).resolve().parent.parent
-# Keys of the JAX bench row that wait for a later item: the exchange
-# attribution (obs, item 9).
-JAX_ONLY_BENCH_KEYS = {"exchange_fraction", "exchange_hidden_fraction",
-                       "halo_bytes"}
+# Keys of the JAX bench row that the port's row lacks: none since the
+# exchange attribution (obs, item 9) was ported.
+JAX_ONLY_BENCH_KEYS: set[str] = set()
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain")

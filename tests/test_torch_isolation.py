@@ -72,5 +72,8 @@ def test_scan_covers_tuning_probes_and_bench():
                  "native/__init__.py", "native/build.py",
                  "native/serial_native.py", "solvers/__init__.py",
                  "solvers/multigrid.py", "solvers/transfer.py",
-                 "utils/debug.py"):
+                 "utils/debug.py", "obs/__init__.py", "obs/metrics.py",
+                 "obs/events.py", "obs/trace.py", "obs/attribution.py",
+                 "obs/report.py", "obs/trace_report.py", "utils/tracing.py",
+                 "utils/evidence_io.py"):
         assert name in scanned

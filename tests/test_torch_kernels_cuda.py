@@ -1702,3 +1702,27 @@ def test_two_processes_share_the_card(cuda_device, tmp_path, backend,
         assert row["resume_bitexact"] in ((True,) if storage != "bf16"
                                           else (None,))
         assert sum(row["launches"].values()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,storage,fuse", [("cuda", "f32", 1),
+                                                  ("cuda_sep", "bf16", 8)])
+def test_device_trace_sees_the_kernels_at_their_launch_counts(
+        cuda_device, tmp_path, backend, storage, fuse):
+    from parallel_convolution_tpu_torch.utils import tracing
+
+    img = imageio.generate_test_image(96, 130, "rgb", seed=3)
+    model = ConvolutionModel("blur3", backend=backend, storage=storage,
+                             fuse=fuse, device=cuda_device)
+    model.run_image(img, 2)   # warm: the build and the launch plans
+    stencil.reset_launch_counts()
+    with tracing.device_trace(tmp_path) as tr:
+        out = model.run_image(img, 20)
+    counts = stencil.launch_counts()
+    seen = tracing.kernel_counts(tr, ("stencil_step_kernel",
+                                      "fused_iterate_kernel"))
+    assert seen == {"stencil_step_kernel": counts["stencil_step"],
+                    "fused_iterate_kernel": counts["fused_iterate"]}
+    assert sum(seen.values()) > 0
+    np.testing.assert_array_equal(
+        out, oracle.run_serial_u8(img, get_filter("blur3"), 20))

@@ -43,9 +43,15 @@ def _checks(rank: int, port: int, work: str):
     from parallel_convolution_tpu_torch.utils import checkpoint
     from parallel_convolution_tpu_torch.volumes import driver
 
+    from parallel_convolution_tpu_torch.obs import events, metrics
+
+    # Both ranks append to one event log, each its own seq stream.
+    metrics.set_enabled(True)
+    events.configure(os.path.join(os.path.dirname(work), "events.jsonl"))
     multihost.initialize(f"localhost:{port}", num_processes=2,
                          process_id=rank)
-    row = {"info": multihost.process_info(), "backend": multihost.backend()}
+    row = {"info": multihost.process_info(), "backend": multihost.backend(),
+           "pid": os.getpid()}
     multihost.barrier()
     row["agreed"] = multihost.broadcast_scalar(10.0 + rank)
     # One grid per process still works beside the spanning one.
@@ -121,6 +127,7 @@ def _checks(rank: int, port: int, work: str):
     row["loaded_none"] = [[b is None for b in r] for r in loaded]
     row["meta_shards"] = sorted(meta["shards"])
     multihost.barrier("after")
+    events.deconfigure()
     return row
 
 
@@ -232,6 +239,34 @@ def test_concurrent_saves_share_no_temp_file(two_ranks):
         assert got[rank]["meta_shards"] == [f"shard_{r}_{c}.npy"
                                             for r in (0, 1) for c in (0, 1)]
         assert got[rank]["loaded_none"] == [[rank == 1] * 2, [rank == 0] * 2]
+
+
+def test_two_ranks_share_one_event_log(two_ranks):
+    from parallel_convolution_tpu_torch.obs import events, report
+
+    got, ckpt = two_ranks
+    log = ckpt.parent / "events.jsonl"
+    recs = events.read_events(log)
+    seqs = {}
+    for r in recs:
+        assert events.validate_event(r) == []
+        seqs.setdefault(r["pid"], []).append(r["seq"])
+    pids = {got[rank]["pid"]: rank for rank in (0, 1)}
+    assert set(seqs) == set(pids)
+    for stream in seqs.values():   # monotone, gap-free per pid
+        assert stream == list(range(1, len(stream) + 1))
+    assert report.summarize_events(recs)["seq_gaps"] == 0
+    for pid, rank in pids.items():
+        mine = [r for r in recs if r["pid"] == pid]
+        saves = [r for r in mine if r["kind"] == "checkpoint_save"]
+        assert [r["iters_done"] for r in saves] == [1, 2, 3]
+        # Each rank's save counts the two shards it wrote (block row rank).
+        own = sum((ckpt / "it_00000003" / f"shard_{rank}_{c}.npy")
+                  .stat().st_size for c in (0, 1))
+        assert all(r["shards"] == 2 for r in saves)
+        assert saves[-1]["bytes"] == own
+        assert sum(r["kind"] == "exchange" for r in mine) >= len(
+            ITERATE_BACKENDS) * 2
 
 
 def test_multihost_worker_job_is_the_oracles_bytes(tmp_path):

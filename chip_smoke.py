@@ -140,6 +140,34 @@ Phases (any failure exits non-zero and prints no result line):
    ``fused_iterate_kernel`` and ``stencil_step_kernel`` events as many as
    the counters gave; ``obs.report`` clean on the phase's log, and
    ``render_text`` parsed back by ``parse_text``;
+4l. elastic grids, the supervisor, the warm engine and the micro-batcher
+   (ROADMAP items 13 and 8a-i), after phase 4k, counted into the kernels
+   line: (a) ``serving.WarmEngine`` at BASELINE config 2's width (RGB
+   1920x2520 blur3 x 100) with keys ``cuda_sep`` bf16 fuse 32 at 1x1,
+   ``cuda`` f32 fuse 1 and ``cuda_rdma`` bf16 fuse 32 (strided, and one
+   packed) at 2x2 slots, every batch size 1-8 warmed, then two waves of
+   eight concurrent requests (distinct seeds) through a ``MicroBatcher`` at
+   the JAX package's defaults for each key: every output the bytes of the
+   plain ``shifted`` run of its image, the second wave with no ``compile``
+   event (no nvcc build, no launch plan); K2's launches of a batch of 8 the
+   launches of one run over 24 planes; request latency p50 / p99 at batch
+   1 and at batch 8; (b) ``reshape`` of the 2x2-slot engine onto 1x1: the
+   old keys re-warmed, the next wave byte-equal, an old key raises; before
+   it, ``run_converge`` on config 1's image (tol 0.5, check every 10,
+   ``cuda_rdma`` u8 fuse 8, 2x2 slots), every row the port's own
+   ``sharded_converge_stream``'s, its last image phase 4b's; a volume key
+   (fd7 at 512³, 5 sweeps) within 2e-5 of ``volumes.driver``; (c) the
+   port's CLI on config 3 (8192² edge5 x 100, ``cuda_rdma``, ``--device
+   all``, ``--checkpoint`` every 25) under ``python -m
+   parallel_convolution_tpu_torch.resilience.supervisor`` with the ladder
+   ["4x4", "2x2", "1x1"]: the 4x4 attempt dies of an injected fault in its
+   second snapshot (the leg's device-loss pattern), ``PCTPU_SIM_DEVICES=4``
+   makes the probe skip to 2x2, the resumed leg reshards the snapshot and
+   writes config 3's bytes; the ledger says ``mesh: "2x2"``, one reshape;
+   (d) ``ConvolutionModel.set_grid`` on config 3 (``cuda_rdma`` bf16 fuse
+   32) from 4x4 slots to "2x2" to the one-device 2x2 grid, and
+   ``JacobiSolver.set_grid`` on config 1's image, every run byte-equal to
+   the one before the swap;
 4j. the rest on a grid of slots and a grid over two processes (ROADMAP
    item 10c), after phase 4d, counted into the kernels line: BASELINE
    config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 200 work units)
@@ -297,6 +325,11 @@ VOLUME_FD25_SWEEPS = 40    # fd25 through run --rank 3, fuse 4
 VOLUME_TOL = 1e-5          # fd7 on the N = 64 manufactured problem
 VOLUME_CAP = 5000
 VOLUME_CHECK = 50
+ENGINE_WAVE = 8            # 4l: concurrent requests a wave (max_batch)
+ENGINE_SINGLES = 16        # 4l: lone requests for the batch-1 latency
+ENGINE_WAVES = 4           # 4l: waves for the batch-8 latency
+ENGINE_VOLUME_SWEEPS = 5   # 4l: the fd7 512^3 volume key
+SUPERVISOR_LADDER = ["4x4", "2x2", "1x1"]
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
     "fused_iterate": "parallel_convolution_tpu/ops/pallas_stencil.py:736",
@@ -2900,6 +2933,408 @@ def obs_phase(dev, tmp: Path, refs: dict, totals: dict, keep: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4l: elastic grids, the supervisor, the warm engine and the batcher
+# (ROADMAP items 13 and 8a-i)
+# ---------------------------------------------------------------------------
+
+# The supervised leg: the port's CLI, its 4x4 attempt faulted in its second
+# snapshot (the fault's text is the leg's device-loss pattern); every
+# attempt appends its launch counts to $SMOKE_LAUNCHES.
+LEG_SRC = """
+import json, os, sys
+from parallel_convolution_tpu_torch.cli import main
+from parallel_convolution_tpu_torch.ops import stencil
+if os.environ.get("PCTPU_MESH") == "4x4":
+    os.environ["PCTPU_FAULTS"] = ("checkpoint_write_shard:"
+                                  + os.environ["SMOKE_KILL_AT"])
+rc = 1
+try:
+    rc = main(sys.argv[1:])
+finally:
+    with open(os.environ["SMOKE_LAUNCHES"], "a") as f:
+        f.write(json.dumps({"mesh": os.environ.get("PCTPU_MESH"), "rc": rc,
+                            "launches": stencil.launch_counts()}) + "\\n")
+sys.exit(rc)
+"""
+
+
+def latency_ms(secs: list) -> dict:
+    import numpy as np
+
+    return {"n": len(secs),
+            "p50_ms": float(np.percentile(secs, 50)) * 1e3,
+            "p99_ms": float(np.percentile(secs, 99)) * 1e3}
+
+
+def engine_requests(eng, key, payloads: list, wants: list,
+                    label: str) -> tuple[list, list, list]:
+    """``payloads`` submitted at once (a thread each) through a
+    ``MicroBatcher`` at the JAX package's defaults whose executor runs
+    ``eng.run_batch``; every output must be its image's ``wants`` bytes.
+    Returns (each request's seconds, the batch sizes that ran, each
+    batch's phase seconds)."""
+    import threading
+
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.serving import MicroBatcher
+
+    sizes, phases = [], []
+
+    def execute(k, items):
+        out, info = eng.run_batch(k, np.stack([it.payload for it in items]))
+        sizes.append(info["batch_size"])
+        phases.append(info["phases"])
+        for it, o in zip(items, out):
+            it.slot.set(o)
+
+    batcher = MicroBatcher(execute)
+    n = len(payloads)
+    got, secs = [None] * n, [0.0] * n
+    go = threading.Barrier(n)
+
+    def one(i):
+        go.wait(60)
+        t0 = time.perf_counter()
+        slot = batcher.try_submit(key, payloads[i])
+        got[i] = None if slot is None else slot.result(300)
+        secs[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    batcher.close()
+    for i, o in enumerate(got):
+        check(isinstance(o, np.ndarray),
+              f"{label}: request {i} got {o!r} instead of an image")
+        img = o.transpose(1, 2, 0) if o.shape[0] > 1 else o[0]
+        check(np.array_equal(img.astype(np.uint8), wants[i]),
+              f"{label}: request {i} differs from shifted")
+    return secs, sizes, phases
+
+
+def mean_phases(phases: list) -> dict:
+    """The mean seconds of each ``run_batch`` phase over batches."""
+    return {k: sum(p[k] for p in phases) / len(phases) for k in phases[0]}
+
+
+def engine_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
+                 keep: dict) -> dict:
+    """The warm engine, the batcher, reshape, the supervised leg and
+    ``set_grid`` at BASELINE configs 1-3's widths; the launches counted
+    into ``totals``.  See the module docstring, phase 4l."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.models import (
+        ConvolutionModel, JacobiSolver,
+    )
+    from parallel_convolution_tpu_torch.obs import events, metrics
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+    from parallel_convolution_tpu_torch.resilience import supervisor
+    from parallel_convolution_tpu_torch.serving import WarmEngine
+    from parallel_convolution_tpu_torch.utils import imageio
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    t_start = time.perf_counter()
+    card = card_line()
+    work = tmp / "engine"
+    work.mkdir(parents=True, exist_ok=True)
+    metrics.set_enabled(True)
+    log = events.configure(work / "events.jsonl", max_bytes=64 << 20)
+    out = {"card": card, "latency": {}}
+    runs = {}   # path -> its launches, summed over its calls
+    blur3 = get_filter("blur3")
+
+    def add(label, counts):
+        for k, v in counts.items():
+            totals[k] += v
+            runs.setdefault(label, dict.fromkeys(counts, 0))[k] += v
+
+    def counted(label, fn):
+        stencil.reset_launch_counts()
+        res = fn()
+        counts = stencil.launch_counts()
+        add(label, counts)
+        return res, counts
+
+    def compiles() -> list:
+        return [r for r in events.read_events(log.path)
+                if r["kind"] == "compile"]
+
+    # (a) Eight requests a wave, distinct seeds: seed 1 is phase 4's image.
+    rgbs = [refs["rgb"]] + [imageio.generate_test_image(*RGB_HW, "rgb",
+                                                         seed=s)
+                            for s in range(2, ENGINE_WAVE + 1)]
+    plain = ConvolutionModel("blur3", backend="shifted", device=dev)
+    wants = [refs["rgb_ref"]] + [plain.run_image(im, ITERS)
+                                 for im in rgbs[1:]]
+    payloads = [imageio.interleaved_to_planar(im).astype(np.float32)
+                for im in rgbs]
+    slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
+    eng1 = WarmEngine(mesh.make_grid((1, 1), dev), fallback=False)
+    eng4 = WarmEngine(slots4, fallback=False)
+    shape = (3, *RGB_HW)
+    keys = {
+        "cuda_sep bf16 fuse 32 1x1": (eng1, eng1.key_for(
+            shape, iters=ITERS, backend="cuda_sep", storage="bf16",
+            fuse=32)),
+        "cuda f32 fuse 1 2x2 slots": (eng4, eng4.key_for(
+            shape, iters=ITERS, backend="cuda", storage="f32", fuse=1)),
+        "cuda_rdma bf16 fuse 32 2x2 slots strided": (eng4, eng4.key_for(
+            shape, iters=ITERS, backend="cuda_rdma", storage="bf16",
+            fuse=32, col_mode="strided")),
+        "cuda_rdma bf16 fuse 32 2x2 slots packed": (eng4, eng4.key_for(
+            shape, iters=ITERS, backend="cuda_rdma", storage="bf16",
+            fuse=32, col_mode="packed")),
+    }
+    check(len({k for _, k in keys.values()}) == 4,
+          "engine: the four keys are not distinct")
+    for label, (eng, key) in keys.items():
+        t0 = time.perf_counter()
+        counted(f"4l warmup {label}", lambda: eng.warmup(
+            [key], batch_sizes=range(1, ENGINE_WAVE + 1)))
+        warm_s = time.perf_counter() - t0
+        n0 = len(compiles())
+        (secs1, sizes1, _), _ = counted(
+            f"4l wave 1 {label}",
+            lambda: engine_requests(eng, key, payloads, wants, label))
+        n1 = len(compiles())
+        (secs2, sizes2, _), counts2 = counted(
+            f"4l wave 2 {label}",
+            lambda: engine_requests(eng, key, payloads, wants, label))
+        fresh = compiles()[n1:]
+        check(not fresh, f"engine {label}: the second wave built "
+              f"{[(r['builder'], r['backend']) for r in fresh]}")
+        check(any(counts2.values()),
+              f"engine {label}: the second wave launched no kernel")
+        singles, ph1 = [], []
+        for i in range(ENGINE_SINGLES):
+            j = i % ENGINE_WAVE
+            (secs, _, ph), _ = counted(f"4l singles {label}", lambda: (
+                engine_requests(eng, key, payloads[j:j + 1], wants[j:j + 1],
+                                label)))
+            singles += secs
+            ph1 += ph
+        eights, ph8 = [], []
+        for _ in range(ENGINE_WAVES):
+            (secs, _, ph), _ = counted(f"4l waves {label}", lambda: (
+                engine_requests(eng, key, payloads, wants, label)))
+            eights += secs
+            ph8 += ph
+        out["latency"][label] = {
+            "batch_1": dict(latency_ms(singles),
+                            phases_s=mean_phases(ph1)),
+            "batch_8": dict(latency_ms(eights), phases_s=mean_phases(ph8),
+                            batches=len(ph8)),
+            "warmup_s": warm_s, "wave_1_compiles": n1 - n0,
+            "wave_2_compiles": len(fresh),
+            "wave_batch_sizes": [sizes1, sizes2]}
+        print(f"4l latency {label}: " + json.dumps(
+            dict(out["latency"][label], card=card)))
+    # K2's launches of a batch of 8 are one run's over 24 planes.
+    eng, key = keys["cuda_sep bf16 fuse 32 1x1"]
+    _, batch_counts = counted("4l cuda_sep batch of 8",
+                              lambda: eng.run_batch(key, np.stack(payloads)))
+    model = ConvolutionModel("blur3", backend="cuda_sep", storage="bf16",
+                             fuse=32, device=dev)
+    planes = torch.from_numpy(np.concatenate(payloads)).to(dev)
+    _, run_counts = counted("4l cuda_sep one run of 24 planes",
+                            lambda: model.run_planar(planes, ITERS))
+    del planes
+    want_k2 = expected_launches(blur3, 32, RGB_HW)["fused_iterate"]
+    check(batch_counts["fused_iterate"] == run_counts["fused_iterate"]
+          == want_k2, f"engine: K2 launched {batch_counts['fused_iterate']}"
+          f" times for a batch of 8, {run_counts['fused_iterate']} for 24 "
+          f"planes, the plan says {want_k2}")
+    out["k2_batch_of_8"] = batch_counts["fused_iterate"]
+
+    # (b) run_converge on config 1's image, 2x2 slots, against the port's
+    # own stream, row by row.
+    grey = refs["greys"]["blur3"]
+    xg = grey[None].astype(np.float32)
+    ckey = eng4.key_for(xg.shape, filter_name="blur3", iters=10,
+                        backend="cuda_rdma", storage="u8", fuse=8)
+    _, cwant, citers = keep["cli_converge"]
+
+    def converge():
+        rows = 0
+        last = None
+        for got, ref in zip(
+                eng4.run_converge(ckey, xg, tol=0.5,
+                                  max_iters=CONVERGE_CLI_MAX,
+                                  check_every=10),
+                step.sharded_converge_stream(
+                    xg, blur3, 0.5, CONVERGE_CLI_MAX, 10, grid=slots4,
+                    quantize=True, backend="cuda_rdma", storage="u8",
+                    fuse=8)):
+            check(got[1:3] == ref[1:] and np.array_equal(got[0], ref[0]),
+                  f"engine converge: row {rows} {got[1:]} differs from the "
+                  f"stream's {ref[1:]}")
+            rows += 1
+            last = got
+        return rows, last
+
+    t0 = time.perf_counter()
+    (rows, last), _ = counted("4l run_converge config 1 cuda_rdma 2x2 slots",
+                              converge)
+    check(last[1] == citers and np.array_equal(
+        last[0][0].astype(np.uint8), cwant),
+        f"engine converge: {last[1]} iterations, phase 4b's {citers}")
+    out["converge"] = {"rows": rows, "iters": last[1], "diff": last[2],
+                       "seconds": time.perf_counter() - t0}
+
+    # reshape 2x2 slots -> 1x1 mid-process.
+    stale = keys["cuda f32 fuse 1 2x2 slots"][1]
+    t0 = time.perf_counter()
+    info, _ = counted("4l reshape 2x2 slots -> 1x1",
+                      lambda: eng4.reshape(mesh.make_grid((1, 1), dev)))
+    reshape_s = time.perf_counter() - t0
+    resident = len(eng4.snapshot()["resident"])
+    check(info["old_grid"] == (2, 2) and info["grid"] == (1, 1)
+          and info["skipped"] == 0 and info["rewarmed"] == 4 == resident,
+          f"engine reshape: {info}, {resident} resident")
+    try:
+        eng4.run_batch(stale, payloads[0][None])
+    except ValueError as e:
+        check("stale" in str(e), f"engine reshape: {e}")
+    else:
+        check(False, "engine reshape: an old key ran on the new grid")
+    for label in ("cuda f32 fuse 1", "cuda_rdma bf16 fuse 32"):
+        kw = dict(iters=ITERS, backend=label.split()[0],
+                  storage=label.split()[1], fuse=int(label.split()[-1]))
+        key = eng4.key_for(shape, **kw)
+        c0 = eng4.stats["compiles"]
+        counted(f"4l after reshape {label} 1x1", lambda: engine_requests(
+            eng4, key, payloads[:1], wants[:1], f"reshaped {label}"))
+        check(eng4.stats["compiles"] == c0,
+              f"engine reshape: {label} was not re-warmed")
+        counted(f"4l wave after reshape {label} 1x1", lambda: engine_requests(
+            eng4, key, payloads, wants, f"reshaped {label}"))
+    out["reshape"] = dict(info, reshape_s=reshape_s,
+                          seconds=time.perf_counter() - t0,
+                          stats=dict(eng4.stats))
+
+    # A volume key: fd7 at 512^3 against volumes.driver on the same grid.
+    gen = torch.Generator(device=dev).manual_seed(15)
+    vol = torch.rand((2, VOLUME_N, VOLUME_N, VOLUME_N), generator=gen,
+                     device=dev)
+    vkey = eng1.key_for(tuple(vol.shape[1:]), filter_name="fd7",
+                        iters=ENGINE_VOLUME_SWEEPS, rank=3, quantize=False)
+    vhost = vol.cpu().numpy()
+    t0 = time.perf_counter()
+    vout, vinfo = eng1.run_batch(vkey, vhost[None])
+    vsecs = time.perf_counter() - t0
+    vref = driver.volume_iterate(vol, "fd7", ENGINE_VOLUME_SWEEPS,
+                                 grid=eng1.grid).cpu().numpy()
+    verr = float(np.abs(vout[0] - vref).max())
+    check(verr <= 2e-5, f"engine volume: max abs err {verr} > 2e-5")
+    out["volume"] = {"max_abs_err": verr, "seconds": vsecs,
+                     "phases": vinfo["phases"]}
+    del vol, vhost, vout, vref
+    torch.cuda.empty_cache()
+
+    # (c) The supervised leg on config 3.
+    sup_dir, ck = work / "supervised", work / "ck"
+    dst, launches = work / "supervised.raw", work / "launches.jsonl"
+    argv = ["run", str(tmp / "edge5.raw"), str(BIG_HW[0]), str(BIG_HW[1]),
+            str(ITERS), "grey", "-o", str(dst), "--filter", "edge5",
+            "--backend", "cuda_rdma", "--device", "all", "--checkpoint",
+            str(ck), "--checkpoint-every", str(CKPT_EVERY)]
+    pattern = "injected fault at 'checkpoint_write_shard'"
+    legs = work / "legs.json"
+    legs.write_text(json.dumps([{
+        "name": "config3", "cmd": [sys.executable, "-c", LEG_SRC, *argv],
+        "done_file": str(dst), "timeout": 600,
+        "env": {"SMOKE_LAUNCHES": str(launches),
+                "SMOKE_KILL_AT": str(CKPT_KILL)},
+        "meshes": SUPERVISOR_LADDER, "reshape_pattern": pattern}]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "parallel_convolution_tpu_torch.resilience.supervisor", "--legs",
+         str(legs), "--state-dir", str(sup_dir), "--max-attempts", "3",
+         "--base-delay", "0.1", "--max-delay", "0.1"],
+        cwd=here, env=dict(os.environ, PCTPU_SIM_DEVICES="4"),
+        capture_output=True, text=True, timeout=900)
+    sup_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"supervisor exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    ledger = supervisor.read_ledger(sup_dir / supervisor.LEDGER_NAME)
+    leg = ledger["legs"]["config3"]
+    check(leg["state"] == "done" and leg["mesh"] == "2x2"
+          and leg.get("reshapes") == 1 and leg["attempts"] == 2,
+          f"supervisor: the leg's ledger says {leg}")
+    attempts = [json.loads(line)
+                for line in launches.read_text().splitlines()]
+    check([(a["mesh"], a["rc"]) for a in attempts] == [("4x4", 1),
+                                                       ("2x2", 0)],
+          f"supervisor: attempts {[(a['mesh'], a['rc']) for a in attempts]}")
+    for a in attempts:
+        add(f"4l supervised config 3 {a['mesh']}", a["launches"])
+    resumed = attempts[1]["launches"]
+    check(resumed["rdma_tiled_slot"] == (ITERS - CKPT_EVERY) * 4,
+          f"supervisor: the resumed leg launched {resumed}")
+    err = (sup_dir / "config3.err").read_text()
+    check("from grid 4x4 onto 2x2" in err,
+          "supervisor: the resumed leg did not reshard the 4x4 snapshot")
+    check(np.array_equal(imageio.read_raw(dst, *BIG_HW, "grey"),
+                         refs["grey_refs"]["edge5"]),
+          "supervisor: the resumed leg's output differs from shifted")
+    out["supervisor"] = {"seconds": sup_s, "leg": {
+        k: leg[k] for k in ("state", "attempts", "mesh", "reshapes",
+                            "last_rc")}}
+
+    # (d) The models after set_grid.
+    big = refs["greys"]["edge5"]
+    model = ConvolutionModel("edge5", grid=mesh.make_grid(
+        (4, 4), devices=[dev] * 16), backend="cuda_rdma", storage="bf16",
+        fuse=32)
+    prev = None
+    for label, swap in (("4x4 slots", None), ("2x2 slots", "2x2"),
+                        ("2x2 one device", mesh.make_grid((2, 2), dev))):
+        if swap is not None:
+            model.set_grid(swap)
+        img, counts, secs = drive(f"4l set_grid config 3 {label}",
+                                  lambda: model.run_image(big, ITERS), {},
+                                  BIG_HW[0] * BIG_HW[1], no_halo=True)
+        add(f"4l set_grid config 3 {label}", counts)
+        check(np.array_equal(img, refs["grey_refs"]["edge5"])
+              and (prev is None or np.array_equal(img, prev)),
+              f"set_grid: config 3 on {label} differs")
+        prev = img
+        out.setdefault("set_grid_s", {})[f"config 3 {label}"] = secs
+    solver = JacobiSolver("blur3", tol=0.5, max_iters=CONVERGE_CLI_MAX,
+                          check_every=10, grid=slots4, backend="cuda_rdma",
+                          quantize=True, storage="u8", fuse=8)
+    prev = None
+    for label, swap in (("2x2 slots", None), ("1x1 slots", "1x1"),
+                        ("2x2 one device", mesh.make_grid((2, 2), dev))):
+        if swap is not None:
+            solver.set_grid(swap)
+        (sol, iters), counts, secs = drive(
+            f"4l set_grid JacobiSolver config 1 {label}",
+            lambda: solver.solve(xg), {}, RGB_HW[0] * RGB_HW[1])
+        add(f"4l set_grid JacobiSolver config 1 {label}", counts)
+        check(iters == citers and np.array_equal(
+            sol[0].astype(np.uint8), cwant),
+            f"set_grid: JacobiSolver on {label} ran {iters} iterations or "
+            "differs from phase 4b")
+        check(prev is None or np.array_equal(sol, prev),
+              f"set_grid: JacobiSolver on {label} differs from before")
+        prev = sol
+        out["set_grid_s"][f"JacobiSolver config 1 {label}"] = secs
+    events.deconfigure()
+    out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4d: multigrid (ROADMAP item 5)
 # ---------------------------------------------------------------------------
 
@@ -4670,6 +5105,10 @@ def main() -> int:
             lap("4i overlap")
             obs = obs_phase(dev, Path(tmp), refs, totals, keep)
             lap("4k obs")
+            torch.cuda.empty_cache()
+            engine = engine_phase(dev, Path(tmp), here, refs, totals, keep)
+            lap("4l elastic and serving")
+            torch.cuda.empty_cache()
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep["config5"], converge_rows[0], keep)
             lap("4d multigrid")
@@ -4786,6 +5225,9 @@ def main() -> int:
                     "device_trace", "report"):
             print(f"obs {key}: " + json.dumps(obs.pop(key)))
         print("4k: " + json.dumps(obs))
+        for row in engine.pop("runs"):
+            print("end to end 4l: " + json.dumps(row))
+        print("4l: " + json.dumps(engine))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 

@@ -56,8 +56,12 @@ def _add_perf_args(p: argparse.ArgumentParser) -> None:
 
     p.add_argument("--filter", default="blur3", dest="filter_name")
     p.add_argument("--mesh", default=None, metavar="RxC",
-                   help="block grid (default 1x1; with a --device list or "
-                        "'all', dims_create of the slots)")
+                   help="block grid (default: $PCTPU_MESH if set — the "
+                        "supervisor's reshape env — else 1x1, or with a "
+                        "--device list or 'all' dims_create of the slots). "
+                        "A --checkpoint resume accepts a different grid "
+                        "than the one that wrote the snapshot: its blocks "
+                        "reshard, the bytes do not change")
     # No argparse choices: check_backend names the port's counterpart of
     # a JAX backend name (pallas -> cuda, ...).
     p.add_argument("--backend", default=None,
@@ -301,7 +305,8 @@ def _parser() -> argparse.ArgumentParser:
     tune.add_argument("--filter", default="blur3", dest="filter_name")
     tune.add_argument("--storage", default="f32", choices=list(STORAGES))
     tune.add_argument("--mesh", default=None, metavar="RxC",
-                      help="block grid (default 1x1)")
+                      help="block grid (default: $PCTPU_MESH if set, else "
+                           "1x1)")
     tune.add_argument("--device", default=None,
                       help="cuda (default) or cpu")
     tune.add_argument("--fuses", default=None, metavar="T,T,...",

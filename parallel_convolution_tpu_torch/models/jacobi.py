@@ -16,8 +16,10 @@ import torch
 
 from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import step as step_lib
-from parallel_convolution_tpu_torch.parallel.mesh import Grid, make_grid
-from parallel_convolution_tpu_torch.utils.config import check_solver, pending
+from parallel_convolution_tpu_torch.parallel.mesh import (
+    Grid, grid_like, make_grid,
+)
+from parallel_convolution_tpu_torch.utils.config import check_solver
 
 
 @dataclasses.dataclass
@@ -74,11 +76,22 @@ class JacobiSolver:
             raise ValueError(f"grid is on {self.grid.device}, "
                              f"device={self.device!r}")
 
-    def set_grid(self, grid) -> "JacobiSolver":
-        """The JAX solver's ``set_mesh`` (elastic recovery): it comes with
-        ``ConvolutionModel``'s counterpart."""
-        raise pending("JacobiSolver.set_grid (elastic recovery)",
-                      "item 13 (the rest of resilience/)")
+    def set_grid(self, grid: Grid | str) -> "JacobiSolver":
+        """Swap the block grid (elastic recovery; the JAX package's
+        ``set_mesh``): a :class:`Grid` or an ``"RxC"`` spec in the current
+        grid's form (``mesh.grid_like``), as
+        ``ConvolutionModel.set_grid``.  The solver's configuration stays;
+        results do not depend on the grid."""
+        if isinstance(grid, str):
+            from parallel_convolution_tpu_torch.resilience.elastic import (
+                parse_spec,
+            )
+
+            grid = grid_like(self.grid, parse_spec(grid))
+        self.grid = grid
+        if self.device is not None:
+            self.device = grid.device
+        return self
 
     def solve(self, x) -> tuple[np.ndarray, int]:
         """(C, H, W) f32 field -> (solved field as numpy, work count): the

@@ -15,7 +15,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter, get_filter
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, first_block, make_grid, padded_extent,
+    Grid, first_block, grid_like, make_grid, padded_extent,
 )
 from parallel_convolution_tpu_torch.utils import imageio
 from parallel_convolution_tpu_torch.utils.config import (
@@ -110,6 +110,32 @@ class ConvolutionModel(nn.Module):
         self.effective_overlap: bool | None = None
         self.plan_source = "explicit"
         self.resolution = None
+
+    def set_grid(self, grid: Grid | str) -> "ConvolutionModel":
+        """Swap the block grid mid-object (elastic recovery; the JAX
+        package's ``set_mesh``).
+
+        ``grid`` is a :class:`Grid` or an ``"RxC"`` spec, which keeps the
+        current grid's form (``mesh.grid_like``: the one-device form on its
+        device, or a slot per block round-robin over its devices).  Only
+        the per-grid verdicts reset (``effective_backend``,
+        ``plan_source``, ``effective_overlap``, ``effective_col_mode``);
+        the knobs stay, and the degrade probe's verdicts, keyed on the
+        grid, are kept for a swap back.  Output bytes do not depend on the
+        grid, so a swap changes the topology, never the result."""
+        if isinstance(grid, str):
+            from parallel_convolution_tpu_torch.resilience.elastic import (
+                parse_spec,
+            )
+
+            grid = grid_like(self.grid, parse_spec(grid))
+        self.grid = grid
+        self.taps = self.taps.to(grid.device)
+        self.effective_backend = None
+        self.plan_source = "explicit"
+        self.effective_overlap = None
+        self.effective_col_mode = None
+        return self
 
     @property
     def filt(self) -> Filter:

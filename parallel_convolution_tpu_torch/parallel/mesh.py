@@ -225,10 +225,19 @@ def _process_grid(shape, device) -> Grid:
 
 
 def grid_from_spec(spec: str | None, device=None) -> Grid:
-    """The grid the CLI's ``--mesh RxC`` and ``--device`` flags name
-    (``--mesh`` None/empty: 1×1, or ``dims_create`` of the slots).
-    ``--device`` is ``cpu`` / ``cuda[:N]`` (one device), ``all`` (a slot
-    per block, round-robin over the cards) or a comma list of R·C slots."""
+    """The grid the CLI's ``--mesh RxC`` and ``--device`` flags name.
+    ``--mesh`` None/empty falls back to the supervisor's reshape env
+    (``PCTPU_MESH``, ``resilience.elastic.MESH_ENV``), as the JAX
+    package's ``mesh_from_spec`` does, and then to 1×1, or
+    ``dims_create`` of the slots.  ``--device`` is ``cpu`` / ``cuda[:N]``
+    (one device), ``all`` (a slot per block, round-robin over the cards)
+    or a comma list of R·C slots."""
+    if not spec:
+        import os
+
+        from parallel_convolution_tpu_torch.resilience.elastic import MESH_ENV
+
+        spec = os.environ.get(MESH_ENV)
     shape = None
     if spec:
         try:
@@ -240,6 +249,20 @@ def grid_from_spec(spec: str | None, device=None) -> Grid:
     if isinstance(device, str) and (device == "all" or "," in device):
         return make_grid(shape, devices=device)
     return make_grid(shape, device)
+
+
+def grid_like(grid: Grid, shape: tuple[int, int]) -> Grid:
+    """A grid of ``shape`` in ``grid``'s form: the one-device form on its
+    device, or a slot per block round-robin over the grid's distinct
+    devices in their order (one process): what a model's grid becomes when
+    it is swapped by an ``"RxC"`` spec (``ConvolutionModel.set_grid``)."""
+    r, c = (int(v) for v in shape)
+    if not grid.slotted:
+        return Grid(r, c, grid.device)
+    check_one_process(grid, "a grid swapped by a spec")
+    devs = list(dict.fromkeys(grid.slots))
+    return Grid(r, c, devices=tuple(devs[k % len(devs)]
+                                    for k in range(r * c)))
 
 
 def split_blocks(x: torch.Tensor, grid: Grid) -> list[list[torch.Tensor]]:

@@ -67,7 +67,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, check_one_process, first_block, join_blocks, local_blocks,
-    make_grid, padded_extent, spans, split_blocks,
+    make_grid, padded_extent, reblock, spans, split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.utils.config import (
@@ -76,7 +76,8 @@ from parallel_convolution_tpu_torch.utils.config import (
 )
 
 __all__ = ["STORAGE_DTYPES", "clamp_col_mode", "iterate_prepared",
-           "overlap_clamp", "resolve_col_mode", "resolve_overlap",
+           "overlap_clamp", "reshard_prepared", "resolve_col_mode",
+           "resolve_overlap",
            "sharded_converge", "sharded_converge_stream", "sharded_iterate"]
 
 # Iteration-carry dtypes.  Quantized states are exact small integers, so
@@ -448,6 +449,27 @@ def _prepare(x, grid: Grid, storage: str = "f32"):
     if (Hp, Wp) != (H, W):
         x = torch.nn.functional.pad(x, (0, Wp - W, 0, Hp - H))
     return split_blocks(x, grid), (H, W), (Hp // R, Wp // Cg)
+
+
+def reshard_prepared(blocks, valid_hw, grid: Grid):
+    """Move prepared blocks (from :func:`_prepare`, any grid of one
+    process) onto ANOTHER grid: crop to the valid extent, zero re-pad to
+    the new grid's block multiples and re-block (the JAX package's
+    ``reshard_prepared``; elastic recovery's in-memory counterpart of the
+    checkpoint reshard, e.g. a serving engine shrinking mid-process without
+    a disk round trip).
+
+    Bit-exact by the masking invariant: positions outside ``valid_hw`` are
+    zero on every grid, so crop and zero re-pad give exactly the blocks
+    :func:`_prepare` builds on ``grid`` from the valid pixels.  Each target
+    block is assembled on its slot's device from the source blocks it
+    overlaps (``mesh.reblock``); no device holds the global image."""
+    check_one_process(grid, "reshard_prepared")
+    spans(None, blocks)  # another process's blocks (None) raise
+    H, W = (int(v) for v in valid_hw)
+    R, Cg = grid.shape
+    return reblock(blocks, (H, W), grid, (padded_extent(H, R) // R,
+                                          padded_extent(W, Cg) // Cg))
 
 
 def _global_f32(blocks, grid: Grid, valid_hw) -> torch.Tensor:

@@ -11,9 +11,16 @@ retry and backend degradation.
 * :mod:`.degrade` — probe a backend once per (grid, config) per process
   and walk ``cuda_rdma → cuda`` on a transient failure (on the card the
   kernel tiers stop at ``cuda``; on the CPU it steps down to ``shifted``).
+* :mod:`.elastic` — detect a shrunken device set against the distinct
+  devices a grid needs, the grid ladder, ``PCTPU_MESH``, and
+  ``reshape_grid``.
+* :mod:`.supervisor` — the leg queue with its ledger, HALT sentinel,
+  retries and grid ladder (``python -m
+  parallel_convolution_tpu_torch.resilience.supervisor``).
+* :mod:`.breaker` — the per-replica circuit breaker (its user, the
+  router, is ROADMAP item 8b).
 
-The JAX package's ``breaker``, ``supervisor`` and ``elastic`` come with
-ROADMAP item 13.  Nothing here imports JAX or the JAX package.
+Nothing here imports JAX or the JAX package.
 """
 
 from parallel_convolution_tpu_torch.resilience.faults import (  # noqa: F401

@@ -712,38 +712,85 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
                   col_mode, bool(overlap))
 
 
+@dataclasses.dataclass
+class _Programs:
+    """The level programs of one V-cycle schedule (built once a solve, or
+    once for many solves of one configuration through ``programs=``)."""
+
+    smooth: object = None
+    pre: object = None
+    post: object = None
+    resid: list = dataclasses.field(default_factory=list)
+    prolong: list = dataclasses.field(default_factory=list)
+    pre_c: list = dataclasses.field(default_factory=list)
+    post_c: list = dataclasses.field(default_factory=list)
+    coarsest: object = None
+
+
+def _build_programs(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
+                    nu_coarse: int) -> _Programs:
+    """Every level program of ``s``'s schedule."""
+    levels = s.levels
+    fine = levels[0]
+    if len(levels) == 1:
+        # Degenerate single-level schedule: the cycle is pure damped
+        # smoothing (plan_levels refused to coarsen — tiny image or
+        # periodic misalignment).
+        return _Programs(smooth=_build_fine_smooth(
+            fine, filt, nu_pre + nu_post, s, True))
+    return _Programs(
+        pre=_build_fine_smooth(fine, filt, nu_pre, s, False),
+        post=_build_fine_smooth(fine, filt, nu_post, s, True),
+        resid=[_build_residual_restrict(lv, filt, s, i == 0)
+               for i, lv in enumerate(levels[:-1])],
+        prolong=[_build_prolong_correct(lv, s.boundary)
+                 for lv in levels[:-1]],
+        pre_c=[None] + [_build_smooth_rhs(lv, filt, nu_pre, s)
+                        for lv in levels[1:-1]],
+        post_c=[None] + [_build_smooth_rhs(lv, filt, nu_post, s)
+                         for lv in levels[1:-1]],
+        coarsest=_build_smooth_rhs(levels[-1], filt, nu_coarse, s))
+
+
+def _programs_for(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
+                  nu_coarse: int, cache: dict | None) -> _Programs:
+    """The level programs of ``s``: built for this solve, or taken from
+    ``cache`` (a dict its caller keeps for one configuration, keyed here
+    on the schedule and the sweep counts) where an earlier solve built
+    them.  Programs built for another solve keep that solve's ``cuda_rdma``
+    runs (its ``_Solve``), which the same configuration shares."""
+    if cache is None:
+        return _build_programs(s, filt, nu_pre, nu_post, nu_coarse)
+    key = (tuple(s.levels), s.backend, s.boundary, s.tile, s.col_mode,
+           s.overlap, filt.name, nu_pre, nu_post, nu_coarse)
+    progs = cache.get(key)
+    if progs is None:
+        progs = cache[key] = _build_programs(s, filt, nu_pre, nu_post,
+                                             nu_coarse)
+    return progs
+
+
 def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
-            nu_post: int, nu_coarse: int, counter):
+            nu_post: int, nu_coarse: int, counter, programs=None):
     """The V-cycle loop: ``(cycles, residual, work_units)`` after every
     cycle, the fine state in ``s.u`` (the loop alone holds it during a
     cycle, so no stale state stays alive beside the working fields), until
     ``residual < tol`` or the work-unit budget ``max_iters`` is spent (a
     NaN residual stops it too).  The residual's ``.item()`` is the cycle's
-    one readback and fence; it counts on ``counter.readbacks``."""
+    one readback and fence; it counts on ``counter.readbacks``.
+    ``programs``: a cache of level programs across solves
+    (:func:`_programs_for`)."""
     levels = s.levels
     stacked = s.backend == "cuda_rdma" and not levels[0].grid.slotted
     last = len(levels) - 1
-    fine = levels[0]
     wu_cycle = cycle_work_units(levels, nu_pre, nu_post, nu_coarse)
-    # Every level program is built once a solve (the JAX package caches
-    # its compiled programs per process).
-    if last == 0:
-        # Degenerate single-level schedule: the cycle is pure damped
-        # smoothing (plan_levels refused to coarsen — tiny image or
-        # periodic misalignment).
-        smooth = _build_fine_smooth(fine, filt, nu_pre + nu_post, s, True)
-    else:
-        pre = _build_fine_smooth(fine, filt, nu_pre, s, False)
-        post = _build_fine_smooth(fine, filt, nu_post, s, True)
-        resid = [_build_residual_restrict(lv, filt, s, i == 0)
-                 for i, lv in enumerate(levels[:-1])]
-        prolong = [_build_prolong_correct(lv, s.boundary)
-                   for lv in levels[:-1]]
-        pre_c = [None] + [_build_smooth_rhs(lv, filt, nu_pre, s)
-                          for lv in levels[1:-1]]
-        post_c = [None] + [_build_smooth_rhs(lv, filt, nu_post, s)
-                           for lv in levels[1:-1]]
-        coarsest = _build_smooth_rhs(levels[-1], filt, nu_coarse, s)
+    # Every level program is built once a solve, or once for every solve
+    # of a configuration (the JAX package caches its compiled programs
+    # per process).
+    p = _programs_for(s, filt, nu_pre, nu_post, nu_coarse, programs)
+    smooth, pre, post, resid, prolong = (p.smooth, p.pre, p.post, p.resid,
+                                         p.prolong)
+    pre_c, post_c, coarsest = p.pre_c, p.post_c, p.coarsest
 
     def down(i: int, rc):
         """Level ``i``'s restricted residual onto level ``i + 1``."""
@@ -810,7 +857,8 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
                        mg_levels: int | None = None,
                        col_mode: str | None = None,
                        nu_pre: int = NU_PRE, nu_post: int = NU_POST,
-                       nu_coarse: int = NU_COARSE, device=None):
+                       nu_coarse: int = NU_COARSE, device=None,
+                       programs: dict | None = None):
     """Progressive multigrid solve: a generator over V-cycle snapshots.
 
     Yields ``(image_f32, cycles_done, residual, work_units)`` after every
@@ -831,15 +879,23 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     and ``overlap`` overlaps the fine level's sweeps
     (``step.resolve_overlap``: clamped, with a warning, off a grid of
     slots).  A grid over several processes raises (ROADMAP item 10d).
-    ``mg_converge_stream.readbacks`` counts the readbacks.
+    ``mg_converge_stream.readbacks`` counts the readbacks.  ``programs``:
+    a dict the caller keeps for one configuration, in which the level
+    programs are built at the first solve and found by the later ones
+    (the serving engine's warm entry: no ``compile`` event after its
+    first stream).
     """
     s = _setup(x, filt, grid, quantize, backend, storage, boundary, fuse,
                tile, fallback, overlap, col_mode, mg_levels, device)
     fine = s.levels[0]
-    for cycles, diff, wu in _cycles(s, filt, tol, max_iters, nu_pre,
-                                    nu_post, nu_coarse, mg_converge_stream):
-        yield (_global(s.u, fine.grid, s.valid_hw, "cpu").numpy(), cycles,
-               diff, wu)
+    try:
+        for cycles, diff, wu in _cycles(s, filt, tol, max_iters, nu_pre,
+                                        nu_post, nu_coarse,
+                                        mg_converge_stream, programs):
+            yield (_global(s.u, fine.grid, s.valid_hw, "cpu").numpy(),
+                   cycles, diff, wu)
+    finally:
+        s.u = None  # cached programs keep ``s``: not its field
 
 
 mg_converge_stream.readbacks = 0

@@ -76,6 +76,13 @@ OVERLAP_INTERPRET_ENV = "PCTPU_OVERLAP_INTERPRET"
 PROCESSES_ITEM = ("item 10d (cuda_rdma, multigrid and volumes across "
                   "processes; the NCCL transport, one card a process)")
 
+# The serving modules not ported yet (``serving/__init__.py`` raises on
+# their names): one replica's service, its HTTP frontend and the fleet.
+SERVICE_ITEM = ("item 8a-ii (serving: service.py, frontend.py, frames.py, "
+                "jobs.py, cache.py, pricing.py)")
+FLEET_ITEM = ("item 8b (serving: the fleet — router.py, wal.py, peers.py, "
+              "autoscaler.py, chaos.py)")
+
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.  None is left: every knob is ported.
 PENDING_KNOBS: dict[str, str] = {}

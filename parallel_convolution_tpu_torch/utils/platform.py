@@ -75,3 +75,74 @@ def power_limit_w(device) -> float | None:
         return float(res.stdout.strip().splitlines()[0])
     except (OSError, subprocess.SubprocessError, ValueError, IndexError):
         return None
+
+
+# The simulation override of the device-health probe (the JAX package's
+# name): a drill on a host that cannot really lose a device sets
+# PCTPU_SIM_DEVICES=N and the probe reports N live devices without a child.
+SIM_DEVICES_ENV = "PCTPU_SIM_DEVICES"
+
+# The child's source: the card count (it reads CUDA_VISIBLE_DEVICES,
+# inherited with the environment; 0 without CUDA), or with "auto" the
+# CPU's one device where CUDA is not available.  The count is the last
+# line of its output.
+_COUNT_SRC = """
+import sys, torch
+if not torch.cuda.is_available():
+    print(1 if sys.argv[1] == "auto" else 0)
+else:
+    print(torch.cuda.device_count())
+"""
+
+
+def probe_device_count(timeout: float = 60.0,
+                       device_type: str | None = None) -> int | None:
+    """How many devices of ``device_type`` (``"cuda"`` / ``"cpu"``; None:
+    the card where CUDA is available, else the CPU) are alive right now:
+    the elastic-recovery health probe of the JAX package
+    (``utils/platform.py:probe_device_count``).
+
+    The count runs in a CHILD process, which inherits the environment
+    (``CUDA_VISIBLE_DEVICES`` included): a card in trouble can hang the
+    first CUDA call of a process, and the caller (the supervisor, a
+    serving loop) must not be that process.  A hang past ``timeout`` or a
+    failed child returns None ("health unknown": callers keep their
+    grid).  ``PCTPU_SIM_DEVICES=N`` short-circuits to N, as in the JAX
+    package; the ``device_probe`` fault site is consulted first.
+
+    **The CPU counts as one device.**  Every CPU slot of a grid is the
+    same ``cpu`` device (a CPU grid needs one distinct device, whatever
+    its shape), and it lives as long as the probing process does; so the
+    probe of the CPU reports 1, never 0, and no CPU grid ever looks
+    shrunk (``resilience.elastic.detect_change``).
+    """
+    import os
+    import subprocess
+    import sys
+
+    sim = os.environ.get(SIM_DEVICES_ENV)
+    if sim:
+        try:
+            return max(0, int(sim))
+        except ValueError:
+            print(f"pconv-torch: ignoring non-integer {SIM_DEVICES_ENV}="
+                  f"{sim!r}", file=sys.stderr)
+    from parallel_convolution_tpu_torch.resilience.faults import fault_point
+
+    fault_point("device_probe")
+    kind = device_type or "auto"
+    if kind not in ("auto", "cuda", "cpu"):
+        raise ValueError(f"device_type must be cuda or cpu, got {kind!r}")
+    if kind == "cpu":
+        return 1
+    try:
+        p = subprocess.run([sys.executable, "-c", _COUNT_SRC, kind],
+                           timeout=timeout, capture_output=True, text=True)
+    except subprocess.TimeoutExpired:
+        return None
+    if p.returncode != 0:
+        return None
+    try:
+        return int(p.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        return None

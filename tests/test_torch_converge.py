@@ -323,8 +323,11 @@ def test_jacobi_solver_pending_knobs():
                         device="cpu").solve(x)[1] == 5
     with pytest.raises(ValueError, match="solver must be one of"):
         JacobiSolver(solver="newton", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        JacobiSolver(device="cpu").set_grid(mesh.make_grid((2, 2), "cpu"))
+    # set_grid (item 13) is ported: the solver swaps its grid and keeps
+    # its configuration (tests/test_torch_elastic.py holds the runs).
+    s = JacobiSolver(device="cpu", tol=0.1, max_iters=5)
+    assert s.set_grid(mesh.make_grid((2, 2), "cpu")) is s
+    assert s.grid.shape == (2, 2) and s.solve(x)[1] == 5
     assert step.sharded_converge(np.zeros((1, 8, 8), np.float32),
                                  _filters("jacobi3")[1], 0.1, 5,
                                  solver="multigrid", overlap=True,

@@ -35,6 +35,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_jax_state import reset_jax_state
 
 from parallel_convolution_tpu.obs import (
     attribution as jattribution, events as jevents, metrics as jmetrics,
@@ -63,7 +64,10 @@ DIRS = attribution.DIRECTIONS
 @pytest.fixture(autouse=True)
 def _fresh_obs():
     """Both packages' registries enabled and empty, no event log; the
-    prior state restored afterwards."""
+    prior state restored afterwards, and the JAX package's build caches,
+    probe verdicts and fault plan cleared (a JAX walk this file drives
+    with ``fallback=True`` must not leave a cached runner that hides a
+    later test's injected compile fault)."""
     was = metrics.enabled(), jmetrics.enabled()
     for m in (metrics, jmetrics):
         m.set_enabled(True)
@@ -76,6 +80,7 @@ def _fresh_obs():
     for m, on in zip((metrics, jmetrics), was):
         m.reset()
         m.set_enabled(on)
+    reset_jax_state()
 
 
 def _script(name: str):

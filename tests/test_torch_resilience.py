@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_jax_state import reset_jax_state
 
 from parallel_convolution_tpu.ops import filters as jfilters
 from parallel_convolution_tpu.parallel import mesh as jmesh
@@ -56,7 +57,7 @@ def _clean_state():
     for mod in (diskio, jdiskio):
         mod.uninstall_modes()
     degrade.clear_probe_cache()
-    jdegrade.clear_probe_cache()
+    reset_jax_state()  # the JAX build caches too: fallback runs fill them
 
 
 # ------------------------------------------------------------------ faults

@@ -168,6 +168,34 @@ Phases (any failure exits non-zero and prints no result line):
    32) from 4x4 slots to "2x2" to the one-device 2x2 grid, and
    ``JacobiSolver.set_grid`` on config 1's image, every run byte-equal to
    the one before the swap;
+4m. one replica's service over HTTP (ROADMAP item 8a-ii), after phase 4l,
+   counted into the kernels line: ``serving.make_http_server`` on
+   127.0.0.1, port 0, over a ``ConvolutionService`` (``cache=True``,
+   max_batch 8, 5 ms, max_queue 64) on each of two grids, warmed through
+   ``POST /v1/warm`` with BASELINE config 2 (RGB 1920x2520 blur3 x 100)
+   at ``cuda_sep`` bf16 fuse 32 on 1x1 and ``cuda_rdma`` bf16 fuse 32
+   strided on 2x2 slots (batch sizes 2-8 built in process); for each key
+   16 requests on each wire (JSON with base64, binary frames) at
+   concurrency 1 and then 8 from a pool of ``urllib`` threads in a client
+   process of its own (16 distinct images: phase 4l's eight and eight
+   more; the cache emptied after each round so every request runs), every
+   image the plain ``shifted`` bytes of its image and the two wires'
+   bodies byte-equal, p50 / p99 and each request split into the client's
+   encode and decode, the server's decode, the service's phases (queue,
+   compile, copy_in, device, copy_out), the server's encode and the rest
+   (the host steps inside it timed apart on one request); the launches
+   of each round the plan's (K2 7 a batch for ``cuda_sep``; per-slot K4
+   and K2 for ``cuda_rdma``); one
+   duplicate body ``cache: "hit"`` with no engine batch; ``backend:
+   "pallas"`` a 400 naming ``cuda``, a malformed frame a 400;
+   ``POST /v1/converge`` on config 1's image (``cuda_rdma`` u8 fuse 8 on
+   2x2 slots, tol 0.5, check every 10) framed and as NDJSON from the
+   client process, the final row phase 4b's (2730 iterations), a token
+   from the middle row resumed to the same final bytes, each stream's
+   per-slot launches the plan's; one fd7
+   256³ x 5 volume on frames within 2e-5 of the engine's own run of that
+   key; ``/readyz`` 200 and ``/metrics`` parsed by ``obs.metrics.
+   parse_text`` with ``pctpu_request_phase_seconds``;
 4j. the rest on a grid of slots and a grid over two processes (ROADMAP
    item 10c), after phase 4d, counted into the kernels line: BASELINE
    config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 200 work units)
@@ -329,6 +357,9 @@ ENGINE_WAVE = 8            # 4l: concurrent requests a wave (max_batch)
 ENGINE_SINGLES = 16        # 4l: lone requests for the batch-1 latency
 ENGINE_WAVES = 4           # 4l: waves for the batch-8 latency
 ENGINE_VOLUME_SWEEPS = 5   # 4l: the fd7 512^3 volume key
+SERVICE_REQUESTS = 16      # 4m: requests a key, wire and concurrency
+SERVICE_CONCURRENCY = (1, 8)
+SERVICE_VOLUME_N = 256     # 4m: the fd7 volume request (2 x 256^3 f32)
 SUPERVISOR_LADDER = ["4x4", "2x2", "1x1"]
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
@@ -3075,6 +3106,7 @@ def engine_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
                                  for im in rgbs[1:]]
     payloads = [imageio.interleaved_to_planar(im).astype(np.float32)
                 for im in rgbs]
+    keep["engine_wave"] = (rgbs, wants)   # phase 4m's requests
     slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
     eng1 = WarmEngine(mesh.make_grid((1, 1), dev), fallback=False)
     eng4 = WarmEngine(slots4, fallback=False)
@@ -3329,6 +3361,491 @@ def engine_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
         prev = sol
         out["set_grid_s"][f"JacobiSolver config 1 {label}"] = secs
     events.deconfigure()
+    out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: one replica's service over HTTP (ROADMAP item 8a-ii)
+# ---------------------------------------------------------------------------
+
+# The service's client: another process, since a client in the server's
+# process would share its interpreter lock.  It loads the port's frames
+# codec from its file (numpy only).  Modes: ``convolve`` (every image of
+# an .npy stack, ``conc`` at a time; one JSON record a request) and
+# ``converge`` (one stream; the image of the row at ``save_at`` iterations
+# and the final one saved beside ``out``).
+SERVICE_CLIENT_SRC = r"""
+import base64, importlib.util, json, struct, sys, time, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+
+spec = importlib.util.spec_from_file_location("frames", sys.argv[1])
+frames = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(frames)
+mode, url, wire, head = sys.argv[2], sys.argv[3], sys.argv[4], json.loads(
+    sys.argv[5])
+
+
+def encode(arrays):
+    if wire == "frames":
+        return frames.encode_envelope(head, arrays), frames.FRAMES_CONTENT_TYPE
+    return json.dumps(dict(head, image_b64=base64.b64encode(
+        arrays["image"].tobytes()).decode("ascii"))).encode(), \
+        "application/json"
+
+
+def post(path, data, ctype):
+    return urllib.request.urlopen(urllib.request.Request(
+        url + path, data=data, headers={"Content-Type": ctype}), timeout=600)
+
+
+def image_of(row, shape):
+    return np.frombuffer(base64.b64decode(row.pop("image_b64")),
+                         np.uint8).reshape(shape)
+
+
+if mode == "convolve":
+    conc = int(sys.argv[6])
+    imgs = np.load(sys.argv[7], mmap_mode="r")
+    wants = np.load(sys.argv[8], mmap_mode="r")
+
+    def one(i):
+        img = np.ascontiguousarray(imgs[i])
+        t0 = time.perf_counter()
+        data, ctype = encode({"image": img})
+        t1 = time.perf_counter()
+        with post("/v1/convolve", data, ctype) as resp:
+            status, body = resp.status, resp.read()
+        t2 = time.perf_counter()
+        if wire == "frames":
+            r, arrays = frames.decode_envelope(body)
+            out = arrays["image"]
+        else:
+            r = json.loads(body)
+            out = image_of(r, img.shape)
+        t3 = time.perf_counter()
+        return {"status": status, "cache": r["cache"],
+                "batch_size": r["batch_size"], "phases": r["phases"],
+                "equal": bool(np.array_equal(out, wants[i])),
+                "client_encode": t1 - t0, "client_decode": t3 - t2,
+                "wall": t3 - t0}
+
+    with ThreadPoolExecutor(conc) as pool:
+        print(json.dumps(list(pool.map(one, range(len(imgs))))))
+else:
+    image = np.load(sys.argv[6])
+    save_at, out = int(sys.argv[7]), sys.argv[8]
+    arrays = {"image": image}
+    if len(sys.argv) > 9:
+        arrays["resume_state"] = np.load(sys.argv[9])
+    rows, keep = [], {}
+    t0 = time.perf_counter()
+    with post("/v1/converge", *encode(arrays)) as resp:
+        while True:
+            if wire == "frames":
+                prefix = resp.read(4)
+                if not prefix:
+                    break
+                h, a = frames.decode_envelope(resp.read(
+                    struct.unpack("<I", prefix)[0]))
+                img = a["image"]
+            else:
+                line = resp.readline()
+                if not line:
+                    break
+                if not line.strip():
+                    continue
+                h = json.loads(line)
+                img = (image_of(h, image.shape)
+                       if h["iters"] == save_at or h["kind"] == "final"
+                       else h.pop("image_b64") and None)
+            rows.append(h)
+            if h["iters"] == save_at and h["kind"] == "snapshot":
+                keep["mid"] = np.array(img)
+            if h["kind"] == "final":
+                keep["final"] = np.array(img)
+    seconds = time.perf_counter() - t0
+    for name, a in keep.items():
+        np.save(f"{out}_{name}.npy", a)
+    print(json.dumps({"rows": rows, "seconds": seconds}))
+"""
+
+
+def http_call(url: str, data: bytes | None = None,
+              ctype: str = "application/json"):
+    """(status, headers, body) of one request; an HTTP error status is a
+    result here, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def service_client(mode: str, url: str, wire: str, head: dict, *args):
+    """One run of ``SERVICE_CLIENT_SRC`` in a process of its own."""
+    frames_src = (Path(__file__).resolve().parent
+                  / "parallel_convolution_tpu_torch" / "serving" / "frames.py")
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVICE_CLIENT_SRC, str(frames_src), mode, url,
+         wire, json.dumps(head), *map(str, args)],
+        capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0,
+          f"service client {mode} {wire}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def codec_seconds() -> dict:
+    """The service's codec seconds so far, by wire and operation
+    (``pctpu_codec_seconds_total``)."""
+    from parallel_convolution_tpu_torch.obs import metrics
+
+    c = metrics.counter("pctpu_codec_seconds_total",
+                        "wall seconds spent encoding/decoding wire payloads",
+                        ("codec", "op"))
+    return {(w, op): float(c.value(codec=w, op=op))
+            for w in ("json", "frames") for op in ("decode", "encode")}
+
+
+def service_round(svc, url: str, head: dict, files, wire: str, conc: int,
+                  label: str) -> dict:
+    """``SERVICE_REQUESTS`` distinct images of one key on one wire,
+    ``conc`` at a time, from a client process; every answer must be its
+    image's plain bytes, and a miss (the cache is emptied after the
+    round).  Returns the latency row, the split in mean ms a request."""
+    b0, c0 = svc.engine.stats["batches"], codec_seconds()
+    got = service_client("convolve", url, wire, head, conc, *files)
+    c1 = codec_seconds()
+    svc.cache.invalidate_all()
+    for i, r in enumerate(got):
+        check(r["status"] == 200 and r["cache"] == "miss" and r["equal"],
+              f"service {label}: request {i} {r}")
+    mean = lambda xs: 1e3 * sum(xs) / len(xs)
+    split = {name: mean([r[name] for r in got])
+             for name in ("client_encode", "client_decode")}
+    split["server_decode"] = 1e3 * (c1[(wire, "decode")]
+                                    - c0[(wire, "decode")]) / len(got)
+    for ph in ("queue", "compile", "copy_in", "device", "copy_out"):
+        split[ph] = mean([r["phases"][ph] for r in got])
+    split["server_encode"] = 1e3 * (c1[(wire, "encode")]
+                                    - c0[(wire, "encode")]) / len(got)
+    walls = [r["wall"] for r in got]
+    split["rest"] = mean(walls) - sum(split.values())
+    return dict(latency_ms(walls), mean_ms=mean(walls), split_ms=split,
+                batches=svc.engine.stats["batches"] - b0,
+                batch_sizes=sorted({r["batch_size"] for r in got}))
+
+
+def host_steps(img) -> dict:
+    """Milliseconds of the host steps one config-2 request takes inside
+    the service that no phase times (the least of three): the u8 -> f32
+    widening, the input digest, the u8 store-back and interleave of the
+    answer, and each wire's codec of the image."""
+    import base64
+
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.serving import cache, frames
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    planar = imageio.interleaved_to_planar(img).astype(np.float32)
+    steps = {
+        "widen_u8_to_f32": lambda: imageio.interleaved_to_planar(
+            img).astype(np.float32),
+        "input_digest": lambda: cache.input_digest(planar),
+        "store_back_u8": lambda: imageio.planar_to_interleaved(np.clip(
+            np.rint(planar), 0.0, 255.0).astype(np.uint8)),
+        "json_image_encode": lambda: base64.b64encode(img.tobytes()),
+        "json_image_decode": lambda: np.frombuffer(base64.b64decode(
+            base64.b64encode(img.tobytes())), np.uint8),
+        "frames_image_encode": lambda: frames.encode_frame(img),
+        "frames_image_decode": lambda: frames.decode_frame(
+            frames.encode_frame(img)),
+    }
+    out = {}
+    for name, fn in steps.items():
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            secs.append(time.perf_counter() - t0)
+        out[name] = 1e3 * min(secs)
+    return out
+
+
+def slot_converge_plan(filt, iters: int, block_hw) -> dict:
+    """The per-slot launches of a ``cuda_rdma`` u8 fuse-8 converge on 2x2
+    slots that ran ``iters`` iterations (check every 10): the one-card
+    plan's K3 / K4 launch a chunk is one a slot."""
+    plan = expected_converge_launches(filt, "cuda_rdma", 8, 10, iters,
+                                      CONVERGE_CLI_MAX, (2, 2), block_hw)
+    for k in ("rdma_block", "rdma_tiled"):
+        plan[k + "_slot"] += 4 * plan.pop(k)
+        plan[k] = 0
+    return plan
+
+
+def service_phase(dev, tmp: Path, refs: dict, totals: dict,
+                  keep: dict) -> dict:
+    """One replica's service over HTTP on two grids at BASELINE configs
+    1-2's widths; the launches counted into ``totals``.  See the module
+    docstring, phase 4m."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.obs import metrics
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.serving import (
+        ConvolutionService, frames, make_http_server,
+    )
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    t_start = time.perf_counter()
+    card = card_line()
+    metrics.set_enabled(True)
+    blur3 = get_filter("blur3")
+    work = tmp / "service"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"card": card, "latency": {}}
+    runs = {}
+
+    def counted(label, fn):
+        stencil.reset_launch_counts()
+        res = fn()
+        counts = stencil.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+            runs.setdefault(label, dict.fromkeys(counts, 0))[k] += v
+        return res, counts
+
+    # Sixteen distinct images: phase 4l's eight and eight more, each with
+    # the plain shifted run's bytes.
+    rgbs, wants = keep.pop("engine_wave")
+    plain = ConvolutionModel("blur3", backend="shifted", device=dev)
+    for seed in range(len(rgbs) + 1, SERVICE_REQUESTS + 1):
+        rgbs.append(imageio.generate_test_image(*RGB_HW, "rgb", seed=seed))
+        wants.append(plain.run_image(rgbs[-1], ITERS))
+    stencil.reset_launch_counts()   # not main-path launches
+    files = (work / "imgs.npy", work / "wants.npy")
+    np.save(files[0], np.stack(rgbs))
+    np.save(files[1], np.stack(wants))
+    out["host_steps_ms"] = host_steps(rgbs[0])
+    print("4m host steps a request: " + json.dumps(
+        dict(out["host_steps_ms"], card=card)))
+    block_hw = tuple(mesh.padded_extent(v, 2) // 2 for v in RGB_HW)
+    keys = {
+        "cuda_sep bf16 fuse 32 1x1": (
+            mesh.make_grid((1, 1), dev),
+            {"backend": "cuda_sep", "storage": "bf16", "fuse": 32},
+            expected_launches(blur3, 32, RGB_HW)),
+        "cuda_rdma bf16 fuse 32 2x2 slots strided": (
+            mesh.make_grid((2, 2), devices=[dev] * 4),
+            {"backend": "cuda_rdma", "storage": "bf16", "fuse": 32,
+             "col_mode": "strided"},
+            expected_slot_launches(blur3, 32, (2, 2), block_hw, False)),
+    }
+    servers = {}
+    try:
+        for label, (grid, knobs, _) in keys.items():
+            svc = ConvolutionService(grid, cache=True, max_batch=8,
+                                     max_delay_s=0.005, max_queue=64)
+            srv = make_http_server(svc, "127.0.0.1", 0)
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            servers[label] = (svc, srv, th,
+                              f"http://127.0.0.1:{srv.server_address[1]}")
+        for label, (grid, knobs, plan) in keys.items():
+            svc, _, _, url = servers[label]
+            head = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "rgb",
+                    "filter": "blur3", "iters": ITERS, **knobs}
+            t0 = time.perf_counter()
+            (status, _, body), _ = counted(
+                f"4m warm {label}", lambda: http_call(
+                    url + "/v1/warm",
+                    json.dumps({"configs": [head]}).encode()))
+            check(status == 200 and json.loads(body)["effective_backends"]
+                  == [knobs["backend"]], f"service {label}: warm {body!r}")
+            key = svc.engine.key_for(
+                (3, *RGB_HW), filter_name="blur3", storage=knobs["storage"],
+                iters=ITERS, fuse=32, boundary="zero", quantize=True,
+                backend=knobs["backend"], overlap=None,
+                col_mode=knobs.get("col_mode"))
+            counted(f"4m warm batch sizes {label}", lambda: svc.engine.warmup(
+                [key], batch_sizes=range(2, 9)))
+            warm_s = time.perf_counter() - t0
+            compiles = svc.engine.stats["compiles"]
+            rows = {}
+            for conc in SERVICE_CONCURRENCY:
+                for wire in ("json", "frames"):
+                    name = f"{label} {wire} concurrency {conc}"
+                    row, counts = counted(f"4m {name}", lambda: service_round(
+                        svc, url, head, files, wire, conc, name))
+                    want = {k: v * row["batches"] for k, v in plan.items()}
+                    check(all(counts[k] == want.get(k, 0) for k in counts),
+                          f"service {name}: launches {counts}, the plan "
+                          f"{want} for {row['batches']} batches")
+                    row["launches"] = counts
+                    rows[f"{wire} concurrency {conc}"] = row
+                    print(f"4m latency {name}: " + json.dumps(
+                        dict(row, card=card)))
+            check(svc.engine.stats["compiles"] == compiles,
+                  f"service {label}: a request built a runner")
+            out["latency"][label] = dict(rows, warm_s=warm_s)
+
+        # A duplicate body: served from the cache, no engine batch.
+        svc, _, _, url = servers["cuda_sep bf16 fuse 32 1x1"]
+        body = json.dumps({
+            "rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "rgb",
+            "filter": "blur3", "iters": ITERS, "backend": "cuda_sep",
+            "storage": "bf16", "fuse": 32, "image_b64": base64.b64encode(
+                rgbs[0].tobytes()).decode("ascii")}).encode()
+        (s1, _, r1), _ = counted("4m duplicate's first", lambda: http_call(
+            url + "/v1/convolve", body))
+        b0 = svc.engine.stats["batches"]
+        t0 = time.perf_counter()
+        (s2, _, r2), counts = counted("4m duplicate", lambda: http_call(
+            url + "/v1/convolve", body))
+        out["duplicate_ms"] = 1e3 * (time.perf_counter() - t0)
+        r1, r2 = json.loads(r1), json.loads(r2)
+        check(s1 == s2 == 200 and r1["cache"] == "miss"
+              and r2["cache"] == "hit" and r1["image_b64"] == r2["image_b64"]
+              and svc.engine.stats["batches"] == b0
+              and not any(counts.values())
+              and base64.b64decode(r2["image_b64"]) == wants[0].tobytes(),
+              f"service: the duplicate was {r2.get('cache')}, {counts}")
+
+        # Typed refusals.
+        status, _, body = http_call(url + "/v1/convolve", json.dumps({
+            "rows": 8, "cols": 8, "backend": "pallas", "image_b64":
+            "A" * 86 + "=="}).encode())
+        bad = json.loads(body)
+        check(status == 400 and bad["rejected"] == "invalid"
+              and "'pallas' is 'cuda' here" in bad["detail"],
+              f"service: backend pallas answered {status} {bad}")
+        status, _, body = http_call(url + "/v1/convolve", b"PCTE garbage",
+                                    frames.FRAMES_CONTENT_TYPE)
+        check(status == 400 and frames.decode_envelope(body)[0]["rejected"]
+              == "bad_frame", f"service: a malformed frame answered {status}")
+
+        # A volume on frames against the engine's own run of its key.
+        n = SERVICE_VOLUME_N
+        vol = np.random.default_rng(16).random((2, n, n, n),
+                                               dtype=np.float32)
+        vhead = {"rows": n, "cols": n, "depth": n, "mode": "volume",
+                 "filter": "fd7", "iters": ENGINE_VOLUME_SWEEPS}
+        t0 = time.perf_counter()
+        (status, _, body), _ = counted("4m volume fd7 256^3", lambda: (
+            http_call(url + "/v1/convolve", frames.encode_envelope(
+                vhead, {"volume": vol}), frames.FRAMES_CONTENT_TYPE)))
+        vsecs = time.perf_counter() - t0
+        vh, va = frames.decode_envelope(body)
+        vkey = svc.engine.key_for(
+            (n, n, n), rank=3, filter_name="fd7", storage="f32",
+            iters=ENGINE_VOLUME_SWEEPS, fuse=1, boundary="zero",
+            quantize=False, backend="shifted", overlap=None, col_mode=None,
+            solver="jacobi")
+        (vref, _), _ = counted("4m volume engine run", lambda: (
+            svc.engine.run_batch(vkey, vol[None])))
+        verr = float(np.abs(va["image"] - vref[0]).max())
+        check(status == 200 and vh["ok"] and verr <= 2e-5,
+              f"service volume: {status}, max abs err {verr}")
+        out["volume"] = {"max_abs_err": verr, "seconds": vsecs,
+                         "phases": vh["phases"]}
+        del vol, va, vref, body
+
+        # Converge on config 1's image, 2x2 slots: framed, NDJSON, and
+        # resumed from a token of the middle row.
+        svc, _, _, url = servers["cuda_rdma bf16 fuse 32 2x2 slots strided"]
+        grey = work / "grey.npy"
+        np.save(grey, refs["greys"]["blur3"])
+        _, cwant, citers = keep["cli_converge"]
+        mid = (citers // 10 // 2) * 10
+        chead = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "grey",
+                 "filter": "blur3", "backend": "cuda_rdma", "storage": "u8",
+                 "fuse": 8, "quantize": True, "tol": 0.5, "check_every": 10,
+                 "max_iters": CONVERGE_CLI_MAX}
+        conv, streams = {}, {}
+        for wire in ("frames", "json"):
+            stream, counts = counted(f"4m converge {wire}", lambda: (
+                service_client("converge", url, wire, chead, grey, mid,
+                               work / wire)))
+            svc.cache.invalidate_all()   # a converged final is cached
+            rows = stream["rows"]
+            final = np.load(work / f"{wire}_final.npy")
+            check(rows[-1]["kind"] == "final" and rows[-1]["converged"]
+                  and rows[-1]["iters"] == citers
+                  and np.array_equal(final, cwant)
+                  and [r["iters"] for r in rows[:-1]]
+                  == list(range(10, citers + 1, 10)),
+                  f"service converge {wire}: {rows[-1]['iters']} iterations "
+                  f"in {len(rows)} rows, phase 4b's {citers}")
+            streams[wire] = (rows, counts)
+            conv[f"{wire}_s"] = stream["seconds"]
+        check(np.array_equal(np.load(work / "frames_mid.npy"),
+                             np.load(work / "json_mid.npy")),
+              "service converge: the middle rows of the two wires differ")
+        full = slot_converge_plan(blur3, citers, block_hw)
+        jcounts, fcounts = streams["json"][1], streams["frames"][1]
+        check(all(jcounts[k] == full.get(k, 0) for k in jcounts)
+              and all(fcounts[k] >= v for k, v in jcounts.items()),
+              f"service converge: launches {jcounts} (framed {fcounts}), "
+              f"the plan {full}")
+        # A u8 job's row image is its exact carry, so the middle row makes
+        # the token's state.
+        mrow = streams["frames"][0][mid // 10 - 1]
+        token = {k: mrow[k] for k in ("iters", "diff", "work_units",
+                                      "solver")}
+        state = work / "state.npy"
+        np.save(state, np.load(work / "frames_mid.npy")[None].astype(
+            np.float32))
+        stream, rcounts = counted("4m converge resumed", lambda: (
+            service_client("converge", url, "frames",
+                           dict(chead, resume=token), grey, -1,
+                           work / "resumed", state)))
+        rows = stream["rows"]
+        part = slot_converge_plan(blur3, mid, block_hw)
+        check(rows[-1]["iters"] == citers and rows[0]["iters"] == mid + 10
+              and np.array_equal(np.load(work / "resumed_final.npy"), cwant)
+              and all(rcounts[k] == full.get(k, 0) - part.get(k, 0)
+                      for k in rcounts),
+              f"service converge resumed at {mid}: {rows[-1]['iters']} "
+              f"iterations, launches {rcounts}")
+        conv.update(resumed_s=stream["seconds"],
+                    rows=len(streams["json"][0]), iters=citers,
+                    resumed_at=mid, resumed_rows=len(rows), launches=jcounts)
+        out["converge"] = conv
+
+        # Probes.
+        for label, (svc, _, _, url) in servers.items():
+            status, _, body = http_call(url + "/readyz")
+            check(status == 200 and json.loads(body)["ready"],
+                  f"service {label}: /readyz {status}")
+            status, _, body = http_call(url + "/metrics")
+            parsed = metrics.parse_text(body.decode())
+            check(status == 200 and any(
+                k.startswith("pctpu_request_phase_seconds") for k in parsed),
+                f"service {label}: /metrics lacks the request phases")
+        out["stats"] = {label: dict(svc.stats)
+                        for label, (svc, *_) in servers.items()}
+    finally:
+        for svc, srv, th, _ in servers.values():
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+            th.join(60)
+        shutil.rmtree(work, ignore_errors=True)
     out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
     out["seconds"] = time.perf_counter() - t_start
     return out
@@ -5109,6 +5626,9 @@ def main() -> int:
             engine = engine_phase(dev, Path(tmp), here, refs, totals, keep)
             lap("4l elastic and serving")
             torch.cuda.empty_cache()
+            served = service_phase(dev, Path(tmp), refs, totals, keep)
+            lap("4m the service over HTTP")
+            torch.cuda.empty_cache()
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep["config5"], converge_rows[0], keep)
             lap("4d multigrid")
@@ -5228,6 +5748,9 @@ def main() -> int:
         for row in engine.pop("runs"):
             print("end to end 4l: " + json.dumps(row))
         print("4l: " + json.dumps(engine))
+        for row in served.pop("runs"):
+            print("end to end 4m: " + json.dumps(row))
+        print("4m: " + json.dumps(served))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 

@@ -8,4 +8,26 @@ kernels are hand-written CUDA kernels here (``csrc/stencil.cu``, bound in
 for ``device="cpu"``.  The port imports neither JAX nor the JAX package.
 """
 
+from parallel_convolution_tpu_torch.ops import oracle
+from parallel_convolution_tpu_torch.ops.filters import (
+    FILTERS, Filter, get_filter,
+)
+
 __version__ = "0.1.0"
+
+__all__ = ["Filter", "get_filter", "FILTERS", "oracle", "ConvolutionModel",
+           "JacobiSolver", "RunConfig", "__version__"]
+
+
+def __getattr__(name: str):
+    # Lazy, as the JAX package's root: the models pull in torch and the
+    # whole step stack; a bare import of the package stays numpy-only.
+    if name in ("ConvolutionModel", "JacobiSolver"):
+        from parallel_convolution_tpu_torch import models
+
+        return getattr(models, name)
+    if name == "RunConfig":
+        from parallel_convolution_tpu_torch.utils.config import RunConfig
+
+        return RunConfig
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -70,3 +70,20 @@ def jacobi_solver_from_reference(fields: dict, device=None):
         filt=filt, grid=make_grid(None if mesh is None else tuple(mesh),
                                   device),
         backend=BACKEND_FROM_REFERENCE.get(backend, backend), **kw)
+
+
+def run_config_from_reference(text_or_dict):
+    """The port's ``utils.config.RunConfig`` from a JAX ``RunConfig``: its
+    ``to_json()`` text or the parsed dict, field for field, the backend
+    mapped to the port's name (``pallas`` -> ``cuda``, ...)."""
+    import json
+
+    from parallel_convolution_tpu_torch.utils.config import (
+        BACKEND_FROM_REFERENCE, RunConfig,
+    )
+
+    fields = (json.loads(text_or_dict) if isinstance(text_or_dict, str)
+              else dict(text_or_dict))
+    backend = fields.get("backend", "shifted")
+    fields["backend"] = BACKEND_FROM_REFERENCE.get(backend, backend)
+    return RunConfig(**fields)

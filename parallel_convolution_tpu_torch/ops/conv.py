@@ -125,3 +125,15 @@ def iterate_f32(x: torch.Tensor, filt: Filter, iters: int,
     for _ in range(iters):
         x = correlate(x, filt)
     return x
+
+
+def run_u8(img_u8_planar, filt: Filter, iters: int,
+           device=None) -> torch.Tensor:
+    """uint8 planar (C, H, W) in, uint8 planar out, on one device (default:
+    the card; raises without CUDA, ``device="cpu"`` for the CPU): the JAX
+    package's ``conv.run_u8`` through :func:`iterate_u8`."""
+    from parallel_convolution_tpu_torch.utils.platform import resolve_device
+
+    x = torch.as_tensor(img_u8_planar).to(resolve_device(device),
+                                          torch.float32)
+    return iterate_u8(x, filt, iters).to(torch.uint8)

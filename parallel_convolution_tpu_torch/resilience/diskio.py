@@ -1,7 +1,8 @@
 """Guarded disk IO: storage-shaped failure injection at the port's durable
-surfaces (its own copy of the JAX package's ``resilience/diskio.py``, the
-part the checkpoints call: :func:`consult`, the modes and their
-installation from ``PCTPU_DISK_MODES``, and the injection counts).
+surfaces (its own copy of the JAX package's ``resilience/diskio.py``: the
+checkpoints' :func:`consult`, the result cache's :func:`deferred_consult`
+and the write wrappers, the modes and their installation from
+``PCTPU_DISK_MODES``, and the injection counts).
 
 The seeded ``PCTPU_FAULTS`` plan (:mod:`.faults`) decides WHEN a disk
 surface fails; a per-site **disk mode** map decides WHAT the failure looks
@@ -16,10 +17,10 @@ like:
 With no mode installed for a triggered site the raw
 :class:`~.faults.InjectedFault` re-raises untranslated.  With no fault
 plan installed at all, a consult is one global load and an ``is None``
-test.  The JAX package's write wrappers (``guarded_write``,
-``guarded_fsync``, ``guarded_open``, ``guarded_replace``) serve its WAL
-and cache, and come with serving (ROADMAP item 8); the event log
-(``obs.events``) and ``utils.evidence_io`` consult their sites here.
+test.  The checkpoints, the result cache (``serving/cache.py``), the event
+log (``obs.events``) and ``utils.evidence_io`` consult their sites here;
+the write-ahead log's sites (``wal_write``, ``wal_fsync``) come with the
+fleet (ROADMAP item 8b).
 
 Stdlib only.
 """
@@ -35,8 +36,10 @@ from parallel_convolution_tpu_torch.resilience.faults import (
     InjectedFault, fault_point,
 )
 
-__all__ = ["DISK_SITES", "consult", "injected_counts", "install_from_env",
-           "install_modes", "modes_from_env", "modes_from_spec",
+__all__ = ["DISK_SITES", "consult", "deferred_consult", "guarded_fsync",
+           "guarded_open", "guarded_replace", "guarded_write",
+           "injected_counts", "install_from_env", "install_modes",
+           "installed_modes", "modes_from_env", "modes_from_spec",
            "uninstall_modes"]
 
 # site -> the disk failure shapes it can take: the JAX package's table, so
@@ -55,12 +58,15 @@ DISK_SITES = {
 }
 
 # Literal consults of the sites the port reaches: its checkpoints, the
-# event log and the shared-evidence writer.
+# result cache's spill and promote, the event log and the shared-evidence
+# writer.
 _CONSULTS = {
     "checkpoint_write_shard":
         lambda: fault_point("checkpoint_write_shard"),
     "checkpoint_write_meta":
         lambda: fault_point("checkpoint_write_meta"),
+    "cache_spill": lambda: fault_point("cache_spill"),
+    "cache_promote": lambda: fault_point("cache_promote"),
     "events_emit": lambda: fault_point("events_emit"),
     "evidence_write": lambda: fault_point("evidence_write"),
 }
@@ -113,6 +119,10 @@ def install_modes(modes: dict[str, str] | str | None) -> None:
 def uninstall_modes() -> None:
     global _MODES
     _MODES = {}
+
+
+def installed_modes() -> dict[str, str]:
+    return dict(_MODES)
 
 
 def modes_from_env(env: dict | None = None) -> dict[str, str]:
@@ -185,3 +195,74 @@ def consult(site: str) -> None:
         time.sleep(SLOW_WRITE_S)
         return
     _raise_mode(site, "eio" if mode == "torn_write" else mode)
+
+
+def deferred_consult(site: str) -> str | None:
+    """Like :func:`consult`, but returns ``"torn_write"`` instead of
+    raising it, so the caller lands the torn prefix at its real write site
+    (where the reader's CRC check is the thing under test).  Every other
+    mode behaves as in :func:`consult`; returns None when nothing fired."""
+    mode = _trigger(site)
+    if mode is None:
+        return None
+    if mode == "slow_write":
+        time.sleep(SLOW_WRITE_S)
+        return None
+    if mode == "torn_write":
+        return "torn_write"
+    _raise_mode(site, mode)
+
+
+def guarded_write(site: str, fh, data):
+    """``fh.write(data)`` under the site's guard.  torn_write lands a
+    prefix of the payload and flushes it before raising: the bytes a power
+    loss leaves behind, which the reader's CRC / length checks must
+    catch."""
+    mode = _trigger(site)
+    if mode is not None:
+        if mode == "slow_write":
+            time.sleep(SLOW_WRITE_S)
+        elif mode == "torn_write":
+            fh.write(data[:max(1, len(data) // 2)])
+            fh.flush()
+            raise OSError(errno.EIO, f"injected torn write at {site}")
+        else:
+            _raise_mode(site, mode)
+    return fh.write(data)
+
+
+def guarded_fsync(site: str, fh) -> None:
+    """``os.fsync(fh)`` under the site's guard (the record may be written
+    but not durable when this fires)."""
+    mode = _trigger(site)
+    if mode is not None:
+        if mode == "slow_write":
+            time.sleep(SLOW_WRITE_S)
+        else:
+            _raise_mode(site, mode)
+    os.fsync(fh.fileno() if hasattr(fh, "fileno") else fh)
+
+
+def guarded_open(site: str, path, mode: str = "r", **kw):
+    """``open(path, mode)`` under the site's guard (a failed open is how a
+    dead directory or quota surfaces before any byte is written)."""
+    m = _trigger(site)
+    if m is not None:
+        if m == "slow_write":
+            time.sleep(SLOW_WRITE_S)
+        else:
+            _raise_mode(site, "eio" if m == "torn_write" else m)
+    return open(path, mode, **kw)
+
+
+def guarded_replace(site: str, src, dst) -> None:
+    """``os.replace(src, dst)`` under the site's guard.  torn_write on a
+    rename means the metadata operation died (EIO): a rename is atomic, so
+    no half-state is modelled; ``src`` stays."""
+    mode = _trigger(site)
+    if mode is not None:
+        if mode == "slow_write":
+            time.sleep(SLOW_WRITE_S)
+        else:
+            _raise_mode(site, "eio" if mode == "torn_write" else mode)
+    os.replace(src, dst)

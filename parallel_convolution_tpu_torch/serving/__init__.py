@@ -1,5 +1,5 @@
-"""Serving layer of the PyTorch port (the JAX package's ``serving/``): the
-in-process core that runs kernels.
+"""Serving layer of the PyTorch port (the JAX package's ``serving/``): one
+replica's service over the card.
 
 ``engine.py``   the warm engine: a cache of built runners keyed on the
                 full build identity (shape, filter, storage, iters, fuse,
@@ -10,33 +10,47 @@ in-process core that runs kernels.
 ``batcher.py``  the bounded request queue with shape-bucketed lanes and
                 continuous batching: same-lane requests coalesce onto the
                 leading axis, flushed on size or deadline.
+``service.py``  admission control (queue bound, deadlines, typed
+                rejections), dedup by ``request_id``, the router-epoch
+                fences, ``reshape``, ``warmup``, readiness, the progressive
+                converge stream and the volume arm.
+``cache.py``    the content-addressed result cache (memory LRU, a CRC'd
+                disk spill tier, journaled deaths).
+``pricing.py``  predicted device-seconds a request (the batcher's lane
+                priority), on the port's cost model.
+``jobs.py``     the resume-token ledger of converge jobs.
+``frames.py``   the binary tensor-frame wire.
+``frontend.py`` ``InProcessClient`` and the stdlib HTTP server (both
+                wires, NDJSON and framed streams).
+``serve.py``    ``python -m parallel_convolution_tpu_torch.serving.serve``.
 
-The service with its admission control, the HTTP frontend, the binary
-frames, durable jobs, the result cache and pricing are ROADMAP item 8a-ii;
-the fleet (router, write-ahead log, peers, autoscaler, chaos transport)
-is item 8b.  Their names raise ``NotImplementedError`` naming the item.
+The fleet (router, write-ahead log, peers, autoscaler, chaos transport) is
+ROADMAP item 8b: its names raise ``NotImplementedError`` naming the item.
 """
 
 from parallel_convolution_tpu_torch.serving.batcher import MicroBatcher, Slot
 from parallel_convolution_tpu_torch.serving.engine import (
     EngineKey, WarmEngine, bucket_extent, bucket_key,
 )
-from parallel_convolution_tpu_torch.utils.config import (
-    FLEET_ITEM, SERVICE_ITEM, pending,
+from parallel_convolution_tpu_torch.serving.frontend import (
+    InProcessClient, make_http_server,
 )
+from parallel_convolution_tpu_torch.serving.jobs import JobLedger
+from parallel_convolution_tpu_torch.serving.pricing import WorkPricer
+from parallel_convolution_tpu_torch.serving.service import (
+    ConvolutionService, Rejected, Request, Response, Snapshot,
+)
+from parallel_convolution_tpu_torch.utils.config import FLEET_ITEM, pending
 
-__all__ = ["EngineKey", "MicroBatcher", "Slot", "WarmEngine",
-           "bucket_extent", "bucket_key"]
+__all__ = ["ConvolutionService", "EngineKey", "InProcessClient", "JobLedger",
+           "MicroBatcher", "Rejected", "Request", "Response", "Slot",
+           "Snapshot", "WarmEngine", "WorkPricer", "bucket_extent",
+           "bucket_key", "make_http_server"]
 
-# The JAX package's serving names that later slices port.
-_PENDING = {
-    **dict.fromkeys(("ConvolutionService", "Rejected", "Request", "Response",
-                     "Snapshot", "WorkPricer", "JobLedger", "InProcessClient",
-                     "make_http_server"), SERVICE_ITEM),
-    **dict.fromkeys(("AutoScaler", "ChaosTransport", "CorruptReplicaBody",
-                     "HTTPReplica", "InProcessReplica", "ReplicaRouter",
-                     "TenantQuotas"), FLEET_ITEM),
-}
+# The JAX package's serving names that a later slice ports.
+_PENDING = dict.fromkeys(
+    ("AutoScaler", "ChaosTransport", "CorruptReplicaBody", "HTTPReplica",
+     "InProcessReplica", "ReplicaRouter", "TenantQuotas"), FLEET_ITEM)
 
 
 def __getattr__(name: str):

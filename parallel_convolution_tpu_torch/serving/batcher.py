@@ -58,8 +58,7 @@ thread hop.  A request's :class:`obs.trace.SpanContext` rides its
 payload (``payload["trace"]``), and the executor derives the
 per-request ``queue`` span from this queue's own clocks
 (``_Item.enqueued_at`` → flush collect) plus the per-flush ``batch``
-span that links every co-batched request (the service, ROADMAP item
-8a-ii).
+span that links every co-batched request (``service.py``).
 """
 
 from __future__ import annotations

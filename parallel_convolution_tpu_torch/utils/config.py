@@ -23,6 +23,9 @@ never silently ignored.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+
 BACKENDS = ("shifted", "xla_conv", "cuda", "separable", "cuda_sep",
             "cuda_rdma")
 # "auto": resolve the backend (and an unset fuse / tile) through tuning/.
@@ -77,9 +80,7 @@ PROCESSES_ITEM = ("item 10d (cuda_rdma, multigrid and volumes across "
                   "processes; the NCCL transport, one card a process)")
 
 # The serving modules not ported yet (``serving/__init__.py`` raises on
-# their names): one replica's service, its HTTP frontend and the fleet.
-SERVICE_ITEM = ("item 8a-ii (serving: service.py, frontend.py, frames.py, "
-                "jobs.py, cache.py, pricing.py)")
+# their names): the fleet.
 FLEET_ITEM = ("item 8b (serving: the fleet — router.py, wal.py, peers.py, "
               "autoscaler.py, chaos.py)")
 
@@ -133,3 +134,127 @@ def check_run_config(storage: str, boundary: str, quantize: bool) -> None:
         raise ValueError(
             f"boundary must be one of {BOUNDARIES}, got {boundary!r}")
     check_storage(storage, quantize)
+
+
+@dataclasses.dataclass
+class RunConfig:
+    """Everything needed to reproduce one filtering run: the JAX package's
+    ``RunConfig`` (the same fields, defaults and validation errors) on the
+    port's registries.  ``backend`` takes the port's names (a JAX name is
+    refused with the port's counterpart in the message;
+    ``convert.run_config_from_reference`` maps a JAX config's JSON);
+    ``tile`` is K2's output tile (TH, TW)."""
+
+    rows: int
+    cols: int
+    rank: int = 2                  # 2 = planar (C, H, W); 3 = volume
+    #                                (F, D, H, W) through volumes/
+    depth: int | None = None       # D extent (rank 3 only)
+    mode: str = "grey"            # grey | rgb
+    filter_name: str = "blur3"
+    iters: int = 100
+    mesh_shape: tuple[int, int] | None = None   # None = 1x1
+    backend: str = "shifted"       # any of BACKENDS, or "auto"
+    storage: str = "f32"           # f32 | bf16 | u8
+    fuse: int | None = 1           # None = tune it (backend="auto" only)
+    tile: tuple[int, int] | None = None   # K2's output tile (TH, TW)
+    overlap: bool | None = None    # interior-first overlapped halo
+    #                                pipeline (cuda_rdma on slots): None =
+    #                                off for explicit backends, tuned for
+    #                                "auto"; True/False = clamped request
+    col_mode: str | None = None    # cuda_rdma's column-slab transport:
+    #                                None or "auto" = cost-model pick
+    boundary: str = "zero"
+    quantize: bool = True
+    converge_tol: float | None = None
+    solver: str = "jacobi"         # SOLVERS, for converge_tol runs;
+    #                                "multigrid" requires quantize=False
+    #                                and f32
+    mg_levels: int | None = None   # multigrid level-count cap
+    check_every: int = 10
+    sharded_io: bool = False
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 100
+    fallback: bool = False  # the degrade walk on a transient build or
+    #                         launch failure (resilience.degrade)
+
+    def __post_init__(self) -> None:
+        if self.rank not in RANKS:
+            raise ValueError(f"rank must be one of {RANKS}, got {self.rank}")
+        if self.rank == 3:
+            if self.depth is None or int(self.depth) < 1:
+                raise ValueError(
+                    f"rank=3 needs a positive depth, got {self.depth}")
+            if self.filter_name not in VOLUME_FORMS:
+                raise ValueError(
+                    f"rank-3 form must be one of {VOLUME_FORMS}, got "
+                    f"{self.filter_name!r}")
+            if self.quantize or self.storage != "f32":
+                raise ValueError(
+                    "rank=3 runs float carries: quantize=False, "
+                    "storage='f32'")
+        elif self.depth is not None:
+            raise ValueError("depth is a rank-3 knob (set rank=3)")
+        if self.mode not in ("grey", "rgb"):
+            raise ValueError(f"mode must be grey|rgb, got {self.mode!r}")
+        if self.storage not in STORAGES:
+            raise ValueError(
+                f"storage must be one of {STORAGES}, got {self.storage!r}")
+        check_backend(self.backend, allow_auto=True)
+        if self.boundary not in BOUNDARIES:
+            raise ValueError(
+                f"boundary must be one of {BOUNDARIES}, got {self.boundary!r}")
+        if self.storage == "u8" and not self.quantize:
+            # u8 carries can only hold the quantized integer states.
+            raise ValueError("storage='u8' requires quantize=True")
+        check_solver(self.solver)
+        if self.mg_levels is not None and int(self.mg_levels) < 1:
+            raise ValueError(f"mg_levels must be >= 1, got {self.mg_levels}")
+        if self.solver == "multigrid" and self.converge_tol is not None:
+            # The V-cycle's residual and correction fields are signed
+            # floats: fail the config here, not inside a level program.
+            if self.quantize:
+                raise ValueError(
+                    "solver='multigrid' requires quantize=False")
+            if self.storage != "f32":
+                raise ValueError(
+                    "solver='multigrid' requires storage='f32'")
+        if (self.rows <= 0 or self.cols <= 0 or self.iters < 0
+                or (self.fuse is not None and self.fuse < 1)):
+            raise ValueError("rows/cols must be positive, iters >= 0, fuse >= 1")
+        check_fuse(self.backend, self.fuse)
+        if self.overlap is not None:
+            self.overlap = bool(self.overlap)
+        if (self.col_mode is not None
+                and self.col_mode not in COL_MODE_CHOICES):
+            raise ValueError(
+                f"col_mode must be one of {COL_MODE_CHOICES}, got "
+                f"{self.col_mode!r}")
+        if self.mesh_shape is not None:
+            self.mesh_shape = tuple(self.mesh_shape)
+        if self.tile is not None:
+            self.tile = tuple(int(v) for v in self.tile)
+            if len(self.tile) != 2 or min(self.tile) <= 0:
+                raise ValueError(
+                    f"tile must be two positive ints (TH, TW), got {self.tile}")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "RunConfig":
+        return cls(**json.loads(text))
+
+    def build_model(self, device=None):
+        """The ``ConvolutionModel`` this config describes, on
+        ``make_grid(mesh_shape, device)`` (default: the card; raises
+        without CUDA, ``device="cpu"`` runs the plain versions)."""
+        from parallel_convolution_tpu_torch.models import ConvolutionModel
+        from parallel_convolution_tpu_torch.parallel.mesh import make_grid
+
+        return ConvolutionModel(
+            filt=self.filter_name, grid=make_grid(self.mesh_shape, device),
+            backend=self.backend, quantize=self.quantize,
+            storage=self.storage, fuse=self.fuse, boundary=self.boundary,
+            tile=self.tile, overlap=self.overlap, col_mode=self.col_mode,
+            fallback=self.fallback)

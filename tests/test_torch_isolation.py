@@ -75,5 +75,8 @@ def test_scan_covers_tuning_probes_and_bench():
                  "utils/debug.py", "obs/__init__.py", "obs/metrics.py",
                  "obs/events.py", "obs/trace.py", "obs/attribution.py",
                  "obs/report.py", "obs/trace_report.py", "utils/tracing.py",
-                 "utils/evidence_io.py"):
+                 "utils/evidence_io.py", "serving/service.py",
+                 "serving/frontend.py", "serving/frames.py",
+                 "serving/jobs.py", "serving/cache.py", "serving/pricing.py",
+                 "serving/serve.py", "utils/config.py", "convert.py"):
         assert name in scanned

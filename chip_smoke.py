@@ -48,7 +48,7 @@ Phases (any failure exits non-zero and prints no result line):
    kernel): fd25 at 512^3 (two fields, 1.07 GB), zero boundary, 40 sweeps
    at fuse 4 through ``run --rank 3 --depth 512`` from a seeded raw file
    under ``build/``, at 1x1 and 2x2, the outputs byte-equal (the peak
-   reckoned first and measured); fd7, wave and grayscott at 512^3 x 100
+   reckoned first and measured); fd7, wave and grayscott at 512^3 x 50
    sweeps, 1x1 against 2x2 bitwise; the fd7 / fd25 ``_stack`` twins and
    fuse 1 against fuse 4 bitwise; every form at 64^3 x 3 sweeps on 2x2,
    zero and periodic, within 2e-5 of the port's ``oracle3``;
@@ -62,7 +62,7 @@ Phases (any failure exits non-zero and prints no result line):
 4b. run to convergence (``sharded_converge``), counted into the kernels
    line: BASELINE config 5 (``JacobiSolver``: jacobi3, tol 1e-3, f32,
    ``cuda`` fuse 9, check every 10) on a seeded normal 32768x32768 field,
-   capped at 200 iterations, against the plain ``shifted`` converge on the
+   capped at 100 iterations, against the plain ``shifted`` converge on the
    card: the same iteration count, and through ``sharded_converge_stream``
    every chunk's diff (the stop quantity, since the cap stops both runs),
    field and diffs bit-equal (jacobi3's taps are dyadic); with the
@@ -175,10 +175,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``POST /v1/warm`` with BASELINE config 2 (RGB 1920x2520 blur3 x 100)
    at ``cuda_sep`` bf16 fuse 32 on 1x1 and ``cuda_rdma`` bf16 fuse 32
    strided on 2x2 slots (batch sizes 2-8 built in process); for each key
-   16 requests on each wire (JSON with base64, binary frames) at
+   8 requests on each wire (JSON with base64, binary frames) at
    concurrency 1 and then 8 from a pool of ``urllib`` threads in a client
-   process of its own (16 distinct images: phase 4l's eight and eight
-   more; the cache emptied after each round so every request runs), every
+   process of its own (phase 4l's eight distinct images; the cache
+   emptied after each round so every request runs), every
    image the plain ``shifted`` bytes of its image and the two wires'
    bodies byte-equal, p50 / p99 and each request split into the client's
    encode and decode, the server's decode, the service's phases (queue,
@@ -189,16 +189,59 @@ Phases (any failure exits non-zero and prints no result line):
    duplicate body ``cache: "hit"`` with no engine batch; ``backend:
    "pallas"`` a 400 naming ``cuda``, a malformed frame a 400;
    ``POST /v1/converge`` on config 1's image (``cuda_rdma`` u8 fuse 8 on
-   2x2 slots, tol 0.5, check every 10) framed and as NDJSON from the
+   2x2 slots, tol 0.5, check every 130: 21 rows) framed and as NDJSON
+   from the
    client process, the final row phase 4b's (2730 iterations), a token
    from the middle row resumed to the same final bytes, each stream's
    per-slot launches the plan's; one fd7
    256³ x 5 volume on frames within 2e-5 of the engine's own run of that
    key; ``/readyz`` 200 and ``/metrics`` parsed by ``obs.metrics.
    parse_text`` with ``pctpu_request_phase_seconds``;
+4n. the fleet's front tier (ROADMAP item 8b-i), after phase 4m, counted
+   into the kernels line: a ``ReplicaRouter`` (tenant quotas armed,
+   load factor 4, its health poll on) over three replicas on the card,
+   each a ``ConvolutionService`` (max_batch 8, 5 ms, max_queue 64, no
+   fallback) reporting the card: two in process (``InProcessReplica``)
+   and one behind ``make_http_server`` (``HTTPReplica``), their names
+   picked so that the ring homes BASELINE config 2's ``cuda_sep`` bf16
+   fuse 32 key (on a 1x1 replica) and its ``cuda_rdma`` bf16 fuse 32
+   strided key (on 2x2 slots, with config 1's converge key) apart, each
+   replica's peak reckoned and printed; each key warmed (batch sizes
+   1-8) on its home only, its warm footprint measured;
+   ``make_router_http_server`` on port 0 (a backlog of 128).  (1) 8
+   requests a key on frames at concurrency 1 and 8 from a client process,
+   through the router and straight at the home's own HTTP server, every
+   answer ``shifted``'s bytes, each stamped with its home, the launches
+   the plan's, p50 / p99 and the router hop (router p50 minus direct
+   p50) printed, each key resident on its home only; (2) the ``cuda_sep``
+   home killed after three requests of a round: every request completes
+   or is shed typed retryable, a failover stamped, the key re-homed on
+   one replica; the revive (a fresh engine from the factory, warmed)
+   builds no nvcc library and holds at most one warm footprint more
+   device memory than before the kill; (3) a greedy tenant shed
+   ``tenant_quota`` (retryable, ``retry_after_s``), a polite one never;
+   (4) ``ChaosTransport`` on the ``cuda_rdma`` home from seeded
+   ``PCTPU_FAULTS`` plans: a ``transport_recv`` drop (a one-replica
+   router: typed retryable, the retry served from the replica's dedup
+   ledger, its engine one batch), a hedge past a slow send, a
+   ``transport_stream`` disconnect at the fifth row of a converge (budget
+   200) resumed on the next candidate to the plain run's bytes, corrupt
+   bodies opening the breaker (fail over, then spill); (5) a router with
+   a write-ahead log streams config 1's converge on the frames arm
+   (``cuda_rdma`` u8 fuse 8, tol 0.5), crashes after 40 rows (the stream
+   abandoned unclosed); a new router over the same WAL takes over (the
+   epoch bumped, the job restored), the zombie is refused
+   ``stale_epoch`` (409), and the client's retry over the new router's
+   HTTP server resumes from the newest durable token to phase 4b's bytes
+   (2730 iterations), one final row in all; the WAL's appends, fsyncs and
+   their seconds printed; (6) ``python -m ...serving.loadgen --target
+   <router> --wire frames --n 16 --concurrency 4`` at the ``cuda_sep``
+   key exits 0 with p50 / p99 and ``failovers_observed``, ``python -m
+   ...serving.route --help`` exits 0 and ``--shards 2`` exits 2 naming
+   item 8b-ii; K2 and per-slot K4 launched in the phase;
 4j. the rest on a grid of slots and a grid over two processes (ROADMAP
    item 10c), after phase 4d, counted into the kernels line: BASELINE
-   config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 200 work units)
+   config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 100 work units)
    on 2x2 slots with ``cuda`` (K1 per slot) and ``cuda_rdma`` (K3 / K4 per
    slot), each bit-equal to the one-card 2x2 run of its backend (freed
    before the slot run), the same cycles, work units and level grids, the
@@ -217,7 +260,7 @@ Phases (any failure exits non-zero and prints no result line):
    beside its one-card (or one-process) form;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
    BASELINE config 5's field (32768x32768, jacobi3, tol 1e-3, f32) under
-   the Jacobi run's budget of 200 fine-grid work units, through
+   the Jacobi run's budget of 100 fine-grid work units, through
    ``JacobiSolver(solver="multigrid")`` with ``cuda`` at 1x1 (K1 on every
    level) from a host array and resident on the card, at 2x2 (bitwise the
    1x1 field), with ``cuda_rdma`` at 4x4 (K4 on the fine levels, K3 at
@@ -339,7 +382,7 @@ CONVERGE_HW = (32768, 32768)  # BASELINE config 5
 # Config 5's one cut: an iteration cap.  jacobi3 on a normal field leaves
 # the modes near the checkerboard, whose factor is close to -1, alternating,
 # so the diff decays slowly and tol 1e-3 is not reached within it.
-CONVERGE_MAX_ITERS = 200
+CONVERGE_MAX_ITERS = 100
 CONVERGE_CLI_MAX = 5000    # the CLI's converges (about 2730 iterations)
 MG_RDMA_GRID = (4, 4)      # config 5's cuda_rdma multigrid run
 CONFIG4_SIDE = 65536       # BASELINE config 4: 65536x65536 RGB, 12.9 GB
@@ -348,18 +391,22 @@ HOST_GROWTH_LIMIT = 1 << 30  # config 4: at most 16 bands of host memory
 CKPT_EVERY = 25            # the checkpoint phase's snapshots
 CKPT_KILL = 20             # shard write 20: in the second snapshot at 4x4
 VOLUME_N = 512             # the volume phase's cube: 2 fields, 1.07 GB
-VOLUME_SWEEPS = 100        # fd7 / wave / grayscott, 1x1 against 2x2
+VOLUME_SWEEPS = 50         # fd7 / wave / grayscott, 1x1 against 2x2
 VOLUME_FD25_SWEEPS = 40    # fd25 through run --rank 3, fuse 4
 VOLUME_TOL = 1e-5          # fd7 on the N = 64 manufactured problem
 VOLUME_CAP = 5000
 VOLUME_CHECK = 50
 ENGINE_WAVE = 8            # 4l: concurrent requests a wave (max_batch)
-ENGINE_SINGLES = 16        # 4l: lone requests for the batch-1 latency
-ENGINE_WAVES = 4           # 4l: waves for the batch-8 latency
+ENGINE_SINGLES = 8         # 4l: lone requests for the batch-1 latency
+ENGINE_WAVES = 2           # 4l: waves for the batch-8 latency
 ENGINE_VOLUME_SWEEPS = 5   # 4l: the fd7 512^3 volume key
-SERVICE_REQUESTS = 16      # 4m: requests a key, wire and concurrency
+SERVICE_REQUESTS = 8       # 4m: requests a key, wire and concurrency
 SERVICE_CONCURRENCY = (1, 8)
 SERVICE_VOLUME_N = 256     # 4m: the fd7 volume request (2 x 256^3 f32)
+# 4m's converge streams check every 130 iterations (21 rows; 273 at 10):
+# phase 4b's 2730 is a multiple, and a u8 carry that changed at 2720
+# changed at every earlier iteration, so they stop at 2730 with its bytes.
+SERVICE_CONVERGE_CHECK = 130
 SUPERVISOR_LADDER = ["4x4", "2x2", "1x1"]
 REPLACES = {
     "stencil_step": "parallel_convolution_tpu/ops/pallas_stencil.py:405",
@@ -1389,7 +1436,7 @@ def volume_phase(dev, work: Path) -> dict:
     forms have no Pallas kernel).  fd25 at 512^3 (two fields, 1.07 GB),
     zero boundary, 40 sweeps at fuse 4 through ``run --rank 3 --depth
     512`` from a raw file under ``build/``, at 1x1 and 2x2, the outputs
-    byte-equal; fd7, wave and grayscott at 512^3 x 100 sweeps, 1x1 against
+    byte-equal; fd7, wave and grayscott at 512^3 x 50 sweeps, 1x1 against
     2x2 bitwise; the fd7 / fd25 _stack twins and fuse 1 against fuse 4
     bitwise; every form at 64^3 x 3 sweeps on 2x2, zero and periodic,
     against the port's ``oracle3`` at atol 2e-5; ``volume_converge`` with
@@ -1449,7 +1496,7 @@ def volume_phase(dev, work: Path) -> dict:
     def run(state, name, iters, grid, **kw):
         return driver.volume_iterate(state, name, iters, grid=grid, **kw)
 
-    # fd7, wave, grayscott at 512^3 x 100 sweeps: 1x1 against 2x2.
+    # fd7, wave, grayscott at 512^3 x 50 sweeps: 1x1 against 2x2.
     for name in ("fd7", "wave", "grayscott"):
         vol = volume_state(name, shape, 37)
         torch.cuda.empty_cache()
@@ -3377,7 +3424,8 @@ def engine_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
 # ``converge`` (one stream; the image of the row at ``save_at`` iterations
 # and the final one saved beside ``out``).
 SERVICE_CLIENT_SRC = r"""
-import base64, importlib.util, json, struct, sys, time, urllib.request
+import base64, importlib.util, json, struct, sys, time, urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
@@ -3416,19 +3464,26 @@ if mode == "convolve":
         t0 = time.perf_counter()
         data, ctype = encode({"image": img})
         t1 = time.perf_counter()
-        with post("/v1/convolve", data, ctype) as resp:
-            status, body = resp.status, resp.read()
+        try:
+            with post("/v1/convolve", data, ctype) as resp:
+                status, body = resp.status, resp.read()
+        except urllib.error.HTTPError as e:   # a typed refusal
+            status, body = e.code, e.read()
         t2 = time.perf_counter()
         if wire == "frames":
             r, arrays = frames.decode_envelope(body)
-            out = arrays["image"]
+            out = arrays.get("image")
         else:
             r = json.loads(body)
-            out = image_of(r, img.shape)
+            out = image_of(r, img.shape) if "image_b64" in r else None
         t3 = time.perf_counter()
-        return {"status": status, "cache": r["cache"],
-                "batch_size": r["batch_size"], "phases": r["phases"],
-                "equal": bool(np.array_equal(out, wants[i])),
+        return {"status": status, "cache": r.get("cache"),
+                "batch_size": r.get("batch_size"), "phases": r.get("phases"),
+                "equal": out is not None and bool(np.array_equal(out,
+                                                                 wants[i])),
+                "effective_backend": r.get("effective_backend"),
+                "rejected": r.get("rejected"),
+                "retryable": r.get("retryable"), "router": r.get("router"),
                 "client_encode": t1 - t0, "client_decode": t3 - t2,
                 "wall": t3 - t0}
 
@@ -3489,17 +3544,32 @@ def http_call(url: str, data: bytes | None = None,
         return e.code, dict(e.headers), e.read()
 
 
-def service_client(mode: str, url: str, wire: str, head: dict, *args):
-    """One run of ``SERVICE_CLIENT_SRC`` in a process of its own."""
+def service_client_start(mode: str, url: str, wire: str, head: dict,
+                         *args) -> subprocess.Popen:
+    """``SERVICE_CLIENT_SRC`` started in a process of its own."""
     frames_src = (Path(__file__).resolve().parent
                   / "parallel_convolution_tpu_torch" / "serving" / "frames.py")
-    proc = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-c", SERVICE_CLIENT_SRC, str(frames_src), mode, url,
          wire, json.dumps(head), *map(str, args)],
-        capture_output=True, text=True, timeout=900)
-    check(proc.returncode == 0,
-          f"service client {mode} {wire}: {proc.stderr[-3000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def service_client_result(proc: subprocess.Popen, mode: str, wire: str):
+    """The last line of a started client, once it has exited 0."""
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    check(proc.returncode == 0, f"service client {mode} {wire}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def service_client(mode: str, url: str, wire: str, head: dict, *args):
+    """One run of ``SERVICE_CLIENT_SRC`` in a process of its own."""
+    return service_client_result(
+        service_client_start(mode, url, wire, head, *args), mode, wire)
 
 
 def codec_seconds() -> dict:
@@ -3580,11 +3650,12 @@ def host_steps(img) -> dict:
     return out
 
 
-def slot_converge_plan(filt, iters: int, block_hw) -> dict:
+def slot_converge_plan(filt, iters: int, block_hw,
+                       check_every: int = 10) -> dict:
     """The per-slot launches of a ``cuda_rdma`` u8 fuse-8 converge on 2x2
-    slots that ran ``iters`` iterations (check every 10): the one-card
-    plan's K3 / K4 launch a chunk is one a slot."""
-    plan = expected_converge_launches(filt, "cuda_rdma", 8, 10, iters,
+    slots that ran ``iters`` iterations: the one-card plan's K3 / K4
+    launch a chunk is one a slot."""
+    plan = expected_converge_launches(filt, "cuda_rdma", 8, check_every, iters,
                                       CONVERGE_CLI_MAX, (2, 2), block_hw)
     for k in ("rdma_block", "rdma_tiled"):
         plan[k + "_slot"] += 4 * plan.pop(k)
@@ -3630,17 +3701,18 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
             runs.setdefault(label, dict.fromkeys(counts, 0))[k] += v
         return res, counts
 
-    # Sixteen distinct images: phase 4l's eight and eight more, each with
-    # the plain shifted run's bytes.
+    # SERVICE_REQUESTS distinct images: phase 4l's eight (and more), each
+    # with the plain shifted run's bytes; phase 4n takes them over.
     rgbs, wants = keep.pop("engine_wave")
     plain = ConvolutionModel("blur3", backend="shifted", device=dev)
     for seed in range(len(rgbs) + 1, SERVICE_REQUESTS + 1):
         rgbs.append(imageio.generate_test_image(*RGB_HW, "rgb", seed=seed))
         wants.append(plain.run_image(rgbs[-1], ITERS))
     stencil.reset_launch_counts()   # not main-path launches
+    keep["service_imgs"] = (rgbs, wants)
     files = (work / "imgs.npy", work / "wants.npy")
-    np.save(files[0], np.stack(rgbs))
-    np.save(files[1], np.stack(wants))
+    np.save(files[0], np.stack(rgbs[:SERVICE_REQUESTS]))
+    np.save(files[1], np.stack(wants[:SERVICE_REQUESTS]))
     out["host_steps_ms"] = host_steps(rgbs[0])
     print("4m host steps a request: " + json.dumps(
         dict(out["host_steps_ms"], card=card)))
@@ -3771,10 +3843,11 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
         grey = work / "grey.npy"
         np.save(grey, refs["greys"]["blur3"])
         _, cwant, citers = keep["cli_converge"]
-        mid = (citers // 10 // 2) * 10
+        ce = SERVICE_CONVERGE_CHECK
+        mid = (citers // ce // 2) * ce
         chead = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "grey",
                  "filter": "blur3", "backend": "cuda_rdma", "storage": "u8",
-                 "fuse": 8, "quantize": True, "tol": 0.5, "check_every": 10,
+                 "fuse": 8, "quantize": True, "tol": 0.5, "check_every": ce,
                  "max_iters": CONVERGE_CLI_MAX}
         conv, streams = {}, {}
         for wire in ("frames", "json"):
@@ -3788,7 +3861,7 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
                   and rows[-1]["iters"] == citers
                   and np.array_equal(final, cwant)
                   and [r["iters"] for r in rows[:-1]]
-                  == list(range(10, citers + 1, 10)),
+                  == list(range(ce, citers + 1, ce)),
                   f"service converge {wire}: {rows[-1]['iters']} iterations "
                   f"in {len(rows)} rows, phase 4b's {citers}")
             streams[wire] = (rows, counts)
@@ -3796,7 +3869,7 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
         check(np.array_equal(np.load(work / "frames_mid.npy"),
                              np.load(work / "json_mid.npy")),
               "service converge: the middle rows of the two wires differ")
-        full = slot_converge_plan(blur3, citers, block_hw)
+        full = slot_converge_plan(blur3, citers, block_hw, ce)
         jcounts, fcounts = streams["json"][1], streams["frames"][1]
         check(all(jcounts[k] == full.get(k, 0) for k in jcounts)
               and all(fcounts[k] >= v for k, v in jcounts.items()),
@@ -3804,7 +3877,7 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
               f"the plan {full}")
         # A u8 job's row image is its exact carry, so the middle row makes
         # the token's state.
-        mrow = streams["frames"][0][mid // 10 - 1]
+        mrow = streams["frames"][0][mid // ce - 1]
         token = {k: mrow[k] for k in ("iters", "diff", "work_units",
                                       "solver")}
         state = work / "state.npy"
@@ -3815,8 +3888,8 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
                            dict(chead, resume=token), grey, -1,
                            work / "resumed", state)))
         rows = stream["rows"]
-        part = slot_converge_plan(blur3, mid, block_hw)
-        check(rows[-1]["iters"] == citers and rows[0]["iters"] == mid + 10
+        part = slot_converge_plan(blur3, mid, block_hw, ce)
+        check(rows[-1]["iters"] == citers and rows[0]["iters"] == mid + ce
               and np.array_equal(np.load(work / "resumed_final.npy"), cwant)
               and all(rcounts[k] == full.get(k, 0) - part.get(k, 0)
                       for k in rcounts),
@@ -3846,6 +3919,657 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
             svc.close()
             th.join(60)
         shutil.rmtree(work, ignore_errors=True)
+    out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4n: the fleet's front tier (ROADMAP item 8b-i)
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS = 8          # 4n: requests a key and concurrency (frames)
+FLEET_CONCURRENCY = (1, 8)
+FLEET_CRASH_ROWS = 5        # 4n: converge rows the crashed router streams
+# 4n's crash drill checks every 130 iterations: 2730 (phase 4b's count) is
+# a multiple, and a u8 carry that changed at 2720 changed at every earlier
+# iteration, so the job still stops at 2730 with the same bytes, in 21
+# rows whose 25.8 MB tokens the WAL journals (273 rows at check every 10
+# took 60.8 s of appends on an H100 80GB HBM3 host).
+FLEET_CRASH_CHECK = 130
+FLEET_LOADGEN = 16          # 4n: the loadgen entry point's requests
+FLEET_DISCONNECT_ITERS = 200  # 4n: the budget of the disconnected stream
+FLEET_WAL_SEGMENT = 1 << 30  # 4n: a config-1 token is a 25.8 MB record
+
+
+def fleet_names(keys: dict) -> dict:
+    """Three replica names, ``r0``-style, whose hash ring homes the
+    ``cuda_sep`` key and the ``cuda_rdma`` key on different replicas, and
+    the converge keys with the ``cuda_rdma`` key (so that one chaos wrapper
+    covers a convolve key and the stream, and every converge runs on 2x2
+    slots): ``{"sep": A, "rdma": B, "other": C}``."""
+    import itertools
+
+    from parallel_convolution_tpu_torch.serving.router import (
+        HashRing, route_key,
+    )
+
+    rk = {k: route_key(h) for k, h in keys.items()}
+    for names in itertools.combinations([f"r{i}" for i in range(12)], 3):
+        ring = HashRing(names)
+        home = {k: ring.candidates(v)[0] for k, v in rk.items()}
+        if home["sep"] != home["rdma"] == home["converge"] == home["crash"]:
+            other, = set(names) - {home["sep"], home["rdma"]}
+            return {"sep": home["sep"], "rdma": home["rdma"], "other": other}
+    raise SmokeFailure("no three replica names split the keys' homes")
+
+
+def reckon_replica_peak(batch: int, rows: int, cols: int, grid_shape,
+                        fuse_pad: int) -> int:
+    """Device bytes one replica's warm config-2 key holds at ``batch``
+    images: the f32 planar in and out of every image and two bf16 carries
+    of the padded extent (the block rims of a ``fuse``-deep chunk)."""
+    r, c = grid_shape
+    hp = rows + 2 * fuse_pad * r
+    wp = cols + 2 * fuse_pad * c
+    return batch * (2 * 3 * rows * cols * 4 + 2 * 3 * hp * wp * 2)
+
+
+def fleet_round(url: str, head: dict, files, conc: int, label: str,
+                card: str) -> dict:
+    """``FLEET_REQUESTS`` distinct images of one key on frames, ``conc``
+    at a time from a client process; every answer must be its image's
+    ``shifted`` bytes."""
+    got = service_client("convolve", url, "frames", head, conc, *files)
+    for i, r in enumerate(got):
+        check(r["status"] == 200 and r["equal"]
+              and r["effective_backend"] == head["backend"],
+              f"fleet {label}: request {i} {r}")
+    walls = [r["wall"] for r in got]
+    row = dict(latency_ms(walls), mean_ms=1e3 * sum(walls) / len(walls),
+               batch_sizes=sorted({r["batch_size"] for r in got}),
+               stamps=[r["router"] for r in got])
+    print(f"4n latency {label}: " + json.dumps(
+        {k: v for k, v in dict(row, card=card).items() if k != "stamps"}))
+    return row
+
+
+def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
+                keep: dict) -> dict:
+    """The fleet's front tier on the card: a ``ReplicaRouter`` over three
+    replicas (two in process, one over HTTP), its own HTTP server, and the
+    entry points; the launches counted into ``totals``.  See the module
+    docstring, phase 4n."""
+    import base64
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.obs import events, metrics
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.resilience import diskio, faults
+    from parallel_convolution_tpu_torch.serving import (
+        ChaosTransport, ConvolutionService, HTTPReplica, InProcessReplica,
+        ReplicaRouter, TenantQuotas, frames, make_http_server, router as rt,
+        wal as wal_mod,
+    )
+
+    t_start = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    metrics.set_enabled(True)
+    blur3 = get_filter("blur3")
+    work = tmp / "fleet"
+    work.mkdir(parents=True, exist_ok=True)
+    log = events.configure(work / "events.jsonl", max_bytes=64 << 20)
+    out = {"card": card, "latency": {}, "hop_ms": {}, "steps_s": {}}
+    runs = {}
+    mark = [time.perf_counter()]
+
+    def step_done(name):
+        now = time.perf_counter()
+        out["steps_s"][name] = now - mark[0]
+        mark[0] = now
+
+    def counted(label, fn):
+        stencil.reset_launch_counts()
+        res = fn()
+        counts = stencil.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+            runs.setdefault(label, dict.fromkeys(counts, 0))[k] += v
+        return res, counts
+
+    def nvcc_builds() -> int:
+        return sum(1 for r in events.read_events(log.path)
+                   if r["kind"] == "compile" and r.get("builder") == "nvcc")
+
+    rgbs, wants = keep.pop("service_imgs")
+    files = (work / "imgs.npy", work / "wants.npy")
+    np.save(files[0], np.stack(rgbs[:FLEET_REQUESTS]))
+    np.save(files[1], np.stack(wants[:FLEET_REQUESTS]))
+    base = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "rgb",
+            "filter": "blur3", "iters": ITERS}
+    heads = {
+        "sep": dict(base, backend="cuda_sep", storage="bf16", fuse=32),
+        "rdma": dict(base, backend="cuda_rdma", storage="bf16", fuse=32,
+                     col_mode="strided"),
+    }
+    _, cwant, citers = keep["cli_converge"]
+    chead = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "grey",
+             "filter": "blur3", "backend": "cuda_rdma", "storage": "u8",
+             "fuse": 8, "quantize": True, "tol": 0.5, "check_every": 10,
+             "max_iters": CONVERGE_CLI_MAX}
+    crash_head = dict(chead, check_every=FLEET_CRASH_CHECK)
+    names = fleet_names(dict(heads, converge=chead, crash=crash_head))
+    out["names"] = names
+    slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
+    grids = {names["sep"]: mesh.make_grid((1, 1), dev),
+             names["rdma"]: slots4, names["other"]: slots4}
+    block_hw = tuple(mesh.padded_extent(v, 2) // 2 for v in RGB_HW)
+    plans = {"sep": expected_launches(blur3, 32, RGB_HW),
+             "rdma": expected_slot_launches(blur3, 32, (2, 2), block_hw,
+                                            False)}
+    peaks = {n: reckon_replica_peak(8, *RGB_HW, g.shape, 32)
+             for n, g in grids.items()}
+    print("4n replica peaks reckoned (batch 8, bytes): " + json.dumps(peaks))
+
+    def factory(name):
+        def make():
+            return ConvolutionService(grids[name], max_batch=8,
+                                      max_delay_s=0.005, max_queue=64,
+                                      fallback=False)
+        return make
+
+    def key_of(svc, head):
+        return svc.engine.key_for(
+            (3, *RGB_HW), filter_name="blur3", storage=head["storage"],
+            iters=ITERS, fuse=32, boundary="zero", quantize=True,
+            backend=head["backend"], overlap=None,
+            col_mode=head.get("col_mode"))
+
+    servers, routers = [], []
+
+    def serve(obj, make):
+        srv = make(obj, "127.0.0.1", 0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        servers.append((srv, th))
+        return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def stop(srv):
+        for i, (s, th) in enumerate(servers):
+            if s is srv:
+                s.shutdown()
+                s.server_close()
+                th.join(60)
+                del servers[i]
+                return
+
+    a_name, b_name, c_name = names["sep"], names["rdma"], names["other"]
+    grey = refs["greys"]["blur3"]
+    np.save(work / "grey.npy", grey)
+    rep_a = rep_b = svc_c = None
+    try:
+        torch.cuda.synchronize()
+        m_empty = torch.cuda.memory_allocated()
+        rep_a = InProcessReplica(factory(a_name), name=a_name)
+        rep_b = InProcessReplica(factory(b_name), name=b_name)
+        svc_c = factory(c_name)()
+        _, c_url = serve(svc_c, make_http_server)
+        rep_c = HTTPReplica(c_url, name=c_name, timeout=600)
+        chaos_b = ChaosTransport(rep_b, seed=17, latency_s=1.0)
+        svcs = {a_name: lambda: rep_a.service, b_name: lambda: rep_b.service,
+                c_name: lambda: svc_c}
+        for name, get in svcs.items():
+            snap = get().snapshot()
+            check(snap["platform"] == "gpu" and snap["device_kind"] == kind,
+                  f"fleet: replica {name} reports {snap['platform']} "
+                  f"{snap['device_kind']!r}, not the card {kind!r}")
+        # Each key warm on its ring home only, batch sizes 1-8; an engine's
+        # warm footprint is its peak over the warm-up (its runners hold
+        # next to nothing between batches).
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        for k, name in (("sep", a_name), ("rdma", b_name)):
+            svc = svcs[name]()
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            counted(f"4n warm {k} on {name}", lambda: svc.engine.warmup(
+                [key_of(svc, heads[k])], batch_sizes=range(1, 9)))
+            torch.cuda.synchronize()
+            m1 = torch.cuda.memory_allocated()
+            out.setdefault("warm", {})[k] = {
+                "replica": name, "seconds": time.perf_counter() - t0,
+                "held_bytes": m1 - m0,
+                "footprint_bytes": torch.cuda.max_memory_allocated() - m0}
+            m0 = m1
+        print("4n warm: " + json.dumps(dict(out["warm"], card=card,
+                                            replicas_bytes=m0 - m_empty)))
+        quotas = TenantQuotas(rate=1000.0, burst=1000.0,
+                              overrides={"greedy": (0.05, 2.0)})
+        # load_factor 4: a burst of one max_batch (8) stays on its home
+        # (at the default of 2 the bounded-load cap spills a third of it).
+        router = ReplicaRouter([rep_a, chaos_b, rep_c], quotas=quotas,
+                               load_factor=4.0, breaker_cooldown_s=0.5,
+                               poll_interval_s=0.25)
+        routers.append(router)
+        rsrv, r_url = serve(router, rt.make_router_http_server)
+        out["backlog"] = rsrv.request_queue_size
+        step_done("0 set-up")
+        check(out["backlog"] >= 8, "fleet: the router's backlog is "
+              f"{out['backlog']}, under a burst of max_batch")
+
+        # (1) Partition: each key on its home, through the router and
+        # straight at the home, at concurrency 1 and 8.
+        for k, name in (("sep", a_name), ("rdma", b_name)):
+            svc = svcs[name]()
+            rows = {}
+            for conc in FLEET_CONCURRENCY:
+                b0 = svc.engine.stats["batches"]
+                row, counts = counted(f"4n router {k} concurrency {conc}",
+                                      lambda: fleet_round(
+                                          r_url, heads[k], files, conc,
+                                          f"router {k} concurrency {conc}",
+                                          card))
+                nb = svc.engine.stats["batches"] - b0
+                want = {x: v * nb for x, v in plans[k].items()}
+                check(all(counts[x] == want.get(x, 0) for x in counts),
+                      f"fleet {k}: launches {counts}, the plan {want} for "
+                      f"{nb} batches")
+                check(all(s["replica"] == s["home"] == name
+                          and s["failovers"] == 0 for s in row.pop("stamps")),
+                      f"fleet {k}: a request left its home {name}")
+                dsrv, d_url = serve(svc, make_http_server)
+                direct, _ = counted(f"4n direct {k} concurrency {conc}",
+                                    lambda: fleet_round(
+                                        d_url, heads[k], files, conc,
+                                        f"direct {k} concurrency {conc}",
+                                        card))
+                stop(dsrv)
+                direct.pop("stamps")
+                rows[f"concurrency {conc}"] = {"router": row,
+                                               "direct": direct,
+                                               "batches": nb}
+                out["hop_ms"][f"{k} concurrency {conc}"] = (
+                    row["p50_ms"] - direct["p50_ms"])
+            out["latency"][k] = rows
+        for k, name in (("sep", a_name), ("rdma", b_name)):
+            resident = [n for n, get in svcs.items()
+                        if key_of(get(), heads[k]) in get().engine._entries]
+            check(resident == [name], f"fleet: key {k} resident on "
+                  f"{resident}, its home is {name}")
+        print("4n router hop ms (router p50 - direct p50, frames): "
+              + json.dumps(dict(out["hop_ms"], card=card)))
+        step_done("1 partition")
+
+        # (2) Failover: the cuda_sep key's home killed mid-round.
+        torch.cuda.synchronize()
+        a_warm = out["warm"]["sep"]["footprint_bytes"]
+        builds0 = nvcc_builds()
+        state_a = router._replicas[a_name]
+        done0 = state_a.stats["completed"]
+        proc = service_client_start("convolve", r_url, "frames",
+                                    heads["sep"], 1, *files)
+        deadline = time.perf_counter() + 300
+        while state_a.stats["completed"] < done0 + 3:
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                proc.kill()
+                proc.wait()
+                raise SmokeFailure("fleet failover: the round ended (or "
+                                   "stalled) before the kill")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        m_before = torch.cuda.memory_allocated()
+        stencil.reset_launch_counts()
+        rep_a.kill()
+        got = service_client_result(proc, "convolve", "frames")
+        counts = stencil.launch_counts()
+        for x, v in counts.items():
+            totals[x] += v
+            runs.setdefault("4n failover round", dict.fromkeys(counts, 0))[
+                x] += v
+        for i, r in enumerate(got):
+            check((r["status"] == 200 and r["equal"])
+                  or (r["rejected"] and r["retryable"]),
+                  f"fleet failover: request {i} {r}")
+        stamps = [r["router"] for r in got if r["status"] == 200]
+        # A failover as a client sees it (loadgen's failovers_observed):
+        # a failed dispatch, or an answer off the home (the health poll
+        # marked it unready first and the walk spilled past it).
+        moved = [s for s in stamps if s["replica"] != a_name]
+        check(moved and all(s["failovers"] >= 1 or s["spills"] >= 1
+                            for s in moved),
+              f"fleet failover: no failover stamped {stamps}")
+        rehomes = {s["replica"] for s in moved}
+        resident = [n for n in (b_name, c_name)
+                    if key_of(svcs[n](), heads["sep"])
+                    in svcs[n]().engine._entries]
+        check(len(rehomes) == 1 and set(resident) == rehomes,
+              f"fleet failover: re-homed on {rehomes}, resident on "
+              f"{resident}")
+        gc.collect()
+        torch.cuda.synchronize()
+        m_killed = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rep_a.revive()
+        counted("4n revive warm", lambda: rep_a.service.engine.warmup(
+            [key_of(rep_a.service, heads["sep"])], batch_sizes=range(1, 9)))
+        torch.cuda.synchronize()
+        m_after = torch.cuda.memory_allocated()
+        revive_s = time.perf_counter() - t0
+        builds = nvcc_builds() - builds0
+        check(builds == 0, f"fleet revive: {builds} nvcc builds")
+        check(m_after - m_before <= a_warm,
+              f"fleet revive: {m_after - m_before} bytes more than before "
+              f"the kill, above one engine's warm footprint {a_warm}")
+        out["failover"] = {
+            "requests": len(got), "completed": len(stamps),
+            "shed": len(got) - len(stamps),
+            "failovers": sum(s["failovers"] for s in stamps),
+            "failovers_observed": len(moved),
+            "rehome": sorted(rehomes), "revive_s": revive_s,
+            "nvcc_builds": builds, "bytes_before_kill": m_before,
+            "bytes_killed": m_killed, "bytes_after_revive": m_after,
+            "warm_footprint": a_warm}
+        print("4n failover: " + json.dumps(dict(out["failover"], card=card)))
+        router.poll_once()
+        step_done("2 failover")
+
+        # (3) Tenants: the greedy one overruns its bucket, the polite one
+        # never notices.
+        body0 = dict(heads["sep"], image_b64=base64.b64encode(
+            rgbs[0].tobytes()).decode("ascii"))
+        outcomes = {"greedy": [], "polite": []}
+        for tenant in ("greedy", "greedy", "greedy", "polite", "greedy",
+                       "polite"):
+            (status, wire), _ = counted("4n tenants", lambda: router.request(
+                dict(body0), tenant=tenant))
+            outcomes[tenant].append((status, wire.get("rejected"),
+                                     wire.get("retryable"),
+                                     wire.get("retry_after_s")))
+            if status == 200:
+                check(base64.b64decode(wire["image_b64"])
+                      == wants[0].tobytes(), f"fleet tenants: {tenant} bytes")
+        check(any(o[:3] == (429, "tenant_quota", True) and o[3] > 0
+                  for o in outcomes["greedy"])
+              and all(o[0] == 200 for o in outcomes["polite"]),
+              f"fleet tenants: {outcomes}")
+        out["tenants"] = outcomes
+        step_done("3 tenants")
+
+        # (4) Hedge and chaos on the cuda_rdma key's home.
+        body_r = dict(heads["rdma"], image_b64=base64.b64encode(
+            rgbs[1].tobytes()).decode("ascii"))
+        want_r = wants[1].tobytes()
+
+        def answer_ok(wire):
+            return (wire.get("ok") and base64.b64decode(
+                wire["image_b64"]) == want_r)
+
+        svc_b = rep_b.service
+        chaos = {}
+        # A dropped response after the work ran: one replica's router says
+        # retryable, the retry is served from B's dedup ledger.
+        solo = ReplicaRouter([chaos_b], start_health=False)
+        routers.append(solo)
+        b0, d0 = svc_b.engine.stats["batches"], svc_b.stats["deduped"]
+        chaos_b.modes["transport_recv"] = "drop"
+        with faults.injected("transport_recv:1", seed=17):
+            (s1, w1), _ = counted("4n chaos recv drop", lambda: solo.request(
+                dict(body_r, request_id="recv-drop")))
+            (s2, w2), _ = counted("4n chaos recv retry", lambda: solo.request(
+                dict(body_r, request_id="recv-drop")))
+        check(s1 == 503 and w1["rejected"] == "replica_unavailable"
+              and w1["retryable"] and s2 == 200 and answer_ok(w2)
+              and svc_b.engine.stats["batches"] - b0 == 1
+              and svc_b.stats["deduped"] - d0 == 1,
+              f"fleet chaos recv drop: {s1} {w1.get('rejected')}, {s2}, "
+              f"batches {svc_b.engine.stats['batches'] - b0}")
+        chaos["recv_drop"] = {"first": s1, "retry": s2, "batches": 1}
+        # A hedge past a slow send.
+        hedged = ReplicaRouter([rep_a, chaos_b, rep_c], hedge_s=0.25,
+                               start_health=False)
+        routers.append(hedged)
+        chaos_b.modes["transport_send"] = "latency"
+        with faults.injected("transport_send:1", seed=17):
+            t0 = time.perf_counter()
+            (s, w), _ = counted("4n hedge", lambda: hedged.request(
+                dict(body_r, request_id="hedge-1")))
+            hedge_ms = 1e3 * (time.perf_counter() - t0)
+        check(s == 200 and answer_ok(w) and hedged.stats["hedges"] == 1,
+              f"fleet hedge: {s}, hedges {hedged.stats['hedges']}")
+        chaos["hedge"] = {"ms": hedge_ms, "replica": w["router"]["replica"],
+                          "hedges": hedged.stats["hedges"]}
+        # A disconnect mid-stream resumes on the next ring candidate: the
+        # job's budget cut to FLEET_DISCONNECT_ITERS, whose final is the
+        # plain run of that many iterations (u8 carries are exact).
+        cbody = dict(chead, image_b64=base64.b64encode(
+            grey.tobytes()).decode("ascii"), request_id="disconnect",
+            max_iters=FLEET_DISCONNECT_ITERS)
+        dwant = ConvolutionModel("blur3", backend="shifted",
+                                 device=dev).run_image(
+                                     grey, FLEET_DISCONNECT_ITERS)
+        stencil.reset_launch_counts()   # not main-path launches
+
+        def whole_stream():
+            st, rows = router.converge(dict(cbody))
+            return st, list(rows)
+
+        t0 = time.perf_counter()
+        with faults.injected("transport_stream:5", seed=17):
+            (status, rows), counts = counted("4n chaos disconnect",
+                                             whole_stream)
+        last = rows[-1]
+        check(status == 200 and last["kind"] == "final"
+              and last["iters"] == FLEET_DISCONNECT_ITERS
+              and last["router"].get("resume_count") == 1
+              and rows[4]["iters"] == 50
+              and base64.b64decode(last["image_b64"]) == dwant.tobytes(),
+              f"fleet chaos disconnect: {len(rows)} rows, last "
+              f"{last.get('kind')} at {last.get('iters')}, "
+              f"{last.get('router')}")
+        chaos["disconnect"] = {"seconds": time.perf_counter() - t0,
+                               "rows": len(rows),
+                               "resumed_on": last["router"]["replica"],
+                               "launches": counts}
+        # Corrupt bodies open B's breaker and the key fails over (then
+        # spills past the open breaker, or, where a request outlasts the
+        # cooldown, fails over from each half-open probe).
+        chaos_b.modes["transport_recv"] = "corrupt"
+        snap0 = router.snapshot()["replicas"][b_name]
+        stamps = []
+        with faults.injected("transport_recv:*", seed=17):
+            for i in range(4):
+                (s, w), _ = counted("4n chaos corrupt", lambda: router.request(
+                    dict(body_r, request_id=f"corrupt-{i}")))
+                check(s == 200 and answer_ok(w),
+                      f"fleet chaos corrupt: request {i} {s}")
+                stamps.append(w["router"])
+        snap = router.snapshot()["replicas"][b_name]
+        corrupt = snap["corrupt_responses"] - snap0["corrupt_responses"]
+        opened = snap["breaker"]["opened"] - snap0["breaker"]["opened"]
+        check(corrupt >= 1 and opened >= 1
+              and snap["breaker"]["state"] == "open"
+              and stamps[0]["failovers"] == 1
+              and all(st["replica"] != b_name
+                      and st["failovers"] + st["spills"] >= 1
+                      for st in stamps),
+              f"fleet chaos corrupt: {snap}, {stamps}")
+        chaos["corrupt"] = {"stamps": stamps, "corrupt_responses": corrupt,
+                            "breaker_opened": opened,
+                            "breaker": snap["breaker"]["state"]}
+        chaos["injected"] = dict(chaos_b.injected)
+        out["chaos"] = chaos
+        print("4n chaos: " + json.dumps(dict(chaos, card=card)))
+        time.sleep(0.6)    # B's breaker half-opens
+        step_done("4 hedge and chaos")
+
+        # (5) A durable converge across a router crash, on frames.
+        wal_path = work / "router.wal"
+        wal_times = {"append": [0, 0.0], "fsync": [0, 0.0]}
+        real_append, real_fsync = wal_mod.RouterWAL.append, diskio.guarded_fsync
+
+        def timed_append(self, kind, **fields):
+            t = time.perf_counter()
+            try:
+                return real_append(self, kind, **fields)
+            finally:
+                wal_times["append"][0] += 1
+                wal_times["append"][1] += time.perf_counter() - t
+
+        def timed_fsync(site, fh):
+            t = time.perf_counter()
+            try:
+                return real_fsync(site, fh)
+            finally:
+                wal_times["fsync"][0] += 1
+                wal_times["fsync"][1] += time.perf_counter() - t
+
+        wal_mod.RouterWAL.append, diskio.guarded_fsync = (timed_append,
+                                                          timed_fsync)
+        try:
+            w1 = ReplicaRouter([rep_a, chaos_b, rep_c], wal=wal_mod.RouterWAL(
+                wal_path, max_bytes=FLEET_WAL_SEGMENT), start_health=False)
+            routers.append(w1)
+            env = frames.encode_envelope(
+                dict(crash_head, request_id="crash", tenant="ops"),
+                {"image": grey})
+            header, arrays = frames.decode_envelope(env)
+            header.pop("_frame_fields", None)
+            t0 = time.perf_counter()
+            status, stream = w1.converge(
+                rt._frames_converge_to_json(header, arrays), tenant="ops")
+            consumed = []
+            for row in stream:
+                h, _ = frames.decode_envelope(rt._reframe_row(row))
+                consumed.append(h)
+                if len(consumed) == FLEET_CRASH_ROWS:
+                    break          # the crash: the stream abandoned unclosed
+            crash_s = time.perf_counter() - t0
+            w2 = ReplicaRouter([rep_a, chaos_b, rep_c], wal=wal_mod.RouterWAL(
+                wal_path, max_bytes=FLEET_WAL_SEGMENT), start_health=False)
+            routers.append(w2)
+            zs, zw = w1.request(dict(body0, request_id="zombie"),
+                                tenant="ops")
+            check(zs == 409 and zw["rejected"] == "stale_epoch"
+                  and zw["retryable"] is False,
+                  f"fleet crash: the zombie router got {zs} {zw}")
+            w1.close(close_replicas=False)
+            stream.close()
+            _, w2_url = serve(w2, rt.make_router_http_server)
+            t0 = time.perf_counter()
+            retry, counts = counted("4n crash retry", lambda: service_client(
+                "converge", w2_url, "frames",
+                dict(crash_head, request_id="crash", tenant="ops"),
+                work / "grey.npy", -1, work / "crash"))
+            retry_s = time.perf_counter() - t0
+        finally:
+            wal_mod.RouterWAL.append, diskio.guarded_fsync = (real_append,
+                                                              real_fsync)
+        rrows = retry["rows"]
+        final = np.load(work / "crash_final.npy")
+        finals = sum(r["kind"] == "final" for r in consumed + rrows)
+        check(status == 200 and w2.epoch > w1.epoch
+              and w2.recovery["jobs_restored"] == 1
+              and rrows[0]["iters"] == consumed[-1]["iters"]
+              + FLEET_CRASH_CHECK
+              and rrows[-1]["kind"] == "final"
+              and rrows[-1]["iters"] == citers and finals == 1
+              and rrows[-1]["router"]["resume_count"] >= 1
+              and rrows[-1]["router"]["epoch"] == w2.epoch
+              and np.array_equal(final, cwant),
+              f"fleet crash: crashed at {consumed[-1]['iters']}, the retry "
+              f"from {rrows[0]['iters']} to {rrows[-1]['iters']} "
+              f"({rrows[-1]['kind']}), finals {finals}, epochs "
+              f"{w1.epoch} -> {w2.epoch}, {w2.recovery}")
+        out["crash"] = {
+            "crashed_at": consumed[-1]["iters"], "crash_s": crash_s,
+            "resumed_from": rrows[0]["iters"] - FLEET_CRASH_CHECK,
+            "retry_s": retry_s,
+            "retry_rows": len(rrows), "epochs": [w1.epoch, w2.epoch],
+            "recovery": w2.recovery, "zombie": [zs, zw["rejected"]],
+            "wal": {"appends": wal_times["append"][0],
+                    "append_s": wal_times["append"][1],
+                    "fsyncs": wal_times["fsync"][0],
+                    "fsync_s": wal_times["fsync"][1],
+                    "snapshot": w2.wal.snapshot()},
+            "launches": counts}
+        print("4n crash: " + json.dumps(dict(out["crash"], card=card)))
+        step_done("5 crash")
+
+        # (6) The entry points: loadgen through the router, route's help
+        # and its item-8b-ii refusal.
+        loadgen_argv = [
+            sys.executable, "-m", "parallel_convolution_tpu_torch.serving."
+            "loadgen", "--target", r_url, "--wire", "frames", "--n",
+            str(FLEET_LOADGEN), "--concurrency", "4", "--rows",
+            str(RGB_HW[0]), "--cols", str(RGB_HW[1]), "--mode", "rgb",
+            "--filter", "blur3", "--iters", str(ITERS), "--backend",
+            "cuda_sep", "--storage", "bf16", "--fuse", "32", "--seed", "3"]
+        here = Path(__file__).resolve().parent
+        route_cmd = [sys.executable, "-m",
+                     "parallel_convolution_tpu_torch.serving.route"]
+        # route's two runs import the package (torch) while loadgen runs.
+        procs = [subprocess.Popen(route_cmd + flags, cwd=here,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for flags in (["--help"], ["--shards", "2"])]
+        try:
+            t0 = time.perf_counter()
+            lg, counts = counted("4n loadgen", lambda: subprocess.run(
+                loadgen_argv, capture_output=True, text=True, timeout=600,
+                cwd=here))
+            lg_s = time.perf_counter() - t0
+            (h_out, _), (_, s_err) = (pr.communicate(timeout=120)
+                                      for pr in procs)
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        check(lg.returncode == 0, f"fleet loadgen: rc {lg.returncode} "
+              f"{lg.stderr[-2000:]}")
+        lrow = json.loads(lg.stdout.strip().splitlines()[-1])
+        check(lrow["completed"] == FLEET_LOADGEN
+              and lrow["non_rejected_failures"] == 0
+              and lrow["p50_ms"] and lrow["p99_ms"]
+              and "failovers_observed" in lrow
+              and lrow["effective_backend"] == "cuda_sep",
+              f"fleet loadgen: {lrow}")
+        out["loadgen"] = {k: lrow.get(k) for k in (
+            "completed", "p50_ms", "p95_ms", "p99_ms", "failovers_observed",
+            "replicas_seen", "batch_mean", "gpixels_per_s", "wall_s")}
+        out["loadgen"].update(seconds=lg_s, launches=counts)
+        print("4n loadgen: " + json.dumps(dict(out["loadgen"], card=card)))
+        check(procs[0].returncode == 0 and "usage" in h_out
+              and procs[1].returncode == 2 and "item 8b-ii" in s_err,
+              f"fleet route: --help {procs[0].returncode}, --shards 2 "
+              f"{procs[1].returncode} {s_err[-500:]}")
+        out["stats"] = router.snapshot()["router"]
+        status, payload = router.readyz()
+        check(status == 200 and payload["ready"],
+              f"fleet: the router is not ready at the end: {payload}")
+        step_done("6 entry points")
+    finally:
+        for r in routers:
+            r.close(close_replicas=False)
+        for srv, th in servers:
+            srv.shutdown()
+            srv.server_close()
+            th.join(60)
+        for obj in (rep_a, rep_b, svc_c):
+            if obj is not None:
+                obj.close()
+        shutil.rmtree(work, ignore_errors=True)
+    fired = [f for f in ("fused_iterate", "rdma_tiled_slot")
+             if not any(r.get(f) for r in runs.values())]
+    check(not fired, f"fleet: {fired} never launched in phase 4n")
     out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
     out["seconds"] = time.perf_counter() - t_start
     return out
@@ -4111,7 +4835,7 @@ def ckpt_slots_argv(src: Path, dst: Path, ck: Path, mesh_spec: str,
 def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
                      field, volume_sha: str, mg_shifted) -> dict:
     """Phase 4j: (a) BASELINE config 5 under the V-cycle (32768² jacobi3,
-    tol 1e-3, 200 work units) on 2x2 slots with ``cuda`` (K1 per slot) and
+    tol 1e-3, 100 work units) on 2x2 slots with ``cuda`` (K1 per slot) and
     ``cuda_rdma`` (K3 / K4 per slot), each bit-equal to the one-card 2x2
     run of its backend (its field kept on the host, the card's copy freed
     before the slot run) and both to phase 4d's plain ``shifted`` field
@@ -5566,6 +6290,7 @@ def main() -> int:
         now = time.perf_counter()
         laps[name] = now - last
         last = now
+        print(f"phase {name}: {laps[name]:.2f} s", flush=True)
 
     try:
         card = card_line()
@@ -5628,6 +6353,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             served = service_phase(dev, Path(tmp), refs, totals, keep)
             lap("4m the service over HTTP")
+            torch.cuda.empty_cache()
+            fleet = fleet_phase(dev, Path(tmp), refs, totals, keep)
+            lap("4n the fleet's front tier")
             torch.cuda.empty_cache()
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep["config5"], converge_rows[0], keep)
@@ -5751,6 +6479,9 @@ def main() -> int:
         for row in served.pop("runs"):
             print("end to end 4m: " + json.dumps(row))
         print("4m: " + json.dumps(served))
+        for row in fleet.pop("runs"):
+            print("end to end 4n: " + json.dumps(row))
+        print("4n: " + json.dumps(fleet))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 

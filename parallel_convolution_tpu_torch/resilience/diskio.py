@@ -17,10 +17,9 @@ like:
 With no mode installed for a triggered site the raw
 :class:`~.faults.InjectedFault` re-raises untranslated.  With no fault
 plan installed at all, a consult is one global load and an ``is None``
-test.  The checkpoints, the result cache (``serving/cache.py``), the event
-log (``obs.events``) and ``utils.evidence_io`` consult their sites here;
-the write-ahead log's sites (``wal_write``, ``wal_fsync``) come with the
-fleet (ROADMAP item 8b).
+test.  The router's write-ahead log (``serving/wal.py``), the checkpoints,
+the result cache (``serving/cache.py``), the event log (``obs.events``)
+and ``utils.evidence_io`` consult their sites here.
 
 Stdlib only.
 """
@@ -57,10 +56,12 @@ DISK_SITES = {
     "evidence_write": ("enospc", "eio", "torn_write", "slow_write"),
 }
 
-# Literal consults of the sites the port reaches: its checkpoints, the
-# result cache's spill and promote, the event log and the shared-evidence
-# writer.
+# Literal consults of the sites the port reaches: the write-ahead log's
+# appends and fsyncs, its checkpoints, the result cache's spill and
+# promote, the event log and the shared-evidence writer.
 _CONSULTS = {
+    "wal_write": lambda: fault_point("wal_write"),
+    "wal_fsync": lambda: fault_point("wal_fsync"),
     "checkpoint_write_shard":
         lambda: fault_point("checkpoint_write_shard"),
     "checkpoint_write_meta":

@@ -23,12 +23,27 @@ replica's service over the card.
 ``frontend.py`` ``InProcessClient`` and the stdlib HTTP server (both
                 wires, NDJSON and framed streams).
 ``serve.py``    ``python -m parallel_convolution_tpu_torch.serving.serve``.
+``router.py``   the fleet's front tier: a consistent-hash router over N
+                replicas (in process or over HTTP) with bounded-load
+                spill, breakers, hedging, failover of idempotent work,
+                tenant token buckets, durable converge streams that
+                resume mid-stream, and its own HTTP server.
+``wal.py``      the router's write-ahead log (CRC'd records, rotation
+                with a head snapshot, torn-tail tolerance, quarantine):
+                fencing epochs and exactly-once finals across a crash.
+``chaos.py``    the chaos transport: seeded network-shaped failures at
+                the ``PCTPU_FAULTS`` transport sites.
+``route.py``    ``python -m parallel_convolution_tpu_torch.serving.route``
+                (the router over in-process or HTTP replicas).
+``loadgen.py``  ``python -m parallel_convolution_tpu_torch.serving.loadgen``
+                (closed / open-loop load, one summary row).
 
-The fleet (router, write-ahead log, peers, autoscaler, chaos transport) is
-ROADMAP item 8b: its names raise ``NotImplementedError`` naming the item.
+The rest of the fleet (``peers.py``, ``autoscaler.py``) is ROADMAP item
+8b-ii: its names raise ``NotImplementedError`` naming the item.
 """
 
 from parallel_convolution_tpu_torch.serving.batcher import MicroBatcher, Slot
+from parallel_convolution_tpu_torch.serving.chaos import ChaosTransport
 from parallel_convolution_tpu_torch.serving.engine import (
     EngineKey, WarmEngine, bucket_extent, bucket_key,
 )
@@ -37,20 +52,24 @@ from parallel_convolution_tpu_torch.serving.frontend import (
 )
 from parallel_convolution_tpu_torch.serving.jobs import JobLedger
 from parallel_convolution_tpu_torch.serving.pricing import WorkPricer
+from parallel_convolution_tpu_torch.serving.router import (
+    CorruptReplicaBody, HTTPReplica, InProcessReplica, ReplicaRouter,
+    TenantQuotas,
+)
 from parallel_convolution_tpu_torch.serving.service import (
     ConvolutionService, Rejected, Request, Response, Snapshot,
 )
 from parallel_convolution_tpu_torch.utils.config import FLEET_ITEM, pending
 
-__all__ = ["ConvolutionService", "EngineKey", "InProcessClient", "JobLedger",
-           "MicroBatcher", "Rejected", "Request", "Response", "Slot",
-           "Snapshot", "WarmEngine", "WorkPricer", "bucket_extent",
-           "bucket_key", "make_http_server"]
+__all__ = ["ChaosTransport", "ConvolutionService", "CorruptReplicaBody",
+           "EngineKey", "HTTPReplica", "InProcessClient", "InProcessReplica",
+           "JobLedger", "MicroBatcher", "Rejected", "ReplicaRouter",
+           "Request", "Response", "Slot", "Snapshot", "TenantQuotas",
+           "WarmEngine", "WorkPricer", "bucket_extent", "bucket_key",
+           "make_http_server"]
 
-# The JAX package's serving names that a later slice ports.
-_PENDING = dict.fromkeys(
-    ("AutoScaler", "ChaosTransport", "CorruptReplicaBody", "HTTPReplica",
-     "InProcessReplica", "ReplicaRouter", "TenantQuotas"), FLEET_ITEM)
+# The JAX package's serving names (and fleet modules) a later slice ports.
+_PENDING = dict.fromkeys(("AutoScaler", "autoscaler", "peers"), FLEET_ITEM)
 
 
 def __getattr__(name: str):

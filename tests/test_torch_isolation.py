@@ -78,5 +78,7 @@ def test_scan_covers_tuning_probes_and_bench():
                  "utils/evidence_io.py", "serving/service.py",
                  "serving/frontend.py", "serving/frames.py",
                  "serving/jobs.py", "serving/cache.py", "serving/pricing.py",
+                 "serving/wal.py", "serving/router.py", "serving/chaos.py",
+                 "serving/route.py", "serving/loadgen.py",
                  "serving/serve.py", "utils/config.py", "convert.py"):
         assert name in scanned

@@ -601,10 +601,11 @@ def test_serving_exports_the_service_and_the_fleet_still_raises():
                  "Snapshot", "WorkPricer", "JobLedger", "InProcessClient",
                  "make_http_server"):
         assert name in serving.__all__ and getattr(serving, name)
-    for name in ("AutoScaler", "ChaosTransport", "CorruptReplicaBody",
-                 "HTTPReplica", "InProcessReplica", "ReplicaRouter",
-                 "TenantQuotas"):
-        with pytest.raises(NotImplementedError, match="item 8b") as e:
+    for name in ("ChaosTransport", "CorruptReplicaBody", "HTTPReplica",
+                 "InProcessReplica", "ReplicaRouter", "TenantQuotas"):
+        assert name in serving.__all__ and getattr(serving, name)
+    for name in ("AutoScaler", "peers", "autoscaler"):
+        with pytest.raises(NotImplementedError, match="item 8b-ii") as e:
             getattr(serving, name)
         assert config.FLEET_ITEM in str(e.value)
     assert not hasattr(config, "SERVICE_ITEM")

@@ -175,8 +175,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``POST /v1/warm`` with BASELINE config 2 (RGB 1920x2520 blur3 x 100)
    at ``cuda_sep`` bf16 fuse 32 on 1x1 and ``cuda_rdma`` bf16 fuse 32
    strided on 2x2 slots (batch sizes 2-8 built in process); for each key
-   8 requests on each wire (JSON with base64, binary frames) at
-   concurrency 1 and then 8 from a pool of ``urllib`` threads in a client
+   4 requests on each wire (JSON with base64, binary frames) at
+   concurrency 1 and then 8 at 8 from a pool of ``urllib`` threads in a client
    process of its own (phase 4l's eight distinct images; the cache
    emptied after each round so every request runs), every
    image the plain ``shifted`` bytes of its image and the two wires'
@@ -208,8 +208,8 @@ Phases (any failure exits non-zero and prints no result line):
    strided key (on 2x2 slots, with config 1's converge key) apart, each
    replica's peak reckoned and printed; each key warmed (batch sizes
    1-8) on its home only, its warm footprint measured;
-   ``make_router_http_server`` on port 0 (a backlog of 128).  (1) 8
-   requests a key on frames at concurrency 1 and 8 from a client process,
+   ``make_router_http_server`` on port 0 (a backlog of 128).  (1) 4
+   requests a key on frames at concurrency 1, 8 at 8, from a client process,
    through the router and straight at the home's own HTTP server, every
    answer ``shifted``'s bytes, each stamped with its home, the launches
    the plan's, p50 / p99 and the router hop (router p50 minus direct
@@ -235,10 +235,51 @@ Phases (any failure exits non-zero and prints no result line):
    HTTP server resumes from the newest durable token to phase 4b's bytes
    (2730 iterations), one final row in all; the WAL's appends, fsyncs and
    their seconds printed; (6) ``python -m ...serving.loadgen --target
-   <router> --wire frames --n 16 --concurrency 4`` at the ``cuda_sep``
+   <router> --wire frames --n 8 --concurrency 4`` at the ``cuda_sep``
    key exits 0 with p50 / p99 and ``failovers_observed``, ``python -m
-   ...serving.route --help`` exits 0 and ``--shards 2`` exits 2 naming
-   item 8b-ii; K2 and per-slot K4 launched in the phase;
+   ...serving.route --help`` exits 0 and ``--shards 2`` exits 2 with the
+   JAX script's refusal (no ``--state-dir``); K2 and per-slot K4 launched
+   in the phase;
+4o. the rest of the fleet (ROADMAP item 8b-ii), after phase 4n, counted
+   into the kernels line: (a) ``soak.main`` with ``--n 32`` and
+   ``--converge --n 8`` (seed 0) on the card, every sampled configuration
+   (backend, storage, boundary, a grid of slots, filter, fuse, tile,
+   interior split, 24-180 px) the oracle's bytes, a float-mode converge
+   ``shifted``'s bits where every tap is a power of two and within the
+   kernels' FMA tolerance elsewhere; every failing row printed whole; (b)
+   three ``ShardRouter`` s (``sA`` / ``sB`` / ``sC``, ``InProcessPeer``
+   links synced every 0.25 s, suspect after 3 misses; a 25.8 MB token
+   outweighs a 4 MB WAL segment, so every append rotates)
+   each owning one shard of a state dir, over three replicas laid out as
+   4n's (one on 1x1, two on 2x2 slots): four ``ShardClient`` threads send
+   config 2 (``cuda_sep`` bf16 fuse 32, ``iters`` scanned from 100 until
+   every shard has a key) on frames to the two shards that survive, every
+   answer ``shifted``'s bytes; config 1's converge (``cuda_rdma`` u8 fuse
+   8 on 2x2 slots, tol 0.5, check every 130) on the third shard, its owner
+   ``hard_stop``-ped after 5 rows; one fenced takeover by the successor
+   (the epoch bumped), the client's map refreshed and the job resumed to
+   phase 4b's bytes and 2730 iterations with one final, the zombie refused
+   ``stale_epoch``, no non-rejected failure on the surviving shards and
+   their p99 through the takeover at most 5x their pre-kill p99 + 25 ms;
+   (d) a ``ReplicaRouter`` over one 1x1 replica (max_batch 1, queue 16)
+   with ``AutoScaler`` (min 1, max 3, ticks of 0.25 s, cooldown 1 s): 8
+   closed-loop config-2 clients over six keys until the pool grows, the
+   grown replica's pre-warmed keys then served by it with no new runner
+   and no ``compile`` event, the clients idle until it shrinks back to 1,
+   every answer ``shifted``'s bytes, the device memory after the shrink
+   within one replica's warm footprint of before the growth, and ``route
+   --autoscale-max 2`` booted with the scaler on its boot line; (c) three
+   ``python -m ...serving.route --shards 3`` processes on the card (booted
+   at the start of the phase, each warmed with one request during (d)),
+   ``serving.loadgen --shardmap`` sending 16 config-2 requests at
+   concurrency 4 with ``--check-against`` ``shifted``'s answer, the owner
+   of their shard SIGKILLed after it served 2: no non-rejected failure,
+   every answer the bytes, the map refreshed past the kill; (e) the soak's
+   drills at the JAX script's sizes on the card: ``--shard-kill 1``,
+   ``--autoscale 1``, ``--router-kill 1``, ``--chaos 1``,
+   ``--router-restart 1``, ``--chaos-matrix 1`` in process and ``--faults
+   1``, ``--serve --faults 1`` as children from the start of the phase;
+   each step's seconds printed;
 4j. the rest on a grid of slots and a grid over two processes (ROADMAP
    item 10c), after phase 4d, counted into the kernels line: BASELINE
    config 5 under the V-cycle (32768², jacobi3, tol 1e-3, 100 work units)
@@ -400,7 +441,8 @@ ENGINE_WAVE = 8            # 4l: concurrent requests a wave (max_batch)
 ENGINE_SINGLES = 8         # 4l: lone requests for the batch-1 latency
 ENGINE_WAVES = 2           # 4l: waves for the batch-8 latency
 ENGINE_VOLUME_SWEEPS = 5   # 4l: the fd7 512^3 volume key
-SERVICE_REQUESTS = 8       # 4m: requests a key, wire and concurrency
+SERVICE_REQUESTS = 8       # 4m: requests a key, wire and concurrency 8
+SERVICE_LONE = 4           # 4m: ... at concurrency 1
 SERVICE_CONCURRENCY = (1, 8)
 SERVICE_VOLUME_N = 256     # 4m: the fd7 volume request (2 x 256^3 f32)
 # 4m's converge streams check every 130 iterations (21 rows; 273 at 10):
@@ -1720,7 +1762,8 @@ def converge_phase(dev, tmp: Path, totals: dict, keep: dict) -> list:
           f"{iters} iterations")
     check(out.shape == (1, H, W) and bool(np.isfinite(out).all()),
           f"{label}: result not finite or of shape {out.shape}")
-    _, warm = host_seconds(lambda: solver.solve(x))
+    # No second solve from the host (a 4.3 GB copy each way, 3.3 s on an
+    # H100 80GB HBM3 host): first and resident are timed.
     xd = torch.from_numpy(x).to(dev)
     del x
     _, resident = host_seconds(lambda: step.sharded_converge(
@@ -1786,10 +1829,9 @@ def converge_phase(dev, tmp: Path, totals: dict, keep: dict) -> list:
         "final_diff": diff, "final_diff_shifted": ref_diffs[-1][1],
         "converged": diff < 1e-3, "launches": counts, "readbacks": reads,
         "max_abs_err": err,
-        "input_s": make_s, "seconds_first": first, "seconds_warm": warm,
+        "input_s": make_s, "seconds_first": first,
         "seconds_resident": resident,
         "gpx_per_s_first": iters * px / first / 1e9,
-        "gpx_per_s_warm": iters * px / warm / 1e9,
         "gpx_per_s_resident": iters * px / resident / 1e9,
         "k2_T9_ms": k2_ms, "k1_ms": k1_ms, "diff_ms": diff_ms,
         "kernel_ms": (counts["fused_iterate"] * k2_ms
@@ -3713,6 +3755,9 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
     files = (work / "imgs.npy", work / "wants.npy")
     np.save(files[0], np.stack(rgbs[:SERVICE_REQUESTS]))
     np.save(files[1], np.stack(wants[:SERVICE_REQUESTS]))
+    lone = (work / "imgs1.npy", work / "wants1.npy")
+    np.save(lone[0], np.stack(rgbs[:SERVICE_LONE]))
+    np.save(lone[1], np.stack(wants[:SERVICE_LONE]))
     out["host_steps_ms"] = host_steps(rgbs[0])
     print("4m host steps a request: " + json.dumps(
         dict(out["host_steps_ms"], card=card)))
@@ -3763,7 +3808,8 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
                 for wire in ("json", "frames"):
                     name = f"{label} {wire} concurrency {conc}"
                     row, counts = counted(f"4m {name}", lambda: service_round(
-                        svc, url, head, files, wire, conc, name))
+                        svc, url, head, lone if conc == 1 else files, wire,
+                        conc, name))
                     want = {k: v * row["batches"] for k, v in plan.items()}
                     check(all(counts[k] == want.get(k, 0) for k in counts),
                           f"service {name}: launches {counts}, the plan "
@@ -3928,7 +3974,8 @@ def service_phase(dev, tmp: Path, refs: dict, totals: dict,
 # Phase 4n: the fleet's front tier (ROADMAP item 8b-i)
 # ---------------------------------------------------------------------------
 
-FLEET_REQUESTS = 8          # 4n: requests a key and concurrency (frames)
+FLEET_REQUESTS = 8          # 4n: requests a key at concurrency 8 (frames)
+FLEET_LONE = 4              # 4n: ... at concurrency 1
 FLEET_CONCURRENCY = (1, 8)
 FLEET_CRASH_ROWS = 5        # 4n: converge rows the crashed router streams
 # 4n's crash drill checks every 130 iterations: 2730 (phase 4b's count) is
@@ -3937,7 +3984,7 @@ FLEET_CRASH_ROWS = 5        # 4n: converge rows the crashed router streams
 # rows whose 25.8 MB tokens the WAL journals (273 rows at check every 10
 # took 60.8 s of appends on an H100 80GB HBM3 host).
 FLEET_CRASH_CHECK = 130
-FLEET_LOADGEN = 16          # 4n: the loadgen entry point's requests
+FLEET_LOADGEN = 8           # 4n: the loadgen entry point's requests
 FLEET_DISCONNECT_ITERS = 200  # 4n: the budget of the disconnected stream
 FLEET_WAL_SEGMENT = 1 << 30  # 4n: a config-1 token is a 25.8 MB record
 
@@ -4049,10 +4096,13 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
         return sum(1 for r in events.read_events(log.path)
                    if r["kind"] == "compile" and r.get("builder") == "nvcc")
 
-    rgbs, wants = keep.pop("service_imgs")
+    rgbs, wants = keep["service_imgs"]     # 4o pops them
     files = (work / "imgs.npy", work / "wants.npy")
     np.save(files[0], np.stack(rgbs[:FLEET_REQUESTS]))
     np.save(files[1], np.stack(wants[:FLEET_REQUESTS]))
+    lone = (work / "imgs1.npy", work / "wants1.npy")
+    np.save(lone[0], np.stack(rgbs[:FLEET_LONE]))
+    np.save(lone[1], np.stack(wants[:FLEET_LONE]))
     base = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "rgb",
             "filter": "blur3", "iters": ITERS}
     heads = {
@@ -4174,7 +4224,8 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
                 b0 = svc.engine.stats["batches"]
                 row, counts = counted(f"4n router {k} concurrency {conc}",
                                       lambda: fleet_round(
-                                          r_url, heads[k], files, conc,
+                                          r_url, heads[k],
+                                          lone if conc == 1 else files, conc,
                                           f"router {k} concurrency {conc}",
                                           card))
                 nb = svc.engine.stats["batches"] - b0
@@ -4188,7 +4239,8 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
                 dsrv, d_url = serve(svc, make_http_server)
                 direct, _ = counted(f"4n direct {k} concurrency {conc}",
                                     lambda: fleet_round(
-                                        d_url, heads[k], files, conc,
+                                        d_url, heads[k],
+                                        lone if conc == 1 else files, conc,
                                         f"direct {k} concurrency {conc}",
                                         card))
                 stop(dsrv)
@@ -4504,7 +4556,7 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
         step_done("5 crash")
 
         # (6) The entry points: loadgen through the router, route's help
-        # and its item-8b-ii refusal.
+        # and the JAX script's refusal of --shards without --state-dir.
         loadgen_argv = [
             sys.executable, "-m", "parallel_convolution_tpu_torch.serving."
             "loadgen", "--target", r_url, "--wire", "frames", "--n",
@@ -4519,7 +4571,8 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
         procs = [subprocess.Popen(route_cmd + flags, cwd=here,
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
-                 for flags in (["--help"], ["--shards", "2"])]
+                 for flags in (["--help"],
+                               ["--replicas", "1", "--shards", "2"])]
         try:
             t0 = time.perf_counter()
             lg, counts = counted("4n loadgen", lambda: subprocess.run(
@@ -4548,7 +4601,8 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
         out["loadgen"].update(seconds=lg_s, launches=counts)
         print("4n loadgen: " + json.dumps(dict(out["loadgen"], card=card)))
         check(procs[0].returncode == 0 and "usage" in h_out
-              and procs[1].returncode == 2 and "item 8b-ii" in s_err,
+              and procs[1].returncode == 2
+              and "--shards requires --state-dir" in s_err,
               f"fleet route: --help {procs[0].returncode}, --shards 2 "
               f"{procs[1].returncode} {s_err[-500:]}")
         out["stats"] = router.snapshot()["router"]
@@ -4570,6 +4624,731 @@ def fleet_phase(dev, tmp: Path, refs: dict, totals: dict,
     fired = [f for f in ("fused_iterate", "rdma_tiled_slot")
              if not any(r.get(f) for r in runs.values())]
     check(not fired, f"fleet: {fired} never launched in phase 4n")
+    out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4o: the rest of the fleet (ROADMAP item 8b-ii)
+# ---------------------------------------------------------------------------
+
+SHARD_NAMES = ("sA", "sB", "sC")  # 4o: the three routers of the shard fleet
+SHARD_CLIENTS = 4           # 4o (b): client threads on the surviving shards
+SHARD_IMAGES = 4            # 4o (b): config-2 images a surviving shard
+SHARD_CRASH_ROWS = 5        # 4o (b): converge rows before the hard stop
+SHARD_BASELINE_S = 3.0      # 4o (b): the pre-kill window
+SHARD_HOLD_S = 1.5          # 4o (b): the window held open after takeover
+SHARD_LOADGEN = 16          # 4o (c): loadgen --shardmap's requests
+SCALE_CLIENTS = 8           # 4o (d): the closed-loop pack
+SCALE_KEYS = 6              # 4o (d): config-2 keys (iters 100, 101, ...)
+SCALE_IMAGES = 2            # 4o (d): images a key
+# 4o (e): the soak's drills at the JAX script's sizes, in-process on the
+# card; the two supervised fault soaks run as child processes of their own
+# from the start of the phase (each leg a further child).
+SOAK_DRILLS = (["--shard-kill", "1"], ["--autoscale", "1"],
+               ["--router-kill", "1"], ["--chaos", "1"],
+               ["--router-restart", "1"], ["--chaos-matrix", "1"])
+SOAK_CHILD_DRILLS = (["--faults", "1"], ["--serve", "--faults", "1"])
+
+
+def free_ports(n: int) -> list:
+    """``n`` ports free on localhost now (bound and released)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def soak_run(argv: list) -> tuple:
+    """``soak.main(argv)`` in this process: its exit code and its JSON
+    rows (the summary last)."""
+    from parallel_convolution_tpu_torch import soak
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = soak.main(argv)
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+    return rc, rows
+
+
+def shard_names(keys: dict) -> dict:
+    """Three replica names whose hash ring homes the converge key on a
+    replica of 2x2 slots (the two named ``slots``) and the config-2
+    traffic keys on the 1x1 one (``one``) where it can: ``{"one": A,
+    "slots": [B, C]}``."""
+    import itertools
+
+    from parallel_convolution_tpu_torch.serving.router import (
+        HashRing, route_key,
+    )
+
+    conv, traffic = route_key(keys["converge"]), [
+        route_key(h) for h in keys["traffic"]]
+    best = None
+    for names in itertools.combinations([f"q{i}" for i in range(12)], 3):
+        ring = HashRing(names)
+        home = ring.candidates(conv)[0]
+        for one in names:
+            if one == home:
+                continue
+            on_one = sum(ring.candidates(k)[0] == one for k in traffic)
+            if best is None or on_one > best[0]:
+                best = (on_one, {"one": one, "slots": [
+                    n for n in names if n != one]})
+            if on_one == len(traffic):
+                return best[1]
+    return best[1]
+
+
+def fleet_rest_phase(dev, tmp: Path, refs: dict, totals: dict,
+                     keep: dict) -> dict:
+    """The rest of the fleet on the card: the soak, the sharded control
+    plane in process and over HTTP, the autoscaler and the soak's drills;
+    the launches counted into ``totals``.  See the module docstring,
+    phase 4o."""
+    import base64
+    import gc
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.obs import events, metrics
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.serving import (
+        AutoScaler, ConvolutionService, InProcessReplica, ReplicaRouter,
+        frames, peers,
+    )
+    from parallel_convolution_tpu_torch.serving.router import (
+        HashRing, route_key,
+    )
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    t_start = time.perf_counter()
+    card = card_line()
+    metrics.set_enabled(True)
+    work = tmp / "fleet_rest"
+    work.mkdir(parents=True, exist_ok=True)
+    log = events.configure(work / "events.jsonl", max_bytes=64 << 20)
+    out = {"card": card, "steps_s": {}}
+    runs = {}
+    mark = [time.perf_counter()]
+    here = Path(__file__).resolve().parent
+
+    def step_done(name):
+        now = time.perf_counter()
+        out["steps_s"][name] = now - mark[0]
+        mark[0] = now
+        print(f"4o step {name}: {out['steps_s'][name]:.2f} s", flush=True)
+
+    def counted(label, fn):
+        stencil.reset_launch_counts()
+        res = fn()
+        counts = stencil.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+            runs.setdefault(label, dict.fromkeys(counts, 0))[k] += v
+        return res, counts
+
+    def compiles() -> list:
+        return [r for r in events.read_events(log.path)
+                if r["kind"] == "compile"]
+
+    def shifted(img, iters):
+        return ConvolutionModel("blur3", backend="shifted",
+                                device=dev).run_image(img, iters)
+
+    rgbs, wants = keep.pop("service_imgs")
+    _, cwant, citers = keep["cli_converge"]
+    grey = refs["greys"]["blur3"]
+    base = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "rgb",
+            "filter": "blur3", "backend": "cuda_sep", "storage": "bf16",
+            "fuse": 32, "boundary": "zero"}
+    chead = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "grey",
+             "filter": "blur3", "backend": "cuda_rdma", "storage": "u8",
+             "fuse": 8, "quantize": True, "tol": 0.5,
+             "check_every": FLEET_CRASH_CHECK,
+             "max_iters": CONVERGE_CLI_MAX}
+
+    # The processes of (c), (d) and (e), started now: each takes seconds
+    # to import torch and reach the card, in parallel with (a) and (b).
+    # They run on the card by default; a rehearsal on the CPU asks.
+    dev_args = ["--device", "cpu"] if dev.type == "cpu" else []
+    dev_name = "cpu" if dev.type == "cpu" else "cuda:0"
+    ports = free_ports(len(SHARD_NAMES))
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    route_cmd = [sys.executable, "-m",
+                 "parallel_convolution_tpu_torch.serving.route"]
+    procs = {}
+
+    def start(name, cmd):
+        procs[name] = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+
+    http_dir = work / "http_state"
+    for i, nm in enumerate(SHARD_NAMES):
+        start(nm, [*route_cmd, *dev_args, "--port", str(ports[i]),
+                   "--replicas", "1", "--mesh", "1x1",
+                   "--shards", str(len(SHARD_NAMES)),
+                   "--name", nm, "--state-dir", str(http_dir),
+                   "--advertise", urls[i],
+                   *[a for j, o in enumerate(SHARD_NAMES)
+                     for a in ("--assign", f"{j}={o}")],
+                   *[a for j, o in enumerate(SHARD_NAMES) if j != i
+                     for a in ("--peer", f"{o}={urls[j]}")]])
+    start("autoscale route", [*route_cmd, *dev_args, "--port", "0",
+                              "--replicas", "1", "--mesh", "1x1",
+                              "--autoscale-max", "2"])
+    for argv in SOAK_CHILD_DRILLS:
+        start(" ".join(argv), [sys.executable, "-m",
+                               "parallel_convolution_tpu_torch.soak", *argv,
+                               *dev_args, "--state-dir",
+                               str(work / "_".join(argv))])
+    routers, reps, scaler = [], [], None
+    try:
+        # (a) The randomized soak on the card, through the main path's
+        # entry (step.sharded_iterate / sharded_converge on grids of slots).
+        soak_out = {}
+        for label, argv in (("iterate", ["--n", "32", "--seed", "0"]),
+                            ("converge", ["--converge", "--n", "8",
+                                          "--seed", "0"])):
+            t0 = time.perf_counter()
+            (rc, rows), counts = counted(f"4o soak {label}",
+                                         lambda: soak_run(argv + dev_args))
+            summary = rows.pop()
+            for r in rows:
+                if not r["ok"]:
+                    print("4o soak FAILED row: " + json.dumps(r))
+            check(rc == 0 and summary["failures"] == 0 and len(rows)
+                  == int(argv[argv.index("--n") + 1])
+                  and all(r["ok"] for r in rows),
+                  f"4o soak {label}: rc {rc}, {summary}")
+            soak_out[label] = {
+                "rows": len(rows), "seconds": time.perf_counter() - t0,
+                "backends": sorted({r["backend"] for r in rows}),
+                "grids": sorted({r["mesh"] for r in rows}),
+                "launches": counts}
+        out["soak"] = soak_out
+        print("4o soak: " + json.dumps(dict(soak_out, card=card)))
+        step_done("a soak")
+
+        # (b) The sharded control plane at BASELINE sizes, in process.
+        # iters is a route-key field: scan it from config 2's 100 until
+        # every shard has a traffic key.
+        n = len(SHARD_NAMES)
+        cbody = dict(chead, image_b64=base64.b64encode(
+            grey.tobytes()).decode("ascii"))
+        kill_shard = peers.shard_of(route_key(cbody), n)
+        by_shard = {}
+        for it in range(ITERS, ITERS + 200):
+            by_shard.setdefault(
+                peers.shard_of(route_key(dict(base, iters=it)), n), it)
+            if len(by_shard) == n:
+                break
+        check(len(by_shard) == n, f"4o shards: keys {by_shard}")
+        live = [s for s in sorted(by_shard) if s != kill_shard]
+        iters_of = {s: by_shard[s] for s in live}
+        imgs = rgbs[:SHARD_IMAGES]
+        t0 = time.perf_counter()
+        want_of = {(s, i): (wants[i] if iters_of[s] == ITERS
+                            else shifted(imgs[i], iters_of[s]))
+                   for s in live for i in range(len(imgs))}
+        out["shard_refs_s"] = time.perf_counter() - t0
+        heads = {s: dict(base, iters=iters_of[s]) for s in live}
+        names = shard_names({"converge": cbody,
+                             "traffic": list(heads.values())})
+        slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
+        grids = {names["one"]: mesh.make_grid((1, 1), dev),
+                 **{nm: slots4 for nm in names["slots"]}}
+
+        def factory(grid):
+            def make():
+                return ConvolutionService(grid, max_batch=8,
+                                          max_delay_s=0.005, max_queue=64,
+                                          fallback=False)
+            return make
+
+        reps = [InProcessReplica(factory(g), name=nm)
+                for nm, g in sorted(grids.items())]
+        # Each traffic key warm on its home (batch sizes 1-4): the pre-kill
+        # window measures serving, not builds.
+        ring = HashRing([r.name for r in reps])
+        for s in live:
+            home = ring.candidates(route_key(heads[s]))[0]
+            svc = next(r for r in reps if r.name == home).service
+            counted("4o shards warm", lambda: svc.engine.warmup(
+                [svc.engine.key_for((3, *RGB_HW), filter_name="blur3",
+                                    storage="bf16", iters=iters_of[s],
+                                    fuse=32, boundary="zero", quantize=True,
+                                    backend="cuda_sep", overlap=None,
+                                    col_mode=None)],
+                batch_sizes=range(1, SHARD_CLIENTS + 1)))
+        state_dir = work / "shards"
+        assign = {str(i): SHARD_NAMES[i] for i in range(n)}
+        fleet = {}
+        for nm in SHARD_NAMES:
+            fleet[nm] = peers.ShardRouter(
+                nm, reps, n_shards=n,
+                owned=[s for s, o in assign.items() if o == nm],
+                state_dir=state_dir, assignments=assign,
+                sync_interval_s=0.25, suspect_after=3, start_sync=False,
+                breaker_cooldown_s=0.5, load_factor=4.0, poll_interval_s=0.25)
+            routers.append(fleet[nm])
+        for nm in SHARD_NAMES:
+            fleet[nm].peers = [peers.InProcessPeer(fleet[o])
+                               for o in SHARD_NAMES if o != nm]
+            fleet[nm].start_sync()
+        victim = fleet[assign[kill_shard]]
+        survivors = [r for r in fleet.values() if r is not victim]
+        step_done("b0 set-up")
+
+        phase = {"now": "before"}
+        lat = {"before": [], "during": [], "after": []}
+        lock = threading.Lock()
+        stop = threading.Event()
+        failures = []
+        served = {"before": 0, "during": 0, "after": 0}
+
+        def frames_body(head, img, rid):
+            env = frames.encode_envelope(dict(head, request_id=rid),
+                                         {"image": img})
+            hdr, raw = frames.split_envelope(env)
+            return dict(hdr, _frames_raw=bytes(raw))
+
+        def pound(widx):
+            try:
+                pound_loop(widx)
+            except Exception as e:  # noqa: BLE001 — a failure, not a hang
+                with lock:
+                    failures.append(f"client {widx} raised {e!r}")
+
+        def pound_loop(widx):
+            client = peers.ShardClient(list(fleet.values()))
+            s = live[widx % len(live)]
+            j = 0
+            while not stop.is_set():
+                i = (j + widx) % len(imgs)
+                j += 1
+                t1 = time.perf_counter()
+                _, w = client.request(frames_body(heads[s], imgs[i],
+                                                  f"c{widx}-{j}"))
+                dt = time.perf_counter() - t1
+                raw = w.pop("_frames_raw", b"")
+                if w.get("ok"):
+                    _, arrays = frames.decode_envelope(
+                        frames.join_envelope(w, raw))
+                    with lock:
+                        lat[phase["now"]].append(dt)
+                        served[phase["now"]] += 1
+                        if not np.array_equal(arrays["image"],
+                                              want_of[(s, i)]):
+                            failures.append(f"shard {s} image {i}: bytes")
+                elif not w.get("retryable"):
+                    with lock:
+                        failures.append(f"shard {s}: non-rejected "
+                                        f"{w.get('rejected')!r} "
+                                        f"{str(w.get('detail'))[:200]}")
+                else:
+                    time.sleep(0.01)
+
+        threads = [threading.Thread(target=pound, args=(w,), daemon=True)
+                   for w in range(SHARD_CLIENTS)]
+        stencil.reset_launch_counts()
+        for th in threads:
+            th.start()
+        time.sleep(SHARD_BASELINE_S)
+        client = peers.ShardClient(list(fleet.values()))
+        st, rows = client.converge(dict(cbody, request_id="shard-job"))
+        consumed = []
+        for row in rows:
+            consumed.append(row)
+            if len(consumed) == SHARD_CRASH_ROWS:
+                break          # the crash: the stream abandoned unclosed
+        phase["now"] = "during"
+        t_kill = time.perf_counter()
+        victim.hard_stop()
+        owner = None
+        while owner is None and time.perf_counter() - t_kill < 30.0:
+            owner = next((r for r in survivors if kill_shard in r._sub),
+                         None)
+            time.sleep(0.005)
+        takeover_s = time.perf_counter() - t_kill
+        check(owner is not None, "4o shards: no takeover within 30 s")
+        time.sleep(SHARD_HOLD_S)
+        phase["now"] = "after"
+        client.refresh()
+        t0 = time.perf_counter()
+        st2, rows2 = client.converge(dict(cbody, request_id="shard-job"))
+        retry = list(rows2) if st2 == 200 else []
+        retry_s = time.perf_counter() - t0
+        _, zrows = victim.sub(kill_shard).converge(
+            dict(cbody, request_id="shard-zombie"))
+        zombie = next(iter(zrows), {})
+        stop.set()
+        for th in threads:
+            th.join(120)
+        counts = stencil.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        runs["4o shards"] = counts
+        final = retry[-1] if retry else {}
+        finals = sum(r.get("kind") == "final" for r in consumed + retry)
+        got = (np.frombuffer(base64.b64decode(final["image_b64"]), np.uint8)
+               .reshape(grey.shape) if final.get("kind") == "final"
+               else None)
+        p_before, p_during = (latency_ms(lat[k]) if lat[k] else None
+                              for k in ("before", "during"))
+        out["shards"] = {
+            "kill_shard": kill_shard, "victim": victim.name,
+            "successor": owner.name, "traffic_iters": iters_of,
+            "replicas": names, "takeover_s": takeover_s,
+            "epochs": [victim.sub(kill_shard).epoch,
+                       owner.sub(kill_shard).epoch],
+            "takeovers": sum(r.stats["takeovers"] for r in survivors),
+            "crashed_at": consumed[-1]["iters"],
+            "resumed_from": retry[0]["iters"] - FLEET_CRASH_CHECK
+            if retry else None, "retry_rows": len(retry),
+            "retry_s": retry_s, "finals": finals,
+            "zombie": zombie.get("rejected"), "served": served,
+            "p99_before_ms": p_before and p_before["p99_ms"],
+            "p99_during_ms": p_during and p_during["p99_ms"],
+            "latency": {k: latency_ms(v) for k, v in lat.items() if v},
+            "map_version": owner.map.version(), "launches": counts}
+        print("4o shards: " + json.dumps(dict(out["shards"], card=card)))
+        check(not failures, f"4o shards: {failures[:4]}")
+        check(out["shards"]["takeovers"] == 1
+              and out["shards"]["epochs"][1] > out["shards"]["epochs"][0],
+              f"4o shards: takeovers {out['shards']['takeovers']}, "
+              f"epochs {out['shards']['epochs']}")
+        check(st == st2 == 200 and final.get("kind") == "final"
+              and final["iters"] == citers and finals == 1
+              and final["router"]["resume_count"] >= 1
+              and final["router"]["shard"] == kill_shard
+              and retry[0]["iters"] > consumed[-1]["iters"]
+              and got is not None and np.array_equal(got, cwant),
+              f"4o shards: the retry {st2} from "
+              f"{retry[0]['iters'] if retry else None} to "
+              f"{final.get('iters')} ({final.get('kind')}), finals {finals}")
+        check(zombie.get("rejected") == "stale_epoch",
+              f"4o shards: the zombie got {zombie}")
+        check(p_during is not None and p_before is not None
+              and p_during["p99_ms"] <= 5 * p_before["p99_ms"] + 25,
+              f"4o shards: survivors' p99 {p_during} through the takeover "
+              f"against {p_before} before it")
+        for r in routers:
+            r.close(close_replicas=False)
+        routers.clear()
+        for rep in reps:
+            rep.close()
+        reps = []
+        step_done("b shards")
+
+        # The route processes of (c): read their boot lines and send each
+        # one config-2 request of its own shard's key from a thread while
+        # (d) runs (its replica's first request initialises CUDA there).
+        boots, warmed = {}, {}
+
+        def warm_routes():
+            for nm in SHARD_NAMES:
+                boots[nm] = json.loads(procs[nm].stdout.readline())
+
+            def one(i, nm):
+                body = json.dumps(dict(
+                    base, iters=by_shard[str(i)], image_b64=base64.b64encode(
+                        rgbs[0].tobytes()).decode("ascii"))).encode()
+                req = urllib.request.Request(
+                    urls[i] + "/v1/convolve", data=body,
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    w = json.loads(r.read())
+                warmed[nm] = {"ok": w.get("ok"),
+                              "backend": w.get("effective_backend")}
+            ths = [threading.Thread(target=one, args=(i, nm))
+                   for i, nm in enumerate(SHARD_NAMES)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(600)
+
+        warmer = threading.Thread(target=warm_routes, daemon=True)
+        warmer.start()
+
+        # (d) The autoscaler over a 1x1 pool, config-2 keys at batch 1
+        # (the pre-warm builds batch 1, as the JAX engine does).
+        pool = list(range(ITERS, ITERS + SCALE_KEYS))
+        bodies = {it: dict(base, iters=it) for it in pool}
+        ring2 = HashRing(["r0", "as1"])
+        check(any(ring2.candidates(route_key(b))[0] == "as1"
+                  for b in bodies.values()),
+              "4o autoscale: no key of the pool homes on the first grown "
+              "replica")
+        simgs = rgbs[:SCALE_IMAGES]
+        t0 = time.perf_counter()
+        swant = {(it, i): (wants[i] if it == ITERS else shifted(simgs[i], it))
+                 for it in pool for i in range(len(simgs))}
+        out["scale_refs_s"] = time.perf_counter() - t0
+        one = mesh.make_grid((1, 1), dev)
+
+        def sfactory():
+            return ConvolutionService(one, max_batch=1, max_delay_s=0.001,
+                                      max_queue=16, fallback=False)
+
+        router = ReplicaRouter([InProcessReplica(sfactory, name="r0")],
+                               poll_interval_s=0.25, breaker_cooldown_s=0.5)
+        routers.append(router)
+        sres = {"ok": 0, "retryable": 0, "bad": []}
+
+        def one_request(it, i, rid):
+            body = dict(bodies[it], request_id=rid,
+                        image_b64=base64.b64encode(
+                            simgs[i].tobytes()).decode("ascii"))
+            for _ in range(8):
+                _, w = router.request(dict(body))
+                if w.get("ok") or not w.get("retryable"):
+                    break
+                time.sleep(min(float(w.get("retry_after_s") or 0.05), 0.5))
+            with lock:
+                if w.get("ok"):
+                    sres["ok"] += 1
+                    if base64.b64decode(w["image_b64"]) != swant[
+                            (it, i)].tobytes():
+                        sres["bad"].append(f"{rid}: bytes")
+                elif w.get("retryable"):
+                    sres["retryable"] += 1
+                else:
+                    sres["bad"].append(f"{rid}: {w.get('rejected')!r}")
+            return w
+
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for it in pool:     # the observatory sees every key; r0 builds it
+            counted("4o autoscale warm", lambda: one_request(
+                it, 0, f"warm{it}"))
+        torch.cuda.synchronize()
+        footprint = torch.cuda.max_memory_allocated() - m0
+        m_before = torch.cuda.memory_allocated()
+        scaler = AutoScaler(
+            router, lambda name: InProcessReplica(sfactory, name=name),
+            min_replicas=1, max_replicas=3, interval_s=0.25, cooldown_s=1.0)
+        scaler.start()
+        stop = threading.Event()
+        counter = [0]
+
+        def worker():
+            while not stop.is_set():
+                with lock:
+                    k = counter[0]
+                    counter[0] += 1
+                one_request(pool[k % len(pool)], k % len(simgs), f"s{k}")
+
+        stencil.reset_launch_counts()
+        t0 = time.perf_counter()
+        pack = [threading.Thread(target=worker, daemon=True)
+                for _ in range(SCALE_CLIENTS)]
+        for th in pack:
+            th.start()
+        while (len(router.ring.members()) < 2
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.05)
+        grew_s = time.perf_counter() - t0
+        stop.set()
+        for th in pack:
+            th.join(120)
+        members = router.ring.members()
+        check(len(members) >= 2, f"4o autoscale: no growth in {grew_s:.1f} s")
+        grown = scaler.snapshot()["added"]
+        # After the join: each pre-warmed key the newcomer is home of, once
+        # more, served warm (no compile event, no new runner).  The loop
+        # is paused meanwhile, so an idle tick cannot shrink the pool under
+        # the round.
+        scaler.close()
+        newcomer = router.replica(grown[0]).service
+        eng = newcomer.engine
+        shard_keys = [it for it in pool
+                      if router.ring.candidates(route_key(
+                          bodies[it]))[0] == grown[0]]
+        before = {k.iters: e.compiles for k, e in eng._entries.items()}
+        n_compiles = len(compiles())
+        for it in shard_keys:
+            w = one_request(it, 0, f"post{it}")
+            check(w.get("ok") and w["router"]["replica"] == grown[0],
+                  f"4o autoscale: post-join key {it} {w.get('router')}")
+        after = {k.iters: e.compiles for k, e in eng._entries.items()}
+        new_compiles = compiles()[n_compiles:]
+        scaler.start()
+        t1 = time.perf_counter()
+        while (len(router.ring.members()) > 1
+               and time.perf_counter() - t1 < 120):
+            time.sleep(0.05)
+        shrank_s = time.perf_counter() - t1
+        counts = stencil.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        runs["4o autoscale"] = counts
+        scaler.close()
+        stats = dict(scaler.stats)
+        del newcomer, eng
+        gc.collect()
+        torch.cuda.synchronize()
+        m_after = torch.cuda.memory_allocated()
+        out["autoscale"] = {
+            "grew_s": grew_s, "shrank_s": shrank_s, "grown": grown,
+            "members_at_growth": members, "shard_keys": shard_keys,
+            "runner_builds_before": before, "runner_builds_after": after,
+            "compile_events_after_join": len(new_compiles),
+            "answers": {k: v for k, v in sres.items() if k != "bad"},
+            "stats": stats, "footprint_bytes": footprint,
+            "bytes_before_growth": m_before, "bytes_after_shrink": m_after,
+            "launches": counts}
+        print("4o autoscale: " + json.dumps(dict(out["autoscale"],
+                                                 card=card)))
+        check(not sres["bad"], f"4o autoscale: {sres['bad'][:4]}")
+        check(stats["prewarmed_configs"] >= 1 and shard_keys
+              and all(before.get(it) == after.get(it) == 1
+                      for it in shard_keys) and not new_compiles,
+              f"4o autoscale: warm placement {shard_keys}, runners "
+              f"{before} -> {after}, compiles {new_compiles[:3]}")
+        check(len(router.ring.members()) == 1,
+              f"4o autoscale: no shrink in {shrank_s:.1f} s")
+        check(m_after - m_before <= footprint,
+              f"4o autoscale: {m_after - m_before} bytes more after the "
+              f"shrink, above one replica's warm footprint {footprint}")
+        boot = json.loads(procs["autoscale route"].stdout.readline())
+        check(boot["autoscale_max"] == 2 and boot["device"] == dev_name,
+              f"4o autoscale: route --autoscale-max 2 boot line {boot}")
+        procs["autoscale route"].send_signal(signal.SIGTERM)
+        procs.pop("autoscale route").communicate(timeout=120)
+        router.close()
+        routers.clear()
+        step_done("d autoscale")
+
+        # (c) The same over HTTP: three route --shards 3 processes (booted
+        # at the start of the phase, warmed during (d)), loadgen
+        # --shardmap, the owner of the requests' shard SIGKILLed mid-run.
+        warmer.join(600)
+        check(len(warmed) == n and all(w.get("ok") for w in warmed.values()),
+              f"4o http: the route processes' warm-up {warmed}")
+        check([boots[nm]["owned"] for nm in SHARD_NAMES]
+              == [[str(i)] for i in range(n)]
+              and all(b["device"] == dev_name for b in boots.values()),
+              f"4o http: boot lines {boots}")
+        lg_seed = 11
+        lg_img = imageio.generate_test_image(*RGB_HW, "rgb", seed=lg_seed)
+        np.save(work / "lg_want.npy", shifted(lg_img, ITERS))
+        lg_shard = peers.shard_of(route_key(dict(base, iters=ITERS)), n)
+        lg_owner = SHARD_NAMES[int(lg_shard)]
+        lg_argv = [sys.executable, "-m",
+                   "parallel_convolution_tpu_torch.serving.loadgen",
+                   "--shardmap", *[a for u in urls for a in ("--target", u)],
+                   "--n", str(SHARD_LOADGEN), "--concurrency", "4",
+                   "--rows", str(RGB_HW[0]), "--cols", str(RGB_HW[1]),
+                   "--mode", "rgb", "--filter", "blur3", "--iters",
+                   str(ITERS), "--backend", "cuda_sep", "--storage", "bf16",
+                   "--fuse", "32", "--seed", str(lg_seed),
+                   "--check-against", str(work / "lg_want.npy"),
+                   "--trace-out", str(work / "lg_trace.jsonl"),
+                   # A request once took 65.3 s across the kill (PERF.md
+                   # §7): a stuck one is retried after 30 s.
+                   "--timeout", "30"]
+        t0 = time.perf_counter()
+        lg = subprocess.Popen(lg_argv, cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+        owner_url = urls[int(lg_shard)]
+        done = 0
+        while done < 2 and lg.poll() is None:
+            with urllib.request.urlopen(owner_url + "/stats",
+                                        timeout=30) as r:
+                snap = json.loads(r.read())
+            done = snap["shards"][lg_shard]["router"]["completed"]
+            time.sleep(0.05)
+        procs[lg_owner].send_signal(signal.SIGKILL)
+        procs[lg_owner].wait(60)
+        t_killed = time.perf_counter() - t0
+        lg_out, lg_err = lg.communicate(timeout=600)
+        lg_s = time.perf_counter() - t0
+        check(lg.returncode == 0, f"4o http loadgen: rc {lg.returncode} "
+              f"{lg_err[-2000:]}")
+        lrow = json.loads(lg_out.strip().splitlines()[-1])
+        out["http"] = {k: lrow.get(k) for k in (
+            "completed", "rejected", "non_rejected_failures",
+            "oracle_mismatches", "shardmap_refreshes", "shards_seen",
+            "router_restarts_observed", "p50_ms", "p99_ms", "wall_s")}
+        trace = [json.loads(ln) for ln in
+                 (work / "lg_trace.jsonl").read_text().splitlines()]
+        out["http"].update(killed=lg_owner, killed_after_s=t_killed,
+                           completed_at_kill=done, seconds=lg_s,
+                           slowest=sorted(trace, key=lambda r: -r[
+                               "latency_ms"])[:2])
+        print("4o http: " + json.dumps(dict(out["http"], card=card)))
+        check(done >= 2 and lrow["non_rejected_failures"] == 0
+              and lrow["oracle_mismatches"] == 0
+              and lrow["completed"] == SHARD_LOADGEN
+              and lrow["shardmap_refreshes"] >= 2,
+              f"4o http: {out['http']}")
+        for nm in SHARD_NAMES:
+            if procs[nm].poll() is None:
+                procs[nm].send_signal(signal.SIGTERM)
+        for nm in SHARD_NAMES:
+            procs.pop(nm).communicate(timeout=120)
+        step_done("c http")
+
+        # (e) The soak's drills at the JAX script's sizes, on the card.
+        drills = {}
+        for argv in SOAK_DRILLS:
+            t0 = time.perf_counter()
+            state = ["--state-dir", str(work / "_".join(argv))]
+            (rc, rows), counts = counted("4o drills", lambda: soak_run(
+                [*argv, *dev_args,
+                 *(state if argv[0] != "--chaos-matrix" else [])]))
+            summary = rows[-1] if rows else {}
+            drills[" ".join(argv)] = {
+                "rc": rc, "seconds": time.perf_counter() - t0,
+                "failures": summary.get("failures"),
+                **{k: summary[k] for k in (
+                    "takeovers", "failovers_observed", "resumes_observed",
+                    "prewarmed_configs", "epochs", "per_cycle")
+                   if k in summary}}
+            check(rc == 0 and summary.get("failures") == 0,
+                  f"4o drill {' '.join(argv)}: rc {rc} {summary}")
+        for argv in SOAK_CHILD_DRILLS:
+            name = " ".join(argv)
+            p = procs.pop(name)
+            o, e = p.communicate(timeout=600)
+            summary = json.loads(o.strip().splitlines()[-1])
+            drills[name] = {"rc": p.returncode,
+                            "seconds": summary.get("wall_s"),
+                            "failures": summary.get("failures")}
+            check(p.returncode == 0 and summary.get("failures") == 0,
+                  f"4o drill {name}: rc {p.returncode} {summary} "
+                  f"{e[-1500:]}")
+        out["drills"] = drills
+        print("4o drills: " + json.dumps(dict(drills, card=card)))
+        step_done("e drills")
+    finally:
+        if scaler is not None:
+            scaler.close()
+        for r in routers:
+            r.close(close_replicas=False)
+        for rep in reps:
+            rep.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+        shutil.rmtree(work, ignore_errors=True)
     out["runs"] = [{"path": k, "launches": v} for k, v in runs.items()]
     out["seconds"] = time.perf_counter() - t_start
     return out
@@ -4977,8 +5756,9 @@ def volume_slots_leg(dev, here: Path, volume_sha: str, card: str) -> dict:
 def checkpoint_slots_leg(tmp: Path, here: Path, refs: dict,
                          totals: dict) -> dict:
     """Phase 4j (c): config 3's image with ``--checkpoint`` at 4x4 slots,
-    torn in its second snapshot by a child process, resumed on 16 slots,
-    on 2x2 slots and on one device, each byte-equal to ``shifted``."""
+    torn in its second snapshot by one child process, its directory copied
+    once a target and resumed on 16 slots, on 2x2 slots and on one device,
+    each byte-equal to ``shifted``."""
     import warnings
 
     import numpy as np
@@ -5008,14 +5788,14 @@ def checkpoint_slots_leg(tmp: Path, here: Path, refs: dict,
                 "warnings": [str(w.message) for w in caught
                              if "resharding" in str(w.message)]}
 
-    def torn(ck):
-        killed = killed_run(ckpt_slots_argv(src, tmp / "ck_dead.raw", ck,
-                                            "4x4", slots16), here)
-        latest = (ck / "LATEST").read_text()
-        check(latest == f"it_{CKPT_EVERY:08d}",
-              f"4j checkpoint: LATEST is {latest} after the kill")
-        return killed
-
+    # One kill: each resume reads a copy of its torn directory (a kill a
+    # target took 11.4 s each on an H100 80GB HBM3 host).
+    dead = tmp / "ck4j_dead"
+    killed = killed_run(ckpt_slots_argv(src, tmp / "ck_dead.raw", dead,
+                                        "4x4", slots16), here)
+    latest = (dead / "LATEST").read_text()
+    check(latest == f"it_{CKPT_EVERY:08d}",
+          f"4j checkpoint: LATEST is {latest} after the kill")
     ckpt = {}
     for key, mesh_spec, device, expect in (
             ("resume on 4x4 slots", "4x4", slots16,
@@ -5025,15 +5805,17 @@ def checkpoint_slots_leg(tmp: Path, here: Path, refs: dict,
             ("reshard onto one device", "1x1", "cuda:0",
              {"rdma_tiled": rest})):
         ck = tmp / f"ck4j_{mesh_spec}"
-        killed = torn(ck)
+        shutil.copytree(dead, ck)
         row = resumed(f"4j checkpoint {key} from {CKPT_EVERY}",
                       ckpt_slots_argv(src, tmp / "ck4j.raw", ck, mesh_spec,
                                       device), expect)
         check(mesh_spec == "4x4" or any(
             "from grid 4x4 onto " + mesh_spec in m for m in row["warnings"]),
             f"4j checkpoint {key}: no reshard warning")
-        ckpt[key] = dict(row, killed=killed)
+        ckpt[key] = row
         shutil.rmtree(ck, ignore_errors=True)
+    ckpt["killed"] = killed
+    shutil.rmtree(dead, ignore_errors=True)
     return ckpt
 
 
@@ -6357,6 +7139,9 @@ def main() -> int:
             fleet = fleet_phase(dev, Path(tmp), refs, totals, keep)
             lap("4n the fleet's front tier")
             torch.cuda.empty_cache()
+            fleet_rest = fleet_rest_phase(dev, Path(tmp), refs, totals, keep)
+            lap("4o the rest of the fleet")
+            torch.cuda.empty_cache()
             mg_rows = multigrid_phase(dev, Path(tmp), totals,
                                       keep["config5"], converge_rows[0], keep)
             lap("4d multigrid")
@@ -6482,6 +7267,9 @@ def main() -> int:
         for row in fleet.pop("runs"):
             print("end to end 4n: " + json.dumps(row))
         print("4n: " + json.dumps(fleet))
+        for row in fleet_rest.pop("runs"):
+            print("end to end 4o: " + json.dumps(row))
+        print("4o: " + json.dumps(fleet_rest))
         check(all(totals[k] for k in KERNELS),
               f"a kernel never ran on a main path: {totals}")
 

@@ -36,12 +36,20 @@ replica's service over the card.
 ``route.py``    ``python -m parallel_convolution_tpu_torch.serving.route``
                 (the router over in-process or HTTP replicas).
 ``loadgen.py``  ``python -m parallel_convolution_tpu_torch.serving.loadgen``
-                (closed / open-loop load, one summary row).
-
-The rest of the fleet (``peers.py``, ``autoscaler.py``) is ROADMAP item
-8b-ii: its names raise ``NotImplementedError`` naming the item.
+                (closed / open-loop load, one summary row; ``--shardmap``
+                routes to a sharded fleet's owners).
+``peers.py``    the sharded control plane: N active routers, each owning
+                its shards' WAL lineages, peer anti-entropy, fenced
+                takeover of a dead peer's shards, the shard-aware client.
+``autoscaler.py`` the control loop that grows and shrinks the replica
+                pool, pre-warming a joining replica's ring shard.
+``chaos_matrix.py`` ``python -m parallel_convolution_tpu_torch.serving.
+                chaos_matrix`` (every storage fault mode crossed with
+                every workload shape).
 """
 
+from parallel_convolution_tpu_torch.serving import autoscaler, peers
+from parallel_convolution_tpu_torch.serving.autoscaler import AutoScaler
 from parallel_convolution_tpu_torch.serving.batcher import MicroBatcher, Slot
 from parallel_convolution_tpu_torch.serving.chaos import ChaosTransport
 from parallel_convolution_tpu_torch.serving.engine import (
@@ -59,20 +67,10 @@ from parallel_convolution_tpu_torch.serving.router import (
 from parallel_convolution_tpu_torch.serving.service import (
     ConvolutionService, Rejected, Request, Response, Snapshot,
 )
-from parallel_convolution_tpu_torch.utils.config import FLEET_ITEM, pending
 
-__all__ = ["ChaosTransport", "ConvolutionService", "CorruptReplicaBody",
-           "EngineKey", "HTTPReplica", "InProcessClient", "InProcessReplica",
-           "JobLedger", "MicroBatcher", "Rejected", "ReplicaRouter",
-           "Request", "Response", "Slot", "Snapshot", "TenantQuotas",
-           "WarmEngine", "WorkPricer", "bucket_extent", "bucket_key",
-           "make_http_server"]
-
-# The JAX package's serving names (and fleet modules) a later slice ports.
-_PENDING = dict.fromkeys(("AutoScaler", "autoscaler", "peers"), FLEET_ITEM)
-
-
-def __getattr__(name: str):
-    if name in _PENDING:
-        raise pending(f"serving.{name}", _PENDING[name])
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["AutoScaler", "ChaosTransport", "ConvolutionService",
+           "CorruptReplicaBody", "EngineKey", "HTTPReplica",
+           "InProcessClient", "InProcessReplica", "JobLedger",
+           "MicroBatcher", "Rejected", "ReplicaRouter", "Request",
+           "Response", "Slot", "Snapshot", "TenantQuotas", "WarmEngine",
+           "WorkPricer", "bucket_extent", "bucket_key", "make_http_server"]

@@ -40,8 +40,16 @@ watched happen while its run kept completing).  The durability stamp
 feeds ``degraded_served``: completions answered while the router's WAL
 was in a degraded-durability window.
 
-``--shardmap`` (a sharded router fleet) parses and exits 2 naming ROADMAP
-item 8b-ii.
+``--shardmap`` makes multiple ``--target`` URLs a SHARDED router fleet
+(``serving.route --shards N``): the client fetches the version-stamped
+map from ``GET /v1/shardmap``, routes every request to its key shard's
+owner, and treats a typed ``wrong_shard`` / ``stale_epoch`` reject as a
+stale map — refresh and retry at the new owner — counted in the row's
+``shardmap_refreshes``, never as a failure.
+
+  python -m parallel_convolution_tpu_torch.serving.loadgen --shardmap \
+      --target http://127.0.0.1:8090 --target http://127.0.0.1:8091 \
+      --target http://127.0.0.1:8092 --n 16 --concurrency 4
 """
 
 from __future__ import annotations
@@ -255,6 +263,116 @@ class _HTTPTransport:
             return json.loads(resp.read())
 
 
+class _ShardedTransport:
+    """The shard-aware client half over HTTP (the in-process twin is
+    ``serving.peers.ShardClient``): fetch the version-stamped ownership
+    map from any fleet member, compute each request's shard from its
+    route key, dial the owner directly, and treat a typed
+    ``wrong_shard``/``stale_epoch`` reject as "my map is stale" —
+    refresh and retry at the new owner, bounded."""
+
+    _REROUTE = ("wrong_shard", "stale_epoch")
+
+    def __init__(self, urls: list[str], timeout: float,
+                 max_redirects: int = 4):
+        self._by_addr = {u.rstrip("/"): _HTTPTransport(u, timeout)
+                         for u in urls}
+        self.timeout = timeout
+        self.max_redirects = max_redirects
+        self._lock = threading.Lock()
+        self._map: dict = {"version": -1, "n_shards": 1, "shards": {}}
+        self.refreshes = 0
+        self.refresh()
+
+    def refresh(self) -> dict:
+        import urllib.request
+
+        last: Exception | None = None
+        for base in list(self._by_addr):
+            try:
+                with urllib.request.urlopen(
+                        base + "/v1/shardmap",
+                        timeout=self.timeout) as r:
+                    smw = json.loads(r.read())
+            except Exception as e:  # noqa: BLE001 — try the next member
+                last = e
+                continue
+            with self._lock:
+                if smw.get("version", -1) >= self._map.get("version",
+                                                           -1):
+                    self._map = smw
+                self.refreshes += 1
+                return dict(self._map)
+        raise ConnectionError(
+            f"no fleet member answered /v1/shardmap: {last!r}")
+
+    def _transport_for(self, body: dict):
+        from parallel_convolution_tpu_torch.serving.peers import shard_of
+        from parallel_convolution_tpu_torch.serving.router import route_key
+
+        with self._lock:
+            smw = self._map
+        shard = shard_of(route_key(dict(body)),
+                         smw.get("n_shards", 1) or 1)
+        ent = (smw.get("shards") or {}).get(shard) or {}
+        addr = (ent.get("addr") or "").rstrip("/")
+        with self._lock:
+            tr = self._by_addr.get(addr)
+            if tr is None and addr:
+                # A takeover can publish an owner addr we were never
+                # given on the command line — dial it anyway.
+                tr = self._by_addr.setdefault(
+                    addr, _HTTPTransport(addr, self.timeout))
+        if tr is None:
+            tr = next(iter(self._by_addr.values()))
+        return tr
+
+    def _call(self, method: str, body: dict):
+        status, wire = -1, {"ok": False, "detail": "no attempt"}
+        for _ in range(self.max_redirects):
+            tr = self._transport_for(body)
+            try:
+                status, wire = getattr(tr, method)(body)
+            except Exception as e:  # noqa: BLE001 — owner unreachable
+                # A dead owner is indistinguishable from a stale map:
+                # re-fetch from the survivors and retry at whoever the
+                # takeover elected.  If it never converges, hand the
+                # outer loop a typed RETRYABLE outcome (the same shape
+                # the broken-stream path uses) so its capped backoff
+                # spans the takeover window.
+                status = -1
+                wire = {"ok": False, "kind": "rejected",
+                        "rejected": "replica_unavailable",
+                        "retryable": True,
+                        "detail": f"owner unreachable: {e!r}"[:300]}
+                try:
+                    self.refresh()
+                except ConnectionError:
+                    pass
+                time.sleep(0.05)
+                continue
+            if (isinstance(wire, dict)
+                    and wire.get("rejected") in self._REROUTE):
+                # Ownership moved underneath us (redirect or fenced
+                # takeover): stale map, not a failed request.
+                try:
+                    self.refresh()
+                except ConnectionError:
+                    pass
+                continue
+            return status, wire
+        return status, wire
+
+    def request(self, body: dict):
+        return self._call("request", body)
+
+    def converge(self, body: dict):
+        return self._call("converge", body)
+
+    def snapshot(self) -> dict:
+        return next(iter(self._by_addr.values())).snapshot()
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m parallel_convolution_tpu_torch.serving.loadgen",
@@ -273,7 +391,10 @@ def main(argv: list[str] | None = None) -> int:
                      help="build the service in this process (no sockets)")
     ap.add_argument("--shardmap", action="store_true",
                     help="treat the --target URLs as a SHARDED router "
-                         "fleet (not ported yet: ROADMAP item 8b-ii)")
+                         "fleet (serving.route --shards N): fetch GET "
+                         "/v1/shardmap, route each request to its key "
+                         "shard's owner, and refresh-and-retry on typed "
+                         "wrong_shard / stale_epoch rejects")
     ap.add_argument("--n", type=int, default=50, help="total requests")
     ap.add_argument("--concurrency", type=int, default=4,
                     help="closed-loop worker count (ignored with --rate)")
@@ -364,6 +485,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="image seed")
     ap.add_argument("--check", action="store_true",
                     help="byte-compare completed responses vs the oracle")
+    ap.add_argument("--check-against", default=None, metavar="NPY",
+                    help="--check against the u8 array in this .npy file "
+                         "(the one image's answer computed elsewhere, "
+                         "say by the card's shifted path) instead of "
+                         "running the NumPy oracle here")
     ap.add_argument("--out", default=None,
                     help="also write the summary row JSON to this path")
     ap.add_argument("--trace-out", default=None, metavar="JSONL",
@@ -385,14 +511,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="pre-compile the config before the timed run "
                          "(in-process; separates compile from steady-state)")
     args = ap.parse_args(argv)
-    if args.shardmap:
-        from parallel_convolution_tpu_torch.utils.config import (
-            FLEET_ITEM, pending,
-        )
-
-        print(f"error: {pending('--shardmap', FLEET_ITEM)}",
-              file=sys.stderr)
-        return 2
+    if args.check_against:
+        if args.zipf is not None:
+            ap.error("--check-against holds one answer; --zipf draws a pool")
+        args.check = True
 
     import numpy as np
 
@@ -507,6 +629,8 @@ def main(argv: list[str] | None = None) -> int:
                  if args.wire != "json" else [])
 
     targets = args.target or ([args.url] if args.url else None)
+    if args.shardmap and not targets:
+        ap.error("--shardmap needs HTTP --target fleet members")
     service = None
     if args.in_process:
         from parallel_convolution_tpu_torch.obs import events as obs_events
@@ -556,6 +680,15 @@ def main(argv: list[str] | None = None) -> int:
             transports = [lambda b: client.request(b, timeout=args.timeout)]
             ftransports = [_request_frames_inproc]
         transport_snapshot = service.snapshot
+    elif args.shardmap:
+        if args.wire != "json":
+            ap.error("--shardmap routes on the JSON route key; use "
+                     "--wire json")
+        sharded = _ShardedTransport(targets, args.timeout)
+        transports = [sharded.converge if args.converge is not None
+                      else sharded.request]
+        ftransports = []
+        transport_snapshot = sharded.snapshot
     else:
         https = [_HTTPTransport(url, args.timeout) for url in targets]
         transports = [(h.converge if args.converge is not None
@@ -587,9 +720,11 @@ def main(argv: list[str] | None = None) -> int:
         # pool member, so a cache HIT serving stale/wrong bytes can
         # never pass (the hit-vs-miss byte-identity gate).
         filt = get_filter(args.filter_name)
-        wants = [oracle.run_serial_u8(im, filt, args.iters,
-                                      boundary=args.boundary).tobytes()
-                 for _, im in profiles]
+        wants = ([np.load(args.check_against).tobytes()]
+                 if args.check_against else
+                 [oracle.run_serial_u8(im, filt, args.iters,
+                                       boundary=args.boundary).tobytes()
+                  for _, im in profiles])
 
     results = []                      # (index, latency_s, status, resp)
     results_lock = threading.Lock()
@@ -873,6 +1008,8 @@ def main(argv: list[str] | None = None) -> int:
            if degraded_served else {}),
         **({"replicas_seen": replicas_seen} if replicas_seen else {}),
         **({"shards_seen": shards_seen} if shards_seen else {}),
+        **({"shardmap_refreshes": sharded.refreshes}
+           if args.shardmap else {}),
         **({"router_restarts_observed": len(epochs_seen) - 1,
             "router_epochs_seen": epochs_seen} if epochs_seen else {}),
         "non_rejected_failures": non_rejected_failures,

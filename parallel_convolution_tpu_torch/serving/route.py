@@ -18,6 +18,21 @@ without CUDA.  Two deployment shapes, one wire format:
   python -m parallel_convolution_tpu_torch.serving.route --port 8090 \\
       --target http://host-a:8080 --target http://host-b:8080
 
+  # ONE member of a sharded control plane: three of these, each owning
+  # one shard's WAL lineage under a shared --state-dir, peer-synced and
+  # ready to take over a dead peer's shards
+  python -m parallel_convolution_tpu_torch.serving.route --port 8090 \\
+      --replicas 1 --mesh 1x1 --shards 3 --name rA \\
+      --state-dir /var/pctpu/ctl --advertise http://host-a:8090 \\
+      --assign 0=rA --assign 1=rB --assign 2=rC \\
+      --peer rB=http://host-b:8091 --peer rC=http://host-c:8092
+  python -m parallel_convolution_tpu_torch.serving.loadgen --shardmap \\
+      --target http://host-a:8090 --target http://host-b:8091 ...
+
+  # the autoscaler: grow the in-process pool up to 3 under load
+  python -m parallel_convolution_tpu_torch.serving.route --port 0 \\
+      --replicas 1 --autoscale-max 3 --autoscale-interval-s 0.25
+
   curl -s localhost:8090/readyz    # 200 iff any replica is ready
   python -m parallel_convolution_tpu_torch.serving.loadgen \\
       --target http://127.0.0.1:8090 --n 200 ...
@@ -31,11 +46,11 @@ header or a ``tenant`` body field; ``--tenant-rate 0`` disables quota.
 ``--mesh RxC`` gives each in-process replica an R x C grid: on a card a
 grid of slots of it (``mesh.grid_like``), so every replica runs the
 per-slot kernels; ``--device`` names the device (``cpu``, ``cuda[:N]``),
-``all`` or a comma list of R·C slots, as ``serving.serve`` takes it.  The
-sharded control plane (``--shards``, ``--peer``, ``--assign``,
-``--advertise``, ``--state-dir``, ``--sync-interval-s``,
-``--suspect-after``) and the autoscaler (``--autoscale-*``) parse and
-exit 2 naming ROADMAP item 8b-ii.
+``all`` or a comma list of R·C slots, as ``serving.serve`` takes it.
+``--shards N`` makes this process one router of a sharded control plane
+(``serving/peers.py``: a sub-router per owned shard, each on its own WAL
+lineage under ``--state-dir``); ``--autoscale-max N`` arms the autoscaler
+(``serving/autoscaler.py``) over the in-process pool.
 """
 
 from __future__ import annotations
@@ -108,13 +123,14 @@ def main(argv: list[str] | None = None) -> int:
                          "hasn't answered within this budget (off by "
                          "default)")
     ap.add_argument("--autoscale-max", type=int, default=0, metavar="N",
-                    help="enable the autoscaler (not ported yet: ROADMAP "
-                         "item 8b-ii)")
-    ap.add_argument("--autoscale-interval-s", type=float, default=None,
-                    help="control-loop tick period (item 8b-ii)")
-    ap.add_argument("--autoscale-cooldown-s", type=float, default=None,
-                    help="minimum wall time between scale actions (item "
-                         "8b-ii)")
+                    help="enable the autoscaler: grow the in-process "
+                         "pool up to N replicas under load and shrink "
+                         "back on idle (0 = fixed pool; in-process "
+                         "replicas only)")
+    ap.add_argument("--autoscale-interval-s", type=float, default=0.5,
+                    help="control-loop tick period")
+    ap.add_argument("--autoscale-cooldown-s", type=float, default=5.0,
+                    help="minimum wall time between scale actions")
     ap.add_argument("--price-admission", action="store_true",
                     help="charge tenant buckets the cost model's "
                          "predicted device-seconds per request instead "
@@ -127,48 +143,71 @@ def main(argv: list[str] | None = None) -> int:
                          "same PATH is a fenced takeover (the epoch "
                          "bumps; a zombie predecessor gets typed "
                          "stale_epoch rejects)")
-    # The sharded control plane (ROADMAP item 8b-ii):
+    # The sharded control plane (N active routers):
     ap.add_argument("--shards", type=int, default=0, metavar="N",
-                    help="partition the control plane into N shards "
-                         "(item 8b-ii)")
+                    help="partition the control plane into N shards: "
+                         "this process becomes ONE active router of a "
+                         "fleet, owning the shards --assign maps to "
+                         "--name (each on its own WAL lineage under "
+                         "--state-dir) and redirecting the rest with "
+                         "typed wrong_shard rejects; requires "
+                         "--state-dir")
     ap.add_argument("--name", default="r0",
                     help="this router's fleet-unique name (sharded mode)")
     ap.add_argument("--state-dir", default=None, metavar="DIR",
-                    help="the per-shard WAL lineages (item 8b-ii)")
+                    help="directory holding the per-shard WAL lineages "
+                         "(shard-N.wal); booting any fleet member over "
+                         "the same DIR re-adopts its shards via the "
+                         "fenced takeover")
     ap.add_argument("--peer", action="append", default=[],
-                    metavar="NAME=URL", help="peer router (item 8b-ii)")
+                    metavar="NAME=URL",
+                    help="peer router (repeatable): anti-entropy sync "
+                         "target, debt-replication source, and takeover "
+                         "candidate for this router's shards")
     ap.add_argument("--assign", action="append", default=[],
                     metavar="SHARD=NAME",
-                    help="boot ownership of SHARD (item 8b-ii)")
+                    help="boot ownership of SHARD (repeatable; shards "
+                         "left unassigned default to --name)")
     ap.add_argument("--advertise", default=None, metavar="URL",
-                    help="own base URL in the shard map (item 8b-ii)")
-    ap.add_argument("--sync-interval-s", type=float, default=None,
-                    help="peer anti-entropy period (item 8b-ii)")
-    ap.add_argument("--suspect-after", type=int, default=None,
-                    help="failed syncs before a peer's shards are taken "
-                         "over (item 8b-ii)")
+                    help="own base URL published in the shard map (what "
+                         "redirected clients should dial)")
+    ap.add_argument("--sync-interval-s", type=float, default=0.25,
+                    help="peer anti-entropy period (sharded mode)")
+    ap.add_argument("--suspect-after", type=int, default=3,
+                    help="consecutive failed syncs before a dead peer's "
+                         "shards are taken over")
     args = ap.parse_args(argv)
 
-    from parallel_convolution_tpu_torch.utils.config import (
-        FLEET_ITEM, pending,
-    )
-
-    unported = [flag for flag, given in (
-        ("--shards", args.shards), ("--state-dir", args.state_dir),
-        ("--peer", args.peer), ("--assign", args.assign),
-        ("--advertise", args.advertise),
-        ("--sync-interval-s", args.sync_interval_s is not None),
-        ("--suspect-after", args.suspect_after is not None),
-        ("--autoscale-max", args.autoscale_max),
-        ("--autoscale-interval-s", args.autoscale_interval_s is not None),
-        ("--autoscale-cooldown-s", args.autoscale_cooldown_s is not None),
-    ) if given]
-    if unported:
-        print(f"error: {pending(' / '.join(unported), FLEET_ITEM)}",
-              file=sys.stderr)
-        return 2
     if bool(args.target) == bool(args.replicas):
         ap.error("exactly one of --target ... or --replicas N required")
+    # The refusals of the JAX script, in its words, before anything is
+    # built.
+    peer_urls, assignments = {}, {}
+    if args.shards:
+        if not args.state_dir:
+            ap.error("--shards requires --state-dir (the per-shard "
+                     "WAL lineages live there)")
+        if args.wal:
+            ap.error("--shards replaces --wal: every shard gets its "
+                     "own lineage under --state-dir")
+        if args.autoscale_max:
+            ap.error("--autoscale-max is not supported in sharded "
+                     "mode")
+        for spec in args.peer:
+            nm, _, url = spec.partition("=")
+            if not url:
+                ap.error(f"--peer wants NAME=URL, got {spec!r}")
+            peer_urls[nm] = url
+        for spec in args.assign:
+            sh, _, nm = spec.partition("=")
+            if not nm:
+                ap.error(f"--assign wants SHARD=NAME, got {spec!r}")
+            assignments[sh] = nm
+        for s in range(args.shards):
+            assignments.setdefault(str(s), args.name)
+    if args.autoscale_max and args.target:
+        ap.error("--autoscale-max needs in-process --replicas (HTTP "
+                 "targets have no provisioner to grow through)")
 
     from parallel_convolution_tpu_torch.obs import events as obs_events
     from parallel_convolution_tpu_torch.resilience import diskio, faults
@@ -218,14 +257,46 @@ def main(argv: list[str] | None = None) -> int:
             pricer = WorkPricer(grid=shape, platform=(
                 "gpu" if grid.device.type == "cuda" else "cpu"),
                 device_kind=platform.device_kind(grid.device))
-    router = ReplicaRouter(
-        replicas, quotas=quotas, pricer=pricer, vnodes=args.vnodes,
-        breaker_threshold=args.breaker_threshold,
+    knobs = dict(
+        vnodes=args.vnodes, breaker_threshold=args.breaker_threshold,
         breaker_cooldown_s=args.breaker_cooldown_s,
-        poll_interval_s=args.poll_interval_s,
-        load_factor=args.load_factor,
-        hedge_s=args.hedge_ms / 1e3 if args.hedge_ms else None,
-        wal=args.wal)
+        poll_interval_s=args.poll_interval_s, load_factor=args.load_factor,
+        hedge_s=args.hedge_ms / 1e3 if args.hedge_ms else None)
+    if args.shards:
+        from parallel_convolution_tpu_torch.serving.peers import (
+            HTTPPeer, ShardRouter,
+        )
+
+        peers = [HTTPPeer(nm, url) for nm, url in peer_urls.items()]
+        addrs = dict(peer_urls)
+        if args.advertise:
+            addrs[args.name] = args.advertise
+        owned = [s for s, o in assignments.items() if o == args.name]
+        router = ShardRouter(
+            args.name, replicas, n_shards=args.shards, owned=owned,
+            state_dir=args.state_dir, assignments=assignments,
+            addrs=addrs, quotas=quotas, pricer=pricer, peers=peers,
+            sync_interval_s=args.sync_interval_s,
+            suspect_after=args.suspect_after, **knobs)
+    else:
+        router = ReplicaRouter(replicas, quotas=quotas, pricer=pricer,
+                               wal=args.wal, **knobs)
+
+    scaler = None
+    if args.autoscale_max:
+        from parallel_convolution_tpu_torch.serving.autoscaler import (
+            AutoScaler,
+        )
+
+        def transport_factory(name):
+            return InProcessReplica(factory, name=name)
+
+        scaler = AutoScaler(
+            router, transport_factory, min_replicas=len(replicas),
+            max_replicas=max(args.autoscale_max, len(replicas)),
+            interval_s=args.autoscale_interval_s,
+            cooldown_s=args.autoscale_cooldown_s)
+        scaler.start()
 
     server = make_router_http_server(router, args.host, args.port)
     host, port = server.server_address[:2]
@@ -235,11 +306,17 @@ def main(argv: list[str] | None = None) -> int:
             "replicas": [r.name for r in replicas],
             "tenant_quota": bool(quotas),
             "priced_admission": bool(pricer),
-            "autoscale_max": None}
+            "autoscale_max": args.autoscale_max or None}
     if grid is not None:
         boot["mesh"] = "x".join(map(str, grid.shape))
         boot["device"] = str(grid.device)
-    if args.wal:
+    if args.shards:
+        boot.update(name=args.name, shards=args.shards,
+                    owned=sorted(router.snapshot()["owned_shards"]),
+                    map_version=router.shardmap_wire()["version"],
+                    state_dir=args.state_dir,
+                    peers=[p.name for p in router.peers])
+    elif args.wal:
         boot.update(wal=args.wal, epoch=router.epoch,
                     recovery=router.recovery)
     print(json.dumps(boot), flush=True)
@@ -260,6 +337,8 @@ def main(argv: list[str] | None = None) -> int:
         server.serve_forever()
     finally:
         server.server_close()
+        if scaler is not None:
+            scaler.close()
         router.close()
     return 0
 

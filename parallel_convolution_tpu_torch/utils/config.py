@@ -79,13 +79,6 @@ OVERLAP_INTERPRET_ENV = "PCTPU_OVERLAP_INTERPRET"
 PROCESSES_ITEM = ("item 10d (cuda_rdma, multigrid and volumes across "
                   "processes; the NCCL transport, one card a process)")
 
-# The part of the fleet (item 8b) not ported yet: ``serving/__init__.py``
-# raises on its names, ``serving.route`` on its flags and
-# ``serving.loadgen`` on ``--shardmap``.
-FLEET_ITEM = ("item 8b-ii (serving: the fleet's peers and autoscaler — "
-              "peers.py, autoscaler.py, scripts/soak.py, loadgen "
-              "--shardmap, route's sharded and autoscale flags)")
-
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.  None is left: every knob is ported.
 PENDING_KNOBS: dict[str, str] = {}

@@ -80,5 +80,8 @@ def test_scan_covers_tuning_probes_and_bench():
                  "serving/jobs.py", "serving/cache.py", "serving/pricing.py",
                  "serving/wal.py", "serving/router.py", "serving/chaos.py",
                  "serving/route.py", "serving/loadgen.py",
+                 "serving/peers.py", "serving/autoscaler.py",
+                 "serving/_chaos_common.py", "serving/chaos_matrix.py",
+                 "soak.py",
                  "serving/serve.py", "utils/config.py", "convert.py"):
         assert name in scanned

@@ -1726,3 +1726,26 @@ def test_device_trace_sees_the_kernels_at_their_launch_counts(
     assert sum(seen.values()) > 0
     np.testing.assert_array_equal(
         out, oracle.run_serial_u8(img, get_filter("blur3"), 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [["--n", "8"], ["--converge", "--n", "8"]],
+                         ids=["iterate", "converge"])
+def test_soak_rows_all_ok_on_the_card(cuda_device, capsys, argv):
+    """The randomized soak on the card: eight sampled configurations
+    (backends, storages, boundaries, grids of slots, fuses, tiles) at
+    awkward sizes, every one the oracle's bytes (float mode: ``shifted``'s
+    bits where every tap is a power of two, its FMA tolerance elsewhere),
+    with kernels launched."""
+    import json
+
+    from parallel_convolution_tpu_torch import soak
+
+    stencil.reset_launch_counts()
+    assert soak.main([*argv, "--seed", "0"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("{")]
+    summary = rows.pop()
+    assert summary["failures"] == 0 and summary["device"].startswith("cuda")
+    assert len(rows) == 8 and all(r["ok"] for r in rows)
+    assert sum(stencil.launch_counts().values()) > 0

@@ -604,11 +604,17 @@ def test_serving_exports_the_service_and_the_fleet_still_raises():
     for name in ("ChaosTransport", "CorruptReplicaBody", "HTTPReplica",
                  "InProcessReplica", "ReplicaRouter", "TenantQuotas"):
         assert name in serving.__all__ and getattr(serving, name)
-    for name in ("AutoScaler", "peers", "autoscaler"):
-        with pytest.raises(NotImplementedError, match="item 8b-ii") as e:
-            getattr(serving, name)
-        assert config.FLEET_ITEM in str(e.value)
+    # The fleet's names resolve as the JAX package's serving names do
+    # (the test's name is from when they still raised).
+    import parallel_convolution_tpu.serving as jserving
+    from parallel_convolution_tpu_torch.serving import autoscaler, peers
+
+    assert "AutoScaler" in serving.__all__ and "AutoScaler" in jserving.__all__
+    assert serving.AutoScaler is autoscaler.AutoScaler
+    assert serving.autoscaler is autoscaler and serving.peers is peers
+    assert serving.peers.ShardRouter.__name__ == "ShardRouter"
     assert not hasattr(config, "SERVICE_ITEM")
+    assert not hasattr(config, "FLEET_ITEM")
 
 
 @pytest.fixture(scope="module")

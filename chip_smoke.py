@@ -287,18 +287,30 @@ Phases (any failure exits non-zero and prints no result line):
    slot), each bit-equal to the one-card 2x2 run of its backend (freed
    before the slot run), the same cycles, work units and level grids, the
    peak reckoned and measured; fd25 at 512³ x 40 sweeps fuse 4 through
-   ``run --rank 3`` on 2x2 slots, the bytes of phase 4g's 1x1 run;
-   BASELINE config 4 on 16 slots (``run --sharded-io --storage u8 --fuse
-   32 --backend cuda_rdma --device <16 slots>``, in phase 4c), its file
-   CRC-equal band by band to the 4x4 one-card run's; the checkpoint kill
+   ``run --rank 3`` on 2x2 slots, the bytes of phase 4g's 1x1 run; the
+   checkpoint kill
    and resume on config 3's image at 4x4 slots, resharded onto 2x2 slots
    and onto one device, each byte-equal to ``shifted``; two spawned
    processes sharing the card (2 slots each of a 2x2 grid, gloo) running
    the JAX package's two-process job (``utils/multihost_job.py``) at
-   config 2's size with ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32,
-   byte-equal to the same job in one process, the resume bit-identical,
-   ``broadcast_scalar`` agreed; each run's first and resident seconds
-   beside its one-card (or one-process) form;
+   config 2's size with ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32
+   (the second in (e)'s spawn), byte-equal to the same job in one
+   process, the f32 resume bit-identical,
+   ``broadcast_scalar`` agreed; then (e, ROADMAP item 10d-i) one more
+   spawn of two ranks for ``cuda_rdma`` over processes (a neighbour on the
+   other rank read in place through CUDA IPC behind the step counters):
+   config 2 bf16 fuse 32 on 2x2 strided and packed, the skew check (rank
+   1 50 ms late before each chunk), ``auto`` and ``fallback=True`` (one
+   resolution, one rung), the engine with config 2's key and a batch of
+   two of 4l's images, config 3 through ``run --device all --mesh 4x4``,
+   config 5's V-cycle on 2x2 and fd25 512³ through ``run --rank 3
+   --device all``, each against its one-process form and ``shifted``;
+   the per-slot K3 / K4 and the pack over the two ranks timed (the
+   kernels line's ``... over 2 ranks`` rows: a fork to a join with the
+   counter waits, one launch alone, the barrier's own cost a chunk; the
+   staging each pack wrote against ``rdma_pack_plain``);
+   each run's first and resident seconds beside its one-card (or
+   one-process) form;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
    BASELINE config 5's field (32768x32768, jacobi3, tol 1e-3, f32) under
    the Jacobi run's budget of 100 fine-grid work units, through
@@ -4771,6 +4783,7 @@ def fleet_rest_phase(dev, tmp: Path, refs: dict, totals: dict,
                                 device=dev).run_image(img, iters)
 
     rgbs, wants = keep.pop("service_imgs")
+    keep["engine_pair"] = (rgbs[:2], wants[:2])   # phase 4j (e)'s batch
     _, cwant, citers = keep["cli_converge"]
     grey = refs["greys"]["blur3"]
     base = {"rows": RGB_HW[0], "cols": RGB_HW[1], "mode": "rgb",
@@ -5612,7 +5625,8 @@ def ckpt_slots_argv(src: Path, dst: Path, ck: Path, mesh_spec: str,
 
 
 def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
-                     field, volume_sha: str, mg_shifted) -> dict:
+                     field, volume_sha: str, mg_shifted,
+                     engine_imgs) -> dict:
     """Phase 4j: (a) BASELINE config 5 under the V-cycle (32768² jacobi3,
     tol 1e-3, 100 work units) on 2x2 slots with ``cuda`` (K1 per slot) and
     ``cuda_rdma`` (K3 / K4 per slot), each bit-equal to the one-card 2x2
@@ -5627,20 +5641,38 @@ def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
     each byte-equal to ``shifted``; (d) two spawned processes sharing the
     card, 2 slots each of a 2x2 grid over gloo, running the JAX package's
     two-process job (``utils/multihost_job.py``) at config 2's size with
-    ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32, byte-equal to the
-    same job in one process and both to the plain ``shifted`` config 2
-    output of the main paths (``refs["rgb_ref"]``), the resume
-    bit-identical (the f32 leg: a snapshot holds f32 or u8 blocks, so the
-    bf16 leg runs the sharded load, iterate and save without one), the
-    broadcast agreed.  Every run counted into the kernels line (the two ranks'
-    launches as they report them)."""
+    ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32 (the second in (e)'s
+    spawn), byte-equal to the same job in one process and both to the
+    plain ``shifted`` config 2 output of the main paths
+    (``refs["rgb_ref"]``), the f32 resume bit-identical, the broadcast
+    agreed; (e) ``cuda_rdma``, ``auto``, ``fallback``, the engine,
+    multigrid and volumes on grids over two ranks sharing the card
+    (:func:`processes_leg`, item 10d-i).  Every run counted into the
+    kernels line (the two ranks' launches as they report them)."""
+    import numpy as np
+    import torch
+
     card = card_line()
-    return {"card": card,
-            "multigrid": multigrid_slots_leg(dev, totals, field, mg_shifted,
-                                             card),
-            "volume": volume_slots_leg(dev, here, volume_sha, card),
-            "checkpoint": checkpoint_slots_leg(tmp, here, refs, totals),
-            "two_processes": two_process_leg(tmp, totals, refs, card)}
+    out = {"card": card,
+           "multigrid": multigrid_slots_leg(dev, totals, field, mg_shifted,
+                                            card)}
+    # Config 5's field for (e)'s ranks, off the card before they start.
+    work = here / "build" / "chip_smoke_processes"
+    work.mkdir(parents=True, exist_ok=True)
+    field_path = work / "config5.npy"
+    np.save(field_path, field.cpu().numpy())
+    del field
+    torch.cuda.empty_cache()
+    out["volume"] = volume_slots_leg(dev, here, volume_sha, card)
+    out["checkpoint"] = checkpoint_slots_leg(tmp, here, refs, totals)
+    out["two_processes"] = two_process_leg(tmp, totals, refs, card)
+    cross = processes_leg(
+        dev, tmp, work, refs, totals, card, field_path, mg_shifted,
+        out["multigrid"], {"sha": volume_sha,
+                           "seconds": out["volume"]["seconds"]}, engine_imgs)
+    out["processes"], out["processes_timed"] = cross["rows"], cross["timed"]
+    out["two_processes"].append(cross["job"])
+    return out
 
 
 def multigrid_slots_leg(dev, totals: dict, field, mg_shifted,
@@ -5819,80 +5851,614 @@ def checkpoint_slots_leg(tmp: Path, here: Path, refs: dict,
     return ckpt
 
 
-def two_process_leg(tmp: Path, totals: dict, refs: dict,
-                    card: str) -> list:
-    """Phase 4j (d): the two-process job on the card (2 ranks, 2 slots of
-    ``cuda:0`` each, gloo) against the same job in this process, at
-    config 2's size, ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32;
-    both outputs against the plain ``shifted`` run of the main paths on
-    the same image (``refs``: seed 1, blur3 x ITERS).  The kernels are
-    built (``main``) before any rank starts."""
+def job_kw(backend: str, storage: str, fuse: int) -> dict:
+    """The two-process job's arguments at config 2's size (phase 4j (d))."""
+    rows_, cols_ = RGB_HW
+    return dict(device="cuda", shape=(2, 2), rows=rows_, cols=cols_,
+                mode="rgb", iters=ITERS, every=ITERS // 2, filt="blur3",
+                backend=backend, storage=storage, fuse=fuse, seed=1)
+
+
+def job_one_process(tmp: Path, kw: dict) -> dict:
+    """The two-process job's run in this process (the reference of its
+    ranks' run): its row, seconds, launches and work directories."""
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.utils import multihost_job
+
+    label = (f"4j two processes config 2 {kw['backend']} {kw['storage']} "
+             f"fuse {kw['fuse']}")
+    w1, w2 = tmp / f"job1_{kw['backend']}", tmp / f"job2_{kw['backend']}"
+    stencil.reset_launch_counts()
+    one, one_s = host_seconds(lambda: multihost_job.job(None, 1, None, w1,
+                                                        **kw))
+    counts = stencil.launch_counts()  # the resident run's too
+    check(one["slots"] == "cuda:0,cuda:0,cuda:0,cuda:0"
+          and not one["owners"], f"{label}: the one-process grid is "
+          f"{one['slots']} owned by {one['owners']}")
+    stencil.reset_launch_counts()
+    return {"label": label, "row": one, "seconds": one_s, "counts": counts,
+            "w1": w1, "w2": w2, "storage": kw["storage"]}
+
+
+def job_checks(one: dict, two: list, two_s: float, refs: dict,
+               totals: dict, card: str) -> dict:
+    """The ranks' rows of the two-process job (``two``) against its run in
+    one process (:func:`job_one_process`) and the plain ``shifted``
+    output; both runs' launches go into ``totals``.  Returns the row."""
     import numpy as np
 
     from parallel_convolution_tpu_torch.utils import imageio
 
-    from parallel_convolution_tpu_torch.ops import stencil
+    label, w1, w2 = one["label"], one["w1"], one["w2"]
+    ref = one["row"]
+    rows_, cols_ = RGB_HW
+    sent = {k: two[0]["launches"][k] + two[1]["launches"][k]
+            for k in one["counts"]}
+    check(sent == ref["launches"] and any(sent.values()),
+          f"{label}: the ranks launched {sent}, one process "
+          f"{ref['launches']}")
+    for k, v in sent.items():
+        totals[k] += v + ref["launches"][k]
+    check((w1 / "out.raw").read_bytes() == (w2 / "out.raw").read_bytes(),
+          f"{label}: the two-process output differs from the one-process "
+          "one")
+    check(np.array_equal(imageio.read_raw(w1 / "in.raw", rows_, cols_,
+                                          "rgb"), refs["rgb"]),
+          f"{label}: the job's input is not config 2's image")
+    check(np.array_equal(imageio.read_raw(w2 / "out.raw", rows_, cols_,
+                                          "rgb"), refs["rgb_ref"]),
+          f"{label}: differs from the plain shifted output")
+    check(all(r["broadcast"] == 7.0 for r in two)
+          and [r["owners"] for r in two] == [[0, 0, 1, 1]] * 2,
+          f"{label}: broadcast / owners {two}")
+    if one["storage"] != "bf16":  # a snapshot holds f32 or u8
+        check(ref["resume_bitexact"] is True
+              and all(r["resume_bitexact"] is True for r in two),
+              f"{label}: the resume is not bit-identical")
+    row = {"path": label, "launches_two": sent,
+           "first_s_two": max(r["first_s"] for r in two),
+           "resident_s_two": max(r["resident_s"] for r in two),
+           "spawn_to_end_s": two_s, "first_s_one": ref["first_s"],
+           "resident_s_one": ref["resident_s"],
+           "one_process_s": one["seconds"], "bitwise_one_process": True,
+           "bitwise_shifted": True,
+           "resume_bitexact": two[0]["resume_bitexact"], "card": card}
+    print(f"{label}: two processes first {row['first_s_two']:.4f} s, "
+          f"resident {row['resident_s_two']:.4f} s; one process "
+          f"{ref['first_s']:.4f} / {ref['resident_s']:.4f} s")
+    shutil.rmtree(w1, ignore_errors=True)
+    shutil.rmtree(w2, ignore_errors=True)
+    return row
+
+
+def two_process_leg(tmp: Path, totals: dict, refs: dict,
+                    card: str) -> list:
+    """Phase 4j (d): the two-process job on the card (2 ranks, 2 slots of
+    ``cuda:0`` each, gloo) against the same job in this process, at
+    config 2's size, ``cuda`` f32 fuse 1 in a spawn of its own (its
+    ``cuda_sep`` bf16 fuse 32 run rides phase 4j (e)'s spawn); both
+    outputs against the plain ``shifted`` run of the main paths on the
+    same image (``refs``: seed 1, blur3 x ITERS).  The kernels are built
+    (``main``) before any rank starts."""
     from parallel_convolution_tpu_torch.utils import multihost_job
 
-    rows = []
     print("4j two processes: two CUDA contexts time-slice one card, so "
           "their seconds measure the cost of the path, not scaling")
-    rows_, cols_ = RGB_HW
-    for backend, storage, fuse in (("cuda", "f32", 1),
-                                   ("cuda_sep", "bf16", 32)):
-        kw = dict(device="cuda", shape=(2, 2), rows=rows_, cols=cols_,
-                  mode="rgb", iters=ITERS, every=ITERS // 2, filt="blur3",
-                  backend=backend, storage=storage, fuse=fuse, seed=1)
-        label = f"4j two processes config 2 {backend} {storage} fuse {fuse}"
-        w1, w2 = tmp / f"job1_{backend}", tmp / f"job2_{backend}"
+    kw = job_kw("cuda", "f32", 1)
+    one = job_one_process(tmp, kw)
+    two, two_s = host_seconds(lambda: multihost_job.spawn(
+        2, one["w2"], timeout=400, **kw))
+    return [job_checks(one, two, two_s, refs, totals, card)]
+
+
+def _sha(data) -> str:
+    """SHA-256 of an array's or tensor's bytes (on the host)."""
+    import numpy as np
+    import torch
+
+    if torch.is_tensor(data):
+        data = data.detach().cpu().contiguous().numpy()
+    return hashlib.sha256(np.ascontiguousarray(data).tobytes()).hexdigest()
+
+
+def rank_legs(rank: int, port: int, spec: dict) -> dict:
+    """Phase 4j (e), one rank's share: every leg on grids over the two
+    ranks (2 slots of ``cuda:0`` each at 2x2, 8 at 4x4), each between two
+    barriers, its seconds, its launches (``stencil.launch_counts``) and its
+    output's SHA-256 in the row."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh, multihost, step
+    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+    from parallel_convolution_tpu_torch.utils import imageio, multihost_job
+
+    multihost.initialize(f"localhost:{port}", num_processes=2,
+                         process_id=rank)
+    dev = torch.device("cuda", 0)
+    row = {"rank": rank}
+
+    def leg(name, fn):
+        multihost.barrier(name)
+        torch.cuda.synchronize(dev)
         stencil.reset_launch_counts()
-        one, one_s = host_seconds(lambda: multihost_job.job(
-            None, 1, None, w1, **kw))
-        one_counts = stencil.launch_counts()  # the resident run's too
-        check(one["slots"] == "cuda:0,cuda:0,cuda:0,cuda:0"
-              and not one["owners"], f"{label}: the one-process grid is "
-              f"{one['slots']} owned by {one['owners']}")
+        t0 = time.perf_counter()
+        res = fn() or {}
+        torch.cuda.synchronize(dev)
+        multihost.barrier(name)
+        row[name] = dict(res, seconds=time.perf_counter() - t0,
+                         launches=stencil.launch_counts())
+
+    # Phase 4j (d)'s cuda_sep bf16 fuse 32 job (K2 per block, depth-32
+    # rims between the ranks, the sharded load and save), in this group.
+    leg("job", lambda: {"row": multihost_job.job(
+        rank, 2, None, spec["job"]["work"], **spec["job"]["kw"])})
+    grid = mesh.make_grid((2, 2), devices="all")
+    rgb = imageio.read_raw(spec["rgb"], *RGB_HW, "rgb")
+    blur3 = get_filter("blur3")
+    kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
+    for cm in ("strided", "packed"):
+        model = ConvolutionModel("blur3", grid=grid, col_mode=cm, **kw)
+        for name in (f"config 2 {cm}", f"config 2 {cm} resident"):
+            leg(name, lambda: {"sha256": _sha(model.run_image(rgb, ITERS)),
+                               "col_mode": model.effective_col_mode})
+    # The skew check: rank 1's host sleeps 50 ms before each of its first
+    # four chunks (all of this run's), so rank 0's launches are enqueued
+    # ahead and wait on rank 1's counters.
+    real, calls = rdma._slots_step, [0]
+
+    def late(*a, **k):
+        calls[0] += 1
+        if rank == 1 and calls[0] <= 4:
+            time.sleep(0.05)
+        return real(*a, **k)
+
+    rdma._slots_step = late
+    model = ConvolutionModel("blur3", grid=grid, col_mode="packed", **kw)
+    leg("skew", lambda: {"sha256": _sha(model.run_image(rgb, ITERS)),
+                         "late_chunks": min(calls[0], 4) if rank else 0})
+    rdma._slots_step = real
+    planar = imageio.interleaved_to_planar(rgb).astype(np.float32)
+
+    def auto():
+        out = step.sharded_iterate(planar, blur3, ITERS, grid=grid,
+                                   backend="auto", storage="bf16")
+        res = tuning.last_resolution()
+        return {"sha256": _sha(imageio.planar_to_interleaved(
+                    out.cpu().numpy().astype(np.uint8))),
+                "resolution": [res.backend, res.fuse,
+                               list(res.tile) if res.tile else None,
+                               res.overlap, res.col_mode, res.source]}
+
+    leg("auto", auto)
+
+    def fallback():
+        model = ConvolutionModel("blur3", grid=grid, fallback=True, **kw)
+        return {"sha256": _sha(model.run_image(rgb, ITERS)),
+                "rung": model.effective_backend}
+
+    leg("fallback", fallback)
+    imgs = [imageio.read_raw(p, *RGB_HW, "rgb") for p in spec["engine"]]
+    eng = WarmEngine(grid, fallback=False)
+    key = eng.key_for((3, *RGB_HW), filter_name="blur3", iters=ITERS, **kw)
+    leg("engine warm", lambda: {"effective": eng.entry(key).effective_backend})
+
+    def batch():
+        out, info = eng.run_batch(key, np.stack([
+            imageio.interleaved_to_planar(im).astype(np.float32)
+            for im in imgs]))
+        return {"sha256": [_sha(imageio.planar_to_interleaved(
+                    np.clip(np.rint(o), 0, 255).astype(np.uint8)))
+                           for o in out],
+                "device_s": info["phases"]["device"]}
+
+    leg("engine", batch)
+    leg("engine resident", batch)
+    del eng
+    n = str(BIG_HW[0])
+    leg("config 3", lambda: {"rc": cli_main([
+        "run", spec["edge5"], n, n, str(ITERS), "grey", "-o",
+        spec["edge5_out"], "--filter", "edge5", "--backend", "cuda_rdma",
+        "--mesh", "4x4", "--device", "all", "--storage", "bf16", "--fuse",
+        "32", "--col-mode", "packed"])})
+    field = np.load(spec["field"])
+
+    def multigrid():
+        out, res = mg.mg_converge(field, get_filter("jacobi3"), 1e-3,
+                                  CONVERGE_MAX_ITERS, grid=grid,
+                                  backend="cuda_rdma")
+        return {"cycles": res.cycles, "work_units": res.work_units,
+                "level_grids": res.level_grids, "residuals": res.residuals,
+                "col_mode": res.col_mode,
+                "sha256": _sha(out) if rank == 0 else None}
+
+    leg("multigrid", multigrid)
+    del field
+    torch.cuda.empty_cache()
+    v = str(VOLUME_N)
+    if rank == 0:
+        volume_state("fd25", (VOLUME_N,) * 3, 31).tofile(spec["volume"])
+    leg("fd25", lambda: {"rc": cli_main([
+        "run", spec["volume"], v, v, str(VOLUME_FD25_SWEEPS), "grey", "-o",
+        spec["volume_out"], "--rank", "3", "--depth", v, "--filter", "fd25",
+        "--fuse", "4", "--mesh", "2x2", "--device", "all"])})
+    # The per-slot kernels over the two ranks, timed (not main-path
+    # launches): config 2's K4 and the 16x16 split's K3.
+    grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
+    row["kernels"] = {
+        "config 2": cross_slot_times(dev, rgb, "bf16", (2, 2), 32, blur3),
+        "grey 16x16": cross_slot_times(dev, grey, "u8", GREY_GRID, 8,
+                                       blur3)}
+    multihost.barrier("done")
+    return row
+
+
+def cross_slot_times(dev, img, storage: str, shape, T: int, filt) -> dict:
+    """One rank's share of a per-slot kernel on a grid over two ranks
+    (phase 4j (e)): the first level group of a ``T``-level chunk as
+    ``rdma._slots_step`` plans it, launched for this rank's slots between
+    a fork and a join with the barrier's waits (events for a neighbour in
+    this process, the step counters for one in the other), timed by CUDA
+    events on the current stream; the same step with no launch (the
+    barrier's own cost a chunk); one slot's launch alone, queued ahead;
+    and the packs of every local slot the same way, and one alone.  The
+    launches' outputs are held against the plain version of the whole
+    grid (``first_group_plain``), the staging each pack wrote against
+    ``rdma_pack_plain``'s."""
+    import torch
+
+    from parallel_convolution_tpu_torch import convert
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    planar = imageio.interleaved_to_planar(img)
+    valid = planar.shape[1:]
+    grid = mesh.make_grid(shape, devices="all")
+    blocks = convert.blocks_from_numpy(planar, grid, storage)
+    C, h, w = mesh.first_block(blocks).shape
+    r = filt.radius
+    plan = rdma.rdma_plan(r, T, (h, w), None, stencil._smem_limit(dev))
+    levels = plan.groups[0]
+    ext = r * (T - levels)
+    tiled = plan.kernel == "tiled"
+    launch = rdma.rdma_tiled_slot if tiled else rdma.rdma_block_slot
+    mid = stencil.group_dtype(True, mesh.first_block(blocks).dtype)
+    kw = dict(ext=ext, **(dict(tile=plan.tile) if tiled else {}))
+    out = {"kernel": "rdma_tiled_slot" if tiled else "rdma_block_slot",
+           "levels": levels, "ext": ext, "block": [C, h, w]}
+    one = convert.blocks_from_numpy(planar, mesh.make_grid(
+        shape, devices=[dev] * (shape[0] * shape[1])), storage)
+    for cm in ("strided", "packed"):
+        run = rdma.slot_carry(blocks, grid, "zero", r * T, cm).run
+        outs = {s: torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
+                               device=dev) for s in run.local}
+
+        def step(per_slot):
+            def once():
+                run.fork()
+                k = run.step + 1
+                for s in run.local:
+                    for n in run.neighbours[s]:
+                        run.after(s, n, run.step)
+                for s in run.local:
+                    per_slot(s)
+                for s in run.local:
+                    run.launched[s].record(run.streams[s])
+                    run.mark(s, k)
+                run.step = k
+                run.join()
+            return once
+
+        reps = 10 if T * r * r > 8 else 20
+        s0 = run.local[0]
+        if cm == "packed":
+            pack = step(lambda s: rdma.rdma_pack(run, 0, s, r * T))
+            pack()
+            slabs = [rdma.staged_slabs(run, s, r * T) for s in run.local]
+            wants = rdma.rdma_pack_plain(one, shape, "zero", r * T)
+            check(all(torch.equal(a, wants[s])
+                      for a, s in zip(slabs, run.local)),
+                  f"rdma_pack over two ranks at {shape}: the staging "
+                  "differs from its plain version")
+            out["pack_max_abs_err"] = max(
+                max_abs_err(a, wants[s]) for a, s in zip(slabs, run.local))
+            del slabs, wants
+            out["pack_ms"] = cuda_ms(pack, reps=reps)
+            with torch.cuda.stream(run.streams[s0]):
+                out["pack_alone_ms"] = cuda_ms(lambda: rdma.rdma_pack(
+                    run, 0, s0, r * T), reps=reps, queue_ahead=True)
+            out["packed_ms"] = cuda_ms(step(lambda s: launch(
+                run, 0, s, outs[s], filt, levels, valid, **kw)), reps=reps)
+        else:
+            out["ms"] = cuda_ms(step(lambda s: launch(
+                run, 0, s, outs[s], filt, levels, valid, **kw)), reps=reps)
+            out["barrier_ms"] = cuda_ms(step(lambda s: None), reps=reps)
+            with torch.cuda.stream(run.streams[s0]):
+                out["alone_ms"] = cuda_ms(lambda: launch(
+                    run, 0, s0, outs[s0], filt, levels, valid, **kw),
+                    reps=reps, queue_ahead=True)
+        want = first_group_plain(one, filt, shape, T, levels, valid, mid)
+        got = torch.stack([outs[s] for s in run.local])
+        ok, err = agree(got, want[run.local], filt, levels, True)
+        check(ok, f"{out['kernel']} over two ranks {cm} at {shape}: err "
+                  f"{err}")
+        out[f"max_abs_err_{cm}"] = err
+        rdma.close_carry(rdma.SlotCarry(run, run.bufs[0]))
+        del outs, got, want
+    out["local_slots"] = len(run.local)
+    return out
+
+
+def _rank_legs(rank: int, port: int, spec: dict, results) -> None:
+    import torch.distributed as dist
+
+    try:
+        results[rank] = rank_legs(rank, port, spec)
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        results[rank] = {"rank": rank, "error": f"{type(e).__name__}: {e}"}
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
+                  card: str, field_path: Path, mg_ref, mg_rows: list,
+                  volume: dict, engine_imgs) -> dict:
+    """Phase 4j (e): ``cuda_rdma`` on grids over two spawned ranks sharing
+    the card (item 10d-i: the neighbours on the other rank read in place
+    through CUDA IPC behind the step counters), one spawn for every leg
+    (:func:`rank_legs`): phase 4j (d)'s ``cuda_sep`` bf16 fuse 32 job
+    (:func:`job_checks`); config 2 bf16 fuse 32 on 2x2, strided and packed
+    (byte-equal to the one-process run on 2x2 slots and to ``shifted``,
+    the ranks' launches summing to its launches, packed launching the
+    pack); the same with rank 1's host 50 ms late before each chunk (the
+    skew check); ``auto`` and ``fallback=True`` on config 2 (both ranks one
+    resolution, one rung); the engine with config 2's key and a batch of
+    phase 4l's first two images; config 3 through ``run --device all
+    --mesh 4x4`` (8 slots a rank; the one-process 16-slot bytes, which are
+    ``shifted``'s); config 5's V-cycle on 2x2 (``cuda_rdma``, the 100-unit
+    cap; bit-equal to 4j (a)'s one-process run, which is ``shifted``'s)
+    and fd25 512^3 x 40 fuse 4 through ``run --rank 3 --device all`` (the
+    bytes of phase 4g's 1x1 run).  Every rank's launches go into the
+    kernels line; each leg prints its seconds beside the one-process
+    run's."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
+    from parallel_convolution_tpu_torch.utils import imageio, multihost_job
+
+    t0 = time.perf_counter()
+    spec = {"rgb": str(work / "rgb.raw"), "edge5": str(tmp / "edge5.raw"),
+            "edge5_out": str(work / "edge5.out.raw"),
+            "field": str(field_path),
+            "volume": str(work / "fd25.raw"),
+            "volume_out": str(work / "fd25.out.raw"),
+            "engine": [str(work / f"engine{k}.raw") for k in range(2)]}
+    imageio.write_raw(spec["rgb"], refs["rgb"])
+    rgbs, wants = engine_imgs
+    for path, img in zip(spec["engine"], rgbs):
+        imageio.write_raw(path, img)
+    mg_sha = _sha(mg_ref[0])
+    job_kwargs = job_kw("cuda_sep", "bf16", 32)
+    job = job_one_process(tmp, job_kwargs)
+    spec["job"] = {"work": str(job["w2"]), "kw": job_kwargs}
+    setup_s = time.perf_counter() - t0
+    # The one-process forms the legs are held against, timed here.
+    one = {}
+    slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
+    kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
+    for cm in ("strided", "packed"):
+        model = ConvolutionModel("blur3", grid=slots4, col_mode=cm, **kw)
         stencil.reset_launch_counts()
-        two, two_s = host_seconds(lambda: multihost_job.spawn(
-            2, w2, timeout=400, **kw))
-        sent = {k: two[0]["launches"][k] + two[1]["launches"][k]
-                for k in one_counts}
-        check(sent == one["launches"] and any(sent.values()),
-              f"{label}: the ranks launched {sent}, one process "
-              f"{one['launches']}")
+        got, secs = host_seconds(lambda: model.run_image(refs["rgb"], ITERS))
+        counts = stencil.launch_counts()
+        check(np.array_equal(got, refs["rgb_ref"]),
+              f"4j (e) config 2 {cm} one process: differs from shifted")
+        _, resident = host_seconds(lambda: model.run_image(refs["rgb"],
+                                                           ITERS))
+        one[cm] = {"seconds": secs, "resident": resident, "launches": counts}
+    eng = WarmEngine(slots4, fallback=False)
+    key = eng.key_for((3, *RGB_HW), filter_name="blur3", iters=ITERS, **kw)
+    eng.entry(key)
+    stack = np.stack([imageio.interleaved_to_planar(im).astype(np.float32)
+                      for im in rgbs])
+    eng.run_batch(key, stack)
+    _, one["engine"] = host_seconds(lambda: eng.run_batch(key, stack))
+    del eng
+    stencil.reset_launch_counts()  # the references are not this path
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    port = multihost_job.free_port()
+    t0 = time.perf_counter()
+    with ctx.Manager() as manager:
+        results = manager.dict()
+        procs = [ctx.Process(target=_rank_legs,
+                             args=(r, port, spec, results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 420
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        got = [dict(results.get(r, {"rank": r, "error": "no result"}))
+               for r in range(2)]
+    spawn_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0] and not any("error" in g for g in got),
+          f"4j (e) the ranks failed: exit codes {codes}, "
+          f"{[g.get('error') for g in got]}")
+    rows = []
+
+    def both(name, what):
+        return [g[name][what] for g in got]
+
+    job_row = dict(job_checks(job, both("job", "row"),
+                              max(both("job", "seconds")), refs, totals,
+                              card), in_spawn_of="4j (e)")
+
+    def launches(name):
+        sent = {k: sum(g[name]["launches"][k] for g in got)
+                for k in got[0][name]["launches"]}
         for k, v in sent.items():
-            totals[k] += v + one["launches"][k]
-        out1 = (w1 / "out.raw").read_bytes()
-        out2 = (w2 / "out.raw").read_bytes()
-        check(out1 == out2, f"{label}: the two-process output differs from "
-                            "the one-process one")
-        check(np.array_equal(imageio.read_raw(w1 / "in.raw", rows_, cols_,
-                                              "rgb"), refs["rgb"]),
-              f"{label}: the job's input is not config 2's image")
-        check(np.array_equal(imageio.read_raw(w2 / "out.raw", rows_, cols_,
-                                              "rgb"), refs["rgb_ref"]),
-              f"{label}: differs from the plain shifted output")
-        check(all(r["broadcast"] == 7.0 for r in two)
-              and [r["owners"] for r in two] == [[0, 0, 1, 1]] * 2,
-              f"{label}: broadcast / owners {two}")
-        if storage != "bf16":
-            check(one["resume_bitexact"] is True
-                  and all(r["resume_bitexact"] is True for r in two),
-                  f"{label}: the resume is not bit-identical")
-        row = {"path": label, "launches_two": sent,
-               "first_s_two": max(r["first_s"] for r in two),
-               "resident_s_two": max(r["resident_s"] for r in two),
-               "spawn_to_end_s": two_s, "first_s_one": one["first_s"],
-               "resident_s_one": one["resident_s"], "one_process_s": one_s,
-               "bitwise_one_process": True, "bitwise_shifted": True,
-               "resume_bitexact": two[0]["resume_bitexact"], "card": card}
-        rows.append(row)
-        print(f"{label}: two processes first {row['first_s_two']:.4f} s, "
-              f"resident {row['resident_s_two']:.4f} s; one process "
-              f"{one['first_s']:.4f} / {one['resident_s']:.4f} s")
-        shutil.rmtree(w1, ignore_errors=True)
-        shutil.rmtree(w2, ignore_errors=True)
-    return rows
+            totals[k] += v
+        return sent
+
+    rgb_sha = _sha(refs["rgb_ref"])
+    for cm in ("strided", "packed"):
+        for res in ("", " resident"):
+            name = f"config 2 {cm}{res}"
+            sent = launches(name)
+            label = f"4j (e) config 2 cuda_rdma bf16 fuse 32 2x2 {cm}{res}"
+            check(both(name, "sha256") == [rgb_sha] * 2,
+                  f"{label}: differs from shifted and the one-process run")
+            check(both(name, "col_mode") == [cm] * 2,
+                  f"{label}: ran col_mode {both(name, 'col_mode')}")
+            if not res:
+                check(sent == one[cm]["launches"],
+                      f"{label}: the ranks launched {sent}, one process "
+                      f"{one[cm]['launches']}")
+                check((sent["rdma_pack"] > 0) == (cm == "packed"),
+                      f"{label}: {sent['rdma_pack']} packs")
+            rows.append({"path": label, "launches": sent,
+                         "seconds": max(both(name, "seconds")),
+                         "one_process_s": one[cm]["resident" if res else
+                                                  "seconds"],
+                         "bitwise_one_process": True,
+                         "bitwise_shifted": True, "card": card})
+    sent = launches("skew")
+    check(both("skew", "sha256") == [rgb_sha] * 2
+          and both("skew", "late_chunks") == [0, 4],
+          f"4j (e) skew: the bytes differ, or rank 1 was late "
+          f"{both('skew', 'late_chunks')} times")
+    rows.append({"path": "4j (e) skew: config 2 packed, rank 1 50 ms late "
+                 "before each of its 4 chunks", "launches": sent,
+                 "seconds": max(both("skew", "seconds")),
+                 "bitwise_shifted": True, "card": card})
+    sent = launches("auto")
+    res = both("auto", "resolution")
+    check(res[0] == res[1] and both("auto", "sha256") == [rgb_sha] * 2,
+          f"4j (e) auto: the ranks resolved {res}, or differ from shifted")
+    rows.append({"path": "4j (e) auto, config 2 bf16 2x2", "resolution":
+                 res[0], "launches": sent,
+                 "seconds": max(both("auto", "seconds")), "card": card})
+    sent = launches("fallback")
+    check(both("fallback", "rung") == ["cuda_rdma"] * 2
+          and both("fallback", "sha256") == [rgb_sha] * 2,
+          f"4j (e) fallback: the ranks ran {both('fallback', 'rung')}")
+    rows.append({"path": "4j (e) fallback=True, config 2 cuda_rdma bf16 "
+                 "fuse 32 2x2", "rung": "cuda_rdma", "launches": sent,
+                 "seconds": max(both("fallback", "seconds")), "card": card})
+    for name in ("engine warm", "engine", "engine resident"):
+        sent = launches(name)
+        if name != "engine warm":
+            check(both(name, "sha256") == [[_sha(w) for w in wants]] * 2,
+                  f"4j (e) {name}: differs from phase 4l's answers")
+        rows.append({"path": f"4j (e) {name}: config 2 cuda_rdma bf16 "
+                     "fuse 32 key, a batch of two", "launches": sent,
+                     "seconds": max(both(name, "seconds")),
+                     "one_process_s": one["engine"], "card": card})
+    sent = launches("config 3")
+    check(both("config 3", "rc") == [0, 0] and np.array_equal(
+        imageio.read_raw(spec["edge5_out"], *BIG_HW, "grey"),
+        refs["grey_refs"]["edge5"]),
+        "4j (e) config 3 on 4x4 over two ranks: differs from shifted (the "
+        "one-process 16-slot bytes)")
+    rows.append({"path": "4j (e) config 3 run --device all --mesh 4x4 "
+                 "cuda_rdma bf16 fuse 32 packed", "launches": sent,
+                 "seconds": max(both("config 3", "seconds")),
+                 "bitwise_shifted": True, "card": card})
+    sent = launches("multigrid")
+    mg_one = next(r for r in mg_rows if "cuda_rdma" in r["path"])
+    check(both("multigrid", "sha256")[0] == mg_sha
+          and both("multigrid", "residuals") == [mg_ref[1]] * 2
+          and both("multigrid", "cycles") == [mg_one["cycles"]] * 2,
+          "4j (e) config 5 multigrid over two ranks: differs from 4j (a)'s "
+          "one-process field or residuals (shifted's)")
+    rows.append({"path": "4j (e) config 5 multigrid jacobi3 32768x32768 "
+                 "cuda_rdma 2x2", "cycles": mg_one["cycles"],
+                 "level_grids": both("multigrid", "level_grids")[0],
+                 "launches": sent,
+                 "seconds": max(both("multigrid", "seconds")),
+                 "one_process_s": mg_one["seconds_first"],
+                 "bitwise_one_process": True, "card": card})
+    sent = launches("fd25")
+    check(both("fd25", "rc") == [0, 0] and hashlib.sha256(
+        Path(spec["volume_out"]).read_bytes()).hexdigest()
+        == volume["sha"], "4j (e) fd25 over two ranks: differs from phase "
+        "4g's 1x1 run")
+    rows.append({"path": f"4j (e) fd25 {VOLUME_N}^3 x {VOLUME_FD25_SWEEPS} "
+                 "fuse 4, run --rank 3 --device all 2x2", "launches": sent,
+                 "seconds": max(both("fd25", "seconds")),
+                 "one_process_s": volume["seconds"], "bitwise_1x1": True,
+                 "card": card})
+    for row in rows:
+        print(f"{row['path']}: {row['seconds']:.4f} s over two ranks"
+              + (f" (one process {row['one_process_s']:.4f} s)"
+                 if "one_process_s" in row else ""))
+    print(f"4j (e): setup {setup_s:.2f} s, spawn to end {spawn_s:.2f} s; "
+          f"card {card}")
+    shutil.rmtree(work, ignore_errors=True)
+    # The per-slot kernels over the two ranks (cross_slot_times): both
+    # ranks step their slots at once on the one card, so a row's ms is the
+    # slower rank's, its bound the whole grid's work.
+    timed = {}
+    for key, img, storage, shape, T, filt in (
+            ("config 2", refs["rgb"], "bf16", (2, 2), 32,
+             get_filter("blur3")),
+            ("grey 16x16", None, "u8", GREY_GRID, 8, get_filter("blur3"))):
+        t = [g["kernels"][key] for g in got]
+        C, h, w = t[0]["block"]
+        nb = shape[0] * shape[1]
+        ext, levels = t[0]["ext"], t[0]["levels"]
+        elt = 1 if storage == "u8" else 2
+        mid_elt = elt if storage == "u8" else 2
+        ops = nb * C * levels * level_ops(filt, False, h, w, True, False)
+        nbytes = nb * C * (h * w * elt + (h + 2 * ext) * (w + 2 * ext)
+                           * mid_elt)
+        b_ms, b_by = bound(nbytes, ops)
+        depth = filt.radius * T
+        pb_ms, pb_by = bound(2 * nb * 2 * C * (h + 2 * depth) * depth * elt,
+                             0.0)
+        name = t[0]["kernel"]
+        timed[f"{name} over 2 ranks"] = dict(
+            at=key, grid=list(shape), block=[C, h, w], T=T, levels=levels,
+            ext=ext, ms=max(x["ms"] for x in t),
+            packed_ms=max(x["packed_ms"] for x in t),
+            alone_ms=max(x["alone_ms"] for x in t),
+            barrier_ms=max(x["barrier_ms"] for x in t),
+            max_abs_err=max(max(x["max_abs_err_strided"],
+                                x["max_abs_err_packed"]) for x in t),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            launches=sum(r["launches"].get(name, 0) for r in rows))
+        if key == "config 2":
+            timed["rdma_pack over 2 ranks"] = dict(
+                at=key, grid=list(shape), ms=max(x["pack_ms"] for x in t),
+                alone_ms=max(x["pack_alone_ms"] for x in t),
+                barrier_ms=max(x["barrier_ms"] for x in t),
+                max_abs_err=max(x["pack_max_abs_err"] for x in t),
+                bound_ms=pb_ms, bound_by=pb_by, library_ms=None,
+                launches=sum(r["launches"].get("rdma_pack", 0)
+                             for r in rows))
+    for name, row in timed.items():
+        print(f"time {name}: " + json.dumps(dict(row, card=card)))
+    return {"rows": rows, "timed": timed, "job": job_row}
 
 
 # ---------------------------------------------------------------------------
@@ -6272,20 +6838,12 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
               "write_input_s": write_seeded_raw(src, side, dev, seed=4)}
     px = 3 * side * side
     runs = {}
-    slots16 = ",".join(["cuda:0"] * 16)
     for key, flags, expect, no_halo in (
             ("1x1 cuda_sep", ["--backend", "cuda_sep"],
              expected_launches(blur3, 32, (side, side)), False),
             ("4x4 cuda_rdma", ["--backend", "cuda_rdma", "--mesh", "4x4"],
              expected_rdma_launches(blur3, 32, (4, 4),
-                                    (side // 4, side // 4)), True),
-            # Phase 4j: the same on 16 slots of the card (per-slot K4 and
-            # K2, strided columns), its file the 4x4 run's band by band.
-            ("4x4 cuda_rdma 16 slots",
-             ["--backend", "cuda_rdma", "--mesh", "4x4", "--device", slots16,
-              "--col-mode", "strided"],
-             expected_slot_launches(blur3, 32, (4, 4),
-                                    (side // 4, side // 4), False), True)):
+                                    (side // 4, side // 4)), True)):
         label = f"config 4 {side}x{side} rgb blur3 {key} u8 fuse 32"
         argv = ["run", str(src), str(side), str(side), str(ITERS), "rgb",
                 "-o", str(dst), "--sharded-io", "--storage", "u8",
@@ -6326,10 +6884,6 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
     check(runs["1x1 cuda_sep"]["crcs"] == runs["4x4 cuda_rdma"]["crcs"],
           "config 4: the 4x4 cuda_rdma output differs from the 1x1 cuda_sep "
           "output")
-    check(runs["4x4 cuda_rdma 16 slots"]["crcs"]
-          == runs["4x4 cuda_rdma"]["crcs"],
-          "config 4 (phase 4j): the 16-slot output differs from the 4x4 "
-          "one-card output")
     src.unlink()
     for row in runs.values():
         row["crcs"] = len(row["crcs"])
@@ -6353,13 +6907,6 @@ def config4_phase(dev, work: Path, totals: dict) -> dict:
     c = runs["4x4 cuda_rdma"]["launches"]
     runs["4x4 cuda_rdma"]["kernels_s"] = (
         (c["rdma_tiled"] - tail) * k["rdma_tiled 4x4 T=16 group"]["ms"]
-        + tail * k["rdma_tiled 4x4 T=4 tail"]["ms"]
-        + c["fused_iterate"]
-        * k["fused_iterate 4x4 block T=16 group"]["ms"]) / 1e3
-    c = runs["4x4 cuda_rdma 16 slots"]["launches"]
-    runs["4x4 cuda_rdma 16 slots"]["kernels_s"] = (
-        (c["rdma_tiled_slot"] - 16 * tail)
-        * k["rdma_tiled 4x4 T=16 group"]["ms"] / 16
         + tail * k["rdma_tiled 4x4 T=4 tail"]["ms"]
         + c["fused_iterate"]
         * k["fused_iterate 4x4 block T=16 group"]["ms"]) / 1e3
@@ -7150,7 +7697,8 @@ def main() -> int:
             rest = slots_rest_phase(dev, Path(tmp), here, refs, totals,
                                     keep.pop("config5"),
                                     volume["cli_fd25"]["sha256_1x1"],
-                                    keep.pop("mg_shifted"))
+                                    keep.pop("mg_shifted"),
+                                    keep.pop("engine_pair"))
             rest["seconds"] = time.perf_counter() - t0
             lap("4j the rest on slots")
             torch.cuda.empty_cache()
@@ -7166,7 +7714,7 @@ def main() -> int:
             config4 = config4_phase(dev, work, totals)
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        lap("4c config 4 (its 16 slots: 4j)")
+        lap("4c config 4")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             host_tools = host_tools_phase(dev, Path(tmp), native_s)
         lap("4e host tools")
@@ -7251,6 +7799,9 @@ def main() -> int:
             print("end to end 4j multigrid: " + json.dumps(row))
         for row in rest.pop("two_processes"):
             print("end to end 4j two processes: " + json.dumps(row))
+        for row in rest.pop("processes"):
+            print("end to end 4j over processes: " + json.dumps(row))
+        cross_timed = rest.pop("processes_timed")
         print("4j: " + json.dumps(rest))
         for row in obs.pop("runs"):
             print("end to end 4k obs: " + json.dumps(row))
@@ -7284,6 +7835,18 @@ def main() -> int:
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        # The same kernels over two ranks (phase 4j (e)): their launches
+        # in 4j (e)'s legs (already in the one-process rows' counts too),
+        # the plain version the same function as the one-process row's.
+        for name, t in cross_timed.items():
+            base = name.split(" over ")[0]
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCES[base],
+                "replaces": REPLACES[base], "launches": t["launches"],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": slot_timed["kernels"][base]["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None})
         for name, e in probe["entries"].items():
             b_ms, b_by = e["bound"]
             kernels.append({

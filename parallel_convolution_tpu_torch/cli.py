@@ -515,10 +515,10 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
         img = imageio.read_raw(args.image, args.rows, args.cols, args.mode)
         x = imageio.interleaved_to_planar(img).astype(np.float32)
         out, iters = solver.solve(x)
-        imageio.write_raw(
+        _write_once(grid, lambda: imageio.write_raw(
             args.output,
             imageio.planar_to_interleaved(
-                np.clip(np.rint(out), 0, 255).astype(np.uint8)))
+                np.clip(np.rint(out), 0, 255).astype(np.uint8))))
         if mg:
             # The JAX CLI's line, as it is: it says "converged after" also
             # when the work-unit cap stopped the run (ROADMAP Queue 3).
@@ -569,6 +569,19 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
     return 0
 
 
+def _write_once(grid, write) -> None:
+    """``write()`` the output: on a grid over several processes every rank
+    holds the result, rank 0 writes it and the others wait for the file."""
+    if not grid.spans_processes:
+        write()
+        return
+    from parallel_convolution_tpu_torch.parallel import multihost
+
+    if grid.rank == 0:
+        write()
+    multihost.barrier("output-written")
+
+
 def _run_volume(args, grid) -> int:
     """The ``--rank 3`` arm of ``run`` (the JAX CLI's ``_run_volume``): the
     input file is raw float32 ``(2, D, rows, cols)`` bytes (two interleaved
@@ -610,13 +623,13 @@ def _run_volume(args, grid) -> int:
             vol, args.filter_name, tol=args.converge,
             max_iters=args.loops, check_every=args.check_every, grid=grid,
             boundary=args.boundary, fuse=fuse)
-        out.cpu().numpy().tofile(args.output)
+        _write_once(grid, lambda: out.cpu().numpy().tofile(args.output))
         print(f"volume converged after {iters} iters (diff {diff:.3g}, "
               f"tol {args.converge}) on {r}x{c} mesh -> {args.output}")
         return 0
     out = driver.volume_iterate(vol, args.filter_name, args.loops, grid=grid,
                                 boundary=args.boundary, fuse=fuse)
-    out.cpu().numpy().tofile(args.output)
+    _write_once(grid, lambda: out.cpu().numpy().tofile(args.output))
     print(f"ran {args.loops} x {args.filter_name} on "
           f"{args.depth}x{args.rows}x{args.cols} volume, {r}x{c} mesh "
           f"-> {args.output}")

@@ -68,6 +68,28 @@
 // launches may still run.  What bounds a region launch: the same as its
 // kernel's, and a thin band (r*T rows) fills few of K4's 64-row tiles.
 //
+// A grid over the processes of one host (item 10d-i): each rank launches
+// the same kernels for its own slots, and the pointer table holds a remote
+// slot's address as this process maps it.  Two more pieces, plain host
+// code around the kernels, with no new kernel:
+//   - the IPC map (pc_ipc_handle / pc_ipc_open / pc_ipc_close): a rank
+//     exports the allocation a buffer lies in (PyTorch's caching allocator
+//     sub-allocates, so the buffer's offset in it comes from
+//     cuMemGetAddressRange) and its neighbours map it.  Memory from
+//     expandable segments (VMM) has no legacy IPC handle: the wrapper
+//     raises on it, it does not fall back;
+//   - the barrier between ranks, the counterpart of _neighbor_barrier's
+//     semaphores (pallas_rdma.py:126): a monotonic 64-bit step counter a
+//     slot in IPC-shared device memory, written by the slot's stream after
+//     its launch (and after its pack, for the staged counter) with
+//     cuStreamWriteValue64, and waited on by a neighbour's stream in
+//     another process with cuStreamWaitValue64 (>=): one wait covers read
+//     after write and write after read, as the event wait does inside a
+//     process.  The wait is the stream's own front end polling memory: no
+//     kernel spins, so two contexts time-slicing one card lose no SM time
+//     to it, and no host handshake is needed (an IPC event would name only
+//     the record enqueued before the wait).
+//
 // The grid, the level-0 gather and the tile body live in rdma_common.cuh,
 // which csrc/probes.cu's construct ladder shares.
 //
@@ -79,6 +101,10 @@
 // extended by E ghost rows and columns on every side (in the dtype the
 // wrapper picks: f32 in float mode, the storage dtype in quantize mode), for
 // the K2 launches that run the later level groups of a deep chunk.
+
+#include <cuda.h>
+
+#include <cstring>
 
 #include "rdma_common.cuh"
 
@@ -343,6 +369,76 @@ extern "C" int pc_enable_peer(int device, int peer) {
   }
   const cudaError_t back = cudaSetDevice(cur);
   return static_cast<int>(e != cudaSuccess ? e : back);
+}
+
+// -- a grid over processes: the IPC map and the counters ------------------
+// These return a CUresult (0 on success); pc_cu_error_name names one.
+
+// The legacy IPC handle (64 bytes into `handle`) of the allocation holding
+// device address `ptr`, and ptr's byte offset in it.  *legacy = 0 (and no
+// handle) where the memory cannot be exported that way (VMM: PyTorch's
+// expandable segments).
+extern "C" int pc_ipc_handle(const void* ptr, void* handle, long long* offset,
+                             int* legacy) {
+  const CUdeviceptr p = reinterpret_cast<CUdeviceptr>(ptr);
+  int ok = 0;
+  CUresult e = cuPointerGetAttribute(
+      &ok, CU_POINTER_ATTRIBUTE_IS_LEGACY_CUDA_IPC_CAPABLE, p);
+  if (e != CUDA_SUCCESS) return static_cast<int>(e);
+  *legacy = ok;
+  if (!ok) return static_cast<int>(CUDA_SUCCESS);
+  CUdeviceptr base = 0;
+  size_t size = 0;
+  e = cuMemGetAddressRange(&base, &size, p);
+  if (e != CUDA_SUCCESS) return static_cast<int>(e);
+  CUipcMemHandle h;
+  e = cuIpcGetMemHandle(&h, base);
+  if (e != CUDA_SUCCESS) return static_cast<int>(e);
+  memcpy(handle, &h, sizeof(h));
+  *offset = static_cast<long long>(p - base);
+  return static_cast<int>(CUDA_SUCCESS);
+}
+
+// Map another process's allocation (its 64-byte handle) into the current
+// context; *base is its first byte here.
+extern "C" int pc_ipc_open(const void* handle, void** base) {
+  CUipcMemHandle h;
+  memcpy(&h, handle, sizeof(h));
+  CUdeviceptr p = 0;
+  const CUresult e =
+      cuIpcOpenMemHandle(&p, h, CU_IPC_MEM_LAZY_ENABLE_PEER_ACCESS);
+  *base = reinterpret_cast<void*>(p);
+  return static_cast<int>(e);
+}
+
+extern "C" int pc_ipc_close(void* base) {
+  return static_cast<int>(
+      cuIpcCloseMemHandle(reinterpret_cast<CUdeviceptr>(base)));
+}
+
+// The stream writes `value` to the 64-bit counter at `addr` once the work
+// enqueued before it is done (the write is fenced after that work).
+extern "C" int pc_counter_write(void* addr, unsigned long long value,
+                                void* stream) {
+  return static_cast<int>(cuStreamWriteValue64(
+      static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(addr),
+      static_cast<cuuint64_t>(value), CU_STREAM_WRITE_VALUE_DEFAULT));
+}
+
+// The stream waits until the counter at `addr` is >= `value`.
+extern "C" int pc_counter_wait(void* addr, unsigned long long value,
+                               void* stream) {
+  return static_cast<int>(cuStreamWaitValue64(
+      static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(addr),
+      static_cast<cuuint64_t>(value), CU_STREAM_WAIT_VALUE_GEQ));
+}
+
+extern "C" const char* pc_cu_error_name(int err) {
+  const char* name = nullptr;
+  if (cuGetErrorName(static_cast<CUresult>(err), &name) != CUDA_SUCCESS ||
+      name == nullptr)
+    return "CUresult";
+  return name;
 }
 
 PC_EXPORT_ERROR_NAME

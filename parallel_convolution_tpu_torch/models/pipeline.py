@@ -152,7 +152,6 @@ class ConvolutionModel(nn.Module):
         re-clamped to the tier); recorded on the model."""
         backend, fuse, tile = self.backend, self.fuse, self.tile
         overlap = self.overlap
-        step_lib._check_processes(self.grid, backend, self.fallback)
         self.resolution, self.plan_source = None, "explicit"
         if backend == AUTO:
             from parallel_convolution_tpu_torch import tuning

@@ -53,6 +53,10 @@ LIBRARIES = {
     "rdma": (("rdma", ()),),
     "probes": (("probes", ()),),
 }
+# Library -> what its link adds: librdma calls libcuda (cuIpc*, the stream
+# counters of a grid over processes), linked against the toolkit's stub of
+# it (the system's libcuda.so.1 is loaded at run time).
+LINK_LIBS = {"rdma": ("-lcuda",)}
 SOURCES = tuple(LIBRARIES)
 # Measurement builds, with the C interface of the library named beside.
 MEASUREMENT_LIBRARIES = {
@@ -97,6 +101,15 @@ _SIGNATURES = {
         "pc_rdma_pack": [_P],
         # device, peer
         "pc_enable_peer": [_I, _I],
+        # ptr, handle (64 B out), offset out, legacy out
+        "pc_ipc_handle": [_P, _P, ctypes.POINTER(_L), _IP],
+        # handle, base out
+        "pc_ipc_open": [_P, ctypes.POINTER(_P)],
+        # base
+        "pc_ipc_close": [_P],
+        # counter address, value, stream
+        "pc_counter_write": [_P, ctypes.c_ulonglong, _P],
+        "pc_counter_wait": [_P, ctypes.c_ulonglong, _P],
     },
     "probes": {
         # op, in, out, n, af, bf, ai, bi, stream
@@ -233,9 +246,12 @@ def build_all(names=SOURCES) -> dict:
         for name, (parts, lib, digest, t0) in jobs.items():
             log = "".join(_wait(proc, what) for proc, _, what in parts)
             tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+            libs = LINK_LIBS.get(name, ())
+            stubs = Path(nvcc_path()).resolve().parent.parent / "lib64" / "stubs"
             link = subprocess.Popen(
                 [nvcc_path(), "-shared", "-o", str(tmp),
-                 *(str(obj) for _, obj, _ in parts)],
+                 *(str(obj) for _, obj, _ in parts),
+                 *((f"-L{stubs}",) if libs else ()), *libs],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             try:
                 log += _wait(link, f"linking lib{name}")
@@ -296,5 +312,8 @@ def load_library(name: str = "stencil") -> ctypes.CDLL:
         f.restype = ctypes.c_int
     lib.pc_error_name.argtypes = [_I]
     lib.pc_error_name.restype = ctypes.c_char_p
+    if hasattr(lib, "pc_cu_error_name"):
+        lib.pc_cu_error_name.argtypes = [_I]
+        lib.pc_cu_error_name.restype = ctypes.c_char_p
     _LOADED.append(lib)
     return lib

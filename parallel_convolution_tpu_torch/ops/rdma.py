@@ -68,6 +68,28 @@ the diagonals too, where the TPU's wait set names the row and column slabs
 that carried them.  On the CPU :func:`fused_rdma_slots_plain` runs the
 same schedule from buffers whose unwaited ghosts are NaN, and raises if a
 NaN reaches a region: a missed wait.
+
+**On a grid over the processes of one host** (``mesh.Grid.owners``;
+ROADMAP item 10d-i) each rank launches its own slots, and a neighbour on
+another rank is read in place through CUDA IPC, as the TPU kernels write
+a neighbour's buffer on another host: each rank exports its buffers,
+staging and counters once a run (:func:`ipc_handle`: the allocation's
+handle and the buffer's offset in it) and maps its neighbours'
+(``multihost.peer_records``), so the pointer tables hold the remote
+slots' addresses as this process sees them.  Where the neighbour lives in
+another process the barrier is a counter instead of an event: each slot's
+stream writes its monotonic step counter after its launch (and its staged
+counter after its pack), and a neighbour's stream waits until it reaches
+the step before (``csrc/rdma.cu``: ``cuStreamWriteValue64`` /
+``cuStreamWaitValue64``), the one wait covering read after write and
+write after read as the event does.  Events stay for neighbours in this
+process.  A run is closed collectively (:func:`close_carry`: unmap, then a
+barrier, then the buffers go).  A failed map, a refused counter, ranks on
+different cards or hosts raise (the last two naming item 10d-ii); there is
+no host-staged fallback.  On a CPU grid over processes the plain version
+runs each rank's blocks after a gloo exchange of the ``r·fuse``-deep rims,
+corners included (``halo.exchange_per_block``), its overlapped schedule
+filling a region's ghosts from them as its waits allow.
 """
 
 from __future__ import annotations
@@ -81,7 +103,10 @@ import torch
 from parallel_convolution_tpu_torch.ops import stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import channels, halo
-from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
+from parallel_convolution_tpu_torch.parallel.mesh import first_block
+from parallel_convolution_tpu_torch.utils.config import (
+    BOUNDARIES, PROCESSES_ITEM, pending,
+)
 
 
 class RdmaPlan(NamedTuple):
@@ -512,7 +537,7 @@ def fused_rdma_slots_plain(blocks, filt: Filter, grid_shape,
                            boundary: str = "zero", quantize: bool = True,
                            out_dtype=None, fuse: int = 1, valid_hw=None,
                            col_mode: str = "strided", overlap: bool = False,
-                           partitioned: bool = True
+                           partitioned: bool = True, grid=None
                            ) -> list[list[torch.Tensor]]:
     """Plain PyTorch version of K3 / K4 per device, the JAX semantics
     literally: each block in a padded f32 buffer of its own whose ghosts
@@ -526,39 +551,56 @@ def fused_rdma_slots_plain(blocks, filt: Filter, grid_shape,
     in schedule order, each from the padded buffer in which only the
     neighbours waited for so far have been filled (the rest NaN), then
     K2's plain levels for the later level groups.  A NaN in any region's
-    output raises: a missed wait shows in every dtype."""
+    output raises: a missed wait shows in every dtype.
+
+    On a ``grid`` over several processes ``blocks`` is this rank's share
+    (``None`` elsewhere): the slabs between ranks travel by gloo
+    (``halo.exchange_per_block``) and only this rank's blocks are
+    computed."""
     if overlap:
         return _overlap_plain(blocks, filt, grid_shape, boundary, quantize,
                               out_dtype, int(fuse), valid_hw, col_mode,
-                              partitioned)
+                              partitioned, grid)
     T = int(fuse)
-    h, w = blocks[0][0].shape[1:]
+    mine = first_block(blocks, None)
+    if mine is None:
+        return [list(row) for row in blocks]
+    h, w = mine.shape[1:]
     padded = halo.exchange_per_block(
         blocks, filt.radius * T, grid_shape, boundary, dtype=torch.float32,
-        fill=float("nan"), packed=col_mode == "packed")
+        fill=float("nan"), packed=col_mode == "packed", grid=grid)
     vhw = None if boundary == "periodic" else valid_hw
-    dtype = out_dtype if out_dtype is not None else blocks[0][0].dtype
-    return [[stencil.fused_iterate_plain(p, (i * h, j * w), filt, T, vhw,
-                                         quantize, dtype)
+    dtype = out_dtype if out_dtype is not None else mine.dtype
+    return [[None if p is None else stencil.fused_iterate_plain(
+                p, (i * h, j * w), filt, T, vhw, quantize, dtype)
              for j, p in enumerate(row)] for i, row in enumerate(padded)]
 
 
 def _overlap_plain(blocks, filt: Filter, grid_shape, boundary: str,
                    quantize: bool, out_dtype, T: int, valid_hw,
-                   col_mode: str, partitioned: bool):
+                   col_mode: str, partitioned: bool, grid=None):
     R, Cg = grid_shape
-    C, h, w = blocks[0][0].shape
+    mine = first_block(blocks, None)
+    if mine is None:
+        return [list(row) for row in blocks]
+    C, h, w = mine.shape
     r = filt.radius
     d = r * T
     plan = rdma_plan(r, T, (h, w))
     g0 = plan.groups[0]
     ext, reach = r * (T - g0), r * g0
-    dtype = out_dtype if out_dtype is not None else blocks[0][0].dtype
+    dtype = out_dtype if out_dtype is not None else mine.dtype
     mid = stencil.group_dtype(quantize, dtype) if ext else dtype
     vhw = None if boundary == "periodic" else valid_hw
     periodic = boundary == "periodic"
+    # Over several processes every ghost first arrives by gloo (the rims,
+    # corners included: the two-hop exchange gives the diagonal's bytes),
+    # and the schedule fills a region's ghosts from them.
+    rims = (halo.exchange_per_block(blocks, d, grid_shape, boundary,
+                                    dtype=torch.float32, grid=grid)
+            if grid is not None and grid.spans_processes else None)
     stage = (rdma_pack_plain(blocks, grid_shape, boundary, d)
-             if col_mode == "packed" and Cg > 1 else None)
+             if col_mode == "packed" and Cg > 1 and rims is None else None)
     sched = overlap_schedule(h + 2 * ext, w + 2 * ext, d, ext, partitioned)
 
     def nbr(i, j):
@@ -573,6 +615,9 @@ def _overlap_plain(blocks, filt: Filter, grid_shape, boundary: str,
     for i in range(R):
         row = []
         for j in range(Cg):
+            if blocks[i][j] is None:
+                row.append(None)
+                continue
             p = torch.full((C, h + 2 * d, w + 2 * d), float("nan"),
                            device=blocks[i][j].device)
             p[:, d:d + h, d:d + w] = blocks[i][j]
@@ -582,6 +627,8 @@ def _overlap_plain(blocks, filt: Filter, grid_shape, boundary: str,
                 n = nbr(i + di, j + dj)
                 if n is None:
                     p[:, pr, pc] = 0
+                elif rims is not None:
+                    p[:, pr, pc] = rims[i][j][:, pr, pc]
                 elif stage is not None and dj:
                     # Packed: the column ghosts, corners included, from
                     # the column neighbour's staging (side 1 its right
@@ -592,18 +639,18 @@ def _overlap_plain(blocks, filt: Filter, grid_shape, boundary: str,
                 else:
                     p[:, pr, pc] = blocks[n[0]][n[1]][:, sr, sc].to(p.dtype)
 
-            pending = set()
+            pending_ = set()
             for di, dj in NEIGHBOURS:
                 if nbr(i + di, j + dj) in (None, (i, j)):
                     fill(di, dj)  # no neighbour, or this block itself
                 else:
-                    pending.add((di, dj))
+                    pending_.add((di, dj))
             res = torch.empty((C, h + 2 * ext, w + 2 * ext),
                               dtype=torch.float32, device=p.device)
             for label, (r0, r1, c0, c1), waits in sched:
-                for off in sorted(pending & waits):
+                for off in sorted(pending_ & waits):
                     fill(*off)
-                pending -= waits
+                pending_ -= waits
                 part = stencil.fused_iterate_plain(
                     p[:, r0:r1 + 2 * reach, c0:c1 + 2 * reach],
                     (i * h + r0 - ext, j * w + c0 - ext), filt, g0, vhw,
@@ -722,74 +769,295 @@ def enable_peers(devices) -> None:
                 _PEERS.add((a, b))
 
 
+# The CUDA IPC maps of this process: a handle's bytes -> [its base here,
+# the runs holding it].  A process opens a handle once (the runtime refuses
+# a second open in one context) and closes it when its last run closes.
+_IPC_MAPS: dict[bytes, list] = {}
+
+
+def _cu_check(err: int, what: str) -> None:
+    """Raise on a nonzero ``CUresult`` from the IPC and counter entry
+    points of ``csrc/rdma.cu``."""
+    if err:
+        from parallel_convolution_tpu_torch.ops import _build
+
+        name = _build.load_library("rdma").pc_cu_error_name(int(err))
+        raise RuntimeError(f"{what} failed: {name.decode()} ({int(err)}); "
+                           "a grid over processes reads its neighbours "
+                           "through CUDA IPC and has no host-staged "
+                           "fallback")
+
+
+def ipc_handle(t: torch.Tensor) -> tuple[bytes, int]:
+    """``(handle, offset)``: the legacy CUDA IPC handle of the allocation
+    holding card tensor ``t`` and ``t``'s byte offset in it (PyTorch's
+    caching allocator sub-allocates, so the offset is rarely 0).  Raises
+    on memory with no such handle: PyTorch's expandable segments
+    (``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``) allocate it
+    through the VMM API, which legacy IPC refuses."""
+    from parallel_convolution_tpu_torch.ops import _build
+
+    lib = _build.load_library("rdma")
+    handle = ctypes.create_string_buffer(64)
+    offset, legacy = ctypes.c_longlong(0), ctypes.c_int(0)
+    with torch.cuda.device(t.device):
+        err = lib.pc_ipc_handle(t.data_ptr(), handle, ctypes.byref(offset),
+                                ctypes.byref(legacy))
+    _cu_check(err, f"the IPC handle of {t.device} memory")
+    if not legacy.value:
+        raise RuntimeError(
+            f"{t.device} memory at {t.data_ptr():#x} has no legacy CUDA IPC "
+            "handle: PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True "
+            "allocates it through the VMM API; cuda_rdma across processes "
+            "needs the caching allocator's plain segments (unset that "
+            "setting)")
+    return handle.raw, offset.value
+
+
+def _ipc_map(handle: bytes, device) -> int:
+    """The base address in this process of another process's allocation
+    (mapped once, counted a holder)."""
+    entry = _IPC_MAPS.get(handle)
+    if entry is None:
+        from parallel_convolution_tpu_torch.ops import _build
+
+        base = ctypes.c_void_p(0)
+        with torch.cuda.device(device):
+            err = _build.load_library("rdma").pc_ipc_open(
+                handle, ctypes.byref(base))
+        _cu_check(err, f"mapping a neighbour's memory on {device}")
+        entry = _IPC_MAPS[handle] = [int(base.value), 0]
+    entry[1] += 1
+    return entry[0]
+
+
+def _ipc_unmap(handle: bytes, device) -> None:
+    entry = _IPC_MAPS[handle]
+    entry[1] -= 1
+    if entry[1] == 0:
+        from parallel_convolution_tpu_torch.ops import _build
+
+        del _IPC_MAPS[handle]
+        with torch.cuda.device(device):
+            err = _build.load_library("rdma").pc_ipc_close(entry[0])
+        _cu_check(err, f"unmapping a neighbour's memory on {device}")
+
+
 class _SlotRun:
     """The per-run state of ``cuda_rdma`` on a grid of slots on the card:
     streams, events, the double-buffered carry, the staging, and the
-    pointer tables (one per buffer set and device, built once)."""
+    pointer tables (one per buffer set and device, built once).  On a grid
+    over several processes it holds this rank's slots only, maps its
+    neighbours' buffers (:meth:`_span`) and keeps the step counters of the
+    barrier between ranks."""
+
+    # One process, no step yet, open (the per-run values set these).
+    spans, step, closed = False, 0, False
 
     def __init__(self, grid, blocks, boundary: str, depth: int,
                  col_mode: str):
         R, Cg = self.grid_shape = tuple(grid.shape)
         self.boundary = boundary
         self.slots = grid.slots
-        self.devices = list(dict.fromkeys(self.slots))
+        n = len(self.slots)
+        self.local = [s for s in range(n) if grid.owners is None
+                      or grid.owners[s] == grid.rank]
+        self.spans = grid.spans_processes
+        self.devices = list(dict.fromkeys(
+            self.slots[s] for s in self.local)) or [grid.device]
         enable_peers(self.devices)
-        self.where, seen = [], {}
-        for d in self.slots:
-            self.where.append((self.devices.index(d), seen.get(d, 0)))
+        self.where, seen = [None] * n, {}
+        for s in self.local:
+            d = self.slots[s]
+            self.where[s] = (self.devices.index(d), seen.get(d, 0))
             seen[d] = seen.get(d, 0) + 1
         flat = [b for row in blocks for b in row]
-        C, h, w = flat[0].shape
-        self.block_shape, self.dtype = (C, h, w), flat[0].dtype
+        mine = [flat[s] for s in self.local]
         self.depth = int(depth)
         # The two buffers the launches alternate between: the input stacked
         # per device (a private copy) and one more.  Allocated on each
         # device's current stream, which the slot streams wait on before
         # their first launch.
-        x = [torch.stack([b for b, d in zip(flat, self.slots) if d == dev])
-             for dev in self.devices]
+        x = [torch.stack([b for b, s in zip(mine, self.local)
+                          if self.slots[s] == dev]) for dev in self.devices
+             if mine]
         self.bufs = [x, [torch.empty_like(p) for p in x]]
         self.packed = col_mode == "packed" and Cg > 1
-        stage_addr = [0] * len(flat)
-        if self.packed:
-            n = 2 * C * (h + 2 * self.depth) * self.depth
-            self.stage = [torch.empty((len(p), n), dtype=self.dtype,
+        if mine:
+            self.block_shape, self.dtype = tuple(mine[0].shape), mine[0].dtype
+        self.stage = []
+        if self.packed and mine:
+            C, h, _ = self.block_shape
+            ns = 2 * C * (h + 2 * self.depth) * self.depth
+            self.stage = [torch.empty((len(p), ns), dtype=self.dtype,
                                       device=p.device) for p in x]
-            stage_addr = [self.stage[di][k].data_ptr()
-                          for di, k in self.where]
+        # Every slot's address in each buffer set, and its staging's: this
+        # process's own, then (over processes) its neighbours' as mapped.
+        self.addr = [[0] * n, [0] * n]
+        stage_addr = [0] * n
+        for s in self.local:
+            di, k = self.where[s]
+            for b in (0, 1):
+                self.addr[b][s] = self.bufs[b][di][k].data_ptr()
+            if self.stage:
+                stage_addr[s] = self.stage[di][k].data_ptr()
         table = channels.neighbour_table(self.grid_shape, boundary)
-        self.tables = [[torch.tensor(
-            [bufs[di][k].data_ptr() for di, k in self.where] + stage_addr,
-            dtype=torch.int64, device=dev) for dev in self.devices]
-            for bufs in self.bufs]
-        self.nbr = [channels.device_table(self.grid_shape, boundary, dev)
-                    for dev in self.devices]
+        self.table = table
         # The barrier's partners: every block a slot's launch reads (its
         # eight neighbours), and the column neighbours whose staging it
         # reads.
-        self.neighbours = [sorted({n for n in row if n >= 0} - {s})
+        self.neighbours = [sorted({n_ for n_ in row if n_ >= 0} - {s})
                            for s, row in enumerate(table)]
         self.col_neighbours = [sorted({row[3], row[5]} - {-1, s})
                                for s, row in enumerate(table)]
-        self.table = table
+        # Over processes: the mapped handles, and each remote slot's
+        # counters as this process sees them (launched, staged).
+        self.mapped, self.remote = [], [{}, {}]
+        self.step, self.closed = 0, False
+        if self.spans:
+            self._span(grid, stage_addr)
+        self.tables = [[torch.tensor(self.addr[b] + stage_addr,
+                                     dtype=torch.int64, device=dev)
+                        for dev in self.devices] for b in (0, 1)]
+        self.nbr = [channels.device_table(self.grid_shape, boundary, dev)
+                    for dev in self.devices]
         # The ghost depth the last step read (the overlapped pipeline's
         # write-after-read waits look at it).
         self.last_depth = 0
-        self.streams = _slot_streams(self.slots)
-        self.launched = [torch.cuda.Event() for _ in self.slots]
-        self.staged = [torch.cuda.Event() for _ in self.slots]
+        self.streams = [None] * n
+        for s, st in zip(self.local, _slot_streams(
+                [self.slots[s] for s in self.local])):
+            self.streams[s] = st
+        self.launched = [torch.cuda.Event() if w is not None else None
+                         for w in self.where]
+        self.staged = [torch.cuda.Event() if w is not None else None
+                       for w in self.where]
         self.joined = True
         # The pack's ctypes arguments and plan by (buffer set, first slot,
         # depth, count), every slot's at the run's depth made here.
         self.index = [torch.device(d).index for d in self.slots]
         self.packs, self.pack_plans = {}, {}
-        if self.packed:
+        if self.packed and mine:
             from parallel_convolution_tpu_torch.ops import _build
 
             self.pack_fn = _build.load_library("rdma").pc_rdma_pack
             for src in range(len(self.bufs)):
-                for s in range(len(self.slots)):
+                for s in self.local:
                     self.pack_args(src, s, self.depth)
+
+    def _span(self, grid, stage_addr) -> None:
+        """Over several processes: export this rank's buffers, staging and
+        counters, gather every rank's (``multihost.peer_records``, a
+        collective), check that the ranks share one host (item 10d-ii
+        otherwise) and one card, and map the remote slots' addresses into
+        ``addr`` / ``stage_addr`` and their counters into ``remote``."""
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        n = len(self.slots)
+        dev = self.devices[0]
+        # The launched counters, then the staged ones, a slot each: zero
+        # and in place before any rank can map them (and the stacked
+        # inputs before any neighbour reads them).
+        self.counters = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+        record = {
+            "cards": {s: multihost.card_uuid(self.slots[s])
+                      for s in self.local},
+            "where": {s: self.where[s] for s in self.local},
+            "bufs": [[ipc_handle(p) for p in bufs] for bufs in self.bufs],
+            "stage": [ipc_handle(p) for p in self.stage],
+            "counters": ipc_handle(self.counters),
+            "block": (getattr(self, "block_shape", None),
+                      str(getattr(self, "dtype", ""))),
+        }
+        records = multihost.peer_records(record)
+        multihost.check_one_host(records, "backend 'cuda_rdma'")
+        cards = {u for r in records for u in r["cards"].values()}
+        if len(cards) > 1:
+            raise pending("backend 'cuda_rdma' between ranks on different "
+                          f"cards ({len(cards)} cards)", PROCESSES_ITEM)
+        if not self.local:  # a sub-grid of another's first slots
+            shape, dt = next(r["block"] for r in records if r["where"])
+            self.block_shape = tuple(shape)
+            self.dtype = getattr(torch, dt.split(".")[-1])
+        C, h, w = self.block_shape
+        elt = torch.empty((), dtype=self.dtype).element_size()
+        block_bytes = C * h * w * elt
+        stage_bytes = 2 * C * (h + 2 * self.depth) * self.depth * elt
+        for r, rec in enumerate(records):
+            if r == grid.rank:
+                continue
+            for s, (di, k) in rec["where"].items():
+                for b in (0, 1):
+                    handle, off = rec["bufs"][b][di]
+                    self.addr[b][s] = (self._map(handle, dev) + off
+                                       + k * block_bytes)
+                if rec["stage"]:
+                    handle, off = rec["stage"][di]
+                    stage_addr[s] = (self._map(handle, dev) + off
+                                     + k * stage_bytes)
+                handle, off = rec["counters"]
+                base = self._map(handle, dev) + off
+                self.remote[0][s] = base + 8 * s
+                self.remote[1][s] = base + 8 * (n + s)
+
+    def _map(self, handle: bytes, device) -> int:
+        self.mapped.append((handle, device))
+        return _ipc_map(handle, device)
+
+    def _counter(self, s: int, staged: bool) -> int:
+        return self.counters.data_ptr() + 8 * (s + staged * len(self.slots))
+
+    def mark(self, s: int, value: int, staged: bool = False) -> None:
+        """Over processes: slot ``s``'s stream sets its launched (or staged)
+        counter to ``value`` once the work enqueued on it is done."""
+        if not self.spans:
+            return
+        from parallel_convolution_tpu_torch.ops import _build
+
+        err = _build.load_library("rdma").pc_counter_write(
+            self._counter(s, staged), value, self.streams[s].cuda_stream)
+        _cu_check(err, f"slot {s}'s counter write")
+
+    def after(self, s: int, n: int, step: int, staged: bool = False,
+              stream=None) -> None:
+        """``stream`` (default slot ``s``'s) after slot ``n``'s launch (or
+        pack) of ``step``: its event where ``n`` is this process's, else
+        its counter reaching ``step``."""
+        st = self.streams[s] if stream is None else stream
+        if self.where[n] is not None:
+            st.wait_event((self.staged if staged else self.launched)[n])
+            return
+        from parallel_convolution_tpu_torch.ops import _build
+
+        err = _build.load_library("rdma").pc_counter_wait(
+            self.remote[staged][n], step, st.cuda_stream)
+        _cu_check(err, f"a wait on slot {n}'s counter")
+
+    def remote_neighbours(self) -> list:
+        """The slots of other processes that this process's slots read."""
+        return sorted({n for s in self.local for n in self.neighbours[s]
+                       if self.where[n] is None})
+
+    def close(self) -> None:
+        """End the run over processes, collectively: every slot joined and
+        its card idle, this process's maps of its neighbours closed, a
+        barrier (no rank still maps a buffer), then the buffers go.  A
+        no-op in one process."""
+        if not self.spans or self.closed:
+            return
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        self.join()
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+        for handle, dev in self.mapped:
+            _ipc_unmap(handle, dev)
+        self.mapped = []
+        multihost.barrier("cuda_rdma run closed")
+        self.bufs, self.stage, self.tables = [[], []], [], []
+        self.closed = True
 
     def pack_args(self, src: int, s: int, depth: int,
                   count: int = 1) -> tuple:
@@ -807,15 +1075,14 @@ class _SlotRun:
             raise ValueError(f"slots {s}..{s + count - 1} have no staging "
                              f"for depth {depth} on one device")
         C, h, w = self.block_shape
-        bufs = self.bufs[src]
-        elt = bufs[0].element_size()
+        elt = self.bufs[src][0].element_size()
         addrs = [self.stage[self.where[b][0]][self.where[b][1]].data_ptr()
                  for b in span]
+        # The rows it reads, a neighbour's as this process maps it.
         for b in span:
             for n in (self.table[b][1], b, self.table[b][7]):
                 if n >= 0:
-                    di, k = self.where[n]
-                    addrs.append(bufs[di][k].data_ptr())
+                    addrs.append(self.addr[src][n])
         plan = pack_plan(C, h, w, depth, elt, addrs, count)
         di = self.where[s][0]
         args = _PackArgs(
@@ -839,19 +1106,33 @@ class _SlotRun:
         of the run has enqueued (the inputs, the buffers' allocation, a
         diff read): a slot reads its neighbours' blocks, which may live on
         other devices, and its first launch has no neighbour's event to
-        wait on."""
-        for st in self.streams:
+        wait on.  Over processes the fork counts as a step: each slot's
+        counter then says its input is in place, which a neighbour's next
+        launch waits for."""
+        if self.closed:
+            raise ValueError("this cuda_rdma run over processes is closed")
+        mine = [s for s, st in enumerate(self.streams) if st is not None]
+        for s in mine:
             for dev in self.devices:
-                st.wait_stream(torch.cuda.current_stream(dev))
+                self.streams[s].wait_stream(torch.cuda.current_stream(dev))
+        self.step += 1
+        for s in mine:
+            self.mark(s, self.step)
         self.joined = False
 
     def join(self) -> None:
-        """Every device's current stream after every slot's launches: the
-        carry may then be read there, and freed."""
+        """Every device's current stream after every slot's launches, and
+        over processes after the last launch of every remote neighbour
+        (which read this process's buffers): the carry may then be read
+        there, rewritten, and freed."""
+        remote = self.remote_neighbours() if self.spans else ()
         for dev in self.devices:
             cur = torch.cuda.current_stream(dev)
             for ev in self.launched:
-                cur.wait_event(ev)
+                if ev is not None:
+                    cur.wait_event(ev)
+            for n in remote:
+                self.after(None, n, self.step, stream=cur)
         self.joined = True
 
 
@@ -867,11 +1148,21 @@ def slot_carry(blocks, grid, boundary: str, depth: int,
                col_mode: str = "strided"):
     """The carry a grid of slots starts from: on the card a
     :class:`SlotCarry` whose buffers and staging fit ``depth`` = r·fuse
-    ghosts; on the CPU the blocks themselves."""
-    if blocks[0][0].device.type == "cpu":
+    ghosts; on the CPU the blocks themselves.  Over several processes a
+    card's run is made by every rank at once (it gathers the ranks' IPC
+    handles)."""
+    if grid.device.type == "cpu":
         return blocks
     run = _SlotRun(grid, blocks, boundary, depth, col_mode)
     return SlotCarry(run, run.bufs[0])
+
+
+def close_carry(carry) -> None:
+    """End a card's run over several processes (:meth:`_SlotRun.close`, a
+    collective; the blocks :func:`slot_blocks` gave stay valid); a no-op
+    for any other carry."""
+    if isinstance(carry, SlotCarry):
+        carry.run.close()
 
 
 def load_carry(run: _SlotRun, blocks) -> SlotCarry:
@@ -883,8 +1174,9 @@ def load_carry(run: _SlotRun, blocks) -> SlotCarry:
     if not run.joined:
         run.join()
     flat = [b for row in blocks for b in row]
-    for (di, k), b in zip(run.where, flat):
-        run.bufs[0][di][k].copy_(b)
+    for s in run.local:
+        di, k = run.where[s]
+        run.bufs[0][di][k].copy_(flat[s])
     return SlotCarry(run, run.bufs[0])
 
 
@@ -905,7 +1197,8 @@ def slot_blocks(carry, grid_shape) -> list[list[torch.Tensor]]:
         return carry
     run = carry.run
     run.join()
-    flat = [carry.parts[di][k] for di, k in run.where]
+    flat = [None if w is None else carry.parts[w[0]][w[1]]
+            for w in run.where]
     Cg = grid_shape[1]
     return [flat[i * Cg:(i + 1) * Cg] for i in range(grid_shape[0])]
 
@@ -1080,6 +1373,7 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
     if run.joined:
         run.fork()
     streams = run.streams
+    k_step = run.step + 1  # this step; the neighbours' last is run.step
     staged = cplan.packed_cols and run.packed
     depth = (cplan.col_slabs[0].src_cols[1] - cplan.col_slabs[0].src_cols[0]
              if staged else 0)
@@ -1088,8 +1382,9 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
     fire = _slot_binder(run, plan.kernel == "tiled", filt, plan.groups[0],
                         ext, quantize, valid_hw,
                         plan.tile if plan.kernel == "tiled" else None)
-    outs = []
-    for s, st in enumerate(streams):
+    outs = {}
+    for s in run.local:
+        st = streams[s]
         di, k = run.where[s]
         out = run.bufs[dst][di][k]
         if rest:
@@ -1097,7 +1392,7 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
             with torch.cuda.device(run.slots[s]), torch.cuda.stream(st):
                 out = torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
                                   device=run.slots[s])
-        outs.append(out)
+        outs[s] = out
     if overlap:
         _overlap_launches(run, fire, src, outs, r * T, ext, partitioned,
                           staged, depth)
@@ -1106,20 +1401,23 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
         # their last launch (read after write) and overwrites the buffer
         # their last launch read (write after read), so it waits on their
         # last launch and on nothing else.  Every wait is enqueued before
-        # any of this step's records, so each names the previous launch.
-        for s, st in enumerate(streams):
+        # any of this step's records, so each names the previous launch
+        # (over processes: the neighbour's counter at the previous step).
+        for s in run.local:
             for n in run.neighbours[s]:
-                st.wait_event(run.launched[n])
+                run.after(s, n, run.step)
         if staged:
-            for s, st in enumerate(streams):
+            for s in run.local:
                 rdma_pack(run, src, s, depth)
-                run.staged[s].record(st)
-            for s, st in enumerate(streams):
+                run.staged[s].record(streams[s])
+                run.mark(s, k_step, staged=True)
+            for s in run.local:
                 for n in run.col_neighbours[s]:
-                    st.wait_event(run.staged[n])
-        for s in range(len(streams)):
+                    run.after(s, n, k_step, staged=True)
+        for s in run.local:
             fire(src, s, outs[s])
-    for s, st in enumerate(streams):
+    for s in run.local:
+        st = streams[s]
         if rest:
             di, k = run.where[s]
             i, j = divmod(s, run.grid_shape[1])
@@ -1128,6 +1426,8 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
                     outs[s], (i * h, j * w), filt, rest, vhw,
                     quantize=quantize, out_dtype=out_dtype, tile=tile))
         run.launched[s].record(st)
+        run.mark(s, k_step)
+    run.step = k_step
     run.last_depth = r * T
     return SlotCarry(run, run.bufs[dst])
 
@@ -1159,6 +1459,7 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
     prev = run.last_depth if ext == 0 else 0
     waited = [set() for _ in run.slots]
     seen = [set() for _ in run.slots]
+    k_step = run.step + 1
 
     def wait(s, offsets):
         row = run.table[s]
@@ -1166,7 +1467,7 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
             n = row[(di + 1) * 3 + dj + 1]
             if n < 0 or n == s or n in waited[s]:
                 continue
-            run.streams[s].wait_event(run.launched[n])
+            run.after(s, n, run.step)
             waited[s].add(n)
 
     def waits_of(rect, offsets):
@@ -1174,17 +1475,18 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
             offsets = offsets | covered_neighbours(rect, h, w, prev)
         return offsets
 
-    for s in range(len(run.slots)):
+    for s in run.local:
         for label, rect, offsets in sched:
             if label == "interior":
                 wait(s, waits_of(rect, offsets))
                 fire(src, s, outs[s], rect)
     if staged:
-        for s, st in enumerate(run.streams):
+        for s in run.local:
             wait(s, {(-1, 0), (1, 0), (0, -1), (0, 1)})
             rdma_pack(run, src, s, depth)
-            run.staged[s].record(st)
-    for s, st in enumerate(run.streams):
+            run.staged[s].record(run.streams[s])
+            run.mark(s, k_step, staged=True)
+    for s in run.local:
         for label, rect, offsets in sched:
             if label == "interior":
                 continue
@@ -1194,7 +1496,7 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
                 for dj in sorted({dj for _, dj in offsets if dj}):
                     n = run.table[s][4 + dj]
                     if n >= 0 and n != s and n not in seen[s]:
-                        st.wait_event(run.staged[n])
+                        run.after(s, n, k_step, staged=True)
                         seen[s].add(n)
             fire(src, s, outs[s], rect)
         wait(s, NEIGHBOURS)
@@ -1203,7 +1505,8 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
 def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
                      quantize: bool = True, out_dtype=None, fuse: int = 1,
                      valid_hw=None, tile=None, col_mode: str = "strided",
-                     overlap: bool = False, partitioned: bool = True):
+                     overlap: bool = False, partitioned: bool = True,
+                     grid=None):
     """``fuse`` iterations of every block of a grid of slots, the exchange
     inside the kernels: one K3 / K4 launch per slot on its own device and
     stream (plus, with ``col_mode="packed"``, one pack per slot first, and
@@ -1214,7 +1517,8 @@ def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
     band after its own neighbours' events.  ``carry`` is
     :func:`slot_carry`'s; returns the next carry.  On the CPU the carry is
     the blocks and :func:`fused_rdma_slots_plain` runs (its overlapped
-    schedule with ``overlap``)."""
+    schedule with ``overlap``; ``grid``: a grid over several processes,
+    whose blocks this rank holds its share of)."""
     T = int(fuse)
     if T < 1:
         raise ValueError(f"fuse must be >= 1, got {fuse}")
@@ -1225,15 +1529,19 @@ def fused_rdma_slots(carry, filt: Filter, grid_shape, boundary: str = "zero",
         raise ValueError(f"boundary must be one of {BOUNDARIES}, got "
                          f"{boundary!r}")
     if not isinstance(carry, SlotCarry):
-        b0 = carry[0][0]
+        b0 = first_block(carry, None)
+        if b0 is None:  # this rank holds none of the grid's blocks
+            return carry
         if b0.device.type != "cpu":
             raise ValueError("on the card a grid of slots carries a "
                              "SlotCarry (rdma.slot_carry)")
         _check_depth(filt.radius, T, b0.shape[1:])
         return fused_rdma_slots_plain(carry, filt, grid_shape, boundary,
                                       quantize, out_dtype, T, valid_hw,
-                                      col_mode, overlap, partitioned)
+                                      col_mode, overlap, partitioned, grid)
     run = carry.run
+    if not run.local:  # this rank holds none of the grid's slots
+        return carry
     _check_depth(filt.radius, T, run.block_shape[1:])
     if out_dtype is None:
         out_dtype = run.dtype

@@ -149,10 +149,14 @@ def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
     neighbour lives on another rank arrives by a
     ``torch.distributed`` send / receive of that edge slab
     (``multihost.swap``: every receive posted first), each phase ending
-    before the next begins, and the result holds ``None`` there too.
+    before the next begins, and the result holds ``None`` there too.  A
+    rank holding none of the blocks (a sub-grid of another's first slots)
+    has nothing to exchange.
     """
     R, Cg = grid_shape
-    mine = first_block(blocks)
+    mine = first_block(blocks, None)
+    if mine is None:
+        return [list(row) for row in blocks]
     d = _check(boundary, depth, mine.shape[1:])
     periodic = boundary == "periodic"
     C, h, w = mine.shape

@@ -20,7 +20,9 @@ A grid of slots may span the processes of a job (``make_grid(devices=
 names the rank that owns each slot, row-major, each rank owning an equal
 share, and ``rank`` is this process's.  Each process holds only its own
 blocks; the others' entries in a list of blocks are ``None``
-(:func:`local_blocks` walks what this process holds).
+(:func:`local_blocks` walks what this process holds).  A grid made from
+another's first slots (a multigrid level's sub-grid) keeps their owners,
+so a rank may hold none of its blocks.
 
 The image state is an R×C list of lists of ``(C, h, w)`` block tensors,
 each on its slot's device.  Axis convention as in the JAX package: grid
@@ -95,12 +97,12 @@ class Grid:
             object.__setattr__(self, "device", devs[0])
             return
         owners = tuple(int(o) for o in self.owners)
-        if len(owners) != len(devs) or self.rank not in owners:
+        if len(owners) != len(devs) or min(owners) < 0 or self.rank < 0:
             raise ValueError(f"owners {owners} do not give each of the "
-                             f"{len(devs)} slots a rank, rank {self.rank} "
-                             "among them")
+                             f"{len(devs)} slots a rank")
         object.__setattr__(self, "owners", owners)
-        object.__setattr__(self, "device", devs[owners.index(self.rank)])
+        object.__setattr__(self, "device", devs[owners.index(self.rank)]
+                           if self.rank in owners else devs[0])
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -197,8 +199,9 @@ def _process_grid(shape, device) -> Grid:
     ``[r·k, (r+1)·k)`` with ``k = R·C / n``, round-robin over its own cards
     (every slot ``cpu`` with ``device='cpu'``).  The halo slabs between
     ranks travel through ``torch.distributed`` point-to-point calls on host
-    memory, which gloo carries; an NCCL group (one card a process) is
-    item 10d."""
+    memory, which gloo carries, and ``cuda_rdma`` reads a neighbour on
+    another rank of the host through CUDA IPC (``ops/rdma.py``); an NCCL
+    group (one card a process) is item 10d-ii."""
     from parallel_convolution_tpu_torch.parallel import multihost
 
     info = multihost.process_info()
@@ -212,16 +215,24 @@ def _process_grid(shape, device) -> Grid:
     local = 1 if cpu else torch.cuda.device_count()
     r, c = shape if shape is not None else dims_create(
         info["global_devices"] if not cpu else n)
-    r, c = int(r), int(c)
+    devs = [torch.device("cpu")] if cpu else [
+        torch.device("cuda", i) for i in range(local)]
+    return _spread(int(r), int(c), range(n), devs, rank)
+
+
+def _spread(r: int, c: int, ranks, devs, rank: int) -> Grid:
+    """An r×c grid of slots over ``ranks`` (in order), each owning an
+    equal row-major share, a rank's ``k`` slots round-robin over ``devs``
+    (its devices; on one host every rank sees the same list)."""
+    ranks = list(ranks)
+    n = len(ranks)
     if (r * c) % n:
         raise ValueError(f"a {r}x{c} grid does not split into equal shares "
                          f"of {n} processes")
     k = r * c // n
-    owners = tuple(s // k for s in range(r * c))
-    devs = tuple(torch.device("cpu") if cpu
-                 else torch.device("cuda", (s % k) % local)
-                 for s in range(r * c))
-    return Grid(r, c, devices=devs, owners=owners, rank=rank)
+    owners = tuple(ranks[s // k] for s in range(r * c))
+    slots = tuple(devs[(s % k) % len(devs)] for s in range(r * c))
+    return Grid(r, c, devices=slots, owners=owners, rank=rank)
 
 
 def grid_from_spec(spec: str | None, device=None) -> Grid:
@@ -253,16 +264,30 @@ def grid_from_spec(spec: str | None, device=None) -> Grid:
 
 def grid_like(grid: Grid, shape: tuple[int, int]) -> Grid:
     """A grid of ``shape`` in ``grid``'s form: the one-device form on its
-    device, or a slot per block round-robin over the grid's distinct
-    devices in their order (one process): what a model's grid becomes when
-    it is swapped by an ``"RxC"`` spec (``ConvolutionModel.set_grid``)."""
+    device, a slot per block round-robin over the grid's distinct devices
+    in their order (one process), or over the processes of ``grid`` in
+    ``_process_grid``'s layout (each rank an equal share, round-robin over
+    the devices its slots name): what a model's grid becomes when it is
+    swapped by an ``"RxC"`` spec (``ConvolutionModel.set_grid``)."""
     r, c = (int(v) for v in shape)
     if not grid.slotted:
         return Grid(r, c, grid.device)
-    check_one_process(grid, "a grid swapped by a spec")
     devs = list(dict.fromkeys(grid.slots))
+    if grid.owners is not None:
+        return _spread(r, c, sorted(set(grid.owners)), devs, grid.rank)
     return Grid(r, c, devices=tuple(devs[k % len(devs)]
                                     for k in range(r * c)))
+
+
+def local_grid(grid: Grid) -> Grid:
+    """This process's share of a grid over several processes as a grid of
+    its own (no owners): its slots in order, as whole rows of ``grid``
+    where the share is, else one row.  What each rank probes alone
+    (``resilience.degrade``)."""
+    mine = [d for d, o in zip(grid.slots, grid.owners) if o == grid.rank]
+    k = len(mine)
+    rows = k // grid.cols if k % grid.cols == 0 else 1
+    return Grid(rows, k // rows, devices=tuple(mine))
 
 
 def split_blocks(x: torch.Tensor, grid: Grid) -> list[list[torch.Tensor]]:
@@ -315,47 +340,100 @@ def spans(grid: Grid | None, blocks) -> bool:
     return False
 
 
-def first_block(blocks) -> torch.Tensor:
+def first_block(blocks, default=StopIteration) -> torch.Tensor:
     """The first block this process holds (its shape and dtype are every
-    block's)."""
-    return next(local_blocks(blocks))[1]
+    block's); ``default`` where it holds none (a sub-grid of another's
+    first slots), else ``StopIteration`` raises."""
+    for _, b in local_blocks(blocks):
+        return b
+    if default is StopIteration:
+        raise StopIteration("this process holds none of the blocks")
+    return default
 
 
-def reblock(blocks, valid_hw, grid: Grid, block_hw) -> list[list[torch.Tensor]]:
+def reblock(blocks, valid_hw, grid: Grid, block_hw, src_grid: Grid | None = None,
+            src_hw=None, like=None) -> list[list[torch.Tensor]]:
     """Move the blocks of one grid onto ``(grid, block_hw)`` by the
     reshard rule (crop to the valid extent, re-pad, re-block), each target
     block assembled on its slot's device from the source blocks it
     overlaps, its rim beyond ``valid_hw`` zero: no device ever holds more
     than its own block and one piece of a source block.  The source
-    blocks are any equal-sized R'×C' grid of (C, h', w') blocks (one
-    process)."""
+    blocks are any equal-sized R'×C' grid of (C, h', w') blocks.
+
+    Over several processes: ``src_grid`` is the grid the source blocks
+    belong to (its ``owners``; None: this process holds every block it
+    is given, as every rank holds a field it was given whole), and
+    ``grid``'s owners say which rank assembles each target block.  A
+    piece whose source lives on another rank arrives point to point
+    (``multihost.swap``: every receive posted first), never through a
+    gathered image; a rank builds only its own target blocks (``None``
+    elsewhere).  ``src_hw`` / ``like`` = (channels, dtype) describe the
+    source blocks where this rank holds none of them."""
     H, W = (int(v) for v in valid_hw)
-    src = first_block(blocks)
-    C, sbh, sbw = src.shape
+    mine = first_block(blocks, None)
+    if mine is not None:
+        src_hw = tuple(mine.shape[1:]) if src_hw is None else src_hw
+        like = (mine.shape[0], mine.dtype) if like is None else like
+    sbh, sbw = (int(v) for v in src_hw)
+    C, dtype = like
     bh, bw = (int(v) for v in block_hw)
-    out = []
+    rank = grid.rank
+    cols = len(blocks[0])
+
+    def src_owner(si, sj, owner):
+        if src_grid is None or src_grid.owners is None:
+            return owner  # every rank holds the source
+        return src_grid.owners[si * cols + sj]
+
+    out = [[None] * grid.cols for _ in range(grid.rows)]
+    sends, recvs, landed = [], [], []
     for i in range(grid.rows):
-        row = []
         for j in range(grid.cols):
+            here = grid.is_local(i, j)
             dev = grid.slot_device(i, j)
-            b = torch.zeros((C, bh, bw), dtype=src.dtype, device=dev)
+            b = (torch.zeros((C, bh, bw), dtype=dtype, device=dev)
+                 if here else None)
             r0, c0 = i * bh, j * bw
             r1, c1 = min(r0 + bh, H), min(c0 + bw, W)
+            owner = grid.owners[i * grid.cols + j] if grid.owners else rank
             for si in range(r0 // sbh, -(-r1 // sbh)) if r1 > r0 else ():
                 for sj in range(c0 // sbw, -(-c1 // sbw)) if c1 > c0 else ():
                     g0, g1 = max(r0, si * sbh), min(r1, (si + 1) * sbh)
                     h0, h1 = max(c0, sj * sbw), min(c1, (sj + 1) * sbw)
-                    b[:, g0 - r0:g1 - r0, h0 - c0:h1 - c0] = blocks[si][sj][
-                        :, g0 - si * sbh:g1 - si * sbh,
-                        h0 - sj * sbw:h1 - sj * sbw].to(dev)
-            row.append(b)
-        out.append(row)
+                    dst = (slice(None), slice(g0 - r0, g1 - r0),
+                           slice(h0 - c0, h1 - c0))
+                    src = (slice(None), slice(g0 - si * sbh, g1 - si * sbh),
+                           slice(h0 - sj * sbw, h1 - sj * sbw))
+                    holder = src_owner(si, sj, owner)
+                    tag = (i * grid.cols + j) * len(blocks) * cols + (
+                        si * cols + sj)
+                    if here and holder == rank:
+                        b[dst] = blocks[si][sj][src].to(dev)
+                    elif here:
+                        piece = torch.empty((C, g1 - g0, h1 - h0),
+                                            dtype=dtype, device=dev)
+                        recvs.append((holder, tag, piece))
+                        landed.append((b, dst, piece))
+                    elif holder == rank:
+                        sends.append((owner, tag, blocks[si][sj][src]))
+            out[i][j] = b
+    if sends or recvs:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        multihost.swap(sends, recvs)
+        for b, dst, piece in landed:
+            b[dst] = piece
     return out
 
 
 def check_one_process(grid: Grid | None, what: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 10d where ``grid``
-    spans processes and ``what`` does not run across them yet."""
-    if grid is not None and grid.spans_processes:
-        raise pending(f"{what} on a grid over several processes",
-                      PROCESSES_ITEM)
+    """Raise ``NotImplementedError`` naming ROADMAP item 10d-ii where a
+    CPU ``grid`` spans the processes of more than one host (every rank's
+    host compared: a collective).  On the card the run's IPC map makes
+    the same check with the records it gathers (``rdma._SlotRun``), and
+    an NCCL group makes no grid over processes (:func:`_process_grid`)."""
+    if grid is None or not grid.spans_processes or grid.device.type != "cpu":
+        return
+    from parallel_convolution_tpu_torch.parallel import multihost
+
+    multihost.check_one_host(multihost.peer_records({}), what)

@@ -19,16 +19,19 @@ In a job of several processes ``mesh.make_grid(devices="all")`` spans
 them: each rank owns an equal share of the slots and holds only its
 blocks.  What crosses ranks goes through this module and host memory, the
 transport gloo carries (two ranks on one card share it; NCCL refuses
-that): the halo slabs (:func:`swap`, point to point), the convergence
-diff (:func:`all_max`), a block another rank holds (:func:`fill_blocks`)
-and small objects (:func:`gather_object`).  ``cuda_rdma``, which reads
-its neighbours' buffers in place, and the NCCL transport (one card a
-process) are ROADMAP item 10d.
+that): the halo slabs and the pieces of a re-blocked grid (:func:`swap`,
+point to point), the convergence diff (:func:`all_max`), a block another
+rank holds (:func:`fill_blocks`) and small objects (:func:`gather_object`,
+:func:`peer_records`: the CUDA IPC handles through which ``cuda_rdma``
+reads a neighbour's buffer in place, when the ranks share a host,
+:func:`check_one_host`).  The NCCL transport (one card a process) and
+``cuda_rdma`` between hosts are ROADMAP item 10d-ii.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 
 import torch
 
@@ -141,6 +144,79 @@ def gather_object(obj) -> list:
         return [obj]
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, obj)
+    return out
+
+
+def hostname() -> str:
+    """This host's name, as :func:`peer_records` reports it."""
+    return socket.gethostname()
+
+
+def card_uuid(device) -> str:
+    """The card's UUID (``""`` for the CPU): two ranks on one card see one
+    UUID whatever index each gives it."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return ""
+    return str(torch.cuda.get_device_properties(dev).uuid)
+
+
+def peer_records(record: dict) -> list[dict]:
+    """Every rank's small record (CUDA IPC handles, offsets), in rank
+    order, on every rank, each with its rank's ``host``
+    (:func:`hostname`) added: one ``gather_object``.  A collective: every
+    rank of the group calls it at the same point."""
+    return gather_object(dict(record, host=hostname()))
+
+
+def same_host(records, a: int, b: int) -> bool:
+    """Whether ranks ``a`` and ``b`` of :func:`peer_records`' result run on
+    one host."""
+    return records[a]["host"] == records[b]["host"]
+
+
+def check_one_host(records, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 10d-ii unless
+    every rank of ``records`` runs on rank 0's host: ``what`` (``cuda_rdma``
+    reading a neighbour's buffer in place) needs the ranks on one host."""
+    from parallel_convolution_tpu_torch.utils.config import (
+        PROCESSES_ITEM, pending,
+    )
+
+    far = [r for r in range(len(records)) if not same_host(records, 0, r)]
+    if far:
+        raise pending(f"{what} between ranks on different hosts (ranks "
+                      f"{far} are not on {records[0]['host']!r})",
+                      PROCESSES_ITEM)
+
+
+def portable(err: BaseException) -> BaseException:
+    """``err`` as another rank can unpickle it: itself where it
+    round-trips, else a ``RuntimeError`` with its type and text (an
+    exception whose constructor takes other arguments than its message
+    does not)."""
+    import pickle
+
+    try:
+        pickle.loads(pickle.dumps(err))
+        return err
+    except Exception:  # noqa: BLE001 -- any failure to round-trip
+        return RuntimeError(f"{type(err).__name__}: {err}")
+
+
+def agreed(fn):
+    """``fn()`` on rank 0, its result (or the exception it raised) on
+    every rank: one ``gather_object``.  Every rank calls it at the same
+    point; the others never call ``fn``."""
+    out = err = None
+    if rank() == 0:
+        try:
+            out = fn()
+        except Exception as e:  # noqa: BLE001 -- raised on every rank
+            err = e
+    out, shared = gather_object((out, err and portable(err)))[0]
+    if shared is not None:
+        raise err if err is not None else shared
     return out
 
 

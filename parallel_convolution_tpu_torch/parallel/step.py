@@ -45,8 +45,12 @@ A grid of slots may span processes (``mesh.make_grid(devices="all")`` in
 a job of several, ``parallel/multihost.py``): each rank steps only its
 blocks, the exchange sends a slab between ranks where a neighbour lives on
 another, and the diff is reduced across ranks (``multihost.all_max``, a
-NaN on any rank stopping every rank after the same chunk).  ``cuda_rdma``,
-``auto`` and ``fallback`` there are ROADMAP item 10d.
+NaN on any rank stopping every rank after the same chunk).  ``cuda_rdma``
+reads a neighbour on another rank of the host in place (CUDA IPC behind
+the counters of ``ops/rdma.py``; on the CPU its plain version after a
+gloo exchange of the rims), ``auto`` takes rank 0's resolution and
+``fallback`` the furthest rung any rank's own probe reached.  The NCCL
+transport and ``cuda_rdma`` between hosts are ROADMAP item 10d-ii.
 """
 
 from __future__ import annotations
@@ -272,9 +276,11 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
     ``rdma.SlotCarry`` (the blocks on the CPU), the column slabs moved by
     ``col_mode``, and with ``overlap`` (resolved: :func:`resolve_overlap`
     keeps it only on a grid of slots) each slot's launch region by region.
-    ``interior_split`` is taken and not used, as in the JAX package.  A
-    grid over several processes raises (ROADMAP item 10d: the launch reads
-    its neighbours' buffers in place)."""
+    ``interior_split`` is taken and not used, as in the JAX package.  On
+    a grid over the processes of one host each rank launches its own
+    slots, reading a neighbour on another rank through CUDA IPC
+    (``rdma._SlotRun``); ranks on different hosts raise (ROADMAP item
+    10d-ii)."""
     check_one_process(grid, "backend 'cuda_rdma'")
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
     # The in-kernel exchange failing to build (pallas_rdma's site).
@@ -286,7 +292,7 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
             return rdma.fused_rdma_slots(
                 carry, filt, grid.shape, boundary, quantize=quantize,
                 fuse=fuse, valid_hw=vhw, tile=tile, col_mode=col_mode,
-                overlap=overlap)
+                overlap=overlap, grid=grid)
 
         return slot_step
 
@@ -363,12 +369,17 @@ def _carry_in(blocks, grid: Grid, backend: str, boundary: str, depth: int,
     return rdma.stack_blocks(blocks, grid.shape)
 
 
-def _carry_out(state, grid: Grid, backend: str):
-    """Inverse of :func:`_carry_in`: the R×C blocks."""
+def _carry_out(state, grid: Grid, backend: str, close: bool = False):
+    """Inverse of :func:`_carry_in`: the R×C blocks.  ``close`` ends a
+    card's run over several processes there (``rdma.close_carry``, a
+    collective): the carry is not stepped again."""
     if backend != "cuda_rdma":
         return state
     if grid.slotted:
-        return rdma.slot_blocks(state, grid.shape)
+        blocks = rdma.slot_blocks(state, grid.shape)
+        if close:
+            rdma.close_carry(state)
+        return blocks
     return rdma.unstack_blocks(state, grid.shape)
 
 
@@ -403,7 +414,7 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
             state = chunk(state)
         if tail is not None:
             state = tail(state)
-        return _carry_out(state, grid, backend)
+        return _carry_out(state, grid, backend, close=True)
 
     return run
 
@@ -451,25 +462,29 @@ def _prepare(x, grid: Grid, storage: str = "f32"):
     return split_blocks(x, grid), (H, W), (Hp // R, Wp // Cg)
 
 
-def reshard_prepared(blocks, valid_hw, grid: Grid):
-    """Move prepared blocks (from :func:`_prepare`, any grid of one
-    process) onto ANOTHER grid: crop to the valid extent, zero re-pad to
-    the new grid's block multiples and re-block (the JAX package's
-    ``reshard_prepared``; elastic recovery's in-memory counterpart of the
-    checkpoint reshard, e.g. a serving engine shrinking mid-process without
-    a disk round trip).
+def reshard_prepared(blocks, valid_hw, grid: Grid,
+                     src_grid: Grid | None = None):
+    """Move prepared blocks (from :func:`_prepare`, any grid) onto ANOTHER
+    grid: crop to the valid extent, zero re-pad to the new grid's block
+    multiples and re-block (the JAX package's ``reshard_prepared``;
+    elastic recovery's in-memory counterpart of the checkpoint reshard,
+    e.g. a serving engine shrinking mid-process without a disk round
+    trip).
 
     Bit-exact by the masking invariant: positions outside ``valid_hw`` are
     zero on every grid, so crop and zero re-pad give exactly the blocks
     :func:`_prepare` builds on ``grid`` from the valid pixels.  Each target
     block is assembled on its slot's device from the source blocks it
-    overlaps (``mesh.reblock``); no device holds the global image."""
-    check_one_process(grid, "reshard_prepared")
-    spans(None, blocks)  # another process's blocks (None) raise
+    overlaps (``mesh.reblock``); no device holds the global image.  Blocks
+    of a grid over several processes (``src_grid``, whose ``None`` entries
+    another rank holds) move to ``grid``'s ranks piece by piece, point to
+    point: no rank ever holds the global image."""
+    spans(src_grid, blocks)  # another process's blocks need their grid
     H, W = (int(v) for v in valid_hw)
     R, Cg = grid.shape
     return reblock(blocks, (H, W), grid, (padded_extent(H, R) // R,
-                                          padded_extent(W, Cg) // Cg))
+                                          padded_extent(W, Cg) // Cg),
+                   src_grid=src_grid)
 
 
 def _global_f32(blocks, grid: Grid, valid_hw) -> torch.Tensor:
@@ -672,7 +687,6 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
     b0 = first_block(blocks)
     if b0.dtype == torch.uint8:
         check_storage("u8", quantize)
-    _check_processes(grid, backend, fallback)
     if check_contract:
         _check_quantize_contract(blocks, filt, quantize, grid)
     storage = _storage_name(b0.dtype)
@@ -705,16 +719,6 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
                          source="iterate_prepared", overlap=overlap,
                          col_mode=col_mode)
     return out
-
-
-def _check_processes(grid: Grid, backend: str, fallback: bool) -> None:
-    """What a grid over several processes does not run yet raises (ROADMAP
-    item 10d): ``cuda_rdma``, ``auto`` (its measured tune and plans are
-    one process's) and ``fallback`` (its probe launches per process)."""
-    if backend in ("cuda_rdma", AUTO):
-        check_one_process(grid, f"backend {backend!r}")
-    if fallback:
-        check_one_process(grid, "fallback=True")
 
 
 def _setup_run(x, grid, device, backend: str, storage: str, boundary: str,
@@ -890,7 +894,6 @@ def _converge_setup(x, filt: Filter, check_every, grid, quantize, backend,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     grid, blocks, valid_hw, block_hw = _setup_run(
         x, grid, device, backend, storage, boundary, quantize)
-    _check_processes(grid, backend, fallback)
     backend, fuse, tile, source = _resolve_auto(
         grid, filt, backend, fuse, tile, storage, quantize, boundary,
         valid_hw, first_block(blocks).shape[0], check_every=int(check_every))
@@ -1016,7 +1019,8 @@ def sharded_converge(x, filt: Filter, tol: float, max_iters: int,
                              time.perf_counter() - t0, valid_hw, quantize,
                              tile, source="sharded_converge",
                              overlap=overlap, col_mode=col_mode)
-    return _global_f32(_carry_out(state, grid, backend), grid, valid_hw), done
+    return _global_f32(_carry_out(state, grid, backend, close=True), grid,
+                       valid_hw), done
 
 
 sharded_converge.readbacks = 0
@@ -1065,12 +1069,15 @@ def sharded_converge_stream(x, filt: Filter, tol: float, max_iters: int,
                       filt.radius * max(1, min(fuse, int(check_every) - 1)),
                       col_mode)
     del blocks
-    for state, done, diff in _converge_chunks(
-            grid, filt, state, tol, int(max_iters), int(check_every),
-            quantize, valid_hw, block_hw, backend, boundary, fuse, tile,
-            sharded_converge_stream, interior_split, col_mode, overlap):
-        yield (_global_f32(_carry_out(state, grid, backend), grid,
-                           valid_hw).cpu().numpy(), done, diff)
+    try:
+        for state, done, diff in _converge_chunks(
+                grid, filt, state, tol, int(max_iters), int(check_every),
+                quantize, valid_hw, block_hw, backend, boundary, fuse, tile,
+                sharded_converge_stream, interior_split, col_mode, overlap):
+            yield (_global_f32(_carry_out(state, grid, backend), grid,
+                               valid_hw).cpu().numpy(), done, diff)
+    finally:
+        rdma.close_carry(state)
 
 
 sharded_converge_stream.readbacks = 0

@@ -186,36 +186,70 @@ def resolve_backend(grid, filt: Filter, backend: str, *,
 
     Emits :class:`BackendDegradedWarning` when the result differs from the
     request; callers also record the returned name.
+
+    On a grid over several processes each rank probes its own blocks (a
+    grid of its own slots, ``mesh.local_grid``: no probe waits on another
+    rank) and the ranks agree on the furthest rung any rank reached before
+    anything runs; a rank's terminal failure raises on every rank.
     """
     chain = degradation_chain(backend, on_card=grid.device.type == "cuda")
-    last: BaseException | None = None
-    for b in chain:
+    kw = dict(quantize=quantize, fuse=fuse, boundary=boundary, tile=tile,
+              storage=storage, block_hw=block_hw,
+              interior_split=interior_split, col_mode=col_mode,
+              overlap=overlap)
+    if getattr(grid, "spans_processes", False):
+        from parallel_convolution_tpu_torch.parallel import multihost
+        from parallel_convolution_tpu_torch.parallel.mesh import local_grid
+
+        err = None
         try:
-            probe_backend(grid, filt, b, quantize=quantize, fuse=fuse,
-                          boundary=boundary, tile=tile, storage=storage,
-                          block_hw=block_hw, interior_split=interior_split,
-                          col_mode=col_mode, overlap=overlap)
+            rung, last = _walk(local_grid(grid), filt, chain, kw)
+            mine = (rung, None, repr(last))
+        except Exception as e:  # noqa: BLE001 -- raised on every rank
+            err, mine = e, (None, multihost.portable(e), None)
+        got = multihost.gather_object(mine)
+        failed = [e for _, e, _ in got if e is not None]
+        if failed:
+            raise err if err is not None else failed[0]
+        # The cause stamped is the rank's that walked furthest.
+        rung, _, last = max(got, key=lambda g: g[0])
+        b = chain[rung]
+    else:
+        rung, last = _walk(grid, filt, chain, kw)
+        b = chain[rung]
+    if b != backend:
+        cause = last if isinstance(last, str) else repr(last)
+        warnings.warn(
+            f"backend {backend!r} degraded to {b!r} after transient "
+            f"failure: {cause}",
+            BackendDegradedWarning, stacklevel=2,
+        )
+        if obs_metrics.enabled():
+            obs_metrics.counter(
+                "pctpu_degrades_total",
+                "backend degradation walks that resolved a lower tier",
+                ("requested", "effective")).inc(
+                requested=backend, effective=b)
+            obs_events.emit("degrade", requested=backend, effective=b,
+                            cause=cause[:200])
+    _LAST_RESOLVED[backend] = b
+    return b
+
+
+def _walk(grid, filt: Filter, chain, kw) -> tuple[int, BaseException | None]:
+    """``(index, last transient failure)`` of the first rung of ``chain``
+    whose probe passes on ``grid``; raises at once on a terminal failure,
+    and :class:`RetryExhausted` when every rung failed transiently."""
+    last: BaseException | None = None
+    for i, b in enumerate(chain):
+        try:
+            probe_backend(grid, filt, b, **kw)
         except Exception as e:  # noqa: BLE001
             if classify(e) == TERMINAL:
                 raise
             last = e
             continue
-        if b != backend:
-            warnings.warn(
-                f"backend {backend!r} degraded to {b!r} after transient "
-                f"failure: {last!r}",
-                BackendDegradedWarning, stacklevel=2,
-            )
-            if obs_metrics.enabled():
-                obs_metrics.counter(
-                    "pctpu_degrades_total",
-                    "backend degradation walks that resolved a lower tier",
-                    ("requested", "effective")).inc(
-                    requested=backend, effective=b)
-                obs_events.emit("degrade", requested=backend, effective=b,
-                                cause=repr(last)[:200])
-        _LAST_RESOLVED[backend] = b
-        return b
+        return i, last
     raise RetryExhausted(
         f"every backend in {chain} failed transiently; last: {last!r}"
     ) from last

@@ -269,6 +269,17 @@ class _InFlight:
         self.span_ref: dict | None = None
 
 
+def _drop(entry: _Entry) -> None:
+    """An entry's multigrid level runs end when it is evicted or the
+    engine reshapes (``multigrid.close_programs``: over several processes
+    a collective, which every rank reaches at the same call of the same
+    sequence)."""
+    if entry.mg_programs:
+        from parallel_convolution_tpu_torch.solvers import multigrid
+
+        multigrid.close_programs(entry.mg_programs)
+
+
 def _stale(key: EngineKey, shape) -> ValueError:
     return ValueError(f"stale key grid {key.grid}: engine mesh is now "
                       f"{tuple(shape)} (resharded mid-process)")
@@ -280,9 +291,13 @@ class WarmEngine:
     ``grid`` defaults to 1×1 on ``device`` (default: the card; it raises
     without CUDA, ``device="cpu"`` runs the plain versions); a grid of
     slots (``mesh.make_grid(devices=...)``) runs each block on its slot's
-    device.  ``plans``: a ``tuning.PlanCache`` or a plan file's path for
-    ``backend="auto"`` keys (None: ``PCTPU_PLAN_FILE``, else the cost
-    model).
+    device.  On a grid over several processes the JAX package's
+    multi-controller contract holds: every rank builds the same engine and
+    calls ``run_batch`` / ``run_converge`` / ``reshape`` with the same keys
+    and payloads in the same order, and every rank gets the result (rank
+    0's is the answer; the HTTP service stays one process).  ``plans``: a
+    ``tuning.PlanCache`` or a plan file's path for ``backend="auto"`` keys
+    (None: ``PCTPU_PLAN_FILE``, else the cost model).
     """
 
     def __init__(self, grid=None, capacity: int = 16, fallback: bool = True,
@@ -293,11 +308,6 @@ class WarmEngine:
             grid = make_grid(device=device)
         elif device is not None and grid.device != torch.device(device):
             raise ValueError(f"grid is on {grid.device}, device={device!r}")
-        from parallel_convolution_tpu_torch.parallel.mesh import (
-            check_one_process,
-        )
-
-        check_one_process(grid, "the serving engine")
         self.grid = grid
         self.capacity = max(1, int(capacity))
         self.fallback = fallback
@@ -365,9 +375,7 @@ class WarmEngine:
         "skipped"}``."""
         import warnings
 
-        from parallel_convolution_tpu_torch.parallel.mesh import (
-            check_one_process, grid_like,
-        )
+        from parallel_convolution_tpu_torch.parallel.mesh import grid_like
 
         if isinstance(grid, str):
             from parallel_convolution_tpu_torch.resilience.elastic import (
@@ -375,11 +383,12 @@ class WarmEngine:
             )
 
             grid = grid_like(self.grid, parse_spec(grid))
-        check_one_process(grid, "the serving engine")
         new_grid = tuple(grid.shape)
         with self._lock:
             old_grid = self.grid_shape()
             old_keys = list(self._entries)
+            for e in self._entries.values():
+                _drop(e)
             self._entries.clear()
             self._plan_sources.clear()
             self._inflight.clear()
@@ -537,9 +546,10 @@ class WarmEngine:
                 self._entries[key] = entry
                 self._entries.move_to_end(key)
                 while len(self._entries) > self.capacity:
-                    old_key, _ = self._entries.popitem(last=False)
+                    old_key, old = self._entries.popitem(last=False)
                     self._plan_sources.pop(old_key, None)
                     self.stats["evictions"] += 1
+                    _drop(old)
                 self._inflight.pop(key, None)
             fl.event.set()
             return entry
@@ -663,7 +673,7 @@ class WarmEngine:
             fn = driver._build_volume_iterate(
                 tuple(self.grid.shape), key.filter_name, key.iters, D,
                 tuple(valid_hw), tuple(block_hw), key.fuse, key.boundary,
-                self.grid.slotted)
+                self.grid.slotted, self.grid)
             fn(xs)
             self._sync()
         entry.fns[batch] = fn
@@ -828,7 +838,8 @@ class WarmEngine:
             with t.phase("copy_out"):
                 with obs_trace.span("copy_out", batch=B):
                     out = driver.unstack_volume(
-                        out, self.grid.shape, valid_hw, self.grid.device)
+                        out, self.grid.shape, valid_hw, self.grid.device,
+                        self.grid)
                     out = out.cpu().numpy().reshape(
                         B, VOLUME_FIELDS, D, H, W)
         with self._lock:
@@ -941,7 +952,11 @@ class WarmEngine:
                     self.grid, filt, n, key.quantize, tuple(valid_hw),
                     block_hw, backend, key.boundary, key.fuse, key.tile,
                     False, entry.effective_col_mode, entry.effective_overlap)
-                fn(self._carry(entry, blocks, n))
+                from parallel_convolution_tpu_torch.ops import rdma
+
+                carry = self._carry(entry, blocks, n)
+                fn(carry)
+                rdma.close_carry(carry)
             self._sync()
             entry.converge_fns[n] = fn
             self._count_build(entry)
@@ -1027,20 +1042,25 @@ class WarmEngine:
                 key.storage)
             state = self._carry(entry, blocks, check_every)
         del blocks
+        from parallel_convolution_tpu_torch.ops import rdma
+
         done, diff = start_done, float("inf")
-        while done < max_iters and diff >= tol:
-            if key.grid != self.grid_shape():
-                raise _stale(key, self.grid_shape())
-            n = min(check_every, max_iters - done)
-            fn = self._converge_fn(entry, n)
-            with self._on_device():
-                state, d = fn(state)
-                diff = d.item()   # the readback fences the chunk
-                done += n
-                out = step_lib._global_f32(
-                    step_lib._carry_out(state, self.grid, backend),
-                    self.grid, valid_hw).cpu().numpy()
-            yield out, done, diff, float(done)
+        try:
+            while done < max_iters and diff >= tol:
+                if key.grid != self.grid_shape():
+                    raise _stale(key, self.grid_shape())
+                n = min(check_every, max_iters - done)
+                fn = self._converge_fn(entry, n)
+                with self._on_device():
+                    state, d = fn(state)
+                    diff = d.item()   # the readback fences the chunk
+                    done += n
+                    out = step_lib._global_f32(
+                        step_lib._carry_out(state, self.grid, backend),
+                        self.grid, valid_hw).cpu().numpy()
+                yield out, done, diff, float(done)
+        finally:
+            rdma.close_carry(state)
 
     def _run_volume_converge(self, entry: _Entry, key: EngineKey, volume, *,
                              tol: float, max_iters: int, check_every: int,
@@ -1073,7 +1093,7 @@ class WarmEngine:
                 diff = float(d)   # the readback fences the chunk
                 done += n
                 out = driver.unstack_volume(xs, self.grid.shape, valid_hw,
-                                            self.grid.device)
+                                            self.grid.device, self.grid)
                 out = out.cpu().numpy()
             yield out, done, diff, float(done)
 

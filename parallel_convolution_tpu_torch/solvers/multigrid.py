@@ -36,6 +36,11 @@ It runs on the machinery the rest of the port has:
   level's state moves between sub-grids block by block
   (``mesh.reblock``: each target block gathered from the source blocks
   it overlaps, on its own device).
+* **On a grid over several processes** a sub-grid keeps its first slots'
+  owners (a rank may hold none of a coarse level's blocks), restriction
+  and prolongation between levels with different owners move their
+  pieces between ranks point to point (``mesh.reblock``), and the
+  residual reduces over the ranks (``multihost.all_max``).
 
 The level state is the backend's carry: the R×C list of ``(C, h, w)``
 blocks, or for ``cuda_rdma`` on one device the stacked ``(R·C, C, h, w)``
@@ -71,8 +76,7 @@ from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_one_process, join_blocks, make_grid, padded_extent, reblock,
-    split_blocks,
+    Grid, join_blocks, make_grid, padded_extent, reblock, split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.solvers.transfer import coarse_extent
@@ -82,7 +86,8 @@ from parallel_convolution_tpu_torch.utils.config import (
 
 __all__ = ["MG_BLOCK_FLOOR", "MGResult", "Level", "cycle_launches",
            "cycle_work_units", "float_tolerance", "level_channel_keys",
-           "mg_converge", "mg_converge_stream", "plan_levels",
+           "close_programs", "mg_converge", "mg_converge_stream",
+           "plan_levels",
            "warm_level_channels"]
 
 # The tile floor: a level whose block would dip below this on the
@@ -203,7 +208,8 @@ def plan_levels(grid: Grid, valid_hw, radius: int, boundary: str = "zero",
     * a coarse level lands on the first shrink-ladder rung whose block
       clears ``floor``; a sub-grid is a smaller grid on the same device,
       or on a grid of slots the first ``g0·g1`` slots (the JAX package's
-      ``devices[:g0*g1]``), and a level whose grid repeats the previous
+      ``devices[:g0*g1]``) with their owners (over several processes,
+      this rank's among them or not), and a level whose grid repeats the previous
       level's reuses its ``Grid`` object, so builds key on one grid a
       shape.
     """
@@ -239,7 +245,10 @@ def plan_levels(grid: Grid, valid_hw, radius: int, boundary: str = "zero",
         elif g == grid.shape:
             sub = grid
         elif grid.slotted:
-            sub = Grid(g[0], g[1], devices=grid.slots[:g[0] * g[1]])
+            n = g[0] * g[1]
+            sub = Grid(g[0], g[1], devices=grid.slots[:n],
+                       owners=None if grid.owners is None
+                       else grid.owners[:n], rank=grid.rank)
         else:
             sub = Grid(g[0], g[1], grid.device)
         levels.append(Level(sub, cur_valid, block))
@@ -388,10 +397,11 @@ def _blocks(state, grid: Grid):
 
 def _map(fn, *states):
     """``fn`` over level states of one form: the stacked grid at once, or
-    block by block."""
+    block by block (a block another rank holds stays ``None``)."""
     if torch.is_tensor(states[0]):
         return fn(*states)
-    return [[fn(*bs) for bs in zip(*rows)] for rows in zip(*states)]
+    return [[None if bs[0] is None else fn(*bs) for bs in zip(*rows)]
+            for rows in zip(*states)]
 
 
 def _place(full: torch.Tensor, valid_hw, grid: Grid, block_hw,
@@ -399,7 +409,8 @@ def _place(full: torch.Tensor, valid_hw, grid: Grid, block_hw,
     """A global (C, ≥H, ≥W) field cropped to ``valid_hw``, zero-padded to
     ``block_hw`` blocks over ``grid`` and cut into them: the carry, stacked
     for ``cuda_rdma`` on one device.  On a grid of slots each block is cut
-    from ``full`` where it lies and copied onto its slot's device."""
+    from ``full`` where it lies and copied onto its slot's device (over
+    several processes every rank holds ``full`` and cuts its own)."""
     H, W = (int(v) for v in valid_hw)
     if grid.slotted:
         return reblock([[full]], (H, W), grid, block_hw)
@@ -412,17 +423,20 @@ def _place(full: torch.Tensor, valid_hw, grid: Grid, block_hw,
     return rdma.stack_blocks(blocks, grid.shape) if stacked else blocks
 
 
-def _fit_to(state, valid_hw, src: Grid, grid: Grid, block_hw, stacked: bool):
-    """Move a level state onto ``(grid, block_hw)``: the reshard rule
-    (crop to the valid extent, re-pad, re-block), on the device; on a
-    grid of slots block by block (``mesh.reblock``), no block ever
-    gathered beyond what its target needs.  The state itself when it is
-    already there."""
-    blocks = _blocks(state, src)
-    if src == grid and tuple(blocks[0][0].shape[1:]) == tuple(block_hw):
+def _fit_to(state, valid_hw, src: Grid, src_hw, grid: Grid, block_hw,
+            stacked: bool, channels: int):
+    """Move a level state of ``src_hw`` blocks on ``src`` onto ``(grid,
+    block_hw)``: the reshard rule (crop to the valid extent, re-pad,
+    re-block), on the device; on a grid of slots block by block
+    (``mesh.reblock``), no block ever gathered beyond what its target
+    needs, a piece between ranks point to point.  The state itself when
+    it is already there."""
+    if src == grid and tuple(src_hw) == tuple(block_hw):
         return state
+    blocks = _blocks(state, src)
     if grid.slotted:
-        return reblock(blocks, valid_hw, grid, block_hw)
+        return reblock(blocks, valid_hw, grid, block_hw, src_grid=src,
+                       src_hw=src_hw, like=(channels, torch.float32))
     return _place(join_blocks(blocks), valid_hw, grid, block_hw, stacked)
 
 
@@ -431,6 +445,10 @@ def _global(state, grid: Grid, valid_hw, device=None) -> torch.Tensor:
     ``device`` (default: the grid's)."""
     blocks = _blocks(state, grid)
     device = grid.device if device is None else torch.device(device)
+    if grid.spans_processes:
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        blocks = multihost.fill_blocks(blocks, grid.owners)
     full = (blocks[0][0] if grid.shape == (1, 1)
             else join_blocks(blocks, device))
     return full[:, :valid_hw[0], :valid_hw[1]].to(device)
@@ -458,13 +476,21 @@ class _Solve:
     overlap: bool = False
     runs: dict = dataclasses.field(default_factory=dict)
 
+    def close(self) -> None:
+        """End the levels' runs (``rdma.close_carry``: over several
+        processes a collective that unmaps the neighbours' buffers, waits
+        for every rank, then frees; a no-op in one process)."""
+        for run in self.runs.values():
+            run.close()
+        self.runs.clear()
+
 
 def _slot_carry(s: _Solve, lv: Level, filt: Filter, blocks):
     """The ``cuda_rdma`` carry of a level on a grid of slots: on the card
     the level's one run (its streams, buffers and pointer tables made
     once a solve), the blocks copied into its input buffers; on the CPU
     the blocks."""
-    if blocks[0][0].device.type == "cpu":
+    if lv.grid.device.type == "cpu":
         return blocks
     run = s.runs.get(lv)
     if run is None:
@@ -546,7 +572,8 @@ def _build_fine_smooth(lv: Level, filt: Filter, n: int, s: _Solve,
         if not with_diff:
             return u
         su = step(u)
-        return _map(_damped, u, su), step_lib._slots_max_diff(su, u)
+        return (_map(_damped, u, su),
+                step_lib._carry_diff(su, u, lv.grid, s.backend))
 
     return run
 
@@ -556,7 +583,9 @@ def _transfer(name: str, lv: Level, boundary: str):
     once on one device, per block on a grid of slots."""
     build = kernel_forms.resolve(2, name, boundary).build
     args = (lv.grid.shape, lv.valid_hw, lv.block_hw, boundary)
-    return build(*args, per_block=True) if lv.grid.slotted else build(*args)
+    if not lv.grid.slotted:
+        return build(*args)
+    return build(*args, per_block=True, grid=lv.grid)
 
 
 def _build_residual_restrict(lv: Level, filt: Filter, s: _Solve, fine: bool):
@@ -660,7 +689,6 @@ def _setup(x, filt: Filter, grid, quantize, backend, storage, boundary, fuse,
             f"solver='multigrid' requires storage='f32', got {storage!r} "
             "(residual/correction fields need full float carries)")
     check_backend(backend, allow_auto=True)
-    check_one_process(grid, "multigrid")
     if col_mode is not None and col_mode not in COL_MODE_CHOICES:
         raise ValueError(f"col_mode must be one of {COL_MODE_CHOICES}, got "
                          f"{col_mode!r}")
@@ -725,6 +753,7 @@ class _Programs:
     pre_c: list = dataclasses.field(default_factory=list)
     post_c: list = dataclasses.field(default_factory=list)
     coarsest: object = None
+    solve: _Solve | None = None   # whose level runs the programs step
 
 
 def _build_programs(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
@@ -737,7 +766,7 @@ def _build_programs(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
         # smoothing (plan_levels refused to coarsen — tiny image or
         # periodic misalignment).
         return _Programs(smooth=_build_fine_smooth(
-            fine, filt, nu_pre + nu_post, s, True))
+            fine, filt, nu_pre + nu_post, s, True), solve=s)
     return _Programs(
         pre=_build_fine_smooth(fine, filt, nu_pre, s, False),
         post=_build_fine_smooth(fine, filt, nu_post, s, True),
@@ -749,7 +778,8 @@ def _build_programs(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
                         for lv in levels[1:-1]],
         post_c=[None] + [_build_smooth_rhs(lv, filt, nu_post, s)
                          for lv in levels[1:-1]],
-        coarsest=_build_smooth_rhs(levels[-1], filt, nu_coarse, s))
+        coarsest=_build_smooth_rhs(levels[-1], filt, nu_coarse, s),
+        solve=s)
 
 
 def _programs_for(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
@@ -768,6 +798,16 @@ def _programs_for(s: _Solve, filt: Filter, nu_pre: int, nu_post: int,
         progs = cache[key] = _build_programs(s, filt, nu_pre, nu_post,
                                              nu_coarse)
     return progs
+
+
+def close_programs(cache: dict) -> None:
+    """Drop a ``programs=`` cache (:func:`mg_converge_stream`), ending the
+    level runs its programs keep (:meth:`_Solve.close`; over several
+    processes a collective, so every rank drops the same cache at the
+    same point)."""
+    for progs in cache.values():
+        progs.solve.close()
+    cache.clear()
 
 
 def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
@@ -795,15 +835,17 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
     def down(i: int, rc):
         """Level ``i``'s restricted residual onto level ``i + 1``."""
         lv, nxt = levels[i], levels[i + 1]
-        return _fit_to(rc, nxt.valid_hw, lv.grid, nxt.grid, nxt.block_hw,
-                       stacked)
+        half = (lv.block_hw[0] // 2, lv.block_hw[1] // 2)
+        return _fit_to(rc, nxt.valid_hw, lv.grid, half, nxt.grid,
+                       nxt.block_hw, stacked, s.channels)
 
     def up(i: int, ec):
         """Level ``i + 1``'s correction onto level ``i``'s grid at half
         blocks."""
         lv, nxt = levels[i], levels[i + 1]
         half = (lv.block_hw[0] // 2, lv.block_hw[1] // 2)
-        return _fit_to(ec, nxt.valid_hw, nxt.grid, lv.grid, half, stacked)
+        return _fit_to(ec, nxt.valid_hw, nxt.grid, nxt.block_hw, lv.grid,
+                       half, stacked, s.channels)
 
     def coarse_cycle(r):
         """Solve ``A e = r`` on levels 1 and below: the V's legs down and
@@ -878,12 +920,14 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
     is ``cuda_rdma``'s column transport there (``step.resolve_col_mode``)
     and ``overlap`` overlaps the fine level's sweeps
     (``step.resolve_overlap``: clamped, with a warning, off a grid of
-    slots).  A grid over several processes raises (ROADMAP item 10d).
+    slots).  On a grid over several processes every rank calls it with
+    the same field and gets the same snapshots.
     ``mg_converge_stream.readbacks`` counts the readbacks.  ``programs``:
     a dict the caller keeps for one configuration, in which the level
     programs are built at the first solve and found by the later ones
     (the serving engine's warm entry: no ``compile`` event after its
-    first stream).
+    first stream; :func:`close_programs` ends them).  Without it the
+    level runs end with the stream.
     """
     s = _setup(x, filt, grid, quantize, backend, storage, boundary, fuse,
                tile, fallback, overlap, col_mode, mg_levels, device)
@@ -896,6 +940,8 @@ def mg_converge_stream(x, filt: Filter, tol: float, max_iters: int,
                    cycles, diff, wu)
     finally:
         s.u = None  # cached programs keep ``s``: not its field
+        if programs is None:
+            s.close()
 
 
 mg_converge_stream.readbacks = 0
@@ -927,10 +973,14 @@ def mg_converge(x, filt: Filter, tol: float, max_iters: int,
     levels = s.levels
     cycles, diff, wu = 0, float("inf"), 0.0
     residuals = []
-    for cycles, diff, wu in _cycles(s, filt, tol, max_iters, nu_pre,
-                                    nu_post, nu_coarse, mg_converge):
-        residuals.append(diff)
-    out = _global(s.u, levels[0].grid, s.valid_hw)
+    try:
+        for cycles, diff, wu in _cycles(s, filt, tol, max_iters, nu_pre,
+                                        nu_post, nu_coarse, mg_converge):
+            residuals.append(diff)
+        out = _global(s.u, levels[0].grid, s.valid_hw)
+    finally:
+        s.u = None
+        s.close()
     res = MGResult(
         cycles=cycles, work_units=round(wu, 3), residual=diff,
         converged=diff < tol, levels=len(levels),

@@ -150,17 +150,23 @@ def _block_mask(valid_hw, block_hw):
     return mask
 
 
-def _per_block(op, grid_shape, boundary: str, needs_mask: bool, mask):
+def _per_block(op, grid_shape, boundary: str, needs_mask: bool, mask,
+               grid=None):
     """``op`` (a padded block → its result) over an R×C list of blocks on
     their own devices: one depth-1 per-block exchange, then each block's
-    result on its device, masked where ``needs_mask``."""
+    result on its device, masked where ``needs_mask``.  ``grid``: the
+    grid, whose blocks this rank holds its share of where it spans
+    several processes."""
     def run(blocks):
         padded = halo.exchange_per_block(blocks, 1, tuple(grid_shape),
-                                         boundary)
+                                         boundary, grid=grid)
         out = []
         for i, row in enumerate(padded):
             orow = []
             for j, p in enumerate(row):
+                if p is None:
+                    orow.append(None)
+                    continue
                 c = op(p)
                 if needs_mask:
                     c = c * mask((i, j), c)
@@ -172,7 +178,7 @@ def _per_block(op, grid_shape, boundary: str, needs_mask: bool, mask):
 
 
 def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero",
-                      per_block: bool = False):
+                      per_block: bool = False, grid=None):
     """Full-weighting restriction over the fine level's blocks:
     ``(C, bh, bw) → (C, bh/2, bw/2)`` for every block of the
     ``grid_shape`` grid.
@@ -181,7 +187,9 @@ def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero",
     weighting stencil) at the centering subsample (odd fine indices for
     zero, even for periodic), and the coarse validity mask: positions
     beyond ``coarse_extent(valid)`` are zero.  ``per_block`` (a grid of
-    slots): the blocks list in, each block on its own device.
+    slots): the blocks list in, each block on its own device; ``grid``
+    (with ``per_block``) the grid, whose rims between ranks cross by gloo
+    where it spans processes.
     """
     _check_even_block(block_hw, "restrict_fw")
     periodic = boundary == "periodic"
@@ -198,7 +206,7 @@ def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero",
     if per_block:
         return _per_block(lambda p: _correlate_subsampled(p, off, cblock),
                           (R, Cg), boundary, needs_mask,
-                          _block_mask(cvalid, cblock))
+                          _block_mask(cvalid, cblock), grid)
     mask = _masker(cvalid, cblock, (R, Cg))
 
     def restrict(state):
@@ -221,7 +229,8 @@ def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
-                           boundary: str = "zero", per_block: bool = False):
+                           boundary: str = "zero", per_block: bool = False,
+                           grid=None):
     """Bilinear prolongation over the fine level's grid: every block's
     ``(C, bh/2, bw/2)`` coarse correction (already moved onto the fine
     grid at half blocks) → ``(C, bh, bw)``.
@@ -231,7 +240,7 @@ def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
     tensor product of the 1-D ``[1/2, 1, 1/2]`` stencil, as two interleave
     passes over the depth-1 halo-padded coarse block.  Beyond-extent
     coarse reads are the boundary's ghost convention: 0 for zero, wrap for
-    periodic.  ``per_block`` as in :func:`build_restrict_fw`.
+    periodic.  ``per_block`` and ``grid`` as in :func:`build_restrict_fw`.
     """
     _check_even_block(block_hw, "prolong_bilinear")
     periodic = boundary == "periodic"
@@ -262,7 +271,7 @@ def build_prolong_bilinear(grid_shape, valid_hw, block_hw,
 
     if per_block:
         return _per_block(interpolate, (R, Cg), boundary, needs_mask,
-                          _block_mask(valid_hw, block_hw))
+                          _block_mask(valid_hw, block_hw), grid)
 
     def prolong(state):
         c = _stacked(state)

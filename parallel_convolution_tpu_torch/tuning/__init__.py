@@ -105,8 +105,29 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
     and caps the fuse at ``check_every - 1``.  ``overlap`` True / False
     overrides the plan's or the model's verdict; either way the result is
     clamped to legality at the knobs resolved.  Deterministic: two
-    processes on the same device resolve identically.
+    processes on the same device resolve identically.  On a grid over
+    several processes rank 0 resolves (and measures, where a plan says
+    so) and every rank takes its ``Resolution`` (``multihost.agreed``), so
+    the ranks never run different plans: the JAX ``resolve`` has one mesh
+    and one program.
     """
+    if getattr(grid, "spans_processes", False):
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        res = multihost.agreed(lambda: _resolve(
+            grid, filt, shape, storage, quantize, boundary, fuse, tile,
+            plans, check_every, overlap))
+    else:
+        res = _resolve(grid, filt, shape, storage, quantize, boundary, fuse,
+                       tile, plans, check_every, overlap)
+    _LAST.append(res)
+    del _LAST[:-4]  # bounded history; only the last is ever read
+    return res
+
+
+def _resolve(grid, filt, shape, storage, quantize, boundary, fuse, tile,
+             plans, check_every, overlap) -> Resolution:
+    """:func:`resolve` in one process."""
     if check_every is not None and fuse is not None:
         fuse = max(1, min(int(fuse), max(1, int(check_every) - 1)))
     hw = costmodel.hardware_for_grid(grid)
@@ -152,6 +173,4 @@ def resolve(grid, filt, shape, *, storage: str = "f32",
             tile=tuple(tile) if tile is not None else p.tile,
             source="predicted", predicted_gpx=p.predicted_gpx, key=w.key(),
             overlap=p.overlap, col_mode=p.col_mode)
-    _LAST.append(res)
-    del _LAST[:-4]  # bounded history; only the last is ever read
     return res

@@ -75,9 +75,11 @@ COL_MODE_CHOICES = COL_MODES + ("auto",)
 # the same name and value): without it ``overlap=True`` is clamped there.
 OVERLAP_INTERPRET_ENV = "PCTPU_OVERLAP_INTERPRET"
 
-# What a grid of slots over several processes does not run yet.
-PROCESSES_ITEM = ("item 10d (cuda_rdma, multigrid and volumes across "
-                  "processes; the NCCL transport, one card a process)")
+# What a grid of slots over several processes does not run yet: every
+# path runs across the processes of one host over gloo (item 10d-i); the
+# NCCL transport and cuda_rdma between hosts wait for two cards.
+PROCESSES_ITEM = ("item 10d-ii (the NCCL transport, one card a process; "
+                  "cuda_rdma between hosts)")
 
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.  None is left: every knob is ported.

@@ -11,14 +11,23 @@ allocates the file before a barrier); a resume from the last snapshot,
 which must land bit-identical on every rank; ``broadcast_scalar``; and
 the same iterate again on the loaded blocks, timed (the resident
 seconds).  A row carries this rank's kernel launches of the legs before
-the resident run (``stencil.launch_counts``).  A ``bf16`` storage runs ``ConvolutionModel.run_raw_file_sharded``
-in place of the checkpointed legs: a snapshot holds f32 or u8 blocks.
+the resident run (``stencil.launch_counts``).  A ``bf16`` storage runs
+``ConvolutionModel.run_raw_file_sharded`` in place of the checkpointed
+legs: a snapshot holds f32 or u8 blocks.  ``--col-mode`` is
+``cuda_rdma``'s column transport; ``--legs multigrid,volume`` adds a
+V-cycle (``mg_converge`` of a seeded jacobi3 field on the job's backend)
+and an fd7 volume (``volume_iterate`` of a seeded (2, 8, rows, cols)
+state), each row stamping its output's SHA-256 (after the resident
+run).
 
 Spawn the ranks from one parent (``spawn``: CUDA does not survive
 ``fork``), or run one rank a process under ``torchrun``:
 
     python -m parallel_convolution_tpu_torch.utils.multihost_job \\
         --processes 2 --device cpu --backend shifted --work /tmp/job
+    python -m parallel_convolution_tpu_torch.utils.multihost_job \\
+        --processes 2 --device cpu --backend cuda_rdma --col-mode packed \\
+        --legs multigrid,volume --work /tmp/job_r
     torchrun --nproc-per-node 2 -m parallel_convolution_tpu_torch.utils.multihost_job \\
         --work /tmp/job --rows 1920 --cols 2520 --mode rgb \\
         --iters 100 --every 50 --backend cuda
@@ -41,6 +50,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 __all__ = ["free_port", "job", "spawn"]
 
 
@@ -55,7 +66,8 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
         *, device: str | None = None, shape=(2, 2), rows: int = 37,
         cols: int = 53, mode: str = "grey", iters: int = 4, every: int = 2,
         filt: str = "blur3", backend: str = "cuda", storage: str = "f32",
-        fuse: int = 1, seed: int = 3) -> dict:
+        fuse: int = 1, seed: int = 3, col_mode: str | None = None,
+        legs=()) -> dict:
     """This rank's share of the job; returns its result row.  ``rank`` /
     ``processes`` / ``port`` None read torchrun's environment.  ``device``
     None is the card (raising without CUDA); ``"cpu"`` runs the plain
@@ -107,7 +119,8 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
            "storage": storage, "fuse": fuse, "output": str(dst)}
     if storage == "bf16":
         model = ConvolutionModel(filt, grid=grid, backend=backend,
-                                 storage=storage, fuse=fuse)
+                                 storage=storage, fuse=fuse,
+                                 col_mode=col_mode)
         _, row["first_s"] = timed(lambda: model.run_raw_file_sharded(
             str(src), str(dst), rows, cols, mode, iters))
         blocks = sharded_io.load_sharded(src, rows, cols, mode, grid,
@@ -121,7 +134,7 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
                                              dtype=dtype)
             out = checkpoint.run_checkpointed(
                 blocks, f, iters, grid, (rows, cols), ckpt_dir=ckpt,
-                every=every, backend=backend, fuse=fuse)
+                every=every, backend=backend, fuse=fuse, col_mode=col_mode)
             if rank == 0:
                 imageio.allocate_raw(dst, rows, cols, mode)
             multihost.barrier("output-allocated")
@@ -135,7 +148,7 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
         # the caller's to persist): a fresh run resumes from it.
         out2 = checkpoint.run_checkpointed(
             None, f, iters, grid, (rows, cols), ckpt_dir=ckpt, every=every,
-            backend=backend, fuse=fuse)
+            backend=backend, fuse=fuse, col_mode=col_mode)
         row["resume_bitexact"] = all(
             torch.equal(a, out2[i][j])
             for (i, j), a in mesh.local_blocks(out))
@@ -144,9 +157,36 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
     # are not counted).
     row["launches"] = stencil.launch_counts()
     _, row["resident_s"] = timed(lambda: step.iterate_prepared(
-        blocks, f, iters, grid, (rows, cols), backend=backend, fuse=fuse))
+        blocks, f, iters, grid, (rows, cols), backend=backend, fuse=fuse,
+        col_mode=col_mode))
+    rng = np.random.default_rng(seed)
+    if "multigrid" in legs:
+        from parallel_convolution_tpu_torch.solvers import multigrid
+
+        field = rng.standard_normal((1, rows, cols)).astype(np.float32)
+        (out, res), secs = timed(lambda: multigrid.mg_converge(
+            field, get_filter("jacobi3"), 1e-3, 40, grid=grid,
+            backend=backend, col_mode=col_mode))
+        row["multigrid"] = {"cycles": res.cycles, "residual": res.residual,
+                            "level_grids": res.level_grids, "seconds": secs,
+                            "sha256": _sha(out)}
+    if "volume" in legs:
+        from parallel_convolution_tpu_torch.volumes import driver
+
+        vol = rng.random((2, 8, rows, cols), dtype=np.float32)
+        out, secs = timed(lambda: driver.volume_iterate(vol, "fd7", 3,
+                                                        grid=grid))
+        row["volume"] = {"seconds": secs, "sha256": _sha(out)}
     multihost.barrier("done")
     return row
+
+
+def _sha(t) -> str:
+    """The SHA-256 of a tensor's bytes (on the host)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
 
 
 def _child(rank: int, processes: int, port: int, work: str, kw: dict,
@@ -214,12 +254,20 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="cuda")
     ap.add_argument("--storage", default="f32")
     ap.add_argument("--fuse", type=int, default=1)
+    ap.add_argument("--col-mode", default=None,
+                    choices=["packed", "strided", "auto"],
+                    help="cuda_rdma's column transport (default: the cost "
+                         "model's pick)")
+    ap.add_argument("--legs", default="",
+                    help="comma list of extra legs: multigrid, volume")
     args = ap.parse_args(argv)
     kw = dict(device=args.device,
               shape=tuple(int(v) for v in args.mesh.split("x")),
               rows=args.rows, cols=args.cols, mode=args.mode,
               iters=args.iters, every=args.every, filt=args.filter,
-              backend=args.backend, storage=args.storage, fuse=args.fuse)
+              backend=args.backend, storage=args.storage, fuse=args.fuse,
+              col_mode=args.col_mode,
+              legs=tuple(v for v in args.legs.split(",") if v))
     if args.processes:
         rows = spawn(args.processes, args.work, **kw)
     else:

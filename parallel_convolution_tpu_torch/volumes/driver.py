@@ -20,8 +20,11 @@ On a grid of slots (``mesh.Grid.devices``) the state is the R×C list of
 (F, D, bh, bw) blocks, each on its slot's device, each step a per-block
 6-face exchange (``halo3.volume_exchange_per_block``) and the form on
 every block where it lives; the converge diff is reduced on each slot and
-gathered once a chunk, still one readback.  A grid over several processes
-raises (ROADMAP item 10d).
+gathered once a chunk, still one readback.  On a grid over several
+processes each rank steps its own blocks, the faces between ranks cross
+by gloo (``multihost.swap``, as rank 2's slabs do), the diff is reduced
+over the ranks (``multihost.all_max``) and every rank gathers the result
+(``multihost.fill_blocks``).
 
 The entry points run on the card unless the grid (or ``device``) says the
 CPU.
@@ -36,8 +39,7 @@ import torch
 
 from parallel_convolution_tpu_torch.parallel import kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_one_process, join_blocks, make_grid, padded_extent,
-    split_blocks,
+    Grid, join_blocks, make_grid, padded_extent, split_blocks,
 )
 from parallel_convolution_tpu_torch.parallel.step import _slots_max_diff
 from parallel_convolution_tpu_torch.utils.config import VOLUME_RADII
@@ -75,7 +77,6 @@ def prepare_volume(state, grid: Grid, boundary: str = "zero"):
     if x.dim() != 4:
         raise ValueError(
             f"volume state must be (F, D, H, W), got {tuple(x.shape)}")
-    check_one_process(grid, "volumes")
     valid_hw, (bh, bw), (Hp, Wp) = _geometry(x.shape, grid.shape, boundary)
     x = x.to(device=x.device if grid.slotted else grid.device,
              dtype=torch.float32)
@@ -86,20 +87,30 @@ def prepare_volume(state, grid: Grid, boundary: str = "zero"):
     R, C = grid.shape
     if grid.slotted:
         blocks = split_blocks(x.reshape(F * D, Hp, Wp), grid)
-        return [[b.view(F, D, bh, bw) for b in row] for row in blocks], \
+        return [[None if b is None else b.view(F, D, bh, bw) for b in row]
+                for row in blocks], \
             valid_hw
     x = x.reshape(F, D, R, bh, C, bw).permute(2, 4, 0, 1, 3, 5)
     return x.reshape(R * C, F, D, bh, bw).contiguous(), valid_hw
 
 
-def unstack_volume(xs, grid_shape, valid_hw, device=None) -> torch.Tensor:
+def unstack_volume(xs, grid_shape, valid_hw, device=None,
+                   grid: Grid | None = None) -> torch.Tensor:
     """The stacked grid (R·C, F, D, bh, bw), or a grid of slots' R×C list
     of blocks (gathered on ``device``, default the first block's), as the
-    global (F, D, H, W) volume at its valid extent."""
+    global (F, D, H, W) volume at its valid extent.  A ``grid`` over
+    several processes gathers every rank's blocks on every rank."""
     if not torch.is_tensor(xs):
-        F, D, bh, bw = xs[0][0].shape
-        full = join_blocks([[b.reshape(F * D, bh, bw) for b in row]
-                            for row in xs], device)
+        from parallel_convolution_tpu_torch.parallel.mesh import first_block
+
+        F, D, bh, bw = first_block(xs).shape
+        xs = [[None if b is None else b.reshape(F * D, bh, bw) for b in row]
+              for row in xs]
+        if grid is not None and grid.spans_processes:
+            from parallel_convolution_tpu_torch.parallel import multihost
+
+            xs = multihost.fill_blocks(xs, grid.owners)
+        full = join_blocks(xs, device)
         full = full.view(F, D, *full.shape[1:])
         return full[:, :, :valid_hw[0], :valid_hw[1]].contiguous()
     R, C = grid_shape
@@ -110,13 +121,14 @@ def unstack_volume(xs, grid_shape, valid_hw, device=None) -> torch.Tensor:
 
 
 def _resolve_step(name: str, boundary: str, grid_shape, depth, valid_hw,
-                  block_hw, fuse: int, per_block: bool = False):
+                  block_hw, fuse: int, per_block: bool = False,
+                  grid: Grid | None = None):
     """One chunk step through the registry: the ONLY dispatch
-    (``per_block``: a grid of slots' list of blocks)."""
+    (``per_block``: a grid of slots' list of blocks, ``grid`` that grid)."""
     form = kernel_forms.resolve(3, name, boundary)
     if per_block:
         return form.build(grid_shape, depth, valid_hw, block_hw, fuse,
-                          boundary, per_block=True)
+                          boundary, per_block=True, grid=grid)
     return form.build(grid_shape, depth, valid_hw, block_hw, fuse, boundary)
 
 
@@ -133,16 +145,16 @@ def _check_fuse(name: str, block_hw, fuse: int) -> None:
 @lru_cache(maxsize=64)
 def _build_volume_iterate(grid_shape, name: str, iters: int, depth: int,
                           valid_hw, block_hw, fuse: int, boundary: str,
-                          per_block: bool = False):
+                          per_block: bool = False, grid: Grid | None = None):
     """The fixed-count runner of one configuration: stacked → stacked (or
     blocks → blocks with ``per_block``)."""
     fuse = max(1, min(int(fuse), iters or 1))
     _check_fuse(name, block_hw, fuse)
     chunk = _resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                          block_hw, fuse, per_block)
+                          block_hw, fuse, per_block, grid)
     n_chunks, rem = divmod(int(iters), fuse)
     tail = (_resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                          block_hw, rem, per_block) if rem else None)
+                          block_hw, rem, per_block, grid) if rem else None)
 
     def run(xs):
         for _ in range(n_chunks):
@@ -157,15 +169,16 @@ def _build_volume_iterate(grid_shape, name: str, iters: int, depth: int,
 @lru_cache(maxsize=64)
 def _build_volume_converge_chunk(grid_shape, name: str, n: int, depth: int,
                                  valid_hw, block_hw, fuse: int,
-                                 boundary: str, per_block: bool = False):
+                                 boundary: str, per_block: bool = False,
+                                 grid: Grid | None = None):
     """ONE convergence chunk: ``n`` iterations and the (prev, cur) max-abs
     diff as a 0-d f32 tensor on the device (rank 2's chunk math)."""
     fuse = max(1, min(int(fuse), max(1, n - 1)))
     _check_fuse(name, block_hw, fuse)
     step = _resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                         block_hw, 1, per_block)
+                         block_hw, 1, per_block, grid)
     fused = (_resolve_step(name, boundary, grid_shape, depth, valid_hw,
-                           block_hw, fuse, per_block)
+                           block_hw, fuse, per_block, grid)
              if fuse > 1 and n > 1 else None)
 
     def chunk(xs):
@@ -179,7 +192,12 @@ def _build_volume_converge_chunk(grid_shape, name: str, n: int, depth: int,
             for _ in range((n - 1) % fuse):
                 prev = step(prev)
         cur = step(prev)
-        return cur, _slots_max_diff(cur, prev)
+        d = _slots_max_diff(cur, prev)
+        if grid is not None and grid.spans_processes:
+            from parallel_convolution_tpu_torch.parallel import multihost
+
+            d = multihost.all_max(d)
+        return cur, d
 
     return chunk
 
@@ -191,7 +209,7 @@ def converge_chunk_fn(grid: Grid, name: str, n: int, depth: int, valid_hw,
     grid of slots the state is its list of blocks)."""
     return _build_volume_converge_chunk(
         tuple(grid.shape), str(name), int(n), int(depth), tuple(valid_hw),
-        tuple(block_hw), int(fuse), str(boundary), grid.slotted)
+        tuple(block_hw), int(fuse), str(boundary), grid.slotted, grid)
 
 
 def volume_iterate(state, name: str, iters: int, *, grid: Grid | None = None,
@@ -209,13 +227,15 @@ def volume_iterate(state, name: str, iters: int, *, grid: Grid | None = None,
     shape = _block_shape(xs)
     run = _build_volume_iterate(
         tuple(grid.shape), str(name), int(iters), shape[1], valid_hw,
-        shape[2:], int(fuse), str(boundary), grid.slotted)
-    return unstack_volume(run(xs), grid.shape, valid_hw, grid.device)
+        shape[2:], int(fuse), str(boundary), grid.slotted, grid)
+    return unstack_volume(run(xs), grid.shape, valid_hw, grid.device, grid)
 
 
 def _block_shape(xs) -> tuple[int, ...]:
     """(F, D, bh, bw) of a state's blocks."""
-    b = xs[0] if torch.is_tensor(xs) else xs[0][0]
+    from parallel_convolution_tpu_torch.parallel.mesh import first_block
+
+    b = xs[0] if torch.is_tensor(xs) else first_block(xs)
     return tuple(int(v) for v in b.shape)
 
 
@@ -257,8 +277,8 @@ def volume_converge_stream(state, name: str, *, tol: float, max_iters: int,
     for xs, done, diff, valid_hw in _converge_chunks(
             state, name, tol, max_iters, check_every, grid, boundary, fuse,
             volume_converge_stream):
-        yield (unstack_volume(xs, grid.shape, valid_hw, "cpu").cpu().numpy(),
-               done, diff)
+        yield (unstack_volume(xs, grid.shape, valid_hw, "cpu",
+                              grid).cpu().numpy(), done, diff)
 
 
 volume_converge_stream.readbacks = 0
@@ -277,7 +297,8 @@ def volume_converge(state, name: str, *, tol: float, max_iters: int,
                                 grid, boundary, fuse, volume_converge):
         pass
     xs, done, diff, valid_hw = row
-    return unstack_volume(xs, grid.shape, valid_hw, grid.device), done, diff
+    return (unstack_volume(xs, grid.shape, valid_hw, grid.device, grid),
+            done, diff)
 
 
 volume_converge.readbacks = 0

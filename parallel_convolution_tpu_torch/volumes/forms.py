@@ -215,7 +215,8 @@ def _valid_mask3(valid_hw, block_hw, grid_shape, margin: int, device):
 
 
 def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
-                      fuse: int, boundary: str, per_block: bool = False):
+                      fuse: int, boundary: str, per_block: bool = False,
+                      grid=None):
     """The registered build: one chunk step of form ``name``.
 
     ``step`` maps the stacked (R·C, F, depth, bh, bw) grid to the same
@@ -229,7 +230,9 @@ def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
     R×C list of (F, depth, bh, bw) blocks to the next, each stepped on its
     slot's device after the per-block exchange
     (``halo3.volume_exchange_per_block``), the same ops on each, so the
-    same values.
+    same values; ``grid`` (with ``per_block``) is the grid, whose faces
+    between ranks cross by gloo where it spans several processes (each
+    rank holding its share of the blocks).
     """
     r = form_radius(name)
     fuse = max(1, int(fuse))
@@ -285,9 +288,9 @@ def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
 
     def step_blocks(blocks):
         padded = halo3.volume_exchange_per_block(blocks, d, (R, Cg),
-                                                 boundary)
+                                                 boundary, grid=grid)
         # Each block as a stack of one: the forms act on (N, F, ...).
-        return [[levels(p[None], block_mask((i, j)))[0]
+        return [[None if p is None else levels(p[None], block_mask((i, j)))[0]
                  for j, p in enumerate(row)] for i, row in enumerate(padded)]
 
     return step_blocks

@@ -104,7 +104,7 @@ def _pad_depth(b: torch.Tensor, d: int, periodic: bool) -> torch.Tensor:
 
 
 def volume_exchange_per_block(blocks, r: int, grid_shape,
-                              boundary: str = "zero"):
+                              boundary: str = "zero", grid=None):
     """:func:`volume_halo_exchange` on a grid of slots: ``blocks`` is the
     R×C list of (F, D, h, w) blocks, each on its slot's device; returns the
     R×C list of (F, D+2r, h+2r, w+2r) padded blocks on the same devices,
@@ -112,8 +112,15 @@ def volume_exchange_per_block(blocks, r: int, grid_shape,
     its D faces locally, then (H, W) is exchanged in the two phases of
     ``halo.exchange_per_block`` with (F, D+2r) folded into the channel
     axis, so the row slabs carry the fresh D ghosts and the corners
-    arrive in two hops."""
-    b0 = blocks[0][0]
+    arrive in two hops.  On a ``grid`` over several processes ``blocks``
+    is this rank's share (``None`` elsewhere) and a face whose neighbour
+    lives on another rank crosses by ``multihost.swap``, as the planar
+    exchange's slabs do."""
+    from parallel_convolution_tpu_torch.parallel.mesh import first_block
+
+    b0 = first_block(blocks, None)
+    if b0 is None:
+        return [list(row) for row in blocks]
     if b0.dim() != 4:
         raise ValueError(f"volume block must be (F, D, h, w), got shape "
                          f"{tuple(b0.shape)}")
@@ -122,8 +129,11 @@ def volume_exchange_per_block(blocks, r: int, grid_shape,
     _check_volume(boundary, D, r)
     d = halo._check(boundary, r, (h, w))
     periodic = boundary == "periodic"
-    folded = [[_pad_depth(b, d, periodic).view(F * (D + 2 * d), h, w)
+    folded = [[None if b is None else
+               _pad_depth(b, d, periodic).view(F * (D + 2 * d), h, w)
                for b in row] for row in blocks]
-    padded = halo.exchange_per_block(folded, d, tuple(grid_shape), boundary)
-    return [[p.view(F, D + 2 * d, h + 2 * d, w + 2 * d) for p in row]
+    padded = halo.exchange_per_block(folded, d, tuple(grid_shape), boundary,
+                                     grid=grid)
+    return [[None if p is None else
+             p.view(F, D + 2 * d, h + 2 * d, w + 2 * d) for p in row]
             for row in padded]

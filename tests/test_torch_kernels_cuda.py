@@ -1749,3 +1749,223 @@ def test_soak_rows_all_ok_on_the_card(cuda_device, capsys, argv):
     assert summary["failures"] == 0 and summary["device"].startswith("cuda")
     assert len(rows) == 8 and all(r["ok"] for r in rows)
     assert sum(stencil.launch_counts().values()) > 0
+
+
+# ------------------------------------- a grid over processes (item 10d-i)
+
+# K3 (grey u8 fuse 4: 32x40 blocks fit one CUDA block's shared memory) and
+# K4 (RGB bf16 fuse 8: 300x320 blocks do not), each transport, overlap off
+# and on, on 2x2 slots over two ranks sharing cuda:0.
+CROSS_CASES = [("k3", 64, 80, "grey", "u8", 4), ("k4", 600, 640, "rgb",
+                                                 "bf16", 8)]
+CROSS_ITERS = 9
+
+
+def _mg_field():
+    return np.random.default_rng(2).standard_normal((1, 96, 80)).astype(
+        np.float32)
+
+
+class _Raw:
+    """A card address as a tensor's memory (``torch.as_tensor`` of it), to
+    read a neighbour's mapped buffer."""
+
+    def __init__(self, ptr: int, n: int, typestr: str):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": typestr,
+                                         "data": (int(ptr), False),
+                                         "version": 3}
+
+
+def _cross_checks(rank: int, port: int) -> dict:
+    import time
+
+    from parallel_convolution_tpu_torch.parallel import multihost, step
+
+    multihost.initialize(f"localhost:{port}", num_processes=2,
+                         process_id=rank)
+    dev = torch.device("cuda", 0)
+    row = {}
+    # An IPC map of a sub-allocated tensor: the slice starts 12345
+    # elements into its allocation.
+    big = torch.arange(1 << 20, dtype=torch.int32, device=dev) + rank * 7
+    part = big[12345:]
+    handle, offset = rdma.ipc_handle(part)
+    theirs = multihost.gather_object((handle, offset))[1 - rank]
+    base = rdma._ipc_map(theirs[0], dev)
+    seen = torch.as_tensor(_Raw(base + theirs[1], part.numel(), "<i4"),
+                           device=dev)
+    want = torch.arange(12345, 1 << 20, dtype=torch.int32) + (1 - rank) * 7
+    row["ipc"] = (offset, theirs[1], torch.equal(seen.cpu(), want))
+    del seen
+    torch.cuda.synchronize(dev)
+    multihost.barrier("read")
+    rdma._ipc_unmap(theirs[0], dev)
+    multihost.barrier("unmapped")
+    grid = mesh.make_grid((2, 2), devices="all")
+    row["owners"] = grid.owners
+    for name, h, w, mode, storage, fuse in CROSS_CASES:
+        x = imageio.interleaved_to_planar(imageio.generate_test_image(
+            h, w, mode, seed=11)).astype(np.float32)
+        for cm in ("strided", "packed"):
+            for ov in (False, True):
+                stencil.reset_launch_counts()
+                out = step.sharded_iterate(
+                    x, get_filter("blur3"), CROSS_ITERS, grid=grid,
+                    backend="cuda_rdma", storage=storage, fuse=fuse,
+                    col_mode=cm, overlap=ov)
+                row[name, cm, ov] = (out.cpu().numpy(),
+                                     stencil.launch_counts())
+    row["maps_after_iterate"] = len(rdma._IPC_MAPS)
+    # The V-cycle's level runs end with the solve; a programs cache keeps
+    # them (and their maps) until close_programs.
+    from parallel_convolution_tpu_torch.solvers import multigrid
+
+    jacobi3 = get_filter("jacobi3")
+    out, res = multigrid.mg_converge(_mg_field(), jacobi3, 1e-3, 30,
+                                     grid=grid, backend="cuda_rdma")
+    row["mg"] = (out.cpu().numpy(), res.cycles)
+    row["maps_after_mg"] = len(rdma._IPC_MAPS)
+    programs = {}
+    for _ in range(2):
+        last = list(multigrid.mg_converge_stream(
+            _mg_field(), jacobi3, 1e-3, 30, grid=grid, backend="cuda_rdma",
+            programs=programs))[-1]
+    row["mg_stream"] = last[0]
+    row["maps_kept"] = len(rdma._IPC_MAPS)
+    multigrid.close_programs(programs)
+    row["maps_after_close"] = len(rdma._IPC_MAPS)
+    # The skew check: rank 1's host sleeps 50 ms before each of its first
+    # chunks, so rank 0's launches run ahead and wait on the counters.
+    real = rdma._slots_step
+    calls = [0]
+
+    def late(*a, **kw):
+        calls[0] += 1
+        if rank == 1 and calls[0] <= 4:
+            time.sleep(0.05)
+        return real(*a, **kw)
+
+    rdma._slots_step = late
+    x = imageio.interleaved_to_planar(imageio.generate_test_image(
+        64, 80, "grey", seed=11)).astype(np.float32)
+    out = step.sharded_iterate(x, get_filter("blur3"), CROSS_ITERS,
+                               grid=grid, backend="cuda_rdma", storage="u8",
+                               fuse=2, col_mode="packed")
+    rdma._slots_step = real
+    row["skew"] = out.cpu().numpy()
+    multihost.barrier("done")
+    return row
+
+
+def _cross_worker(rank: int, port: int, results) -> None:
+    import torch.distributed as dist
+
+    try:
+        results[rank] = _cross_checks(rank, port)
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        results[rank] = {"error": f"{type(e).__name__}: {e}"}
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def cross_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import torch.multiprocessing as mp
+
+    from parallel_convolution_tpu_torch.ops import _build
+    from parallel_convolution_tpu_torch.utils import multihost_job
+
+    _build.build_all()  # never two processes building at once
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        results = manager.dict()
+        port = multihost_job.free_port()
+        procs = [ctx.Process(target=_cross_worker,
+                             args=(r, port, results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        got = {r: dict(results.get(r, {"error": "no result"}))
+               for r in range(2)}
+        assert [p.exitcode for p in procs] == [0, 0], got
+    return got
+
+
+@pytest.mark.cuda
+def test_ipc_map_of_a_sub_allocated_tensor(cross_ranks):
+    for r in (0, 1):
+        mine, theirs, equal = cross_ranks[r]["ipc"]
+        # The caching allocator sub-allocates: the offset is not 0.
+        assert mine == theirs == 12345 * 4 or (mine % 4 == 0 and mine > 0)
+        assert equal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("col_mode", ["strided", "packed"])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_rdma_slots_across_two_ranks_are_the_plain_version(
+        cross_ranks, case, col_mode, overlap, monkeypatch):
+    from parallel_convolution_tpu_torch.parallel import step
+
+    name, h, w, mode, storage, fuse = case
+    x = imageio.interleaved_to_planar(imageio.generate_test_image(
+        h, w, mode, seed=11)).astype(np.float32)
+    monkeypatch.setenv(step.OVERLAP_INTERPRET_ENV, "1")
+    plain = step.sharded_iterate(
+        x, get_filter("blur3"), CROSS_ITERS,
+        grid=mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu"),
+        backend="cuda_rdma", storage=storage, fuse=fuse, col_mode=col_mode,
+        overlap=overlap).numpy()
+    kernel = ("rdma_block" if name == "k3" else "rdma_tiled") + (
+        "_region" if overlap else "_slot")
+    chunks = -(-CROSS_ITERS // fuse)
+    regions = 5 if overlap else 1
+    for r in (0, 1):
+        out, counts = cross_ranks[r][name, col_mode, overlap]
+        np.testing.assert_array_equal(out, plain)  # quantize: bit for bit
+        # Each rank launches its own two slots, every chunk.
+        assert counts[kernel] == 2 * chunks * regions
+        assert (counts["rdma_pack"] > 0) == (col_mode == "packed")
+
+
+@pytest.mark.cuda
+def test_counter_barrier_under_skew(cross_ranks):
+    from parallel_convolution_tpu_torch.parallel import step
+
+    x = imageio.interleaved_to_planar(imageio.generate_test_image(
+        64, 80, "grey", seed=11)).astype(np.float32)
+    want = imageio.interleaved_to_planar(oracle.run_serial_u8(
+        imageio.generate_test_image(64, 80, "grey", seed=11),
+        get_filter("blur3"), CROSS_ITERS)).astype(np.float32)
+    for r in (0, 1):
+        np.testing.assert_array_equal(cross_ranks[r]["skew"], want)
+
+
+@pytest.mark.cuda
+def test_multigrid_across_two_ranks_closes_its_runs(cross_ranks):
+    from parallel_convolution_tpu_torch.solvers import multigrid
+
+    # jacobi3's taps and the transfers' weights are dyadic: bit for bit.
+    want, res = multigrid.mg_converge(
+        _mg_field(), get_filter("jacobi3"), 1e-3, 30,
+        grid=mesh.make_grid((2, 2), devices=["cuda:0"] * 4),
+        backend="cuda_rdma")
+    want = want.cpu().numpy()
+    for r in (0, 1):
+        row = cross_ranks[r]
+        out, cycles = row["mg"]
+        assert cycles == res.cycles
+        np.testing.assert_array_equal(out, want)
+        np.testing.assert_array_equal(row["mg_stream"], want)
+        # No neighbour's buffer stays mapped once a run is closed.
+        assert row["maps_after_iterate"] == row["maps_after_mg"] == 0
+        assert row["maps_kept"] > 0 and row["maps_after_close"] == 0

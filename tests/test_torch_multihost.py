@@ -8,8 +8,9 @@ convergence with a NaN planted on rank 1's block, which stops both ranks
 after the same chunk; two ranks saving one snapshot at once, each under
 temporary names of its own; the JAX package's two-process job
 (``tests/_multihost_worker.py``) through ``utils/multihost_job.py``, the
-oracle's bytes and a bit-identical resume; and what runs in one process
-only refused naming ROADMAP item 10d.
+oracle's bytes and a bit-identical resume; and the paths that ran in one
+process only until ROADMAP item 10d-i (``cuda_rdma``, the V-cycle,
+volumes, ``auto``, ``fallback``) each equal to its one-process run.
 
 The ranks run once a module (``two_ranks``, one spawn of two processes)
 and the tests read their rows; the job spawns its own two.
@@ -24,12 +25,36 @@ from parallel_convolution_tpu_torch.ops.filters import get_filter
 from parallel_convolution_tpu_torch.utils import imageio, multihost_job
 
 ITERATE_BACKENDS = ("shifted", "xla_conv", "separable", "cuda", "cuda_sep")
+# The paths item 10d-i brought across processes.
 REFUSED = ("cuda_rdma", "multigrid", "volumes", "auto", "fallback")
 IMG_SEED, ITERS = 5, 3
 
 
 def _img():
     return imageio.generate_test_image(13, 19, "rgb", seed=IMG_SEED)
+
+
+def _ported_paths() -> dict:
+    """What ran in one process only until item 10d-i, each a call on a
+    grid returning a field."""
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.solvers import multigrid
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    x = imageio.interleaved_to_planar(_img()).astype(np.float32)
+    blur3, jacobi3 = get_filter("blur3"), get_filter("jacobi3")
+    vol = np.random.default_rng(4).random((2, 4, 8, 8), dtype=np.float32)
+    return {
+        "cuda_rdma": lambda g: step.sharded_iterate(
+            x, blur3, 2, grid=g, backend="cuda_rdma"),
+        "multigrid": lambda g: multigrid.mg_converge(x, jacobi3, 1e-3, 10,
+                                                     grid=g)[0],
+        "volumes": lambda g: driver.volume_iterate(vol, "fd7", 1, grid=g),
+        "auto": lambda g: step.sharded_iterate(x, blur3, 2, grid=g,
+                                               backend="auto"),
+        "fallback": lambda g: step.sharded_iterate(x, blur3, 2, grid=g,
+                                                   fallback=True),
+    }
 
 
 def _checks(rank: int, port: int, work: str):
@@ -39,9 +64,7 @@ def _checks(rank: int, port: int, work: str):
     import torch
 
     from parallel_convolution_tpu_torch.parallel import mesh, multihost, step
-    from parallel_convolution_tpu_torch.solvers import multigrid
     from parallel_convolution_tpu_torch.utils import checkpoint
-    from parallel_convolution_tpu_torch.volumes import driver
 
     from parallel_convolution_tpu_torch.obs import events, metrics
 
@@ -67,25 +90,8 @@ def _checks(rank: int, port: int, work: str):
             out = step.sharded_iterate(x, blur3, ITERS, grid=grid,
                                        backend=backend, fuse=fuse)
             row["iterate"][backend, fuse] = out.numpy()
-    refusals = {
-        "cuda_rdma": lambda: step.sharded_iterate(
-            x, blur3, 2, grid=grid, backend="cuda_rdma"),
-        "multigrid": lambda: multigrid.mg_converge(x, jacobi3, 1e-3, 10,
-                                                   grid=grid),
-        "volumes": lambda: driver.volume_iterate(
-            np.zeros((2, 4, 8, 8), np.float32), "fd7", 1, grid=grid),
-        "auto": lambda: step.sharded_iterate(x, blur3, 2, grid=grid,
-                                             backend="auto"),
-        "fallback": lambda: step.sharded_iterate(x, blur3, 2, grid=grid,
-                                                 fallback=True),
-    }
-    row["refused"] = {}
-    for what, call in refusals.items():
-        try:
-            call()
-            row["refused"][what] = ""
-        except NotImplementedError as e:
-            row["refused"][what] = str(e)
+    row["refused"] = {what: call(grid).numpy()
+                      for what, call in _ported_paths().items()}
     # A NaN in rank 1's half (grid rows split H: rank 1 holds block row 1).
     field = np.random.default_rng(2).standard_normal((1, 16, 12)).astype(
         np.float32)
@@ -196,10 +202,16 @@ def test_iterate_across_processes_is_the_oracle(two_ranks, backend, fuse):
 
 @pytest.mark.parametrize("what", REFUSED)
 def test_one_process_paths_name_item_10d(two_ranks, what):
+    # Refused naming item 10d until it was ported (10d-i): each path now
+    # gives both ranks its one-process run's bits (the V-cycle's jacobi3
+    # and the blur3 / fd7 paths agree exactly on the plain versions).
+    from parallel_convolution_tpu_torch.parallel import mesh
+
     got, _ = two_ranks
+    want = _ported_paths()[what](
+        mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")).numpy()
     for rank in (0, 1):
-        msg = got[rank]["refused"][what]
-        assert "item 10d" in msg and "not ported yet" in msg
+        np.testing.assert_array_equal(got[rank]["refused"][what], want)
 
 
 def test_nan_on_rank_1_stops_every_rank_after_the_same_chunk(two_ranks):
@@ -281,6 +293,48 @@ def test_multihost_worker_job_is_the_oracles_bytes(tmp_path):
         assert row["rank"] == rank and row["owners"] == [0, 0, 1, 1]
         assert row["resume_bitexact"] is True and row["broadcast"] == 7.0
         assert row["process_count"] == 2
+
+
+@pytest.mark.parametrize("col_mode", ["strided", "packed"])
+def test_multihost_job_runs_cuda_rdma_multigrid_and_volume(tmp_path,
+                                                           col_mode):
+    # The job's cuda_rdma leg over two ranks (its plain version on the
+    # CPU), and its V-cycle and volume legs: the oracle's bytes, and the
+    # legs' outputs the one-process runs' bits on 2x2 slots.
+    import hashlib
+
+    import torch
+
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.solvers import multigrid
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    rows = multihost_job.spawn(2, tmp_path, timeout=300, device="cpu",
+                               backend="cuda_rdma", fuse=2,
+                               col_mode=col_mode,
+                               legs=("multigrid", "volume"))
+    want = oracle.run_serial_u8(
+        imageio.generate_test_image(37, 53, "grey", seed=3),
+        get_filter("blur3"), 4)
+    np.testing.assert_array_equal(
+        imageio.read_raw(tmp_path / "out.raw", 37, 53, "grey"), want)
+    slots = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    rng = np.random.default_rng(3)
+    field = rng.standard_normal((1, 37, 53)).astype(np.float32)
+    mg, _ = multigrid.mg_converge(field, get_filter("jacobi3"), 1e-3, 40,
+                                  grid=slots, backend="cuda_rdma",
+                                  col_mode=col_mode)
+    vol = driver.volume_iterate(rng.random((2, 8, 37, 53), dtype=np.float32),
+                                "fd7", 3, grid=slots)
+
+    def sha(t):
+        return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+
+    for row in rows:
+        assert row["resume_bitexact"] is True
+        assert row["multigrid"]["sha256"] == sha(mg)
+        assert row["volume"]["sha256"] == sha(vol)
+        assert isinstance(mg, torch.Tensor)
 
 
 @pytest.mark.parametrize("n", [None, 1])

@@ -1,0 +1,409 @@
+"""The paths of a grid over the processes of one host (ROADMAP item 10d-i)
+in two gloo processes on the CPU: ``cuda_rdma`` (its plain version per
+rank after a gloo exchange of the rims: strided and packed, fuse 1 and 2,
+the overlapped schedule with its missed-wait detector), ``auto``,
+``fallback=True``, ``reshard_prepared`` / ``mesh.reblock`` / ``grid_like``,
+the V-cycle, volumes and the warm engine, each against the oracle, the
+one-process port and the JAX package on the same seeded input; and what
+item 10d-ii holds (an NCCL group, ``cuda_rdma`` between hosts) refused
+naming it.
+
+The ranks run once a module (``ranks``: one spawn of two processes) and
+the tests read their rows.  Against the port's own one-process runs every
+result is compared bit for bit (u8 / quantize runs, and float runs whose
+plain versions round alike on every rank); against JAX the V-cycle is
+held to ``multigrid.float_tolerance`` (``ops/stencil.float_tolerance``
+over its stencil applications) and the volume to ``atol=1e-5`` (within
+the 2e-5 of ``test_torch_volumes.py``: XLA on the CPU may contract a
+multiply and an add the port rounds twice).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch.multiprocessing as mp
+
+from parallel_convolution_tpu_torch.ops import oracle
+from parallel_convolution_tpu_torch.ops.filters import get_filter
+from parallel_convolution_tpu_torch.utils import imageio, multihost_job
+
+IMG_SEED, ITERS = 5, 3
+RDMA_CASES = [(fuse, col_mode, overlap) for fuse in (1, 2)
+              for col_mode in ("strided", "packed")
+              for overlap in (False, True)]
+VOLUME_SHAPE = (2, 4, 8, 8)
+RESHARD = ((1, 2), (4, 2))
+
+
+def _img():
+    return imageio.generate_test_image(13, 19, "rgb", seed=IMG_SEED)
+
+
+def _planar():
+    return imageio.interleaved_to_planar(_img()).astype(np.float32)
+
+
+def _field():
+    return np.random.default_rng(2).standard_normal((1, 16, 12)).astype(
+        np.float32)
+
+
+def _volume():
+    return np.random.default_rng(4).random(VOLUME_SHAPE, dtype=np.float32)
+
+
+def _rank_checks(rank: int, port: int, work: str) -> dict:
+    """Everything one rank does in the shared spawn; returns its row."""
+    import warnings
+
+    import torch
+
+    from parallel_convolution_tpu_torch.parallel import mesh, multihost, step
+    from parallel_convolution_tpu_torch.resilience import faults
+    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
+    from parallel_convolution_tpu_torch.solvers import multigrid
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    os.environ[step.OVERLAP_INTERPRET_ENV] = "1"
+    multihost.initialize(f"localhost:{port}", num_processes=2,
+                         process_id=rank)
+    grid = mesh.make_grid((2, 2), devices="all", device="cpu")
+    x = _planar()
+    blur3, jacobi3 = get_filter("blur3"), get_filter("jacobi3")
+    row = {}
+    row["rdma"] = {
+        (fuse, cm, ov): step.sharded_iterate(
+            x, blur3, ITERS, grid=grid, backend="cuda_rdma", fuse=fuse,
+            col_mode=cm, overlap=ov).numpy()
+        for fuse, cm, ov in RDMA_CASES}
+    # A float run: the plain K3 / K4 against the one-process port.
+    row["rdma_float"] = step.sharded_iterate(
+        _field(), jacobi3, 4, grid=grid, backend="cuda_rdma", fuse=2,
+        quantize=False, col_mode="packed").numpy()
+    row["rdma_converge"] = step.sharded_converge(
+        _field(), jacobi3, 1e-2, 40, check_every=4, grid=grid,
+        backend="cuda_rdma", fuse=2)[0].numpy()
+    # auto: rank 0 resolves, every rank takes its Resolution.
+    out = step.sharded_iterate(x, blur3, ITERS, grid=grid, backend="auto")
+    row["auto"] = (out.numpy(), tuning.last_resolution())
+    # fallback: a fault planted on rank 1's first probe (cuda_rdma) moves
+    # both ranks to the rung rank 1 reached.
+    if rank == 1:
+        faults.install_plan("backend_compile:1")
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+
+    model = ConvolutionModel("blur3", grid=grid, backend="cuda_rdma",
+                             fallback=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = model.run_planar(x, ITERS)
+    faults.install_plan(None)
+    row["fallback"] = (out.numpy(), model.effective_backend,
+                       [str(w.message) for w in caught
+                        if "degraded" in str(w.message)])
+    # Reshard: 2x2 over 2 ranks onto 1x2 and 4x2 over the same ranks.
+    blocks, valid_hw, _ = step._prepare(torch.from_numpy(x), grid, "f32")
+    row["reshard"] = {}
+    for shape in RESHARD:
+        g2 = mesh.grid_like(grid, shape)
+        moved = step.reshard_prepared(blocks, valid_hw, g2, src_grid=grid)
+        full = multihost.fill_blocks(moved, g2.owners)
+        row["reshard"][shape] = (g2.owners, [[b is None for b in r]
+                                             for r in moved],
+                                 mesh.join_blocks(full).numpy())
+    # The V-cycle and volumes.
+    out, res = multigrid.mg_converge(_field(), jacobi3, 1e-3, 30, grid=grid,
+                                     backend="cuda_rdma")
+    row["multigrid"] = (out.numpy(), res.cycles, res.level_grids,
+                        res.residuals)
+    out, res = multigrid.mg_converge(_field(), jacobi3, 1e-3, 30, grid=grid)
+    row["multigrid_shifted"] = out.numpy()
+    row["volume"] = driver.volume_iterate(_volume(), "fd7", 3, grid=grid,
+                                          fuse=2).numpy()
+    row["volume_converge"] = driver.volume_converge(
+        _volume(), "fd7", tol=1e-9, max_iters=6, check_every=3,
+        grid=grid)[0].numpy()
+    # The engine: every rank the same calls in the same order.
+    eng = WarmEngine(grid, fallback=False)
+    key = eng.key_for((3, 13, 19), filter_name="blur3", iters=ITERS,
+                      backend="cuda_rdma", storage="u8", fuse=2)
+    batch = np.stack([x, x[::-1].copy()])
+    out, info = eng.run_batch(key, batch)
+    compiles = eng.stats["compiles"]
+    reshaped = eng.reshape("1x2")
+    key2 = eng.key_for((3, 13, 19), filter_name="blur3", iters=ITERS,
+                       backend="cuda_rdma", storage="u8", fuse=2)
+    out2, _ = eng.run_batch(key2, batch)
+    row["engine"] = (out, info["effective_backend"], out2, reshaped,
+                     eng.stats["compiles"] - compiles,
+                     eng.grid.owners)
+    ckey = eng.key_for((1, 16, 12), filter_name="jacobi3", iters=4,
+                       backend="cuda_rdma", quantize=False, fuse=2)
+    row["engine_converge"] = [
+        (img, done, diff) for img, done, diff, _ in eng.run_converge(
+            ckey, _field(), tol=1e-2, max_iters=40, check_every=4)][-1]
+    # What item 10d-ii holds: cuda_rdma between hosts (the ranks report
+    # different hosts), an NCCL group.
+    real = multihost.hostname
+    multihost.hostname = lambda: f"host{rank}"
+    try:
+        step.sharded_iterate(x, blur3, 1, grid=grid, backend="cuda_rdma")
+        row["other_host"] = ""
+    except NotImplementedError as e:
+        row["other_host"] = str(e)
+    multihost.hostname = real
+    real_backend = multihost.backend
+    multihost.backend = lambda: "nccl"
+    try:
+        mesh.make_grid((2, 2), devices="all", device="cpu")
+        row["nccl"] = ""
+    except NotImplementedError as e:
+        row["nccl"] = str(e)
+    import contextlib
+    import io
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+
+    src = os.path.join(work, f"in{rank}.raw")
+    imageio.write_raw(src, _img())
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(["run", src, "13", "19", "1", "rgb", "-o",
+                       os.path.join(work, f"out{rank}.raw"), "--backend",
+                       "cuda_rdma", "--device", "all", "--mesh", "2x2"])
+    row["nccl_cli"] = (rc, err.getvalue())
+    multihost.backend = real_backend
+    multihost.barrier("done")
+    return row
+
+
+def _worker(rank: int, port: int, work: str, results) -> None:
+    import torch.distributed as dist
+
+    try:
+        results[rank] = _rank_checks(rank, port, work)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    work = tmp_path_factory.mktemp("procs")
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        results = manager.dict()
+        port = multihost_job.free_port()
+        procs = [ctx.Process(target=_worker,
+                             args=(r, port, str(work), results))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(400)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        assert [p.exitcode for p in procs] == [0, 0]
+        return {r: dict(results[r]) for r in range(2)}
+
+
+def _oracle_planar(filt="blur3", iters=ITERS):
+    return imageio.interleaved_to_planar(oracle.run_serial_u8(
+        _img(), get_filter(filt), iters)).astype(np.float32)
+
+
+@pytest.mark.parametrize("fuse,col_mode,overlap", RDMA_CASES)
+def test_cuda_rdma_across_processes_is_the_oracle_and_one_process(
+        ranks, fuse, col_mode, overlap, monkeypatch):
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    monkeypatch.setenv(step.OVERLAP_INTERPRET_ENV, "1")
+    one = step.sharded_iterate(
+        _planar(), get_filter("blur3"), ITERS,
+        grid=mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu"),
+        backend="cuda_rdma", fuse=fuse, col_mode=col_mode,
+        overlap=overlap).numpy()
+    np.testing.assert_array_equal(one, _oracle_planar())
+    for r in (0, 1):
+        np.testing.assert_array_equal(ranks[r]["rdma"][fuse, col_mode,
+                                                       overlap], one)
+
+
+def test_cuda_rdma_float_and_converge_across_processes(ranks):
+    # jacobi3's taps are dyadic: the plain levels give one process's bits.
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    jacobi3 = get_filter("jacobi3")
+    slots = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    one = step.sharded_iterate(_field(), jacobi3, 4, grid=slots,
+                               backend="cuda_rdma", fuse=2, quantize=False,
+                               col_mode="packed").numpy()
+    conv = step.sharded_converge(_field(), jacobi3, 1e-2, 40, check_every=4,
+                                 grid=slots, backend="cuda_rdma",
+                                 fuse=2)[0].numpy()
+    for r in (0, 1):
+        np.testing.assert_array_equal(ranks[r]["rdma_float"], one)
+        np.testing.assert_array_equal(ranks[r]["rdma_converge"], conv)
+
+
+def test_cuda_rdma_across_processes_is_the_jax_rdma_kernel(ranks):
+    # The JAX package's pallas_rdma on a 2x2 mesh in interpret mode, as
+    # tests/test_rdma.py runs it (skipped where that interpreter is
+    # missing), on the same input: the port's two ranks give its bytes.
+    import jax
+
+    from parallel_convolution_tpu.ops import filters as jfilters
+    from parallel_convolution_tpu.parallel import mesh as jmesh
+    from parallel_convolution_tpu.parallel import step as jstep
+    from parallel_convolution_tpu.utils import jax_compat
+
+    if not jax_compat.HAS_TPU_INTERPRET:
+        pytest.skip("DMA-faithful TPU interpret mode unavailable in this jax")
+    want = np.asarray(jstep.sharded_iterate(
+        _planar(), jfilters.get_filter("blur3"), ITERS,
+        mesh=jmesh.make_grid_mesh(jax.devices()[:4], (2, 2)),
+        quantize=True, backend="pallas_rdma"))
+    for r in (0, 1):
+        np.testing.assert_array_equal(ranks[r]["rdma"][1, "strided", False],
+                                      want)
+        np.testing.assert_array_equal(ranks[r]["rdma"][2, "packed", False],
+                                      want)
+
+
+def test_auto_across_processes_holds_one_resolution(ranks):
+    (a, res0), (b, res1) = ranks[0]["auto"], ranks[1]["auto"]
+    assert res0 == res1
+    np.testing.assert_array_equal(a, _oracle_planar())
+    np.testing.assert_array_equal(b, _oracle_planar())
+
+
+def test_fallback_agrees_on_the_furthest_rung(ranks):
+    from tests._torch_jax_state import reset_jax_state
+
+    reset_jax_state()
+    for r in (0, 1):
+        out, eff, warned = ranks[r]["fallback"]
+        # Rank 1's cuda_rdma probe failed (transient): both run 'cuda'.
+        assert eff == "cuda"
+        assert warned and "'cuda_rdma' degraded to 'cuda'" in warned[0]
+        np.testing.assert_array_equal(out, _oracle_planar())
+
+
+@pytest.mark.parametrize("shape", RESHARD)
+def test_reshard_prepared_across_processes_is_one_process(ranks, shape):
+    import torch
+
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    x = torch.from_numpy(_planar())
+    one = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    blocks, valid_hw, _ = step._prepare(x, one, "f32")
+    n = shape[0] * shape[1]
+    target = mesh.make_grid(shape, devices=",".join(["cpu"] * n))
+    want = mesh.join_blocks(step.reshard_prepared(blocks, valid_hw,
+                                                  target)).numpy()
+    owners = tuple(r for r in (0, 1) for _ in range(n // 2))
+    for r in (0, 1):
+        got_owners, holes, full = ranks[r]["reshard"][shape]
+        assert got_owners == owners
+        assert holes == [[owners[i * shape[1] + j] != r
+                          for j in range(shape[1])] for i in range(shape[0])]
+        np.testing.assert_array_equal(full, want)
+
+
+def test_multigrid_across_processes(ranks):
+    # Within the float tolerance of one process and of JAX mg_converge on
+    # the same field (the same V-cycle; jacobi3's dyadic taps make the
+    # port's own runs agree bit for bit).
+    import jax
+
+    from parallel_convolution_tpu.ops import filters as jfilters
+    from parallel_convolution_tpu.parallel import mesh as jmesh
+    from parallel_convolution_tpu.solvers import multigrid as jmg
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.solvers import multigrid
+
+    jacobi3 = get_filter("jacobi3")
+    slots = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    one, res = multigrid.mg_converge(_field(), jacobi3, 1e-3, 30, grid=slots,
+                                     backend="cuda_rdma")
+    jout, jres = jmg.mg_converge(
+        _field(), jfilters.get_filter("jacobi3"), 1e-3, 30,
+        mesh=jmesh.make_grid_mesh(jax.devices()[:4], (2, 2)))
+    rtol, atol = multigrid.float_tolerance(jacobi3, jres.cycles,
+                                           float(np.abs(jout).max()))
+    assert res.cycles == jres.cycles
+    for r in (0, 1):
+        out, cycles, grids, residuals = ranks[r]["multigrid"]
+        assert (cycles, grids, residuals) == (res.cycles, res.level_grids,
+                                              res.residuals)
+        np.testing.assert_array_equal(out, one.numpy())
+        np.testing.assert_allclose(out, np.asarray(jout), rtol=rtol,
+                                   atol=atol)
+        np.testing.assert_array_equal(ranks[r]["multigrid_shifted"],
+                                      one.numpy())
+
+
+def test_volumes_across_processes(ranks):
+    # Bit-equal to one process, and within the float tolerance of JAX
+    # volume_iterate (the same eager ops; fd7's taps are not dyadic).
+    import jax
+
+    from parallel_convolution_tpu.parallel import mesh as jmesh
+    from parallel_convolution_tpu.volumes import driver as jdriver
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    slots = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    one = driver.volume_iterate(_volume(), "fd7", 3, grid=slots,
+                                fuse=2).numpy()
+    conv = driver.volume_converge(_volume(), "fd7", tol=1e-9, max_iters=6,
+                                  check_every=3, grid=slots)[0].numpy()
+    want = np.asarray(jdriver.volume_iterate(
+        _volume(), "fd7", 3, mesh=jmesh.make_grid_mesh(jax.devices()[:4],
+                                                       (2, 2)), fuse=2))
+    for r in (0, 1):
+        np.testing.assert_array_equal(ranks[r]["volume"], one)
+        np.testing.assert_array_equal(ranks[r]["volume_converge"], conv)
+        np.testing.assert_allclose(ranks[r]["volume"], want, rtol=0,
+                                   atol=1e-5)
+
+
+def test_engine_across_processes(ranks):
+    x = _planar()
+    want = [_oracle_planar(),
+            imageio.interleaved_to_planar(oracle.run_serial_u8(
+                imageio.planar_to_interleaved(x[::-1].astype(np.uint8)),
+                get_filter("blur3"), ITERS)).astype(np.float32)]
+    for r in (0, 1):
+        out, eff, out2, reshaped, new_compiles, owners = ranks[r]["engine"]
+        assert eff == "cuda_rdma"
+        np.testing.assert_array_equal(out, np.stack(want))
+        np.testing.assert_array_equal(out2, np.stack(want))
+        assert reshaped["grid"] == (1, 2) and reshaped["rewarmed"] == 1
+        assert new_compiles == 2 and owners == (0, 1)
+
+
+def test_engine_converge_across_processes(ranks):
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    want, iters = step.sharded_converge(
+        _field(), get_filter("jacobi3"), 1e-2, 40, check_every=4,
+        grid=mesh.make_grid((1, 2), devices="cpu,cpu"), backend="cuda_rdma",
+        fuse=2)
+    for r in (0, 1):
+        img, done, _ = ranks[r]["engine_converge"]
+        assert done == iters
+        np.testing.assert_array_equal(img, want.numpy())
+
+
+def test_item_10d_ii_is_refused(ranks):
+    for r in (0, 1):
+        for msg in (ranks[r]["other_host"], ranks[r]["nccl"]):
+            assert "item 10d-ii" in msg and "not ported yet" in msg
+        assert "different hosts" in ranks[r]["other_host"]
+        rc, err = ranks[r]["nccl_cli"]
+        assert rc == 2 and "item 10d-ii" in err

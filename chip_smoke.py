@@ -308,7 +308,16 @@ Phases (any failure exits non-zero and prints no result line):
    the per-slot K3 / K4 and the pack over the two ranks timed (the
    kernels line's ``... over 2 ranks`` rows: a fork to a join with the
    counter waits, one launch alone, the barrier's own cost a chunk; the
-   staging each pack wrote against ``rdma_pack_plain``);
+   staging each pack wrote against ``rdma_pack_plain``); then (f, ROADMAP
+   item 10d-ii-a) in the same spawn, each rank reporting a host of its
+   own so that it reads the other's slots from mirrors gloo fills once a
+   chunk: config 2 strided and packed (first and resident) and
+   overlapped, config 1's image on the 256-rank split, config 3 through
+   ``run --device all --mesh 4x4`` and config 1's converge (``cuda_rdma``
+   u8 fuse 8, 2x2), each byte-equal to ``shifted`` and its one-host run,
+   the far round's copy out, host wait, gloo and copy in printed a chunk,
+   and the per-slot kernels timed again (the ``... between hosts``
+   rows);
    each run's first and resident seconds beside its one-card (or
    one-process) form;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
@@ -5626,7 +5635,7 @@ def ckpt_slots_argv(src: Path, dst: Path, ck: Path, mesh_spec: str,
 
 def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
                      field, volume_sha: str, mg_shifted,
-                     engine_imgs) -> dict:
+                     engine_imgs, cli_converge) -> dict:
     """Phase 4j: (a) BASELINE config 5 under the V-cycle (32768² jacobi3,
     tol 1e-3, 100 work units) on 2x2 slots with ``cuda`` (K1 per slot) and
     ``cuda_rdma`` (K3 / K4 per slot), each bit-equal to the one-card 2x2
@@ -5647,7 +5656,8 @@ def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
     (``refs["rgb_ref"]``), the f32 resume bit-identical, the broadcast
     agreed; (e) ``cuda_rdma``, ``auto``, ``fallback``, the engine,
     multigrid and volumes on grids over two ranks sharing the card
-    (:func:`processes_leg`, item 10d-i).  Every run counted into the
+    (:func:`processes_leg`, item 10d-i), and (f) ``cuda_rdma`` with the
+    ranks on two reported hosts (item 10d-ii-a) in the same spawn.  Every run counted into the
     kernels line (the two ranks' launches as they report them)."""
     import numpy as np
     import torch
@@ -5669,7 +5679,8 @@ def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
     cross = processes_leg(
         dev, tmp, work, refs, totals, card, field_path, mg_shifted,
         out["multigrid"], {"sha": volume_sha,
-                           "seconds": out["volume"]["seconds"]}, engine_imgs)
+                           "seconds": out["volume"]["seconds"]}, engine_imgs,
+        cli_converge)
     out["processes"], out["processes_timed"] = cross["rows"], cross["timed"]
     out["two_processes"].append(cross["job"])
     return out
@@ -6091,12 +6102,98 @@ def rank_legs(rank: int, port: int, spec: dict) -> dict:
     # The per-slot kernels over the two ranks, timed (not main-path
     # launches): config 2's K4 and the 16x16 split's K3.
     grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
-    row["kernels"] = {
-        "config 2": cross_slot_times(dev, rgb, "bf16", (2, 2), 32, blur3),
-        "grey 16x16": cross_slot_times(dev, grey, "u8", GREY_GRID, 8,
-                                       blur3)}
+
+    def kernels():
+        return {"config 2": cross_slot_times(dev, rgb, "bf16", (2, 2), 32,
+                                             blur3),
+                "grey 16x16": cross_slot_times(dev, grey, "u8", GREY_GRID, 8,
+                                               blur3)}
+
+    row["kernels"] = kernels()
+    # Phase 4j (f), item 10d-ii-a: each rank reports a host of its own (as
+    # two hosts' ranks do), so it reads the other's slots from mirrors
+    # that gloo fills once a chunk; the package has no switch for it.
+    real_host = multihost.hostname
+    multihost.hostname = lambda: f"host{rank}"
+    try:
+        far_legs(spec, leg, grid, rgb, row)
+        row["far_kernels"] = kernels()
+    finally:
+        multihost.hostname = real_host
     multihost.barrier("done")
     return row
+
+
+def far_legs(spec: dict, leg, grid, rgb, row: dict) -> None:
+    """Phase 4j (f), one rank's share, the ranks on two reported hosts:
+    config 2 ``cuda_rdma`` bf16 fuse 32 on 2x2 strided and packed (first
+    and resident) and overlapped (strided), config 1's image on the
+    256-rank split (u8 fuse 8, K3), config 3 through ``run --device all
+    --mesh 4x4``, and ``run --converge 0.5 --check-every 10`` on config
+    1's image (``cuda_rdma`` u8 fuse 8, 2x2); each leg's row carries its
+    far exchange's rounds and their split (``rdma._FarExchange``)."""
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    made = []
+    real_init = rdma._FarExchange.__init__
+
+    def init(ex, *a, **k):
+        real_init(ex, *a, **k)
+        made.append(ex)
+
+    def far_leg(name, fn):
+        del made[:]
+        leg(name, fn)
+        row[name]["exchange"] = [t for ex in made for t in ex.split()]
+        row[name]["rounds"] = sum(ex.rounds for ex in made)
+
+    rdma._FarExchange.__init__ = init
+    try:
+        kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
+        for cm in ("strided", "packed"):
+            model = ConvolutionModel("blur3", grid=grid, col_mode=cm, **kw)
+            for name in (f"far config 2 {cm}", f"far config 2 {cm} resident"):
+                far_leg(name, lambda: {
+                    "sha256": _sha(model.run_image(rgb, ITERS)),
+                    "col_mode": model.effective_col_mode})
+        model = ConvolutionModel("blur3", grid=grid, col_mode="strided",
+                                 overlap=True, **kw)
+        far_leg("far config 2 overlap", lambda: {
+            "sha256": _sha(model.run_image(rgb, ITERS)),
+            "overlap": model.effective_overlap})
+        # The 256-rank split (K3 per slot, 128 slots a rank).
+        split = ConvolutionModel(
+            "blur3", grid=mesh.make_grid(GREY_GRID, devices="all"),
+            backend="cuda_rdma", storage="u8", fuse=8)
+        grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
+        far_leg("far grey 16x16", lambda: {
+            "sha256": _sha(split.run_image(grey, ITERS))})
+        n = str(BIG_HW[0])
+        far_leg("far config 3", lambda: {"rc": cli_main([
+            "run", spec["edge5"], n, n, str(ITERS), "grey", "-o",
+            spec["edge5_far_out"], "--filter", "edge5", "--backend",
+            "cuda_rdma", "--mesh", "4x4", "--device", "all", "--storage",
+            "bf16", "--fuse", "32", "--col-mode", "packed"])})
+
+        def converge():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([
+                    "run", spec["converge"], str(RGB_HW[0]), str(RGB_HW[1]),
+                    str(CONVERGE_CLI_MAX), "grey", "-o",
+                    spec["converge_out"], "--converge", "0.5",
+                    "--check-every", "10", "--backend", "cuda_rdma",
+                    "--mesh", "2x2", "--device", "all", "--storage", "u8",
+                    "--fuse", "8"])
+            return {"rc": rc, "said": buf.getvalue().strip().splitlines()[-1]}
+
+        far_leg("far converge", converge)
+    finally:
+        rdma._FarExchange.__init__ = real_init
 
 
 def cross_slot_times(dev, img, storage: str, shape, T: int, filt) -> dict:
@@ -6140,10 +6237,19 @@ def cross_slot_times(dev, img, storage: str, shape, T: int, filt) -> dict:
         outs = {s: torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
                                device=dev) for s in run.local}
 
+        # Between hosts (4j (f)) each step carries the far exchange's
+        # round; no far neighbour is a column one here (the ranks split
+        # the rows), so no staging round.
+        check(run.far is None or not run.far.stages,
+              f"{cm} at {shape}: a far column neighbour")
+
         def step(per_slot):
             def once():
                 run.fork()
                 k = run.step + 1
+                if run.far is not None:
+                    run.far.send(0, r * T, run.packed)
+                    run.far.receive(0, r * T, run.packed)
                 for s in run.local:
                     for n in run.neighbours[s]:
                         run.after(s, n, run.step)
@@ -6190,10 +6296,27 @@ def cross_slot_times(dev, img, storage: str, shape, T: int, filt) -> dict:
         check(ok, f"{out['kernel']} over two ranks {cm} at {shape}: err "
                   f"{err}")
         out[f"max_abs_err_{cm}"] = err
+        if run.far is not None:
+            out[f"exchange_{cm}"] = exchange_summary(run.far.split())
         rdma.close_carry(rdma.SlotCarry(run, run.bufs[0]))
         del outs, got, want
     out["local_slots"] = len(run.local)
     return out
+
+
+def exchange_summary(rounds: list) -> dict:
+    """The far exchange's timed rounds (``rdma._FarExchange.split``, the
+    last 256 of a run) as their count and each part's median
+    milliseconds: the copy out (the slowest slot's, CUDA events), the
+    host's wait for it, the gloo swap, the copy in (CUDA events), and the
+    bytes a round sends."""
+    import statistics
+
+    if not rounds:
+        return {"timed": 0}
+    return dict({f"{k}_median": statistics.median(t[k] for t in rounds)
+                 for k in ("out_ms", "wait_ms", "gloo_ms", "in_ms")},
+                timed=len(rounds), bytes_out=rounds[0]["bytes_out"])
 
 
 def _rank_legs(rank: int, port: int, spec: dict, results) -> None:
@@ -6211,7 +6334,7 @@ def _rank_legs(rank: int, port: int, spec: dict, results) -> None:
 
 def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
                   card: str, field_path: Path, mg_ref, mg_rows: list,
-                  volume: dict, engine_imgs) -> dict:
+                  volume: dict, engine_imgs, cli_converge) -> dict:
     """Phase 4j (e): ``cuda_rdma`` on grids over two spawned ranks sharing
     the card (item 10d-i: the neighbours on the other rank read in place
     through CUDA IPC behind the step counters), one spawn for every leg
@@ -6227,9 +6350,16 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
     ``shifted``'s); config 5's V-cycle on 2x2 (``cuda_rdma``, the 100-unit
     cap; bit-equal to 4j (a)'s one-process run, which is ``shifted``'s)
     and fd25 512^3 x 40 fuse 4 through ``run --rank 3 --device all`` (the
-    bytes of phase 4g's 1x1 run).  Every rank's launches go into the
-    kernels line; each leg prints its seconds beside the one-process
-    run's."""
+    bytes of phase 4g's 1x1 run).  Then phase 4j (f) in the same spawn
+    (:func:`far_legs`, item 10d-ii-a): each rank reports a host of its
+    own, so it reads the other's slots from mirrors gloo fills once a
+    chunk: config 2 strided and packed (first and resident) and
+    overlapped, config 3 on 4x4 and config 1's converge (``cuda_rdma`` u8
+    fuse 8, 2x2), each byte-equal to its one-host run and ``shifted``
+    (the converge: the same stop), with the far exchange's split a round.
+    Every rank's launches go into the kernels line; each leg prints its
+    seconds beside the one-process run's; the per-slot kernels are timed
+    on one host and between hosts."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
@@ -6247,7 +6377,10 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
             "field": str(field_path),
             "volume": str(work / "fd25.raw"),
             "volume_out": str(work / "fd25.out.raw"),
-            "engine": [str(work / f"engine{k}.raw") for k in range(2)]}
+            "engine": [str(work / f"engine{k}.raw") for k in range(2)],
+            "edge5_far_out": str(work / "edge5.far.raw"),
+            "converge": str(cli_converge[0]),
+            "converge_out": str(work / "converge.far.raw")}
     imageio.write_raw(spec["rgb"], refs["rgb"])
     rgbs, wants = engine_imgs
     for path, img in zip(spec["engine"], rgbs):
@@ -6408,6 +6541,7 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
                  "seconds": max(both("fd25", "seconds")),
                  "one_process_s": volume["seconds"], "bitwise_1x1": True,
                  "card": card})
+    rows += far_rows(got, spec, refs, cli_converge, launches, card)
     for row in rows:
         print(f"{row['path']}: {row['seconds']:.4f} s over two ranks"
               + (f" (one process {row['one_process_s']:.4f} s)"
@@ -6419,11 +6553,13 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
     # ranks step their slots at once on the one card, so a row's ms is the
     # slower rank's, its bound the whole grid's work.
     timed = {}
-    for key, img, storage, shape, T, filt in (
-            ("config 2", refs["rgb"], "bf16", (2, 2), 32,
-             get_filter("blur3")),
-            ("grey 16x16", None, "u8", GREY_GRID, 8, get_filter("blur3"))):
-        t = [g["kernels"][key] for g in got]
+    filt = get_filter("blur3")
+    for (where, suffix), (key, storage, shape, T) in (
+            (a, b) for a in (("kernels", ""),
+                             ("far_kernels", " between hosts"))
+            for b in (("config 2", "bf16", (2, 2), 32),
+                      ("grey 16x16", "u8", GREY_GRID, 8))):
+        t = [g[where][key] for g in got]
         C, h, w = t[0]["block"]
         nb = shape[0] * shape[1]
         ext, levels = t[0]["ext"], t[0]["levels"]
@@ -6437,7 +6573,9 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
         pb_ms, pb_by = bound(2 * nb * 2 * C * (h + 2 * depth) * depth * elt,
                              0.0)
         name = t[0]["kernel"]
-        timed[f"{name} over 2 ranks"] = dict(
+        far = [r for r in rows if r["path"].startswith("4j (f)")]
+        counted = far if suffix else [r for r in rows if r not in far]
+        timed[f"{name} over 2 ranks{suffix}"] = dict(
             at=key, grid=list(shape), block=[C, h, w], T=T, levels=levels,
             ext=ext, ms=max(x["ms"] for x in t),
             packed_ms=max(x["packed_ms"] for x in t),
@@ -6446,19 +6584,114 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
             max_abs_err=max(max(x["max_abs_err_strided"],
                                 x["max_abs_err_packed"]) for x in t),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            launches=sum(r["launches"].get(name, 0) for r in rows))
+            launches=sum(r["launches"].get(name, 0) for r in counted),
+            **({"exchange": t[0].get("exchange_strided"),
+                "exchange_packed": t[0].get("exchange_packed")}
+               if suffix else {}))
         if key == "config 2":
-            timed["rdma_pack over 2 ranks"] = dict(
+            timed[f"rdma_pack over 2 ranks{suffix}"] = dict(
                 at=key, grid=list(shape), ms=max(x["pack_ms"] for x in t),
                 alone_ms=max(x["pack_alone_ms"] for x in t),
                 barrier_ms=max(x["barrier_ms"] for x in t),
                 max_abs_err=max(x["pack_max_abs_err"] for x in t),
                 bound_ms=pb_ms, bound_by=pb_by, library_ms=None,
                 launches=sum(r["launches"].get("rdma_pack", 0)
-                             for r in rows))
+                             for r in counted))
     for name, row in timed.items():
         print(f"time {name}: " + json.dumps(dict(row, card=card)))
     return {"rows": rows, "timed": timed, "job": job_row}
+
+
+def far_rows(got: list, spec: dict, refs: dict, cli_converge, launches,
+             card: str) -> list:
+    """Phase 4j (f)'s checks and rows (:func:`far_legs`, the ranks on two
+    reported hosts): every leg byte-equal to ``shifted`` and to its
+    one-host run in 4j (e) (config 2, config 3), the converge the same
+    stop and bytes as one process; one exchange round a chunk (no staging
+    round: the ranks split the rows); each row's far exchange split
+    (:func:`exchange_summary`), config 2's strided first run printed a
+    chunk at a time."""
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    def both(name, what):
+        return [g[name][what] for g in got]
+
+    def split(name):
+        return [exchange_summary(g[name]["exchange"]) for g in got]
+
+    rgb_sha = _sha(refs["rgb_ref"])
+    rows = []
+    chunks = -(-ITERS // 32)
+    legs = [(f"far config 2 {cm}{res}", f"config 2 {cm}{res}",
+             f"config 2 cuda_rdma bf16 fuse 32 2x2 {cm}{res}")
+            for cm in ("strided", "packed") for res in ("", " resident")]
+    legs.append(("far config 2 overlap", None,
+                 "config 2 cuda_rdma bf16 fuse 32 2x2 strided overlap=True"))
+    for name, near, what in legs:
+        sent = launches(name)
+        label = f"4j (f) {what} between hosts"
+        check(both(name, "sha256") == [rgb_sha] * 2,
+              f"{label}: differs from shifted and the one-host run")
+        ex = split(name)
+        check(both(name, "rounds") == [chunks] * 2
+              and all(t["round"] == 0 for g in got
+                      for t in g[name]["exchange"]),
+              f"{label}: {both(name, 'rounds')} exchange rounds, "
+              f"{chunks} chunks")
+        rows.append({"path": label, "launches": sent,
+                     "seconds": max(both(name, "seconds")),
+                     **({"one_host_s": max(both(near, "seconds"))}
+                        if near else {}),
+                     "exchange": ex[0], "bitwise_one_host": True,
+                     "bitwise_shifted": True, "card": card})
+    for k, t in enumerate(got[0]["far config 2 strided"]["exchange"]):
+        print(f"4j (f) config 2 strided between hosts, chunk {k}: copy out "
+              f"{t['out_ms']:.4f} ms, the host's wait {t['wait_ms']:.4f} "
+              f"ms, gloo {t['gloo_ms']:.4f} ms, copy in {t['in_ms']:.4f} "
+              f"ms, {t['bytes_out']} B each way; card {card}")
+    sent = launches("far grey 16x16")
+    check(both("far grey 16x16", "sha256")
+          == [_sha(refs["grey_refs"]["blur3"])] * 2
+          and both("far grey 16x16", "rounds") == [-(-ITERS // 8)] * 2,
+          "4j (f) grey 16x16 between hosts: differs from shifted, or "
+          f"{both('far grey 16x16', 'rounds')} exchange rounds")
+    rows.append({"path": "4j (f) grey 1920x2520 blur3 cuda_rdma u8 fuse 8 "
+                 "16x16 between hosts", "launches": sent,
+                 "seconds": max(both("far grey 16x16", "seconds")),
+                 "exchange": split("far grey 16x16")[0],
+                 "bitwise_shifted": True, "card": card})
+    sent = launches("far config 3")
+    check(both("far config 3", "rc") == [0, 0] and np.array_equal(
+        imageio.read_raw(spec["edge5_far_out"], *BIG_HW, "grey"),
+        refs["grey_refs"]["edge5"]),
+        "4j (f) config 3 on 4x4 between hosts: differs from shifted")
+    rows.append({"path": "4j (f) config 3 run --device all --mesh 4x4 "
+                 "cuda_rdma bf16 fuse 32 packed between hosts",
+                 "launches": sent,
+                 "seconds": max(both("far config 3", "seconds")),
+                 "one_host_s": max(both("config 3", "seconds")),
+                 "exchange": split("far config 3")[0],
+                 "bitwise_shifted": True, "card": card})
+    _, cwant, citers = cli_converge
+    sent = launches("far converge")
+    said = both("far converge", "said")
+    check(both("far converge", "rc") == [0, 0]
+          and all(x.startswith(f"converged after {citers} iters")
+                  for x in said)
+          and np.array_equal(imageio.read_raw(spec["converge_out"],
+                                              *RGB_HW, "grey"), cwant),
+          f"4j (f) converge between hosts: said {said}, shifted stopped "
+          f"after {citers}, or the bytes differ")
+    rows.append({"path": "4j (f) cli run --converge 0.5 --check-every 10 "
+                 "grey 1920x2520 blur3 cuda_rdma u8 fuse 8 2x2 between "
+                 "hosts", "launches": sent, "iters": citers,
+                 "seconds": max(both("far converge", "seconds")),
+                 "rounds": both("far converge", "rounds")[0],
+                 "exchange": split("far converge")[0],
+                 "bitwise_shifted": True, "card": card})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -7698,7 +7931,8 @@ def main() -> int:
                                     keep.pop("config5"),
                                     volume["cli_fd25"]["sha256_1x1"],
                                     keep.pop("mg_shifted"),
-                                    keep.pop("engine_pair"))
+                                    keep.pop("engine_pair"),
+                                    keep["cli_converge"])
             rest["seconds"] = time.perf_counter() - t0
             lap("4j the rest on slots")
             torch.cuda.empty_cache()

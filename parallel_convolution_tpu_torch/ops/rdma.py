@@ -69,32 +69,46 @@ that carried them.  On the CPU :func:`fused_rdma_slots_plain` runs the
 same schedule from buffers whose unwaited ghosts are NaN, and raises if a
 NaN reaches a region: a missed wait.
 
-**On a grid over the processes of one host** (``mesh.Grid.owners``;
-ROADMAP item 10d-i) each rank launches its own slots, and a neighbour on
-another rank is read in place through CUDA IPC, as the TPU kernels write
-a neighbour's buffer on another host: each rank exports its buffers,
-staging and counters once a run (:func:`ipc_handle`: the allocation's
-handle and the buffer's offset in it) and maps its neighbours'
-(``multihost.peer_records``), so the pointer tables hold the remote
-slots' addresses as this process sees them.  Where the neighbour lives in
-another process the barrier is a counter instead of an event: each slot's
-stream writes its monotonic step counter after its launch (and its staged
-counter after its pack), and a neighbour's stream waits until it reaches
-the step before (``csrc/rdma.cu``: ``cuStreamWriteValue64`` /
-``cuStreamWaitValue64``), the one wait covering read after write and
-write after read as the event does.  Events stay for neighbours in this
-process.  A run is closed collectively (:func:`close_carry`: unmap, then a
-barrier, then the buffers go).  A failed map, a refused counter, ranks on
-different cards or hosts raise (the last two naming item 10d-ii); there is
-no host-staged fallback.  On a CPU grid over processes the plain version
-runs each rank's blocks after a gloo exchange of the ``r·fuse``-deep rims,
-corners included (``halo.exchange_per_block``), its overlapped schedule
-filling a region's ghosts from them as its waits allow.
+**On a grid over processes** (``mesh.Grid.owners``; ROADMAP items 10d-i
+and 10d-ii-a) each rank launches its own slots.  A neighbour on another
+rank of the same host is read in place through CUDA IPC, as the TPU
+kernels write a neighbour's buffer on another host: each rank exports its
+buffers, staging and counters once a run (:func:`ipc_handle`: the
+allocation's handle and the buffer's offset in it) and maps its
+neighbours' (``multihost.peer_records``), so the pointer tables hold the
+remote slots' addresses as this process sees them.  Where the neighbour
+lives in another process of the host the barrier is a counter instead of
+an event: each slot's stream writes its monotonic step counter after its
+launch (and its staged counter after its pack), and a neighbour's stream
+waits until it reaches the step before (``csrc/rdma.cu``:
+``cuStreamWriteValue64`` / ``cuStreamWaitValue64``), the one wait
+covering read after write and write after read as the event does.  Events
+stay for neighbours in this process.  A neighbour on **another host**
+(the ranks' host records say so, and nothing else) is read from a mirror
+of its block on this rank's card, which the pointer tables name in its
+place: once a chunk each rank copies out exactly the slabs its far
+readers' launches read (:func:`mirror_plan`), after its own launch of
+the step before, to pinned host memory held for the run, swaps them over
+gloo and copies what it receives into its mirrors (:class:`_FarExchange`),
+each copy after the local launches that last read that mirror; a
+launch waits for its mirrors' copies.  With ``col_mode="packed"`` a far
+column neighbour's staging is mirrored too, in a second round after the
+packs.  With ``overlap=True`` the interiors launch before the exchange,
+which they hide.  A run is closed collectively (:func:`close_carry`:
+unmap, then a barrier, then the buffers and mirrors go).  A failed map, a
+refused counter, or ranks of one host on different cards raise (the last
+naming item 10d-ii-b); a failed map never falls back to a mirror.  On a
+CPU grid over processes the plain version runs each rank's blocks after a
+gloo exchange of the ``r·fuse``-deep rims, corners included
+(``halo.exchange_per_block``), whatever the hosts, its overlapped
+schedule filling a region's ghosts from them as its waits allow.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -309,6 +323,82 @@ def overlap_schedule(oh: int, ow: int, d: int, ext: int,
     for label, rect, waits in regions:
         if any(dj for _, dj in waits):
             out.append((label, rect, frozenset(NEIGHBOURS)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The mirror of a neighbour on another host: what a launch reads of it
+# ---------------------------------------------------------------------------
+
+
+class MirrorPlan(NamedTuple):
+    """What a launch reads of one far neighbour: half-open ``(r0, r1, c0,
+    c1)`` rectangles of its (C, h, w) block (every channel), none inside
+    another, and the sides of its (2, C, h + 2d, d) staging (0 its first
+    d columns, 1 its last d)."""
+
+    rects: tuple
+    sides: tuple
+
+
+def _outermost(rects) -> tuple:
+    """``rects`` without those another of them contains, sorted."""
+    def inside(a, b):
+        return b[0] <= a[0] and a[1] <= b[1] and b[2] <= a[2] and a[3] <= b[3]
+
+    rects = set(rects)
+    return tuple(sorted(a for a in rects
+                        if not any(b != a and inside(a, b) for b in rects)))
+
+
+def mirror_plan(table, s: int, n: int, block_shape, depth: int,
+                packed: bool = False) -> MirrorPlan:
+    """The slices of slot ``n``'s block that slot ``s``'s launch at ghost
+    depth ``depth`` (r·T) reads, ``table`` the grid's neighbour table
+    (``channels.neighbour_table``): for each side on which ``n`` borders
+    ``s`` (several under a periodic boundary), ``n``'s last ``depth`` rows
+    for a north neighbour, its first for a south one, its last or first
+    ``depth`` columns for a west or east one, the ``depth``×``depth``
+    corner for a diagonal.  ``packed`` (the packed column transport): a
+    west or east neighbour's ghost columns, corners included, are read
+    from its staging (side 1 or 0) instead, and no diagonal is read; the
+    north and south rows also cover what ``s``'s own pack reads."""
+    _, h, w = block_shape
+    d = int(depth)
+    span = {-1: (h - d, h), 0: (0, h), 1: (0, d)}
+    cspan = {-1: (w - d, w), 0: (0, w), 1: (0, d)}
+    rects, sides = set(), set()
+    for di, dj in NEIGHBOURS:
+        if table[s][(di + 1) * 3 + dj + 1] != n:
+            continue
+        if packed and dj:
+            if not di:
+                sides.add(1 if dj < 0 else 0)
+            continue
+        rects.add((*span[di], *cspan[dj]))
+    return MirrorPlan(_outermost(rects), tuple(sorted(sides)))
+
+
+def far_slabs(table, owners, reader: int, owner: int, block_shape,
+              depth: int, packed: bool = False) -> list:
+    """``[(n, MirrorPlan)]``: for each slot ``n`` of rank ``owner`` that a
+    slot of rank ``reader`` reads, in slot order, the union of
+    :func:`mirror_plan` over ``reader``'s slots: what ``owner`` copies
+    out for ``reader`` and ``reader`` copies into its mirror of ``n``.
+    Both ranks compute the same list from the same table."""
+    mine = [s for s, o in enumerate(owners) if o == reader]
+    out = []
+    for n, o in enumerate(owners):
+        if o != owner or o == reader:
+            continue
+        rects, sides = set(), set()
+        for s in mine:
+            plan = mirror_plan(table, s, n, block_shape, depth, packed)
+            rects.update(plan.rects)
+            sides.update(plan.sides)
+        if rects or sides:
+            out.append((n, MirrorPlan(_outermost(rects),
+                                      tuple(sorted(sides)))))
     return out
 
 
@@ -843,6 +933,205 @@ def _ipc_unmap(handle: bytes, device) -> None:
         _cu_check(err, f"unmapping a neighbour's memory on {device}")
 
 
+class _FarExchange:
+    """The mirrors of a run's far slots (those of ranks on another host
+    that this rank's slots read) and their exchange, a round a chunk:
+
+    * :meth:`send` enqueues, on each local slot's stream (so after its own
+      launch of the step before), the copy of the slabs a far rank reads
+      of it (:func:`far_slabs`) into pinned host memory held for the run
+      (``multihost.HostStaging``), one buffer a far rank;
+    * :meth:`receive` waits on the host for those copies, swaps the
+      buffers over gloo (``multihost.swap``: every receive posted first),
+      and on the run's exchange stream, after the last launch of every
+      local slot that reads a mirror (write after read), copies what
+      arrived into the mirrors, recording each mirror's ``landed`` event,
+      which the slots' launches wait on (read after write).
+
+    Round 0 carries the blocks' slabs into a mirror pair matching the
+    run's two buffer sets; round 1 (the packed transport, where a far
+    slot is a column neighbour: ``stages``) the stagings' sides, after
+    the packs.  ``rounds`` counts them, and ``times`` keeps the last
+    rounds' split: the copy out and in (CUDA events), the host's wait for
+    the copy out and the gloo swap (seconds)."""
+
+    def __init__(self, run, owners, hosts, rank: int):
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        self.run, self.owners, self.rank = run, tuple(owners), int(rank)
+        far = {s for s, o in enumerate(owners) if hosts[o] != hosts[rank]}
+        self.ranks = sorted({owners[s] for s in far})
+        self.slots = sorted({n for s in run.local for n in run.neighbours[s]
+                             if n in far})
+        cols = ({n for s in run.local for n in run.col_neighbours[s]}
+                if run.packed else set())
+        dev = self.device = run.devices[0]
+        C, h, w = run.block_shape
+        D = run.depth
+        self.mirrors = {n: [torch.empty((C, h, w), dtype=run.dtype,
+                                        device=dev) for _ in (0, 1)]
+                        for n in self.slots}
+        self.stages = {n: torch.empty(2 * C * (h + 2 * D) * D,
+                                      dtype=run.dtype, device=dev)
+                       for n in self.slots if n in cols}
+        self.readers = [
+            {n: [s for s in run.local if n in run.neighbours[s]]
+             for n in self.mirrors},
+            {n: [s for s in run.local if n in run.col_neighbours[s]]
+             for n in self.stages}]
+        self.landed = [{n: torch.cuda.Event() for n in self.mirrors},
+                       {n: torch.cuda.Event() for n in self.stages}]
+        self.stream = torch.cuda.Stream(device=dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        # A round's copies into the mirrors: the landing buffers are free
+        # for the next round once it is done.
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.host = multihost.HostStaging()
+        self.elt = torch.empty((), dtype=run.dtype).element_size()
+        self.plans, self.pending, self.rounds = {}, None, 0
+        self.times = collections.deque(maxlen=256)
+
+    def plan(self, depth: int, staged: bool):
+        """``(sends, recvs)``, far rank -> :func:`far_slabs`' list: what
+        this rank copies out for it and what it copies in from it."""
+        key = (int(depth), bool(staged))
+        if key not in self.plans:
+            run = self.run
+
+            def slabs(reader, owner):
+                return far_slabs(run.table, self.owners, reader, owner,
+                                 run.block_shape, depth, staged)
+
+            self.plans[key] = ({q: slabs(q, self.rank) for q in self.ranks},
+                               {q: slabs(self.rank, q) for q in self.ranks})
+        return self.plans[key]
+
+    def _views(self, block, stage, plan: MirrorPlan, rnd: int,
+               depth: int) -> list:
+        """One slot's slabs of round ``rnd``: its block's rectangles, or
+        its staging's sides at ``depth``."""
+        if rnd == 0:
+            return [block[:, r0:r1, c0:c1] for r0, r1, c0, c1 in plan.rects]
+        C, h, _ = self.run.block_shape
+        n = 2 * C * (h + 2 * depth) * depth
+        st = stage[:n].view(2, C, h + 2 * depth, depth)
+        return [st[side] for side in plan.sides]
+
+    def _copy(self, buf, views, into_views: bool) -> None:
+        off = 0
+        for v in views:
+            nb = v.numel() * self.elt
+            flat = buf[off:off + nb].view(self.run.dtype).view(v.shape)
+            if into_views:
+                v.copy_(flat, non_blocking=True)
+            else:
+                flat.copy_(v, non_blocking=True)
+            off += nb
+
+    def send(self, src: int, depth: int, staged: bool, rnd: int = 0) -> None:
+        """Enqueue round ``rnd``'s copy out of the buffer set ``src`` (or
+        the stagings) on the local slots' streams."""
+        run = self.run
+        sends, _ = self.plan(depth, staged)
+        out, marks = [], []
+        for q, items in sends.items():
+            per_slot = []
+            for m, plan in items:
+                di, k = run.where[m]
+                per_slot.append((m, self._views(
+                    run.bufs[src][di][k], run.stage[di][k] if run.stage
+                    else None, plan, rnd, depth)))
+            nbytes = sum(v.numel() for _, vs in per_slot for v in vs)
+            if not nbytes:
+                continue
+            buf = self.host.buffer(("out", rnd, q), nbytes * self.elt)
+            off = 0
+            for m, vs in per_slot:
+                if not vs:
+                    continue
+                st = run.streams[m]
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                nb = sum(v.numel() for v in vs) * self.elt
+                with torch.cuda.device(run.slots[m]), torch.cuda.stream(st):
+                    ev[0].record(st)
+                    self._copy(buf[off:off + nb], vs, False)
+                    ev[1].record(st)
+                off += nb
+                marks.append(ev)
+            out.append((q, rnd, buf))
+        self.pending = (out, marks)
+
+    def receive(self, src: int, depth: int, staged: bool,
+                rnd: int = 0) -> None:
+        """Finish round ``rnd``: the host waits for the copies out, the
+        gloo swap, then the copies into the mirrors of the buffer set
+        ``src`` (or the stagings) on the exchange stream, each mirror's
+        ``landed`` event recorded behind its own copies."""
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        run = self.run
+        _, recvs = self.plan(depth, staged)
+        out, marks = self.pending
+        self.pending = None
+        t0 = time.perf_counter()
+        for _, end in marks:
+            end.synchronize()
+        self.copied[rnd].synchronize()
+        t1 = time.perf_counter()
+        lands = []
+        for q, items in recvs.items():
+            views = [(n, vs) for n, vs in (
+                (n, self._views(self.mirrors[n][src], self.stages.get(n),
+                                plan, rnd, depth)) for n, plan in items) if vs]
+            nbytes = sum(v.numel() for _, vs in views for v in vs)
+            if nbytes:
+                lands.append((q, self.host.buffer(("in", rnd, q),
+                                                  nbytes * self.elt), views))
+        multihost.swap(out, [(q, rnd, buf) for q, buf, _ in lands])
+        t2 = time.perf_counter()
+        x = self.stream
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with torch.cuda.device(self.device), torch.cuda.stream(x):
+            after = {s for _, _, views in lands for n, _ in views
+                     for s in self.readers[rnd][n]}
+            for s in sorted(after):
+                x.wait_event(run.launched[s])
+            ev[0].record(x)
+            for _, buf, views in lands:
+                off = 0
+                for n, vs in views:
+                    nb = sum(v.numel() for v in vs) * self.elt
+                    self._copy(buf[off:off + nb], vs, True)
+                    off += nb
+                    self.landed[rnd][n].record(x)
+            ev[1].record(x)
+            self.copied[rnd].record(x)
+        self.rounds += 1
+        self.times.append({"round": rnd, "out": marks, "in": ev,
+                           "wait_s": t1 - t0, "gloo_s": t2 - t1,
+                           "bytes_out": sum(b.numel() for _, _, b in out),
+                           "bytes_in": sum(b.numel() for _, b, _ in lands)})
+
+    def split(self) -> list[dict]:
+        """``times`` in milliseconds, a round each (after the run's
+        streams are joined): the copy out (the slowest slot's), the
+        host's wait for it, the gloo swap, the copy in."""
+        self.stream.synchronize()
+        return [{"round": t["round"],
+                 "out_ms": max((a.elapsed_time(b) for a, b in t["out"]),
+                               default=0.0),
+                 "wait_ms": 1e3 * t["wait_s"], "gloo_ms": 1e3 * t["gloo_s"],
+                 "in_ms": t["in"][0].elapsed_time(t["in"][1]),
+                 "bytes_out": t["bytes_out"], "bytes_in": t["bytes_in"]}
+                for t in self.times]
+
+    def close(self) -> None:
+        self.stream.synchronize()
+        self.mirrors, self.stages = {}, {}
+
+
 class _SlotRun:
     """The per-run state of ``cuda_rdma`` on a grid of slots on the card:
     streams, events, the double-buffered carry, the staging, and the
@@ -851,8 +1140,9 @@ class _SlotRun:
     neighbours' buffers (:meth:`_span`) and keeps the step counters of the
     barrier between ranks."""
 
-    # One process, no step yet, open (the per-run values set these).
-    spans, step, closed = False, 0, False
+    # One process, no step yet, open, no far slot (the per-run values set
+    # these).
+    spans, step, closed, far, far_slots = False, 0, False, None, frozenset()
 
     def __init__(self, grid, blocks, boundary: str, depth: int,
                  col_mode: str):
@@ -948,9 +1238,11 @@ class _SlotRun:
     def _span(self, grid, stage_addr) -> None:
         """Over several processes: export this rank's buffers, staging and
         counters, gather every rank's (``multihost.peer_records``, a
-        collective), check that the ranks share one host (item 10d-ii
-        otherwise) and one card, and map the remote slots' addresses into
-        ``addr`` / ``stage_addr`` and their counters into ``remote``."""
+        collective), check that the ranks of this host share one card
+        (item 10d-ii-b otherwise), map the slots of this host's other
+        ranks into ``addr`` / ``stage_addr`` and their counters into
+        ``remote``, and put the mirrors of the slots of other hosts
+        (:class:`_FarExchange`) there in their place."""
         from parallel_convolution_tpu_torch.parallel import multihost
 
         n = len(self.slots)
@@ -972,11 +1264,13 @@ class _SlotRun:
                       str(getattr(self, "dtype", ""))),
         }
         records = multihost.peer_records(record)
-        multihost.check_one_host(records, "backend 'cuda_rdma'")
-        cards = {u for r in records for u in r["cards"].values()}
+        hosts = multihost.hosts_of(records)
+        near = [r for r, h in enumerate(hosts) if h == hosts[grid.rank]]
+        cards = {u for r in near for u in records[r]["cards"].values()}
         if len(cards) > 1:
             raise pending("backend 'cuda_rdma' between ranks on different "
-                          f"cards ({len(cards)} cards)", PROCESSES_ITEM)
+                          f"cards of one host ({len(cards)} cards on "
+                          f"{hosts[grid.rank]!r})", PROCESSES_ITEM)
         if not self.local:  # a sub-grid of another's first slots
             shape, dt = next(r["block"] for r in records if r["where"])
             self.block_shape = tuple(shape)
@@ -985,9 +1279,10 @@ class _SlotRun:
         elt = torch.empty((), dtype=self.dtype).element_size()
         block_bytes = C * h * w * elt
         stage_bytes = 2 * C * (h + 2 * self.depth) * self.depth * elt
-        for r, rec in enumerate(records):
+        for r in near:
             if r == grid.rank:
                 continue
+            rec = records[r]
             for s, (di, k) in rec["where"].items():
                 for b in (0, 1):
                     handle, off = rec["bufs"][b][di]
@@ -1001,6 +1296,16 @@ class _SlotRun:
                 base = self._map(handle, dev) + off
                 self.remote[0][s] = base + 8 * s
                 self.remote[1][s] = base + 8 * (n + s)
+        far = {s for s, o in enumerate(grid.owners)
+               if hosts[o] != hosts[grid.rank]}
+        if any(m in far for s in self.local for m in self.neighbours[s]):
+            self.far = _FarExchange(self, grid.owners, hosts, grid.rank)
+            self.far_slots = frozenset(self.far.slots)
+            for s, pair in self.far.mirrors.items():
+                for b in (0, 1):
+                    self.addr[b][s] = pair[b].data_ptr()
+            for s, st in self.far.stages.items():
+                stage_addr[s] = st.data_ptr()
 
     def _map(self, handle: bytes, device) -> int:
         self.mapped.append((handle, device))
@@ -1023,11 +1328,15 @@ class _SlotRun:
     def after(self, s: int, n: int, step: int, staged: bool = False,
               stream=None) -> None:
         """``stream`` (default slot ``s``'s) after slot ``n``'s launch (or
-        pack) of ``step``: its event where ``n`` is this process's, else
-        its counter reaching ``step``."""
+        pack) of ``step``: its event where ``n`` is this process's, its
+        mirror's ``landed`` event where it is on another host (the copy of
+        the last round), else its counter reaching ``step``."""
         st = self.streams[s] if stream is None else stream
         if self.where[n] is not None:
             st.wait_event((self.staged if staged else self.launched)[n])
+            return
+        if n in self.far_slots:  # its mirror's copy of this step
+            st.wait_event(self.far.landed[int(staged)][n])
             return
         from parallel_convolution_tpu_torch.ops import _build
 
@@ -1036,15 +1345,17 @@ class _SlotRun:
         _cu_check(err, f"a wait on slot {n}'s counter")
 
     def remote_neighbours(self) -> list:
-        """The slots of other processes that this process's slots read."""
+        """The slots of this host's other processes that this process's
+        slots read in place (a far slot's reads are of its mirror)."""
         return sorted({n for s in self.local for n in self.neighbours[s]
-                       if self.where[n] is None})
+                       if self.where[n] is None
+                       and n not in self.far_slots})
 
     def close(self) -> None:
         """End the run over processes, collectively: every slot joined and
-        its card idle, this process's maps of its neighbours closed, a
-        barrier (no rank still maps a buffer), then the buffers go.  A
-        no-op in one process."""
+        its card idle, this process's maps of its neighbours closed and
+        its mirrors freed, a barrier (no rank still maps a buffer), then
+        the buffers go.  A no-op in one process."""
         if not self.spans or self.closed:
             return
         from parallel_convolution_tpu_torch.parallel import multihost
@@ -1055,6 +1366,8 @@ class _SlotRun:
         for handle, dev in self.mapped:
             _ipc_unmap(handle, dev)
         self.mapped = []
+        if self.far is not None:
+            self.far.close()
         multihost.barrier("cuda_rdma run closed")
         self.bufs, self.stage, self.tables = [[], []], [], []
         self.closed = True
@@ -1393,6 +1706,9 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
                 out = torch.empty((C, h + 2 * ext, w + 2 * ext), dtype=mid,
                                   device=run.slots[s])
         outs[s] = out
+    far = run.far
+    if far is not None:  # the copies out go ahead of any launch
+        far.send(src, r * T, staged)
     if overlap:
         _overlap_launches(run, fire, src, outs, r * T, ext, partitioned,
                           staged, depth)
@@ -1402,7 +1718,10 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
         # their last launch read (write after read), so it waits on their
         # last launch and on nothing else.  Every wait is enqueued before
         # any of this step's records, so each names the previous launch
-        # (over processes: the neighbour's counter at the previous step).
+        # (over processes: the neighbour's counter at the previous step;
+        # between hosts: the copy into its mirror, this round's).
+        if far is not None:
+            far.receive(src, r * T, staged)
         for s in run.local:
             for n in run.neighbours[s]:
                 run.after(s, n, run.step)
@@ -1411,6 +1730,9 @@ def _slots_step(carry: SlotCarry, filt: Filter, quantize: bool, out_dtype,
                 rdma_pack(run, src, s, depth)
                 run.staged[s].record(streams[s])
                 run.mark(s, k_step, staged=True)
+            if far is not None and far.stages:
+                far.send(src, depth, staged, 1)
+                far.receive(src, depth, staged, 1)
             for s in run.local:
                 for n in run.col_neighbours[s]:
                     run.after(s, n, k_step, staged=True)
@@ -1453,7 +1775,13 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
     Where the previous step read deeper than ``d`` (a single step after a
     fused chunk) and a region writes the carry itself (``ext`` = 0), the
     region also waits for the neighbours whose earlier reads its rows
-    reach at that depth: the write-after-read half of the barrier."""
+    reach at that depth: the write-after-read half of the barrier.
+
+    Between hosts the exchange's round (:class:`_FarExchange`) ends after
+    step 1, so the interiors hide it, and a far neighbour's wait is its
+    mirror's copy; the interiors wait for no far neighbour (those read
+    mirrors of this rank's blocks, not its buffers).  The packed
+    transport's second round follows step 2."""
     _, h, w = run.block_shape
     sched = overlap_schedule(h + 2 * ext, w + 2 * ext, d, ext, partitioned)
     prev = run.last_depth if ext == 0 else 0
@@ -1461,11 +1789,12 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
     seen = [set() for _ in run.slots]
     k_step = run.step + 1
 
-    def wait(s, offsets):
+    def wait(s, offsets, far=True):
         row = run.table[s]
         for di, dj in sorted(offsets):
             n = row[(di + 1) * 3 + dj + 1]
-            if n < 0 or n == s or n in waited[s]:
+            if (n < 0 or n == s or n in waited[s]
+                    or (not far and n in run.far_slots)):
                 continue
             run.after(s, n, run.step)
             waited[s].add(n)
@@ -1478,14 +1807,19 @@ def _overlap_launches(run: _SlotRun, fire, src: int, outs, d: int, ext: int,
     for s in run.local:
         for label, rect, offsets in sched:
             if label == "interior":
-                wait(s, waits_of(rect, offsets))
+                wait(s, waits_of(rect, offsets), far=False)
                 fire(src, s, outs[s], rect)
+    if run.far is not None:
+        run.far.receive(src, d, staged)
     if staged:
         for s in run.local:
             wait(s, {(-1, 0), (1, 0), (0, -1), (0, 1)})
             rdma_pack(run, src, s, depth)
             run.staged[s].record(run.streams[s])
             run.mark(s, k_step, staged=True)
+        if run.far is not None and run.far.stages:
+            run.far.send(src, depth, staged, 1)
+            run.far.receive(src, depth, staged, 1)
     for s in run.local:
         for label, rect, offsets in sched:
             if label == "interior":

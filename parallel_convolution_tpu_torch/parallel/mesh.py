@@ -200,8 +200,9 @@ def _process_grid(shape, device) -> Grid:
     (every slot ``cpu`` with ``device='cpu'``).  The halo slabs between
     ranks travel through ``torch.distributed`` point-to-point calls on host
     memory, which gloo carries, and ``cuda_rdma`` reads a neighbour on
-    another rank of the host through CUDA IPC (``ops/rdma.py``); an NCCL
-    group (one card a process) is item 10d-ii."""
+    another rank of the host through CUDA IPC and one on another host from
+    a mirror gloo fills (``ops/rdma.py``); an NCCL group (one card a
+    process) is item 10d-ii-b."""
     from parallel_convolution_tpu_torch.parallel import multihost
 
     info = multihost.process_info()
@@ -424,16 +425,3 @@ def reblock(blocks, valid_hw, grid: Grid, block_hw, src_grid: Grid | None = None
         for b, dst, piece in landed:
             b[dst] = piece
     return out
-
-
-def check_one_process(grid: Grid | None, what: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 10d-ii where a
-    CPU ``grid`` spans the processes of more than one host (every rank's
-    host compared: a collective).  On the card the run's IPC map makes
-    the same check with the records it gathers (``rdma._SlotRun``), and
-    an NCCL group makes no grid over processes (:func:`_process_grid`)."""
-    if grid is None or not grid.spans_processes or grid.device.type != "cpu":
-        return
-    from parallel_convolution_tpu_torch.parallel import multihost
-
-    multihost.check_one_host(multihost.peer_records({}), what)

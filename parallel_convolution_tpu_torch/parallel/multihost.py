@@ -23,9 +23,11 @@ that): the halo slabs and the pieces of a re-blocked grid (:func:`swap`,
 point to point), the convergence diff (:func:`all_max`), a block another
 rank holds (:func:`fill_blocks`) and small objects (:func:`gather_object`,
 :func:`peer_records`: the CUDA IPC handles through which ``cuda_rdma``
-reads a neighbour's buffer in place, when the ranks share a host,
-:func:`check_one_host`).  The NCCL transport (one card a process) and
-``cuda_rdma`` between hosts are ROADMAP item 10d-ii.
+reads a neighbour's buffer in place where the ranks share a host, and the
+hosts, :func:`hosts_of`, which say where it reads a mirror instead).  A
+job across hosts is launched the same way on every host, each rank given
+the one coordinator's address.  The NCCL transport (one card a process)
+and ``cuda_rdma`` between cards of one host are ROADMAP item 10d-ii-b.
 """
 
 from __future__ import annotations
@@ -169,25 +171,11 @@ def peer_records(record: dict) -> list[dict]:
     return gather_object(dict(record, host=hostname()))
 
 
-def same_host(records, a: int, b: int) -> bool:
-    """Whether ranks ``a`` and ``b`` of :func:`peer_records`' result run on
-    one host."""
-    return records[a]["host"] == records[b]["host"]
-
-
-def check_one_host(records, what: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 10d-ii unless
-    every rank of ``records`` runs on rank 0's host: ``what`` (``cuda_rdma``
-    reading a neighbour's buffer in place) needs the ranks on one host."""
-    from parallel_convolution_tpu_torch.utils.config import (
-        PROCESSES_ITEM, pending,
-    )
-
-    far = [r for r in range(len(records)) if not same_host(records, 0, r)]
-    if far:
-        raise pending(f"{what} between ranks on different hosts (ranks "
-                      f"{far} are not on {records[0]['host']!r})",
-                      PROCESSES_ITEM)
+def hosts_of(records) -> list[str]:
+    """The host of each rank of :func:`peer_records`' result, in rank
+    order: ``cuda_rdma`` reads a neighbour on this host in place (CUDA
+    IPC) and one on another host from a mirror that gloo fills."""
+    return [r["host"] for r in records]
 
 
 def portable(err: BaseException) -> BaseException:
@@ -252,6 +240,25 @@ def _host_buffer(nbytes: int, device) -> torch.Tensor:
                        pin_memory=torch.device(device).type == "cuda")
 
 
+class HostStaging:
+    """Host buffers a caller keeps for every round of :func:`swap`,
+    allocated once and pinned where there is a card: a pinned allocation
+    a round would cost more than the slabs it carries."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+
+    def buffer(self, key, nbytes: int) -> torch.Tensor:
+        """The flat uint8 buffer named ``key``, ``nbytes`` long (grown,
+        never shrunk, when a later round asks for more)."""
+        buf = self._bufs.get(key)
+        if buf is None or buf.numel() < nbytes:
+            buf = self._bufs[key] = torch.empty(
+                nbytes, dtype=torch.uint8,
+                pin_memory=torch.cuda.is_available())
+        return buf[:nbytes]
+
+
 def swap(sends, recvs) -> None:
     """One round of point-to-point slabs between ranks.  ``sends`` are
     ``(rank, tag, tensor)``; ``recvs`` are ``(rank, tag, out)``, each
@@ -259,14 +266,19 @@ def swap(sends, recvs) -> None:
     is posted before any send, all of them non-blocking, and the round
     ends when all have completed, so no ring of ranks deadlocks; a card's
     slab is staged through pinned host memory (gloo's point-to-point calls
-    take host tensors).  Tags name the receiving slab, so one round may
-    carry several slabs between the same two ranks."""
+    take host tensors), and a contiguous host ``out`` (a
+    :class:`HostStaging` buffer) is received into in place.  Tags name
+    the receiving slab, so one round may carry several slabs between the
+    same two ranks."""
     dist = _dist()
     landing, reqs = [], []
     for src, tag, out in recvs:
-        buf = _host_buffer(out.numel() * out.element_size(), out.device)
+        if out.device.type == "cpu" and out.is_contiguous():
+            buf = out.reshape(-1).view(torch.uint8)
+        else:
+            buf = _host_buffer(out.numel() * out.element_size(), out.device)
+            landing.append((buf, out))
         reqs.append(dist.irecv(buf, src=int(src), tag=int(tag)))
-        landing.append((buf, out))
     staged = [(dst, tag, _to_host(t)) for dst, tag, t in sends]
     for dst, tag, buf in staged:
         reqs.append(dist.isend(buf, dst=int(dst), tag=int(tag)))

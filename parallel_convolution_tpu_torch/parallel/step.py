@@ -47,10 +47,12 @@ blocks, the exchange sends a slab between ranks where a neighbour lives on
 another, and the diff is reduced across ranks (``multihost.all_max``, a
 NaN on any rank stopping every rank after the same chunk).  ``cuda_rdma``
 reads a neighbour on another rank of the host in place (CUDA IPC behind
-the counters of ``ops/rdma.py``; on the CPU its plain version after a
-gloo exchange of the rims), ``auto`` takes rank 0's resolution and
-``fallback`` the furthest rung any rank's own probe reached.  The NCCL
-transport and ``cuda_rdma`` between hosts are ROADMAP item 10d-ii.
+the counters of ``ops/rdma.py``) and one on another host from a mirror
+that gloo fills once a chunk (on the CPU its plain version after a gloo
+exchange of the rims, whatever the hosts), ``auto`` takes rank 0's
+resolution and ``fallback`` the furthest rung any rank's own probe
+reached.  The NCCL transport and ``cuda_rdma`` between cards of one host
+are ROADMAP item 10d-ii-b.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ from parallel_convolution_tpu_torch.ops import conv, rdma, stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import halo, kernels as kernel_forms
 from parallel_convolution_tpu_torch.parallel.mesh import (
-    Grid, check_one_process, first_block, join_blocks, local_blocks,
+    Grid, first_block, join_blocks, local_blocks,
     make_grid, padded_extent, reblock, spans, split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
@@ -277,11 +279,9 @@ def _build_rdma_step(filt: Filter, grid: Grid, valid_hw, block_hw,
     ``col_mode``, and with ``overlap`` (resolved: :func:`resolve_overlap`
     keeps it only on a grid of slots) each slot's launch region by region.
     ``interior_split`` is taken and not used, as in the JAX package.  On
-    a grid over the processes of one host each rank launches its own
-    slots, reading a neighbour on another rank through CUDA IPC
-    (``rdma._SlotRun``); ranks on different hosts raise (ROADMAP item
-    10d-ii)."""
-    check_one_process(grid, "backend 'cuda_rdma'")
+    a grid over processes each rank launches its own slots, reading a
+    neighbour on another rank of its host through CUDA IPC and one on
+    another host from a mirror (``rdma._SlotRun``)."""
     periodic, _ = _boundary_geometry(grid.shape, valid_hw, block_hw, boundary)
     # The in-kernel exchange failing to build (pallas_rdma's site).
     fault_point("halo_exchange")

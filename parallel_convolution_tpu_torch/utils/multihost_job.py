@@ -33,7 +33,11 @@ Spawn the ranks from one parent (``spawn``: CUDA does not survive
         --iters 100 --every 50 --backend cuda
 
 Like the port's other entry points it runs on the card unless
-``--device cpu`` asks for the CPU.
+``--device cpu`` asks for the CPU.  Across hosts, start it under
+``torchrun`` on every host with one coordinator (``--nnodes N
+--node-rank K --master-addr HOST0 --master-port P``) and a ``--work``
+directory that every host sees; ``cuda_rdma`` then reads a neighbour on
+another host from a mirror that gloo fills once a chunk.
 
 Two ranks may share one card (its slots then time-slice between two CUDA
 contexts); the group is gloo, whose point-to-point calls carry the halo

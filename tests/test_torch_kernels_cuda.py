@@ -1751,7 +1751,7 @@ def test_soak_rows_all_ok_on_the_card(cuda_device, capsys, argv):
     assert sum(stencil.launch_counts().values()) > 0
 
 
-# ------------------------------------- a grid over processes (item 10d-i)
+# ------------------- a grid over processes (items 10d-i and 10d-ii-a)
 
 # K3 (grey u8 fuse 4: 32x40 blocks fit one CUDA block's shared memory) and
 # K4 (RGB bf16 fuse 8: 300x320 blocks do not), each transport, overlap off
@@ -1853,7 +1853,92 @@ def _cross_checks(rank: int, port: int) -> dict:
                                fuse=2, col_mode="packed")
     rdma._slots_step = real
     row["skew"] = out.cpu().numpy()
+    row.update(_far_checks(rank, grid))
     multihost.barrier("done")
+    return row
+
+
+class _Exchanges:
+    """Every ``rdma._FarExchange`` made while installed, and the IPC maps
+    opened (the mirror path and the in-place path, told apart)."""
+
+    def __init__(self):
+        self.made, self.maps = [], 0
+        self._init, self._map = rdma._FarExchange.__init__, rdma._ipc_map
+
+    def __enter__(self):
+        made, init, ipc_map = self.made, self._init, self._map
+
+        def init_(ex, *a, **k):
+            init(ex, *a, **k)
+            made.append(ex)
+
+        def map_(*a, **k):
+            self.maps += 1
+            return ipc_map(*a, **k)
+
+        rdma._FarExchange.__init__, rdma._ipc_map = init_, map_
+        return self
+
+    def __exit__(self, *exc):
+        rdma._FarExchange.__init__, rdma._ipc_map = self._init, self._map
+
+    def rounds(self, rnd: int) -> int:
+        return sum(t["round"] == rnd for ex in self.made for t in ex.times)
+
+
+def _far_checks(rank: int, grid) -> dict:
+    """Item 10d-ii-a on the two ranks: each reports a host of its own, so
+    it reads the other's slots from mirrors gloo fills once a chunk; then
+    a failed IPC map between ranks of one host, which raises."""
+    from parallel_convolution_tpu_torch.parallel import multihost, step
+    from parallel_convolution_tpu_torch.solvers import multigrid
+
+    row = {}
+    real = multihost.hostname
+    multihost.hostname = lambda: f"host{rank}"
+    try:
+        for name, h, w, mode, storage, fuse in CROSS_CASES:
+            x = imageio.interleaved_to_planar(imageio.generate_test_image(
+                h, w, mode, seed=11)).astype(np.float32)
+            for cm in ("strided", "packed"):
+                for ov in (False, True):
+                    stencil.reset_launch_counts()
+                    with _Exchanges() as ex:
+                        out = step.sharded_iterate(
+                            x, get_filter("blur3"), CROSS_ITERS, grid=grid,
+                            backend="cuda_rdma", storage=storage, fuse=fuse,
+                            col_mode=cm, overlap=ov)
+                    row["far", name, cm, ov] = (
+                        out.cpu().numpy(), stencil.launch_counts(),
+                        ex.rounds(0), ex.rounds(1), ex.maps)
+        with _Exchanges() as ex:
+            out, res = multigrid.mg_converge(
+                _mg_field(), get_filter("jacobi3"), 1e-3, 30, grid=grid,
+                backend="cuda_rdma")
+        row["far_mg"] = (out.cpu().numpy(), res.cycles, len(ex.made),
+                         all(not e.mirrors and not e.stages
+                             for e in ex.made), len(rdma._IPC_MAPS))
+    finally:
+        multihost.hostname = real
+    # One host again, and its IPC map fails: the run raises on both ranks
+    # and no mirror is made in its place.
+    real_map = rdma._ipc_map
+
+    def refused(handle, device):
+        rdma._cu_check(1, f"mapping a neighbour's memory on {device}")
+
+    rdma._ipc_map = refused
+    try:
+        with _Exchanges() as ex:
+            step.sharded_iterate(
+                np.zeros((1, 64, 80), np.float32), get_filter("blur3"), 2,
+                grid=grid, backend="cuda_rdma", storage="u8", fuse=2)
+        row["map_refused"] = ("", len(ex.made))
+    except RuntimeError as e:
+        row["map_refused"] = (str(e), len(ex.made))
+    finally:
+        rdma._ipc_map = real_map
     return row
 
 
@@ -1948,6 +2033,176 @@ def test_counter_barrier_under_skew(cross_ranks):
         get_filter("blur3"), CROSS_ITERS)).astype(np.float32)
     for r in (0, 1):
         np.testing.assert_array_equal(cross_ranks[r]["skew"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("col_mode", ["strided", "packed"])
+@pytest.mark.parametrize("overlap", [False, True])
+def test_rdma_slots_between_two_hosts_are_the_plain_version(
+        cross_ranks, case, col_mode, overlap, monkeypatch):
+    # The ranks report two hosts: the other rank's slots are read from
+    # mirrors, one exchange round a chunk (no IPC map), and the bytes are
+    # the plain version's.
+    from parallel_convolution_tpu_torch.parallel import step
+
+    name, h, w, mode, storage, fuse = case
+    x = imageio.interleaved_to_planar(imageio.generate_test_image(
+        h, w, mode, seed=11)).astype(np.float32)
+    monkeypatch.setenv(step.OVERLAP_INTERPRET_ENV, "1")
+    plain = step.sharded_iterate(
+        x, get_filter("blur3"), CROSS_ITERS,
+        grid=mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu"),
+        backend="cuda_rdma", storage=storage, fuse=fuse, col_mode=col_mode,
+        overlap=overlap).numpy()
+    kernel = ("rdma_block" if name == "k3" else "rdma_tiled") + (
+        "_region" if overlap else "_slot")
+    chunks = -(-CROSS_ITERS // fuse)
+    for r in (0, 1):
+        out, counts, rounds, stage_rounds, maps = cross_ranks[r][
+            "far", name, col_mode, overlap]
+        np.testing.assert_array_equal(out, plain)
+        assert counts[kernel] == 2 * chunks * (5 if overlap else 1)
+        # The ranks split the grid's rows: no far column neighbour, so no
+        # staging round; the probe's run adds none (no fallback).
+        assert (rounds, stage_rounds, maps) == (chunks, 0, 0)
+
+
+@pytest.mark.cuda
+def test_failed_ipc_map_raises_and_no_mirror_serves_it(cross_ranks):
+    for r in (0, 1):
+        msg, mirrors = cross_ranks[r]["map_refused"]
+        assert "CUDA IPC" in msg and "no host-staged" in msg
+        assert mirrors == 0
+
+
+@pytest.mark.cuda
+def test_multigrid_between_two_hosts_frees_its_mirrors(cross_ranks):
+    want, res = multigrid_one_card()
+    for r in (0, 1):
+        out, cycles, runs, freed, maps = cross_ranks[r]["far_mg"]
+        assert cycles == res.cycles
+        np.testing.assert_array_equal(out, want)
+        assert runs > 0 and freed and maps == 0
+
+
+def multigrid_one_card():
+    from parallel_convolution_tpu_torch.solvers import multigrid
+
+    want, res = multigrid.mg_converge(
+        _mg_field(), get_filter("jacobi3"), 1e-3, 30,
+        grid=mesh.make_grid((2, 2), devices=["cuda:0"] * 4),
+        backend="cuda_rdma")
+    return want.cpu().numpy(), res
+
+
+# Four ranks, one slot each at 2x2, on two reported hosts: rows (hosts
+# {0, 0, 1, 1}: the column neighbours through CUDA IPC, the rows and
+# corners from mirrors) and columns ({0, 1, 0, 1}: the other way round,
+# packed with a staging round), zero and periodic.
+FOUR_HOSTS = {"rows": (0, 0, 1, 1), "cols": (0, 1, 0, 1)}
+FOUR_CASES = [(cm, ov, b) for cm in ("strided", "packed")
+              for ov in (False, True) for b in ("zero", "periodic")]
+FOUR_FUSE = 4
+
+
+def _four_img():
+    return imageio.interleaved_to_planar(imageio.generate_test_image(
+        64, 80, "grey", seed=13)).astype(np.float32)
+
+
+def _four_checks(rank: int, port: int) -> dict:
+    from parallel_convolution_tpu_torch.parallel import multihost, step
+
+    multihost.initialize(f"localhost:{port}", num_processes=4,
+                         process_id=rank)
+    grid = mesh.make_grid((2, 2), devices="all")
+    row = {"owners": grid.owners}
+    real = multihost.hostname
+    try:
+        for label, hosts in FOUR_HOSTS.items():
+            multihost.hostname = lambda: f"host{hosts[rank]}"
+            for cm, ov, b in FOUR_CASES:
+                with _Exchanges() as ex:
+                    out = step.sharded_iterate(
+                        _four_img(), get_filter("blur3"), CROSS_ITERS,
+                        grid=grid, backend="cuda_rdma", storage="u8",
+                        fuse=FOUR_FUSE, col_mode=cm, overlap=ov, boundary=b)
+                row[label, cm, ov, b] = (out.cpu().numpy(), ex.rounds(0),
+                                         ex.rounds(1), ex.maps)
+    finally:
+        multihost.hostname = real
+    multihost.barrier("done")
+    return row
+
+
+def _four_worker(rank: int, port: int, results) -> None:
+    import torch.distributed as dist
+
+    try:
+        results[rank] = _four_checks(rank, port)
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        results[rank] = {"error": f"{type(e).__name__}: {e}"}
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def four_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    import torch.multiprocessing as mp
+
+    from parallel_convolution_tpu_torch.ops import _build
+    from parallel_convolution_tpu_torch.utils import multihost_job
+
+    _build.build_all()
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        results = manager.dict()
+        port = multihost_job.free_port()
+        procs = [ctx.Process(target=_four_worker,
+                             args=(r, port, results)) for r in range(4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        got = {r: dict(results.get(r, {"error": "no result"}))
+               for r in range(4)}
+        assert [p.exitcode for p in procs] == [0] * 4, got
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", sorted(FOUR_HOSTS))
+@pytest.mark.parametrize("col_mode,overlap,boundary", FOUR_CASES)
+def test_four_ranks_on_two_hosts_mix_ipc_and_mirrors(
+        four_ranks, hosts, col_mode, overlap, boundary, monkeypatch):
+    from parallel_convolution_tpu_torch.parallel import step
+
+    monkeypatch.setenv(step.OVERLAP_INTERPRET_ENV, "1")
+    plain = step.sharded_iterate(
+        _four_img(), get_filter("blur3"), CROSS_ITERS,
+        grid=mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu"),
+        backend="cuda_rdma", storage="u8", fuse=FOUR_FUSE,
+        col_mode=col_mode, overlap=overlap, boundary=boundary).numpy()
+    chunks = -(-CROSS_ITERS // FOUR_FUSE)
+    for r in range(4):
+        assert four_ranks[r]["owners"] == (0, 1, 2, 3)
+        out, rounds, stage_rounds, maps = four_ranks[r][
+            hosts, col_mode, overlap, boundary]
+        np.testing.assert_array_equal(out, plain)
+        # Each rank maps its neighbour on its own host and mirrors the two
+        # on the other: one round a chunk, a staging round too where the
+        # far neighbours are its column neighbours (packed).
+        assert maps > 0 and rounds == chunks
+        assert stage_rounds == (chunks if hosts == "cols"
+                                and col_mode == "packed" else 0)
 
 
 @pytest.mark.cuda

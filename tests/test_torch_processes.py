@@ -1,12 +1,14 @@
-"""The paths of a grid over the processes of one host (ROADMAP item 10d-i)
+"""The paths of a grid over processes (ROADMAP items 10d-i and 10d-ii-a)
 in two gloo processes on the CPU: ``cuda_rdma`` (its plain version per
 rank after a gloo exchange of the rims: strided and packed, fuse 1 and 2,
 the overlapped schedule with its missed-wait detector), ``auto``,
 ``fallback=True``, ``reshard_prepared`` / ``mesh.reblock`` / ``grid_like``,
 the V-cycle, volumes and the warm engine, each against the oracle, the
-one-process port and the JAX package on the same seeded input; and what
-item 10d-ii holds (an NCCL group, ``cuda_rdma`` between hosts) refused
-naming it.
+one-process port and the JAX package on the same seeded input; the same
+legs with the ranks reporting two hosts; and what item 10d-ii-b holds
+(an NCCL group) refused naming it.  Without a spawn: the mirror plan of a
+neighbour on another host (``rdma.mirror_plan`` / ``far_slabs``) covers
+what a launch and a pack read.
 
 The ranks run once a module (``ranks``: one spawn of two processes) and
 the tests read their rows.  Against the port's own one-process runs every
@@ -32,6 +34,8 @@ IMG_SEED, ITERS = 5, 3
 RDMA_CASES = [(fuse, col_mode, overlap) for fuse in (1, 2)
               for col_mode in ("strided", "packed")
               for overlap in (False, True)]
+FAR_CASES = [(storage, col_mode) for storage in ("u8", "bf16")
+             for col_mode in ("strided", "packed")]
 VOLUME_SHAPE = (2, 4, 8, 8)
 RESHARD = ((1, 2), (4, 2))
 
@@ -144,16 +148,15 @@ def _rank_checks(rank: int, port: int, work: str) -> dict:
     row["engine_converge"] = [
         (img, done, diff) for img, done, diff, _ in eng.run_converge(
             ckey, _field(), tol=1e-2, max_iters=40, check_every=4)][-1]
-    # What item 10d-ii holds: cuda_rdma between hosts (the ranks report
-    # different hosts), an NCCL group.
+    # Item 10d-ii-a: the same legs with the ranks reporting different
+    # hosts, as two hosts' ranks do (on the CPU every path runs its plain
+    # version over gloo, whatever the hosts).
     real = multihost.hostname
     multihost.hostname = lambda: f"host{rank}"
     try:
-        step.sharded_iterate(x, blur3, 1, grid=grid, backend="cuda_rdma")
-        row["other_host"] = ""
-    except NotImplementedError as e:
-        row["other_host"] = str(e)
-    multihost.hostname = real
+        row["far"] = _far_legs(rank, grid, x)
+    finally:
+        multihost.hostname = real
     real_backend = multihost.backend
     multihost.backend = lambda: "nccl"
     try:
@@ -177,6 +180,61 @@ def _rank_checks(rank: int, port: int, work: str) -> dict:
     multihost.backend = real_backend
     multihost.barrier("done")
     return row
+
+
+def _far_legs(rank: int, grid, x) -> dict:
+    """One rank's legs between two reported hosts (the spawn's second
+    half): ``cuda_rdma`` u8 and bf16, strided and packed, overlapped, a
+    float converge, ``auto``, ``fallback=True``, the V-cycle, a volume and
+    the engine."""
+    import warnings
+
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.parallel import multihost, step
+    from parallel_convolution_tpu_torch.resilience import degrade, faults
+    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
+    from parallel_convolution_tpu_torch.solvers import multigrid
+    from parallel_convolution_tpu_torch.volumes import driver
+
+    blur3, jacobi3 = get_filter("blur3"), get_filter("jacobi3")
+    far = {"hosts": multihost.hosts_of(multihost.peer_records({}))}
+    for storage, cm in FAR_CASES:
+        far[storage, cm] = step.sharded_iterate(
+            x, blur3, ITERS, grid=grid, backend="cuda_rdma", fuse=2,
+            storage=storage, col_mode=cm).numpy()
+    far["overlap"] = step.sharded_iterate(
+        x, blur3, ITERS, grid=grid, backend="cuda_rdma", fuse=2,
+        storage="u8", col_mode="strided", overlap=True).numpy()
+    far["converge"] = step.sharded_converge(
+        _field(), jacobi3, 1e-2, 40, check_every=4, grid=grid,
+        backend="cuda_rdma", fuse=2)
+    far["converge"] = (far["converge"][0].numpy(), far["converge"][1])
+    out = step.sharded_iterate(x, blur3, ITERS, grid=grid, backend="auto")
+    far["auto"] = (out.numpy(), tuning.last_resolution())
+    degrade.clear_probe_cache()  # the first half's verdicts
+    if rank == 1:
+        faults.install_plan("backend_compile:1")
+    model = ConvolutionModel("blur3", grid=grid, backend="cuda_rdma",
+                             fallback=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = model.run_planar(x, ITERS)
+    faults.install_plan(None)
+    far["fallback"] = (out.numpy(), model.effective_backend,
+                       [str(w.message) for w in caught
+                        if "degraded" in str(w.message)])
+    out, res = multigrid.mg_converge(_field(), jacobi3, 1e-3, 30, grid=grid,
+                                     backend="cuda_rdma")
+    far["multigrid"] = (out.numpy(), res.cycles, res.residuals)
+    far["volume"] = driver.volume_iterate(_volume(), "fd7", 3, grid=grid,
+                                          fuse=2).numpy()
+    eng = WarmEngine(grid, fallback=False)
+    key = eng.key_for((3, 13, 19), filter_name="blur3", iters=ITERS,
+                      backend="cuda_rdma", storage="u8", fuse=2)
+    out, info = eng.run_batch(key, np.stack([x, x[::-1].copy()]))
+    far["engine"] = (out, info["effective_backend"])
+    return far
 
 
 def _worker(rank: int, port: int, work: str, results) -> None:
@@ -401,9 +459,294 @@ def test_engine_converge_across_processes(ranks):
 
 
 def test_item_10d_ii_is_refused(ranks):
+    # What is left of item 10d-ii, 10d-ii-b: an NCCL group (one card a
+    # process), refused by the grid and by the CLI (exit 2).
     for r in (0, 1):
-        for msg in (ranks[r]["other_host"], ranks[r]["nccl"]):
-            assert "item 10d-ii" in msg and "not ported yet" in msg
-        assert "different hosts" in ranks[r]["other_host"]
+        msg = ranks[r]["nccl"]
+        assert "item 10d-ii-b" in msg and "not ported yet" in msg
         rc, err = ranks[r]["nccl_cli"]
-        assert rc == 2 and "item 10d-ii" in err
+        assert rc == 2 and "item 10d-ii-b" in err
+
+
+def test_cpu_grid_over_two_hosts_runs(ranks):
+    # Refused until item 10d-ii-a: the ranks report two hosts, and
+    # cuda_rdma on their CPU grid runs (its rims over gloo).
+    for r in (0, 1):
+        far = ranks[r]["far"]
+        assert far["hosts"] == ["host0", "host1"]
+        assert far["u8", "strided"].shape == _planar().shape
+
+
+@pytest.mark.parametrize("storage,col_mode", FAR_CASES)
+def test_cuda_rdma_between_hosts_is_the_oracle_and_one_process(
+        ranks, storage, col_mode):
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    one = step.sharded_iterate(
+        _planar(), get_filter("blur3"), ITERS,
+        grid=mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu"),
+        backend="cuda_rdma", fuse=2, storage=storage,
+        col_mode=col_mode).numpy()
+    np.testing.assert_array_equal(one, _oracle_planar())
+    for r in (0, 1):
+        np.testing.assert_array_equal(ranks[r]["far"][storage, col_mode],
+                                      one)
+
+
+def test_cuda_rdma_between_hosts_is_the_jax_rdma_kernel(ranks):
+    # As test_cuda_rdma_across_processes_is_the_jax_rdma_kernel: the JAX
+    # package's pallas_rdma on a 2x2 mesh in interpret mode.
+    import jax
+
+    from parallel_convolution_tpu.ops import filters as jfilters
+    from parallel_convolution_tpu.parallel import mesh as jmesh
+    from parallel_convolution_tpu.parallel import step as jstep
+    from parallel_convolution_tpu.utils import jax_compat
+
+    if not jax_compat.HAS_TPU_INTERPRET:
+        pytest.skip("DMA-faithful TPU interpret mode unavailable in this jax")
+    want = np.asarray(jstep.sharded_iterate(
+        _planar(), jfilters.get_filter("blur3"), ITERS,
+        mesh=jmesh.make_grid_mesh(jax.devices()[:4], (2, 2)),
+        quantize=True, backend="pallas_rdma"))
+    for r in (0, 1):
+        for key in FAR_CASES + ["overlap"]:
+            got = ranks[r]["far"][key]
+            np.testing.assert_array_equal(got, want)
+
+
+def test_overlap_and_converge_between_hosts(ranks, monkeypatch):
+    # The overlapped schedule against one process's; the float converge
+    # (jacobi3's dyadic taps: one process's bits) the same stop and field.
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    monkeypatch.setenv(step.OVERLAP_INTERPRET_ENV, "1")
+    slots = mesh.make_grid((2, 2), devices="cpu,cpu,cpu,cpu")
+    one = step.sharded_iterate(
+        _planar(), get_filter("blur3"), ITERS, grid=slots,
+        backend="cuda_rdma", fuse=2, storage="u8", col_mode="strided",
+        overlap=True).numpy()
+    conv, iters = step.sharded_converge(
+        _field(), get_filter("jacobi3"), 1e-2, 40, check_every=4,
+        grid=slots, backend="cuda_rdma", fuse=2)
+    for r in (0, 1):
+        far = ranks[r]["far"]
+        np.testing.assert_array_equal(far["overlap"], one)
+        np.testing.assert_array_equal(far["overlap"], _oracle_planar())
+        out, done = far["converge"]
+        assert done == iters
+        np.testing.assert_array_equal(out, conv.numpy())
+
+
+def test_auto_and_fallback_between_hosts(ranks):
+    from tests._torch_jax_state import reset_jax_state
+
+    reset_jax_state()
+    assert ranks[0]["far"]["auto"][1] == ranks[1]["far"]["auto"][1]
+    for r in (0, 1):
+        np.testing.assert_array_equal(ranks[r]["far"]["auto"][0],
+                                      _oracle_planar())
+        out, eff, warned = ranks[r]["far"]["fallback"]
+        assert eff == "cuda"
+        assert warned and "'cuda_rdma' degraded to 'cuda'" in warned[0]
+        np.testing.assert_array_equal(out, _oracle_planar())
+
+
+def test_multigrid_volume_and_engine_between_hosts(ranks):
+    # Bit-equal to the same legs on one host (the spawn's first half),
+    # which the tests above hold against one process, the oracle and JAX
+    # (multigrid within multigrid.float_tolerance, the volume within
+    # atol=1e-5 of JAX volume_iterate).
+    x = _planar()
+    want = np.stack([_oracle_planar(),
+                     imageio.interleaved_to_planar(oracle.run_serial_u8(
+                         imageio.planar_to_interleaved(
+                             x[::-1].astype(np.uint8)),
+                         get_filter("blur3"), ITERS)).astype(np.float32)])
+    for r in (0, 1):
+        far, near = ranks[r]["far"], ranks[r]
+        out, cycles, residuals = far["multigrid"]
+        np.testing.assert_array_equal(out, near["multigrid"][0])
+        assert (cycles, residuals) == (near["multigrid"][1],
+                                       near["multigrid"][3])
+        np.testing.assert_array_equal(far["volume"], near["volume"])
+        out, eff = far["engine"]
+        assert eff == "cuda_rdma"
+        np.testing.assert_array_equal(out, want)
+
+
+# --------------------- the mirror plan of a neighbour on another host
+
+# (filter, fuse): ghost depth 1 (blur3 x 1) and r*T = 4 (gaussian5 x 2).
+MIRROR_DEPTHS = [("blur3", 1), ("gaussian5", 2)]
+MIRROR_GRIDS = [(2, 2), (3, 3), (1, 3), (3, 1), (2, 3)]
+
+
+def _mirror_blocks(grid_shape, seed=0):
+    import torch
+
+    R, Cg = grid_shape
+    g = torch.Generator().manual_seed(seed)
+    return [[torch.rand((2, 6, 7), generator=g) * 255 for _ in range(Cg)]
+            for _ in range(R)]
+
+
+def _mirror_of(block, plan, stage=None, d=0):
+    """A far block as a mirror holds it: NaN but for the plan's slices
+    (and, packed, its staging's planned sides)."""
+    import torch
+
+    m = torch.full_like(block, float("nan"))
+    for r0, r1, c0, c1 in plan.rects:
+        m[:, r0:r1, c0:c1] = block[:, r0:r1, c0:c1]
+    st = None
+    if stage is not None:
+        st = torch.full_like(stage, float("nan"))
+        for side in plan.sides:
+            st[side] = stage[side]
+    return m, st
+
+
+def _staged_window(flat, stages, table, s, shape, d):
+    """Block ``s``'s level-0 window as K3 reads it with the packed column
+    transport: its rows' ghosts from the upper and lower blocks (the
+    interior columns), its column ghosts, corners included, from the left
+    and right neighbours' staging (side 1 of the left one, 0 of the
+    right one), zeros where there is no neighbour."""
+    import torch
+
+    C, h, w = shape
+    p = torch.zeros((C, h + 2 * d, w + 2 * d))
+    p[:, d:d + h, d:d + w] = flat[s]
+    for di, rows, src in ((-1, slice(0, d), slice(h - d, h)),
+                          (1, slice(d + h, h + 2 * d), slice(0, d))):
+        n = table[s][(di + 1) * 3 + 1]
+        if n >= 0:
+            p[:, rows, d:d + w] = flat[n][:, src, :]
+    for dj, cols, side in ((-1, slice(0, d), 1),
+                           (1, slice(d + w, w + 2 * d), 0)):
+        n = table[s][4 + dj]
+        if n >= 0:
+            p[:, :, cols] = stages[n][side]
+    return p
+
+
+@pytest.mark.parametrize("filt,fuse", MIRROR_DEPTHS)
+@pytest.mark.parametrize("boundary", ["zero", "periodic"])
+@pytest.mark.parametrize("grid_shape", MIRROR_GRIDS)
+def test_mirror_plan_covers_what_a_launch_reads(grid_shape, boundary, filt,
+                                                fuse):
+    # Every neighbour n of every block s in turn replaced by a mirror
+    # filled from mirror_plan(s, n) alone (NaN elsewhere): the plain K3 /
+    # K4 gives s the bytes it gives reading the real blocks, strided; and
+    # packed, s's window read through the stagings (rows from the upper
+    # and lower blocks, columns from the staging sides) and s's own pack
+    # are the halo exchange's and the plain pack's.
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.parallel import channels, halo
+
+    R, Cg = grid_shape
+    f = get_filter(filt)
+    d = f.radius * fuse
+    blocks = _mirror_blocks(grid_shape)
+    shape = tuple(blocks[0][0].shape)
+    table = channels.neighbour_table(grid_shape, boundary)
+    valid = (R * shape[1] - 1, Cg * shape[2] - 2)  # ragged last blocks
+    kw = dict(boundary=boundary, quantize=False, fuse=fuse,
+              valid_hw=valid)
+    want = rdma.fused_rdma_step_plain(blocks, f, grid_shape, **kw)
+    padded = halo.halo_exchange(blocks, d, grid_shape, boundary)
+    stages = rdma.rdma_pack_plain(blocks, grid_shape, boundary, d)
+    flat = [b for row in blocks for b in row]
+    packed = Cg > 1
+    for s in range(R * Cg):
+        i, j = divmod(s, Cg)
+        for n in sorted(set(table[s]) - {-1, s}):
+            plan = rdma.mirror_plan(table, s, n, shape, d)
+            seen = [list(row) for row in blocks]
+            seen[n // Cg][n % Cg] = _mirror_of(flat[n], plan)[0]
+            got = rdma.fused_rdma_step_plain(seen, f, grid_shape, **kw)
+            assert torch.equal(got[i][j], want[i][j]), (s, n, plan)
+            assert plan.sides == ()
+            if not packed:
+                continue
+            plan = rdma.mirror_plan(table, s, n, shape, d, packed=True)
+            mirror, stage = _mirror_of(flat[n], plan, stages[n], d)
+            seen_flat = list(flat)
+            seen_flat[n] = mirror
+            seen_stages = list(stages)
+            seen_stages[n] = stage
+            window = _staged_window(seen_flat, seen_stages, table, s, shape,
+                                    d)
+            assert torch.equal(window, padded[i][j]), (s, n, plan)
+            own = rdma.rdma_pack_plain(
+                [seen_flat[k * Cg:(k + 1) * Cg] for k in range(R)],
+                grid_shape, boundary, d)[s]
+            assert torch.equal(own, stages[s]), (s, n, plan)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("grid_shape,owners", [
+    ((2, 2), (0, 0, 1, 1)), ((2, 2), (0, 1, 0, 1)), ((2, 2), (0, 1, 2, 3)),
+    ((4, 4), (0,) * 8 + (1,) * 8), ((3, 2), (0, 0, 1, 1, 2, 2))])
+@pytest.mark.parametrize("boundary", ["zero", "periodic"])
+def test_far_slabs_fill_a_ranks_mirrors(grid_shape, owners, boundary,
+                                        packed):
+    # Each rank's mirrors of the other ranks' slots filled from
+    # far_slabs(reader=rank, owner) alone (the list the owner copies out
+    # for that reader, and the reader copies in): its blocks' plain K3 /
+    # K4 (strided) or their windows and packs through the stagings
+    # (packed) are the real ones.
+    import torch
+
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.parallel import channels, halo
+
+    R, Cg = grid_shape
+    f = get_filter("gaussian5")
+    fuse, d = 2, 4
+    blocks = _mirror_blocks(grid_shape, seed=3)
+    shape = tuple(blocks[0][0].shape)
+    table = channels.neighbour_table(grid_shape, boundary)
+    valid = (R * shape[1], Cg * shape[2] - 1)
+    kw = dict(boundary=boundary, quantize=False, fuse=fuse, valid_hw=valid)
+    want = rdma.fused_rdma_step_plain(blocks, f, grid_shape, **kw)
+    padded = halo.halo_exchange(blocks, d, grid_shape, boundary)
+    stages = rdma.rdma_pack_plain(blocks, grid_shape, boundary, d)
+    flat = [b for row in blocks for b in row]
+    packed = packed and Cg > 1
+    ranks = sorted(set(owners))
+    for a in ranks:
+        seen, seen_stages = list(flat), list(stages)
+        for b in ranks:
+            if b == a:
+                continue
+            slabs = rdma.far_slabs(table, owners, a, b, shape, d, packed)
+            assert all(owners[n] == b and (p.rects or p.sides)
+                       for n, p in slabs)
+            for n in range(len(flat)):
+                if owners[n] == b:
+                    plan = dict(slabs).get(n, rdma.MirrorPlan((), ()))
+                    seen[n], st = _mirror_of(flat[n], plan, stages[n], d)
+                    seen_stages[n] = st
+        mine = [s for s, o in enumerate(owners) if o == a]
+        if packed:
+            for s in mine:
+                i, j = divmod(s, Cg)
+                window = _staged_window(seen, seen_stages, table, s, shape,
+                                        d)
+                assert torch.equal(window, padded[i][j]), (a, s)
+            packs = rdma.rdma_pack_plain(
+                [seen[k * Cg:(k + 1) * Cg] for k in range(R)], grid_shape,
+                boundary, d)
+            for s in mine:
+                assert torch.equal(packs[s], stages[s]), (a, s)
+        else:
+            got = rdma.fused_rdma_step_plain(
+                [seen[k * Cg:(k + 1) * Cg] for k in range(R)], f,
+                grid_shape, **kw)
+            for s in mine:
+                i, j = divmod(s, Cg)
+                assert torch.equal(got[i][j], want[i][j]), (a, s)

@@ -2950,7 +2950,8 @@ def obs_phase(dev, tmp: Path, refs: dict, totals: dict, keep: dict) -> dict:
         out["overhead"][label] = row
         check(row["ratio"] <= OBS_OVERHEAD_LIMIT,
               f"obs overhead {label}: on / off {row['ratio']:.3f} above "
-              f"{OBS_OVERHEAD_LIMIT}")
+              f"{OBS_OVERHEAD_LIMIT} (turns off {row['turns_off']}, on "
+              f"{row['turns_on']})")
 
     # The predicted exchange share of the fuse-1 run beside a measured one:
     # its rounds x the halo exchange's p50 at that block over its resident

@@ -491,5 +491,5 @@ def reset() -> None:
 
 def dump(path) -> None:
     """Write the snapshot JSON (the input of ``obs.report --metrics``)."""
-    with open(path, "w") as f:  # an exit-time snapshot, not a durable surface
+    with open(path, "w") as f:  # diskio: exempt — exit-time snapshot
         json.dump(snapshot(), f, indent=2)

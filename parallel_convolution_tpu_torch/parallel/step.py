@@ -800,7 +800,7 @@ def _slots_max_diff(cur, prev, device=None) -> torch.Tensor:
     return torch.stack([d.to(dev) for d in diffs]).amax()
 
 
-def _carry_diff(cur, prev, grid: Grid, backend: str) -> torch.Tensor:
+def _carry_diff(cur, prev, grid: Grid) -> torch.Tensor:
     """The MPI_Allreduce (``lax.pmax`` in the JAX package): the max-abs
     change of one iteration over every block and channel, the pad rim
     included (zero in both), as a 0-d tensor on the grid's device.  Each
@@ -809,8 +809,6 @@ def _carry_diff(cur, prev, grid: Grid, backend: str) -> torch.Tensor:
     each rank reduces its blocks and the ranks their shares
     (``multihost.all_max``: the 0-d result on the host, NaN if any rank's
     is)."""
-    if backend == "cuda_rdma" and not grid.slotted:
-        return _max_abs_diff(cur, prev)
     if isinstance(cur, rdma.SlotCarry):
         cur.run.join()
         d = _slots_max_diff([cur.parts], [prev.parts], grid.device)
@@ -861,7 +859,7 @@ def _build_converge_chunk(grid: Grid, filt: Filter, n: int, quantize: bool,
             for _ in range((n - 1) % fuse):
                 prev = step(prev)
         cur = step(prev)
-        return cur, _carry_diff(cur, prev, grid, backend)
+        return cur, _carry_diff(cur, prev, grid)
 
     return chunk
 

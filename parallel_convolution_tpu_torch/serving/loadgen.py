@@ -837,7 +837,7 @@ def main(argv: list[str] | None = None) -> int:
 
         tp = Path(args.trace_out)
         tp.parent.mkdir(parents=True, exist_ok=True)
-        with open(tp, "w") as f:
+        with open(tp, "w") as f:  # diskio: exempt — own trace, not drilled
             for i, ts, lat, s, r in sorted(results):
                 line = {
                     "request_id": r.get("request_id") or f"lg{i}",
@@ -1097,7 +1097,8 @@ def main(argv: list[str] | None = None) -> int:
 
         p = Path(args.out)
         p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(json.dumps(row, indent=2))
+        p.write_text(  # diskio: exempt — own result row, not drilled
+            json.dumps(row, indent=2))
     if service is not None:
         service.close()
     return 1 if non_rejected_failures else 0

@@ -573,7 +573,7 @@ def _build_fine_smooth(lv: Level, filt: Filter, n: int, s: _Solve,
             return u
         su = step(u)
         return (_map(_damped, u, su),
-                step_lib._carry_diff(su, u, lv.grid, s.backend))
+                step_lib._carry_diff(su, u, lv.grid))
 
     return run
 

@@ -119,7 +119,7 @@ def write_block(
 
 def allocate_raw(path: str | os.PathLike, rows: int, cols: int, mode: Mode) -> None:
     """Create (or truncate) a raw file of the full image size, zero-filled."""
-    with open(path, "wb") as f:
+    with open(path, "wb") as f:  # diskio: exempt — image scaffolding
         f.truncate(rows * cols * _channels(mode))
 
 

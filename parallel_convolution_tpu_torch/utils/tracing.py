@@ -130,7 +130,7 @@ class PhaseTimer:
             return self.walls.get(name, 0.0)
 
     def dump(self, path) -> None:
-        with open(path, "w") as f:  # an exit-time report
+        with open(path, "w") as f:  # diskio: exempt — exit-time report
             json.dump(self.report(), f, indent=2)
 
 

@@ -1761,11 +1761,6 @@ CROSS_CASES = [("k3", 64, 80, "grey", "u8", 4), ("k4", 600, 640, "rgb",
 CROSS_ITERS = 9
 
 
-def _mg_field():
-    return np.random.default_rng(2).standard_normal((1, 96, 80)).astype(
-        np.float32)
-
-
 class _Raw:
     """A card address as a tensor's memory (``torch.as_tensor`` of it), to
     read a neighbour's mapped buffer."""
@@ -1821,15 +1816,15 @@ def _cross_checks(rank: int, port: int) -> dict:
     from parallel_convolution_tpu_torch.solvers import multigrid
 
     jacobi3 = get_filter("jacobi3")
-    out, res = multigrid.mg_converge(_mg_field(), jacobi3, 1e-3, 30,
-                                     grid=grid, backend="cuda_rdma")
+    out, res = multigrid.mg_converge(_mg_field((96, 80), 2), jacobi3, 1e-3,
+                                     30, grid=grid, backend="cuda_rdma")
     row["mg"] = (out.cpu().numpy(), res.cycles)
     row["maps_after_mg"] = len(rdma._IPC_MAPS)
     programs = {}
     for _ in range(2):
         last = list(multigrid.mg_converge_stream(
-            _mg_field(), jacobi3, 1e-3, 30, grid=grid, backend="cuda_rdma",
-            programs=programs))[-1]
+            _mg_field((96, 80), 2), jacobi3, 1e-3, 30, grid=grid,
+            backend="cuda_rdma", programs=programs))[-1]
     row["mg_stream"] = last[0]
     row["maps_kept"] = len(rdma._IPC_MAPS)
     multigrid.close_programs(programs)
@@ -1914,8 +1909,8 @@ def _far_checks(rank: int, grid) -> dict:
                         ex.rounds(0), ex.rounds(1), ex.maps)
         with _Exchanges() as ex:
             out, res = multigrid.mg_converge(
-                _mg_field(), get_filter("jacobi3"), 1e-3, 30, grid=grid,
-                backend="cuda_rdma")
+                _mg_field((96, 80), 2), get_filter("jacobi3"), 1e-3, 30,
+                grid=grid, backend="cuda_rdma")
         row["far_mg"] = (out.cpu().numpy(), res.cycles, len(ex.made),
                          all(not e.mirrors and not e.stages
                              for e in ex.made), len(rdma._IPC_MAPS))
@@ -2090,7 +2085,7 @@ def multigrid_one_card():
     from parallel_convolution_tpu_torch.solvers import multigrid
 
     want, res = multigrid.mg_converge(
-        _mg_field(), get_filter("jacobi3"), 1e-3, 30,
+        _mg_field((96, 80), 2), get_filter("jacobi3"), 1e-3, 30,
         grid=mesh.make_grid((2, 2), devices=["cuda:0"] * 4),
         backend="cuda_rdma")
     return want.cpu().numpy(), res
@@ -2211,7 +2206,7 @@ def test_multigrid_across_two_ranks_closes_its_runs(cross_ranks):
 
     # jacobi3's taps and the transfers' weights are dyadic: bit for bit.
     want, res = multigrid.mg_converge(
-        _mg_field(), get_filter("jacobi3"), 1e-3, 30,
+        _mg_field((96, 80), 2), get_filter("jacobi3"), 1e-3, 30,
         grid=mesh.make_grid((2, 2), devices=["cuda:0"] * 4),
         backend="cuda_rdma")
     want = want.cpu().numpy()

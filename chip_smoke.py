@@ -5,6 +5,11 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
+On a machine with several cards ``python3 chip_smoke.py --cards [4jg]
+[4l] [4h] [4i]`` runs only what runs across them (4j (g), 4l's
+supervised leg on the real cards, 4h and 4i's ``all`` layouts; all four
+when none is named), with the phases whose references they read.
+
 Phases (any failure exits non-zero and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -317,7 +322,20 @@ Phases (any failure exits non-zero and prints no result line):
    u8 fuse 8, 2x2), each byte-equal to ``shifted`` and its one-host run,
    the far round's copy out, host wait, gloo and copy in printed a chunk,
    and the per-slot kernels timed again (the ``... between hosts``
-   rows);
+   rows); (d), (e) and (f) see the first card alone (their ranks share
+   it, over gloo); then (g, ROADMAP item 10d-ii-b) one card a process:
+   with two cards or more, four (or two) ranks in one NCCL group, each on
+   its own card, run the job's config 2 ``cuda`` f32 fuse 1 and
+   ``cuda_sep`` bf16 fuse 32, config 2 ``cuda_rdma`` bf16 fuse 32 on 2x2
+   strided / packed / overlapped, config 5's V-cycle, config 1's converge
+   and the per-slot kernels between cards (the ``... between cards``
+   rows), then with the ranks on two reported hosts config 2 and config
+   3 with the mirrors NCCL fills (the round's copy out, NCCL and copy in
+   a chunk; the ``... between hosts over NCCL`` rows), and through
+   ``torchrun --nproc-per-node N`` config 3 on 4x4 and its checkpoint
+   killed and resumed, each byte-equal to ``shifted``, with the card
+   topology and every card's name and power limit; with one card it
+   prints that it needs two (NCCL refuses two ranks on one card);
    each run's first and resident seconds beside its one-card (or
    one-process) form;
 4d. multigrid (``--solver multigrid``), counted into the kernels line:
@@ -5658,8 +5676,10 @@ def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
     agreed; (e) ``cuda_rdma``, ``auto``, ``fallback``, the engine,
     multigrid and volumes on grids over two ranks sharing the card
     (:func:`processes_leg`, item 10d-i), and (f) ``cuda_rdma`` with the
-    ranks on two reported hosts (item 10d-ii-a) in the same spawn.  Every run counted into the
-    kernels line (the two ranks' launches as they report them)."""
+    ranks on two reported hosts (item 10d-ii-a) in the same spawn; (g)
+    one card a process over NCCL (item 10d-ii-b, :func:`cards_phase`),
+    which with one card prints that it needs two.  Every run counted into
+    the kernels line (the ranks' launches as they report them)."""
     import numpy as np
     import torch
 
@@ -5684,6 +5704,14 @@ def slots_rest_phase(dev, tmp: Path, here: Path, refs: dict, totals: dict,
         cli_converge)
     out["processes"], out["processes_timed"] = cross["rows"], cross["timed"]
     out["two_processes"].append(cross["job"])
+    try:
+        cards = cards_phase(dev, tmp, here, work, refs, totals, field_path,
+                            mg_shifted, out["multigrid"], cli_converge,
+                            cross["rows"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["cards"], out["cards_timed"] = cards.pop("rows"), cards.pop("timed")
+    out["cards_phase"] = cards
     return out
 
 
@@ -5881,8 +5909,8 @@ def job_one_process(tmp: Path, kw: dict) -> dict:
              f"fuse {kw['fuse']}")
     w1, w2 = tmp / f"job1_{kw['backend']}", tmp / f"job2_{kw['backend']}"
     stencil.reset_launch_counts()
-    one, one_s = host_seconds(lambda: multihost_job.job(None, 1, None, w1,
-                                                        **kw))
+    one, one_s = host_seconds(lambda: multihost_job.job(
+        None, 1, None, w1, slots=["cuda:0"] * 4, **kw))
     counts = stencil.launch_counts()  # the resident run's too
     check(one["slots"] == "cuda:0,cuda:0,cuda:0,cuda:0"
           and not one["owners"], f"{label}: the one-process grid is "
@@ -5958,9 +5986,26 @@ def two_process_leg(tmp: Path, totals: dict, refs: dict,
           "their seconds measure the cost of the path, not scaling")
     kw = job_kw("cuda", "f32", 1)
     one = job_one_process(tmp, kw)
-    two, two_s = host_seconds(lambda: multihost_job.spawn(
-        2, one["w2"], timeout=400, **kw))
+    with first_card_only():
+        two, two_s = host_seconds(lambda: multihost_job.spawn(
+            2, one["w2"], timeout=400, group="gloo", **kw))
     return [job_checks(one, two, two_s, refs, totals, card)]
+
+
+@contextlib.contextmanager
+def first_card_only():
+    """Processes started inside see only the first card
+    (``CUDA_VISIBLE_DEVICES``), so that ranks meant to share one card do
+    on a machine with several."""
+    old = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (old or "0").split(",")[0].strip()
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = old
 
 
 def _sha(data) -> str:
@@ -5991,8 +6036,9 @@ def rank_legs(rank: int, port: int, spec: dict) -> dict:
     from parallel_convolution_tpu_torch.solvers import multigrid as mg
     from parallel_convolution_tpu_torch.utils import imageio, multihost_job
 
+    # Two ranks sharing the card mean gloo: NCCL refuses that.
     multihost.initialize(f"localhost:{port}", num_processes=2,
-                         process_id=rank)
+                         process_id=rank, backend="gloo")
     dev = torch.device("cuda", 0)
     row = {"rank": rank}
 
@@ -6309,14 +6355,17 @@ def exchange_summary(rounds: list) -> dict:
     """The far exchange's timed rounds (``rdma._FarExchange.split``, the
     last 256 of a run) as their count and each part's median
     milliseconds: the copy out (the slowest slot's, CUDA events), the
-    host's wait for it, the gloo swap, the copy in (CUDA events), and the
-    bytes a round sends."""
+    host's wait for it, the swap (gloo's on the host, or NCCL's on the
+    card by CUDA events and the host's seconds enqueueing it), the copy
+    in (CUDA events), and the bytes a round sends."""
     import statistics
 
     if not rounds:
         return {"timed": 0}
+    keys = [k for k in ("out_ms", "wait_ms", "gloo_ms", "nccl_ms",
+                        "swap_host_ms", "in_ms") if k in rounds[0]]
     return dict({f"{k}_median": statistics.median(t[k] for t in rounds)
-                 for k in ("out_ms", "wait_ms", "gloo_ms", "in_ms")},
+                 for k in keys},
                 timed=len(rounds), bytes_out=rounds[0]["bytes_out"])
 
 
@@ -6367,7 +6416,6 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
 
     from parallel_convolution_tpu_torch.models import ConvolutionModel
     from parallel_convolution_tpu_torch.ops import stencil
-    from parallel_convolution_tpu_torch.ops.filters import get_filter
     from parallel_convolution_tpu_torch.parallel import mesh
     from parallel_convolution_tpu_torch.serving.engine import WarmEngine
     from parallel_convolution_tpu_torch.utils import imageio, multihost_job
@@ -6418,7 +6466,7 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
     ctx = mp.get_context("spawn")
     port = multihost_job.free_port()
     t0 = time.perf_counter()
-    with ctx.Manager() as manager:
+    with ctx.Manager() as manager, first_card_only():
         results = manager.dict()
         procs = [ctx.Process(target=_rank_legs,
                              args=(r, port, spec, results)) for r in range(2)]
@@ -6549,17 +6597,38 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
                  if "one_process_s" in row else ""))
     print(f"4j (e): setup {setup_s:.2f} s, spawn to end {spawn_s:.2f} s; "
           f"card {card}")
-    shutil.rmtree(work, ignore_errors=True)
     # The per-slot kernels over the two ranks (cross_slot_times): both
     # ranks step their slots at once on the one card, so a row's ms is the
     # slower rank's, its bound the whole grid's work.
     timed = {}
+    far = [r for r in rows if r["path"].startswith("4j (f)")]
+    for where, suffix, counted in (
+            ("kernels", "", [r for r in rows if r not in far]),
+            ("far_kernels", " between hosts", far)):
+        timed.update(slot_kernel_rows(got, where, "over 2 ranks" + suffix,
+                                      counted, bool(suffix)))
+    for name, row in timed.items():
+        print(f"time {name}: " + json.dumps(dict(row, card=card)))
+    return {"rows": rows, "timed": timed, "job": job_row}
+
+
+def slot_kernel_rows(got: list, where: str, label: str, counted: list,
+                     exchange: bool) -> dict:
+    """The kernels line's rows of the per-slot kernels that the ranks
+    timed (:func:`cross_slot_times`, each rank's ``got[r][where]``) at
+    config 2 and, where they timed it, the 16x16 split:
+    ``"<kernel> <label>"`` and the pack's;
+    a row's ms is the slowest rank's, its bound the whole grid's work, its
+    launches those of the ``counted`` rows, and with ``exchange`` the far
+    exchange's split."""
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+
+    timed = {}
     filt = get_filter("blur3")
-    for (where, suffix), (key, storage, shape, T) in (
-            (a, b) for a in (("kernels", ""),
-                             ("far_kernels", " between hosts"))
-            for b in (("config 2", "bf16", (2, 2), 32),
-                      ("grey 16x16", "u8", GREY_GRID, 8))):
+    for key, storage, shape, T in (("config 2", "bf16", (2, 2), 32),
+                                   ("grey 16x16", "u8", GREY_GRID, 8)):
+        if key not in got[0][where]:
+            continue
         t = [g[where][key] for g in got]
         C, h, w = t[0]["block"]
         nb = shape[0] * shape[1]
@@ -6574,11 +6643,9 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
         pb_ms, pb_by = bound(2 * nb * 2 * C * (h + 2 * depth) * depth * elt,
                              0.0)
         name = t[0]["kernel"]
-        far = [r for r in rows if r["path"].startswith("4j (f)")]
-        counted = far if suffix else [r for r in rows if r not in far]
-        timed[f"{name} over 2 ranks{suffix}"] = dict(
-            at=key, grid=list(shape), block=[C, h, w], T=T, levels=levels,
-            ext=ext, ms=max(x["ms"] for x in t),
+        timed[f"{name} {label}"] = dict(
+            base=name, at=key, grid=list(shape), block=[C, h, w], T=T,
+            levels=levels, ext=ext, ms=max(x["ms"] for x in t),
             packed_ms=max(x["packed_ms"] for x in t),
             alone_ms=max(x["alone_ms"] for x in t),
             barrier_ms=max(x["barrier_ms"] for x in t),
@@ -6588,19 +6655,18 @@ def processes_leg(dev, tmp: Path, work: Path, refs: dict, totals: dict,
             launches=sum(r["launches"].get(name, 0) for r in counted),
             **({"exchange": t[0].get("exchange_strided"),
                 "exchange_packed": t[0].get("exchange_packed")}
-               if suffix else {}))
+               if exchange else {}))
         if key == "config 2":
-            timed[f"rdma_pack over 2 ranks{suffix}"] = dict(
-                at=key, grid=list(shape), ms=max(x["pack_ms"] for x in t),
+            timed[f"rdma_pack {label}"] = dict(
+                base="rdma_pack", at=key, grid=list(shape),
+                ms=max(x["pack_ms"] for x in t),
                 alone_ms=max(x["pack_alone_ms"] for x in t),
                 barrier_ms=max(x["barrier_ms"] for x in t),
                 max_abs_err=max(x["pack_max_abs_err"] for x in t),
                 bound_ms=pb_ms, bound_by=pb_by, library_ms=None,
                 launches=sum(r["launches"].get("rdma_pack", 0)
                              for r in counted))
-    for name, row in timed.items():
-        print(f"time {name}: " + json.dumps(dict(row, card=card)))
-    return {"rows": rows, "timed": timed, "job": job_row}
+    return timed
 
 
 def far_rows(got: list, spec: dict, refs: dict, cli_converge, launches,
@@ -6693,6 +6759,504 @@ def far_rows(got: list, spec: dict, refs: dict, cli_converge, launches,
                  "exchange": split("far converge")[0],
                  "bitwise_shifted": True, "card": card})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4j (g): one card a process (ROADMAP item 10d-ii-b)
+# ---------------------------------------------------------------------------
+
+# torchrun's ranks run this: the CLI, then each rank appends its exit code,
+# its group and its launch counts to $SMOKE_LAUNCHES.
+CARD_RANK_SRC = """
+import json, os, sys
+from parallel_convolution_tpu_torch.cli import main
+from parallel_convolution_tpu_torch.ops import stencil
+from parallel_convolution_tpu_torch.parallel import multihost
+rc = 1
+try:
+    rc = main(sys.argv[1:])
+finally:
+    with open(os.environ["SMOKE_LAUNCHES"], "a") as f:
+        f.write(json.dumps({"rank": os.environ.get("RANK"), "rc": rc,
+                            "group": multihost.backend(),
+                            "launches": stencil.launch_counts()}) + "\\n")
+sys.exit(rc)
+"""
+# The 2x2 legs of config 2 on the cards: (col_mode, overlap).
+CARD_LEGS = [("strided", False), ("packed", False), ("strided", True)]
+
+
+def card_ranks(cards: int) -> int:
+    """4j (g)'s ranks: four where the machine has four cards, else two
+    (a 2x2 grid splits into neither three shares nor one card a rank)."""
+    return 4 if cards >= 4 else 2 if cards >= 2 else 0
+
+
+def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
+    """Phase 4j (g), one rank's share: an NCCL group of ``spec["n"]``
+    ranks, each on its own card; every leg between two barriers, its
+    seconds, launches and output's SHA-256 in the row (as
+    :func:`rank_legs`), then the same group with the ranks reporting two
+    hosts (:data:`FOUR_HOSTS`' rows layout, or a host each of two)."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import mesh, multihost
+    from parallel_convolution_tpu_torch.solvers import multigrid as mg
+    from parallel_convolution_tpu_torch.utils import imageio, multihost_job
+
+    n = spec["n"]
+    multihost.initialize(f"localhost:{port}", num_processes=n,
+                         process_id=rank)
+    dev = multihost.card()
+    row = {"rank": rank, "group": multihost.backend(), "card": str(dev),
+           "uuid": multihost.card_uuid(dev)}
+    made = []
+    real_init = rdma._FarExchange.__init__
+
+    def init(ex, *a, **k):
+        real_init(ex, *a, **k)
+        made.append(ex)
+
+    def leg(name, fn):
+        del made[:]
+        multihost.barrier(name)
+        torch.cuda.synchronize(dev)
+        stencil.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn() or {}
+        torch.cuda.synchronize(dev)
+        multihost.barrier(name)
+        row[name] = dict(res, seconds=time.perf_counter() - t0,
+                         launches=stencil.launch_counts(),
+                         exchange=[t for ex in made for t in ex.split()],
+                         rounds=sum(ex.rounds for ex in made))
+
+    rdma._FarExchange.__init__ = init
+    real_host = multihost.hostname
+    try:
+        for backend, storage, fuse in (("cuda", "f32", 1),
+                                       ("cuda_sep", "bf16", 32)):
+            leg(f"job {backend}", lambda: {"row": multihost_job.job(
+                rank, n, None, spec["job"][backend],
+                **job_kw(backend, storage, fuse))})
+        grid = mesh.make_grid((2, 2), devices="all")
+        row["slots"] = grid.slot_map()
+        rgb = imageio.read_raw(spec["rgb"], *RGB_HW, "rgb")
+        grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
+        blur3 = get_filter("blur3")
+        kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
+
+        def config2(prefix):
+            for cm, ov in CARD_LEGS:
+                model = ConvolutionModel("blur3", grid=grid, col_mode=cm,
+                                         overlap=ov, **kw)
+                for res in ("", " resident"):
+                    leg(f"{prefix}config 2 {cm}{' overlap' * ov}{res}",
+                        lambda: {"sha256": _sha(model.run_image(rgb, ITERS)),
+                                 "col_mode": model.effective_col_mode,
+                                 "overlap": model.effective_overlap})
+
+        def config3(name, out):
+            leg(name, lambda: {"rc": cli_main([
+                "run", spec["edge5"], str(BIG_HW[0]), str(BIG_HW[1]),
+                str(ITERS), "grey", "-o", out, "--filter", "edge5",
+                "--backend", "cuda_rdma", "--mesh", "4x4", "--device", "all",
+                "--storage", "bf16", "--fuse", "32", "--col-mode",
+                "packed"])})
+
+        def kernels(split=True):
+            out = {"config 2": cross_slot_times(dev, rgb, "bf16", (2, 2),
+                                                32, blur3)}
+            if split:
+                out["grey 16x16"] = cross_slot_times(dev, grey, "u8",
+                                                     GREY_GRID, 8, blur3)
+            return out
+
+        config2("")
+        field = np.load(spec["field"])
+
+        def multigrid():
+            out, res = mg.mg_converge(field, get_filter("jacobi3"), 1e-3,
+                                      CONVERGE_MAX_ITERS, grid=grid,
+                                      backend="cuda_rdma")
+            return {"cycles": res.cycles, "residuals": res.residuals,
+                    "level_grids": res.level_grids,
+                    "sha256": _sha(out) if rank == 0 else None}
+
+        leg("multigrid", multigrid)
+        del field
+        torch.cuda.empty_cache()
+
+        def converge():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main([
+                    "run", spec["converge"], str(RGB_HW[0]), str(RGB_HW[1]),
+                    str(CONVERGE_CLI_MAX), "grey", "-o",
+                    spec["converge_out"], "--converge", "0.5",
+                    "--check-every", "10", "--backend", "cuda_rdma",
+                    "--mesh", "2x2", "--device", "all", "--storage", "u8",
+                    "--fuse", "8"])
+            return {"rc": rc, "said": buf.getvalue().strip().splitlines()[-1]}
+
+        leg("converge", converge)
+        row["kernels"] = kernels()
+        hosts = (0, 0, 1, 1) if n == 4 else (0, 1)
+        multihost.hostname = lambda: f"host{hosts[rank]}"
+        row["hosts"] = multihost.hosts_of(multihost.peer_records({}))
+        config2("far ")
+        config3("far config 3", spec["edge5_far_out"])
+        # No leg between hosts here runs the 16x16 split (K3), so only
+        # config 2's kernels are timed there.
+        row["far_kernels"] = kernels(split=False)
+    finally:
+        multihost.hostname = real_host
+        rdma._FarExchange.__init__ = real_init
+    multihost.barrier("done")
+    return row
+
+
+def _card_rank_legs(rank: int, port: int, spec: dict, results) -> None:
+    import torch.distributed as dist
+
+    try:
+        results[rank] = card_rank_legs(rank, port, spec)
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        results[rank] = {"rank": rank, "error": f"{type(e).__name__}: {e}"}
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def torchrun(n: int, argv: list, here: Path, work: Path, label: str,
+             faults: str | None = None) -> dict:
+    """``torchrun --standalone --nproc-per-node n`` of the ``run`` CLI
+    (:data:`CARD_RANK_SRC`), its ranks' exit codes, groups and launch
+    counts, its seconds (the launch included) and its stderr's tail."""
+    script = work / "card_rank.py"
+    script.write_text(CARD_RANK_SRC)
+    counts = work / f"launches_{label.replace(' ', '_')}.jsonl"
+    counts.unlink(missing_ok=True)
+    env = dict(os.environ, SMOKE_LAUNCHES=str(counts), PYTHONPATH=str(here))
+    env.pop("PCTPU_FAULTS", None)
+    if faults:
+        env["PCTPU_FAULTS"] = faults
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), str(script), *argv],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    ranks = ([json.loads(x) for x in counts.read_text().splitlines()]
+             if counts.exists() else [])
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"rc": proc.returncode, "ranks": ranks, "launches": launches,
+            "seconds": time.perf_counter() - t0, "stderr": proc.stderr}
+
+
+def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
+                totals: dict, field_path: Path, mg_ref, mg_rows: list,
+                cli_converge, gloo_rows: list) -> dict:
+    """Phase 4j (g): one card a process (item 10d-ii-b).  With N =
+    :func:`card_ranks` ranks (four on a four-card machine), each on its
+    own card, in one NCCL group (the default where the host has a card
+    for each rank), one spawn (:func:`card_rank_legs`): the two-process
+    job's config 2 ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32 (N
+    ranks, the sharded load and save, the checkpointed run and its
+    resume); config 2 ``cuda_rdma`` bf16 fuse 32 on 2x2, strided, packed
+    and ``overlap=True``, first and resident; config 5's V-cycle on 2x2;
+    config 1's converge (``cuda_rdma`` u8 fuse 8, 2x2); the per-slot
+    kernels between cards; then the ranks reporting two hosts (a far
+    neighbour's mirror filled by NCCL, card to card): config 2 strided,
+    packed and overlapped, config 3 on 4x4, the kernels between hosts.
+    Then through ``torchrun --nproc-per-node N`` of the ``run`` CLI
+    (``--device all``): config 3 on 4x4, and its checkpoint killed in the
+    second snapshot and resumed.  Each output byte-equal to ``shifted``
+    (which the one-card forms of 4h, 4j (a) and 4b equal) and config 2's
+    to its one-card run here; each leg's first and resident seconds
+    beside its one-card form and 4j (e) / (f)'s gloo form
+    (``gloo_rows``); the NCCL round split per chunk.  With one card the
+    phase runs nothing: NCCL refuses two ranks on one card."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import stencil
+    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.utils import imageio, multihost_job
+
+    cards = torch.cuda.device_count()
+    n = card_ranks(cards)
+    if not n:
+        print(f"4j (g) one card a process: needs two cards ({cards} "
+              "visible): NCCL refuses two ranks on one card; nothing run")
+        return {"skipped": f"{cards} card(s)", "rows": [], "timed": {}}
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    every = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = "; ".join(every)
+    print(f"4j (g) one card a process: {n} ranks on {cards} cards\n"
+          f"nvidia-smi topo -m:\n{topo}cards: {card}")
+    t0 = time.perf_counter()
+    rgb_sha = _sha(refs["rgb_ref"])
+    spec = {"n": n, "rgb": str(work / "rgb_g.raw"),
+            "edge5": str(tmp / "edge5.raw"),
+            "edge5_far_out": str(work / "edge5.g_far.raw"),
+            "field": str(field_path), "converge": str(cli_converge[0]),
+            "converge_out": str(work / "converge.g.raw"),
+            "job": {b: str(work / f"job_g_{b}") for b in ("cuda",
+                                                          "cuda_sep")}}
+    imageio.write_raw(spec["rgb"], refs["rgb"])
+    # Config 2's one-card forms (2x2 slots of this card), timed here.
+    one = {}
+    slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
+    for cm, ov in CARD_LEGS:
+        model = ConvolutionModel("blur3", grid=slots4, col_mode=cm,
+                                 overlap=ov, backend="cuda_rdma",
+                                 storage="bf16", fuse=32)
+        got, first = host_seconds(lambda: model.run_image(refs["rgb"],
+                                                          ITERS))
+        check(np.array_equal(got, refs["rgb_ref"]),
+              f"4j (g) config 2 {cm} overlap={ov} on one card: differs "
+              "from shifted")
+        _, res = host_seconds(lambda: model.run_image(refs["rgb"], ITERS))
+        one[cm, ov] = (first, res)
+    stencil.reset_launch_counts()  # the references are not this path
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    ctx = mp.get_context("spawn")
+    port = multihost_job.free_port()
+    t0 = time.perf_counter()
+    with ctx.Manager() as manager:
+        results = manager.dict()
+        procs = [ctx.Process(target=_card_rank_legs,
+                             args=(r, port, spec, results)) for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + 480
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        got = [dict(results.get(r, {"rank": r, "error": "no result"}))
+               for r in range(n)]
+    spawn_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * n and not any("error" in g for g in got),
+          f"4j (g) the ranks failed: exit codes {codes}, "
+          f"{[g.get('error') for g in got]}")
+    check([g["group"] for g in got] == ["nccl"] * n
+          and len({g["uuid"] for g in got}) == n,
+          f"4j (g): groups {[g['group'] for g in got]}, cards "
+          f"{[g['card'] for g in got]}: not one card a process over NCCL")
+
+    def both(name, what):
+        return [g[name][what] for g in got]
+
+    def launches(name):
+        sent = {k: sum(g[name]["launches"][k] for g in got)
+                for k in got[0][name]["launches"]}
+        for k, v in sent.items():
+            totals[k] += v
+        return sent
+
+    gloo = {r["path"]: r["seconds"] for r in gloo_rows}
+    rows = []
+
+    def add(path, name, sent, **extra):
+        rows.append(dict({"path": path, "launches": sent,
+                          "seconds": max(both(name, "seconds")),
+                          "card": card}, **extra))
+
+    for backend in ("cuda", "cuda_sep"):
+        name = f"job {backend}"
+        sent = launches(name)
+        jobs = both(name, "row")
+        out = Path(spec["job"][backend]) / "out.raw"
+        check(np.array_equal(imageio.read_raw(out, *RGB_HW, "rgb"),
+                             refs["rgb_ref"])
+              and all(j["group"] == "nccl" and j["broadcast"] == 7.0
+                      for j in jobs)
+              and all(j["resume_bitexact"] in ((True,) if backend == "cuda"
+                                               else (None,)) for j in jobs),
+              f"4j (g) {name} over {n} cards: the output differs from "
+              "shifted, the resume was not bit-identical, or the group is "
+              f"{[j['group'] for j in jobs]}")
+        add(f"4j (g) job config 2 {backend} over {n} cards", name, sent,
+            first_s=max(j["first_s"] for j in jobs),
+            resident_s=max(j["resident_s"] for j in jobs),
+            bitwise_shifted=True)
+    chunks = -(-ITERS // 32)
+    for prefix, where in (("", "between cards"),
+                          ("far ", "between hosts over NCCL")):
+        for cm, ov in CARD_LEGS:
+            for res in ("", " resident"):
+                name = f"{prefix}config 2 {cm}{' overlap' * ov}{res}"
+                sent = launches(name)
+                label = (f"4j (g) config 2 cuda_rdma bf16 fuse 32 2x2 {cm}"
+                         f"{' overlap=True' * ov}{res} {where}")
+                check(both(name, "sha256") == [rgb_sha] * n
+                      and both(name, "col_mode") == [cm] * n
+                      and both(name, "overlap") == [ov] * n,
+                      f"{label}: differs from shifted and the one-card run, "
+                      f"or ran {both(name, 'col_mode')} overlap "
+                      f"{both(name, 'overlap')}")
+                far = bool(prefix)
+                check(both(name, "rounds") == ([chunks] * n if far
+                                               else [0] * n),
+                      f"{label}: {both(name, 'rounds')} exchange rounds")
+                gl = (f"4j ({'f' if far else 'e'}) config 2 cuda_rdma bf16 "
+                      f"fuse 32 2x2 {cm}{' overlap=True' * ov}{res}"
+                      + (" between hosts" if far else ""))
+                add(label, name, sent, one_card_s=one[cm, ov][bool(res)],
+                    gloo_s=gloo.get(gl), bitwise_one_card=True,
+                    bitwise_shifted=True,
+                    **({"exchange": exchange_summary(
+                        got[0][name]["exchange"])} if far else {}))
+    for k, t in enumerate(got[0]["far config 2 strided"]["exchange"]):
+        print(f"4j (g) config 2 strided between hosts over NCCL, chunk {k}: "
+              f"copy out {t['out_ms']:.4f} ms, the host's wait "
+              f"{t['wait_ms']:.4f} ms, NCCL {t['nccl_ms']:.4f} ms (host "
+              f"{t['swap_host_ms']:.4f} ms to enqueue), copy in "
+              f"{t['in_ms']:.4f} ms, {t['bytes_out']} B each way; {card}")
+    sent = launches("multigrid")
+    mg_one = next(r for r in mg_rows if "cuda_rdma" in r["path"])
+    check(both("multigrid", "sha256")[0] == _sha(mg_ref[0])
+          and both("multigrid", "residuals") == [mg_ref[1]] * n
+          and both("multigrid", "cycles") == [mg_one["cycles"]] * n,
+          f"4j (g) config 5 multigrid over {n} cards: differs from 4j (a)'s "
+          "one-card field or residuals (shifted's)")
+    add(f"4j (g) config 5 multigrid jacobi3 32768x32768 cuda_rdma 2x2 over "
+        f"{n} cards", "multigrid", sent, cycles=mg_one["cycles"],
+        one_card_s=mg_one["seconds_first"],
+        gloo_s=gloo.get("4j (e) config 5 multigrid jacobi3 32768x32768 "
+                        "cuda_rdma 2x2"), bitwise_one_card=True)
+    _, cwant, citers = cli_converge
+    sent = launches("converge")
+    said = both("converge", "said")
+    check(both("converge", "rc") == [0] * n
+          and all(x.startswith(f"converged after {citers} iters")
+                  for x in said)
+          and np.array_equal(imageio.read_raw(spec["converge_out"],
+                                              *RGB_HW, "grey"), cwant),
+          f"4j (g) converge over {n} cards: said {said}, shifted stopped "
+          f"after {citers}, or the bytes differ")
+    add(f"4j (g) cli run --converge 0.5 --check-every 10 grey 1920x2520 "
+        f"blur3 cuda_rdma u8 fuse 8 2x2 over {n} cards", "converge", sent,
+        iters=citers, bitwise_shifted=True)
+    sent = launches("far config 3")
+    check(both("far config 3", "rc") == [0] * n and np.array_equal(
+        imageio.read_raw(spec["edge5_far_out"], *BIG_HW, "grey"),
+        refs["grey_refs"]["edge5"]),
+        "4j (g) config 3 on 4x4 between hosts over NCCL: differs from "
+        "shifted")
+    add("4j (g) config 3 run --device all --mesh 4x4 cuda_rdma bf16 fuse 32 "
+        "packed between hosts over NCCL", "far config 3", sent,
+        gloo_s=gloo.get("4j (f) config 3 run --device all --mesh 4x4 "
+                        "cuda_rdma bf16 fuse 32 packed between hosts"),
+        exchange=exchange_summary(got[0]["far config 3"]["exchange"]),
+        bitwise_shifted=True)
+    near = [r for r in rows if "between hosts" not in r["path"]]
+    far = [r for r in rows if "between hosts" in r["path"]]
+    timed = slot_kernel_rows(got, "kernels", "between cards", near, False)
+    timed.update(slot_kernel_rows(got, "far_kernels",
+                                  "between hosts over NCCL", far, True))
+    for name, row in timed.items():
+        print(f"time {name}: " + json.dumps(dict(row, card=card)))
+    print(f"4j (g): setup {setup_s:.2f} s, spawn to end {spawn_s:.2f} s; "
+          f"{card}")
+    show_card_rows(rows)
+    spawned = len(rows)
+    # Through torchrun: config 3 on 4x4, and its checkpoint killed in the
+    # second snapshot (each rank's shard writes counted alone: 16 / N a
+    # snapshot), then resumed.
+    edge = refs["grey_refs"]["edge5"]
+    src = tmp / "edge5.raw"
+    dst = work / "edge5.g.raw"
+    run3 = torchrun(n, ["run", str(src), str(BIG_HW[0]), str(BIG_HW[1]),
+                        str(ITERS), "grey", "-o", str(dst), "--filter",
+                        "edge5", "--backend", "cuda_rdma", "--mesh", "4x4",
+                        "--device", "all", "--storage", "bf16", "--fuse",
+                        "32", "--col-mode", "packed"], here, work,
+                    "config 3")
+    check(run3["rc"] == 0 and [r["group"] for r in run3["ranks"]]
+          == ["nccl"] * n and np.array_equal(
+              imageio.read_raw(dst, *BIG_HW, "grey"), edge),
+          f"4j (g) torchrun config 3: exit {run3['rc']}, groups "
+          f"{[r['group'] for r in run3['ranks']]}, or the bytes differ from "
+          f"shifted: {run3['stderr'][-3000:]}")
+    for k, v in run3["launches"].items():
+        totals[k] += v
+    rows.append({"path": f"4j (g) torchrun --nproc-per-node {n} run "
+                 "--device all --mesh 4x4 cuda_rdma bf16 fuse 32 packed "
+                 "(config 3)", "launches": run3["launches"],
+                 "seconds": run3["seconds"],
+                 "gloo_s": gloo.get("4j (e) config 3 run --device all "
+                                    "--mesh 4x4 cuda_rdma bf16 fuse 32 "
+                                    "packed"),
+                 "bitwise_shifted": True, "card": card,
+                 "note": "seconds include torchrun's start"})
+    ck = work / "ck_g"
+    shutil.rmtree(ck, ignore_errors=True)
+    per_snapshot = 16 // n
+    kill = per_snapshot + 2
+    argv = ckpt_argv(src, work / "ck_g.raw", ck, "4x4") + ["--device", "all"]
+    dead = torchrun(n, argv, here, work, "checkpoint killed",
+                    faults=f"checkpoint_write_shard:{kill}")
+    latest = (ck / "LATEST").read_text() if (ck / "LATEST").exists() else ""
+    check(dead["rc"] != 0 and "injected fault at 'checkpoint_write_shard'"
+          in dead["stderr"] and latest == f"it_{CKPT_EVERY:08d}",
+          f"4j (g) checkpoint: the faulted torchrun exited {dead['rc']}, "
+          f"LATEST {latest!r}: {dead['stderr'][-3000:]}")
+    for k, v in dead["launches"].items():
+        totals[k] += v
+    back = torchrun(n, argv, here, work, "checkpoint resumed")
+    rest = ITERS - CKPT_EVERY
+    check(back["rc"] == 0 and np.array_equal(
+        imageio.read_raw(work / "ck_g.raw", *BIG_HW, "grey"), edge)
+        and back["launches"].get("rdma_tiled_slot") == rest * 16,
+        f"4j (g) checkpoint resume: exit {back['rc']}, launches "
+        f"{back['launches']}, or the bytes differ from shifted: "
+        f"{back['stderr'][-3000:]}")
+    for k, v in back["launches"].items():
+        totals[k] += v
+    rows.append({"path": f"4j (g) checkpoint config 3 4x4 over {n} cards: "
+                 f"torchrun killed in its second snapshot (shard write "
+                 f"{kill} of each rank), resumed from {CKPT_EVERY}",
+                 "launches": back["launches"], "seconds": back["seconds"],
+                 "killed_s": dead["seconds"], "bitwise_shifted": True,
+                 "card": card})
+    shutil.rmtree(ck, ignore_errors=True)
+    show_card_rows(rows[spawned:])
+    return {"rows": rows, "timed": timed, "ranks": n, "cards": card,
+            "topo": topo}
+
+
+def show_card_rows(rows: list) -> None:
+    """4j (g)'s rows as one line each: seconds, first and resident, the
+    one-card and the gloo forms beside them where measured."""
+    for row in rows:
+        print(f"{row['path']}: {row['seconds']:.4f} s"
+              + (f" (first {row['first_s']:.4f} s, resident "
+                 f"{row['resident_s']:.4f} s)" if "first_s" in row else "")
+              + (f"; one card {row['one_card_s']:.4f} s"
+                 if row.get("one_card_s") is not None else "")
+              + (f"; gloo {row['gloo_s']:.4f} s"
+                 if row.get("gloo_s") is not None else ""), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -7817,6 +8381,185 @@ def measured_tune(dev, tmp: Path, refs: dict, totals: dict) -> dict:
             "gpx_per_s_warm": px / warm, "gpx_per_s_resident": px / resident}
 
 
+def supervised_on_cards(tmp: Path, here: Path, refs: dict) -> dict:
+    """Phase 4l's supervised config 3 leg on the machine's own cards (no
+    ``PCTPU_SIM_DEVICES``: the device probe counts the real ones): its
+    4x4 attempt over every card dies in the second snapshot, the
+    supervisor reshapes onto 2x2 (a slot a card) and the resumed leg
+    gives ``shifted``'s bytes."""
+    import numpy as np
+
+    from parallel_convolution_tpu_torch.resilience import supervisor
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    work = tmp / "supervised_cards"
+    work.mkdir()
+    sup_dir, ck = work / "supervised", work / "ck"
+    dst, launches = work / "supervised.raw", work / "launches.jsonl"
+    argv = ["run", str(tmp / "edge5.raw"), str(BIG_HW[0]), str(BIG_HW[1]),
+            str(ITERS), "grey", "-o", str(dst), "--filter", "edge5",
+            "--backend", "cuda_rdma", "--device", "all", "--checkpoint",
+            str(ck), "--checkpoint-every", str(CKPT_EVERY)]
+    legs = work / "legs.json"
+    legs.write_text(json.dumps([{
+        "name": "config3", "cmd": [sys.executable, "-c", LEG_SRC, *argv],
+        "done_file": str(dst), "timeout": 600,
+        "env": {"SMOKE_LAUNCHES": str(launches),
+                "SMOKE_KILL_AT": str(CKPT_KILL)},
+        "meshes": SUPERVISOR_LADDER,
+        "reshape_pattern": "injected fault at 'checkpoint_write_shard'"}]))
+    env = dict(os.environ)
+    env.pop("PCTPU_SIM_DEVICES", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "parallel_convolution_tpu_torch.resilience.supervisor", "--legs",
+         str(legs), "--state-dir", str(sup_dir), "--max-attempts", "3",
+         "--base-delay", "0.1", "--max-delay", "0.1"],
+        cwd=here, env=env, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"supervisor on the cards exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    leg = supervisor.read_ledger(sup_dir / supervisor.LEDGER_NAME)[
+        "legs"]["config3"]
+    attempts = [json.loads(line)
+                for line in launches.read_text().splitlines()]
+    check(leg["state"] == "done" and leg["mesh"] == "2x2"
+          and [(a["mesh"], a["rc"]) for a in attempts] == [("4x4", 1),
+                                                           ("2x2", 0)]
+          and attempts[1]["launches"]["rdma_tiled_slot"]
+          == (ITERS - CKPT_EVERY) * 4
+          and np.array_equal(imageio.read_raw(dst, *BIG_HW, "grey"),
+                             refs["grey_refs"]["edge5"]),
+          f"supervisor on the cards: ledger {leg}, attempts "
+          f"{[(a['mesh'], a['rc']) for a in attempts]}, or the output "
+          "differs from shifted")
+    return {"seconds": secs, "leg": {k: leg[k] for k in (
+        "state", "attempts", "mesh", "reshapes", "last_rc")},
+        "attempts": attempts}
+
+
+# ``--cards``' phases after their references, by name.
+CARD_PHASES = ("4jg", "4l", "4h", "4i")
+
+
+def cards_main(here: Path, card: str, phases: list) -> None:
+    """``chip_smoke.py --cards``: on a machine with several cards, the
+    phases that run across cards, each with what it needs built first:
+    the build, the main paths (the ``shifted`` references), 4b (config 1's
+    converge, config 5's field), 4d (config 5's plain V-cycle), 4j (a)
+    (its one-card V-cycle), then 4j (g), 4l's supervised leg on the real
+    cards (:func:`supervised_on_cards`), 4h and 4i (their ``all``
+    layouts), each of the last four run whatever the one before it did
+    (a failure is printed and fails the run at its end), and only those
+    of them named in ``phases`` (:data:`CARD_PHASES`); every row printed,
+    and 4j (g)'s kernels rows as the kernels line gives them."""
+    import numpy as np
+    import torch
+
+    from parallel_convolution_tpu_torch.native import build as nbuild
+    from parallel_convolution_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    nbuild.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    dev = torch.device("cuda", 0)
+    laps, last = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal last
+        laps[name], last = time.perf_counter() - last, time.perf_counter()
+        print(f"phase {name}: {laps[name]:.2f} s", flush=True)
+
+    failed = []
+    check(set(phases) <= set(CARD_PHASES),
+          f"--cards runs {CARD_PHASES}, not {phases}")
+
+    def attempt(name, fn):
+        """``fn()``, its failure kept (and printed) so that the phases
+        after it still run; any failure fails the run at its end."""
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 -- the run fails at its end
+            import traceback
+
+            traceback.print_exc()
+            print(f"chip_smoke --cards: {name} FAILED: "
+                  f"{type(e).__name__}: {e}", flush=True)
+            failed.append(f"{name}: {type(e).__name__}: {e}")
+            return None
+        finally:
+            lap(name)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        totals, _, refs = main_paths(dev, tmp)
+        lap("4 main paths")
+        keep = {}
+        converge_rows = converge_phase(dev, tmp, totals, keep)
+        lap("4b converge")
+        mg_rows = multigrid_phase(dev, tmp, totals, keep["config5"],
+                                  converge_rows[0], keep)
+        lap("4d multigrid")
+        field, mg_shifted = keep.pop("config5"), keep.pop("mg_shifted")
+        mg4j = multigrid_slots_leg(dev, totals, field, mg_shifted, card)
+        lap("4j (a)")
+        work = here / "build" / "chip_smoke_processes"
+        work.mkdir(parents=True, exist_ok=True)
+        field_path = work / "config5.npy"
+        np.save(field_path, field.cpu().numpy())
+        del field
+        torch.cuda.empty_cache()
+        cards = sup = slots = overlap = None
+        try:
+            if "4jg" in phases:
+                cards = attempt("4j (g)", lambda: cards_phase(
+                    dev, tmp, here, work, refs, totals, field_path,
+                    mg_shifted, mg4j, keep["cli_converge"], []))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        if "4l" in phases:
+            sup = attempt("4l supervised on the cards",
+                          lambda: supervised_on_cards(tmp, here, refs))
+        if "4h" in phases:
+            slots = attempt("4h slots", lambda: separate_devices_phase(
+                dev, tmp, refs, totals, keep))
+        if "4i" in phases:
+            overlap = attempt("4i overlap", lambda: overlap_phase(
+                dev, tmp, refs, totals, keep))
+    if sup is not None:
+        print("supervised config 3 on the cards: " + json.dumps(
+            dict(sup, card=card)))
+    slot_timed = {"kernels": {}}
+    if slots is not None:
+        for row in slots.pop("runs"):
+            print("end to end separate devices: " + json.dumps(row))
+        slot_timed = slots.pop("timed")
+        for name, row in slot_timed["kernels"].items():
+            print(f"time {name}: " + json.dumps(row))
+    if overlap is not None:
+        for row in overlap.pop("runs"):
+            print("end to end overlap: " + json.dumps(row))
+    for row in mg4j + mg_rows:
+        print("end to end multigrid: " + json.dumps(row))
+    kernels = []
+    if cards is not None:
+        for row in cards.pop("rows"):
+            print("end to end 4j one card a process: " + json.dumps(row))
+        kernels = [{
+            "name": name, "route": "cuda", "source": SOURCES[t["base"]],
+            "replaces": REPLACES[t["base"]], "launches": t["launches"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": slot_timed["kernels"].get(t["base"], {}).get(
+                "plain_ms"),
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None} for name, t in cards.pop("timed").items()]
+    print("phase seconds: " + json.dumps(laps))
+    print(json.dumps({"kernels": kernels}))
+    check(not failed, f"--cards: {len(failed)} phase(s) failed: {failed}")
+
+
 def main() -> int:
     try:
         import torch
@@ -7861,6 +8604,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
               f"CUDA {torch.version.cuda}")
+        if sys.argv[1:2] == ["--cards"]:
+            cards_main(here, card, sys.argv[2:] or list(CARD_PHASES))
+            print(f"card: {card}")
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}))
+            return 0
 
         t0 = time.perf_counter()
         built = _build.build_all()
@@ -8036,7 +8786,10 @@ def main() -> int:
             print("end to end 4j two processes: " + json.dumps(row))
         for row in rest.pop("processes"):
             print("end to end 4j over processes: " + json.dumps(row))
-        cross_timed = rest.pop("processes_timed")
+        for row in rest.pop("cards"):
+            print("end to end 4j one card a process: " + json.dumps(row))
+        cross_timed = dict(rest.pop("processes_timed"),
+                           **rest.pop("cards_timed"))
         print("4j: " + json.dumps(rest))
         for row in obs.pop("runs"):
             print("end to end 4k obs: " + json.dumps(row))
@@ -8070,11 +8823,12 @@ def main() -> int:
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        # The same kernels over two ranks (phase 4j (e)): their launches
-        # in 4j (e)'s legs (already in the one-process rows' counts too),
-        # the plain version the same function as the one-process row's.
+        # The same kernels over two ranks (phase 4j (e) / (f)) and one card
+        # a process (4j (g), with two cards or more): their launches in
+        # those legs (already in the one-process rows' counts too), the
+        # plain version the same function as the one-process row's.
         for name, t in cross_timed.items():
-            base = name.split(" over ")[0]
+            base = t["base"]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[base],
                 "replaces": REPLACES[base], "launches": t["launches"],

@@ -469,7 +469,9 @@ def _dispatch(ap: argparse.ArgumentParser, args) -> int:
 
     check_solver(args.solver)
     # One process of a job (torchrun's WORLD_SIZE / RANK / MASTER_ADDR /
-    # MASTER_PORT): --device all then spans every process's slots.
+    # MASTER_PORT, and LOCAL_WORLD_SIZE / LOCAL_RANK): --device all then
+    # spans every process's slots, one card a process over NCCL where the
+    # host has a card for each of its ranks, else over gloo.
     multihost.initialize()
     try:
         tile = _parse_tile(args.tile)

@@ -69,39 +69,44 @@ that carried them.  On the CPU :func:`fused_rdma_slots_plain` runs the
 same schedule from buffers whose unwaited ghosts are NaN, and raises if a
 NaN reaches a region: a missed wait.
 
-**On a grid over processes** (``mesh.Grid.owners``; ROADMAP items 10d-i
-and 10d-ii-a) each rank launches its own slots.  A neighbour on another
-rank of the same host is read in place through CUDA IPC, as the TPU
-kernels write a neighbour's buffer on another host: each rank exports its
-buffers, staging and counters once a run (:func:`ipc_handle`: the
-allocation's handle and the buffer's offset in it) and maps its
-neighbours' (``multihost.peer_records``), so the pointer tables hold the
-remote slots' addresses as this process sees them.  Where the neighbour
-lives in another process of the host the barrier is a counter instead of
-an event: each slot's stream writes its monotonic step counter after its
+**On a grid over processes** (``mesh.Grid.owners``; ROADMAP items 10d-i,
+10d-ii-a and 10d-ii-b) each rank launches its own slots.  A neighbour on
+another rank of the same host is read in place through CUDA IPC, on the
+same card (ranks sharing it over gloo) or another (one card a process
+over NCCL, the map enabling peer access), as the TPU kernels write a
+neighbour's buffer on another host: each rank exports its buffers,
+staging and counters once a run (:func:`ipc_handle`: the allocation's
+handle and the buffer's offset in it) and maps its neighbours'
+(``multihost.peer_records``), so the pointer tables hold the remote
+slots' addresses as this process sees them.  Where the neighbour lives in
+another process of the host the barrier is a counter instead of an
+event: each slot's stream writes its monotonic step counter after its
 launch (and its staged counter after its pack), and a neighbour's stream
 waits until it reaches the step before (``csrc/rdma.cu``:
 ``cuStreamWriteValue64`` / ``cuStreamWaitValue64``), the one wait
-covering read after write and write after read as the event does.  Events
-stay for neighbours in this process.  A neighbour on **another host**
-(the ranks' host records say so, and nothing else) is read from a mirror
-of its block on this rank's card, which the pointer tables name in its
-place: once a chunk each rank copies out exactly the slabs its far
-readers' launches read (:func:`mirror_plan`), after its own launch of
-the step before, to pinned host memory held for the run, swaps them over
-gloo and copies what it receives into its mirrors (:class:`_FarExchange`),
-each copy after the local launches that last read that mirror; a
-launch waits for its mirrors' copies.  With ``col_mode="packed"`` a far
-column neighbour's staging is mirrored too, in a second round after the
-packs.  With ``overlap=True`` the interiors launch before the exchange,
-which they hide.  A run is closed collectively (:func:`close_carry`:
-unmap, then a barrier, then the buffers and mirrors go).  A failed map, a
-refused counter, or ranks of one host on different cards raise (the last
-naming item 10d-ii-b); a failed map never falls back to a mirror.  On a
-CPU grid over processes the plain version runs each rank's blocks after a
-gloo exchange of the ``r·fuse``-deep rims, corners included
-(``halo.exchange_per_block``), whatever the hosts, its overlapped
-schedule filling a region's ghosts from them as its waits allow.
+covering read after write and write after read as the event does; on
+another card the wait reads the counter through the peer map.  Events
+stay for neighbours in this process.  A neighbour on **another
+host** (the ranks' host records say so, and nothing else) is read from a
+mirror of its block on this rank's card, which the pointer tables name in
+its place: once a chunk each rank copies out exactly the slabs its far
+readers' launches read (:func:`mirror_plan`), after its own launch of the
+step before, into a staging buffer held for the run (pinned host memory
+over gloo, card memory over NCCL), swaps them (``multihost.swap``) and
+copies what it receives into its mirrors (:class:`_FarExchange`), each
+copy after the local launches that last read that mirror; a launch waits
+for its mirrors' copies.  Over NCCL the round is ordered by events alone:
+the host waits for nothing.  With ``col_mode="packed"`` a far column
+neighbour's staging is mirrored too, in a second round after the packs.
+With ``overlap=True`` the interiors launch before the exchange, which
+they hide.  A run is closed collectively (:func:`close_carry`: unmap,
+then a barrier, then the buffers and mirrors go).  A failed map or a
+refused counter raises with the runtime's cause; it never falls back to a
+mirror or to the host.  On a CPU grid over processes the plain version
+runs each rank's blocks after an exchange of the ``r·fuse``-deep rims,
+corners included (``halo.exchange_per_block``), whatever the hosts, its
+overlapped schedule filling a region's ghosts from them as its waits
+allow.
 """
 
 from __future__ import annotations
@@ -118,9 +123,7 @@ from parallel_convolution_tpu_torch.ops import stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import channels, halo
 from parallel_convolution_tpu_torch.parallel.mesh import first_block
-from parallel_convolution_tpu_torch.utils.config import (
-    BOUNDARIES, PROCESSES_ITEM, pending,
-)
+from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
 
 
 class RdmaPlan(NamedTuple):
@@ -644,9 +647,9 @@ def fused_rdma_slots_plain(blocks, filt: Filter, grid_shape,
     output raises: a missed wait shows in every dtype.
 
     On a ``grid`` over several processes ``blocks`` is this rank's share
-    (``None`` elsewhere): the slabs between ranks travel by gloo
-    (``halo.exchange_per_block``) and only this rank's blocks are
-    computed."""
+    (``None`` elsewhere): the slabs between ranks travel by
+    ``multihost.swap`` (``halo.exchange_per_block``) and only this rank's
+    blocks are computed."""
     if overlap:
         return _overlap_plain(blocks, filt, grid_shape, boundary, quantize,
                               out_dtype, int(fuse), valid_hw, col_mode,
@@ -683,7 +686,7 @@ def _overlap_plain(blocks, filt: Filter, grid_shape, boundary: str,
     mid = stencil.group_dtype(quantize, dtype) if ext else dtype
     vhw = None if boundary == "periodic" else valid_hw
     periodic = boundary == "periodic"
-    # Over several processes every ghost first arrives by gloo (the rims,
+    # Over several processes every ghost first arrives by a swap (the rims,
     # corners included: the two-hop exchange gives the diagonal's bytes),
     # and the schedule fills a region's ghosts from them.
     rims = (halo.exchange_per_block(blocks, d, grid_shape, boundary,
@@ -939,21 +942,28 @@ class _FarExchange:
 
     * :meth:`send` enqueues, on each local slot's stream (so after its own
       launch of the step before), the copy of the slabs a far rank reads
-      of it (:func:`far_slabs`) into pinned host memory held for the run
-      (``multihost.HostStaging``), one buffer a far rank;
-    * :meth:`receive` waits on the host for those copies, swaps the
-      buffers over gloo (``multihost.swap``: every receive posted first),
-      and on the run's exchange stream, after the last launch of every
-      local slot that reads a mirror (write after read), copies what
-      arrived into the mirrors, recording each mirror's ``landed`` event,
-      which the slots' launches wait on (read after write).
+      of it (:func:`far_slabs`) into a staging buffer held for the run,
+      one a far rank: pinned host memory over gloo
+      (``multihost.HostStaging``), this rank's card over NCCL
+      (``multihost.DeviceStaging``);
+    * :meth:`receive` swaps the buffers (``multihost.swap``) and, on the
+      run's exchange stream, after the last launch of every local slot
+      that reads a mirror (write after read), copies what arrived into
+      the mirrors, recording each mirror's ``landed`` event, which the
+      slots' launches wait on (read after write).  Over gloo the host
+      first waits for the copies out and the swap blocks it; over NCCL
+      the exchange stream waits for the copies out, the NCCL round is
+      ordered after it and it after the round, and the host waits for
+      nothing.  A round's copies out wait for the previous round's NCCL
+      round (it read the same staging).
 
     Round 0 carries the blocks' slabs into a mirror pair matching the
     run's two buffer sets; round 1 (the packed transport, where a far
     slot is a column neighbour: ``stages``) the stagings' sides, after
     the packs.  ``rounds`` counts them, and ``times`` keeps the last
-    rounds' split: the copy out and in (CUDA events), the host's wait for
-    the copy out and the gloo swap (seconds)."""
+    rounds' split: the copy out and in (CUDA events), the host's wait
+    for the copy out (seconds), and the swap: gloo's seconds on the host,
+    or NCCL's on the exchange stream (CUDA events)."""
 
     def __init__(self, run, owners, hosts, rank: int):
         from parallel_convolution_tpu_torch.parallel import multihost
@@ -984,16 +994,22 @@ class _FarExchange:
         self.stream = torch.cuda.Stream(device=dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         # A round's copies into the mirrors: the landing buffers are free
-        # for the next round once it is done.
+        # for the next round once it is done.  Over NCCL, a round's swap:
+        # the staging it sent is free for the next round's copies out.
         self.copied = [torch.cuda.Event(), torch.cuda.Event()]
-        self.host = multihost.HostStaging()
+        self.swapped = [torch.cuda.Event(), torch.cuda.Event()]
+        self.on_card = multihost.transport() == "device"
+        self.host = (multihost.DeviceStaging(dev) if self.on_card
+                     else multihost.HostStaging())
         self.elt = torch.empty((), dtype=run.dtype).element_size()
         self.plans, self.pending, self.rounds = {}, None, 0
         self.times = collections.deque(maxlen=256)
 
     def plan(self, depth: int, staged: bool):
         """``(sends, recvs)``, far rank -> :func:`far_slabs`' list: what
-        this rank copies out for it and what it copies in from it."""
+        this rank copies out for it and what it copies in from it, in the
+        order the bytes lie in the staging (rank ``q``'s receive list from
+        this rank is this rank's send list to ``q``)."""
         key = (int(depth), bool(staged))
         if key not in self.plans:
             run = self.run
@@ -1054,6 +1070,8 @@ class _FarExchange:
                       torch.cuda.Event(enable_timing=True))
                 nb = sum(v.numel() for v in vs) * self.elt
                 with torch.cuda.device(run.slots[m]), torch.cuda.stream(st):
+                    if self.on_card:
+                        st.wait_event(self.swapped[rnd])
                     ev[0].record(st)
                     self._copy(buf[off:off + nb], vs, False)
                     ev[1].record(st)
@@ -1064,20 +1082,22 @@ class _FarExchange:
 
     def receive(self, src: int, depth: int, staged: bool,
                 rnd: int = 0) -> None:
-        """Finish round ``rnd``: the host waits for the copies out, the
-        gloo swap, then the copies into the mirrors of the buffer set
-        ``src`` (or the stagings) on the exchange stream, each mirror's
-        ``landed`` event recorded behind its own copies."""
+        """Finish round ``rnd``: the swap after the copies out, then the
+        copies into the mirrors of the buffer set ``src`` (or the
+        stagings) on the exchange stream, each mirror's ``landed`` event
+        recorded behind its own copies."""
         from parallel_convolution_tpu_torch.parallel import multihost
 
         run = self.run
         _, recvs = self.plan(depth, staged)
         out, marks = self.pending
         self.pending = None
+        x = self.stream
         t0 = time.perf_counter()
-        for _, end in marks:
-            end.synchronize()
-        self.copied[rnd].synchronize()
+        if not self.on_card:
+            for _, end in marks:
+                end.synchronize()
+            self.copied[rnd].synchronize()
         t1 = time.perf_counter()
         lands = []
         for q, items in recvs.items():
@@ -1088,9 +1108,20 @@ class _FarExchange:
             if nbytes:
                 lands.append((q, self.host.buffer(("in", rnd, q),
                                                   nbytes * self.elt), views))
-        multihost.swap(out, [(q, rnd, buf) for q, buf, _ in lands])
+        swap = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        with torch.cuda.device(self.device), torch.cuda.stream(x):
+            if self.on_card:
+                # NCCL's stream waits for x as the call finds it, and x
+                # for NCCL's round once the call returns.
+                for _, end in marks:
+                    x.wait_event(end)
+                swap[0].record(x)
+            multihost.swap(out, [(q, rnd, buf) for q, buf, _ in lands])
+            if self.on_card:
+                swap[1].record(x)
+                self.swapped[rnd].record(x)
         t2 = time.perf_counter()
-        x = self.stream
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         with torch.cuda.device(self.device), torch.cuda.stream(x):
@@ -1110,22 +1141,34 @@ class _FarExchange:
             self.copied[rnd].record(x)
         self.rounds += 1
         self.times.append({"round": rnd, "out": marks, "in": ev,
-                           "wait_s": t1 - t0, "gloo_s": t2 - t1,
+                           "swap": swap if self.on_card else None,
+                           "wait_s": t1 - t0, "swap_host_s": t2 - t1,
                            "bytes_out": sum(b.numel() for _, _, b in out),
                            "bytes_in": sum(b.numel() for _, b, _ in lands)})
 
     def split(self) -> list[dict]:
         """``times`` in milliseconds, a round each (after the run's
         streams are joined): the copy out (the slowest slot's), the
-        host's wait for it, the gloo swap, the copy in."""
+        host's wait for it, the swap (``gloo_ms``: the host's seconds in
+        the gloo swap; ``nccl_ms``: the NCCL round on the exchange stream,
+        with ``swap_host_ms`` the host's seconds enqueueing it), the copy
+        in."""
         self.stream.synchronize()
-        return [{"round": t["round"],
-                 "out_ms": max((a.elapsed_time(b) for a, b in t["out"]),
-                               default=0.0),
-                 "wait_ms": 1e3 * t["wait_s"], "gloo_ms": 1e3 * t["gloo_s"],
-                 "in_ms": t["in"][0].elapsed_time(t["in"][1]),
-                 "bytes_out": t["bytes_out"], "bytes_in": t["bytes_in"]}
-                for t in self.times]
+        rows = []
+        for t in self.times:
+            row = {"round": t["round"],
+                   "out_ms": max((a.elapsed_time(b) for a, b in t["out"]),
+                                 default=0.0),
+                   "wait_ms": 1e3 * t["wait_s"],
+                   "in_ms": t["in"][0].elapsed_time(t["in"][1]),
+                   "bytes_out": t["bytes_out"], "bytes_in": t["bytes_in"]}
+            if t["swap"] is None:
+                row["gloo_ms"] = 1e3 * t["swap_host_s"]
+            else:
+                row["nccl_ms"] = t["swap"][0].elapsed_time(t["swap"][1])
+                row["swap_host_ms"] = 1e3 * t["swap_host_s"]
+            rows.append(row)
+        return rows
 
     def close(self) -> None:
         self.stream.synchronize()
@@ -1238,11 +1281,12 @@ class _SlotRun:
     def _span(self, grid, stage_addr) -> None:
         """Over several processes: export this rank's buffers, staging and
         counters, gather every rank's (``multihost.peer_records``, a
-        collective), check that the ranks of this host share one card
-        (item 10d-ii-b otherwise), map the slots of this host's other
-        ranks into ``addr`` / ``stage_addr`` and their counters into
-        ``remote``, and put the mirrors of the slots of other hosts
-        (:class:`_FarExchange`) there in their place."""
+        collective), map the slots of this host's other ranks, on this
+        card or another, into ``addr`` / ``stage_addr`` and their counters
+        into ``remote``, and put the mirrors of the slots of other hosts
+        (:class:`_FarExchange`) there in their place.  A stream waits on
+        a counter on another card through the peer map as it does on
+        this one."""
         from parallel_convolution_tpu_torch.parallel import multihost
 
         n = len(self.slots)
@@ -1254,8 +1298,6 @@ class _SlotRun:
         for d in self.devices:
             torch.cuda.synchronize(d)
         record = {
-            "cards": {s: multihost.card_uuid(self.slots[s])
-                      for s in self.local},
             "where": {s: self.where[s] for s in self.local},
             "bufs": [[ipc_handle(p) for p in bufs] for bufs in self.bufs],
             "stage": [ipc_handle(p) for p in self.stage],
@@ -1266,11 +1308,6 @@ class _SlotRun:
         records = multihost.peer_records(record)
         hosts = multihost.hosts_of(records)
         near = [r for r, h in enumerate(hosts) if h == hosts[grid.rank]]
-        cards = {u for r in near for u in records[r]["cards"].values()}
-        if len(cards) > 1:
-            raise pending("backend 'cuda_rdma' between ranks on different "
-                          f"cards of one host ({len(cards)} cards on "
-                          f"{hosts[grid.rank]!r})", PROCESSES_ITEM)
         if not self.local:  # a sub-grid of another's first slots
             shape, dt = next(r["block"] for r in records if r["where"])
             self.block_shape = tuple(shape)
@@ -1283,6 +1320,8 @@ class _SlotRun:
             if r == grid.rank:
                 continue
             rec = records[r]
+            handle, off = rec["counters"]
+            counters = self._map(handle, dev) + off
             for s, (di, k) in rec["where"].items():
                 for b in (0, 1):
                     handle, off = rec["bufs"][b][di]
@@ -1292,10 +1331,8 @@ class _SlotRun:
                     handle, off = rec["stage"][di]
                     stage_addr[s] = (self._map(handle, dev) + off
                                      + k * stage_bytes)
-                handle, off = rec["counters"]
-                base = self._map(handle, dev) + off
-                self.remote[0][s] = base + 8 * s
-                self.remote[1][s] = base + 8 * (n + s)
+                self.remote[0][s] = counters + 8 * s
+                self.remote[1][s] = counters + 8 * (n + s)
         far = {s for s, o in enumerate(grid.owners)
                if hosts[o] != hosts[grid.rank]}
         if any(m in far for s in self.local for m in self.neighbours[s]):
@@ -1330,7 +1367,8 @@ class _SlotRun:
         """``stream`` (default slot ``s``'s) after slot ``n``'s launch (or
         pack) of ``step``: its event where ``n`` is this process's, its
         mirror's ``landed`` event where it is on another host (the copy of
-        the last round), else its counter reaching ``step``."""
+        the last round), else its counter reaching ``step`` (in its
+        owner's memory, on this card or another)."""
         st = self.streams[s] if stream is None else stream
         if self.where[n] is not None:
             st.wait_event((self.staged if staged else self.launched)[n])

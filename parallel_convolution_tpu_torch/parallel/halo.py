@@ -17,7 +17,8 @@ few whole-grid copies (:func:`_fill_ghosts`), for a list of blocks
 (:func:`halo_exchange`) and for the stacked grid
 (:func:`halo_exchange_stacked`) alike; on a grid of slots each block pads
 in a buffer of its own (:func:`exchange_per_block`), its slabs copied
-between devices, or between processes.  ``halo_exchange.calls`` counts the
+between devices, or between processes (through host memory over gloo,
+card to card over NCCL).  ``halo_exchange.calls`` counts the
 calls on a list of blocks, so a run can show that a path (the
 ``cuda_rdma`` backend on the card) never made one.
 """
@@ -148,10 +149,14 @@ def exchange_per_block(blocks: list[list[torch.Tensor]], depth: int,
     holds ``None`` where another rank holds the block: a ghost whose
     neighbour lives on another rank arrives by a
     ``torch.distributed`` send / receive of that edge slab
-    (``multihost.swap``: every receive posted first), each phase ending
-    before the next begins, and the result holds ``None`` there too.  A
-    rank holding none of the blocks (a sub-grid of another's first slots)
-    has nothing to exchange.
+    (``multihost.swap``), each phase ending before the next begins, and
+    the result holds ``None`` there too.  Each slab's tag names the ghost
+    it fills (block and side), so under the device transport (NCCL, which
+    matches by order alone) the sender's and the receiver's lists of a
+    pair sort alike (``multihost.wire_order``); the slabs are sent from
+    the padded buffers and blocks on the card, and received into the
+    ghosts there.  A rank holding none of the blocks (a sub-grid of
+    another's first slots) has nothing to exchange.
     """
     R, Cg = grid_shape
     mine = first_block(blocks, None)

@@ -22,7 +22,10 @@ share, and ``rank`` is this process's.  Each process holds only its own
 blocks; the others' entries in a list of blocks are ``None``
 (:func:`local_blocks` walks what this process holds).  A grid made from
 another's first slots (a multigrid level's sub-grid) keeps their owners,
-so a rank may hold none of its blocks.
+so a rank may hold none of its blocks.  Under gloo a rank's slots go
+round-robin over its host's cards (two ranks may share one); one card a
+process (an NCCL group) puts every slot of rank r on its own card,
+``cuda:LOCAL_RANK``.
 
 The image state is an R×C list of lists of ``(C, h, w)`` block tensors,
 each on its slot's device.  Axis convention as in the JAX package: grid
@@ -36,7 +39,6 @@ import math
 
 import torch
 
-from parallel_convolution_tpu_torch.utils.config import PROCESSES_ITEM, pending
 from parallel_convolution_tpu_torch.utils.platform import resolve_device
 
 
@@ -101,8 +103,13 @@ class Grid:
             raise ValueError(f"owners {owners} do not give each of the "
                              f"{len(devs)} slots a rank")
         object.__setattr__(self, "owners", owners)
-        object.__setattr__(self, "device", devs[owners.index(self.rank)]
-                           if self.rank in owners else devs[0])
+        if self.rank in owners:
+            mine = devs[owners.index(self.rank)]
+        elif devs[0].type == "cuda" and torch.cuda.is_available():
+            mine = torch.device("cuda", torch.cuda.current_device())
+        else:
+            mine = devs[0]
+        object.__setattr__(self, "device", mine)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -131,6 +138,15 @@ class Grid:
     def spans_processes(self) -> bool:
         """Whether the slots belong to more than one process."""
         return self.owners is not None and len(set(self.owners)) > 1
+
+    @property
+    def local_devices(self) -> tuple[torch.device, ...]:
+        """The distinct devices of the slots this process holds, in slot
+        order (every slot's in one process): what it synchronizes, never
+        another rank's card."""
+        return tuple(dict.fromkeys(
+            d for k, d in enumerate(self.slots)
+            if self.owners is None or self.owners[k] == self.rank))
 
     def is_local(self, i: int, j: int) -> bool:
         """Whether this process holds block (i, j)."""
@@ -196,35 +212,41 @@ def make_grid(shape: tuple[int, int] | None = None, device=None,
 def _process_grid(shape, device) -> Grid:
     """``devices="all"`` in a job of ``n`` processes: R·C slots (default
     ``dims_create`` of every process's devices), rank ``r`` owning slots
-    ``[r·k, (r+1)·k)`` with ``k = R·C / n``, round-robin over its own cards
-    (every slot ``cpu`` with ``device='cpu'``).  The halo slabs between
-    ranks travel through ``torch.distributed`` point-to-point calls on host
-    memory, which gloo carries, and ``cuda_rdma`` reads a neighbour on
-    another rank of the host through CUDA IPC and one on another host from
-    a mirror gloo fills (``ops/rdma.py``); an NCCL group (one card a
-    process) is item 10d-ii-b."""
+    ``[r·k, (r+1)·k)`` with ``k = R·C / n`` (every slot ``cpu`` with
+    ``device='cpu'``).  Under gloo a rank's slots go round-robin over its
+    host's cards from ``cuda:0``, and the halo slabs between ranks travel
+    through host memory; one card a process (NCCL) puts them all on the
+    rank's own card (``multihost.card``; the default shape is then
+    ``dims_create(n)``), and the slabs stay on the cards.  ``cuda_rdma``
+    reads a neighbour on another rank of the host in place through CUDA
+    IPC, on its card or another, and one on another host from a mirror
+    (``ops/rdma.py``)."""
     from parallel_convolution_tpu_torch.parallel import multihost
 
     info = multihost.process_info()
     n, rank = info["process_count"], info["process_index"]
-    if multihost.backend() != "gloo":
-        raise pending(f"a grid over the processes of a "
-                      f"{multihost.backend()} group", PROCESSES_ITEM)
     cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu:
         resolve_device(device)  # raises without CUDA
-    local = 1 if cpu else torch.cuda.device_count()
     r, c = shape if shape is not None else dims_create(
         info["global_devices"] if not cpu else n)
-    devs = [torch.device("cpu")] if cpu else [
-        torch.device("cuda", i) for i in range(local)]
+    if cpu:
+        devs = [torch.device("cpu")]
+    elif multihost.one_card_a_process():
+        cards = multihost.gather_object(multihost.card().index)
+        devs = {q: torch.device("cuda", i) for q, i in enumerate(cards)}
+    else:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
     return _spread(int(r), int(c), range(n), devs, rank)
 
 
 def _spread(r: int, c: int, ranks, devs, rank: int) -> Grid:
     """An r×c grid of slots over ``ranks`` (in order), each owning an
-    equal row-major share, a rank's ``k`` slots round-robin over ``devs``
-    (its devices; on one host every rank sees the same list)."""
+    equal row-major share.  ``devs`` is a list, which a rank's ``k``
+    slots go round-robin over (on one host every rank sees the same
+    list), or a dict naming each rank's one device (one card a
+    process)."""
     ranks = list(ranks)
     n = len(ranks)
     if (r * c) % n:
@@ -232,7 +254,10 @@ def _spread(r: int, c: int, ranks, devs, rank: int) -> Grid:
                          f"of {n} processes")
     k = r * c // n
     owners = tuple(ranks[s // k] for s in range(r * c))
-    slots = tuple(devs[(s % k) % len(devs)] for s in range(r * c))
+    if isinstance(devs, dict):
+        slots = tuple(devs[o] for o in owners)
+    else:
+        slots = tuple(devs[(s % k) % len(devs)] for s in range(r * c))
     return Grid(r, c, devices=slots, owners=owners, rank=rank)
 
 
@@ -268,14 +293,19 @@ def grid_like(grid: Grid, shape: tuple[int, int]) -> Grid:
     device, a slot per block round-robin over the grid's distinct devices
     in their order (one process), or over the processes of ``grid`` in
     ``_process_grid``'s layout (each rank an equal share, round-robin over
-    the devices its slots name): what a model's grid becomes when it is
-    swapped by an ``"RxC"`` spec (``ConvolutionModel.set_grid``)."""
+    the devices its slots name, or on its own card where each rank has
+    one): what a model's grid becomes when it is swapped by an ``"RxC"``
+    spec (``ConvolutionModel.set_grid``)."""
     r, c = (int(v) for v in shape)
     if not grid.slotted:
         return Grid(r, c, grid.device)
     devs = list(dict.fromkeys(grid.slots))
     if grid.owners is not None:
-        return _spread(r, c, sorted(set(grid.owners)), devs, grid.rank)
+        from parallel_convolution_tpu_torch.parallel import multihost
+
+        own = (dict(zip(grid.owners, grid.slots))
+               if multihost.one_card_a_process() else devs)
+        return _spread(r, c, sorted(set(grid.owners)), own, grid.rank)
     return Grid(r, c, devices=tuple(devs[k % len(devs)]
                                     for k in range(r * c)))
 

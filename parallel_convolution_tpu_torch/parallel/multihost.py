@@ -17,31 +17,76 @@ process count and its rank (or the ``MASTER_ADDR`` / ``MASTER_PORT`` /
 
 In a job of several processes ``mesh.make_grid(devices="all")`` spans
 them: each rank owns an equal share of the slots and holds only its
-blocks.  What crosses ranks goes through this module and host memory, the
-transport gloo carries (two ranks on one card share it; NCCL refuses
-that): the halo slabs and the pieces of a re-blocked grid (:func:`swap`,
-point to point), the convergence diff (:func:`all_max`), a block another
-rank holds (:func:`fill_blocks`) and small objects (:func:`gather_object`,
+blocks.  What crosses ranks goes through this module: the halo slabs and
+the pieces of a re-blocked grid (:func:`swap`, point to point), the
+convergence diff (:func:`all_max`), a block another rank holds
+(:func:`fill_blocks`) and small objects (:func:`gather_object`,
 :func:`peer_records`: the CUDA IPC handles through which ``cuda_rdma``
 reads a neighbour's buffer in place where the ranks share a host, and the
 hosts, :func:`hosts_of`, which say where it reads a mirror instead).  A
 job across hosts is launched the same way on every host, each rank given
-the one coordinator's address.  The NCCL transport (one card a process)
-and ``cuda_rdma`` between cards of one host are ROADMAP item 10d-ii-b.
+the one coordinator's address.
+
+The transport (:func:`transport`) is decided here, once:
+
+* ``"host"`` (gloo): the slabs travel through host memory, pinned where
+  they come from a card.  Two ranks may share one card, which NCCL
+  refuses.
+* ``"device"`` (NCCL: one card a process, ``cuda:LOCAL_RANK``): the
+  slabs stay on the card, sent and received as card tensors in one
+  batched round.  NCCL matches a pair's messages by their order alone,
+  so both sides order a pair's slabs by the receiving slab's tag
+  (:func:`wire_order`).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 
 import torch
+
+# NCCL matches point-to-point messages by order, not tag: a mismatched
+# order hangs until the group's timeout, which is this (seconds).
+NCCL_TIMEOUT_S = 300.0
+
+# This process's card under NCCL (``cuda:LOCAL_RANK``), set by
+# :func:`initialize`.
+_LOCAL_RANK: int | None = None
 
 
 def _dist():
     import torch.distributed as dist
 
     return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def host_processes(num_processes: int, env=None) -> int:
+    """The processes of the job on this host: torchrun's
+    ``LOCAL_WORLD_SIZE``, else ``num_processes`` (every rank on one host,
+    as ``utils.multihost_job.spawn`` starts them)."""
+    env = os.environ if env is None else env
+    return int(env.get("LOCAL_WORLD_SIZE", num_processes))
+
+
+def local_rank(process_id: int, num_processes: int, env=None) -> int:
+    """This process's index among its host's: torchrun's ``LOCAL_RANK``,
+    else the rank modulo :func:`host_processes`."""
+    env = os.environ if env is None else env
+    if "LOCAL_RANK" in env:
+        return int(env["LOCAL_RANK"])
+    return int(process_id) % host_processes(num_processes, env)
+
+
+def default_backend(host_cards: int, host_processes: int) -> str:
+    """``nccl`` where every process of this host can have a card of its
+    own (at least as many cards as the host's processes), else ``gloo``:
+    without a card, and whenever two ranks of a host would share one,
+    which NCCL refuses.  The host's processes, not the job's: with
+    ``torchrun --nnodes 2 --nproc-per-node 4`` on four-card hosts every
+    rank has a card."""
+    return "nccl" if 0 < int(host_processes) <= int(host_cards) else "gloo"
 
 
 def initialize(coordinator_address: str | None = None,
@@ -53,12 +98,17 @@ def initialize(coordinator_address: str | None = None,
     in the environment) and when the group already exists.
 
     ``coordinator_address`` is ``host:port`` (or a ``tcp://`` / ``env://``
-    URL); ``backend`` defaults to ``nccl`` where every process can have a
-    card of its own (at least ``num_processes`` visible), else ``gloo``:
-    without CUDA, and whenever two ranks share a card, which NCCL refuses.
+    URL); ``backend`` defaults to :func:`default_backend` of this host's
+    cards and processes.  Under ``nccl`` the process binds its card,
+    ``cuda:LOCAL_RANK`` (:func:`local_rank`), for the group's life, the
+    group times out after :data:`NCCL_TIMEOUT_S` (a send order that does
+    not match hangs, where gloo's tags would not), and one collective
+    runs at once, so that a later point-to-point round may involve only
+    some of the ranks.
     """
     import torch.distributed as dist
 
+    global _LOCAL_RANK
     if num_processes is None:
         num_processes = int(os.environ.get("WORLD_SIZE", "1"))
     if num_processes <= 1 or _dist() is not None:
@@ -72,12 +122,20 @@ def initialize(coordinator_address: str | None = None,
     else:
         url = f"tcp://{coordinator_address}"
     if backend is None:
-        own_card = (torch.cuda.is_available()
-                    and torch.cuda.device_count() >= int(num_processes))
-        backend = "nccl" if own_card else "gloo"
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        backend = default_backend(cards, host_processes(num_processes))
+    kw = {}
+    if backend == "nccl":
+        _LOCAL_RANK = local_rank(process_id, num_processes)
+        card = torch.device("cuda", _LOCAL_RANK)
+        torch.cuda.set_device(card)
+        kw = dict(device_id=card,
+                  timeout=datetime.timedelta(seconds=NCCL_TIMEOUT_S))
     dist.init_process_group(
-        backend,
-        init_method=url, world_size=int(num_processes), rank=int(process_id))
+        backend, init_method=url, world_size=int(num_processes),
+        rank=int(process_id), **kw)
+    if backend == "nccl":
+        barrier("group-made")
 
 
 def process_count() -> int:
@@ -98,7 +156,31 @@ def backend() -> str | None:
     return None if dist is None else str(dist.get_backend())
 
 
+def transport() -> str:
+    """How slabs cross ranks: ``"device"`` under NCCL, else ``"host"``."""
+    return "device" if backend() == "nccl" else "host"
+
+
+def one_card_a_process() -> bool:
+    """Whether this job runs one card a process (an NCCL group)."""
+    return backend() == "nccl"
+
+
+def card() -> torch.device:
+    """This process's card in an NCCL group: ``cuda:LOCAL_RANK`` as
+    :func:`initialize` bound it, or the current card of a group made
+    elsewhere."""
+    if _LOCAL_RANK is not None:
+        return torch.device("cuda", _LOCAL_RANK)
+    if one_card_a_process() and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    raise RuntimeError("no NCCL group: this process has no card of its "
+                       "own (multihost.initialize)")
+
+
 def _local_devices() -> int:
+    if one_card_a_process():
+        return 1
     return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
@@ -124,7 +206,10 @@ def barrier(name: str = "pctpu_barrier") -> None:
     dist = _dist()
     if dist is None or dist.get_world_size() == 1:
         return
-    dist.barrier()
+    if one_card_a_process() and torch.cuda.is_available():
+        dist.barrier(device_ids=[card().index])
+    else:
+        dist.barrier()
 
 
 def broadcast_scalar(value: float) -> float:
@@ -209,13 +294,23 @@ def agreed(fn):
 
 
 def all_max(x: torch.Tensor) -> torch.Tensor:
-    """The max over ranks of a 0-d tensor, as a 0-d f32 host tensor, NaN
-    if any rank's is NaN: gloo's MAX need not carry a NaN, so a NaN flag
-    is reduced beside the value (NaN taken as -inf there), in one call.
-    The copy to the host is the caller's one readback."""
+    """The max over ranks of a 0-d tensor, as a 0-d f32 tensor, NaN if
+    any rank's is NaN: gloo's MAX need not carry a NaN, so a NaN flag is
+    reduced beside the value (NaN taken as -inf there), in one call.  On
+    the host under the host transport (the copy there is the caller's one
+    readback); under the device transport the pair is reduced on ``x``'s
+    device and the result stays there, for the caller's one readback."""
     dist = _dist()
     if dist is None or dist.get_world_size() == 1:
         return x
+    if transport() == "device":
+        v = x.detach().to(torch.float64).reshape(())
+        nan = torch.isnan(v)
+        buf = torch.stack([torch.where(nan, float("-inf"), v),
+                           nan.to(torch.float64)])
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+        return torch.where(buf[1] > 0, float("nan"), buf[0]).to(
+            torch.float32)
     v = x.detach().to("cpu", torch.float64).reshape(())
     nan = bool(torch.isnan(v))
     buf = torch.tensor([float("-inf") if nan else float(v), float(nan)],
@@ -248,29 +343,63 @@ class HostStaging:
     def __init__(self):
         self._bufs: dict = {}
 
+    def _alloc(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8,
+                           pin_memory=torch.cuda.is_available())
+
     def buffer(self, key, nbytes: int) -> torch.Tensor:
         """The flat uint8 buffer named ``key``, ``nbytes`` long (grown,
         never shrunk, when a later round asks for more)."""
         buf = self._bufs.get(key)
         if buf is None or buf.numel() < nbytes:
-            buf = self._bufs[key] = torch.empty(
-                nbytes, dtype=torch.uint8,
-                pin_memory=torch.cuda.is_available())
+            buf = self._bufs[key] = self._alloc(nbytes)
         return buf[:nbytes]
+
+
+class DeviceStaging(HostStaging):
+    """:class:`HostStaging`'s counterpart for the device transport: the
+    buffers lie on ``device`` (this process's card), where NCCL sends and
+    receives them."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device = torch.device(device)
+
+    def _alloc(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+
+
+def wire_order(items) -> list:
+    """``(rank, tag, tensor)`` items in the order the device transport
+    puts them on the wire: by peer rank, then by tag (the receiving
+    slab's name).  A sender's list to a peer and the peer's receives
+    from it sort alike, so NCCL, which matches a pair's messages by
+    order alone, pairs each slab with its own receive."""
+    return sorted(items, key=lambda it: (int(it[0]), int(it[1])))
 
 
 def swap(sends, recvs) -> None:
     """One round of point-to-point slabs between ranks.  ``sends`` are
     ``(rank, tag, tensor)``; ``recvs`` are ``(rank, tag, out)``, each
-    ``out`` a tensor (any device) the slab is written into.  Every receive
-    is posted before any send, all of them non-blocking, and the round
-    ends when all have completed, so no ring of ranks deadlocks; a card's
-    slab is staged through pinned host memory (gloo's point-to-point calls
-    take host tensors), and a contiguous host ``out`` (a
-    :class:`HostStaging` buffer) is received into in place.  Tags name
-    the receiving slab, so one round may carry several slabs between the
-    same two ranks."""
+    ``out`` a tensor the slab is written into.  Tags name the receiving
+    slab, so one round may carry several slabs between the same two
+    ranks.  The round ends when every slab has landed, so no ring of
+    ranks deadlocks.
+
+    * Host transport (gloo): every receive is posted before any send, all
+      non-blocking; a card's slab is staged through pinned host memory
+      (gloo's point-to-point calls take host tensors), and a contiguous
+      host ``out`` (a :class:`HostStaging` buffer) is received into in
+      place.
+    * Device transport (NCCL): the tensors themselves, in one
+      ``batch_isend_irecv`` in :func:`wire_order` with every tag 0; an
+      ``out`` that is not contiguous lands in a buffer on its own device
+      first.  The host does not wait: the caller's current stream is
+      ordered after the round."""
     dist = _dist()
+    if transport() == "device":
+        _swap_device(dist, sends, recvs)
+        return
     landing, reqs = [], []
     for src, tag, out in recvs:
         if out.device.type == "cpu" and out.is_contiguous():
@@ -288,22 +417,47 @@ def swap(sends, recvs) -> None:
         out.copy_(buf.view(out.dtype).view(out.shape))
 
 
+def _swap_device(dist, sends, recvs) -> None:
+    ops, landing = [], []
+    for src, _, out in wire_order(recvs):
+        buf = out if out.is_contiguous() else torch.empty(
+            out.shape, dtype=out.dtype, device=out.device)
+        if buf is not out:
+            landing.append((buf, out))
+        ops.append(dist.P2POp(dist.irecv, buf, int(src), tag=0))
+    for dst, _, t in wire_order(sends):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), int(dst), tag=0))
+    if not ops:
+        return
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    for buf, out in landing:
+        out.copy_(buf)
+
+
 def fill_blocks(blocks, owners) -> list:
     """The R×C blocks with every entry filled: each block is broadcast from
-    the rank that holds it (``owners``, row-major) through host memory,
-    and lands on the device of this process's first block (a grid over
-    several processes: every rank calls this)."""
+    the rank that holds it (``owners``, row-major) and lands on the device
+    of this process's first block (a grid over several processes: every
+    rank calls this).  Through host memory under the host transport; on
+    the card itself under the device transport."""
     dist = _dist()
     mine = next(b for row in blocks for b in row if b is not None)
     cols = len(blocks[0])
     out = [list(row) for row in blocks]
+    on_card = transport() == "device"
     for k, owner in enumerate(owners):
         i, j = divmod(k, cols)
-        buf = (_to_host(out[i][j]) if out[i][j] is not None
-               else _host_buffer(mine.numel() * mine.element_size(),
-                                 mine.device))
+        if on_card:
+            buf = (out[i][j].contiguous() if out[i][j] is not None
+                   else torch.empty(mine.shape, dtype=mine.dtype,
+                                    device=mine.device))
+        else:
+            buf = (_to_host(out[i][j]) if out[i][j] is not None
+                   else _host_buffer(mine.numel() * mine.element_size(),
+                                     mine.device))
         dist.broadcast(buf, src=int(owner))
         if out[i][j] is None:
-            out[i][j] = buf.view(mine.dtype).view(mine.shape).to(
-                mine.device)
+            out[i][j] = buf if on_card else buf.view(mine.dtype).view(
+                mine.shape).to(mine.device)
     return out

@@ -47,12 +47,13 @@ blocks, the exchange sends a slab between ranks where a neighbour lives on
 another, and the diff is reduced across ranks (``multihost.all_max``, a
 NaN on any rank stopping every rank after the same chunk).  ``cuda_rdma``
 reads a neighbour on another rank of the host in place (CUDA IPC behind
-the counters of ``ops/rdma.py``) and one on another host from a mirror
-that gloo fills once a chunk (on the CPU its plain version after a gloo
-exchange of the rims, whatever the hosts), ``auto`` takes rank 0's
-resolution and ``fallback`` the furthest rung any rank's own probe
-reached.  The NCCL transport and ``cuda_rdma`` between cards of one host
-are ROADMAP item 10d-ii-b.
+the counters of ``ops/rdma.py``, on the same card or another) and one on
+another host from a mirror that an exchange fills once a chunk (on the
+CPU its plain version after an exchange of the rims, whatever the hosts),
+``auto`` takes rank 0's resolution and ``fallback`` the furthest rung any
+rank's own probe reached.  The slabs cross ranks through host memory over
+gloo and stay on the cards over NCCL (one card a process;
+``multihost.transport``).
 """
 
 from __future__ import annotations
@@ -807,8 +808,8 @@ def _carry_diff(cur, prev, grid: Grid) -> torch.Tensor:
     device's share is reduced where it lives and the shares are gathered
     once (a NaN on any slot stays NaN).  On a grid over several processes
     each rank reduces its blocks and the ranks their shares
-    (``multihost.all_max``: the 0-d result on the host, NaN if any rank's
-    is)."""
+    (``multihost.all_max``: the 0-d result on the host, or on the card
+    under NCCL, NaN if any rank's is)."""
     if isinstance(cur, rdma.SlotCarry):
         cur.run.join()
         d = _slots_max_diff([cur.parts], [prev.parts], grid.device)

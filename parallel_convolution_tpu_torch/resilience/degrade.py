@@ -155,7 +155,7 @@ def _run_probe(grid, filt, backend, quantize, fuse, boundary, tile, storage,
                                   tuple(block_hw), backend, fuse, boundary,
                                   tile, interior_split, col_mode, overlap)
     run(split_blocks(x, grid))
-    for dev in dict.fromkeys(grid.slots):
+    for dev in grid.local_devices:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 

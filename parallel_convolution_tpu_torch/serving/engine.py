@@ -344,7 +344,7 @@ class WarmEngine:
 
     def _sync(self) -> None:
         """Wait for every card of the grid (the run's fence)."""
-        for dev in dict.fromkeys(self.grid.slots):
+        for dev in self.grid.local_devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 

@@ -188,8 +188,8 @@ def build_restrict_fw(grid_shape, valid_hw, block_hw, boundary: str = "zero",
     zero, even for periodic), and the coarse validity mask: positions
     beyond ``coarse_extent(valid)`` are zero.  ``per_block`` (a grid of
     slots): the blocks list in, each block on its own device; ``grid``
-    (with ``per_block``) the grid, whose rims between ranks cross by gloo
-    where it spans processes.
+    (with ``per_block``) the grid, whose rims between ranks cross by
+    ``multihost.swap`` where it spans processes.
     """
     _check_even_block(block_hw, "restrict_fw")
     periodic = boundary == "periodic"

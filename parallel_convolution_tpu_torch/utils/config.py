@@ -75,13 +75,6 @@ COL_MODE_CHOICES = COL_MODES + ("auto",)
 # the same name and value): without it ``overlap=True`` is clamped there.
 OVERLAP_INTERPRET_ENV = "PCTPU_OVERLAP_INTERPRET"
 
-# What a grid of slots over several processes does not run yet: every
-# path runs over gloo across the processes of one host (item 10d-i) and
-# across hosts (item 10d-ii-a); the NCCL transport and cuda_rdma between
-# cards of one host wait for two cards.
-PROCESSES_ITEM = ("item 10d-ii-b (the NCCL transport, one card a process; "
-                  "cuda_rdma between cards of one host)")
-
 # Knobs of the JAX entry points and CLI that later slices port:
 # name -> ROADMAP item.  None is left: every knob is ported.
 PENDING_KNOBS: dict[str, str] = {}

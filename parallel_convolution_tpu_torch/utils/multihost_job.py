@@ -3,7 +3,7 @@ two-process job (``tests/_multihost_worker.py``) on a grid of slots that
 spans the processes (``mesh.make_grid(devices="all")`` after
 ``multihost.initialize``), each process holding only its own blocks.
 
-Per rank: join the gloo group; rank 0 writes a seeded raw image and every
+Per rank: join the group; rank 0 writes a seeded raw image and every
 rank waits for it; a sharded load of this rank's blocks; a checkpointed
 iterate (a snapshot every ``every`` iterations, this rank's shards only,
 rank 0 writing the meta and the pointer); a sharded save (rank 0
@@ -37,12 +37,16 @@ Like the port's other entry points it runs on the card unless
 ``torchrun`` on every host with one coordinator (``--nnodes N
 --node-rank K --master-addr HOST0 --master-port P``) and a ``--work``
 directory that every host sees; ``cuda_rdma`` then reads a neighbour on
-another host from a mirror that gloo fills once a chunk.
+another host from a mirror that an exchange fills once a chunk.
 
-Two ranks may share one card (its slots then time-slice between two CUDA
-contexts); the group is gloo, whose point-to-point calls carry the halo
-slabs through host memory.  The output file is ``<work>/out.raw``; each
-rank's result is a dict (printed as one JSON line a rank from the CLI).
+The group is ``multihost.initialize``'s default: NCCL where the host has
+a card for each of its ranks (one card a process, the slabs kept on the
+cards), else gloo.  Ranks that see one card (``CUDA_VISIBLE_DEVICES``)
+get gloo and share it (its slots time-slice between two CUDA contexts),
+the halo slabs crossing through host memory; so does ``job(group=
+"gloo")`` on any machine.  The output file
+is ``<work>/out.raw``; each rank's result is a dict (printed as one JSON
+line a rank from the CLI).
 """
 
 from __future__ import annotations
@@ -71,11 +75,14 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
         cols: int = 53, mode: str = "grey", iters: int = 4, every: int = 2,
         filt: str = "blur3", backend: str = "cuda", storage: str = "f32",
         fuse: int = 1, seed: int = 3, col_mode: str | None = None,
-        legs=()) -> dict:
+        legs=(), group: str | None = None, slots=None) -> dict:
     """This rank's share of the job; returns its result row.  ``rank`` /
     ``processes`` / ``port`` None read torchrun's environment.  ``device``
     None is the card (raising without CUDA); ``"cpu"`` runs the plain
-    versions."""
+    versions.  ``group`` is the process group's backend (None: the
+    default, ``multihost.default_backend``); a group that exists already
+    is kept.  ``slots`` (one process) names the grid's slots, as
+    ``mesh.make_grid(devices=)`` takes them, in place of every card's."""
     import torch
 
     from parallel_convolution_tpu_torch.models import ConvolutionModel
@@ -93,10 +100,11 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
     events.install_from_env()
     multihost.initialize(None if port is None else f"localhost:{port}",
                          num_processes=processes, process_id=rank,
-                         backend="gloo")
+                         backend=group)
     info = multihost.process_info()
     rank = info["process_index"]
-    grid = mesh.make_grid(tuple(shape), devices="all", device=device)
+    grid = (mesh.make_grid(tuple(shape), devices=slots) if slots
+            else mesh.make_grid(tuple(shape), devices="all", device=device))
     work = Path(work)
     src, dst, ckpt = work / "in.raw", work / "out.raw", work / "ckpt"
     f = get_filter(filt)
@@ -118,7 +126,8 @@ def job(rank: int | None, processes: int | None, port: int | None, work,
         multihost.barrier("timed")
         return out, time.perf_counter() - t0
 
-    row = {"rank": rank, **info, "slots": grid.slot_map(),
+    row = {"rank": rank, **info, "group": multihost.backend(),
+           "slots": grid.slot_map(),
            "owners": list(grid.owners or ()), "backend": backend,
            "storage": storage, "fuse": fuse, "output": str(dst)}
     if storage == "bf16":

@@ -22,7 +22,8 @@ On a grid of slots (``mesh.Grid.devices``) the state is the R×C list of
 every block where it lives; the converge diff is reduced on each slot and
 gathered once a chunk, still one readback.  On a grid over several
 processes each rank steps its own blocks, the faces between ranks cross
-by gloo (``multihost.swap``, as rank 2's slabs do), the diff is reduced
+by ``multihost.swap`` (as rank 2's slabs do: through the host over gloo,
+card to card over NCCL), the diff is reduced
 over the ranks (``multihost.all_max``) and every rank gathers the result
 (``multihost.fill_blocks``).
 

@@ -231,8 +231,8 @@ def build_volume_step(name: str, grid_shape, depth: int, valid_hw, block_hw,
     slot's device after the per-block exchange
     (``halo3.volume_exchange_per_block``), the same ops on each, so the
     same values; ``grid`` (with ``per_block``) is the grid, whose faces
-    between ranks cross by gloo where it spans several processes (each
-    rank holding its share of the blocks).
+    between ranks cross by ``multihost.swap`` where it spans several
+    processes (each rank holding its share of the blocks).
     """
     r = form_radius(name)
     fuse = max(1, int(fuse))

@@ -115,7 +115,8 @@ def volume_exchange_per_block(blocks, r: int, grid_shape,
     arrive in two hops.  On a ``grid`` over several processes ``blocks``
     is this rank's share (``None`` elsewhere) and a face whose neighbour
     lives on another rank crosses by ``multihost.swap``, as the planar
-    exchange's slabs do."""
+    exchange's slabs do: from the padded buffer on the card itself under
+    the device transport (NCCL), in ``multihost.wire_order``."""
     from parallel_convolution_tpu_torch.parallel.mesh import first_block
 
     b0 = first_block(blocks, None)

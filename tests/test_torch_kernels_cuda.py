@@ -1676,21 +1676,32 @@ def test_volumes_io_and_checkpoints_on_slots_match_one_card(cuda_device,
     np.testing.assert_array_equal(imageio.read_raw(dst, 45, 61, "rgb"), want)
 
 
+def _first_card() -> str:
+    """The first visible card as ``CUDA_VISIBLE_DEVICES`` names it."""
+    import os
+
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0].strip()
+    return seen or "0"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend,storage,fuse", [("cuda", "f32", 1),
                                                   ("cuda_sep", "bf16", 4)])
 def test_two_processes_share_the_card(cuda_device, tmp_path, backend,
-                                      storage, fuse):
+                                      storage, fuse, monkeypatch):
     # Two spawned ranks, 2 slots of cuda:0 each, gloo between them: the
-    # oracle's bytes, the resume bit-identical, both ranks launching.
+    # oracle's bytes, the resume bit-identical, both ranks launching.  The
+    # ranks see the first card alone, so that they share it on a machine
+    # with several.
     from parallel_convolution_tpu_torch.ops import _build
     from parallel_convolution_tpu_torch.utils import multihost_job
 
     _build.build_all()  # never two processes building at once
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", _first_card())
     rows = multihost_job.spawn(2, tmp_path, timeout=600, device="cuda",
                                rows=61, cols=75, mode="rgb", iters=9,
                                every=4, backend=backend, storage=storage,
-                               fuse=fuse)
+                               fuse=fuse, group="gloo")
     want = oracle.run_serial_u8(
         imageio.generate_test_image(61, 75, "rgb", seed=3),
         get_filter("blur3"), 9)
@@ -1776,8 +1787,9 @@ def _cross_checks(rank: int, port: int) -> dict:
 
     from parallel_convolution_tpu_torch.parallel import multihost, step
 
+    # Two ranks sharing cuda:0 mean gloo: NCCL refuses that.
     multihost.initialize(f"localhost:{port}", num_processes=2,
-                         process_id=rank)
+                         process_id=rank, backend="gloo")
     dev = torch.device("cuda", 0)
     row = {}
     # An IPC map of a sub-allocated tensor: the slice starts 12345
@@ -1961,11 +1973,13 @@ def cross_ranks():
 
     _build.build_all()  # never two processes building at once
     ctx = mp.get_context("spawn")
-    with ctx.Manager() as manager:
+    with ctx.Manager() as manager, pytest.MonkeyPatch.context() as mp_env:
         results = manager.dict()
         port = multihost_job.free_port()
         procs = [ctx.Process(target=_cross_worker,
                              args=(r, port, results)) for r in range(2)]
+        # The ranks share one card, whatever the machine has.
+        mp_env.setenv("CUDA_VISIBLE_DEVICES", _first_card())
         for p in procs:
             p.start()
         for p in procs:
@@ -2110,7 +2124,7 @@ def _four_checks(rank: int, port: int) -> dict:
     from parallel_convolution_tpu_torch.parallel import multihost, step
 
     multihost.initialize(f"localhost:{port}", num_processes=4,
-                         process_id=rank)
+                         process_id=rank, backend="gloo")
     grid = mesh.make_grid((2, 2), devices="all")
     row = {"owners": grid.owners}
     real = multihost.hostname
@@ -2155,11 +2169,13 @@ def four_ranks():
 
     _build.build_all()
     ctx = mp.get_context("spawn")
-    with ctx.Manager() as manager:
+    with ctx.Manager() as manager, pytest.MonkeyPatch.context() as mp_env:
         results = manager.dict()
         port = multihost_job.free_port()
         procs = [ctx.Process(target=_four_worker,
                              args=(r, port, results)) for r in range(4)]
+        # The ranks share one card, whatever the machine has.
+        mp_env.setenv("CUDA_VISIBLE_DEVICES", _first_card())
         for p in procs:
             p.start()
         for p in procs:
@@ -2219,3 +2235,312 @@ def test_multigrid_across_two_ranks_closes_its_runs(cross_ranks):
         # No neighbour's buffer stays mapped once a run is closed.
         assert row["maps_after_iterate"] == row["maps_after_mg"] == 0
         assert row["maps_kept"] > 0 and row["maps_after_close"] == 0
+
+
+# ------------------- one card a process (item 10d-ii-b): NCCL between cards
+
+def _need_cards(n: int) -> None:
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        pytest.skip(f"needs {n} cards ({have} visible): NCCL refuses two "
+                    "ranks on one card")
+
+
+def _spawn_ranks(target, n: int, timeout: float = 600.0) -> dict:
+    """``target(rank, port, results)`` in ``n`` spawned ranks (the kernels
+    built first); every rank's row."""
+    import torch.multiprocessing as mp
+
+    from parallel_convolution_tpu_torch.ops import _build
+    from parallel_convolution_tpu_torch.utils import multihost_job
+
+    _build.build_all()  # never two processes building at once
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        results = manager.dict()
+        port = multihost_job.free_port()
+        procs = [ctx.Process(target=target, args=(r, port, results))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        got = {r: dict(results.get(r, {"error": "no result"}))
+               for r in range(n)}
+        assert [p.exitcode for p in procs] == [0] * n, got
+    return got
+
+
+def _run_rank(checks, rank: int, port: int, results) -> None:
+    import torch.distributed as dist
+
+    try:
+        results[rank] = checks(rank, port)
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        results[rank] = {"error": f"{type(e).__name__}: {e}"}
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _no_host_staging(multihost) -> None:
+    """Make any host staging of a slab raise in this rank."""
+    def refuse(*a, **k):
+        raise AssertionError("a slab staged through host memory under NCCL")
+
+    multihost._to_host = multihost._host_buffer = refuse
+    multihost.HostStaging._alloc = refuse
+
+
+def _nccl_swap_checks(rank: int, port: int) -> dict:
+    from parallel_convolution_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", num_processes=2,
+                         process_id=rank)
+    _no_host_staging(multihost)
+    dev = multihost.card()
+    row = {"backend": multihost.backend(),
+           "transport": multihost.transport(), "card": str(dev)}
+    peer = 1 - rank
+    # Three slabs each way, posted in different orders on the two sides;
+    # one lands in a view that is not contiguous.
+    slabs = [torch.full((3, 5 + k, 7), 10 * rank + k, dtype=torch.bfloat16,
+                        device=dev) for k in range(3)]
+    frame = torch.zeros((3, 10, 20), dtype=torch.bfloat16, device=dev)
+    outs = [torch.empty((3, 5, 7), dtype=torch.bfloat16, device=dev),
+            frame[:, 2:8, 3:10],
+            torch.empty((3, 7, 7), dtype=torch.bfloat16, device=dev)]
+    multihost.swap([(peer, k, slabs[k]) for k in (2, 0, 1)],
+                   [(peer, k, outs[k]) for k in (1, 2, 0)])
+    torch.cuda.synchronize(dev)
+    row["swap"] = [o.float().unique().tolist() for o in outs]
+    row["frame_rest"] = float(frame.float().sum() - frame[:, 2:8, 3:10]
+                              .float().sum())
+    nan = torch.tensor(float("nan") if rank else 1.0, device=dev)
+    got = multihost.all_max(nan)
+    row["all_max_nan"] = (str(got.device), bool(torch.isnan(got)))
+    got = multihost.all_max(torch.tensor(float(rank + 1), device=dev))
+    row["all_max"] = (str(got.device), float(got))
+    blocks = [[torch.full((1, 2, 3), float(k), device=dev) if k == rank
+               else None for k in range(2)]]
+    full = multihost.fill_blocks(blocks, (0, 1))
+    row["fill"] = [(str(b.device), b.unique().tolist()) for b in full[0]]
+    multihost.barrier("done")
+    return row
+
+
+def _nccl_swap_worker(rank, port, results):
+    _run_rank(_nccl_swap_checks, rank, port, results)
+
+
+@pytest.mark.cuda
+def test_nccl_swap_keeps_the_slabs_on_the_cards():
+    # One card a process: the group is NCCL (the default), each rank on
+    # its own card, and the swap, the diff's reduction and fill_blocks
+    # move card tensors, never staged through the host; the slabs land
+    # in their own outputs, a view that is not contiguous included.
+    _need_cards(2)
+    got = _spawn_ranks(_nccl_swap_worker, 2)
+    for r in (0, 1):
+        row = got[r]
+        assert (row["backend"], row["transport"], row["card"]) == (
+            "nccl", "device", f"cuda:{r}")
+        assert row["swap"] == [[10.0 * (1 - r) + k] for k in range(3)]
+        assert row["frame_rest"] == 0.0
+        assert row["all_max_nan"] == (f"cuda:{r}", True)
+        assert row["all_max"] == (f"cuda:{r}", 2.0)
+        assert row["fill"] == [(f"cuda:{r}", [0.0]), (f"cuda:{r}", [1.0])]
+
+
+def _counter_checks(rank: int, port: int) -> dict:
+    """A card's buffer and step counter mapped by a rank on another card,
+    and that rank's stream waiting on the counter through the peer map, as
+    ``cuda_rdma``'s barrier between cards does: rank 1 writes its buffer
+    0.3 s late, then its counter; rank 0's stream waits, then copies the
+    mapped buffer."""
+    import ctypes
+    import time
+
+    from parallel_convolution_tpu_torch.ops import _build
+    from parallel_convolution_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"localhost:{port}", num_processes=2,
+                         process_id=rank)
+    dev = multihost.card()
+    lib = _build.load_library("rdma")
+    cuda = ctypes.CDLL("libcuda.so.1")
+    n = 1 << 16
+    buf = torch.zeros(n, dtype=torch.int32, device=dev)
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize(dev)
+    mine = (rdma.ipc_handle(buf), rdma.ipc_handle(counters),
+            multihost.card_uuid(dev))
+    theirs = multihost.gather_object(mine)[1 - rank]
+    row = {"cards_differ": theirs[2] != mine[2]}
+    pbuf = rdma._ipc_map(theirs[0][0], dev) + theirs[0][1]
+    pctr = rdma._ipc_map(theirs[1][0], dev) + theirs[1][1]
+    st = torch.cuda.Stream(dev)
+    for step in (1, 2):
+        multihost.barrier(f"step {step}")
+        if rank == 1:
+            time.sleep(0.3)
+            with torch.cuda.stream(st):
+                buf.fill_(100 * step)
+            row[step] = lib.pc_counter_write(counters.data_ptr(), step,
+                                             st.cuda_stream)
+            st.synchronize()
+        else:
+            got = torch.empty(n, dtype=torch.int32, device=dev)
+            t0 = time.perf_counter()
+            err = lib.pc_counter_wait(pctr, step, st.cuda_stream)
+            copied = cuda.cuMemcpyDtoDAsync_v2(
+                ctypes.c_uint64(got.data_ptr()), ctypes.c_uint64(pbuf),
+                ctypes.c_size_t(4 * n), ctypes.c_void_p(st.cuda_stream))
+            st.synchronize()
+            row[step] = (err, copied, int(got.min()), int(got.max()),
+                         time.perf_counter() - t0)
+        multihost.barrier(f"step {step} done")
+    torch.cuda.synchronize(dev)
+    rdma._ipc_unmap(theirs[0][0], dev)
+    rdma._ipc_unmap(theirs[1][0], dev)
+    multihost.barrier("unmapped")
+    return row
+
+
+def _counter_worker(rank, port, results):
+    _run_rank(_counter_checks, rank, port, results)
+
+
+@pytest.mark.cuda
+def test_counter_wait_across_cards():
+    # A rank on another card maps this card's memory (CUDA IPC with peer
+    # access) and its stream waits on the step counter there before
+    # reading it: each copy sees the value written 0.3 s late, so the wait
+    # held, step after step.
+    _need_cards(2)
+    got = _spawn_ranks(_counter_worker, 2, timeout=300)
+    assert got[0]["cards_differ"] and got[1]["cards_differ"]
+    for step in (1, 2):
+        assert got[1][step] == 0
+        err, copied, lo, hi, waited = got[0][step]
+        assert (err, copied, lo, hi) == (0, 0, 100 * step, 100 * step)
+        assert waited > 0.1
+
+
+# Four ranks on four cards, one slot each at 2x2 and four at 4x4: the
+# in-place reads between cards (on one host) and the mirrors NCCL fills
+# (the ranks reporting two hosts, FOUR_HOSTS' layouts).
+CARD_CASES = [(cm, ov) for cm in ("strided", "packed") for ov in (False, True)]
+
+
+def _card_checks(rank: int, port: int) -> dict:
+    from parallel_convolution_tpu_torch.parallel import multihost, step
+
+    multihost.initialize(f"localhost:{port}", num_processes=4,
+                         process_id=rank)
+    _no_host_staging(multihost)
+    grid = mesh.make_grid((2, 2), devices="all")
+    grid16 = mesh.make_grid((4, 4), devices="all")
+    row = {"backend": multihost.backend(), "owners": grid.owners,
+           "slots": grid.slot_map(), "slots16": grid16.slot_map()}
+    real = multihost.hostname
+    try:
+        for hosts in (None, *sorted(FOUR_HOSTS)):
+            if hosts is not None:
+                layout = FOUR_HOSTS[hosts]
+                multihost.hostname = lambda: f"host{layout[rank]}"
+            for cm, ov in CARD_CASES:
+                with _Exchanges() as ex:
+                    out = step.sharded_iterate(
+                        _four_img(), get_filter("blur3"), CROSS_ITERS,
+                        grid=grid, backend="cuda_rdma", storage="u8",
+                        fuse=FOUR_FUSE, col_mode=cm, overlap=ov)
+                split = [t for e in ex.made for t in e.split()]
+                row[hosts, cm, ov] = (
+                    out.cpu().numpy(), ex.rounds(0), ex.rounds(1), ex.maps,
+                    sorted({k for t in split for k in t}))
+            multihost.hostname = real
+        out = step.sharded_iterate(
+            _four_img(), get_filter("blur3"), CROSS_ITERS, grid=grid16,
+            backend="cuda_rdma", storage="u8", fuse=FOUR_FUSE,
+            col_mode="packed")
+        row["4x4"] = out.cpu().numpy()
+        # A converge: the diff reduced on the cards (NaN-flagged MAX).
+        out, iters = step.sharded_converge(
+            _four_img(), get_filter("blur3"), 0.5, 60, check_every=4,
+            grid=grid, backend="cuda_rdma", quantize=True, storage="u8",
+            fuse=FOUR_FUSE)
+        row["converge"] = (out.cpu().numpy(), iters)
+    finally:
+        multihost.hostname = real
+    multihost.barrier("done")
+    return row
+
+
+def _card_worker(rank, port, results):
+    _run_rank(_card_checks, rank, port, results)
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    _need_cards(4)
+    return _spawn_ranks(_card_worker, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [None, *sorted(FOUR_HOSTS)])
+@pytest.mark.parametrize("col_mode,overlap", CARD_CASES)
+def test_cuda_rdma_four_ranks_on_four_cards_is_one_process(
+        card_ranks, hosts, col_mode, overlap):
+    # Each rank on its own card reads its neighbours on the other cards in
+    # place (one host) or from mirrors that NCCL fills card to card (two
+    # reported hosts): one process's bytes, with no slab staged through
+    # the host; the far rounds are timed on the card (nccl_ms).
+    from parallel_convolution_tpu_torch.parallel import step
+
+    want = step.sharded_iterate(
+        _four_img(), get_filter("blur3"), CROSS_ITERS,
+        grid=mesh.make_grid((2, 2), devices=["cuda:0"] * 4),
+        backend="cuda_rdma", storage="u8", fuse=FOUR_FUSE, col_mode=col_mode,
+        overlap=overlap).cpu().numpy()
+    chunks = -(-CROSS_ITERS // FOUR_FUSE)
+    for r in range(4):
+        row = card_ranks[r]
+        assert row["backend"] == "nccl" and row["owners"] == (0, 1, 2, 3)
+        assert row["slots"] == "cuda:0,cuda:1,cuda:2,cuda:3"
+        out, rounds, stage_rounds, maps, keys = row[hosts, col_mode,
+                                                    overlap]
+        np.testing.assert_array_equal(out, want)
+        assert maps > 0
+        if hosts is None:
+            assert rounds == stage_rounds == 0
+        else:
+            assert rounds == chunks and "nccl_ms" in keys
+            assert stage_rounds == (chunks if hosts == "cols"
+                                    and col_mode == "packed" else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_rdma_four_by_four_and_converge_on_four_cards(card_ranks):
+    from parallel_convolution_tpu_torch.parallel import step
+
+    want = step.sharded_iterate(
+        _four_img(), get_filter("blur3"), CROSS_ITERS,
+        grid=mesh.make_grid((4, 4), devices=["cuda:0"] * 16),
+        backend="cuda_rdma", storage="u8", fuse=FOUR_FUSE,
+        col_mode="packed").cpu().numpy()
+    conv, iters = step.sharded_converge(
+        _four_img(), get_filter("blur3"), 0.5, 60, check_every=4,
+        grid=mesh.make_grid((2, 2), devices=["cuda:0"] * 4),
+        backend="cuda_rdma", quantize=True, storage="u8", fuse=FOUR_FUSE)
+    for r in range(4):
+        assert card_ranks[r]["slots16"] == ",".join(
+            f"cuda:{s // 4}" for s in range(16))
+        np.testing.assert_array_equal(card_ranks[r]["4x4"], want)
+        out, done = card_ranks[r]["converge"]
+        assert done == iters
+        np.testing.assert_array_equal(out, conv.cpu().numpy())

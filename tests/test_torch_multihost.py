@@ -357,16 +357,31 @@ def test_initialize_picks_gloo_when_ranks_share_a_card(monkeypatch, cuda,
 
     from parallel_convolution_tpu_torch.parallel import multihost
 
+    import datetime
+
     seen = {}
     monkeypatch.setattr(multihost, "_dist", lambda: None)
+    monkeypatch.setattr(multihost, "_LOCAL_RANK", None)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: seen.update(bound=torch.device(d)))
     monkeypatch.setattr(dist, "init_process_group",
                         lambda backend, **kw: seen.update(backend=backend,
                                                           **kw))
     multihost.initialize("localhost:1234", num_processes=2, process_id=1)
-    assert seen == {"backend": want, "init_method": "tcp://localhost:1234",
-                    "world_size": 2, "rank": 1}
+    want_kw = {"backend": want, "init_method": "tcp://localhost:1234",
+               "world_size": 2, "rank": 1}
+    if want == "nccl":
+        # One card a process: rank 1 of the host's two binds cuda:1, and
+        # the group times out rather than hang on a mismatched order.
+        card = torch.device("cuda", 1)
+        want_kw.update(bound=card, device_id=card,
+                       timeout=datetime.timedelta(
+                           seconds=multihost.NCCL_TIMEOUT_S))
+    assert seen == want_kw
 
 
 @pytest.mark.parametrize("entry", ["job", "main"])

@@ -5,8 +5,9 @@ the overlapped schedule with its missed-wait detector), ``auto``,
 ``fallback=True``, ``reshard_prepared`` / ``mesh.reblock`` / ``grid_like``,
 the V-cycle, volumes and the warm engine, each against the oracle, the
 one-process port and the JAX package on the same seeded input; the same
-legs with the ranks reporting two hosts; and what item 10d-ii-b holds
-(an NCCL group) refused naming it.  Without a spawn: the mirror plan of a
+legs with the ranks reporting two hosts; and item 10d-ii-b's form (an
+NCCL group) running through its grid and the CLI, its slabs on the device
+transport.  Without a spawn: the mirror plan of a
 neighbour on another host (``rdma.mirror_plan`` / ``far_slabs``) covers
 what a launch and a pack read.
 
@@ -157,27 +158,43 @@ def _rank_checks(rank: int, port: int, work: str) -> dict:
         row["far"] = _far_legs(rank, grid, x)
     finally:
         multihost.hostname = real
-    real_backend = multihost.backend
+    # Item 10d-ii-b's form: the group reports nccl, so the slabs take the
+    # device transport (on the CPU gloo carries them, every tag 0, matched
+    # by order alone), and the CLI's `--device all` grid runs over it (its
+    # slots cpu here: the card's half runs on the chip).
+    real_backend, real_spec = multihost.backend, mesh.grid_from_spec
+
+    def cpu_all(spec, device=None):
+        if device != "all":
+            return real_spec(spec, device)
+        shape = tuple(int(v) for v in spec.split("x"))
+        return mesh.make_grid(shape, devices="all", device="cpu")
+
     multihost.backend = lambda: "nccl"
+    mesh.grid_from_spec = cpu_all
     try:
-        mesh.make_grid((2, 2), devices="all", device="cpu")
-        row["nccl"] = ""
-    except NotImplementedError as e:
-        row["nccl"] = str(e)
-    import contextlib
-    import io
+        g = mesh.make_grid((2, 2), devices="all", device="cpu")
+        row["nccl"] = (g.owners, multihost.transport(), step.sharded_iterate(
+            x, blur3, ITERS, grid=g, backend="cuda_rdma", fuse=2,
+            col_mode="packed").numpy())
+        import contextlib
+        import io
 
-    from parallel_convolution_tpu_torch.cli import main as cli_main
+        from parallel_convolution_tpu_torch.cli import main as cli_main
 
-    src = os.path.join(work, f"in{rank}.raw")
-    imageio.write_raw(src, _img())
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        rc = cli_main(["run", src, "13", "19", "1", "rgb", "-o",
-                       os.path.join(work, f"out{rank}.raw"), "--backend",
-                       "cuda_rdma", "--device", "all", "--mesh", "2x2"])
-    row["nccl_cli"] = (rc, err.getvalue())
-    multihost.backend = real_backend
+        src = os.path.join(work, "in.raw")
+        if rank == 0:
+            imageio.write_raw(src, _img())
+        multihost.barrier("input-written")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["run", src, "13", "19", str(ITERS), "rgb", "-o",
+                           os.path.join(work, "out.raw"), "--backend",
+                           "cuda_rdma", "--device", "all", "--mesh", "2x2"])
+        row["nccl_cli"] = (rc, err.getvalue(), imageio.read_raw(
+            os.path.join(work, "out.raw"), 13, 19, "rgb"))
+    finally:
+        multihost.backend, mesh.grid_from_spec = real_backend, real_spec
     multihost.barrier("done")
     return row
 
@@ -459,13 +476,18 @@ def test_engine_converge_across_processes(ranks):
 
 
 def test_item_10d_ii_is_refused(ranks):
-    # What is left of item 10d-ii, 10d-ii-b: an NCCL group (one card a
-    # process), refused by the grid and by the CLI (exit 2).
+    # Item 10d-ii-b, refused here until it was ported: an NCCL group (one
+    # card a process).  Nothing refuses it now: its grid runs cuda_rdma
+    # over the device transport, and the CLI's `run --device all` over it,
+    # each the oracle's bytes.
+    want = oracle.run_serial_u8(_img(), get_filter("blur3"), ITERS)
     for r in (0, 1):
-        msg = ranks[r]["nccl"]
-        assert "item 10d-ii-b" in msg and "not ported yet" in msg
-        rc, err = ranks[r]["nccl_cli"]
-        assert rc == 2 and "item 10d-ii-b" in err
+        owners, transport, out = ranks[r]["nccl"]
+        assert owners == (0, 0, 1, 1) and transport == "device"
+        np.testing.assert_array_equal(out, _oracle_planar())
+        rc, err, got = ranks[r]["nccl_cli"]
+        assert rc == 0 and "10d-ii-b" not in err, err
+        np.testing.assert_array_equal(got, want)
 
 
 def test_cpu_grid_over_two_hosts_runs(ranks):

@@ -9,6 +9,10 @@ On a machine with several cards ``python3 chip_smoke.py --cards [4jg]
 [4l] [4h] [4i]`` runs only what runs across them (4j (g), 4l's
 supervised leg on the real cards, 4h and 4i's ``all`` layouts; all four
 when none is named), with the phases whose references they read.
+``--cards 4jg`` drives every path one card a process in one NCCL group
+(phase 4j (g) below); ``JAX_PLATFORMS=cpu python -m pytest
+tests/test_torch_cards.py`` rehearses the same paths on the CPU in four
+gloo processes that send their slabs as NCCL does.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -327,11 +331,16 @@ Phases (any failure exits non-zero and prints no result line):
    with two cards or more, four (or two) ranks in one NCCL group, each on
    its own card, run the job's config 2 ``cuda`` f32 fuse 1 and
    ``cuda_sep`` bf16 fuse 32, config 2 ``cuda_rdma`` bf16 fuse 32 on 2x2
-   strided / packed / overlapped, config 5's V-cycle, config 1's converge
-   and the per-slot kernels between cards (the ``... between cards``
-   rows), then with the ranks on two reported hosts config 2 and config
-   3 with the mirrors NCCL fills (the round's copy out, NCCL and copy in
-   a chunk; the ``... between hosts over NCCL`` rows), and through
+   strided / packed / overlapped (one run's ``_span``, chunk loop and
+   close timed apart), the skew check, ``auto``, ``fallback=True``, the
+   engine, a reshard onto 1x4 and 4x2, config 5's V-cycle, fd25 512³
+   through ``run --rank 3 --device all``, config 1's converge, the
+   256-rank split and the per-slot kernels between cards (the ``...
+   between cards`` rows), then with the ranks on two reported hosts
+   config 2, config 3, the split and config 1's converge with the
+   mirrors NCCL fills (each far leg's rounds checked on every rank; the
+   round's copy out, NCCL and copy in a chunk; the ``... between hosts
+   over NCCL`` rows), and through
    ``torchrun --nproc-per-node N`` config 3 on 4x4 and its checkpoint
    killed and resumed, each byte-equal to ``shifted``, with the card
    topology and every card's name and power limit; with one card it
@@ -438,6 +447,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -6009,13 +6019,145 @@ def first_card_only():
 
 
 def _sha(data) -> str:
-    """SHA-256 of an array's or tensor's bytes (on the host)."""
+    """SHA-256 of an array's or tensor's bytes (on the host; a bf16
+    tensor's as int16, which numpy has no type for)."""
     import numpy as np
     import torch
 
     if torch.is_tensor(data):
-        data = data.detach().cpu().contiguous().numpy()
+        data = data.detach().cpu().contiguous()
+        if data.dtype == torch.bfloat16:
+            data = data.view(torch.int16)
+        data = data.numpy()
     return hashlib.sha256(np.ascontiguousarray(data).tobytes()).hexdigest()
+
+
+def later(data, how=None):
+    """``how(data)`` (default :func:`_sha`), computed once the leg that
+    made ``data`` is timed (:func:`settled`): hashing a leg's output is
+    the smoke's work, not the path's."""
+    return functools.partial(how or _sha, data)
+
+
+def settled(res):
+    """``res`` with every :func:`later` in it (in dicts and lists)
+    computed."""
+    if isinstance(res, functools.partial):
+        return res()
+    if isinstance(res, dict):
+        return {k: settled(v) for k, v in res.items()}
+    if isinstance(res, list):
+        return [settled(v) for v in res]
+    return res
+
+
+def agreed_legs(rank: int, leg, grid, rgb, spec: dict) -> None:
+    """The legs 4j (e) and 4j (g) run alike on config 2's 2x2 grid over
+    the ranks (``cuda_rdma`` bf16 fuse 32), each through ``leg``: the
+    skew check (rank 1's host sleeps 50 ms before each of its first four
+    chunks, all of the run's, so the other ranks' launches are enqueued
+    ahead and wait on its counters), ``auto`` (its resolution), and
+    ``fallback=True`` (its rung), each rank's output hashed; then a
+    ``WarmEngine`` with config 2's key, warmed, and a batch of
+    ``spec["engine"]``'s images, first and resident (its device phase)."""
+    import numpy as np
+
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.ops.filters import get_filter
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
+    from parallel_convolution_tpu_torch.utils import imageio
+
+    kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
+    real, calls = rdma._slots_step, [0]
+
+    def late(*a, **k):
+        calls[0] += 1
+        if rank == 1 and calls[0] <= 4:
+            time.sleep(0.05)
+        return real(*a, **k)
+
+    rdma._slots_step = late
+    try:
+        model = ConvolutionModel("blur3", grid=grid, col_mode="packed", **kw)
+        leg("skew", lambda: {"sha256": later(model.run_image(rgb, ITERS)),
+                             "late_chunks": min(calls[0], 4)
+                             if rank == 1 else 0})
+    finally:
+        rdma._slots_step = real
+    planar = imageio.interleaved_to_planar(rgb).astype(np.float32)
+
+    def auto():
+        out = step.sharded_iterate(planar, get_filter("blur3"), ITERS,
+                                   grid=grid, backend="auto", storage="bf16")
+        res = tuning.last_resolution()
+        return {"sha256": later(out, lambda o: _sha(
+                    imageio.planar_to_interleaved(
+                        o.cpu().numpy().astype(np.uint8)))),
+                "resolution": [res.backend, res.fuse,
+                               list(res.tile) if res.tile else None,
+                               res.overlap, res.col_mode, res.source]}
+
+    leg("auto", auto)
+
+    def fallback():
+        model = ConvolutionModel("blur3", grid=grid, fallback=True, **kw)
+        return {"sha256": later(model.run_image(rgb, ITERS)),
+                "rung": model.effective_backend}
+
+    leg("fallback", fallback)
+    imgs = [imageio.read_raw(p, *RGB_HW, "rgb") for p in spec["engine"]]
+    eng = WarmEngine(grid, fallback=False)
+    key = eng.key_for((3, *RGB_HW), filter_name="blur3", iters=ITERS, **kw)
+    leg("engine warm", lambda: {"effective": eng.entry(key).effective_backend})
+
+    def batch():
+        out, info = eng.run_batch(key, np.stack([
+            imageio.interleaved_to_planar(im).astype(np.float32)
+            for im in imgs]))
+        return {"sha256": later(out, lambda outs: [
+                    _sha(imageio.planar_to_interleaved(
+                        np.clip(np.rint(o), 0, 255).astype(np.uint8)))
+                    for o in outs]),
+                "device_s": info["phases"]["device"]}
+
+    leg("engine", batch)
+    leg("engine resident", batch)
+
+
+def fd25_leg(leg, spec: dict) -> None:
+    """fd25 512^3 x 40 sweeps fuse 4 through ``run --rank 3 --device all
+    --mesh 2x2`` on a grid over the ranks, ``spec["volume"]`` in,
+    ``spec["volume_out"]`` out (rank 0 writes it)."""
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+
+    v = str(VOLUME_N)
+    leg("fd25", lambda: {"rc": cli_main([
+        "run", spec["volume"], v, v, str(VOLUME_FD25_SWEEPS), "grey", "-o",
+        spec["volume_out"], "--rank", "3", "--depth", v, "--filter", "fd25",
+        "--fuse", "4", "--mesh", "2x2", "--device", "all"])})
+
+
+def converge_leg(leg, name: str, spec: dict, out: str) -> None:
+    """``run --converge 0.5 --check-every 10`` on config 1's image
+    (``cuda_rdma`` u8 fuse 8, ``--mesh 2x2 --device all``) into ``out``,
+    its exit code and what it said last in the row."""
+    from parallel_convolution_tpu_torch.cli import main as cli_main
+
+    def run():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main([
+                "run", spec["converge"], str(RGB_HW[0]), str(RGB_HW[1]),
+                str(CONVERGE_CLI_MAX), "grey", "-o", out, "--converge",
+                "0.5", "--check-every", "10", "--backend", "cuda_rdma",
+                "--mesh", "2x2", "--device", "all", "--storage", "u8",
+                "--fuse", "8"])
+        return {"rc": rc, "said": buf.getvalue().strip().splitlines()[-1]}
+
+    leg(name, run)
 
 
 def rank_legs(rank: int, port: int, spec: dict) -> dict:
@@ -6026,13 +6168,11 @@ def rank_legs(rank: int, port: int, spec: dict) -> dict:
     import numpy as np
     import torch
 
-    from parallel_convolution_tpu_torch import tuning
     from parallel_convolution_tpu_torch.cli import main as cli_main
     from parallel_convolution_tpu_torch.models import ConvolutionModel
-    from parallel_convolution_tpu_torch.ops import rdma, stencil
+    from parallel_convolution_tpu_torch.ops import stencil
     from parallel_convolution_tpu_torch.ops.filters import get_filter
-    from parallel_convolution_tpu_torch.parallel import mesh, multihost, step
-    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
+    from parallel_convolution_tpu_torch.parallel import mesh, multihost
     from parallel_convolution_tpu_torch.solvers import multigrid as mg
     from parallel_convolution_tpu_torch.utils import imageio, multihost_job
 
@@ -6050,7 +6190,7 @@ def rank_legs(rank: int, port: int, spec: dict) -> dict:
         res = fn() or {}
         torch.cuda.synchronize(dev)
         multihost.barrier(name)
-        row[name] = dict(res, seconds=time.perf_counter() - t0,
+        row[name] = dict(settled(res), seconds=time.perf_counter() - t0,
                          launches=stencil.launch_counts())
 
     # Phase 4j (d)'s cuda_sep bf16 fuse 32 job (K2 per block, depth-32
@@ -6064,61 +6204,9 @@ def rank_legs(rank: int, port: int, spec: dict) -> dict:
     for cm in ("strided", "packed"):
         model = ConvolutionModel("blur3", grid=grid, col_mode=cm, **kw)
         for name in (f"config 2 {cm}", f"config 2 {cm} resident"):
-            leg(name, lambda: {"sha256": _sha(model.run_image(rgb, ITERS)),
+            leg(name, lambda: {"sha256": later(model.run_image(rgb, ITERS)),
                                "col_mode": model.effective_col_mode})
-    # The skew check: rank 1's host sleeps 50 ms before each of its first
-    # four chunks (all of this run's), so rank 0's launches are enqueued
-    # ahead and wait on rank 1's counters.
-    real, calls = rdma._slots_step, [0]
-
-    def late(*a, **k):
-        calls[0] += 1
-        if rank == 1 and calls[0] <= 4:
-            time.sleep(0.05)
-        return real(*a, **k)
-
-    rdma._slots_step = late
-    model = ConvolutionModel("blur3", grid=grid, col_mode="packed", **kw)
-    leg("skew", lambda: {"sha256": _sha(model.run_image(rgb, ITERS)),
-                         "late_chunks": min(calls[0], 4) if rank else 0})
-    rdma._slots_step = real
-    planar = imageio.interleaved_to_planar(rgb).astype(np.float32)
-
-    def auto():
-        out = step.sharded_iterate(planar, blur3, ITERS, grid=grid,
-                                   backend="auto", storage="bf16")
-        res = tuning.last_resolution()
-        return {"sha256": _sha(imageio.planar_to_interleaved(
-                    out.cpu().numpy().astype(np.uint8))),
-                "resolution": [res.backend, res.fuse,
-                               list(res.tile) if res.tile else None,
-                               res.overlap, res.col_mode, res.source]}
-
-    leg("auto", auto)
-
-    def fallback():
-        model = ConvolutionModel("blur3", grid=grid, fallback=True, **kw)
-        return {"sha256": _sha(model.run_image(rgb, ITERS)),
-                "rung": model.effective_backend}
-
-    leg("fallback", fallback)
-    imgs = [imageio.read_raw(p, *RGB_HW, "rgb") for p in spec["engine"]]
-    eng = WarmEngine(grid, fallback=False)
-    key = eng.key_for((3, *RGB_HW), filter_name="blur3", iters=ITERS, **kw)
-    leg("engine warm", lambda: {"effective": eng.entry(key).effective_backend})
-
-    def batch():
-        out, info = eng.run_batch(key, np.stack([
-            imageio.interleaved_to_planar(im).astype(np.float32)
-            for im in imgs]))
-        return {"sha256": [_sha(imageio.planar_to_interleaved(
-                    np.clip(np.rint(o), 0, 255).astype(np.uint8)))
-                           for o in out],
-                "device_s": info["phases"]["device"]}
-
-    leg("engine", batch)
-    leg("engine resident", batch)
-    del eng
+    agreed_legs(rank, leg, grid, rgb, spec)
     n = str(BIG_HW[0])
     leg("config 3", lambda: {"rc": cli_main([
         "run", spec["edge5"], n, n, str(ITERS), "grey", "-o",
@@ -6134,18 +6222,14 @@ def rank_legs(rank: int, port: int, spec: dict) -> dict:
         return {"cycles": res.cycles, "work_units": res.work_units,
                 "level_grids": res.level_grids, "residuals": res.residuals,
                 "col_mode": res.col_mode,
-                "sha256": _sha(out) if rank == 0 else None}
+                "sha256": later(out) if rank == 0 else None}
 
     leg("multigrid", multigrid)
     del field
     torch.cuda.empty_cache()
-    v = str(VOLUME_N)
     if rank == 0:
         volume_state("fd25", (VOLUME_N,) * 3, 31).tofile(spec["volume"])
-    leg("fd25", lambda: {"rc": cli_main([
-        "run", spec["volume"], v, v, str(VOLUME_FD25_SWEEPS), "grey", "-o",
-        spec["volume_out"], "--rank", "3", "--depth", v, "--filter", "fd25",
-        "--fuse", "4", "--mesh", "2x2", "--device", "all"])})
+    fd25_leg(leg, spec)
     # The per-slot kernels over the two ranks, timed (not main-path
     # launches): config 2's K4 and the 16x16 split's K3.
     grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
@@ -6205,12 +6289,12 @@ def far_legs(spec: dict, leg, grid, rgb, row: dict) -> None:
             model = ConvolutionModel("blur3", grid=grid, col_mode=cm, **kw)
             for name in (f"far config 2 {cm}", f"far config 2 {cm} resident"):
                 far_leg(name, lambda: {
-                    "sha256": _sha(model.run_image(rgb, ITERS)),
+                    "sha256": later(model.run_image(rgb, ITERS)),
                     "col_mode": model.effective_col_mode})
         model = ConvolutionModel("blur3", grid=grid, col_mode="strided",
                                  overlap=True, **kw)
         far_leg("far config 2 overlap", lambda: {
-            "sha256": _sha(model.run_image(rgb, ITERS)),
+            "sha256": later(model.run_image(rgb, ITERS)),
             "overlap": model.effective_overlap})
         # The 256-rank split (K3 per slot, 128 slots a rank).
         split = ConvolutionModel(
@@ -6218,7 +6302,7 @@ def far_legs(spec: dict, leg, grid, rgb, row: dict) -> None:
             backend="cuda_rdma", storage="u8", fuse=8)
         grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
         far_leg("far grey 16x16", lambda: {
-            "sha256": _sha(split.run_image(grey, ITERS))})
+            "sha256": later(split.run_image(grey, ITERS))})
         n = str(BIG_HW[0])
         far_leg("far config 3", lambda: {"rc": cli_main([
             "run", spec["edge5"], n, n, str(ITERS), "grey", "-o",
@@ -6226,19 +6310,7 @@ def far_legs(spec: dict, leg, grid, rgb, row: dict) -> None:
             "cuda_rdma", "--mesh", "4x4", "--device", "all", "--storage",
             "bf16", "--fuse", "32", "--col-mode", "packed"])})
 
-        def converge():
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = cli_main([
-                    "run", spec["converge"], str(RGB_HW[0]), str(RGB_HW[1]),
-                    str(CONVERGE_CLI_MAX), "grey", "-o",
-                    spec["converge_out"], "--converge", "0.5",
-                    "--check-every", "10", "--backend", "cuda_rdma",
-                    "--mesh", "2x2", "--device", "all", "--storage", "u8",
-                    "--fuse", "8"])
-            return {"rc": rc, "said": buf.getvalue().strip().splitlines()[-1]}
-
-        far_leg("far converge", converge)
+        converge_leg(far_leg, "far converge", spec, spec["converge_out"])
     finally:
         rdma._FarExchange.__init__ = real_init
 
@@ -6643,6 +6715,9 @@ def slot_kernel_rows(got: list, where: str, label: str, counted: list,
         pb_ms, pb_by = bound(2 * nb * 2 * C * (h + 2 * depth) * depth * elt,
                              0.0)
         name = t[0]["kernel"]
+        # The far split of the first rank that has a far round (a row of
+        # ranks away from the hosts' boundary has none).
+        far = next((x for x in t if x.get("exchange_strided")), {})
         timed[f"{name} {label}"] = dict(
             base=name, at=key, grid=list(shape), block=[C, h, w], T=T,
             levels=levels, ext=ext, ms=max(x["ms"] for x in t),
@@ -6653,8 +6728,8 @@ def slot_kernel_rows(got: list, where: str, label: str, counted: list,
                                 x["max_abs_err_packed"]) for x in t),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             launches=sum(r["launches"].get(name, 0) for r in counted),
-            **({"exchange": t[0].get("exchange_strided"),
-                "exchange_packed": t[0].get("exchange_packed")}
+            **({"exchange": far.get("exchange_strided"),
+                "exchange_packed": far.get("exchange_packed")}
                if exchange else {}))
         if key == "config 2":
             timed[f"rdma_pack {label}"] = dict(
@@ -6784,6 +6859,8 @@ sys.exit(rc)
 """
 # The 2x2 legs of config 2 on the cards: (col_mode, overlap).
 CARD_LEGS = [("strided", False), ("packed", False), ("strided", True)]
+# The grids 4j (g)'s reshard moves config 2's prepared blocks onto.
+RESHARD_SHAPES = ((1, 4), (4, 2))
 
 
 def card_ranks(cards: int) -> int:
@@ -6792,12 +6869,33 @@ def card_ranks(cards: int) -> int:
     return 4 if cards >= 4 else 2 if cards >= 2 else 0
 
 
+def far_ranks(shape, n: int, hosts) -> list:
+    """Whether each of ``n`` ranks, owning an equal row-major share of a
+    ``shape`` grid (the process grid's layout) on ``hosts[rank]``, has a
+    slot whose eight neighbours (zero boundary) include one of another
+    host's: the ranks whose runs exchange a far round a step."""
+    R, C = shape
+    k = R * C // n
+
+    def host(i, j):
+        return hosts[(i * C + j) // k]
+
+    return [any(0 <= i + di < R and 0 <= j + dj < C
+                and host(i + di, j + dj) != hosts[r]
+                for s in range(r * k, (r + 1) * k)
+                for i, j in [divmod(s, C)]
+                for di in (-1, 0, 1) for dj in (-1, 0, 1))
+            for r in range(n)]
+
+
 def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
     """Phase 4j (g), one rank's share: an NCCL group of ``spec["n"]``
     ranks, each on its own card; every leg between two barriers, its
     seconds, launches and output's SHA-256 in the row (as
-    :func:`rank_legs`), then the same group with the ranks reporting two
-    hosts (:data:`FOUR_HOSTS`' rows layout, or a host each of two)."""
+    :func:`rank_legs`), a ``cuda_rdma`` run's set-up, chunk loop and
+    close timed apart (:func:`apart_timer`), then the same group with the
+    ranks reporting two hosts (a row of ranks each of two hosts, or a
+    host each of two)."""
     import numpy as np
     import torch
 
@@ -6805,7 +6903,7 @@ def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
     from parallel_convolution_tpu_torch.models import ConvolutionModel
     from parallel_convolution_tpu_torch.ops import rdma, stencil
     from parallel_convolution_tpu_torch.ops.filters import get_filter
-    from parallel_convolution_tpu_torch.parallel import mesh, multihost
+    from parallel_convolution_tpu_torch.parallel import mesh, multihost, step
     from parallel_convolution_tpu_torch.solvers import multigrid as mg
     from parallel_convolution_tpu_torch.utils import imageio, multihost_job
 
@@ -6822,19 +6920,24 @@ def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
         real_init(ex, *a, **k)
         made.append(ex)
 
+    apart, unwrap = apart_timer()
+
     def leg(name, fn):
         del made[:]
         multihost.barrier(name)
         torch.cuda.synchronize(dev)
         stencil.reset_launch_counts()
+        apart.clear()
         t0 = time.perf_counter()
         res = fn() or {}
         torch.cuda.synchronize(dev)
         multihost.barrier(name)
-        row[name] = dict(res, seconds=time.perf_counter() - t0,
+        secs = time.perf_counter() - t0
+        row[name] = dict(settled(res), seconds=secs,
                          launches=stencil.launch_counts(),
                          exchange=[t for ex in made for t in ex.split()],
-                         rounds=sum(ex.rounds for ex in made))
+                         rounds=sum(ex.rounds for ex in made),
+                         apart=apart_split(apart, secs))
 
     rdma._FarExchange.__init__ = init
     real_host = multihost.hostname
@@ -6850,6 +6953,7 @@ def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
         grey = imageio.generate_test_image(*RGB_HW, "grey", seed=2)
         blur3 = get_filter("blur3")
         kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
+        planar = imageio.interleaved_to_planar(rgb).astype(np.float32)
 
         def config2(prefix):
             for cm, ov in CARD_LEGS:
@@ -6857,7 +6961,7 @@ def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
                                          overlap=ov, **kw)
                 for res in ("", " resident"):
                     leg(f"{prefix}config 2 {cm}{' overlap' * ov}{res}",
-                        lambda: {"sha256": _sha(model.run_image(rgb, ITERS)),
+                        lambda: {"sha256": later(model.run_image(rgb, ITERS)),
                                  "col_mode": model.effective_col_mode,
                                  "overlap": model.effective_overlap})
 
@@ -6877,7 +6981,34 @@ def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
                                                      GREY_GRID, 8, blur3)
             return out
 
+        # The 256-rank split (K3 per slot, 256 / N slots a rank).
+        split = ConvolutionModel(
+            "blur3", grid=mesh.make_grid(GREY_GRID, devices="all"),
+            backend="cuda_rdma", storage="u8", fuse=8)
+
+        def grey16(name):
+            leg(name, lambda: {"sha256": later(split.run_image(grey, ITERS))})
+
         config2("")
+        agreed_legs(rank, leg, grid, rgb, spec)
+
+        def reshard():
+            blocks, valid_hw, _ = step._prepare(torch.from_numpy(planar),
+                                                grid, "bf16")
+            out = {}
+            for shape in RESHARD_SHAPES:
+                g2 = mesh.grid_like(grid, shape)
+                moved = step.reshard_prepared(blocks, valid_hw, g2,
+                                              src_grid=grid)
+                full = multihost.fill_blocks(moved, g2.owners)
+                out["x".join(map(str, shape))] = {
+                    "owners": list(g2.owners),
+                    "cards": sorted({str(b.device) for r in full
+                                     for b in r}),
+                    "sha256": later(mesh.join_blocks(full))}
+            return {"grids": out}
+
+        leg("reshard", reshard)
         field = np.load(spec["field"])
 
         def multigrid():
@@ -6886,39 +7017,103 @@ def card_rank_legs(rank: int, port: int, spec: dict) -> dict:
                                       backend="cuda_rdma")
             return {"cycles": res.cycles, "residuals": res.residuals,
                     "level_grids": res.level_grids,
-                    "sha256": _sha(out) if rank == 0 else None}
+                    "sha256": later(out) if rank == 0 else None}
 
         leg("multigrid", multigrid)
         del field
         torch.cuda.empty_cache()
-
-        def converge():
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = cli_main([
-                    "run", spec["converge"], str(RGB_HW[0]), str(RGB_HW[1]),
-                    str(CONVERGE_CLI_MAX), "grey", "-o",
-                    spec["converge_out"], "--converge", "0.5",
-                    "--check-every", "10", "--backend", "cuda_rdma",
-                    "--mesh", "2x2", "--device", "all", "--storage", "u8",
-                    "--fuse", "8"])
-            return {"rc": rc, "said": buf.getvalue().strip().splitlines()[-1]}
-
-        leg("converge", converge)
+        fd25_leg(leg, spec)
+        torch.cuda.empty_cache()
+        converge_leg(leg, "converge", spec, spec["converge_out"])
+        grey16("grey 16x16")
         row["kernels"] = kernels()
         hosts = (0, 0, 1, 1) if n == 4 else (0, 1)
         multihost.hostname = lambda: f"host{hosts[rank]}"
         row["hosts"] = multihost.hosts_of(multihost.peer_records({}))
         config2("far ")
         config3("far config 3", spec["edge5_far_out"])
-        # No leg between hosts here runs the 16x16 split (K3), so only
-        # config 2's kernels are timed there.
-        row["far_kernels"] = kernels(split=False)
+        grey16("far grey 16x16")
+        converge_leg(leg, "far converge", spec, spec["converge_far_out"])
+        row["far_kernels"] = kernels()
     finally:
         multihost.hostname = real_host
         rdma._FarExchange.__init__ = real_init
+        unwrap()
     multihost.barrier("done")
     return row
+
+
+def apart_timer():
+    """``(spans, unwrap)``: ``rdma._SlotRun._span``, ``_SlotRun.close``,
+    ``rdma.close_carry``, the barrier that ``close`` ends with,
+    ``step._prepare`` (the image onto the cards, cut into blocks) and
+    ``step._global_f32`` (every rank's blocks gathered into the image)
+    wrapped (nothing in the package changes), each call's host start and
+    end appended to ``spans[name]`` (``span``, ``close``,
+    ``carry_close``, ``close_barrier``, ``prepare``, ``gather``);
+    ``unwrap()`` puts the originals back."""
+    from parallel_convolution_tpu_torch.ops import rdma
+    from parallel_convolution_tpu_torch.parallel import multihost, step
+
+    spans = {}
+    real = (rdma._SlotRun._span, rdma._SlotRun.close, rdma.close_carry,
+            multihost.barrier, step._prepare, step._global_f32)
+
+    def timed(name, fn, only=None):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if only is None or only(*a, **k):
+                    spans.setdefault(name, []).append(
+                        (t0, time.perf_counter()))
+        return wrapped
+
+    rdma._SlotRun._span = timed("span", real[0])
+    rdma._SlotRun.close = timed("close", real[1])
+    rdma.close_carry = timed("carry_close", real[2])
+    multihost.barrier = timed(
+        "close_barrier", real[3],
+        lambda name="": name == "cuda_rdma run closed")
+    step._prepare = timed("prepare", real[4])
+    step._global_f32 = timed("gather", real[5])
+
+    def unwrap():
+        (rdma._SlotRun._span, rdma._SlotRun.close, rdma.close_carry,
+         multihost.barrier, step._prepare, step._global_f32) = real
+    return spans, unwrap
+
+
+def apart_split(spans: dict, seconds: float) -> dict:
+    """A leg's seconds split from :func:`apart_timer`'s spans: ``span_s``
+    (gathering the ranks' records, the IPC maps, the mirrors), ``loop_s``
+    (the end of the last ``_span`` to the start of the first
+    ``close_carry``: the chunk loop as the host enqueues and waits for
+    it), ``close_s`` (``_SlotRun.close``: the join, the cards idle, the
+    unmaps and ``close_barrier_s``, its barrier), ``carry_close_s``
+    (``close_carry``, ``close`` included), ``prepare_s`` and ``gather_s``
+    (``step._prepare``, ``step._global_f32``) and ``rest_s`` (the leg's
+    seconds less all but ``close_s``: the model's host work, the readback
+    to numpy, the leg's barrier); empty where no ``cuda_rdma`` run
+    spanned the ranks."""
+    if not spans.get("span"):
+        return {}
+
+    def total(name):
+        return sum(b - a for a, b in spans.get(name, ()))
+
+    out = {"span_s": total("span"), "close_s": total("close"),
+           "carry_close_s": total("carry_close"),
+           "close_barrier_s": total("close_barrier"),
+           "prepare_s": total("prepare"), "gather_s": total("gather"),
+           "runs": len(spans["span"])}
+    ends = [b for _, b in spans["span"]]
+    starts = [a for a, _ in spans.get("carry_close", ())]
+    out["loop_s"] = min(starts) - max(ends) if starts else None
+    out["rest_s"] = seconds - sum(out[k] or 0.0 for k in (
+        "span_s", "loop_s", "carry_close_s", "prepare_s", "gather_s"))
+    return out
 
 
 def _card_rank_legs(rank: int, port: int, spec: dict, results) -> None:
@@ -6965,33 +7160,50 @@ def torchrun(n: int, argv: list, here: Path, work: Path, label: str,
 def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
                 totals: dict, field_path: Path, mg_ref, mg_rows: list,
                 cli_converge, gloo_rows: list) -> dict:
-    """Phase 4j (g): one card a process (item 10d-ii-b).  With N =
-    :func:`card_ranks` ranks (four on a four-card machine), each on its
-    own card, in one NCCL group (the default where the host has a card
-    for each rank), one spawn (:func:`card_rank_legs`): the two-process
-    job's config 2 ``cuda`` f32 fuse 1 and ``cuda_sep`` bf16 fuse 32 (N
-    ranks, the sharded load and save, the checkpointed run and its
-    resume); config 2 ``cuda_rdma`` bf16 fuse 32 on 2x2, strided, packed
-    and ``overlap=True``, first and resident; config 5's V-cycle on 2x2;
-    config 1's converge (``cuda_rdma`` u8 fuse 8, 2x2); the per-slot
-    kernels between cards; then the ranks reporting two hosts (a far
-    neighbour's mirror filled by NCCL, card to card): config 2 strided,
-    packed and overlapped, config 3 on 4x4, the kernels between hosts.
-    Then through ``torchrun --nproc-per-node N`` of the ``run`` CLI
-    (``--device all``): config 3 on 4x4, and its checkpoint killed in the
-    second snapshot and resumed.  Each output byte-equal to ``shifted``
-    (which the one-card forms of 4h, 4j (a) and 4b equal) and config 2's
-    to its one-card run here; each leg's first and resident seconds
-    beside its one-card form and 4j (e) / (f)'s gloo form
-    (``gloo_rows``); the NCCL round split per chunk.  With one card the
-    phase runs nothing: NCCL refuses two ranks on one card."""
+    """Phase 4j (g): one card a process (items 10d-ii-b and 10d-ii-c).
+    With N = :func:`card_ranks` ranks (four on a four-card machine), each
+    on its own card, in one NCCL group (the default where the host has a
+    card for each rank), one spawn (:func:`card_rank_legs`), each leg
+    between two barriers: the two-process job's config 2 ``cuda`` f32
+    fuse 1 and ``cuda_sep`` bf16 fuse 32 (N ranks, the sharded load and
+    save, the checkpointed run and its resume); config 2 ``cuda_rdma``
+    bf16 fuse 32 on 2x2, strided, packed and ``overlap=True``, first and
+    resident (the strided runs timed apart: ``_span``, the chunk loop,
+    ``close`` and its barrier, ``close_carry``, rank by rank); the same
+    packed with rank 1 50 ms late before each of its four chunks (the
+    skew); ``auto`` (every rank one resolution) and ``fallback=True``
+    (every rank on ``cuda_rdma``) on config 2; a ``WarmEngine`` with
+    config 2's key, warmed, then a batch of two of 4l's images, first and
+    resident; config 2's prepared blocks resharded onto 1x4 and 4x2 and
+    filled on every rank (``multihost.fill_blocks``); config 5's V-cycle
+    on 2x2; fd25 512^3 x 40 fuse 4 through ``run --rank 3 --device all
+    --mesh 2x2``; config 1's converge (``cuda_rdma`` u8 fuse 8, 2x2); the
+    256-rank split (grey 16x16 u8 fuse 8, K3 per slot); the per-slot
+    kernels between cards; then the ranks reporting two hosts (a row of
+    ranks each: a far neighbour's mirror filled by NCCL, card to card):
+    config 2 strided, packed and overlapped, config 3 on 4x4, the split
+    (rows 7 and 8 the far boundary), config 1's converge (the diff through
+    ``all_max`` on the card), the kernels between hosts, each far leg's
+    rounds a step on every rank whose slots read the other host and none
+    elsewhere (:func:`far_ranks`).  Then through ``torchrun
+    --nproc-per-node N`` of the ``run`` CLI (``--device all``): config 3
+    on 4x4, and its checkpoint killed in the second snapshot and resumed.
+    Each output byte-equal to ``shifted`` (which the one-card forms of
+    4h, 4j (a) and 4b equal), config 2's, the engine's, the reshard's and
+    fd25's to their one-card runs here; each leg's first and resident
+    seconds beside its one-card form and 4j (e) / (f)'s gloo form
+    (``gloo_rows``); the NCCL round split per chunk; every leg's seconds
+    (``legs_s``).  With one card the phase runs nothing: NCCL refuses two
+    ranks on one card."""
     import numpy as np
     import torch
     import torch.multiprocessing as mp
 
+    from parallel_convolution_tpu_torch.cli import main as cli_main
     from parallel_convolution_tpu_torch.models import ConvolutionModel
     from parallel_convolution_tpu_torch.ops import stencil
-    from parallel_convolution_tpu_torch.parallel import mesh
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+    from parallel_convolution_tpu_torch.serving.engine import WarmEngine
     from parallel_convolution_tpu_torch.utils import imageio, multihost_job
 
     cards = torch.cuda.device_count()
@@ -6999,7 +7211,8 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
     if not n:
         print(f"4j (g) one card a process: needs two cards ({cards} "
               "visible): NCCL refuses two ranks on one card; nothing run")
-        return {"skipped": f"{cards} card(s)", "rows": [], "timed": {}}
+        return {"skipped": f"{cards} card(s)", "rows": [], "timed": {},
+                "legs_s": {}}
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
                           text=True, timeout=60).stdout
     every = subprocess.run(
@@ -7016,16 +7229,20 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
             "edge5_far_out": str(work / "edge5.g_far.raw"),
             "field": str(field_path), "converge": str(cli_converge[0]),
             "converge_out": str(work / "converge.g.raw"),
+            "converge_far_out": str(work / "converge.g_far.raw"),
+            "engine": [str(work / f"engine_g{k}.raw") for k in range(2)],
+            "volume": str(work / "fd25_g.raw"),
+            "volume_out": str(work / "fd25_g.out.raw"),
             "job": {b: str(work / f"job_g_{b}") for b in ("cuda",
                                                           "cuda_sep")}}
     imageio.write_raw(spec["rgb"], refs["rgb"])
     # Config 2's one-card forms (2x2 slots of this card), timed here.
     one = {}
     slots4 = mesh.make_grid((2, 2), devices=[dev] * 4)
+    kw = dict(backend="cuda_rdma", storage="bf16", fuse=32)
     for cm, ov in CARD_LEGS:
         model = ConvolutionModel("blur3", grid=slots4, col_mode=cm,
-                                 overlap=ov, backend="cuda_rdma",
-                                 storage="bf16", fuse=32)
+                                 overlap=ov, **kw)
         got, first = host_seconds(lambda: model.run_image(refs["rgb"],
                                                           ITERS))
         check(np.array_equal(got, refs["rgb_ref"]),
@@ -7033,6 +7250,50 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
               "from shifted")
         _, res = host_seconds(lambda: model.run_image(refs["rgb"], ITERS))
         one[cm, ov] = (first, res)
+    # The engine's batch: phase 4l's first two images (seed 1 is phase
+    # 4's), their answers ``shifted``'s, and the one-card engine's time.
+    engine_imgs = [refs["rgb"], imageio.generate_test_image(
+        *RGB_HW, "rgb", seed=2)]
+    engine_wants = [refs["rgb_ref"], ConvolutionModel(
+        "blur3", backend="shifted", device=dev).run_image(engine_imgs[1],
+                                                          ITERS)]
+    for path, img in zip(spec["engine"], engine_imgs):
+        imageio.write_raw(path, img)
+    eng = WarmEngine(slots4, fallback=False)
+    key = eng.key_for((3, *RGB_HW), filter_name="blur3", iters=ITERS, **kw)
+    stack = np.stack([imageio.interleaved_to_planar(im).astype(np.float32)
+                      for im in engine_imgs])
+    _, one["engine warm"] = host_seconds(lambda: eng.entry(key))
+    (_, info), one["engine"] = host_seconds(lambda: eng.run_batch(key,
+                                                                  stack))
+    (_, info_res), one["engine resident"] = host_seconds(
+        lambda: eng.run_batch(key, stack))
+    one["engine_device_s"] = (info["phases"]["device"],
+                              info_res["phases"]["device"])
+    del eng
+    # Config 2's prepared blocks resharded on this card: the bytes each
+    # rank's filled grid must give.
+    planar = torch.from_numpy(imageio.interleaved_to_planar(
+        refs["rgb"]).astype(np.float32))
+    blocks, valid_hw, _ = step._prepare(planar, slots4, "bf16")
+    reshard_want = {"x".join(map(str, shape)): _sha(mesh.join_blocks(
+        step.reshard_prepared(blocks, valid_hw, mesh.make_grid(
+            shape, devices=[dev] * (shape[0] * shape[1])))))
+        for shape in RESHARD_SHAPES}
+    del blocks, planar
+    # fd25 512^3 through `run --rank 3` on this card (1x1): the bytes and
+    # the one-card seconds the ranks' run is held against.
+    v = str(VOLUME_N)
+    volume_state("fd25", (VOLUME_N,) * 3, 31).tofile(spec["volume"])
+    torch.cuda.empty_cache()
+    rc, one["fd25"] = host_seconds(lambda: cli_main([
+        "run", spec["volume"], v, v, str(VOLUME_FD25_SWEEPS), "grey", "-o",
+        spec["volume_out"], "--rank", "3", "--depth", v, "--filter", "fd25",
+        "--fuse", "4", "--mesh", "1x1"]))
+    check(rc == 0, f"4j (g) fd25 on one card: exit {rc}")
+    volume_sha = hashlib.sha256(
+        Path(spec["volume_out"]).read_bytes()).hexdigest()
+    Path(spec["volume_out"]).unlink()
     stencil.reset_launch_counts()  # the references are not this path
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
@@ -7077,7 +7338,10 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
     gloo = {r["path"]: r["seconds"] for r in gloo_rows}
     rows = []
 
+    labels = []  # each row's leg
+
     def add(path, name, sent, **extra):
+        labels.append(name)
         rows.append(dict({"path": path, "launches": sent,
                           "seconds": max(both(name, "seconds")),
                           "card": card}, **extra))
@@ -7101,12 +7365,30 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
             resident_s=max(j["resident_s"] for j in jobs),
             bitwise_shifted=True)
     chunks = -(-ITERS // 32)
+    hosts = (0, 0, 1, 1) if n == 4 else (0, 1)
+
+    def far_split(name, shape, steps):
+        """A leg between hosts: on every rank ``steps`` exchange rounds
+        (an int, or a rank's own) where its slots read a slot of the
+        other host, none where they do not (a row of ranks away from the
+        boundary); the split of the first rank that has rounds."""
+        far = far_ranks(shape, n, hosts)
+        steps = steps if isinstance(steps, list) else [steps] * n
+        got_r = both(name, "rounds")
+        check(any(far) and all(steps) and got_r == [
+            s if f else 0 for s, f in zip(steps, far)],
+            f"4j (g) {name} between hosts over NCCL: exchange rounds "
+            f"{got_r} on the ranks, steps {steps}, ranks reading the other "
+            f"host {far}")
+        return exchange_summary(got[far.index(True)][name]["exchange"])
+
+    sent_by = {}
     for prefix, where in (("", "between cards"),
                           ("far ", "between hosts over NCCL")):
         for cm, ov in CARD_LEGS:
             for res in ("", " resident"):
                 name = f"{prefix}config 2 {cm}{' overlap' * ov}{res}"
-                sent = launches(name)
+                sent = sent_by[name] = launches(name)
                 label = (f"4j (g) config 2 cuda_rdma bf16 fuse 32 2x2 {cm}"
                          f"{' overlap=True' * ov}{res} {where}")
                 check(both(name, "sha256") == [rgb_sha] * n
@@ -7116,23 +7398,106 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
                       f"or ran {both(name, 'col_mode')} overlap "
                       f"{both(name, 'overlap')}")
                 far = bool(prefix)
-                check(both(name, "rounds") == ([chunks] * n if far
-                                               else [0] * n),
-                      f"{label}: {both(name, 'rounds')} exchange rounds")
+                if far:
+                    ex = far_split(name, (2, 2), chunks)
+                else:
+                    check(both(name, "rounds") == [0] * n,
+                          f"{label}: {both(name, 'rounds')} exchange rounds")
                 gl = (f"4j ({'f' if far else 'e'}) config 2 cuda_rdma bf16 "
                       f"fuse 32 2x2 {cm}{' overlap=True' * ov}{res}"
                       + (" between hosts" if far else ""))
                 add(label, name, sent, one_card_s=one[cm, ov][bool(res)],
                     gloo_s=gloo.get(gl), bitwise_one_card=True,
-                    bitwise_shifted=True,
-                    **({"exchange": exchange_summary(
-                        got[0][name]["exchange"])} if far else {}))
+                    bitwise_shifted=True, **({"exchange": ex} if far else {}))
     for k, t in enumerate(got[0]["far config 2 strided"]["exchange"]):
         print(f"4j (g) config 2 strided between hosts over NCCL, chunk {k}: "
               f"copy out {t['out_ms']:.4f} ms, the host's wait "
               f"{t['wait_ms']:.4f} ms, NCCL {t['nccl_ms']:.4f} ms (host "
               f"{t['swap_host_ms']:.4f} ms to enqueue), copy in "
               f"{t['in_ms']:.4f} ms, {t['bytes_out']} B each way; {card}")
+    # One run's seconds apart, rank by rank: where a run over four cards
+    # spends what one card does not.
+    for name in ("config 2 strided", "config 2 strided resident",
+                 "far config 2 strided", "far config 2 strided resident"):
+        row = rows[labels.index(name)]
+        parts = both(name, "apart")
+        check(all(a and a["runs"] == 1 and a["loop_s"] is not None
+                  for a in parts),
+              f"4j (g) {name}: no one cuda_rdma run timed apart: {parts}")
+        print(f"4j (g) {name} over {n} cards, timed apart: " + "; ".join(
+            f"rank {r} {a['prepare_s']:.4f} s prepare, {a['span_s']:.4f} s "
+            f"span, {a['loop_s']:.4f} s chunk loop, {a['close_s']:.4f} s "
+            f"close ({a['close_barrier_s']:.4f} s its barrier), "
+            f"{a['carry_close_s']:.4f} s carry close, {a['gather_s']:.4f} s "
+            f"gather, {a['rest_s']:.4f} s the rest of "
+            f"{got[r][name]['seconds']:.4f} s" for r, a in enumerate(parts))
+            + f"; {card}", flush=True)
+        row["apart"] = parts
+    label = ("config 2 cuda_rdma bf16 fuse 32 2x2 packed, rank 1 50 ms late "
+             "before each of its 4 chunks")
+    sent = launches("skew")
+    check(both("skew", "sha256") == [rgb_sha] * n
+          and both("skew", "late_chunks") == [4 * (r == 1) for r in range(n)]
+          and sent == sent_by["config 2 packed"],
+          f"4j (g) skew: the bytes differ from shifted, rank 1 was late "
+          f"{both('skew', 'late_chunks')} times, or it launched {sent}")
+    add(f"4j (g) skew: {label} over {n} cards", "skew", sent,
+        one_card_s=one["packed", False][0],
+        gloo_s=gloo.get("4j (e) skew: config 2 packed, rank 1 50 ms late "
+                        "before each of its 4 chunks"),
+        bitwise_one_card=True, bitwise_shifted=True)
+    sent = launches("auto")
+    res = both("auto", "resolution")
+    check(all(r == res[0] for r in res)
+          and both("auto", "sha256") == [rgb_sha] * n,
+          f"4j (g) auto over {n} cards: the ranks resolved {res}, or differ "
+          "from shifted")
+    add(f"4j (g) auto, config 2 bf16 2x2 over {n} cards", "auto", sent,
+        resolution=res[0], gloo_s=gloo.get("4j (e) auto, config 2 bf16 2x2"),
+        bitwise_shifted=True)
+    sent = launches("fallback")
+    check(both("fallback", "rung") == ["cuda_rdma"] * n
+          and both("fallback", "sha256") == [rgb_sha] * n,
+          f"4j (g) fallback over {n} cards: the ranks ran "
+          f"{both('fallback', 'rung')}, or differ from shifted")
+    add(f"4j (g) fallback=True, config 2 cuda_rdma bf16 fuse 32 2x2 over {n} "
+        "cards", "fallback", sent, rung="cuda_rdma",
+        gloo_s=gloo.get("4j (e) fallback=True, config 2 cuda_rdma bf16 "
+                        "fuse 32 2x2"), bitwise_shifted=True)
+    wants = [_sha(w) for w in engine_wants]
+    for name in ("engine warm", "engine", "engine resident"):
+        sent = launches(name)
+        extra = {}
+        if name == "engine warm":
+            check(both(name, "effective") == ["cuda_rdma"] * n,
+                  f"4j (g) {name}: {both(name, 'effective')}")
+        else:
+            check(both(name, "sha256") == [wants] * n
+                  and sent["rdma_tiled_slot"] > 0,
+                  f"4j (g) {name} over {n} cards: differs from phase 4l's "
+                  f"answers (shifted's), or launched {sent}")
+            extra = {"device_s": max(both(name, "device_s")),
+                     "one_card_device_s": one["engine_device_s"][
+                         name == "engine resident"],
+                     "bitwise_shifted": True}
+        add(f"4j (g) {name}: config 2 cuda_rdma bf16 fuse 32 key, a batch "
+            f"of two over {n} cards", name, sent, one_card_s=one[name],
+            gloo_s=gloo.get(f"4j (e) {name}: config 2 cuda_rdma bf16 fuse "
+                            "32 key, a batch of two"), **extra)
+    sent = launches("reshard")
+    for r, g in enumerate(got):
+        for spec_, res in g["reshard"]["grids"].items():
+            R, C = (int(v) for v in spec_.split("x"))
+            check(res["sha256"] == reshard_want[spec_]
+                  and res["owners"] == [s * n // (R * C)
+                                        for s in range(R * C)]
+                  and res["cards"] == [g["card"]],
+                  f"4j (g) reshard onto {spec_} on rank {r}: owners "
+                  f"{res['owners']}, cards {res['cards']}, or the filled "
+                  "grid differs from the one-card reshard")
+    add(f"4j (g) reshard_prepared of config 2's bf16 blocks onto "
+        f"{' and '.join(reshard_want)} over {n} cards, fill_blocks on "
+        "every rank", "reshard", sent, bitwise_one_card=True)
     sent = launches("multigrid")
     mg_one = next(r for r in mg_rows if "cuda_rdma" in r["path"])
     check(both("multigrid", "sha256")[0] == _sha(mg_ref[0])
@@ -7145,19 +7510,64 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
         one_card_s=mg_one["seconds_first"],
         gloo_s=gloo.get("4j (e) config 5 multigrid jacobi3 32768x32768 "
                         "cuda_rdma 2x2"), bitwise_one_card=True)
+    sent = launches("fd25")
+    check(both("fd25", "rc") == [0] * n and hashlib.sha256(
+        Path(spec["volume_out"]).read_bytes()).hexdigest() == volume_sha,
+        f"4j (g) fd25 over {n} cards: differs from its 1x1 run on one card")
+    add(f"4j (g) fd25 {VOLUME_N}^3 x {VOLUME_FD25_SWEEPS} fuse 4, run --rank "
+        f"3 --device all 2x2 over {n} cards", "fd25", sent,
+        one_card_s=one["fd25"],
+        gloo_s=gloo.get(f"4j (e) fd25 {VOLUME_N}^3 x {VOLUME_FD25_SWEEPS} "
+                        "fuse 4, run --rank 3 --device all 2x2"),
+        bitwise_1x1=True)
     _, cwant, citers = cli_converge
-    sent = launches("converge")
-    said = both("converge", "said")
-    check(both("converge", "rc") == [0] * n
-          and all(x.startswith(f"converged after {citers} iters")
-                  for x in said)
-          and np.array_equal(imageio.read_raw(spec["converge_out"],
-                                              *RGB_HW, "grey"), cwant),
-          f"4j (g) converge over {n} cards: said {said}, shifted stopped "
-          f"after {citers}, or the bytes differ")
-    add(f"4j (g) cli run --converge 0.5 --check-every 10 grey 1920x2520 "
-        f"blur3 cuda_rdma u8 fuse 8 2x2 over {n} cards", "converge", sent,
-        iters=citers, bitwise_shifted=True)
+    for name, where in (("converge", f"over {n} cards"),
+                        ("far converge", "between hosts over NCCL")):
+        sent = launches(name)
+        said = both(name, "said")
+        out = spec["converge_far_out" if "far" in name else "converge_out"]
+        check(both(name, "rc") == [0] * n
+              and all(x.startswith(f"converged after {citers} iters")
+                      for x in said)
+              and np.array_equal(imageio.read_raw(out, *RGB_HW, "grey"),
+                                 cwant),
+              f"4j (g) {name} {where}: said {said}, shifted stopped after "
+              f"{citers}, or the bytes differ")
+        # One slot a rank: a step is a launch of the rank's own.
+        steps = [g[name]["launches"]["rdma_tiled_slot"]
+                 + g[name]["launches"]["rdma_block_slot"] for g in got]
+        extra = ({"rounds": both(name, "rounds"),
+                  "exchange": far_split(name, (2, 2), steps)}
+                 if "far" in name else {})
+        add(f"4j (g) cli run --converge 0.5 --check-every 10 grey 1920x2520 "
+            f"blur3 cuda_rdma u8 fuse 8 2x2 {where}", name, sent,
+            iters=citers, bitwise_shifted=True,
+            gloo_s=gloo.get("4j (f) cli run --converge 0.5 --check-every 10 "
+                            "grey 1920x2520 blur3 cuda_rdma u8 fuse 8 2x2 "
+                            "between hosts") if "far" in name else None,
+            **extra)
+    grey_sha = _sha(refs["grey_refs"]["blur3"])
+    split_sent = {}
+    for name, where in (("grey 16x16", "between cards"),
+                        ("far grey 16x16", "between hosts over NCCL")):
+        sent = split_sent[name] = launches(name)
+        label = f"4j (g) grey 1920x2520 blur3 cuda_rdma u8 fuse 8 16x16 {where}"
+        check(both(name, "sha256") == [grey_sha] * n
+              and sent["rdma_block_slot"] > 0,
+              f"{label}: differs from shifted, or launched {sent}")
+        if "far" in name:
+            extra = {"exchange": far_split(name, GREY_GRID, -(-ITERS // 8))}
+        else:
+            check(both(name, "rounds") == [0] * n,
+                  f"{label}: {both(name, 'rounds')} exchange rounds")
+            extra = {}
+        add(label, name, sent, bitwise_shifted=True,
+            gloo_s=gloo.get("4j (f) grey 1920x2520 blur3 cuda_rdma u8 fuse 8 "
+                            "16x16 between hosts") if extra else None,
+            **extra)
+    check(split_sent["far grey 16x16"] == split_sent["grey 16x16"],
+          f"4j (g) the 16x16 split launched {split_sent} between cards and "
+          "between hosts")
     sent = launches("far config 3")
     check(both("far config 3", "rc") == [0] * n and np.array_equal(
         imageio.read_raw(spec["edge5_far_out"], *BIG_HW, "grey"),
@@ -7168,8 +7578,8 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
         "packed between hosts over NCCL", "far config 3", sent,
         gloo_s=gloo.get("4j (f) config 3 run --device all --mesh 4x4 "
                         "cuda_rdma bf16 fuse 32 packed between hosts"),
-        exchange=exchange_summary(got[0]["far config 3"]["exchange"]),
-        bitwise_shifted=True)
+        exchange=far_split("far config 3", (4, 4), chunks),
+        rounds=both("far config 3", "rounds"), bitwise_shifted=True)
     near = [r for r in rows if "between hosts" not in r["path"]]
     far = [r for r in rows if "between hosts" in r["path"]]
     timed = slot_kernel_rows(got, "kernels", "between cards", near, False)
@@ -7243,7 +7653,10 @@ def cards_phase(dev, tmp: Path, here: Path, work: Path, refs: dict,
     shutil.rmtree(ck, ignore_errors=True)
     show_card_rows(rows[spawned:])
     return {"rows": rows, "timed": timed, "ranks": n, "cards": card,
-            "topo": topo}
+            "topo": topo, "legs_s": {
+                f"4j (g) {k}": max(g[k]["seconds"] for g in got)
+                for k in got[0] if isinstance(got[0][k], dict)
+                and "seconds" in got[0][k]}}
 
 
 def show_card_rows(rows: list) -> None:
@@ -8545,6 +8958,7 @@ def cards_main(here: Path, card: str, phases: list) -> None:
         print("end to end multigrid: " + json.dumps(row))
     kernels = []
     if cards is not None:
+        laps.update(cards.pop("legs_s"))
         for row in cards.pop("rows"):
             print("end to end 4j one card a process: " + json.dumps(row))
         kernels = [{

@@ -10,14 +10,20 @@ rank, and periodic: a pair of ranks carrying several slabs a phase, whose
 order then matters), a converge with a NaN on
 one rank, the V-cycle, a volume, the job's checkpoint save and resume
 with its sharded load and save, a reshard, the engine and the CLI's
-``run --device all``, each against the port's one-process run and the
-oracle, and ``cuda_rdma`` against the JAX package's ``pallas_rdma`` in
-interpret mode where that interpreter exists.
+``run --device all``, ``auto`` (one resolution on every rank) and
+``fallback=True`` (one rung on every rank, rank 2's probe faulted), and
+with the ranks on two reported hosts (0, 1 and 2, 3; item 10d-ii-c)
+``cuda_rdma`` on 2x2 and 4x4 and a converge, each against the port's
+one-process run and the oracle, and ``cuda_rdma`` against the JAX
+package's ``pallas_rdma`` in interpret mode where that interpreter
+exists.
 
 Without a spawn: the default backend over a host's cards and processes
-and the job's size, the slot placement one card a process, and for every
+and the job's size, the slot placement one card a process, for every
 pair of ranks the sender's slab order against the receiver's in
-``halo.exchange_per_block``'s two phases and in the far exchange's plan.
+``halo.exchange_per_block``'s two phases and in the far exchange's plan,
+and the ranks that make a far exchange (``chip_smoke.far_ranks``, which
+the card smoke holds each far leg's rounds to).
 
 The ranks run once a module (``ranks``) and the tests read their rows.
 Against the port's own one-process runs every result is compared bit for
@@ -177,8 +183,71 @@ def _rank_checks(rank: int, port: int, work: str) -> dict:
     finally:
         mesh.grid_from_spec = real_spec
     row["cli"] = (rc, err.getvalue(), imageio.read_raw(dst, 14, 18, "rgb"))
+    row["agreed"] = _agreed_legs(rank, grid, x)
+    # Two reported hosts, ranks 0, 1 and 2, 3 (the package has no switch
+    # for it; a CPU grid over hosts runs its plain version, the slabs
+    # still crossing in the device transport's one round).
+    real_host = multihost.hostname
+    multihost.hostname = lambda: f"host{rank // 2}"
+    try:
+        row["hosts"] = multihost.hosts_of(multihost.peer_records({}))
+        row["far"] = _far_legs(grid, mesh.make_grid((4, 4), devices="all",
+                                                    device="cpu"), x)
+    finally:
+        multihost.hostname = real_host
     multihost.barrier("done")
     return row
+
+
+def _agreed_legs(rank: int, grid, x) -> dict:
+    """``auto`` (rank 0 resolves, every rank takes its ``Resolution``)
+    and ``fallback=True`` with rank 2's probe faulted (every rank on the
+    furthest rung any reached), over the device transport."""
+    import warnings
+
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.models import ConvolutionModel
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.resilience import degrade, faults
+
+    out = step.sharded_iterate(x, get_filter("blur3"), ITERS, grid=grid,
+                               backend="auto")
+    row = {"auto": (out.numpy(), tuning.last_resolution())}
+    degrade.clear_probe_cache()
+    if rank == 2:
+        faults.install_plan("backend_compile:1")
+    model = ConvolutionModel("blur3", grid=grid, backend="cuda_rdma",
+                             storage="u8", fuse=2, fallback=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = model.run_planar(x, ITERS)
+    finally:
+        faults.install_plan(None)
+    row["fallback"] = (out.numpy(), model.effective_backend,
+                       [str(w.message) for w in caught
+                        if "degraded" in str(w.message)])
+    return row
+
+
+def _far_legs(grid, grid16, x) -> dict:
+    """``cuda_rdma`` u8 fuse 2 on 2x2 and on 4x4 (a row of slots a rank:
+    only ranks 1 and 2 border the other host), strided and packed, and a
+    float converge, with the ranks on two reported hosts."""
+    from parallel_convolution_tpu_torch.parallel import step
+
+    blur3 = get_filter("blur3")
+    far = {}
+    for cm in ("strided", "packed"):
+        for name, g in (("rdma", grid), ("rdma 4x4", grid16)):
+            far[name, cm] = step.sharded_iterate(
+                x, blur3, ITERS, grid=g, backend="cuda_rdma", storage="u8",
+                fuse=2, col_mode=cm).numpy()
+    img, iters = step.sharded_converge(
+        _field(), get_filter("jacobi3"), 1e-2, 40, check_every=4, grid=grid,
+        backend="cuda_rdma", fuse=2)
+    far["converge"] = (img.numpy(), iters)
+    return far
 
 
 def _worker(rank: int, port: int, work: str, results) -> None:
@@ -372,6 +441,79 @@ def test_engine_and_cli_are_the_oracle(ranks):
         np.testing.assert_array_equal(out, img)
 
 
+def test_auto_is_one_resolution_and_one_process(ranks):
+    # Rank 0 resolves and every rank takes its Resolution
+    # (multihost.agreed through the device transport's gather): one
+    # process on 2x2 CPU slots resolves the same, and the bytes are the
+    # oracle's.
+    from parallel_convolution_tpu_torch import tuning
+    from parallel_convolution_tpu_torch.parallel import mesh, step
+
+    out = step.sharded_iterate(
+        _planar(), get_filter("blur3"), ITERS,
+        grid=mesh.make_grid(SHAPE, devices="cpu,cpu,cpu,cpu"),
+        backend="auto")
+    want = tuning.last_resolution()
+    np.testing.assert_array_equal(out.numpy(), _oracle_planar())
+    for r in range(RANKS):
+        got, res = ranks[r]["agreed"]["auto"]
+        assert res == want
+        np.testing.assert_array_equal(got, _oracle_planar())
+
+
+def test_fallback_is_one_rung_on_every_rank(ranks):
+    # Rank 2's probe of cuda_rdma faults: every rank runs the rung it
+    # reached, says so, and gives the oracle's bytes.
+    for r in range(RANKS):
+        out, eff, warned = ranks[r]["agreed"]["fallback"]
+        assert eff == "cuda"
+        assert warned and "'cuda_rdma' degraded to 'cuda'" in warned[0]
+        np.testing.assert_array_equal(out, _oracle_planar())
+
+
+@pytest.mark.parametrize("leg", [(name, cm) for name in ("rdma", "rdma 4x4")
+                                 for cm in ("strided", "packed")], ids=str)
+def test_cuda_rdma_between_hosts_is_one_process_and_the_oracle(ranks, one,
+                                                               leg):
+    # Two hosts of two ranks each: the 2x2 grid (every rank borders the
+    # other host) and 4x4 (a row of slots a rank: ranks 0 and 3 border
+    # none), bit for bit one process's 2x2 / 4x4 slots and the oracle.
+    want = one[leg if leg[0] == "rdma 4x4" else ("rdma", leg[1], False)]
+    np.testing.assert_array_equal(want, _oracle_planar())
+    for r in range(RANKS):
+        assert ranks[r]["hosts"] == ["host0", "host0", "host1", "host1"]
+        np.testing.assert_array_equal(ranks[r]["far"][leg], want)
+
+
+def test_cuda_rdma_between_hosts_is_the_jax_rdma_kernel(ranks):
+    # As test_cuda_rdma_is_the_jax_rdma_kernel: the JAX package's
+    # pallas_rdma on a 2x2 mesh in interpret mode, where it exists.
+    import jax
+
+    from parallel_convolution_tpu.ops import filters as jfilters
+    from parallel_convolution_tpu.parallel import mesh as jmesh
+    from parallel_convolution_tpu.parallel import step as jstep
+    from parallel_convolution_tpu.utils import jax_compat
+
+    if not jax_compat.HAS_TPU_INTERPRET:
+        pytest.skip("DMA-faithful TPU interpret mode unavailable in this jax")
+    want = np.asarray(jstep.sharded_iterate(
+        _planar(), jfilters.get_filter("blur3"), ITERS,
+        mesh=jmesh.make_grid_mesh(jax.devices()[:4], (2, 2)),
+        quantize=True, backend="pallas_rdma"))
+    for r in range(RANKS):
+        for cm in ("strided", "packed"):
+            np.testing.assert_array_equal(ranks[r]["far"]["rdma", cm], want)
+
+
+def test_converge_between_hosts_is_one_process(ranks, one):
+    img, iters = one["converge"]
+    for r in range(RANKS):
+        got, done = ranks[r]["far"]["converge"]
+        assert done == iters
+        np.testing.assert_array_equal(got, img)
+
+
 # ------------------------------------------------------- without a spawn
 
 @pytest.mark.parametrize("cards,local,world,want", [
@@ -515,6 +657,31 @@ def test_far_exchange_plan_agrees_for_every_pair(shape, owners, boundary,
         for b in range(n):
             if a != b:
                 assert plans[a][0][b] == plans[b][1][a], (a, b)
+
+
+@pytest.mark.parametrize("shape,n,hosts", [
+    ((2, 2), 4, (0, 0, 1, 1)), ((4, 4), 4, (0, 0, 1, 1)),
+    ((16, 16), 4, (0, 0, 1, 1)), ((4, 4), 2, (0, 1)),
+    ((16, 16), 2, (0, 1)), ((4, 4), 4, (0, 1, 0, 1))])
+def test_far_ranks_are_the_runs_with_a_far_exchange(shape, n, hosts):
+    # The smoke holds each far leg's rounds to chip_smoke.far_ranks: the
+    # ranks whose slots read a slot of another host, which is where
+    # rdma._SlotRun._span makes a _FarExchange (a neighbour in the zero
+    # boundary's table owned on another host).  On 4x4 and 16x16 with a
+    # row of ranks a host, the ranks away from the boundary have none.
+    import chip_smoke
+
+    from parallel_convolution_tpu_torch.parallel import channels
+
+    table = channels.neighbour_table(shape, "zero")
+    k = shape[0] * shape[1] // n
+    owners = [s // k for s in range(shape[0] * shape[1])]
+    want = [any(m >= 0 and hosts[owners[m]] != hosts[r]
+                for s in range(r * k, (r + 1) * k) for m in table[s])
+            for r in range(n)]
+    assert chip_smoke.far_ranks(shape, n, hosts) == want
+    if shape != (2, 2) and hosts == (0, 0, 1, 1):
+        assert want == [False, True, True, False]
 
 
 def test_wire_order_sorts_by_peer_then_tag():

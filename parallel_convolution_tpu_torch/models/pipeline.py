@@ -17,7 +17,7 @@ from parallel_convolution_tpu_torch.parallel import step as step_lib
 from parallel_convolution_tpu_torch.parallel.mesh import (
     Grid, first_block, grid_like, make_grid, padded_extent,
 )
-from parallel_convolution_tpu_torch.utils import imageio
+from parallel_convolution_tpu_torch.utils import imageio, tracing
 from parallel_convolution_tpu_torch.utils.config import (
     AUTO, COL_MODE_CHOICES, check_backend, check_fuse, check_run_config,
 )
@@ -215,15 +215,22 @@ class ConvolutionModel(nn.Module):
 
     def run_image(self, img: np.ndarray, iters: int) -> np.ndarray:
         """uint8 (H, W[, 3]) in → uint8 out; the one-call user entry point."""
-        return self._interleaved(self.run_planar(self._planar(img), iters))
+        with tracing.span("entry.copy_in"):
+            x = self._planar(img)
+        out = self.run_planar(x, iters)
+        with tracing.span("entry.copy_out"):
+            return self._interleaved(out)
 
     def run_images(self, imgs, iters: int) -> list[np.ndarray]:
         """A batch of same-sized images in one run: channels are
         independent, so the batch is more planes on the leading axis."""
-        planar = [self._planar(im) for im in imgs]
-        out = self.run_planar(torch.cat(planar, dim=0), iters)
-        return [self._interleaved(p)
-                for p in torch.split(out, [p.shape[0] for p in planar])]
+        with tracing.span("entry.copy_in"):
+            planar = [self._planar(im) for im in imgs]
+            x = torch.cat(planar, dim=0)
+        out = self.run_planar(x, iters)
+        with tracing.span("entry.copy_out"):
+            return [self._interleaved(p)
+                    for p in torch.split(out, [p.shape[0] for p in planar])]
 
     # -- file-level API (the reference CLI contract) ------------------------
     def run_raw_file(self, src: str, dst: str, rows: int, cols: int,

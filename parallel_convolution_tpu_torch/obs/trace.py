@@ -29,6 +29,11 @@ the exchange) is what the span tree makes first-class:
 :func:`obs.attribution.record_step` hangs model-attributed ``exchange`` /
 ``compute`` children off it.
 
+Each live span is also a ``pctpu.<name>`` range on the profiler's clock
+(``utils.tracing.span``: entered only while a profiler records), so a
+device trace shows the request's phases beside the card's work; the
+span's record is the same with or without it.
+
 Disabled mode (``PCTPU_OBS=0``, the metrics switch): :func:`span`
 returns a shared no-op context manager after one load + one branch.
 With obs ON but no event log installed, contexts and ids still
@@ -47,6 +52,7 @@ import uuid
 from typing import NamedTuple
 
 from parallel_convolution_tpu_torch.obs import events as _events, metrics as _metrics
+from parallel_convolution_tpu_torch.utils import tracing as _tracing
 
 __all__ = [
     "SpanContext", "add_link", "attach", "build_trees", "current",
@@ -147,7 +153,7 @@ class Span:
 
     __slots__ = ("name", "context", "parent_id", "links", "attrs",
                  "status", "start_ts", "_start_perf", "_ctx_token",
-                 "_span_token")
+                 "_span_token", "_range")
 
     def __init__(self, name: str, context: SpanContext, parent_id: str,
                  links: list[dict], attrs: dict):
@@ -161,6 +167,7 @@ class Span:
         self._start_perf = 0.0
         self._ctx_token = None
         self._span_token = None
+        self._range = _tracing.NULL_RANGE
 
     @property
     def ref(self) -> dict:
@@ -180,6 +187,8 @@ class Span:
             self.links.append(r)
 
     def __enter__(self) -> "Span":
+        self._range = _tracing.span(self.name)
+        self._range.__enter__()
         self.start_ts = time.time()
         self._start_perf = time.perf_counter()
         self._ctx_token = _CTX.set(self.context)
@@ -188,6 +197,7 @@ class Span:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         dur = time.perf_counter() - self._start_perf
+        self._range.__exit__(exc_type, exc, tb)
         _SPAN.reset(self._span_token)
         _CTX.reset(self._ctx_token)
         if exc_type is not None:

@@ -123,6 +123,7 @@ from parallel_convolution_tpu_torch.ops import stencil
 from parallel_convolution_tpu_torch.ops.filters import Filter
 from parallel_convolution_tpu_torch.parallel import channels, halo
 from parallel_convolution_tpu_torch.parallel.mesh import first_block
+from parallel_convolution_tpu_torch.utils import tracing
 from parallel_convolution_tpu_torch.utils.config import BOUNDARIES
 
 
@@ -1398,17 +1399,18 @@ class _SlotRun:
             return
         from parallel_convolution_tpu_torch.parallel import multihost
 
-        self.join()
-        for d in self.devices:
-            torch.cuda.synchronize(d)
-        for handle, dev in self.mapped:
-            _ipc_unmap(handle, dev)
-        self.mapped = []
-        if self.far is not None:
-            self.far.close()
-        multihost.barrier("cuda_rdma run closed")
-        self.bufs, self.stage, self.tables = [[], []], [], []
-        self.closed = True
+        with tracing.span("rdma.close"):
+            self.join()
+            for d in self.devices:
+                torch.cuda.synchronize(d)
+            for handle, dev in self.mapped:
+                _ipc_unmap(handle, dev)
+            self.mapped = []
+            if self.far is not None:
+                self.far.close()
+            multihost.barrier("cuda_rdma run closed")
+            self.bufs, self.stage, self.tables = [[], []], [], []
+            self.closed = True
 
     def pack_args(self, src: int, s: int, depth: int,
                   count: int = 1) -> tuple:
@@ -1504,7 +1506,8 @@ def slot_carry(blocks, grid, boundary: str, depth: int,
     handles)."""
     if grid.device.type == "cpu":
         return blocks
-    run = _SlotRun(grid, blocks, boundary, depth, col_mode)
+    with tracing.span("rdma.open"):
+        run = _SlotRun(grid, blocks, boundary, depth, col_mode)
     return SlotCarry(run, run.bufs[0])
 
 

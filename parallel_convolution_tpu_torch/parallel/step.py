@@ -77,6 +77,7 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
     make_grid, padded_extent, reblock, spans, split_blocks,
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
+from parallel_convolution_tpu_torch.utils import tracing
 from parallel_convolution_tpu_torch.utils.config import (
     AUTO, BACKENDS, BOUNDARIES, COL_MODE_CHOICES, OVERLAP_INTERPRET_ENV,
     STORAGES, check_backend, check_run_config, check_solver, check_storage,
@@ -409,13 +410,17 @@ def _build_iterate(grid: Grid, filt: Filter, iters: int, quantize: bool,
             if rem else None)
 
     def run(blocks):
-        state = _carry_in(blocks, grid, backend, boundary,
-                          filt.radius * fuse, col_mode)
+        with tracing.span("step.carry_in"):
+            state = _carry_in(blocks, grid, backend, boundary,
+                              filt.radius * fuse, col_mode)
         for _ in range(n_chunks):
-            state = chunk(state)
+            with tracing.span("step.chunk"):
+                state = chunk(state)
         if tail is not None:
-            state = tail(state)
-        return _carry_out(state, grid, backend, close=True)
+            with tracing.span("step.chunk"):
+                state = tail(state)
+        with tracing.span("step.carry_out"):
+            return _carry_out(state, grid, backend, close=True)
 
     return run
 
@@ -492,12 +497,13 @@ def _global_f32(blocks, grid: Grid, valid_hw) -> torch.Tensor:
     """The grid's blocks as the global (C, H, W) f32 field at the valid
     extent, on the grid's device (on every rank of a grid over several
     processes: each block broadcast from its rank)."""
-    if grid.spans_processes:
-        from parallel_convolution_tpu_torch.parallel import multihost
+    with tracing.span("step.join"):
+        if grid.spans_processes:
+            from parallel_convolution_tpu_torch.parallel import multihost
 
-        blocks = multihost.fill_blocks(blocks, grid.owners)
-    full = join_blocks(blocks, grid.device)
-    return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)
+            blocks = multihost.fill_blocks(blocks, grid.owners)
+        full = join_blocks(blocks, grid.device)
+        return full[:, :valid_hw[0], :valid_hw[1]].to(torch.float32)
 
 
 def _storage_name(dtype) -> str:
@@ -705,20 +711,22 @@ def iterate_prepared(blocks, filt: Filter, iters: int, grid: Grid, valid_hw,
         quantize, boundary, block_hw, interior_split, fallback, overlap,
         col_mode)
     tile = None if tile is None else tuple(tile)
-    run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
-                         block_hw, backend, fuse, boundary, tile,
-                         interior_split, col_mode, overlap)
+    with tracing.span("step.build"):
+        run = _build_iterate(grid, filt, iters, quantize, tuple(valid_hw),
+                             block_hw, backend, fuse, boundary, tile,
+                             interior_split, col_mode, overlap)
     out = run(blocks)
     if obs_metrics.enabled():
         # Halo bytes, rounds and the exchange event, with NO wall and NO
         # synchronize: this entry returns before the card finishes, and a
         # fence here would serialize the caller's next work behind it.
         # The wall series come from callers that fence (bench, converge).
-        _record_step_obs(backend, grid, filt, block_hw,
-                         max(1, min(fuse, iters or 1)), iters, b0.shape[0],
-                         storage, boundary, None, valid_hw, quantize, tile,
-                         source="iterate_prepared", overlap=overlap,
-                         col_mode=col_mode)
+        with tracing.span("step.obs"):
+            _record_step_obs(backend, grid, filt, block_hw,
+                             max(1, min(fuse, iters or 1)), iters,
+                             b0.shape[0], storage, boundary, None, valid_hw,
+                             quantize, tile, source="iterate_prepared",
+                             overlap=overlap, col_mode=col_mode)
     return out
 
 
@@ -734,7 +742,8 @@ def _setup_run(x, grid, device, backend: str, storage: str, boundary: str,
     elif device is not None and grid.device != torch.device(device):
         raise ValueError(f"grid is on {grid.device}, device={device!r}")
     check_run_config(storage, boundary, quantize)
-    return (grid, *_prepare(x, grid, storage))
+    with tracing.span("step.prepare"):
+        return (grid, *_prepare(x, grid, storage))
 
 
 def sharded_iterate(x, filt: Filter, iters: int, grid: Grid | None = None,

@@ -80,6 +80,7 @@ from parallel_convolution_tpu_torch.parallel.mesh import (
 )
 from parallel_convolution_tpu_torch.resilience.faults import fault_point
 from parallel_convolution_tpu_torch.solvers.transfer import coarse_extent
+from parallel_convolution_tpu_torch.utils import tracing
 from parallel_convolution_tpu_torch.utils.config import (
     COL_MODE_CHOICES, check_backend, check_run_config,
 )
@@ -827,7 +828,8 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
     # Every level program is built once a solve, or once for every solve
     # of a configuration (the JAX package caches its compiled programs
     # per process).
-    p = _programs_for(s, filt, nu_pre, nu_post, nu_coarse, programs)
+    with tracing.span("mg.build"):
+        p = _programs_for(s, filt, nu_pre, nu_post, nu_coarse, programs)
     smooth, pre, post, resid, prolong = (p.smooth, p.pre, p.post, p.resid,
                                          p.prolong)
     pre_c, post_c, coarsest = p.pre_c, p.post_c, p.coarsest
@@ -847,6 +849,10 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
         return _fit_to(ec, nxt.valid_hw, nxt.grid, nxt.block_hw, lv.grid,
                        half, stacked, s.channels)
 
+    # Each level's work in a leg is one span (``mg.L<i>``), named here
+    # once: tracing off, a span is one branch.
+    at = [f"mg.L{i}" for i in range(last + 1)]
+
     def coarse_cycle(r):
         """Solve ``A e = r`` on levels 1 and below: the V's legs down and
         up, each level's error and residual kept for its way up.  (A loop,
@@ -855,11 +861,14 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
         masks they cache, until the garbage collector runs.)"""
         es, rs = {}, {1: r}
         for i in range(1, last):
-            es[i] = pre_c[i](_map(torch.zeros_like, rs[i]), rs[i])
-            rs[i + 1] = down(i, resid[i](es[i], rs[i]))
-        e = coarsest(_map(torch.zeros_like, rs[last]), rs[last])
+            with tracing.span(at[i]):
+                es[i] = pre_c[i](_map(torch.zeros_like, rs[i]), rs[i])
+                rs[i + 1] = down(i, resid[i](es[i], rs[i]))
+        with tracing.span(at[last]):
+            e = coarsest(_map(torch.zeros_like, rs[last]), rs[last])
         for i in range(last - 1, 0, -1):
-            e = post_c[i](prolong[i](es.pop(i), up(i, e)), rs.pop(i))
+            with tracing.span(at[i]):
+                e = post_c[i](prolong[i](es.pop(i), up(i, e)), rs.pop(i))
         return e
 
     sweeps = _level_sweeps(levels, nu_pre, nu_post, nu_coarse)
@@ -868,22 +877,31 @@ def _cycles(s: _Solve, filt: Filter, tol: float, max_iters: int, nu_pre: int,
     max_wu = float(max_iters)
     while wu < max_wu and diff >= tol:
         t0 = time.perf_counter()
-        if last == 0:
-            u, d = smooth(u)
-        else:
-            u = pre(u)
-            ec = up(0, coarse_cycle(down(0, resid[0](u))))
-            u = prolong[0](u, ec)
-            del ec
-            # Post-smooth and the residual readout in one program: the last
-            # sweep's undamped change max|S u − u| is what the stream
-            # reports and the stopping rule reads.
-            u, d = post(u)
-        diff = d.item()   # the readback fences the cycle
-        counter.readbacks += 1
-        cycles += 1
-        wu += wu_cycle
-        _mg_obs(s, sweeps, filt, time.perf_counter() - t0)
+        with tracing.span("mg.cycle"):
+            if last == 0:
+                with tracing.span(at[0]):
+                    u, d = smooth(u)
+            else:
+                with tracing.span(at[0]):
+                    u = pre(u)
+                    rc = down(0, resid[0](u))
+                ec = coarse_cycle(rc)
+                del rc
+                with tracing.span(at[0]):
+                    ec = up(0, ec)
+                    u = prolong[0](u, ec)
+                    del ec
+                    # Post-smooth and the residual readout in one program:
+                    # the last sweep's undamped change max|S u − u| is what
+                    # the stream reports and the stopping rule reads.
+                    u, d = post(u)
+            with tracing.span("mg.readback"):
+                diff = d.item()   # the readback fences the cycle
+            counter.readbacks += 1
+            cycles += 1
+            wu += wu_cycle
+            with tracing.span("mg.obs"):
+                _mg_obs(s, sweeps, filt, time.perf_counter() - t0)
         s.u = u
         yield cycles, diff, round(wu, 3)
         u, s.u = s.u, None

@@ -11,6 +11,11 @@
   (the per-kernel timeline the reference never had; the JAX package's
   ``jax.profiler.trace``).  On a card it raises rather than return a
   trace without CUDA activity (a profiler that CUPTI refused).
+* :func:`span` — a ``pctpu.<name>`` range on the profiler's clock around
+  a phase of the program (an entry's copies, the chunk loop, the set-up
+  between cards, a V-cycle level), entered only while a profiler
+  records and obs is on: otherwise one shared no-op, so the hooks can
+  sit on the hot path.  Nothing is written to the event log.
 """
 
 from __future__ import annotations
@@ -19,11 +24,52 @@ import contextlib
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from pathlib import Path
 
-__all__ = ["DeviceTrace", "PhaseTimer", "device_trace", "kernel_counts"]
+from parallel_convolution_tpu_torch.obs import metrics as obs_metrics
+
+__all__ = ["DeviceTrace", "PhaseTimer", "SPAN_PREFIX", "device_trace",
+           "kernel_counts", "span"]
+
+# Every range the program opens is named ``pctpu.<name>``: a trace's
+# reader tells the program's spans from torch's ops and its caller's.
+SPAN_PREFIX = "pctpu."
+
+
+class _NullRange:
+    """The shared no-op :func:`span` returns while nothing records
+    (stateless, so one instance serves any nesting and any thread)."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullRange":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NULL_RANGE = _NullRange()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``pctpu.<name>``
+    where obs is on (``PCTPU_OBS``) and a profiler records
+    (``torch.profiler.profile``, :func:`device_trace`); else
+    :data:`NULL_RANGE`.  The choice is made here, when the span is
+    opened: a range once entered is exited even if the profiler stopped
+    in between.  A range costs about 13 µs of host time (torch 2.13 on a
+    Xeon), the check about 0.2 µs.  ``torch`` is looked up, never
+    imported: without it no profiler can be recording."""
+    if not obs_metrics.enabled():
+        return NULL_RANGE
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return NULL_RANGE
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 def _fence(fence) -> None:

@@ -1740,6 +1740,33 @@ def test_device_trace_sees_the_kernels_at_their_launch_counts(
 
 
 @pytest.mark.cuda
+def test_spans_on_the_card_open_a_slot_run_a_job(cuda_device, tmp_path):
+    """The program's spans in a device trace of ``cuda_rdma`` jobs on 2x2
+    slots of one card: ``rdma.open`` once a job (the run's set-up between
+    slots), ``step.chunk`` once a chunk; ``rdma.close`` only over several
+    processes (one process's run has nothing to unmap)."""
+    from parallel_convolution_tpu_torch.parallel import step
+    from parallel_convolution_tpu_torch.utils import tracing
+
+    img = imageio.generate_test_image(96, 130, "rgb", seed=5)
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)))
+    grid = mesh.make_grid((2, 2), devices=["cuda:0"] * 4)
+    blocks, valid_hw, _ = step._prepare(x, grid, "u8")
+    kw = dict(quantize=True, backend="cuda_rdma", fuse=4)
+    filt = get_filter("blur3")
+    step.iterate_prepared(blocks, filt, 8, grid, valid_hw, **kw)  # warm
+    with tracing.device_trace(tmp_path) as tr:
+        for _ in range(2):
+            step.iterate_prepared(blocks, filt, 8, grid, valid_hw, **kw)
+    names = [e.get("name") for e in tr.events()
+             if e.get("cat") == "user_annotation"]
+    assert names.count("pctpu.rdma.open") == 2
+    assert names.count("pctpu.step.chunk") == 2 * 2
+    assert names.count("pctpu.step.carry_out") == 2
+    assert "pctpu.rdma.close" not in names
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("argv", [["--n", "8"], ["--converge", "--n", "8"]],
                          ids=["iterate", "converge"])
 def test_soak_rows_all_ok_on_the_card(cuda_device, capsys, argv):
